@@ -1,0 +1,76 @@
+"""The port stands alone: ``tf_operator_tpu_torch`` and every submodule
+import with JAX, flax, optax and the JAX package poisoned in
+``sys.modules``, and neither the package nor ``chip_smoke.py`` names
+them in an import. Its entry points default to the CUDA card and raise
+when there is none."""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from tf_operator_tpu_torch import resolve_device
+from tf_operator_tpu_torch.models.convert import init_params
+from tf_operator_tpu_torch.models.transformer import (
+    Transformer,
+    TransformerConfig,
+)
+from tf_operator_tpu_torch.serve.engine import ContinuousEngine
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PACKAGE = os.path.join(REPO, "tf_operator_tpu_torch")
+
+POISONED_IMPORT = """
+import importlib, pkgutil, sys
+for name in ("jax", "flax", "optax", "tf_operator_tpu"):
+    sys.modules[name] = None
+import tf_operator_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(
+    tf_operator_tpu_torch.__path__, "tf_operator_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+print(len(names))
+"""
+
+
+def test_package_imports_with_jax_and_the_reference_poisoned():
+    out = subprocess.run(
+        [sys.executable, "-c", POISONED_IMPORT], cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 9  # every module was imported
+
+
+def _sources():
+    for root, _, files in os.walk(PACKAGE):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_no_source_names_jax_or_the_reference_package():
+    banned = re.compile(
+        r"^\s*(import|from)\s+(jax|flax|optax|tf_operator_tpu)\b(?!_)"
+        r"|tf_operator_tpu\.", re.M)
+    for path in _sources():
+        with open(path) as f:
+            assert not banned.search(f.read()), path
+
+
+def test_default_device_is_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    cfg = TransformerConfig(vocab_size=16, d_model=16, n_heads=2,
+                            n_layers=1, d_ff=16, max_seq_len=16,
+                            dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Transformer(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ContinuousEngine(cfg, init_params(cfg, 0), 2, kv_block=8)
+    assert resolve_device("cpu") == torch.device("cpu")

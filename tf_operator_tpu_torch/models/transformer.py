@@ -1,0 +1,390 @@
+"""Decoder-only transformer, decode mode, in PyTorch.
+
+Counterpart of ``tf_operator_tpu/models/transformer.py`` for the serving
+path: the KV-cache decode forward over a dense per-request cache (what
+prefill fills) and over the block-paged pool (what the continuous engine
+steps). Weights keep flax's layouts (``qkv`` kernel ``[d, 3, H, Dh]``,
+``out`` kernel ``[H, Dh, d]``, ...) so ``models/convert.py`` copies a
+flax ``params`` tree in without reshaping. The training forward, int8
+decode, MoE, remat and meshes are later slices (see ``TransformerConfig``).
+
+The cache is an explicit dict of tensors, updated IN PLACE where the
+JAX model rebuilt its ``cache`` collection:
+
+- dense (prefill): ``{"layers": [{"cached_key", "cached_value"}],
+  "cache_index": int}`` with ``[b, max_seq_len, KV, Dh]`` rows;
+- paged (decode): ``{"layers": [{"pool_key", "pool_value"}],
+  "block_table": [b, table_len] int32, "cache_index": [b] int32}`` with
+  ``[kv_num_blocks, kv_block, KV, Dh]`` pools.
+
+JAX keeps one ``cache_index`` per layer plus a top-level ``pos_index``;
+every call moves them in lockstep, so the port keeps one counter.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tf_operator_tpu_torch import resolve_device
+from tf_operator_tpu_torch.ops.paged_attention import (
+    paged_attend,
+    paged_attend_reference,
+)
+
+_NEG_INF = -1e30
+
+
+@dataclass(frozen=True)
+class TransformerConfig:
+    vocab_size: int = 32000
+    d_model: int = 512
+    n_heads: int = 8
+    n_layers: int = 6
+    d_ff: int = 2048
+    max_seq_len: int = 2048
+    dtype: torch.dtype = torch.bfloat16
+    # Grouped-query attention: K/V carry this many heads (None = MHA and
+    # the fused qkv projection).
+    n_kv_heads: int | None = None
+    # Block-paged decode KV (serving): one pool of kv_num_blocks blocks of
+    # kv_block tokens per layer, addressed through per-lane block tables.
+    kv_paged: bool = False
+    kv_block: int = 64
+    kv_num_blocks: int = 0
+    # Paged read: "gather" (the reference oracle: the pool gathered back
+    # to the dense layout) or "kernel" (the hand-written CUDA kernel,
+    # ops/paged_attention.py, that reads only the blocks a lane owns).
+    kv_attend: str = "gather"
+    # Not ported yet; each names the ROADMAP.md item that brings it.
+    kv_int8: bool = False
+    int8_decode: bool = False
+    moe_every_n: int | None = None
+    mesh: Any = None
+    remat: bool = False
+
+    def __post_init__(self):
+        later = {
+            "kv_int8": "A2 (int8 weight-only decode and the int8 KV cache)",
+            "int8_decode": "A2 (int8 weight-only decode and the int8 KV "
+                           "cache)",
+            "moe_every_n": "A9 (ResNet, MNIST and MoE)",
+            "mesh": "A8 (multi-device)",
+            "remat": "A4 (the training path)",
+        }
+        for name, item in later.items():
+            if getattr(self, name):
+                raise NotImplementedError(
+                    f"TransformerConfig.{name} is not ported yet: see "
+                    f"ROADMAP.md {item}"
+                )
+        if self.n_kv_heads is not None and (
+            self.n_kv_heads <= 0 or self.n_heads % self.n_kv_heads
+        ):
+            raise ValueError(
+                f"n_kv_heads={self.n_kv_heads} must be a positive "
+                f"divisor of n_heads={self.n_heads}"
+            )
+        if self.kv_paged:
+            if self.kv_block < 1:
+                raise ValueError(f"kv_block={self.kv_block} must be >= 1")
+            if self.max_seq_len % self.kv_block:
+                raise ValueError(
+                    f"max_seq_len={self.max_seq_len} must be a multiple "
+                    f"of kv_block={self.kv_block} (block tables address "
+                    "whole blocks)"
+                )
+            if self.kv_num_blocks < 2:
+                raise ValueError(
+                    f"kv_num_blocks={self.kv_num_blocks} must be >= 2 "
+                    "(block 0 is the pinned garbage block)"
+                )
+        if self.kv_attend not in ("gather", "kernel"):
+            raise ValueError(
+                f"kv_attend={self.kv_attend!r}: expected 'gather' or "
+                "'kernel'"
+            )
+        if self.kv_attend == "kernel" and not self.kv_paged:
+            raise ValueError(
+                "kv_attend='kernel' requires kv_paged=True (the kernel "
+                "consumes the block table)"
+            )
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+    @property
+    def kv_heads(self) -> int:
+        return self.n_kv_heads or self.n_heads
+
+
+def _param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+class DenseGeneral(nn.Module):
+    """flax ``DenseGeneral`` over the trailing ``in_shape`` axes: kernel
+    ``[*in_shape, *out_shape]``, bias ``[*out_shape]``, computed in the
+    kernel's dtype (flax promotes inputs and params to ``dtype``)."""
+
+    def __init__(self, in_shape, out_shape, dtype, device):
+        super().__init__()
+        self.in_shape, self.out_shape = tuple(in_shape), tuple(out_shape)
+        self.kernel = _param(self.in_shape + self.out_shape, dtype, device)
+        self.bias = _param(self.out_shape, dtype, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead = x.shape[: x.dim() - len(self.in_shape)]
+        k, n = math.prod(self.in_shape), math.prod(self.out_shape)
+        y = (x.reshape(*lead, k).to(self.kernel.dtype)
+             @ self.kernel.reshape(k, n) + self.bias.reshape(n))
+        return y.reshape(*lead, *self.out_shape)
+
+
+class Embed(nn.Module):
+    def __init__(self, num, features, dtype, device):
+        super().__init__()
+        self.weight = _param((num, features), dtype, device)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids, self.weight)
+
+
+class RMSNorm(nn.Module):
+    """flax ``nn.RMSNorm``: f32 statistics, eps 1e-6, ``x * (rsqrt(var +
+    eps) * scale)`` in f32, cast to ``dtype``."""
+
+    eps = 1e-6
+
+    def __init__(self, features, dtype, device):
+        super().__init__()
+        self.dtype = dtype
+        self.scale = _param((features,), torch.float32, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        var = xf.square().mean(-1, keepdim=True)
+        return (xf * (torch.rsqrt(var + self.eps) * self.scale)).to(
+            self.dtype)
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: TransformerConfig, device):
+        super().__init__()
+        self.cfg = cfg
+        d, h, dh, kv = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.kv_heads
+        if cfg.n_kv_heads is not None:
+            # GQA: separate projections, K/V carry only kv_heads.
+            self.q = DenseGeneral((d,), (h, dh), cfg.dtype, device)
+            self.kv = DenseGeneral((d,), (2, kv, dh), cfg.dtype, device)
+        else:
+            self.qkv = DenseGeneral((d,), (3, h, dh), cfg.dtype, device)
+        self.out = DenseGeneral((h, dh), (d,), cfg.dtype, device)
+
+    def forward(self, x, layer: dict, cache: dict, live) -> torch.Tensor:
+        if self.cfg.n_kv_heads is not None:
+            q = self.q(x)
+            kv = self.kv(x)
+            k, v = kv[:, :, 0], kv[:, :, 1]
+        else:
+            qkv = self.qkv(x)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        if "pool_key" in layer:
+            out = self._decode_attend_paged(
+                q, k, v, layer, cache["block_table"], cache["cache_index"],
+                live,
+            )
+        else:
+            out = self._decode_attend(q, k, v, layer, cache["cache_index"])
+        return self.out(out)
+
+    def _decode_attend(self, q, k, v, layer: dict, idx: int):
+        """Block attention against the dense cache (t >= 1 tokens; a
+        multi-token call is prompt prefill, block-causal). The t new rows
+        are written at ``idx`` in place; query row i sees keys at
+        positions <= idx + i. Columns past idx + t are masked to exactly 0
+        by the softmax, so they are left out of the products."""
+        b, t, h, dh = q.shape
+        kv = k.shape[2]
+        g = h // kv
+        ck, cv = layer["cached_key"], layer["cached_value"]
+        if idx + t > ck.shape[1]:
+            raise ValueError(
+                f"cache index {idx} + {t} tokens exceeds max_seq_len "
+                f"{ck.shape[1]}"
+            )
+        ck[:, idx:idx + t] = k
+        cv[:, idx:idx + t] = v
+        n = idx + t
+        keys, vals = ck[:, :n].float(), cv[:, :n].float()
+        qg = q.reshape(b, t, kv, g, dh).float()
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg, keys) * dh ** -0.5
+        rows = torch.arange(t, device=q.device)
+        valid = (torch.arange(n, device=q.device)[None, :]
+                 <= (idx + rows)[:, None])  # [t, n]
+        s = torch.where(valid, s, _NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bkgqs,bskd->bqkgd", p, vals)
+        return out.reshape(b, t, h, dh).to(self.cfg.dtype)
+
+    def _decode_attend_paged(self, q, k, v, layer: dict, table, idx, live):
+        """Block-paged decode attention. Each lane's t new K/V rows go to
+        flat pool row ``table[pos // blk] * blk + pos % blk``, in place;
+        then the read dispatches on ``kv_attend``. Lanes at index 0 are
+        inactive and their writes are dropped: JAX routes them out of
+        range with ``mode="drop"``, which ``index_put_`` has no twin of,
+        so only the rows of ``live`` lanes are written."""
+        b, t, h, dh = q.shape
+        kv = k.shape[2]
+        pool_k, pool_v = layer["pool_key"], layer["pool_value"]
+        nb, blk = pool_k.shape[:2]
+        pos = idx.long()[:, None] + torch.arange(t, device=q.device)[None, :]
+        entry = (pos // blk).clamp(0, table.shape[1] - 1)
+        flat = table.long().gather(1, entry) * blk + pos % blk  # [b, t]
+        rows = flat[live].reshape(-1)
+        pool_k.view(nb * blk, kv, dh)[rows] = k[live].reshape(-1, kv, dh)
+        pool_v.view(nb * blk, kv, dh)[rows] = v[live].reshape(-1, kv, dh)
+        attend = (paged_attend if self.cfg.kv_attend == "kernel"
+                  else paged_attend_reference)
+        return attend(q, pool_k, pool_v, table, idx).to(self.cfg.dtype)
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: TransformerConfig, device):
+        super().__init__()
+        self.in_proj = DenseGeneral((cfg.d_model,), (cfg.d_ff,), cfg.dtype,
+                                    device)
+        self.out_proj = DenseGeneral((cfg.d_ff,), (cfg.d_model,), cfg.dtype,
+                                     device)
+
+    def forward(self, x):
+        # flax nn.gelu is the tanh form.
+        return self.out_proj(F.gelu(self.in_proj(x), approximate="tanh"))
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: TransformerConfig, device):
+        super().__init__()
+        self.norm_attn = RMSNorm(cfg.d_model, cfg.dtype, device)
+        self.attn = Attention(cfg, device)
+        self.norm_mlp = RMSNorm(cfg.d_model, cfg.dtype, device)
+        self.mlp = MLP(cfg, device)
+
+    def forward(self, x, layer: dict, cache: dict, live):
+        x = x + self.attn(self.norm_attn(x), layer, cache, live)
+        return x + self.mlp(self.norm_mlp(x))
+
+
+class Transformer(nn.Module):
+    """The decode-mode LM. ``forward(tokens, cache)`` runs t >= 1 tokens
+    per lane against ``cache`` (dense or paged, see the module
+    docstring), advances its counter in place and returns f32 logits
+    ``[b, t, vocab]`` (or the normed hidden state)."""
+
+    def __init__(self, cfg: TransformerConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        dev, dt = self.device, cfg.dtype
+        self.embed = Embed(cfg.vocab_size, cfg.d_model, dt, dev)
+        self.pos = Embed(cfg.max_seq_len, cfg.d_model, dt, dev)
+        self.blocks = nn.ModuleList(
+            Block(cfg, dev) for _ in range(cfg.n_layers))
+        self.norm = RMSNorm(cfg.d_model, dt, dev)
+        # The head runs in f32 on an f32 cast of the hidden state.
+        self.lm_head = DenseGeneral((cfg.d_model,), (cfg.vocab_size,),
+                                    torch.float32, dev)
+
+    def init_cache(self, batch: int, paged: bool | None = None) -> dict:
+        """An empty cache for ``batch`` lanes: paged (pools, tables on the
+        pinned block 0, counters 0) when ``paged`` (default
+        ``cfg.kv_paged``), else dense rows."""
+        cfg = self.cfg
+        paged = cfg.kv_paged if paged is None else paged
+        kv, dh, dev = cfg.kv_heads, cfg.head_dim, self.device
+
+        def zeros(*shape, dtype=cfg.dtype):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        if paged:
+            nb, blk = cfg.kv_num_blocks, cfg.kv_block
+            return {
+                "layers": [
+                    {"pool_key": zeros(nb, blk, kv, dh),
+                     "pool_value": zeros(nb, blk, kv, dh)}
+                    for _ in range(cfg.n_layers)
+                ],
+                "block_table": zeros(batch, cfg.max_seq_len // blk,
+                                     dtype=torch.int32),
+                "cache_index": zeros(batch, dtype=torch.int32),
+            }
+        return {
+            "layers": [
+                {"cached_key": zeros(batch, cfg.max_seq_len, kv, dh),
+                 "cached_value": zeros(batch, cfg.max_seq_len, kv, dh)}
+                for _ in range(cfg.n_layers)
+            ],
+            "cache_index": 0,
+        }
+
+    def forward(self, tokens: torch.Tensor, cache: dict,
+                return_hidden: bool = False) -> torch.Tensor:
+        b, t = tokens.shape
+        steps = torch.arange(t, device=tokens.device)
+        idx = cache["cache_index"]
+        live = None
+        if "block_table" in cache:
+            # Per-lane counters; lanes at 0 are inactive. One host sync per
+            # call finds the live lanes for every layer's write.
+            positions = idx.long()[:, None] + steps[None, :]
+            live = torch.nonzero(idx > 0).squeeze(1)
+        else:
+            positions = (idx + steps)[None, :].expand(b, t)
+        x = self.embed(tokens) + self.pos(positions)
+        for block, layer in zip(self.blocks, cache["layers"]):
+            x = block(x, layer, cache, live)
+        if live is not None:
+            idx.add_(t)
+        else:
+            cache["cache_index"] = idx + t
+        x = self.norm(x)
+        return x if return_hidden else _head_logits(self, x)
+
+
+def set_cache_index(cache: dict, value) -> dict:
+    """Set the cache's position counter to ``value`` (in place; returns
+    the cache). K/V rows are untouched: attention masks positions past
+    the counter, so rewriting it is the rollback."""
+    if "block_table" in cache:
+        cache["cache_index"].fill_(int(value))
+    else:
+        cache["cache_index"] = int(value)
+    return cache
+
+
+def _head_logits(model: Transformer, h: torch.Tensor) -> torch.Tensor:
+    """lm_head projection of normed hidden rows ``[..., d]`` -> f32
+    ``[..., vocab]``, on an f32 cast (the head runs in f32)."""
+    return model.lm_head(h.float())
+
+
+def _prefill(model: Transformer, prompt: torch.Tensor):
+    """Prompt prefill in one block-causal forward over a fresh dense cache
+    -> (cache, logits of the last position)."""
+    cache = model.init_cache(prompt.shape[0], paged=False)
+    hidden = model(prompt, cache, return_hidden=True)
+    return cache, _head_logits(model, hidden[:, -1])
+
+
+def _prefill_extend(model: Transformer, cache: dict, suffix: torch.Tensor):
+    """Suffix prefill on a seeded dense cache (rows [0:base) hold a shared
+    prefix, the counter sits at base) -> (cache, last-position logits)."""
+    hidden = model(suffix, cache, return_hidden=True)
+    return cache, _head_logits(model, hidden[:, -1])

@@ -1,0 +1,178 @@
+"""Paged decode attention straight off the block table (PyTorch/CUDA).
+
+Counterpart of ``tf_operator_tpu/ops/paged_attention.py``, with its
+signature and layout: q ``[b, t, H, Dh]``, pools ``[nb, blk, KV, Dh]``,
+block table ``[b, table_len]`` int32 and ``index`` ``[b]`` int32
+pre-update counters (query row i of lane b sits at absolute position
+``index[b] + i``). The result is f32 ``[b, t, H, Dh]``; the caller
+applies the storage-dtype cast, as the gather path does.
+
+- ``paged_attend_reference`` is the plain PyTorch version: the gather
+  oracle of ``_decode_attend_paged`` (gather the pool back to the dense
+  ``[b, S, KV, Dh]`` layout, f32 scores, ``-1e30`` mask, softmax, P.V).
+  The model's ``kv_attend="gather"`` mode runs it.
+- ``paged_attend`` runs the plain version for a tensor on the CPU. For a
+  CUDA tensor it launches the hand-written kernel
+  (``csrc/paged_attention.cu``, which says what bounds it and how it is
+  built) or raises: there is no quiet fallback.
+- ``paged_attend_supported`` is the kernel's own geometry rule. The JAX
+  module's 12 MiB VMEM gate is a TPU fact and does not carry over.
+- ``launches`` counts kernel launches, and nothing else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from tf_operator_tpu_torch.ops import _build
+
+_NEG_INF = -1e30
+
+# The kernel's geometry: one template instance per head dim, and the
+# t * g query rows of one KV head held in one CTA.
+HEAD_DIMS = (16, 32, 64, 128)
+MAX_ROWS = 32
+DTYPES = (torch.float32, torch.bfloat16)
+# Tokens one CTA walks before its partial is merged with the others
+# (flash-decoding split): one 128-token block at the slice's shapes.
+# A lane's table is cut into at most MAX_SPLITS splits (the merge keeps
+# one weight per split and query row in shared memory).
+TOKENS_PER_SPLIT = 128
+MAX_SPLITS = 256
+
+# Kernel launches since the last reset (set it to 0 to reset).
+launches = 0
+
+_lib: ctypes.CDLL | None = None
+
+
+def paged_attend_supported(t: int, n_heads: int, kv_heads: int,
+                           head_dim: int, dtype: torch.dtype) -> bool:
+    """True when the CUDA kernel takes this geometry: f32 or bf16, a head
+    dim it is built for, and at most ``MAX_ROWS`` query rows (t times
+    the group size) per KV head."""
+    if t < 1 or kv_heads < 1 or n_heads % kv_heads:
+        return False
+    return (dtype in DTYPES and head_dim in HEAD_DIMS
+            and t * (n_heads // kv_heads) <= MAX_ROWS)
+
+
+def blocks_per_split(blk: int, table_len: int) -> int:
+    """Table entries one CTA walks: ``TOKENS_PER_SPLIT`` tokens' worth,
+    at least one, and enough that no lane has more than ``MAX_SPLITS``
+    splits."""
+    return max(1, TOKENS_PER_SPLIT // blk, -(-table_len // MAX_SPLITS))
+
+
+def paged_attend_reference(q: torch.Tensor, pool_k: torch.Tensor,
+                           pool_v: torch.Tensor, block_table: torch.Tensor,
+                           index: torch.Tensor) -> torch.Tensor:
+    """The gather oracle: ``pool[table]`` back to ``[b, S, KV, Dh]``, the
+    grouped einsums in f32 (an upcast of bf16 operands is exact, so this
+    is JAX's bf16 dot with f32 accumulation), scale before the mask,
+    masked columns at -1e30, softmax over the full S."""
+    b, t, h, dh = q.shape
+    _, blk, kv, _ = pool_k.shape
+    g = h // kv
+    s_len = block_table.shape[1] * blk
+    table = block_table.long()
+    keys = pool_k[table].reshape(b, s_len, kv, dh).float()
+    vals = pool_v[table].reshape(b, s_len, kv, dh).float()
+    qg = q.reshape(b, t, kv, g, dh).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, keys) * dh ** -0.5
+    pos = (index.long()[:, None]
+           + torch.arange(t, device=q.device)[None, :])  # [b, t]
+    valid = (torch.arange(s_len, device=q.device)[None, None, :]
+             <= pos[:, :, None])  # [b, t, S]
+    s = torch.where(valid[:, None, None], s, _NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, vals)
+    return out.reshape(b, t, h, dh)
+
+
+def paged_attend(q: torch.Tensor, pool_k: torch.Tensor,
+                 pool_v: torch.Tensor, block_table: torch.Tensor,
+                 index: torch.Tensor) -> torch.Tensor:
+    """Paged decode attention: the plain version on the CPU, the CUDA
+    kernel on the card. Raises ``ValueError`` on shapes the attention
+    does not define and, on the card, on a geometry the kernel does not
+    take (``paged_attend_supported``)."""
+    t, h = q.shape[1], q.shape[2]
+    kv = pool_k.shape[2]
+    if t < 1:
+        raise ValueError(f"t={t}: need at least one query row per lane")
+    if h % kv:
+        raise ValueError(f"n_heads={h} must be a multiple of KV={kv}")
+    if q.device.type == "cpu":
+        return paged_attend_reference(q, pool_k, pool_v, block_table, index)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attend: no kernel for device {q.device}")
+    return _launch(q, pool_k, pool_v, block_table, index)
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = _build.load("paged_attention")
+        fn = lib.paged_attend_launch
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _launch(q, pool_k, pool_v, table, index) -> torch.Tensor:
+    global launches
+    b, t, h, dh = q.shape
+    _, blk, kv, _ = pool_k.shape
+    if not paged_attend_supported(t, h, kv, dh, q.dtype):
+        raise ValueError(
+            f"paged_attend kernel: t={t} H={h} KV={kv} Dh={dh} "
+            f"{q.dtype} is outside its geometry (dtype in {DTYPES}, Dh in "
+            f"{HEAD_DIMS}, t*H/KV <= {MAX_ROWS})"
+        )
+    if pool_k.dtype != q.dtype or pool_v.dtype != q.dtype:
+        raise ValueError("paged_attend kernel: q and pools need one dtype")
+    if pool_v.shape != pool_k.shape:
+        raise ValueError("paged_attend kernel: key and value pools differ")
+    if table.dtype != torch.int32 or index.dtype != torch.int32:
+        raise ValueError("paged_attend kernel: table and index are int32")
+    if table.shape[0] != b or index.shape != (b,):
+        raise ValueError("paged_attend kernel: table/index lanes != q lanes")
+    args = (q, pool_k, pool_v, table, index)
+    for x in args:
+        if x.device != q.device:
+            raise ValueError("paged_attend kernel: inputs on two devices")
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(
+                "paged_attend kernel: inputs must be contiguous and "
+                "16-byte aligned"
+            )
+    g = h // kv
+    table_len = table.shape[1]
+    bps = blocks_per_split(blk, table_len)
+    nsplit = -(-table_len // bps)
+    rows = t * g
+    f32 = dict(dtype=torch.float32, device=q.device)
+    out = torch.empty((b, t, h, dh), **f32)
+    m_part = torch.empty((b, kv, nsplit, rows), **f32)
+    l_part = torch.empty((b, kv, nsplit, rows), **f32)
+    acc_part = torch.empty((b, kv, nsplit, rows, dh), **f32)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _library().paged_attend_launch(
+            *(x.data_ptr() for x in args),
+            m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
+            out.data_ptr(),
+            b, t, g, kv, dh, blk, table_len, bps, nsplit,
+            int(q.dtype == torch.bfloat16), stream,
+        )
+    if err:
+        raise RuntimeError(
+            f"paged_attend kernel launch failed: CUDA error {err}"
+        )
+    launches += 1
+    return out

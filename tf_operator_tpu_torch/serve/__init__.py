@@ -1,0 +1,1 @@
+"""serve of the PyTorch/CUDA port (see the package docstring)."""

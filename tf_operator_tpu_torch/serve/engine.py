@@ -1,0 +1,355 @@
+"""Continuous-batching decode engine over the block-paged KV pool, in
+PyTorch.
+
+Counterpart of ``tf_operator_tpu/serve/engine.py::ContinuousEngine`` in
+its plain paged mode. Requests join whenever a slot and enough blocks
+are free, every step advances all active slots by one token in ONE
+batched forward of the paged model, and slots retire one by one. KV
+lives in per-layer pools of ``kv_block``-token blocks; each slot owns a
+block table sized to its actual length (prompt + decode horizon).
+
+- Prefill is a solo dense concern: each joining request prefills alone
+  over a dense cache and its prompt rows are scattered into its blocks.
+- Prefix sharing: a prompt that extends a registered block-aligned
+  prefix maps those entries to the donor's blocks (refcounts bumped)
+  and prefills only its suffix; an exact whole-prompt match reuses the
+  donor's last-position logits and skips prefill. An exact match that
+  ends mid-block shares a block the sharer will write: the engine
+  copies it to a private block (copy-on-write) before that step.
+- Admission is planned: ``plan_admission`` reserves the slot's blocks,
+  so the prefill and join that follow cannot fail on capacity;
+  ``release_plan`` undoes it.
+- Token order follows the JAX engine: the first generated token is
+  sampled at the next ``step`` from the logits the prefill carried, and
+  each step samples from the previous forward's logits, then runs the
+  forward.
+
+Greedy decoding only for now (argmax takes the first maximum, as in JAX).
+Sampling waits for the port of JAX's threefry sampler (ROADMAP.md A3);
+metrics, tracing, fault injection, speculative and constrained decoding,
+disaggregation, the host tier and meshes are later slices.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+
+import numpy as np
+import torch
+
+from tf_operator_tpu_torch.models.convert import load_params
+from tf_operator_tpu_torch.models.transformer import (
+    Transformer,
+    TransformerConfig,
+    _prefill,
+    _prefill_extend,
+    set_cache_index,
+)
+from tf_operator_tpu_torch.serve.kvcache import (
+    BlockAllocator,
+    PrefixCache,
+    SlotAllocator,
+    cow_copy,
+    gather_solo,
+    mask_inactive_indices,
+    paged_cache_template,
+    paged_insert,
+    table_insert,
+)
+
+
+@dataclass
+class AdmissionPlan:
+    """One reserved admission: shared prefix refcounts bumped and private
+    blocks allocated at plan time, so the join cannot fail on capacity."""
+
+    tokens: np.ndarray            # [1, L] int32 prompt
+    prompt_len: int
+    num_steps: int
+    shared_tokens: int = 0        # prefix tokens reused from the cache
+    shared_blocks: tuple = ()     # donor blocks we hold a ref on
+    private_blocks: tuple = ()    # freshly-allocated blocks (CoW dst incl.)
+    read_table: np.ndarray | None = None   # [table_len] int32
+    write_table: np.ndarray | None = None  # shared/unused entries -> 0
+    cow: tuple | None = None      # (table_entry, dst_block)
+    logits: np.ndarray | None = None  # exact-match stored sampling row
+    settled: bool = False         # consumed by a join OR released
+
+    @property
+    def prefill_tokens(self) -> int:
+        """Prompt tokens this admission still has to prefill."""
+        return self.prompt_len - self.shared_tokens
+
+
+class ContinuousEngine:
+    """The continuous-batching engine (see the module docstring). Public
+    surface: ``plan_admission``/``join_planned`` (and ``join``),
+    ``step``, ``retire``, ``release_plan``, ``kv_debug``.
+
+    ``params`` is a flax-layout tree (``models/convert.py``), cast to
+    ``cfg.dtype``. ``kv_attend`` picks the paged read: ``"gather"`` (the
+    plain oracle) or ``"kernel"`` (the CUDA kernel on the card, the plain
+    version on the CPU). ``device`` defaults to the CUDA card."""
+
+    def __init__(self, cfg: TransformerConfig, params, max_slots: int, *,
+                 kv_block: int = 64, kv_blocks: int | None = None,
+                 kv_attend: str = "gather", device=None) -> None:
+        self.max_slots = int(max_slots)
+        self.kv_block = int(kv_block)
+        self.kv_attend = kv_attend
+        self.table_len = cfg.max_seq_len // self.kv_block
+        if kv_blocks is None:
+            # Every slot at max length, plus the pinned garbage block.
+            kv_blocks = self.max_slots * self.table_len + 1
+        self.kv_blocks = int(kv_blocks)
+        # The config validates kv_attend and the block geometry.
+        self.cfg = replace(cfg, kv_paged=True, kv_block=self.kv_block,
+                           kv_num_blocks=self.kv_blocks, kv_attend=kv_attend)
+        # One module serves both layouts: prefill runs it over a dense
+        # cache, the step over the paged one.
+        self._model = load_params(Transformer(self.cfg, device), params)
+        self.device = self._model.device
+        self.alloc = SlotAllocator(self.max_slots)
+        self.blocks = BlockAllocator(self.kv_blocks)
+        self.prefix = PrefixCache(self.kv_block)
+        self._cache = paged_cache_template(self._model, self.max_slots)
+        self._logits = torch.zeros((self.max_slots, cfg.vocab_size),
+                                   dtype=torch.float32, device=self.device)
+        self._active = np.zeros(self.max_slots, bool)
+        # slot -> {"private": [...], "shared": [...],
+        #          "cow": (entry, src, dst) | None}
+        self._slot_state: dict[int, dict] = {}
+        self.cow_copies = 0
+        self.prefill_tokens_saved = 0
+        self.steps_total = 0
+
+    # -- admission planning ----------------------------------------------
+
+    def validate_request(self, prompt_len: int, num_steps: int) -> None:
+        """The solo generation budget plus the whole-pool block budget (a
+        request that could never fit must not queue forever)."""
+        if num_steps < 1:
+            raise ValueError(f"num_steps={num_steps} must be >= 1")
+        if prompt_len < 1:
+            raise ValueError("prompt must have at least one token")
+        if prompt_len + num_steps > self.cfg.max_seq_len:
+            raise ValueError(
+                f"prompt {prompt_len} + steps {num_steps} exceeds "
+                f"max_seq_len {self.cfg.max_seq_len}"
+            )
+        cap = self._block_cap(prompt_len, num_steps)
+        if cap > self.kv_blocks - 1:
+            raise ValueError(
+                f"prompt {prompt_len} + steps {num_steps} needs {cap} KV "
+                f"blocks of {self.kv_block}; the pool has only "
+                f"{self.kv_blocks - 1} allocatable"
+            )
+
+    def _block_cap(self, prompt_len: int, num_steps: int) -> int:
+        """Table entries one admission reserves: prompt + decode horizon."""
+        return -(-(prompt_len + num_steps) // self.kv_block)
+
+    def plan_admission(self, tokens, num_steps: int) -> AdmissionPlan | None:
+        """Reserve a slot's worth of blocks for one request, or None (the
+        caller queues): a free slot AND enough free blocks after the
+        shared-prefix credit. A shared partial last block reserves one
+        extra private block for its copy-on-write."""
+        tokens = np.asarray(tokens, np.int32)
+        n_prompt, n_steps = int(tokens.shape[1]), int(num_steps)
+        self.validate_request(n_prompt, n_steps)
+        if self.alloc.free == 0:
+            return None
+        blk = self.kv_block
+        cap = self._block_cap(n_prompt, n_steps)
+        n, shared, logits = self.prefix.lookup(tokens[0])
+        shared_entries = -(-n // blk)
+        cow_needed = n == n_prompt and n % blk != 0
+        need = cap - shared_entries + (1 if cow_needed else 0)
+        priv = self.blocks.alloc(need)
+        if priv is None:
+            return None  # block exhaustion: the caller queues
+        if n:
+            self.blocks.ref(shared)
+        cow = None
+        tail = list(priv)
+        if cow_needed:
+            # The CoW destination, reserved now so the copy cannot fail.
+            cow = (shared_entries - 1, tail.pop())
+        read = np.zeros(self.table_len, np.int32)
+        write = np.zeros(self.table_len, np.int32)
+        read[:shared_entries] = shared
+        read[shared_entries:cap] = tail
+        write[shared_entries:cap] = tail
+        return AdmissionPlan(
+            tokens, n_prompt, n_steps, shared_tokens=n,
+            shared_blocks=tuple(shared), private_blocks=tuple(priv),
+            read_table=read, write_table=write, cow=cow, logits=logits,
+        )
+
+    def release_plan(self, plan: AdmissionPlan | None) -> None:
+        """Undo a plan's reservations. Idempotent; a no-op for a plan a
+        join consumed (its blocks belong to the slot then)."""
+        if plan is None or plan.settled:
+            return
+        plan.settled = True
+        self._free_blocks(
+            list(plan.private_blocks) + list(plan.shared_blocks))
+
+    def _free_blocks(self, blks) -> None:
+        """The one block release path: drop refcounts, and invalidate the
+        prefix entries whose last holder just left."""
+        freed = self.blocks.free(list(blks))
+        if freed:
+            self.prefix.invalidate_blocks(freed)
+
+    def _seed_cache(self, plan: AdmissionPlan) -> dict:
+        """A solo dense cache seeded with the plan's shared prefix rows,
+        its counter at the shared length: the suffix prefill's start."""
+        cache = gather_solo(self._cache, plan.read_table)
+        return set_cache_index(cache, plan.shared_tokens)
+
+    # -- joins --------------------------------------------------------------
+
+    def join(self, prompt, *, num_steps: int,
+             temperature: float = 0.0) -> int | None:
+        """Plan, prefill and join in one call: the slot index, or None
+        when slots or blocks are short."""
+        self._check_greedy(temperature)
+        plan = self.plan_admission(prompt, num_steps)
+        if plan is None:
+            return None
+        return self.join_planned(plan, temperature=temperature)
+
+    @staticmethod
+    def _check_greedy(temperature: float) -> None:
+        if temperature > 0:
+            raise NotImplementedError(
+                "sampled decoding (temperature > 0) waits for the port "
+                "of JAX's threefry sampler: see ROADMAP.md A3"
+            )
+
+    def join_planned(self, plan: AdmissionPlan, *,
+                     temperature: float = 0.0) -> int | None:
+        """Complete a planned admission: run whatever prefill the plan
+        still needs, insert into a free slot, and register the prompt's
+        blocks for later sharers. On an error the plan is released."""
+        try:
+            self._check_greedy(temperature)
+            with torch.no_grad():
+                if plan.prefill_tokens == 0:
+                    cache = None
+                    logits = torch.as_tensor(plan.logits, device=self.device)
+                elif plan.shared_tokens:
+                    suffix = plan.tokens[:, plan.shared_tokens:]
+                    cache, logits = _prefill_extend(
+                        self._model, self._seed_cache(plan),
+                        torch.as_tensor(suffix, device=self.device),
+                    )
+                else:
+                    cache, logits = _prefill(
+                        self._model,
+                        torch.as_tensor(plan.tokens, device=self.device),
+                    )
+        except Exception:
+            self.release_plan(plan)
+            raise
+        return self._join_paged(plan, cache, logits)
+
+    def _join_paged(self, plan: AdmissionPlan, cache: dict | None,
+                    logits: torch.Tensor) -> int | None:
+        slot = self.alloc.acquire()
+        if slot is None:  # the single-caller contract makes this unreachable
+            self.release_plan(plan)
+            return None
+        if cache is None:
+            # Exact prefix match: every prompt row already lives in shared
+            # blocks, so only the table row and the counter change.
+            table_insert(self._cache, slot, plan.read_table, plan.prompt_len)
+        else:
+            paged_insert(self._cache, slot, plan.write_table,
+                         plan.read_table, cache, self.kv_block)
+        row = logits.reshape(-1).float()
+        self._logits[slot] = row
+        self._active[slot] = True
+        plan.settled = True  # the blocks now belong to the slot
+        cow = None
+        if plan.cow is not None:
+            entry, dst = plan.cow
+            cow = (entry, int(plan.read_table[entry]), dst)
+        self._slot_state[slot] = {
+            "private": list(plan.private_blocks),
+            "shared": list(plan.shared_blocks),
+            "cow": cow,
+        }
+        # Prompt rows only: generated tokens never enter the registry. The
+        # stored row lets an exact re-admission skip prefill.
+        prompt_blocks = plan.read_table[: -(-plan.prompt_len // self.kv_block)]
+        self.prefix.register(plan.tokens[0], prompt_blocks,
+                             row.cpu().numpy())
+        self.prefill_tokens_saved += plan.shared_tokens
+        return slot
+
+    # -- decode -------------------------------------------------------------
+
+    def _run_pending_cows(self) -> None:
+        """Copy-on-write for every active slot about to take its first
+        decode write into a shared partial block, before that step."""
+        for slot, st in self._slot_state.items():
+            if st["cow"] is None or not self._active[slot]:
+                continue
+            entry, src, dst = st["cow"]
+            cow_copy(self._cache, slot, entry, src, dst)
+            st["cow"] = None
+            st["shared"].remove(src)
+            self._free_blocks([src])
+            self.cow_copies += 1
+
+    def step(self) -> np.ndarray:
+        """One decode iteration over ALL slots: every active slot advances
+        one token. Returns the ``[max_slots]`` int32 tokens (inactive
+        rows are dead compute: ignore them)."""
+        self._run_pending_cows()
+        with torch.no_grad():
+            active = torch.as_tensor(self._active, device=self.device)
+            mask_inactive_indices(self._cache, active)
+            toks = self._logits.argmax(-1).to(torch.int32)
+            self._logits = self._model(toks[:, None], self._cache)[:, 0]
+        self.steps_total += 1
+        return toks.cpu().numpy()
+
+    def retire(self, slot: int) -> None:
+        """Release a slot: its private blocks return to the pool, shared
+        refcounts drop, and prefix entries whose last holder this was are
+        invalidated. The lane's stale rows are masked, never cleared."""
+        self._active[slot] = False
+        st = self._slot_state.pop(slot, None)
+        if st is not None:
+            self._free_blocks(st["private"] + st["shared"])
+        self.alloc.release(slot)
+
+    # -- observability ------------------------------------------------------
+
+    def kv_debug(self) -> dict:
+        """Block-pool stats, named as the JAX engine names them."""
+        return {
+            "mode": "paged",
+            "block": self.kv_block,
+            "table_len": self.table_len,
+            "blocks_total": self.kv_blocks,
+            "blocks_free": self.blocks.free_blocks,
+            "blocks_used": self.blocks.used,
+            "blocks_shared": self.blocks.shared,
+            "blocks_high_water": self.blocks.high_water,
+            "cow_copies": self.cow_copies,
+            "prefix_entries": self.prefix.entries,
+            "prefix_hits": self.prefix.hits,
+            "prefill_tokens_saved": self.prefill_tokens_saved,
+        }
+
+    @property
+    def active_slots(self) -> int:
+        return self.alloc.in_use
+
+    @property
+    def occupancy(self) -> float:
+        return self.alloc.in_use / self.max_slots

@@ -1,0 +1,349 @@
+"""Paged KV-cache storage for continuous batching, in PyTorch.
+
+Counterpart of ``tf_operator_tpu/serve/kvcache.py`` for the block-paged
+pool (the dense slot tensor, the shipped-KV ingest and sharding are later
+slices). Per layer, one pool of ``[kv_num_blocks, kv_block, KV, Dh]``
+token blocks; each slot carries a ``[max_seq_len // kv_block]`` int32
+block table and a position counter (``models/transformer.py`` describes
+the cache dict). Block 0 is the pinned garbage block that unused table
+entries point at: never allocated, always masked.
+
+The device functions below update the cache IN PLACE. The JAX module
+builds each as a jitted, donated executable that returns a new tree, so
+one executable serves every join; eager PyTorch needs neither.
+
+``SlotAllocator``, ``BlockAllocator`` and ``PrefixCache`` are this
+package's own copies of the JAX module's host classes (that module
+imports JAX), trimmed to one data-parallel shard.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import heapq
+import threading
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+
+def paged_cache_template(model, max_slots: int) -> dict:
+    """The paged engine's whole cache: per-layer pools, per-lane block
+    tables (all entries on block 0) and per-lane counters."""
+    return model.init_cache(max_slots, paged=True)
+
+
+def mask_inactive_indices(cache: dict, active: torch.Tensor) -> dict:
+    """Zero the counters of inactive slots (``active`` is ``[N]`` bool),
+    in place. Inactive slots still run the fixed-shape step; at index 0
+    their K/V writes are dropped, so a retired lane's stale table can
+    never write into a block that went to another lane."""
+    cache["cache_index"].mul_(active.to(cache["cache_index"].dtype))
+    return cache
+
+
+def paged_insert(cache: dict, slot: int, write_table: np.ndarray,
+                 read_table: np.ndarray, solo: dict, block: int) -> dict:
+    """Land a finished solo prefill in the pool: the prompt rows of the
+    dense ``solo`` cache whose ``write_table`` entry is a real block go to
+    that block (entries 0 mark shared-prefix rows, already resident in
+    the donor's blocks); the slot's table row becomes ``read_table`` and
+    its counter the solo counter. The JAX insert scatters all
+    max_seq_len rows and dumps the unwanted ones into block 0 so that one
+    executable serves every join; here only the rows that matter move."""
+    n = int(solo["cache_index"])
+    pos = np.arange(n)
+    blocks = np.asarray(write_table)[pos // block]
+    keep = blocks != 0
+    dev = cache["block_table"].device
+    flat = torch.as_tensor(blocks[keep] * block + pos[keep] % block,
+                           device=dev)
+    src = torch.as_tensor(pos[keep], device=dev)
+    for lp, ls in zip(cache["layers"], solo["layers"]):
+        for pool, rows in ((lp["pool_key"], ls["cached_key"]),
+                           (lp["pool_value"], ls["cached_value"])):
+            nb, blk, kv, dh = pool.shape
+            pool.view(nb * blk, kv, dh)[flat] = rows[0, src]
+    return table_insert(cache, slot, read_table, n)
+
+
+def table_insert(cache: dict, slot: int, read_table: np.ndarray,
+                 index: int) -> dict:
+    """Set only the slot's table row and counter: the exact-prefix join,
+    where every prompt row already lives in shared blocks."""
+    cache["block_table"][slot] = torch.as_tensor(
+        np.asarray(read_table, np.int32), device=cache["block_table"].device)
+    cache["cache_index"][slot] = int(index)
+    return cache
+
+
+def gather_solo(cache: dict, table: np.ndarray) -> dict:
+    """A solo dense cache whose K/V rows are ``table``'s blocks in order,
+    counter 0: the seed of a shared-prefix suffix prefill. Rows past the
+    shared prefix are whatever those blocks hold; the suffix prefill
+    overwrites them before it reads them."""
+    idx = torch.as_tensor(np.asarray(table, np.int64),
+                          device=cache["block_table"].device)
+    layers = []
+    for lp in cache["layers"]:
+        row = {}
+        for pname, dname in (("pool_key", "cached_key"),
+                             ("pool_value", "cached_value")):
+            pool = lp[pname]
+            row[dname] = pool[idx].reshape(1, -1, *pool.shape[2:])
+        layers.append(row)
+    return {"layers": layers, "cache_index": 0}
+
+
+def cow_copy(cache: dict, slot: int, entry: int, src: int, dst: int) -> dict:
+    """Copy-on-write: every layer's pool block ``src`` copied into
+    ``dst`` and the slot's table entry switched to ``dst``."""
+    for lp in cache["layers"]:
+        lp["pool_key"][dst] = lp["pool_key"][src]
+        lp["pool_value"][dst] = lp["pool_value"][src]
+    cache["block_table"][slot, entry] = int(dst)
+    return cache
+
+
+class SlotAllocator:
+    """Free-slot bookkeeping (host-side, thread-safe): lowest free index
+    first, from a heap, with a high-water mark and an acquire count."""
+
+    def __init__(self, max_slots: int) -> None:
+        if max_slots < 1:
+            raise ValueError(f"max_slots={max_slots} must be >= 1")
+        self.max_slots = max_slots
+        self._heap = list(range(max_slots))
+        self._free_set = set(self._heap)
+        self._lock = threading.Lock()
+        self.acquired_total = 0
+        self.high_water = 0
+
+    def acquire(self) -> int | None:
+        """Lowest free slot index, or None when all are taken."""
+        with self._lock:
+            if not self._heap:
+                return None
+            slot = heapq.heappop(self._heap)
+            self._free_set.discard(slot)
+            self.acquired_total += 1
+            self.high_water = max(self.high_water, self.in_use)
+            return slot
+
+    def release(self, slot: int) -> None:
+        with self._lock:
+            if not 0 <= slot < self.max_slots:
+                raise ValueError(f"slot {slot} out of range")
+            if slot in self._free_set:
+                raise ValueError(f"slot {slot} double-released")
+            heapq.heappush(self._heap, slot)
+            self._free_set.add(slot)
+
+    @property
+    def in_use(self) -> int:
+        return self.max_slots - len(self._free_set)
+
+    @property
+    def free(self) -> int:
+        return len(self._free_set)
+
+
+class BlockAllocator:
+    """Refcounted allocator for the block pool (host-side, thread-safe).
+    Blocks below ``reserved`` (the garbage block 0) are never handed
+    out; lowest free index first. A shared block carries one reference
+    per holder; ``free`` returns the blocks whose last holder left."""
+
+    def __init__(self, num_blocks: int, reserved: int = 1) -> None:
+        if num_blocks <= reserved:
+            raise ValueError(
+                f"num_blocks={num_blocks} must exceed the {reserved} "
+                "reserved block(s)"
+            )
+        self.num_blocks = num_blocks
+        self.reserved = reserved
+        self._heap = list(range(reserved, num_blocks))
+        self._free_set = set(self._heap)
+        self._refs: dict[int, int] = {}
+        self._lock = threading.Lock()
+        self.high_water = 0
+
+    def alloc(self, k: int) -> list[int] | None:
+        """The k lowest free blocks at refcount 1, or None when fewer
+        than k are free (all or nothing)."""
+        with self._lock:
+            if k > len(self._heap):
+                return None
+            out = [heapq.heappop(self._heap) for _ in range(k)]
+            for blk in out:
+                self._free_set.discard(blk)
+                self._refs[blk] = 1
+            self.high_water = max(self.high_water, self.used)
+            return out
+
+    def ref(self, blocks) -> None:
+        """Bump the refcounts of live blocks (prefix sharing)."""
+        with self._lock:
+            for blk in blocks:
+                if blk not in self._refs:
+                    raise ValueError(f"block {blk} is not live")
+                self._refs[blk] += 1
+
+    def free(self, blocks) -> list[int]:
+        """Drop one reference each; returns the blocks that hit zero."""
+        freed: list[int] = []
+        with self._lock:
+            for blk in blocks:
+                rc = self._refs.get(blk)
+                if rc is None:
+                    raise ValueError(f"block {blk} double-freed")
+                if rc > 1:
+                    self._refs[blk] = rc - 1
+                    continue
+                del self._refs[blk]
+                heapq.heappush(self._heap, blk)
+                self._free_set.add(blk)
+                freed.append(blk)
+        return freed
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free_set)
+
+    @property
+    def used(self) -> int:
+        return self.num_blocks - self.reserved - len(self._free_set)
+
+    @property
+    def shared(self) -> int:
+        """Blocks currently referenced by more than one holder."""
+        with self._lock:
+            return sum(1 for rc in self._refs.values() if rc >= 2)
+
+
+@dataclass
+class _PrefixEntry:
+    tokens: np.ndarray         # the prefix itself (collision guard)
+    n: int                     # prefix length in tokens
+    blocks: tuple[int, ...]    # physical blocks holding rows [0:n)
+    logits: np.ndarray | None  # last-position logits (exact entries)
+
+
+class PrefixCache:
+    """Block-aligned prefix registry for copy-on-write prefix sharing.
+
+    Keys are chained per-block SHA-1 digests (``D_k = sha1(D_{k-1} +
+    block_k)``, the exact partial tail chained once more), so registering
+    or probing every aligned prefix of a prompt hashes each token once. A
+    digest hit compares the stored tokens, so a collision is a miss. An
+    admitted prompt registers every full-block prefix plus the exact
+    prompt with its last-position logits, so an identical prompt skips
+    prefill. Entries reference live blocks only: ``invalidate_blocks``
+    drops every entry touching a block whose last holder released it."""
+
+    _SEED = hashlib.sha1(b"tpu-kv-prefix").digest()
+
+    def __init__(self, block: int) -> None:
+        self.block = block
+        self._entries: dict[bytes, _PrefixEntry] = {}
+        self._by_block: dict[int, set[bytes]] = {}
+        self._lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
+
+    def _chain_keys(self, tokens: np.ndarray) -> list[tuple[int, bytes]]:
+        """[(n_tokens, digest)] for every full-block prefix plus the exact
+        length, longest first."""
+        n_tok, blk = len(tokens), self.block
+        digest = self._SEED
+        keys: list[tuple[int, bytes]] = []
+        for k in range(n_tok // blk):
+            digest = hashlib.sha1(
+                digest + tokens[k * blk:(k + 1) * blk].tobytes()
+            ).digest()
+            keys.append(((k + 1) * blk, digest))
+        if n_tok % blk:
+            keys.append((n_tok, hashlib.sha1(
+                digest + tokens[(n_tok // blk) * blk:].tobytes()
+            ).digest()))
+        keys.reverse()
+        return keys
+
+    def lookup(self, tokens: np.ndarray):
+        """Longest usable prefix of ``tokens``: the exact prompt first
+        (it may end mid-block, which is what makes copy-on-write
+        reachable), else the longest registered full-block prefix.
+        Returns (n_tokens, blocks, logits | None); logits only on an
+        exact whole-prompt match. A full-length match without logits
+        (registered as a longer prompt's prefix) is skipped: it would
+        leave nothing to prefill and nothing to sample from."""
+        tokens = np.ascontiguousarray(
+            np.asarray(tokens, np.int32).reshape(-1))
+        n_tok = len(tokens)
+        with self._lock:
+            for n, key in self._chain_keys(tokens):
+                e = self._entries.get(key)
+                if (e is None or e.n != n
+                        or not np.array_equal(e.tokens, tokens[:n])):
+                    continue
+                if n == n_tok and e.logits is None:
+                    continue
+                self.hits += 1
+                self._entries[key] = self._entries.pop(key)  # LRU refresh
+                return n, tuple(e.blocks), (
+                    e.logits if n == n_tok else None)
+            self.misses += 1
+        return 0, (), None
+
+    def register(self, tokens: np.ndarray, blocks,
+                 logits: np.ndarray | None = None) -> None:
+        """Register an admitted prompt: ``blocks`` are its table entries
+        (shared ones included; an existing digest is kept, first writer
+        wins), ``logits`` its last position's row."""
+        tokens = np.ascontiguousarray(
+            np.array(tokens, np.int32, copy=True).reshape(-1))
+        blocks = [int(b) for b in blocks]
+        n_tok, blk = len(tokens), self.block
+        with self._lock:
+            for n, key in self._chain_keys(tokens):
+                self._add(key, tokens[:n], n, blocks[: -(-n // blk)],
+                          logits if n == n_tok else None)
+
+    def _add(self, key, toks, n, blks, logits):
+        e = self._entries.get(key)
+        if e is not None:
+            if (logits is not None and e.logits is None and e.n == n
+                    and np.array_equal(e.tokens, toks)):
+                # First registered as a longer prompt's aligned prefix;
+                # this exact admission supplies its sampling row.
+                e.logits = np.array(logits, copy=True)
+            return
+        self._entries[key] = _PrefixEntry(
+            toks, n, tuple(blks),
+            None if logits is None else np.array(logits, copy=True),
+        )
+        for b in blks:
+            self._by_block.setdefault(b, set()).add(key)
+
+    def invalidate_blocks(self, freed) -> list[_PrefixEntry]:
+        """Drop every entry referencing a block whose last holder just
+        released it; returns the dropped entries."""
+        dropped: list[_PrefixEntry] = []
+        with self._lock:
+            for blk in freed:
+                for key in self._by_block.pop(blk, ()):
+                    e = self._entries.pop(key, None)
+                    if e is None:
+                        continue
+                    dropped.append(e)
+                    for other in e.blocks:
+                        if other != blk:
+                            peers = self._by_block.get(other)
+                            if peers is not None:
+                                peers.discard(key)
+        return dropped
+
+    @property
+    def entries(self) -> int:
+        return len(self._entries)
