@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -6,16 +6,28 @@ Phases, in order; any failure ends the run with a non-zero exit:
 
 1. device line: the card's name and power limit (nvidia-smi) and the
    torch version; TF32 off for matmuls and cuDNN;
-2. build: every CUDA kernel of the path from the sources in this
-   checkout (one nvcc per source, started together);
-3. kernel vs plain: the paged-attention kernel against its plain PyTorch
-   version at the slice's shapes (4 lanes at 3500/1750/875/437 tokens,
-   H=16, KV=4, Dh=64, blk=128, S=4096), for t=1, t=3 and a lane at index
-   0 with an all-zero table, in bf16 and f32; then its device time
-   (CUDA-graph replay) beside its eager time per call, the plain
-   version's device time, the byte bound and, as a yardstick the port
-   never calls, scaled_dot_product_attention over the pre-gathered K/V;
-4. engine, f32: the full-width paged-decode LM (vocab 32768, d 1024, 16
+2. build: every CUDA kernel of the paths from the sources in this
+   checkout (one nvcc per source, started together), with ptxas's
+   register and spill lines;
+3. paged kernel vs plain: the paged-attention kernel against its plain
+   PyTorch version at the serving slice's shapes (4 lanes at
+   3500/1750/875/437 tokens, H=16, KV=4, Dh=64, blk=128, S=4096), for
+   t=1, t=3 and a lane at index 0 with an all-zero table, in bf16 and
+   f32; then its device time (CUDA-graph replay) beside its eager time
+   per call, the plain version's device time, the byte bound and, as a
+   yardstick the port never calls, scaled_dot_product_attention over the
+   pre-gathered K/V;
+4. flash kernels vs plain: the forward (O and LSE), dQ and dK/dV kernels
+   against their plain versions at B=2, H=16, Dh=64, causal at T=1024
+   and T=1000 (a ragged tail) and full at tq=512, tk=1024, in bf16 and
+   f32;
+5. flash timing at the training shape (B=2, H=16, T=8192, Dh=64, bf16,
+   causal): each kernel's device time (CUDA-graph replay), the forward's
+   and forward+backward's eager time, the plain versions' time (at
+   T=8192 when their f32 scores fit, else at T=2048, the shape printed),
+   the operation bound at 989 TFLOP/s, and scaled_dot_product_attention
+   forward and forward+backward as a yardstick;
+6. engine, f32: the full-width paged-decode LM (vocab 32768, d 1024, 16
    heads, 4 KV heads, 8 layers, d_ff 4096, S 4096; random weights from a
    seed) in ContinuousEngine with kv_attend="kernel" and "gather": four
    prompts join, 64 decode steps, two lanes retire, a prompt sharing the
@@ -23,16 +35,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (prefix share and copy-on-write), 16 more steps. Greedy tokens must
    be identical between the two reads, and the kernel must have launched
    n_layers times per decode forward;
-5. engine, bf16: the same schedule with the kernel; decode tokens/s and
+7. engine, bf16: the same schedule with the kernel; decode tokens/s and
    prefill seconds; its last 8 steps under torch.profiler (device busy
    share of a step, the kernels that take most device time);
-6. the ``kernels`` JSON line, the card line, and last the result line.
+8. trainer, f32: the LM at bench.py's width (vocab 32768, d 1024, 16
+   heads, 8 layers, d_ff 4096, max_seq_len 8192; random weights from
+   seed 0) at B=2, T=1024, 3 steps of adamw(warmup_cosine(...)), once
+   through the flash kernels and once with reference_attention in their
+   place: losses and final weights must agree, and the plain branch must
+   not have run on the card in the kernel run;
+9. trainer, bf16: bench.py's training shape (B=2, T=8192, chunked loss
+   1024 with a bf16 head dot, adamw(1e-4)) for 7 steps on one seeded
+   batch: step seconds after one warm-up step, tokens/s and MFU
+   (bench.py's count: 6 N + 6 L d S flops a token, at 989 TFLOP/s), one
+   more step under torch.profiler; losses finite and falling, and 8
+   forward, 8 dQ and 8 dK/dV launches a step;
+10. the ``kernels`` JSON line, the card line, and last the result line.
 
 It exits non-zero without a result when torch sees no CUDA device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -41,6 +66,7 @@ import sys
 import tempfile
 import time
 from dataclasses import replace
+from unittest import mock
 
 import numpy as np
 import torch
@@ -53,6 +79,31 @@ H, KV, DH, BLK, S = 16, 4, 64, 128, 4096
 LAYERS, FIRST_STEPS, LATER_STEPS = 8, 64, 16
 SHARED_TAIL = 300  # fresh tokens after the two shared blocks
 PROFILE_STEPS = 8  # of the bf16 run's last steps, under torch.profiler
+# The LM training width: bench.py's LM_SIZE (MHA) at max_seq_len 8192.
+LM = dict(vocab_size=32768, d_model=1024, n_heads=16, n_layers=8, d_ff=4096,
+          max_seq_len=8192)
+TRAIN_B, TRAIN_T = 2, 8192
+F32_TRAIN_T, F32_STEPS = 1024, 3
+BF16_STEPS = 7  # one warm-up step, six timed
+XENT_CHUNK = 1024  # bench.py's chunked loss
+# Flash kernels vs plain: the error over max(1, max |plain|). f32: sums
+# in another order; bf16: P, dS and the outputs round to 8 bits from f32
+# values that differ in the last places.
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+FLASH_CASES = [("causal T=1024", 1024, 1024, True),
+               ("causal T=1000", 1000, 1000, True),
+               ("full tq=512 tk=1024", 512, 1024, False)]
+# f32 trainer, kernels vs plain attention: losses within 1e-4 (of ~10.4).
+# Weights: Adam moves an element by about lr * g / (|g| + eps), so where a
+# gradient cancels down to |g| ~ eps (1e-8) the last-place differences of
+# two summation orders move it by a sizeable share of lr. No element may
+# differ by more than 4 x the summed learning rate (Adam's step is about
+# lr at most), and at most 1e-5 of the elements by more than 1 % of it.
+# The key bias is left out of the share: its gradient is 0 in exact
+# arithmetic (it shifts a row's scores by a constant), so every element
+# of it is rounding noise that Adam scales up to ~lr.
+TRAIN_LOSS_TOL, ADAM_BOUND, TRAIN_PARAM_FRAC, TRAIN_FAR_SHARE = (
+    1e-4, 4.0, 1e-2, 1e-5)
 
 
 def card_line() -> str:
@@ -204,8 +255,152 @@ def kernel_phase(pa) -> dict:
                 bound_ms=bms, bound_by=bound_by, library_ms=library_ms)
 
 
-def profile_steps(engine, steps: int, tokens: list) -> None:
-    """Where a decode step's time goes: ``steps`` engine steps under
+def flash_inputs(b, tq, tk, dtype, seed):
+    """Seeded q, k, v and dO of ``[b, T, H, Dh]`` at the slice's heads."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(t):
+        return torch.randn((b, t, H, DH), generator=gen,
+                           device="cuda").to(dtype)
+
+    return randn(tq), randn(tk), randn(tk), randn(tq)
+
+
+def flash_check_phase(fa) -> dict:
+    """Each flash kernel against its plain version on the same inputs;
+    the backward kernels are fed the plain forward's statistics. Returns
+    each kernel's largest max-abs error over its outputs and the cases."""
+    kernel_of = {"o": "flash_fwd", "lse": "flash_fwd", "dq": "flash_dq",
+                 "dk": "flash_dkv", "dv": "flash_dkv"}
+    worst = dict.fromkeys(kernel_of.values(), 0.0)
+    for dtype in (torch.float32, torch.bfloat16):
+        for seed, (name, tq, tk, causal) in enumerate(FLASH_CASES):
+            q, k, v, do = flash_inputs(2, tq, tk, dtype, seed)
+            scale = DH ** -0.5
+            o, lse = fa.flash_fwd(q, k, v, causal, scale)
+            o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal, scale)
+            delta = (do.float() * o_ref.float()).sum(-1).transpose(
+                1, 2).contiguous()
+            stats = (q, k, v, do, lse_ref, delta, causal, scale)
+            dq = fa.flash_dq(*stats)
+            dk, dv = fa.flash_dkv(*stats)
+            torch.cuda.synchronize()
+            dk_ref, dv_ref = fa.flash_dkv_reference(*stats)
+            pairs = {"o": (o, o_ref), "lse": (lse, lse_ref),
+                     "dq": (dq, fa.flash_dq_reference(*stats)),
+                     "dk": (dk, dk_ref), "dv": (dv, dv_ref)}
+            parts = []
+            for out, (got, want) in pairs.items():
+                if (got.shape != want.shape or got.dtype != want.dtype
+                        or not torch.isfinite(got).all()):
+                    raise AssertionError(f"flash {name} {dtype} {out}: bad "
+                                         "output")
+                err = (got.float() - want.float()).abs().max().item()
+                rel = err / max(1.0, want.float().abs().max().item())
+                parts.append(f"{out} {err:.3e} ({rel:.3e})")
+                if not rel <= FLASH_TOL[dtype]:
+                    raise AssertionError(f"flash {name} {dtype} {out} "
+                                         "disagrees")
+                worst[kernel_of[out]] = max(worst[kernel_of[out]], err)
+            print(f"flash vs plain, {dtype}, {name}: max_abs_err (over "
+                  f"max(1, max|plain|)) {', '.join(parts)}; tolerance "
+                  f"{FLASH_TOL[dtype]}", flush=True)
+    return worst
+
+
+def flash_bounds(b, t, causal=True) -> dict:
+    """Least time of each kernel at [b, t, H, Dh] bf16: the bytes it must
+    move (each input read once, each output written once) over the memory
+    rate, against its products' flops (2 Dh a product per query-key pair
+    the mask lets in) over the bf16 peak."""
+    pairs = b * H * (t * (t + 1) // 2 if causal else t * t)
+    tensor, row = b * t * H * DH * 2, b * H * t * 4
+    work = {"flash_fwd": (2, 4 * tensor + row),        # q k v -> o, lse
+            "flash_dq": (3, 5 * tensor + 2 * row),     # q k v do lse delta -> dq
+            "flash_dkv": (4, 6 * tensor + 2 * row)}    # ... -> dk, dv
+    out = {}
+    for name, (products, nbytes) in work.items():
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops = products * 2 * DH * pairs / PEAK_FLOPS[torch.bfloat16] * 1e3
+        out[name] = (max(by_bytes, by_ops),
+                     "bytes" if by_bytes >= by_ops else "operations")
+    return out
+
+
+def flash_timing_phase(fa) -> dict:
+    """The kernels at the training shape, their plain versions and the
+    SDPA yardstick; returns {kernel: {ms, plain_ms, bound_ms, bound_by,
+    library_ms}}."""
+    b, t, scale = TRAIN_B, TRAIN_T, DH ** -0.5
+    q, k, v, do = flash_inputs(b, t, t, torch.bfloat16, seed=11)
+    o, lse = fa.flash_fwd(q, k, v, True, scale)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    stats = (q, k, v, do, lse, delta, True, scale)
+
+    def fwd_bwd(i):
+        o, lse = fa.flash_fwd(q, k, v, True, scale)
+        d = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        return fa.flash_bwd_from_stats(q, k, v, do, lse, d, True, scale)
+
+    ms = {"flash_fwd": device_ms(lambda i: fa.flash_fwd(q, k, v, True,
+                                                        scale), 10),
+          "flash_dq": device_ms(lambda i: fa.flash_dq(*stats), 10),
+          "flash_dkv": device_ms(lambda i: fa.flash_dkv(*stats), 10)}
+    fwd_bwd_ms = device_ms(fwd_bwd, 5)
+    eager_fwd = cuda_ms(lambda i: fa.flash_fwd(q, k, v, True, scale), 10)
+    eager_fwd_bwd = cuda_ms(fwd_bwd, 5)
+
+    # The plain versions hold a few [b, H, t, t] f32 tensors at once: at
+    # the training shape when eight of them fit in free memory, else at
+    # T=2048.
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    pt = t if free >= 8 * b * H * t * t * 4 else 2048
+    pq, pk, pv, pdo = (x[:, :pt] for x in (q, k, v, do))
+    po, plse = fa.flash_fwd_reference(pq, pk, pv, True, scale)
+    pdelta = (pdo.float() * po.float()).sum(-1).transpose(1, 2).contiguous()
+    pstats = (pq, pk, pv, pdo, plse, pdelta, True, scale)
+    torch.cuda.reset_peak_memory_stats()
+    plain = {"flash_fwd": cuda_ms(lambda i: fa.flash_fwd_reference(
+                 pq, pk, pv, True, scale), 2),
+             "flash_dq": cuda_ms(lambda i: fa.flash_dq_reference(*pstats), 2),
+             "flash_dkv": cuda_ms(lambda i: fa.flash_dkv_reference(*pstats),
+                                  2)}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del po, plse, pdelta, pstats
+    torch.cuda.empty_cache()
+
+    # Yardstick the port never calls: SDPA on [b, H, t, Dh] copies.
+    qh, kh, vh, doh = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_fwd = device_ms(lambda i: sdpa(qh, kh, vh, is_causal=True), 10)
+    leaves = [x.detach().requires_grad_() for x in (qh, kh, vh)]
+    lib_fwd_bwd = cuda_ms(lambda i: torch.autograd.grad(
+        sdpa(*leaves, is_causal=True), leaves, doh), 5)
+
+    bounds = flash_bounds(b, t)
+    out = {}
+    for name in ms:
+        bms, by = bounds[name]
+        out[name] = dict(ms=ms[name], plain_ms=plain[name], bound_ms=bms,
+                         bound_by=by,
+                         library_ms=lib_fwd if name == "flash_fwd" else None)
+        print(f"{name} bf16 B={b} H={H} T={t} Dh={DH} causal: kernel_ms "
+              f"{ms[name]:.6f} bound_ms {bms:.6f} ({by}) plain_ms "
+              f"{plain[name]:.6f} at T={pt}", flush=True)
+    fwd_bound = bounds["flash_fwd"][0]
+    bwd_bound = bounds["flash_dq"][0] + bounds["flash_dkv"][0]
+    print(f"flash fwd: device_ms {ms['flash_fwd']:.6f} eager_ms "
+          f"{eager_fwd:.6f}; fwd+bwd: device_ms {fwd_bwd_ms:.6f} eager_ms "
+          f"{eager_fwd_bwd:.6f} bound_ms {fwd_bound + bwd_bound:.6f}; "
+          f"plain versions at T={pt} (peak {peak_gb:.2f} GB); SDPA "
+          f"(yardstick, not called by the port) fwd device_ms "
+          f"{lib_fwd:.6f}, fwd+bwd eager_ms {lib_fwd_bwd:.6f}", flush=True)
+    return out
+
+
+def profile_steps(run, steps: int, label: str) -> dict:
+    """Where a step's time goes: ``steps`` calls of ``run()`` under
     torch.profiler. From the trace's device events it prints the busy
     time (the union of their intervals) against the host's wall time,
     and the kernels that take most of it; "not measured" when the trace
@@ -218,7 +413,7 @@ def profile_steps(engine, steps: int, tokens: list) -> None:
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(steps):
-                tokens.append(engine.step())
+                run()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         path = os.path.join(tmp, "trace.json")
@@ -229,21 +424,22 @@ def profile_steps(engine, steps: int, tokens: list) -> None:
                    if e.get("ph") == "X" and e.get("cat") in (
                        "kernel", "gpu_memcpy", "gpu_memset"))
     if not spans:
-        print("profile: device busy share not measured (the trace holds "
-              "no device event)", flush=True)
-        return
+        print(f"profile, {label}: device busy share not measured (the "
+              "trace holds no device event)", flush=True)
+        return {}
     busy, end, by_name = 0.0, -math.inf, {}
     for start, stop, name in spans:
         busy += max(0.0, stop - max(start, end))
         end = max(end, stop)
         by_name[name] = by_name.get(name, 0.0) + (stop - start)
-    print(f"profile, {steps} decode steps: wall_us/step {wall_us / steps:.1f}"
+    print(f"profile, {steps} {label}: wall_us/step {wall_us / steps:.1f}"
           f" device_busy_us/step {busy / steps:.1f} busy share "
           f"{busy / wall_us:.4f} device events/step {len(spans) / steps:.1f}",
           flush=True)
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"profile:   {us / steps:9.1f} us/step  {name[:100]}",
               flush=True)
+    return dict(busy_share=busy / wall_us, busy_us=busy / steps)
 
 
 def engine_run(pa, cfg, params, attend, prompts, profile: int = 0) -> dict:
@@ -280,7 +476,8 @@ def engine_run(pa, cfg, params, attend, prompts, profile: int = 0) -> dict:
     for _ in range(LATER_STEPS - profile):
         tokens.append(engine.step())
     if profile:
-        profile_steps(engine, profile, tokens)
+        profile_steps(lambda: tokens.append(engine.step()), profile,
+                      "decode steps")
     torch.cuda.synchronize()
     if not torch.isfinite(engine._logits).all():
         raise AssertionError("non-finite logits")
@@ -296,6 +493,147 @@ def engine_run(pa, cfg, params, attend, prompts, profile: int = 0) -> dict:
     return out
 
 
+def key_bias_rows(name: str, p: torch.Tensor):
+    """The key-bias slice of an attention bias, or None."""
+    if name.endswith("attn.qkv.bias"):
+        return p[1]
+    if name.endswith("attn.kv.bias"):
+        return p[0]
+    return None
+
+
+def train_run(cfg, params, batch, steps: int, tx, *, plain=False,
+              profile=False, **step_kw) -> dict:
+    """``steps`` train steps from ``params`` on one batch, with the flash
+    counts and the plain-branch count set to 0 just before the first;
+    with ``plain``, reference_attention takes the kernels' place in the
+    model. Returns the model, the losses, the counts and, after one
+    warm-up step, each step's seconds."""
+    from tf_operator_tpu_torch import ops
+    from tf_operator_tpu_torch.models import transformer
+    from tf_operator_tpu_torch.models.convert import load_params
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.train.steps import (
+        TrainState,
+        make_lm_train_step,
+    )
+
+    model = load_params(transformer.Transformer(cfg), params)
+    state = TrainState.create(model, tx)
+    step = make_lm_train_step(model, tx, **step_kw)
+    forced = mock.patch.object(
+        transformer, "attention",
+        lambda q, k, v, causal: fa.reference_attention(q, k, v, causal))
+    losses, seconds = [], []
+    with forced if plain else contextlib.nullcontext():
+        fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
+        ops.plain_on_cuda = 0
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(metrics["loss"].item())
+            if i:
+                seconds.append(time.perf_counter() - t0)
+        counts = dict(fwd=fa.fwd_launches, dq=fa.dq_launches,
+                      dkv=fa.dkv_launches, plain_on_cuda=ops.plain_on_cuda)
+        prof = (profile_steps(lambda: step(state, batch), 1, "train step")
+                if profile else {})
+    return dict(model=model, losses=losses, seconds=seconds, counts=counts,
+                profile=prof)
+
+
+def train_f32_phase(params) -> None:
+    """The f32 trainer through the kernels against the same trainer with
+    reference_attention, 3 steps of adamw on the warmup-cosine schedule."""
+    from tf_operator_tpu_torch.models.transformer import TransformerConfig
+    from tf_operator_tpu_torch.train.steps import adamw, warmup_cosine
+
+    cfg = TransformerConfig(dtype=torch.float32, **LM)
+    rng = np.random.default_rng(5)
+    batch = {name: torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_B, F32_TRAIN_T)).astype(np.int64)).cuda()
+        for name in ("tokens", "targets")}
+    tx = adamw(warmup_cosine(1e-3, 10, warmup_steps=1))
+    runs = {plain: train_run(cfg, params, batch, F32_STEPS, tx, plain=plain)
+            for plain in (False, True)}
+    kern, ref = runs[False], runs[True]
+    want = (cfg.n_layers * F32_STEPS,) * 3 + (0,)
+    got = tuple(kern["counts"][k] for k in ("fwd", "dq", "dkv",
+                                            "plain_on_cuda"))
+    if got != want or any(ref["counts"][k] for k in ("fwd", "dq", "dkv")):
+        raise AssertionError(f"f32 trainer counts {kern['counts']} (plain "
+                             f"run {ref['counts']}), want {want}")
+    loss_err = max(abs(a - b) for a, b in zip(kern["losses"],
+                                              ref["losses"]))
+    lr_sum = sum(tx.learning_rate(i) for i in range(F32_STEPS))
+    max_err, far, total = 0.0, 0, 0
+    ref_params = dict(ref["model"].named_parameters())
+    for name, p in kern["model"].named_parameters():
+        diff = (p.detach() - ref_params[name].detach()).abs()
+        max_err = max(max_err, diff.max().item())
+        rows = key_bias_rows(name, diff)
+        if rows is not None:
+            rows.zero_()
+        far += (diff > TRAIN_PARAM_FRAC * lr_sum).sum().item()
+        total += diff.numel()
+    print(f"trainer f32 B={TRAIN_B} T={F32_TRAIN_T}: losses kernels "
+          f"{kern['losses']} plain {ref['losses']} (max diff {loss_err:.3e},"
+          f" tolerance {TRAIN_LOSS_TOL}); weights max diff {max_err:.3e} "
+          f"(tolerance {ADAM_BOUND * lr_sum:.3e}), {far} of {total} beyond "
+          f"{TRAIN_PARAM_FRAC * lr_sum:.3e} (tolerance share "
+          f"{TRAIN_FAR_SHARE}); counts {kern['counts']}", flush=True)
+    if not (loss_err <= TRAIN_LOSS_TOL and max_err <= ADAM_BOUND * lr_sum
+            and far <= TRAIN_FAR_SHARE * total):
+        raise AssertionError("f32 trainer: kernels and plain attention "
+                             "disagree")
+    if not all(math.isfinite(x) for x in kern["losses"]):
+        raise AssertionError("f32 trainer: non-finite loss")
+    del runs, kern, ref, ref_params
+    torch.cuda.empty_cache()
+
+
+def train_bf16_phase(params, card: str) -> dict:
+    """bench.py's LM training step at full width; returns the flash
+    launches of the timed run."""
+    from tf_operator_tpu_torch.models.transformer import TransformerConfig
+    from tf_operator_tpu_torch.train.steps import adamw
+
+    cfg = TransformerConfig(dtype=torch.bfloat16, **LM)
+    rng = np.random.default_rng(0)
+    batch = {name: torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_B, TRAIN_T)).astype(np.int64)).cuda()
+        for name in ("tokens", "targets")}
+    torch.cuda.reset_peak_memory_stats()
+    run = train_run(cfg, params, batch, BF16_STEPS, adamw(1e-4),
+                    profile=True, xent_chunk=XENT_CHUNK,
+                    xent_dot_dtype=torch.bfloat16)
+    losses, counts = run["losses"], run["counts"]
+    want = cfg.n_layers * BF16_STEPS
+    if (counts["fwd"], counts["dq"], counts["dkv"],
+            counts["plain_on_cuda"]) != (want, want, want, 0):
+        raise AssertionError(f"bf16 trainer counts {counts}, want {want} "
+                             "of each kernel and no plain branch")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"bf16 trainer losses {losses}")
+    n_params = sum(p.numel() for p in run["model"].parameters())
+    step_s = sum(run["seconds"]) / len(run["seconds"])
+    tok_s = TRAIN_B * TRAIN_T / step_s
+    flops_tok = 6 * n_params + 6 * cfg.n_layers * cfg.d_model * TRAIN_T
+    mfu = tok_s * flops_tok / PEAK_FLOPS[torch.bfloat16]
+    print(f"trainer bf16 B={TRAIN_B} T={TRAIN_T} ({n_params} params): "
+          f"losses {losses}; step_s {run['seconds']} mean {step_s:.6f} "
+          f"tokens/s {tok_s:.2f} MFU {mfu:.6f} (6N + 6LdS = {flops_tok} "
+          f"flops a token at 989 TFLOP/s); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; counts "
+          f"{counts} on {card}", flush=True)
+    launches = dict(flash_fwd=counts["fwd"], flash_dq=counts["dq"],
+                    flash_dkv=counts["dkv"])
+    del run
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -303,6 +641,7 @@ def main() -> int:
     from tf_operator_tpu_torch.models.convert import init_params
     from tf_operator_tpu_torch.models.transformer import TransformerConfig
     from tf_operator_tpu_torch.ops import _build
+    from tf_operator_tpu_torch.ops import flash_attention as fa
     from tf_operator_tpu_torch.ops import paged_attention as pa
 
     t_start = time.perf_counter()
@@ -315,13 +654,17 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    _build.build("paged_attention")
+    sources = ("flash_attention", "paged_attention")
+    _build.build(*sources)
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
-    for line in _build.build_log("paged_attention").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"ptxas: {line.strip()}", flush=True)
+    for name in sources:
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {name}: {line.strip()}", flush=True)
 
     kernel = kernel_phase(pa)
+    flash_err = flash_check_phase(fa)
+    flash = flash_timing_phase(fa)
 
     base = TransformerConfig(vocab_size=32768, d_model=1024, n_heads=H,
                              n_kv_heads=KV, n_layers=LAYERS, d_ff=4096,
@@ -354,13 +697,24 @@ def main() -> int:
         raise AssertionError(f"bf16 kernel launches {bf16['launches']}")
     print(f"engine bf16 kernel: decode tokens/s {bf16['decode_tok_s']:.2f} "
           f"prefill_s {bf16['prefill_s']:.4f} on {card}", flush=True)
+    torch.cuda.empty_cache()
 
+    lm_params = init_params(TransformerConfig(**LM), seed=0)
+    train_f32_phase(lm_params)
+    flash_launches = train_bf16_phase(lm_params, card)
+
+    src = "tf_operator_tpu_torch/ops/csrc/"
+    replaces = {"flash_fwd": 253, "flash_dq": 297, "flash_dkv": 331}
     kernels = [dict(
-        name="paged_attend", route="cuda",
-        source="tf_operator_tpu_torch/ops/csrc/paged_attention.cu",
+        name="paged_attend", route="cuda", source=src + "paged_attention.cu",
         replaces="tf_operator_tpu/ops/paged_attention.py:126",
         launches=bf16["launches"], **kernel,
-    )]
+    )] + [dict(
+        name=name, route="cuda", source=src + "flash_attention.cu",
+        replaces=f"tf_operator_tpu/ops/flash_attention.py:{line}",
+        launches=flash_launches[name], max_abs_err=flash_err[name],
+        **flash[name],
+    ) for name, line in replaces.items()]
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -8,6 +8,7 @@ import os
 import re
 import subprocess
 import sys
+from dataclasses import replace
 
 import pytest
 import torch
@@ -42,7 +43,9 @@ def test_package_imports_with_jax_and_the_reference_poisoned():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 9  # every module was imported
+    # Every module was imported: models (2), ops (3), serve (2), train
+    # (1) and the four packages.
+    assert int(out.stdout.split()[-1]) >= 12
 
 
 def _sources():
@@ -73,4 +76,6 @@ def test_default_device_is_the_card(monkeypatch):
         Transformer(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ContinuousEngine(cfg, init_params(cfg, 0), 2, kv_block=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Transformer(replace(cfg, decode=True))
     assert resolve_device("cpu") == torch.device("cpu")

@@ -6,16 +6,22 @@ the port's dependencies:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py -q
 
 (``--noconftest``: tests/conftest.py sets up the JAX package's CPU mesh.)
-Tolerance atol=1e-4: kernel and plain version both sum in f32, in
-different orders, over up to 4096 keys."""
+Paged attention, atol=1e-4: kernel and plain version both sum in f32, in
+different orders, over up to 4096 keys. Flash attention: the error over
+max(1, max |plain|) must stay within 1e-4 in f32 (f32 sums in another
+order) and 2e-2 in bf16 (both round P, dS and the outputs to bf16's 8
+bits, from f32 values that differ in the last places, so single roundings
+land one bf16 step apart)."""
 
 import numpy as np
 import pytest
 import torch
 
+from tf_operator_tpu_torch.ops import flash_attention as fa
 from tf_operator_tpu_torch.ops import paged_attention as pa
 
 ATOL = 1e-4
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
 @pytest.fixture
@@ -87,3 +93,106 @@ def test_paged_kernel_raises_outside_its_geometry(cuda):
     with pytest.raises(ValueError, match="outside its geometry"):
         pa.paged_attend(*args)
     assert pa.launches == before
+
+
+def _scaled_err(got, want) -> float:
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    want = want.float()
+    return ((got.float() - want).abs().max()
+            / want.abs().max().clamp_min(1.0)).item()
+
+
+FLASH_CASES = [
+    # (tq, tk, causal, heads, head_dim)
+    (64, 64, True, 2, 64),
+    (1000, 1000, True, 2, 64),
+    (100, 100, True, 1, 32),
+    (130, 130, True, 1, 128),
+    (512, 1024, False, 2, 64),
+    (1024, 512, False, 1, 128),
+    (33, 77, False, 1, 32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: (
+    f"{'causal' if c[2] else 'full'}{c[0]}x{c[1]}h{c[3]}d{c[4]}"))
+def test_flash_kernels_match_plain_versions(cuda, dtype, case):
+    tq, tk, causal, h, d = case
+    gen = torch.Generator(device=cuda).manual_seed(tq + tk + d)
+
+    def randn(t):
+        return torch.randn((2, t, h, d), generator=gen, device=cuda).to(dtype)
+
+    q, k, v, do = randn(tq), randn(tk), randn(tk), randn(tq)
+    scale = d ** -0.5
+    counts = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
+    o, lse = fa.flash_fwd(q, k, v, causal, scale)
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal, scale)
+    delta = (do.float() * o_ref.float()).sum(-1).transpose(1, 2).contiguous()
+    dq, dk, dv = fa.flash_bwd_from_stats(q, k, v, do, lse_ref, delta, causal,
+                                         scale)
+    torch.cuda.synchronize()
+    assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) == tuple(
+        c + 1 for c in counts)
+    want_dq = fa.flash_dq_reference(q, k, v, do, lse_ref, delta, causal,
+                                    scale)
+    want_dk, want_dv = fa.flash_dkv_reference(q, k, v, do, lse_ref, delta,
+                                              causal, scale)
+    tol = FLASH_TOL[dtype]
+    for name, got, want in (("o", o, o_ref), ("lse", lse, lse_ref),
+                            ("dq", dq, want_dq), ("dk", dk, want_dk),
+                            ("dv", dv, want_dv)):
+        assert got.dtype == want.dtype, name
+        assert _scaled_err(got, want) <= tol, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_autograd_on_the_card_matches_the_oracle(cuda, causal):
+    """Gradients through the kernels' autograd.Function against autograd
+    through reference_attention, in f32."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    leaves = [torch.randn((2, 200, 4, 64), generator=gen, device=cuda)
+              for _ in range(3)]
+    do = torch.randn((2, 200, 4, 64), generator=gen, device=cuda)
+    grads = []
+    for fn in (fa.flash_attention, fa.reference_attention):
+        xs = [x.clone().requires_grad_() for x in leaves]
+        fn(*xs, causal=causal).backward(do)
+        grads.append([x.grad for x in xs])
+    for got, want in zip(*grads):
+        assert _scaled_err(got, want) <= FLASH_TOL[torch.float32]
+
+
+@pytest.mark.cuda
+def test_flash_kernels_raise_outside_their_geometry(cuda):
+    q = torch.zeros((1, 64, 2, 48), device=cuda)
+    before = fa.fwd_launches
+    with pytest.raises(ValueError, match="outside their geometry"):
+        fa.flash_fwd(q, q, q, True, 48 ** -0.5)
+    assert fa.fwd_launches == before
+
+
+@pytest.mark.cuda
+def test_rounded_head_dot_on_the_card_matches_the_upcast_product(cuda):
+    """The loss head's bf16 product with f32 output (torch.mm's out_dtype
+    on the card) against the same product of the upcast operands, value
+    and gradients: f32 sums of exact products in another order."""
+    from tf_operator_tpu_torch.train.steps import _head_logits
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    h = torch.randn((2, 64, 256), generator=gen, device=cuda)
+    kernel = torch.randn((256, 1000), generator=gen, device=cuda) * 0.1
+    g = torch.randn((2, 64, 1000), generator=gen, device=cuda)
+    outs = []
+    for run in (lambda a, b: _head_logits(a, b, None, torch.bfloat16),
+                lambda a, b: (a.bfloat16().float() @ b.bfloat16().float())):
+        a, b = h.clone().requires_grad_(), kernel.clone().requires_grad_()
+        out = run(a, b)
+        out.backward(g)
+        outs.append((out, a.grad, b.grad))
+    assert outs[0][0].dtype == torch.float32
+    for got, want in zip(*outs):
+        assert _scaled_err(got, want) <= 1e-5

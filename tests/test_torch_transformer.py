@@ -42,7 +42,7 @@ def _configs(arch):
     kw = dict(vocab_size=128, d_model=64, n_heads=4, n_layers=2, d_ff=128,
               max_seq_len=64, n_kv_heads=ARCHS[arch])
     return JaxConfig(dtype=jnp.float32, **kw), \
-        TransformerConfig(dtype=torch.float32, **kw)
+        TransformerConfig(dtype=torch.float32, decode=True, **kw)
 
 
 @pytest.fixture(scope="module", params=sorted(ARCHS))

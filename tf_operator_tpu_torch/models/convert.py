@@ -13,8 +13,11 @@ The JAX model's parameters are a nested dict (``model.init(...)
   ``mlp/in_proj`` and ``mlp/out_proj`` ``{kernel, bias}``.
 
 The port keeps these layouts, so loading is a copy per leaf after a
-check of names and shapes. ``init_params`` builds such a tree from a
-seed with numpy alone, so a machine without JAX can run the model.
+check of names and shapes, into a decode-mode model (weights in its
+dtype) or a training-mode one (f32 trainable weights) alike;
+``export_params`` reads a model back out as such a tree. ``init_params``
+builds one from a seed with numpy alone, so a machine without JAX can
+run the model.
 """
 
 from __future__ import annotations
@@ -139,3 +142,16 @@ def load_params(model: Transformer, params: Mapping) -> Transformer:
             )
         p.data.copy_(src.to(device=p.device, dtype=p.dtype))
     return model
+
+
+def export_params(model: Transformer) -> dict:
+    """The model's weights as a flax-layout tree of f32 numpy arrays: the
+    inverse of ``load_params``."""
+    tree: dict = {}
+    for name, p in model.named_parameters():
+        path = flax_path(name)
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = p.detach().float().cpu().numpy()
+    return tree

@@ -1,12 +1,22 @@
-"""Decoder-only transformer, decode mode, in PyTorch.
+"""Decoder-only transformer in PyTorch: the training forward and the
+decode forward.
 
-Counterpart of ``tf_operator_tpu/models/transformer.py`` for the serving
-path: the KV-cache decode forward over a dense per-request cache (what
-prefill fills) and over the block-paged pool (what the continuous engine
-steps). Weights keep flax's layouts (``qkv`` kernel ``[d, 3, H, Dh]``,
-``out`` kernel ``[H, Dh, d]``, ...) so ``models/convert.py`` copies a
-flax ``params`` tree in without reshaping. The training forward, int8
-decode, MoE, remat and meshes are later slices (see ``TransformerConfig``).
+Counterpart of ``tf_operator_tpu/models/transformer.py``. Weights keep
+flax's layouts (``qkv`` kernel ``[d, 3, H, Dh]``, ``out`` kernel ``[H, Dh,
+d]``, ...) so ``models/convert.py`` copies a flax ``params`` tree in
+without reshaping. ``TransformerConfig.decode`` picks the mode, as in JAX:
+
+- training (``decode=False``): ``forward(tokens)`` over positions
+  ``0..T-1``, causal attention through ``ops.attention`` (the flash
+  kernels), optional per-block activation checkpointing (``remat``).
+  Parameters are f32 and trainable; each module casts its weights and
+  input to ``cfg.dtype`` at use, as flax does with ``param_dtype=f32``.
+- decode (``decode=True``): the KV-cache forward over a dense per-request
+  cache (what prefill fills) and over the block-paged pool (what the
+  continuous engine steps). Parameters are stored in ``cfg.dtype`` and
+  need no gradient, so a decode step runs no weight casts.
+
+Int8 decode, MoE and meshes are later slices (see ``TransformerConfig``).
 
 The cache is an explicit dict of tensors, updated IN PLACE where the
 JAX model rebuilt its ``cache`` collection:
@@ -30,8 +40,10 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tf_operator_tpu_torch import resolve_device
+from tf_operator_tpu_torch.ops import attention
 from tf_operator_tpu_torch.ops.paged_attention import (
     paged_attend,
     paged_attend_reference,
@@ -61,12 +73,18 @@ class TransformerConfig:
     # to the dense layout) or "kernel" (the hand-written CUDA kernel,
     # ops/paged_attention.py, that reads only the blocks a lane owns).
     kv_attend: str = "gather"
+    # Decode mode: the KV-cache forward (prefill and paged steps) with
+    # weights stored in ``dtype``; otherwise the training forward over f32
+    # weights.
+    decode: bool = False
+    # Training: recompute each block's activations in the backward
+    # (torch.utils.checkpoint) instead of storing them.
+    remat: bool = False
     # Not ported yet; each names the ROADMAP.md item that brings it.
     kv_int8: bool = False
     int8_decode: bool = False
     moe_every_n: int | None = None
     mesh: Any = None
-    remat: bool = False
 
     def __post_init__(self):
         later = {
@@ -75,7 +93,6 @@ class TransformerConfig:
                            "cache)",
             "moe_every_n": "A9 (ResNet, MNIST and MoE)",
             "mesh": "A8 (multi-device)",
-            "remat": "A4 (the training path)",
         }
         for name, item in later.items():
             if getattr(self, name):
@@ -124,37 +141,54 @@ class TransformerConfig:
         return self.n_kv_heads or self.n_heads
 
 
-def _param(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+class _Store:
+    """Where a module keeps its weights: f32 and trainable (training), or
+    in the compute dtype with no gradient (decode)."""
+
+    def __init__(self, cfg: TransformerConfig, device):
+        self.dtype = cfg.dtype if cfg.decode else torch.float32
+        self.trainable = not cfg.decode
+        self.device = device
+
+    def param(self, shape, dtype=None) -> nn.Parameter:
+        return nn.Parameter(
+            torch.zeros(shape, dtype=dtype or self.dtype, device=self.device),
+            requires_grad=self.trainable)
 
 
 class DenseGeneral(nn.Module):
     """flax ``DenseGeneral`` over the trailing ``in_shape`` axes: kernel
-    ``[*in_shape, *out_shape]``, bias ``[*out_shape]``, computed in the
-    kernel's dtype (flax promotes inputs and params to ``dtype``)."""
+    ``[*in_shape, *out_shape]``, bias ``[*out_shape]``, computed in
+    ``dtype`` (flax promotes inputs and params to ``dtype``; a weight
+    already stored in it is not copied)."""
 
-    def __init__(self, in_shape, out_shape, dtype, device):
+    def __init__(self, in_shape, out_shape, dtype, store: _Store,
+                 param_dtype=None):
         super().__init__()
         self.in_shape, self.out_shape = tuple(in_shape), tuple(out_shape)
-        self.kernel = _param(self.in_shape + self.out_shape, dtype, device)
-        self.bias = _param(self.out_shape, dtype, device)
+        self.dtype = dtype
+        self.kernel = store.param(self.in_shape + self.out_shape, param_dtype)
+        self.bias = store.param(self.out_shape, param_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[: x.dim() - len(self.in_shape)]
         k, n = math.prod(self.in_shape), math.prod(self.out_shape)
-        y = (x.reshape(*lead, k).to(self.kernel.dtype)
-             @ self.kernel.reshape(k, n) + self.bias.reshape(n))
+        dt = self.dtype
+        y = (x.reshape(*lead, k).to(dt) @ self.kernel.reshape(k, n).to(dt)
+             + self.bias.reshape(n).to(dt))
         return y.reshape(*lead, *self.out_shape)
 
 
 class Embed(nn.Module):
-    def __init__(self, num, features, dtype, device):
+    """flax ``nn.Embed``: the looked-up rows in ``dtype``."""
+
+    def __init__(self, num, features, dtype, store: _Store):
         super().__init__()
-        self.weight = _param((num, features), dtype, device)
+        self.dtype = dtype
+        self.weight = store.param((num, features))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(ids, self.weight)
+        return F.embedding(ids, self.weight).to(self.dtype)
 
 
 class RMSNorm(nn.Module):
@@ -163,10 +197,10 @@ class RMSNorm(nn.Module):
 
     eps = 1e-6
 
-    def __init__(self, features, dtype, device):
+    def __init__(self, features, dtype, store: _Store):
         super().__init__()
         self.dtype = dtype
-        self.scale = _param((features,), torch.float32, device)
+        self.scale = store.param((features,), torch.float32)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
@@ -176,19 +210,20 @@ class RMSNorm(nn.Module):
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device):
+    def __init__(self, cfg: TransformerConfig, store: _Store):
         super().__init__()
         self.cfg = cfg
         d, h, dh, kv = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.kv_heads
         if cfg.n_kv_heads is not None:
             # GQA: separate projections, K/V carry only kv_heads.
-            self.q = DenseGeneral((d,), (h, dh), cfg.dtype, device)
-            self.kv = DenseGeneral((d,), (2, kv, dh), cfg.dtype, device)
+            self.q = DenseGeneral((d,), (h, dh), cfg.dtype, store)
+            self.kv = DenseGeneral((d,), (2, kv, dh), cfg.dtype, store)
         else:
-            self.qkv = DenseGeneral((d,), (3, h, dh), cfg.dtype, device)
-        self.out = DenseGeneral((h, dh), (d,), cfg.dtype, device)
+            self.qkv = DenseGeneral((d,), (3, h, dh), cfg.dtype, store)
+        self.out = DenseGeneral((h, dh), (d,), cfg.dtype, store)
 
-    def forward(self, x, layer: dict, cache: dict, live) -> torch.Tensor:
+    def forward(self, x, layer: dict | None = None, cache: dict | None = None,
+                live=None) -> torch.Tensor:
         if self.cfg.n_kv_heads is not None:
             q = self.q(x)
             kv = self.kv(x)
@@ -196,7 +231,9 @@ class Attention(nn.Module):
         else:
             qkv = self.qkv(x)
             q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        if "pool_key" in layer:
+        if not self.cfg.decode:
+            out = self._attend(q, k, v)
+        elif "pool_key" in layer:
             out = self._decode_attend_paged(
                 q, k, v, layer, cache["block_table"], cache["cache_index"],
                 live,
@@ -204,6 +241,17 @@ class Attention(nn.Module):
         else:
             out = self._decode_attend(q, k, v, layer, cache["cache_index"])
         return self.out(out)
+
+    def _attend(self, q, k, v):
+        """Training attention, causal over the whole sequence. Under GQA
+        K/V are repeated to full heads first (``jnp.repeat`` on the head
+        axis: each KV head serves its g query heads in a row), so the
+        kernels see the MHA layout; the saving is the smaller projection."""
+        g = self.cfg.n_heads // self.cfg.kv_heads
+        if g > 1:
+            k = k.repeat_interleave(g, dim=2)
+            v = v.repeat_interleave(g, dim=2)
+        return attention(q, k, v, causal=True)
 
     def _decode_attend(self, q, k, v, layer: dict, idx: int):
         """Block attention against the dense cache (t >= 1 tokens; a
@@ -257,12 +305,12 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device):
+    def __init__(self, cfg: TransformerConfig, store: _Store):
         super().__init__()
         self.in_proj = DenseGeneral((cfg.d_model,), (cfg.d_ff,), cfg.dtype,
-                                    device)
+                                    store)
         self.out_proj = DenseGeneral((cfg.d_ff,), (cfg.d_model,), cfg.dtype,
-                                     device)
+                                     store)
 
     def forward(self, x):
         # flax nn.gelu is the tanh form.
@@ -270,37 +318,42 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device):
+    def __init__(self, cfg: TransformerConfig, store: _Store):
         super().__init__()
-        self.norm_attn = RMSNorm(cfg.d_model, cfg.dtype, device)
-        self.attn = Attention(cfg, device)
-        self.norm_mlp = RMSNorm(cfg.d_model, cfg.dtype, device)
-        self.mlp = MLP(cfg, device)
+        self.norm_attn = RMSNorm(cfg.d_model, cfg.dtype, store)
+        self.attn = Attention(cfg, store)
+        self.norm_mlp = RMSNorm(cfg.d_model, cfg.dtype, store)
+        self.mlp = MLP(cfg, store)
 
-    def forward(self, x, layer: dict, cache: dict, live):
+    def forward(self, x, layer: dict | None = None, cache: dict | None = None,
+                live=None):
         x = x + self.attn(self.norm_attn(x), layer, cache, live)
         return x + self.mlp(self.norm_mlp(x))
 
 
 class Transformer(nn.Module):
-    """The decode-mode LM. ``forward(tokens, cache)`` runs t >= 1 tokens
-    per lane against ``cache`` (dense or paged, see the module
-    docstring), advances its counter in place and returns f32 logits
-    ``[b, t, vocab]`` (or the normed hidden state)."""
+    """The LM. Training mode (``cfg.decode`` False): ``forward(tokens)``
+    runs ``[b, T]`` tokens at positions ``0..T-1`` and returns f32 logits
+    ``[b, T, vocab]`` (or the normed hidden state). Decode mode:
+    ``forward(tokens, cache)`` runs t >= 1 tokens per lane against
+    ``cache`` (dense or paged, see the module docstring) and advances its
+    counter in place."""
 
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device)
-        dev, dt = self.device, cfg.dtype
-        self.embed = Embed(cfg.vocab_size, cfg.d_model, dt, dev)
-        self.pos = Embed(cfg.max_seq_len, cfg.d_model, dt, dev)
+        store = _Store(cfg, self.device)
+        dt = cfg.dtype
+        self.embed = Embed(cfg.vocab_size, cfg.d_model, dt, store)
+        self.pos = Embed(cfg.max_seq_len, cfg.d_model, dt, store)
         self.blocks = nn.ModuleList(
-            Block(cfg, dev) for _ in range(cfg.n_layers))
-        self.norm = RMSNorm(cfg.d_model, dt, dev)
+            Block(cfg, store) for _ in range(cfg.n_layers))
+        self.norm = RMSNorm(cfg.d_model, dt, store)
         # The head runs in f32 on an f32 cast of the hidden state.
         self.lm_head = DenseGeneral((cfg.d_model,), (cfg.vocab_size,),
-                                    torch.float32, dev)
+                                    torch.float32, store,
+                                    param_dtype=torch.float32)
 
     def init_cache(self, batch: int, paged: bool | None = None) -> dict:
         """An empty cache for ``batch`` lanes: paged (pools, tables on the
@@ -334,8 +387,16 @@ class Transformer(nn.Module):
             "cache_index": 0,
         }
 
-    def forward(self, tokens: torch.Tensor, cache: dict,
+    def forward(self, tokens: torch.Tensor, cache: dict | None = None,
                 return_hidden: bool = False) -> torch.Tensor:
+        if not self.cfg.decode:
+            if cache is not None:
+                raise ValueError("a training-mode model takes no cache: "
+                                 "build it with decode=True")
+            return self._train_forward(tokens, return_hidden)
+        if cache is None:
+            raise ValueError("a decode-mode model needs a cache "
+                             "(init_cache)")
         b, t = tokens.shape
         steps = torch.arange(t, device=tokens.device)
         idx = cache["cache_index"]
@@ -354,6 +415,22 @@ class Transformer(nn.Module):
             idx.add_(t)
         else:
             cache["cache_index"] = idx + t
+        x = self.norm(x)
+        return x if return_hidden else _head_logits(self, x)
+
+    def _train_forward(self, tokens: torch.Tensor,
+                       return_hidden: bool) -> torch.Tensor:
+        t = tokens.shape[1]
+        if t > self.cfg.max_seq_len:
+            raise ValueError(f"{t} tokens exceed max_seq_len "
+                             f"{self.cfg.max_seq_len}")
+        positions = torch.arange(t, device=tokens.device)[None, :]
+        x = self.embed(tokens) + self.pos(positions)
+        for block in self.blocks:
+            if self.cfg.remat:
+                x = checkpoint(block, x, use_reentrant=False)
+            else:
+                x = block(x)
         x = self.norm(x)
         return x if return_hidden else _head_logits(self, x)
 

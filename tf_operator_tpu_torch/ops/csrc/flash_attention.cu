@@ -1,0 +1,815 @@
+// Flash attention forward and backward for Hopper (sm_90a): three kernels
+// with plain C entry points, built by ops/_build.py and called through ctypes
+// by ops/flash_attention.py.
+//
+// Replaces tf_operator_tpu/ops/flash_attention.py:
+//   flash_fwd  <- _fwd_kernel (:253, pallas_call :408)   O and the row LSE
+//   flash_dq   <- _dq_kernel  (:297, pallas_call :455)   dQ
+//   flash_dkv  <- _dkv_kernel (:331, pallas_call :475)   dK and dV
+// For query row r and key column c of head (b, h), with scale = Dh^-1/2 by
+// default and, under causal (tq == tk), only columns c <= r taking part:
+//
+//   s[r,c]  = (q[r] . k[c]) * scale                              f32
+//   lse[r]  = m + log(max(l, 1e-30))    m = max_c s, l = sum_c exp(s - m)
+//   o[r]    = sum_c T(exp(s - m)) v[c] / l                        T = v's type
+//   p[r,c]  = exp(s[r,c] - lse[r])                               recomputed
+//   ds[r,c] = T(p * (do[r] . v[c] - delta[r]) * scale)   delta = rowsum(do*o)
+//   dq[r]   = sum_c ds[r,c] k[c]
+//   dk[c]   = sum_r ds[r,c] q[r]        dv[c] = sum_r T(p[r,c]) do[r]
+//
+// q, k, v and do are read as [B, T, H, Dh] through their strides (the model
+// hands over slices of its fused qkv projection without a copy); o, dq, dk
+// and dv are written contiguous [B, T, H, Dh]; lse and delta are f32
+// [B, H, T]. Every sum is f32.
+//
+// What bounds it: operations. At the training shape (B=2, H=16, T=8192,
+// Dh=64, bf16, causal) the forward does 2 products of 2*Dh flops per
+// (row, column) pair over T(T+1)/2 pairs a head, 2.75e11 flops, against
+// 134 MB of q/k/v/o: about 2000 flops a byte, far above the H100's ~295
+// flop/byte ridge, so the tensor cores' 989 TFLOP/s (0.28 ms) is the bound.
+// dQ does 3 products and dK/dV 4.
+//
+// What the design does about it:
+//  - The TPU kernels walk a sequential grid and carry accumulators in VMEM
+//    scratch from one grid step to the next. Here a CTA owns one 64-row
+//    tile and walks the other axis in a loop: the forward and dQ kernels
+//    own a query tile and walk key tiles; the dK/dV kernel owns a key tile
+//    and walks query tiles from the first one the causal mask lets in, so
+//    no sum crosses CTAs and nothing needs atomics.
+//  - Causal tiles above the diagonal are skipped, and the forward and dQ
+//    grids start with the longest rows so the short ones fill the tail.
+//  - Only the input tiles go through shared memory: cp.async copies (rows
+//    past T zero-filled), the walked tiles double-buffered so tile j + 1
+//    lands while tile j is used. Each of the 4 warps owns 16 rows of the
+//    CTA's tile and keeps everything else in registers, as
+//    FlashAttention-2 does: the products run as mma.sync m16n8k16 (bf16
+//    in, f32 sums) on the tensor cores with operands read by ldmatrix;
+//    the scores S, the probabilities P and dS stay in the products'
+//    accumulator fragments, and a 16x16 pair of them is the A operand of
+//    the next product with no trip through memory. The online softmax's
+//    running max and sum and the O, dQ, dK and dV sums are registers
+//    too. A thread holds two rows of each fragment (g and g+8 of its
+//    16), so row reductions take two shuffles within a quad.
+//  - Registers set how many CTAs share an SM; for bf16 at Dh <= 64 the
+//    kernels are compiled to fit 4 (forward, dQ) and 3 (dK/dV).
+//  - f32 inputs, which the exactness checks use, run the same kernels
+//    with the product done in f32 FMAs on the same fragment layout
+//    (operands gathered from the quad by shuffles).
+// Larger tiles, wgmma and TMA are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16;              // rows a warp owns
+constexpr int kTile = kWarps * kRows;  // rows of a CTA's tile
+constexpr int kNt = kTile / 8;         // 8-column fragments across a tile
+constexpr float kMasked = -1e30f;      // the reference's mask value
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Row pitch of a tile of T in shared memory: padded by 16 bytes, which keeps
+// 16-byte row alignment and spreads a fragment's loads over the banks.
+template <typename T>
+__host__ __device__ constexpr int pitch(int cols) {
+  return cols + 16 / int(sizeof(T));
+}
+__host__ __device__ constexpr size_t up(size_t bytes) {
+  return (bytes + 127) & ~size_t(127);
+}
+
+// Strides (in elements) of one [B, T, H, Dh] input; Dh is contiguous.
+struct View {
+  long long sb, st, sh;
+};
+
+// Copy 16 bytes from device memory to shared memory without passing
+// through registers; with `valid` false the 16 bytes are zero-filled and
+// nothing is read. Completes at cp_async_wait.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N of this thread's copy groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Start loading rows [row0, row0 + kTile) of head (b, h) of a strided input
+// into a [kTile][pitch] tile; rows at or past n are zero.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, View v,
+                                          int b, int h, int row0, int n) {
+  constexpr int kPer = 16 / sizeof(T);
+  constexpr int kVecs = D / kPer;
+  constexpr int ld = pitch<T>(D);
+  const T* base = src + b * v.sb + h * v.sh;
+  for (int e = threadIdx.x; e < kTile * kVecs; e += kThreads) {
+    const int r = e / kVecs, c = (e % kVecs) * kPer;
+    const bool in = row0 + r < n;
+    cp_async16(dst + r * ld + c, in ? base + (row0 + r) * v.st + c : base,
+               in);
+  }
+}
+
+// The m16n8k16 product D += A.B on fragments, lane = 4 g + t:
+//   A (16x16): (row g | g+8, col 2t, 2t+1 | 2t+8, 2t+9)
+//   B (16x8):  (row 2t, 2t+1 | 2t+8, 2t+9, col g)
+//   C (16x8):  c[0], c[1] at (row g, col 2t, 2t+1); c[2], c[3] at row g+8.
+// Operands come from row-major shared-memory tiles: load_a reads a 16x16
+// block, load_bt2 the B fragments of two 8-wide n-tiles whose k runs along
+// a row (B[k][n] = src[n][k]: K for Q.K^T), load_bn2 two whose n runs
+// along a row (B[k][n] = src[k][n]: V for P.V). For bf16 each is one
+// ldmatrix.x4 (.trans for load_bn2). from_c turns two C fragments
+// (columns 0-7 and 8-15 of a 16x16 block) into an A fragment, rounded
+// to T.
+template <typename T>
+struct Mma;
+
+template <>
+struct Mma<bf16> {
+  struct A {
+    uint32_t r[4];
+  };
+  struct B {
+    uint32_t r[2];
+  };
+  struct B2 {  // two B fragments: n-tiles n0 and n0 + 1
+    B lo, hi;
+  };
+  static __device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
+    return uint32_t(__bfloat16_as_ushort(lo)) |
+           (uint32_t(__bfloat16_as_ushort(hi)) << 16);
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    return pack(__float2bfloat16(lo), __float2bfloat16(hi));
+  }
+  static __device__ __forceinline__ void ldsm(uint32_t (&r)[4],
+                                              const bf16* p) {
+    const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(a));
+  }
+  static __device__ __forceinline__ void ldsm_t(uint32_t (&r)[4],
+                                                const bf16* p) {
+    const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(a));
+  }
+  // Each lane names one 16-byte row of one of the four 8x8 matrices.
+  static __device__ __forceinline__ A load_a(const bf16* p, int ld,
+                                             int lane) {
+    A a;
+    ldsm(a.r, p + (lane & 15) * ld + (lane >> 4) * 8);
+    return a;
+  }
+  static __device__ __forceinline__ B2 load_bt2(const bf16* p, int ld,
+                                                int lane) {
+    uint32_t r[4];
+    ldsm(r, p + ((lane & 7) + (lane >> 4) * 8) * ld + ((lane >> 3) & 1) * 8);
+    return B2{B{{r[0], r[1]}}, B{{r[2], r[3]}}};
+  }
+  static __device__ __forceinline__ B2 load_bn2(const bf16* p, int ld,
+                                                int lane) {
+    uint32_t r[4];
+    ldsm_t(r, p + ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + (lane >> 4) * 8);
+    return B2{B{{r[0], r[1]}}, B{{r[2], r[3]}}};
+  }
+  static __device__ __forceinline__ A from_c(const float* lo,
+                                             const float* hi) {
+    return A{{pack(lo[0], lo[1]), pack(lo[2], lo[3]), pack(hi[0], hi[1]),
+              pack(hi[2], hi[3])}};
+  }
+  static __device__ __forceinline__ void mma(float* c, const A& a,
+                                             const B& b) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "r"(b.r[0]),
+          "r"(b.r[1]));
+  }
+};
+
+template <>
+struct Mma<float> {
+  // The same fragments, one float a value: A r[0..7] = rows (g, g, g+8,
+  // g+8, g, g, g+8, g+8) at cols (2t, 2t+1, 2t, 2t+1, 2t+8, 2t+9, 2t+8,
+  // 2t+9); B r[0..3] = rows 2t, 2t+1, 2t+8, 2t+9 at col g.
+  struct A {
+    float r[8];
+  };
+  struct B {
+    float r[4];
+  };
+  struct B2 {
+    B lo, hi;
+  };
+  static __device__ __forceinline__ A load_a(const float* p, int ld,
+                                             int lane) {
+    const int g = lane >> 2, t = lane & 3;
+    const float* r0 = p + g * ld + 2 * t;
+    const float* r8 = p + (g + 8) * ld + 2 * t;
+    return A{{r0[0], r0[1], r8[0], r8[1], r0[8], r0[9], r8[8], r8[9]}};
+  }
+  static __device__ __forceinline__ B load_bt(const float* p, int ld,
+                                              int lane) {
+    const float* r = p + (lane >> 2) * ld + 2 * (lane & 3);
+    return B{{r[0], r[1], r[8], r[9]}};
+  }
+  static __device__ __forceinline__ B load_bn(const float* p, int ld,
+                                              int lane) {
+    const int g = lane >> 2, t = lane & 3;
+    return B{{p[2 * t * ld + g], p[(2 * t + 1) * ld + g],
+              p[(2 * t + 8) * ld + g], p[(2 * t + 9) * ld + g]}};
+  }
+  static __device__ __forceinline__ B2 load_bt2(const float* p, int ld,
+                                                int lane) {
+    return B2{load_bt(p, ld, lane), load_bt(p + 8 * ld, ld, lane)};
+  }
+  static __device__ __forceinline__ B2 load_bn2(const float* p, int ld,
+                                                int lane) {
+    return B2{load_bn(p, ld, lane), load_bn(p + 8, ld, lane)};
+  }
+  static __device__ __forceinline__ A from_c(const float* lo,
+                                             const float* hi) {
+    return A{{lo[0], lo[1], lo[2], lo[3], hi[0], hi[1], hi[2], hi[3]}};
+  }
+  // Row g's and g+8's k values come from the lanes of quad g; column 2t's
+  // and 2t+1's from quads 2t and 2t+1. Sums in f32 FMAs. The loop stays
+  // rolled: this path only checks exactness, and unrolled it multiplies
+  // the kernels' code and build time.
+  static __device__ __forceinline__ void mma(float* c, const A& a,
+                                             const B& b) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll 1
+    for (int src = 0; src < 4; ++src) {
+      float av[8], b0[4], b1[4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        av[i] = __shfl_sync(0xffffffffu, a.r[i], 4 * g + src);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        b0[i] = __shfl_sync(0xffffffffu, b.r[i], 8 * t + src);
+        b1[i] = __shfl_sync(0xffffffffu, b.r[i], 8 * t + 4 + src);
+      }
+      // k order: (2src, 2src+1) then (2src+8, 2src+9).
+      c[0] = fmaf(av[0], b0[0], fmaf(av[1], b0[1],
+             fmaf(av[4], b0[2], fmaf(av[5], b0[3], c[0]))));
+      c[1] = fmaf(av[0], b1[0], fmaf(av[1], b1[1],
+             fmaf(av[4], b1[2], fmaf(av[5], b1[3], c[1]))));
+      c[2] = fmaf(av[2], b0[0], fmaf(av[3], b0[1],
+             fmaf(av[6], b0[2], fmaf(av[7], b0[3], c[2]))));
+      c[3] = fmaf(av[2], b1[0], fmaf(av[3], b1[1],
+             fmaf(av[6], b1[2], fmaf(av[7], b1[3], c[3]))));
+    }
+  }
+};
+
+// S[16][kTile] = A_rows[16][D] . B_rows[kTile][D]^T for one warp: both
+// operands row-major tiles in shared memory, the result in C fragments.
+template <typename T, int D>
+__device__ __forceinline__ void scores(float (&s)[kNt][4], const T* a_rows,
+                                       const T* b_rows, int lane) {
+  constexpr int ld = pitch<T>(D);
+#pragma unroll
+  for (int n = 0; n < kNt; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const typename Mma<T>::A a = Mma<T>::load_a(a_rows + kk * 16, ld, lane);
+#pragma unroll
+    for (int n = 0; n < kNt; n += 2) {
+      const typename Mma<T>::B2 b =
+          Mma<T>::load_bt2(b_rows + n * 8 * ld + kk * 16, ld, lane);
+      Mma<T>::mma(s[n], a, b.lo);
+      Mma<T>::mma(s[n + 1], a, b.hi);
+    }
+  }
+}
+
+// acc[16][D] += P[16][kTile] . B_rows[kTile][D] for one warp: P in C
+// fragments (rounded to T as the A operand), B a row-major shared tile.
+template <typename T, int D>
+__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
+                                           float (&p)[kNt][4],
+                                           const T* b_rows, int lane) {
+  constexpr int ld = pitch<T>(D);
+#pragma unroll
+  for (int kk = 0; kk < kTile / 16; ++kk) {
+    const typename Mma<T>::A a = Mma<T>::from_c(p[2 * kk], p[2 * kk + 1]);
+#pragma unroll
+    for (int n = 0; n < D / 8; n += 2) {
+      const typename Mma<T>::B2 b =
+          Mma<T>::load_bn2(b_rows + kk * 16 * ld + n * 8, ld, lane);
+      Mma<T>::mma(acc[n], a, b.lo);
+      Mma<T>::mma(acc[n + 1], a, b.hi);
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Write a warp's 16 rows of a D-wide sum (C fragments, times `mul` per
+// row half) to contiguous [B, T, H, D] output rows.
+template <typename T, int D>
+__device__ __forceinline__ void store_rows(T* out, float (&acc)[D / 8][4],
+                                           int b, int h, int heads, int n,
+                                           int row_g, float mul_g,
+                                           float mul_g8, int t) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row_g + 8 * half;
+    if (row >= n) continue;
+    const float mul = half ? mul_g8 : mul_g;
+    T* dst = out + ((size_t(b) * n + row) * heads + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      dst[j * 8 + 2 * t] = from_f32<T>(acc[j][2 * half] * mul);
+      dst[j * 8 + 2 * t + 1] = from_f32<T>(acc[j][2 * half + 1] * mul);
+    }
+  }
+}
+
+// CTAs an SM each kernel is compiled to fit by its register count: for
+// bf16 at Dh <= 64, 4 for the forward and dQ (128 registers) and 3 for
+// dK/dV (168); elsewhere the compiler's choice. A register more than
+// that costs a whole CTA an SM.
+template <typename T, int D>
+constexpr int min_ctas(int bf16_small) {
+  return sizeof(T) == 2 && D <= 64 ? bf16_small : 1;
+}
+
+template <typename T, int D>
+__host__ __device__ constexpr size_t tile_bytes() {
+  return up(sizeof(T) * kTile * pitch<T>(D));
+}
+
+// The streamed tiles are double-buffered: tile j + 1 loads while tile j
+// is used.
+template <typename T, int D>
+constexpr size_t fwd_smem() {
+  return 5 * tile_bytes<T, D>();  // q, then (k, v) twice
+}
+
+template <typename T, int D>
+constexpr size_t dq_smem() {
+  return 6 * tile_bytes<T, D>();  // q, do, then (k, v) twice
+}
+
+template <typename T, int D>
+constexpr size_t dkv_smem() {
+  // k, v, then (q, do) twice and (lse, delta) twice.
+  return 6 * tile_bytes<T, D>() + 4 * up(sizeof(float) * kTile);
+}
+
+// Tile i of a kernel's shared memory.
+template <typename T, int D>
+__device__ __forceinline__ T* tile(unsigned char* smem, int i) {
+  return reinterpret_cast<T*>(smem + i * tile_bytes<T, D>());
+}
+
+// Grid of the forward and dQ kernels: x = query tile (longest rows first),
+// y = head, z = batch.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, min_ctas<T, D>(4))
+flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
+          const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+          View qv, View kv, View vv, int heads, int tq, int tk, float scale,
+          int causal) {
+  constexpr int ld = pitch<T>(D);
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* qs = tile<T, D>(smem, 0);  // then k, v of stage 0 and of stage 1
+
+  const int nq = (tq + kTile - 1) / kTile;
+  const int qt = nq - 1 - blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = qt * kTile, r0 = warp * kRows;
+  const int row_g = q0 + r0 + g;  // this thread's rows: row_g, row_g + 8
+
+  load_tile<T, D>(qs, q, qv, b, h, q0, tq);
+  load_tile<T, D>(tile<T, D>(smem, 1), k, kv, b, h, 0, tk);
+  load_tile<T, D>(tile<T, D>(smem, 2), v, vv, b, h, 0, tk);
+  cp_async_commit();
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+  float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
+  const int nk_all = (tk + kTile - 1) / kTile;
+  const int nk = causal ? min(qt + 1, nk_all) : nk_all;
+
+  for (int j = 0; j < nk; ++j) {
+    if (j + 1 < nk) {
+      const int next = 1 + 2 * ((j + 1) & 1);
+      load_tile<T, D>(tile<T, D>(smem, next), k, kv, b, h, (j + 1) * kTile,
+                      tk);
+      load_tile<T, D>(tile<T, D>(smem, next + 1), v, vv, b, h,
+                      (j + 1) * kTile, tk);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile j has landed (tile j + 1 may be in flight)
+    __syncthreads();
+    const T* ks = tile<T, D>(smem, 1 + 2 * (j & 1));
+    const T* vs = tile<T, D>(smem, 2 + 2 * (j & 1));
+    float s[kNt][4];
+    scores<T, D>(s, qs + r0 * ld, ks, lane);
+    float mx[2] = {kMasked, kMasked};
+#pragma unroll
+    for (int n = 0; n < kNt; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = row_g + 8 * (i >> 1);
+        const int col = j * kTile + n * 8 + 2 * t + (i & 1);
+        const bool ok = col < tk && (!causal || col <= row);
+        s[n][i] = ok ? s[n][i] * scale : -INFINITY;
+        mx[i >> 1] = fmaxf(mx[i >> 1], s[n][i]);
+      }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const float m_new = fmaxf(m[hr], quad_max(mx[hr]));
+      alpha[hr] = expf(m[hr] - m_new);
+      m[hr] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < kNt; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[n][i] = expf(s[n][i] - m[i >> 1]);  // masked: exp(-inf) = 0
+        sum[i >> 1] += s[n][i];
+      }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) l[hr] = l[hr] * alpha[hr] + quad_sum(sum[hr]);
+#pragma unroll
+    for (int jd = 0; jd < D / 8; ++jd)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[jd][i] *= alpha[i >> 1];
+    accumulate<T, D>(acc, s, vs, lane);
+    __syncthreads();  // every warp is done with this stage's k, v
+  }
+  const float safe[2] = {fmaxf(l[0], 1e-30f), fmaxf(l[1], 1e-30f)};
+  store_rows<T, D>(o, acc, b, h, heads, tq, row_g, 1.f / safe[0],
+                   1.f / safe[1], t);
+  if (t == 0) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = row_g + 8 * hr;
+      if (row < tq)
+        lse[(size_t(b) * heads + h) * tq + row] = m[hr] + logf(safe[hr]);
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, min_ctas<T, D>(4))
+flash_dq(const T* __restrict__ q, const T* __restrict__ k,
+         const T* __restrict__ v, const T* __restrict__ dout,
+         const float* __restrict__ lse, const float* __restrict__ delta,
+         T* __restrict__ dq, View qv, View kv, View vv, View dov, int heads,
+         int tq, int tk, float scale, int causal) {
+  constexpr int ld = pitch<T>(D);
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* qs = tile<T, D>(smem, 0);
+  T* dos = tile<T, D>(smem, 1);  // then k, v of stage 0 and of stage 1
+
+  const int nq = (tq + kTile - 1) / kTile;
+  const int qt = nq - 1 - blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = qt * kTile, r0 = warp * kRows;
+  const int row_g = q0 + r0 + g;
+  const size_t row_base = (size_t(b) * heads + h) * tq;
+
+  load_tile<T, D>(qs, q, qv, b, h, q0, tq);
+  load_tile<T, D>(dos, dout, dov, b, h, q0, tq);
+  load_tile<T, D>(tile<T, D>(smem, 2), k, kv, b, h, 0, tk);
+  load_tile<T, D>(tile<T, D>(smem, 3), v, vv, b, h, 0, tk);
+  cp_async_commit();
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = row_g + 8 * hr;
+    lse_r[hr] = row < tq ? lse[row_base + row] : 0.f;
+    delta_r[hr] = row < tq ? delta[row_base + row] : 0.f;
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+  const int nk_all = (tk + kTile - 1) / kTile;
+  const int nk = causal ? min(qt + 1, nk_all) : nk_all;
+
+  for (int j = 0; j < nk; ++j) {
+    if (j + 1 < nk) {
+      const int next = 2 + 2 * ((j + 1) & 1);
+      load_tile<T, D>(tile<T, D>(smem, next), k, kv, b, h, (j + 1) * kTile,
+                      tk);
+      load_tile<T, D>(tile<T, D>(smem, next + 1), v, vv, b, h,
+                      (j + 1) * kTile, tk);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const T* ks = tile<T, D>(smem, 2 + 2 * (j & 1));
+    const T* vs = tile<T, D>(smem, 3 + 2 * (j & 1));
+    float s[kNt][4], dp[kNt][4];
+    scores<T, D>(s, qs + r0 * ld, ks, lane);
+    scores<T, D>(dp, dos + r0 * ld, vs, lane);
+#pragma unroll
+    for (int n = 0; n < kNt; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int hr = i >> 1, row = row_g + 8 * hr;
+        const int col = j * kTile + n * 8 + 2 * t + (i & 1);
+        const bool ok = col < tk && (!causal || col <= row);
+        const float p = ok ? expf(s[n][i] * scale - lse_r[hr]) : 0.f;
+        s[n][i] = p * (dp[n][i] - delta_r[hr]) * scale;  // dS
+      }
+    accumulate<T, D>(acc, s, ks, lane);
+    __syncthreads();
+  }
+  store_rows<T, D>(dq, acc, b, h, heads, tq, row_g, 1.f, 1.f, t);
+}
+
+// Grid: x = key tile, y = head, z = batch. Under causal, key tile j meets
+// query tiles from j on, so CTA 0 walks the most and the grid's order
+// already starts with the longest walks.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, min_ctas<T, D>(3))
+flash_dkv(const T* __restrict__ q, const T* __restrict__ k,
+          const T* __restrict__ v, const T* __restrict__ dout,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          T* __restrict__ dk, T* __restrict__ dv, View qv, View kv, View vv,
+          View dov, int heads, int tq, int tk, float scale, int causal) {
+  constexpr int ld = pitch<T>(D);
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* ks = tile<T, D>(smem, 0);
+  T* vs = tile<T, D>(smem, 1);  // then q, do of stage 0 and of stage 1
+  // lse and delta of stage 0, then of stage 1, after the six tiles.
+  float* rows = reinterpret_cast<float*>(smem + 6 * tile_bytes<T, D>());
+  constexpr int kRowVec = up(sizeof(float) * kTile) / sizeof(float);
+
+  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = kt * kTile, r0 = warp * kRows;
+  const int key_g = k0 + r0 + g;  // this thread's keys: key_g, key_g + 8
+  const size_t row_base = (size_t(b) * heads + h) * tq;
+
+  const int nq = (tq + kTile - 1) / kTile;
+  const int first = causal ? kt : 0;
+  // Start loading query tile i (q, do, lse, delta) into `stage`.
+  auto load_q = [&](int i, int stage) {
+    const int q0 = i * kTile;
+    load_tile<T, D>(tile<T, D>(smem, 2 + 2 * stage), q, qv, b, h, q0, tq);
+    load_tile<T, D>(tile<T, D>(smem, 3 + 2 * stage), dout, dov, b, h, q0,
+                    tq);
+    float* lse_s = rows + (2 * stage) * kRowVec;
+    float* delta_s = lse_s + kRowVec;
+    for (int c = threadIdx.x; c < kTile; c += kThreads) {
+      const bool in = q0 + c < tq;
+      lse_s[c] = in ? lse[row_base + q0 + c] : 0.f;
+      delta_s[c] = in ? delta[row_base + q0 + c] : 0.f;
+    }
+  };
+  load_tile<T, D>(ks, k, kv, b, h, k0, tk);
+  load_tile<T, D>(vs, v, vv, b, h, k0, tk);
+  load_q(first, 0);
+  cp_async_commit();
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk_acc[j][i] = dv_acc[j][i] = 0.f;
+
+  for (int i0 = first; i0 < nq; ++i0) {
+    const int stage = (i0 - first) & 1;
+    if (i0 + 1 < nq) load_q(i0 + 1, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int q0 = i0 * kTile;
+    const T* qs = tile<T, D>(smem, 2 + 2 * stage);
+    const T* dos = tile<T, D>(smem, 3 + 2 * stage);
+    const float* lse_s = rows + (2 * stage) * kRowVec;
+    const float* delta_s = rows + (2 * stage + 1) * kRowVec;
+    // Transposed: row = key, column = query.
+    float st[kNt][4], dpt[kNt][4];
+    scores<T, D>(st, ks + r0 * ld, qs, lane);
+    scores<T, D>(dpt, vs + r0 * ld, dos, lane);
+#pragma unroll
+    for (int n = 0; n < kNt; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = key_g + 8 * (i >> 1);
+        const int c = n * 8 + 2 * t + (i & 1), row = q0 + c;
+        const bool ok = row < tq && (!causal || row >= key);
+        const float p = ok ? expf(st[n][i] * scale - lse_s[c]) : 0.f;
+        st[n][i] = p;
+        dpt[n][i] = p * (dpt[n][i] - delta_s[c]) * scale;  // dS^T
+      }
+    accumulate<T, D>(dv_acc, st, dos, lane);
+    accumulate<T, D>(dk_acc, dpt, qs, lane);
+    __syncthreads();
+  }
+  store_rows<T, D>(dk, dk_acc, b, h, heads, tk, key_g, 1.f, 1.f, t);
+  store_rows<T, D>(dv, dv_acc, b, h, heads, tk, key_g, 1.f, 1.f, t);
+}
+
+// Above 48 KB a kernel needs the opt-in; set it once per instance.
+template <typename F>
+cudaError_t opt_in(F* kernel, size_t bytes, bool* done) {
+  if (*done) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  if (err == cudaSuccess) *done = true;
+  return err;
+}
+
+View view(const long long* s) { return View{s[0], s[1], s[2]}; }
+
+template <typename T, int D>
+cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
+                float* lse, int b, int h, int tq, int tk,
+                const long long* strides, float scale, int causal,
+                cudaStream_t stream) {
+  static bool done = false;
+  constexpr size_t bytes = fwd_smem<T, D>();
+  cudaError_t err = opt_in(flash_fwd<T, D>, bytes, &done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((tq + kTile - 1) / kTile, h, b);
+  flash_fwd<T, D><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), lse, view(strides),
+      view(strides + 3), view(strides + 6), h, tq, tk, scale, causal);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t dq_launch(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* delta,
+                      void* dq, int b, int h, int tq, int tk,
+                      const long long* strides, float scale, int causal,
+                      cudaStream_t stream) {
+  static bool done = false;
+  constexpr size_t bytes = dq_smem<T, D>();
+  cudaError_t err = opt_in(flash_dq<T, D>, bytes, &done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((tq + kTile - 1) / kTile, h, b);
+  flash_dq<T, D><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dq), view(strides), view(strides + 3),
+      view(strides + 6), view(strides + 9), h, tq, tk, scale, causal);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t dkv_launch(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse, const float* delta,
+                       void* dk, void* dv, int b, int h, int tq, int tk,
+                       const long long* strides, float scale, int causal,
+                       cudaStream_t stream) {
+  static bool done = false;
+  constexpr size_t bytes = dkv_smem<T, D>();
+  cudaError_t err = opt_in(flash_dkv<T, D>, bytes, &done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((tk + kTile - 1) / kTile, h, b);
+  flash_dkv<T, D><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dk), static_cast<T*>(dv), view(strides),
+      view(strides + 3), view(strides + 6), view(strides + 9), h, tq, tk,
+      scale, causal);
+  return cudaGetLastError();
+}
+
+bool bad_geometry(int b, int h, int tq, int tk, int causal) {
+  return b < 1 || h < 1 || b > 65535 || h > 65535 || tq < 1 || tk < 1 ||
+         (causal && tq != tk);
+}
+
+}  // namespace
+
+// Dispatch on (is_bf16, dh) to a template instance: bf16 or f32, Dh in
+// {32, 64, 128}. An unsupported pair returns cudaErrorInvalidValue.
+#define FLASH_DISPATCH(CALL)                                   \
+  switch (dh) {                                                \
+    case 32:                                                   \
+      err = is_bf16 ? CALL(bf16, 32) : CALL(float, 32);        \
+      break;                                                   \
+    case 64:                                                   \
+      err = is_bf16 ? CALL(bf16, 64) : CALL(float, 64);        \
+      break;                                                   \
+    case 128:                                                  \
+      err = is_bf16 ? CALL(bf16, 128) : CALL(float, 128);      \
+      break;                                                   \
+    default:                                                   \
+      err = cudaErrorInvalidValue;                             \
+  }
+
+// Inputs q [b, tq, h, dh], k and v [b, tk, h, dh] (and do [b, tq, h, dh]) in
+// one dtype (is_bf16: 1 = bf16, 0 = f32), strided, with `strides` holding
+// (batch, time, head) strides in elements for each input in argument order;
+// dh contiguous, every pointer and stride 16-byte aligned. Outputs are
+// contiguous: o/dq [b, tq, h, dh], dk/dv [b, tk, h, dh] in the input dtype,
+// lse and delta f32 [b, h, tq]. Each call launches on `stream`, allocates
+// nothing, does not synchronise, and returns cudaGetLastError() (0 =
+// launched).
+extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
+                                void* o, void* lse, int b, int h, int tq,
+                                int tk, int dh, const long long* strides,
+                                float scale, int causal, int is_bf16,
+                                void* stream) {
+  if (bad_geometry(b, h, tq, tk, causal)) return int(cudaErrorInvalidValue);
+  cudaError_t err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+#define FWD_CALL(T, D) \
+  fwd<T, D>(q, k, v, o, l, b, h, tq, tk, strides, scale, causal, s)
+  FLASH_DISPATCH(FWD_CALL)
+#undef FWD_CALL
+  return int(err);
+}
+
+extern "C" int flash_dq_launch(const void* q, const void* k, const void* v,
+                               const void* dout, const void* lse,
+                               const void* delta, void* dq, int b, int h,
+                               int tq, int tk, int dh,
+                               const long long* strides, float scale,
+                               int causal, int is_bf16, void* stream) {
+  if (bad_geometry(b, h, tq, tk, causal)) return int(cudaErrorInvalidValue);
+  cudaError_t err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+#define DQ_CALL(T, D)                                                    \
+  dq_launch<T, D>(q, k, v, dout, l, dl, dq, b, h, tq, tk, strides, scale, \
+                  causal, s)
+  FLASH_DISPATCH(DQ_CALL)
+#undef DQ_CALL
+  return int(err);
+}
+
+extern "C" int flash_dkv_launch(const void* q, const void* k, const void* v,
+                                const void* dout, const void* lse,
+                                const void* delta, void* dk, void* dv, int b,
+                                int h, int tq, int tk, int dh,
+                                const long long* strides, float scale,
+                                int causal, int is_bf16, void* stream) {
+  if (bad_geometry(b, h, tq, tk, causal)) return int(cudaErrorInvalidValue);
+  cudaError_t err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+#define DKV_CALL(T, D)                                                   \
+  dkv_launch<T, D>(q, k, v, dout, l, dl, dk, dv, b, h, tq, tk, strides,  \
+                   scale, causal, s)
+  FLASH_DISPATCH(DKV_CALL)
+#undef DKV_CALL
+  return int(err);
+}

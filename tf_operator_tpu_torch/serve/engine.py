@@ -103,7 +103,8 @@ class ContinuousEngine:
             kv_blocks = self.max_slots * self.table_len + 1
         self.kv_blocks = int(kv_blocks)
         # The config validates kv_attend and the block geometry.
-        self.cfg = replace(cfg, kv_paged=True, kv_block=self.kv_block,
+        self.cfg = replace(cfg, decode=True, kv_paged=True,
+                           kv_block=self.kv_block,
                            kv_num_blocks=self.kv_blocks, kv_attend=kv_attend)
         # One module serves both layouts: prefill runs it over a dense
         # cache, the step over the paged one.

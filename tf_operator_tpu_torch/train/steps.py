@@ -1,0 +1,244 @@
+"""The LM training step, its loss and its optimiser, in PyTorch.
+
+Counterpart of ``tf_operator_tpu/train/steps.py`` for one device:
+``make_lm_train_step`` builds ``step(state, batch) -> (state, metrics)``
+over a training-mode ``Transformer`` (f32 weights, ``cfg.dtype`` compute)
+and an ``adamw`` optimiser, whose learning rate may be ``warmup_cosine``.
+Where JAX returns a new state, the port updates the model's weights and
+the optimiser's moments in place and returns the same ``TrainState``.
+
+Not ported yet: the eval steps, ``sharded_lm_xent``, ``fuse_steps`` (a
+CUDA graph of the step is its counterpart), the other optimisers, and
+meshes (``mesh`` raises, naming ROADMAP.md A8) and MoE's auxiliary loss
+(``aux_loss_weight`` raises, naming A9).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from tf_operator_tpu_torch.models.transformer import Transformer
+
+Schedule = Callable[[int], float]
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean softmax cross-entropy over every position, in f32."""
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]).float(),
+                           labels.reshape(-1).long())
+
+
+class _RoundedDot(torch.autograd.Function):
+    """``h @ kernel`` in f32 with both operands rounded to ``dtype``: the
+    numerics of JAX's ``dot(h.astype(dtype), kernel.astype(dtype),
+    preferred_element_type=f32)``. On the card the forward is one
+    tensor-core product with f32 sums and output (torch.mm's
+    ``out_dtype``); elsewhere it multiplies the upcast operands. The
+    backward multiplies in f32 and rounds each gradient to ``dtype``
+    before casting it to its input's dtype, as JAX's transpose does."""
+
+    @staticmethod
+    def forward(ctx, h, kernel, dtype):
+        a, b = h.to(dtype), kernel.to(dtype)
+        ctx.save_for_backward(a, b)
+        ctx.in_dtypes = (h.dtype, kernel.dtype)
+        if a.is_cuda:
+            flat = torch.mm(a.reshape(-1, a.shape[-1]), b,
+                            out_dtype=torch.float32)
+            return flat.reshape(*a.shape[:-1], b.shape[-1])
+        return a.float() @ b.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        h_dtype, k_dtype = ctx.in_dtypes
+        gh = (g @ b.float().T).to(a.dtype).to(h_dtype)
+        gk = (a.reshape(-1, a.shape[-1]).float().T
+              @ g.reshape(-1, g.shape[-1])).to(b.dtype).to(k_dtype)
+        return gh, gk, None
+
+
+def _head_logits(h: torch.Tensor, kernel: torch.Tensor,
+                 bias: torch.Tensor | None, dot_dtype) -> torch.Tensor:
+    """One chunk's f32 logits: an f32 product, or with ``dot_dtype``
+    (bf16) a product of operands rounded to it with f32 sums and output."""
+    if dot_dtype is not None:
+        logits = _RoundedDot.apply(h, kernel, dot_dtype)
+    else:
+        logits = h.float() @ kernel.float()
+    if bias is not None:
+        logits = logits + bias.float()
+    return logits
+
+
+def _chunk_loss(h, kernel, bias, labels, dot_dtype) -> torch.Tensor:
+    logits = _head_logits(h, kernel, bias, dot_dtype)
+    picked = logits.gather(-1, labels[..., None].long())[..., 0]
+    return (torch.logsumexp(logits, dim=-1) - picked).sum()
+
+
+def chunked_lm_xent(hidden: torch.Tensor, kernel: torch.Tensor,
+                    bias: torch.Tensor | None, labels: torch.Tensor, *,
+                    chunk: int = 512, dot_dtype=None) -> torch.Tensor:
+    """Exact mean softmax cross-entropy without the ``[B, S, V]`` logits:
+    the head runs over ``chunk`` positions at a time, and each chunk is
+    checkpointed so the backward recomputes its logits instead of keeping
+    them. Peak logits memory is ``B * chunk * V`` f32. Raises
+    ``ValueError`` when ``chunk`` does not divide the sequence."""
+    b, s, _ = hidden.shape
+    if s % chunk:
+        raise ValueError(f"seq {s} not divisible by xent chunk {chunk}")
+    total = hidden.new_zeros((), dtype=torch.float32)
+    for c0 in range(0, s, chunk):
+        total = total + checkpoint(
+            _chunk_loss, hidden[:, c0:c0 + chunk], kernel, bias,
+            labels[:, c0:c0 + chunk], dot_dtype, use_reentrant=False)
+    return total / (b * s)
+
+
+@dataclass(frozen=True)
+class AdamW:
+    """optax ``adamw``: b1 0.9, b2 0.999, eps 1e-8, eps_root 0, and
+    decoupled weight decay (scaled by the learning rate) on every leaf.
+    ``lr`` is a number or a schedule of the step count, which optax
+    evaluates at the count before the update (step 0 runs at
+    ``lr(0)``)."""
+
+    lr: float | Schedule
+    weight_decay: float = 0.01
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+
+    def learning_rate(self, step: int) -> float:
+        return float(self.lr(step) if callable(self.lr) else self.lr)
+
+    def init(self, model: torch.nn.Module) -> torch.optim.AdamW:
+        """torch's AdamW follows optax's formula at these settings:
+        ``p -= lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)``."""
+        return torch.optim.AdamW(
+            model.parameters(), lr=self.learning_rate(0),
+            betas=(self.b1, self.b2), eps=self.eps,
+            weight_decay=self.weight_decay)
+
+
+def adamw(lr: float | Schedule = 3e-4, weight_decay: float = 0.01) -> AdamW:
+    """AdamW; ``lr`` may be a number or a schedule (``warmup_cosine``)."""
+    return AdamW(lr, weight_decay)
+
+
+def warmup_cosine(peak_lr: float, total_steps: int, *,
+                  warmup_steps: int | None = None,
+                  end_lr_fraction: float = 0.1) -> Schedule:
+    """Linear warmup from 0 to ``peak_lr`` over ``warmup_steps``, then a
+    cosine decay to ``peak_lr * end_lr_fraction`` at ``total_steps``:
+    the same function of the step as
+    ``optax.warmup_cosine_decay_schedule`` with these arguments."""
+    if warmup_steps is None:
+        warmup_steps = max(1, total_steps // 20)
+    decay_steps = total_steps - warmup_steps
+    if decay_steps <= 0:
+        raise ValueError(f"total_steps={total_steps} must exceed "
+                         f"warmup_steps={warmup_steps}")
+    end = peak_lr * end_lr_fraction
+    alpha = 0.0 if peak_lr == 0.0 else end / peak_lr
+
+    def schedule(step: int) -> float:
+        if step < warmup_steps:
+            return peak_lr * max(step, 0) / warmup_steps
+        count = min(step - warmup_steps, decay_steps)
+        cosine = 0.5 * (1.0 + math.cos(math.pi * count / decay_steps))
+        return peak_lr * ((1.0 - alpha) * cosine + alpha)
+
+    return schedule
+
+
+@dataclass
+class TrainState:
+    """The step count, the model (which holds the weights) and the
+    optimiser (which holds the moments)."""
+
+    step: int
+    model: Transformer
+    optimizer: torch.optim.Optimizer
+
+    @classmethod
+    def create(cls, model: Transformer, tx: AdamW) -> TrainState:
+        return cls(step=0, model=model, optimizer=tx.init(model))
+
+
+def _on(device, x) -> torch.Tensor:
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(x)
+    return x.to(device)
+
+
+def make_lm_train_step(model: Transformer, tx: AdamW, *,
+                       xent_chunk: int | None = None, xent_dot_dtype=None,
+                       grad_accum: int = 1, aux_loss_weight: float = 0.0,
+                       mesh: Any = None):
+    """The train step for the LM, on one device: the loss (mean token
+    cross-entropy; ``chunked_lm_xent`` when ``xent_chunk`` is set, with
+    the head product in ``xent_dot_dtype``), its gradients and one
+    optimiser update at ``tx``'s learning rate for the state's step.
+
+    ``grad_accum`` > 1 splits the batch into that many equal microbatches
+    (leading rows first) and averages their gradients into one update;
+    the reported loss is the mean over microbatches.
+
+    ``batch`` is ``{"tokens", "targets"}``, ``[B, S]`` integer tensors or
+    numpy arrays; they are moved to the model's device."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "make_lm_train_step(mesh=...) is not ported yet: see ROADMAP.md "
+            "A8 (multi-device)")
+    if aux_loss_weight:
+        raise NotImplementedError(
+            "make_lm_train_step(aux_loss_weight=...) is not ported yet: see "
+            "ROADMAP.md A9 (ResNet, MNIST and MoE)")
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum={grad_accum} must be >= 1")
+    if model.cfg.decode:
+        raise ValueError("train a model built with decode=False")
+
+    def loss_fn(tokens, targets):
+        if xent_chunk is None:
+            return cross_entropy(model(tokens), targets)
+        hidden = model(tokens, return_hidden=True)
+        head = model.lm_head
+        return chunked_lm_xent(hidden, head.kernel, head.bias, targets,
+                               chunk=xent_chunk, dot_dtype=xent_dot_dtype)
+
+    def step(state: TrainState, batch) -> tuple[TrainState, dict]:
+        if state.model is not model:
+            raise ValueError("the state holds another model than the step's")
+        tokens = _on(model.device, batch["tokens"])
+        targets = _on(model.device, batch["targets"])
+        b = tokens.shape[0]
+        if b % grad_accum:
+            raise ValueError(f"batch dim {b} not divisible into grad_accum="
+                             f"{grad_accum} microbatches")
+        opt = state.optimizer
+        opt.zero_grad(set_to_none=True)
+        mb = b // grad_accum
+        loss = torch.zeros((), dtype=torch.float32, device=model.device)
+        for i in range(grad_accum):
+            rows = slice(i * mb, (i + 1) * mb)
+            micro = loss_fn(tokens[rows], targets[rows]) / grad_accum
+            micro.backward()
+            loss += micro.detach()
+        lr = tx.learning_rate(state.step)
+        for group in opt.param_groups:
+            group["lr"] = lr
+        opt.step()
+        state.step += 1
+        return state, {"loss": loss}
+
+    return step
