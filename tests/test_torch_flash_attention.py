@@ -152,23 +152,47 @@ def test_flash_supported_rule():
 
 
 def test_attention_dispatch(monkeypatch):
-    """ops.attention runs flash where flash_supported says so and the
-    plain oracle elsewhere; on the CPU the plain-on-CUDA count stays 0."""
+    """On the CPU, ops.attention runs flash where flash_supported says so
+    and the plain oracle elsewhere."""
     calls = []
-    flash = fa.flash_attention
+    flash, plain = fa.flash_attention, fa.reference_attention
     monkeypatch.setattr(fa, "flash_attention",
                         lambda *a, **kw: calls.append("flash") or
                         flash(*a, **kw))
-    monkeypatch.setattr(ops, "plain_on_cuda", 0)
+    monkeypatch.setattr(fa, "reference_attention",
+                        lambda *a, **kw: calls.append("plain") or
+                        plain(*a, **kw))
     rng = np.random.default_rng(6)
     q, k, v = (torch.from_numpy(x) for x in _qkv(rng, 1, 16, 16, 2, 32))
-    torch.testing.assert_close(ops.attention(q, k, v),
-                               fa.reference_attention(q, k, v),
+    torch.testing.assert_close(ops.attention(q, k, v), plain(q, k, v),
                                atol=FWD_TOL, rtol=FWD_TOL)
     assert calls == ["flash"]
     q48, k48, v48 = (torch.from_numpy(x) for x in _qkv(rng, 1, 16, 16, 2, 48))
     ops.attention(q48, k48, v48)
-    assert calls == ["flash"] and ops.plain_on_cuda == 0
+    assert calls == ["flash", "plain"]
+
+
+def test_attention_on_a_cuda_tensor_never_takes_the_plain_branch(
+        monkeypatch):
+    """A CUDA tensor goes to flash_attention whatever its geometry (which
+    launches the kernels or raises); reference_attention is not called."""
+    calls = []
+    monkeypatch.setattr(fa, "flash_attention",
+                        lambda *a, **kw: calls.append("flash"))
+    monkeypatch.setattr(fa, "reference_attention",
+                        lambda *a, **kw: calls.append("plain"))
+
+    class _OnCard:
+        """The attributes the dispatch reads, of a tensor on the card."""
+
+        def __init__(self, shape):
+            self.shape, self.dtype = shape, torch.float16
+            self.device = torch.device("cuda")
+
+    for shape in ((1, 16, 2, 48), (1, 16, 2, 64)):
+        x = _OnCard(shape)
+        ops.attention(x, x, x, causal=True)
+    assert calls == ["flash", "flash"]
 
 
 def test_flash_rejects_causal_with_unequal_lengths():
