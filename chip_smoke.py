@@ -55,7 +55,35 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (bench.py's count: 6 N + 6 L d S flops a token, at 989 TFLOP/s), one
    more step under torch.profiler; losses finite and falling, and 8
    forward, 8 dQ and 8 dK/dV launches a step;
-10. the ``kernels`` JSON line, the card line, and last the result line.
+10. int8 matmul vs plain (B5, the int8_decode path): the kernel against
+    its plain version for m in {1, 4, 437, 3500} at each projection's
+    (k, n) = (1024, 1024), (1024, 512), (1024, 4096), (4096, 1024) and m in
+    {1, 4} at the head's (1024, 32768), x in bf16 and f32, out in f32 and
+    bf16, every element by the rule of tf_operator_tpu_torch.testing;
+    then device times (CUDA-graph replay) at m=4 for each (k, n), for one
+    decode forward's 41 calls over distinct weights, and at m=3500 for
+    (1024, 4096), beside the byte bound (m=4) or the operation bound
+    (m=3500), the plain version's time and, as a yardstick the port never
+    calls, torch.mm of bf16 x against bf16 copies of the weights (twice
+    the weight bytes);
+11. paged kv8 vs plain (the kv_int8 variant of the paged kernel): at
+    phase 3's shapes, t=1, t=3 and a lane at index 0, q in bf16 and f32,
+    int8 pools with f32 scale pools; then its device time, the byte
+    bound, the plain version's time and SDPA over pre-gathered,
+    dequantized K/V;
+12. engine, f32, int8_decode + kv_int8: phase 6's schedule with weights
+    from quantize_decode_params(init_params(cfg, 0)), through both kernels
+    and, in lockstep with it, with kv_attend="gather" and int8_apply
+    pointed at its plain version, teacher-forced (``lockstep_phase`` says
+    why): the logits of every lane after every prefill and step within
+    LOGIT_TOL, kv_debug equal, a prefix share and a copy-on-write, 8 kv8
+    launches per decode forward and 41 int8 matmul launches per forward
+    (decode step or prefill);
+13. engine, bf16, int8_decode + kv_int8 through the kernels, the tree
+    quantized from the bf16-rounded weights as bench.py's int8 legs do:
+    decode tokens/s, prefill seconds and the last 8 steps under
+    torch.profiler, beside phase 7's bf16 numbers;
+14. the ``kernels`` JSON line, the card line, and last the result line.
 
 It exits non-zero without a result when torch sees no CUDA device.
 """
@@ -63,6 +91,7 @@ It exits non-zero without a result when torch sees no CUDA device.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import os
@@ -78,7 +107,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-TOL = 1e-4  # paged: f32 sums over up to 4096 keys, in another order
+TOL = 1e-4  # paged and kv8: f32 sums over up to 4096 keys, in another order
 LANES = [3500, 1750, 875, 437]
 H, KV, DH, BLK, S = 16, 4, 64, 128, 4096
 LAYERS, FIRST_STEPS, LATER_STEPS = 8, 64, 16
@@ -119,6 +148,21 @@ FLASH_OUTS = {"o": "flash_fwd", "lse": "flash_fwd", "dq": "flash_dq",
 GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-3
 TRAIN_LOSS_TOL, ADAM_BOUND, TRAIN_PARAM_FRAC, TRAIN_FAR_SHARE = (
     1e-4, 4.0, 1e-2, 1e-5)
+# Int8 matmul (B5) at the serving slice's projections: (k, n) -> its calls
+# in one decode forward (per layer q and out at 1024x1024, kv, in_proj,
+# out_proj; the head once), and the row counts checked at each.
+INT8_CALLS = {(1024, 1024): 2 * LAYERS, (1024, 512): LAYERS,
+              (1024, 4096): LAYERS, (4096, 1024): LAYERS, (1024, 32768): 1}
+INT8_ROWS = {shape: (1, 4) if shape[1] == 32768 else (1, 4, 437, 3500)
+             for shape in INT8_CALLS}
+DECODE_M, PREFILL_M = 4, 3500
+# Phase 12, the f32 int8 + kv8 engine through the kernels against the
+# plain versions: each active lane's logits (rms ~1) after every prefill and
+# step. The int8 path rounds every projection's input to bf16, so the two
+# summation orders' last-place differences flip roundings and part the
+# logits by about 2e-2 (phase 12 prints the largest). tools/plant_fault.py
+# reads this check on planted faults (PERF.md section 6 has its readings).
+LOGIT_TOL = 5e-2
 
 
 def card_line() -> str:
@@ -196,15 +240,17 @@ def paged_case(lanes, t, dtype, seed, layers=1):
     return q, pools, torch.from_numpy(table).to(dev), index
 
 
-def bound_ms(lanes, t, dtype) -> tuple[float, str]:
+def bound_ms(lanes, t, dtype, kv8=False) -> tuple[float, str]:
     """Least time for one call: the bytes it must move (q, the K/V rows
-    the lanes own, the table entries it reads, the index, the f32 output)
-    over the memory rate, against its flops over the peak for the type."""
+    the lanes own, under kv8 in int8 with their f32 scales, the table
+    entries it reads, the index, the f32 output) over the memory rate,
+    against its flops over the peak for the type."""
     elem = torch.tensor([], dtype=dtype).element_size()
     b = len(lanes)
     rows = sum(n + t for n in lanes)
     nblk = sum(-(-(n + t) // BLK) for n in lanes)
-    nbytes = (b * t * H * DH * elem + 2 * rows * KV * DH * elem
+    kv_bytes = 2 * rows * KV * (DH + 4) if kv8 else 2 * rows * KV * DH * elem
+    nbytes = (b * t * H * DH * elem + kv_bytes
               + 4 * nblk + 4 * b + 4 * b * t * H * DH)
     # q.k and p.v: 2 flops per multiply-add, per key row, per query head.
     flops = 2 * 2 * t * H * DH * sum(n + t for n in lanes)
@@ -213,61 +259,297 @@ def bound_ms(lanes, t, dtype) -> tuple[float, str]:
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
-def kernel_phase(pa) -> dict:
-    """The kernel against its plain version, then timed."""
+def attend_case(lanes, t, dtype, seed, kv8, layers=1):
+    """``paged_case`` as paged_attend's arguments, layer by layer: q,
+    [(key pool, value pool, scale-pool keywords)], table, index. Under
+    kv8 the pools are quantized as the kv_int8 cache stores them (int8,
+    f32 scale pools), q stays in ``dtype``."""
+    from tf_operator_tpu_torch.models.transformer import _kv8_quant
+
+    q, pools, table, index = paged_case(
+        lanes, t, torch.float32 if kv8 else dtype, seed, layers)
+    if not kv8:
+        return q, [(pk, pv, {}) for pk, pv in pools], table, index
+    quantized = []
+    for pk, pv in pools:
+        (k8, ks), (v8, vs) = _kv8_quant(pk), _kv8_quant(pv)
+        quantized.append((k8, v8, dict(k_scale_pool=ks, v_scale_pool=vs)))
+    return q.to(dtype), quantized, table, index
+
+
+def kernel_phase(pa, kv8=False) -> dict:
+    """The paged kernel (its kv8 variant with ``kv8``) against its plain
+    version, then timed."""
+    label = "paged_attend_kv8" if kv8 else "paged_attend"
     err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         for name, lanes, t in (("t=1", LANES, 1), ("t=3", LANES, 3),
                                ("inactive lane", [3500, 0, 875, 437], 1)):
-            q, pools, table, index = paged_case(lanes, t, dtype, seed=t)
-            pk, pv = pools[0]
-            got = pa.paged_attend(q, pk, pv, table, index)
+            q, pools, table, index = attend_case(lanes, t, dtype, t, kv8)
+            pk, pv, scales = pools[0]
+            got = pa.paged_attend(q, pk, pv, table, index, **scales)
             torch.cuda.synchronize()
-            want = pa.paged_attend_reference(q, pk, pv, table, index)
+            want = pa.paged_attend_reference(q, pk, pv, table, index,
+                                             **scales)
             if got.shape != want.shape or not torch.isfinite(got).all():
-                raise AssertionError(f"kernel {name} {dtype}: bad output")
+                raise AssertionError(f"{label} {name} {dtype}: bad output")
             case_err = (got - want).abs().max().item()
-            print(f"kernel vs plain, {dtype}, {name}: max_abs_err "
+            print(f"{label} vs plain, q {dtype}, {name}: max_abs_err "
                   f"{case_err:.3e} (tolerance {TOL})", flush=True)
             if not case_err <= TOL:
-                raise AssertionError(f"kernel {name} {dtype} disagrees")
+                raise AssertionError(f"{label} {name} {dtype} disagrees")
             err = max(err, case_err)
 
-    # Time at the main path's shapes: bf16, t=1, one pool pair per layer
-    # (135 MB in all, beyond the 50 MB L2), walked in layer order.
+    # Time at the main path's shapes: bf16 q, t=1, one pool pair per layer
+    # (135 MB in all for bf16, beyond the 50 MB L2), walked in layer order.
     # Device times come from CUDA-graph replay (device_ms); the kernel's
     # eager time per call, host wrapper included, is printed beside them.
-    q, pools, table, index = paged_case(LANES, 1, torch.bfloat16, seed=9,
-                                        layers=LAYERS)
+    q, pools, table, index = attend_case(LANES, 1, torch.bfloat16, 9, kv8,
+                                         layers=LAYERS)
 
-    def kernel(i):
-        return pa.paged_attend(q, *pools[i % LAYERS], table, index)
+    def call(attend):
+        def run(i):
+            pk, pv, scales = pools[i % LAYERS]
+            return attend(q, pk, pv, table, index, **scales)
+        return run
 
-    eager_ms = cuda_ms(kernel, 400)
-    kernel_ms = device_ms(kernel, 400)
-    plain_ms = device_ms(lambda i: pa.paged_attend_reference(
-        q, *pools[i % LAYERS], table, index), 40)
+    eager_ms = cuda_ms(call(pa.paged_attend), 400)
+    kernel_ms = device_ms(call(pa.paged_attend), 400)
+    plain_ms = device_ms(call(pa.paged_attend_reference), 40)
+    # The yardstick reads bf16 K/V: under kv8, dequantized.
+    dense = [(pk, pv) if not kv8 else tuple(
+        (x.float() * s[..., None]).bfloat16()
+        for x, s in ((pk, sc["k_scale_pool"]), (pv, sc["v_scale_pool"])))
+        for pk, pv, sc in pools]
+    library_ms = sdpa_ms(q, dense, table, index)
+    bms, bound_by = bound_ms(LANES, 1, torch.bfloat16, kv8)
+    print(f"{label} bf16 t=1: kernel_ms {kernel_ms:.6f} (eager, host "
+          f"included: {eager_ms:.6f}) plain_ms {plain_ms:.6f} library_ms "
+          f"{library_ms:.6f} (SDPA over pre-gathered bf16 K/V) bound_us "
+          f"{bms * 1e3:.4f} ({bound_by})", flush=True)
+    return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=bound_by, library_ms=library_ms)
+
+
+def sdpa_ms(q, pools, table, index) -> float:
+    """Device ms of scaled_dot_product_attention, the yardstick the port
+    never calls, over K/V pre-gathered from each layer's (key, value)
+    pools to the dense [b, H, S, Dh] layout, expanded to every query head,
+    the lanes' lengths as its mask."""
     g = H // KV
     valid = (torch.arange(S, device="cuda")[None, :]
              <= index.long()[:, None])[:, None, None, :]  # [b, 1, 1, S]
-    dense = []
-    for pk, pv in pools:
-        # Pre-gathered dense K/V, expanded to every query head.
-        k, v = (p[table.long()].reshape(len(LANES), S, KV, DH)
-                .transpose(1, 2).repeat_interleave(g, dim=1)
-                for p in (pk, pv))
-        dense.append((k, v))
+    dense = [tuple(p[table.long()].reshape(len(LANES), S, KV, DH)
+                   .transpose(1, 2).repeat_interleave(g, dim=1)
+                   for p in pair) for pair in pools]
     qh = q.transpose(1, 2)
-    library_ms = device_ms(
+    return device_ms(
         lambda i: torch.nn.functional.scaled_dot_product_attention(
-            qh, *dense[i % LAYERS], attn_mask=valid), 100)
-    bms, bound_by = bound_ms(LANES, 1, torch.bfloat16)
-    print(f"paged_attend bf16 t=1: kernel_ms {kernel_ms:.6f} (eager, host "
-          f"included: {eager_ms:.6f}) plain_ms {plain_ms:.6f} library_ms "
-          f"{library_ms:.6f} bound_us {bms * 1e3:.4f} ({bound_by})",
+            qh, *dense[i % len(dense)], attn_mask=valid), 100)
+
+
+def int8_weights(k, n, copies, seed):
+    """``copies`` seeded int8 weights ``[k, n]`` with their f32 scales and
+    biases, quantized from normal weights of variance 1/k, each with an
+    all-zero column (scale 1.0)."""
+    from tf_operator_tpu_torch.ops.int8_dense import quantize_int8
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for _ in range(copies):
+        w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
+        w[:, 5] = 0
+        out.append((*quantize_int8(w),
+                    torch.randn((n,), generator=gen, device="cuda") * 0.1))
+    return out
+
+
+def int8_bounds_ms(m, k, n, out_bytes=4) -> tuple[float, float]:
+    """(bytes, operations) times of one int8 matmul as the decode path
+    calls it (bf16 x, a bias): the int8 weights, the scales, the bias, x
+    and the output once each over the memory rate; 2 m k n operations at
+    the bf16 peak."""
+    nbytes = k * n + 8 * n + 2 * m * k + out_bytes * m * n
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            2 * m * k * n / PEAK_FLOPS[torch.bfloat16] * 1e3)
+
+
+def int8_check_phase(i8) -> float:
+    """The int8 matmul kernel against its plain version at every shape of
+    the slice, each element by the shared rule; returns the largest
+    max-abs error."""
+    from tf_operator_tpu_torch.testing import INT8_TOL, excess
+
+    err = 0.0
+    for (k, n), rows in INT8_ROWS.items():
+        ((w_q, scale, bias),) = int8_weights(k, n, 1, seed=k + n)
+        gen = torch.Generator(device="cuda").manual_seed(k * n)
+        worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+        for m, x_dtype, out_dtype, b in itertools.product(
+                rows, (torch.bfloat16, torch.float32),
+                (torch.float32, torch.bfloat16), (None, bias)):
+            x = torch.randn((m, k), generator=gen, device="cuda").to(x_dtype)
+            got = i8.int8_matmul(x, w_q, scale, out_dtype, b)
+            torch.cuda.synchronize()
+            want = i8.int8_matmul_reference(x, w_q, scale, out_dtype, b)
+            share = excess(got, want, *INT8_TOL[out_dtype])
+            err = max(err, (got.float() - want.float()).abs().max().item())
+            worst[out_dtype] = max(worst[out_dtype], share)
+            if not share <= 1:
+                raise AssertionError(
+                    f"int8_matmul m={m} k={k} n={n} x {x_dtype} out "
+                    f"{out_dtype} bias {b is not None}: {share:.4f} of its "
+                    "bound")
+        print(f"int8_matmul vs plain, k={k} n={n}, m in {rows}, x bf16/f32, "
+              f"with and without a bias: "
+              f"largest share of the bound, out f32 "
+              f"{worst[torch.float32]:.4f} (rtol, atol "
+              f"{INT8_TOL[torch.float32]}), out bf16 "
+              f"{worst[torch.bfloat16]:.4f} ({INT8_TOL[torch.bfloat16]})",
+              flush=True)
+    return err
+
+
+def int8_forward_case():
+    """The int8 matmuls of one bf16 decode forward at m=4, as Int8Dense
+    makes them: distinct seeded weights for each of its 41 calls (121.6 MB
+    of int8, beyond the 50 MB L2; the head gets a second copy, for its own
+    timing), bf16 x, a bias, bf16 out (the head's f32). Returns
+    ({(k, n): [(w_q, scale, bias)]}, {k: x}, and the calls in order as
+    int8_matmul's arguments (x, w_q, scale, out_dtype, bias))."""
+    weights = {shape: int8_weights(*shape, max(calls, 2), seed=sum(shape))
+               for shape, calls in INT8_CALLS.items()}
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    xs = {k: torch.randn((DECODE_M, k), generator=gen, device="cuda")
+          .bfloat16() for k in (1024, 4096)}
+    forward = [(xs[k], w_q, scale, head_dtype(n), bias)
+               for (k, n), calls in INT8_CALLS.items()
+               for w_q, scale, bias in weights[(k, n)][:calls]]
+    return weights, xs, forward
+
+
+def head_dtype(n: int) -> torch.dtype:
+    """The output dtype of the int8 matmul of n columns in the bf16 model:
+    f32 for the head (vocab 32768), bf16 for every projection."""
+    return torch.float32 if n == 32768 else torch.bfloat16
+
+
+def int8_timing_phase(i8, card: str) -> dict:
+    """The int8 matmul kernel's device times: at m=4 for each (k, n), for
+    one decode forward's 41 calls (``int8_forward_case``), and at m=3500
+    for (1024, 4096); beside its bounds, the plain version's time and
+    torch.mm on bf16 copies. Returns the decode forward's numbers for the
+    kernels line."""
+    weights, xs, forward = int8_forward_case()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+
+    for (k, n), ws in weights.items():
+        ms = device_ms(lambda i: i8.int8_matmul(
+            xs[k], *ws[i % len(ws)][:2], head_dtype(n), ws[i % len(ws)][2]),
+            64)
+        by_bytes, _ = int8_bounds_ms(DECODE_M, k, n, 4 if n == 32768 else 2)
+        print(f"int8_matmul m={DECODE_M} k={k} n={n}: kernel_ms {ms:.6f} "
+              f"bound_ms {by_bytes:.6f} (bytes)", flush=True)
+
+    def run(mm):
+        return lambda i: [mm(*call) for call in forward]
+
+    kernel_ms = device_ms(run(i8.int8_matmul), 10)
+    plain_ms = cuda_ms(run(i8.int8_matmul_reference), 3)
+    lib = [(x, (w_q.float() * scale).bfloat16())
+           for x, w_q, scale, _, _ in forward]
+    library_ms = device_ms(lambda i: [torch.mm(x, w) for x, w in lib], 10)
+    del lib
+    bounds = [int8_bounds_ms(x.shape[0], *w_q.shape, 4 if dt == torch.float32
+                             else 2) for x, w_q, _, dt, _ in forward]
+    by_bytes = sum(b for b, _ in bounds)
+    by_ops = sum(o for _, o in bounds)
+    bms = max(by_bytes, by_ops)
+    bound_by = "bytes" if by_bytes >= by_ops else "operations"
+    weight_mb = sum(call[1].numel() for call in forward) / 1e6
+    print(f"int8_matmul, one decode forward (m={DECODE_M}, {len(forward)} "
+          f"calls, {weight_mb:.1f} MB of int8 weights): kernel_ms "
+          f"{kernel_ms:.6f} bound_ms {bms:.6f} ({bound_by}) plain_ms "
+          f"{plain_ms:.6f} library_ms {library_ms:.6f} (torch.mm, bf16 x "
+          f"against bf16 weight copies: twice the weight bytes) on {card}",
           flush=True)
-    return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
-                bound_ms=bms, bound_by=bound_by, library_ms=library_ms)
+
+    k, n = 1024, 4096
+    ws = [(w_q, scale, torch.bfloat16, bias) for w_q, scale, bias
+          in weights[(k, n)]]
+    x = torch.randn((PREFILL_M, k), generator=gen, device="cuda").bfloat16()
+    pre_ms = device_ms(lambda i: i8.int8_matmul(x, *ws[i % len(ws)]), 16)
+    pre_plain = cuda_ms(lambda i: i8.int8_matmul_reference(
+        x, *ws[i % len(ws)]), 3)
+    wb = [(w_q.float() * scale).bfloat16() for w_q, scale, _, _ in ws]
+    pre_lib = device_ms(lambda i: torch.mm(x, wb[i % len(wb)]), 16)
+    _, pre_ops = int8_bounds_ms(PREFILL_M, k, n)
+    print(f"int8_matmul m={PREFILL_M} k={k} n={n}: kernel_ms {pre_ms:.6f} "
+          f"bound_ms {pre_ops:.6f} (operations at 989 TFLOP/s) plain_ms "
+          f"{pre_plain:.6f} library_ms {pre_lib:.6f} (torch.mm bf16)",
+          flush=True)
+    del weights, forward, wb
+    torch.cuda.empty_cache()
+    return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def plain_int8_apply(x, w_q, scale, out_dtype=torch.float32, bias=None):
+    """``int8_apply`` through the plain version on any device: what phase
+    12's comparison run puts in the model's place."""
+    from tf_operator_tpu_torch.ops.int8_dense import int8_matmul_reference
+
+    out = int8_matmul_reference(x.reshape(-1, x.shape[-1]), w_q, scale,
+                                out_dtype, bias)
+    return out.reshape(*x.shape[:-1], w_q.shape[1])
+
+
+def bf16_rounded(tree: dict) -> dict:
+    """A numpy tree with every leaf rounded to bf16 (kept as f32)."""
+    return {k: bf16_rounded(v) if isinstance(v, dict)
+            else torch.from_numpy(np.asarray(v)).bfloat16().float().numpy()
+            for k, v in tree.items()}
+
+
+def int8_engine_phases(pa, base, params, prompts, card, bf16_ref) -> dict:
+    """Phases 12 and 13: the int8_decode + kv_int8 engine in f32 through
+    the kernels against the plain versions, then in bf16 through the
+    kernels; returns the bf16 run's launches."""
+    from tf_operator_tpu_torch.models.convert import quantize_decode_params
+
+    cfg = replace(base, int8_decode=True, kv_int8=True)
+    qparams = quantize_decode_params(params)
+    kern = lockstep_phase(pa, cfg, qparams, prompts)
+    # Five projections a layer (q, kv, out, in_proj, out_proj) and the
+    # head: 41 int8 matmuls a forward, decode step or prefill alike.
+    calls = 5 * cfg.n_layers + 1
+    want = dict(paged_attend=0,
+                paged_attend_kv8=cfg.n_layers * kern["forwards"],
+                int8_matmul=calls * (kern["forwards"] + kern["prefills"]))
+    if kern["launches"] != want:
+        raise AssertionError(f"int8 + kv8 f32 launches {kern['launches']}, "
+                             f"want {want} (the plain run launches none)")
+    del qparams
+    torch.cuda.empty_cache()
+
+    q16 = quantize_decode_params(bf16_rounded(params))
+    bf16 = engine_run(pa, replace(cfg, dtype=torch.bfloat16), q16, "kernel",
+                      prompts, profile=PROFILE_STEPS)
+    want = dict(paged_attend=0,
+                paged_attend_kv8=cfg.n_layers * bf16["forwards"],
+                int8_matmul=calls * (bf16["forwards"] + bf16["prefills"]))
+    if bf16["launches"] != want:
+        raise AssertionError(f"int8 + kv8 bf16 launches {bf16['launches']}, "
+                             f"want {want}")
+    print(f"engine bf16 int8 + kv8 kernel: decode tokens/s "
+          f"{bf16['decode_tok_s']:.2f} prefill_s {bf16['prefill_s']:.4f} "
+          f"busy share {bf16['profile'].get('busy_share', 'not measured')}; "
+          f"phase 7's bf16 engine in this run: decode tokens/s "
+          f"{bf16_ref['decode_tok_s']:.2f} prefill_s "
+          f"{bf16_ref['prefill_s']:.4f} busy share "
+          f"{bf16_ref['profile'].get('busy_share', 'not measured')}; on "
+          f"{card}", flush=True)
+    return bf16["launches"]
 
 
 def flash_inputs(b, tq, tk, dtype, seed, fused=False):
@@ -546,14 +828,16 @@ def profile_steps(run, steps: int, label: str) -> dict:
 
 
 def engine_run(pa, cfg, params, attend, prompts, profile: int = 0) -> dict:
-    """The schedule of phases 4 and 5 through ContinuousEngine; with
+    """The schedule of phases 6 and 7 through ContinuousEngine, with every
+    serving kernel's count set to 0 just before the first join; with
     ``profile``, the last that many steps run under the profiler."""
+    from tf_operator_tpu_torch.ops import int8_dense as i8
     from tf_operator_tpu_torch.serve.engine import ContinuousEngine
 
     engine = ContinuousEngine(cfg, params, len(prompts), kv_block=BLK,
                               kv_attend=attend)
     budget = FIRST_STEPS + LATER_STEPS
-    pa.launches = 0
+    pa.launches = pa.kv8_launches = i8.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     slots = [engine.join(p, num_steps=budget) for p in prompts]
@@ -568,32 +852,124 @@ def engine_run(pa, cfg, params, attend, prompts, profile: int = 0) -> dict:
     decode_s = time.perf_counter() - t0
     engine.retire(2)
     engine.retire(3)
-    rng = np.random.default_rng(2)
-    shared = np.concatenate(
-        [prompts[0][:, :2 * BLK],
-         rng.integers(0, cfg.vocab_size, (1, SHARED_TAIL)).astype(np.int32)], 1)
-    rejoined = [engine.join(shared, num_steps=LATER_STEPS),
-                engine.join(prompts[1], num_steps=LATER_STEPS)]
+    rejoined = [engine.join(p, num_steps=LATER_STEPS)
+                for p in later_prompts(prompts, cfg.vocab_size)]
     if rejoined != [2, 3]:
         raise AssertionError(f"re-joins got slots {rejoined}")
     for _ in range(LATER_STEPS - profile):
         tokens.append(engine.step())
-    if profile:
-        profile_steps(lambda: tokens.append(engine.step()), profile,
-                      "decode steps")
+    prof = (profile_steps(lambda: tokens.append(engine.step()), profile,
+                          "decode steps") if profile else {})
     torch.cuda.synchronize()
     if not torch.isfinite(engine._logits).all():
         raise AssertionError("non-finite logits")
+    launches = dict(paged_attend=pa.launches,
+                    paged_attend_kv8=pa.kv8_launches,
+                    int8_matmul=i8.launches)
+    # Prefills: one per prompt, and the shared-prefix join's suffix (the
+    # exact re-join reuses the registered prompt and prefills nothing).
     out = dict(tokens=np.stack(tokens), kv=engine.kv_debug(),
-               launches=pa.launches, forwards=engine.steps_total,
-               prefill_s=prefill_s,
-               decode_tok_s=len(prompts) * FIRST_STEPS / decode_s)
-    print(f"engine {cfg.dtype} {attend}: prefill_s {prefill_s:.4f} decode "
-          f"tokens/s {out['decode_tok_s']:.2f} forwards {out['forwards']} "
-          f"kernel launches {out['launches']} kv {out['kv']}", flush=True)
+               launches=launches, forwards=engine.steps_total,
+               prefills=len(prompts) + 1, prefill_s=prefill_s,
+               decode_tok_s=len(prompts) * FIRST_STEPS / decode_s,
+               profile=prof)
+    flags = "".join(f" {f}" for f in ("int8_decode", "kv_int8")
+                    if getattr(cfg, f))
+    print(f"engine {cfg.dtype}{flags} {attend}: prefill_s {prefill_s:.4f} "
+          f"decode tokens/s {out['decode_tok_s']:.2f} forwards "
+          f"{out['forwards']} kernel launches {launches} kv {out['kv']}",
+          flush=True)
     del engine
     torch.cuda.empty_cache()
     return out
+
+
+def later_prompts(prompts, vocab: int) -> list:
+    """The schedule's two re-joins after lanes 2 and 3 retire: a prompt
+    sharing lane 0's first two blocks (a suffix prefill), and an exact
+    copy of lane 1's prompt (no prefill; its partial last block is copied
+    on write)."""
+    tail = np.random.default_rng(2).integers(0, vocab, (1, SHARED_TAIL))
+    shared = np.concatenate([prompts[0][:, :2 * BLK], tail.astype(np.int32)],
+                            1)
+    return [shared, prompts[1]]
+
+
+def lockstep_phase(pa, cfg, params, prompts) -> dict:
+    """Phase 12: the engine through the kernels (a) and the same engine on
+    the plain versions (b: kv_attend="gather", int8_apply pointed at its
+    plain version) driven in lockstep on phase 6's schedule. After every
+    prefill and every step each active lane's logits are held to
+    LOGIT_TOL of b's, and then b is handed a's logits, so that both feed
+    the same tokens at the next step (teacher forcing): with f32 weights
+    the int8 path still rounds every projection's input to bf16, so two
+    summation orders part by a few 1e-3 of a logit and a greedy choice
+    between two logits that close is a coin toss, after which free-running
+    lanes no longer compare. Returns a's launches, forwards and prefills."""
+    from tf_operator_tpu_torch.models import transformer
+    from tf_operator_tpu_torch.ops import int8_dense as i8
+    from tf_operator_tpu_torch.serve.engine import ContinuousEngine
+
+    plain = mock.patch.object(transformer, "int8_apply", plain_int8_apply)
+    a = ContinuousEngine(cfg, params, len(prompts), kv_block=BLK,
+                         kv_attend="kernel")
+    b = ContinuousEngine(cfg, params, len(prompts), kv_block=BLK,
+                         kv_attend="gather")
+    pa.launches = pa.kv8_launches = i8.launches = 0
+    worst, flips, decisions = 0.0, 0, 0
+
+    def compare(slots):
+        nonlocal worst, flips, decisions
+        la, lb = a._logits[slots], b._logits[slots]
+        gap = (la - lb).abs().max().item()  # a NaN counts as infinitely far
+        worst = max(worst, gap if math.isfinite(gap) else math.inf)
+        flips += (la.argmax(-1) != lb.argmax(-1)).sum().item()
+        decisions += len(slots)
+        b._logits = a._logits.clone()
+
+    def join(prompt, steps):
+        slot = a.join(prompt, num_steps=steps)
+        with plain:
+            if b.join(prompt, num_steps=steps) != slot:
+                raise AssertionError("lockstep engines joined other slots")
+        compare([slot])
+
+    def step(n):
+        for _ in range(n):
+            ta = a.step()
+            with plain:
+                tb = b.step()
+            live = np.flatnonzero(a._active)
+            if not np.array_equal(ta[live], tb[live]):
+                raise AssertionError("teacher-forced tokens differ")
+            compare(live.tolist())
+
+    for p in prompts:
+        join(p, FIRST_STEPS + LATER_STEPS)
+    step(FIRST_STEPS)
+    for engine in (a, b):
+        engine.retire(2)
+        engine.retire(3)
+    for p in later_prompts(prompts, cfg.vocab_size):
+        join(p, LATER_STEPS)
+    step(LATER_STEPS)
+    torch.cuda.synchronize()
+    kv = a.kv_debug()
+    if kv != b.kv_debug() or kv["prefix_hits"] < 1 or kv["cow_copies"] < 1:
+        raise AssertionError(f"lockstep kv_debug {kv} and {b.kv_debug()}: "
+                             "want them equal, a prefix share and a CoW")
+    print(f"engine {cfg.dtype} int8_decode kv_int8, kernels vs plain in "
+          f"lockstep: {decisions} greedy decisions, logits at most "
+          f"{worst:.4e} apart (tolerance {LOGIT_TOL}), {flips} greedy "
+          f"choices differing (each between two logits closer than that); "
+          f"kv {kv}", flush=True)
+    if not worst <= LOGIT_TOL:
+        raise AssertionError("int8 + kv8 kernels and plain versions disagree")
+    return dict(launches=dict(paged_attend=pa.launches,
+                              paged_attend_kv8=pa.kv8_launches,
+                              int8_matmul=i8.launches),
+                forwards=a.steps_total,
+                prefills=len(prompts) + 1)
 
 
 def key_bias_rows(name: str, p: torch.Tensor):
@@ -777,6 +1153,7 @@ def main() -> int:
     from tf_operator_tpu_torch.models.transformer import TransformerConfig
     from tf_operator_tpu_torch.ops import _build
     from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.ops import int8_dense as i8
     from tf_operator_tpu_torch.ops import paged_attention as pa
 
     t_start = time.perf_counter()
@@ -789,7 +1166,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    sources = ("flash_attention", "paged_attention")
+    sources = ("flash_attention", "int8_dense", "paged_attention")
     _build.build(*sources)
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
     for name in sources:
@@ -811,8 +1188,10 @@ def main() -> int:
 
     f32 = {attend: engine_run(pa, base, params, attend, prompts)
            for attend in ("kernel", "gather")}
-    want = LAYERS * f32["kernel"]["forwards"]
-    if f32["kernel"]["launches"] != want or f32["gather"]["launches"]:
+    want = dict(paged_attend=LAYERS * f32["kernel"]["forwards"],
+                paged_attend_kv8=0, int8_matmul=0)
+    if (f32["kernel"]["launches"] != want
+            or any(f32["gather"]["launches"].values())):
         raise AssertionError(
             f"kernel launches {f32['kernel']['launches']} (gather "
             f"{f32['gather']['launches']}), want {want} and 0")
@@ -828,7 +1207,7 @@ def main() -> int:
 
     bf16 = engine_run(pa, replace(base, dtype=torch.bfloat16), params,
                       "kernel", prompts, profile=PROFILE_STEPS)
-    if bf16["launches"] != LAYERS * bf16["forwards"]:
+    if bf16["launches"]["paged_attend"] != LAYERS * bf16["forwards"]:
         raise AssertionError(f"bf16 kernel launches {bf16['launches']}")
     print(f"engine bf16 kernel: decode tokens/s {bf16['decode_tok_s']:.2f} "
           f"prefill_s {bf16['prefill_s']:.4f} on {card}", flush=True)
@@ -837,13 +1216,28 @@ def main() -> int:
     lm_params = init_params(TransformerConfig(**LM), seed=0)
     train_f32_phase(lm_params)
     flash_launches = train_bf16_phase(lm_params, card)
+    del lm_params
+
+    int8_err = int8_check_phase(i8)
+    int8 = int8_timing_phase(i8, card)
+    kv8 = kernel_phase(pa, kv8=True)
+    int8_launches = int8_engine_phases(pa, base, params, prompts, card, bf16)
 
     src = "tf_operator_tpu_torch/ops/csrc/"
     replaces = {"flash_fwd": 253, "flash_dq": 297, "flash_dkv": 331}
     kernels = [dict(
         name="paged_attend", route="cuda", source=src + "paged_attention.cu",
         replaces="tf_operator_tpu/ops/paged_attention.py:126",
-        launches=bf16["launches"], **kernel,
+        launches=bf16["launches"]["paged_attend"], **kernel,
+    ), dict(
+        name="paged_attend_kv8", route="cuda",
+        source=src + "paged_attention.cu",
+        replaces="tf_operator_tpu/ops/paged_attention.py:126",
+        launches=int8_launches["paged_attend_kv8"], **kv8,
+    ), dict(
+        name="int8_matmul", route="cuda", source=src + "int8_dense.cu",
+        replaces="tf_operator_tpu/ops/int8_dense.py:47",
+        launches=int8_launches["int8_matmul"], max_abs_err=int8_err, **int8,
     )] + [dict(
         name=name, route="cuda", source=src + "flash_attention.cu",
         replaces=f"tf_operator_tpu/ops/flash_attention.py:{line}",

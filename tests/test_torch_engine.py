@@ -136,8 +136,12 @@ def test_slots_run_out_before_blocks():
 
 
 def test_config_rejects_unported_options():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A2"):
-        TransformerConfig(kv_int8=True)
+    # int8 decode (A2) is ported: both flags construct, alone and together.
+    for flags in ({"kv_int8": True}, {"int8_decode": True},
+                  {"kv_int8": True, "int8_decode": True}):
+        assert TransformerConfig(**flags)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A9"):
+        TransformerConfig(moe_every_n=2)
     with pytest.raises(ValueError, match="kv_paged"):
         TransformerConfig(kv_attend="kernel")
     with pytest.raises(ValueError, match="kv_attend"):

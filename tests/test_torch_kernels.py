@@ -6,8 +6,10 @@ the port's dependencies:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py -q
 
 (``--noconftest``: tests/conftest.py sets up the JAX package's CPU mesh.)
-Paged attention, atol=1e-4: kernel and plain version both sum in f32, in
-different orders, over up to 4096 keys. Flash attention: each element
+Paged attention, its kv8 variant included, atol=1e-4: kernel and plain
+version both sum in f32, in different orders, over up to 4096 keys. Int8
+matmul: each element within the rule and ``INT8_TOL`` of
+``tf_operator_tpu_torch.testing``. Flash attention: each element
 within ``rtol |plain| + atol rms(its row of plain)`` and lse within 1e-4,
 the rule and tolerances of ``tf_operator_tpu_torch.testing`` (which says
 why);
@@ -19,9 +21,11 @@ import pytest
 import torch
 
 from tf_operator_tpu_torch import ops
+from tf_operator_tpu_torch.models.transformer import _kv8_quant
 from tf_operator_tpu_torch.ops import flash_attention as fa
+from tf_operator_tpu_torch.ops import int8_dense as i8
 from tf_operator_tpu_torch.ops import paged_attention as pa
-from tf_operator_tpu_torch.testing import excess, flash_excess
+from tf_operator_tpu_torch.testing import INT8_TOL, excess, flash_excess
 
 ATOL = 1e-4
 
@@ -95,6 +99,102 @@ def test_paged_kernel_raises_outside_its_geometry(cuda):
     with pytest.raises(ValueError, match="outside its geometry"):
         pa.paged_attend(*args)
     assert pa.launches == before
+
+
+def _kv8(args):
+    """A case's pools quantized as the kv_int8 cache stores them: int8
+    pools and their f32 [nb, blk, KV] scale pools."""
+    q, pk, pv, table, idx = args
+    (k8, ks), (v8, vs) = _kv8_quant(pk), _kv8_quant(pv)
+    return (q, k8, v8, table, idx), dict(k_scale_pool=ks, v_scale_pool=vs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CASES, ids=lambda c: (
+    f"t{c['t']}g{c['g']}dh{c['dh']}blk{c['blk']}"))
+def test_paged_kv8_kernel_matches_plain_version(cuda, dtype, case):
+    args, scales = _kv8(_case(cuda, dtype, **case))
+    before = pa.kv8_launches, pa.launches
+    got = pa.paged_attend(*args, **scales)
+    torch.cuda.synchronize()
+    assert (pa.kv8_launches, pa.launches) == (before[0] + 1, before[1])
+    want = pa.paged_attend_reference(*args, **scales)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_paged_kv8_kernel_raises_outside_its_geometry(cuda):
+    args, scales = _kv8(_case(cuda, torch.float32, t=1, kv=2, g=1, dh=48,
+                              blk=8, table_len=4, spread=[3], seed=0))
+    before = pa.kv8_launches
+    with pytest.raises(ValueError, match="outside its geometry"):
+        pa.paged_attend(*args, **scales)
+    args, scales = _kv8(_case(cuda, torch.float32, t=1, kv=2, g=1, dh=64,
+                              blk=8, table_len=4, spread=[3], seed=0))
+    with pytest.raises(ValueError, match="int8 with scale pools"):
+        pa.paged_attend(args[0], *(x.float() for x in args[1:3]), *args[3:],
+                        **scales)
+    assert pa.kv8_launches == before
+
+
+# (m, k, n): decode (m <= 8, the weight-streaming kernel, k split over
+# CTAs or not, a chunk of 132 rows at k = 1056) and prefill (m > 8, or k
+# beyond 8 chunks of 1024: the tiled kernel, ragged m tiles).
+INT8_CASES = [(1, 1024, 32768), (4, 1024, 512), (4, 4096, 1024),
+              (3, 64, 128), (8, 1024, 1024), (2, 1024, 4096),
+              (5, 1056, 128), (4, 8224, 256),
+              (9, 96, 256), (130, 1024, 4096), (437, 4096, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", INT8_CASES,
+                         ids=lambda c: "m{}k{}n{}".format(*c))
+def test_int8_kernel_matches_plain_version(cuda, x_dtype, out_dtype, case):
+    m, k, n = case
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(x_dtype)
+    w = torch.randn((k, n), generator=gen, device=cuda) / k ** 0.5
+    w[:, 5] = 0  # an all-zero column
+    w_q, scale = i8.quantize_int8(w)
+    bias = torch.randn((n,), generator=gen, device=cuda)
+    for b in (None, bias):
+        before = i8.launches
+        got = i8.int8_matmul(x, w_q, scale, out_dtype, b)
+        torch.cuda.synchronize()
+        assert i8.launches == before + 1
+        want = i8.int8_matmul_reference(x, w_q, scale, out_dtype, b)
+        assert excess(got, want, *INT8_TOL[out_dtype]) <= 1
+
+
+@pytest.mark.cuda
+def test_int8_apply_on_the_card_takes_leading_dims(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((4, 1, 256), generator=gen, device=cuda)
+    w_q, scale = i8.quantize_int8(
+        torch.randn((256, 384), generator=gen, device=cuda))
+    got = i8.int8_apply(x, w_q, scale)
+    want = i8.int8_matmul_reference(x.reshape(4, 256), w_q, scale)
+    assert got.shape == (4, 1, 384)
+    assert excess(got.reshape(4, 384), want, *INT8_TOL[torch.float32]) <= 1
+
+
+@pytest.mark.cuda
+def test_int8_kernel_raises_outside_its_geometry(cuda):
+    x = torch.zeros((4, 64), device=cuda)
+    w_q, scale = i8.quantize_int8(torch.ones((64, 72), device=cuda))
+    before = i8.launches
+    with pytest.raises(ValueError, match="outside its geometry"):
+        i8.int8_matmul(x, w_q, scale)  # n = 72
+    w_q, scale = i8.quantize_int8(torch.ones((48, 128), device=cuda))
+    with pytest.raises(ValueError, match="outside its geometry"):
+        i8.int8_matmul(x[:, :48], w_q, scale)  # k = 48
+    with pytest.raises(ValueError, match="outside its geometry"):
+        i8.int8_matmul(x[:, :48].half(), w_q, scale)
+    assert i8.launches == before
 
 
 FLASH_CASES = [

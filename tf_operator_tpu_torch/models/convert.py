@@ -17,7 +17,9 @@ check of names and shapes, into a decode-mode model (weights in its
 dtype) or a training-mode one (f32 trainable weights) alike;
 ``export_params`` reads a model back out as such a tree. ``init_params``
 builds one from a seed with numpy alone, so a machine without JAX can
-run the model.
+run the model. ``quantize_decode_params`` turns a tree into the int8
+tree an ``int8_decode`` model loads: every projection and the head as
+``{kernel_q int8 [k, n], scale f32 [n], bias f32 [n]}``.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from tf_operator_tpu_torch.models.transformer import (
     Transformer,
     TransformerConfig,
 )
+from tf_operator_tpu_torch.ops.int8_dense import quantize_int8
 
 _RENAME = {"norm": "RMSNorm_0", "norm_attn": "RMSNorm_0",
            "norm_mlp": "RMSNorm_1", "weight": "embedding"}
@@ -105,6 +108,50 @@ def init_params(cfg: TransformerConfig, seed: int) -> dict:
     return tree
 
 
+# The projections quantize_decode_params turns into int8 (the flax module
+# names; qkv/q/kv/out are the attention's).
+_INT8_TARGETS = ("qkv", "q", "kv", "out", "in_proj", "out_proj", "lm_head")
+
+
+def quantize_decode_params(params: Mapping) -> dict:
+    """A flax-layout tree -> the tree ``int8_decode=True`` loads, leaf for
+    leaf JAX's ``quantize_decode_params``: each projection kernel reshaped
+    to 2-D ``[k, n]`` (``qkv``/``q``/``kv`` ``[d, ...]`` to ``[d, prod]``,
+    ``out`` ``[H, Dh, d]`` to ``[H*Dh, d]``) and quantized per output
+    channel (``quantize_int8``), its bias flattened to f32; embeddings,
+    the position table and norms pass through. numpy arrays out. An MoE
+    tree raises: MoE is not ported (ROADMAP.md A9)."""
+
+    def quant(name: str, sub: Mapping) -> dict:
+        kern = _as_tensor(sub["kernel"]).detach().float().cpu()
+        if name in ("qkv", "q", "kv"):
+            kern = kern.reshape(kern.shape[0], -1)
+        elif name == "out":
+            kern = kern.reshape(-1, kern.shape[-1])
+        w_q, scale = quantize_int8(kern)
+        bias = _as_tensor(sub["bias"]).detach().float().cpu().reshape(-1)
+        return {"kernel_q": w_q.numpy(), "scale": scale.numpy(),
+                "bias": bias.numpy()}
+
+    def walk(tree: Mapping) -> dict:
+        out = {}
+        for name, sub in tree.items():
+            if name == "moe":
+                raise NotImplementedError(
+                    "quantize_decode_params: MoE is not ported yet: see "
+                    "ROADMAP.md A9 (ResNet, MNIST and MoE)")
+            if (name in _INT8_TARGETS and isinstance(sub, Mapping)
+                    and "kernel" in sub):
+                out[name] = quant(name, sub)
+            elif isinstance(sub, Mapping):
+                out[name] = walk(sub)
+            else:
+                out[name] = sub
+        return out
+
+    return walk(params)
+
+
 def _leaves(tree: Mapping, prefix=()):
     for key, val in tree.items():
         if isinstance(val, Mapping):
@@ -116,7 +163,7 @@ def _leaves(tree: Mapping, prefix=()):
 def _as_tensor(arr: Any) -> torch.Tensor:
     if isinstance(arr, torch.Tensor):
         return arr
-    # f32 is exact for bf16 leaves (numpy has no bf16 of its own).
+    # f32 is exact for bf16 and int8 leaves (numpy has no bf16 of its own).
     return torch.from_numpy(np.array(arr, dtype=np.float32))
 
 

@@ -16,7 +16,12 @@ without reshaping. ``TransformerConfig.decode`` picks the mode, as in JAX:
   continuous engine steps). Parameters are stored in ``cfg.dtype`` and
   need no gradient, so a decode step runs no weight casts.
 
-Int8 decode, MoE and meshes are later slices (see ``TransformerConfig``).
+Decode mode takes JAX's two int8 options: ``int8_decode`` (every
+projection and the head as ``Int8Dense``, int8 weights with per-channel
+scales, from ``models/convert.py::quantize_decode_params``) and
+``kv_int8`` (K/V stored as int8 with one f32 scale per token and head,
+``_kv8_quant``). MoE and meshes are later slices (see
+``TransformerConfig``).
 
 The cache is an explicit dict of tensors, updated IN PLACE where the
 JAX model rebuilt its ``cache`` collection:
@@ -26,6 +31,11 @@ JAX model rebuilt its ``cache`` collection:
 - paged (decode): ``{"layers": [{"pool_key", "pool_value"}],
   "block_table": [b, table_len] int32, "cache_index": [b] int32}`` with
   ``[kv_num_blocks, kv_block, KV, Dh]`` pools.
+
+Under ``kv_int8`` the K/V leaves are int8 and each layer also holds f32
+scales: ``key_scale``/``value_scale`` ``[b, max_seq_len, KV]`` (dense) or
+``pool_key_scale``/``pool_value_scale`` ``[kv_num_blocks, kv_block, KV]``
+(paged), addressed by the same rows as the K/V they scale.
 
 JAX keeps one ``cache_index`` per layer plus a top-level ``pos_index``;
 every call moves them in lockstep, so the port keeps one counter.
@@ -44,12 +54,18 @@ from torch.utils.checkpoint import checkpoint
 
 from tf_operator_tpu_torch import resolve_device
 from tf_operator_tpu_torch.ops import attention
+from tf_operator_tpu_torch.ops.int8_dense import int8_apply
 from tf_operator_tpu_torch.ops.paged_attention import (
     paged_attend,
     paged_attend_reference,
 )
 
 _NEG_INF = -1e30
+
+# A layer's cache leaves, K/V then (kv_int8 only) their scales: the paged
+# pool's and, in the same order, the dense rows holding the same data.
+POOL_NAMES = ("pool_key", "pool_value", "pool_key_scale", "pool_value_scale")
+DENSE_NAMES = ("cached_key", "cached_value", "key_scale", "value_scale")
 
 
 @dataclass(frozen=True)
@@ -80,17 +96,16 @@ class TransformerConfig:
     # Training: recompute each block's activations in the backward
     # (torch.utils.checkpoint) instead of storing them.
     remat: bool = False
-    # Not ported yet; each names the ROADMAP.md item that brings it.
+    # Decode mode: int8 K/V with per-(token, head) f32 scales, and int8
+    # weight-only projections and head (a quantize_decode_params tree).
     kv_int8: bool = False
     int8_decode: bool = False
+    # Not ported yet; each names the ROADMAP.md item that brings it.
     moe_every_n: int | None = None
     mesh: Any = None
 
     def __post_init__(self):
         later = {
-            "kv_int8": "A2 (int8 weight-only decode and the int8 KV cache)",
-            "int8_decode": "A2 (int8 weight-only decode and the int8 KV "
-                           "cache)",
             "moe_every_n": "A9 (ResNet, MNIST and MoE)",
             "mesh": "A8 (multi-device)",
         }
@@ -151,9 +166,21 @@ class _Store:
         self.device = device
 
     def param(self, shape, dtype=None) -> nn.Parameter:
+        dtype = dtype or self.dtype
         return nn.Parameter(
-            torch.zeros(shape, dtype=dtype or self.dtype, device=self.device),
-            requires_grad=self.trainable)
+            torch.zeros(shape, dtype=dtype, device=self.device),
+            requires_grad=self.trainable and dtype.is_floating_point)
+
+
+def _kv8_quant(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """kv_int8's symmetric per-(token, head) quantizer, bitwise JAX's:
+    ``[..., Dh]`` -> (int8 values, f32 absmax/127 scales over Dh, the
+    absmax floored at 1e-8). One copy for the dense rows and the paged
+    pool, so a prefill scattered into the pool lands the same bits. Its
+    callers quantize K and V stacked, in one pass: each row is its own."""
+    xf = x.float()
+    s = xf.abs().amax(-1).clamp_min(1e-8) / 127.0
+    return torch.round(xf / s[..., None]).to(torch.int8), s
 
 
 class DenseGeneral(nn.Module):
@@ -177,6 +204,39 @@ class DenseGeneral(nn.Module):
         y = (x.reshape(*lead, k).to(dt) @ self.kernel.reshape(k, n).to(dt)
              + self.bias.reshape(n).to(dt))
         return y.reshape(*lead, *self.out_shape)
+
+
+class Int8Dense(nn.Module):
+    """JAX's ``Int8Dense`` over the trailing ``in_shape`` axes: int8
+    ``kernel_q [prod(in_shape), prod(out_shape)]``, f32 ``scale`` and
+    ``bias`` ``[prod(out_shape)]``; ``int8_apply`` in f32 plus the bias,
+    cast to ``out_dtype`` (in one launch of the kernel, which adds the
+    bias and casts in its epilogue), reshaped to ``out_shape``."""
+
+    def __init__(self, in_shape, out_shape, out_dtype, store: _Store):
+        super().__init__()
+        self.in_shape, self.out_shape = tuple(in_shape), tuple(out_shape)
+        self.out_dtype = out_dtype
+        k, n = math.prod(self.in_shape), math.prod(self.out_shape)
+        self.kernel_q = store.param((k, n), torch.int8)
+        self.scale = store.param((n,), torch.float32)
+        self.bias = store.param((n,), torch.float32)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead = x.shape[: x.dim() - len(self.in_shape)]
+        x = x.reshape(*lead, self.kernel_q.shape[0])
+        y = int8_apply(x, self.kernel_q, self.scale, self.out_dtype,
+                       self.bias)
+        return y.reshape(*lead, *self.out_shape)
+
+
+def _dense(cfg: TransformerConfig, store: _Store, in_shape,
+           out_shape) -> nn.Module:
+    """A projection in ``cfg.dtype``: ``Int8Dense`` in an ``int8_decode``
+    decode model, else ``DenseGeneral``."""
+    if cfg.decode and cfg.int8_decode:
+        return Int8Dense(in_shape, out_shape, cfg.dtype, store)
+    return DenseGeneral(in_shape, out_shape, cfg.dtype, store)
 
 
 class Embed(nn.Module):
@@ -216,11 +276,11 @@ class Attention(nn.Module):
         d, h, dh, kv = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.kv_heads
         if cfg.n_kv_heads is not None:
             # GQA: separate projections, K/V carry only kv_heads.
-            self.q = DenseGeneral((d,), (h, dh), cfg.dtype, store)
-            self.kv = DenseGeneral((d,), (2, kv, dh), cfg.dtype, store)
+            self.q = _dense(cfg, store, (d,), (h, dh))
+            self.kv = _dense(cfg, store, (d,), (2, kv, dh))
         else:
-            self.qkv = DenseGeneral((d,), (3, h, dh), cfg.dtype, store)
-        self.out = DenseGeneral((h, dh), (d,), cfg.dtype, store)
+            self.qkv = _dense(cfg, store, (d,), (3, h, dh))
+        self.out = _dense(cfg, store, (h, dh), (d,))
 
     def forward(self, x, layer: dict | None = None, cache: dict | None = None,
                 live=None) -> torch.Tensor:
@@ -268,17 +328,29 @@ class Attention(nn.Module):
                 f"cache index {idx} + {t} tokens exceeds max_seq_len "
                 f"{ck.shape[1]}"
             )
+        kv8 = self.cfg.kv_int8
+        if kv8:
+            (k, v), (ks, vs) = _kv8_quant(torch.stack((k, v)))
+            layer["key_scale"][:, idx:idx + t] = ks
+            layer["value_scale"][:, idx:idx + t] = vs
         ck[:, idx:idx + t] = k
         cv[:, idx:idx + t] = v
         n = idx + t
         keys, vals = ck[:, :n].float(), cv[:, :n].float()
         qg = q.reshape(b, t, kv, g, dh).float()
-        s = torch.einsum("bqkgd,bskd->bkgqs", qg, keys) * dh ** -0.5
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg, keys)
+        if kv8:
+            # The kv8 factoring: the raw int8 keys' scores times the key
+            # scale, then Dh^-1/2; the value scale on the probabilities.
+            s = s * _scale_cols(layer["key_scale"][:, :n])
+        s = s * dh ** -0.5
         rows = torch.arange(t, device=q.device)
         valid = (torch.arange(n, device=q.device)[None, :]
                  <= (idx + rows)[:, None])  # [t, n]
         s = torch.where(valid, s, _NEG_INF)
         p = torch.softmax(s, dim=-1)
+        if kv8:
+            p = p * _scale_cols(layer["value_scale"][:, :n])
         out = torch.einsum("bkgqs,bskd->bqkgd", p, vals)
         return out.reshape(b, t, h, dh).to(self.cfg.dtype)
 
@@ -290,27 +362,43 @@ class Attention(nn.Module):
         range with ``mode="drop"``, which ``index_put_`` has no twin of,
         so only the rows of ``live`` lanes are written."""
         b, t, h, dh = q.shape
-        kv = k.shape[2]
-        pool_k, pool_v = layer["pool_key"], layer["pool_value"]
+        pool_k = layer["pool_key"]
         nb, blk = pool_k.shape[:2]
         pos = idx.long()[:, None] + torch.arange(t, device=q.device)[None, :]
         entry = (pos // blk).clamp(0, table.shape[1] - 1)
         flat = table.long().gather(1, entry) * blk + pos % blk  # [b, t]
         rows = flat[live].reshape(-1)
-        pool_k.view(nb * blk, kv, dh)[rows] = k[live].reshape(-1, kv, dh)
-        pool_v.view(nb * blk, kv, dh)[rows] = v[live].reshape(-1, kv, dh)
+        new = {"pool_key": k, "pool_value": v}
+        scales = {}
+        if self.cfg.kv_int8:
+            # The shared quantizer: the pool gets the bits the dense rows
+            # get. The scale pools ride the same flat rows.
+            (k8, v8), (ks, vs) = _kv8_quant(torch.stack((k, v)))
+            new = {"pool_key": k8, "pool_value": v8, "pool_key_scale": ks,
+                   "pool_value_scale": vs}
+            scales = {"k_scale_pool": layer["pool_key_scale"],
+                      "v_scale_pool": layer["pool_value_scale"]}
+        for name, x in new.items():
+            pool = layer[name]
+            pool.view(nb * blk, *pool.shape[2:])[rows] = x[live].reshape(
+                -1, *pool.shape[2:])
         attend = (paged_attend if self.cfg.kv_attend == "kernel"
                   else paged_attend_reference)
-        return attend(q, pool_k, pool_v, table, idx).to(self.cfg.dtype)
+        return attend(q, pool_k, layer["pool_value"], table, idx,
+                      **scales).to(self.cfg.dtype)
+
+
+def _scale_cols(scale: torch.Tensor) -> torch.Tensor:
+    """Per-(token, head) scales ``[b, S, KV]`` broadcast over the grouped
+    score layout ``[b, KV, g, t, S]``."""
+    return scale.transpose(1, 2)[:, :, None, None, :]
 
 
 class MLP(nn.Module):
     def __init__(self, cfg: TransformerConfig, store: _Store):
         super().__init__()
-        self.in_proj = DenseGeneral((cfg.d_model,), (cfg.d_ff,), cfg.dtype,
-                                    store)
-        self.out_proj = DenseGeneral((cfg.d_ff,), (cfg.d_model,), cfg.dtype,
-                                     store)
+        self.in_proj = _dense(cfg, store, (cfg.d_model,), (cfg.d_ff,))
+        self.out_proj = _dense(cfg, store, (cfg.d_ff,), (cfg.d_model,))
 
     def forward(self, x):
         # flax nn.gelu is the tanh form.
@@ -350,10 +438,15 @@ class Transformer(nn.Module):
         self.blocks = nn.ModuleList(
             Block(cfg, store) for _ in range(cfg.n_layers))
         self.norm = RMSNorm(cfg.d_model, dt, store)
-        # The head runs in f32 on an f32 cast of the hidden state.
-        self.lm_head = DenseGeneral((cfg.d_model,), (cfg.vocab_size,),
-                                    torch.float32, store,
-                                    param_dtype=torch.float32)
+        # The head runs in f32 on an f32 cast of the hidden state; the
+        # int8 head rounds it to bf16, as every Int8Dense does.
+        if cfg.decode and cfg.int8_decode:
+            self.lm_head = Int8Dense((cfg.d_model,), (cfg.vocab_size,),
+                                     torch.float32, store)
+        else:
+            self.lm_head = DenseGeneral((cfg.d_model,), (cfg.vocab_size,),
+                                        torch.float32, store,
+                                        param_dtype=torch.float32)
 
     def init_cache(self, batch: int, paged: bool | None = None) -> dict:
         """An empty cache for ``batch`` lanes: paged (pools, tables on the
@@ -366,24 +459,29 @@ class Transformer(nn.Module):
         def zeros(*shape, dtype=cfg.dtype):
             return torch.zeros(shape, dtype=dtype, device=dev)
 
+        kv_dtype = torch.int8 if cfg.kv_int8 else cfg.dtype
+
+        def layer(rows, names):
+            key, value, key_scale, value_scale = names
+            out = {key: zeros(*rows, kv, dh, dtype=kv_dtype),
+                   value: zeros(*rows, kv, dh, dtype=kv_dtype)}
+            if cfg.kv_int8:
+                out[key_scale] = zeros(*rows, kv, dtype=torch.float32)
+                out[value_scale] = zeros(*rows, kv, dtype=torch.float32)
+            return out
+
         if paged:
             nb, blk = cfg.kv_num_blocks, cfg.kv_block
             return {
-                "layers": [
-                    {"pool_key": zeros(nb, blk, kv, dh),
-                     "pool_value": zeros(nb, blk, kv, dh)}
-                    for _ in range(cfg.n_layers)
-                ],
+                "layers": [layer((nb, blk), POOL_NAMES)
+                           for _ in range(cfg.n_layers)],
                 "block_table": zeros(batch, cfg.max_seq_len // blk,
                                      dtype=torch.int32),
                 "cache_index": zeros(batch, dtype=torch.int32),
             }
         return {
-            "layers": [
-                {"cached_key": zeros(batch, cfg.max_seq_len, kv, dh),
-                 "cached_value": zeros(batch, cfg.max_seq_len, kv, dh)}
-                for _ in range(cfg.n_layers)
-            ],
+            "layers": [layer((batch, cfg.max_seq_len), DENSE_NAMES)
+                       for _ in range(cfg.n_layers)],
             "cache_index": 0,
         }
 
@@ -448,7 +546,11 @@ def set_cache_index(cache: dict, value) -> dict:
 
 def _head_logits(model: Transformer, h: torch.Tensor) -> torch.Tensor:
     """lm_head projection of normed hidden rows ``[..., d]`` -> f32
-    ``[..., vocab]``, on an f32 cast (the head runs in f32)."""
+    ``[..., vocab]``, dispatching on the head's layout as JAX's does: the
+    int8 head on the hidden rows as they are (``int8_apply`` rounds them
+    to bf16), the dense head in f32 on an f32 cast."""
+    if isinstance(model.lm_head, Int8Dense):
+        return model.lm_head(h)
     return model.lm_head(h.float())
 
 

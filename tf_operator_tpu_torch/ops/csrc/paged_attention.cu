@@ -12,12 +12,20 @@
 //
 // where row c of lane b lives in pool block table[b][c / blk], row c % blk.
 //
+// The kv8 variant reads int8 pools with f32 [nb,blk,KV] scales (ks, vs) in
+// JAX's factoring: s[c] = ((q . K8[c]) * ks[c]) * Dh^-1/2, and the value
+// scale multiplies each probability in the P.V sum only, so the online
+// softmax's normaliser stays the sum of the unscaled exponentials:
+// out = sum_c p_c vs_c V8[c] / sum_c p_c, which is softmax(s) * vs then . V.
+//
 // What bounds it: bytes. A call must read the K and V rows each lane owns,
 // (index[b]+t) x KV x Dh x 2 tensors x element bytes, and write the f32
 // output. Its flops (4 per K/V element per grouped head) are about one per
 // byte, far below the H100's ~295 flop/byte ridge. At the slice's shapes
 // (4 lanes at 3500/1750/875/437 tokens, KV=4, Dh=64, bf16) that is about
-// 6.7 MB per layer: some 2 us at 3.35 TB/s.
+// 6.7 MB per layer: some 2 us at 3.35 TB/s. kv8 halves the K/V bytes and
+// adds 4 bytes of scale per row and KV head: 3.36 MB of int8 K/V, 0.21 MB
+// of scales, q, the tables and the f32 output, about 3.60 MB or 1.07 us.
 //
 // What the design does about it:
 //  - It reads only the blocks a lane owns, nblk = ceil((index[b]+t)/blk),
@@ -35,9 +43,12 @@
 //  - The t*g query rows that share a KV head share one walk, so a K/V row is
 //    read once per KV head (GQA), and t > 1 (the speculative verify chunk)
 //    rides the same kernel.
-//  - Each thread holds one key row in registers (16-byte vector loads);
-//    the V tile is copied into shared memory in its stored type by
-//    cp.async while the scores are computed. A CTA loads its lane's
+//  - Each thread holds one key row in registers (16-byte vector loads: 16
+//    int8 keys a load under kv8, widened to f32); the V tile is copied into
+//    shared memory in its stored type (int8 under kv8) by cp.async while
+//    the scores are computed. Under kv8 a thread reads its key column's two
+//    scales once (they are strided by KV); the value scale goes to shared
+//    memory for the softmax pass to fold into P. A CTA loads its lane's
 //    counter, first table entry and query rows together, so the walk
 //    waits on one dependent load, not three. The P.V sums keep four
 //    partial sums each, so their shared-memory loads overlap.
@@ -66,6 +77,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(int8_t x) { return float(x); }
 
 // One 16-byte vector of T, widened to f32.
 template <typename T>
@@ -109,19 +121,26 @@ __device__ __forceinline__ void cp_async_wait() {
                    : "memory");
 }
 
-template <typename T, int DH>
+// The V tile in its stored type, under kv8 the tile's value scales, then
+// f32 query rows, scores and row statistics.
+template <typename TKV, int DH, bool KV8>
 constexpr size_t smem_bytes(int rows) {
-  return sizeof(T) * size_t(kThreads) * DH +
-         sizeof(float) * (size_t(rows) * DH + size_t(rows) * kThreads +
-                          3 * size_t(rows));
+  return sizeof(TKV) * size_t(kThreads) * DH +
+         sizeof(float) * ((KV8 ? size_t(kThreads) : 0) + size_t(rows) * DH +
+                          size_t(rows) * kThreads + 3 * size_t(rows));
 }
 
 // Pass 1: CTA (split, kk, b) folds blocks [split*bps, (split+1)*bps) of
-// lane b's table into one partial (max, sum, P.V) per query row.
-template <typename T, int DH>
+// lane b's table into one partial (max, sum, P.V) per query row. q is TQ,
+// the pools TKV: both f32 or both bf16, or (KV8) int8 pools with f32 scale
+// pools k_scale and v_scale [nb,blk,KV] (null otherwise).
+template <typename TQ, typename TKV, int DH, bool KV8>
 __global__ void __launch_bounds__(kThreads)
-paged_partial(const T* __restrict__ q, const T* __restrict__ pool_k,
-              const T* __restrict__ pool_v, const int* __restrict__ table,
+paged_partial(const TQ* __restrict__ q, const TKV* __restrict__ pool_k,
+              const TKV* __restrict__ pool_v,
+              const float* __restrict__ k_scale,
+              const float* __restrict__ v_scale,
+              const int* __restrict__ table,
               const int* __restrict__ index, float* __restrict__ m_part,
               float* __restrict__ l_part, float* __restrict__ acc_part,
               int t, int g, int kv, int blk, int table_len, int bps,
@@ -132,8 +151,9 @@ paged_partial(const T* __restrict__ q, const T* __restrict__ pool_k,
   const int j0 = split * bps;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* vs = reinterpret_cast<T*>(smem_raw);  // [kThreads][DH] V tile, as stored
-  float* qs = reinterpret_cast<float*>(vs + kThreads * DH);  // [rows][DH]
+  TKV* vs = reinterpret_cast<TKV*>(smem_raw);  // [kThreads][DH] V tile
+  float* vsc = reinterpret_cast<float*>(vs + kThreads * DH);  // [kThreads]
+  float* qs = vsc + (KV8 ? kThreads : 0);  // [rows][DH]
   float* ps = qs + rows * DH;        // [rows][kThreads] scores, then P
   float* row_m = ps + rows * kThreads;  // [rows] running max
   float* row_l = row_m + rows;       // [rows] running sum
@@ -163,7 +183,7 @@ paged_partial(const T* __restrict__ q, const T* __restrict__ pool_k,
   for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
   __syncthreads();
 
-  constexpr int kPer = 16 / sizeof(T);  // elements per 16-byte vector
+  constexpr int kPer = 16 / sizeof(TKV);  // elements per 16-byte vector
   constexpr int kVecs = DH / kPer;      // vectors per K/V row
   const size_t row_stride = size_t(kv) * DH;
 
@@ -181,10 +201,17 @@ paged_partial(const T* __restrict__ q, const T* __restrict__ pool_k,
       }
       if (tid < ncols) {
         // Scores of key column c0+tid against every query row.
-        const T* krow = pool_k + (base + c0 + tid) * row_stride + size_t(kk) * DH;
+        const TKV* krow =
+            pool_k + (base + c0 + tid) * row_stride + size_t(kk) * DH;
         float kr[DH];
 #pragma unroll
         for (int v = 0; v < kVecs; ++v) load_vec(krow + v * kPer, kr + v * kPer);
+        float ks = 1.f;
+        if constexpr (KV8) {
+          const size_t at = (base + c0 + tid) * kv + kk;
+          ks = k_scale[at];
+          vsc[tid] = v_scale[at];
+        }
         const int pos = j * blk + c0 + tid;
         for (int r = 0; r < rows; ++r) {
           const float4* q4 = reinterpret_cast<const float4*>(qs + r * DH);
@@ -197,6 +224,7 @@ paged_partial(const T* __restrict__ q, const T* __restrict__ pool_k,
             s = fmaf(qv.z, kr[4 * d + 2], s);
             s = fmaf(qv.w, kr[4 * d + 3], s);
           }
+          if constexpr (KV8) s *= ks;
           ps[r * kThreads + tid] = pos <= idx + r / g ? s * scale : kMasked;
         }
       }
@@ -213,8 +241,12 @@ paged_partial(const T* __restrict__ q, const T* __restrict__ pool_k,
         float sum = 0.f;
         for (int c = lane; c < ncols; c += 32) {
           const float p = expf(pr[c] - m_new);
-          pr[c] = p;
           sum += p;
+          // kv8: the value scale weighs P in P.V only, not in the sum.
+          if constexpr (KV8)
+            pr[c] = p * vsc[c];
+          else
+            pr[c] = p;
         }
         sum = warp_sum(sum);
         if (lane == 0) {
@@ -309,28 +341,32 @@ paged_combine(const float* __restrict__ m_part,
   }
 }
 
-template <typename T, int DH>
+template <typename TQ, typename TKV, int DH, bool KV8>
 cudaError_t launch(const void* q, const void* pool_k, const void* pool_v,
+                   const float* k_scale, const float* v_scale,
                    const int* table, const int* index, float* m_part,
                    float* l_part, float* acc_part, float* out, int b, int t,
                    int g, int kv, int blk, int table_len, int bps,
                    int nsplit, cudaStream_t stream) {
   // Above 48 KB a kernel needs the opt-in; set it once to the most any
   // row count can ask for (98,688 bytes for f32 at DH=128).
+  constexpr size_t kMaxSmem = smem_bytes<TKV, DH, KV8>(kMaxRows);
   static bool opted_in = false;
   if (!opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_partial<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        int(smem_bytes<T, DH>(kMaxRows)));
+        paged_partial<TQ, TKV, DH, KV8>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, int(kMaxSmem));
     if (err != cudaSuccess) return err;
     opted_in = true;
   }
   const float scale = float(1.0 / sqrt(double(DH)));
-  paged_partial<T, DH><<<dim3(nsplit, kv, b), kThreads,
-                         smem_bytes<T, DH>(t * g), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(pool_k),
-      static_cast<const T*>(pool_v), table, index, m_part, l_part, acc_part,
-      t, g, kv, blk, table_len, bps, nsplit, scale);
+  paged_partial<TQ, TKV, DH, KV8><<<dim3(nsplit, kv, b), kThreads,
+                                    smem_bytes<TKV, DH, KV8>(t * g),
+                                    stream>>>(
+      static_cast<const TQ*>(q), static_cast<const TKV*>(pool_k),
+      static_cast<const TKV*>(pool_v), k_scale, v_scale, table, index,
+      m_part, l_part, acc_part, t, g, kv, blk, table_len, bps, nsplit,
+      scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   paged_combine<<<dim3(kv, b), kThreads,
@@ -340,18 +376,20 @@ cudaError_t launch(const void* q, const void* pool_k, const void* pool_v,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename TQ, typename TKV, bool KV8>
 cudaError_t launch_dh(int dh, const void* q, const void* pool_k,
-                      const void* pool_v, const int* table, const int* index,
-                      float* m_part, float* l_part, float* acc_part,
-                      float* out, int b, int t, int g, int kv, int blk,
-                      int table_len, int bps, int nsplit,
+                      const void* pool_v, const float* k_scale,
+                      const float* v_scale, const int* table,
+                      const int* index, float* m_part, float* l_part,
+                      float* acc_part, float* out, int b, int t, int g,
+                      int kv, int blk, int table_len, int bps, int nsplit,
                       cudaStream_t stream) {
 #define PAGED_DH_CASE(D)                                                     \
   case D:                                                                    \
-    return launch<T, D>(q, pool_k, pool_v, table, index, m_part, l_part,    \
-                        acc_part, out, b, t, g, kv, blk, table_len, bps,     \
-                        nsplit, stream);
+    return launch<TQ, TKV, D, KV8>(q, pool_k, pool_v, k_scale, v_scale,     \
+                                   table, index, m_part, l_part, acc_part,   \
+                                   out, b, t, g, kv, blk, table_len, bps,    \
+                                   nsplit, stream);
   switch (dh) {
     PAGED_DH_CASE(16)
     PAGED_DH_CASE(32)
@@ -386,11 +424,41 @@ extern "C" int paged_attend_launch(
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? launch_dh<__nv_bfloat16>(dh, q, pool_k, pool_v, tbl, idx, mp,
-                                         lp, ap, o, b, t, g, kv, blk,
-                                         table_len, bps, nsplit, s)
-              : launch_dh<float>(dh, q, pool_k, pool_v, tbl, idx, mp, lp, ap,
-                                 o, b, t, g, kv, blk, table_len, bps, nsplit,
-                                 s);
+      is_bf16 ? launch_dh<__nv_bfloat16, __nv_bfloat16, false>(
+                    dh, q, pool_k, pool_v, nullptr, nullptr, tbl, idx, mp, lp,
+                    ap, o, b, t, g, kv, blk, table_len, bps, nsplit, s)
+              : launch_dh<float, float, false>(
+                    dh, q, pool_k, pool_v, nullptr, nullptr, tbl, idx, mp, lp,
+                    ap, o, b, t, g, kv, blk, table_len, bps, nsplit, s);
+  return int(err);
+}
+
+// The kv8 variant: q [b,t,H,Dh] f32 or bf16 (q_is_bf16), pools
+// [nb,blk,KV,Dh] int8, k_scale and v_scale f32 [nb,blk,KV]; the rest as
+// paged_attend_launch.
+extern "C" int paged_attend_kv8_launch(
+    const void* q, const void* pool_k, const void* pool_v,
+    const void* k_scale, const void* v_scale, const void* table,
+    const void* index, void* m_part, void* l_part, void* acc_part, void* out,
+    int b, int t, int g, int kv, int dh, int blk, int table_len, int bps,
+    int nsplit, int q_is_bf16, void* stream) {
+  if (t * g > kMaxRows || t < 1 || g < 1 || bps < 1 || nsplit > kMaxSplits)
+    return cudaErrorInvalidValue;
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vsp = static_cast<const float*>(v_scale);
+  const int* tbl = static_cast<const int*>(table);
+  const int* idx = static_cast<const int*>(index);
+  float* mp = static_cast<float*>(m_part);
+  float* lp = static_cast<float*>(l_part);
+  float* ap = static_cast<float*>(acc_part);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      q_is_bf16 ? launch_dh<__nv_bfloat16, int8_t, true>(
+                      dh, q, pool_k, pool_v, ks, vsp, tbl, idx, mp, lp, ap, o,
+                      b, t, g, kv, blk, table_len, bps, nsplit, s)
+                : launch_dh<float, int8_t, true>(
+                      dh, q, pool_k, pool_v, ks, vsp, tbl, idx, mp, lp, ap, o,
+                      b, t, g, kv, blk, table_len, bps, nsplit, s);
   return int(err);
 }

@@ -5,7 +5,11 @@ signature and layout: q ``[b, t, H, Dh]``, pools ``[nb, blk, KV, Dh]``,
 block table ``[b, table_len]`` int32 and ``index`` ``[b]`` int32
 pre-update counters (query row i of lane b sits at absolute position
 ``index[b] + i``). The result is f32 ``[b, t, H, Dh]``; the caller
-applies the storage-dtype cast, as the gather path does.
+applies the storage-dtype cast, as the gather path does. Under kv_int8
+the pools are int8 and ``k_scale_pool``/``v_scale_pool`` (both or
+neither) hold their f32 ``[nb, blk, KV]`` per-(token, head) scales: the
+scores are the raw int8 keys' times the key scale, then times Dh^-1/2,
+and the value scale multiplies the probabilities before P.V.
 
 - ``paged_attend_reference`` is the plain PyTorch version: the gather
   oracle of ``_decode_attend_paged`` (gather the pool back to the dense
@@ -17,7 +21,8 @@ applies the storage-dtype cast, as the gather path does.
   built) or raises: there is no quiet fallback.
 - ``paged_attend_supported`` is the kernel's own geometry rule. The JAX
   module's 12 MiB VMEM gate is a TPU fact and does not carry over.
-- ``launches`` counts kernel launches, and nothing else.
+- ``launches`` counts launches of the bf16/f32 kernel and
+  ``kv8_launches`` those of its kv8 variant, and nothing else.
 """
 
 from __future__ import annotations
@@ -42,17 +47,21 @@ DTYPES = (torch.float32, torch.bfloat16)
 TOKENS_PER_SPLIT = 128
 MAX_SPLITS = 256
 
-# Kernel launches since the last reset (set it to 0 to reset).
+# Kernel launches since the last reset (set them to 0 to reset): the
+# bf16/f32 pools' kernel, and its kv8 variant.
 launches = 0
+kv8_launches = 0
 
 _lib: ctypes.CDLL | None = None
 
 
 def paged_attend_supported(t: int, n_heads: int, kv_heads: int,
                            head_dim: int, dtype: torch.dtype) -> bool:
-    """True when the CUDA kernel takes this geometry: f32 or bf16, a head
-    dim it is built for, and at most ``MAX_ROWS`` query rows (t times
-    the group size) per KV head."""
+    """True when the CUDA kernel takes this geometry: q in f32 or bf16
+    (``dtype``), a head dim it is built for, and at most ``MAX_ROWS`` query
+    rows (t times the group size) per KV head. The kv8 variant takes the
+    same geometry, with q's dtype as ``dtype``; the pools' dtype (q's, or
+    int8 beside the scale pools) is checked at launch."""
     if t < 1 or kv_heads < 1 or n_heads % kv_heads:
         return False
     return (dtype in DTYPES and head_dim in HEAD_DIMS
@@ -68,48 +77,79 @@ def blocks_per_split(blk: int, table_len: int) -> int:
 
 def paged_attend_reference(q: torch.Tensor, pool_k: torch.Tensor,
                            pool_v: torch.Tensor, block_table: torch.Tensor,
-                           index: torch.Tensor) -> torch.Tensor:
+                           index: torch.Tensor, *,
+                           k_scale_pool: torch.Tensor | None = None,
+                           v_scale_pool: torch.Tensor | None = None
+                           ) -> torch.Tensor:
     """The gather oracle: ``pool[table]`` back to ``[b, S, KV, Dh]``, the
-    grouped einsums in f32 (an upcast of bf16 operands is exact, so this
-    is JAX's bf16 dot with f32 accumulation), scale before the mask,
-    masked columns at -1e30, softmax over the full S."""
+    grouped einsums in f32 (an upcast of bf16 or int8 operands is exact,
+    so this is JAX's bf16 dot with f32 accumulation), scale before the
+    mask, masked columns at -1e30, softmax over the full S; under kv8 the
+    key scale on the scores before Dh^-1/2 and the value scale on the
+    probabilities."""
+    kv8 = _kv8(k_scale_pool, v_scale_pool)
     b, t, h, dh = q.shape
     _, blk, kv, _ = pool_k.shape
     g = h // kv
     s_len = block_table.shape[1] * blk
     table = block_table.long()
-    keys = pool_k[table].reshape(b, s_len, kv, dh).float()
-    vals = pool_v[table].reshape(b, s_len, kv, dh).float()
+
+    def rows(pool):
+        return pool[table].reshape(b, s_len, *pool.shape[2:]).float()
+
+    def cols(scale_pool):  # [b, S, KV] -> the scores' [b, KV, 1, 1, S]
+        return rows(scale_pool).transpose(1, 2)[:, :, None, None, :]
+
+    keys, vals = rows(pool_k), rows(pool_v)
     qg = q.reshape(b, t, kv, g, dh).float()
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, keys) * dh ** -0.5
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, keys)
+    if kv8:
+        s = s * cols(k_scale_pool)
+    s = s * dh ** -0.5
     pos = (index.long()[:, None]
            + torch.arange(t, device=q.device)[None, :])  # [b, t]
     valid = (torch.arange(s_len, device=q.device)[None, None, :]
              <= pos[:, :, None])  # [b, t, S]
     s = torch.where(valid[:, None, None], s, _NEG_INF)
     p = torch.softmax(s, dim=-1)
+    if kv8:
+        p = p * cols(v_scale_pool)
     out = torch.einsum("bkgqs,bskd->bqkgd", p, vals)
     return out.reshape(b, t, h, dh)
 
 
 def paged_attend(q: torch.Tensor, pool_k: torch.Tensor,
                  pool_v: torch.Tensor, block_table: torch.Tensor,
-                 index: torch.Tensor) -> torch.Tensor:
+                 index: torch.Tensor, *,
+                 k_scale_pool: torch.Tensor | None = None,
+                 v_scale_pool: torch.Tensor | None = None) -> torch.Tensor:
     """Paged decode attention: the plain version on the CPU, the CUDA
-    kernel on the card. Raises ``ValueError`` on shapes the attention
-    does not define and, on the card, on a geometry the kernel does not
-    take (``paged_attend_supported``)."""
+    kernel on the card (its kv8 variant when the scale pools are given).
+    Raises ``ValueError`` on shapes the attention does not define and,
+    on the card, on a geometry the kernel does not take
+    (``paged_attend_supported``)."""
     t, h = q.shape[1], q.shape[2]
     kv = pool_k.shape[2]
+    _kv8(k_scale_pool, v_scale_pool)
     if t < 1:
         raise ValueError(f"t={t}: need at least one query row per lane")
     if h % kv:
         raise ValueError(f"n_heads={h} must be a multiple of KV={kv}")
     if q.device.type == "cpu":
-        return paged_attend_reference(q, pool_k, pool_v, block_table, index)
+        return paged_attend_reference(q, pool_k, pool_v, block_table, index,
+                                      k_scale_pool=k_scale_pool,
+                                      v_scale_pool=v_scale_pool)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attend: no kernel for device {q.device}")
-    return _launch(q, pool_k, pool_v, block_table, index)
+    return _launch(q, pool_k, pool_v, block_table, index, k_scale_pool,
+                   v_scale_pool)
+
+
+def _kv8(k_scale_pool, v_scale_pool) -> bool:
+    """Whether the call is kv8; raises when only one scale pool is given."""
+    if (k_scale_pool is None) != (v_scale_pool is None):
+        raise ValueError("kv8 needs both scale pools (or neither)")
+    return k_scale_pool is not None
 
 
 def _library() -> ctypes.CDLL:
@@ -120,29 +160,43 @@ def _library() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        fn = lib.paged_attend_kv8_launch
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def _launch(q, pool_k, pool_v, table, index) -> torch.Tensor:
-    global launches
+def _launch(q, pool_k, pool_v, table, index, k_scale_pool=None,
+            v_scale_pool=None) -> torch.Tensor:
+    global launches, kv8_launches
     b, t, h, dh = q.shape
-    _, blk, kv, _ = pool_k.shape
+    nb, blk, kv, _ = pool_k.shape
+    kv8 = k_scale_pool is not None
     if not paged_attend_supported(t, h, kv, dh, q.dtype):
         raise ValueError(
             f"paged_attend kernel: t={t} H={h} KV={kv} Dh={dh} "
             f"{q.dtype} is outside its geometry (dtype in {DTYPES}, Dh in "
             f"{HEAD_DIMS}, t*H/KV <= {MAX_ROWS})"
         )
-    if pool_k.dtype != q.dtype or pool_v.dtype != q.dtype:
-        raise ValueError("paged_attend kernel: q and pools need one dtype")
+    pool_dtype = torch.int8 if kv8 else q.dtype
+    if pool_k.dtype != pool_dtype or pool_v.dtype != pool_dtype:
+        raise ValueError(
+            "paged_attend kernel: the pools must be int8 with scale pools "
+            "(kv8), else in q's dtype")
     if pool_v.shape != pool_k.shape:
         raise ValueError("paged_attend kernel: key and value pools differ")
+    scales = (k_scale_pool, v_scale_pool) if kv8 else ()
+    for sp in scales:
+        if sp.dtype != torch.float32 or sp.shape != (nb, blk, kv):
+            raise ValueError("paged_attend kernel: scale pools are f32 "
+                             "[nb, blk, KV]")
     if table.dtype != torch.int32 or index.dtype != torch.int32:
         raise ValueError("paged_attend kernel: table and index are int32")
     if table.shape[0] != b or index.shape != (b,):
         raise ValueError("paged_attend kernel: table/index lanes != q lanes")
-    args = (q, pool_k, pool_v, table, index)
+    args = (q, pool_k, pool_v, *scales, table, index)
     for x in args:
         if x.device != q.device:
             raise ValueError("paged_attend kernel: inputs on two devices")
@@ -163,7 +217,9 @@ def _launch(q, pool_k, pool_v, table, index) -> torch.Tensor:
     acc_part = torch.empty((b, kv, nsplit, rows, dh), **f32)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _library().paged_attend_launch(
+        lib = _library()
+        entry = lib.paged_attend_kv8_launch if kv8 else lib.paged_attend_launch
+        err = entry(
             *(x.data_ptr() for x in args),
             m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
             out.data_ptr(),
@@ -174,5 +230,8 @@ def _launch(q, pool_k, pool_v, table, index) -> torch.Tensor:
         raise RuntimeError(
             f"paged_attend kernel launch failed: CUDA error {err}"
         )
-    launches += 1
+    if kv8:
+        kv8_launches += 1
+    else:
+        launches += 1
     return out

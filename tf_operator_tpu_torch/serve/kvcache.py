@@ -14,7 +14,8 @@ one executable serves every join; eager PyTorch needs neither.
 
 ``SlotAllocator``, ``BlockAllocator`` and ``PrefixCache`` are this
 package's own copies of the JAX module's host classes (that module
-imports JAX), trimmed to one data-parallel shard.
+imports JAX), trimmed to one data-parallel shard; ``POOL_KEYS`` is its
+own copy of that module's table of pool leaves.
 """
 
 from __future__ import annotations
@@ -26,6 +27,17 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from tf_operator_tpu_torch.models.transformer import DENSE_NAMES, POOL_NAMES
+
+# Paged pool leaf -> the dense (solo) leaf holding the same rows:
+# pool_key/pool_value -> cached_key/cached_value and, under kv_int8, the
+# f32 [nb, blk, KV] scale pools pool_key_scale/pool_value_scale ->
+# key_scale/value_scale. The scales address their rows by the same
+# table[pos // blk] * blk + pos % blk math as the K/V blocks, so one walk
+# over the leaves a layer holds serves the scatter, the gather and the
+# copy-on-write.
+POOL_KEYS = dict(zip(POOL_NAMES, DENSE_NAMES))
 
 
 def paged_cache_template(model, max_slots: int) -> dict:
@@ -48,8 +60,9 @@ def paged_insert(cache: dict, slot: int, write_table: np.ndarray,
     """Land a finished solo prefill in the pool: the prompt rows of the
     dense ``solo`` cache whose ``write_table`` entry is a real block go to
     that block (entries 0 mark shared-prefix rows, already resident in
-    the donor's blocks); the slot's table row becomes ``read_table`` and
-    its counter the solo counter. The JAX insert scatters all
+    the donor's blocks), every pool leaf present (K/V and, under
+    kv_int8, their scales); the slot's table row becomes ``read_table``
+    and its counter the solo counter. The JAX insert scatters all
     max_seq_len rows and dumps the unwanted ones into block 0 so that one
     executable serves every join; here only the rows that matter move."""
     n = int(solo["cache_index"])
@@ -61,11 +74,17 @@ def paged_insert(cache: dict, slot: int, write_table: np.ndarray,
                            device=dev)
     src = torch.as_tensor(pos[keep], device=dev)
     for lp, ls in zip(cache["layers"], solo["layers"]):
-        for pool, rows in ((lp["pool_key"], ls["cached_key"]),
-                           (lp["pool_value"], ls["cached_value"])):
-            nb, blk, kv, dh = pool.shape
-            pool.view(nb * blk, kv, dh)[flat] = rows[0, src]
+        for pname, dname in _leaves(lp):
+            pool = lp[pname]
+            nb, blk = pool.shape[:2]
+            pool.view(nb * blk, *pool.shape[2:])[flat] = ls[dname][0, src]
     return table_insert(cache, slot, read_table, n)
+
+
+def _leaves(layer: dict):
+    """(pool leaf, dense leaf) of each ``POOL_KEYS`` entry the layer
+    holds."""
+    return [(p, d) for p, d in POOL_KEYS.items() if p in layer]
 
 
 def table_insert(cache: dict, slot: int, read_table: np.ndarray,
@@ -79,8 +98,9 @@ def table_insert(cache: dict, slot: int, read_table: np.ndarray,
 
 
 def gather_solo(cache: dict, table: np.ndarray) -> dict:
-    """A solo dense cache whose K/V rows are ``table``'s blocks in order,
-    counter 0: the seed of a shared-prefix suffix prefill. Rows past the
+    """A solo dense cache whose K/V rows (and scales) are ``table``'s
+    blocks in order, counter 0: the seed of a shared-prefix suffix
+    prefill. Rows past the
     shared prefix are whatever those blocks hold; the suffix prefill
     overwrites them before it reads them."""
     idx = torch.as_tensor(np.asarray(table, np.int64),
@@ -88,8 +108,7 @@ def gather_solo(cache: dict, table: np.ndarray) -> dict:
     layers = []
     for lp in cache["layers"]:
         row = {}
-        for pname, dname in (("pool_key", "cached_key"),
-                             ("pool_value", "cached_value")):
+        for pname, dname in _leaves(lp):
             pool = lp[pname]
             row[dname] = pool[idx].reshape(1, -1, *pool.shape[2:])
         layers.append(row)
@@ -98,10 +117,12 @@ def gather_solo(cache: dict, table: np.ndarray) -> dict:
 
 def cow_copy(cache: dict, slot: int, entry: int, src: int, dst: int) -> dict:
     """Copy-on-write: every layer's pool block ``src`` copied into
-    ``dst`` and the slot's table entry switched to ``dst``."""
+    ``dst``, in every pool leaf (a copy that left the kv_int8 scales
+    behind would decode with zeroed scales), and the slot's table entry
+    switched to ``dst``."""
     for lp in cache["layers"]:
-        lp["pool_key"][dst] = lp["pool_key"][src]
-        lp["pool_value"][dst] = lp["pool_value"][src]
+        for pname, _ in _leaves(lp):
+            lp[pname][dst] = lp[pname][src]
     cache["block_table"][slot, entry] = int(dst)
     return cache
 

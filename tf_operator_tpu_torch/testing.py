@@ -26,6 +26,14 @@ opposite directions as often as not: atol 3e-2. Each output then rounds
 to bf16 once more, so the two may land two bf16 steps apart, at most 2 x
 2^-7 = 1.6e-2 of an element's size: rtol 2e-2. lse is f32 in both dtypes
 and held to ``LSE_ATOL`` absolute.
+
+Int8 matmul (``INT8_TOL``, by the output's dtype): kernel and plain
+version multiply the same bf16 activations by the same int8 weights,
+products exact in f32, and differ only in the order of the f32 sums over
+k (up to 4096 terms): ~1e-6 of the row's scale, atol 1e-4, rtol 1e-5. A
+bf16 output rounds those sums once on each side, so two sums that
+straddle a rounding boundary land one bf16 step apart, at most 2^-7 of
+the element: rtol 2^-7.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import torch
 # (rtol, atol as a share of the row's rms) by dtype.
 FLASH_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 3e-2)}
 LSE_ATOL = 1e-4
+INT8_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2.0 ** -7, 1e-4)}
 
 
 def _errors(got: torch.Tensor, want: torch.Tensor):

@@ -2,10 +2,12 @@
 
     python tools/torch_kernel_ab.py --kernel paged --baseline OLD.cu
     python tools/torch_kernel_ab.py --kernel flash --baseline OLD.cu
+    python tools/torch_kernel_ab.py --kernel int8 --baseline OLD.cu
 
-Builds ``OLD.cu`` (an earlier ``paged_attention.cu`` or
-``flash_attention.cu`` with the same C entry points, e.g. from ``git show
-REV:tf_operator_tpu_torch/ops/csrc/flash_attention.cu``) beside the
+Builds ``OLD.cu`` (an earlier ``paged_attention.cu``,
+``flash_attention.cu`` or ``int8_dense.cu`` with the same C entry points,
+e.g. from ``git show REV:tf_operator_tpu_torch/ops/csrc/int8_dense.cu``)
+beside the
 checkout's own source, holds each build against the plain versions, and
 times both by CUDA-graph replay in turns (baseline, current, current,
 baseline) on the same inputs at chip_smoke.py's shapes:
@@ -15,7 +17,14 @@ baseline) on the same inputs at chip_smoke.py's shapes:
   max-abs error against the plain version;
 - flash: the forward, dQ and dK/dV kernels at B=2, H=16, T=8192, Dh=64,
   bf16, causal; the errors are each output's largest share of its bound
-  (tf_operator_tpu_torch.testing) at T=1000.
+  (tf_operator_tpu_torch.testing) at T=1000;
+- int8: one decode forward's 41 int8 matmuls at m=4 as the bf16 model
+  makes them (bf16 x, a bias, bf16 out, the head's f32; distinct
+  weights), each (k, n) alone at m=4 (no bias, f32 out), and m=3500
+  against 1024x4096; the error is the largest share of the bound of the
+  rule in
+  tf_operator_tpu_torch.testing over the first and last calls of the
+  forward and the m=3500 call.
 
 Prints the card line and one JSON line per turn. Needs a CUDA card and
 nvcc.
@@ -38,8 +47,13 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from tf_operator_tpu_torch.ops import _build  # noqa: E402
 from tf_operator_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from tf_operator_tpu_torch.ops import int8_dense as i8  # noqa: E402
 from tf_operator_tpu_torch.ops import paged_attention as pa  # noqa: E402
-from tf_operator_tpu_torch.testing import flash_excess  # noqa: E402
+from tf_operator_tpu_torch.testing import (  # noqa: E402
+    INT8_TOL,
+    excess,
+    flash_excess,
+)
 
 
 def _load(module, source: str, entries) -> ctypes.CDLL:
@@ -109,7 +123,38 @@ def flash():
         turn
 
 
-KERNELS = {"paged": paged, "flash": flash}
+def int8():
+    """(module, entry points, one turn's measurement) of the int8 matmul
+    kernel."""
+    weights, xs, forward = cs.int8_forward_case()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x_pre = torch.randn((cs.PREFILL_M, 1024), generator=gen,
+                        device="cuda").bfloat16()
+    pre = [(w_q, scale, torch.bfloat16, bias)
+           for w_q, scale, bias in weights[(1024, 4096)]]
+    checks = [(call, i8.int8_matmul_reference(*call))
+              for call in (forward[0], forward[-1], (x_pre, *pre[0]))]
+    bound = sum(cs.int8_bounds_ms(call[0].shape[0], *call[1].shape)[0]
+                for call in forward)
+
+    def turn() -> dict:
+        share = max(excess(i8.int8_matmul(*call), want, *INT8_TOL[want.dtype])
+                    for call, want in checks)
+        shape_ms = {f"{k}x{n}": cs.device_ms(
+            lambda i: i8.int8_matmul(xs[k], *ws[i % len(ws)][:2]), 64)
+            for (k, n), ws in weights.items()}
+        return dict(
+            forward_ms=cs.device_ms(
+                lambda i: [i8.int8_matmul(*call) for call in forward], 10),
+            forward_bound_ms=bound, shape_ms=shape_ms,
+            prefill_ms=cs.device_ms(
+                lambda i: i8.int8_matmul(x_pre, *pre[i % len(pre)]), 16),
+            share_of_bound=share)
+
+    return i8, ("int8_matmul_launch",), turn
+
+
+KERNELS = {"paged": paged, "flash": flash, "int8": int8}
 
 
 def main() -> int:
