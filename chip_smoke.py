@@ -8,7 +8,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    torch version; TF32 off for matmuls and cuDNN;
 2. build: every CUDA kernel of the paths from the sources in this
    checkout (one nvcc per source, started together), with ptxas's
-   register and spill lines;
+   register and spill lines; it fails if one of the four TMA + wgmma
+   flash instances spills;
 3. paged kernel vs plain: the paged-attention kernel against its plain
    PyTorch version at the serving slice's shapes (4 lanes at
    3500/1750/875/437 tokens, H=16, KV=4, Dh=64, blk=128, S=4096), for
@@ -17,20 +18,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
    per call, the plain version's device time, the byte bound and, as a
    yardstick the port never calls, scaled_dot_product_attention over the
    pre-gathered K/V;
-4. flash kernels vs plain: the forward (O and LSE), dQ and dK/dV kernels
-   against their plain versions at B=2, H=16, Dh=64, causal at T=1024
-   and T=1000 (a ragged tail, once with q, k, v as strided slices of one
-   fused projection) and full at tq=512, tk=1024, in bf16 and f32; each
-   element within the rule of tf_operator_tpu_torch.testing;
+4. flash kernels vs plain: the design each instance runs (bf16 and f32,
+   Dh 32, 64 and 128; flash_design: "tma-wgmma", the warp-specialised TMA
+   + wgmma kernels of bf16 B1 and B3, or "mma.sync"), then the forward (O
+   and LSE), dQ and dK/dV kernels against their plain versions at B=2,
+   H=16, Dh=64, causal at T=1024 and T=1000 (a ragged tail, once with q,
+   k, v as strided slices of one fused projection) and full at tq=512,
+   tk=1024, in bf16 and f32; each element within the rule of
+   tf_operator_tpu_torch.testing;
 5. flash at the training shape (B=2, H=16, T=8192, Dh=64, bf16, causal,
    q, k, v strided slices of one [B, T, 3, H, Dh] projection as the
-   trainer hands them over): every output against the plain versions
-   (run a head at a time), then each kernel's device time (CUDA-graph
-   replay), the forward's and forward+backward's eager time, the plain
-   versions' time (at T=8192 when their f32 scores fit, else at T=2048,
-   the shape printed), the operation bound at 989 TFLOP/s, and as a
-   yardstick the device time of aten's flash-attention forward and
-   backward (the backward computes dQ, dK and dV in one call);
+   trainer hands them over): it asserts that B1 and B3 run the TMA +
+   wgmma design there and prints each kernel's design; every output
+   against the plain versions (run a head at a time) and, with the plain
+   versions, against an f32 evaluation (the kernels no less exact:
+   F32_RMS_RATIO); then each kernel's device time (CUDA-graph replay),
+   the forward's and forward+backward's eager time, the plain versions'
+   time (at T=8192 when their f32 scores fit, else at T=2048, the shape
+   printed), the operation bound at 989 TFLOP/s, and as a yardstick the
+   device time of aten's flash-attention forward and backward (the
+   backward computes dQ, dK and dV in one call);
 6. engine, f32: the full-width paged-decode LM (vocab 32768, d 1024, 16
    heads, 4 KV heads, 8 layers, d_ff 4096, S 4096; random weights from a
    seed) in ContinuousEngine with kv_attend="kernel" and "gather": four
@@ -53,8 +60,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    1024 with a bf16 head dot, adamw(1e-4)) for 7 steps on one seeded
    batch: step seconds after one warm-up step, tokens/s and MFU
    (bench.py's count: 6 N + 6 L d S flops a token, at 989 TFLOP/s), one
-   more step under torch.profiler; losses finite and falling, and 8
-   forward, 8 dQ and 8 dK/dV launches a step;
+   more step under torch.profiler (device busy share, the kernels that
+   take most device time: the step's breakdown); losses finite and
+   falling, and 8 forward, 8 dQ and 8 dK/dV launches a step (each
+   kernel's design printed: phase 5 asserts it for this shape);
 10. int8 matmul vs plain (B5, the int8_decode path): the kernel against
     its plain version for m in {1, 4, 437, 3500} at each projection's
     (k, n) = (1024, 1024), (1024, 512), (1024, 4096), (4096, 1024) and m in
@@ -83,7 +92,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
     quantized from the bf16-rounded weights as bench.py's int8 legs do:
     decode tokens/s, prefill seconds and the last 8 steps under
     torch.profiler, beside phase 7's bf16 numbers;
-14. the ``kernels`` JSON line, the card line, and last the result line.
+14. the ``kernels`` JSON line (each kernel with its design), the card
+    line, and last the result line.
 
 It exits non-zero without a result when torch sees no CUDA device.
 """
@@ -95,6 +105,7 @@ import itertools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -131,6 +142,14 @@ FLASH_CASES = [("causal T=1024", 1024, 1024, True, False),
 F32_RMS_RATIO = 1.25
 FLASH_OUTS = {"o": "flash_fwd", "lse": "flash_fwd", "dq": "flash_dq",
               "dk": "flash_dkv", "dv": "flash_dkv"}
+# flash_design's answers, and its kernel numbers.
+FLASH_DESIGNS = {0: "mma.sync", 1: "tma-wgmma"}
+FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+# The kernels line's design of the other kernels (their source notes).
+OTHER_DESIGNS = {
+    "paged_attend": "split block walk + merge launch, f32 on CUDA cores",
+    "paged_attend_kv8": "split block walk + merge launch, f32 on CUDA cores",
+    "int8_matmul": "m <= 8: cluster split-k, f32 FMAs; m > 8: mma.sync tile"}
 # f32 trainer, kernels vs plain attention. Step-0 gradients, leaf by leaf,
 # each element within GRAD_RTOL |plain| + GRAD_ATOL x the rms of its row
 # of plain (the rule of tf_operator_tpu_torch.testing): the attention
@@ -171,6 +190,22 @@ def card_line() -> str:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def ws_spills(log: str) -> dict:
+    """{instance: spill-store bytes} of the warp-specialised flash kernels
+    (the TMA + wgmma design, ``flash_*_ws<Dh>``) in a ``ptxas -v`` log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"(flash_[a-z]+_ws)ILi(\d+)E", line)
+            name = f"{m[1]}<{m[2]}>" if m else None
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            out[name] = int(m[1])
+            name = None
+    return out
 
 
 def _events_ms(run) -> float:
@@ -595,12 +630,29 @@ def flash_compare(label, got, want, worst) -> None:
         raise AssertionError(f"flash {label}: {bad} disagree")
 
 
+def flash_designs(fa, dtype, dh) -> dict:
+    """{kernel: the design its (dtype, dh) instance runs}, from the
+    library's flash_design."""
+    lib = fa._library()
+    out = {}
+    for i, name in enumerate(FLASH_KERNELS):
+        code = lib.flash_design(int(dtype == torch.bfloat16), dh, i)
+        if code not in FLASH_DESIGNS:
+            raise AssertionError(f"flash_design({dtype}, {dh}, {name}) = "
+                                 f"{code}")
+        out[name] = FLASH_DESIGNS[code]
+    return out
+
+
 def flash_check_phase(fa) -> dict:
     """Each flash kernel against its plain version on the same inputs;
     the backward kernels are fed the plain forward's statistics. Returns
     each kernel's largest max-abs error over its outputs and the cases."""
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
+        for dh in fa.HEAD_DIMS:
+            print(f"flash designs, {dtype}, Dh={dh}: "
+                  f"{flash_designs(fa, dtype, dh)}", flush=True)
         for seed, (name, tq, tk, causal, fused) in enumerate(FLASH_CASES):
             q, k, v, do = flash_inputs(2, tq, tk, dtype, seed, fused)
             scale = DH ** -0.5
@@ -687,8 +739,13 @@ def flash_against_f32(fa, stats, got, want) -> None:
 def flash_timing_phase(fa, worst) -> dict:
     """The kernels at the training shape, checked against their plain
     versions and timed beside them and the library yardstick; returns
-    {kernel: {ms, plain_ms, bound_ms, bound_by, library_ms}}."""
+    {kernel: {ms, plain_ms, bound_ms, bound_by, library_ms, design}}."""
     b, t, scale = TRAIN_B, TRAIN_T, DH ** -0.5
+    designs = flash_designs(fa, torch.bfloat16, DH)
+    print(f"flash designs at the training shape: {designs}", flush=True)
+    if (designs["flash_fwd"], designs["flash_dkv"]) != ("tma-wgmma",) * 2:
+        raise AssertionError(f"B1 and B3 must run the TMA + wgmma design at "
+                             f"the training shape: {designs}")
     q, k, v, do = flash_inputs(b, t, t, torch.bfloat16, seed=11, fused=True)
     o, lse = fa.flash_fwd(q, k, v, True, scale)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
@@ -767,7 +824,8 @@ def flash_timing_phase(fa, worst) -> dict:
     for name in ms:
         bms, by = bounds[name]
         result[name] = dict(ms=ms[name], plain_ms=plain[name], bound_ms=bms,
-                            bound_by=by, library_ms=lib[name])
+                            bound_by=by, library_ms=lib[name],
+                            design=designs[name])
         print(f"{name} bf16 B={b} H={H} T={t} Dh={DH} causal: kernel_ms "
               f"{ms[name]:.6f} bound_ms {bms:.6f} ({by}) plain_ms "
               f"{plain[name]:.6f} at T={pt} library_ms {lib[name]:.6f}",
@@ -1109,9 +1167,11 @@ def train_bf16_phase(params, card: str) -> dict:
     """bench.py's LM training step at full width; returns the flash
     launches of the timed run."""
     from tf_operator_tpu_torch.models.transformer import TransformerConfig
+    from tf_operator_tpu_torch.ops import flash_attention as fa
     from tf_operator_tpu_torch.train.steps import adamw
 
     cfg = TransformerConfig(dtype=torch.bfloat16, **LM)
+    designs = flash_designs(fa, cfg.dtype, cfg.d_model // cfg.n_heads)
     rng = np.random.default_rng(0)
     batch = {name: torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (TRAIN_B, TRAIN_T)).astype(np.int64)).cuda()
@@ -1137,7 +1197,7 @@ def train_bf16_phase(params, card: str) -> dict:
           f"tokens/s {tok_s:.2f} MFU {mfu:.6f} (6N + 6LdS = {flops_tok} "
           f"flops a token at 989 TFLOP/s); peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; counts "
-          f"{counts} on {card}", flush=True)
+          f"{counts}, designs {designs} on {card}", flush=True)
     launches = dict(flash_fwd=counts["fwd"], flash_dq=counts["dq"],
                     flash_dkv=counts["dkv"])
     del run
@@ -1171,8 +1231,16 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
     for name in sources:
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "wgmma",
+                                       "setmaxnreg")):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
+    log = _build.build_log("flash_attention")
+    if log:
+        spills = ws_spills(log)
+        print(f"ptxas: spill stores (bytes) of the TMA + wgmma instances "
+              f"{spills}", flush=True)
+        if len(spills) != 4 or any(spills.values()):
+            raise AssertionError(f"the TMA + wgmma instances spill: {spills}")
 
     kernel = kernel_phase(pa)
     flash_err = flash_check_phase(fa)
@@ -1229,15 +1297,18 @@ def main() -> int:
         name="paged_attend", route="cuda", source=src + "paged_attention.cu",
         replaces="tf_operator_tpu/ops/paged_attention.py:126",
         launches=bf16["launches"]["paged_attend"], **kernel,
+        design=OTHER_DESIGNS["paged_attend"],
     ), dict(
         name="paged_attend_kv8", route="cuda",
         source=src + "paged_attention.cu",
         replaces="tf_operator_tpu/ops/paged_attention.py:126",
         launches=int8_launches["paged_attend_kv8"], **kv8,
+        design=OTHER_DESIGNS["paged_attend_kv8"],
     ), dict(
         name="int8_matmul", route="cuda", source=src + "int8_dense.cu",
         replaces="tf_operator_tpu/ops/int8_dense.py:47",
         launches=int8_launches["int8_matmul"], max_abs_err=int8_err, **int8,
+        design=OTHER_DESIGNS["int8_matmul"],
     )] + [dict(
         name=name, route="cuda", source=src + "flash_attention.cu",
         replaces=f"tf_operator_tpu/ops/flash_attention.py:{line}",

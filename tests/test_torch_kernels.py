@@ -206,6 +206,18 @@ FLASH_CASES = [
     (512, 1024, False, 2, 64),
     (1024, 512, False, 1, 128),
     (33, 77, False, 1, 32),
+    # The edges of the tiles of the bf16 TMA + wgmma design (B1: 128 query
+    # rows, 128-key tiles; B3: 128 keys and 64-row query tiles at Dh 64,
+    # 64 keys and 32-row query tiles at Dh 128): a partial tile, one tile,
+    # a partial diagonal tile, a long walk.
+    (63, 63, True, 2, 64),
+    (127, 127, True, 2, 64),
+    (128, 128, True, 2, 64),
+    (129, 129, True, 2, 64),
+    (255, 255, True, 2, 64),
+    (2048, 2048, True, 2, 64),
+    (200, 200, True, 1, 128),
+    (130, 300, False, 1, 128),
 ]
 
 
@@ -256,6 +268,41 @@ def test_flash_kernels_read_the_fused_projections_slices(cuda, dtype):
     q, k, v = qkv.unbind(2)
     assert not q.is_contiguous()
     _check_flash(q, k, v, do, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_bf16_flash_kernels_give_the_same_bits_twice(cuda, head_dim):
+    """No atomics: two runs of each bf16 kernel on the same inputs agree
+    bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(head_dim)
+    q, k, v, do = (torch.randn((2, 2048, 4, head_dim), generator=gen,
+                               device=cuda).bfloat16() for _ in range(4))
+    scale = head_dim ** -0.5
+    runs = []
+    for _ in range(2):
+        o, lse = fa.flash_fwd(q, k, v, True, scale)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        runs.append((o, lse, *fa.flash_bwd_from_stats(q, k, v, do, lse,
+                                                      delta, True, scale)))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_flash_design_rule(cuda):
+    """flash_design (kernel 0 forward, 1 dQ, 2 dK/dV): bf16 B1 and B3 at
+    Dh 64 and 128 run the TMA + wgmma design (1), everything else the
+    mma.sync one (0); no instance answers -1."""
+    lib = fa._library()
+    for dh in fa.HEAD_DIMS:
+        for kernel in range(3):
+            want = int(dh >= 64 and kernel != 1)
+            assert lib.flash_design(1, dh, kernel) == want, (dh, kernel)
+            assert lib.flash_design(0, dh, kernel) == 0, (dh, kernel)
+    assert lib.flash_design(1, 48, 0) == -1
+    assert lib.flash_design(1, 64, 3) == -1
 
 
 def test_flash_rule_fails_a_missing_last_tile():

@@ -4,14 +4,17 @@ Each ``csrc/<name>.cu`` has a plain C entry point and no PyTorch
 header, so ``nvcc`` builds it in seconds into a shared library:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas=-v -I csrc -o _build/<name>-<hash>.so \\
+         csrc/<name>.cu
 
-The library is built at first use, named by a hash of its source and
-flags (an edited source builds anew, an unchanged one is reused), and
-loaded with ``ctypes``. ``build`` starts one ``nvcc`` per source, all at
-once, and waits for them together. ``_build/`` is listed in
-``.gitignore``. Nothing here runs when a module is imported: the CPU
-tests import every module on a machine without ``nvcc``.
+The library is built at first use, named by a hash of its source, of
+every header in ``csrc/`` (the sources include them with ``#include
+"..."``) and of the flags: an edited source or header builds anew, an
+unchanged one is reused. It is loaded with ``ctypes``. ``build`` starts
+one ``nvcc`` per source, all at once, and waits for them together.
+``_build/`` is listed in ``.gitignore``. Nothing here runs when a module
+is imported: the CPU tests import every module on a machine without
+``nvcc``.
 """
 
 from __future__ import annotations
@@ -59,11 +62,21 @@ def source_path(name: str) -> str:
     return os.path.join(CSRC_DIR, f"{name}.cu")
 
 
+def sources(name: str) -> list[str]:
+    """What the library of ``csrc/<name>.cu`` is built from: the source,
+    then every header in ``csrc/`` (an edited header builds every source
+    anew, whether or not it includes it)."""
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    return [source_path(name)] + [os.path.join(CSRC_DIR, h) for h in headers]
+
+
 def library_path(name: str) -> str:
     """Where the library of ``csrc/<name>.cu`` lives once built: the
-    name carries a hash of the source and the flags."""
-    with open(source_path(name), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    name carries a hash of the flags and of ``sources``."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        with open(path, "rb") as f:
+            digest.update(hashlib.sha256(f.read()).digest())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -79,7 +92,8 @@ def build(*names: str) -> dict[str, str]:
         if os.path.exists(lib):
             continue
         tmp = f"{lib}.{os.getpid()}.tmp"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, source_path(name)]
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp,
+               source_path(name)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         running.append((name, lib, tmp, proc))

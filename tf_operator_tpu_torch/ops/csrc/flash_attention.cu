@@ -29,38 +29,76 @@
 // flop/byte ridge, so the tensor cores' 989 TFLOP/s (0.28 ms) is the bound.
 // dQ does 3 products and dK/dV 4.
 //
-// What the design does about it:
+// What both designs do about it:
 //  - The TPU kernels walk a sequential grid and carry accumulators in VMEM
-//    scratch from one grid step to the next. Here a CTA owns one 64-row
-//    tile and walks the other axis in a loop: the forward and dQ kernels
-//    own a query tile and walk key tiles; the dK/dV kernel owns a key tile
-//    and walks query tiles from the first one the causal mask lets in, so
-//    no sum crosses CTAs and nothing needs atomics.
-//  - Causal tiles above the diagonal are skipped, and the forward and dQ
-//    grids start with the longest rows so the short ones fill the tail.
-//  - Only the input tiles go through shared memory: cp.async copies (rows
-//    past T zero-filled), the walked tiles double-buffered so tile j + 1
-//    lands while tile j is used. Each of the 4 warps owns 16 rows of the
-//    CTA's tile and keeps everything else in registers, as
-//    FlashAttention-2 does: the products run as mma.sync m16n8k16 (bf16
-//    in, f32 sums) on the tensor cores with operands read by ldmatrix;
-//    the scores S, the probabilities P and dS stay in the products'
-//    accumulator fragments, and a 16x16 pair of them is the A operand of
-//    the next product with no trip through memory. The online softmax's
-//    running max and sum and the O, dQ, dK and dV sums are registers
-//    too. A thread holds two rows of each fragment (g and g+8 of its
-//    16), so row reductions take two shuffles within a quad.
+//    scratch from one grid step to the next. Here a CTA owns one tile and
+//    walks the other axis in a loop: the forward and dQ kernels own a
+//    query tile and walk key tiles; the dK/dV kernel owns a key tile and
+//    walks query tiles from the first one the causal mask lets in, so no
+//    sum crosses CTAs, nothing needs atomics and every run gives the same
+//    bits.
+//  - Causal tiles above the diagonal are neither loaded nor computed, only
+//    tiles that straddle it are masked, and the grids start with the
+//    longest walks so the short ones fill the tail.
+//  - S, P and dS never leave registers: they stay in the products'
+//    accumulator fragments, and P and dS, rounded to the input type, are
+//    the A operand of the next product. The online softmax's running max
+//    and sum and the O, dQ, dK and dV sums are registers too.
+//
+// Two designs; `design` below fixes which one each instance runs.
+//
+// The warp-specialised design (bf16 B1 and B3 at Dh 64 and 128), the shape
+// of FlashAttention-3. On Hopper only wgmma reaches the tensor cores' full
+// rate, and copies issued by the math threads cost them registers and
+// issue slots:
+//  - A CTA has consumer warpgroups (two in B1, owning 64 query rows each
+//    of its 128; two in B3 at Dh 64 and one at Dh 128, owning 64 keys
+//    each) and one producer warp. One producer thread issues TMA copies
+//    (cp.async.bulk.tensor on a 4-D map of the strided input, rows past T
+//    zero-filled) into a ring of stages, each with a full and an empty
+//    mbarrier: the producer waits on empty and copies with an expected
+//    byte count, the consumers wait on full and arrive on empty when done.
+//    The tiles land with the 128-byte swizzle on 1024-byte boundaries,
+//    the layout wgmma reads.
+//  - Products are wgmma m64nNk16 (f32 sums): S = Q.K^T (B1) and S^T =
+//    K.Q^T, dP^T = V.dO^T (B3) with both operands in shared memory; O +=
+//    P.V (B1), dV += P^T.dO and dK += dS^T.Q (B3) with A from registers
+//    and B read MN-major through the descriptor's transpose bit.
+//  - B1 at Dh 64 issues tile j + 1's S before tile j's P.V, so P.V runs
+//    under the next softmax, and its two warpgroups take turns on the
+//    tensor cores (named barriers), so one's softmax runs under the other's
+//    products. At Dh 64 the exponentials take as long on the MUFU as the
+//    products on the tensor cores, so the softmax's ALU work is kept small:
+//    the scale is folded into one FMA before a bare ex2.
+//  - Registers: 9 warps cap a thread at 168 (3 warps share one of the
+//    SM's four schedulers); ptxas held the consumers there even when a
+//    producer warpgroup gave its registers away (setmaxnreg), so the
+//    producer is one warp, and B3 at Dh 128 (128 f32 sums of dK and dV a
+//    thread) runs one consumer warpgroup to reach 255. No instance spills
+//    (chip_smoke checks ptxas).
+//
+// The mma.sync design (f32 everywhere, B2, bf16 at Dh 32), the shape of
+// FlashAttention-2:
+//  - A CTA owns one 64-row tile with 4 warps of 16 rows each. Input tiles
+//    go through shared memory by cp.async, the walked tiles
+//    double-buffered, and the products run as mma.sync m16n8k16 with
+//    operands read by ldmatrix. A thread holds two rows of each fragment
+//    (g and g+8 of its 16), so row reductions take two shuffles within a
+//    quad.
 //  - Registers set how many CTAs share an SM; for bf16 at Dh <= 64 the
 //    kernels are compiled to fit 4 (forward, dQ) and 3 (dK/dV).
-//  - f32 inputs, which the exactness checks use, run the same kernels
-//    with the product done in f32 FMAs on the same fragment layout
-//    (operands gathered from the quad by shuffles).
-// Larger tiles, wgmma and TMA are later work.
+//  - f32 inputs, which the exactness checks and the f32 trainer use, run
+//    the product in f32 FMAs on the same fragment layout (operands
+//    gathered from the quad by shuffles).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -401,6 +439,572 @@ constexpr size_t dkv_smem() {
   return 6 * tile_bytes<T, D>() + 4 * up(sizeof(float) * kTile);
 }
 
+// ---- The warp-specialised design: bf16 B1 and B3 at Dh 64 and 128 ----
+
+constexpr int kWg = 128;  // threads of a warpgroup
+// Consumer warpgroups and one producer warp. A producer warpgroup that
+// hands its registers to the consumers (setmaxnreg) bought nothing: ptxas
+// still held the consumers' code to the launch bound's share, so one warp
+// issues the copies.
+__host__ __device__ constexpr int ws_threads(int consumers) {
+  return consumers * kWg + 32;
+}
+constexpr int kBlock = 128;  // B1: query rows a CTA and keys a tile
+constexpr int kFwdConsumers = kBlock / 64;  // B1: 64 query rows each
+
+// B3: consumer warpgroups a CTA, each owning 64 keys. Two consumers and a
+// producer warp are 9 warps, which put 3 on one of the SM's four
+// schedulers and so cap a thread at 168 registers (the register file is
+// split over the schedulers; two CTAs of 5 warps do the same). At Dh 64
+// that holds a consumer: 64 f32 sums of dK and dV, S^T and dP^T of a 64-row
+// query tile. At Dh 128 the sums alone take 128 of the 168 and the products
+// spill at any query tile, so a CTA owns 64 keys with one consumer
+// warpgroup: 5 warps, up to 255 registers a thread, in which 32-row query
+// tiles fit without a spill (off the training shape's path).
+template <int D>
+__host__ __device__ constexpr int dkv_consumers() {
+  return D == 64 ? 2 : 1;
+}
+// B3: query rows a streamed tile.
+template <int D>
+__host__ __device__ constexpr int q_tile() {
+  return D == 64 ? 64 : 32;
+}
+
+// A tile of `rows` rows of Dh bf16 as TMA writes it: one 64-column box of
+// rows x 128 bytes (128-byte swizzle) per 64 columns, the boxes one after
+// the other.
+__host__ __device__ constexpr int box_bytes(int rows) { return rows * 128; }
+template <int D>
+__host__ __device__ constexpr int ws_tile_bytes(int rows) {
+  return box_bytes(rows) * (D / 64);
+}
+
+// Shared memory of the forward: Q, then K of each stage, V of each stage,
+// the barriers (Q's, then full and empty per stage). Every tile starts on
+// a 1024-byte boundary, as the 128-byte swizzle needs.
+template <int D>
+struct FwdLayout {
+  static constexpr int kStages = D == 64 ? 3 : 2;  // 112 KB / 160 KB
+  static constexpr int kTile = ws_tile_bytes<D>(kBlock);
+  static constexpr int kQ = 0;
+  static constexpr int kK = kTile;
+  static constexpr int kV = kK + kStages * kTile;
+  static constexpr int kBars = kV + kStages * kTile;
+  static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages);
+};
+
+// Shared memory of dK/dV: K, V, then Q and dO of each stage, then lse and
+// delta (f32, a query tile's rows each) of each stage, the barriers (K/V's,
+// full, empty).
+template <int D>
+struct DkvLayout {
+  static constexpr int kStages = D == 64 ? 3 : 6;
+  static constexpr int kKeys = 64 * dkv_consumers<D>();
+  static constexpr int kQRows = q_tile<D>();
+  static constexpr int kKv = ws_tile_bytes<D>(kKeys);
+  static constexpr int kTile = ws_tile_bytes<D>(kQRows);
+  static constexpr int kK = 0;
+  static constexpr int kV = kKv;
+  static constexpr int kQ = 2 * kKv;
+  static constexpr int kDo = kQ + kStages * kTile;
+  static constexpr int kRows = kDo + kStages * kTile;
+  static constexpr int kRowBytes = 2 * kQRows * 4;
+  static constexpr int kBars = kRows + kStages * kRowBytes;
+  static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages);
+};
+
+// The dynamic shared memory, its start rounded up to 1024 bytes (the
+// launch asks for 1024 bytes more than the layout).
+__device__ __forceinline__ unsigned char* aligned_smem() {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t off = sm90::smem_u32(smem_raw);
+  return smem_raw + ((1024 - (off & 1023)) & 1023);
+}
+
+// Start the TMA loads of rows [row0, row0 + rows) of head (b, h) into a
+// tile (one box per 64 columns); their bytes complete on `bar`.
+template <int D>
+__device__ __forceinline__ void tma_tile(unsigned char* dst,
+                                         const CUtensorMap* map,
+                                         uint64_t* bar, int b, int h,
+                                         int row0, int rows) {
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c)
+    sm90::tma_load_4d(dst + c * box_bytes(rows), map, bar, c * 64, h,
+                      row0, b);
+}
+
+// Descriptor of the 16-wide k slice kk of a K-major tile of `rows` rows
+// (Dh along k): box kk / 4, 32 bytes further per slice within it.
+__device__ __forceinline__ uint64_t k_major(const unsigned char* tile,
+                                            int rows, int kk) {
+  return sm90::desc_sw128(tile + (kk / 4) * box_bytes(rows) +
+                          (kk % 4) * 32);
+}
+
+// Descriptor of rows [16 kk, 16 kk + 16) of an MN-major tile (rows along
+// k), columns [64 c, 64 c + 64).
+__device__ __forceinline__ uint64_t mn_major(const unsigned char* tile,
+                                             int rows, int kk, int c) {
+  return sm90::desc_sw128(tile + c * box_bytes(rows) + kk * 16 * 128);
+}
+
+template <int N>
+__device__ __forceinline__ float (&flat(float (&a)[N][4]))[4 * N] {
+  return *reinterpret_cast<float(*)[4 * N]>(&a[0][0]);
+}
+
+constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
+
+// 2^x on the MUFU, with a result below 2^-126 flushed to 0. exp2f (without
+// fast math) wraps the same instruction in a range fix-up of two or three
+// ALU instructions an element to keep such results; a probability that
+// small changes no sum here, and the ALUs share the softmax's critical
+// path with the MUFU.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One key tile's online-softmax step on a warp's rows of S (wgmma
+// accumulator layout: this thread's rows row_g and row_g + 8, columns
+// 8 n + 2 t + {0, 1}); with kMask, columns past tk or (causal) past the
+// row are masked. The exponentials are base 2 with the scale folded in, as
+// FlashAttention does: m is the running max of S scale log2(e), P =
+// exp2(S scale log2(e) - m) = exp(S scale - m ln 2), one FMA and one ex2
+// an element where exp(S scale - m) took eight instructions (the f32
+// mma.sync kernels keep expf). Leaves P in s, updates m and l, and
+// returns in alpha the factor the O sums are to be rescaled by.
+template <bool kMask>
+__device__ __forceinline__ void online_softmax(float (&s)[kBlock / 8][4],
+                                               float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2], int row_g,
+                                               int col0, int t, int tk,
+                                               float scale_log2, int causal) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int n = 0; n < kBlock / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (kMask) {
+        const int row = row_g + 8 * (i >> 1);
+        const int col = col0 + n * 8 + 2 * t + (i & 1);
+        if (!(col < tk && (!causal || col <= row))) s[n][i] = -INFINITY;
+      }
+      mx[i >> 1] = fmaxf(mx[i >> 1], s[n][i]);
+    }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const float m_new = fmaxf(m[hr], quad_max(mx[hr]) * scale_log2);
+    alpha[hr] = ex2(m[hr] - m_new);
+    m[hr] = m_new;
+  }
+#pragma unroll
+  for (int n = 0; n < kBlock / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      // masked: exp2(-inf) = 0
+      s[n][i] = ex2(fmaf(s[n][i], scale_log2, -m[i >> 1]));
+      sum[i >> 1] += s[n][i];
+    }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr)
+    l[hr] = l[hr] * alpha[hr] + quad_sum(sum[hr]);
+}
+
+// B3's scores to P^T and dS^T in place, on a warp's keys (rows key_g and
+// key_g + 8 of the accumulator layout) against a query tile (columns 8 n
+// + 2 t + {0, 1} from q0): P^T = exp2(S^T scale log2(e) - lse log2(e)),
+// dS^T = P^T (dP^T - delta) scale, the arithmetic of flash_dkv above with
+// the exponential in base 2; lse_s holds lse log2(e). With kMask, queries
+// at or past tq and (causal) before the key are 0.
+template <bool kMask, int N>
+__device__ __forceinline__ void dkv_scores(float (&st)[N / 8][4],
+                                           float (&dpt)[N / 8][4],
+                                           const float* lse_s,
+                                           const float* delta_s, int key_g,
+                                           int q0, int t, int tq, float scale,
+                                           float scale_log2, int causal) {
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = n * 8 + 2 * t + (i & 1);
+      float p = ex2(fmaf(st[n][i], scale_log2, -lse_s[c]));
+      if (kMask) {
+        const int key = key_g + 8 * (i >> 1), row = q0 + c;
+        if (!(row < tq && (!causal || row >= key))) p = 0.f;
+      }
+      st[n][i] = p;
+      dpt[n][i] = p * (dpt[n][i] - delta_s[c]) * scale;
+    }
+}
+
+// B1. Grid: x = 128-row query tile (longest rows first), y = head, z =
+// batch. Warpgroups 0 and 1 own rows [0, 64) and [64, 128) of the tile;
+// the producer warp after them, one thread of it, loads Q once and walks
+// the key tiles through the ring of stages.
+template <int D>
+__global__ void __launch_bounds__(ws_threads(kFwdConsumers), 1)
+flash_fwd_ws(const __grid_constant__ CUtensorMap qm,
+             const __grid_constant__ CUtensorMap km,
+             const __grid_constant__ CUtensorMap vm, bf16* __restrict__ o,
+             float* __restrict__ lse, int heads, int tq, int tk, float scale,
+             int causal) {
+  using L = FwdLayout<D>;
+  constexpr int S = L::kStages;
+  unsigned char* smem = aligned_smem();
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + S;
+
+  const int nq = (tq + kBlock - 1) / kBlock;
+  const int qt = nq - 1 - blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int nk_all = (tk + kBlock - 1) / kBlock;
+  const int nk = causal ? min(qt + 1, nk_all) : nk_all;
+  const int wg = sm90::warpgroup();
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kFwdConsumers * 4);  // one arrive a warp
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == kFwdConsumers) {  // the producer
+    if (threadIdx.x == kFwdConsumers * kWg) {
+      sm90::prefetch_map(&qm);
+      sm90::prefetch_map(&km);
+      sm90::prefetch_map(&vm);
+      sm90::mbar_arrive_expect_tx(q_full, L::kTile);
+      tma_tile<D>(smem + L::kQ, &qm, q_full, b, h, qt * kBlock, kBlock);
+      for (int j = 0; j < nk; ++j) {
+        const int s = j % S;
+        sm90::mbar_wait(&empty[s], ((j / S) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(&full[s], 2 * L::kTile);
+        tma_tile<D>(smem + L::kK + s * L::kTile, &km, &full[s], b, h,
+                    j * kBlock, kBlock);
+        tma_tile<D>(smem + L::kV + s * L::kTile, &vm, &full[s], b, h,
+                    j * kBlock, kBlock);
+      }
+    }
+  } else {  // a consumer: 64 query rows
+    const int tid = threadIdx.x % kWg;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int row0 = qt * kBlock + wg * 64;
+    const int row_g = row0 + warp * 16 + g;  // and row_g + 8
+    // This warpgroup's 64 rows of Q: 64 rows further into each box.
+    const unsigned char* qs = smem + L::kQ + wg * 64 * 128;
+
+    const float scale_log2 = scale * kLog2e;
+    float acc[D / 8][4];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+    float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f}, alpha[2];
+    float sc[kBlock / 8][4];      // S of one key tile, then its P in f32
+    Mma<bf16>::A p[kBlock / 16];  // P rounded to bf16: P.V's A operand
+
+    // S = Q . K^T of key tile j into sc, issued and committed, not waited
+    // for.
+    auto issue_scores = [&](int j) {
+      const unsigned char* ks = smem + L::kK + (j % S) * L::kTile;
+      sm90::mbar_wait(&full[j % S], (j / S) & 1);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::wgmma_ss_n128(flat(sc), k_major(qs, kBlock, kk),
+                            k_major(ks, kBlock, kk), kk > 0);
+      sm90::wgmma_commit();
+    };
+    // The softmax step of key tile j on sc once its product is done;
+    // only tiles on the causal diagonal or past tk are masked.
+    auto softmax = [&](int j) {
+      sm90::fence_regs(flat(sc));
+      const int col0 = j * kBlock;
+      if ((causal && col0 + kBlock - 1 > row0) || col0 + kBlock > tk)
+        online_softmax<true>(sc, m, l, alpha, row_g, col0, t, tk,
+                             scale_log2, causal);
+      else
+        online_softmax<false>(sc, m, l, alpha, row_g, col0, t, tk,
+                              scale_log2, causal);
+    };
+
+    // O += P . V of key tile j (P in p), issued and committed.
+    auto issue_pv = [&](int j) {
+      const unsigned char* vs = smem + L::kV + (j % S) * L::kTile;
+      sm90::fence_regs(flat(acc));
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlock / 16; ++kk) {
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c)
+          sm90::wgmma_rs_n64(
+              *reinterpret_cast<float(*)[32]>(&acc[8 * c][0]), p[kk].r,
+              mn_major(vs, kBlock, kk, c));
+      }
+      sm90::wgmma_commit();
+    };
+    // P rounded to bf16 (the A operand), and O rescaled for tile j.
+    auto to_operand = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < kBlock / 16; ++kk)
+        p[kk] = Mma<bf16>::from_c(sc[2 * kk], sc[2 * kk + 1]);
+#pragma unroll
+      for (int jd = 0; jd < D / 8; ++jd)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[jd][i] *= alpha[i >> 1];
+    };
+    auto release = [&](int j) {  // this warp is done with tile j's stage
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(&empty[j % S]);
+    };
+    // The two warpgroups take turns to issue products (FlashAttention-3's
+    // ping-pong), so that one's softmax runs on the ALUs and MUFU while the
+    // tensor cores run the other's products, where both would otherwise
+    // reach their softmax together and leave the tensor cores idle. Named
+    // barrier 1 + w holds warpgroup w until the other one has passed it the
+    // turn by arriving there. Both warpgroups walk the same nk tiles and
+    // take as many turns, so the turns stay paired: warpgroup 1 passes the
+    // first turn before taking any, and warpgroup 0 takes the one it passes
+    // last, so that no barrier is left half arrived.
+    auto take_turn = [&]() { sm90::named_sync(1 + wg, 2 * kWg); };
+    auto pass_turn = [&]() { sm90::named_arrive(2 - wg, 2 * kWg); };
+
+    if (wg == 1) pass_turn();
+    sm90::mbar_wait(q_full, 0);
+    if constexpr (D == 64) {
+      take_turn();
+      issue_scores(0);
+      pass_turn();
+      sm90::wgmma_wait<0>();
+      softmax(0);
+      // Tile j + 1's S runs on the tensor cores ahead of tile j's P.V, and
+      // its softmax while P.V runs: the warpgroup waits on a product only
+      // when it needs the result. The last tile is peeled, so that no
+      // product is issued under a branch (ptxas then serialises every
+      // product of the kernel).
+      for (int j = 0; j + 1 < nk; ++j) {
+        to_operand();
+        take_turn();
+        issue_scores(j + 1);
+        issue_pv(j);
+        pass_turn();
+        sm90::wgmma_wait<1>();  // tile j + 1's S (P.V may still run)
+        softmax(j + 1);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(flat(acc));
+        release(j);
+      }
+      to_operand();
+      take_turn();
+      issue_pv(nk - 1);
+      pass_turn();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(flat(acc));
+      release(nk - 1);
+    } else {
+      // At Dh 128 the sums of O take 64 registers: a second S would not
+      // fit in 168, so each tile's products wait in turn.
+      for (int j = 0; j < nk; ++j) {
+        take_turn();
+        issue_scores(j);
+        pass_turn();
+        sm90::wgmma_wait<0>();
+        softmax(j);
+        to_operand();
+        take_turn();
+        issue_pv(j);
+        pass_turn();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(flat(acc));
+        release(j);
+      }
+    }
+    if (wg == 0) take_turn();
+    const float safe[2] = {fmaxf(l[0], 1e-30f), fmaxf(l[1], 1e-30f)};
+    store_rows<bf16, D>(o, acc, b, h, heads, tq, row_g, 1.f / safe[0],
+                        1.f / safe[1], t);
+    if (t == 0) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = row_g + 8 * hr;
+        if (row < tq)
+          lse[(size_t(b) * heads + h) * tq + row] =
+              m[hr] * kLn2 + logf(safe[hr]);
+      }
+    }
+  }
+}
+
+// B3. Grid: x = key tile (64 keys a consumer warpgroup), y = head, z =
+// batch; under causal key tile j meets query tiles from its diagonal on, so
+// CTA 0 walks the most. Warpgroup w owns keys [64 w, 64 w + 64) of the
+// tile. The producer warp loads K and V once, then per query tile the rows
+// of lse and delta (plain loads into shared memory, zero past tq) and Q and
+// dO (TMA), all completing on the stage's full barrier (one arrive per
+// lane, lane 0's with the TMA bytes).
+template <int D>
+__global__ void __launch_bounds__(ws_threads(dkv_consumers<D>()), 1)
+flash_dkv_ws(const __grid_constant__ CUtensorMap qm,
+             const __grid_constant__ CUtensorMap km,
+             const __grid_constant__ CUtensorMap vm,
+             const __grid_constant__ CUtensorMap dom,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             bf16* __restrict__ dk, bf16* __restrict__ dv, int heads, int tq,
+             int tk, float scale, int causal) {
+  using L = DkvLayout<D>;
+  constexpr int C = dkv_consumers<D>();
+  constexpr int S = L::kStages;
+  constexpr int kQTile = L::kQRows;
+  unsigned char* smem = aligned_smem();
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + S;
+
+  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int k0 = kt * L::kKeys;
+  const int nq = (tq + kQTile - 1) / kQTile;
+  const int first = causal ? k0 / kQTile : 0;
+  const int wg = sm90::warpgroup();
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(kv_full, 1);
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(&full[s], 32);
+      sm90::mbar_init(&empty[s], C * 4);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == C) {  // the producer
+    const int lane = threadIdx.x % kWg;
+    const size_t row_base = (size_t(b) * heads + h) * tq;
+    if (lane == 0) {
+      sm90::prefetch_map(&qm);
+      sm90::prefetch_map(&dom);
+      sm90::mbar_arrive_expect_tx(kv_full, 2 * L::kKv);
+      tma_tile<D>(smem + L::kK, &km, kv_full, b, h, k0, L::kKeys);
+      tma_tile<D>(smem + L::kV, &vm, kv_full, b, h, k0, L::kKeys);
+    }
+    for (int i = first; i < nq; ++i) {
+      const int n = i - first, s = n % S, q0 = i * kQTile;
+      sm90::mbar_wait(&empty[s], ((n / S) & 1) ^ 1);
+      if (lane == 0) {  // the tiles first: their latency is the longer
+        sm90::mbar_expect_tx(&full[s], 2 * L::kTile);
+        tma_tile<D>(smem + L::kQ + s * L::kTile, &qm, &full[s], b, h, q0,
+                    kQTile);
+        tma_tile<D>(smem + L::kDo + s * L::kTile, &dom, &full[s], b, h, q0,
+                    kQTile);
+      }
+      // lse in base 2 (lse log2(e)), as the consumers' exp2 takes it.
+      float* rows =
+          reinterpret_cast<float*>(smem + L::kRows + s * L::kRowBytes);
+      for (int r = lane; r < kQTile; r += 32) {
+        const bool in = q0 + r < tq;
+        rows[r] = in ? lse[row_base + q0 + r] * kLog2e : 0.f;
+        rows[kQTile + r] = in ? delta[row_base + q0 + r] : 0.f;
+      }
+      sm90::mbar_arrive(&full[s]);  // each lane's stores, released
+    }
+  } else {  // a consumer: 64 keys
+    const int tid = threadIdx.x % kWg;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int key0 = k0 + wg * 64;
+    const int key_g = key0 + warp * 16 + g;  // and key_g + 8
+    const float scale_log2 = scale * kLog2e;  // P = exp2(S scale log2(e) - lse log2(e))
+    const unsigned char* ks = smem + L::kK + wg * 64 * 128;
+    const unsigned char* vs = smem + L::kV + wg * 64 * 128;
+
+    float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dk_acc[j][i] = dv_acc[j][i] = 0.f;
+
+    sm90::mbar_wait(kv_full, 0);
+    for (int i0 = first; i0 < nq; ++i0) {
+      const int n = i0 - first, s = n % S, q0 = i0 * kQTile;
+      sm90::mbar_wait(&full[s], (n / S) & 1);
+      // Under causal the diagonal's first query tile lies wholly above
+      // the second warpgroup's keys: nothing to add.
+      if (!(causal && q0 + kQTile <= key0)) {
+        const unsigned char* qs = smem + L::kQ + s * L::kTile;
+        const unsigned char* dos = smem + L::kDo + s * L::kTile;
+        const float* lse_s =  // lse log2(e)
+            reinterpret_cast<const float*>(smem + L::kRows + s * L::kRowBytes);
+        const float* delta_s = lse_s + kQTile;
+
+        // Transposed: row = key, column = query.
+        float st[kQTile / 8][4], dpt[kQTile / 8][4];
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          sm90::wgmma_ss<kQTile>(flat(st), k_major(ks, L::kKeys, kk),
+                                 k_major(qs, kQTile, kk), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          sm90::wgmma_ss<kQTile>(flat(dpt), k_major(vs, L::kKeys, kk),
+                                 k_major(dos, kQTile, kk), kk > 0);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(flat(st));
+        sm90::fence_regs(flat(dpt));
+
+        // Only the tiles that straddle the causal diagonal or reach past
+        // tq are masked.
+        if ((causal && q0 < key0 + 63) || q0 + kQTile > tq)
+          dkv_scores<true, kQTile>(st, dpt, lse_s, delta_s, key_g, q0, t, tq,
+                                   scale, scale_log2, causal);
+        else
+          dkv_scores<false, kQTile>(st, dpt, lse_s, delta_s, key_g, q0, t,
+                                    tq, scale, scale_log2, causal);
+
+        // dV += P^T . dO and dK += dS^T . Q, 16 queries a product, the A
+        // operands rounded to bf16 before the fence.
+        Mma<bf16>::A p[kQTile / 16], ds[kQTile / 16];
+#pragma unroll
+        for (int kk = 0; kk < kQTile / 16; ++kk) {
+          p[kk] = Mma<bf16>::from_c(st[2 * kk], st[2 * kk + 1]);
+          ds[kk] = Mma<bf16>::from_c(dpt[2 * kk], dpt[2 * kk + 1]);
+        }
+        sm90::fence_regs(flat(dk_acc));
+        sm90::fence_regs(flat(dv_acc));
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kQTile / 16; ++kk) {
+#pragma unroll
+          for (int c = 0; c < D / 64; ++c) {
+            sm90::wgmma_rs_n64(
+                *reinterpret_cast<float(*)[32]>(&dv_acc[8 * c][0]), p[kk].r,
+                mn_major(dos, kQTile, kk, c));
+            sm90::wgmma_rs_n64(
+                *reinterpret_cast<float(*)[32]>(&dk_acc[8 * c][0]), ds[kk].r,
+                mn_major(qs, kQTile, kk, c));
+          }
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(flat(dk_acc));
+        sm90::fence_regs(flat(dv_acc));
+      }
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(&empty[s]);
+    }
+    store_rows<bf16, D>(dk, dk_acc, b, h, heads, tk, key_g, 1.f, 1.f, t);
+    store_rows<bf16, D>(dv, dv_acc, b, h, heads, tk, key_g, 1.f, 1.f, t);
+  }
+}
+
 // Tile i of a kernel's shared memory.
 template <typename T, int D>
 __device__ __forceinline__ T* tile(unsigned char* smem, int i) {
@@ -672,21 +1276,101 @@ cudaError_t opt_in(F* kernel, size_t bytes, bool* done) {
 
 View view(const long long* s) { return View{s[0], s[1], s[2]}; }
 
+// The design each instance runs, fixed here and nowhere else: the
+// warp-specialised TMA + wgmma kernels for bf16 B1 and B3 at Dh 64 and
+// 128; the mma.sync kernels for f32 (FMA products on their fragment
+// layout, which the exactness checks and the f32 trainer rely on), for B2,
+// and for bf16 at Dh 32, whose 64-byte rows would need the 64-byte swizzle
+// and its own descriptors for a shape no path of the port runs.
+enum Kernel { kFwd = 0, kDq = 1, kDkv = 2 };
+enum Design { kMmaSync = 0, kWarpSpecialized = 1 };
+
+template <typename T, int D>
+constexpr Design design(Kernel kernel) {
+  return std::is_same<T, bf16>::value && D >= 64 && kernel != kDq
+             ? kWarpSpecialized
+             : kMmaSync;
+}
+
+// TMA maps of the inputs q, k, v (and do) of one launch: `rows`[i] rows a
+// box; `strides` holds each input's (batch, time, head) strides in order.
+template <int D, int N>
+cudaError_t encode_maps(CUtensorMap (&maps)[N], const void* const (&in)[N],
+                        const int (&t)[N], const int (&rows)[N], int b,
+                        int h, const long long* strides) {
+  for (int i = 0; i < N; ++i) {
+    const long long* s = strides + 3 * i;
+    const cudaError_t err = sm90::encode_bf16_map(
+        &maps[i], in[i], b, t[i], h, D, s[0], s[1], s[2], rows[i]);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+template <int D>
+cudaError_t fwd_ws(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int b, int h, int tq, int tk,
+                   const long long* strides, float scale, int causal,
+                   cudaStream_t stream) {
+  CUtensorMap maps[3];
+  cudaError_t err = encode_maps<D, 3>(maps, {q, k, v}, {tq, tk, tk},
+                                      {kBlock, kBlock, kBlock}, b, h,
+                                      strides);
+  if (err != cudaSuccess) return err;
+  static bool done = false;
+  constexpr size_t bytes = FwdLayout<D>::kBytes + 1024;
+  err = opt_in(flash_fwd_ws<D>, bytes, &done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((tq + kBlock - 1) / kBlock, h, b);
+  flash_fwd_ws<D><<<grid, ws_threads(kFwdConsumers), bytes, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<bf16*>(o), lse, h, tq, tk,
+      scale, causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t dkv_ws(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   void* dk, void* dv, int b, int h, int tq, int tk,
+                   const long long* strides, float scale, int causal,
+                   cudaStream_t stream) {
+  using L = DkvLayout<D>;
+  CUtensorMap maps[4];
+  cudaError_t err = encode_maps<D, 4>(
+      maps, {q, k, v, dout}, {tq, tk, tk, tq},
+      {L::kQRows, L::kKeys, L::kKeys, L::kQRows}, b, h, strides);
+  if (err != cudaSuccess) return err;
+  static bool done = false;
+  constexpr size_t bytes = L::kBytes + 1024;
+  err = opt_in(flash_dkv_ws<D>, bytes, &done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((tk + L::kKeys - 1) / L::kKeys, h, b);
+  flash_dkv_ws<D><<<grid, ws_threads(dkv_consumers<D>()), bytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), h, tq, tk, scale, causal);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
                 float* lse, int b, int h, int tq, int tk,
                 const long long* strides, float scale, int causal,
                 cudaStream_t stream) {
-  static bool done = false;
-  constexpr size_t bytes = fwd_smem<T, D>();
-  cudaError_t err = opt_in(flash_fwd<T, D>, bytes, &done);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((tq + kTile - 1) / kTile, h, b);
-  flash_fwd<T, D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, view(strides),
-      view(strides + 3), view(strides + 6), h, tq, tk, scale, causal);
-  return cudaGetLastError();
+  if constexpr (design<T, D>(kFwd) == kWarpSpecialized) {
+    return fwd_ws<D>(q, k, v, o, lse, b, h, tq, tk, strides, scale, causal,
+                     stream);
+  } else {
+    static bool done = false;
+    constexpr size_t bytes = fwd_smem<T, D>();
+    cudaError_t err = opt_in(flash_fwd<T, D>, bytes, &done);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((tq + kTile - 1) / kTile, h, b);
+    flash_fwd<T, D><<<grid, kThreads, bytes, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), lse, view(strides),
+        view(strides + 3), view(strides + 6), h, tq, tk, scale, causal);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, int D>
@@ -714,18 +1398,23 @@ cudaError_t dkv_launch(const void* q, const void* k, const void* v,
                        void* dk, void* dv, int b, int h, int tq, int tk,
                        const long long* strides, float scale, int causal,
                        cudaStream_t stream) {
-  static bool done = false;
-  constexpr size_t bytes = dkv_smem<T, D>();
-  cudaError_t err = opt_in(flash_dkv<T, D>, bytes, &done);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((tk + kTile - 1) / kTile, h, b);
-  flash_dkv<T, D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), view(strides),
-      view(strides + 3), view(strides + 6), view(strides + 9), h, tq, tk,
-      scale, causal);
-  return cudaGetLastError();
+  if constexpr (design<T, D>(kDkv) == kWarpSpecialized) {
+    return dkv_ws<D>(q, k, v, dout, lse, delta, dk, dv, b, h, tq, tk,
+                     strides, scale, causal, stream);
+  } else {
+    static bool done = false;
+    constexpr size_t bytes = dkv_smem<T, D>();
+    cudaError_t err = opt_in(flash_dkv<T, D>, bytes, &done);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((tk + kTile - 1) / kTile, h, b);
+    flash_dkv<T, D><<<grid, kThreads, bytes, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+        static_cast<T*>(dk), static_cast<T*>(dv), view(strides),
+        view(strides + 3), view(strides + 6), view(strides + 9), h, tq, tk,
+        scale, causal);
+    return cudaGetLastError();
+  }
 }
 
 bool bad_geometry(int b, int h, int tq, int tk, int causal) {
@@ -812,4 +1501,21 @@ extern "C" int flash_dkv_launch(const void* q, const void* k, const void* v,
   FLASH_DISPATCH(DKV_CALL)
 #undef DKV_CALL
   return int(err);
+}
+
+// Which design an instance runs (kernel: 0 = forward, 1 = dQ, 2 = dK/dV):
+// 1 = warp-specialised TMA + wgmma, 0 = mma.sync, -1 = no such instance.
+extern "C" int flash_design(int is_bf16, int dh, int kernel) {
+  if (kernel < 0 || kernel > 2) return -1;
+  const Kernel k = static_cast<Kernel>(kernel);
+  switch (dh) {
+    case 32:
+      return is_bf16 ? design<bf16, 32>(k) : design<float, 32>(k);
+    case 64:
+      return is_bf16 ? design<bf16, 64>(k) : design<float, 64>(k);
+    case 128:
+      return is_bf16 ? design<bf16, 128>(k) : design<float, 128>(k);
+    default:
+      return -1;
+  }
 }

@@ -61,8 +61,10 @@ def _load(module, source: str, entries) -> ctypes.CDLL:
     the argument types of the checkout's build of ``module``."""
     name = module.__name__.rsplit(".", 1)[-1]
     lib_path = os.path.join(_build.BUILD_DIR, f"{name}_baseline.so")
-    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib_path,
-                    source], check=True, capture_output=True, timeout=600)
+    # -I: a baseline kept outside csrc/ still finds the checkout's headers.
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I",
+                    _build.CSRC_DIR, "-o", lib_path, source], check=True,
+                   capture_output=True, timeout=600)
     lib = ctypes.CDLL(lib_path)
     current = module._library()
     for entry in entries:
