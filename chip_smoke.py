@@ -145,11 +145,20 @@ FLASH_OUTS = {"o": "flash_fwd", "lse": "flash_fwd", "dq": "flash_dq",
 # flash_design's answers, and its kernel numbers.
 FLASH_DESIGNS = {0: "mma.sync", 1: "tma-wgmma"}
 FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+# int8_design's answers.
+INT8_DESIGNS = {0: "mma.sync tile", 1: "tma-stream", 2: "tma-wgmma"}
+# The TMA instances ptxas compiles in each library, none of which may
+# spill: the three flash kernels at Dh 64 and 128; B5's weight stream (x
+# bf16/f32, out bf16/f32, 1/2/4/8 rows) and its wgmma tile (out bf16/f32,
+# and the three bf16 variants tools/torch_int8_probe.py times).
+TMA_INSTANCES = {"flash_attention": 6, "int8_dense": 21}
 # The kernels line's design of the other kernels (their source notes).
 OTHER_DESIGNS = {
     "paged_attend": "split block walk + merge launch, f32 on CUDA cores",
     "paged_attend_kv8": "split block walk + merge launch, f32 on CUDA cores",
-    "int8_matmul": "m <= 8: cluster split-k, f32 FMAs; m > 8: mma.sync tile"}
+    "int8_matmul": "m <= 8: TMA weight stream filling every SM, cluster "
+                   "split-k, f32 FMAs; m > 8 bf16 x: TMA + wgmma tile; "
+                   "f32 x: mma.sync tile"}
 # f32 trainer, kernels vs plain attention. Step-0 gradients, leaf by leaf,
 # each element within GRAD_RTOL |plain| + GRAD_ATOL x the rms of its row
 # of plain (the rule of tf_operator_tpu_torch.testing): the attention
@@ -193,13 +202,19 @@ def card_line() -> str:
 
 
 def ws_spills(log: str) -> dict:
-    """{instance: spill-store bytes} of the warp-specialised flash kernels
-    (the TMA + wgmma design, ``flash_*_ws<Dh>``) in a ``ptxas -v`` log."""
+    """{instance: spill-store bytes} of the TMA kernels in a ``ptxas -v``
+    log: the warp-specialised flash kernels (``flash_*_ws<Dh>``) and B5's
+    weight stream and wgmma tile (``int8_stream<...>``, ``int8_wgmma<...>``,
+    their template arguments as the mangled name spells them, bf16 written
+    out)."""
     out, name = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             m = re.search(r"(flash_[a-z]+_ws)ILi(\d+)E", line)
-            name = f"{m[1]}<{m[2]}>" if m else None
+            i = re.search(r"(int8_stream|int8_wgmma)I(.*?)EEv", line)
+            name = (f"{m[1]}<{m[2]}>" if m else
+                    f"{i[1]}<{i[2].replace('13__nv_bfloat16', 'bf16')}>"
+                    if i else None)
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and name:
@@ -409,12 +424,36 @@ def int8_bounds_ms(m, k, n, out_bytes=4) -> tuple[float, float]:
             2 * m * k * n / PEAK_FLOPS[torch.bfloat16] * 1e3)
 
 
+def int8_designs(i8) -> None:
+    """Assert the design B5 runs at each of the main path's calls: the TMA
+    weight stream at m=1 and 4 (bf16 and f32 x; its CTAs printed), the
+    TMA + wgmma tile for bf16 x at m=437 and 3500 (prefill), the mma.sync
+    tile for f32 x there (the f32 engine's prefills)."""
+    lib = i8._library()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for (k, n), rows in INT8_ROWS.items():
+        got = {(m, x_bf16): INT8_DESIGNS.get(lib.int8_design(m, k, n, x_bf16))
+               for m in rows for x_bf16 in (1, 0)}
+        want = {(m, x_bf16): "tma-stream" if m <= 8 else
+                "tma-wgmma" if x_bf16 else "mma.sync tile"
+                for m, x_bf16 in got}
+        ctas = lib.int8_stream_ctas(k, n)
+        shown = ", ".join(f"m={m} x {'bf16' if b else 'f32'}: {d}"
+                          for (m, b), d in got.items())
+        print(f"int8_matmul designs, k={k} n={n}: {shown}; weight stream "
+              f"CTAs {ctas} on {sms} SMs", flush=True)
+        if got != want or ctas < 1:
+            raise AssertionError(f"int8_matmul k={k} n={n}: designs {got}, "
+                                 f"want {want}; {ctas} CTAs")
+
+
 def int8_check_phase(i8) -> float:
     """The int8 matmul kernel against its plain version at every shape of
     the slice, each element by the shared rule; returns the largest
     max-abs error."""
     from tf_operator_tpu_torch.testing import INT8_TOL, excess
 
+    int8_designs(i8)
     err = 0.0
     for (k, n), rows in INT8_ROWS.items():
         ((w_q, scale, bias),) = int8_weights(k, n, 1, seed=k + n)
@@ -576,14 +615,17 @@ def int8_engine_phases(pa, base, params, prompts, card, bf16_ref) -> dict:
     if bf16["launches"] != want:
         raise AssertionError(f"int8 + kv8 bf16 launches {bf16['launches']}, "
                              f"want {want}")
+    def busy(run):
+        prof = run["profile"]
+        return (f"device busy us/step {prof.get('busy_us', 'not measured')} "
+                f"busy share {prof.get('busy_share', 'not measured')}")
+
     print(f"engine bf16 int8 + kv8 kernel: decode tokens/s "
           f"{bf16['decode_tok_s']:.2f} prefill_s {bf16['prefill_s']:.4f} "
-          f"busy share {bf16['profile'].get('busy_share', 'not measured')}; "
-          f"phase 7's bf16 engine in this run: decode tokens/s "
+          f"{busy(bf16)}; phase 7's bf16 engine in this run: decode tokens/s "
           f"{bf16_ref['decode_tok_s']:.2f} prefill_s "
-          f"{bf16_ref['prefill_s']:.4f} busy share "
-          f"{bf16_ref['profile'].get('busy_share', 'not measured')}; on "
-          f"{card}", flush=True)
+          f"{bf16_ref['prefill_s']:.4f} {busy(bf16_ref)}; on {card}",
+          flush=True)
     return bf16["launches"]
 
 
@@ -743,9 +785,9 @@ def flash_timing_phase(fa, worst) -> dict:
     b, t, scale = TRAIN_B, TRAIN_T, DH ** -0.5
     designs = flash_designs(fa, torch.bfloat16, DH)
     print(f"flash designs at the training shape: {designs}", flush=True)
-    if (designs["flash_fwd"], designs["flash_dkv"]) != ("tma-wgmma",) * 2:
-        raise AssertionError(f"B1 and B3 must run the TMA + wgmma design at "
-                             f"the training shape: {designs}")
+    if set(designs.values()) != {"tma-wgmma"}:
+        raise AssertionError(f"B1, B2 and B3 must run the TMA + wgmma design "
+                             f"at the training shape: {designs}")
     q, k, v, do = flash_inputs(b, t, t, torch.bfloat16, seed=11, fused=True)
     o, lse = fa.flash_fwd(q, k, v, True, scale)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
@@ -1234,13 +1276,16 @@ def main() -> int:
             if any(w in line for w in ("registers", "spill", "wgmma",
                                        "setmaxnreg")):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
-    log = _build.build_log("flash_attention")
-    if log:
+    for name, count in TMA_INSTANCES.items():
+        log = _build.build_log(name)
+        if not log:
+            continue
         spills = ws_spills(log)
-        print(f"ptxas: spill stores (bytes) of the TMA + wgmma instances "
+        print(f"ptxas {name}: spill stores (bytes) of the TMA instances "
               f"{spills}", flush=True)
-        if len(spills) != 4 or any(spills.values()):
-            raise AssertionError(f"the TMA + wgmma instances spill: {spills}")
+        if len(spills) != count or any(spills.values()):
+            raise AssertionError(f"{name}: want {count} TMA instances and no "
+                                 f"spill: {spills}")
 
     kernel = kernel_phase(pa)
     flash_err = flash_check_phase(fa)

@@ -83,9 +83,13 @@ def test_build_reuses_a_built_library_and_rebuilds_after_a_header_edit(
     assert " ".join(_build.NVCC_FLAGS) in calls[1]
 
 
-def test_the_flash_source_is_hashed_with_its_hopper_header():
-    names = [os.path.basename(p) for p in _build.sources("flash_attention")]
-    assert names == ["flash_attention.cu", "sm90.cuh"]
+@pytest.mark.parametrize("source", ["flash_attention", "int8_dense"])
+def test_the_tma_sources_are_hashed_with_their_hopper_header(source):
+    """Both sources include sm90.cuh, so an edit there rebuilds them."""
+    names = [os.path.basename(p) for p in _build.sources(source)]
+    assert names == [f"{source}.cu", "sm90.cuh"]
+    with open(_build.source_path(source)) as f:
+        assert '#include "sm90.cuh"' in f.read()
 
 
 PTXAS_LOG = """\
@@ -101,14 +105,33 @@ ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__fdabf354_18_flash_att
 ptxas info    : Function properties for _ZN51_GLOBAL__N__fdabf354_18_flash_attention_cu_5326155212flash_fwd_wsILi64EEEv14CUtensorMap_st
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 168 registers, used 3 barriers
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__fdabf354_18_flash_attention_cu_5326155211flash_dq_wsILi64EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16iiiifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__fdabf354_18_flash_attention_cu_5326155211flash_dq_wsILi64EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16iiiifi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 154 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__0b2a7c31_13_int8_dense_cu_a1b2c3d411int8_streamI13__nv_bfloat16S1_Li4EEEv14CUtensorMap_stPKT_PKfS8_PT0_iiiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N__0b2a7c31_13_int8_dense_cu_a1b2c3d411int8_streamI13__nv_bfloat16S1_Li4EEEv14CUtensorMap_stPKT_PKfS8_PT0_iiiiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 72 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__0b2a7c31_13_int8_dense_cu_a1b2c3d410int8_tiledIffEEvPKT_PKaPKfS7_PT0_iii' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N__0b2a7c31_13_int8_dense_cu_a1b2c3d410int8_tiledIffEEvPKT_PKaPKfS7_PT0_iii
+    0 bytes stack frame, 16 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__0b2a7c31_13_int8_dense_cu_a1b2c3d410int8_wgmmaIfEEv14CUtensorMap_stS1_PKfS3_PT_iii' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N__0b2a7c31_13_int8_dense_cu_a1b2c3d410int8_wgmmaIfEEv14CUtensorMap_stS1_PKfS3_PT_iii
+    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 168 registers, used 2 barriers
 """
 
 
-def test_chip_smoke_reads_the_wgmma_instances_spills_from_ptxas():
-    """chip_smoke fails a build whose TMA + wgmma instances spill: it
-    reads each one's spill stores from the ptxas log, by name, and leaves
-    the mma.sync instances (B2's spill here) out."""
+def test_chip_smoke_reads_the_tma_instances_spills_from_ptxas():
+    """chip_smoke fails a build whose TMA instances spill: it reads each
+    one's spill stores from the ptxas log, by name (the flash _ws kernels,
+    B2's among them, and B5's weight stream and wgmma tile), and leaves the
+    mma.sync instances (B2's old bf16 instance and B5's f32 tile here)
+    out."""
     import chip_smoke
 
-    assert chip_smoke.ws_spills(PTXAS_LOG) == {"flash_dkv_ws<128>": 96,
-                                               "flash_fwd_ws<64>": 0}
+    assert chip_smoke.ws_spills(PTXAS_LOG) == {
+        "flash_dkv_ws<128>": 96, "flash_fwd_ws<64>": 0, "flash_dq_ws<64>": 0,
+        "int8_stream<bf16S1_Li4E>": 0, "int8_wgmma<f>": 8}

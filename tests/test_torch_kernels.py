@@ -139,13 +139,22 @@ def test_paged_kv8_kernel_raises_outside_its_geometry(cuda):
     assert pa.kv8_launches == before
 
 
-# (m, k, n): decode (m <= 8, the weight-streaming kernel, k split over
-# CTAs or not, a chunk of 132 rows at k = 1056) and prefill (m > 8, or k
-# beyond 8 chunks of 1024: the tiled kernel, ragged m tiles).
-INT8_CASES = [(1, 1024, 32768), (4, 1024, 512), (4, 4096, 1024),
-              (3, 64, 128), (8, 1024, 1024), (2, 1024, 4096),
-              (5, 1056, 128), (4, 8224, 256),
-              (9, 96, 256), (130, 1024, 4096), (437, 4096, 1024)]
+# The decode path's (k, n) (chip_smoke's INT8_CALLS) and the narrowest n.
+INT8_SHAPES = [(1024, 1024), (1024, 512), (1024, 4096), (4096, 1024),
+               (1024, 32768), (1024, 128)]
+# (m, k, n): decode (m <= 8, the TMA weight stream: every tiling its plan
+# picks, k split over a cluster of up to 16 CTAs or not; k = 1056 and 8224
+# split into chunks that are no multiple of a stage's rows, k = 96 into one
+# short box) and prefill (m > 8, or k beyond 16 chunks of 1024: the TMA +
+# wgmma tile for bf16 x, the mma.sync tile for f32 x; ragged m tiles, n of
+# 128 and 384 against its 256-column tile, k not a multiple of the 64-row k
+# step).
+INT8_CASES = [(m, k, n) for k, n in INT8_SHAPES for m in (1, 4, 8)] + [
+    (3, 64, 128), (2, 1024, 4096), (5, 1056, 128), (4, 8224, 256),
+    (6, 96, 384), (4, 16416, 256),
+    (9, 96, 256), (33, 64, 128), (16, 1024, 1024), (17, 1056, 384),
+    (130, 1024, 4096),
+    (437, 4096, 1024), (3500, 1024, 4096)]
 
 
 @pytest.mark.cuda
@@ -168,6 +177,50 @@ def test_int8_kernel_matches_plain_version(cuda, x_dtype, out_dtype, case):
         assert i8.launches == before + 1
         want = i8.int8_matmul_reference(x, w_q, scale, out_dtype, b)
         assert excess(got, want, *INT8_TOL[out_dtype]) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(4, 1024, 512), (1, 1024, 32768),
+                                  (437, 4096, 1024), (3500, 1024, 4096)],
+                         ids=lambda c: "m{}k{}n{}".format(*c))
+def test_int8_kernel_gives_the_same_bits_twice(cuda, case):
+    """No atomics: the weight stream's cluster sum and the wgmma tile give
+    the same bits on two runs."""
+    m, k, n = case
+    gen = torch.Generator(device=cuda).manual_seed(m + k)
+    x = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
+    w_q, scale = i8.quantize_int8(
+        torch.randn((k, n), generator=gen, device=cuda))
+    bias = torch.randn((n,), generator=gen, device=cuda)
+    runs = [i8.int8_matmul(x, w_q, scale, torch.float32, bias)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(*runs)
+
+
+@pytest.mark.cuda
+def test_int8_design_rule(cuda):
+    """int8_design: up to 8 rows of x and k up to 16384 take the TMA weight
+    stream (1), bf16 x beyond that the TMA + wgmma tile (2), f32 x the
+    mma.sync tile (0); -1 outside the geometry. At the slice's decode
+    shapes the stream launches the CTAs of its measured plan (on a card of
+    33 to 256 SMs)."""
+    lib = i8._library()
+    for x_bf16 in (0, 1):
+        assert lib.int8_design(1, 1024, 32768, x_bf16) == 1
+        assert lib.int8_design(8, 16384, 128, x_bf16) == 1
+        assert lib.int8_design(9, 1024, 4096, x_bf16) == (2 if x_bf16 else 0)
+        assert lib.int8_design(4, 16416, 256, x_bf16) == (2 if x_bf16 else 0)
+        assert lib.int8_design(3500, 1024, 4096, x_bf16) == (
+            2 if x_bf16 else 0)
+    assert lib.int8_design(4, 1024, 72, 1) == -1
+    assert lib.int8_design(4, 48, 128, 1) == -1
+    # (width, splits): (64, 8), (64, 8), (128, 8), (64, 16), (128, 1).
+    want = {(1024, 1024): 128, (1024, 512): 64, (1024, 4096): 256,
+            (4096, 1024): 256, (1024, 32768): 256}
+    for (k, n), ctas in want.items():
+        assert lib.int8_stream_ctas(k, n) == ctas, (k, n)
+    assert lib.int8_stream_ctas(16416, 256) == -1
 
 
 @pytest.mark.cuda
@@ -218,6 +271,15 @@ FLASH_CASES = [
     (2048, 2048, True, 2, 64),
     (200, 200, True, 1, 128),
     (130, 300, False, 1, 128),
+    # B2's tiles (128 query rows at Dh 64 and 64 at Dh 128, 64-key tiles):
+    # a partial key tile past tk, one query tile, a straddled diagonal, a
+    # long walk.
+    (200, 70, False, 2, 64),
+    (70, 200, False, 1, 128),
+    (64, 64, True, 1, 128),
+    (65, 65, True, 1, 128),
+    (191, 191, True, 2, 128),
+    (2048, 2048, True, 1, 128),
 ]
 
 
@@ -292,13 +354,13 @@ def test_bf16_flash_kernels_give_the_same_bits_twice(cuda, head_dim):
 
 @pytest.mark.cuda
 def test_flash_design_rule(cuda):
-    """flash_design (kernel 0 forward, 1 dQ, 2 dK/dV): bf16 B1 and B3 at
-    Dh 64 and 128 run the TMA + wgmma design (1), everything else the
-    mma.sync one (0); no instance answers -1."""
+    """flash_design (kernel 0 forward, 1 dQ, 2 dK/dV): every bf16 kernel
+    at Dh 64 and 128 runs the TMA + wgmma design (1), f32 and bf16 Dh 32
+    the mma.sync one (0); no instance answers -1."""
     lib = fa._library()
     for dh in fa.HEAD_DIMS:
         for kernel in range(3):
-            want = int(dh >= 64 and kernel != 1)
+            want = int(dh >= 64)
             assert lib.flash_design(1, dh, kernel) == want, (dh, kernel)
             assert lib.flash_design(0, dh, kernel) == 0, (dh, kernel)
     assert lib.flash_design(1, 48, 0) == -1

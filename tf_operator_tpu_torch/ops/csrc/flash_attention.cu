@@ -47,23 +47,29 @@
 //
 // Two designs; `design` below fixes which one each instance runs.
 //
-// The warp-specialised design (bf16 B1 and B3 at Dh 64 and 128), the shape
-// of FlashAttention-3. On Hopper only wgmma reaches the tensor cores' full
-// rate, and copies issued by the math threads cost them registers and
+// The warp-specialised design (bf16 B1, B2 and B3 at Dh 64 and 128), the
+// shape of FlashAttention-3. On Hopper only wgmma reaches the tensor cores'
+// full rate, and copies issued by the math threads cost them registers and
 // issue slots:
 //  - A CTA has consumer warpgroups (two in B1, owning 64 query rows each
-//    of its 128; two in B3 at Dh 64 and one at Dh 128, owning 64 keys
-//    each) and one producer warp. One producer thread issues TMA copies
+//    of its 128; two in B2 and B3 at Dh 64 and one at Dh 128, owning 64
+//    query rows (B2) or 64 keys (B3) each) and one producer warp. One
+//    producer thread issues TMA copies
 //    (cp.async.bulk.tensor on a 4-D map of the strided input, rows past T
 //    zero-filled) into a ring of stages, each with a full and an empty
 //    mbarrier: the producer waits on empty and copies with an expected
 //    byte count, the consumers wait on full and arrive on empty when done.
 //    The tiles land with the 128-byte swizzle on 1024-byte boundaries,
 //    the layout wgmma reads.
-//  - Products are wgmma m64nNk16 (f32 sums): S = Q.K^T (B1) and S^T =
-//    K.Q^T, dP^T = V.dO^T (B3) with both operands in shared memory; O +=
-//    P.V (B1), dV += P^T.dO and dK += dS^T.Q (B3) with A from registers
-//    and B read MN-major through the descriptor's transpose bit.
+//  - Products are wgmma m64nNk16 (f32 sums): S = Q.K^T (B1, B2), dP =
+//    dO.V^T (B2) and S^T = K.Q^T, dP^T = V.dO^T (B3) with both operands in
+//    shared memory; O += P.V (B1), dQ += dS.K (B2), dV += P^T.dO and dK +=
+//    dS^T.Q (B3) with A from registers and B read MN-major through the
+//    descriptor's transpose bit.
+//  - B2 walks 64-key tiles (its S and dP at 128 keys would not fit the
+//    registers), issues tile j + 1's S and dP before tile j's dS.K so the
+//    product runs under the next tile's exponentials, keeps its rows' lse
+//    and delta in registers, and folds the scale into the dS step.
 //  - B1 at Dh 64 issues tile j + 1's S before tile j's P.V, so P.V runs
 //    under the next softmax, and its two warpgroups take turns on the
 //    tensor cores (named barriers), so one's softmax runs under the other's
@@ -74,10 +80,10 @@
 //    SM's four schedulers); ptxas held the consumers there even when a
 //    producer warpgroup gave its registers away (setmaxnreg), so the
 //    producer is one warp, and B3 at Dh 128 (128 f32 sums of dK and dV a
-//    thread) runs one consumer warpgroup to reach 255. No instance spills
-//    (chip_smoke checks ptxas).
+//    thread) and B2 at Dh 128 run one consumer warpgroup to reach 255. No
+//    instance spills (chip_smoke checks ptxas).
 //
-// The mma.sync design (f32 everywhere, B2, bf16 at Dh 32), the shape of
+// The mma.sync design (f32 everywhere, bf16 at Dh 32), the shape of
 // FlashAttention-2:
 //  - A CTA owns one 64-row tile with 4 warps of 16 rows each. Input tiles
 //    go through shared memory by cp.async, the walked tiles
@@ -511,6 +517,35 @@ struct DkvLayout {
   static constexpr int kRows = kDo + kStages * kTile;
   static constexpr int kRowBytes = 2 * kQRows * 4;
   static constexpr int kBars = kRows + kStages * kRowBytes;
+  static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages);
+};
+
+// B2: consumer warpgroups a CTA, each owning 64 query rows, and the keys
+// of a streamed tile. At Dh 64 two consumers and the producer warp (9
+// warps, 168 registers a thread) hold a consumer's 32 f32 of S, 32 of dP,
+// 32 of dQ sums and 16 of the bf16 dS operand; 128-key tiles would double
+// S and dP past the cap. At Dh 128 the dQ sums take 64 and two tiles' S and
+// dP are in flight at once, so a CTA runs one consumer warpgroup (5 warps,
+// up to 255 registers), as B3 does.
+template <int D>
+__host__ __device__ constexpr int dq_consumers() {
+  return D == 64 ? 2 : 1;
+}
+constexpr int kDqKeys = 64;
+
+// Shared memory of dQ: Q and dO (64 rows a consumer), then K and V of each
+// stage, the barriers (Q/dO's, full, empty).
+template <int D>
+struct DqLayout {
+  static constexpr int kStages = 4;  // 96 KB at Dh 64, 160 KB at Dh 128
+  static constexpr int kRows = 64 * dq_consumers<D>();
+  static constexpr int kQTile = ws_tile_bytes<D>(kRows);
+  static constexpr int kKvTile = ws_tile_bytes<D>(kDqKeys);
+  static constexpr int kQ = 0;
+  static constexpr int kDo = kQTile;
+  static constexpr int kK = 2 * kQTile;
+  static constexpr int kV = kK + kStages * kKvTile;
+  static constexpr int kBars = kV + kStages * kKvTile;
   static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages);
 };
 
@@ -1005,6 +1040,199 @@ flash_dkv_ws(const __grid_constant__ CUtensorMap qm,
   }
 }
 
+// B2's scores to dS in place, on a warp's rows of S and dP (accumulator
+// layout: rows row_g and row_g + 8, columns 8 n + 2 t + {0, 1} from col0):
+// P = exp2(S scale log2(e) - lse log2(e)), dS = P (dP - delta) scale, the
+// arithmetic of flash_dq below with the exponential in base 2; lse2 holds
+// the rows' lse log2(e). With kMask, columns at or past tk and (causal)
+// past the row are 0.
+template <bool kMask>
+__device__ __forceinline__ void dq_scores(float (&s)[kDqKeys / 8][4],
+                                          const float (&dp)[kDqKeys / 8][4],
+                                          const float (&lse2)[2],
+                                          const float (&delta)[2], int row_g,
+                                          int col0, int t, int tk,
+                                          float scale, float scale_log2,
+                                          int causal) {
+#pragma unroll
+  for (int n = 0; n < kDqKeys / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float p = ex2(fmaf(s[n][i], scale_log2, -lse2[i >> 1]));
+      if (kMask) {
+        const int row = row_g + 8 * (i >> 1);
+        const int col = col0 + n * 8 + 2 * t + (i & 1);
+        if (!(col < tk && (!causal || col <= row))) p = 0.f;
+      }
+      s[n][i] = p * (dp[n][i] - delta[i >> 1]) * scale;
+    }
+}
+
+// B2. Grid: x = query tile of 64 rows a consumer warpgroup (longest walks
+// first), y = head, z = batch. The producer warp, one thread of it, loads Q
+// and dO once and walks the 64-key tiles of K and V through the ring. Each
+// consumer keeps its rows' lse and delta in registers, and per key tile
+// computes S = Q.K^T and dP = dO.V^T (both operands K-major in shared
+// memory), dS in registers, and dQ += dS.K with dS as the register A
+// operand and K read MN-major. Tile j + 1's S and dP are issued before tile
+// j's dS.K, so that dS.K runs under the next tile's exponentials.
+template <int D>
+__global__ void __launch_bounds__(ws_threads(dq_consumers<D>()), 1)
+flash_dq_ws(const __grid_constant__ CUtensorMap qm,
+            const __grid_constant__ CUtensorMap km,
+            const __grid_constant__ CUtensorMap vm,
+            const __grid_constant__ CUtensorMap dom,
+            const float* __restrict__ lse, const float* __restrict__ delta,
+            bf16* __restrict__ dq, int heads, int tq, int tk, float scale,
+            int causal) {
+  using L = DqLayout<D>;
+  constexpr int C = dq_consumers<D>();
+  constexpr int S = L::kStages;
+  constexpr int kN = kDqKeys;
+  unsigned char* smem = aligned_smem();
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + S;
+
+  const int nq = (tq + L::kRows - 1) / L::kRows;
+  const int qt = nq - 1 - blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = qt * L::kRows;
+  const int nk_all = (tk + kN - 1) / kN;
+  const int nk = causal ? min((q0 + L::kRows + kN - 1) / kN, nk_all) : nk_all;
+  const int wg = sm90::warpgroup();
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], C * 4);  // one arrive a consumer warp
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == C) {  // the producer
+    if (threadIdx.x == C * kWg) {
+      sm90::prefetch_map(&km);
+      sm90::prefetch_map(&vm);
+      sm90::mbar_arrive_expect_tx(q_full, 2 * L::kQTile);
+      tma_tile<D>(smem + L::kQ, &qm, q_full, b, h, q0, L::kRows);
+      tma_tile<D>(smem + L::kDo, &dom, q_full, b, h, q0, L::kRows);
+      for (int j = 0; j < nk; ++j) {
+        const int s = j % S;
+        sm90::mbar_wait(&empty[s], ((j / S) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(&full[s], 2 * L::kKvTile);
+        tma_tile<D>(smem + L::kK + s * L::kKvTile, &km, &full[s], b, h,
+                    j * kN, kN);
+        tma_tile<D>(smem + L::kV + s * L::kKvTile, &vm, &full[s], b, h,
+                    j * kN, kN);
+      }
+    }
+  } else {  // a consumer: 64 query rows
+    const int tid = threadIdx.x % kWg;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int row0 = q0 + wg * 64;
+    const int row_g = row0 + warp * 16 + g;  // and row_g + 8
+    // This warpgroup's 64 rows of Q and dO: 64 rows further into each box.
+    const unsigned char* qs = smem + L::kQ + wg * 64 * 128;
+    const unsigned char* dos = smem + L::kDo + wg * 64 * 128;
+    const float scale_log2 = scale * kLog2e;
+    const size_t row_base = (size_t(b) * heads + h) * tq;
+    float lse2[2], dlt[2];  // lse log2(e) and delta of rows row_g, row_g + 8
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = row_g + 8 * hr;
+      lse2[hr] = row < tq ? lse[row_base + row] * kLog2e : 0.f;
+      dlt[hr] = row < tq ? delta[row_base + row] : 0.f;
+    }
+
+    float acc[D / 8][4];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+    float sc[kN / 8][4], dp[kN / 8][4];  // S (then dS in f32) and dP
+    Mma<bf16>::A ds[kN / 16];            // dS rounded to bf16: the A operand
+
+    // S and dP of key tile j, issued and committed, not waited for.
+    auto issue_sdp = [&](int j) {
+      const unsigned char* ks = smem + L::kK + (j % S) * L::kKvTile;
+      const unsigned char* vs = smem + L::kV + (j % S) * L::kKvTile;
+      sm90::mbar_wait(&full[j % S], (j / S) & 1);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::wgmma_ss<kN>(flat(sc), k_major(qs, L::kRows, kk),
+                           k_major(ks, kN, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::wgmma_ss<kN>(flat(dp), k_major(dos, L::kRows, kk),
+                           k_major(vs, kN, kk), kk > 0);
+      sm90::wgmma_commit();
+    };
+    // dS of key tile j in sc once its products are done; only tiles that
+    // straddle the causal diagonal or reach past tk are masked.
+    auto scores = [&](int j) {
+      sm90::fence_regs(flat(sc));
+      sm90::fence_regs(flat(dp));
+      const int col0 = j * kN;
+      if ((causal && col0 + kN - 1 > row0) || col0 + kN > tk)
+        dq_scores<true>(sc, dp, lse2, dlt, row_g, col0, t, tk, scale,
+                        scale_log2, causal);
+      else
+        dq_scores<false>(sc, dp, lse2, dlt, row_g, col0, t, tk, scale,
+                         scale_log2, causal);
+    };
+    // dQ += dS . K of key tile j (dS in ds), issued and committed.
+    auto issue_dq = [&](int j) {
+      const unsigned char* ks = smem + L::kK + (j % S) * L::kKvTile;
+      sm90::fence_regs(flat(acc));
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kN / 16; ++kk) {
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c)
+          sm90::wgmma_rs_n64(
+              *reinterpret_cast<float(*)[32]>(&acc[8 * c][0]), ds[kk].r,
+              mn_major(ks, kN, kk, c));
+      }
+      sm90::wgmma_commit();
+    };
+    auto to_operand = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < kN / 16; ++kk)
+        ds[kk] = Mma<bf16>::from_c(sc[2 * kk], sc[2 * kk + 1]);
+    };
+    auto release = [&](int j) {  // this warp is done with tile j's stage
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(&empty[j % S]);
+    };
+
+    sm90::mbar_wait(q_full, 0);
+    issue_sdp(0);
+    sm90::wgmma_wait<0>();
+    scores(0);
+    // The last tile is peeled, so that no product is issued under a branch.
+    for (int j = 0; j + 1 < nk; ++j) {
+      to_operand();
+      issue_sdp(j + 1);
+      issue_dq(j);
+      sm90::wgmma_wait<1>();  // tile j + 1's S and dP (dS.K may still run)
+      scores(j + 1);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(flat(acc));
+      release(j);
+    }
+    to_operand();
+    issue_dq(nk - 1);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(flat(acc));
+    release(nk - 1);
+    store_rows<bf16, D>(dq, acc, b, h, heads, tq, row_g, 1.f, 1.f, t);
+  }
+}
+
 // Tile i of a kernel's shared memory.
 template <typename T, int D>
 __device__ __forceinline__ T* tile(unsigned char* smem, int i) {
@@ -1277,19 +1505,18 @@ cudaError_t opt_in(F* kernel, size_t bytes, bool* done) {
 View view(const long long* s) { return View{s[0], s[1], s[2]}; }
 
 // The design each instance runs, fixed here and nowhere else: the
-// warp-specialised TMA + wgmma kernels for bf16 B1 and B3 at Dh 64 and
+// warp-specialised TMA + wgmma kernels for bf16 B1, B2 and B3 at Dh 64 and
 // 128; the mma.sync kernels for f32 (FMA products on their fragment
-// layout, which the exactness checks and the f32 trainer rely on), for B2,
-// and for bf16 at Dh 32, whose 64-byte rows would need the 64-byte swizzle
+// layout, which the exactness checks and the f32 trainer rely on) and for
+// bf16 at Dh 32, whose 64-byte rows would need the 64-byte swizzle
 // and its own descriptors for a shape no path of the port runs.
 enum Kernel { kFwd = 0, kDq = 1, kDkv = 2 };
 enum Design { kMmaSync = 0, kWarpSpecialized = 1 };
 
 template <typename T, int D>
-constexpr Design design(Kernel kernel) {
-  return std::is_same<T, bf16>::value && D >= 64 && kernel != kDq
-             ? kWarpSpecialized
-             : kMmaSync;
+constexpr Design design(Kernel) {
+  return std::is_same<T, bf16>::value && D >= 64 ? kWarpSpecialized
+                                                 : kMmaSync;
 }
 
 // TMA maps of the inputs q, k, v (and do) of one launch: `rows`[i] rows a
@@ -1351,6 +1578,29 @@ cudaError_t dkv_ws(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t dq_ws(const void* q, const void* k, const void* v,
+                  const void* dout, const float* lse, const float* delta,
+                  void* dq, int b, int h, int tq, int tk,
+                  const long long* strides, float scale, int causal,
+                  cudaStream_t stream) {
+  using L = DqLayout<D>;
+  CUtensorMap maps[4];
+  cudaError_t err = encode_maps<D, 4>(
+      maps, {q, k, v, dout}, {tq, tk, tk, tq},
+      {L::kRows, kDqKeys, kDqKeys, L::kRows}, b, h, strides);
+  if (err != cudaSuccess) return err;
+  static bool done = false;
+  constexpr size_t bytes = L::kBytes + 1024;
+  err = opt_in(flash_dq_ws<D>, bytes, &done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((tq + L::kRows - 1) / L::kRows, h, b);
+  flash_dq_ws<D><<<grid, ws_threads(dq_consumers<D>()), bytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], lse, delta, static_cast<bf16*>(dq),
+      h, tq, tk, scale, causal);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
                 float* lse, int b, int h, int tq, int tk,
@@ -1379,17 +1629,22 @@ cudaError_t dq_launch(const void* q, const void* k, const void* v,
                       void* dq, int b, int h, int tq, int tk,
                       const long long* strides, float scale, int causal,
                       cudaStream_t stream) {
-  static bool done = false;
-  constexpr size_t bytes = dq_smem<T, D>();
-  cudaError_t err = opt_in(flash_dq<T, D>, bytes, &done);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((tq + kTile - 1) / kTile, h, b);
-  flash_dq<T, D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), view(strides), view(strides + 3),
-      view(strides + 6), view(strides + 9), h, tq, tk, scale, causal);
-  return cudaGetLastError();
+  if constexpr (design<T, D>(kDq) == kWarpSpecialized) {
+    return dq_ws<D>(q, k, v, dout, lse, delta, dq, b, h, tq, tk, strides,
+                    scale, causal, stream);
+  } else {
+    static bool done = false;
+    constexpr size_t bytes = dq_smem<T, D>();
+    cudaError_t err = opt_in(flash_dq<T, D>, bytes, &done);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((tq + kTile - 1) / kTile, h, b);
+    flash_dq<T, D><<<grid, kThreads, bytes, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+        static_cast<T*>(dq), view(strides), view(strides + 3),
+        view(strides + 6), view(strides + 9), h, tq, tk, scale, causal);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, int D>

@@ -19,8 +19,8 @@ rowsum(dO * O)).
   hand-written kernels (``csrc/flash_attention.cu``, which says what
   bounds them and how they are built) or raise: there is no quiet
   fallback. The library's ``flash_design(is_bf16, dh, kernel)`` says which
-  of the file's two designs an instance runs (bf16 B1 and B3 at Dh 64 and
-  128: TMA + wgmma; the rest: mma.sync).
+  of the file's two designs an instance runs (bf16 B1, B2 and B3 at Dh 64
+  and 128: TMA + wgmma; f32 and bf16 Dh 32: mma.sync).
 - ``reference_attention`` is the plain, autograd-differentiable oracle
   (the JAX package's ``parallel/ring_attention.py::reference_attention``).
 - ``flash_supported`` is the kernels' own geometry rule. The JAX module's
