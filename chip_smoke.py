@@ -8,8 +8,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    torch version; TF32 off for matmuls and cuDNN;
 2. build: every CUDA kernel of the paths from the sources in this
    checkout (one nvcc per source, started together), with ptxas's
-   register and spill lines; it fails if one of the four TMA + wgmma
-   flash instances spills;
+   register and spill lines; it fails unless it finds every TMA instance
+   (``TMA_INSTANCES``: the six flash ones, B5's wgmma tile) and none
+   spills;
 3. paged kernel vs plain: the paged-attention kernel against its plain
    PyTorch version at the serving slice's shapes (4 lanes at
    3500/1750/875/437 tokens, H=16, KV=4, Dh=64, blk=128, S=4096), for
@@ -28,7 +29,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    tf_operator_tpu_torch.testing;
 5. flash at the training shape (B=2, H=16, T=8192, Dh=64, bf16, causal,
    q, k, v strided slices of one [B, T, 3, H, Dh] projection as the
-   trainer hands them over): it asserts that B1 and B3 run the TMA +
+   trainer hands them over): it asserts that B1, B2 and B3 run the TMA +
    wgmma design there and prints each kernel's design; every output
    against the plain versions (run a head at a time) and, with the plain
    versions, against an f32 evaluation (the kernels no less exact:
@@ -64,8 +65,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    take most device time: the step's breakdown); losses finite and
    falling, and 8 forward, 8 dQ and 8 dK/dV launches a step (each
    kernel's design printed: phase 5 asserts it for this shape);
-10. int8 matmul vs plain (B5, the int8_decode path): the kernel against
-    its plain version for m in {1, 4, 437, 3500} at each projection's
+10. int8 matmul vs plain (B5, the int8_decode path): the design each call
+    takes (int8_design: the weight stream at m <= 8, the TMA + wgmma tile
+    for bf16 x and the mma.sync tile for f32 x beyond), asserted; then the
+    kernel against its plain version for m in {1, 4, 437, 3500} at each
+    projection's
     (k, n) = (1024, 1024), (1024, 512), (1024, 4096), (4096, 1024) and m in
     {1, 4} at the head's (1024, 32768), x in bf16 and f32, out in f32 and
     bf16, every element by the rule of tf_operator_tpu_torch.testing;
@@ -146,19 +150,18 @@ FLASH_OUTS = {"o": "flash_fwd", "lse": "flash_fwd", "dq": "flash_dq",
 FLASH_DESIGNS = {0: "mma.sync", 1: "tma-wgmma"}
 FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 # int8_design's answers.
-INT8_DESIGNS = {0: "mma.sync tile", 1: "tma-stream", 2: "tma-wgmma"}
+INT8_DESIGNS = {0: "mma.sync tile", 1: "stream", 2: "tma-wgmma"}
 # The TMA instances ptxas compiles in each library, none of which may
-# spill: the three flash kernels at Dh 64 and 128; B5's weight stream (x
-# bf16/f32, out bf16/f32, 1/2/4/8 rows) and its wgmma tile (out bf16/f32,
-# and the three bf16 variants tools/torch_int8_probe.py times).
-TMA_INSTANCES = {"flash_attention": 6, "int8_dense": 21}
+# spill: the three flash kernels at Dh 64 and 128; B5's wgmma tile (out
+# bf16/f32, and the two bf16 variants tools/torch_int8_probe.py times).
+TMA_INSTANCES = {"flash_attention": 6, "int8_dense": 4}
 # The kernels line's design of the other kernels (their source notes).
 OTHER_DESIGNS = {
     "paged_attend": "split block walk + merge launch, f32 on CUDA cores",
     "paged_attend_kv8": "split block walk + merge launch, f32 on CUDA cores",
-    "int8_matmul": "m <= 8: TMA weight stream filling every SM, cluster "
-                   "split-k, f32 FMAs; m > 8 bf16 x: TMA + wgmma tile; "
-                   "f32 x: mma.sync tile"}
+    "int8_matmul": "m <= 8: weight stream, cluster split-k, f32 FMAs; "
+                   "m > 8 bf16 x: TMA + wgmma tile, weights widened into "
+                   "register A fragments; f32 x: mma.sync tile"}
 # f32 trainer, kernels vs plain attention. Step-0 gradients, leaf by leaf,
 # each element within GRAD_RTOL |plain| + GRAD_ATOL x the rms of its row
 # of plain (the rule of tf_operator_tpu_torch.testing): the attention
@@ -204,14 +207,13 @@ def card_line() -> str:
 def ws_spills(log: str) -> dict:
     """{instance: spill-store bytes} of the TMA kernels in a ``ptxas -v``
     log: the warp-specialised flash kernels (``flash_*_ws<Dh>``) and B5's
-    weight stream and wgmma tile (``int8_stream<...>``, ``int8_wgmma<...>``,
-    their template arguments as the mangled name spells them, bf16 written
-    out)."""
+    wgmma tile (``int8_wgmma<...>``, its template arguments as the mangled
+    name spells them, bf16 written out)."""
     out, name = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             m = re.search(r"(flash_[a-z]+_ws)ILi(\d+)E", line)
-            i = re.search(r"(int8_stream|int8_wgmma)I(.*?)EEv", line)
+            i = re.search(r"(int8_wgmma)I(.*?)EEv", line)
             name = (f"{m[1]}<{m[2]}>" if m else
                     f"{i[1]}<{i[2].replace('13__nv_bfloat16', 'bf16')}>"
                     if i else None)
@@ -425,26 +427,23 @@ def int8_bounds_ms(m, k, n, out_bytes=4) -> tuple[float, float]:
 
 
 def int8_designs(i8) -> None:
-    """Assert the design B5 runs at each of the main path's calls: the TMA
-    weight stream at m=1 and 4 (bf16 and f32 x; its CTAs printed), the
+    """Assert the design B5 runs at each of the main path's calls: the
+    weight stream at m=1 and 4 (bf16 and f32 x), the
     TMA + wgmma tile for bf16 x at m=437 and 3500 (prefill), the mma.sync
     tile for f32 x there (the f32 engine's prefills)."""
     lib = i8._library()
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for (k, n), rows in INT8_ROWS.items():
         got = {(m, x_bf16): INT8_DESIGNS.get(lib.int8_design(m, k, n, x_bf16))
                for m in rows for x_bf16 in (1, 0)}
-        want = {(m, x_bf16): "tma-stream" if m <= 8 else
+        want = {(m, x_bf16): "stream" if m <= 8 else
                 "tma-wgmma" if x_bf16 else "mma.sync tile"
                 for m, x_bf16 in got}
-        ctas = lib.int8_stream_ctas(k, n)
         shown = ", ".join(f"m={m} x {'bf16' if b else 'f32'}: {d}"
                           for (m, b), d in got.items())
-        print(f"int8_matmul designs, k={k} n={n}: {shown}; weight stream "
-              f"CTAs {ctas} on {sms} SMs", flush=True)
-        if got != want or ctas < 1:
+        print(f"int8_matmul designs, k={k} n={n}: {shown}", flush=True)
+        if got != want:
             raise AssertionError(f"int8_matmul k={k} n={n}: designs {got}, "
-                                 f"want {want}; {ctas} CTAs")
+                                 f"want {want}")
 
 
 def int8_check_phase(i8) -> float:
@@ -1236,6 +1235,7 @@ def train_bf16_phase(params, card: str) -> dict:
     mfu = tok_s * flops_tok / PEAK_FLOPS[torch.bfloat16]
     print(f"trainer bf16 B={TRAIN_B} T={TRAIN_T} ({n_params} params): "
           f"losses {losses}; step_s {run['seconds']} mean {step_s:.6f} "
+          f"(median {float(np.median(run['seconds'])):.6f}) "
           f"tokens/s {tok_s:.2f} MFU {mfu:.6f} (6N + 6LdS = {flops_tok} "
           f"flops a token at 989 TFLOP/s); peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; counts "

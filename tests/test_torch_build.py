@@ -109,16 +109,16 @@ ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__fdabf354_18_flash_att
 ptxas info    : Function properties for _ZN51_GLOBAL__N__fdabf354_18_flash_attention_cu_5326155211flash_dq_wsILi64EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16iiiifi
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 154 registers, used 1 barriers
-ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__0b2a7c31_13_int8_dense_cu_a1b2c3d411int8_streamI13__nv_bfloat16S1_Li4EEEv14CUtensorMap_stPKT_PKfS8_PT0_iiiiiii' for 'sm_90a'
-ptxas info    : Function properties for _ZN46_GLOBAL__N__0b2a7c31_13_int8_dense_cu_a1b2c3d411int8_streamI13__nv_bfloat16S1_Li4EEEv14CUtensorMap_stPKT_PKfS8_PT0_iiiiiii
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__0b2a7c31_13_int8_dense_cu_a1b2c3d411int8_streamI13__nv_bfloat16S1_Li4EEEvPKT_PKaPKfS7_PT0_iiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N__0b2a7c31_13_int8_dense_cu_a1b2c3d411int8_streamI13__nv_bfloat16S1_Li4EEEvPKT_PKaPKfS7_PT0_iiiiii
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 72 registers, used 1 barriers
 ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__0b2a7c31_13_int8_dense_cu_a1b2c3d410int8_tiledIffEEvPKT_PKaPKfS7_PT0_iii' for 'sm_90a'
 ptxas info    : Function properties for _ZN46_GLOBAL__N__0b2a7c31_13_int8_dense_cu_a1b2c3d410int8_tiledIffEEvPKT_PKaPKfS7_PT0_iii
     0 bytes stack frame, 16 bytes spill stores, 16 bytes spill loads
 ptxas info    : Used 128 registers, used 1 barriers
-ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__0b2a7c31_13_int8_dense_cu_a1b2c3d410int8_wgmmaIfEEv14CUtensorMap_stS1_PKfS3_PT_iii' for 'sm_90a'
-ptxas info    : Function properties for _ZN46_GLOBAL__N__0b2a7c31_13_int8_dense_cu_a1b2c3d410int8_wgmmaIfEEv14CUtensorMap_stS1_PKfS3_PT_iii
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__0b2a7c31_13_int8_dense_cu_a1b2c3d410int8_wgmmaIfLi0EEEv14CUtensorMap_stS1_PKfS3_PT_iii' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N__0b2a7c31_13_int8_dense_cu_a1b2c3d410int8_wgmmaIfLi0EEEv14CUtensorMap_stS1_PKfS3_PT_iii
     8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
 ptxas info    : Used 168 registers, used 2 barriers
 """
@@ -127,11 +127,27 @@ ptxas info    : Used 168 registers, used 2 barriers
 def test_chip_smoke_reads_the_tma_instances_spills_from_ptxas():
     """chip_smoke fails a build whose TMA instances spill: it reads each
     one's spill stores from the ptxas log, by name (the flash _ws kernels,
-    B2's among them, and B5's weight stream and wgmma tile), and leaves the
-    mma.sync instances (B2's old bf16 instance and B5's f32 tile here)
-    out."""
+    B2's among them, and B5's wgmma tile), and leaves the others (B2's old
+    mma.sync instance, B5's weight stream and f32 tile here) out."""
     import chip_smoke
 
     assert chip_smoke.ws_spills(PTXAS_LOG) == {
         "flash_dkv_ws<128>": 96, "flash_fwd_ws<64>": 0, "flash_dq_ws<64>": 0,
-        "int8_stream<bf16S1_Li4E>": 0, "int8_wgmma<f>": 8}
+        "int8_wgmma<fLi0E>": 8}
+
+
+def test_each_planted_fault_names_text_that_occurs_once():
+    """tools/plant_fault.py changes one piece of text in a kernel source;
+    each fault's text must still occur exactly once there."""
+    import importlib.util
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "plant_fault", os.path.join(root, "tools", "plant_fault.py"))
+    plant_fault = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(plant_fault)
+    for fault, (source, text, faulty) in plant_fault.FAULTS.items():
+        with open(os.path.join(root, source)) as f:
+            code = f.read()
+        assert code.count(text) == 1, fault
+        assert faulty != text, fault

@@ -142,13 +142,11 @@ def test_paged_kv8_kernel_raises_outside_its_geometry(cuda):
 # The decode path's (k, n) (chip_smoke's INT8_CALLS) and the narrowest n.
 INT8_SHAPES = [(1024, 1024), (1024, 512), (1024, 4096), (4096, 1024),
                (1024, 32768), (1024, 128)]
-# (m, k, n): decode (m <= 8, the TMA weight stream: every tiling its plan
-# picks, k split over a cluster of up to 16 CTAs or not; k = 1056 and 8224
-# split into chunks that are no multiple of a stage's rows, k = 96 into one
-# short box) and prefill (m > 8, or k beyond 16 chunks of 1024: the TMA +
+# (m, k, n): decode (m <= 8, the weight stream: k split over a cluster of
+# up to 8 CTAs or not, a chunk of 132 rows at k = 1056, k = 96 in one
+# chunk) and prefill (m > 8, or k beyond 8 chunks of 1024: the TMA +
 # wgmma tile for bf16 x, the mma.sync tile for f32 x; ragged m tiles, n of
-# 128 and 384 against its 256-column tile, k not a multiple of the 64-row k
-# step).
+# 128 and 384, k not a multiple of the 64-row k step).
 INT8_CASES = [(m, k, n) for k, n in INT8_SHAPES for m in (1, 4, 8)] + [
     (3, 64, 128), (2, 1024, 4096), (5, 1056, 128), (4, 8224, 256),
     (6, 96, 384), (4, 16416, 256),
@@ -200,27 +198,20 @@ def test_int8_kernel_gives_the_same_bits_twice(cuda, case):
 
 @pytest.mark.cuda
 def test_int8_design_rule(cuda):
-    """int8_design: up to 8 rows of x and k up to 16384 take the TMA weight
+    """int8_design: up to 8 rows of x and k up to 8192 take the weight
     stream (1), bf16 x beyond that the TMA + wgmma tile (2), f32 x the
-    mma.sync tile (0); -1 outside the geometry. At the slice's decode
-    shapes the stream launches the CTAs of its measured plan (on a card of
-    33 to 256 SMs)."""
+    mma.sync tile (0); -1 outside the geometry."""
     lib = i8._library()
     for x_bf16 in (0, 1):
         assert lib.int8_design(1, 1024, 32768, x_bf16) == 1
-        assert lib.int8_design(8, 16384, 128, x_bf16) == 1
+        assert lib.int8_design(8, 8192, 128, x_bf16) == 1
         assert lib.int8_design(9, 1024, 4096, x_bf16) == (2 if x_bf16 else 0)
         assert lib.int8_design(4, 16416, 256, x_bf16) == (2 if x_bf16 else 0)
         assert lib.int8_design(3500, 1024, 4096, x_bf16) == (
             2 if x_bf16 else 0)
     assert lib.int8_design(4, 1024, 72, 1) == -1
     assert lib.int8_design(4, 48, 128, 1) == -1
-    # (width, splits): (64, 8), (64, 8), (128, 8), (64, 16), (128, 1).
-    want = {(1024, 1024): 128, (1024, 512): 64, (1024, 4096): 256,
-            (4096, 1024): 256, (1024, 32768): 256}
-    for (k, n), ctas in want.items():
-        assert lib.int8_stream_ctas(k, n) == ctas, (k, n)
-    assert lib.int8_stream_ctas(16416, 256) == -1
+    assert lib.int8_design(1, 8224, 256, 1) == 2
 
 
 @pytest.mark.cuda

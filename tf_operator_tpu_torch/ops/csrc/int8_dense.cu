@@ -26,27 +26,28 @@
 // 989 TFLOP/s, e.g. 29.7 us for m=3500 against 1024x4096. `design` below
 // fixes which of three kernels a call runs; int8_design reports it.
 //
-// m <= 8 (decode, and the head's last prompt row): int8_stream. At these
-// shapes a call moves 0.5 to 32 MB, so what costs is latency and
-// parallelism, not bandwidth:
-//  - Enough SMs pull bytes: stream_plan picks a column-tile width (128 or
-//    64 int8 columns) and a k split (1 to 16 CTAs, one thread-block cluster
-//    a tile), 64 to 256 CTAs at the slice's shapes.
-//  - The whole slab is in flight at once: one thread issues TMA copies of
-//    the CTA's weight slab (a 2-D map of w_q, boxes of width x up to 256
-//    rows, 16 KB at most) into a ring of up to four mbarrier stages as soon
-//    as the CTA starts, so the slab arrives in about one memory latency;
-//    only the head (1024 rows a CTA) refills the ring. The x chunk is staged
-//    in shared memory meanwhile, rounded to bf16, as f32 [row][m].
-//  - Each thread reads 8 weight columns of a row with one 8-byte shared
-//    load, widens them to f32 with a byte permute and one add (exact), and
-//    keeps m x 8 f32 sums; its x values come as one 16-byte load a row.
-//  - The row lanes of a CTA are summed in shared memory in a fixed order;
-//    the splits of a tile through distributed shared memory, in split
-//    order, after a cluster barrier: no atomics, the same bits every run.
-//  The f32 FMAs stay on the ALUs: at m = 4 the widening and the FMAs are
-//  about 6 operations a weight byte, 25 us of the card's ALU time for a
-//  forward's 121.6 MB, under its 36.3 us of bytes.
+// m <= 8 (decode, and the head's last prompt row): int8_stream, the design
+// of the port's first B5, kept because it measured fastest
+// (tools/torch_int8_probe.py): it reads each weight byte once per call,
+// not once per row of x. CTA (tile, split) owns 128 columns and a chunk of
+// k rows; its x chunk, rounded to bf16, sits in shared memory as f32. Each
+// thread walks rows of its 16 columns with one 16-byte load a row (8
+// threads cover a 128-byte row segment, so a warp reads 4 whole lines), up
+// to eight loads in flight (the next four rows load while the last four
+// are summed), widens the int8 values to f32 with a byte permute and one
+// add (exact; no int-to-float conversion unit), and keeps m x 16 f32 sums
+// in registers. The 16 row lanes of a CTA are summed by shuffles and then
+// in shared memory, in a fixed order. A small n gives few 128-column tiles
+// (4 for kv), so k is split over up to 8 CTAs (k_split aims at 2 CTAs an
+// SM), which form one thread-block cluster; after a cluster barrier each
+// CTA adds a share of the tile's columns over all the splits' partials,
+// read through distributed shared memory in split order: one launch, no
+// scratch in device memory, no atomics, the same sums every run. At these
+// shapes a call moves 0.5 to 32 MB, so its time is mostly fixed cost: a
+// one-CTA call takes about 3.2 us. A redesign that streamed each CTA's slab
+// by TMA into an mbarrier ring, over enough CTAs to fill every SM, measured
+// slower at every decode shape of the slice, with any tiling, and its
+// loads alone took as long as this kernel's whole call (PERF.md).
 // m > 8 with bf16 x (prefill): int8_wgmma, warp-specialised as the flash
 // kernels are. One thread issues TMA copies of the x tile (128 rows x 64
 // k) and the int8 weight tile (64 k x 128 columns), both with the 128-byte
@@ -82,44 +83,36 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 128;
 constexpr int kNAlign = 128;  // n a multiple of this; k of kBK
-// int8_stream.
-constexpr int kMaxRows = 8;         // rows of x it serves (1, 2, 4 or 8)
-constexpr int kColsPerThread = 8;   // one 8-byte shared load a row
-constexpr int kSplitRows = 128;     // k rows a split keeps at least
-constexpr int kMaxChunk = 1024;     // k rows a CTA stages (32 KB at 8 rows)
-constexpr int kMaxSplits = 16;      // CTAs of a cluster (non-portable above 8)
-constexpr int kRing = 4;            // TMA stages a CTA keeps in flight
-constexpr int kStageBytes = 16384;  // bytes a stage at most
-constexpr int kMaxStageRows = 256;  // a TMA box's rows at most
-constexpr int kBarBytes = 128;      // the stage barriers, before the ring
+// int8_stream: a CTA's 128 columns, 16 a thread, so 8 column groups and
+// 16 rows in flight.
+constexpr int kCols = 128;
+constexpr int kColGroups = kCols / 16;
+constexpr int kRowLanes = kThreads / kColGroups;
+constexpr int kWarps = kThreads / 32;
+constexpr int kUnroll = 4;        // weight rows a thread loads at once
+constexpr int kMaxRows = 8;       // rows of x it serves (1, 2, 4 or 8)
+constexpr int kMinChunk = 64;     // k rows a CTA takes at least when split
+constexpr int kMaxChunk = 1024;   // k rows a CTA stages (32 KB at 8 rows)
+constexpr int kMaxSplits = 8;     // CTAs of a cluster (the portable most)
+constexpr int kCtasPerSm = 2;     // CTAs an SM the splits aim at
 // int8_tiled: a CTA's 128x64 tile, k steps of 32, each warp 32 rows.
 constexpr int kBM = 128;
 constexpr int kBN = 64;
 constexpr int kBK = 32;
 constexpr int kLdX = kBK + 8;  // bf16 pitches, padded by 16 bytes: rows stay
 constexpr int kLdW = kBN + 8;  // 16-byte aligned, ldmatrix spreads on banks
-// int8_wgmma: a CTA's tile of 64 C weight columns x 128 rows of x in C
-// warpgroups of 64 columns, k steps of 64 (PrefillLayout<C> below).
-constexpr int kPM = 128, kPK = 64;
-constexpr int kPBox = 128;  // int8 columns a swizzled TMA box (128 bytes)
+// int8_wgmma: a CTA's tile of 128 weight columns x 128 rows of x in two
+// warpgroups of 64 columns, two CTAs an SM, k steps of 64.
+constexpr int kPC = 2;  // warpgroups
+constexpr int kPM = 128, kPN = 64 * kPC, kPK = 64;
 constexpr int kPStages = 4;
-// Warpgroups of the wgmma tile a model's call runs: 2 (128 weight columns a
-// CTA, two CTAs an SM); tools/torch_int8_probe.py times the other choice, 4
-// (256 columns, one CTA an SM).
-constexpr int kPrefillWarpgroups = 2;
-constexpr int kPXBytes = kPM * kPK * 2;  // 16 KB, one swizzled box
-
-// Shared memory of int8_wgmma with C warpgroups: per stage the x tile, then
-// per stage the weight tile (C / 2 swizzled boxes of 8 KB), the barriers
-// (full, empty).
-template <int C>
-struct PrefillLayout {
-  static constexpr int kN = 64 * C;  // weight columns a CTA
-  static constexpr int kWBytes = kPK * kN;
-  static constexpr int kW = kPStages * kPXBytes;
-  static constexpr int kBars = kW + kPStages * kWBytes;
-  static constexpr int kBytes = kBars + 8 * 2 * kPStages;
-};
+// Shared memory of int8_wgmma: per stage the x tile, then per stage the
+// weight tile (one swizzled box), the barriers (full, empty).
+constexpr int kPXBytes = kPM * kPK * 2;  // 16 KB
+constexpr int kPWBytes = kPK * kPN;      // 8 KB
+constexpr int kPW = kPStages * kPXBytes;
+constexpr int kPBars = kPW + kPStages * kPWBytes;
+constexpr int kPBytes = kPBars + 8 * 2 * kPStages;
 
 enum Design { kTiled = 0, kStream = 1, kWgmma = 2 };
 
@@ -168,208 +161,118 @@ __device__ __forceinline__ void int8x16_to_f32(uint4 u, float* f) {
   int8x4_to_f32(u.w, f + 12);
 }
 
-// The M staged x values of one k row ([row][M] f32 in shared memory).
+// acc[i][j] += x[i][r] * w[r][c0 + j] for the M staged rows of x.
 template <int M>
-__device__ __forceinline__ void load_x(float (&xv)[M], const float* p) {
-  if constexpr (M == 1) {
-    xv[0] = p[0];
-  } else if constexpr (M == 2) {
-    const float2 a = *reinterpret_cast<const float2*>(p);
-    xv[0] = a.x, xv[1] = a.y;
-  } else {
+__device__ __forceinline__ void fma_row(float (&acc)[M][16], uint4 u,
+                                        const float* xs, int chunk, int r) {
+  float wf[16];
+  int8x16_to_f32(u, wf);
 #pragma unroll
-    for (int i = 0; i < M; i += 4) {
-      const float4 a = *reinterpret_cast<const float4*>(p + i);
-      xv[i] = a.x, xv[i + 1] = a.y, xv[i + 2] = a.z, xv[i + 3] = a.w;
-    }
+  for (int i = 0; i < M; ++i) {
+    const float xv = xs[i * chunk + r];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) acc[i][j] = fmaf(xv, wf[j], acc[i][j]);
   }
 }
 
-// acc[i][j] += x[i] * w[j] for one k row: 8 weight columns, M rows of x.
-template <int M>
-__device__ __forceinline__ void fma_row(float (&acc)[M][kColsPerThread],
-                                        uint2 u, const float* x_row) {
-  float wf[kColsPerThread], xv[M];
-  int8x4_to_f32(u.x, wf);
-  int8x4_to_f32(u.y, wf + 4);
-  load_x<M>(xv, x_row);
+// Rows r0, r0 + kRowLanes, ... of a thread's 16 weight columns (one
+// 16-byte load each), zeros at or past `rows`.
+__device__ __forceinline__ void load_rows(uint4 (&u)[kUnroll],
+                                          const int8_t* wp, int n, int r0,
+                                          int rows) {
 #pragma unroll
-  for (int i = 0; i < M; ++i)
-#pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j)
-      acc[i][j] = fmaf(xv[i], wf[j], acc[i][j]);
-}
-
-// The tiling of int8_stream at one (k, n), fixed by stream_plan.
-struct StreamPlan {
-  int width;       // int8 columns a CTA (a TMA box's width)
-  int splits;      // CTAs sharing a tile's k rows (one cluster)
-  int chunk;       // k rows a CTA
-  int stage_rows;  // k rows a TMA box (a ring stage)
-  int ring;        // stages a CTA keeps in flight
-  size_t smem;     // dynamic shared memory
-};
-
-__host__ __device__ constexpr int red_floats(int m_rows) {
-  // [row lanes][M][width] = (kThreads / (width / 8)) * M * width.
-  return kThreads * kColsPerThread * m_rows;
-}
-
-// The rest of a plan of `width` columns and `splits` splits: chunk, stage
-// rows, ring and shared memory for M = m_rows.
-StreamPlan finish_plan(int m_rows, int k, int width, int splits) {
-  StreamPlan p;
-  p.width = width;
-  p.splits = splits;
-  p.chunk = (k + splits - 1) / splits;
-  const int rows8 = (p.chunk + 7) / 8 * 8;
-  p.stage_rows = kStageBytes / width < kMaxStageRows ? kStageBytes / width
-                                                     : kMaxStageRows;
-  if (rows8 < p.stage_rows) p.stage_rows = rows8;
-  const int loads = (p.chunk + p.stage_rows - 1) / p.stage_rows;
-  p.ring = loads < kRing ? loads : kRing;
-  const size_t ring_bytes = size_t(p.ring) * p.stage_rows * width;
-  const size_t red = size_t(red_floats(m_rows)) * sizeof(float);
-  p.smem = kBarBytes + (ring_bytes > red ? ring_bytes : red) +
-           sizeof(float) * (size_t(p.chunk) * m_rows + size_t(m_rows) * width);
-  return p;
-}
-
-// The plan, as tools/torch_int8_probe.py measured it best at every decode
-// shape of the slice: tiles of 128 columns where n gives 32 of them, else
-// 64; when the tiles alone leave SMs idle, k split in powers of two while a
-// split keeps kSplitRows rows (up to 16), and further while a chunk exceeds
-// kMaxChunk. On 132 SMs: 1024x1024 -> width 64, 8 splits (128 CTAs);
-// 1024x512 -> 64, 8 (64); 1024x4096 -> 128, 8 (256); 4096x1024 -> 64, 16
-// (256); the head's 1024x32768 -> 128, 1 (256). Filling every SM by more,
-// narrower tiles or more splits measured slower at 1024x512, 1024x4096 and
-// 4096x1024: each split adds partial sums to a cluster reduction, and each
-// narrower tile re-reads x.
-StreamPlan stream_plan(int m_rows, int k, int n, int sms) {
-  const int width = n / 128 >= 32 ? 128 : 64;
-  int splits = 1;
-  if (n / width < sms)
-    while (splits < kMaxSplits && k / (2 * splits) >= kSplitRows) splits *= 2;
-  while (splits < kMaxSplits && (k + splits - 1) / splits > kMaxChunk)
-    splits *= 2;
-  return finish_plan(m_rows, k, width, splits);
+  for (int i = 0; i < kUnroll; ++i) {
+    const int r = r0 + i * kRowLanes;
+    u[i] = r < rows ? __ldg(reinterpret_cast<const uint4*>(wp + size_t(r) * n))
+                    : make_uint4(0u, 0u, 0u, 0u);
+  }
 }
 
 // Decode: CTA (tile, split) sums rows [split*chunk, +chunk) of k for
-// columns [tile*width, +width) and the m <= M rows of x. With one split it
+// columns [tile*kCols, +kCols) and the m <= M rows of x. With one split it
 // writes the output; otherwise the tile's splits, one cluster, add their
 // partial sums through distributed shared memory.
 template <typename TX, typename TO, int M>
 __global__ void __launch_bounds__(kThreads)
-int8_stream(const __grid_constant__ CUtensorMap wm, const TX* __restrict__ x,
+int8_stream(const TX* __restrict__ x, const int8_t* __restrict__ w,
             const float* __restrict__ scale, const float* __restrict__ bias,
-            TO* __restrict__ out, int m, int k, int n, int width, int chunk,
-            int stage_rows, int ring, const int8_t* __restrict__ w, int tma,
-            int math) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
-  unsigned char* stages = smem + kBarBytes;
-  const int stage_bytes = stage_rows * width;
-  const int ring_bytes = ring * stage_bytes;
-  const int red_bytes = red_floats(M) * int(sizeof(float));
-  float* xs = reinterpret_cast<float*>(
-      stages + (ring_bytes > red_bytes ? ring_bytes : red_bytes));
-  float* part = xs + chunk * M;  // [M][width]: this CTA's sums
+            TO* __restrict__ out, int m, int k, int n, int chunk,
+            int splits, int math) {
+  extern __shared__ __align__(16) float smem[];
+  const int tile = blockIdx.x, split = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cg = tid % kColGroups, rl = tid / kColGroups;
+  const int k0 = split * chunk, rows = min(chunk, k - k0);
 
-  const int tile = blockIdx.x, split = blockIdx.y, splits = gridDim.y;
-  const int tid = threadIdx.x;
-  const int n0 = tile * width, k0 = split * chunk;
-  const int rows = min(chunk, k - k0);
-  const int loads = (rows + stage_rows - 1) / stage_rows;
-
-  // Stage i of the slab into ring slot s: one TMA box issued by thread 0,
-  // or (tma == 0, tools/torch_int8_probe.py) a 16-byte cp.async a thread
-  // per vector, each thread arriving on the slot's barrier when its copies
-  // land; rows at or past k read as zeros either way.
-  auto load_stage = [&](int i, int s) {
-    unsigned char* dst = stages + s * stage_bytes;
-    const int r0 = k0 + i * stage_rows;
-    if (tma) {
-      if (tid == 0) {
-        sm90::mbar_arrive_expect_tx(&full[s], stage_bytes);
-        sm90::tma_load_2d(dst, &wm, &full[s], n0, r0);
-      }
-      return;
-    }
-    const int vecs = width / 16;
-    for (int e = tid; e < stage_rows * vecs; e += kThreads) {
-      const int r = e / vecs, c = (e % vecs) * 16;
-      const bool in = r0 + r < k;
-      sm90::cp_async16(dst + r * width + c,
-                       in ? w + size_t(r0 + r) * n + n0 + c : w, in);
-    }
-    sm90::cp_async_arrive(&full[s]);
-  };
-  // The slab's copies go out first, so that their latency overlaps the
-  // staging of x.
-  if (tid == 0) {
-    for (int s = 0; s < ring; ++s) sm90::mbar_init(&full[s], tma ? 1 : kThreads);
-    sm90::fence_barrier_init();
-  }
-  if (!tma) __syncthreads();
-  for (int i = 0; i < ring && i < loads; ++i) load_stage(i, i);
+  // The first weight rows are requested before x is staged, so that the
+  // two waits overlap.
+  const int8_t* wp = w + size_t(k0) * n + size_t(tile) * kCols + cg * 16;
+  uint4 u[kUnroll];
+  load_rows(u, wp, n, rl, rows);
+  float* xs = smem;  // [M][chunk]: x's rows over this chunk, bf16-rounded
   for (int e = tid; e < M * chunk; e += kThreads) {
     const int i = e / chunk, r = e % chunk;
-    xs[r * M + i] =
-        i < m && r < rows ? round_bf16(x[size_t(i) * k + k0 + r]) : 0.f;
+    xs[e] = i < m && r < rows ? round_bf16(x[size_t(i) * k + k0 + r]) : 0.f;
   }
-  float acc[M][kColsPerThread];
+  float acc[M][16];
 #pragma unroll
   for (int i = 0; i < M; ++i)
 #pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) acc[i][j] = 0.f;
-  __syncthreads();  // the barriers' init and x's rows
+    for (int j = 0; j < 16; ++j) acc[i][j] = 0.f;
+  __syncthreads();
 
-  const int per_row = width / kColsPerThread;  // threads a weight row
-  const int lanes = kThreads / per_row;        // rows summed at once
-  const int rl = tid / per_row, cg8 = (tid % per_row) * kColsPerThread;
-  for (int i = 0; i < loads; ++i) {
-    const int s = i % ring;
-    sm90::mbar_wait(&full[s], (i / ring) & 1);
-    const unsigned char* st = stages + s * stage_bytes;
-    const float* xr = xs + i * stage_rows * M;
-    const int r_end = min(stage_rows, rows - i * stage_rows);
+  // Each batch's sums run while the next batch's loads are in flight.
+  for (int r0 = rl; r0 < rows; r0 += kUnroll * kRowLanes) {
+    uint4 next[kUnroll];
+    load_rows(next, wp, n, r0 + kUnroll * kRowLanes, rows);
     if (math) {
-#pragma unroll 4
-      for (int r = rl; r < r_end; r += lanes)
-        fma_row<M>(acc,
-                   *reinterpret_cast<const uint2*>(st + r * width + cg8),
-                   xr + r * M);
+#pragma unroll
+      for (int i = 0; i < kUnroll; ++i)
+        if (r0 + i * kRowLanes < rows)
+          fma_row<M>(acc, u[i], xs, chunk, r0 + i * kRowLanes);
     } else {  // tools/torch_int8_probe.py: the loads without the math
-      for (int r = rl; r < r_end; r += lanes)
-        acc[0][0] += __uint_as_float(
-            reinterpret_cast<const uint2*>(st + r * width + cg8)->x);
+#pragma unroll
+      for (int i = 0; i < kUnroll; ++i) acc[0][0] += __uint_as_float(u[i].x);
     }
-    if (i + ring < loads) {  // refill this stage (the head's long slab)
-      __syncthreads();
-      load_stage(i + ring, s);
-    }
+#pragma unroll
+    for (int i = 0; i < kUnroll; ++i) u[i] = next[i];
   }
 
-  // The row lanes' sums, in lane order, through shared memory (over the
-  // ring, which every thread is done with).
-  __syncthreads();
-  float* red = reinterpret_cast<float*>(stages);  // [lanes][M][width]
+  // The 4 row lanes of a warp (lanes 8 apart) by shuffles, then the warps
+  // in order through shared memory, which x no longer needs.
 #pragma unroll
-  for (int i = 0; i < M; ++i) {
-    float4* dst = reinterpret_cast<float4*>(red + (rl * M + i) * width + cg8);
-    dst[0] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    dst[1] = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      float v = acc[i][j];
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      acc[i][j] = v;
+    }
+  __syncthreads();
+  float* red = smem;  // [kWarps][M][kCols]
+  if (lane < kColGroups) {
+#pragma unroll
+    for (int i = 0; i < M; ++i)
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        red[(warp * M + i) * kCols + cg * 16 + j] = acc[i][j];
   }
   __syncthreads();
-  for (int e = tid; e < M * width; e += kThreads) {
-    const int i = e / width, c = e % width;
-    float s = 0.f;
-    for (int l = 0; l < lanes; ++l) s += red[(l * M + i) * width + c];
+  // This CTA's sums [M][kCols], its warps added in order, past the staging
+  // area in shared memory: the output with one split, else its partial.
+  const int stage = max(M * chunk, kWarps * M * kCols);
+  float* part = smem + stage;
+  for (int e = tid; e < M * kCols; e += kThreads) {
+    const int i = e / kCols, c = e % kCols;
+    float s = red[i * kCols + c];
+#pragma unroll
+    for (int wv = 1; wv < kWarps; ++wv) s += red[(wv * M + i) * kCols + c];
     if (splits > 1)
       part[e] = s;
     else if (i < m)
-      out[size_t(i) * n + n0 + c] = epilogue<TO>(s, scale, bias, n0 + c);
+      out[size_t(i) * n + tile * kCols + c] =
+          epilogue<TO>(s, scale, bias, tile * kCols + c);
   }
   if (splits == 1) return;
 
@@ -379,15 +282,16 @@ int8_stream(const __grid_constant__ CUtensorMap wm, const TX* __restrict__ x,
   // barrier keeps each CTA's partial alive until all have read it.
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
-  const int cols = width / splits;
+  const int cols = kCols / splits;
   const int c0 = int(cluster.block_rank()) * cols;
   for (int e = tid; e < m * cols; e += kThreads) {
     const int i = e / cols, c = c0 + e % cols;
     float s = 0.f;
 #pragma unroll 8
     for (int sp = 0; sp < splits; ++sp)
-      s += cluster.map_shared_rank(part, sp)[i * width + c];
-    out[size_t(i) * n + n0 + c] = epilogue<TO>(s, scale, bias, n0 + c);
+      s += cluster.map_shared_rank(part, sp)[i * kCols + c];
+    out[size_t(i) * n + tile * kCols + c] =
+        epilogue<TO>(s, scale, bias, tile * kCols + c);
   }
   cluster.sync();
 }
@@ -406,10 +310,10 @@ __device__ __forceinline__ unsigned char* aligned_smem() {
   return smem_raw + ((1024 - (off & 1023)) & 1023);
 }
 
-// This thread's A fragments of one k step: a box of the int8 weight tile
-// (kPK k rows x kPBox columns, TMA's 128-byte swizzle: 16-byte chunk j of
-// row r at j ^ (r % 8)) transposed, widened to bf16, for the 16 columns
-// n_base + [0, 16) of the box that its warp owns. Fragment row g stands for column n_base + 2 g and row g + 8
+// This thread's A fragments of one k step: the int8 weight tile (kPK k rows
+// x kPN columns, TMA's 128-byte swizzle: 16-byte chunk j of row r at j ^
+// (r % 8)) transposed, widened to bf16, for the 16 columns n_base + [0, 16)
+// that its warp owns. Fragment row g stands for column n_base + 2 g and row g + 8
 // for n_base + 2 g + 1, so that both come from one 2-byte load a k row; the
 // epilogue undoes the order. For k slice kk the thread (g, t) needs k rows
 // 2t, 2t+1 (registers 0 and 1) and 2t+8, 2t+9 (2 and 3) of the slice.
@@ -425,7 +329,7 @@ __device__ __forceinline__ void widen_a(uint32_t (&a)[kPK / 16][4],
     for (int q = 0; q < 4; ++q) {
       const int r = kk * 16 + 2 * t + (q & 1) + 8 * (q >> 1);
       pair[q] = *reinterpret_cast<const uint16_t*>(
-          w8 + r * kPBox + (((chunk ^ (r & 7)) << 4) | byte));
+          w8 + r * kPN + (((chunk ^ (r & 7)) << 4) | byte));
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -438,45 +342,42 @@ __device__ __forceinline__ void widen_a(uint32_t (&a)[kPK / 16][4],
 }
 
 // Prefill with bf16 x, out^T = W^T x^T: CTA (n tile, m tile) computes a
-// 64 C (n) x 128 (m) tile of out^T. Warpgroup w owns columns [64 w, 64 w +
+// 128 (n) x 128 (m) tile of out^T. Warpgroup w owns columns [64 w, 64 w +
 // 64) of the n tile as wgmma's M side, with the weights widened straight
 // from the stage's int8 tile into A fragments (widen_a; no bf16 copy in
 // shared memory); x's 128 rows are the N side, read K-major from the TMA
 // tile. Thread 0 fills the ring of stages, each refill as soon as every warp
-// has released the stage (no producer warp: with one, C = 4 would put five
-// warps on one of the SM's four schedulers and cap a thread near 96
-// registers). Each warpgroup widens a step, issues its products, waits for
-// them and releases the stage; its 64 sums and one step's fragments fit the
-// 128 registers that C * 128 threads and 4 / C CTAs an SM leave, and the
-// other warpgroups' products keep the tensor cores busy meanwhile.
-template <typename TO, int C, int kSkip = 0>
-__global__ void __launch_bounds__(C * 128, 4 / C)
+// has released the stage. Each warpgroup widens a step, issues its
+// products, waits for them and releases the stage; its 64 sums and one
+// step's fragments fit the 128 registers that two CTAs of 256 threads an SM
+// leave, and the SM's other three warpgroups' products keep the tensor
+// cores busy meanwhile. tools/torch_int8_probe.py measured this tile against
+// one of 256 columns (four warpgroups, one CTA an SM, half the x tile's
+// trips through L2): 0.0660 against 0.0760 ms at m=3500, 1024x4096.
+template <typename TO, int kSkip = 0>
+__global__ void __launch_bounds__(kPC * 128, 2)
 int8_wgmma(const __grid_constant__ CUtensorMap xm,
            const __grid_constant__ CUtensorMap wm,
            const float* __restrict__ scale, const float* __restrict__ bias,
            TO* __restrict__ out, int m, int k, int n) {
   unsigned char* smem = aligned_smem();
-  using L = PrefillLayout<C>;
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kPBars);
   uint64_t* empty = full + kPStages;
-  const int n0 = blockIdx.x * L::kN, m0 = blockIdx.y * kPM;
+  const int n0 = blockIdx.x * kPN, m0 = blockIdx.y * kPM;
   const int steps = (k + kPK - 1) / kPK;
   const int wg = sm90::warpgroup();
 
-  // Step i's x tile and weight boxes into stage i % kPStages.
+  // Step i's x and weight tiles into stage i % kPStages.
   auto load = [&](int i) {
     const int s = i % kPStages;
-    sm90::mbar_arrive_expect_tx(&full[s], kPXBytes + L::kWBytes);
+    sm90::mbar_arrive_expect_tx(&full[s], kPXBytes + kPWBytes);
     sm90::tma_load_2d(smem + s * kPXBytes, &xm, &full[s], i * kPK, m0);
-#pragma unroll
-    for (int b = 0; b < L::kN / kPBox; ++b)
-      sm90::tma_load_2d(smem + L::kW + s * L::kWBytes + b * kPK * kPBox, &wm,
-                        &full[s], n0 + b * kPBox, i * kPK);
+    sm90::tma_load_2d(smem + kPW + s * kPWBytes, &wm, &full[s], n0, i * kPK);
   };
   if (threadIdx.x == 0) {
     for (int s = 0; s < kPStages; ++s) {
       sm90::mbar_init(&full[s], 1);
-      sm90::mbar_init(&empty[s], C * 4);  // one arrive a warp
+      sm90::mbar_init(&empty[s], kPC * 4);  // one arrive a warp
     }
     sm90::fence_barrier_init();
     sm90::prefetch_map(&xm);
@@ -487,9 +388,7 @@ int8_wgmma(const __grid_constant__ CUtensorMap xm,
 
   const int tid = threadIdx.x % 128;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  // This warp's 16 columns: in box wg / 2 of the weight tile.
-  const unsigned char* box = smem + L::kW + (wg * 64 / kPBox) * kPK * kPBox;
-  const int n_box = (wg * 64) % kPBox + warp * 16;
+  const int n_base = wg * 64 + warp * 16;  // this warp's 16 columns
   float acc[kPM / 8][4];  // out^T: columns 2g (+1) of the warp x the m tile
 #pragma unroll
   for (int j = 0; j < kPM / 8; ++j)
@@ -509,7 +408,7 @@ int8_wgmma(const __grid_constant__ CUtensorMap xm,
     }
     sm90::mbar_wait(&full[s], (i / kPStages) & 1);
     if (!(kSkip & 1) || i == 0)
-      widen_a(a, box + s * L::kWBytes, n_box, g, t);
+      widen_a(a, smem + kPW + s * kPWBytes, n_base, g, t);
     const unsigned char* xs = smem + s * kPXBytes;
     sm90::wgmma_fence();
     if constexpr (!(kSkip & 2)) {
@@ -528,10 +427,8 @@ int8_wgmma(const __grid_constant__ CUtensorMap xm,
 #pragma unroll
   for (int j = 0; j < kPM / 8; ++j) sm90::fence_regs(acc[j]);
 
-  // acc[j][i]: column col + (i >> 1), row m0 + 8j + 2t + (i & 1). n is a
-  // multiple of 128, so the pair lies wholly inside or past n.
-  const int col = n0 + wg * 64 + warp * 16 + 2 * g;
-  if (col >= n) return;
+  // acc[j][i]: column col + (i >> 1), row m0 + 8j + 2t + (i & 1).
+  const int col = n0 + n_base + 2 * g;
   const float s0 = scale[col], s1 = scale[col + 1];
   const float b0 = bias ? bias[col] : 0.f, b1 = bias ? bias[col + 1] : 0.f;
 #pragma unroll
@@ -695,7 +592,7 @@ int8_tiled(const TX* __restrict__ x, const int8_t* __restrict__ w,
 }
 
 // The design a call runs, fixed here and nowhere else: the weight stream
-// for up to 8 rows of x and k up to 16 chunks of 1024; above that the TMA +
+// for up to 8 rows of x and k up to 8 chunks of 1024; above that the TMA +
 // wgmma tile for bf16 x, the mma.sync tile for f32 x (the f32 engine's
 // prefills).
 Design design(int m, int k, int x_bf16) {
@@ -719,68 +616,69 @@ cudaError_t sm_count(int* sms) {
   return err;
 }
 
-// Once per instance: the shared memory beyond 48 KB and (int8_stream)
-// clusters of up to 16 CTAs.
+// Above 48 KB a kernel needs the opt-in; set it once per instance.
 template <typename F>
-cudaError_t opt_in(F* kernel, size_t bytes, bool cluster16, bool* done) {
+cudaError_t opt_in(F* kernel, size_t bytes, bool* done) {
   if (*done) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
+  const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
-  if (err == cudaSuccess && cluster16)
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err == cudaSuccess) *done = true;
   return err;
 }
 
-// The most shared memory int8_stream asks for: a full ring, x's rows of the
-// largest chunk, a partial.
-constexpr size_t kStreamSmemMax =
-    kBarBytes + size_t(kRing) * kStageBytes +
-    sizeof(float) * (size_t(kMaxChunk) * kMaxRows + size_t(kMaxRows) * 128);
+// The splits of k for int8_stream: they double, up to kMaxSplits, while a
+// chunk exceeds kMaxChunk, and further while the card holds fewer than
+// kCtasPerSm CTAs an SM and a split keeps at least kMinChunk rows. On 132
+// SMs: 1024x1024 -> 8 chunks of 128, 1024x512 -> 8 of 128, 1024x4096 -> 8
+// of 128, 4096x1024 -> 8 of 512, the head's 1024x32768 -> 2 of 512. No
+// chunk is empty (each has >= kMinChunk rows).
+int k_split(int k, int n, int sms) {
+  const int tiles = n / kCols;
+  int splits = 1;
+  while (splits < kMaxSplits &&
+         ((k + splits - 1) / splits > kMaxChunk ||
+          (splits * tiles < kCtasPerSm * sms &&
+           k / (2 * splits) >= kMinChunk)))
+    splits *= 2;
+  return splits;
+}
 
-// What tools/torch_int8_probe.py varies: the stream's plan (width and
-// splits, 0 for stream_plan's), its math (0 = loads only), and the wgmma
-// tile's kSkip. A call from the model passes none.
+// What tools/torch_int8_probe.py varies: the stream's k splits (0 for
+// k_split's), its math (0 = loads only), and the wgmma tile's kSkip. A
+// call from the model passes none.
 struct Probe {
-  int width = 0, splits = 0, tma = 1, math = 1, skip = 0, wg = 0;
+  int splits = 0, math = 1, skip = 0;
 };
 
 template <typename TX, typename TO, int M>
 cudaError_t launch_stream(const void* x, const int8_t* w, const float* scale,
                           const float* bias, void* out, int m, int k, int n,
                           int sms, const Probe& probe, cudaStream_t stream) {
-  const StreamPlan p =
-      probe.width ? finish_plan(M, k, probe.width, probe.splits)
-                  : stream_plan(M, k, n, sms);
-  CUtensorMap map;
-  cudaError_t err = sm90::encode_2d_map(
-      &map, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, k, n, n, p.width, p.stage_rows,
-      CU_TENSOR_MAP_SWIZZLE_NONE);
-  if (err != cudaSuccess) return err;
-  static bool done = false;
-  err = opt_in(int8_stream<TX, TO, M>, kStreamSmemMax, true, &done);
-  if (err != cudaSuccess) return err;
+  const int splits = probe.splits ? probe.splits : k_split(k, n, sms);
+  const int chunk = (k + splits - 1) / splits;
+  // The staging area (x's chunk, then the warps' sums) and the partial.
+  const size_t stage = size_t(M) * size_t(chunk > kWarps * kCols
+                                               ? chunk
+                                               : kWarps * kCols);
   cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(n / p.width, p.splits);
+  config.gridDim = dim3(n / kCols, splits);
   config.blockDim = dim3(kThreads);
-  config.dynamicSmemBytes = p.smem;
+  config.dynamicSmemBytes = sizeof(float) * (stage + size_t(M) * kCols);
   config.stream = stream;
   cudaLaunchAttribute cluster;
   cluster.id = cudaLaunchAttributeClusterDimension;
   cluster.val.clusterDim.x = 1;
-  cluster.val.clusterDim.y = unsigned(p.splits);
+  cluster.val.clusterDim.y = unsigned(splits);
   cluster.val.clusterDim.z = 1;
   config.attrs = &cluster;
   config.numAttrs = 1;
-  err = cudaLaunchKernelEx(&config, int8_stream<TX, TO, M>, map,
-                           static_cast<const TX*>(x), scale, bias,
-                           static_cast<TO*>(out), m, k, n, p.width, p.chunk,
-                           p.stage_rows, p.ring, w, probe.tma, probe.math);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &config, int8_stream<TX, TO, M>, static_cast<const TX*>(x), w, scale,
+      bias, static_cast<TO*>(out), m, k, n, chunk, splits, probe.math);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template <typename TO, int C, int kSkip = 0>
+template <typename TO, int kSkip = 0>
 cudaError_t launch_wgmma(const void* x, const int8_t* w, const float* scale,
                          const float* bias, void* out, int m, int k, int n,
                          cudaStream_t stream) {
@@ -790,15 +688,14 @@ cudaError_t launch_wgmma(const void* x, const int8_t* w, const float* scale,
       CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != cudaSuccess) return err;
   err = sm90::encode_2d_map(&wm, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, k, n, n,
-                            kPBox, kPK, CU_TENSOR_MAP_SWIZZLE_128B);
+                            kPN, kPK, CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != cudaSuccess) return err;
   static bool done = false;
-  constexpr int kN = PrefillLayout<C>::kN;
-  constexpr size_t bytes = PrefillLayout<C>::kBytes + 1024;
-  err = opt_in(int8_wgmma<TO, C, kSkip>, bytes, false, &done);
+  constexpr size_t bytes = kPBytes + 1024;
+  err = opt_in(int8_wgmma<TO, kSkip>, bytes, &done);
   if (err != cudaSuccess) return err;
-  int8_wgmma<TO, C, kSkip><<<dim3((n + kN - 1) / kN, (m + kPM - 1) / kPM),
-                             C * 128, bytes, stream>>>(
+  int8_wgmma<TO, kSkip><<<dim3(n / kPN, (m + kPM - 1) / kPM), kPC * 128,
+                          bytes, stream>>>(
       xm, wm, scale, bias, static_cast<TO*>(out), m, k, n);
   return cudaGetLastError();
 }
@@ -810,20 +707,13 @@ cudaError_t launch(const void* x, const int8_t* w, const float* scale,
   const Design d = design(m, k, std::is_same<TX, bf16>::value);
   if (d == kWgmma) {
     if constexpr (std::is_same<TX, bf16>::value && std::is_same<TO, bf16>::value) {
-      constexpr int kOther = kPrefillWarpgroups == 2 ? 4 : 2;
-      if (probe.wg == kOther)
-        return launch_wgmma<TO, kOther>(x, w, scale, bias, out, m, k, n,
-                                        stream);
       if (probe.skip == 1)
-        return launch_wgmma<TO, kPrefillWarpgroups, 1>(x, w, scale, bias, out,
-                                                       m, k, n, stream);
+        return launch_wgmma<TO, 1>(x, w, scale, bias, out, m, k, n, stream);
       if (probe.skip == 2)
-        return launch_wgmma<TO, kPrefillWarpgroups, 2>(x, w, scale, bias, out,
-                                                       m, k, n, stream);
+        return launch_wgmma<TO, 2>(x, w, scale, bias, out, m, k, n, stream);
     }
     if constexpr (std::is_same<TX, bf16>::value)
-      return launch_wgmma<TO, kPrefillWarpgroups>(x, w, scale, bias, out, m,
-                                                  k, n, stream);
+      return launch_wgmma<TO>(x, w, scale, bias, out, m, k, n, stream);
   }
   if (d != kStream) {
     int8_tiled<TX, TO><<<dim3(n / kBN, (m + kBM - 1) / kBM), kThreads, 0,
@@ -885,44 +775,30 @@ extern "C" int int8_matmul_launch(const void* x, const void* w_q,
 }
 
 // int8_matmul_launch with what tools/torch_int8_probe.py varies (Probe
-// above): the weight stream's width and splits (0 = its own plan; a width
-// of 16, 32, 64 or 128 columns and 1 to 16 splits otherwise), its loader
-// (1 = TMA, 0 = cp.async), its math, and the wgmma tile's skip and
-// warpgroups (0 = its own; bf16 x and out only).
+// above): the weight stream's k splits (0 = k_split's; a power of two up to
+// kMaxSplits that keeps each split within kMaxChunk and at kMinChunk rows
+// or more) and its math, and the wgmma tile's skip (bf16 x and out
+// only).
 extern "C" int int8_matmul_probe(const void* x, const void* w_q,
                                  const void* scale, const void* bias,
                                  void* out, int m, int k, int n, int x_bf16,
-                                 int out_bf16, int width, int splits, int tma,
-                                 int math, int skip, int wg, void* stream) {
-  if (bad_geometry(m, k, n) || (width && (n % width || width % 16 ||
-                                          width > 128 || splits < 1 ||
-                                          splits > kMaxSplits ||
-                                          (k + splits - 1) / splits >
-                                              kMaxChunk)))
+                                 int out_bf16, int splits, int math, int skip,
+                                 void* stream) {
+  if (bad_geometry(m, k, n) ||
+      (splits && (splits > kMaxSplits || (splits & (splits - 1)) ||
+                  (k + splits - 1) / splits > kMaxChunk ||
+                  (splits > 1 && k / splits < kMinChunk))))
     return int(cudaErrorInvalidValue);
   Probe probe;
-  probe.width = width, probe.splits = splits, probe.tma = tma;
-  probe.math = math;
-  probe.skip = skip, probe.wg = wg;
+  probe.splits = splits, probe.math = math, probe.skip = skip;
   return int(dispatch(x, w_q, scale, bias, out, m, k, n, x_bf16, out_bf16,
                       probe, stream));
 }
 
 // Which kernel a call of this geometry runs: 0 = mma.sync tile (f32 x
-// prefill), 1 = TMA weight stream (m <= 8), 2 = TMA + wgmma tile (bf16 x
+// prefill), 1 = weight stream (m <= 8), 2 = TMA + wgmma tile (bf16 x
 // prefill); -1 outside the kernels' geometry.
 extern "C" int int8_design(int m, int k, int n, int x_bf16) {
   if (bad_geometry(m, k, n)) return -1;
   return int(design(m, k, x_bf16));
-}
-
-// The CTAs the weight stream launches at (k, n) on the current device (its
-// column tiles times its k splits), or -1 when the stream does not take k
-// or n.
-extern "C" int int8_stream_ctas(int k, int n) {
-  if (bad_geometry(1, k, n) || design(1, k, 1) != kStream) return -1;
-  int sms = 0;
-  if (sm_count(&sms) != cudaSuccess) return -1;
-  const StreamPlan p = stream_plan(1, k, n, sms);
-  return (n / p.width) * p.splits;
 }

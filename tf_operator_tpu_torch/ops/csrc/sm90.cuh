@@ -123,26 +123,6 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// ---- cp.async into an mbarrier ring -----------------------------------
-
-// Copy 16 bytes from device memory to shared memory; with `valid` false
-// the 16 bytes are zero-filled and nothing is read.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-// Arrive on `bar` once this thread's earlier cp.async copies have landed
-// (the arrive counts toward the barrier's init count).
-__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
 // ---- wgmma ------------------------------------------------------------
 
 // Descriptor of a bf16 operand in shared memory laid out as TMA writes a

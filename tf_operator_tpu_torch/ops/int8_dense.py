@@ -22,7 +22,7 @@ the kernel does the same in its epilogue, one rounding for each.
   CUDA tensor it launches the hand-written kernel (``csrc/int8_dense.cu``,
   which says what bounds it and how it is built) or raises: there is no
   quiet fallback. The library's ``int8_design(m, k, n, x_bf16)`` says
-  which of its kernels a call runs (the TMA weight stream for m <= 8, the
+  which of its kernels a call runs (the weight stream for m <= 8, the
   TMA + wgmma tile for bf16 x prefill, the mma.sync tile for f32 x
   prefill). ``int8_matmul_supported`` is the kernel's geometry
   rule; JAX's padding of m to 16 and its XLA branch for n or k off the
@@ -132,8 +132,6 @@ def _library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         lib.int8_design.argtypes = [ctypes.c_int] * 4
         lib.int8_design.restype = ctypes.c_int
-        lib.int8_stream_ctas.argtypes = [ctypes.c_int] * 2
-        lib.int8_stream_ctas.restype = ctypes.c_int
         _lib = lib
     return _lib
 

@@ -16,8 +16,8 @@ phase 12's own line in chip_smoke's output. Faults:
 - ``vs_in_l``: the kv8 paged kernel adds the value-scaled probabilities
   into the softmax's normaliser ``l`` (out = sum p vs v8 / sum p vs);
 - ``drop_split``: the int8 matmul kernel's weight stream (``int8_stream``,
-  every decode call) leaves the last k-split's partial sums out of its
-  cluster reduction through distributed shared memory.
+  every decode call with k split) leaves the last k-split's partial sums
+  out of its cluster reduction through distributed shared memory.
 
 Needs a CUDA card and nvcc.
 """
@@ -43,9 +43,8 @@ FAULTS = {
     ),
     "drop_split": (
         CSRC + "int8_dense.cu",
-        "      s += cluster.map_shared_rank(part, sp)[i * width + c];\n",
-        "      if (sp + 1 < splits)\n"
-        "        s += cluster.map_shared_rank(part, sp)[i * width + c];\n",
+        "for (int sp = 0; sp < splits; ++sp)",
+        "for (int sp = 0; sp < splits - 1; ++sp)",
     ),
 }
 

@@ -9,15 +9,13 @@ no model call turns, at chip_smoke.py's shapes and weights (bf16 x, a bias,
 bf16 out, the head's f32; distinct weights a call, CUDA-graph replay):
 
 - decode (m=4), for each (k, n) of ``chip_smoke.INT8_CALLS``: the weight
-  stream with its own plan, the same plan with the math left out (the
-  loads only: if it runs no faster, the ALUs do not set the pace), the
-  same plan loading by per-thread cp.async instead of TMA, and
-  every other plan of width 16 to 128 columns and 1 to 16 splits that the
-  kernel takes; then the launch floor (m=4, k=64, n=128: one CTA, 8 KB);
+  stream with its own k split, the same with the math left out (the loads
+  only: if it runs no faster, the ALUs do not set the pace), and every
+  other split the kernel takes; then the launch floor (m=4, k=64, n=128:
+  one CTA, 8 KB);
 - prefill (m=3500, 1024x4096): the TMA + wgmma tile as it is, with the
-  weights widened only for its first k step (and reused), with no
-  products, and with 2 and 4 warpgroups (128 or 256 weight columns a
-  CTA).
+  weights widened only for its first k step (and reused), and with no
+  products.
 
 Prints the card line and one JSON line per measurement. Needs a CUDA card
 and nvcc.
@@ -44,14 +42,13 @@ from tf_operator_tpu_torch.testing import INT8_TOL, excess  # noqa: E402
 def _probe_fn():
     lib = i8._library()
     fn = lib.int8_matmul_probe
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def call(fn, x, w_q, scale, out_dtype, bias, width=0, splits=0, tma=1,
-         math=1, skip=0, wg=0):
+def call(fn, x, w_q, scale, out_dtype, bias, splits=0, math=1, skip=0):
     """One launch through int8_matmul_probe; returns the output."""
     m, k = x.shape
     n = w_q.shape[1]
@@ -59,21 +56,18 @@ def call(fn, x, w_q, scale, out_dtype, bias, width=0, splits=0, tma=1,
     err = fn(x.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
              bias.data_ptr(), out.data_ptr(), m, k, n,
              int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-             width, splits, tma, math, skip, wg,
+             splits, math, skip,
              torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"int8_matmul_probe: CUDA error {err}")
     return out
 
 
-def plans(k, n):
-    """Every (width, splits) the weight stream takes at (k, n)."""
-    for width in (128, 64, 32, 16):
-        for splits in (1, 2, 4, 8, 16):
-            chunk = -(-k // splits)
-            if n % width or chunk > 1024 or (splits > 1 and k // splits < 64):
-                continue
-            yield width, splits
+def splits_taken(k):
+    """Every k split the weight stream takes at k."""
+    for splits in (1, 2, 4, 8):
+        if -(-k // splits) <= 1024 and (splits == 1 or k // splits >= 64):
+            yield splits
 
 
 def decode(fn):
@@ -96,11 +90,9 @@ def decode(fn):
 
         lines["plan"] = timed()
         lines["plan_loads_only"] = timed(math=0)
-        lines["plan_cp_async"] = timed(tma=0)
-        for width, splits in plans(k, n):
-            lines[f"w{width}_s{splits}"] = timed(width=width, splits=splits)
+        for splits in splits_taken(k):
+            lines[f"s{splits}"] = timed(splits=splits)
         print(json.dumps(dict(m=cs.DECODE_M, k=k, n=n, bound_ms=by_bytes,
-                              ctas=i8._library().int8_stream_ctas(k, n),
                               variants=lines)), flush=True)
     fwd = cs.device_ms(lambda i: [call(fn, *c) for c in forward], 10)
     print(json.dumps(dict(forward_calls=len(forward), forward_ms=fwd)),
@@ -124,8 +116,7 @@ def prefill(fn):
     _, by_ops = cs.int8_bounds_ms(cs.PREFILL_M, k, n)
     out = {}
     for name, kw in (("as_is", {}), ("widen_first_step_only", dict(skip=1)),
-                     ("no_products", dict(skip=2)), ("2_warpgroups", dict(wg=2)),
-                     ("4_warpgroups", dict(wg=4))):
+                     ("no_products", dict(skip=2))):
         out[name] = cs.device_ms(lambda i: call(
             fn, x, *weights[i % 8][:2], torch.bfloat16, weights[i % 8][2],
             **kw), 16)
