@@ -91,13 +91,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
     why): the logits of every lane after every prefill and step within
     LOGIT_TOL, kv_debug equal, a prefix share and a copy-on-write, 8 kv8
     launches per decode forward and 41 int8 matmul launches per forward
-    (decode step or prefill);
+    (decode step or prefill), none of them on the wgmma tile (f32 x);
 13. engine, bf16, int8_decode + kv_int8 through the kernels, the tree
     quantized from the bf16-rounded weights as bench.py's int8 legs do:
     decode tokens/s, prefill seconds and the last 8 steps under
-    torch.profiler, beside phase 7's bf16 numbers;
-14. the ``kernels`` JSON line (each kernel with its design), the card
-    line, and last the result line.
+    torch.profiler, beside phase 7's bf16 numbers; 41 int8 matmul
+    launches per forward, a prefill's 40 projections on the wgmma tile;
+14. the ``kernels`` JSON line (each kernel with its design; B5 as two
+    entries, the weight stream and the wgmma tile, each with its own
+    launches), the card line, and last the result line.
 
 It exits non-zero without a result when torch sees no CUDA device.
 """
@@ -153,15 +155,17 @@ FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 INT8_DESIGNS = {0: "mma.sync tile", 1: "stream", 2: "tma-wgmma"}
 # The TMA instances ptxas compiles in each library, none of which may
 # spill: the three flash kernels at Dh 64 and 128; B5's wgmma tile (out
-# bf16/f32, and the two bf16 variants tools/torch_int8_probe.py times).
-TMA_INSTANCES = {"flash_attention": 6, "int8_dense": 4}
+# bf16 and f32).
+TMA_INSTANCES = {"flash_attention": 6, "int8_dense": 2}
 # The kernels line's design of the other kernels (their source notes).
 OTHER_DESIGNS = {
     "paged_attend": "split block walk + merge launch, f32 on CUDA cores",
     "paged_attend_kv8": "split block walk + merge launch, f32 on CUDA cores",
-    "int8_matmul": "m <= 8: weight stream, cluster split-k, f32 FMAs; "
-                   "m > 8 bf16 x: TMA + wgmma tile, weights widened into "
-                   "register A fragments; f32 x: mma.sync tile"}
+    "int8_matmul": "m <= 8 (decode): weight stream, cluster split-k, f32 "
+                   "FMAs",
+    "int8_matmul_prefill": "m > 8, bf16 x (prefill): TMA + wgmma tile, "
+                           "out^T = W^T x^T, weights widened into register "
+                           "A fragments"}
 # f32 trainer, kernels vs plain attention. Step-0 gradients, leaf by leaf,
 # each element within GRAD_RTOL |plain| + GRAD_ATOL x the rms of its row
 # of plain (the rule of tf_operator_tpu_torch.testing): the attention
@@ -446,14 +450,15 @@ def int8_designs(i8) -> None:
                                  f"want {want}")
 
 
-def int8_check_phase(i8) -> float:
+def int8_check_phase(i8) -> dict:
     """The int8 matmul kernel against its plain version at every shape of
     the slice, each element by the shared rule; returns the largest
-    max-abs error."""
+    max-abs error of each design (int8_design's name)."""
     from tf_operator_tpu_torch.testing import INT8_TOL, excess
 
     int8_designs(i8)
-    err = 0.0
+    lib = i8._library()
+    err = dict.fromkeys(INT8_DESIGNS.values(), 0.0)
     for (k, n), rows in INT8_ROWS.items():
         ((w_q, scale, bias),) = int8_weights(k, n, 1, seed=k + n)
         gen = torch.Generator(device="cuda").manual_seed(k * n)
@@ -466,7 +471,10 @@ def int8_check_phase(i8) -> float:
             torch.cuda.synchronize()
             want = i8.int8_matmul_reference(x, w_q, scale, out_dtype, b)
             share = excess(got, want, *INT8_TOL[out_dtype])
-            err = max(err, (got.float() - want.float()).abs().max().item())
+            design = INT8_DESIGNS[lib.int8_design(
+                m, k, n, int(x_dtype == torch.bfloat16))]
+            err[design] = max(err[design], (got.float() - want.float())
+                              .abs().max().item())
             worst[out_dtype] = max(worst[out_dtype], share)
             if not share <= 1:
                 raise AssertionError(
@@ -507,12 +515,12 @@ def head_dtype(n: int) -> torch.dtype:
     return torch.float32 if n == 32768 else torch.bfloat16
 
 
-def int8_timing_phase(i8, card: str) -> dict:
+def int8_timing_phase(i8, card: str) -> tuple[dict, dict]:
     """The int8 matmul kernel's device times: at m=4 for each (k, n), for
     one decode forward's 41 calls (``int8_forward_case``), and at m=3500
     for (1024, 4096); beside its bounds, the plain version's time and
-    torch.mm on bf16 copies. Returns the decode forward's numbers for the
-    kernels line."""
+    torch.mm on bf16 copies. Returns the decode forward's numbers and the
+    m=3500 call's (the wgmma tile), for the kernels line."""
     weights, xs, forward = int8_forward_case()
     gen = torch.Generator(device="cuda").manual_seed(13)
 
@@ -556,15 +564,19 @@ def int8_timing_phase(i8, card: str) -> dict:
         x, *ws[i % len(ws)]), 3)
     wb = [(w_q.float() * scale).bfloat16() for w_q, scale, _, _ in ws]
     pre_lib = device_ms(lambda i: torch.mm(x, wb[i % len(wb)]), 16)
-    _, pre_ops = int8_bounds_ms(PREFILL_M, k, n)
+    pre_bytes, pre_ops = int8_bounds_ms(PREFILL_M, k, n, 2)
+    pre_bound_by = "bytes" if pre_bytes >= pre_ops else "operations"
     print(f"int8_matmul m={PREFILL_M} k={k} n={n}: kernel_ms {pre_ms:.6f} "
-          f"bound_ms {pre_ops:.6f} (operations at 989 TFLOP/s) plain_ms "
-          f"{pre_plain:.6f} library_ms {pre_lib:.6f} (torch.mm bf16)",
-          flush=True)
+          f"bound_ms {max(pre_bytes, pre_ops):.6f} ({pre_bound_by}; "
+          f"operations at 989 TFLOP/s) plain_ms {pre_plain:.6f} library_ms "
+          f"{pre_lib:.6f} (torch.mm bf16)", flush=True)
     del weights, forward, wb
     torch.cuda.empty_cache()
-    return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=bound_by, library_ms=library_ms)
+    return (dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bms,
+                 bound_by=bound_by, library_ms=library_ms),
+            dict(ms=pre_ms, plain_ms=pre_plain,
+                 bound_ms=max(pre_bytes, pre_ops), bound_by=pre_bound_by,
+                 library_ms=pre_lib))
 
 
 def plain_int8_apply(x, w_q, scale, out_dtype=torch.float32, bias=None):
@@ -598,7 +610,8 @@ def int8_engine_phases(pa, base, params, prompts, card, bf16_ref) -> dict:
     calls = 5 * cfg.n_layers + 1
     want = dict(paged_attend=0,
                 paged_attend_kv8=cfg.n_layers * kern["forwards"],
-                int8_matmul=calls * (kern["forwards"] + kern["prefills"]))
+                int8_matmul=calls * (kern["forwards"] + kern["prefills"]),
+                int8_wgmma=0)  # f32 x: the prefills take the mma.sync tile
     if kern["launches"] != want:
         raise AssertionError(f"int8 + kv8 f32 launches {kern['launches']}, "
                              f"want {want} (the plain run launches none)")
@@ -608,9 +621,12 @@ def int8_engine_phases(pa, base, params, prompts, card, bf16_ref) -> dict:
     q16 = quantize_decode_params(bf16_rounded(params))
     bf16 = engine_run(pa, replace(cfg, dtype=torch.bfloat16), q16, "kernel",
                       prompts, profile=PROFILE_STEPS)
+    # A prefill's projections take the wgmma tile, its head (the last row)
+    # and every decode step the weight stream.
     want = dict(paged_attend=0,
                 paged_attend_kv8=cfg.n_layers * bf16["forwards"],
-                int8_matmul=calls * (bf16["forwards"] + bf16["prefills"]))
+                int8_matmul=calls * (bf16["forwards"] + bf16["prefills"]),
+                int8_wgmma=(calls - 1) * bf16["prefills"])
     if bf16["launches"] != want:
         raise AssertionError(f"int8 + kv8 bf16 launches {bf16['launches']}, "
                              f"want {want}")
@@ -936,7 +952,7 @@ def engine_run(pa, cfg, params, attend, prompts, profile: int = 0) -> dict:
     engine = ContinuousEngine(cfg, params, len(prompts), kv_block=BLK,
                               kv_attend=attend)
     budget = FIRST_STEPS + LATER_STEPS
-    pa.launches = pa.kv8_launches = i8.launches = 0
+    pa.launches = pa.kv8_launches = i8.launches = i8.wgmma_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     slots = [engine.join(p, num_steps=budget) for p in prompts]
@@ -964,7 +980,7 @@ def engine_run(pa, cfg, params, attend, prompts, profile: int = 0) -> dict:
         raise AssertionError("non-finite logits")
     launches = dict(paged_attend=pa.launches,
                     paged_attend_kv8=pa.kv8_launches,
-                    int8_matmul=i8.launches)
+                    int8_matmul=i8.launches, int8_wgmma=i8.wgmma_launches)
     # Prefills: one per prompt, and the shared-prefix join's suffix (the
     # exact re-join reuses the registered prompt and prefills nothing).
     out = dict(tokens=np.stack(tokens), kv=engine.kv_debug(),
@@ -1014,7 +1030,7 @@ def lockstep_phase(pa, cfg, params, prompts) -> dict:
                          kv_attend="kernel")
     b = ContinuousEngine(cfg, params, len(prompts), kv_block=BLK,
                          kv_attend="gather")
-    pa.launches = pa.kv8_launches = i8.launches = 0
+    pa.launches = pa.kv8_launches = i8.launches = i8.wgmma_launches = 0
     worst, flips, decisions = 0.0, 0, 0
 
     def compare(slots):
@@ -1066,7 +1082,8 @@ def lockstep_phase(pa, cfg, params, prompts) -> dict:
         raise AssertionError("int8 + kv8 kernels and plain versions disagree")
     return dict(launches=dict(paged_attend=pa.launches,
                               paged_attend_kv8=pa.kv8_launches,
-                              int8_matmul=i8.launches),
+                              int8_matmul=i8.launches,
+                              int8_wgmma=i8.wgmma_launches),
                 forwards=a.steps_total,
                 prefills=len(prompts) + 1)
 
@@ -1302,7 +1319,7 @@ def main() -> int:
     f32 = {attend: engine_run(pa, base, params, attend, prompts)
            for attend in ("kernel", "gather")}
     want = dict(paged_attend=LAYERS * f32["kernel"]["forwards"],
-                paged_attend_kv8=0, int8_matmul=0)
+                paged_attend_kv8=0, int8_matmul=0, int8_wgmma=0)
     if (f32["kernel"]["launches"] != want
             or any(f32["gather"]["launches"].values())):
         raise AssertionError(
@@ -1332,7 +1349,7 @@ def main() -> int:
     del lm_params
 
     int8_err = int8_check_phase(i8)
-    int8 = int8_timing_phase(i8, card)
+    int8, int8_prefill = int8_timing_phase(i8, card)
     kv8 = kernel_phase(pa, kv8=True)
     int8_launches = int8_engine_phases(pa, base, params, prompts, card, bf16)
 
@@ -1352,8 +1369,16 @@ def main() -> int:
     ), dict(
         name="int8_matmul", route="cuda", source=src + "int8_dense.cu",
         replaces="tf_operator_tpu/ops/int8_dense.py:47",
-        launches=int8_launches["int8_matmul"], max_abs_err=int8_err, **int8,
+        launches=int8_launches["int8_matmul"] - int8_launches["int8_wgmma"],
+        max_abs_err=int8_err["stream"], **int8,
         design=OTHER_DESIGNS["int8_matmul"],
+    ), dict(
+        name="int8_matmul_prefill", route="cuda",
+        source=src + "int8_dense.cu",
+        replaces="tf_operator_tpu/ops/int8_dense.py:47",
+        launches=int8_launches["int8_wgmma"],
+        max_abs_err=int8_err["tma-wgmma"], **int8_prefill,
+        design=OTHER_DESIGNS["int8_matmul_prefill"],
     )] + [dict(
         name=name, route="cuda", source=src + "flash_attention.cu",
         replaces=f"tf_operator_tpu/ops/flash_attention.py:{line}",

@@ -117,8 +117,8 @@ ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__0b2a7c31_13_int8_dens
 ptxas info    : Function properties for _ZN46_GLOBAL__N__0b2a7c31_13_int8_dense_cu_a1b2c3d410int8_tiledIffEEvPKT_PKaPKfS7_PT0_iii
     0 bytes stack frame, 16 bytes spill stores, 16 bytes spill loads
 ptxas info    : Used 128 registers, used 1 barriers
-ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__0b2a7c31_13_int8_dense_cu_a1b2c3d410int8_wgmmaIfLi0EEEv14CUtensorMap_stS1_PKfS3_PT_iii' for 'sm_90a'
-ptxas info    : Function properties for _ZN46_GLOBAL__N__0b2a7c31_13_int8_dense_cu_a1b2c3d410int8_wgmmaIfLi0EEEv14CUtensorMap_stS1_PKfS3_PT_iii
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__0b2a7c31_13_int8_dense_cu_a1b2c3d410int8_wgmmaIfEEv14CUtensorMap_stS1_PKfS3_PT_iii' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N__0b2a7c31_13_int8_dense_cu_a1b2c3d410int8_wgmmaIfEEv14CUtensorMap_stS1_PKfS3_PT_iii
     8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
 ptxas info    : Used 168 registers, used 2 barriers
 """
@@ -133,7 +133,7 @@ def test_chip_smoke_reads_the_tma_instances_spills_from_ptxas():
 
     assert chip_smoke.ws_spills(PTXAS_LOG) == {
         "flash_dkv_ws<128>": 96, "flash_fwd_ws<64>": 0, "flash_dq_ws<64>": 0,
-        "int8_wgmma<fLi0E>": 8}
+        "int8_wgmma<f>": 8}
 
 
 def test_each_planted_fault_names_text_that_occurs_once():
@@ -151,3 +151,22 @@ def test_each_planted_fault_names_text_that_occurs_once():
             code = f.read()
         assert code.count(text) == 1, fault
         assert faulty != text, fault
+
+
+def test_each_probe_variant_names_text_that_occurs_once():
+    """tools/torch_int8_probe.py times copies of the int8 kernel source
+    with one piece of text changed; each variant's text must still occur
+    exactly once there, and no variant may leave the source as it is."""
+    import importlib.util
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "torch_int8_probe", os.path.join(root, "tools", "torch_int8_probe.py"))
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    with open(_build.source_path("int8_dense")) as f:
+        code = f.read()
+    assert set(probe.DECODE_VARIANTS + probe.PREFILL_VARIANTS) == set(
+        probe.VARIANTS)
+    for name in probe.VARIANTS:
+        assert probe.variant_source(name) != code, name

@@ -185,10 +185,10 @@ def test_int8_apply_takes_leading_dims_and_any_n(out_dtype):
     x = x.reshape(2, 3, 64)
     want = jax_int8_apply(jnp.asarray(x), jnp.asarray(wq), jnp.asarray(scale),
                           out_dtype=getattr(jnp, out_dtype))
-    before = i8.launches
+    before = (i8.launches, i8.wgmma_launches)
     got = i8.int8_apply(torch.from_numpy(x), torch.from_numpy(wq),
                         torch.from_numpy(scale), getattr(torch, out_dtype))
-    assert i8.launches == before
+    assert (i8.launches, i8.wgmma_launches) == before
     assert got.shape == (2, 3, 72)
     if out_dtype == "float32":
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,

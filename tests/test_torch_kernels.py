@@ -168,11 +168,14 @@ def test_int8_kernel_matches_plain_version(cuda, x_dtype, out_dtype, case):
     w[:, 5] = 0  # an all-zero column
     w_q, scale = i8.quantize_int8(w)
     bias = torch.randn((n,), generator=gen, device=cuda)
+    wgmma = i8._library().int8_design(
+        m, k, n, int(x_dtype == torch.bfloat16)) == i8.WGMMA
     for b in (None, bias):
-        before = i8.launches
+        before = (i8.launches, i8.wgmma_launches)
         got = i8.int8_matmul(x, w_q, scale, out_dtype, b)
         torch.cuda.synchronize()
-        assert i8.launches == before + 1
+        assert (i8.launches, i8.wgmma_launches) == (
+            before[0] + 1, before[1] + wgmma)
         want = i8.int8_matmul_reference(x, w_q, scale, out_dtype, b)
         assert excess(got, want, *INT8_TOL[out_dtype]) <= 1
 

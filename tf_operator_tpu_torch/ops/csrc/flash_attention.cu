@@ -549,14 +549,6 @@ struct DqLayout {
   static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages);
 };
 
-// The dynamic shared memory, its start rounded up to 1024 bytes (the
-// launch asks for 1024 bytes more than the layout).
-__device__ __forceinline__ unsigned char* aligned_smem() {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const uint32_t off = sm90::smem_u32(smem_raw);
-  return smem_raw + ((1024 - (off & 1023)) & 1023);
-}
-
 // Start the TMA loads of rows [row0, row0 + rows) of head (b, h) into a
 // tile (one box per 64 columns); their bytes complete on `bar`.
 template <int D>
@@ -691,7 +683,7 @@ flash_fwd_ws(const __grid_constant__ CUtensorMap qm,
              int causal) {
   using L = FwdLayout<D>;
   constexpr int S = L::kStages;
-  unsigned char* smem = aligned_smem();
+  unsigned char* smem = sm90::aligned_smem();
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + S;
@@ -900,7 +892,7 @@ flash_dkv_ws(const __grid_constant__ CUtensorMap qm,
   constexpr int C = dkv_consumers<D>();
   constexpr int S = L::kStages;
   constexpr int kQTile = L::kQRows;
-  unsigned char* smem = aligned_smem();
+  unsigned char* smem = sm90::aligned_smem();
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + S;
@@ -1089,7 +1081,7 @@ flash_dq_ws(const __grid_constant__ CUtensorMap qm,
   constexpr int C = dq_consumers<D>();
   constexpr int S = L::kStages;
   constexpr int kN = kDqKeys;
-  unsigned char* smem = aligned_smem();
+  unsigned char* smem = sm90::aligned_smem();
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + S;
@@ -1492,16 +1484,6 @@ flash_dkv(const T* __restrict__ q, const T* __restrict__ k,
   store_rows<T, D>(dv, dv_acc, b, h, heads, tk, key_g, 1.f, 1.f, t);
 }
 
-// Above 48 KB a kernel needs the opt-in; set it once per instance.
-template <typename F>
-cudaError_t opt_in(F* kernel, size_t bytes, bool* done) {
-  if (*done) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
-  if (err == cudaSuccess) *done = true;
-  return err;
-}
-
 View view(const long long* s) { return View{s[0], s[1], s[2]}; }
 
 // The design each instance runs, fixed here and nowhere else: the
@@ -1546,7 +1528,7 @@ cudaError_t fwd_ws(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return err;
   static bool done = false;
   constexpr size_t bytes = FwdLayout<D>::kBytes + 1024;
-  err = opt_in(flash_fwd_ws<D>, bytes, &done);
+  err = sm90::opt_in(flash_fwd_ws<D>, bytes, &done);
   if (err != cudaSuccess) return err;
   const dim3 grid((tq + kBlock - 1) / kBlock, h, b);
   flash_fwd_ws<D><<<grid, ws_threads(kFwdConsumers), bytes, stream>>>(
@@ -1569,7 +1551,7 @@ cudaError_t dkv_ws(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   static bool done = false;
   constexpr size_t bytes = L::kBytes + 1024;
-  err = opt_in(flash_dkv_ws<D>, bytes, &done);
+  err = sm90::opt_in(flash_dkv_ws<D>, bytes, &done);
   if (err != cudaSuccess) return err;
   const dim3 grid((tk + L::kKeys - 1) / L::kKeys, h, b);
   flash_dkv_ws<D><<<grid, ws_threads(dkv_consumers<D>()), bytes, stream>>>(
@@ -1592,7 +1574,7 @@ cudaError_t dq_ws(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   static bool done = false;
   constexpr size_t bytes = L::kBytes + 1024;
-  err = opt_in(flash_dq_ws<D>, bytes, &done);
+  err = sm90::opt_in(flash_dq_ws<D>, bytes, &done);
   if (err != cudaSuccess) return err;
   const dim3 grid((tq + L::kRows - 1) / L::kRows, h, b);
   flash_dq_ws<D><<<grid, ws_threads(dq_consumers<D>()), bytes, stream>>>(
@@ -1612,7 +1594,7 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
   } else {
     static bool done = false;
     constexpr size_t bytes = fwd_smem<T, D>();
-    cudaError_t err = opt_in(flash_fwd<T, D>, bytes, &done);
+    cudaError_t err = sm90::opt_in(flash_fwd<T, D>, bytes, &done);
     if (err != cudaSuccess) return err;
     const dim3 grid((tq + kTile - 1) / kTile, h, b);
     flash_fwd<T, D><<<grid, kThreads, bytes, stream>>>(
@@ -1635,7 +1617,7 @@ cudaError_t dq_launch(const void* q, const void* k, const void* v,
   } else {
     static bool done = false;
     constexpr size_t bytes = dq_smem<T, D>();
-    cudaError_t err = opt_in(flash_dq<T, D>, bytes, &done);
+    cudaError_t err = sm90::opt_in(flash_dq<T, D>, bytes, &done);
     if (err != cudaSuccess) return err;
     const dim3 grid((tq + kTile - 1) / kTile, h, b);
     flash_dq<T, D><<<grid, kThreads, bytes, stream>>>(
@@ -1659,7 +1641,7 @@ cudaError_t dkv_launch(const void* q, const void* k, const void* v,
   } else {
     static bool done = false;
     constexpr size_t bytes = dkv_smem<T, D>();
-    cudaError_t err = opt_in(flash_dkv<T, D>, bytes, &done);
+    cudaError_t err = sm90::opt_in(flash_dkv<T, D>, bytes, &done);
     if (err != cudaSuccess) return err;
     const dim3 grid((tk + kTile - 1) / kTile, h, b);
     flash_dkv<T, D><<<grid, kThreads, bytes, stream>>>(

@@ -27,11 +27,11 @@
 // fixes which of three kernels a call runs; int8_design reports it.
 //
 // m <= 8 (decode, and the head's last prompt row): int8_stream, the design
-// of the port's first B5, kept because it measured fastest
-// (tools/torch_int8_probe.py): it reads each weight byte once per call,
-// not once per row of x. CTA (tile, split) owns 128 columns and a chunk of
-// k rows; its x chunk, rounded to bf16, sits in shared memory as f32. Each
-// thread walks rows of its 16 columns with one 16-byte load a row (8
+// of the port's first B5, kept because it measured fastest (PERF.md): it
+// reads each weight byte once per call, not once per row of x. CTA (tile,
+// split) owns 128 columns and a chunk of k rows; its x chunk, rounded to
+// bf16, sits in shared memory as f32. Each thread walks rows of its 16
+// columns with one 16-byte load a row (8
 // threads cover a 128-byte row segment, so a warp reads 4 whole lines), up
 // to eight loads in flight (the next four rows load while the last four
 // are summed), widens the int8 values to f32 with a byte permute and one
@@ -48,20 +48,20 @@
 // by TMA into an mbarrier ring, over enough CTAs to fill every SM, measured
 // slower at every decode shape of the slice, with any tiling, and its
 // loads alone took as long as this kernel's whole call (PERF.md).
-// m > 8 with bf16 x (prefill): int8_wgmma, warp-specialised as the flash
-// kernels are. One thread issues TMA copies of the x tile (128 rows x 64
-// k) and the int8 weight tile (64 k x 128 columns), both with the 128-byte
-// swizzle, into a ring of four stages. The product runs transposed, out^T =
-// W^T x^T: each of two warpgroups owns 64
-// weight columns as wgmma's M side and widens them from the int8 tile
-// straight into register A fragments (exact: |w| <= 127 fits bf16), and x's
-// 128 rows are the N side, read K-major from shared memory (wgmma
-// m64n128k16, f32 sums). The bf16 weights never pass through shared memory,
-// which the products' operand reads and the copies already keep busy. Two
-// warpgroups a CTA and two CTAs an SM, so that one CTA's ring fill and
-// epilogue run under the other's products. Scale, bias and cast in the
-// epilogue.
-// m > 8 with f32 x, and k beyond 16 chunks of 1024: int8_tiled, a plain
+// m > 8 with bf16 x (prefill; also k past 8 chunks of 1024): int8_wgmma,
+// warp-specialised as the flash kernels are. One thread issues TMA copies
+// of the x tile (128 rows x 64 k) and the int8 weight tile (64 k x 128
+// columns), both with the 128-byte swizzle, into a ring of four stages.
+// The product runs transposed, out^T = W^T x^T: each of two warpgroups owns
+// 64 weight columns as wgmma's M side and widens them from the int8 tile
+// straight into register A fragments (exact: |w| <= 127 fits bf16), and
+// x's 128 rows are the N side, read K-major from shared memory (wgmma
+// m64n128k16, f32 sums). The bf16 weights never pass through shared
+// memory, which the products' operand reads and the copies already keep
+// busy. Two warpgroups a CTA and two CTAs an SM, so that one CTA's ring
+// fill and epilogue run under the other's products. Scale, bias and cast in
+// the epilogue.
+// The same with f32 x (the f32 engine's prefills): int8_tiled, a plain
 // tensor-core tile: a CTA of 4 warps owns a 128x64 output tile and walks k
 // in steps of 32, the x tile rounded to bf16 and the int8 tile upcast into
 // shared memory, read by ldmatrix into mma.sync.m16n8k16 fragments.
@@ -197,7 +197,7 @@ __global__ void __launch_bounds__(kThreads)
 int8_stream(const TX* __restrict__ x, const int8_t* __restrict__ w,
             const float* __restrict__ scale, const float* __restrict__ bias,
             TO* __restrict__ out, int m, int k, int n, int chunk,
-            int splits, int math) {
+            int splits) {
   extern __shared__ __align__(16) float smem[];
   const int tile = blockIdx.x, split = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -225,15 +225,10 @@ int8_stream(const TX* __restrict__ x, const int8_t* __restrict__ w,
   for (int r0 = rl; r0 < rows; r0 += kUnroll * kRowLanes) {
     uint4 next[kUnroll];
     load_rows(next, wp, n, r0 + kUnroll * kRowLanes, rows);
-    if (math) {
 #pragma unroll
-      for (int i = 0; i < kUnroll; ++i)
-        if (r0 + i * kRowLanes < rows)
-          fma_row<M>(acc, u[i], xs, chunk, r0 + i * kRowLanes);
-    } else {  // tools/torch_int8_probe.py: the loads without the math
-#pragma unroll
-      for (int i = 0; i < kUnroll; ++i) acc[0][0] += __uint_as_float(u[i].x);
-    }
+    for (int i = 0; i < kUnroll; ++i)
+      if (r0 + i * kRowLanes < rows)
+        fma_row<M>(acc, u[i], xs, chunk, r0 + i * kRowLanes);
 #pragma unroll
     for (int i = 0; i < kUnroll; ++i) u[i] = next[i];
   }
@@ -301,22 +296,14 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
          (uint32_t(__bfloat16_as_ushort(__float2bfloat16(hi))) << 16);
 }
 
-// The dynamic shared memory of int8_wgmma, its start rounded up to 1024
-// bytes (the launch asks for 1024 bytes more than the layout), as the 128-byte
-// swizzle needs.
-__device__ __forceinline__ unsigned char* aligned_smem() {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const uint32_t off = sm90::smem_u32(smem_raw);
-  return smem_raw + ((1024 - (off & 1023)) & 1023);
-}
-
 // This thread's A fragments of one k step: the int8 weight tile (kPK k rows
 // x kPN columns, TMA's 128-byte swizzle: 16-byte chunk j of row r at j ^
 // (r % 8)) transposed, widened to bf16, for the 16 columns n_base + [0, 16)
-// that its warp owns. Fragment row g stands for column n_base + 2 g and row g + 8
-// for n_base + 2 g + 1, so that both come from one 2-byte load a k row; the
-// epilogue undoes the order. For k slice kk the thread (g, t) needs k rows
-// 2t, 2t+1 (registers 0 and 1) and 2t+8, 2t+9 (2 and 3) of the slice.
+// that its warp owns. Fragment row g stands for column n_base + 2 g and row
+// g + 8 for n_base + 2 g + 1, so that both come from one 2-byte load a k
+// row; the epilogue undoes the order. For k slice kk the thread (g, t)
+// needs k rows 2t, 2t+1 (registers 0 and 1) and 2t+8, 2t+9 (2 and 3) of the
+// slice.
 __device__ __forceinline__ void widen_a(uint32_t (&a)[kPK / 16][4],
                                         const unsigned char* w8, int n_base,
                                         int g, int t) {
@@ -351,16 +338,17 @@ __device__ __forceinline__ void widen_a(uint32_t (&a)[kPK / 16][4],
 // products, waits for them and releases the stage; its 64 sums and one
 // step's fragments fit the 128 registers that two CTAs of 256 threads an SM
 // leave, and the SM's other three warpgroups' products keep the tensor
-// cores busy meanwhile. tools/torch_int8_probe.py measured this tile against
-// one of 256 columns (four warpgroups, one CTA an SM, half the x tile's
-// trips through L2): 0.0660 against 0.0760 ms at m=3500, 1024x4096.
-template <typename TO, int kSkip = 0>
+// cores busy meanwhile. This tile measured faster than one of 256 columns
+// (four warpgroups, one CTA an SM, half the x tile's trips through L2):
+// 0.0660 against 0.0760 ms at m=3500, 1024x4096, and than issuing each 16-k
+// slice's product as soon as that slice was widened (PERF.md).
+template <typename TO>
 __global__ void __launch_bounds__(kPC * 128, 2)
 int8_wgmma(const __grid_constant__ CUtensorMap xm,
            const __grid_constant__ CUtensorMap wm,
            const float* __restrict__ scale, const float* __restrict__ bias,
            TO* __restrict__ out, int m, int k, int n) {
-  unsigned char* smem = aligned_smem();
+  unsigned char* smem = sm90::aligned_smem();
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + kPBars);
   uint64_t* empty = full + kPStages;
   const int n0 = blockIdx.x * kPN, m0 = blockIdx.y * kPM;
@@ -395,8 +383,6 @@ int8_wgmma(const __grid_constant__ CUtensorMap xm,
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
 
-  // kSkip (tools/torch_int8_probe.py only): bit 0 widens only step 0's
-  // weights and reuses them, bit 1 issues no products.
   uint32_t a[kPK / 16][4];
   for (int i = 0; i < steps; ++i) {
     const int s = i % kPStages;
@@ -407,16 +393,13 @@ int8_wgmma(const __grid_constant__ CUtensorMap xm,
       load(i - 1 + kPStages);
     }
     sm90::mbar_wait(&full[s], (i / kPStages) & 1);
-    if (!(kSkip & 1) || i == 0)
-      widen_a(a, smem + kPW + s * kPWBytes, n_base, g, t);
+    widen_a(a, smem + kPW + s * kPWBytes, n_base, g, t);
     const unsigned char* xs = smem + s * kPXBytes;
     sm90::wgmma_fence();
-    if constexpr (!(kSkip & 2)) {
 #pragma unroll
-      for (int kk = 0; kk < kPK / 16; ++kk)
-        sm90::wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&acc[0][0]),
-                            a[kk], sm90::desc_sw128(xs + kk * 32));
-    }
+    for (int kk = 0; kk < kPK / 16; ++kk)
+      sm90::wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&acc[0][0]),
+                          a[kk], sm90::desc_sw128(xs + kk * 32));
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
 #pragma unroll
@@ -616,16 +599,6 @@ cudaError_t sm_count(int* sms) {
   return err;
 }
 
-// Above 48 KB a kernel needs the opt-in; set it once per instance.
-template <typename F>
-cudaError_t opt_in(F* kernel, size_t bytes, bool* done) {
-  if (*done) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
-  if (err == cudaSuccess) *done = true;
-  return err;
-}
-
 // The splits of k for int8_stream: they double, up to kMaxSplits, while a
 // chunk exceeds kMaxChunk, and further while the card holds fewer than
 // kCtasPerSm CTAs an SM and a split keeps at least kMinChunk rows. On 132
@@ -643,18 +616,11 @@ int k_split(int k, int n, int sms) {
   return splits;
 }
 
-// What tools/torch_int8_probe.py varies: the stream's k splits (0 for
-// k_split's), its math (0 = loads only), and the wgmma tile's kSkip. A
-// call from the model passes none.
-struct Probe {
-  int splits = 0, math = 1, skip = 0;
-};
-
 template <typename TX, typename TO, int M>
 cudaError_t launch_stream(const void* x, const int8_t* w, const float* scale,
                           const float* bias, void* out, int m, int k, int n,
-                          int sms, const Probe& probe, cudaStream_t stream) {
-  const int splits = probe.splits ? probe.splits : k_split(k, n, sms);
+                          int sms, cudaStream_t stream) {
+  const int splits = k_split(k, n, sms);
   const int chunk = (k + splits - 1) / splits;
   // The staging area (x's chunk, then the warps' sums) and the partial.
   const size_t stage = size_t(M) * size_t(chunk > kWarps * kCols
@@ -674,11 +640,11 @@ cudaError_t launch_stream(const void* x, const int8_t* w, const float* scale,
   config.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
       &config, int8_stream<TX, TO, M>, static_cast<const TX*>(x), w, scale,
-      bias, static_cast<TO*>(out), m, k, n, chunk, splits, probe.math);
+      bias, static_cast<TO*>(out), m, k, n, chunk, splits);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template <typename TO, int kSkip = 0>
+template <typename TO>
 cudaError_t launch_wgmma(const void* x, const int8_t* w, const float* scale,
                          const float* bias, void* out, int m, int k, int n,
                          cudaStream_t stream) {
@@ -692,10 +658,10 @@ cudaError_t launch_wgmma(const void* x, const int8_t* w, const float* scale,
   if (err != cudaSuccess) return err;
   static bool done = false;
   constexpr size_t bytes = kPBytes + 1024;
-  err = opt_in(int8_wgmma<TO, kSkip>, bytes, &done);
+  err = sm90::opt_in(int8_wgmma<TO>, bytes, &done);
   if (err != cudaSuccess) return err;
-  int8_wgmma<TO, kSkip><<<dim3(n / kPN, (m + kPM - 1) / kPM), kPC * 128,
-                          bytes, stream>>>(
+  int8_wgmma<TO><<<dim3(n / kPN, (m + kPM - 1) / kPM), kPC * 128, bytes,
+                   stream>>>(
       xm, wm, scale, bias, static_cast<TO*>(out), m, k, n);
   return cudaGetLastError();
 }
@@ -703,16 +669,10 @@ cudaError_t launch_wgmma(const void* x, const int8_t* w, const float* scale,
 template <typename TX, typename TO>
 cudaError_t launch(const void* x, const int8_t* w, const float* scale,
                    const float* bias, void* out, int m, int k, int n,
-                   const Probe& probe, cudaStream_t stream) {
+                   cudaStream_t stream) {
   const Design d = design(m, k, std::is_same<TX, bf16>::value);
-  if (d == kWgmma) {
-    if constexpr (std::is_same<TX, bf16>::value && std::is_same<TO, bf16>::value) {
-      if (probe.skip == 1)
-        return launch_wgmma<TO, 1>(x, w, scale, bias, out, m, k, n, stream);
-      if (probe.skip == 2)
-        return launch_wgmma<TO, 2>(x, w, scale, bias, out, m, k, n, stream);
-    }
-    if constexpr (std::is_same<TX, bf16>::value)
+  if constexpr (std::is_same<TX, bf16>::value) {
+    if (d == kWgmma)
       return launch_wgmma<TO>(x, w, scale, bias, out, m, k, n, stream);
   }
   if (d != kStream) {
@@ -726,32 +686,31 @@ cudaError_t launch(const void* x, const int8_t* w, const float* scale,
   if (err != cudaSuccess) return err;
   if (m == 1)
     return launch_stream<TX, TO, 1>(x, w, scale, bias, out, m, k, n, sms,
-                                    probe, stream);
+                                    stream);
   if (m == 2)
     return launch_stream<TX, TO, 2>(x, w, scale, bias, out, m, k, n, sms,
-                                    probe, stream);
+                                    stream);
   if (m <= 4)
     return launch_stream<TX, TO, 4>(x, w, scale, bias, out, m, k, n, sms,
-                                    probe, stream);
+                                    stream);
   return launch_stream<TX, TO, 8>(x, w, scale, bias, out, m, k, n, sms,
-                                  probe, stream);
+                                  stream);
 }
 
 cudaError_t dispatch(const void* x, const void* w_q, const void* scale,
                      const void* bias, void* out, int m, int k, int n,
-                     int x_bf16, int out_bf16, const Probe& probe,
-                     void* stream) {
+                     int x_bf16, int out_bf16, void* stream) {
   const int8_t* w = static_cast<const int8_t*>(w_q);
   const float* s = static_cast<const float*>(scale);
   const float* bs = static_cast<const float*>(bias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (x_bf16)
     return out_bf16
-               ? launch<bf16, bf16>(x, w, s, bs, out, m, k, n, probe, st)
-               : launch<bf16, float>(x, w, s, bs, out, m, k, n, probe, st);
+               ? launch<bf16, bf16>(x, w, s, bs, out, m, k, n, st)
+               : launch<bf16, float>(x, w, s, bs, out, m, k, n, st);
   return out_bf16
-             ? launch<float, bf16>(x, w, s, bs, out, m, k, n, probe, st)
-             : launch<float, float>(x, w, s, bs, out, m, k, n, probe, st);
+             ? launch<float, bf16>(x, w, s, bs, out, m, k, n, st)
+             : launch<float, float>(x, w, s, bs, out, m, k, n, st);
 }
 
 bool bad_geometry(int m, int k, int n) {
@@ -771,28 +730,7 @@ extern "C" int int8_matmul_launch(const void* x, const void* w_q,
                                   int out_bf16, void* stream) {
   if (bad_geometry(m, k, n)) return int(cudaErrorInvalidValue);
   return int(dispatch(x, w_q, scale, bias, out, m, k, n, x_bf16, out_bf16,
-                      Probe(), stream));
-}
-
-// int8_matmul_launch with what tools/torch_int8_probe.py varies (Probe
-// above): the weight stream's k splits (0 = k_split's; a power of two up to
-// kMaxSplits that keeps each split within kMaxChunk and at kMinChunk rows
-// or more) and its math, and the wgmma tile's skip (bf16 x and out
-// only).
-extern "C" int int8_matmul_probe(const void* x, const void* w_q,
-                                 const void* scale, const void* bias,
-                                 void* out, int m, int k, int n, int x_bf16,
-                                 int out_bf16, int splits, int math, int skip,
-                                 void* stream) {
-  if (bad_geometry(m, k, n) ||
-      (splits && (splits > kMaxSplits || (splits & (splits - 1)) ||
-                  (k + splits - 1) / splits > kMaxChunk ||
-                  (splits > 1 && k / splits < kMinChunk))))
-    return int(cudaErrorInvalidValue);
-  Probe probe;
-  probe.splits = splits, probe.math = math, probe.skip = skip;
-  return int(dispatch(x, w_q, scale, bias, out, m, k, n, x_bf16, out_bf16,
-                      probe, stream));
+                      stream));
 }
 
 // Which kernel a call of this geometry runs: 0 = mma.sync tile (f32 x

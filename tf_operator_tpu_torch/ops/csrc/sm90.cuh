@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks in raw PTX: shared-memory addresses,
 // mbarriers, TMA tile loads, wgmma descriptors and products, named
-// barriers, and the host-side encoder of TMA maps.
+// barriers, and on the host the shared-memory opt-in and the encoder of
+// TMA maps.
 // Included by the kernel sources under csrc/; ops/_build.py hashes every
 // header there with each source, so an edit here rebuilds them.
 //
@@ -17,6 +18,15 @@ namespace sm90 {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The dynamic shared memory, its start rounded up to 1024 bytes, as the
+// 128-byte swizzle needs (the launch asks for 1024 bytes more than the
+// layout).
+__device__ __forceinline__ unsigned char* aligned_smem() {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t off = smem_u32(smem_raw);
+  return smem_raw + ((1024 - (off & 1023)) & 1023);
 }
 
 // ---- mbarriers --------------------------------------------------------
@@ -332,7 +342,18 @@ __device__ __forceinline__ void named_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-// ---- host: TMA maps ---------------------------------------------------
+// ---- host: launches and TMA maps ---------------------------------------
+
+// Above 48 KB of dynamic shared memory a kernel needs the opt-in; set it
+// once per instance (`done` is the instance's own flag).
+template <typename F>
+cudaError_t opt_in(F* kernel, size_t bytes, bool* done) {
+  if (*done) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  if (err == cudaSuccess) *done = true;
+  return err;
+}
 
 using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
 

@@ -28,7 +28,8 @@ the kernel does the same in its epilogue, one rounding for each.
   rule; JAX's padding of m to 16 and its XLA branch for n or k off the
   128-lane tiling are TPU facts and do not carry over.
 - ``int8_apply`` takes leading dimensions: x ``[..., k]`` -> ``[..., n]``.
-- ``launches`` counts kernel launches, and nothing else.
+- ``launches`` counts kernel launches, and nothing else;
+  ``wgmma_launches`` counts those of them that ran the TMA + wgmma tile.
 """
 
 from __future__ import annotations
@@ -46,8 +47,12 @@ K_ALIGN = 32
 X_DTYPES = (torch.float32, torch.bfloat16)
 OUT_DTYPES = (torch.float32, torch.bfloat16)
 
-# Kernel launches since the last reset (set it to 0 to reset).
+# Kernel launches since the last reset (set them to 0 to reset): all of
+# them, and those that ran the TMA + wgmma tile (bf16 x prefill).
 launches = 0
+wgmma_launches = 0
+# int8_design's answer for the TMA + wgmma tile.
+WGMMA = 2
 
 _lib: ctypes.CDLL | None = None
 
@@ -137,7 +142,7 @@ def _library() -> ctypes.CDLL:
 
 
 def _launch(x, w_q, scale, out_dtype, bias) -> torch.Tensor:
-    global launches
+    global launches, wgmma_launches
     m, k = x.shape
     n = w_q.shape[1]
     if not int8_matmul_supported(m, k, n, x.dtype, out_dtype):
@@ -157,16 +162,19 @@ def _launch(x, w_q, scale, out_dtype, bias) -> torch.Tensor:
             raise ValueError("int8_matmul kernel: inputs must be contiguous "
                              "and 16-byte aligned")
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    lib = _library()
+    x_bf16 = int(x.dtype == torch.bfloat16)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _library().int8_matmul_launch(
+        err = lib.int8_matmul_launch(
             x.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(), m, k,
-            n, int(x.dtype == torch.bfloat16),
-            int(out_dtype == torch.bfloat16), stream,
+            n, x_bf16, int(out_dtype == torch.bfloat16), stream,
         )
     if err:
         raise RuntimeError(f"int8_matmul kernel launch failed: CUDA error "
                            f"{err}")
     launches += 1
+    if lib.int8_design(m, k, n, x_bf16) == WGMMA:
+        wgmma_launches += 1
     return out

@@ -56,9 +56,10 @@ from tf_operator_tpu_torch.testing import (  # noqa: E402
 )
 
 
-def _load(module, source: str, entries) -> ctypes.CDLL:
+def _load(module, source: str, entries, borrowed=()) -> ctypes.CDLL:
     """Build ``source`` into the build directory and give its entry points
-    the argument types of the checkout's build of ``module``."""
+    the argument types of the checkout's build of ``module``. An entry of
+    ``borrowed`` that an older source lacks is the checkout's own."""
     name = module.__name__.rsplit(".", 1)[-1]
     lib_path = os.path.join(_build.BUILD_DIR, f"{name}_baseline.so")
     # -I: a baseline kept outside csrc/ still finds the checkout's headers.
@@ -70,6 +71,9 @@ def _load(module, source: str, entries) -> ctypes.CDLL:
     for entry in entries:
         getattr(lib, entry).argtypes = getattr(current, entry).argtypes
         getattr(lib, entry).restype = ctypes.c_int
+    for entry in borrowed:
+        if not hasattr(lib, entry):
+            setattr(lib, entry, getattr(current, entry))
     return lib
 
 
@@ -157,6 +161,9 @@ def int8():
 
 
 KERNELS = {"paged": paged, "flash": flash, "int8": int8}
+# Entries the wrapper reads beside the launch, which an earlier source may
+# lack: int8_design only sorts the wrapper's launch counts.
+BORROWED = {"int8": ("int8_design",)}
 
 
 def main() -> int:
@@ -173,7 +180,7 @@ def main() -> int:
     module, entries, turn = KERNELS[args.kernel]()
     libs = {"current": module._library(),
             "baseline": _load(module, os.path.abspath(args.baseline),
-                              entries)}
+                              entries, BORROWED.get(args.kernel, ()))}
     for name in ("baseline", "current", "current", "baseline"):
         module._lib = libs[name]  # the wrappers launch through this library
         print(json.dumps(dict(build=name, **turn())), flush=True)
