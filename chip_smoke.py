@@ -11,14 +11,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
    register and spill lines; it fails unless it finds every TMA instance
    (``TMA_INSTANCES``: the six flash ones, B5's wgmma tile) and none
    spills;
-3. paged kernel vs plain: the paged-attention kernel against its plain
+3. paged kernel vs plain: the paged-attention kernel's design (one
+   launch a call: a thread-block cluster of S CTAs a lane and KV head,
+   ``paged_attention.SPLITS``, walks the lane's blocks strided and merges
+   through distributed shared memory; S printed) against its plain
    PyTorch version at the serving slice's shapes (4 lanes at
    3500/1750/875/437 tokens, H=16, KV=4, Dh=64, blk=128, S=4096), for
    t=1, t=3 and a lane at index 0 with an all-zero table, in bf16 and
-   f32; then its device time (CUDA-graph replay) beside its eager time
-   per call, the plain version's device time, the byte bound and, as a
-   yardstick the port never calls, scaled_dot_product_attention over the
-   pre-gathered K/V;
+   f32, each a single launch; then its device time (CUDA-graph replay)
+   beside its eager time per call, the plain version's device time, the
+   byte bound and, as a yardstick the port never calls,
+   scaled_dot_product_attention over the pre-gathered K/V;
 4. flash kernels vs plain: the design each instance runs (bf16 and f32,
    Dh 32, 64 and 128; flash_design: "tma-wgmma", the warp-specialised TMA
    + wgmma kernels of bf16 B1 and B3, or "mma.sync"), then the forward (O
@@ -79,9 +82,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
     (m=3500), the plain version's time and, as a yardstick the port never
     calls, torch.mm of bf16 x against bf16 copies of the weights (twice
     the weight bytes);
-11. paged kv8 vs plain (the kv_int8 variant of the paged kernel): at
-    phase 3's shapes, t=1, t=3 and a lane at index 0, q in bf16 and f32,
-    int8 pools with f32 scale pools; then its device time, the byte
+11. paged kv8 vs plain (the kv_int8 variant of the paged kernel, the
+    same one-launch cluster design, S printed): at phase 3's shapes, t=1,
+    t=3 and a lane at index 0, q in bf16 and f32, int8 pools with f32
+    scale pools, each a single launch; then its device time, the byte
     bound, the plain version's time and SDPA over pre-gathered,
     dequantized K/V;
 12. engine, f32, int8_decode + kv_int8: phase 6's schedule with weights
@@ -159,8 +163,14 @@ INT8_DESIGNS = {0: "mma.sync tile", 1: "stream", 2: "tma-wgmma"}
 TMA_INSTANCES = {"flash_attention": 6, "int8_dense": 2}
 # The kernels line's design of the other kernels (their source notes).
 OTHER_DESIGNS = {
-    "paged_attend": "split block walk + merge launch, f32 on CUDA cores",
-    "paged_attend_kv8": "split block walk + merge launch, f32 on CUDA cores",
+    "paged_attend": "one launch: a cluster of S={S} CTAs a lane and KV "
+                    "head walks its blocks strided (cp.async double "
+                    "buffer), merged through distributed shared memory in "
+                    "split order, f32 on CUDA cores",
+    "paged_attend_kv8": "one launch: a cluster of S={S} CTAs a lane and KV "
+                        "head walks its int8 blocks strided (cp.async "
+                        "double buffer), merged through distributed shared "
+                        "memory in split order, f32 on CUDA cores",
     "int8_matmul": "m <= 8 (decode): weight stream, cluster split-k, f32 "
                    "FMAs",
     "int8_matmul_prefill": "m > 8, bf16 x (prefill): TMA + wgmma tile, "
@@ -337,14 +347,19 @@ def kernel_phase(pa, kv8=False) -> dict:
     """The paged kernel (its kv8 variant with ``kv8``) against its plain
     version, then timed."""
     label = "paged_attend_kv8" if kv8 else "paged_attend"
+    print(f"{label} design: " + OTHER_DESIGNS[label].format(S=pa.SPLITS),
+          flush=True)
     err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         for name, lanes, t in (("t=1", LANES, 1), ("t=3", LANES, 3),
                                ("inactive lane", [3500, 0, 875, 437], 1)):
             q, pools, table, index = attend_case(lanes, t, dtype, t, kv8)
             pk, pv, scales = pools[0]
+            before = pa.launches + pa.kv8_launches
             got = pa.paged_attend(q, pk, pv, table, index, **scales)
             torch.cuda.synchronize()
+            if pa.launches + pa.kv8_launches != before + 1:
+                raise AssertionError(f"{label} {name}: not one launch")
             want = pa.paged_attend_reference(q, pk, pv, table, index,
                                              **scales)
             if got.shape != want.shape or not torch.isfinite(got).all():
@@ -379,7 +394,8 @@ def kernel_phase(pa, kv8=False) -> dict:
         for pk, pv, sc in pools]
     library_ms = sdpa_ms(q, dense, table, index)
     bms, bound_by = bound_ms(LANES, 1, torch.bfloat16, kv8)
-    print(f"{label} bf16 t=1: kernel_ms {kernel_ms:.6f} (eager, host "
+    print(f"{label} bf16 t=1, S={pa.SPLITS}: kernel_ms {kernel_ms:.6f} "
+          f"(eager, host "
           f"included: {eager_ms:.6f}) plain_ms {plain_ms:.6f} library_ms "
           f"{library_ms:.6f} (SDPA over pre-gathered bf16 K/V) bound_us "
           f"{bms * 1e3:.4f} ({bound_by})", flush=True)
@@ -1359,13 +1375,13 @@ def main() -> int:
         name="paged_attend", route="cuda", source=src + "paged_attention.cu",
         replaces="tf_operator_tpu/ops/paged_attention.py:126",
         launches=bf16["launches"]["paged_attend"], **kernel,
-        design=OTHER_DESIGNS["paged_attend"],
+        design=OTHER_DESIGNS["paged_attend"].format(S=pa.SPLITS),
     ), dict(
         name="paged_attend_kv8", route="cuda",
         source=src + "paged_attention.cu",
         replaces="tf_operator_tpu/ops/paged_attention.py:126",
         launches=int8_launches["paged_attend_kv8"], **kv8,
-        design=OTHER_DESIGNS["paged_attend_kv8"],
+        design=OTHER_DESIGNS["paged_attend_kv8"].format(S=pa.SPLITS),
     ), dict(
         name="int8_matmul", route="cuda", source=src + "int8_dense.cu",
         replaces="tf_operator_tpu/ops/int8_dense.py:47",

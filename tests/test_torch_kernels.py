@@ -70,9 +70,20 @@ CASES = [
     # Dh=128 at the row limit (t*g = 32), blocks smaller than a tile.
     dict(t=4, kv=2, g=8, dh=128, blk=32, table_len=16,
          spread=[100, 511 - 4, 0], seed=3),
-    # A 65536-token table: 512 entries, two per split (MAX_SPLITS).
+    # A 65536-token table: 512 entries, 64 blocks a CTA at S = 8.
     dict(t=2, kv=1, g=4, dh=64, blk=128, table_len=512,
          spread=[40000, 3], seed=4),
+    # Lanes with fewer blocks than the cluster has CTAs (3 and 1 of 8), so
+    # some CTAs own nothing and still take part in the merge.
+    dict(t=1, kv=2, g=4, dh=64, blk=128, table_len=8,
+         spread=[300, 0, 900], seed=5),
+    # Block counts that are not multiples of S (14 and 21 blocks of 16).
+    dict(t=1, kv=2, g=2, dh=32, blk=16, table_len=32,
+         spread=[213, 335], seed=6),
+    # The shared-memory edge: t*g = 32 at Dh 128 (f32: 64-column tiles, two
+    # a 128-row block).
+    dict(t=8, kv=1, g=4, dh=128, blk=128, table_len=24,
+         spread=[2900, 130, 0], seed=7),
 ]
 
 
@@ -89,6 +100,40 @@ def test_paged_kernel_matches_plain_version(cuda, dtype, case):
     want = pa.paged_attend_reference(*args)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv8", [False, True], ids=["bf16", "kv8"])
+def test_paged_kernel_gives_the_same_bits_twice(cuda, kv8):
+    """No atomics: the cluster merge sums the splits in a fixed order, so
+    two runs at the slice's shapes give the same bits."""
+    args = _case(cuda, torch.bfloat16, t=1, kv=4, g=4, dh=64, blk=128,
+                 table_len=32, spread=[3500, 1750, 875, 437], seed=8)
+    scales = {}
+    if kv8:
+        args, scales = _kv8(args)
+    runs = [pa.paged_attend(*args, **scales) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(*runs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 3, 16])
+@pytest.mark.parametrize("case", CASES[-3:], ids=lambda c: (
+    f"t{c['t']}g{c['g']}dh{c['dh']}blk{c['blk']}"))
+def test_paged_kernel_matches_plain_version_at_other_cluster_sizes(
+        cuda, monkeypatch, splits, case):
+    """The split rule at other cluster sizes S, 16 (non-portable) included:
+    the kernel reads S from the launch, so any S from 1 to 16 agrees."""
+    monkeypatch.setattr(pa, "SPLITS", splits)
+    for kv8 in (False, True):
+        args, scales = _case(cuda, torch.float32, **case), {}
+        if kv8:
+            args, scales = _kv8(args)
+        got = pa.paged_attend(*args, **scales)
+        torch.cuda.synchronize()
+        want = pa.paged_attend_reference(*args, **scales)
+        torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
 
 
 @pytest.mark.cuda

@@ -98,13 +98,33 @@ def test_supported_geometry(t, h, kv, dh, dtype, ok):
     assert pa.paged_attend_supported(t, h, kv, dh, dtype) is ok
 
 
-def test_split_walk_covers_a_block_at_the_slice_shapes():
-    assert pa.blocks_per_split(128, 32) == 1
-    assert pa.blocks_per_split(8, 512) == 16
-    assert pa.blocks_per_split(256, 16) == 1
-    # Long tables: no lane is cut into more than MAX_SPLITS splits.
-    assert pa.blocks_per_split(128, 1024) == 4
-    assert -(-1000 // pa.blocks_per_split(16, 1000)) <= pa.MAX_SPLITS
+# (nblk, S): the slice's lanes at blk 128 (28, 14, 7 and 4 blocks), a lane
+# at index 0 (1 block), fewer blocks than splits, a count that is not a
+# multiple of S, and the 512-entry table, at S = 8 and at 16.
+SPLIT_CASES = [(28, 8), (14, 8), (7, 8), (4, 8), (1, 8), (29, 8), (512, 8),
+               (3, 16), (28, 16), (512, 16)]
+
+
+@pytest.mark.parametrize("nblk,splits", SPLIT_CASES,
+                         ids=lambda v: str(v))
+def test_split_walk_walks_each_owned_block_once(nblk, splits):
+    walk = pa.split_walk(nblk, splits)
+    assert len(walk) == splits
+    walked = sorted(j for blocks in walk for j in blocks)
+    assert walked == list(range(nblk))  # each owned block exactly once
+    assert walk[0][:1] == [0]           # block 0 falls to split 0
+    assert all(j < nblk for blocks in walk for j in blocks)
+    assert all(blocks == sorted(blocks) for blocks in walk)
+
+
+def test_split_walk_keeps_every_split_busy_on_the_longest_lane():
+    """The strided rule: the 3500-token lane's 28 blocks give every one of
+    the 8 splits work (so a merge that drops the last split shows), and a
+    437-token lane's 4 blocks leave 4 CTAs with none."""
+    assert [len(w) for w in pa.split_walk(28)] == [4, 4, 4, 4, 3, 3, 3, 3]
+    assert pa.split_walk(28)[7] == [7, 15, 23]
+    assert [len(w) for w in pa.split_walk(4)] == [1, 1, 1, 1, 0, 0, 0, 0]
+    assert pa.SPLITS <= pa.MAX_SPLITS
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

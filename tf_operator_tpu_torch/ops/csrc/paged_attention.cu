@@ -27,50 +27,65 @@
 // adds 4 bytes of scale per row and KV head: 3.36 MB of int8 K/V, 0.21 MB
 // of scales, q, the tables and the f32 output, about 3.60 MB or 1.07 us.
 //
-// What the design does about it:
-//  - It reads only the blocks a lane owns, nblk = ceil((index[b]+t)/blk),
-//    so the traffic follows the lanes' lengths and not max_seq_len.
-//  - No copy-then-finalize. The TPU kernel landed every block in VMEM and
-//    ran one full-row softmax to stay bit-identical in interpret mode. Here
-//    each CTA keeps a running max and sum in f32 (online softmax),
-//    accumulates P.V in f32 and never stages more than one tile.
-//  - The block walk is split over grid.x (flash-decoding). CTA
-//    (split, kk, b) walks `bps` blocks of lane b for KV head kk and writes a
-//    partial (max, sum, P.V); a second, small launch merges the partials.
-//    Unsplit, the slice's shapes would give 4 lanes x 4 KV heads = 16 CTAs
-//    on 132 SMs. With blk=128 and bps=1 the grid is 32 x 4 x 4 = 512 CTAs,
-//    of which the (28+14+7+4) x 4 = 212 that own a block at join do work.
+// The design: one launch, the block walk split over a thread-block cluster
+// and merged through distributed shared memory.
+//  - The grid is (S, KV, b) with a cluster of (S, 1, 1): the S CTAs of a
+//    cluster share one lane and KV head. S is the caller's (SPLITS in
+//    ops/paged_attention.py, at most 16; above 8 the kernel opts into
+//    non-portable cluster sizes). At the slice's shapes S = 8 gives
+//    8 x 4 x 4 = 128 CTAs on 132 SMs.
+//  - Each CTA works out the split itself from the lane's counter: nblk =
+//    ceil((index[b]+t)/blk) owned blocks, and CTA s walks blocks j = s,
+//    s+S, s+2S, ... below nblk (ops/paged_attention.py's split_walk mirrors
+//    the rule). Block 0 falls to split 0, so the merged max is a real
+//    score; the host needs no lane lengths, so nothing syncs with it. The
+//    walk is strided, not contiguous, so the longest lane keeps all S
+//    splits busy (28 blocks at S = 8: 4,4,4,4,3,3,3,3).
+//  - The walk is pipelined. K and V tiles of TC columns (128, or 64 for f32
+//    at Dh 128 so that two stages fit the 227 KB a CTA may have) land in
+//    shared memory by cp.async in two stages: the next tile's copies, under
+//    kv8 its scales too, are in flight while this tile's scores, softmax
+//    and P.V run, and the table entry of the block after that is loaded a
+//    tile ahead. The counter, the first two table entries and the query
+//    rows are loaded together, before the counter is known. K rows sit 16
+//    bytes apart more than their width, so the 16-byte reads of one row a
+//    thread meet no bank conflict.
 //  - The t*g query rows that share a KV head share one walk, so a K/V row is
 //    read once per KV head (GQA), and t > 1 (the speculative verify chunk)
-//    rides the same kernel.
-//  - Each thread holds one key row in registers (16-byte vector loads: 16
-//    int8 keys a load under kv8, widened to f32); the V tile is copied into
-//    shared memory in its stored type (int8 under kv8) by cp.async while
-//    the scores are computed. Under kv8 a thread reads its key column's two
-//    scales once (they are strided by KV); the value scale goes to shared
-//    memory for the softmax pass to fold into P. A CTA loads its lane's
-//    counter, first table entry and query rows together, so the walk
-//    waits on one dependent load, not three. The P.V sums keep four
-//    partial sums each, so their shared-memory loads overlap.
-//  - The merge reads the partials from L2: one warp per query row turns
-//    the splits' (max, sum) into weights, then each thread sums its
-//    output elements over the splits with several loads in flight.
-// Tensor cores (wgmma) and TMA are later work: this is the plain, correct
-// first kernel. On an H100 80GB HBM3 at 700 W a call at the slice's shapes
-// takes about 19 us of device time (chip_smoke.py, CUDA-graph replay),
-// some 11 us in the partial pass and 6 in the merge: chains of dependent
-// loads and two launches, not bytes, bound it there.
+//    rides the same kernel. Each thread scores one key column against four
+//    query rows at a time (eight independent sums). Each thread owns two
+//    neighbouring output columns of KR query rows in P.V, so one V load
+//    serves KR rows and one 16-byte P load four columns.
+//  - Online softmax in f32 (running max and sum per query row), expf, the
+//    oracle's -1e30 mask. kv8: the key scale on the score before Dh^-1/2,
+//    the value scale on P in P.V only.
+//  - The merge: each CTA leaves its (max, sum) per query row and its f32
+//    P.V sums [rows][Dh] in its own shared memory. After a cluster barrier,
+//    CTA rank r writes a 1/S share of the rows x Dh outputs: it weighs every
+//    split's partial, read through distributed shared memory in split order
+//    0..S-1, by exp(m_s - m) / sum_s l_s exp(m_s - m). A second barrier
+//    keeps each partial alive until every CTA has read it. No atomics and
+//    no scratch in device memory: two runs give the same bits. A CTA that
+//    owns no block publishes m = -inf, l = 0, sums 0 (weight 0) and still
+//    reaches both barriers.
+// Tensor cores and TMA stay out: t*g <= 32 rows a KV head and about one
+// flop a byte. PERF.md section 6 has this design's device time on an H100
+// 80GB HBM3 at 700 W (chip_smoke.py, CUDA-graph replay).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 128;      // threads per CTA = key columns per tile
+constexpr int kThreads = 128;      // threads per CTA
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxRows = 32;       // query rows (t * g) a CTA serves
-constexpr int kMaxSplits = 256;    // splits a merge weighs (32 KB of smem)
+constexpr int kMaxSplits = 16;     // the largest (non-portable) cluster
 constexpr float kMasked = -1e30f;  // the oracle's mask value
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -79,15 +94,32 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 }
 __device__ __forceinline__ float to_f32(int8_t x) { return float(x); }
 
-// One 16-byte vector of T, widened to f32.
+// One 16-byte vector of T in shared memory, widened to f32.
 template <typename T>
-__device__ __forceinline__ void load_vec(const T* __restrict__ src,
-                                         float* dst) {
+__device__ __forceinline__ void load_vec(const T* src, float* dst) {
   constexpr int kPer = 16 / sizeof(T);
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(src));
+  const uint4 u = *reinterpret_cast<const uint4*>(src);
   const T* e = reinterpret_cast<const T*>(&u);
 #pragma unroll
   for (int j = 0; j < kPer; ++j) dst[j] = to_f32(e[j]);
+}
+
+// Two neighbouring elements of T in shared memory, widened to f32.
+__device__ __forceinline__ void load2(const float* src, float* dst) {
+  const float2 v = *reinterpret_cast<const float2*>(src);
+  dst[0] = v.x;
+  dst[1] = v.y;
+}
+__device__ __forceinline__ void load2(const __nv_bfloat16* src, float* dst) {
+  const float2 v =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(src));
+  dst[0] = v.x;
+  dst[1] = v.y;
+}
+__device__ __forceinline__ void load2(const int8_t* src, float* dst) {
+  const char2 v = *reinterpret_cast<const char2*>(src);
+  dst[0] = float(v.x);
+  dst[1] = float(v.y);
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -108,131 +140,213 @@ __device__ __forceinline__ int owned_blocks(int idx, int t, int blk,
   return min((idx + t + blk - 1) / blk, table_len);
 }
 
-// Copy 16 bytes from device memory to shared memory without passing
-// through registers (cp.async, sm_80 and up); completes at cp_async_wait.
+// Copy 16 (or 4) bytes from device memory to shared memory without
+// passing through registers (cp.async, sm_80 and up).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(src));
 }
 
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
 }
 
-// The V tile in its stored type, under kv8 the tile's value scales, then
-// f32 query rows, scores and row statistics.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most one committed group (the next tile's) is in flight.
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Key columns a tile holds: 128, or 64 where two stages of 128-column K and
+// V tiles would not fit a CTA's shared memory (f32 at Dh 128).
+template <typename TKV, int DH>
+__host__ __device__ constexpr int tile_cols() {
+  return sizeof(TKV) * DH >= 512 ? 64 : 128;
+}
+
+// Bytes of one K row in shared memory: 16 more than its width, so that
+// neighbouring threads' 16-byte reads of their rows fall in other banks.
+template <typename TKV, int DH>
+__host__ __device__ constexpr int k_row_bytes() {
+  return int(sizeof(TKV)) * DH + 16;
+}
+
+// One pipeline stage: the K tile, the V tile in its stored type and, under
+// kv8, the tile's key and value scales.
 template <typename TKV, int DH, bool KV8>
-constexpr size_t smem_bytes(int rows) {
-  return sizeof(TKV) * size_t(kThreads) * DH +
-         sizeof(float) * ((KV8 ? size_t(kThreads) : 0) + size_t(rows) * DH +
-                          size_t(rows) * kThreads + 3 * size_t(rows));
+__host__ __device__ constexpr size_t stage_bytes() {
+  constexpr int tc = tile_cols<TKV, DH>();
+  return size_t(tc) * k_row_bytes<TKV, DH>() + sizeof(TKV) * size_t(tc) * DH +
+         (KV8 ? 2 * sizeof(float) * tc : 0);
 }
 
-// Pass 1: CTA (split, kk, b) folds blocks [split*bps, (split+1)*bps) of
-// lane b's table into one partial (max, sum, P.V) per query row. q is TQ,
-// the pools TKV: both f32 or both bf16, or (KV8) int8 pools with f32 scale
-// pools k_scale and v_scale [nb,blk,KV] (null otherwise).
-template <typename TQ, typename TKV, int DH, bool KV8>
+// Two stages, then f32 query rows (the P.V partial after the walk), scores
+// (the merge weights after the walk) and the rows' max, sum and rescale.
+template <typename TKV, int DH, bool KV8>
+__host__ __device__ constexpr size_t smem_bytes(int rows) {
+  return 2 * stage_bytes<TKV, DH, KV8>() +
+         sizeof(float) * (size_t(rows) * DH +
+                          size_t(rows) * tile_cols<TKV, DH>() + 3 * size_t(rows));
+}
+
+// CTA (split, kk, b) walks blocks split, split + S, ... of lane b's table for
+// KV head kk; the S CTAs of the cluster then merge their partials into the
+// output. q is TQ, the pools TKV: both f32 or both bf16, or (KV8) int8 pools
+// with f32 scale pools k_scale and v_scale [nb,blk,KV] (null otherwise).
+// Each thread owns output columns 2*dp, 2*dp+1 of query rows rg + k*NRG,
+// k < KR (WIDE: up to 32 rows, else up to 16).
+template <typename TQ, typename TKV, int DH, bool KV8, bool WIDE>
 __global__ void __launch_bounds__(kThreads)
-paged_partial(const TQ* __restrict__ q, const TKV* __restrict__ pool_k,
-              const TKV* __restrict__ pool_v,
-              const float* __restrict__ k_scale,
-              const float* __restrict__ v_scale,
-              const int* __restrict__ table,
-              const int* __restrict__ index, float* __restrict__ m_part,
-              float* __restrict__ l_part, float* __restrict__ acc_part,
-              int t, int g, int kv, int blk, int table_len, int bps,
-              int nsplit, float scale) {
-  const int split = blockIdx.x, kk = blockIdx.y, b = blockIdx.z;
+paged_attend_kernel(const TQ* __restrict__ q, const TKV* __restrict__ pool_k,
+                    const TKV* __restrict__ pool_v,
+                    const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
+                    const int* __restrict__ table,
+                    const int* __restrict__ index, float* __restrict__ out,
+                    int t, int g, int kv, int blk, int table_len,
+                    float scale) {
+  constexpr int TC = tile_cols<TKV, DH>();
+  constexpr int kRowBytes = k_row_bytes<TKV, DH>();
+  constexpr int kPer = 16 / sizeof(TKV);  // elements per 16-byte vector
+  constexpr int kVecs = DH / kPer;        // vectors per K/V row
+  constexpr int NRG = kThreads / (DH / 2);  // row groups in P.V
+  constexpr int KR = (WIDE ? kMaxRows : kMaxRows / 2) / NRG;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = int(cluster.block_rank()), splits = int(gridDim.x);
+  const int kk = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int dp = tid % (DH / 2), rg = tid / (DH / 2);
   const int rows = t * g, heads = kv * g;
-  const int j0 = split * bps;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  TKV* vs = reinterpret_cast<TKV*>(smem_raw);  // [kThreads][DH] V tile
-  float* vsc = reinterpret_cast<float*>(vs + kThreads * DH);  // [kThreads]
-  float* qs = vsc + (KV8 ? kThreads : 0);  // [rows][DH]
-  float* ps = qs + rows * DH;        // [rows][kThreads] scores, then P
-  float* row_m = ps + rows * kThreads;  // [rows] running max
-  float* row_l = row_m + rows;       // [rows] running sum
-  float* row_a = row_l + rows;       // [rows] this tile's rescale
+  unsigned char* stages = smem_raw;  // [2] x stage_bytes
+  float* qs = reinterpret_cast<float*>(smem_raw +
+                                       2 * stage_bytes<TKV, DH, KV8>());
+  float* ps = qs + rows * DH;           // [rows][TC] scores, then P
+  float* row_m = ps + rows * TC;        // [rows] running max
+  float* row_l = row_m + rows;          // [rows] running sum
+  float* row_a = row_l + rows;          // [rows] this tile's rescale
 
-  // The counter, the first table entry and the query rows are loaded
-  // together, before the counter is known: entry j0 exists whatever the
-  // counter says (unowned entries hold block 0).
+  // The counter, the first two table entries of this split and the query
+  // rows are loaded together, before the counter is known: every entry
+  // exists whatever the counter says (unowned entries hold block 0).
+  const int* trow = table + size_t(b) * table_len;
   const int idx = index[b];
-  int entry = table[size_t(b) * table_len + min(j0, table_len - 1)];
+  int entry = trow[min(split, table_len - 1)];
+  int entry_after = trow[min(split + splits, table_len - 1)];
   for (int e = tid; e < rows * DH; e += kThreads) {
     const int r = e / DH, d = e % DH;
     const int ti = r / g, gi = r % g;
     qs[e] = to_f32(q[((size_t(b) * t + ti) * heads + kk * g + gi) * DH + d]);
   }
-  const int nblk = owned_blocks(idx, t, blk, table_len);
-  if (j0 >= nblk) return;  // this split owns no block of lane b
-  const int j1 = min(j0 + bps, nblk);
   for (int r = tid; r < rows; r += kThreads) {
     row_m[r] = -INFINITY;
     row_l[r] = 0.f;
   }
-  // Thread tid owns accumulator elements tid + i*kThreads of [rows][DH].
-  constexpr int kAcc = (kMaxRows * DH + kThreads - 1) / kThreads;
-  float acc[kAcc];
+  float acc[KR][2];
 #pragma unroll
-  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
-  __syncthreads();
+  for (int k = 0; k < KR; ++k) acc[k][0] = acc[k][1] = 0.f;
 
-  constexpr int kPer = 16 / sizeof(TKV);  // elements per 16-byte vector
-  constexpr int kVecs = DH / kPer;      // vectors per K/V row
+  const int nblk = owned_blocks(idx, t, blk, table_len);
+  const int nmine = split < nblk ? (nblk - split + splits - 1) / splits : 0;
+  const int tpb = (blk + TC - 1) / TC;  // tiles a block
+  const int ntiles = nmine * tpb;
   const size_t row_stride = size_t(kv) * DH;
 
-  for (int j = j0; j < j1; ++j) {
-    if (j > j0) entry = table[size_t(b) * table_len + j];
-    const size_t base = size_t(entry) * blk;
-    for (int c0 = 0; c0 < blk; c0 += kThreads) {
-      const int ncols = min(kThreads, blk - c0);
-      // The V tile lands in shared memory while the scores are computed.
-      for (int e = tid; e < ncols * kVecs; e += kThreads) {
-        const int c = e / kVecs, v = e % kVecs;
-        cp_async16(vs + c * DH + v * kPer,
-                   pool_v + (base + c0 + c) * row_stride + size_t(kk) * DH +
-                       v * kPer);
+  // Tile it's copies into stage it & 1 (its block's pool entry given).
+  auto issue = [&](int it, int ent) {
+    unsigned char* st = stages + (it & 1) * stage_bytes<TKV, DH, KV8>();
+    TKV* vt = reinterpret_cast<TKV*>(st + TC * kRowBytes);
+    const int c0 = (it % tpb) * TC, ncols = min(TC, blk - c0);
+    const size_t base = size_t(ent) * blk + c0;
+    for (int e = tid; e < ncols * kVecs; e += kThreads) {
+      const int c = e / kVecs, v = e % kVecs;
+      const size_t at = (base + c) * row_stride + size_t(kk) * DH + v * kPer;
+      cp_async16(st + c * kRowBytes + v * 16, pool_k + at);
+      cp_async16(vt + c * DH + v * kPer, pool_v + at);
+    }
+    if constexpr (KV8) {
+      float* sc = reinterpret_cast<float*>(vt + TC * DH);  // [2][TC]
+      for (int c = tid; c < ncols; c += kThreads) {
+        const size_t at = (base + c) * kv + kk;
+        cp_async4(sc + c, k_scale + at);
+        cp_async4(sc + TC + c, v_scale + at);
       }
-      if (tid < ncols) {
-        // Scores of key column c0+tid against every query row.
-        const TKV* krow =
-            pool_k + (base + c0 + tid) * row_stride + size_t(kk) * DH;
-        float kr[DH];
+    }
+  };
+
+  if (ntiles > 0) issue(0, entry);
+  cp_async_commit();
+  for (int it = 0; it < ntiles; ++it) {
+    const int nx = it + 1;
+    if (nx < ntiles) {
+      if (nx % tpb == 0) {  // the next tile opens this split's next block
+        entry = entry_after;
+        entry_after =
+            trow[min(split + (nx / tpb + 1) * splits, table_len - 1)];
+      }
+      issue(nx, entry);
+    }
+    cp_async_commit();
+    cp_async_wait_prior();
+    __syncthreads();
+
+    const unsigned char* st = stages + (it & 1) * stage_bytes<TKV, DH, KV8>();
+    const TKV* vt = reinterpret_cast<const TKV*>(st + TC * kRowBytes);
+    const float* ksc = reinterpret_cast<const float*>(vt + TC * DH);
+    const float* vsc = ksc + TC;
+    const int j = split + (it / tpb) * splits;
+    const int c0 = (it % tpb) * TC, ncols = min(TC, blk - c0);
+    if (tid < ncols) {
+      // Scores of key column c0+tid against every query row, four rows at a
+      // time with two partial sums each.
+      float kr[DH];
 #pragma unroll
-        for (int v = 0; v < kVecs; ++v) load_vec(krow + v * kPer, kr + v * kPer);
-        float ks = 1.f;
-        if constexpr (KV8) {
-          const size_t at = (base + c0 + tid) * kv + kk;
-          ks = k_scale[at];
-          vsc[tid] = v_scale[at];
-        }
-        const int pos = j * blk + c0 + tid;
-        for (int r = 0; r < rows; ++r) {
-          const float4* q4 = reinterpret_cast<const float4*>(qs + r * DH);
-          float s = 0.f;
+      for (int v = 0; v < kVecs; ++v)
+        load_vec(reinterpret_cast<const TKV*>(st + tid * kRowBytes) + v * kPer,
+                 kr + v * kPer);
+      const float ks = KV8 ? ksc[tid] : 1.f;
+      const int pos = j * blk + c0 + tid;
+      for (int r0 = 0; r0 < rows; r0 += 4) {
+        const float* qr[4];
 #pragma unroll
-          for (int d = 0; d < DH / 4; ++d) {
-            const float4 qv = q4[d];
-            s = fmaf(qv.x, kr[4 * d], s);
-            s = fmaf(qv.y, kr[4 * d + 1], s);
-            s = fmaf(qv.z, kr[4 * d + 2], s);
-            s = fmaf(qv.w, kr[4 * d + 3], s);
+        for (int i = 0; i < 4; ++i) qr[i] = qs + min(r0 + i, rows - 1) * DH;
+        float s[4][2] = {};
+#pragma unroll
+        for (int d = 0; d < DH; d += 4) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float4 qv = *reinterpret_cast<const float4*>(qr[i] + d);
+            s[i][0] = fmaf(qv.x, kr[d], s[i][0]);
+            s[i][1] = fmaf(qv.y, kr[d + 1], s[i][1]);
+            s[i][0] = fmaf(qv.z, kr[d + 2], s[i][0]);
+            s[i][1] = fmaf(qv.w, kr[d + 3], s[i][1]);
           }
-          if constexpr (KV8) s *= ks;
-          ps[r * kThreads + tid] = pos <= idx + r / g ? s * scale : kMasked;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = r0 + i;
+          if (r < rows) {
+            float x = s[i][0] + s[i][1];
+            if constexpr (KV8) x *= ks;
+            ps[r * TC + tid] = pos <= idx + r / g ? x * scale : kMasked;
+          }
         }
       }
-      cp_async_wait();
-      __syncthreads();
-      // Online softmax over this tile, one warp per query row.
-      for (int r = warp; r < rows; r += kThreads / 32) {
-        float* pr = ps + r * kThreads;
+    }
+    __syncthreads();
+    // Online softmax over this tile, one warp per query row.
+    for (int r0 = 0; r0 < rows; r0 += kWarps) {
+      const int r = r0 + warp;
+      if (r < rows) {
+        float* pr = ps + r * TC;
         float mx = -INFINITY;
         for (int c = lane; c < ncols; c += 32) mx = fmaxf(mx, pr[c]);
         mx = warp_max(mx);
@@ -243,10 +357,7 @@ paged_partial(const TQ* __restrict__ q, const TKV* __restrict__ pool_k,
           const float p = expf(pr[c] - m_new);
           sum += p;
           // kv8: the value scale weighs P in P.V only, not in the sum.
-          if constexpr (KV8)
-            pr[c] = p * vsc[c];
-          else
-            pr[c] = p;
+          pr[c] = KV8 ? p * vsc[c] : p;
         }
         sum = warp_sum(sum);
         if (lane == 0) {
@@ -256,140 +367,155 @@ paged_partial(const TQ* __restrict__ q, const TKV* __restrict__ pool_k,
           row_m[r] = m_new;
         }
       }
-      __syncthreads();
-      // acc[r][d] = acc[r][d] * a[r] + sum_c P[r][c] * V[c][d], with four
-      // partial sums and the column loop unrolled, so shared-memory loads
-      // overlap instead of each waiting on the one before.
+    }
+    __syncthreads();
+    // acc[k][:] = acc[k][:] * a + sum_c P[r][c] * V[c][2dp:2dp+2] for row
+    // r = rg + k*NRG; rows past the last are read as the last, never stored.
+    const float* prow[KR];
+    float s[KR][2];
 #pragma unroll
-      for (int i = 0; i < kAcc; ++i) {
-        const int e = tid + i * kThreads;
-        if (e < rows * DH) {
-          const int r = e / DH, d = e % DH;
-          const float* pr = ps + r * kThreads;
-          float s[4] = {0.f, 0.f, 0.f, 0.f};
-          int c = 0;
-#pragma unroll 4
-          for (; c + 4 <= ncols; c += 4) {
+    for (int k = 0; k < KR; ++k) {
+      prow[k] = ps + min(rg + k * NRG, rows - 1) * TC;
+      s[k][0] = s[k][1] = 0.f;
+    }
+    const TKV* vcol = vt + 2 * dp;
+    int c = 0;
+    for (; c + 4 <= ncols; c += 4) {
+      float v[4][2];
 #pragma unroll
-            for (int u = 0; u < 4; ++u)
-              s[u] = fmaf(pr[c + u], to_f32(vs[(c + u) * DH + d]), s[u]);
-          }
-          for (; c < ncols; ++c) s[0] = fmaf(pr[c], to_f32(vs[c * DH + d]), s[0]);
-          acc[i] = acc[i] * row_a[r] + ((s[0] + s[1]) + (s[2] + s[3]));
+      for (int u = 0; u < 4; ++u) load2(vcol + (c + u) * DH, v[u]);
+#pragma unroll
+      for (int k = 0; k < KR; ++k) {
+        const float4 p = *reinterpret_cast<const float4*>(prow[k] + c);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          s[k][h] = fmaf(p.x, v[0][h], s[k][h]);
+          s[k][h] = fmaf(p.y, v[1][h], s[k][h]);
+          s[k][h] = fmaf(p.z, v[2][h], s[k][h]);
+          s[k][h] = fmaf(p.w, v[3][h], s[k][h]);
         }
       }
-      __syncthreads();
     }
-  }
-  const size_t part = (size_t(b) * kv + kk) * nsplit + split;
-  for (int r = tid; r < rows; r += kThreads) {
-    m_part[part * rows + r] = row_m[r];
-    l_part[part * rows + r] = row_l[r];
-  }
+    for (; c < ncols; ++c) {
+      float v[2];
+      load2(vcol + c * DH, v);
 #pragma unroll
-  for (int i = 0; i < kAcc; ++i) {
-    const int e = tid + i * kThreads;
-    if (e < rows * DH) acc_part[part * rows * DH + e] = acc[i];
-  }
-}
-
-// Pass 2: CTA (kk, b) merges lane b's live partials into the output. Split
-// 0 always holds column 0, which every query row sees, so the merged max is
-// a real score and splits whose rows were all masked weigh exactly 0.
-// One warp per query row turns the splits' (max, sum) into normalised
-// weights in shared memory ([nsplit][rows] floats); then every thread
-// sums its output elements over the splits, several loads in flight.
-__global__ void __launch_bounds__(kThreads)
-paged_combine(const float* __restrict__ m_part,
-              const float* __restrict__ l_part,
-              const float* __restrict__ acc_part,
-              const int* __restrict__ index, float* __restrict__ out, int t,
-              int g, int kv, int dh, int blk, int table_len, int bps,
-              int nsplit) {
-  const int kk = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rows = t * g, heads = kv * g;
-  const int nblk = owned_blocks(index[b], t, blk, table_len);
-  const int nlive = (nblk + bps - 1) / bps;
-  const size_t base = (size_t(b) * kv + kk) * nsplit;
-  const float* mp = m_part + base * rows;  // [nsplit][rows]
-  const float* lp = l_part + base * rows;
-  extern __shared__ float w[];             // [nlive][rows]
-  for (int r = warp; r < rows; r += kThreads / 32) {
-    float mx = -INFINITY;
-    for (int s = lane; s < nlive; s += 32) mx = fmaxf(mx, mp[s * rows + r]);
-    mx = warp_max(mx);
-    float l = 0.f;
-    for (int s = lane; s < nlive; s += 32) {
-      const float e = expf(mp[s * rows + r] - mx);
-      w[s * rows + r] = e;
-      l = fmaf(lp[s * rows + r], e, l);
+      for (int k = 0; k < KR; ++k) {
+        s[k][0] = fmaf(prow[k][c], v[0], s[k][0]);
+        s[k][1] = fmaf(prow[k][c], v[1], s[k][1]);
+      }
     }
-    const float inv = 1.f / warp_sum(l);
-    for (int s = lane; s < nlive; s += 32) w[s * rows + r] *= inv;
+#pragma unroll
+    for (int k = 0; k < KR; ++k) {
+      const float a = row_a[min(rg + k * NRG, rows - 1)];
+      acc[k][0] = acc[k][0] * a + s[k][0];
+      acc[k][1] = acc[k][1] * a + s[k][1];
+    }
+    __syncthreads();
+  }
+
+  // This CTA's partial P.V sums, [rows][DH], in place of the query rows
+  // (which a CTA that owned no tile last wrote).
+  __syncthreads();
+  float* part = qs;
+#pragma unroll
+  for (int k = 0; k < KR; ++k) {
+    const int r = rg + k * NRG;
+    if (r < rows) {
+      part[r * DH + 2 * dp] = acc[k][0];
+      part[r * DH + 2 * dp + 1] = acc[k][1];
+    }
+  }
+  cluster.sync();
+
+  // Each query row's weights of the splits, in split order:
+  // w[sp][r] = exp(m_sp - m) / sum_sp l_sp exp(m_sp - m). Split 0 owns block
+  // 0, which every row sees, so m is a real score.
+  float* w = ps;  // [splits][rows]
+  for (int r = tid; r < rows; r += kThreads) {
+    float m = -INFINITY;
+    for (int sp = 0; sp < splits; ++sp)
+      m = fmaxf(m, cluster.map_shared_rank(row_m, sp)[r]);
+    float l = 0.f;
+    for (int sp = 0; sp < splits; ++sp) {
+      const float e = expf(cluster.map_shared_rank(row_m, sp)[r] - m);
+      w[sp * rows + r] = e;
+      l = fmaf(cluster.map_shared_rank(row_l, sp)[r], e, l);
+    }
+    const float inv = 1.f / l;
+    for (int sp = 0; sp < splits; ++sp) w[sp * rows + r] *= inv;
   }
   __syncthreads();
-  const float* ap = acc_part + base * rows * dh;  // [nsplit][rows][dh]
-  const size_t stride = size_t(rows) * dh;
-  for (int e = tid; e < rows * dh; e += kThreads) {
-    const int r = e / dh, d = e % dh;
+  // This CTA's share of the outputs, every split's partial in split order.
+  const int total = rows * DH, share = (total + splits - 1) / splits;
+  const int e1 = min(total, (split + 1) * share);
+  for (int e = split * share + tid; e < e1; e += kThreads) {
+    const int r = e / DH, d = e % DH;
     float o = 0.f;
 #pragma unroll 8
-    for (int s = 0; s < nlive; ++s) o = fmaf(ap[s * stride + e], w[s * rows + r], o);
+    for (int sp = 0; sp < splits; ++sp)
+      o = fmaf(cluster.map_shared_rank(part, sp)[e], w[sp * rows + r], o);
     const int ti = r / g, gi = r % g;
-    out[((size_t(b) * t + ti) * heads + kk * g + gi) * dh + d] = o;
+    out[((size_t(b) * t + ti) * heads + kk * g + gi) * DH + d] = o;
   }
+  cluster.sync();
 }
 
-template <typename TQ, typename TKV, int DH, bool KV8>
+template <typename TQ, typename TKV, int DH, bool KV8, bool WIDE>
 cudaError_t launch(const void* q, const void* pool_k, const void* pool_v,
                    const float* k_scale, const float* v_scale,
-                   const int* table, const int* index, float* m_part,
-                   float* l_part, float* acc_part, float* out, int b, int t,
-                   int g, int kv, int blk, int table_len, int bps,
-                   int nsplit, cudaStream_t stream) {
-  // Above 48 KB a kernel needs the opt-in; set it once to the most any
-  // row count can ask for (98,688 bytes for f32 at DH=128).
-  constexpr size_t kMaxSmem = smem_bytes<TKV, DH, KV8>(kMaxRows);
+                   const int* table, const int* index, float* out, int b,
+                   int t, int g, int kv, int blk, int table_len, int splits,
+                   cudaStream_t stream) {
+  auto* kernel = paged_attend_kernel<TQ, TKV, DH, KV8, WIDE>;
+  // Above 48 KB a kernel needs the opt-in; set it once to the most any row
+  // count can ask for, with clusters of more than 8 CTAs allowed.
   static bool opted_in = false;
   if (!opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        paged_partial<TQ, TKV, DH, KV8>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, int(kMaxSmem));
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        int(smem_bytes<TKV, DH, KV8>(kMaxRows)));
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
     opted_in = true;
   }
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(splits, kv, b);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = smem_bytes<TKV, DH, KV8>(t * g);
+  config.stream = stream;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = unsigned(splits);
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  config.attrs = &cluster;
+  config.numAttrs = 1;
   const float scale = float(1.0 / sqrt(double(DH)));
-  paged_partial<TQ, TKV, DH, KV8><<<dim3(nsplit, kv, b), kThreads,
-                                    smem_bytes<TKV, DH, KV8>(t * g),
-                                    stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(pool_k),
-      static_cast<const TKV*>(pool_v), k_scale, v_scale, table, index,
-      m_part, l_part, acc_part, t, g, kv, blk, table_len, bps, nsplit,
-      scale);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  paged_combine<<<dim3(kv, b), kThreads,
-                  sizeof(float) * size_t(nsplit) * t * g, stream>>>(
-      m_part, l_part, acc_part, index, out, t, g, kv, DH, blk, table_len, bps,
-      nsplit);
-  return cudaGetLastError();
+  const cudaError_t err = cudaLaunchKernelEx(
+      &config, kernel, static_cast<const TQ*>(q),
+      static_cast<const TKV*>(pool_k), static_cast<const TKV*>(pool_v),
+      k_scale, v_scale, table, index, out, t, g, kv, blk, table_len, scale);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <typename TQ, typename TKV, bool KV8>
 cudaError_t launch_dh(int dh, const void* q, const void* pool_k,
                       const void* pool_v, const float* k_scale,
                       const float* v_scale, const int* table,
-                      const int* index, float* m_part, float* l_part,
-                      float* acc_part, float* out, int b, int t, int g,
-                      int kv, int blk, int table_len, int bps, int nsplit,
+                      const int* index, float* out, int b, int t, int g,
+                      int kv, int blk, int table_len, int splits,
                       cudaStream_t stream) {
+  const bool wide = t * g > kMaxRows / 2;
+#define PAGED_ARGS                                                           \
+  q, pool_k, pool_v, k_scale, v_scale, table, index, out, b, t, g, kv, blk,  \
+      table_len, splits, stream
 #define PAGED_DH_CASE(D)                                                     \
   case D:                                                                    \
-    return launch<TQ, TKV, D, KV8>(q, pool_k, pool_v, k_scale, v_scale,     \
-                                   table, index, m_part, l_part, acc_part,   \
-                                   out, b, t, g, kv, blk, table_len, bps,    \
-                                   nsplit, stream);
+    return wide ? launch<TQ, TKV, D, KV8, true>(PAGED_ARGS)                  \
+                : launch<TQ, TKV, D, KV8, false>(PAGED_ARGS);
   switch (dh) {
     PAGED_DH_CASE(16)
     PAGED_DH_CASE(32)
@@ -399,37 +525,39 @@ cudaError_t launch_dh(int dh, const void* q, const void* pool_k,
       return cudaErrorInvalidValue;
   }
 #undef PAGED_DH_CASE
+#undef PAGED_ARGS
+}
+
+bool bad_geometry(int t, int g, int blk, int table_len, int splits) {
+  return t * g > kMaxRows || t < 1 || g < 1 || blk < 1 || table_len < 1 ||
+         splits < 1 || splits > kMaxSplits;
 }
 
 }  // namespace
 
 // q [b,t,H,Dh] and pools [nb,blk,KV,Dh] in one dtype (is_bf16: 1 = bf16,
 // 0 = f32), table [b,table_len] and index [b] int32, out f32 [b,t,H,Dh];
-// m_part/l_part f32 [b,KV,nsplit,t*g] and acc_part f32
-// [b,KV,nsplit,t*g,Dh] are scratch the caller allocates. All contiguous,
-// 16-byte aligned. Launches on `stream`, allocates nothing, does not
-// synchronise, and returns cudaGetLastError() (0 = launched).
-extern "C" int paged_attend_launch(
-    const void* q, const void* pool_k, const void* pool_v, const void* table,
-    const void* index, void* m_part, void* l_part, void* acc_part, void* out,
-    int b, int t, int g, int kv, int dh, int blk, int table_len, int bps,
-    int nsplit, int is_bf16, void* stream) {
-  if (t * g > kMaxRows || t < 1 || g < 1 || bps < 1 || nsplit > kMaxSplits)
-    return cudaErrorInvalidValue;
+// `splits` is the cluster size S (1..16). All contiguous, 16-byte aligned.
+// One launch on `stream`; allocates nothing, does not synchronise, and
+// returns the launch's error (0 = launched).
+extern "C" int paged_attend_launch(const void* q, const void* pool_k,
+                                   const void* pool_v, const void* table,
+                                   const void* index, void* out, int b, int t,
+                                   int g, int kv, int dh, int blk,
+                                   int table_len, int splits, int is_bf16,
+                                   void* stream) {
+  if (bad_geometry(t, g, blk, table_len, splits)) return cudaErrorInvalidValue;
   const int* tbl = static_cast<const int*>(table);
   const int* idx = static_cast<const int*>(index);
-  float* mp = static_cast<float*>(m_part);
-  float* lp = static_cast<float*>(l_part);
-  float* ap = static_cast<float*>(acc_part);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       is_bf16 ? launch_dh<__nv_bfloat16, __nv_bfloat16, false>(
-                    dh, q, pool_k, pool_v, nullptr, nullptr, tbl, idx, mp, lp,
-                    ap, o, b, t, g, kv, blk, table_len, bps, nsplit, s)
+                    dh, q, pool_k, pool_v, nullptr, nullptr, tbl, idx, o, b,
+                    t, g, kv, blk, table_len, splits, s)
               : launch_dh<float, float, false>(
-                    dh, q, pool_k, pool_v, nullptr, nullptr, tbl, idx, mp, lp,
-                    ap, o, b, t, g, kv, blk, table_len, bps, nsplit, s);
+                    dh, q, pool_k, pool_v, nullptr, nullptr, tbl, idx, o, b,
+                    t, g, kv, blk, table_len, splits, s);
   return int(err);
 }
 
@@ -439,26 +567,21 @@ extern "C" int paged_attend_launch(
 extern "C" int paged_attend_kv8_launch(
     const void* q, const void* pool_k, const void* pool_v,
     const void* k_scale, const void* v_scale, const void* table,
-    const void* index, void* m_part, void* l_part, void* acc_part, void* out,
-    int b, int t, int g, int kv, int dh, int blk, int table_len, int bps,
-    int nsplit, int q_is_bf16, void* stream) {
-  if (t * g > kMaxRows || t < 1 || g < 1 || bps < 1 || nsplit > kMaxSplits)
-    return cudaErrorInvalidValue;
+    const void* index, void* out, int b, int t, int g, int kv, int dh,
+    int blk, int table_len, int splits, int q_is_bf16, void* stream) {
+  if (bad_geometry(t, g, blk, table_len, splits)) return cudaErrorInvalidValue;
   const float* ks = static_cast<const float*>(k_scale);
   const float* vsp = static_cast<const float*>(v_scale);
   const int* tbl = static_cast<const int*>(table);
   const int* idx = static_cast<const int*>(index);
-  float* mp = static_cast<float*>(m_part);
-  float* lp = static_cast<float*>(l_part);
-  float* ap = static_cast<float*>(acc_part);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       q_is_bf16 ? launch_dh<__nv_bfloat16, int8_t, true>(
-                      dh, q, pool_k, pool_v, ks, vsp, tbl, idx, mp, lp, ap, o,
-                      b, t, g, kv, blk, table_len, bps, nsplit, s)
+                      dh, q, pool_k, pool_v, ks, vsp, tbl, idx, o, b, t, g,
+                      kv, blk, table_len, splits, s)
                 : launch_dh<float, int8_t, true>(
-                      dh, q, pool_k, pool_v, ks, vsp, tbl, idx, mp, lp, ap, o,
-                      b, t, g, kv, blk, table_len, bps, nsplit, s);
+                      dh, q, pool_k, pool_v, ks, vsp, tbl, idx, o, b, t, g,
+                      kv, blk, table_len, splits, s);
   return int(err);
 }

@@ -22,7 +22,11 @@ and the value scale multiplies the probabilities before P.V.
 - ``paged_attend_supported`` is the kernel's own geometry rule. The JAX
   module's 12 MiB VMEM gate is a TPU fact and does not carry over.
 - ``launches`` counts launches of the bf16/f32 kernel and
-  ``kv8_launches`` those of its kv8 variant, and nothing else.
+  ``kv8_launches`` those of its kv8 variant, and nothing else. A call is
+  one kernel launch: a thread-block cluster of ``SPLITS`` CTAs per lane
+  and KV head walks the lane's blocks and merges in the same launch.
+- ``split_walk`` mirrors the kernel's split rule: which blocks each CTA
+  of a cluster walks.
 """
 
 from __future__ import annotations
@@ -40,12 +44,11 @@ _NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_ROWS = 32
 DTYPES = (torch.float32, torch.bfloat16)
-# Tokens one CTA walks before its partial is merged with the others
-# (flash-decoding split): one 128-token block at the slice's shapes.
-# A lane's table is cut into at most MAX_SPLITS splits (the merge keeps
-# one weight per split and query row in shared memory).
-TOKENS_PER_SPLIT = 128
-MAX_SPLITS = 256
+# The cluster size S: the CTAs that split one lane's block walk for one KV
+# head and merge their partials through distributed shared memory. 8 is
+# the largest portable cluster; the kernel takes up to 16.
+SPLITS = 8
+MAX_SPLITS = 16
 
 # Kernel launches since the last reset (set them to 0 to reset): the
 # bf16/f32 pools' kernel, and its kv8 variant.
@@ -68,11 +71,14 @@ def paged_attend_supported(t: int, n_heads: int, kv_heads: int,
             and t * (n_heads // kv_heads) <= MAX_ROWS)
 
 
-def blocks_per_split(blk: int, table_len: int) -> int:
-    """Table entries one CTA walks: ``TOKENS_PER_SPLIT`` tokens' worth,
-    at least one, and enough that no lane has more than ``MAX_SPLITS``
-    splits."""
-    return max(1, TOKENS_PER_SPLIT // blk, -(-table_len // MAX_SPLITS))
+def split_walk(nblk: int, splits: int = SPLITS) -> list[list[int]]:
+    """The blocks each CTA of a lane's cluster walks, in its order, for a
+    lane that owns ``nblk`` blocks (``ceil((index + t) / blk)``, at most
+    the table's length): split ``s`` takes ``s, s + splits, ...`` below
+    ``nblk``, so block 0 falls to split 0 and the longest lane keeps every
+    split busy. The kernel computes the same on the card from the lane's
+    counter."""
+    return [list(range(s, nblk, splits)) for s in range(splits)]
 
 
 def paged_attend_reference(q: torch.Tensor, pool_k: torch.Tensor,
@@ -157,11 +163,11 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load("paged_attention")
         fn = lib.paged_attend_launch
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fn = lib.paged_attend_kv8_launch
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + [
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = lib
@@ -205,25 +211,14 @@ def _launch(q, pool_k, pool_v, table, index, k_scale_pool=None,
                 "paged_attend kernel: inputs must be contiguous and "
                 "16-byte aligned"
             )
-    g = h // kv
-    table_len = table.shape[1]
-    bps = blocks_per_split(blk, table_len)
-    nsplit = -(-table_len // bps)
-    rows = t * g
-    f32 = dict(dtype=torch.float32, device=q.device)
-    out = torch.empty((b, t, h, dh), **f32)
-    m_part = torch.empty((b, kv, nsplit, rows), **f32)
-    l_part = torch.empty((b, kv, nsplit, rows), **f32)
-    acc_part = torch.empty((b, kv, nsplit, rows, dh), **f32)
+    out = torch.empty((b, t, h, dh), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         lib = _library()
         entry = lib.paged_attend_kv8_launch if kv8 else lib.paged_attend_launch
         err = entry(
-            *(x.data_ptr() for x in args),
-            m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
-            out.data_ptr(),
-            b, t, g, kv, dh, blk, table_len, bps, nsplit,
+            *(x.data_ptr() for x in args), out.data_ptr(),
+            b, t, h // kv, kv, dh, blk, table.shape[1], SPLITS,
             int(q.dtype == torch.bfloat16), stream,
         )
     if err:

@@ -17,7 +17,11 @@ phase 12's own line in chip_smoke's output. Faults:
   into the softmax's normaliser ``l`` (out = sum p vs v8 / sum p vs);
 - ``drop_split``: the int8 matmul kernel's weight stream (``int8_stream``,
   every decode call with k split) leaves the last k-split's partial sums
-  out of its cluster reduction through distributed shared memory.
+  out of its cluster reduction through distributed shared memory;
+- ``drop_paged_split``: the paged kernel's cluster merge (both variants)
+  leaves the last split's P.V partial out of every output, while its
+  (max, sum) still weighs the others. The strided split keeps the last
+  split live on the 3500-token lane, so the fault shows.
 
 Needs a CUDA card and nvcc.
 """
@@ -45,6 +49,11 @@ FAULTS = {
         CSRC + "int8_dense.cu",
         "for (int sp = 0; sp < splits; ++sp)",
         "for (int sp = 0; sp < splits - 1; ++sp)",
+    ),
+    "drop_paged_split": (
+        CSRC + "paged_attention.cu",
+        "for (int sp = 0; sp < splits; ++sp)\n      o = fmaf(",
+        "for (int sp = 0; sp < splits - 1; ++sp)\n      o = fmaf(",
     ),
 }
 

@@ -3,6 +3,7 @@
     python tools/torch_kernel_ab.py --kernel paged --baseline OLD.cu
     python tools/torch_kernel_ab.py --kernel flash --baseline OLD.cu
     python tools/torch_kernel_ab.py --kernel int8 --baseline OLD.cu
+    python tools/torch_kernel_ab.py --checkout DIR
 
 Builds ``OLD.cu`` (an earlier ``paged_attention.cu``,
 ``flash_attention.cu`` or ``int8_dense.cu`` with the same C entry points,
@@ -27,7 +28,18 @@ baseline) on the same inputs at chip_smoke.py's shapes:
   forward and the m=3500 call.
 
 Prints the card line and one JSON line per turn. Needs a CUDA card and
-nvcc.
+nvcc. ``--kernel paged`` needs a baseline with the one-launch cluster
+kernel's C entries (no scratch pointers, the cluster size in place of
+``bps``/``nsplit``): a source from before that design has other
+signatures; time it with ``--checkout`` instead.
+
+``--checkout DIR`` compares whole checkouts, each with its own wrapper and
+source: DIR (e.g. ``git archive`` of an earlier commit unpacked into a
+git-ignored directory) and this one run chip_smoke.py's paged phases, 3
+(``kernel_phase``) and 11 (its kv8 variant), each in a process of its own
+in its own directory, in turns (baseline, current, current, baseline);
+one JSON line per turn gives both variants' device ms, error against the
+plain version, bound and SDPA's ms.
 """
 
 from __future__ import annotations
@@ -161,6 +173,32 @@ def int8():
 
 
 KERNELS = {"paged": paged, "flash": flash, "int8": int8}
+# chip_smoke's phases 3 and 11 in a checkout's own directory.
+PAGED_PHASES = """
+import json, torch
+import chip_smoke as cs
+from tf_operator_tpu_torch.ops import _build, paged_attention as pa
+torch.backends.cuda.matmul.allow_tf32 = False
+_build.build("paged_attention")
+print(json.dumps(dict(paged=cs.kernel_phase(pa),
+                      kv8=cs.kernel_phase(pa, kv8=True))))
+"""
+
+
+def checkout_turns(baseline: str) -> int:
+    """Phases 3 and 11 of ``baseline`` and of this checkout, in turns."""
+    dirs = {"baseline": os.path.abspath(baseline), "current": REPO_ROOT}
+    for name in ("baseline", "current", "current", "baseline"):
+        run = subprocess.run([sys.executable, "-c", PAGED_PHASES],
+                             cwd=dirs[name], capture_output=True, text=True,
+                             timeout=900)
+        if run.returncode:
+            print(run.stdout + run.stderr[-4000:], file=sys.stderr)
+            return 1
+        print(json.dumps(dict(build=name, checkout=dirs[name],
+                              **json.loads(run.stdout.splitlines()[-1]))),
+              flush=True)
+    return 0
 # Entries the wrapper reads beside the launch, which an earlier source may
 # lack: int8_design only sorts the wrapper's launch counts.
 BORROWED = {"int8": ("int8_design",)}
@@ -168,14 +206,22 @@ BORROWED = {"int8": ("int8_design",)}
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", required=True, choices=sorted(KERNELS))
-    ap.add_argument("--baseline", required=True,
-                    help="an earlier source of that kernel to time against")
+    ap.add_argument("--kernel", choices=sorted(KERNELS))
+    which = ap.add_mutually_exclusive_group(required=True)
+    which.add_argument("--baseline",
+                       help="an earlier source of that kernel to time against")
+    which.add_argument("--checkout",
+                       help="an earlier checkout whose paged phases to time "
+                            "against")
     args = ap.parse_args()
+    if args.baseline and not args.kernel:
+        ap.error("--baseline needs --kernel")
     if not torch.cuda.is_available():
         print("torch_kernel_ab: torch sees no CUDA device", file=sys.stderr)
         return 2
     print(cs.card_line(), flush=True)
+    if args.checkout:
+        return checkout_turns(args.checkout)
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     module, entries, turn = KERNELS[args.kernel]()
     libs = {"current": module._library(),
