@@ -395,9 +395,9 @@ def kernel_phase(pa, kv8=False) -> dict:
     library_ms = sdpa_ms(q, dense, table, index)
     bms, bound_by = bound_ms(LANES, 1, torch.bfloat16, kv8)
     print(f"{label} bf16 t=1, S={pa.SPLITS}: kernel_ms {kernel_ms:.6f} "
-          f"(eager, host "
-          f"included: {eager_ms:.6f}) plain_ms {plain_ms:.6f} library_ms "
-          f"{library_ms:.6f} (SDPA over pre-gathered bf16 K/V) bound_us "
+          f"(eager, host included: {eager_ms:.6f}) plain_ms {plain_ms:.6f} "
+          f"library_ms {library_ms:.6f} (SDPA over pre-gathered bf16 K/V) "
+          f"bound_us "
           f"{bms * 1e3:.4f} ({bound_by})", flush=True)
     return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=bound_by, library_ms=library_ms)

@@ -170,3 +170,19 @@ def test_each_probe_variant_names_text_that_occurs_once():
         probe.VARIANTS)
     for name in probe.VARIANTS:
         assert probe.variant_source(name) != code, name
+
+
+def test_each_kernel_ab_variant_names_text_that_occurs_once():
+    """tools/torch_kernel_ab.py --variant times a copy of a kernel source
+    with one piece of text changed; each variant's text must still occur
+    exactly once there, and no variant may leave the source as it is."""
+    import importlib.util
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "torch_kernel_ab", os.path.join(root, "tools", "torch_kernel_ab.py"))
+    ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ab)
+    for name, (kernel, _, _) in ab.VARIANTS.items():
+        with open(_build.source_path(ab.SOURCES[kernel])) as f:
+            assert ab.variant_source(name) != f.read(), name

@@ -70,11 +70,11 @@ CASES = [
     # Dh=128 at the row limit (t*g = 32), blocks smaller than a tile.
     dict(t=4, kv=2, g=8, dh=128, blk=32, table_len=16,
          spread=[100, 511 - 4, 0], seed=3),
-    # A 65536-token table: 512 entries, 64 blocks a CTA at S = 8.
+    # A 65536-token table: 512 entries, 32 blocks a CTA at S = 16.
     dict(t=2, kv=1, g=4, dh=64, blk=128, table_len=512,
          spread=[40000, 3], seed=4),
-    # Lanes with fewer blocks than the cluster has CTAs (3 and 1 of 8), so
-    # some CTAs own nothing and still take part in the merge.
+    # Lanes with fewer blocks than the cluster has CTAs (3 and 1 of 16),
+    # so some CTAs own nothing and still take part in the merge.
     dict(t=1, kv=2, g=4, dh=64, blk=128, table_len=8,
          spread=[300, 0, 900], seed=5),
     # Block counts that are not multiples of S (14 and 21 blocks of 16).
@@ -118,13 +118,13 @@ def test_paged_kernel_gives_the_same_bits_twice(cuda, kv8):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("splits", [1, 3, 16])
+@pytest.mark.parametrize("splits", [1, 3, 8])
 @pytest.mark.parametrize("case", CASES[-3:], ids=lambda c: (
     f"t{c['t']}g{c['g']}dh{c['dh']}blk{c['blk']}"))
 def test_paged_kernel_matches_plain_version_at_other_cluster_sizes(
         cuda, monkeypatch, splits, case):
-    """The split rule at other cluster sizes S, 16 (non-portable) included:
-    the kernel reads S from the launch, so any S from 1 to 16 agrees."""
+    """The split rule at other cluster sizes S than the wrapper's 16: the
+    kernel reads S from the launch, so any S from 1 to 16 agrees."""
     monkeypatch.setattr(pa, "SPLITS", splits)
     for kv8 in (False, True):
         args, scales = _case(cuda, torch.float32, **case), {}

@@ -118,13 +118,16 @@ def test_split_walk_walks_each_owned_block_once(nblk, splits):
 
 
 def test_split_walk_keeps_every_split_busy_on_the_longest_lane():
-    """The strided rule: the 3500-token lane's 28 blocks give every one of
-    the 8 splits work (so a merge that drops the last split shows), and a
-    437-token lane's 4 blocks leave 4 CTAs with none."""
-    assert [len(w) for w in pa.split_walk(28)] == [4, 4, 4, 4, 3, 3, 3, 3]
-    assert pa.split_walk(28)[7] == [7, 15, 23]
-    assert [len(w) for w in pa.split_walk(4)] == [1, 1, 1, 1, 0, 0, 0, 0]
-    assert pa.SPLITS <= pa.MAX_SPLITS
+    """The strided rule: the 3500-token lane's 28 blocks give every split
+    work at S = 8 and at the wrapper's S = 16 (so a merge that drops the
+    last split shows), and a 437-token lane's 4 blocks leave the other
+    CTAs with none."""
+    assert [len(w) for w in pa.split_walk(28, 8)] == [4] * 4 + [3] * 4
+    assert pa.split_walk(28, 8)[7] == [7, 15, 23]
+    assert [len(w) for w in pa.split_walk(4, 8)] == [1] * 4 + [0] * 4
+    assert pa.SPLITS == 16
+    assert [len(w) for w in pa.split_walk(28)] == [2] * 12 + [1] * 4
+    assert pa.split_walk(28)[15] == [15]
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

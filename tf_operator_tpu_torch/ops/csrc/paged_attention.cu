@@ -32,15 +32,15 @@
 //  - The grid is (S, KV, b) with a cluster of (S, 1, 1): the S CTAs of a
 //    cluster share one lane and KV head. S is the caller's (SPLITS in
 //    ops/paged_attention.py, at most 16; above 8 the kernel opts into
-//    non-portable cluster sizes). At the slice's shapes S = 8 gives
-//    8 x 4 x 4 = 128 CTAs on 132 SMs.
+//    non-portable cluster sizes). At the slice's shapes the wrapper's
+//    S = 16 gives 16 x 4 x 4 = 256 CTAs, two an SM.
 //  - Each CTA works out the split itself from the lane's counter: nblk =
 //    ceil((index[b]+t)/blk) owned blocks, and CTA s walks blocks j = s,
 //    s+S, s+2S, ... below nblk (ops/paged_attention.py's split_walk mirrors
 //    the rule). Block 0 falls to split 0, so the merged max is a real
 //    score; the host needs no lane lengths, so nothing syncs with it. The
 //    walk is strided, not contiguous, so the longest lane keeps all S
-//    splits busy (28 blocks at S = 8: 4,4,4,4,3,3,3,3).
+//    splits busy (28 blocks at S = 16: twelve splits of 2, four of 1).
 //  - The walk is pipelined. K and V tiles of TC columns (128, or 64 for f32
 //    at Dh 128 so that two stages fit the 227 KB a CTA may have) land in
 //    shared memory by cp.async in two stages: the next tile's copies, under
@@ -69,8 +69,16 @@
 //    owns no block publishes m = -inf, l = 0, sums 0 (weight 0) and still
 //    reaches both barriers.
 // Tensor cores and TMA stay out: t*g <= 32 rows a KV head and about one
-// flop a byte. PERF.md section 6 has this design's device time on an H100
-// 80GB HBM3 at 700 W (chip_smoke.py, CUDA-graph replay).
+// flop a byte. On an H100 80GB HBM3 at 700 W a call at the slice's shapes
+// takes about 17.1 us (bf16) and 17.9 us (kv8) of device time at S = 16
+// (21.2 and 23.3 us at S = 8), against 17.7 and 17.9 us for the earlier
+// two-launch design in the same call (chip_smoke.py's phases 3 and 11,
+// CUDA-graph replay; PERF.md). Halving the tiles the longest lane's CTAs
+// walk saved about 2 us a tile, and 64-column tiles cost as much a tile as
+// 128-column ones: per-tile latency (barriers, the softmax's shuffles,
+// shared-memory loads one warp a scheduler cannot hide) and a fixed cost
+// outside the walk (the load chain before the first tile, the merge's two
+// cluster barriers, the launch) set the pace, not bytes or FMAs.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -191,8 +199,7 @@ __host__ __device__ constexpr size_t stage_bytes() {
 template <typename TKV, int DH, bool KV8>
 __host__ __device__ constexpr size_t smem_bytes(int rows) {
   return 2 * stage_bytes<TKV, DH, KV8>() +
-         sizeof(float) * (size_t(rows) * DH +
-                          size_t(rows) * tile_cols<TKV, DH>() + 3 * size_t(rows));
+         sizeof(float) * size_t(rows) * (DH + tile_cols<TKV, DH>() + 3);
 }
 
 // CTA (split, kk, b) walks blocks split, split + S, ... of lane b's table for
@@ -260,7 +267,7 @@ paged_attend_kernel(const TQ* __restrict__ q, const TKV* __restrict__ pool_k,
   const int ntiles = nmine * tpb;
   const size_t row_stride = size_t(kv) * DH;
 
-  // Tile it's copies into stage it & 1 (its block's pool entry given).
+  // Issues tile it's copies into stage it & 1 from pool block ent.
   auto issue = [&](int it, int ent) {
     unsigned char* st = stages + (it & 1) * stage_bytes<TKV, DH, KV8>();
     TKV* vt = reinterpret_cast<TKV*>(st + TC * kRowBytes);

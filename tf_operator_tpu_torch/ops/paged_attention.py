@@ -45,10 +45,10 @@ HEAD_DIMS = (16, 32, 64, 128)
 MAX_ROWS = 32
 DTYPES = (torch.float32, torch.bfloat16)
 # The cluster size S: the CTAs that split one lane's block walk for one KV
-# head and merge their partials through distributed shared memory. 8 is
-# the largest portable cluster; the kernel takes up to 16.
-SPLITS = 8
-MAX_SPLITS = 16
+# head and merge their partials through distributed shared memory. The
+# kernel takes 1 to 16 (above 8 a non-portable cluster size); 16 measured
+# faster than 8 at the slice's shapes (PERF.md).
+SPLITS = 16
 
 # Kernel launches since the last reset (set them to 0 to reset): the
 # bf16/f32 pools' kernel, and its kv8 variant.

@@ -4,6 +4,8 @@
     python tools/torch_kernel_ab.py --kernel flash --baseline OLD.cu
     python tools/torch_kernel_ab.py --kernel int8 --baseline OLD.cu
     python tools/torch_kernel_ab.py --checkout DIR
+    python tools/torch_kernel_ab.py --kernel paged --splits 8,16
+    python tools/torch_kernel_ab.py --kernel paged --variant tile64
 
 Builds ``OLD.cu`` (an earlier ``paged_attention.cu``,
 ``flash_attention.cu`` or ``int8_dense.cu`` with the same C entry points,
@@ -13,9 +15,10 @@ checkout's own source, holds each build against the plain versions, and
 times both by CUDA-graph replay in turns (baseline, current, current,
 baseline) on the same inputs at chip_smoke.py's shapes:
 
-- paged: bf16, t=1, 4 lanes at 3500/1750/875/437 tokens, H=16, KV=4,
-  Dh=64, blk=128, one pool pair per layer for 8 layers; the error is the
-  max-abs error against the plain version;
+- paged: bf16 q, t=1, 4 lanes at 3500/1750/875/437 tokens, H=16, KV=4,
+  Dh=64, blk=128, one pool pair per layer for 8 layers, bf16 pools and
+  (kv8) int8 pools with their scales; the error is the max-abs error
+  against the plain version;
 - flash: the forward, dQ and dK/dV kernels at B=2, H=16, T=8192, Dh=64,
   bf16, causal; the errors are each output's largest share of its bound
   (tf_operator_tpu_torch.testing) at T=1000;
@@ -32,6 +35,12 @@ nvcc. ``--kernel paged`` needs a baseline with the one-launch cluster
 kernel's C entries (no scratch pointers, the cluster size in place of
 ``bps``/``nsplit``): a source from before that design has other
 signatures; time it with ``--checkout`` instead.
+
+``--splits A,B`` times the checkout's paged kernel at two cluster sizes
+(``paged_attention.SPLITS``) in turns (A, B, B, A). ``--variant NAME``
+times a copy of the checkout's kernel source with one textual change
+(``VARIANTS``) against the source as it is, in turns (variant, current,
+current, variant).
 
 ``--checkout DIR`` compares whole checkouts, each with its own wrapper and
 source: DIR (e.g. ``git archive`` of an earlier commit unpacked into a
@@ -90,20 +99,34 @@ def _load(module, source: str, entries, borrowed=()) -> ctypes.CDLL:
 
 
 def paged():
-    """(module, entry points, one turn's measurement) of the paged kernel."""
-    q, pools, table, index = cs.paged_case(cs.LANES, 1, torch.bfloat16,
-                                           seed=9, layers=cs.LAYERS)
-    want = pa.paged_attend_reference(q, *pools[0], table, index)
-    bms, bound_by = cs.bound_ms(cs.LANES, 1, torch.bfloat16)
+    """(module, entry points, one turn's measurement) of the paged kernel,
+    both variants."""
+    cases = {}
+    for kv8 in (False, True):
+        q, pools, table, index = cs.attend_case(
+            cs.LANES, 1, torch.bfloat16, 9, kv8, layers=cs.LAYERS)
+        pk, pv, scales = pools[0]
+        want = pa.paged_attend_reference(q, pk, pv, table, index, **scales)
+        cases["kv8" if kv8 else "bf16"] = (
+            q, pools, table, index, want,
+            cs.bound_ms(cs.LANES, 1, torch.bfloat16, kv8)[0])
 
     def turn() -> dict:
-        err = (pa.paged_attend(q, *pools[0], table, index) - want).abs().max()
-        ms = cs.device_ms(lambda i: pa.paged_attend(
-            q, *pools[i % cs.LAYERS], table, index), 400)
-        return dict(ms=ms, max_abs_err=err.item(), bound_ms=bms,
-                    bound_by=bound_by)
+        out = dict(splits=pa.SPLITS)
+        for name, (q, pools, table, index, want, bms) in cases.items():
+            pk, pv, scales = pools[0]
+            err = (pa.paged_attend(q, pk, pv, table, index, **scales)
+                   - want).abs().max()
 
-    return pa, ("paged_attend_launch",), turn
+            def call(i, q=q, pools=pools, table=table, index=index):
+                pk, pv, scales = pools[i % cs.LAYERS]
+                return pa.paged_attend(q, pk, pv, table, index, **scales)
+
+            out[name] = dict(ms=cs.device_ms(call, 400),
+                             max_abs_err=err.item(), bound_ms=bms)
+        return out
+
+    return pa, ("paged_attend_launch", "paged_attend_kv8_launch"), turn
 
 
 def flash():
@@ -173,6 +196,29 @@ def int8():
 
 
 KERNELS = {"paged": paged, "flash": flash, "int8": int8}
+# Textual variants of a kernel source: name -> (kernel, text, changed
+# text); the text occurs once in the source.
+VARIANTS = {
+    # 64-column K/V tiles for bf16 pools at Dh 64 (128 as it is).
+    "tile64": ("paged", "  return sizeof(TKV) * DH >= 512 ? 64 : 128;",
+               "  return sizeof(TKV) * DH >= 512 || "
+               "(sizeof(TKV) == 2 && DH == 64) ? 64 : 128;"),
+}
+SOURCES = {"paged": "paged_attention", "flash": "flash_attention",
+           "int8": "int8_dense"}
+
+
+def variant_source(name: str) -> str:
+    """The checkout's kernel source with variant ``name``'s change."""
+    kernel, text, changed = VARIANTS[name]
+    with open(_build.source_path(SOURCES[kernel])) as f:
+        code = f.read()
+    if code.count(text) != 1:
+        raise RuntimeError(f"{name}: {text!r} occurs {code.count(text)} "
+                           "times, want once")
+    return code.replace(text, changed)
+
+
 # chip_smoke's phases 3 and 11 in a checkout's own directory.
 PAGED_PHASES = """
 import json, torch
@@ -199,6 +245,8 @@ def checkout_turns(baseline: str) -> int:
                               **json.loads(run.stdout.splitlines()[-1]))),
               flush=True)
     return 0
+
+
 # Entries the wrapper reads beside the launch, which an earlier source may
 # lack: int8_design only sorts the wrapper's launch counts.
 BORROWED = {"int8": ("int8_design",)}
@@ -213,9 +261,17 @@ def main() -> int:
     which.add_argument("--checkout",
                        help="an earlier checkout whose paged phases to time "
                             "against")
+    which.add_argument("--variant", choices=sorted(VARIANTS),
+                       help="a textual variant of the checkout's source")
+    which.add_argument("--splits",
+                       help="two paged cluster sizes to time, e.g. 8,16")
     args = ap.parse_args()
-    if args.baseline and not args.kernel:
-        ap.error("--baseline needs --kernel")
+    if (args.baseline or args.splits) and not args.kernel:
+        ap.error("--baseline and --splits need --kernel")
+    if args.splits and args.kernel != "paged":
+        ap.error("--splits is for --kernel paged")
+    if args.variant:
+        args.kernel = VARIANTS[args.variant][0]
     if not torch.cuda.is_available():
         print("torch_kernel_ab: torch sees no CUDA device", file=sys.stderr)
         return 2
@@ -224,12 +280,26 @@ def main() -> int:
         return checkout_turns(args.checkout)
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     module, entries, turn = KERNELS[args.kernel]()
+    if args.splits:
+        a, b = (int(s) for s in args.splits.split(","))
+        for splits in (a, b, b, a):
+            pa.SPLITS = splits
+            print(json.dumps(dict(build="current", **turn())), flush=True)
+        return 0
+    baseline = args.baseline
+    if args.variant:
+        baseline = os.path.join(_build.BUILD_DIR,
+                                f"{SOURCES[args.kernel]}_{args.variant}.cu")
+        with open(baseline, "w") as f:
+            f.write(variant_source(args.variant))
     libs = {"current": module._library(),
-            "baseline": _load(module, os.path.abspath(args.baseline),
+            "baseline": _load(module, os.path.abspath(baseline),
                               entries, BORROWED.get(args.kernel, ()))}
+    label = args.variant or "baseline"
     for name in ("baseline", "current", "current", "baseline"):
         module._lib = libs[name]  # the wrappers launch through this library
-        print(json.dumps(dict(build=name, **turn())), flush=True)
+        print(json.dumps(dict(build=label if name == "baseline" else name,
+                              **turn())), flush=True)
     module._lib = libs["current"]
     return 0
 
