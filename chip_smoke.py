@@ -101,9 +101,33 @@ Phases, in order; any failure ends the run with a non-zero exit:
     decode tokens/s, prefill seconds and the last 8 steps under
     torch.profiler, beside phase 7's bf16 numbers; 41 int8 matmul
     launches per forward, a prefill's 40 projections on the wgmma tile;
-14. the ``kernels`` JSON line (each kernel with its design; B5 as two
+14. the sampler (``tf_operator_tpu_torch/random.py``, ``generate``, the
+    engine's sampled lanes): (a) on the card, Threefry-2x32 against
+    Random123's three known answers, ``split(PRNGKey(0), 3)`` and
+    ``fold_in(PRNGKey(0), 7)`` against JAX's values, and ``random_bits``
+    and ``uniform`` over [4, 32768] bitwise equal to the CPU's; (b) phase
+    6's f32 engine with a sampled mix (``SAMPLING``: lane 0 greedy, lane 1
+    at T 0.9, lane 2 at T 0.7 with top_p 0.8, lane 3 at T 1.0 with top_p
+    0.95), 64 steps with kv_attend="kernel" and "gather": tokens identical,
+    n_layers kernel launches a forward, and each lane against the solo
+    ``generate`` of its prompt and seed on the card: tokens identical or,
+    in at most one lane, parting at a near-tie (the solo run's top two
+    values of gumbel + scaled logits, at the first step where they part,
+    within ``NEAR_TIE``); (c) the mix in bf16 through the kernel: decode
+    tokens/s and 8 steps under torch.profiler, device busy time and
+    device operations a step, in turns with the same prompts all greedy
+    (greedy, sampled, sampled, greedy); (d)
+    ``generate`` with int8_decode + kv_int8 at B=4 prompts of 875 tokens,
+    64 steps, T 0.9 and top_p 0.9: in f32 the kernel route against
+    ``plain_int8_apply`` step by step, teacher-forced on the kernel run's
+    tokens (``int8_generate_phase`` says why), and in bf16 decode
+    tokens/s and B5's launches (41 a forward on the weight stream; the
+    prefill's 40 projections on the wgmma tile);
+15. the ``kernels`` JSON line (each kernel with its design; B5 as two
     entries, the weight stream and the wgmma tile, each with its own
-    launches), the card line, and last the result line.
+    launches; ``paths`` gives each kernel's launches on every path of
+    this run that drives it, and ``launches`` is their sum), the card
+    line, and last the result line.
 
 It exits non-zero without a result when torch sees no CUDA device.
 """
@@ -208,6 +232,36 @@ DECODE_M, PREFILL_M = 4, 3500
 # logits by about 2e-2 (phase 12 prints the largest). tools/plant_fault.py
 # reads this check on planted faults (PERF.md section 6 has its readings).
 LOGIT_TOL = 5e-2
+# Phase 14, the sampler. Random123's Threefry-2x32 known answers (key,
+# counter, output); JAX 0.9.0's split(PRNGKey(0), 3) and
+# fold_in(PRNGKey(0), 7).
+WORD = 0xFFFFFFFF
+RANDOM123 = [((0, 0), (0, 0), (0x6B200159, 0x99BA4EFE)),
+             ((WORD, WORD), (WORD, WORD), (0x1CB996FC, 0xBB002BE7)),
+             ((0x13198A2E, 0x03707344), (0x243F6A88, 0x85A308D3),
+              (0xC4923A9C, 0x483DF7A0))]
+SPLIT_0_3 = [[1797259609, 2579123966], [928981903, 3453687069],
+             [4146024105, 2718843009]]
+FOLD_IN_0_7 = [2716826189, 292468403]
+# The sampled mix, lane by lane: (temperature, top_p, seed).
+SAMPLING = [(0.0, None, 0), (0.9, None, 101), (0.7, 0.8, 102),
+            (1.0, 0.95, 103)]
+# (b): where a lane's tokens part from its solo run, the solo run's top two
+# values of gumbel + scaled logits (logits, greedy) at the first parting
+# step lie within NEAR_TIE; at most one lane parts.
+NEAR_TIE = 1e-4
+# (d): generate with int8_decode + kv_int8, B prompts of P tokens.
+INT8_GEN_B, INT8_GEN_P, INT8_GEN_STEPS = 4, 875, 64
+INT8_GEN_T, INT8_GEN_TOP_P, INT8_GEN_SEED = 0.9, 0.9, 104
+# (d), f32: a decision of the kernel route and the plain route, fed the
+# same tokens, may differ only at a near-tie: where the kernel route's top
+# two values lie within what LOGIT_TOL of logit difference moves a value at
+# T, or at the nucleus cutoff, where one route keeps a token the other drops
+# and the token's probability mass ranked ahead of it lies, in both routes,
+# within what that difference moves a mass (each probability by a factor
+# within exp(+-2 LOGIT_TOL / T)) of top_p.
+INT8_NEAR_TIE = LOGIT_TOL / INT8_GEN_T
+INT8_MASS_TOL = math.expm1(2 * LOGIT_TOL / INT8_GEN_T)
 
 
 def card_line() -> str:
@@ -612,10 +666,11 @@ def bf16_rounded(tree: dict) -> dict:
             for k, v in tree.items()}
 
 
-def int8_engine_phases(pa, base, params, prompts, card, bf16_ref) -> dict:
+def int8_engine_phases(pa, base, params, prompts, card,
+                       bf16_ref) -> tuple[dict, dict]:
     """Phases 12 and 13: the int8_decode + kv_int8 engine in f32 through
     the kernels against the plain versions, then in bf16 through the
-    kernels; returns the bf16 run's launches."""
+    kernels; returns the kernel runs' launches (f32, bf16)."""
     from tf_operator_tpu_torch.models.convert import quantize_decode_params
 
     cfg = replace(base, int8_decode=True, kv_int8=True)
@@ -657,7 +712,7 @@ def int8_engine_phases(pa, base, params, prompts, card, bf16_ref) -> dict:
           f"{bf16_ref['decode_tok_s']:.2f} prefill_s "
           f"{bf16_ref['prefill_s']:.4f} {busy(bf16_ref)}; on {card}",
           flush=True)
-    return bf16["launches"]
+    return kern["launches"], bf16["launches"]
 
 
 def flash_inputs(b, tq, tk, dtype, seed, fused=False):
@@ -955,7 +1010,8 @@ def profile_steps(run, steps: int, label: str) -> dict:
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"profile:   {us / steps:9.1f} us/step  {name[:100]}",
               flush=True)
-    return dict(busy_share=busy / wall_us, busy_us=busy / steps)
+    return dict(busy_share=busy / wall_us, busy_us=busy / steps,
+                events=len(spans) / steps)
 
 
 def engine_run(pa, cfg, params, attend, prompts, profile: int = 0) -> dict:
@@ -1104,6 +1160,320 @@ def lockstep_phase(pa, cfg, params, prompts) -> dict:
                 prefills=len(prompts) + 1)
 
 
+def sampler_known_answers() -> None:
+    """Phase 14 (a): the sampler's integer parts on the card against
+    Random123's and JAX's known answers, and against the CPU bit for bit
+    (a uniform float is a bitcast of its bits)."""
+    from tf_operator_tpu_torch import random as tr
+
+    for key, ctr, out in RANDOM123:
+        words = (torch.tensor(w, dtype=torch.int64, device="cuda")
+                 for w in (*key, *ctr))
+        got = [int(w) for w in tr.threefry2x32(*words)]
+        if got != list(out):
+            raise AssertionError(f"threefry2x32 key {key} counter {ctr}: "
+                                 f"{got}, want {list(out)}")
+    key = tr.PRNGKey(0, "cuda")
+    split, fold = tr.split(key, 3).tolist(), tr.fold_in(key, 7).tolist()
+    if split != SPLIT_0_3 or fold != FOLD_IN_0_7:
+        raise AssertionError(f"split(PRNGKey(0), 3) {split}, fold_in("
+                             f"PRNGKey(0), 7) {fold}")
+    shape, key = (4, 32768), tr.PRNGKey(2024, "cuda")
+    same_bits = torch.equal(tr.random_bits(key, shape).cpu(),
+                            tr.random_bits(key.cpu(), shape))
+    same_floats = torch.equal(
+        tr.uniform(key, shape).cpu().view(torch.int32),
+        tr.uniform(key.cpu(), shape).view(torch.int32))
+    print(f"sampler on the card: threefry2x32 at Random123's 3 known "
+          f"answers, split(PRNGKey(0), 3) = {split}, fold_in(PRNGKey(0), 7) "
+          f"= {fold}; random_bits {shape} equal to the CPU's: {same_bits}, "
+          f"uniform: {same_floats}", flush=True)
+    if not (same_bits and same_floats):
+        raise AssertionError("the card's random bits differ from the CPU's")
+
+
+def replay_values(model, prompt, feed, temperature, top_p, seed, steps):
+    """What a solo run at (temperature, top_p, seed) samples from at each
+    of ``steps`` steps when fed the tokens ``feed`` ``[B, steps]``
+    (teacher forcing): ``[steps, B, V]`` f32, gumbel(key i) + the scaled,
+    nucleus-filtered logits (the logits, greedy), by generate's own
+    operations, so their argmax is the token generate takes; and the
+    scaled logits before the filter."""
+    from tf_operator_tpu_torch.models.transformer import (
+        _nucleus_filter,
+        _prefill,
+    )
+    from tf_operator_tpu_torch.random import PRNGKey, gumbel, split
+
+    keys = split(PRNGKey(seed, prompt.device), steps)
+    temp = torch.tensor(temperature, dtype=torch.float32,
+                        device=prompt.device)
+    out, pre = [], []
+    with torch.no_grad():
+        cache, logits = _prefill(model, prompt)
+        for i in range(steps):
+            values = scaled = logits
+            if temperature > 0:
+                scaled = logits / temp
+                kept = (scaled if top_p is None
+                        else _nucleus_filter(scaled, top_p))
+                values = gumbel(keys[i], scaled.shape) + kept
+            out.append(values)
+            pre.append(scaled)
+            if i + 1 < steps:
+                logits = model(feed[:, i:i + 1], cache)[:, 0]
+    return torch.stack(out), torch.stack(pre)
+
+
+def mass_ahead(scaled: torch.Tensor) -> torch.Tensor:
+    """Each token's probability mass ranked ahead of it in a row of scaled
+    logits (the nucleus filter's cutoff statistic), in f64."""
+    order = torch.argsort(scaled, stable=True).flip(-1)
+    p = torch.softmax(scaled.double()[order], -1)
+    out = torch.empty_like(p)
+    out[order] = p.cumsum(-1) - p
+    return out
+
+
+def top_two_gap(values: torch.Tensor) -> torch.Tensor:
+    """Each row's largest value minus its second largest."""
+    top = values.topk(2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def sampled_engine_run(pa, cfg, params, attend, prompts, steps,
+                       profile: int = 0, mix=SAMPLING) -> dict:
+    """Phase 14's engine: the prompts join with ``mix``'s parameters (B4's
+    counts set to 0 just before the first join), ``steps`` timed steps,
+    then ``profile`` more under torch.profiler."""
+    from tf_operator_tpu_torch.serve.engine import ContinuousEngine
+
+    engine = ContinuousEngine(cfg, params, len(prompts), kv_block=BLK,
+                              kv_attend=attend)
+    pa.launches = pa.kv8_launches = 0
+    slots = [engine.join(p, num_steps=steps + profile, temperature=t,
+                         top_p=tp, seed=seed)
+             for p, (t, tp, seed) in zip(prompts, mix)]
+    if slots != list(range(len(prompts))):
+        raise AssertionError(f"sampled joins got slots {slots}")
+    torch.cuda.synchronize()
+    tokens = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        tokens.append(engine.step())
+    decode_s = time.perf_counter() - t0
+    label = "sampled" if mix == SAMPLING else "greedy"
+    prof = (profile_steps(engine.step, profile, f"{label} decode steps")
+            if profile else {})
+    torch.cuda.synchronize()
+    if not torch.isfinite(engine._logits).all():
+        raise AssertionError("non-finite logits")
+    out = dict(tokens=np.stack(tokens), launches=pa.launches,
+               forwards=engine.steps_total,
+               decode_tok_s=len(prompts) * steps / decode_s, profile=prof)
+    print(f"engine {cfg.dtype} {label} mix {attend}: decode tokens/s "
+          f"{out['decode_tok_s']:.2f} forwards {out['forwards']} "
+          f"paged_attend launches {out['launches']}", flush=True)
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def sampler_engine_phase(pa, base, params, prompts, card) -> dict:
+    """Phase 14 (b) and (c): the sampled mix through the engine in f32
+    (kernel against gather, each lane against its solo generate), then in
+    bf16 through the kernel in turns with the same prompts all greedy
+    (greedy, sampled, sampled, greedy), each timed and its last steps
+    profiled: the sampler's cost. Returns B4's launches on the f32 kernel
+    run and the first bf16 sampled run."""
+    from tf_operator_tpu_torch.models.transformer import (
+        _decode_model,
+        generate,
+    )
+    from tf_operator_tpu_torch.random import PRNGKey
+
+    runs = {attend: sampled_engine_run(pa, base, params, attend, prompts,
+                                       FIRST_STEPS)
+            for attend in ("kernel", "gather")}
+    kern = runs["kernel"]
+    if (kern["launches"] != LAYERS * kern["forwards"]
+            or runs["gather"]["launches"]):
+        raise AssertionError(f"sampled engine paged_attend launches "
+                             f"{kern['launches']} over {kern['forwards']} "
+                             f"forwards (gather {runs['gather']['launches']})")
+    if not np.array_equal(kern["tokens"], runs["gather"]["tokens"]):
+        diff = np.argwhere(kern["tokens"] != runs["gather"]["tokens"])
+        raise AssertionError(f"sampled kernel tokens differ from gather at "
+                             f"(step, slot) {diff[:8].tolist()}")
+    model = _decode_model(base, params, None)
+    parted = []
+    for lane, (prompt, (t, tp, seed)) in enumerate(zip(prompts, SAMPLING)):
+        prompt = torch.as_tensor(prompt, device=model.device)
+        kw = dict(temperature=t, top_p=tp, rng=PRNGKey(seed, model.device)) \
+            if t > 0 else {}
+        solo = generate(base, model, prompt, FIRST_STEPS, **kw)
+        lane_toks = kern["tokens"][:, lane]
+        if np.array_equal(solo[0].cpu().numpy(), lane_toks):
+            continue
+        step = int(np.flatnonzero(solo[0].cpu().numpy() != lane_toks)[0])
+        values, _ = replay_values(model, prompt, solo, t, tp, seed,
+                                  FIRST_STEPS)
+        parted.append((lane, step, top_two_gap(values[step, 0]).item()))
+    del model
+    torch.cuda.empty_cache()
+    print(f"engine f32 sampled mix {SAMPLING} (temperature, top_p, seed): "
+          f"kernel tokens == gather tokens over {kern['tokens'].shape} "
+          f"(step, slot); lanes parting from their solo generate (lane, "
+          f"first step, the solo run's top-two gap there): {parted} "
+          f"(limit {NEAR_TIE}, at most one lane)", flush=True)
+    if len(parted) > 1 or any(gap > NEAR_TIE for _, _, gap in parted):
+        raise AssertionError(f"sampled lanes part from solo generate away "
+                             f"from a near-tie: {parted}")
+
+    greedy = [(0.0, None, 0)] * len(prompts)
+    turns = [(name, sampled_engine_run(
+        pa, replace(base, dtype=torch.bfloat16), params, "kernel", prompts,
+        FIRST_STEPS, profile=PROFILE_STEPS, mix=mix))
+        for name, mix in (("greedy", greedy), ("sampled", SAMPLING),
+                          ("sampled", SAMPLING), ("greedy", greedy))]
+    for name, run in turns:
+        if run["launches"] != LAYERS * run["forwards"]:
+            raise AssertionError(f"bf16 {name} launches {run['launches']}")
+
+    def read(name, key):
+        return [run["profile"].get(key, "not measured")
+                for n, run in turns if n == name]
+
+    print(f"engine bf16 kernel, in turns greedy, sampled, sampled, greedy: "
+          f"decode tokens/s {[round(r['decode_tok_s'], 2) for _, r in turns]}"
+          f"; device busy us/step sampled {read('sampled', 'busy_us')} "
+          f"greedy {read('greedy', 'busy_us')}; device operations/step "
+          f"sampled {read('sampled', 'events')} greedy "
+          f"{read('greedy', 'events')}; busy share sampled "
+          f"{read('sampled', 'busy_share')} greedy "
+          f"{read('greedy', 'busy_share')} on {card}", flush=True)
+    return {"sampled engine f32 (14b)": kern["launches"],
+            "sampled engine bf16 (14c)": turns[1][1]["launches"]}
+
+
+def int8_generate_phase(i8, base, params, card) -> dict:
+    """Phase 14 (d): ``generate`` with int8_decode + kv_int8 at B=4
+    prompts of 875 tokens, 64 sampled steps. In f32 through the kernels,
+    with B5's counts set to 0 just before it; then the kernel route and
+    the plain route (``plain_int8_apply``) replayed on the kernel run's
+    tokens, step by step (``replay_values``): the kernel replay must take
+    every token generate took, the values both routes keep must lie within
+    LOGIT_TOL / T, and each plain decision must equal the kernel's or fall
+    at a near-tie (``INT8_NEAR_TIE``, ``INT8_MASS_TOL``).
+    Teacher-forced, as phase 12: the int8 path rounds every projection's
+    input to bf16, so the two routes' logits part by up to ~2e-2, and a
+    free-running lane parts at a Gumbel gap that small (a chance of that
+    size a step) and then no longer compares. Then bf16: tokens/s and
+    B5's launches. Returns B5's launches by kernel and run."""
+    from tf_operator_tpu_torch.models import transformer
+    from tf_operator_tpu_torch.models.convert import quantize_decode_params
+    from tf_operator_tpu_torch.models.transformer import (
+        _decode_model,
+        _prefill,
+        generate,
+    )
+    from tf_operator_tpu_torch.random import PRNGKey
+
+    cfg = replace(base, int8_decode=True, kv_int8=True)
+    model = _decode_model(cfg, quantize_decode_params(params), None)
+    prompt = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (INT8_GEN_B, INT8_GEN_P)).astype(np.int32),
+        device=model.device)
+    t, tp, seed, steps = (INT8_GEN_T, INT8_GEN_TOP_P, INT8_GEN_SEED,
+                          INT8_GEN_STEPS)
+    kw = dict(temperature=t, top_p=tp, rng=PRNGKey(seed, model.device))
+    calls = 5 * cfg.n_layers + 1
+    # A prefill and steps - 1 decode forwards (the last step's is not run).
+    want_calls = calls * steps
+
+    i8.launches = i8.wgmma_launches = 0
+    toks = generate(cfg, model, prompt, steps, **kw)
+    torch.cuda.synchronize()
+    f32 = (i8.launches, i8.wgmma_launches)
+    if f32 != (want_calls, 0):  # f32 x: the prefill takes the mma.sync tile
+        raise AssertionError(f"int8 generate f32 launches {f32}, want "
+                             f"{(want_calls, 0)}")
+    values, scaled = replay_values(model, prompt, toks, t, tp, seed, steps)
+    if not torch.equal(values.argmax(-1).T.to(torch.int32), toks):
+        raise AssertionError("the kernel replay does not take generate's "
+                             "tokens")
+    with mock.patch.object(transformer, "int8_apply", plain_int8_apply):
+        plain, plain_scaled = replay_values(model, prompt, toks, t, tp, seed,
+                                            steps)
+    kept = (values > -1e29) & (plain > -1e29)
+    worst = (values - plain).abs()[kept].max().item()
+    mine, theirs = values.argmax(-1), plain.argmax(-1)
+    gaps = top_two_gap(values)
+    decisions, unexplained = [], []
+    for i, b in (mine != theirs).nonzero().tolist():
+        ahead = (mass_ahead(scaled[i, b]), mass_ahead(plain_scaled[i, b]))
+        # A token one route's nucleus keeps and the other's drops, its mass
+        # ahead within INT8_MASS_TOL of top_p in both.
+        cut = [x for x in {mine[i, b].item(), theirs[i, b].item()}
+               if (values[i, b, x] > -1e29) != (plain[i, b, x] > -1e29)
+               and all(abs(m[x].item() - tp) <= INT8_MASS_TOL
+                       for m in ahead)]
+        row = dict(step=i, row=b, gap=gaps[i, b].item(), cutoff=[
+            (x, ahead[0][x].item(), ahead[1][x].item()) for x in cut])
+        decisions.append(row)
+        if not (row["gap"] <= INT8_NEAR_TIE or cut):
+            unexplained.append(row)
+    print(f"generate f32 int8_decode kv_int8 B={INT8_GEN_B} P={INT8_GEN_P} "
+          f"steps {steps} T {t} top_p {tp}, kernels vs plain_int8_apply "
+          f"fed the same tokens: kept values at most {worst:.4e} apart "
+          f"(tolerance {LOGIT_TOL / t:.4e}); {len(decisions)} of "
+          f"{mine.numel()} decisions differ: {decisions} (each at a "
+          f"top-two gap within {INT8_NEAR_TIE:.4e}, or at the nucleus "
+          f"cutoff: token, mass ahead in the kernel and the plain route, "
+          f"within {INT8_MASS_TOL:.4e} of top_p); B5 launches {f32[0]}",
+          flush=True)
+    if unexplained or not worst <= LOGIT_TOL / t:
+        raise AssertionError(f"int8 generate: kernel and plain routes "
+                             f"disagree: {unexplained}")
+    del model, values, plain, scaled, plain_scaled
+    torch.cuda.empty_cache()
+
+    cfg16 = replace(cfg, dtype=torch.bfloat16)
+    model = _decode_model(cfg16, quantize_decode_params(
+        bf16_rounded(params)), None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        _prefill(model, prompt)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    i8.launches = i8.wgmma_launches = 0
+    t0 = time.perf_counter()
+    toks = generate(cfg16, model, prompt, steps, **kw)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    bf16 = (i8.launches, i8.wgmma_launches)
+    # The prefill's 40 projections on the wgmma tile; its head row and
+    # every decode forward on the weight stream.
+    if bf16 != (want_calls, calls - 1):
+        raise AssertionError(f"int8 generate bf16 launches {bf16}, want "
+                             f"{(want_calls, calls - 1)}")
+    if toks.shape != (INT8_GEN_B, steps) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError("int8 generate bf16: bad tokens")
+    print(f"generate bf16 int8_decode kv_int8 B={INT8_GEN_B} P={INT8_GEN_P} "
+          f"steps {steps}: {gen_s:.4f} s, prefill alone {prefill_s:.4f} s, "
+          f"decode tokens/s {INT8_GEN_B * steps / (gen_s - prefill_s):.2f} "
+          f"(generate's time less the prefill's); B5 launches {bf16[0]}, "
+          f"{bf16[1]} of them on the wgmma tile ({calls} a forward) on "
+          f"{card}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return {"int8_matmul": {"int8 generate f32 (14d)": f32[0] - f32[1],
+                            "int8 generate bf16 (14d)": bf16[0] - bf16[1]},
+            "int8_matmul_prefill": {"int8 generate bf16 (14d)": bf16[1]}}
+
+
 def key_bias_rows(name: str, p: torch.Tensor):
     """The key-bias slice of an attention bias, or None."""
     if name.endswith("attn.qkv.bias"):
@@ -1156,10 +1526,11 @@ def train_run(cfg, params, batch, steps: int, tx, *, plain=False,
                 grads=grads, profile=prof)
 
 
-def train_f32_phase(params) -> None:
+def train_f32_phase(params) -> dict:
     """The f32 trainer through the kernels against the same trainer with
     reference_attention, 3 steps of adamw on the warmup-cosine schedule:
-    step 0's gradients (at lr 0), the losses, then the weights."""
+    step 0's gradients (at lr 0), the losses, then the weights. Returns
+    the kernel run's flash launches."""
     from tf_operator_tpu_torch.models.transformer import TransformerConfig
     from tf_operator_tpu_torch.testing import excess
     from tf_operator_tpu_torch.train.steps import adamw, warmup_cosine
@@ -1233,8 +1604,11 @@ def train_f32_phase(params) -> None:
                              "disagree")
     if not all(math.isfinite(x) for x in kern["losses"]):
         raise AssertionError("f32 trainer: non-finite loss")
+    counts = kern["counts"]
     del runs, kern, ref, ref_params
     torch.cuda.empty_cache()
+    return dict(flash_fwd=counts["fwd"], flash_dq=counts["dq"],
+                flash_dkv=counts["dkv"])
 
 
 def train_bf16_phase(params, card: str) -> dict:
@@ -1360,47 +1734,75 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     lm_params = init_params(TransformerConfig(**LM), seed=0)
-    train_f32_phase(lm_params)
-    flash_launches = train_bf16_phase(lm_params, card)
+    flash_f32 = train_f32_phase(lm_params)
+    flash_bf16 = train_bf16_phase(lm_params, card)
     del lm_params
 
     int8_err = int8_check_phase(i8)
     int8, int8_prefill = int8_timing_phase(i8, card)
     kv8 = kernel_phase(pa, kv8=True)
-    int8_launches = int8_engine_phases(pa, base, params, prompts, card, bf16)
+    int8_f32, int8_bf16 = int8_engine_phases(pa, base, params, prompts, card,
+                                             bf16)
+
+    sampler_known_answers()
+    sampled = sampler_engine_phase(pa, base, params, prompts, card)
+    int8_gen = int8_generate_phase(i8, base, params, card)
+
+    # Each kernel's launches on every path of this run that drives it.
+    paths = {
+        "paged_attend": {
+            "engine f32 (6)": f32["kernel"]["launches"]["paged_attend"],
+            "engine bf16 (7)": bf16["launches"]["paged_attend"], **sampled},
+        "paged_attend_kv8": {
+            "int8 engine f32 (12)": int8_f32["paged_attend_kv8"],
+            "int8 engine bf16 (13)": int8_bf16["paged_attend_kv8"]},
+        "int8_matmul": {
+            "int8 engine f32 (12)": (int8_f32["int8_matmul"]
+                                     - int8_f32["int8_wgmma"]),
+            "int8 engine bf16 (13)": (int8_bf16["int8_matmul"]
+                                      - int8_bf16["int8_wgmma"]),
+            **int8_gen["int8_matmul"]},
+        "int8_matmul_prefill": {
+            "int8 engine bf16 (13)": int8_bf16["int8_wgmma"],
+            **int8_gen["int8_matmul_prefill"]},
+    }
+    for name in flash_bf16:
+        paths[name] = {"trainer f32 (8)": flash_f32[name],
+                       "trainer bf16 (9)": flash_bf16[name]}
 
     src = "tf_operator_tpu_torch/ops/csrc/"
     replaces = {"flash_fwd": 253, "flash_dq": 297, "flash_dkv": 331}
     kernels = [dict(
         name="paged_attend", route="cuda", source=src + "paged_attention.cu",
-        replaces="tf_operator_tpu/ops/paged_attention.py:126",
-        launches=bf16["launches"]["paged_attend"], **kernel,
+        replaces="tf_operator_tpu/ops/paged_attention.py:126", **kernel,
         design=OTHER_DESIGNS["paged_attend"].format(S=pa.SPLITS),
     ), dict(
         name="paged_attend_kv8", route="cuda",
         source=src + "paged_attention.cu",
-        replaces="tf_operator_tpu/ops/paged_attention.py:126",
-        launches=int8_launches["paged_attend_kv8"], **kv8,
+        replaces="tf_operator_tpu/ops/paged_attention.py:126", **kv8,
         design=OTHER_DESIGNS["paged_attend_kv8"].format(S=pa.SPLITS),
     ), dict(
         name="int8_matmul", route="cuda", source=src + "int8_dense.cu",
         replaces="tf_operator_tpu/ops/int8_dense.py:47",
-        launches=int8_launches["int8_matmul"] - int8_launches["int8_wgmma"],
         max_abs_err=int8_err["stream"], **int8,
         design=OTHER_DESIGNS["int8_matmul"],
     ), dict(
         name="int8_matmul_prefill", route="cuda",
         source=src + "int8_dense.cu",
         replaces="tf_operator_tpu/ops/int8_dense.py:47",
-        launches=int8_launches["int8_wgmma"],
         max_abs_err=int8_err["tma-wgmma"], **int8_prefill,
         design=OTHER_DESIGNS["int8_matmul_prefill"],
     )] + [dict(
         name=name, route="cuda", source=src + "flash_attention.cu",
         replaces=f"tf_operator_tpu/ops/flash_attention.py:{line}",
-        launches=flash_launches[name], max_abs_err=flash_err[name],
-        **flash[name],
+        max_abs_err=flash_err[name], **flash[name],
     ) for name, line in replaces.items()]
+    for k in kernels:
+        k["paths"] = paths[k["name"]]
+        k["launches"] = sum(k["paths"].values())
+        if not all(k["paths"].values()):
+            raise AssertionError(f"{k['name']} not launched on a path: "
+                                 f"{k['paths']}")
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

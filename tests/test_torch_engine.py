@@ -1,11 +1,15 @@
 """The port's ContinuousEngine (tf_operator_tpu_torch/serve/engine.py, on
 the CPU in f32) held against the JAX ContinuousEngine on one schedule:
 join, step, retire, slot reuse, a shared-prefix suffix join and an
-exact-prefix re-join that triggers copy-on-write. The JAX engine reads
-the pool in ``gather`` mode and in Pallas interpret mode; the port in
-``gather`` and ``kernel`` mode (its plain version on the CPU). Greedy
-tokens must be identical at every step, and the block accounting
-(``kv_debug``) must match after every phase. Weights are the JAX init's,
+exact-prefix re-join that triggers copy-on-write, with one-shot and
+chunked prefill. The JAX engine reads the pool in ``gather`` mode and in
+Pallas interpret mode; the port in ``gather`` and ``kernel`` mode (its
+plain version on the CPU). Greedy tokens must be identical at every
+step, and the block accounting (``kv_debug``) must match after every
+phase. Then JAX's own exactness matrix (tests/test_serve_engine.py:
+greedy, sampled and nucleus requests over an occupancy walk): each
+request's tokens equal JAX's solo ``generate`` for its seed, bit for bit,
+under both reads and both prefill modes. Weights are the JAX init's,
 converted by models/convert.py."""
 
 from dataclasses import replace
@@ -24,6 +28,13 @@ from tf_operator_tpu.serve.engine import ContinuousEngine as JaxEngine
 from tf_operator_tpu_torch.models.convert import init_params
 from tf_operator_tpu_torch.models.transformer import TransformerConfig
 from tf_operator_tpu_torch.serve.engine import ContinuousEngine
+from test_serve_engine import (
+    CFG as MATRIX_CFG,
+    MATRIX_REQS,
+    MATRIX_SCRIPT,
+    drive,
+    solo,
+)
 
 torch.set_num_threads(1)
 
@@ -104,11 +115,80 @@ def _engine(**kw):
                             **{"kv_block": BLK, "device": "cpu", **kw})
 
 
-def test_sampling_waits_for_the_sampler_port():
+@pytest.mark.parametrize("prefill_chunk", [None, 4])
+@pytest.mark.parametrize("attend", ["gather", "kernel"])
+def test_engine_matrix_equals_jax_solo_generate(attend, prefill_chunk):
+    """JAX's tentpole pin, ported: every request of the occupancy walk,
+    greedy, sampled and nucleus, gives JAX's solo generate tokens for its
+    seed, bit for bit."""
+    params = JaxTransformer(MATRIX_CFG).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"]
+    cfg = TransformerConfig(
+        dtype=torch.float32, **{k: getattr(MATRIX_CFG, k) for k in (
+            "vocab_size", "d_model", "n_layers", "n_heads", "d_ff",
+            "max_seq_len")})
+    engine = ContinuousEngine(cfg, jax.tree.map(np.asarray, params), 4,
+                              kv_block=8, kv_attend=attend,
+                              prefill_chunk=prefill_chunk, device="cpu")
+    got = drive(engine, MATRIX_REQS, MATRIX_SCRIPT)
+    for name, (prompt, steps, t, tp, seed) in MATRIX_REQS.items():
+        want = solo(params, prompt, steps, temperature=t, top_p=tp,
+                    seed=seed)
+        np.testing.assert_array_equal(np.asarray(got[name]), want,
+                                      err_msg=name)
+
+
+def test_chunked_prefill_engine_matches_jax_engine():
+    """The schedule with prefill_chunk=4 on both sides: chunked prompt
+    prefills and the chunked suffix prefill on a seeded cache."""
+    jcfg = JaxConfig(dtype=jnp.float32, n_kv_heads=2, **KW)
+    params = JaxTransformer(jcfg).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"]
+    want = _schedule(JaxEngine(jcfg, params, max_slots=SLOTS,
+                               kv_paged=True, kv_block=BLK,
+                               prefill_chunk=4))
+    tcfg = TransformerConfig(dtype=torch.float32, n_kv_heads=2, **KW)
+    got = _schedule(ContinuousEngine(
+        tcfg, jax.tree.map(np.asarray, params), SLOTS, kv_block=BLK,
+        kv_attend="kernel", prefill_chunk=4, device="cpu"))
+    assert got == want
+    assert got[2][-2]["prefix_hits"] == 2
+
+
+@pytest.mark.parametrize("kw,msg", [
+    (dict(temperature=0.7, top_p=0.0), r"must be in \(0, 1\]"),
+    (dict(temperature=0.7, top_p=1.5), r"must be in \(0, 1\]"),
+    (dict(top_p=0.9), "requires temperature > 0"),
+])
+def test_join_rejects_bad_sampling_before_any_state(kw, msg):
     engine = _engine()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A3"):
-        engine.join(_prompt(5, 0), num_steps=4, temperature=0.7)
+    with pytest.raises(ValueError, match=msg):
+        engine.join(_prompt(5, 0), num_steps=4, **kw)
+    plan = engine.plan_admission(_prompt(5, 0), 4)
+    with pytest.raises(ValueError, match=msg):
+        engine.join_planned(plan, **kw)
+    assert plan.settled
     assert engine.kv_debug()["blocks_used"] == 0
+    assert engine.active_slots == 0 and not engine._active.any()
+    # A sampled join is taken.
+    assert engine.join(_prompt(5, 0), num_steps=4, temperature=0.7,
+                       top_p=0.9, seed=3) == 0
+
+
+def test_greedy_steps_skip_the_sampler():
+    """The sampler runs only while a live lane samples: a greedy lane
+    alone leaves the step indices where they are."""
+    engine = _engine()
+    engine.join(_prompt(5, 0), num_steps=6)
+    engine.step()
+    assert engine._stepidx.tolist() == [0] * SLOTS
+    slot = engine.join(_prompt(6, 1), num_steps=6, temperature=0.8, seed=2)
+    engine.step()
+    engine.step()
+    assert engine._stepidx[slot].item() == 2
+    engine.retire(slot)
+    engine.step()
+    assert engine._stepidx[slot].item() == 2
 
 
 def test_block_exhaustion_queues_and_release_plan_returns_blocks():

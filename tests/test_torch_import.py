@@ -18,7 +18,9 @@ from tf_operator_tpu_torch.models.convert import init_params
 from tf_operator_tpu_torch.models.transformer import (
     Transformer,
     TransformerConfig,
+    generate,
 )
+from tf_operator_tpu_torch.random import PRNGKey
 from tf_operator_tpu_torch.serve.engine import ContinuousEngine
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -44,9 +46,9 @@ def test_package_imports_with_jax_and_the_reference_poisoned():
     )
     assert out.returncode == 0, out.stderr
     # Every module was imported: models (2), ops (4: _build,
-    # flash_attention, int8_dense, paged_attention), serve (2), train (1)
-    # and the four packages.
-    assert int(out.stdout.split()[-1]) >= 13
+    # flash_attention, int8_dense, paged_attention), serve (2), train (1),
+    # random and testing, and the four packages.
+    assert int(out.stdout.split()[-1]) >= 15
 
 
 def _sources():
@@ -79,4 +81,9 @@ def test_default_device_is_the_card(monkeypatch):
         ContinuousEngine(cfg, init_params(cfg, 0), 2, kv_block=8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Transformer(replace(cfg, decode=True))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate(cfg, init_params(cfg, 0), torch.zeros((1, 2), dtype=int),
+                 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PRNGKey(0)
     assert resolve_device("cpu") == torch.device("cpu")

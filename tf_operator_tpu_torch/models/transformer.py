@@ -39,14 +39,22 @@ scales: ``key_scale``/``value_scale`` ``[b, max_seq_len, KV]`` (dense) or
 
 JAX keeps one ``cache_index`` per layer plus a top-level ``pos_index``;
 every call moves them in lockstep, so the port keeps one counter.
+
+The solo decode entry points follow JAX's: ``generate`` (greedy, or
+sampled through ``tf_operator_tpu_torch/random.py`` with an optional
+nucleus ``top_p``), ``generate_segments``/``generate_segmented`` (greedy,
+in fixed segments) and ``ChunkedPrefill``/``prefill_chunked`` (the prompt
+in fixed chunks). They run eagerly over the dense cache: where JAX
+compiles a loop, the port has nothing to compile.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -59,6 +67,7 @@ from tf_operator_tpu_torch.ops.paged_attention import (
     paged_attend,
     paged_attend_reference,
 )
+from tf_operator_tpu_torch.random import categorical, split
 
 _NEG_INF = -1e30
 
@@ -567,3 +576,309 @@ def _prefill_extend(model: Transformer, cache: dict, suffix: torch.Tensor):
     prefix, the counter sits at base) -> (cache, last-position logits)."""
     hidden = model(suffix, cache, return_hidden=True)
     return cache, _head_logits(model, hidden[:, -1])
+
+
+def _nucleus_filter(logits: torch.Tensor, top_p) -> torch.Tensor:
+    """JAX's ``_nucleus_filter``: keep the smallest set of tokens whose
+    probability mass reaches ``top_p`` (the top token always), the rest
+    set to -1e30. The mask is by sorted RANK: the order is a stable
+    ascending argsort flipped, as ``jnp.flip(jnp.argsort(...))`` (a
+    ``descending=True`` sort would order ties the other way), so exact
+    ties at the cutoff keep the later indices first. The softmax is
+    ``jax.nn.softmax``'s ``exp(x - max) / sum`` and it and the cumsum run
+    in f32. ``top_p`` is a number or a tensor that broadcasts against
+    ``logits[..., :1]`` (one value a row)."""
+    sort_idx = torch.argsort(logits, dim=-1, stable=True).flip(-1)
+    ranked = logits.gather(-1, sort_idx)
+    e = torch.exp(ranked - ranked.amax(-1, keepdim=True))
+    probs = e / e.sum(-1, keepdim=True)
+    # Keep a token iff the mass BEFORE it is still short of top_p: the
+    # crossing token stays, everything after drops.
+    keep_sorted = (torch.cumsum(probs, -1) - probs) < top_p
+    keep = torch.empty_like(keep_sorted).scatter_(-1, sort_idx, keep_sorted)
+    return torch.where(keep, logits, _NEG_INF)
+
+
+def _decode_model(cfg: TransformerConfig, params, device) -> Transformer:
+    """The decode-mode model of ``cfg`` holding ``params`` on ``device``:
+    what every solo decode entry point runs (JAX's ``replace(cfg,
+    decode=True, mesh=None, remat=False)``). ``params`` is a flax-layout
+    tree (``models/convert.py``), or a decode-mode ``Transformer`` that
+    already holds its weights, used as it is (``device`` is then its
+    own)."""
+    from tf_operator_tpu_torch.models.convert import load_params
+
+    if isinstance(params, Transformer):
+        if not params.cfg.decode:
+            raise ValueError("a training-mode model cannot decode: build "
+                             "it with decode=True")
+        return params
+    return load_params(
+        Transformer(replace(cfg, decode=True, remat=False), device), params)
+
+
+def generate(cfg: TransformerConfig, params, prompt, num_steps: int, *,
+             temperature: float = 0.0, top_p: float | None = None,
+             rng=None, device=None) -> torch.Tensor:
+    """Autoregressive generation with a KV cache: one batched prompt
+    prefill, then ``num_steps`` of sample-and-feed. ``temperature=0`` is
+    greedy (argmax, the first maximum); otherwise categorical sampling
+    with ``rng`` (a key from ``tf_operator_tpu_torch.random``), optionally
+    nucleus-filtered to mass ``top_p``. Step i samples with key i of
+    ``split(rng, num_steps)``, so the tokens follow JAX's ``generate`` for
+    the same key. Returns ``[B, num_steps]`` int32 tokens on ``device``
+    (default the card). ``params`` is a flax-layout tree (a
+    ``quantize_decode_params`` tree for ``int8_decode``) or a loaded
+    decode-mode model (``_decode_model``)."""
+    if prompt.shape[1] + num_steps > cfg.max_seq_len:
+        raise ValueError(
+            f"prompt {prompt.shape[1]} + steps {num_steps} exceeds "
+            f"max_seq_len {cfg.max_seq_len}"
+        )
+    if temperature > 0 and rng is None:
+        raise ValueError("temperature > 0 needs an rng key")
+    if top_p is not None and not (0.0 < top_p <= 1.0):
+        raise ValueError(f"top_p={top_p} must be in (0, 1]")
+    if top_p is not None and temperature <= 0:
+        raise ValueError("top_p requires temperature > 0 (greedy ignores it)")
+    model = _decode_model(cfg, params, device)
+    if rng is not None:
+        rng = torch.as_tensor(rng, dtype=torch.int64, device=model.device)
+    with torch.no_grad():
+        return _generate_fn(model, torch.as_tensor(prompt,
+                                                   device=model.device),
+                            rng, num_steps, float(temperature),
+                            None if top_p is None else float(top_p))
+
+
+def _generate_fn(model: Transformer, prompt: torch.Tensor, rng, num_steps,
+                 temperature: float, top_p: float | None) -> torch.Tensor:
+    """The decode loop of JAX's ``_generate_fn`` (a jitted ``lax.scan``
+    there; an eager loop here, with nothing to compile): prefill, then per
+    step divide by the temperature (a tensor on the model's device, so
+    CUDA divides rather than multiplying by a reciprocal), apply the
+    nucleus filter, sample with the step's key and feed the token. The
+    last token's forward is left out: its logits would go unused."""
+    cache, logits = _prefill(model, prompt)
+    if temperature > 0:
+        keys = split(rng, num_steps)
+        temp = torch.tensor(temperature, dtype=torch.float32,
+                            device=prompt.device)
+    toks = []
+    for i in range(num_steps):
+        if temperature > 0:
+            scaled = logits / temp
+            if top_p is not None:
+                scaled = _nucleus_filter(scaled, top_p)
+            tok = categorical(keys[i], scaled)
+        else:
+            tok = logits.argmax(-1)
+        toks.append(tok.to(torch.int32))
+        if i + 1 < num_steps:
+            logits = model(toks[-1][:, None], cache)[:, 0]
+    return torch.stack(toks, dim=1)
+
+
+def _decode_segment(model: Transformer, cache: dict, logits: torch.Tensor,
+                    segment: int):
+    """One greedy segment (JAX's ``_segment_fns`` decode segment): feed
+    ``segment`` argmax tokens -> (cache, next logits, ``[B, segment]``
+    int32 tokens). Nothing in it waits on the card."""
+    toks = []
+    for _ in range(segment):
+        tok = logits.argmax(-1).to(torch.int32)
+        logits = model(tok[:, None], cache)[:, 0]
+        toks.append(tok)
+    return cache, logits, torch.stack(toks, dim=1)
+
+
+def _to_host(toks: torch.Tensor):
+    """Start copying ``toks`` to the host -> (host tensor, event to wait
+    on before reading it; None on the CPU). The copy is queued now, so
+    work queued after it does not delay it."""
+    if toks.device.type != "cuda":
+        return toks, None
+    host = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
+    host.copy_(toks, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def generate_segments(cfg: TransformerConfig, params, prompt,
+                      num_steps: int, *, segment: int = 16,
+                      prefill_chunk: int | None = None, device=None):
+    """Greedy generation in fixed-size segments, as a generator yielding
+    each segment's ``[B, <=segment]`` int32 tokens as a host (numpy)
+    array. ``prefill_chunk`` runs the prefill through ``prefill_chunked``.
+
+    Overlap: segment i+1 is queued on the card before segment i is
+    yielded, and segment i's copy to the host is queued ahead of it, so
+    the consumer reads segment i while the card decodes segment i+1.
+    That is all the overlap there is: each ``next()`` queues one segment
+    and waits for the previous one's tokens.
+
+    Tokens equal ``generate(..., temperature=0)``'s: the same argmax-feed
+    recurrence; segmentation only moves the boundaries. The last partial
+    segment still decodes ``segment`` tokens and is trimmed on the host,
+    so the cache must budget the overshoot: prompt +
+    ceil(num_steps/segment)*segment <= cfg.max_seq_len. Every check
+    raises here, before the generator runs."""
+    if segment < 1:
+        raise ValueError(f"segment={segment} must be >= 1")
+    if num_steps < 1:
+        raise ValueError(f"num_steps={num_steps} must be >= 1")
+    n_segments = -(-num_steps // segment)
+    if prompt.shape[1] + n_segments * segment > cfg.max_seq_len:
+        raise ValueError(
+            f"prompt {prompt.shape[1]} + {n_segments} segments of "
+            f"{segment} exceeds max_seq_len {cfg.max_seq_len} (the last "
+            "partial segment decodes a full segment on device)"
+        )
+    if prefill_chunk is not None:
+        _validate_prefill_chunk(cfg, prompt.shape[1], prefill_chunk)
+
+    def trim(host, done, i):
+        if done is not None:
+            done.synchronize()
+        toks = host.numpy()
+        if (i + 1) * segment > num_steps:  # the last segment's overshoot
+            return toks[:, : num_steps - i * segment]
+        return toks
+
+    def gen():
+        model = _decode_model(cfg, params, device)
+        tokens = torch.as_tensor(prompt, device=model.device)
+        with torch.no_grad():
+            if prefill_chunk is not None:
+                pf = ChunkedPrefill(model, tokens, prefill_chunk)
+                pf.feed(pf.n_chunks)
+                cache, logits = pf.result()
+            else:
+                cache, logits = _prefill(model, tokens)
+            cache, logits, toks = _decode_segment(model, cache, logits,
+                                                  segment)
+            pending = _to_host(toks)
+            for i in range(1, n_segments):
+                cache, logits, toks = _decode_segment(model, cache, logits,
+                                                      segment)
+                nxt = _to_host(toks)
+                yield trim(*pending, i - 1)
+                pending = nxt
+        yield trim(*pending, n_segments - 1)
+
+    return gen()
+
+
+def generate_segmented(cfg: TransformerConfig, params, prompt,
+                       num_steps: int, *, segment: int = 16,
+                       prefill_chunk: int | None = None, on_segment=None,
+                       device=None) -> np.ndarray:
+    """Collected form of ``generate_segments``: the full ``[B,
+    num_steps]`` int32 tokens as a numpy array, calling
+    ``on_segment(tokens)`` for each segment as it lands."""
+    chunks = []
+    for toks in generate_segments(cfg, params, prompt, num_steps,
+                                  segment=segment,
+                                  prefill_chunk=prefill_chunk,
+                                  device=device):
+        chunks.append(toks)
+        if on_segment is not None:
+            on_segment(toks)
+    return np.concatenate(chunks, axis=1)
+
+
+class ChunkedPrefill:
+    """Resumable chunked prefill of one prompt on a decode-mode ``model``
+    (JAX's ``ChunkedPrefill``): a serving loop feeds a budgeted number of
+    chunks between decode steps; ``prefill_chunked`` runs it to the end.
+
+    The last partial chunk is RIGHT-PADDED to the chunk: pad positions
+    sit after every true position, so no true position attends one
+    (causal), and their rows lie past the true length, where
+    ``set_cache_index`` rolls the counter back (decode overwrites them).
+    The cache must budget the padding: ceil(P/chunk)*chunk <=
+    max_seq_len. The logits come from the true last position's row of
+    the final chunk.
+
+    ``initial_cache``/``base_index`` seed a SUFFIX prefill: the dense
+    cache already holds rows [0:base_index) (a shared prefix gathered out
+    of the paged pool, counter at base_index) and ``prompt`` is only the
+    rest; the padding budget and the rollback shift by base_index."""
+
+    def __init__(self, model: Transformer, prompt, chunk: int, *,
+                 initial_cache: dict | None = None,
+                 base_index: int = 0) -> None:
+        self.prompt_len = int(prompt.shape[1])
+        self.base_index = int(base_index)
+        _validate_prefill_chunk(model.cfg, self.prompt_len, chunk,
+                                base=self.base_index)
+        self.chunk = int(chunk)
+        self.n_chunks = -(-self.prompt_len // self.chunk)
+        self._padded = self.n_chunks * self.chunk
+        prompt = torch.as_tensor(prompt, device=model.device)
+        self._prompt = F.pad(prompt, (0, self._padded - self.prompt_len))
+        self._model = model
+        self._cache = (model.init_cache(prompt.shape[0], paged=False)
+                       if initial_cache is None else initial_cache)
+        self._hidden = None
+        self._at = 0
+
+    @property
+    def done(self) -> bool:
+        return self._at >= self.n_chunks
+
+    def feed(self, max_chunks: int = 1) -> int:
+        """Run up to ``max_chunks`` chunk forwards; returns the prompt
+        tokens processed (the unit a serving loop budgets)."""
+        n = min(max_chunks, self.n_chunks - self._at)
+        with torch.no_grad():
+            for _ in range(n):
+                at = self._at * self.chunk
+                self._hidden = self._model(
+                    self._prompt[:, at:at + self.chunk], self._cache,
+                    return_hidden=True)
+                self._at += 1
+        return n * self.chunk
+
+    def result(self) -> tuple[dict, torch.Tensor]:
+        """(cache, last-true-position logits): call once, after done."""
+        if not self.done:
+            raise RuntimeError("prefill not finished")
+        row = self.prompt_len - 1 - (self._padded - self.chunk)
+        with torch.no_grad():
+            logits = _head_logits(self._model, self._hidden[:, row])
+        if self._padded > self.prompt_len:
+            set_cache_index(self._cache, self.base_index + self.prompt_len)
+        return self._cache, logits
+
+
+def prefill_chunked(cfg: TransformerConfig, params, prompt,
+                    chunk: int = 64, *, device=None):
+    """Prompt prefill through fixed ``[B, chunk]`` forwards -> (dense
+    cache, last-position logits) for any prompt length: a
+    ``ChunkedPrefill`` run to the end."""
+    _validate_prefill_chunk(cfg, prompt.shape[1], chunk)
+    pf = ChunkedPrefill(_decode_model(cfg, params, device), prompt, chunk)
+    pf.feed(pf.n_chunks)
+    return pf.result()
+
+
+def _validate_prefill_chunk(cfg: TransformerConfig, p: int, chunk: int,
+                            base: int = 0) -> None:
+    """Chunked prefill's checks, run before any device work
+    (``generate_segments`` runs them before returning its generator).
+    ``base`` is a seeded suffix prefill's starting row: the padding
+    budget shifts by it."""
+    if chunk < 1:
+        raise ValueError(f"chunk={chunk} must be >= 1")
+    if p < 1:
+        raise ValueError("prompt must have at least one token")
+    padded = -(-p // chunk) * chunk
+    if base + padded > cfg.max_seq_len:
+        at_base = f" at base {base}" if base else ""
+        raise ValueError(
+            f"prompt {p} right-padded to {padded}{at_base} exceeds "
+            f"max_seq_len {cfg.max_seq_len} (the last partial chunk "
+            "feeds a full chunk of cache rows before rollback)"
+        )

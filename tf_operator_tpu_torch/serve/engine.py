@@ -19,15 +19,23 @@ block table sized to its actual length (prompt + decode horizon).
 - Admission is planned: ``plan_admission`` reserves the slot's blocks,
   so the prefill and join that follow cannot fail on capacity;
   ``release_plan`` undoes it.
+- Prefill may run in fixed chunks (``prefill_chunk``):
+  ``prefill_planned`` hands out the resumable ``ChunkedPrefill`` a
+  planned admission still needs.
 - Token order follows the JAX engine: the first generated token is
   sampled at the next ``step`` from the logits the prefill carried, and
   each step samples from the previous forward's logits, then runs the
   forward.
+- Sampling per lane: greedy (argmax, the first maximum), or temperature
+  with an optional nucleus ``top_p`` through the threefry sampler
+  (``tf_operator_tpu_torch/random.py``). Each lane's key ladder is solo
+  ``generate``'s ``split(PRNGKey(seed), num_steps)``, so a request's
+  tokens follow its solo run for the same seed. Keys, step indices and
+  sampling parameters live on the device; a step whose active lanes are
+  all greedy skips the sampler.
 
-Greedy decoding only for now (argmax takes the first maximum, as in JAX).
-Sampling waits for the port of JAX's threefry sampler (ROADMAP.md A3);
-metrics, tracing, fault injection, speculative and constrained decoding,
-disaggregation, the host tier and meshes are later slices.
+Metrics, tracing, fault injection, speculative and constrained decoding,
+logprobs, disaggregation, the host tier and meshes are later slices.
 """
 
 from __future__ import annotations
@@ -39,12 +47,16 @@ import torch
 
 from tf_operator_tpu_torch.models.convert import load_params
 from tf_operator_tpu_torch.models.transformer import (
+    ChunkedPrefill,
     Transformer,
     TransformerConfig,
+    _nucleus_filter,
     _prefill,
     _prefill_extend,
+    _validate_prefill_chunk,
     set_cache_index,
 )
+from tf_operator_tpu_torch.random import PRNGKey, gumbel, split
 from tf_operator_tpu_torch.serve.kvcache import (
     BlockAllocator,
     PrefixCache,
@@ -56,6 +68,27 @@ from tf_operator_tpu_torch.serve.kvcache import (
     paged_insert,
     table_insert,
 )
+
+
+def _sample_token(logits: torch.Tensor, keys: torch.Tensor,
+                  temperature: torch.Tensor, top_p: torch.Tensor,
+                  has_top_p: torch.Tensor) -> torch.Tensor:
+    """JAX's ``_sample_token`` over all lanes at once: ``logits [N, V]``,
+    each lane's key ``[N, 2]`` and sampling parameters ``[N]`` -> ``[N]``
+    int32 tokens. A lane at temperature <= 0 takes the argmax; the others
+    divide by their temperature (``where(greedy, 1, temp)`` guards the
+    division), take the nucleus filter where ``has_top_p`` holds, and
+    sample the Gumbel-max over noise of shape ``[1, V]`` from their own
+    key, as JAX's vmapped ``categorical(key1, filt[None, :])`` draws it.
+    JAX adds the constraint mask first, +0.0 for an unconstrained lane; the port
+    has no constraint pool yet (ROADMAP.md A6), and adding +0.0 changes
+    no bit but a zero logit's sign, so it is left out."""
+    greedy = temperature <= 0
+    scaled = logits / torch.where(greedy, 1.0, temperature)[:, None]
+    scaled = torch.where(has_top_p[:, None],
+                         _nucleus_filter(scaled, top_p[:, None]), scaled)
+    samp = (gumbel(keys, (1, logits.shape[-1]))[:, 0] + scaled).argmax(-1)
+    return torch.where(greedy, logits.argmax(-1), samp).to(torch.int32)
 
 
 @dataclass
@@ -83,17 +116,22 @@ class AdmissionPlan:
 
 class ContinuousEngine:
     """The continuous-batching engine (see the module docstring). Public
-    surface: ``plan_admission``/``join_planned`` (and ``join``),
-    ``step``, ``retire``, ``release_plan``, ``kv_debug``.
+    surface: ``plan_admission``/``prefill_planned``/``join_planned`` (and
+    ``join``), ``step``, ``retire``, ``release_plan``, ``kv_debug``.
 
     ``params`` is a flax-layout tree (``models/convert.py``), cast to
     ``cfg.dtype``. ``kv_attend`` picks the paged read: ``"gather"`` (the
     plain oracle) or ``"kernel"`` (the CUDA kernel on the card, the plain
-    version on the CPU). ``device`` defaults to the CUDA card."""
+    version on the CPU). ``prefill_chunk`` runs prefills in chunks of
+    that many tokens. ``device`` defaults to the CUDA card."""
 
     def __init__(self, cfg: TransformerConfig, params, max_slots: int, *,
                  kv_block: int = 64, kv_blocks: int | None = None,
-                 kv_attend: str = "gather", device=None) -> None:
+                 kv_attend: str = "gather",
+                 prefill_chunk: int | None = None, device=None) -> None:
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError(f"prefill_chunk={prefill_chunk} must be >= 1")
+        self.prefill_chunk = prefill_chunk
         self.max_slots = int(max_slots)
         self.kv_block = int(kv_block)
         self.kv_attend = kv_attend
@@ -114,9 +152,21 @@ class ContinuousEngine:
         self.blocks = BlockAllocator(self.kv_blocks)
         self.prefix = PrefixCache(self.kv_block)
         self._cache = paged_cache_template(self._model, self.max_slots)
-        self._logits = torch.zeros((self.max_slots, cfg.vocab_size),
-                                   dtype=torch.float32, device=self.device)
-        self._active = np.zeros(self.max_slots, bool)
+        n, dev = self.max_slots, self.device
+        self._logits = torch.zeros((n, cfg.vocab_size), dtype=torch.float32,
+                                   device=dev)
+        self._active = np.zeros(n, bool)
+        # Sampling state on the device: each slot's key ladder (key i for
+        # its step i), step index and parameters. The host keeps which
+        # slots sample, to skip the sampler when no live lane does.
+        self._keys = torch.zeros((n, cfg.max_seq_len, 2), dtype=torch.int64,
+                                 device=dev)
+        self._stepidx = torch.zeros(n, dtype=torch.int64, device=dev)
+        self._temperature = torch.zeros(n, dtype=torch.float32, device=dev)
+        self._top_p = torch.ones(n, dtype=torch.float32, device=dev)
+        self._has_top_p = torch.zeros(n, dtype=torch.bool, device=dev)
+        self._rows = torch.arange(n, device=dev)
+        self._sampled = np.zeros(n, bool)
         # slot -> {"private": [...], "shared": [...],
         #          "cow": (entry, src, dst) | None}
         self._slot_state: dict[int, dict] = {}
@@ -127,7 +177,8 @@ class ContinuousEngine:
     # -- admission planning ----------------------------------------------
 
     def validate_request(self, prompt_len: int, num_steps: int) -> None:
-        """The solo generation budget plus the whole-pool block budget (a
+        """The solo generation budget, the chunked-prefill padding budget
+        when chunks are configured, and the whole-pool block budget (a
         request that could never fit must not queue forever)."""
         if num_steps < 1:
             raise ValueError(f"num_steps={num_steps} must be >= 1")
@@ -138,6 +189,8 @@ class ContinuousEngine:
                 f"prompt {prompt_len} + steps {num_steps} exceeds "
                 f"max_seq_len {self.cfg.max_seq_len}"
             )
+        if self.prefill_chunk is not None:
+            _validate_prefill_chunk(self.cfg, prompt_len, self.prefill_chunk)
         cap = self._block_cap(prompt_len, num_steps)
         if cap > self.kv_blocks - 1:
             raise ValueError(
@@ -155,7 +208,7 @@ class ContinuousEngine:
         caller queues): a free slot AND enough free blocks after the
         shared-prefix credit. A shared partial last block reserves one
         extra private block for its copy-on-write."""
-        tokens = np.asarray(tokens, np.int32)
+        tokens = np.array(tokens, np.int32)
         n_prompt, n_steps = int(tokens.shape[1]), int(num_steps)
         self.validate_request(n_prompt, n_steps)
         if self.alloc.free == 0:
@@ -211,33 +264,60 @@ class ContinuousEngine:
 
     # -- joins --------------------------------------------------------------
 
-    def join(self, prompt, *, num_steps: int,
-             temperature: float = 0.0) -> int | None:
+    def prefill_planned(self, plan: AdmissionPlan) -> ChunkedPrefill | None:
+        """The resumable prefill a planned admission still needs, or None
+        when there is nothing to feed: an exact prefix match (the plan
+        carries the sampling logits), an engine without ``prefill_chunk``
+        (the prefill runs inside ``join_planned``), or a shared suffix
+        whose chunk padding would not fit the cache (one-shot)."""
+        if plan.prefill_tokens == 0 or self.prefill_chunk is None:
+            return None
+        if not plan.shared_tokens:
+            return ChunkedPrefill(self._model, plan.tokens,
+                                  self.prefill_chunk)
+        padded = (-(-plan.prefill_tokens // self.prefill_chunk)
+                  * self.prefill_chunk)
+        if plan.shared_tokens + padded > self.cfg.max_seq_len:
+            return None
+        return ChunkedPrefill(
+            self._model, plan.tokens[:, plan.shared_tokens:],
+            self.prefill_chunk, initial_cache=self._seed_cache(plan),
+            base_index=plan.shared_tokens,
+        )
+
+    def join(self, prompt, *, num_steps: int, temperature: float = 0.0,
+             top_p: float | None = None, seed: int = 0) -> int | None:
         """Plan, prefill and join in one call: the slot index, or None
         when slots or blocks are short."""
-        self._check_greedy(temperature)
         plan = self.plan_admission(prompt, num_steps)
         if plan is None:
             return None
-        return self.join_planned(plan, temperature=temperature)
-
-    @staticmethod
-    def _check_greedy(temperature: float) -> None:
-        if temperature > 0:
-            raise NotImplementedError(
-                "sampled decoding (temperature > 0) waits for the port "
-                "of JAX's threefry sampler: see ROADMAP.md A3"
-            )
-
-    def join_planned(self, plan: AdmissionPlan, *,
-                     temperature: float = 0.0) -> int | None:
-        """Complete a planned admission: run whatever prefill the plan
-        still needs, insert into a free slot, and register the prompt's
-        blocks for later sharers. On an error the plan is released."""
         try:
-            self._check_greedy(temperature)
+            pf = self.prefill_planned(plan)
+            if pf is not None:
+                pf.feed(pf.n_chunks)
+        except Exception:
+            self.release_plan(plan)
+            raise
+        return self.join_planned(plan, pf, temperature=temperature,
+                                 top_p=top_p, seed=seed)
+
+    def join_planned(self, plan: AdmissionPlan,
+                     pf: ChunkedPrefill | None = None, *,
+                     temperature: float = 0.0, top_p: float | None = None,
+                     seed: int = 0) -> int | None:
+        """Complete a planned admission: collect or run whatever prefill
+        the plan still needs (``pf`` is ``prefill_planned``'s, fed to the
+        end by the caller), insert into a free slot with its sampling
+        state, and register the prompt's blocks for later sharers. On an
+        error, the bad sampling parameters included, the plan is released
+        and no slot state is written."""
+        try:
+            _check_sampling(temperature, top_p)
             with torch.no_grad():
-                if plan.prefill_tokens == 0:
+                if pf is not None:
+                    cache, logits = pf.result()
+                elif plan.prefill_tokens == 0:
                     cache = None
                     logits = torch.as_tensor(plan.logits, device=self.device)
                 elif plan.shared_tokens:
@@ -254,10 +334,28 @@ class ContinuousEngine:
         except Exception:
             self.release_plan(plan)
             raise
-        return self._join_paged(plan, cache, logits)
+        return self._join_paged(plan, cache, logits, temperature, top_p,
+                                seed)
+
+    def _set_sampling(self, slot: int, num_steps: int, temperature: float,
+                      top_p: float | None, seed: int) -> None:
+        """The slot's sampling state, as JAX's ``_sampling_state`` builds
+        it: at temperature > 0 the key ladder is solo ``generate``'s
+        ``split(PRNGKey(seed), num_steps)`` (zeros past it, and all zeros
+        for a greedy lane); the step index restarts at 0."""
+        self._keys[slot].zero_()
+        if temperature > 0:
+            self._keys[slot, :num_steps] = split(
+                PRNGKey(seed, self.device), num_steps)
+        self._stepidx[slot] = 0
+        self._temperature[slot] = max(0.0, float(temperature))
+        self._top_p[slot] = 1.0 if top_p is None else float(top_p)
+        self._has_top_p[slot] = top_p is not None
+        self._sampled[slot] = temperature > 0
 
     def _join_paged(self, plan: AdmissionPlan, cache: dict | None,
-                    logits: torch.Tensor) -> int | None:
+                    logits: torch.Tensor, temperature: float,
+                    top_p: float | None, seed: int) -> int | None:
         slot = self.alloc.acquire()
         if slot is None:  # the single-caller contract makes this unreachable
             self.release_plan(plan)
@@ -271,6 +369,7 @@ class ContinuousEngine:
                          plan.read_table, cache, self.kv_block)
         row = logits.reshape(-1).float()
         self._logits[slot] = row
+        self._set_sampling(slot, plan.num_steps, temperature, top_p, seed)
         self._active[slot] = True
         plan.settled = True  # the blocks now belong to the slot
         cow = None
@@ -313,10 +412,24 @@ class ContinuousEngine:
         with torch.no_grad():
             active = torch.as_tensor(self._active, device=self.device)
             mask_inactive_indices(self._cache, active)
-            toks = self._logits.argmax(-1).to(torch.int32)
+            if self._sampled[self._active].any():
+                toks = self._sample()
+            else:
+                toks = self._logits.argmax(-1).to(torch.int32)
             self._logits = self._model(toks[:, None], self._cache)[:, 0]
         self.steps_total += 1
         return toks.cpu().numpy()
+
+    def _sample(self) -> torch.Tensor:
+        """The sampled step's tokens (JAX's paged step): each slot's key
+        at its step index, then ``_sample_token``; every step index moves
+        on. A step with no sampling lane skips this: no live lane reads a
+        key, and each join restarts its lane's index."""
+        at = self._stepidx.clamp(max=self.cfg.max_seq_len - 1)
+        keys = self._keys[self._rows, at]
+        self._stepidx += 1
+        return _sample_token(self._logits, keys, self._temperature,
+                             self._top_p, self._has_top_p)
 
     def retire(self, slot: int) -> None:
         """Release a slot: its private blocks return to the pool, shared
@@ -354,3 +467,11 @@ class ContinuousEngine:
     @property
     def occupancy(self) -> float:
         return self.alloc.in_use / self.max_slots
+
+
+def _check_sampling(temperature: float, top_p: float | None) -> None:
+    """JAX's checks of a request's sampling parameters."""
+    if top_p is not None and not 0.0 < top_p <= 1.0:
+        raise ValueError(f"top_p={top_p} must be in (0, 1]")
+    if top_p is not None and temperature <= 0:
+        raise ValueError("top_p requires temperature > 0 (greedy ignores it)")
