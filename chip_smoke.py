@@ -123,7 +123,30 @@ Phases, in order; any failure ends the run with a non-zero exit:
     tokens (``int8_generate_phase`` says why), and in bf16 decode
     tokens/s and B5's launches (41 a forward on the weight stream; the
     prefill's 40 projections on the wgmma tile);
-15. the ``kernels`` JSON line (each kernel with its design; B5 as two
+15. the serving front (``tf_operator_tpu_torch/serve/serve_lm.py``'s
+    ``build_front``: the supervisor, the scheduler and the HTTP server
+    over ContinuousEngine at phase 6's width, 4 slots, blk 128,
+    kv_attend="kernel"), reached over HTTP on 127.0.0.1 from client
+    threads: (a) f32, eight /generate requests at once (phase 6's prompts
+    greedy, then with ``SAMPLING``'s mix, 64 steps): each greedy response
+    equal to its prompt's solo ``generate`` on the card, each sampled one
+    equal or parting at a near-tie (phase 14 (b)'s rule); a ``stream``
+    request equal to the buffered greedy response; /healthz with the JAX
+    front's keys (``READINESS_KEYS``), /metrics with its ``tpu_serve_*``
+    families (``SERVE_FAMILIES``), /debug/serve equal to the supervisor's
+    snapshot; B4 at n_layers launches a decode forward; (b) bf16, the
+    eight requests at once and then at a steady arrival rate (half the
+    burst's requests/s): requests/s, TTFT and ITL p50/p99 (the server's
+    per-row timing) and decode tokens/s beside phase 7's engine-only
+    rate, then 8 decode steps with four lanes live under torch.profiler
+    (busy share); (c) bf16 ``int8_decode`` + ``kv_int8`` over phase 13's
+    tree: four requests, the kv8 B4, B5's stream and its wgmma tile each
+    launched; (d) f32 with ``step_raise`` armed once: the four greedy
+    responses, replayed across the watchdog's rebuild, equal (a)'s and
+    /healthz reads one restart; then the drain with requests in flight:
+    /healthz reads ``draining``, the four admitted requests finish whole,
+    the two queued ones get the typed 503 (``draining``);
+16. the ``kernels`` JSON line (each kernel with its design; B5 as two
     entries, the weight stream and the wgmma tile, each with its own
     launches; ``paths`` gives each kernel's launches on every path of
     this run that drives it, and ``launches`` is their sum), the card
@@ -143,6 +166,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from dataclasses import replace
 from unittest import mock
@@ -262,6 +286,22 @@ INT8_GEN_T, INT8_GEN_TOP_P, INT8_GEN_SEED = 0.9, 0.9, 104
 # within exp(+-2 LOGIT_TOL / T)) of top_p.
 INT8_NEAR_TIE = LOGIT_TOL / INT8_GEN_T
 INT8_MASS_TOL = math.expm1(2 * LOGIT_TOL / INT8_GEN_T)
+# Phase 15, the serving front: the keys of the JAX front's /healthz
+# (serve/httpapi.py readiness_payload over a supervisor that has served,
+# plus serve_lm's own two) and its tpu_serve_* families, less those of
+# the items the port has not ported (KV shipments, speculative decode,
+# the host tier, constrained decoding).
+READINESS_KEYS = ("ok", "active_slots", "queue_depth", "max_slots",
+                  "mesh_devices", "mesh_axes", "requests_done",
+                  "tokens_generated", "watchdog_restarts", "ttft_p99_s",
+                  "itl_p99_s", "served", "engine")
+SERVE_FAMILIES = tuple(f"tpu_serve_{n}" for n in (
+    "queue_depth", "active_slots", "slot_capacity", "requests_total",
+    "generated_tokens_total", "prefill_tokens_total", "ttft_seconds",
+    "itl_seconds", "phase_seconds_total", "step_seconds", "kv_blocks",
+    "kv_cow_copies_total", "prefill_tokens_saved_total",
+    "watchdog_restarts_total", "deadline_exceeded_total", "shed_total",
+    "degraded", "mesh_devices", "batch_occupancy"))
 
 
 def card_line() -> str:
@@ -1241,6 +1281,28 @@ def top_two_gap(values: torch.Tensor) -> torch.Tensor:
     return top[..., 0] - top[..., 1]
 
 
+def solo_parting(model, base, prompt, got, t, tp, seed):
+    """Where a lane's tokens ``got`` (numpy) part from the solo
+    ``generate`` of its prompt and sampling parameters on the card: None
+    when they are identical, else (the first parting step, the solo run's
+    top-two gap there), which phases 14 (b) and 15 (a) hold to
+    ``NEAR_TIE``."""
+    from tf_operator_tpu_torch.models.transformer import generate
+    from tf_operator_tpu_torch.random import PRNGKey
+
+    steps = len(got)
+    prompt = torch.as_tensor(prompt, device=model.device)
+    kw = dict(temperature=t, top_p=tp, rng=PRNGKey(seed, model.device)) \
+        if t > 0 else {}
+    solo = generate(base, model, prompt, steps, **kw)
+    want = solo[0].cpu().numpy()
+    if np.array_equal(want, got):
+        return None
+    step = int(np.flatnonzero(want != got)[0])
+    values, _ = replay_values(model, prompt, solo, t, tp, seed, steps)
+    return step, top_two_gap(values[step, 0]).item()
+
+
 def sampled_engine_run(pa, cfg, params, attend, prompts, steps,
                        profile: int = 0, mix=SAMPLING) -> dict:
     """Phase 14's engine: the prompts join with ``mix``'s parameters (B4's
@@ -1286,11 +1348,7 @@ def sampler_engine_phase(pa, base, params, prompts, card) -> dict:
     (greedy, sampled, sampled, greedy), each timed and its last steps
     profiled: the sampler's cost. Returns B4's launches on the f32 kernel
     run and the first bf16 sampled run."""
-    from tf_operator_tpu_torch.models.transformer import (
-        _decode_model,
-        generate,
-    )
-    from tf_operator_tpu_torch.random import PRNGKey
+    from tf_operator_tpu_torch.models.transformer import _decode_model
 
     runs = {attend: sampled_engine_run(pa, base, params, attend, prompts,
                                        FIRST_STEPS)
@@ -1308,17 +1366,10 @@ def sampler_engine_phase(pa, base, params, prompts, card) -> dict:
     model = _decode_model(base, params, None)
     parted = []
     for lane, (prompt, (t, tp, seed)) in enumerate(zip(prompts, SAMPLING)):
-        prompt = torch.as_tensor(prompt, device=model.device)
-        kw = dict(temperature=t, top_p=tp, rng=PRNGKey(seed, model.device)) \
-            if t > 0 else {}
-        solo = generate(base, model, prompt, FIRST_STEPS, **kw)
-        lane_toks = kern["tokens"][:, lane]
-        if np.array_equal(solo[0].cpu().numpy(), lane_toks):
-            continue
-        step = int(np.flatnonzero(solo[0].cpu().numpy() != lane_toks)[0])
-        values, _ = replay_values(model, prompt, solo, t, tp, seed,
-                                  FIRST_STEPS)
-        parted.append((lane, step, top_two_gap(values[step, 0]).item()))
+        part = solo_parting(model, base, prompt, kern["tokens"][:, lane], t,
+                            tp, seed)
+        if part is not None:
+            parted.append((lane, *part))
     del model
     torch.cuda.empty_cache()
     print(f"engine f32 sampled mix {SAMPLING} (temperature, top_p, seed): "
@@ -1472,6 +1523,316 @@ def int8_generate_phase(i8, base, params, card) -> dict:
     return {"int8_matmul": {"int8 generate f32 (14d)": f32[0] - f32[1],
                             "int8 generate bf16 (14d)": bf16[0] - bf16[1]},
             "int8_matmul_prefill": {"int8 generate bf16 (14d)": bf16[1]}}
+
+
+def http(base_url: str, path: str, body: dict | None = None,
+         timeout: float = 300.0):
+    """One request to the front: (status, parsed JSON) — NDJSON as a list
+    of lines, /metrics as text."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base_url + path, data=data, headers={
+        "Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            status, raw = resp.status, resp.read().decode()
+            kind = resp.headers.get("Content-Type", "")
+    except urllib.error.HTTPError as exc:
+        status, raw = exc.code, exc.read().decode()
+        kind = exc.headers.get("Content-Type", "")
+    if "ndjson" in kind:
+        return status, [json.loads(line) for line in raw.splitlines()]
+    return status, (json.loads(raw) if "json" in kind else raw)
+
+
+def front_requests(prompts) -> list[dict]:
+    """Phase 15's eight /generate bodies: phase 6's four prompts greedy,
+    then the same four with ``SAMPLING``'s mix, 64 steps each."""
+    greedy = [dict(tokens=p.tolist(), num_steps=FIRST_STEPS, timing=True)
+              for p in prompts]
+    sampled = [dict(tokens=p.tolist(), num_steps=FIRST_STEPS, timing=True,
+                    temperature=t, seed=seed,
+                    **({} if tp is None else {"top_p": tp}))
+               for p, (t, tp, seed) in zip(prompts, SAMPLING)]
+    return greedy + sampled
+
+
+def send_all(base_url: str, bodies, interval: float = 0.0) -> tuple:
+    """POST ``bodies`` to /generate from one client thread each, started
+    ``interval`` seconds apart; returns (responses in order, wall s)."""
+    out = [None] * len(bodies)
+
+    def client(i):
+        out[i] = http(base_url, "/generate", bodies[i])
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(len(bodies))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+        if interval:
+            time.sleep(interval)
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    bad = [(i, r) for i, r in enumerate(out) if r is None or r[0] != 200]
+    if bad:
+        raise AssertionError(f"/generate failed: {bad[:2]}")
+    return [r[1] for r in out], wall
+
+
+def latency_line(label: str, responses, wall: float) -> dict:
+    """Requests/s, TTFT and ITL p50/p99 (the server's per-row timing),
+    and decode tokens/s over the wall time, for one round."""
+    rows = [t for r in responses for t in r["timing"]]
+    ttft = np.array([t["ttft_ms"] for t in rows])
+    itl = np.concatenate([t.get("itl_ms", []) for t in rows])
+    toks = sum(len(x) for r in responses for x in r["tokens"])
+    out = dict(rps=len(responses) / wall, tok_s=toks / wall,
+               ttft=np.percentile(ttft, [50, 99]).tolist(),
+               itl=np.percentile(itl, [50, 99]).tolist())
+    print(f"front {label}: {len(responses)} requests in {wall:.4f} s: "
+          f"requests/s {out['rps']:.4f}, TTFT p50/p99 ms "
+          f"{out['ttft'][0]:.3f}/{out['ttft'][1]:.3f}, ITL p50/p99 ms "
+          f"{out['itl'][0]:.3f}/{out['itl'][1]:.3f}, decode tokens/s "
+          f"{out['tok_s']:.2f} ({toks} tokens over the wall time)",
+          flush=True)
+    return out
+
+
+def open_front(cfg, params, **flags):
+    """The port's server at phase 6's serving width (4 slots, blk 128,
+    the kernel read) on an ephemeral port, serving: (supervisor, server,
+    base URL)."""
+    from tf_operator_tpu_torch.serve import serve_lm
+
+    args = serve_lm.front_args(
+        device="cuda", max_batch=len(LANES), kv_block=BLK,
+        kv_attend="kernel", max_seq_len=cfg.max_seq_len, port=0, **flags)
+    supervisor, server = serve_lm.build_front(cfg, params, args)
+    server.start()
+    return supervisor, server, "http://" + server.endpoint
+
+
+def reset_counts(pa, i8) -> None:
+    pa.launches = pa.kv8_launches = i8.launches = i8.wgmma_launches = 0
+
+
+def front_f32_phase(pa, i8, base, params, prompts) -> tuple[dict, list]:
+    """Phase 15 (a): the f32 front. The eight requests at once; each
+    greedy response equal to its prompt's solo ``generate`` on the card,
+    each sampled one equal or parting at a near-tie (phase 14 (b)'s
+    rule); a streamed request equal to the buffered greedy one;
+    /healthz, /metrics and /debug/serve in the JAX front's shapes; B4 at
+    n_layers launches a decode forward. Returns (B4's launches, the
+    greedy responses' tokens)."""
+    from tf_operator_tpu_torch.models.transformer import _decode_model
+
+    supervisor, server, url = open_front(base, params)
+    reset_counts(pa, i8)
+    bodies = front_requests(prompts)
+    responses, wall = send_all(url, bodies)
+    engine = supervisor.engine
+    launches, forwards = pa.launches, engine.steps_total
+    status, lines = http(url, "/generate", dict(
+        tokens=prompts[0].tolist(), num_steps=FIRST_STEPS, stream=True))
+    streamed = [t for line in lines for t in line["tokens"][0]]
+    if status != 200 or streamed != responses[0]["tokens"][0]:
+        raise AssertionError(f"stream {status} differs from the buffered "
+                             f"greedy response")
+    _, health = http(url, "/healthz")
+    _, metrics = http(url, "/metrics")
+    _, debug = http(url, "/debug/serve")
+    snapshot = json.loads(json.dumps(supervisor.debug_snapshot()))
+    families = set(re.findall(r"^# TYPE (tpu_serve_\S+)", metrics, re.M))
+    missing = [k for k in READINESS_KEYS if k not in health]
+    if missing or families != set(SERVE_FAMILIES) or debug != snapshot:
+        raise AssertionError(f"/healthz lacks {missing}, /metrics families "
+                             f"{sorted(families ^ set(SERVE_FAMILIES))} "
+                             f"differ, or /debug/serve != the snapshot")
+    if launches != LAYERS * forwards or not forwards:
+        raise AssertionError(f"front f32 B4 launches {launches} over "
+                             f"{forwards} forwards")
+    server.drain()
+    del supervisor, server, engine
+    model = _decode_model(base, params, None)
+    parted = []
+    for i, (body, resp) in enumerate(zip(bodies, responses)):
+        part = solo_parting(model, base, np.asarray(body["tokens"]),
+                            np.asarray(resp["tokens"][0]),
+                            body.get("temperature", 0.0), body.get("top_p"),
+                            body.get("seed", 0))
+        if part is not None:
+            parted.append((i, *part, body.get("temperature", 0.0)))
+    del model
+    torch.cuda.empty_cache()
+    print(f"front f32: 8 requests ({wall:.4f} s), {forwards} decode "
+          f"forwards, B4 launches {launches}; responses parting from their "
+          f"solo generate (request, first step, top-two gap, temperature): "
+          f"{parted} (greedy: none; sampled: limit {NEAR_TIE}, at most one);"
+          f" stream == buffered greedy ({len(streamed)} tokens); /healthz "
+          f"{sorted(health)}; /metrics {len(families)} tpu_serve_* "
+          f"families; /debug/serve == snapshot", flush=True)
+    if (any(t <= 0 for *_, t in parted) or len(parted) > 1
+            or any(gap > NEAR_TIE for _, _, gap, _ in parted)):
+        raise AssertionError(f"front responses part from solo generate: "
+                             f"{parted}")
+    return launches, [r["tokens"][0] for r in responses[:len(prompts)]]
+
+
+def front_bf16_phase(pa, i8, base, params, prompts, card,
+                     engine_ref) -> int:
+    """Phase 15 (b): the bf16 front, what a serving user feels. The
+    eight requests at once, then at a steady arrival rate (half the
+    burst's requests/s), each with requests/s, TTFT and ITL p50/p99 and
+    decode tokens/s beside phase 7's engine-only rate; then 8 decode
+    steps with four lanes live, under torch.profiler. Returns B4's
+    launches."""
+    cfg = replace(base, dtype=torch.bfloat16)
+    supervisor, server, url = open_front(cfg, params)
+    reset_counts(pa, i8)
+    bodies = front_requests(prompts)
+    burst = latency_line("bf16 burst", *send_all(url, bodies))
+    steady = latency_line("bf16 steady", *send_all(
+        url, bodies, interval=2.0 / burst["rps"]))
+    sched = supervisor.scheduler
+    # As long as the longest prompt leaves room for, so that every lane
+    # still decodes once the profiler has started (its start takes
+    # seconds on a busy host) and through its steps.
+    long = [dict(b, num_steps=cfg.max_seq_len - max(LANES) - 1)
+            for b in bodies[:len(prompts)]]
+    clients = threading.Thread(target=send_all, args=(url, long),
+                               daemon=True)
+    clients.start()
+    limit = time.monotonic() + 120
+    while supervisor.active_slots < len(prompts) or sched._prefilling:
+        if time.monotonic() > limit:
+            raise AssertionError("front bf16: lanes never all decoding")
+        time.sleep(0.001)
+
+    def next_step():
+        at, limit = sched.decode_steps, time.monotonic() + 60
+        while sched.decode_steps == at:
+            if time.monotonic() > limit or not supervisor.active_slots:
+                raise AssertionError("front bf16: the loop stopped "
+                                     "decoding under the profiler")
+            time.sleep(0.0002)
+
+    next_step()
+    prof = profile_steps(next_step, PROFILE_STEPS,
+                         "front bf16 decode steps (4 lanes live)")
+    clients.join(timeout=600)
+    launches, forwards = pa.launches, supervisor.engine.steps_total
+    server.drain()
+    if launches != LAYERS * forwards:
+        raise AssertionError(f"front bf16 B4 launches {launches} over "
+                             f"{forwards} forwards")
+    print(f"front bf16: decode tokens/s burst {burst['tok_s']:.2f}, steady "
+          f"{steady['tok_s']:.2f}; phase 7's engine alone in this run "
+          f"{engine_ref['decode_tok_s']:.2f}; device busy share of the "
+          f"profiled steps {prof.get('busy_share', 'not measured')}; B4 "
+          f"launches {launches} over {forwards} forwards, on {card}",
+          flush=True)
+    del supervisor, server
+    torch.cuda.empty_cache()
+    return launches
+
+
+def front_int8_phase(pa, i8, base, params, prompts) -> dict:
+    """Phase 15 (c): the bf16 ``--int8 --kv-int8`` front over the tree
+    quantized from the bf16-rounded weights, as phase 13's: four greedy
+    requests; the kv8 B4 at n_layers launches a decode forward, B5's
+    stream at 41 a forward and its wgmma tile on every prefill. Returns
+    the launches by kernel."""
+    from tf_operator_tpu_torch.models.convert import quantize_decode_params
+
+    cfg = replace(base, dtype=torch.bfloat16, int8_decode=True,
+                  kv_int8=True)
+    supervisor, server, url = open_front(
+        cfg, quantize_decode_params(bf16_rounded(params)))
+    reset_counts(pa, i8)
+    responses, wall = send_all(url, front_requests(prompts)[:len(prompts)])
+    forwards = supervisor.engine.steps_total
+    got = dict(paged_attend=pa.launches, paged_attend_kv8=pa.kv8_launches,
+               int8_matmul=i8.launches - i8.wgmma_launches,
+               int8_matmul_prefill=i8.wgmma_launches)
+    server.drain()
+    calls = 5 * cfg.n_layers + 1
+    ok = all(len(r["tokens"][0]) == FIRST_STEPS and all(
+        0 <= t < cfg.vocab_size for t in r["tokens"][0]) for r in responses)
+    print(f"front bf16 int8 + kv8: 4 requests in {wall:.4f} s, {forwards} "
+          f"decode forwards, launches {got}", flush=True)
+    if (not ok or got["paged_attend"]
+            or got["paged_attend_kv8"] != cfg.n_layers * forwards
+            or got["int8_matmul"] < calls * forwards
+            or got["int8_matmul_prefill"] < calls - 1):
+        raise AssertionError(f"front int8 + kv8: tokens ok {ok}, launches "
+                             f"{got}")
+    del supervisor, server
+    torch.cuda.empty_cache()
+    return got
+
+
+def front_fault_phase(pa, i8, base, params, prompts, greedy) -> int:
+    """Phase 15 (d): the f32 front with ``step_raise`` armed once: the
+    four greedy requests replayed across the watchdog's rebuild equal
+    (a)'s responses and /healthz reads one restart; then the drain with
+    requests in flight: the admitted ones finish whole, the queued ones
+    get the typed 503. Returns B4's launches."""
+    supervisor, server, url = open_front(
+        base, params, faults=f"step_raise@{FIRST_STEPS // 2}")
+    reset_counts(pa, i8)
+    bodies = front_requests(prompts)[:len(prompts)]
+    responses, _ = send_all(url, bodies)
+    _, health = http(url, "/healthz")
+    replayed = [r["tokens"][0] for r in responses]
+    if replayed != greedy or health.get("watchdog_restarts") != 1:
+        raise AssertionError(f"faulted front: tokens equal (a)'s "
+                             f"{replayed == greedy}, restarts "
+                             f"{health.get('watchdog_restarts')}")
+    launches = pa.launches
+    out = [None] * 6
+
+    def client(i):
+        out[i] = http(url, "/generate", bodies[i % len(bodies)])
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(6)]
+    for t in threads[:4]:
+        t.start()
+    limit = time.monotonic() + 120
+    while supervisor.active_slots < 4:
+        if time.monotonic() > limit:
+            raise AssertionError("drain: slots never filled")
+        time.sleep(0.001)
+    for t in threads[4:]:
+        t.start()
+    while supervisor.queue_depth < 2:
+        if time.monotonic() > limit:
+            raise AssertionError("drain: requests never queued")
+        time.sleep(0.001)
+    server.done.set()
+    _, draining = http(url, "/healthz")
+    server.drain()
+    for t in threads:
+        t.join(timeout=120)
+    done = [(s, b["tokens"][0]) for s, b in out[:4]]
+    queued = [(s, b.get("code")) for s, b in out[4:]]
+    print(f"front faults: step_raise at step {FIRST_STEPS // 2}, the 4 "
+          f"greedy responses == (a)'s across {health['watchdog_restarts']} "
+          f"restart; drain: /healthz draining {draining.get('draining')}, "
+          f"admitted {[s for s, _ in done]}, queued {queued}", flush=True)
+    if (not draining.get("draining")
+            or [s for s, _ in done] != [200] * 4
+            or [t for _, t in done] != greedy
+            or queued != [(503, "draining")] * 2):
+        raise AssertionError("the front's drain: admitted requests must "
+                             "finish, queued ones get the typed 503")
+    del supervisor, server
+    torch.cuda.empty_cache()
+    return launches
 
 
 def key_bias_rows(name: str, p: torch.Tensor):
@@ -1748,23 +2109,33 @@ def main() -> int:
     sampled = sampler_engine_phase(pa, base, params, prompts, card)
     int8_gen = int8_generate_phase(i8, base, params, card)
 
+    front_f32, greedy = front_f32_phase(pa, i8, base, params, prompts)
+    front_bf16 = front_bf16_phase(pa, i8, base, params, prompts, card, bf16)
+    front_int8 = front_int8_phase(pa, i8, base, params, prompts)
+    front_faults = front_fault_phase(pa, i8, base, params, prompts, greedy)
+
     # Each kernel's launches on every path of this run that drives it.
     paths = {
         "paged_attend": {
             "engine f32 (6)": f32["kernel"]["launches"]["paged_attend"],
-            "engine bf16 (7)": bf16["launches"]["paged_attend"], **sampled},
+            "engine bf16 (7)": bf16["launches"]["paged_attend"], **sampled,
+            "front f32 (15a)": front_f32, "front bf16 (15b)": front_bf16,
+            "front faults f32 (15d)": front_faults},
         "paged_attend_kv8": {
             "int8 engine f32 (12)": int8_f32["paged_attend_kv8"],
-            "int8 engine bf16 (13)": int8_bf16["paged_attend_kv8"]},
+            "int8 engine bf16 (13)": int8_bf16["paged_attend_kv8"],
+            "front int8 (15c)": front_int8["paged_attend_kv8"]},
         "int8_matmul": {
             "int8 engine f32 (12)": (int8_f32["int8_matmul"]
                                      - int8_f32["int8_wgmma"]),
             "int8 engine bf16 (13)": (int8_bf16["int8_matmul"]
                                       - int8_bf16["int8_wgmma"]),
-            **int8_gen["int8_matmul"]},
+            **int8_gen["int8_matmul"],
+            "front int8 (15c)": front_int8["int8_matmul"]},
         "int8_matmul_prefill": {
             "int8 engine bf16 (13)": int8_bf16["int8_wgmma"],
-            **int8_gen["int8_matmul_prefill"]},
+            **int8_gen["int8_matmul_prefill"],
+            "front int8 (15c)": front_int8["int8_matmul_prefill"]},
     }
     for name in flash_bf16:
         paths[name] = {"trainer f32 (8)": flash_f32[name],

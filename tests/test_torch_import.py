@@ -21,6 +21,7 @@ from tf_operator_tpu_torch.models.transformer import (
     generate,
 )
 from tf_operator_tpu_torch.random import PRNGKey
+from tf_operator_tpu_torch.serve import serve_lm
 from tf_operator_tpu_torch.serve.engine import ContinuousEngine
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -46,9 +47,11 @@ def test_package_imports_with_jax_and_the_reference_poisoned():
     )
     assert out.returncode == 0, out.stderr
     # Every module was imported: models (2), ops (4: _build,
-    # flash_attention, int8_dense, paged_attention), serve (2), train (1),
-    # random and testing, and the four packages.
-    assert int(out.stdout.split()[-1]) >= 15
+    # flash_attention, int8_dense, paged_attention), runtime (2: metrics,
+    # tracing), serve (7: engine, kvcache, faultinject, resilience,
+    # scheduler, httpapi, serve_lm), train (1), random and testing, and
+    # the five packages.
+    assert int(out.stdout.split()[-1]) >= 23
 
 
 def _sources():
@@ -86,4 +89,10 @@ def test_default_device_is_the_card(monkeypatch):
                  2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PRNGKey(0)
+    # The server: its builder and its entry point raise before they build
+    # or train anything; only --device cpu serves on the CPU.
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_lm.build_front(cfg, init_params(cfg, 0), serve_lm.front_args())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_lm.main(["--train-steps", "0"])
     assert resolve_device("cpu") == torch.device("cpu")

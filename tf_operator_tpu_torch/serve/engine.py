@@ -34,13 +34,21 @@ block table sized to its actual length (prompt + decode horizon).
   sampling parameters live on the device; a step whose active lanes are
   all greedy skips the sampler.
 
-Metrics, tracing, fault injection, speculative and constrained decoding,
-logprobs, disaggregation, the host tier and meshes are later slices.
+Serving hooks, as the JAX engine has them: ``faults`` (``alloc_exhaust``
+in ``plan_admission``, ``step_raise`` and ``step_stall`` in ``step``),
+``tag_slot`` (the request id the engine's own ``kv.cow`` spans carry),
+``mesh_info``, ``free_block_fraction``, the ``tpu_serve_kv_*`` gauges and
+counters, and ``warmup`` (a step over no live lane, run by a server's
+engine factory so the kernels are built and loaded before it reports
+ready). Speculative and constrained decoding, logprobs, disaggregation,
+the host tier and meshes are later slices.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, replace
+from typing import Any
 
 import numpy as np
 import torch
@@ -57,6 +65,18 @@ from tf_operator_tpu_torch.models.transformer import (
     set_cache_index,
 )
 from tf_operator_tpu_torch.random import PRNGKey, gumbel, split
+from tf_operator_tpu_torch.runtime.metrics import (
+    SERVE_KV_BLOCKS,
+    SERVE_KV_COW_TOTAL,
+    SERVE_MESH_DEVICES,
+    SERVE_PHASE_SECONDS,
+    SERVE_PREFILL_SAVED_TOTAL,
+)
+from tf_operator_tpu_torch.runtime.tracing import SERVE_TRACER
+from tf_operator_tpu_torch.serve.faultinject import (
+    NULL_INJECTOR,
+    InjectedFault,
+)
 from tf_operator_tpu_torch.serve.kvcache import (
     BlockAllocator,
     PrefixCache,
@@ -123,12 +143,14 @@ class ContinuousEngine:
     ``cfg.dtype``. ``kv_attend`` picks the paged read: ``"gather"`` (the
     plain oracle) or ``"kernel"`` (the CUDA kernel on the card, the plain
     version on the CPU). ``prefill_chunk`` runs prefills in chunks of
-    that many tokens. ``device`` defaults to the CUDA card."""
+    that many tokens. ``faults`` is a ``serve/faultinject.py`` injector
+    (default: none armed). ``device`` defaults to the CUDA card."""
 
     def __init__(self, cfg: TransformerConfig, params, max_slots: int, *,
                  kv_block: int = 64, kv_blocks: int | None = None,
                  kv_attend: str = "gather",
-                 prefill_chunk: int | None = None, device=None) -> None:
+                 prefill_chunk: int | None = None, faults: Any = None,
+                 device=None) -> None:
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(f"prefill_chunk={prefill_chunk} must be >= 1")
         self.prefill_chunk = prefill_chunk
@@ -173,6 +195,12 @@ class ContinuousEngine:
         self.cow_copies = 0
         self.prefill_tokens_saved = 0
         self.steps_total = 0
+        self.faults = faults or NULL_INJECTOR
+        # Request id per slot (scheduler-set after join): the engine's own
+        # spans (CoW copies fire inside step()) name the slot's request.
+        self._slot_tags: dict[int, str] = {}
+        SERVE_MESH_DEVICES.set(1)
+        self._set_block_gauges()
 
     # -- admission planning ----------------------------------------------
 
@@ -211,6 +239,8 @@ class ContinuousEngine:
         tokens = np.array(tokens, np.int32)
         n_prompt, n_steps = int(tokens.shape[1]), int(num_steps)
         self.validate_request(n_prompt, n_steps)
+        if self.faults.fire("alloc_exhaust") is not None:
+            return None  # injected slot/block-pool exhaustion
         if self.alloc.free == 0:
             return None
         blk = self.kv_block
@@ -234,6 +264,7 @@ class ContinuousEngine:
         read[:shared_entries] = shared
         read[shared_entries:cap] = tail
         write[shared_entries:cap] = tail
+        self._set_block_gauges()
         return AdmissionPlan(
             tokens, n_prompt, n_steps, shared_tokens=n,
             shared_blocks=tuple(shared), private_blocks=tuple(priv),
@@ -255,6 +286,7 @@ class ContinuousEngine:
         freed = self.blocks.free(list(blks))
         if freed:
             self.prefix.invalidate_blocks(freed)
+        self._set_block_gauges()
 
     def _seed_cache(self, plan: AdmissionPlan) -> dict:
         """A solo dense cache seeded with the plan's shared prefix rows,
@@ -387,6 +419,8 @@ class ContinuousEngine:
         self.prefix.register(plan.tokens[0], prompt_blocks,
                              row.cpu().numpy())
         self.prefill_tokens_saved += plan.shared_tokens
+        if plan.shared_tokens:
+            SERVE_PREFILL_SAVED_TOTAL.inc(plan.shared_tokens)
         return slot
 
     # -- decode -------------------------------------------------------------
@@ -398,16 +432,47 @@ class ContinuousEngine:
             if st["cow"] is None or not self._active[slot]:
                 continue
             entry, src, dst = st["cow"]
+            t0 = time.monotonic()
             cow_copy(self._cache, slot, entry, src, dst)
+            t1 = time.monotonic()
+            # Host-side span around the enqueued copy; the tag names the
+            # owner.
+            SERVE_TRACER.record(
+                "kv.cow", t0, t1, request_id=self._slot_tags.get(slot, ""),
+                slot=slot, src_block=src, dst_block=dst,
+            )
+            SERVE_PHASE_SECONDS.inc(t1 - t0, phase="cow")
             st["cow"] = None
             st["shared"].remove(src)
             self._free_blocks([src])
             self.cow_copies += 1
+            SERVE_KV_COW_TOTAL.inc()
 
     def step(self) -> np.ndarray:
         """One decode iteration over ALL slots: every active slot advances
         one token. Returns the ``[max_slots]`` int32 tokens (inactive
-        rows are dead compute: ignore them)."""
+        rows are dead compute: ignore them). The fault points fire first,
+        as in the JAX engine: ``step_raise`` raises ``InjectedFault``,
+        ``step_stall`` sleeps its argument (default 1 s)."""
+        if self.faults.fire("step_raise") is not None:
+            raise InjectedFault("step_raise")
+        self.faults.maybe_sleep("step_stall", default=1.0)
+        return self._step()
+
+    def warmup(self) -> None:
+        """One step over no live lane (no fault point fires), then the
+        step count back at 0: on the card it builds or loads every kernel
+        the step launches and runs each once, so a server's first request
+        pays neither. The JAX engine warms its compiled step in its
+        constructor; this one is called by the caller that wants it.
+        Inactive lanes' writes land in the pinned garbage block and every
+        join overwrites its lane's logits, so no later token changes."""
+        if self._active.any():
+            raise RuntimeError("warmup() runs before any join")
+        self._step()
+        self.steps_total = 0
+
+    def _step(self) -> np.ndarray:
         self._run_pending_cows()
         with torch.no_grad():
             active = torch.as_tensor(self._active, device=self.device)
@@ -435,13 +500,48 @@ class ContinuousEngine:
         """Release a slot: its private blocks return to the pool, shared
         refcounts drop, and prefix entries whose last holder this was are
         invalidated. The lane's stale rows are masked, never cleared."""
+        self._slot_tags.pop(slot, None)
         self._active[slot] = False
         st = self._slot_state.pop(slot, None)
         if st is not None:
             self._free_blocks(st["private"] + st["shared"])
         self.alloc.release(slot)
 
+    def tag_slot(self, slot: int, request_id: str) -> None:
+        """Name the request occupying ``slot`` so the engine's own spans
+        (CoW) carry its id; cleared on retire."""
+        self._slot_tags[slot] = request_id
+
     # -- observability ------------------------------------------------------
+
+    def _set_block_gauges(self) -> None:
+        SERVE_KV_BLOCKS.set(self.blocks.free_blocks, state="free")
+        SERVE_KV_BLOCKS.set(self.blocks.used, state="used")
+        SERVE_KV_BLOCKS.set(self.blocks.shared, state="shared")
+
+    def mesh_info(self) -> dict:
+        """The JAX engine's answer for one device (no mesh)."""
+        return {"devices": 1}
+
+    @property
+    def free_block_fraction(self) -> float:
+        """Fraction of the allocatable KV pool still free: the degraded
+        mode's watermark input."""
+        return self.blocks.free_blocks / max(1, self.kv_blocks - 1)
+
+    @property
+    def decode_step_compiles(self) -> int:
+        """The JAX engine's count of its compiled decode step's
+        executables, the zero-recompile pin. The step here is eager and
+        compiles nothing, so it reads 0, as does ``warmup_compiles``,
+        until the decode step runs as a captured CUDA graph (ROADMAP A5),
+        when both count captures."""
+        return 0
+
+    @property
+    def warmup_compiles(self) -> int:
+        """``decode_step_compiles`` after ``warmup``: 0 (see there)."""
+        return 0
 
     def kv_debug(self) -> dict:
         """Block-pool stats, named as the JAX engine names them."""
