@@ -140,8 +140,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
     per-row timing) and decode tokens/s beside phase 7's engine-only
     rate, then 8 decode steps with four lanes live under torch.profiler
     (busy share); (c) bf16 ``int8_decode`` + ``kv_int8`` over phase 13's
-    tree: four requests, the kv8 B4, B5's stream and its wgmma tile each
-    launched; (d) f32 with ``step_raise`` armed once: the four greedy
+    tree: the four greedy responses equal phase 13's engine's first 64
+    tokens of each lane (else, teacher-forced, each token is the plain
+    route's greedy choice or within ``INT8_NEAR_TIE`` of it), the kv8
+    B4, B5's stream and its wgmma tile each launched; (d) f32 with ``step_raise`` armed once: the four greedy
     responses, replayed across the watchdog's rebuild, equal (a)'s and
     /healthz reads one restart; then the drain with requests in flight:
     /healthz reads ``draining``, the four admitted requests finish whole,
@@ -283,7 +285,8 @@ INT8_GEN_T, INT8_GEN_TOP_P, INT8_GEN_SEED = 0.9, 0.9, 104
 # T, or at the nucleus cutoff, where one route keeps a token the other drops
 # and the token's probability mass ranked ahead of it lies, in both routes,
 # within what that difference moves a mass (each probability by a factor
-# within exp(+-2 LOGIT_TOL / T)) of top_p.
+# within exp(+-2 LOGIT_TOL / T)) of top_p. Phase 15 (c) holds a greedy
+# token that is not the plain route's choice to the same tie, in logits.
 INT8_NEAR_TIE = LOGIT_TOL / INT8_GEN_T
 INT8_MASS_TOL = math.expm1(2 * LOGIT_TOL / INT8_GEN_T)
 # Phase 15, the serving front: the keys of the JAX front's /healthz
@@ -707,10 +710,11 @@ def bf16_rounded(tree: dict) -> dict:
 
 
 def int8_engine_phases(pa, base, params, prompts, card,
-                       bf16_ref) -> tuple[dict, dict]:
+                       bf16_ref) -> tuple[dict, dict, np.ndarray]:
     """Phases 12 and 13: the int8_decode + kv_int8 engine in f32 through
     the kernels against the plain versions, then in bf16 through the
-    kernels; returns the kernel runs' launches (f32, bf16)."""
+    kernels; returns the kernel runs' launches (f32, bf16) and the bf16
+    run's first FIRST_STEPS greedy tokens ``[lane, step]``."""
     from tf_operator_tpu_torch.models.convert import quantize_decode_params
 
     cfg = replace(base, int8_decode=True, kv_int8=True)
@@ -752,7 +756,8 @@ def int8_engine_phases(pa, base, params, prompts, card,
           f"{bf16_ref['decode_tok_s']:.2f} prefill_s "
           f"{bf16_ref['prefill_s']:.4f} {busy(bf16_ref)}; on {card}",
           flush=True)
-    return kern["launches"], bf16["launches"]
+    return (kern["launches"], bf16["launches"],
+            bf16["tokens"][:FIRST_STEPS].T)
 
 
 def flash_inputs(b, tq, tk, dtype, seed, fused=False):
@@ -1740,18 +1745,52 @@ def front_bf16_phase(pa, i8, base, params, prompts, card,
     return launches
 
 
-def front_int8_phase(pa, i8, base, params, prompts) -> dict:
+def plain_greedy_shortfalls(cfg, tree, prompts, got) -> list:
+    """Each lane's greedy tokens ``got`` held, teacher-forced, against the
+    plain route: the lane's prompt and its own tokens fed through the
+    decode model with ``plain_int8_apply`` in B5's place. Returns each
+    decision that is not the plain route's greedy choice as (lane, step,
+    token, plain max minus the token's plain logit)."""
+    from tf_operator_tpu_torch.models import transformer
+    from tf_operator_tpu_torch.models.transformer import _decode_model
+
+    model = _decode_model(cfg, tree, None)
+    out = []
+    with mock.patch.object(transformer, "int8_apply", plain_int8_apply):
+        for lane, (prompt, toks) in enumerate(zip(prompts, got)):
+            feed = torch.as_tensor(np.asarray([toks], dtype=np.int32),
+                                   device=model.device)
+            values, _ = replay_values(
+                model, torch.as_tensor(prompt, device=model.device), feed,
+                0.0, None, 0, feed.shape[1])
+            values = values[:, 0].float()
+            picked = values.gather(-1, feed[0, :, None].long())[:, 0]
+            short = values.max(-1).values - picked
+            out += [(lane, step, int(toks[step]), short[step].item())
+                    for step in short.nonzero().flatten().tolist()]
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def front_int8_phase(pa, i8, base, params, prompts, want) -> dict:
     """Phase 15 (c): the bf16 ``--int8 --kv-int8`` front over the tree
     quantized from the bf16-rounded weights, as phase 13's: four greedy
-    requests; the kv8 B4 at n_layers launches a decode forward, B5's
-    stream at 41 a forward and its wgmma tile on every prefill. Returns
-    the launches by kernel."""
+    requests, each equal to phase 13's engine's first tokens of its lane
+    ``want`` (the same engine, tree and one-shot prefill; a decode step
+    computes every slot, so a lane's tokens do not depend on when the
+    others join). Where a lane parts from them, its tokens are held
+    teacher-forced against the plain route (``plain_greedy_shortfalls``):
+    each must be the plain route's greedy choice or lie within
+    ``INT8_NEAR_TIE`` of it. The kv8 B4 at n_layers launches a decode
+    forward, B5's stream at 41 a forward and its wgmma tile on every
+    prefill. Returns the launches by kernel."""
     from tf_operator_tpu_torch.models.convert import quantize_decode_params
 
     cfg = replace(base, dtype=torch.bfloat16, int8_decode=True,
                   kv_int8=True)
-    supervisor, server, url = open_front(
-        cfg, quantize_decode_params(bf16_rounded(params)))
+    tree = quantize_decode_params(bf16_rounded(params))
+    supervisor, server, url = open_front(cfg, tree)
     reset_counts(pa, i8)
     responses, wall = send_all(url, front_requests(prompts)[:len(prompts)])
     forwards = supervisor.engine.steps_total
@@ -1759,19 +1798,36 @@ def front_int8_phase(pa, i8, base, params, prompts) -> dict:
                int8_matmul=i8.launches - i8.wgmma_launches,
                int8_matmul_prefill=i8.wgmma_launches)
     server.drain()
+    del supervisor, server
+    torch.cuda.empty_cache()
     calls = 5 * cfg.n_layers + 1
-    ok = all(len(r["tokens"][0]) == FIRST_STEPS and all(
-        0 <= t < cfg.vocab_size for t in r["tokens"][0]) for r in responses)
     print(f"front bf16 int8 + kv8: 4 requests in {wall:.4f} s, {forwards} "
           f"decode forwards, launches {got}", flush=True)
-    if (not ok or got["paged_attend"]
+    if (got["paged_attend"]
             or got["paged_attend_kv8"] != cfg.n_layers * forwards
             or got["int8_matmul"] < calls * forwards
             or got["int8_matmul_prefill"] < calls - 1):
-        raise AssertionError(f"front int8 + kv8: tokens ok {ok}, launches "
-                             f"{got}")
-    del supervisor, server
-    torch.cuda.empty_cache()
+        raise AssertionError(f"front int8 + kv8: launches {got}")
+    tokens = [r["tokens"][0] for r in responses]
+    if any(len(t) != FIRST_STEPS for t in tokens):
+        raise AssertionError(f"front int8 + kv8: response lengths "
+                             f"{[len(t) for t in tokens]}")
+    parted = [lane for lane, t in enumerate(tokens)
+              if t != want[lane].tolist()]
+    print(f"front bf16 int8 + kv8: lanes whose greedy tokens part from "
+          f"phase 13's engine: {parted}", flush=True)
+    if parted:
+        short = plain_greedy_shortfalls(
+            cfg, tree, [prompts[i] for i in parted],
+            [tokens[i] for i in parted])
+        short = [(parted[lane], *rest) for lane, *rest in short]
+        print(f"front bf16 int8 + kv8, teacher-forced against "
+              f"plain_int8_apply: decisions off the plain route's greedy "
+              f"choice (lane, step, token, shortfall): {short} (each within "
+              f"{INT8_NEAR_TIE:.4e})", flush=True)
+        if any(gap > INT8_NEAR_TIE for *_, gap in short):
+            raise AssertionError(f"front int8 + kv8 tokens part from the "
+                                 f"plain route beyond a near-tie: {short}")
     return got
 
 
@@ -2102,8 +2158,8 @@ def main() -> int:
     int8_err = int8_check_phase(i8)
     int8, int8_prefill = int8_timing_phase(i8, card)
     kv8 = kernel_phase(pa, kv8=True)
-    int8_f32, int8_bf16 = int8_engine_phases(pa, base, params, prompts, card,
-                                             bf16)
+    int8_f32, int8_bf16, int8_greedy = int8_engine_phases(
+        pa, base, params, prompts, card, bf16)
 
     sampler_known_answers()
     sampled = sampler_engine_phase(pa, base, params, prompts, card)
@@ -2111,7 +2167,8 @@ def main() -> int:
 
     front_f32, greedy = front_f32_phase(pa, i8, base, params, prompts)
     front_bf16 = front_bf16_phase(pa, i8, base, params, prompts, card, bf16)
-    front_int8 = front_int8_phase(pa, i8, base, params, prompts)
+    front_int8 = front_int8_phase(pa, i8, base, params, prompts,
+                                  int8_greedy)
     front_faults = front_fault_phase(pa, i8, base, params, prompts, greedy)
 
     # Each kernel's launches on every path of this run that drives it.

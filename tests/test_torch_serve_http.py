@@ -184,6 +184,34 @@ def test_fleet_router_serves_a_port_replica(front):
         router.stop()
 
 
+@pytest.mark.parametrize("argv,reason", [
+    (["--tp", "2"], "ROADMAP A8"),
+    (["--dp", "2"], "ROADMAP A8"),
+    (["--spec-k", "2"], "ROADMAP A6"),
+    (["--logprobs-k", "3"], "ROADMAP A6"),
+    (["--kv-dense"], "ROADMAP A5"),
+    (["--engine", "coalesce"], "ROADMAP A10"),
+    (["--batch-window", "0.01"], "ROADMAP A10"),
+    (["--checkpoint-dir", "ckpt"], "ROADMAP A10"),
+    (["--role", "prefill"], "ROADMAP A7"),
+    (["--host-tier-bytes", "1024"], "ROADMAP A7"),
+    (["--prefill-budget", "0"], "--prefill-budget must be >= 1"),
+    (["--max-seq-len", "100", "--kv-block", "16"], "multiple of"),
+])
+def test_flags_refused_before_device_work(argv, reason, capsys):
+    """A flag of an unported item, or one the engine cannot take, is
+    refused by build_front (NotPorted or ValueError) and by the entry
+    point (usage error, exit 2) before any weights are trained."""
+    args = serve_lm.build_parser().parse_args(["--device", "cpu", *argv])
+    with pytest.raises((resilience.NotPorted, ValueError), match=reason):
+        serve_lm.build_front(TCFG, {}, args)
+    with pytest.raises(SystemExit) as exc:
+        serve_lm.main(["--device", "cpu", *argv])
+    assert exc.value.code == 2
+    err = capsys.readouterr()
+    assert reason in err.err and "quick-trained" not in err.out
+
+
 def test_serve_lm_drains_on_sigterm(tmp_path):
     """test_serve_lm_continuous_drains_on_sigterm over the port: one slot;
     the admitted long request finishes whole, the queued one gets a 503,

@@ -369,9 +369,7 @@ class EngineSupervisor:
                  resilience: ResilienceConfig | None = None,
                  faults: Any = None,
                  prefill_tokens_per_step: int = 256,
-                 device_lock: threading.Lock | None = None,
-                 tier_prefetch: bool = True,
-                 constrainer: Any = None) -> None:
+                 device_lock: threading.Lock | None = None) -> None:
         # Local import: scheduler imports this module for the error
         # taxonomy, so the supervisor resolves it lazily.
         from tf_operator_tpu_torch.serve.scheduler import ContinuousScheduler
@@ -382,14 +380,6 @@ class EngineSupervisor:
         self.faults = faults or NULL_INJECTOR
         self._prefill_budget = prefill_tokens_per_step
         self._device_lock = device_lock
-        # Session prefetch knob (serve/tier.py), generation-invariant:
-        # every rebuilt scheduler inherits it.
-        self._tier_prefetch = bool(tier_prefetch)
-        # Constraint compiler (serve/constrain.py), process-lifetime
-        # like the host tier: a watchdog rebuild keeps the compiled-
-        # program LRU, and replayed constrained requests re-bind their
-        # (already stamped) programs into the fresh engine's pool.
-        self._constrainer = constrainer
         self._lock = threading.RLock()     # guards the generation swap
         self._restart_lock = threading.Lock()
         self._closed = False
@@ -427,8 +417,6 @@ class EngineSupervisor:
             resilience=self.res,
             supervisor=self,
             faults=self.faults,
-            tier_prefetch=self._tier_prefetch,
-            constrainer=self._constrainer,
         )
         if replay:
             sched.requeue(replay)

@@ -273,16 +273,7 @@ class ContinuousScheduler:
                  device_lock: threading.Lock | None = None,
                  resilience: ResilienceConfig | None = None,
                  supervisor: EngineSupervisor | None = None,
-                 faults: Any = None,
-                 tier_prefetch: bool = True,
-                 constrainer: Any = None) -> None:
-        # ``tier_prefetch`` and ``constrainer`` keep the JAX scheduler's
-        # signature, which the supervisor builds through: the port has no
-        # host tier to prefetch into (the flag is inert) and no
-        # constraint compiler (ROADMAP A6).
-        if constrainer is not None:
-            raise NotPorted("constrained decoding waits for ROADMAP A6 in "
-                            "the PyTorch port")
+                 faults: Any = None) -> None:
         if prefill_tokens_per_step < 1:
             raise ValueError("prefill_tokens_per_step must be >= 1")
         self.engine = engine

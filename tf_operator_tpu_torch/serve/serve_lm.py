@@ -320,6 +320,7 @@ class FrontServer(ThreadingHTTPServer):
         self.lock = lock
         self.done = threading.Event()
         self.served = 0
+        self._served_lock = threading.Lock()
         self._stream_model = None
 
     @property
@@ -328,7 +329,7 @@ class FrontServer(ThreadingHTTPServer):
         return f"{host}:{port}"
 
     def note_served(self) -> None:
-        with self.lock:
+        with self._served_lock:
             self.served += 1
             if (self.args.requests is not None
                     and self.served >= self.args.requests):
@@ -506,29 +507,36 @@ class _Handler(QuietHandler):
                   flush=True)
 
 
-def build_front(cfg: TransformerConfig, params, args, *,
-                faults: FaultInjector | None = None
+def check_args(args) -> None:
+    """Refuse what the front cannot serve, before any device work: a flag
+    whose ROADMAP item is not ported (NotPorted), a prefill budget below
+    one token or a sequence length off the block grid (ValueError)."""
+    refused = unported_flags(args)
+    if refused:
+        raise NotPorted("; ".join(refused))
+    if args.prefill_budget < 1:
+        raise ValueError("--prefill-budget must be >= 1")
+    if args.max_seq_len % args.kv_block:
+        raise ValueError(f"--max-seq-len {args.max_seq_len} must be a "
+                         f"multiple of --kv-block {args.kv_block}")
+
+
+def build_front(cfg: TransformerConfig, params, args
                 ) -> tuple[EngineSupervisor, FrontServer]:
     """The serving front over ``params`` (a flax-layout tree; an
     ``int8_decode`` config takes a ``quantize_decode_params`` tree): the
     supervisor, with its first engine built and warmed, and the HTTP
     server bound to ``args.host``:``args.port``, not yet serving (call
-    ``start()``). ``args`` is ``front_args(...)`` or the parsed flags;
-    ``faults`` overrides ``--faults`` and ``TPU_SERVE_FAULTS``. Raises on
-    a CUDA device when torch sees no card, and on a flag whose ROADMAP
-    item is not ported."""
+    ``start()``). ``args`` is ``front_args(...)`` or the parsed flags.
+    Raises on a CUDA device when torch sees no card, and where
+    ``check_args`` refuses ``args``."""
     device = resolve_device(args.device)
-    refused = unported_flags(args)
-    if refused:
-        raise NotPorted("; ".join(refused))
-    if args.max_seq_len % args.kv_block or cfg.max_seq_len % args.kv_block:
+    check_args(args)
+    if cfg.max_seq_len % args.kv_block:
         raise ValueError(f"max_seq_len {cfg.max_seq_len} must be a "
                          f"multiple of --kv-block {args.kv_block}")
-    if args.prefill_budget < 1:
-        raise ValueError("--prefill-budget must be >= 1")
-    if faults is None:
-        faults = (FaultInjector(args.faults, seed=args.fault_seed)
-                  if args.faults is not None else FaultInjector.from_env())
+    faults = (FaultInjector(args.faults, seed=args.fault_seed)
+              if args.faults is not None else FaultInjector.from_env())
     if args.replica_id:
         set_replica_id(args.replica_id)
     if args.trace_capacity != SERVE_TRACER.capacity:
@@ -577,16 +585,12 @@ def build_front(cfg: TransformerConfig, params, args, *,
 def main(argv: list[str] | None = None) -> int:
     p = build_parser()
     args = p.parse_args(argv)
-    refused = unported_flags(args)
-    if refused:
-        p.error("; ".join(refused))
-    if args.prefill_budget < 1:
-        p.error("--prefill-budget must be >= 1")
     if args.requests is not None and args.requests < 1:
         p.error("--requests must be >= 1 (omit it to serve until SIGTERM)")
-    if args.max_seq_len % args.kv_block:
-        p.error(f"--max-seq-len {args.max_seq_len} must be a multiple of "
-                f"--kv-block {args.kv_block}")
+    try:
+        check_args(args)
+    except (NotPorted, ValueError) as exc:
+        p.error(str(exc))
     device = resolve_device(args.device)
     # The JAX server's model: 4 heads, d_ff = 2 d, f32.
     cfg = TransformerConfig(
