@@ -148,7 +148,27 @@ Phases, in order; any failure ends the run with a non-zero exit:
     /healthz reads one restart; then the drain with requests in flight:
     /healthz reads ``draining``, the four admitted requests finish whole,
     the two queued ones get the typed 503 (``draining``);
-16. the ``kernels`` JSON line (each kernel with its design; B5 as two
+16. constrained decoding (``serve/constrain.py``, the engine's constraint
+    pool and logprobs) at phase 6's width, over the identity vocabulary:
+    (a) f32, kv_attend="kernel", 4 slots, one lane each under a regex, a
+    choices and a json_schema program and one free lane
+    (``CONSTRAINED_LANES``), greedy and then with ``SAMPLING``'s mix: each
+    lane equal to its solo ``constrained_generate`` (the free lane:
+    ``generate``) on the card or parting at a near-tie (phase 14 (b)'s
+    rule), every token legal at its state, every grammar complete and
+    parsed, B4 at n_layers launches a forward; (b) bf16 through
+    ``build_front`` with ``--logprobs-k 5``: one /generate request each
+    with json_schema, regex, choices, logprobs and n = 4 at T 0.8, then
+    one with a stop sequence (finish reasons, trimming, the logprob rows'
+    order and the greedy token's logprob the top one, the n-best
+    ``choices``), each spec's compile seconds from the server's spans,
+    decode tokens/s of all-free and all-constrained bursts in turns, and
+    the device operations and time the mask adds to a bf16 step (8
+    profiled steps with it and without it, in turns); (c) one constrained
+    greedy lane on the bf16 int8 + kv8 engine over phase 13's tree: legal
+    and complete, the kv8 B4 and both B5 routes launched; the phase's wall
+    time printed;
+17. the ``kernels`` JSON line (each kernel with its design; B5 as two
     entries, the weight stream and the wgmma tile, each with its own
     launches; ``paths`` gives each kernel's launches on every path of
     this run that drives it, and ``launches`` is their sum), the card
@@ -293,7 +313,7 @@ INT8_MASS_TOL = math.expm1(2 * LOGIT_TOL / INT8_GEN_T)
 # (serve/httpapi.py readiness_payload over a supervisor that has served,
 # plus serve_lm's own two) and its tpu_serve_* families, less those of
 # the items the port has not ported (KV shipments, speculative decode,
-# the host tier, constrained decoding).
+# the host tier).
 READINESS_KEYS = ("ok", "active_slots", "queue_depth", "max_slots",
                   "mesh_devices", "mesh_axes", "requests_done",
                   "tokens_generated", "watchdog_restarts", "ttft_p99_s",
@@ -304,7 +324,23 @@ SERVE_FAMILIES = tuple(f"tpu_serve_{n}" for n in (
     "itl_seconds", "phase_seconds_total", "step_seconds", "kv_blocks",
     "kv_cow_copies_total", "prefill_tokens_saved_total",
     "watchdog_restarts_total", "deadline_exceeded_total", "shed_total",
-    "degraded", "mesh_devices", "batch_occupancy"))
+    "degraded", "mesh_devices", "batch_occupancy",
+    "constrained_requests_total", "constrained_stops_total",
+    "constrain_programs", "constrain_evictions_total"))
+# Phase 16, constrained decoding, over the identity vocabulary (token i =
+# chr(i)). (a): one lane each under these programs, lane 3 free; every
+# grammar here completes within CONSTRAIN_STEPS. (b): the server's
+# --logprobs-k, the n-best candidates, and the unbounded grammars of the
+# all-constrained burst (each lane decodes its whole budget).
+SCHEMA = {"type": "object", "properties": {
+    "name": {"type": "string", "maxLength": 4}, "ok": {"type": "boolean"}}}
+CONSTRAINED_LANES = [{"regex": "[0-9]{2,6}"},
+                     {"choices": ["cat", "car", "dog", "bird"]},
+                     {"json_schema": SCHEMA}, None]
+CONSTRAIN_STEPS = 32
+FRONT_LOGPROBS_K, N_BEST = 5, 4
+UNBOUNDED = [{"regex": "[0-9]+"}, {"regex": "[a-z]+"}, {"regex": "[A-Z]+"},
+             {"regex": "[0-9a-f]+"}]
 
 
 def card_line() -> str:
@@ -1237,26 +1273,37 @@ def sampler_known_answers() -> None:
         raise AssertionError("the card's random bits differ from the CPU's")
 
 
-def replay_values(model, prompt, feed, temperature, top_p, seed, steps):
+def replay_values(model, prompt, feed, temperature, top_p, seed, steps,
+                  program=None):
     """What a solo run at (temperature, top_p, seed) samples from at each
     of ``steps`` steps when fed the tokens ``feed`` ``[B, steps]``
     (teacher forcing): ``[steps, B, V]`` f32, gumbel(key i) + the scaled,
     nucleus-filtered logits (the logits, greedy), by generate's own
     operations, so their argmax is the token generate takes; and the
-    scaled logits before the filter."""
+    scaled logits before the filter. With a constraint ``program`` the
+    logits first take the mask of each step's state along ``feed``, as
+    ``constrained_generate`` adds it."""
     from tf_operator_tpu_torch.models.transformer import (
         _nucleus_filter,
         _prefill,
     )
     from tf_operator_tpu_torch.random import PRNGKey, gumbel, split
+    from tf_operator_tpu_torch.serve.constrain import NEG_MASK, oracle_tables
 
     keys = split(PRNGKey(seed, prompt.device), steps)
     temp = torch.tensor(temperature, dtype=torch.float32,
                         device=prompt.device)
     out, pre = [], []
+    if program is not None:
+        allow, nxt = oracle_tables(program, prompt.device)
+        state = torch.zeros(feed.shape[0], dtype=torch.int64,
+                            device=prompt.device)
     with torch.no_grad():
         cache, logits = _prefill(model, prompt)
         for i in range(steps):
+            if program is not None:
+                logits = logits + torch.where(allow[state], 0.0, NEG_MASK)
+                state = nxt[state, feed[:, i].long()].long()
             values = scaled = logits
             if temperature > 0:
                 scaled = logits / temp
@@ -1286,25 +1333,32 @@ def top_two_gap(values: torch.Tensor) -> torch.Tensor:
     return top[..., 0] - top[..., 1]
 
 
-def solo_parting(model, base, prompt, got, t, tp, seed):
+def solo_parting(model, base, prompt, got, t, tp, seed, program=None):
     """Where a lane's tokens ``got`` (numpy) part from the solo
-    ``generate`` of its prompt and sampling parameters on the card: None
-    when they are identical, else (the first parting step, the solo run's
-    top-two gap there), which phases 14 (b) and 15 (a) hold to
+    ``generate`` (``constrained_generate`` under a ``program``) of its
+    prompt and sampling parameters on the card: None when they are
+    identical, else (the first parting step, the solo run's top-two gap
+    there), which phases 14 (b), 15 (a) and 16 (a) hold to
     ``NEAR_TIE``."""
     from tf_operator_tpu_torch.models.transformer import generate
     from tf_operator_tpu_torch.random import PRNGKey
+    from tf_operator_tpu_torch.serve.constrain import constrained_generate
 
     steps = len(got)
     prompt = torch.as_tensor(prompt, device=model.device)
     kw = dict(temperature=t, top_p=tp, rng=PRNGKey(seed, model.device)) \
         if t > 0 else {}
-    solo = generate(base, model, prompt, steps, **kw)
+    if program is None:
+        solo = generate(base, model, prompt, steps, **kw)
+    else:
+        solo = constrained_generate(base, model, prompt, steps,
+                                    program=program, **kw)
     want = solo[0].cpu().numpy()
     if np.array_equal(want, got):
         return None
     step = int(np.flatnonzero(want != got)[0])
-    values, _ = replay_values(model, prompt, solo, t, tp, seed, steps)
+    values, _ = replay_values(model, prompt, solo, t, tp, seed, steps,
+                              program)
     return step, top_two_gap(values[step, 0]).item()
 
 
@@ -1891,6 +1945,301 @@ def front_fault_phase(pa, i8, base, params, prompts, greedy) -> int:
     return launches
 
 
+
+def grammar_check(program, toks, spec) -> str:
+    """Every token up to the grammar's completion is legal at its state
+    (the program's own walk), the lane completes within its tokens, and
+    the completed text parses: ``json.loads`` for a schema, membership for
+    choices, ``re.fullmatch`` for a regex. Returns the text."""
+    state, done = 0, None
+    for i, tok in enumerate(toks):
+        if not program.allow[state, tok]:
+            raise AssertionError(f"{spec}: token {tok} at step {i} is "
+                                 f"illegal at state {state}")
+        state = program.walk(state, tok)
+        if program.complete[state]:
+            done = i
+            break
+    if done is None:
+        raise AssertionError(f"{spec}: no completion in {len(toks)} tokens")
+    text = "".join(chr(t) for t in toks[:done + 1])
+    if "json_schema" in spec:
+        obj = json.loads(text)
+        ok = isinstance(obj.get("ok"), bool) and len(obj["name"]) <= 4
+    elif "choices" in spec:
+        ok = text in spec["choices"]
+    else:
+        ok = re.fullmatch(spec["regex"], text) is not None
+    if not ok:
+        raise AssertionError(f"{spec}: {text!r} does not parse")
+    return text
+
+
+def constrained_engine_phase(pa, i8, base, params, prompts):
+    """Phase 16 (a): the f32 engine at phase 6's width through the kernel,
+    one lane each under ``CONSTRAINED_LANES``' regex, choices and
+    json_schema programs and one free lane, greedy and then with
+    ``SAMPLING``'s mix (B4's counts set to 0 just before each run's joins):
+    each lane equal to its solo ``constrained_generate`` (``generate``, the
+    free lane) on the card or parting at a near-tie (phase 14 (b)'s rule),
+    every token legal and every grammar complete and parsed, B4 at
+    n_layers launches a forward. Returns (the compiler, B4's launches)."""
+    from tf_operator_tpu_torch.models.transformer import _decode_model
+    from tf_operator_tpu_torch.serve.constrain import (
+        ConstraintCompiler,
+        default_vocab,
+    )
+    from tf_operator_tpu_torch.serve.engine import ContinuousEngine
+
+    comp = ConstraintCompiler(default_vocab(base.vocab_size))
+    programs, compile_s = [], {}
+    for spec in CONSTRAINED_LANES:
+        t0 = time.perf_counter()
+        programs.append(None if spec is None else comp.compile(spec))
+        if spec is not None:
+            compile_s[next(iter(spec))] = round(time.perf_counter() - t0, 4)
+    print(f"constrained engine: cold compile seconds at vocab "
+          f"{base.vocab_size} {compile_s}, states "
+          f"{[p.n_states for p in programs if p is not None]}", flush=True)
+    launches = 0
+    for label, mix in (("greedy", [(0.0, None, 0)] * len(prompts)),
+                       ("sampled", SAMPLING)):
+        engine = ContinuousEngine(base, params, len(prompts), kv_block=BLK,
+                                  kv_attend="kernel")
+        reset_counts(pa, i8)
+        slots = [engine.join(p, num_steps=CONSTRAIN_STEPS, temperature=t,
+                             top_p=tp, seed=seed, program=prog)
+                 for p, (t, tp, seed), prog in zip(prompts, mix, programs)]
+        if slots != list(range(len(prompts))):
+            raise AssertionError(f"constrained joins got slots {slots}")
+        tokens = np.stack([engine.step() for _ in range(CONSTRAIN_STEPS)])
+        torch.cuda.synchronize()
+        forwards, runs = engine.steps_total, pa.launches
+        debug = engine.constrain_debug()
+        del engine
+        torch.cuda.empty_cache()
+        if runs != LAYERS * forwards:
+            raise AssertionError(f"constrained engine {label}: B4 launches "
+                                 f"{runs} over {forwards} forwards")
+        launches += runs
+        model = _decode_model(base, params, None)
+        parted, texts = [], []
+        for lane, (prompt, (t, tp, seed), prog, spec) in enumerate(
+                zip(prompts, mix, programs, CONSTRAINED_LANES)):
+            got = tokens[:, lane]
+            part = solo_parting(model, base, prompt, got, t, tp, seed, prog)
+            if part is not None:
+                parted.append((lane, *part))
+            if prog is not None:
+                texts.append(grammar_check(prog, got.tolist(), spec))
+        del model
+        torch.cuda.empty_cache()
+        print(f"constrained engine f32 {label} (lanes regex, choices, "
+              f"json_schema, free): texts {texts}; lanes parting from their "
+              f"solo run (lane, first step, top-two gap): {parted} (limit "
+              f"{NEAR_TIE}, at most one lane); B4 launches {runs} over "
+              f"{forwards} forwards; pool {debug}", flush=True)
+        if len(parted) > 1 or any(gap > NEAR_TIE for _, _, gap in parted):
+            raise AssertionError(f"constrained lanes part from their solo "
+                                 f"run away from a near-tie: {parted}")
+    return comp, launches
+
+
+def masked_step_profile(pa, i8, cfg, params, prompts, card) -> int:
+    """What the mask adds to a decode step: a bf16 engine with four lanes
+    under ``UNBOUNDED`` programs, 8 steps under torch.profiler with the
+    mask and the FSM advance, then 8 with both patched out, in turns
+    (mask, none, mask, none). Returns B4's launches."""
+    from tf_operator_tpu_torch.serve.constrain import (
+        ConstraintCompiler,
+        default_vocab,
+    )
+    from tf_operator_tpu_torch.serve.engine import ContinuousEngine
+
+    comp = ConstraintCompiler(default_vocab(cfg.vocab_size))
+    engine = ContinuousEngine(cfg, params, len(prompts), kv_block=BLK,
+                              kv_attend="kernel")
+    reset_counts(pa, i8)
+    for p, spec in zip(prompts, UNBOUNDED):
+        engine.join(p, num_steps=4 * PROFILE_STEPS + 4,
+                    program=comp.compile(spec))
+    for _ in range(2):
+        engine.step()
+    turns = []
+    for label in ("mask", "no mask", "mask", "no mask"):
+        with contextlib.ExitStack() as stack:
+            if label == "no mask":
+                stack.enter_context(mock.patch.object(
+                    engine, "_mask", lambda logits: logits))
+                stack.enter_context(mock.patch.object(
+                    engine, "_advance", lambda toks: None))
+            turns.append((label, profile_steps(
+                engine.step, PROFILE_STEPS, f"bf16 decode steps, {label}")))
+    torch.cuda.synchronize()
+    launches, forwards = pa.launches, engine.steps_total
+    del engine
+    torch.cuda.empty_cache()
+    if launches != LAYERS * forwards:
+        raise AssertionError(f"mask profile: B4 launches {launches} over "
+                             f"{forwards} forwards")
+
+    def mean(label, key):
+        vals = [t[key] for name, t in turns if name == label and key in t]
+        return sum(vals) / len(vals) if vals else None
+
+    adds = {key: (None if mean("mask", key) is None
+                  else round(mean("mask", key) - mean("no mask", key), 3))
+            for key in ("events", "busy_us")}
+    print(f"constrained step, bf16, 4 constrained lanes: the mask and FSM "
+          f"advance add {adds['events']} device operations and "
+          f"{adds['busy_us']} us of device time a step (means over two "
+          f"turns of {PROFILE_STEPS} profiled steps each; None: not "
+          f"measured) on {card}", flush=True)
+    return launches
+
+
+def constrained_front_phase(pa, i8, base, params, prompts, card, comp):
+    """Phase 16 (b): the bf16 front with ``--logprobs-k 5``: one request
+    each with json_schema, regex, choices (``grammar_complete``, legal,
+    parsed), logprobs (``length``, rows with top values descending and
+    the greedy token's logprob the top one) and ``n`` = 4 at T 0.8 (four
+    candidates at seed + j); then a stop request on two of the logprobs
+    request's tokens (``stop_sequence``, trimmed by apply_stop's rule).
+    Each spec's compile seconds from the server's ``constrain.compile``
+    spans; decode tokens/s of an all-free and an all-constrained burst
+    in turns (free, constrained, constrained, free); then what the mask
+    adds to a step (``masked_step_profile``). Returns B4's launches by
+    run."""
+    from tf_operator_tpu_torch.serve.constrain import apply_stop
+
+    cfg = replace(base, dtype=torch.bfloat16)
+    supervisor, server, url = open_front(cfg, params,
+                                         logprobs_k=FRONT_LOGPROBS_K)
+    reset_counts(pa, i8)
+    specs = [s for s in CONSTRAINED_LANES if s is not None]
+    bodies = [dict(tokens=p.tolist(), num_steps=CONSTRAIN_STEPS, **spec)
+              for p, spec in zip(prompts, specs)]
+    tail = prompts[-1].tolist()
+    bodies += [dict(tokens=tail, num_steps=CONSTRAIN_STEPS, logprobs=True),
+               dict(tokens=tail, num_steps=CONSTRAIN_STEPS, n=N_BEST,
+                    temperature=0.8, seed=5)]
+    responses, wall = send_all(url, bodies)
+    for spec, resp in zip(specs, responses):
+        if resp["finish_reason"] != ["grammar_complete"]:
+            raise AssertionError(f"{spec}: finish {resp['finish_reason']}")
+        grammar_check(comp.compile(spec), resp["tokens"][0], spec)
+    lp = responses[len(specs)]
+    rows = lp["logprobs"][0]
+    free = lp["tokens"][0]
+    if (lp["finish_reason"] != ["length"] or len(rows) != len(free)
+            or len(free) != CONSTRAIN_STEPS):
+        raise AssertionError(f"logprobs response {lp['finish_reason']} "
+                             f"{len(rows)} rows, {len(free)} tokens")
+    for row in rows:
+        vals = row["top_logprobs"]
+        if (len(vals) != FRONT_LOGPROBS_K
+                or any(a < b for a, b in zip(vals, vals[1:]))
+                or row["logprob"] != vals[0]
+                or row["top_ids"][0] != row["token"]):
+            raise AssertionError(f"logprob row inconsistent: {row}")
+    nb = responses[len(specs) + 1]
+    choices = nb.get("choices", [])
+    if ([c["seed"] for c in choices] != [5 + j for j in range(N_BEST)]
+            or [c["tokens"] for c in choices] != nb["tokens"]
+            or any(len(c["tokens"]) != CONSTRAIN_STEPS for c in choices)):
+        raise AssertionError(f"n-best payload {nb}")
+    stop = [free[3:5]]
+    status, st = http(url, "/generate", dict(
+        tokens=tail, num_steps=CONSTRAIN_STEPS, stop=stop, logprobs=True))
+    want = apply_stop(free, [tuple(stop[0])])
+    if (status != 200 or st["finish_reason"] != ["stop_sequence"]
+            or st["tokens"] != [want]
+            or len(st["logprobs"][0]) != len(want)):
+        raise AssertionError(f"stop request {status} {st}, want {want}")
+    _, traces = http(url, "/debug/traces")
+    compile_s = {}
+    for e in traces["traceEvents"]:
+        if e["name"] == "constrain.compile":
+            kind = e["args"].get("kind")
+            compile_s[kind] = max(compile_s.get(kind, 0.0),
+                                  e["dur"] / 1e6)
+    _, metrics = http(url, "/metrics")
+    _, debug = http(url, "/debug/serve")
+    if ('tpu_serve_constrained_stops_total{reason="stop_sequence"}'
+            not in metrics or "compiler" not in debug.get("constrain", {})):
+        raise AssertionError("constrain metrics or /debug/serve section "
+                             "missing")
+    print(f"constrained front bf16: {len(bodies)} requests in {wall:.4f} s "
+          f"and a stop request ({len(free)} -> {len(want)} tokens); the "
+          f"server's compile seconds at vocab {cfg.vocab_size} (longest "
+          f"span by kind) {compile_s}; /debug/serve constrain "
+          f"{debug['constrain']}", flush=True)
+    free_bodies = [dict(tokens=p.tolist(), num_steps=FIRST_STEPS,
+                        timing=True) for p in prompts]
+    con_bodies = [dict(b, **spec) for b, spec in zip(free_bodies, UNBOUNDED)]
+    rates = []
+    for label, group in (("free", free_bodies), ("constrained", con_bodies),
+                         ("constrained", con_bodies), ("free", free_bodies)):
+        out, took = send_all(url, group)
+        rates.append((label, latency_line(f"bf16 {label} burst", out,
+                                          took)["tok_s"]))
+        if label == "constrained":
+            for spec, resp in zip(UNBOUNDED, out):
+                text = "".join(chr(t) for t in resp["tokens"][0])
+                if re.fullmatch(spec["regex"], text) is None:
+                    raise AssertionError(f"{spec}: {text!r}")
+    launches, forwards = pa.launches, supervisor.engine.steps_total
+    server.drain()
+    del supervisor, server
+    torch.cuda.empty_cache()
+    if launches != LAYERS * forwards:
+        raise AssertionError(f"constrained front B4 launches {launches} over "
+                             f"{forwards} forwards")
+    print(f"constrained front bf16: decode tokens/s in turns (free, "
+          f"constrained, constrained, free) "
+          f"{[round(r, 2) for _, r in rates]} on {card}", flush=True)
+    profile = masked_step_profile(pa, i8, cfg, params, prompts, card)
+    return {"constrained front bf16 (16b)": launches,
+            "mask profile bf16 (16b)": profile}
+
+
+def constrained_int8_phase(pa, i8, base, params, prompts, comp) -> dict:
+    """Phase 16 (c): one constrained greedy lane (the json_schema program)
+    on the bf16 int8_decode + kv_int8 engine over phase 13's tree: every
+    token legal and the grammar complete and parsed; the kv8 B4 at
+    n_layers launches a forward, B5's stream at 41 a forward and its
+    wgmma tile on the prefill. Returns the launches by kernel."""
+    from tf_operator_tpu_torch.models.convert import quantize_decode_params
+    from tf_operator_tpu_torch.serve.engine import ContinuousEngine
+
+    cfg = replace(base, dtype=torch.bfloat16, int8_decode=True,
+                  kv_int8=True)
+    engine = ContinuousEngine(cfg, quantize_decode_params(
+        bf16_rounded(params)), len(prompts), kv_block=BLK,
+        kv_attend="kernel")
+    spec = {"json_schema": SCHEMA}
+    prog = comp.compile(spec)
+    reset_counts(pa, i8)
+    slot = engine.join(prompts[2], num_steps=CONSTRAIN_STEPS, program=prog)
+    toks = [int(engine.step()[slot]) for _ in range(CONSTRAIN_STEPS)]
+    torch.cuda.synchronize()
+    forwards = engine.steps_total
+    got = dict(paged_attend=pa.launches, paged_attend_kv8=pa.kv8_launches,
+               int8_matmul=i8.launches - i8.wgmma_launches,
+               int8_matmul_prefill=i8.wgmma_launches)
+    del engine
+    torch.cuda.empty_cache()
+    text = grammar_check(prog, toks, spec)
+    calls = 5 * cfg.n_layers + 1
+    print(f"constrained int8 + kv8 bf16: {text!r}, {forwards} forwards, "
+          f"launches {got}", flush=True)
+    if (got["paged_attend"]
+            or got["paged_attend_kv8"] != cfg.n_layers * forwards
+            or got["int8_matmul"] < calls * forwards
+            or got["int8_matmul_prefill"] < calls - 1):
+        raise AssertionError(f"constrained int8 + kv8: launches {got}")
+    return got
+
 def key_bias_rows(name: str, p: torch.Tensor):
     """The key-bias slice of an attention bias, or None."""
     if name.endswith("attn.qkv.bias"):
@@ -2171,28 +2520,40 @@ def main() -> int:
                                   int8_greedy)
     front_faults = front_fault_phase(pa, i8, base, params, prompts, greedy)
 
+    t0 = time.perf_counter()
+    comp, con_f32 = constrained_engine_phase(pa, i8, base, params, prompts)
+    con_front = constrained_front_phase(pa, i8, base, params, prompts, card,
+                                        comp)
+    con_int8 = constrained_int8_phase(pa, i8, base, params, prompts, comp)
+    print(f"phase 16 (constrained decoding): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
     # Each kernel's launches on every path of this run that drives it.
     paths = {
         "paged_attend": {
             "engine f32 (6)": f32["kernel"]["launches"]["paged_attend"],
             "engine bf16 (7)": bf16["launches"]["paged_attend"], **sampled,
             "front f32 (15a)": front_f32, "front bf16 (15b)": front_bf16,
-            "front faults f32 (15d)": front_faults},
+            "front faults f32 (15d)": front_faults,
+            "constrained engine f32 (16a)": con_f32, **con_front},
         "paged_attend_kv8": {
             "int8 engine f32 (12)": int8_f32["paged_attend_kv8"],
             "int8 engine bf16 (13)": int8_bf16["paged_attend_kv8"],
-            "front int8 (15c)": front_int8["paged_attend_kv8"]},
+            "front int8 (15c)": front_int8["paged_attend_kv8"],
+            "constrained int8 (16c)": con_int8["paged_attend_kv8"]},
         "int8_matmul": {
             "int8 engine f32 (12)": (int8_f32["int8_matmul"]
                                      - int8_f32["int8_wgmma"]),
             "int8 engine bf16 (13)": (int8_bf16["int8_matmul"]
                                       - int8_bf16["int8_wgmma"]),
             **int8_gen["int8_matmul"],
-            "front int8 (15c)": front_int8["int8_matmul"]},
+            "front int8 (15c)": front_int8["int8_matmul"],
+            "constrained int8 (16c)": con_int8["int8_matmul"]},
         "int8_matmul_prefill": {
             "int8 engine bf16 (13)": int8_bf16["int8_wgmma"],
             **int8_gen["int8_matmul_prefill"],
-            "front int8 (15c)": front_int8["int8_matmul_prefill"]},
+            "front int8 (15c)": front_int8["int8_matmul_prefill"],
+            "constrained int8 (16c)": con_int8["int8_matmul_prefill"]},
     }
     for name in flash_bf16:
         paths[name] = {"trainer f32 (8)": flash_f32[name],

@@ -36,6 +36,7 @@ names = [m.name for m in pkgutil.walk_packages(
     tf_operator_tpu_torch.__path__, "tf_operator_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+print(" ".join(names))
 print(len(names))
 """
 
@@ -48,10 +49,11 @@ def test_package_imports_with_jax_and_the_reference_poisoned():
     assert out.returncode == 0, out.stderr
     # Every module was imported: models (2), ops (4: _build,
     # flash_attention, int8_dense, paged_attention), runtime (2: metrics,
-    # tracing), serve (7: engine, kvcache, faultinject, resilience,
-    # scheduler, httpapi, serve_lm), train (1), random and testing, and
-    # the five packages.
-    assert int(out.stdout.split()[-1]) >= 23
+    # tracing), serve (8: constrain, engine, kvcache, faultinject,
+    # resilience, scheduler, httpapi, serve_lm), train (1), random and
+    # testing, and the five packages.
+    assert int(out.stdout.split()[-1]) >= 24
+    assert "tf_operator_tpu_torch.serve.constrain" in out.stdout
 
 
 def _sources():

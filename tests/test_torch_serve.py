@@ -64,20 +64,16 @@ MIXED = [
     (prompt_of(6, 6), 12, 0.0, None, 0),
 ]
 # What the JAX front shows and the port leaves out with the items that
-# bring it: the snapshot's constraint-pool section (A6), the KV pool's
-# shipment, export and retention counters (A7), and the metric families
-# of KV shipments and the host tier (A7), speculative decoding and
-# constrained decoding (A6).
-UNPORTED_SNAPSHOT_KEYS = {"constrain"}
+# bring it: the KV pool's shipment, export and retention counters (A7),
+# and the metric families of KV shipments and the host tier (A7) and of
+# speculative decoding (A6b).
 UNPORTED_KV_KEYS = {"shipments_ingested", "ship_tokens_ingested",
                     "prefix_exports", "prefix_retained"}
 UNPORTED_FAMILIES = {
     "tpu_serve_kv_ship_ingest_total", "tpu_serve_ship_tokens_total",
     "tpu_serve_kv_tier_bytes", "tpu_serve_kv_tier_restores_total",
     "tpu_serve_kv_tier_spills_total", "tpu_serve_spec_accept_tokens",
-    "tpu_serve_spec_rounds_total", "tpu_serve_constrained_requests_total",
-    "tpu_serve_constrained_stops_total", "tpu_serve_constrain_programs",
-    "tpu_serve_constrain_evictions_total"}
+    "tpu_serve_spec_rounds_total"}
 
 
 @pytest.fixture(scope="module")
@@ -212,20 +208,22 @@ def fake_engine(**kw):
 ])
 def test_unported_fields_refused_typed_before_device_work(params, field,
                                                           value, jax_type):
-    """A6 fields without the A6 machinery: the port refuses them at
-    enqueue with a typed 400, as the JAX scheduler does without a
-    constraint compiler (``stop``, grammars: invalid_grammar) or without
-    logprobs (a ValueError, the server's 400); nothing is queued."""
+    """Structured fields on a scheduler without the machinery they need:
+    the port refuses them at enqueue as the JAX scheduler does, with the
+    same error and message, without a constraint compiler (``stop``,
+    grammars: the typed invalid_grammar 400) or without ``logprobs_k``
+    (a ValueError, the server's bad_request 400); nothing is queued."""
     jax_sched = JaxScheduler(fake_engine())
     from tf_operator_tpu.serve.scheduler import ServeRequest as JaxRequest
-    with pytest.raises(jax_type):
+    with pytest.raises(jax_type) as want:
         jax_sched.enqueue(JaxRequest(prompt_of(4, 1), 2, **{field: value}))
     sched = ContinuousScheduler(fake_engine())
-    with pytest.raises(resilience.ServeError) as ei:
+    port_type = getattr(resilience, jax_type.__name__, jax_type)
+    with pytest.raises(port_type) as ei:
         sched.enqueue(ServeRequest(prompt_of(4, 1), 2, **{field: value}))
-    assert resilience.http_status_of(ei.value) == 400
-    assert "ROADMAP A6" in str(ei.value)
-    if jax_type is jax_res.InvalidGrammar:
+    assert str(ei.value) == str(want.value)
+    if port_type is resilience.InvalidGrammar:
+        assert resilience.http_status_of(ei.value) == 400
         assert ei.value.code == jax_type.code
     assert sched.queue_depth == 0
 
@@ -259,7 +257,8 @@ def test_debug_snapshot_and_readiness_keys_match_jax(params):
     finally:
         jsched.stop(timeout=30)
         sched.stop(timeout=30)
-    assert set(got) == set(want) - UNPORTED_SNAPSHOT_KEYS
+    assert set(got) == set(want)
+    assert got["constrain"] == want["constrain"]
     assert set(got["kv_cache"]) == set(want["kv_cache"]) - UNPORTED_KV_KEYS
     assert got["mesh"] == want["mesh"] == {"devices": 1}
     assert got["decode_step_compiles"] == got["warmup_compiles"] == 0

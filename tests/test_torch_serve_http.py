@@ -4,9 +4,13 @@ against JAX's solo ``generate`` and driven by the JAX package's own fleet
 router.
 
 - In process (``build_front``): greedy, sampled, multi-row (row i seeded
-  seed + i), eos and ``stream`` requests give JAX's tokens; the fields of
-  unported items and ``top_p`` without ``temperature`` answer typed 400s;
-  /healthz, /debug/serve, /debug/traces and /metrics answer.
+  seed + i), eos and ``stream`` requests give JAX's tokens; the structured
+  fields (``regex``, ``json_schema``, ``choices``, ``stop``, ``logprobs``,
+  ``n`` > 1) give the JAX scheduler's tokens, ``finish_reason``, logprob
+  rows and ``choices`` under examples/serve_lm.py's payload keys; the
+  fields of unported items, bad structured requests and ``top_p`` without
+  ``temperature`` answer typed 400s; /healthz, /debug/serve,
+  /debug/traces and /metrics answer.
 - A port replica registered in the JAX package's FleetMembership turns
   ready, and its RouterServer serves /generate from it with the tokens of
   a direct request.
@@ -38,6 +42,12 @@ from conftest import free_port
 from tf_operator_tpu.fleet.membership import FleetMembership
 from tf_operator_tpu.fleet.router import RouterConfig, RouterServer
 from tf_operator_tpu.models.transformer import Transformer as JaxTransformer
+from tf_operator_tpu.serve import constrain as jc
+from tf_operator_tpu.serve.engine import ContinuousEngine as JaxEngine
+from tf_operator_tpu.serve.scheduler import (
+    ContinuousScheduler as JaxScheduler,
+    ServeRequest as JaxRequest,
+)
 from tf_operator_tpu_torch.models.transformer import TransformerConfig
 from tf_operator_tpu_torch.serve import resilience, serve_lm
 from test_serve_sched import CFG, prompt_of, solo
@@ -57,7 +67,8 @@ def front():
         jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"]
     args = serve_lm.front_args(device="cpu", max_batch=4, kv_block=8,
                                max_seq_len=CFG.max_seq_len, prefill_chunk=4,
-                               stream_segment=4, replica_id="gpu-0")
+                               stream_segment=4, replica_id="gpu-0",
+                               logprobs_k=3)
     supervisor, server = serve_lm.build_front(
         TCFG, jax.tree.map(np.asarray, params), args)
     server.start()
@@ -111,21 +122,106 @@ def test_generate_greedy_sampled_multirow_eos_and_stream(front):
         want[0].tolist()
 
 
+@pytest.fixture(scope="module")
+def jax_front(front):
+    """The JAX scheduler over the JAX engine (logprobs_k 3, the same
+    constraint pool) and compiler, on the same weights: what the JAX
+    server's /generate hands each row to."""
+    sched = JaxScheduler(
+        JaxEngine(CFG, front[0], max_slots=4, kv_paged=True, kv_block=8,
+                  prefill_chunk=4, logprobs_k=3),
+        constrainer=jc.ConstraintCompiler(jc.default_vocab(CFG.vocab_size)),
+    ).start()
+    yield sched
+    sched.stop(timeout=60)
+
+
+def jax_payload(sched, body) -> dict:
+    """examples/serve_lm.py's /generate payload for ``body`` (less the
+    request id), each row through the JAX scheduler."""
+    prompt = np.asarray(body["tokens"], np.int32)
+    n_best = int(body.get("n", 1))
+    constrain = {k: body[k] for k in ("json_schema", "regex", "choices")
+                 if body.get(k) is not None} or None
+    rows = []
+    for i in range(n_best if n_best > 1 else prompt.shape[0]):
+        rows.append(sched.submit_request(JaxRequest(
+            prompt[0:1] if n_best > 1 else prompt[i:i + 1],
+            body["num_steps"], temperature=body.get("temperature", 0.0),
+            top_p=body.get("top_p"), seed=body.get("seed", 0) + i,
+            constrain=constrain, stop=body.get("stop"),
+            logprobs=bool(body.get("logprobs"))), timeout=120))
+    out = {"tokens": [list(r.out) for r in rows],
+           "finish_reason": [r.finish_reason for r in rows]}
+    if body.get("logprobs"):
+        out["logprobs"] = [r.logprob_rows for r in rows]
+    if n_best > 1:
+        out["choices"] = [{"tokens": list(r.out),
+                           "seed": body.get("seed", 0) + j,
+                           "finish_reason": r.finish_reason}
+                          for j, r in enumerate(rows)]
+    return out
+
+
+@pytest.mark.parametrize("fields,reason", [
+    ({"regex": "[0-9]{2,5}"}, "grammar_complete"),
+    ({"json_schema": {"type": "string", "maxLength": 3},
+      "temperature": 0.8, "seed": 2}, "grammar_complete"),
+    ({"choices": ["12", "3=", "<>"], "temperature": 0.9, "top_p": 0.9,
+      "seed": 7}, "grammar_complete"),
+    ({"stop": None}, "stop_sequence"),
+    ({"logprobs": True}, "length"),
+    ({"n": 2, "temperature": 0.7, "seed": 4}, None),
+])
+def test_structured_fields_served_as_jax(front, jax_front, fields, reason):
+    """Each structured field gives the JAX scheduler's rows under the JAX
+    server's payload keys: tokens, finish_reason, logprob rows (ids equal,
+    values within 1e-5) and the n-best ``choices``. ``stop`` takes two
+    tokens of the greedy stream, so it trims there."""
+    _, supervisor, url = front
+    body = {"tokens": prompt_of(6, 3).tolist(), "num_steps": 10, **fields}
+    if "stop" in fields:
+        free = jax_payload(jax_front, {**body, "stop": None})["tokens"][0]
+        body["stop"] = [free[3:5]]
+    want = jax_payload(jax_front, body)
+    status, got = call(url, "/generate", body)
+    assert status == 200, got
+    assert set(got) - {"request_id"} == set(want)
+    for key in ("tokens", "finish_reason", "choices"):
+        assert got.get(key) == want.get(key), key
+    if reason:
+        assert got["finish_reason"] == [reason]
+    for grow, wrow in zip(got.get("logprobs", [[]])[0],
+                          want.get("logprobs", [[]])[0]):
+        assert (grow["token"], grow["top_ids"]) == (wrow["token"],
+                                                    wrow["top_ids"])
+        np.testing.assert_allclose(
+            [grow["logprob"], *grow["top_logprobs"]],
+            [wrow["logprob"], *wrow["top_logprobs"]], rtol=0, atol=1e-5)
+    if "logprobs" in fields:
+        assert len(got["logprobs"][0]) == 10
+    snap = supervisor.debug_snapshot()["constrain"]
+    assert snap["slots_constrained"] == 0 and snap["logprobs_k"] == 3
+
+
 @pytest.mark.parametrize("body,code,item", [
-    ({"regex": "a+"}, "invalid_grammar", "A6"),
-    ({"json_schema": {"type": "string"}}, "invalid_grammar", "A6"),
-    ({"choices": ["a", "b"]}, "invalid_grammar", "A6"),
-    ({"stop": [[1, 2]]}, "invalid_grammar", "A6"),
-    ({"logprobs": True}, "bad_request", "A6"),
-    ({"n": 2, "temperature": 0.5}, "bad_request", "A6"),
     ({"shipped_kv": {"blocks": []}}, "bad_request", "A7"),
     ({"session": "s1"}, "bad_request", "A7"),
     ({"top_p": 0.9}, "bad_request", None),
     ({"stream": True, "temperature": 0.5}, "bad_request", None),
+    ({"stream": True, "regex": "[0-9]+"}, "bad_request", None),
+    ({"regex": "[unclosed"}, "invalid_grammar", None),
+    ({"choices": ["cat"]}, "invalid_grammar", None),  # no lowercase at V=64
+    ({"stop": [3.5]}, "invalid_grammar", None),
+    ({"n": 2}, "bad_request", None),
+    ({"n": 5, "temperature": 0.5}, "bad_request", None),
 ])
 def test_typed_400s(front, body, code, item):
-    """The fields of items the port has not ported, and top_p without a
-    temperature, answer a typed, non-retryable 400 naming the item."""
+    """The fields of items the port has not ported, structured requests
+    that cannot be served (a bad grammar or stop, ``stream`` with a
+    grammar, greedy ``n`` > 1 or more candidates than slots), and top_p
+    without a temperature answer a typed, non-retryable 400, naming the
+    item where there is one."""
     _, supervisor, url = front
     done0 = supervisor.requests_done
     status, out = call(url, "/generate", {
@@ -187,8 +283,9 @@ def test_fleet_router_serves_a_port_replica(front):
 @pytest.mark.parametrize("argv,reason", [
     (["--tp", "2"], "ROADMAP A8"),
     (["--dp", "2"], "ROADMAP A8"),
-    (["--spec-k", "2"], "ROADMAP A6"),
-    (["--logprobs-k", "3"], "ROADMAP A6"),
+    (["--spec-k", "2"], "ROADMAP A6b"),
+    (["--logprobs-k", "-1"], "--logprobs-k must be >= 0"),
+    (["--constrain-rows", "0"], "--constrain-rows must be >= 1"),
     (["--kv-dense"], "ROADMAP A5"),
     (["--engine", "coalesce"], "ROADMAP A10"),
     (["--batch-window", "0.01"], "ROADMAP A10"),

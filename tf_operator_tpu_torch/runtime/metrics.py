@@ -6,9 +6,10 @@ port's serving path touches: the registry primitives (counters, gauges,
 histograms with labels, rendered in the Prometheus text format at
 /metrics) and the ``tpu_serve_*`` families of the continuous-batching
 front, under the JAX package's names, labels and buckets, so a scrape of
-either server parses the same way. The families of later items (KV
-shipments, speculative decode, the host tier, constrained decoding:
-ROADMAP A6, A7) are left out until those items are ported.
+either server parses the same way, constrained decoding's four families
+included. The families of later items (KV shipments, speculative decode,
+the host tier: ROADMAP A6b, A7) are left out until those items are
+ported.
 
 Thread-safe; all mutation is under one lock per metric family.
 """
@@ -382,6 +383,36 @@ SERVE_OCCUPANCY = REGISTRY.histogram(
     "Fraction of decode slots active, observed at every decode step — "
     "the quantity decode throughput is proportional to",
     buckets=(0.0625, 0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0),
+)
+
+SERVE_CONSTRAINED_REQUESTS = REGISTRY.counter(
+    "tpu_serve_constrained_requests_total",
+    "Requests admitted with a compiled constraint program, by spec kind "
+    "(json_schema/regex/choices) — unconstrained traffic never touches "
+    "this counter (docs/constrained-decoding.md)",
+    ("kind",),
+)
+SERVE_CONSTRAINED_STOPS = REGISTRY.counter(
+    "tpu_serve_constrained_stops_total",
+    "Completions finished by the host-side stop machinery, by reason "
+    "(stop_sequence: a multi-token stop matched and the tail was "
+    "trimmed; grammar_complete: the constraint DFA reached a state "
+    "with nothing left to emit and the slot retired)",
+    ("reason",),
+)
+SERVE_CONSTRAIN_PROGRAMS = REGISTRY.gauge(
+    "tpu_serve_constrain_programs",
+    "Compiled constraint programs resident in the device-side paged "
+    "constraint pool (row ranges of the batch-wide allow/next tables); "
+    "refcount-0 residents are reuse candidates, not leaks",
+)
+SERVE_CONSTRAIN_EVICTIONS = REGISTRY.counter(
+    "tpu_serve_constrain_evictions_total",
+    "Constraint-program evictions by tier (cache: host LRU of compiled "
+    "DFAs outgrew its bound; pool: a refcount-0 resident gave up its "
+    "device rows to an incoming bind) — steady growth under a stable "
+    "program set means the cache/pool knobs are undersized",
+    ("tier",),
 )
 
 # -- tracing (runtime/tracing.py): declared here, not there, so the

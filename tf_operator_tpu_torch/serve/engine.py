@@ -33,6 +33,17 @@ block table sized to its actual length (prompt + decode horizon).
   tokens follow its solo run for the same seed. Keys, step indices and
   sampling parameters live on the device; a step whose active lanes are
   all greedy skips the sampler.
+- Constrained decoding (``serve/constrain.py``): a join may carry a
+  compiled ``program``, bound into the engine's ``ProgramPool`` (row 0
+  the always-allow program). Each slot's FSM row lives on the device;
+  every step adds ``where(allow_pool[fsm], 0.0, -1e30)`` to every lane's
+  logits before sampling (+0.0 for an unconstrained lane) and advances
+  ``fsm = next_pool[fsm, token]``, with no extra host sync. A bind that
+  cannot fit (every resident program still referenced) returns None, the
+  requeue contract of block exhaustion.
+- Logprobs (``logprobs_k`` > 0): each step also keeps the chosen token's
+  logprob and the top-K values and ids of ``log_softmax`` of the masked
+  logits (``last_logprobs``).
 
 Serving hooks, as the JAX engine has them: ``faults`` (``alloc_exhaust``
 in ``plan_admission``, ``step_raise`` and ``step_stall`` in ``step``),
@@ -40,8 +51,8 @@ in ``plan_admission``, ``step_raise`` and ``step_stall`` in ``step``),
 ``mesh_info``, ``free_block_fraction``, the ``tpu_serve_kv_*`` gauges and
 counters, and ``warmup`` (a step over no live lane, run by a server's
 engine factory so the kernels are built and loaded before it reports
-ready). Speculative and constrained decoding, logprobs, disaggregation,
-the host tier and meshes are later slices.
+ready). Speculative decoding, disaggregation, the host tier and meshes
+are later slices.
 """
 
 from __future__ import annotations
@@ -73,6 +84,7 @@ from tf_operator_tpu_torch.runtime.metrics import (
     SERVE_PREFILL_SAVED_TOTAL,
 )
 from tf_operator_tpu_torch.runtime.tracing import SERVE_TRACER
+from tf_operator_tpu_torch.serve.constrain import NEG_MASK, ProgramPool
 from tf_operator_tpu_torch.serve.faultinject import (
     NULL_INJECTOR,
     InjectedFault,
@@ -100,9 +112,11 @@ def _sample_token(logits: torch.Tensor, keys: torch.Tensor,
     division), take the nucleus filter where ``has_top_p`` holds, and
     sample the Gumbel-max over noise of shape ``[1, V]`` from their own
     key, as JAX's vmapped ``categorical(key1, filt[None, :])`` draws it.
-    JAX adds the constraint mask first, +0.0 for an unconstrained lane; the port
-    has no constraint pool yet (ROADMAP.md A6), and adding +0.0 changes
-    no bit but a zero logit's sign, so it is left out."""
+    ``logits`` are the MASKED logits: the step adds each slot's constraint
+    row (``where(allow_pool[fsm], 0.0, -1e30)``, row 0 the always-allow
+    program) before this construction, the op position of the solo
+    ``constrained_generate``; +0.0 changes no token of an unconstrained
+    lane."""
     greedy = temperature <= 0
     scaled = logits / torch.where(greedy, 1.0, temperature)[:, None]
     scaled = torch.where(has_top_p[:, None],
@@ -137,22 +151,33 @@ class AdmissionPlan:
 class ContinuousEngine:
     """The continuous-batching engine (see the module docstring). Public
     surface: ``plan_admission``/``prefill_planned``/``join_planned`` (and
-    ``join``), ``step``, ``retire``, ``release_plan``, ``kv_debug``.
+    ``join``), ``step``, ``retire``, ``release_plan``, ``kv_debug``,
+    ``constrain_debug``, ``last_logprobs``.
 
     ``params`` is a flax-layout tree (``models/convert.py``), cast to
     ``cfg.dtype``. ``kv_attend`` picks the paged read: ``"gather"`` (the
     plain oracle) or ``"kernel"`` (the CUDA kernel on the card, the plain
     version on the CPU). ``prefill_chunk`` runs prefills in chunks of
     that many tokens. ``faults`` is a ``serve/faultinject.py`` injector
-    (default: none armed). ``device`` defaults to the CUDA card."""
+    (default: none armed). ``constrain_rows`` sizes the constraint pool
+    (row 0 included); ``logprobs_k`` > 0 keeps each step's top-K logprobs.
+    ``device`` defaults to the CUDA card."""
 
     def __init__(self, cfg: TransformerConfig, params, max_slots: int, *,
                  kv_block: int = 64, kv_blocks: int | None = None,
                  kv_attend: str = "gather",
                  prefill_chunk: int | None = None, faults: Any = None,
+                 constrain_rows: int = 128, logprobs_k: int = 0,
                  device=None) -> None:
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(f"prefill_chunk={prefill_chunk} must be >= 1")
+        # Per-token logprobs: static at construction, as in JAX (K shapes
+        # the step's extra outputs); a request opts in at the scheduler.
+        self.logprobs_k = int(logprobs_k or 0)
+        if self.logprobs_k < 0 or self.logprobs_k > cfg.vocab_size:
+            raise ValueError(
+                f"logprobs_k={logprobs_k} must be in [0, vocab_size]"
+            )
         self.prefill_chunk = prefill_chunk
         self.max_slots = int(max_slots)
         self.kv_block = int(kv_block)
@@ -189,6 +214,14 @@ class ContinuousEngine:
         self._has_top_p = torch.zeros(n, dtype=torch.bool, device=dev)
         self._rows = torch.arange(n, device=dev)
         self._sampled = np.zeros(n, bool)
+        # Constrained decoding: the pool's batch-wide allow/next tables
+        # (row 0 the always-allow program) and each slot's FSM row, on the
+        # device; the host keeps which program each slot holds.
+        self.constrain_pool = ProgramPool(int(constrain_rows),
+                                          cfg.vocab_size, device=dev)
+        self._fsm = torch.zeros(n, dtype=torch.int32, device=dev)
+        self._slot_program: dict[int, str] = {}  # slot -> bound digest
+        self._last_logprobs = None  # (chosen, top_vals, top_ids) numpy
         # slot -> {"private": [...], "shared": [...],
         #          "cow": (entry, src, dst) | None}
         self._slot_state: dict[int, dict] = {}
@@ -318,9 +351,10 @@ class ContinuousEngine:
         )
 
     def join(self, prompt, *, num_steps: int, temperature: float = 0.0,
-             top_p: float | None = None, seed: int = 0) -> int | None:
+             top_p: float | None = None, seed: int = 0,
+             program: Any = None) -> int | None:
         """Plan, prefill and join in one call: the slot index, or None
-        when slots or blocks are short."""
+        when slots, blocks or constraint rows are short."""
         plan = self.plan_admission(prompt, num_steps)
         if plan is None:
             return None
@@ -332,18 +366,22 @@ class ContinuousEngine:
             self.release_plan(plan)
             raise
         return self.join_planned(plan, pf, temperature=temperature,
-                                 top_p=top_p, seed=seed)
+                                 top_p=top_p, seed=seed, program=program)
 
     def join_planned(self, plan: AdmissionPlan,
                      pf: ChunkedPrefill | None = None, *,
                      temperature: float = 0.0, top_p: float | None = None,
-                     seed: int = 0) -> int | None:
+                     seed: int = 0, program: Any = None) -> int | None:
         """Complete a planned admission: collect or run whatever prefill
         the plan still needs (``pf`` is ``prefill_planned``'s, fed to the
         end by the caller), insert into a free slot with its sampling
         state, and register the prompt's blocks for later sharers. On an
         error, the bad sampling parameters included, the plan is released
-        and no slot state is written."""
+        and no slot state is written.
+
+        ``program`` is an optional ``CompiledProgram``: its rows bind into
+        the constraint pool here; a bind that cannot fit (every resident
+        program still referenced) releases the plan and returns None."""
         try:
             _check_sampling(temperature, top_p)
             with torch.no_grad():
@@ -367,7 +405,7 @@ class ContinuousEngine:
             self.release_plan(plan)
             raise
         return self._join_paged(plan, cache, logits, temperature, top_p,
-                                seed)
+                                seed, program)
 
     def _set_sampling(self, slot: int, num_steps: int, temperature: float,
                       top_p: float | None, seed: int) -> None:
@@ -387,9 +425,20 @@ class ContinuousEngine:
 
     def _join_paged(self, plan: AdmissionPlan, cache: dict | None,
                     logits: torch.Tensor, temperature: float,
-                    top_p: float | None, seed: int) -> int | None:
+                    top_p: float | None, seed: int,
+                    program: Any = None) -> int | None:
+        base = None
+        if program is not None:
+            base = self.constrain_pool.bind(program)
+            if base is None:
+                # Constraint-pool saturation: the requeue contract of
+                # block exhaustion.
+                self.release_plan(plan)
+                return None
         slot = self.alloc.acquire()
         if slot is None:  # the single-caller contract makes this unreachable
+            if program is not None:
+                self.constrain_pool.release(program.digest)
             self.release_plan(plan)
             return None
         if cache is None:
@@ -402,6 +451,12 @@ class ContinuousEngine:
         row = logits.reshape(-1).float()
         self._logits[slot] = row
         self._set_sampling(slot, plan.num_steps, temperature, top_p, seed)
+        if program is not None:
+            # Prompt tokens are unconstrained: the slot enters at the
+            # program's start state and the mask applies from the first
+            # GENERATED token, the solo oracle's convention.
+            self._fsm[slot] = base
+            self._slot_program[slot] = program.digest
         self._active[slot] = True
         plan.settled = True  # the blocks now belong to the slot
         cow = None
@@ -477,31 +532,78 @@ class ContinuousEngine:
         with torch.no_grad():
             active = torch.as_tensor(self._active, device=self.device)
             mask_inactive_indices(self._cache, active)
+            masked = self._mask(self._logits)
             if self._sampled[self._active].any():
-                toks = self._sample()
+                toks = self._sample(masked)
             else:
-                toks = self._logits.argmax(-1).to(torch.int32)
+                toks = masked.argmax(-1).to(torch.int32)
+            self._advance(toks)
+            if self.logprobs_k:
+                lp = self._logprob_outputs(masked, toks)
             self._logits = self._model(toks[:, None], self._cache)[:, 0]
+        if self.logprobs_k:
+            self._last_logprobs = tuple(x.cpu().numpy() for x in lp)
         self.steps_total += 1
         return toks.cpu().numpy()
 
-    def _sample(self) -> torch.Tensor:
+    def _mask(self, logits: torch.Tensor) -> torch.Tensor:
+        """The batch-wide constraint gather: each slot's allow row (row 0
+        = always-allow) as an additive mask, before temperature — the solo
+        ``constrained_generate`` op order; +0.0 for unconstrained lanes."""
+        allow = self.constrain_pool.allow_pool[self._fsm.long()]
+        return logits + torch.where(allow, 0.0, NEG_MASK)
+
+    def _advance(self, toks: torch.Tensor) -> None:
+        """Each slot's FSM row through its sampled token, on the device
+        (``next_pool[fsm, toks]``, int32)."""
+        self._fsm = self.constrain_pool.next_pool[self._fsm.long(),
+                                                  toks.long()]
+
+    def _logprob_outputs(self, masked: torch.Tensor, toks: torch.Tensor):
+        """JAX's per-token logprob rows: the chosen token's logprob and
+        the top-K (values, ids), all from log_softmax of the MASKED logits
+        (temperature-independent; disallowed tokens sit at -1e30, so a
+        constrained row renormalizes over the legal set). The order is a
+        stable descending sort, as ``jax.lax.top_k`` orders ties: the lower
+        id first."""
+        lp = torch.log_softmax(masked, dim=-1)
+        chosen = lp.gather(1, toks[:, None].long())[:, 0]
+        vals, ids = torch.sort(lp, dim=-1, descending=True, stable=True)
+        k = self.logprobs_k
+        return chosen, vals[:, :k], ids[:, :k].to(torch.int32)
+
+    def last_logprobs(self):
+        """The most recent step's ``(chosen [n], top_vals [n, K],
+        top_ids [n, K])`` numpy rows: None until a step ran, and only on
+        engines built with ``logprobs_k`` > 0. The scheduler reads its
+        slots' rows right after the step that produced them."""
+        return self._last_logprobs
+
+    def _sample(self, masked: torch.Tensor) -> torch.Tensor:
         """The sampled step's tokens (JAX's paged step): each slot's key
-        at its step index, then ``_sample_token``; every step index moves
-        on. A step with no sampling lane skips this: no live lane reads a
-        key, and each join restarts its lane's index."""
+        at its step index, then ``_sample_token`` over the masked logits;
+        every step index moves on. A step with no sampling lane skips this:
+        no live lane reads a key, and each join restarts its lane's
+        index."""
         at = self._stepidx.clamp(max=self.cfg.max_seq_len - 1)
         keys = self._keys[self._rows, at]
         self._stepidx += 1
-        return _sample_token(self._logits, keys, self._temperature,
+        return _sample_token(masked, keys, self._temperature,
                              self._top_p, self._has_top_p)
 
     def retire(self, slot: int) -> None:
-        """Release a slot: its private blocks return to the pool, shared
-        refcounts drop, and prefix entries whose last holder this was are
-        invalidated. The lane's stale rows are masked, never cleared."""
+        """Release a slot: its program reference drops, its private blocks
+        return to the pool, shared refcounts drop, and prefix entries whose
+        last holder this was are invalidated. The lane's stale rows are
+        masked, never cleared."""
         self._slot_tags.pop(slot, None)
         self._active[slot] = False
+        digest = self._slot_program.pop(slot, None)
+        if digest is not None:
+            # Drop the program reference (its rows stay resident for reuse
+            # until a bind needs them) and park the lane on row 0.
+            self.constrain_pool.release(digest)
+            self._fsm[slot] = 0
         st = self._slot_state.pop(slot, None)
         if st is not None:
             self._free_blocks(st["private"] + st["shared"])
@@ -542,6 +644,15 @@ class ContinuousEngine:
     def warmup_compiles(self) -> int:
         """``decode_step_compiles`` after ``warmup``: 0 (see there)."""
         return 0
+
+    def constrain_debug(self) -> dict:
+        """Constraint-pool telemetry for /debug/serve, JAX's keys:
+        resident programs/rows, live refs, bind/eviction counters, the
+        slots decoding under a program, and ``logprobs_k``."""
+        out = dict(self.constrain_pool.debug())
+        out["slots_constrained"] = len(self._slot_program)
+        out["logprobs_k"] = self.logprobs_k
+        return out
 
     def kv_debug(self) -> dict:
         """Block-pool stats, named as the JAX engine names them."""

@@ -241,9 +241,8 @@ class InvalidGrammar(ServeError):
 
 class NotPorted(ServeError):
     """A request field or server flag whose ROADMAP item the port has not
-    ported yet (the detail names the item): constrained and structured
-    decoding (A6), KV shipments, prefix export and the host tier (A7),
-    meshes (A8). A 400 under the front door's ``bad_request`` code, NOT
+    ported yet (the detail names the item): speculative decoding (A6b),
+    KV shipments, prefix export and the host tier (A7), meshes (A8). A 400 under the front door's ``bad_request`` code, NOT
     retryable — every port replica would refuse it alike; the request
     never reaches the device."""
 
@@ -369,7 +368,8 @@ class EngineSupervisor:
                  resilience: ResilienceConfig | None = None,
                  faults: Any = None,
                  prefill_tokens_per_step: int = 256,
-                 device_lock: threading.Lock | None = None) -> None:
+                 device_lock: threading.Lock | None = None,
+                 constrainer: Any = None) -> None:
         # Local import: scheduler imports this module for the error
         # taxonomy, so the supervisor resolves it lazily.
         from tf_operator_tpu_torch.serve.scheduler import ContinuousScheduler
@@ -380,6 +380,11 @@ class EngineSupervisor:
         self.faults = faults or NULL_INJECTOR
         self._prefill_budget = prefill_tokens_per_step
         self._device_lock = device_lock
+        # Constraint compiler (serve/constrain.py), process-lifetime: a
+        # watchdog rebuild keeps the compiled-program LRU, and replayed
+        # constrained requests re-bind their (already stamped) programs
+        # into the fresh engine's pool.
+        self._constrainer = constrainer
         self._lock = threading.RLock()     # guards the generation swap
         self._restart_lock = threading.Lock()
         self._closed = False
@@ -417,6 +422,7 @@ class EngineSupervisor:
             resilience=self.res,
             supervisor=self,
             faults=self.faults,
+            constrainer=self._constrainer,
         )
         if replay:
             sched.requeue(replay)

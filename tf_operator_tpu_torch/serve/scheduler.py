@@ -3,12 +3,16 @@ interleaving, retirement, drain — the policy layer over the engine.
 
 Counterpart of ``tf_operator_tpu/serve/scheduler.py``'s
 ``ContinuousScheduler`` on the continuous, single-device path, over the
-port's ``serve/engine.py::ContinuousEngine``. Request fields of items the
-port has not ported yet fail at ``enqueue``, before any device work, as
-typed 400s that name the item (``_refuse_unported``): ``json_schema``/
-``regex``/``choices`` and ``stop`` (``invalid_grammar``, the JAX
-scheduler's own answer without a constraint compiler), ``logprobs``
-(ROADMAP A6), KV shipments and session keys (A7).
+port's ``serve/engine.py::ContinuousEngine``, constrained decoding
+included: a request's ``json_schema``/``regex``/``choices`` spec compiles
+at ``enqueue`` (on the caller's thread, off the device lock) through the
+``constrainer`` (``serve/constrain.py::ConstraintCompiler``), ``stop``
+sequences encode there too, and delivery walks each constrained lane's
+FSM on the host (retiring it at ``grammar_complete``), trims matched stop
+sequences and appends ``logprobs`` rows. Request fields of items the port
+has not ported yet fail at ``enqueue``, before any device work, as typed
+400s that name the item (``_refuse_unported``): KV shipments and session
+keys (ROADMAP A7).
 
 One thread owns the device (the engine is lock-free by design); HTTP
 handler threads talk to it only through ``submit``'s queue + event
@@ -86,6 +90,8 @@ if TYPE_CHECKING:  # annotation-only
     from tf_operator_tpu_torch.serve.engine import ContinuousEngine
 
 from tf_operator_tpu_torch.runtime.metrics import (
+    SERVE_CONSTRAINED_REQUESTS,
+    SERVE_CONSTRAINED_STOPS,
     SERVE_DEADLINE_TOTAL,
     SERVE_DEGRADED,
     SERVE_ITL_SECONDS,
@@ -105,6 +111,7 @@ from tf_operator_tpu_torch.runtime.tracing import (
     SERVE_TRACER,
     mint_request_id,
 )
+from tf_operator_tpu_torch.serve.constrain import match_stop
 from tf_operator_tpu_torch.serve.faultinject import NULL_INJECTOR
 from tf_operator_tpu_torch.serve.resilience import (
     EngineCrashed,
@@ -139,10 +146,9 @@ class SchedulerFenced(RuntimeError):
 
 class ServeRequest:
     """One /generate row in flight through the continuous engine. Takes
-    the JAX ``ServeRequest``'s arguments; ``shipment``, ``session``,
-    ``constrain``, ``stop`` and ``logprobs`` are accepted so that a caller
-    written against the JAX front gets the typed refusal at enqueue
-    rather than a TypeError."""
+    the JAX ``ServeRequest``'s arguments; ``shipment`` and ``session`` are
+    accepted so that a caller written against the JAX front gets the typed
+    refusal at enqueue rather than a TypeError."""
 
     def __init__(self, tokens: np.ndarray, num_steps: int, *,
                  temperature: float = 0.0, top_p: float | None = None,
@@ -198,11 +204,24 @@ class ServeRequest:
         self.decode_s = 0.0
         self.shipment = shipment
         self.session = None if session is None else str(session)
+        # Constrained decoding (serve/constrain.py). ``constrain`` is the
+        # raw client spec ({"json_schema"|"regex"|"choices": ...}); enqueue
+        # compiles it off the device lock and stamps ``program`` (a
+        # CompiledProgram), which a replay reuses. ``_walk_state`` is the
+        # host FSM position over DELIVERED tokens (program-local states),
+        # re-derived from ``out``, so a replay rebuilds it for free.
+        # ``stop_ids`` are the encoded stop sequences, matched on the host
+        # against the tail of ``out``.
         self.constrain = constrain
         self.stop = stop
         self.logprobs = bool(logprobs)
-        # "length" | "eos"; None for a deadline-cut partial.
+        self.program: Any = None
+        self.stop_ids: tuple = ()
+        # "length" | "eos" | "grammar_complete" | "stop_sequence"; None for
+        # a deadline-cut partial.
         self.finish_reason: str | None = None
+        self.logprob_rows: list[dict] = []
+        self._walk_state = 0
 
     @property
     def ttft(self) -> float | None:
@@ -246,19 +265,6 @@ class ServeRequest:
 def _refuse_unported(req: ServeRequest) -> None:
     """The typed 400s of request fields whose ROADMAP item is not ported
     yet, raised at enqueue before any device work."""
-    if req.constrain is not None:
-        raise InvalidGrammar(
-            "this server has no constraint compiler: constrained decoding "
-            "(json_schema/regex/choices) waits for ROADMAP A6 in the "
-            "PyTorch port"
-        )
-    if req.stop is not None:
-        raise InvalidGrammar(
-            "this server has no constraint compiler: stop sequences wait "
-            "for ROADMAP A6 in the PyTorch port"
-        )
-    if req.logprobs:
-        raise NotPorted("logprobs wait for ROADMAP A6 in the PyTorch port")
     if req.shipment is not None:
         raise NotPorted("shipped KV (disaggregated prefill) waits for "
                         "ROADMAP A7 in the PyTorch port")
@@ -273,11 +279,16 @@ class ContinuousScheduler:
                  device_lock: threading.Lock | None = None,
                  resilience: ResilienceConfig | None = None,
                  supervisor: EngineSupervisor | None = None,
-                 faults: Any = None) -> None:
+                 faults: Any = None, constrainer: Any = None) -> None:
         if prefill_tokens_per_step < 1:
             raise ValueError("prefill_tokens_per_step must be >= 1")
         self.engine = engine
         self.prefill_tokens_per_step = prefill_tokens_per_step
+        # The shared ConstraintCompiler requests' grammar specs compile
+        # through at ENQUEUE time, on the client's thread, off the device
+        # lock, LRU-cached by spec digest. None = constrained requests and
+        # stop sequences are a typed 400.
+        self.constrainer = constrainer
         # Serializes device access with a server's OTHER decode paths
         # (serve_lm's streaming requests bypass the engine); a dedicated
         # server may pass None and let the loop own the card outright.
@@ -361,6 +372,11 @@ class ContinuousScheduler:
             raise ValueError(
                 "top_p requires temperature > 0 (greedy ignores it)"
             )
+        if req.logprobs and not getattr(self.engine, "logprobs_k", 0):
+            raise ValueError(
+                "logprobs requires an engine built with logprobs_k > 0"
+            )
+        self._compile_constraint(req)
         with self._cond:
             if self._fenced:
                 raise SchedulerFenced("scheduler fenced for restart")
@@ -390,6 +406,36 @@ class ContinuousScheduler:
             self._cond.notify_all()
         return req
 
+    def _compile_constraint(self, req: ServeRequest) -> None:
+        """Enqueue-time constraint compile and stop-sequence encoding, on
+        the CLIENT's thread, off the device lock: the decode loop only
+        ever sees a finished CompiledProgram. Grammar failures raise
+        :class:`InvalidGrammar` here (the server's typed 400). Idempotent:
+        a supervisor replay re-enqueues with ``program``/``stop_ids``
+        already stamped and recompiles nothing."""
+        if req.constrain is not None and req.program is None:
+            if self.constrainer is None:
+                raise InvalidGrammar(
+                    "this server has no constraint compiler "
+                    "(constrained decoding is not enabled)"
+                )
+            t0 = time.monotonic()
+            req.program = self.constrainer.compile(
+                req.constrain, eos_id=req.eos_id
+            )
+            SERVE_TRACER.record(
+                "constrain.compile", t0, time.monotonic(),
+                request_id=req.request_id, **req.program.describe(),
+            )
+            SERVE_CONSTRAINED_REQUESTS.inc(kind=req.program.kind)
+        if req.stop is not None and not req.stop_ids:
+            if self.constrainer is None:
+                raise InvalidGrammar(
+                    "this server has no constraint compiler "
+                    "(stop sequences are not enabled)"
+                )
+            req.stop_ids = self.constrainer.encode_stop(req.stop)
+
     def requeue(self, reqs) -> None:
         """Supervisor replay: previously-live requests re-enter the queue
         of a FRESH generation, reset to their pre-admission state. Greedy
@@ -406,7 +452,12 @@ class ContinuousScheduler:
                 req.token_times.clear()
                 req.num_steps = req.requested_steps
                 req.degraded = False
+                # The compiled program survives (the rebuilt engine's pool
+                # re-binds the same tables); the host FSM walk and the
+                # delivered logprob rows restart with the cleared output.
+                req._walk_state = 0
                 req.finish_reason = None
+                req.logprob_rows.clear()
                 req.replays += 1
                 req.enqueued_at = now
                 req.ttl_deadline = (
@@ -822,9 +873,13 @@ class ContinuousScheduler:
                         # One-shot (or prefill-free exact match) inside
                         # join_planned; charge what actually runs.
                         budget -= plan.prefill_tokens
+                    # ``program`` is passed only when set, so the tests'
+                    # fake engines keep their join_planned signatures.
+                    join_kw = ({"program": req.program}
+                               if req.program is not None else {})
                     slot = self.engine.join_planned(
                         plan, pf, temperature=req.temperature,
-                        top_p=req.top_p, seed=req.seed,
+                        top_p=req.top_p, seed=req.seed, **join_kw,
                     )
             except Exception as exc:  # noqa: BLE001 — one bad request
                 # answers its own client and never kills the loop. The
@@ -925,6 +980,10 @@ class ContinuousScheduler:
         mono0 = time.monotonic()
         with self._device():
             toks = self.engine.step()
+        # Per-step top-k logprobs: numpy rows already on the host after
+        # step(); slots read theirs below.
+        lp = (self.engine.last_logprobs()
+              if getattr(self.engine, "logprobs_k", 0) else None)
         self._beat()  # the step returned — wedged steps never get here
         now = time.perf_counter()
         mono = time.monotonic()
@@ -943,10 +1002,7 @@ class ContinuousScheduler:
                 req.out.append(tok)
                 req.token_times.append(mono)
                 req.decode_s += mono - mono0
-                is_eos = req.eos_id is not None and tok == req.eos_id
-                finished = len(req.out) >= req.num_steps or is_eos
-                if finished:
-                    req.finish_reason = "eos" if is_eos else "length"
+                finished = self._deliver(req, slot, tok, lp)
                 # Aggregate this step into the slot's open interval span.
                 ent = self._intervals.get(slot)
                 if ent is None:
@@ -983,6 +1039,47 @@ class ContinuousScheduler:
             SERVE_TOKENS_TOTAL.inc(len(slots_now))
         for slot, req in retired:
             self._retire_telemetry(slot, req)
+
+    @staticmethod
+    def _deliver(req: ServeRequest, slot: int, tok: int, lp) -> bool:
+        """The delivery rules of one appended token, in JAX's order: its
+        logprob row; the host FSM walk (a completed grammar retires the
+        lane, ``grammar_complete``); a stop sequence ending here (trimmed
+        with its times and logprob rows, ``stop_sequence``); then the
+        budget and eos. Returns whether the request finished."""
+        if req.logprobs and lp is not None:
+            req.logprob_rows.append({
+                "token": tok,
+                "logprob": float(lp[0][slot]),
+                "top_ids": [int(x) for x in lp[2][slot]],
+                "top_logprobs": [float(x) for x in lp[1][slot]],
+            })
+        if req.program is not None:
+            # The device fsm row advanced in the same step; this mirror
+            # reads the COMPLETE flag.
+            req._walk_state = req.program.walk(req._walk_state, tok)
+            if bool(req.program.complete[req._walk_state]):
+                req.finish_reason = "grammar_complete"
+                SERVE_CONSTRAINED_STOPS.inc(reason="grammar_complete")
+                return True
+        if req.stop_ids:
+            k = match_stop(req.out, req.stop_ids)
+            if k:
+                # The stop tokens are excluded from the response
+                # (apply_stop's post-hoc law); their times and logprob
+                # rows go with them.
+                del req.out[-k:]
+                del req.token_times[-k:]
+                if req.logprob_rows:
+                    del req.logprob_rows[-k:]
+                req.finish_reason = "stop_sequence"
+                SERVE_CONSTRAINED_STOPS.inc(reason="stop_sequence")
+                return True
+        is_eos = req.eos_id is not None and tok == req.eos_id
+        if len(req.out) >= req.num_steps or is_eos:
+            req.finish_reason = "eos" if is_eos else "length"
+            return True
+        return False
 
     def _fail_all(self, exc: Exception) -> None:
         # Typed teardown: waiters see {code, retryable, detail}, never a
@@ -1039,7 +1136,7 @@ class ContinuousScheduler:
         (EngineSupervisor.debug_snapshot). One consistent view under the
         condvar, which the loop never holds across device work."""
         with self._cond:
-            return {
+            snap = {
                 "engine": "continuous",
                 "max_slots": self.engine.max_slots,
                 "active_slots": self.engine.active_slots,
@@ -1077,3 +1174,11 @@ class ContinuousScheduler:
                     else {"devices": 1}
                 ),
             }
+            if hasattr(self.engine, "constrain_debug"):
+                # Pool rows/residency, bind and eviction counters, slots
+                # under a program, plus the shared compiler's cache stats
+                # when this scheduler has one.
+                snap["constrain"] = self.engine.constrain_debug()
+                if self.constrainer is not None:
+                    snap["constrain"]["compiler"] = self.constrainer.debug()
+            return snap

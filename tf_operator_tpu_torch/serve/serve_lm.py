@@ -17,20 +17,32 @@ and sampled lanes), the scheduler and the supervisor of this package:
     POST /generate       {"tokens": [[...]], "num_steps": N,
                           "temperature": T?, "top_p": P?, "seed": S?,
                           "eos_id": E?, "deadline_s": D?, "stream": B?,
-                          "timing": B?, "request_id": R?}
+                          "timing": B?, "request_id": R?,
+                          "json_schema"|"regex"|"choices": ...?,
+                          "stop": [...]?, "logprobs": B?, "n": K?}
                          -> {"tokens": [[...]], "request_id": R,
-                             "finish_reason": [...]} (generated tokens
-                         only; multi-row prompts fan out into one slot
-                         request a row, row i seeded seed + i)
+                             "finish_reason": [...], "logprobs": [...]?,
+                             "choices": [...]?} (generated tokens only;
+                         multi-row prompts fan out into one slot request
+                         a row, row i seeded seed + i; ``n`` > 1 fans one
+                         sampled prompt out into candidates at seed + j)
     GET  /debug/serve    the supervisor's snapshot (scheduler snapshot +
                          its ``resilience`` section)
     GET  /debug/traces   the data-plane trace ring as Chrome-trace JSON
     GET  /metrics        the ``tpu_serve_*`` families
 
 ``temperature`` 0 or absent is greedy; ``top_p`` without a temperature is
-a 400. ``"stream": true`` runs a greedy request solo through
-``generate_segments`` and answers NDJSON, one line a segment, sharing the
-device with the serving loop through one lock. Every error leaves typed
+a 400. Constrained and structured decoding as the JAX server has it: at
+most one of ``json_schema``/``regex``/``choices`` (compiled at enqueue by
+one process-lifetime ``ConstraintCompiler`` over the identity vocabulary,
+token i = ``chr(i)``; a bad spec is a typed ``invalid_grammar`` 400),
+multi-token ``stop`` sequences (trimmed, ``finish_reason``
+``stop_sequence``), per-token ``logprobs`` (needs ``--logprobs-k``) and
+``n`` best-of candidates (``temperature`` > 0, a single-row prompt, at
+most ``--max-batch``). ``"stream": true`` runs a greedy request solo
+through ``generate_segments`` and answers NDJSON, one line a segment,
+sharing the device with the serving loop through one lock; it composes
+with none of the structured fields. Every error leaves typed
 (``code``, ``retryable``, ``detail``, Retry-After where it applies). On
 SIGTERM the server drains: admitted requests finish (within
 ``--drain-timeout``), queued ones get a typed 503, the process exits 0.
@@ -43,12 +55,11 @@ tokens of an uninterrupted run.
 
 Flags and fields of ROADMAP items the port has not ported exit (flags)
 or answer a typed 400 (fields) naming the item, and never run another
-path instead: ``--tp``/``--dp`` (A8), ``--spec-k`` and ``--logprobs-k``
-(A6), ``--kv-dense`` (the dense slot engine, A5), ``--engine coalesce``
-and ``--batch-window`` (A10), ``--checkpoint-dir`` (A10), ``--role
-prefill`` and ``--host-tier-bytes`` (A7); the fields ``json_schema``,
-``regex``, ``choices``, ``stop``, ``logprobs`` and ``n`` > 1 (A6),
-``shipped_kv``, ``session`` and ``GET /prefix/<digest>`` (A7).
+path instead: ``--tp``/``--dp`` (A8), ``--spec-k`` (A6b), ``--kv-dense``
+(the dense slot engine, A5), ``--engine coalesce`` and
+``--batch-window`` (A10), ``--checkpoint-dir`` (A10), ``--role prefill``
+and ``--host-tier-bytes`` (A7); the fields ``shipped_kv``, ``session``
+and ``GET /prefix/<digest>`` (A7).
 
 ``--device`` defaults to ``cuda``: without a card the server raises
 rather than serving on the CPU, which it does only under ``--device
@@ -88,6 +99,10 @@ from tf_operator_tpu_torch.runtime.tracing import (
     SERVE_TRACER,
     mint_request_id,
 )
+from tf_operator_tpu_torch.serve.constrain import (
+    ConstraintCompiler,
+    default_vocab,
+)
 from tf_operator_tpu_torch.serve.engine import ContinuousEngine
 from tf_operator_tpu_torch.serve.faultinject import FaultInjector
 from tf_operator_tpu_torch.serve.httpapi import (
@@ -109,8 +124,7 @@ from tf_operator_tpu_torch.serve.scheduler import ServeRequest
 UNPORTED_FLAGS = (
     ("--tp", lambda a: a.tp > 1, "A8 (multi-device)"),
     ("--dp", lambda a: a.dp > 1, "A8 (multi-device)"),
-    ("--spec-k", lambda a: a.spec_k > 0, "A6 (speculative decoding)"),
-    ("--logprobs-k", lambda a: a.logprobs_k > 0, "A6 (logprobs)"),
+    ("--spec-k", lambda a: a.spec_k > 0, "A6b (speculative decoding)"),
     ("--kv-dense", lambda a: not a.kv_paged,
      "A5 (the dense slot engine)"),
     ("--engine coalesce", lambda a: a.engine == "coalesce",
@@ -124,10 +138,6 @@ UNPORTED_FLAGS = (
     ("--host-tier-bytes", lambda a: a.host_tier_bytes > 0,
      "A7 (the host KV tier)"),
 )
-# /generate fields of ROADMAP item A6 (constrained and structured
-# decoding). The scheduler refuses json_schema/regex/choices/stop/
-# logprobs with a typed 400; ``n`` fans out here, so it is refused here.
-STRUCTURED_FIELDS = ("json_schema", "regex", "choices", "stop")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -173,9 +183,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="int8 KV pools with f32 scale pools (kv8 B4)")
     p.add_argument("--requests", type=int, default=None,
                    help="exit 0 after serving this many /generate calls")
-    p.add_argument("--spec-k", type=int, default=0, help="waits for A6")
-    p.add_argument("--logprobs-k", type=int, default=0,
-                   help="waits for A6")
+    p.add_argument("--spec-k", type=int, default=0, help="waits for A6b")
+    p.add_argument("--logprobs-k", type=int, default=0, metavar="K",
+                   help="per-token top-K logprobs in /generate responses "
+                        '(opt-in per request via "logprobs": true); 0 = '
+                        "off")
+    p.add_argument("--constrain-rows", type=int, default=128, metavar="N",
+                   help="constraint-pool rows the compiled grammar programs "
+                        "(json_schema/regex/choices) bind into; row 0 is "
+                        "the always-allow row. Device cost: rows x vocab "
+                        "bool + rows x vocab int32 (5 bytes a cell)")
     p.add_argument("--stream-segment", type=int, default=16, metavar="N",
                    help='segment size of "stream": true responses')
     p.add_argument("--prefill-chunk", type=int, default=0, metavar="N",
@@ -419,44 +436,84 @@ class _Handler(QuietHandler):
         num_steps = int(body.get("num_steps", 8))
         temperature = float(body.get("temperature", 0.0))
         top_p = body.get("top_p")
-        if int(body.get("n", 1)) != 1:
-            raise NotPorted("n-best candidates (n > 1) wait for ROADMAP A6 "
-                            "in the PyTorch port")
         if body.get("shipped_kv") is not None:
             raise NotPorted("shipped KV (disaggregated prefill) waits for "
                             "ROADMAP A7 in the PyTorch port")
         if body.get("stream"):
-            self._stream(body, prompt, num_steps, temperature, top_p)
+            # Structured fields live in the scheduler: a stream (solo
+            # generate_segments) would silently drop them.
+            if (any(body.get(k) is not None for k in
+                    ("json_schema", "regex", "choices", "stop"))
+                    or bool(body.get("logprobs"))
+                    or int(body.get("n", 1)) != 1):
+                raise ValueError(
+                    "stream does not compose with json_schema/regex/"
+                    "choices/stop/logprobs/n (use the continuous engine's "
+                    "buffered path)"
+                )
+            self._stream(prompt, num_steps, temperature, top_p)
             return True
+        # At most one of json_schema/regex/choices (the compiler's typed
+        # 400 owns the message for conflicts and bad grammars).
         constrain = {k: body[k] for k in ("json_schema", "regex", "choices")
                      if body.get(k) is not None} or None
+        want_logprobs = bool(body.get("logprobs"))
+        n_best = int(body.get("n", 1))
+        if n_best < 1:
+            raise ValueError(f"n={n_best} must be >= 1")
+        if n_best > 1:
+            if prompt.shape[0] != 1:
+                raise ValueError("n > 1 requires a single-row prompt "
+                                 "(candidates fan out over slots)")
+            if temperature <= 0:
+                raise ValueError("n > 1 requires temperature > 0 (greedy "
+                                 "candidates would be identical)")
+            if n_best > srv.args.max_batch:
+                raise ValueError(f"n={n_best} exceeds slot capacity "
+                                 f"{srv.args.max_batch}")
         eos_id = body.get("eos_id")
         deadline_s = body.get("deadline_s")
+        seed = int(body.get("seed", 0))
         rid = (body.get("request_id") or self.headers.get("X-Request-Id")
                or mint_request_id())
 
         def row(i):
+            # Candidate j of n is row 0's request at seed + j; identical
+            # prompts join by exact prefix match, so n candidates pay one
+            # prefill.
             return srv.supervisor.submit_request(ServeRequest(
-                prompt[i:i + 1], num_steps, temperature=temperature,
+                prompt[0:1] if n_best > 1 else prompt[i:i + 1], num_steps,
+                temperature=temperature,
                 top_p=None if top_p is None else float(top_p),
-                seed=int(body.get("seed", 0)) + i,
+                seed=seed + i,
                 eos_id=None if eos_id is None else int(eos_id),
                 deadline_s=None if deadline_s is None else float(deadline_s),
                 request_id=rid if i == 0 else f"{rid}.{i}",
                 session=body.get("session"), constrain=constrain,
-                stop=body.get("stop"), logprobs=bool(body.get("logprobs")),
+                stop=body.get("stop"), logprobs=want_logprobs,
             ))
 
-        if prompt.shape[0] == 1:
+        fanout = n_best if n_best > 1 else prompt.shape[0]
+        if fanout == 1:
             rows = [row(0)]
         else:
             # Rows decode concurrently, at most one thread a slot.
-            with ThreadPoolExecutor(
-                    min(prompt.shape[0], srv.args.max_batch)) as ex:
-                rows = list(ex.map(row, range(prompt.shape[0])))
+            with ThreadPoolExecutor(min(fanout, srv.args.max_batch)) as ex:
+                rows = list(ex.map(row, range(fanout)))
         payload = {"tokens": [list(r.out) for r in rows], "request_id": rid}
         if any(r.finish_reason for r in rows):
+            # "length" | "eos" | "grammar_complete" | "stop_sequence"
+            # (None for a deadline-cut partial).
             payload["finish_reason"] = [r.finish_reason for r in rows]
+        if want_logprobs:
+            payload["logprobs"] = [r.logprob_rows for r in rows]
+        if n_best > 1:
+            # The candidate view of the same rows, one entry a seed.
+            payload["choices"] = [
+                {"tokens": list(r.out), "seed": seed + j,
+                 "finish_reason": r.finish_reason}
+                for j, r in enumerate(rows)
+            ]
         if body.get("timing"):
             payload["timing"] = [r.timing() for r in rows]
         if any(r.deadline_exceeded for r in rows):
@@ -468,15 +525,11 @@ class _Handler(QuietHandler):
         self.send_json(200, payload)
         return True
 
-    def _stream(self, body, prompt, num_steps, temperature, top_p) -> None:
+    def _stream(self, prompt, num_steps, temperature, top_p) -> None:
         """Streamed greedy decode: NDJSON, one line a segment, solo
         through ``generate_segments``; the device lock covers only the
         device work of each segment."""
         srv = self.server
-        if (any(body.get(k) is not None for k in STRUCTURED_FIELDS)
-                or body.get("logprobs")):
-            raise ValueError("stream does not compose with json_schema/"
-                             "regex/choices/stop/logprobs/n")
         if temperature > 0 or top_p is not None:
             raise ValueError("stream supports greedy only (no "
                              "temperature/top_p)")
@@ -510,12 +563,17 @@ class _Handler(QuietHandler):
 def check_args(args) -> None:
     """Refuse what the front cannot serve, before any device work: a flag
     whose ROADMAP item is not ported (NotPorted), a prefill budget below
-    one token or a sequence length off the block grid (ValueError)."""
+    one token, a negative ``--logprobs-k``, no constraint row or a
+    sequence length off the block grid (ValueError)."""
     refused = unported_flags(args)
     if refused:
         raise NotPorted("; ".join(refused))
     if args.prefill_budget < 1:
         raise ValueError("--prefill-budget must be >= 1")
+    if args.logprobs_k < 0:
+        raise ValueError("--logprobs-k must be >= 0")
+    if args.constrain_rows < 1:
+        raise ValueError("--constrain-rows must be >= 1")
     if args.max_seq_len % args.kv_block:
         raise ValueError(f"--max-seq-len {args.max_seq_len} must be a "
                          f"multiple of --kv-block {args.kv_block}")
@@ -564,10 +622,16 @@ def build_front(cfg: TransformerConfig, params, args
             cfg, params, args.max_batch, kv_block=args.kv_block,
             kv_blocks=args.kv_pool_blocks, kv_attend=attend,
             prefill_chunk=args.prefill_chunk or None, faults=faults,
+            constrain_rows=args.constrain_rows, logprobs_k=args.logprobs_k,
             device=device,
         )
         eng.warmup()
         return eng
+
+    # ONE process-lifetime constraint compiler: its program LRU survives
+    # watchdog rebuilds. The vocabulary is the identity charset (token i =
+    # chr(i)); a deployment passes its tokenizer's decoded token strings.
+    constrainer = ConstraintCompiler(default_vocab(cfg.vocab_size))
 
     lock = threading.Lock()
     supervisor = EngineSupervisor(
@@ -576,6 +640,7 @@ def build_front(cfg: TransformerConfig, params, args
         # Streaming requests bypass the engine and share the device: one
         # lock serializes both decode paths.
         device_lock=lock,
+        constrainer=constrainer,
     )
     server = FrontServer((args.host, args.port), supervisor, cfg=cfg,
                          params=params, args=args, device=device, lock=lock)
