@@ -18,10 +18,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
    PyTorch version at the serving slice's shapes (4 lanes at
    3500/1750/875/437 tokens, H=16, KV=4, Dh=64, blk=128, S=4096), for
    t=1, t=3 and a lane at index 0 with an all-zero table, in bf16 and
-   f32, each a single launch; then its device time (CUDA-graph replay)
-   beside its eager time per call, the plain version's device time, the
-   byte bound and, as a yardstick the port never calls,
-   scaled_dot_product_attention over the pre-gathered K/V;
+   f32, each a single launch, and at a speculative verify's rows, t=5
+   and t=8 (``SPEC_LANES``: four lanes at different counters, one lane's
+   rows straddling a block boundary, one at counter 0); then its device
+   time (CUDA-graph replay) beside its eager time per call, the plain
+   version's device time, the byte bound and, as a yardstick the port
+   never calls, scaled_dot_product_attention over the pre-gathered K/V,
+   at t=1 and at t=8;
 4. flash kernels vs plain: the design each instance runs (bf16 and f32,
    Dh 32, 64 and 128; flash_design: "tma-wgmma", the warp-specialised TMA
    + wgmma kernels of bf16 B1 and B3, or "mma.sync"), then the forward (O
@@ -84,10 +87,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
     the weight bytes);
 11. paged kv8 vs plain (the kv_int8 variant of the paged kernel, the
     same one-launch cluster design, S printed): at phase 3's shapes, t=1,
-    t=3 and a lane at index 0, q in bf16 and f32, int8 pools with f32
-    scale pools, each a single launch; then its device time, the byte
-    bound, the plain version's time and SDPA over pre-gathered,
-    dequantized K/V;
+    t=3, a lane at index 0 and the speculative t=5 and t=8 cases, q in
+    bf16 and f32, int8 pools with f32 scale pools, each a single launch;
+    then its device time, the byte bound, the plain version's time and
+    SDPA over pre-gathered, dequantized K/V, at t=1 and t=8;
 12. engine, f32, int8_decode + kv_int8: phase 6's schedule with weights
     from quantize_decode_params(init_params(cfg, 0)), through both kernels
     and, in lockstep with it, with kv_attend="gather" and int8_apply
@@ -168,10 +171,30 @@ Phases, in order; any failure ends the run with a non-zero exit:
     greedy lane on the bf16 int8 + kv8 engine over phase 13's tree: legal
     and complete, the kv8 B4 and both B5 routes launched; the phase's wall
     time printed;
-17. the ``kernels`` JSON line (each kernel with its design; B5 as two
+17. speculative decoding (``models/spec_decode.py``, the engine's
+    ``spec_step``, ``--spec-k``) at phase 6's width, 4 slots, the kernel
+    read: (a) f32, the target as its own draft at k = 4: the kernel read's
+    tokens equal the gather read's, each lane equal to phase 6's plain
+    engine and to its solo ``speculative_generate`` on the card (or
+    parting at a near-tie, phase 14 (b)'s rule), nearly every proposal
+    accepted, B4 at n_layers launches a round (t = 5); (b) bf16, a draft
+    of the target's first 4 blocks (and its embeddings, norm and head) at
+    k = 7, the largest the kernel's row cap takes, ``SAMPLING``'s mix: 8
+    rounds under torch.profiler (device operations and busy us a round),
+    the accept rate, rounds and decode tokens/s beside phase 7's plain
+    engine, each lane equal to its solo stream or parting where the solo
+    run's decision margin is within ``BF16_TIE`` (``spec_replay``); (c)
+    bf16 on kv8 pools, one lane at k = 4: the kv8 B4 at t = 5, the solo
+    kv8 stream; (d) the f32 front with ``--spec-k 4`` (serve_lm's default
+    draft depth: the same truncated draft): four greedy requests at once,
+    each equal to (a)'s engine stream, /healthz and /debug/serve with the
+    ``spec`` section, /metrics with both spec families counted; (e) k = 8
+    refused at construction, naming ``MAX_ROWS``, before any device work;
+18. the ``kernels`` JSON line (each kernel with its design; B5 as two
     entries, the weight stream and the wgmma tile, each with its own
     launches; ``paths`` gives each kernel's launches on every path of
-    this run that drives it, and ``launches`` is their sum), the card
+    this run that drives it, and ``launches`` is their sum; the paged
+    kernel's entries carry their t=8 times as ``spec_t8``), the card
     line, and last the result line.
 
 It exits non-zero without a result when torch sees no CUDA device.
@@ -202,6 +225,11 @@ TOL = 1e-4  # paged and kv8: f32 sums over up to 4096 keys, in another order
 LANES = [3500, 1750, 875, 437]
 H, KV, DH, BLK, S = 16, 4, 64, 128, 4096
 LAYERS, FIRST_STEPS, LATER_STEPS = 8, 64, 16
+# The kernel at a speculative verify's rows: t = k + 1 = SPEC_T at k = 7,
+# four lanes at different counters, lane 1's rows straddling a block
+# boundary (1790 + 8 > 14 x 128), lane 3 inactive (counter 0).
+SPEC_T = 8
+SPEC_LANES = [3500, 1790, 875, 0]
 SHARED_TAIL = 300  # fresh tokens after the two shared blocks
 PROFILE_STEPS = 8  # of the bf16 run's last steps, under torch.profiler
 # The LM training width: bench.py's LM_SIZE (MHA) at max_seq_len 8192.
@@ -312,8 +340,7 @@ INT8_MASS_TOL = math.expm1(2 * LOGIT_TOL / INT8_GEN_T)
 # Phase 15, the serving front: the keys of the JAX front's /healthz
 # (serve/httpapi.py readiness_payload over a supervisor that has served,
 # plus serve_lm's own two) and its tpu_serve_* families, less those of
-# the items the port has not ported (KV shipments, speculative decode,
-# the host tier).
+# the items the port has not ported (KV shipments, the host tier).
 READINESS_KEYS = ("ok", "active_slots", "queue_depth", "max_slots",
                   "mesh_devices", "mesh_axes", "requests_done",
                   "tokens_generated", "watchdog_restarts", "ttft_p99_s",
@@ -326,7 +353,8 @@ SERVE_FAMILIES = tuple(f"tpu_serve_{n}" for n in (
     "watchdog_restarts_total", "deadline_exceeded_total", "shed_total",
     "degraded", "mesh_devices", "batch_occupancy",
     "constrained_requests_total", "constrained_stops_total",
-    "constrain_programs", "constrain_evictions_total"))
+    "constrain_programs", "constrain_evictions_total",
+    "spec_accept_tokens", "spec_rounds_total"))
 # Phase 16, constrained decoding, over the identity vocabulary (token i =
 # chr(i)). (a): one lane each under these programs, lane 3 free; every
 # grammar here completes within CONSTRAIN_STEPS. (b): the server's
@@ -341,6 +369,24 @@ CONSTRAIN_STEPS = 32
 FRONT_LOGPROBS_K, N_BEST = 5, 4
 UNBOUNDED = [{"regex": "[0-9]+"}, {"regex": "[a-z]+"}, {"regex": "[A-Z]+"},
              {"regex": "[0-9a-f]+"}]
+# Phase 17, speculative decoding at the serving width, each lane
+# SPEC_STEPS tokens: (a) the target as its own draft at k = 4, f32; (b) a
+# draft of the target's first DRAFT_LAYERS blocks at k = SPEC_T - 1 = 7,
+# the largest the kernel's row cap takes at 4 query heads a KV head, bf16,
+# SAMPLING's mix; (c) one lane of (b)'s draft at k = 4 on kv8 pools; (d)
+# the f32 front at k = 4 with serve_lm's default draft depth (the same
+# truncated draft); (e) k = 8 refused.
+SPEC_SELF_K, SPEC_K, SPEC_KV8_K = 4, SPEC_T - 1, 4
+DRAFT_LAYERS = LAYERS // 2
+SPEC_STEPS = FIRST_STEPS
+# bf16: where a lane parts from its solo stream, the solo run's decision
+# margin there (spec_replay: the logit change that flips no decision of
+# that round) lies within BF16_TIE. The engine's verify (B4, four lanes a
+# GEMM) and the solo target (einsums, one lane) round bf16 activations in
+# other orders: phase 12 reads such rounding parting logits by about
+# 2e-2, within LOGIT_TOL. f32 lanes keep phase 14 (b)'s NEAR_TIE, on the
+# top-two gap (twice the margin).
+BF16_TIE = LOGIT_TOL
 
 
 def card_line() -> str:
@@ -478,14 +524,17 @@ def attend_case(lanes, t, dtype, seed, kv8, layers=1):
 
 def kernel_phase(pa, kv8=False) -> dict:
     """The paged kernel (its kv8 variant with ``kv8``) against its plain
-    version, then timed."""
+    version, then timed at t = 1 and, as a speculative verify runs it, at
+    t = SPEC_T."""
     label = "paged_attend_kv8" if kv8 else "paged_attend"
     print(f"{label} design: " + OTHER_DESIGNS[label].format(S=pa.SPLITS),
           flush=True)
     err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         for name, lanes, t in (("t=1", LANES, 1), ("t=3", LANES, 3),
-                               ("inactive lane", [3500, 0, 875, 437], 1)):
+                               ("inactive lane", [3500, 0, 875, 437], 1),
+                               ("spec t=5", SPEC_LANES, 5),
+                               ("spec t=8", SPEC_LANES, SPEC_T)):
             q, pools, table, index = attend_case(lanes, t, dtype, t, kv8)
             pk, pv, scales = pools[0]
             before = pa.launches + pa.kv8_launches
@@ -504,11 +553,17 @@ def kernel_phase(pa, kv8=False) -> dict:
                 raise AssertionError(f"{label} {name} {dtype} disagrees")
             err = max(err, case_err)
 
-    # Time at the main path's shapes: bf16 q, t=1, one pool pair per layer
-    # (135 MB in all for bf16, beyond the 50 MB L2), walked in layer order.
-    # Device times come from CUDA-graph replay (device_ms); the kernel's
-    # eager time per call, host wrapper included, is printed beside them.
-    q, pools, table, index = attend_case(LANES, 1, torch.bfloat16, 9, kv8,
+    times = {t: kernel_times(pa, t, kv8, label) for t in (1, SPEC_T)}
+    return dict(max_abs_err=err, **times[1], spec_t8=times[SPEC_T])
+
+
+def kernel_times(pa, t, kv8, label) -> dict:
+    """Time at the main path's shapes: bf16 q, t rows a lane (1: a decode
+    step; SPEC_T: phase 17 (b)'s verify), one pool pair per layer (135 MB
+    in all for bf16, beyond the 50 MB L2), walked in layer order. Device
+    times come from CUDA-graph replay (device_ms); the kernel's eager time
+    per call, host wrapper included, is printed beside them."""
+    q, pools, table, index = attend_case(LANES, t, torch.bfloat16, 9, kv8,
                                          layers=LAYERS)
 
     def call(attend):
@@ -526,24 +581,27 @@ def kernel_phase(pa, kv8=False) -> dict:
         for x, s in ((pk, sc["k_scale_pool"]), (pv, sc["v_scale_pool"])))
         for pk, pv, sc in pools]
     library_ms = sdpa_ms(q, dense, table, index)
-    bms, bound_by = bound_ms(LANES, 1, torch.bfloat16, kv8)
-    print(f"{label} bf16 t=1, S={pa.SPLITS}: kernel_ms {kernel_ms:.6f} "
+    bms, bound_by = bound_ms(LANES, t, torch.bfloat16, kv8)
+    print(f"{label} bf16 t={t}, S={pa.SPLITS}: kernel_ms {kernel_ms:.6f} "
           f"(eager, host included: {eager_ms:.6f}) plain_ms {plain_ms:.6f} "
           f"library_ms {library_ms:.6f} (SDPA over pre-gathered bf16 K/V) "
           f"bound_us "
           f"{bms * 1e3:.4f} ({bound_by})", flush=True)
-    return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
-                bound_ms=bms, bound_by=bound_by, library_ms=library_ms)
+    return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=bound_by, library_ms=library_ms)
 
 
 def sdpa_ms(q, pools, table, index) -> float:
     """Device ms of scaled_dot_product_attention, the yardstick the port
     never calls, over K/V pre-gathered from each layer's (key, value)
     pools to the dense [b, H, S, Dh] layout, expanded to every query head,
-    the lanes' lengths as its mask."""
+    the lanes' lengths as its mask (query row i of a lane at index n sees
+    keys <= n + i)."""
     g = H // KV
-    valid = (torch.arange(S, device="cuda")[None, :]
-             <= index.long()[:, None])[:, None, None, :]  # [b, 1, 1, S]
+    t = q.shape[1]
+    rows = index.long()[:, None] + torch.arange(t, device="cuda")[None, :]
+    valid = (torch.arange(S, device="cuda")[None, None, :]
+             <= rows[:, :, None])[:, None]  # [b, 1, t, S]
     dense = [tuple(p[table.long()].reshape(len(LANES), S, KV, DH)
                    .transpose(1, 2).repeat_interleave(g, dim=1)
                    for p in pair) for pair in pools]
@@ -1661,16 +1719,17 @@ def latency_line(label: str, responses, wall: float) -> dict:
     return out
 
 
-def open_front(cfg, params, **flags):
+def open_front(cfg, params, draft_params=None, **flags):
     """The port's server at phase 6's serving width (4 slots, blk 128,
     the kernel read) on an ephemeral port, serving: (supervisor, server,
-    base URL)."""
+    base URL). ``draft_params`` is the draft's tree under ``spec_k``."""
     from tf_operator_tpu_torch.serve import serve_lm
 
     args = serve_lm.front_args(
         device="cuda", max_batch=len(LANES), kv_block=BLK,
         kv_attend="kernel", max_seq_len=cfg.max_seq_len, port=0, **flags)
-    supervisor, server = serve_lm.build_front(cfg, params, args)
+    supervisor, server = serve_lm.build_front(cfg, params, args,
+                                              draft_params)
     server.start()
     return supervisor, server, "http://" + server.endpoint
 
@@ -2240,6 +2299,364 @@ def constrained_int8_phase(pa, i8, base, params, prompts, comp) -> dict:
         raise AssertionError(f"constrained int8 + kv8: launches {got}")
     return got
 
+
+def truncated_draft(params: dict, layers: int) -> dict:
+    """Phase 17's draft: the target's embeddings, position table, first
+    ``layers`` blocks, final norm and head (a flax-layout tree), so it is
+    cheap and agrees with the target at some positions."""
+    return {name: leaf for name, leaf in params.items()
+            if not name.startswith("block_")
+            or int(name.split("_")[1]) < layers}
+
+
+def spec_replay(tmodel, dmodel, prompt, steps, k, t, tp, seed):
+    """Solo ``speculative_generate`` at b = 1 by its own operations (the
+    per-round key split, the draft's draws, the accept test, the residual
+    and bonus draws), with the margin of the decisions behind each emitted
+    token: the largest change of every logit, in both models, that cannot
+    flip any decision of the round that emitted it (greedy: half the
+    verify rows' top-two gaps; a draw: half the gap of gumbel + scaled
+    values, times T; an accept test: a quarter of its log-ratio margin,
+    times T, since the ratio moves with both models' log-softmaxes).
+    Returns (tokens, margins), each ``steps`` long."""
+    from tf_operator_tpu_torch.models.spec_decode import (
+        _log_softmax,
+        residual_distribution,
+    )
+    from tf_operator_tpu_torch.models.transformer import (
+        _nucleus_filter,
+        _prefill,
+        set_cache_index,
+    )
+    from tf_operator_tpu_torch.random import PRNGKey, gumbel, split, uniform
+
+    dev = tmodel.device
+    temp = torch.tensor(float(t or 1.0), device=dev)
+
+    def scale(x):
+        s = x / temp
+        return s if tp is None else _nucleus_filter(s, tp)
+
+    def gap(vals, rows=slice(None)):
+        top = vals.topk(2, dim=-1).values[..., rows, :]
+        return float((top[..., 0] - top[..., 1]).min())
+
+    def draw(key, logits):
+        if not t:
+            return logits.argmax(-1), math.inf
+        vals = gumbel(key, logits.shape) + scale(logits)
+        return vals.argmax(-1), gap(vals[:, None]) * t / 2
+
+    with torch.no_grad():
+        prompt = torch.as_tensor(prompt, device=dev)
+        tcache, tlogits = _prefill(tmodel, prompt)
+        dcache, _ = _prefill(dmodel, prompt)
+        rng, k0 = split(PRNGKey(seed, dev)) if t else (None, None)
+        pend, margin = draw(k0, tlogits)
+        toks = [int(pend)]
+        margins = [margin if t else gap(tlogits[:, None]) / 2]
+        while len(toks) < steps:
+            t_idx, d_idx = tcache["cache_index"], dcache["cache_index"]
+            keys = [None] * (k + 1)
+            if t:
+                rng, k_draft, k_acc, k_res, k_bonus = split(rng, 5)
+                keys = split(k_draft, k + 1)
+            tok, drafted, qlogits, worst = pend, [], [], math.inf
+            for j in range(k + 1):
+                logits = dmodel(tok[:, None], dcache)[:, 0]
+                tok, margin = draw(keys[j], logits)
+                worst = min(worst, margin)
+                drafted.append(tok)
+                qlogits.append(logits)
+            props = torch.stack(drafted, 1)[:, :k]
+            tlogits = tmodel(torch.cat([pend[:, None], props], 1), tcache)
+            if t:
+                logp = _log_softmax(scale(tlogits[:, :k]))
+                logq = _log_softmax(scale(torch.stack(qlogits, 1)[:, :k]))
+                sel = props[..., None]
+                ratio = (logp.gather(-1, sel)
+                         - logq.gather(-1, sel))[..., 0].clamp(max=0.0)
+                log_u = torch.log(uniform(k_acc, (1, k), 1e-38, 1.0))
+                accept = log_u < ratio
+                worst = min(worst, float((log_u - ratio).abs().min()) * t / 4)
+            else:
+                accept = props == tlogits.argmax(-1)[:, :k]
+            m = int(torch.cumprod(accept.long(), 1).sum())
+            if not t:
+                worst = gap(tlogits, slice(0, m + 1)) / 2
+                nxt = tlogits.argmax(-1)[:, m]
+            elif m == k:
+                nxt, margin = draw(k_bonus, tlogits[:, k])
+                worst = min(worst, margin)
+            else:
+                res = torch.log(residual_distribution(
+                    torch.exp(logp), torch.exp(logq)) + 1e-38)
+                vals = gumbel(k_res, res.shape) + res
+                worst = min(worst, gap(vals[:, m:m + 1]) * t / 2)
+                nxt = vals[:, m].argmax(-1)
+            toks += [int(x) for x in props[0, :m]] + [int(nxt)]
+            margins += [worst] * (m + 1)
+            set_cache_index(tcache, t_idx + 1 + m)
+            set_cache_index(dcache, d_idx + 1 + m)
+            pend = nxt
+    return toks[:steps], margins[:steps]
+
+
+def spec_parting(tmodel, dmodel, prompt, got, k, t, tp, seed):
+    """Where a lane's engine tokens ``got`` part from the solo
+    ``speculative_generate`` of its prompt and sampling parameters on the
+    card: None when identical, else (the first parting step, the solo
+    run's decision margin there by ``spec_replay``, whose tokens must be
+    the solo run's)."""
+    from tf_operator_tpu_torch.models.spec_decode import speculative_generate
+    from tf_operator_tpu_torch.random import PRNGKey
+
+    steps = len(got)
+    kw = (dict(temperature=t, top_p=tp, rng=PRNGKey(seed, tmodel.device))
+          if t > 0 else {})
+    solo, _ = speculative_generate(
+        tmodel.cfg, tmodel, dmodel.cfg, dmodel,
+        torch.as_tensor(prompt, device=tmodel.device), steps, k=k, **kw)
+    want = solo[0].tolist()
+    if want == list(got):
+        return None
+    step = next(i for i, (a, b) in enumerate(zip(want, got)) if a != b)
+    toks, margins = spec_replay(tmodel, dmodel, prompt, steps, k, t, tp,
+                                seed)
+    if toks != want:
+        raise AssertionError("spec_replay's tokens differ from the solo "
+                             "speculative_generate run")
+    return step, margins[step]
+
+
+def spec_engine_run(pa, cfg, params, dcfg, dparams, k, prompts, mix,
+                    attend="kernel", profile=0) -> dict:
+    """Speculative rounds through ContinuousEngine: the engine warmed, the
+    prompts joined with ``mix``'s parameters and SPEC_STEPS each (B4's
+    counts set to 0 just before), ``profile`` rounds under torch.profiler,
+    then timed rounds until every lane is done; each round's windows
+    delivered trimmed to the budget, a lane retired the round it
+    completes. B4 (or kv8 B4) must have launched n_layers times a round
+    under the kernel read, never under the gather read. Returns the
+    lanes' tokens, the round count, the launches, the engine's
+    spec_debug, tokens/s of the timed rounds and the profile."""
+    from tf_operator_tpu_torch.serve.engine import ContinuousEngine
+
+    engine = ContinuousEngine(cfg, params, len(prompts), kv_block=BLK,
+                              kv_attend=attend, spec_k=k, draft_cfg=dcfg,
+                              draft_params=dparams)
+    engine.warmup()
+    pa.launches = pa.kv8_launches = 0
+    slots = [engine.join(p, num_steps=SPEC_STEPS, temperature=t, top_p=tp,
+                         seed=seed) for p, (t, tp, seed) in zip(prompts, mix)]
+    if slots != list(range(len(prompts))):
+        raise AssertionError(f"spec joins got slots {slots}")
+    out = {slot: [] for slot in slots}
+    live = set(slots)
+
+    def round_():
+        toks, counts = engine.spec_step()
+        emitted = 0
+        for slot in sorted(live):
+            window = toks[slot, :counts[slot]].tolist()
+            take = window[:SPEC_STEPS - len(out[slot])]
+            out[slot] += take
+            emitted += len(take)
+            if len(out[slot]) >= SPEC_STEPS:
+                engine.retire(slot)
+                live.discard(slot)
+        return emitted
+
+    prof = (profile_steps(round_, profile, "spec rounds") if profile
+            else {})
+    torch.cuda.synchronize()
+    t0, emitted = time.perf_counter(), 0
+    while live:
+        emitted += round_()
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    result = dict(tokens=[out[s] for s in slots], rounds=engine.steps_total,
+                  launches=pa.launches + pa.kv8_launches,
+                  debug=engine.spec_debug(), tok_s=emitted / decode_s,
+                  profile=prof)
+    del engine
+    torch.cuda.empty_cache()
+    want = LAYERS * result["rounds"] if attend == "kernel" else 0
+    if result["launches"] != want:
+        raise AssertionError(f"spec engine {attend}: B4 launches "
+                             f"{result['launches']} over {result['rounds']} "
+                             f"rounds, want {want}")
+    return result
+
+
+def spec_lanes_check(label, tmodel, dmodel, prompts, runs, k, mix, tie,
+                     one_lane=False) -> list:
+    """Each lane of ``runs`` (engine tokens) against its solo
+    ``speculative_generate`` on the card: identical, or parting where the
+    solo run's decision margin is within ``tie`` (at most one lane with
+    ``one_lane``). Returns the partings (lane, step, margin)."""
+    parted = []
+    for lane, (prompt, got, (t, tp, seed)) in enumerate(
+            zip(prompts, runs, mix)):
+        part = spec_parting(tmodel, dmodel, prompt, got, k, t, tp, seed)
+        if part is not None:
+            parted.append((lane, *part))
+    print(f"{label}: lanes parting from their solo speculative_generate "
+          f"(lane, first step, the solo run's decision margin there): "
+          f"{parted} (limit {tie}{', at most one lane' if one_lane else ''})",
+          flush=True)
+    if ((one_lane and len(parted) > 1)
+            or any(margin > tie for _, _, margin in parted)):
+        raise AssertionError(f"{label}: lanes part from solo away from a "
+                             f"near-tie: {parted}")
+    return parted
+
+
+def spec_phase(pa, base, params, prompts, plain_f32, plain_bf16, card):
+    """Phase 17, speculative decoding at the serving width. Returns B4's
+    and the kv8 B4's launches by path."""
+    from tf_operator_tpu_torch.models.transformer import _decode_model
+    from tf_operator_tpu_torch.ops.paged_attention import MAX_ROWS
+    from tf_operator_tpu_torch.serve.engine import ContinuousEngine
+
+    greedy = [(0.0, None, 0)] * len(prompts)
+    # (a) f32, the target as its own draft: the kernel read against the
+    # gather read, each lane against phase 6's plain engine and its solo
+    # speculative_generate.
+    runs = {attend: spec_engine_run(pa, base, params, base, params,
+                                    SPEC_SELF_K, prompts, greedy, attend)
+            for attend in ("kernel", "gather")}
+    kern = runs["kernel"]
+    if kern["tokens"] != runs["gather"]["tokens"]:
+        raise AssertionError("spec f32: kernel tokens differ from gather")
+    model = _decode_model(base, params, None)
+    plain_parted = []
+    for lane, (prompt, got) in enumerate(zip(prompts, kern["tokens"])):
+        if got != plain_f32[:SPEC_STEPS, lane].tolist():
+            plain_parted.append((lane, *solo_parting(
+                model, base, prompt, np.asarray(got), 0.0, None, 0)))
+    print(f"spec f32 (17a), self-draft k={SPEC_SELF_K}: kernel tokens == "
+          f"gather tokens over {len(prompts)} lanes x {SPEC_STEPS}; "
+          f"{kern['rounds']} rounds, B4 launches {kern['launches']}, "
+          f"{kern['debug']}; lanes parting from phase 6's plain engine "
+          f"(lane, step, generate's top-two gap): {plain_parted}",
+          flush=True)
+    if len(plain_parted) > 1 or any(g > NEAR_TIE for *_, g in plain_parted):
+        raise AssertionError(f"spec f32 parts from the plain engine: "
+                             f"{plain_parted}")
+    if kern["debug"]["accept_rate"] < 0.9:
+        raise AssertionError("a self-draft should accept nearly every "
+                             f"proposal: {kern['debug']}")
+    spec_lanes_check("spec f32 (17a)", model, model, prompts, kern["tokens"],
+                     SPEC_SELF_K, greedy, NEAR_TIE / 2, one_lane=True)
+    del model
+    torch.cuda.empty_cache()
+
+    # (b) bf16, the truncated draft at k = 7, SAMPLING's mix: 8 rounds
+    # profiled, then timed; each lane against its solo stream.
+    cfg = replace(base, dtype=torch.bfloat16)
+    dcfg = replace(cfg, n_layers=DRAFT_LAYERS)
+    dparams = truncated_draft(params, DRAFT_LAYERS)
+    bf16 = spec_engine_run(pa, cfg, params, dcfg, dparams, SPEC_K, prompts,
+                           SAMPLING, profile=PROFILE_STEPS)
+    prof = bf16["profile"]
+    print(f"spec bf16 (17b), draft of {DRAFT_LAYERS} layers, k={SPEC_K}, "
+          f"{SAMPLING} (temperature, top_p, seed): {bf16['debug']}; "
+          f"{bf16['rounds']} rounds; B4 launches {bf16['launches']}; per "
+          f"round (8 profiled, four lanes live): device operations "
+          f"{prof.get('events', 'not measured')}, device busy us "
+          f"{prof.get('busy_us', 'not measured')}, busy share "
+          f"{prof.get('busy_share', 'not measured')}; decode tokens/s "
+          f"{bf16['tok_s']:.2f} against phase 7's plain engine "
+          f"{plain_bf16:.2f} in this run, on {card}. Random weights: the "
+          f"draft seldom agrees with the target, so these are the spec "
+          f"rounds' overhead, not a speed-up", flush=True)
+    tmodel = _decode_model(cfg, params, None)
+    dmodel = _decode_model(dcfg, dparams, None)
+    spec_lanes_check("spec bf16 (17b)", tmodel, dmodel, prompts,
+                     bf16["tokens"], SPEC_K, SAMPLING, BF16_TIE)
+    del tmodel, dmodel
+    torch.cuda.empty_cache()
+
+    # (c) bf16 on kv8 pools, one greedy lane at k = 4.
+    cfg8 = replace(cfg, kv_int8=True)
+    dcfg8 = replace(dcfg, kv_int8=True)
+    kv8 = spec_engine_run(pa, cfg8, params, dcfg8, dparams, SPEC_KV8_K,
+                          prompts[:1], greedy[:1])
+    print(f"spec kv8 bf16 (17c), one lane, k={SPEC_KV8_K}: {kv8['debug']}; "
+          f"kv8 B4 launches {kv8['launches']} over {kv8['rounds']} rounds "
+          f"(t = {SPEC_KV8_K + 1})", flush=True)
+    tmodel = _decode_model(cfg8, params, None)
+    dmodel = _decode_model(dcfg8, dparams, None)
+    spec_lanes_check("spec kv8 bf16 (17c)", tmodel, dmodel, prompts[:1],
+                     kv8["tokens"], SPEC_KV8_K, greedy[:1], BF16_TIE)
+    del tmodel, dmodel
+    torch.cuda.empty_cache()
+
+    # (d) the f32 front with --spec-k 4 and serve_lm's default draft depth
+    # (layers // 2: the truncated draft).
+    supervisor, server, url = open_front(
+        base, params, spec_k=SPEC_SELF_K,
+        draft_params=truncated_draft(params, LAYERS // 2))
+    pa.launches = pa.kv8_launches = 0
+    bodies = [dict(tokens=p.tolist(), num_steps=SPEC_STEPS) for p in prompts]
+    responses, wall = send_all(url, bodies)
+    engine = supervisor.engine
+    front_launches, rounds = pa.launches, engine.steps_total
+    _, health = http(url, "/healthz")
+    _, debug = http(url, "/debug/serve")
+    _, metrics = http(url, "/metrics")
+    server.drain()
+    del supervisor, server, engine
+    model = _decode_model(base, params, None)
+    front_parted = []
+    for lane, (prompt, resp) in enumerate(zip(prompts, responses)):
+        got = resp["tokens"][0]
+        if got != kern["tokens"][lane]:
+            front_parted.append((lane, *solo_parting(
+                model, base, prompt, np.asarray(got), 0.0, None, 0)))
+    del model
+    torch.cuda.empty_cache()
+    samples = {f: float(re.search(rf"^{f} (\S+)$", metrics, re.M)[1])
+               for f in ("tpu_serve_spec_rounds_total",
+                         "tpu_serve_spec_accept_tokens_count")}
+    print(f"spec front f32 (17d), --spec-k {SPEC_SELF_K}, draft of "
+          f"{LAYERS // 2} layers: 4 requests in {wall:.4f} s, {rounds} "
+          f"rounds, B4 launches {front_launches}; /healthz spec "
+          f"{health.get('spec')}; /debug/serve spec {debug.get('spec')}; "
+          f"/metrics {samples}; responses parting from (a)'s engine streams "
+          f"(lane, step, generate's top-two gap): {front_parted}",
+          flush=True)
+    if (front_launches != LAYERS * rounds or not rounds
+            or debug.get("spec", {}).get("k") != SPEC_SELF_K
+            or "spec" not in health or not all(samples.values())
+            or len(front_parted) > 1
+            or any(g > NEAR_TIE for *_, g in front_parted)):
+        raise AssertionError("spec front: launches, sections, families or "
+                             "tokens are off")
+
+    # (e) the row cap: k = 8 at 4 query heads a KV head is 36 rows.
+    before = torch.cuda.memory_allocated()
+    try:
+        ContinuousEngine(base, params, len(prompts), kv_block=BLK,
+                         kv_attend="kernel", spec_k=SPEC_K + 1,
+                         draft_cfg=base, draft_params=params)
+    except ValueError as exc:
+        refused = str(exc)
+    else:
+        raise AssertionError(f"spec_k={SPEC_K + 1} built past the row cap")
+    if (f"MAX_ROWS = {MAX_ROWS}" not in refused
+            or torch.cuda.memory_allocated() != before):
+        raise AssertionError(f"row cap refusal {refused!r} or device work "
+                             "before it")
+    print(f"spec row cap (17e): spec_k={SPEC_K + 1} refused before any "
+          f"device work: {refused}", flush=True)
+    return ({"spec f32 (17a)": kern["launches"],
+             "spec bf16 (17b)": bf16["launches"],
+             "spec front f32 (17d)": front_launches},
+            {"spec kv8 bf16 (17c)": kv8["launches"]})
+
+
 def key_bias_rows(name: str, p: torch.Tensor):
     """The key-bias slice of an attention bias, or None."""
     if name.endswith("attn.qkv.bias"):
@@ -2528,6 +2945,13 @@ def main() -> int:
     print(f"phase 16 (constrained decoding): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    t0 = time.perf_counter()
+    spec_b4, spec_kv8 = spec_phase(pa, base, params, prompts,
+                                   f32["kernel"]["tokens"],
+                                   bf16["decode_tok_s"], card)
+    print(f"phase 17 (speculative decoding): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
     # Each kernel's launches on every path of this run that drives it.
     paths = {
         "paged_attend": {
@@ -2535,12 +2959,14 @@ def main() -> int:
             "engine bf16 (7)": bf16["launches"]["paged_attend"], **sampled,
             "front f32 (15a)": front_f32, "front bf16 (15b)": front_bf16,
             "front faults f32 (15d)": front_faults,
-            "constrained engine f32 (16a)": con_f32, **con_front},
+            "constrained engine f32 (16a)": con_f32, **con_front,
+            **spec_b4},
         "paged_attend_kv8": {
             "int8 engine f32 (12)": int8_f32["paged_attend_kv8"],
             "int8 engine bf16 (13)": int8_bf16["paged_attend_kv8"],
             "front int8 (15c)": front_int8["paged_attend_kv8"],
-            "constrained int8 (16c)": con_int8["paged_attend_kv8"]},
+            "constrained int8 (16c)": con_int8["paged_attend_kv8"],
+            **spec_kv8},
         "int8_matmul": {
             "int8 engine f32 (12)": (int8_f32["int8_matmul"]
                                      - int8_f32["int8_wgmma"]),

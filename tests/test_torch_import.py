@@ -15,6 +15,7 @@ import torch
 
 from tf_operator_tpu_torch import resolve_device
 from tf_operator_tpu_torch.models.convert import init_params
+from tf_operator_tpu_torch.models.spec_decode import speculative_generate
 from tf_operator_tpu_torch.models.transformer import (
     Transformer,
     TransformerConfig,
@@ -47,13 +48,15 @@ def test_package_imports_with_jax_and_the_reference_poisoned():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    # Every module was imported: models (2), ops (4: _build,
+    # Every module was imported: models (3: convert, spec_decode,
+    # transformer), ops (4: _build,
     # flash_attention, int8_dense, paged_attention), runtime (2: metrics,
     # tracing), serve (8: constrain, engine, kvcache, faultinject,
     # resilience, scheduler, httpapi, serve_lm), train (1), random and
     # testing, and the five packages.
-    assert int(out.stdout.split()[-1]) >= 24
+    assert int(out.stdout.split()[-1]) >= 25
     assert "tf_operator_tpu_torch.serve.constrain" in out.stdout
+    assert "tf_operator_tpu_torch.models.spec_decode" in out.stdout
 
 
 def _sources():
@@ -91,6 +94,13 @@ def test_default_device_is_the_card(monkeypatch):
                  2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PRNGKey(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        speculative_generate(cfg, init_params(cfg, 0), cfg,
+                             init_params(cfg, 0),
+                             torch.zeros((1, 2), dtype=int), 2, k=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ContinuousEngine(cfg, init_params(cfg, 0), 2, kv_block=8, spec_k=1,
+                         draft_cfg=cfg, draft_params=init_params(cfg, 0))
     # The server: its builder and its entry point raise before they build
     # or train anything; only --device cpu serves on the CPU.
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -24,6 +24,7 @@ generous timeouts; no assertion reads the wall clock."""
 
 import json
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -31,6 +32,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from dataclasses import replace
 
 import jax
 import jax.numpy as jnp
@@ -163,6 +165,67 @@ def jax_payload(sched, body) -> dict:
     return out
 
 
+def test_spec_front_serves_as_jax():
+    """``--spec-k 2`` on the CPU: /generate rows (greedy multi-row,
+    sampled with top_p, an eos, a regex) equal the JAX spec scheduler's
+    on the same weights and draft (the draft at serve_lm's default depth,
+    max(1, layers // 2)); /healthz and /debug/serve carry the ``spec``
+    section, /metrics both spec families with samples."""
+    params = JaxTransformer(CFG).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"]
+    dcfg = replace(CFG, n_layers=1)
+    dparams = JaxTransformer(dcfg).init(
+        jax.random.PRNGKey(7), jnp.zeros((1, 8), jnp.int32))["params"]
+    args = serve_lm.front_args(device="cpu", max_batch=4, kv_block=8,
+                               max_seq_len=CFG.max_seq_len, prefill_chunk=4,
+                               spec_k=2)
+    assert serve_lm.draft_config(TCFG, args).n_layers == dcfg.n_layers
+    supervisor, server = serve_lm.build_front(
+        TCFG, jax.tree.map(np.asarray, params), args,
+        jax.tree.map(np.asarray, dparams))
+    server.start()
+    url = "http://" + server.endpoint
+    sched = JaxScheduler(
+        JaxEngine(CFG, params, max_slots=4, kv_paged=True, kv_block=8,
+                  prefill_chunk=4, spec_k=2, draft_cfg=dcfg,
+                  draft_params=dparams),
+        constrainer=jc.ConstraintCompiler(jc.default_vocab(CFG.vocab_size)),
+    ).start()
+    a, b = prompt_of(6, 1), prompt_of(6, 2)
+    bodies = [
+        {"tokens": [a[0].tolist(), b[0].tolist()], "num_steps": 9},
+        {"tokens": [a[0].tolist(), b[0].tolist()], "num_steps": 7,
+         "temperature": 0.8, "top_p": 0.9, "seed": 5},
+        {"tokens": a.tolist(), "num_steps": 8, "regex": "[0-9]{2,5}"},
+    ]
+    try:
+        for body in bodies:
+            status, out = call(url, "/generate", body)
+            want = jax_payload(sched, body)
+            assert status == 200
+            assert out["tokens"] == want["tokens"]
+            assert out["finish_reason"] == want["finish_reason"]
+        greedy = call(url, "/generate", bodies[0])[1]["tokens"][0]
+        eos = greedy[3]
+        status, out = call(url, "/generate", {
+            "tokens": a.tolist(), "num_steps": 9, "eos_id": eos})
+        assert out["tokens"] == [greedy[:greedy.index(eos) + 1]]
+        assert out["finish_reason"] == ["eos"]
+        _, health = call(url, "/healthz")
+        _, debug = call(url, "/debug/serve")
+        _, metrics = call(url, "/metrics")
+    finally:
+        sched.stop(timeout=60)
+        server.drain(timeout=60)
+    assert health["spec"]["k"] == 2 and health["spec"]["rounds"] > 0
+    assert debug["spec"]["k"] == 2 and debug["spec"]["tokens"] > 0
+    assert 0.0 <= debug["spec"]["accept_rate"] <= 1.0
+    for family in ("tpu_serve_spec_rounds_total",
+                   "tpu_serve_spec_accept_tokens_count"):
+        assert float(re.search(rf"^{family} (\S+)$", metrics,
+                               re.M).group(1)) > 0
+
+
 @pytest.mark.parametrize("fields,reason", [
     ({"regex": "[0-9]{2,5}"}, "grammar_complete"),
     ({"json_schema": {"type": "string", "maxLength": 3},
@@ -283,7 +346,7 @@ def test_fleet_router_serves_a_port_replica(front):
 @pytest.mark.parametrize("argv,reason", [
     (["--tp", "2"], "ROADMAP A8"),
     (["--dp", "2"], "ROADMAP A8"),
-    (["--spec-k", "2"], "ROADMAP A6b"),
+    (["--spec-k", "2", "--int8"], "does not compose with --int8"),
     (["--logprobs-k", "-1"], "--logprobs-k must be >= 0"),
     (["--constrain-rows", "0"], "--constrain-rows must be >= 1"),
     (["--kv-dense"], "ROADMAP A5"),
@@ -294,6 +357,10 @@ def test_fleet_router_serves_a_port_replica(front):
     (["--host-tier-bytes", "1024"], "ROADMAP A7"),
     (["--prefill-budget", "0"], "--prefill-budget must be >= 1"),
     (["--max-seq-len", "100", "--kv-block", "16"], "multiple of"),
+    (["--spec-k", "2", "--logprobs-k", "3"],
+     "--logprobs-k does not compose with --spec-k"),
+    (["--draft-checkpoint-dir", "ckpt"], "requires --spec-k"),
+    (["--spec-k", "2", "--draft-checkpoint-dir", "ckpt"], "ROADMAP A10"),
 ])
 def test_flags_refused_before_device_work(argv, reason, capsys):
     """A flag of an unported item, or one the engine cannot take, is

@@ -27,7 +27,11 @@ The cache is an explicit dict of tensors, updated IN PLACE where the
 JAX model rebuilt its ``cache`` collection:
 
 - dense (prefill): ``{"layers": [{"cached_key", "cached_value"}],
-  "cache_index": int}`` with ``[b, max_seq_len, KV, Dh]`` rows;
+  "cache_index": int}`` with ``[b, max_seq_len, KV, Dh]`` rows, every
+  lane at one position;
+- dense stacked (a speculative engine's draft, ``serve/kvcache.py``
+  ``stack_slots``): the same rows with ``"cache_index": [b] int32``, one
+  counter a lane, as JAX's vmapped solo caches keep them;
 - paged (decode): ``{"layers": [{"pool_key", "pool_value"}],
   "block_table": [b, table_len] int32, "cache_index": [b] int32}`` with
   ``[kv_num_blocks, kv_block, KV, Dh]`` pools.
@@ -38,7 +42,8 @@ scales: ``key_scale``/``value_scale`` ``[b, max_seq_len, KV]`` (dense) or
 (paged), addressed by the same rows as the K/V they scale.
 
 JAX keeps one ``cache_index`` per layer plus a top-level ``pos_index``;
-every call moves them in lockstep, so the port keeps one counter.
+every call moves them in lockstep, so the port keeps one counter (a
+tensor of one a lane in the paged and dense stacked layouts).
 
 The solo decode entry points follow JAX's: ``generate`` (greedy, or
 sampled through ``tf_operator_tpu_torch/random.py`` with an optional
@@ -322,12 +327,16 @@ class Attention(nn.Module):
             v = v.repeat_interleave(g, dim=2)
         return attention(q, k, v, causal=True)
 
-    def _decode_attend(self, q, k, v, layer: dict, idx: int):
+    def _decode_attend(self, q, k, v, layer: dict, idx):
         """Block attention against the dense cache (t >= 1 tokens; a
         multi-token call is prompt prefill, block-causal). The t new rows
         are written at ``idx`` in place; query row i sees keys at
         positions <= idx + i. Columns past idx + t are masked to exactly 0
-        by the softmax, so they are left out of the products."""
+        by the softmax, so they are left out of the products. A ``[b]``
+        tensor ``idx`` puts each lane at its own counter
+        (``_decode_attend_lanes``)."""
+        if isinstance(idx, torch.Tensor):
+            return self._decode_attend_lanes(q, k, v, layer, idx)
         b, t, h, dh = q.shape
         kv = k.shape[2]
         g = h // kv
@@ -361,6 +370,43 @@ class Attention(nn.Module):
         if kv8:
             p = p * _scale_cols(layer["value_scale"][:, :n])
         out = torch.einsum("bkgqs,bskd->bqkgd", p, vals)
+        return out.reshape(b, t, h, dh).to(self.cfg.dtype)
+
+    def _decode_attend_lanes(self, q, k, v, layer: dict, idx: torch.Tensor):
+        """``_decode_attend`` with a counter a lane (``idx`` ``[b]``), as
+        JAX's vmapped solo forward runs it: lane b writes its t rows at
+        rows ``idx[b]..idx[b] + t - 1`` (the start clamped to
+        ``max_seq_len - t``, as ``dynamic_update_slice`` clamps it), and
+        its query row i reads the whole cache with keys past ``idx[b] + i``
+        masked. No host sync: the engine's budget keeps every live lane's
+        rows inside the cache."""
+        b, t, h, dh = q.shape
+        kv = k.shape[2]
+        g = h // kv
+        ck, cv = layer["cached_key"], layer["cached_value"]
+        n = ck.shape[1]
+        steps = torch.arange(t, device=q.device)
+        rows = idx.long().clamp(max=n - t)[:, None] + steps[None, :]
+        lanes = torch.arange(b, device=q.device)[:, None]
+        kv8 = self.cfg.kv_int8
+        if kv8:
+            (k, v), (ks, vs) = _kv8_quant(torch.stack((k, v)))
+            layer["key_scale"][lanes, rows] = ks
+            layer["value_scale"][lanes, rows] = vs
+        ck[lanes, rows] = k.to(ck.dtype)
+        cv[lanes, rows] = v.to(cv.dtype)
+        qg = q.reshape(b, t, kv, g, dh).float()
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg, ck.float())
+        if kv8:
+            s = s * _scale_cols(layer["key_scale"])
+        s = s * dh ** -0.5
+        valid = (torch.arange(n, device=q.device)[None, None, :]
+                 <= (idx.long()[:, None] + steps[None, :])[:, :, None])
+        s = torch.where(valid[:, None, None], s, _NEG_INF)  # [b, t, n]
+        p = torch.softmax(s, dim=-1)
+        if kv8:
+            p = p * _scale_cols(layer["value_scale"])
+        out = torch.einsum("bkgqs,bskd->bqkgd", p, cv.float())
         return out.reshape(b, t, h, dh).to(self.cfg.dtype)
 
     def _decode_attend_paged(self, q, k, v, layer: dict, table, idx, live):
@@ -513,12 +559,17 @@ class Transformer(nn.Module):
             # call finds the live lanes for every layer's write.
             positions = idx.long()[:, None] + steps[None, :]
             live = torch.nonzero(idx > 0).squeeze(1)
+        elif isinstance(idx, torch.Tensor):
+            # The dense stacked layout: a counter a lane. Positions clamp
+            # to the table, as JAX's gather clamps them.
+            positions = (idx.long()[:, None] + steps[None, :]).clamp(
+                max=self.cfg.max_seq_len - 1)
         else:
             positions = (idx + steps)[None, :].expand(b, t)
         x = self.embed(tokens) + self.pos(positions)
         for block, layer in zip(self.blocks, cache["layers"]):
             x = block(x, layer, cache, live)
-        if live is not None:
+        if isinstance(idx, torch.Tensor):
             idx.add_(t)
         else:
             cache["cache_index"] = idx + t
@@ -545,11 +596,16 @@ class Transformer(nn.Module):
 def set_cache_index(cache: dict, value) -> dict:
     """Set the cache's position counter to ``value`` (in place; returns
     the cache). K/V rows are untouched: attention masks positions past
-    the counter, so rewriting it is the rollback."""
-    if "block_table" in cache:
-        cache["cache_index"].fill_(int(value))
-    else:
+    the counter, so rewriting it is the rollback. ``value`` is a number,
+    or a tensor that broadcasts against the ``[b]`` counters of the paged
+    and dense stacked layouts (a speculative engine's per-lane rewind)."""
+    idx = cache["cache_index"]
+    if not isinstance(idx, torch.Tensor):
         cache["cache_index"] = int(value)
+    elif isinstance(value, torch.Tensor):
+        idx.copy_(value.to(device=idx.device, dtype=idx.dtype))
+    else:
+        idx.fill_(int(value))
     return cache
 
 

@@ -7,9 +7,9 @@ histograms with labels, rendered in the Prometheus text format at
 /metrics) and the ``tpu_serve_*`` families of the continuous-batching
 front, under the JAX package's names, labels and buckets, so a scrape of
 either server parses the same way, constrained decoding's four families
-included. The families of later items (KV shipments, speculative decode,
-the host tier: ROADMAP A6b, A7) are left out until those items are
-ported.
+and speculative decoding's two included. The families of later items (KV
+shipments and the host tier: ROADMAP A7) are left out until those items
+are ported.
 
 Thread-safe; all mutation is under one lock per metric family.
 """
@@ -383,6 +383,22 @@ SERVE_OCCUPANCY = REGISTRY.histogram(
     "Fraction of decode slots active, observed at every decode step — "
     "the quantity decode throughput is proportional to",
     buckets=(0.0625, 0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0),
+)
+
+SERVE_SPEC_ACCEPT_TOKENS = REGISTRY.histogram(
+    "tpu_serve_spec_accept_tokens",
+    "Tokens emitted per slot per speculative round (the incoming pend "
+    "token plus the accepted draft prefix, 1..k+1) — the distribution "
+    "behind the engine's accept rate: mean/(k+1) near 1 means the draft "
+    "is riding, near 1/(k+1) means every round falls back to one token",
+    buckets=(1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 8.0, 12.0, 16.0),
+)
+SERVE_SPEC_ROUNDS_TOTAL = REGISTRY.counter(
+    "tpu_serve_spec_rounds_total",
+    "Speculative decode rounds executed (one per-slot draft of k tokens "
+    "+ one batched k+1-position verify forward each) — tokens/round = "
+    "tpu_serve_generated_tokens_total over this counter while the spec "
+    "engine serves",
 )
 
 SERVE_CONSTRAINED_REQUESTS = REGISTRY.counter(

@@ -44,15 +44,29 @@ block table sized to its actual length (prompt + decode horizon).
 - Logprobs (``logprobs_k`` > 0): each step also keeps the chosen token's
   logprob and the top-K values and ids of ``log_softmax`` of the masked
   logits (``last_logprobs``).
+- Batch-wide speculative decoding (``spec_k`` >= 1, with ``draft_cfg``
+  and ``draft_params``): each decode iteration is a ROUND
+  (``spec_step``). A draft model over a dense slot tensor of its own
+  (``serve/kvcache.py`` ``stack_slots``, a counter a lane) drafts k + 1
+  tokens for every lane from its pending token; ONE target forward of
+  the k + 1 chunk ``[pend, d_1..d_k]`` over the paged pool verifies them
+  (B4 at t = k + 1 under ``kv_attend="kernel"``); the accept/emit of
+  ``models/spec_decode.py`` ``lane_accept_emit`` runs over all lanes at
+  once; each lane's counters in both caches are rewound to its own
+  accepted count. Lanes advance 1 to k + 1 tokens a round. Admission
+  reserves the k + 1 rows of ``spec_margin`` beyond prompt + steps, so a
+  rejected write lands in a block the slot owns. Each lane carries solo
+  ``speculative_generate``'s key chain (``split(rng, 5)`` a round), so a
+  lane's tokens are the b = 1 solo stream of its seed.
 
 Serving hooks, as the JAX engine has them: ``faults`` (``alloc_exhaust``
 in ``plan_admission``, ``step_raise`` and ``step_stall`` in ``step``),
 ``tag_slot`` (the request id the engine's own ``kv.cow`` spans carry),
-``mesh_info``, ``free_block_fraction``, the ``tpu_serve_kv_*`` gauges and
-counters, and ``warmup`` (a step over no live lane, run by a server's
-engine factory so the kernels are built and loaded before it reports
-ready). Speculative decoding, disaggregation, the host tier and meshes
-are later slices.
+``mesh_info``, ``free_block_fraction``, the ``tpu_serve_kv_*`` and
+``tpu_serve_spec_*`` gauges and counters, and ``warmup`` (a step or
+round over no live lane, run by a server's engine factory so the kernels
+are built and loaded before it reports ready). Disaggregation, the host
+tier, the dense slot engine and meshes are later slices.
 """
 
 from __future__ import annotations
@@ -64,7 +78,12 @@ from typing import Any
 import numpy as np
 import torch
 
+from tf_operator_tpu_torch import resolve_device
 from tf_operator_tpu_torch.models.convert import load_params
+from tf_operator_tpu_torch.models.spec_decode import (
+    lane_accept_emit,
+    spec_margin,
+)
 from tf_operator_tpu_torch.models.transformer import (
     ChunkedPrefill,
     Transformer,
@@ -75,13 +94,20 @@ from tf_operator_tpu_torch.models.transformer import (
     _validate_prefill_chunk,
     set_cache_index,
 )
-from tf_operator_tpu_torch.random import PRNGKey, gumbel, split
+from tf_operator_tpu_torch.ops.paged_attention import (
+    HEAD_DIMS,
+    MAX_ROWS,
+    paged_attend_supported,
+)
+from tf_operator_tpu_torch.random import PRNGKey, categorical, gumbel, split
 from tf_operator_tpu_torch.runtime.metrics import (
     SERVE_KV_BLOCKS,
     SERVE_KV_COW_TOTAL,
     SERVE_MESH_DEVICES,
     SERVE_PHASE_SECONDS,
     SERVE_PREFILL_SAVED_TOTAL,
+    SERVE_SPEC_ACCEPT_TOKENS,
+    SERVE_SPEC_ROUNDS_TOTAL,
 )
 from tf_operator_tpu_torch.runtime.tracing import SERVE_TRACER
 from tf_operator_tpu_torch.serve.constrain import NEG_MASK, ProgramPool
@@ -94,10 +120,13 @@ from tf_operator_tpu_torch.serve.kvcache import (
     PrefixCache,
     SlotAllocator,
     cow_copy,
+    dense_insert,
     gather_solo,
     mask_inactive_indices,
     paged_cache_template,
     paged_insert,
+    solo_cache_template,
+    stack_slots,
     table_insert,
 )
 
@@ -161,6 +190,8 @@ class ContinuousEngine:
     that many tokens. ``faults`` is a ``serve/faultinject.py`` injector
     (default: none armed). ``constrain_rows`` sizes the constraint pool
     (row 0 included); ``logprobs_k`` > 0 keeps each step's top-K logprobs.
+    ``spec_k`` >= 1 with ``draft_cfg``/``draft_params`` (a flax-layout
+    tree) makes it a speculative engine that decodes by ``spec_step``.
     ``device`` defaults to the CUDA card."""
 
     def __init__(self, cfg: TransformerConfig, params, max_slots: int, *,
@@ -168,7 +199,8 @@ class ContinuousEngine:
                  kv_attend: str = "gather",
                  prefill_chunk: int | None = None, faults: Any = None,
                  constrain_rows: int = 128, logprobs_k: int = 0,
-                 device=None) -> None:
+                 spec_k: int = 0, draft_cfg: TransformerConfig | None = None,
+                 draft_params=None, device=None) -> None:
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(f"prefill_chunk={prefill_chunk} must be >= 1")
         # Per-token logprobs: static at construction, as in JAX (K shapes
@@ -178,6 +210,20 @@ class ContinuousEngine:
             raise ValueError(
                 f"logprobs_k={logprobs_k} must be in [0, vocab_size]"
             )
+        if self.logprobs_k and spec_k:
+            # A round's accepted tokens reuse draft positions whose target
+            # logits the rewind discards: no per-token row to report.
+            raise ValueError(
+                "logprobs_k is not supported with speculative decoding "
+                "(serve it from a plain engine)"
+            )
+        self.spec_k = int(spec_k or 0)
+        self._spec_margin = 0
+        self.draft_cfg = draft_cfg
+        if self.spec_k:
+            _check_spec(cfg, self.spec_k, draft_cfg, draft_params, kv_attend,
+                        resolve_device(device))
+            self._spec_margin = spec_margin(self.spec_k)
         self.prefill_chunk = prefill_chunk
         self.max_slots = int(max_slots)
         self.kv_block = int(kv_block)
@@ -232,8 +278,30 @@ class ContinuousEngine:
         # Request id per slot (scheduler-set after join): the engine's own
         # spans (CoW copies fire inside step()) name the slot's request.
         self._slot_tags: dict[int, str] = {}
+        if self.spec_k:
+            self._init_spec(draft_params)
         SERVE_MESH_DEVICES.set(1)
         self._set_block_gauges()
+
+    # -- batch-wide speculative decode ------------------------------------
+
+    def _init_spec(self, draft_params) -> None:
+        """The speculative state: the draft model over a dense slot tensor
+        of its own (a counter a lane), and per slot the pending token and
+        the key chain (solo ``speculative_generate``'s split-per-round
+        schedule: the round count is data, so the chain is state, not a
+        precomputed ladder)."""
+        n, dev = self.max_slots, self.device
+        dcfg = replace(self.draft_cfg, decode=True, remat=False,
+                       kv_paged=False, kv_attend="gather")
+        self._draft_model = load_params(Transformer(dcfg, dev), draft_params)
+        self._draft_cache = stack_slots(
+            solo_cache_template(self._draft_model), n)
+        self._pend = torch.zeros(n, dtype=torch.int32, device=dev)
+        self._spec_rng = torch.zeros((n, 2), dtype=torch.int64, device=dev)
+        self.spec_rounds_total = 0       # rounds with a live lane
+        self.spec_lane_rounds_total = 0  # (live slot, round) pairs
+        self.spec_tokens_total = 0       # emitted tokens across lanes
 
     # -- admission planning ----------------------------------------------
 
@@ -245,10 +313,12 @@ class ContinuousEngine:
             raise ValueError(f"num_steps={num_steps} must be >= 1")
         if prompt_len < 1:
             raise ValueError("prompt must have at least one token")
-        if prompt_len + num_steps > self.cfg.max_seq_len:
+        margin = self._spec_margin
+        if prompt_len + num_steps + margin > self.cfg.max_seq_len:
+            with_margin = f" + speculation margin {margin}" if margin else ""
             raise ValueError(
-                f"prompt {prompt_len} + steps {num_steps} exceeds "
-                f"max_seq_len {self.cfg.max_seq_len}"
+                f"prompt {prompt_len} + steps {num_steps}{with_margin} "
+                f"exceeds max_seq_len {self.cfg.max_seq_len}"
             )
         if self.prefill_chunk is not None:
             _validate_prefill_chunk(self.cfg, prompt_len, self.prefill_chunk)
@@ -261,8 +331,12 @@ class ContinuousEngine:
             )
 
     def _block_cap(self, prompt_len: int, num_steps: int) -> int:
-        """Table entries one admission reserves: prompt + decode horizon."""
-        return -(-(prompt_len + num_steps) // self.kv_block)
+        """Table entries one admission reserves: prompt + decode horizon
+        plus, on a speculative engine, the k + 1 rows of ``spec_margin``,
+        so a rejected speculative write lands in a block the slot owns and
+        never in one another lane may be given meanwhile."""
+        return -(-(prompt_len + num_steps + self._spec_margin)
+                 // self.kv_block)
 
     def plan_admission(self, tokens, num_steps: int) -> AdmissionPlan | None:
         """Reserve a slot's worth of blocks for one request, or None (the
@@ -414,7 +488,9 @@ class ContinuousEngine:
         ``split(PRNGKey(seed), num_steps)`` (zeros past it, and all zeros
         for a greedy lane); the step index restarts at 0."""
         self._keys[slot].zero_()
-        if temperature > 0:
+        if temperature > 0 and not self.spec_k:
+            # A speculative lane carries its key chain instead
+            # (``_join_spec_state``).
             self._keys[slot, :num_steps] = split(
                 PRNGKey(seed, self.device), num_steps)
         self._stepidx[slot] = 0
@@ -451,11 +527,15 @@ class ContinuousEngine:
         row = logits.reshape(-1).float()
         self._logits[slot] = row
         self._set_sampling(slot, plan.num_steps, temperature, top_p, seed)
-        if program is not None:
+        if self.spec_k:
+            self._join_spec_state(slot, plan.tokens, row, temperature,
+                                  top_p, seed, program, base)
+        elif program is not None:
             # Prompt tokens are unconstrained: the slot enters at the
             # program's start state and the mask applies from the first
             # GENERATED token, the solo oracle's convention.
             self._fsm[slot] = base
+        if program is not None:
             self._slot_program[slot] = program.digest
         self._active[slot] = True
         plan.settled = True  # the blocks now belong to the slot
@@ -509,22 +589,60 @@ class ContinuousEngine:
         rows are dead compute: ignore them). The fault points fire first,
         as in the JAX engine: ``step_raise`` raises ``InjectedFault``,
         ``step_stall`` sleeps its argument (default 1 s)."""
+        if self.spec_k:
+            raise RuntimeError(
+                "speculative engines decode via spec_step() (rounds emit "
+                "between 1 and k+1 tokens per slot)"
+            )
+        self._fire_step_faults()
+        return self._step()
+
+    def spec_step(self) -> tuple[np.ndarray, np.ndarray]:
+        """One speculative ROUND over all slots: draft k + 1 tokens a lane,
+        verify the k + 1 chunk in one batched target forward, accept and
+        rewind each lane. Returns ``(toks, counts)``: ``toks
+        [max_slots, k + 1]`` int32, of which row i's first ``counts[i]``
+        are slot i's new tokens (its pending token and its accepted
+        prefix; 1 <= counts <= k + 1 on a live lane, 0 on an inactive
+        one). The caller trims each window to its request's budget. The
+        fault points and pending copy-on-writes run first, as in
+        ``step``."""
+        if not self.spec_k:
+            raise RuntimeError("spec_step() needs an engine built with "
+                               "spec_k >= 1")
+        self._fire_step_faults()
+        toks, counts = self._spec_round()
+        if self._active.any():
+            emitted = counts[self._active]
+            self.spec_rounds_total += 1
+            self.spec_lane_rounds_total += len(emitted)
+            self.spec_tokens_total += int(emitted.sum())
+            SERVE_SPEC_ROUNDS_TOTAL.inc()
+            for c in emitted:
+                SERVE_SPEC_ACCEPT_TOKENS.observe(float(c))
+        return toks, counts
+
+    def _fire_step_faults(self) -> None:
         if self.faults.fire("step_raise") is not None:
             raise InjectedFault("step_raise")
         self.faults.maybe_sleep("step_stall", default=1.0)
-        return self._step()
 
     def warmup(self) -> None:
-        """One step over no live lane (no fault point fires), then the
-        step count back at 0: on the card it builds or loads every kernel
-        the step launches and runs each once, so a server's first request
-        pays neither. The JAX engine warms its compiled step in its
-        constructor; this one is called by the caller that wants it.
-        Inactive lanes' writes land in the pinned garbage block and every
-        join overwrites its lane's logits, so no later token changes."""
+        """One step (a round, on a speculative engine) over no live lane
+        (no fault point fires), then the step count back at 0: on the card
+        it builds or loads every kernel the step launches and runs each
+        once, so a server's first request pays neither. The JAX engine
+        warms its compiled step in its constructor; this one is called by
+        the caller that wants it. Inactive lanes' writes land in the
+        pinned garbage block (paged) or their own rows (the draft), and
+        every join overwrites its lane's logits, rows and pending token,
+        so no later token changes."""
         if self._active.any():
             raise RuntimeError("warmup() runs before any join")
-        self._step()
+        if self.spec_k:
+            self._spec_round()
+        else:
+            self._step()
         self.steps_total = 0
 
     def _step(self) -> np.ndarray:
@@ -590,6 +708,141 @@ class ContinuousEngine:
         self._stepidx += 1
         return _sample_token(masked, keys, self._temperature,
                              self._top_p, self._has_top_p)
+
+    def _join_spec_state(self, slot: int, tokens: np.ndarray,
+                         row: torch.Tensor, temperature: float,
+                         top_p: float | None, seed: int, program: Any,
+                         base: int | None) -> None:
+        """Seed a slot's speculative state at join: the draft prefills the
+        WHOLE prompt into the slot's draft rows (through ``ChunkedPrefill``
+        under ``prefill_chunk``; the draft shares nothing, so a prefix join
+        skips only the target's prefill), then the first pending token is
+        drawn from the prefill row as solo ``speculative_generate`` draws
+        it: a sampled lane splits ``PRNGKey(seed)`` and samples the
+        tempered, nucleus-filtered row; a greedy lane takes the argmax and
+        carries ``PRNGKey(0)`` unused. Under a ``program`` (bound at
+        ``base``) the row takes the start state's mask first, and the FSM
+        enters at the state AFTER pend, the invariant every round keeps."""
+        prompt = torch.as_tensor(tokens, device=self.device)
+        with torch.no_grad():
+            if self.prefill_chunk is not None:
+                pf = ChunkedPrefill(self._draft_model, prompt,
+                                    self.prefill_chunk)
+                pf.feed(pf.n_chunks)
+                dcache, _ = pf.result()
+            else:
+                dcache, _ = _prefill(self._draft_model, prompt)
+            dense_insert(self._draft_cache, slot, dcache)
+            row = row.reshape(1, -1)
+            if program is not None:
+                allow = torch.as_tensor(program.allow[0], device=self.device)
+                row = row + torch.where(allow, 0.0, NEG_MASK)
+            if temperature > 0:
+                rng, k0 = split(PRNGKey(seed, self.device))
+                scaled = row / torch.tensor(float(temperature),
+                                            device=self.device)
+                if top_p is not None:
+                    scaled = _nucleus_filter(scaled, float(top_p))
+                pend = categorical(k0, scaled)[0]
+            else:
+                rng = PRNGKey(0, self.device)
+                pend = row[0].argmax(-1)
+            self._pend[slot] = pend
+            self._spec_rng[slot] = rng
+        if program is not None:
+            self._fsm[slot] = int(base) + int(program.next[0, int(pend)])
+
+    def _spec_round(self) -> tuple[np.ndarray, np.ndarray]:
+        """The round, JAX's draft and verify executables in one eager pass.
+        A round where no live lane samples draws nothing (greedy lanes
+        discard their draws, so their tokens are the same)."""
+        self._run_pending_cows()
+        k = self.spec_k
+        pool = self.constrain_pool
+        sampled = bool(self._sampled[self._active].any())
+        with torch.no_grad():
+            active = torch.as_tensor(self._active, device=self.device)
+            # Draft: each lane's key splits into (chain, draft, accept,
+            # residual, bonus) keys, then k + 1 draft steps from pend, the
+            # FSM walked inside: the masked logits are the proposals' q.
+            if sampled:
+                parts = split(self._spec_rng, 5)  # [n, 5, 2]
+                self._spec_rng = parts[:, 0].contiguous()
+                step_keys = split(parts[:, 1], k + 1)  # [n, k + 1, 2]
+            dcache = mask_inactive_indices(self._draft_cache, active)
+            d_idx = dcache["cache_index"].clone()
+            tok, st = self._pend, self._fsm
+            drafted, qlogits = [], []
+            for j in range(k + 1):
+                logits = self._draft_model(tok[:, None].long(), dcache)[:, 0]
+                masked = logits + torch.where(pool.allow_pool[st.long()],
+                                              0.0, NEG_MASK)
+                if sampled:
+                    tok = _sample_token(masked, step_keys[:, j],
+                                        self._temperature, self._top_p,
+                                        self._has_top_p)
+                    qlogits.append(masked)
+                else:
+                    tok = masked.argmax(-1).to(torch.int32)
+                st = pool.next_pool[st.long(), tok.long()]
+                drafted.append(tok)
+            drafted = torch.stack(drafted, 1)  # [n, k + 1]
+            # Verify: one paged forward of [pend, d_1..d_k] (t = k + 1 rows
+            # a lane, each lane at its own counter), every row masked by
+            # the FSM state it is sampled at.
+            cache = mask_inactive_indices(self._cache, active)
+            t_idx = cache["cache_index"].clone()
+            chunk = torch.cat([self._pend[:, None], drafted[:, :k]], 1)
+            seq = [self._fsm]
+            for j in range(k):
+                seq.append(pool.next_pool[seq[-1].long(),
+                                          drafted[:, j].long()])
+            st_seq = torch.stack(seq, 1)  # [n, k + 1]
+            tlogits = self._model(chunk.long(), cache)
+            tlogits = tlogits + torch.where(pool.allow_pool[st_seq.long()],
+                                            0.0, NEG_MASK)
+            if sampled:
+                toks, counts, nxt = lane_accept_emit(
+                    k, tlogits, torch.stack(qlogits, 1), drafted,
+                    self._pend, parts[:, 2], parts[:, 3], parts[:, 4],
+                    self._temperature, self._top_p, self._has_top_p)
+            else:
+                targmax = tlogits.argmax(-1)  # [n, k + 1]
+                accept = drafted[:, :k].long() == targmax[:, :k]
+                m = torch.cumprod(accept.long(), 1).sum(1)
+                toks = chunk.to(torch.int32)
+                counts = (1 + m).to(torch.int32)
+                nxt = targmax.gather(1, m[:, None])[:, 0].to(torch.int32)
+            counts = torch.where(active, counts, 0)
+            # The new FSM: the state after the accepted prefix, advanced
+            # through the next pend; inactive lanes keep theirs.
+            s_m = st_seq.gather(1, (counts.long() - 1).clamp(0, k)[:, None])
+            self._fsm = torch.where(
+                active, pool.next_pool[s_m[:, 0].long(), nxt.long()],
+                self._fsm)
+            # The per-lane rewind: rejected rows go invisible to the masked
+            # reads, and the next round's chunk overwrites them.
+            set_cache_index(cache, torch.where(active, t_idx + counts, 0))
+            set_cache_index(dcache, torch.where(active, d_idx + counts, 0))
+            self._pend = torch.where(active, nxt, self._pend)
+        self.steps_total += 1
+        return toks.cpu().numpy(), counts.cpu().numpy()
+
+    def spec_debug(self) -> dict:
+        """Speculation telemetry for /debug/serve, JAX's keys: k, rounds,
+        lane-rounds, emitted tokens and the accept rate, accepted draft
+        tokens over drafted ones: ``(tokens per lane-round - 1) / k``."""
+        lanes = self.spec_lane_rounds_total
+        tpr = (self.spec_tokens_total / lanes) if lanes else 0.0
+        return {
+            "k": self.spec_k,
+            "rounds": self.spec_rounds_total,
+            "lane_rounds": lanes,
+            "tokens": self.spec_tokens_total,
+            "tokens_per_lane_round": round(tpr, 3),
+            "accept_rate": round(max(0.0, tpr - 1.0) / self.spec_k, 4)
+            if lanes else 0.0,
+        }
 
     def retire(self, slot: int) -> None:
         """Release a slot: its program reference drops, its private blocks
@@ -678,6 +931,51 @@ class ContinuousEngine:
     @property
     def occupancy(self) -> float:
         return self.alloc.in_use / self.max_slots
+
+
+def _check_spec(cfg: TransformerConfig, k: int,
+                draft_cfg: TransformerConfig | None, draft_params,
+                kv_attend: str, device: torch.device) -> None:
+    """A speculative engine's checks, before any device work: JAX's (k,
+    the draft, int8_decode, the draft's length) and the paged kernel's
+    row cap. Under ``kv_attend="kernel"`` the verify runs B4 at t = k + 1
+    query rows a lane, t x (heads / KV heads) rows per KV head, which the
+    kernel takes up to ``MAX_ROWS``; a k past it raises here, on every
+    device, rather than running the verify anywhere else."""
+    if k < 1:
+        raise ValueError(f"spec_k={k} must be >= 1")
+    if draft_cfg is None or draft_params is None:
+        raise ValueError(
+            "spec_k needs draft_cfg and draft_params (the draft model "
+            "that proposes k tokens per round)"
+        )
+    for name, c in (("target", cfg), ("draft", draft_cfg)):
+        if c.int8_decode:
+            raise ValueError(
+                f"{name} cfg.int8_decode is not supported by speculative "
+                "decoding (same contract as solo speculative_generate)"
+            )
+    if draft_cfg.max_seq_len < cfg.max_seq_len:
+        raise ValueError(
+            f"draft max_seq_len {draft_cfg.max_seq_len} < target "
+            f"max_seq_len {cfg.max_seq_len}: the draft cache must hold "
+            "every position the target budget admits"
+        )
+    if kv_attend != "kernel":
+        return
+    g = cfg.n_heads // cfg.kv_heads
+    if (k + 1) * g > MAX_ROWS or (device.type == "cuda"
+                                   and not paged_attend_supported(
+                                       k + 1, cfg.n_heads, cfg.kv_heads,
+                                       cfg.head_dim, cfg.dtype)):
+        raise ValueError(
+            f"spec_k={k}: the verify round runs the paged kernel at "
+            f"t = k + 1 = {k + 1} query rows a lane, {(k + 1) * g} rows per "
+            f"KV head at {g} query heads a KV head; the kernel takes at "
+            f"most MAX_ROWS = {MAX_ROWS} (and Dh in {HEAD_DIMS}, f32 or "
+            f"bf16): use spec_k <= {MAX_ROWS // g - 1} or "
+            'kv_attend="gather"'
+        )
 
 
 def _check_sampling(temperature: float, top_p: float | None) -> None:

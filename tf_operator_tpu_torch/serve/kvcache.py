@@ -1,12 +1,20 @@
 """Paged KV-cache storage for continuous batching, in PyTorch.
 
 Counterpart of ``tf_operator_tpu/serve/kvcache.py`` for the block-paged
-pool (the dense slot tensor, the shipped-KV ingest and sharding are later
-slices). Per layer, one pool of ``[kv_num_blocks, kv_block, KV, Dh]``
-token blocks; each slot carries a ``[max_seq_len // kv_block]`` int32
-block table and a position counter (``models/transformer.py`` describes
-the cache dict). Block 0 is the pinned garbage block that unused table
-entries point at: never allocated, always masked.
+pool and the dense slot tensor (the shipped-KV ingest and sharding are
+later slices). Per layer, one pool of ``[kv_num_blocks, kv_block, KV,
+Dh]`` token blocks; each slot carries a ``[max_seq_len // kv_block]``
+int32 block table and a position counter (``models/transformer.py``
+describes the cache dict). Block 0 is the pinned garbage block that
+unused table entries point at: never allocated, always masked.
+
+The dense slot tensor (``stack_slots``, ``dense_insert``) is the solo
+dense cache with one row of ``max_seq_len`` positions a slot and a
+counter a slot: the draft cache of a speculative engine. JAX stacks the
+solo ``[1, S, KV, Dh]`` leaves over a new slot axis and vmaps the solo
+forward over it; the port folds the solo batch of one into the slot
+axis, so the stacked cache is a dense cache of ``max_slots`` lanes that
+one batched forward of the model reads with a counter a lane.
 
 The device functions below update the cache IN PLACE. The JAX module
 builds each as a jitted, donated executable that returns a new tree, so
@@ -46,11 +54,46 @@ def paged_cache_template(model, max_slots: int) -> dict:
     return model.init_cache(max_slots, paged=True)
 
 
+def solo_cache_template(model) -> dict:
+    """The empty solo dense cache of one request: ``[1, max_seq_len, KV,
+    Dh]`` rows per layer (and the kv_int8 scales), counter 0."""
+    return model.init_cache(1, paged=False)
+
+
+def stack_slots(template: dict, max_slots: int) -> dict:
+    """The dense slot tensor: each of ``template``'s leaves (a solo dense
+    cache) as zeros with ``max_slots`` rows in place of its one, and a
+    ``[max_slots]`` int32 counter, one a slot. One allocation up front;
+    occupancy changes never allocate again."""
+    layers = [{name: torch.zeros((max_slots, *leaf.shape[1:]),
+                                 dtype=leaf.dtype, device=leaf.device)
+               for name, leaf in layer.items()}
+              for layer in template["layers"]]
+    dev = layers[0]["cached_key"].device
+    return {"layers": layers,
+            "cache_index": torch.zeros(max_slots, dtype=torch.int32,
+                                       device=dev)}
+
+
+def dense_insert(stacked: dict, slot: int, solo: dict) -> dict:
+    """Land a finished solo dense prefill in slot ``slot`` of the dense
+    slot tensor, in place: every leaf's row (all ``max_seq_len``
+    positions, so nothing of the slot's last occupant stays below the
+    counter) and the counter. The JAX module's ``make_insert_fn``."""
+    for ls, lo in zip(stacked["layers"], solo["layers"]):
+        for name, leaf in ls.items():
+            leaf[slot] = lo[name][0]
+    stacked["cache_index"][slot] = int(solo["cache_index"])
+    return stacked
+
+
 def mask_inactive_indices(cache: dict, active: torch.Tensor) -> dict:
     """Zero the counters of inactive slots (``active`` is ``[N]`` bool),
-    in place. Inactive slots still run the fixed-shape step; at index 0
-    their K/V writes are dropped, so a retired lane's stale table can
-    never write into a block that went to another lane."""
+    in place, in the paged and the dense stacked layouts alike. Inactive
+    slots still run the fixed-shape step. Paged: at index 0 their K/V
+    writes are dropped, so a retired lane's stale table can never write
+    into a block that went to another lane. Dense: they write into their
+    own rows, which the next join's ``dense_insert`` overwrites."""
     cache["cache_index"].mul_(active.to(cache["cache_index"].dtype))
     return cache
 

@@ -35,7 +35,12 @@ handshake. Each loop iteration:
    first, and slots retire on num_steps or the request's eos_id. The
    engine samples a slot's first token at the step after its join, from
    the logits its prefill carried, so the token a step returns for a slot
-   is the next token of that slot's request, in order.
+   is the next token of that slot's request, in order. On a speculative
+   engine (``spec_k``) the step is a ROUND (``spec_step``) that emits 1
+   to k + 1 tokens a slot; each slot's window is delivered token by token
+   through the same rules, and a budget, eos, stop sequence or completed
+   grammar cuts it mid-window (the rest of the window is dead), as solo
+   ``speculative_generate``'s trim does.
 3. IDLE: with nothing queued and nothing active the loop parks on a
    condition variable — zero device work, zero spin.
 
@@ -955,11 +960,19 @@ class ContinuousScheduler:
                     else "")
                 for s, _ in flushed
             }
-        for s, (start, last, steps) in flushed:
+        spec = getattr(self.engine, "spec_k", 0)
+        for s, (start, last, steps, rounds) in flushed:
             attrs: dict[str, Any] = {
                 "request_id": owners.get(s, ""), "slot": s,
                 "tokens": steps,
             }
+            if spec and rounds:
+                # Speculative rounds: tokens > rounds while the draft
+                # rides; the interval's accept rate is where a spec
+                # regression shows first.
+                attrs["rounds"] = rounds
+                attrs["spec_accept_rate"] = round(
+                    max(0.0, steps / rounds - 1.0) / spec, 4)
             if reason:
                 attrs["closed_by"] = reason
             SERVE_TRACER.record("decode.interval", start, last, **attrs)
@@ -976,14 +989,20 @@ class ContinuousScheduler:
     def _decode(self) -> None:
         if not self._slots:
             return
+        spec = getattr(self.engine, "spec_k", 0)
         t0 = time.perf_counter()
         mono0 = time.monotonic()
         with self._device():
-            toks = self.engine.step()
-        # Per-step top-k logprobs: numpy rows already on the host after
+            if spec:
+                toks, counts = self.engine.spec_step()
+            else:
+                toks = self.engine.step()
+        # Per-step top-k logprobs (plain engines only: the engine refuses
+        # logprobs_k with spec_k): numpy rows already on the host after
         # step(); slots read theirs below.
         lp = (self.engine.last_logprobs()
-              if getattr(self.engine, "logprobs_k", 0) else None)
+              if not spec and getattr(self.engine, "logprobs_k", 0)
+              else None)
         self._beat()  # the step returned — wedged steps never get here
         now = time.perf_counter()
         mono = time.monotonic()
@@ -997,19 +1016,29 @@ class ContinuousScheduler:
             self.decode_steps += 1
             self.occupancy_sum += len(self._slots)
             retired: list[tuple[int, ServeRequest]] = []
+            delivered_total = 0
             for slot, req in slots_now:
-                tok = int(toks[slot])
-                req.out.append(tok)
-                req.token_times.append(mono)
+                window = (toks[slot, :int(counts[slot])] if spec
+                          else toks[slot:slot + 1])
+                finished, delivered = False, 0
+                for tok in window.tolist():
+                    req.out.append(tok)
+                    req.token_times.append(mono)
+                    delivered += 1
+                    if self._deliver(req, slot, tok, lp):
+                        finished = True
+                        break  # the window past the cut is dead
+                delivered_total += delivered
                 req.decode_s += mono - mono0
-                finished = self._deliver(req, slot, tok, lp)
-                # Aggregate this step into the slot's open interval span.
+                # Aggregate this step into the slot's open interval span:
+                # (start, last, tokens, rounds).
                 ent = self._intervals.get(slot)
                 if ent is None:
-                    self._intervals[slot] = [mono0, mono, 1]
+                    self._intervals[slot] = [mono0, mono, delivered, 1]
                 else:
                     ent[1] = mono
-                    ent[2] += 1
+                    ent[2] += delivered
+                    ent[3] += 1
                 if req.first_token_at is None:
                     req.first_token_at = now
                     if not req.ttft_observed:
@@ -1035,8 +1064,8 @@ class ContinuousScheduler:
                 elif (ent := self._intervals.get(slot)) is not None \
                         and ent[2] >= DECODE_INTERVAL_STEPS:
                     self._flush_intervals(slot, reason="cap")
-            self.tokens_generated += len(slots_now)
-            SERVE_TOKENS_TOTAL.inc(len(slots_now))
+            self.tokens_generated += delivered_total
+            SERVE_TOKENS_TOTAL.inc(delivered_total)
         for slot, req in retired:
             self._retire_telemetry(slot, req)
 
@@ -1181,4 +1210,7 @@ class ContinuousScheduler:
                 snap["constrain"] = self.engine.constrain_debug()
                 if self.constrainer is not None:
                     snap["constrain"]["compiler"] = self.constrainer.debug()
+            if getattr(self.engine, "spec_k", 0):
+                # k, rounds, emitted tokens and the accept rate.
+                snap["spec"] = self.engine.spec_debug()
             return snap

@@ -55,11 +55,22 @@ tokens of an uninterrupted run.
 
 Flags and fields of ROADMAP items the port has not ported exit (flags)
 or answer a typed 400 (fields) naming the item, and never run another
-path instead: ``--tp``/``--dp`` (A8), ``--spec-k`` (A6b), ``--kv-dense``
-(the dense slot engine, A5), ``--engine coalesce`` and
-``--batch-window`` (A10), ``--checkpoint-dir`` (A10), ``--role prefill``
+path instead: ``--tp``/``--dp`` (A8), ``--kv-dense`` (the dense slot
+engine, A5), ``--engine coalesce`` and ``--batch-window`` (A10),
+``--checkpoint-dir`` and ``--draft-checkpoint-dir`` (A10), ``--role prefill``
 and ``--host-tier-bytes`` (A7); the fields ``shipped_kv``, ``session``
 and ``GET /prefix/<digest>`` (A7).
+
+Speculative decoding (``--spec-k K``): the engine decodes in rounds, a
+draft of ``--spec-draft-layers`` layers (default max(1, layers // 2), the
+target's width, quick-trained on the same task, so it accepts) proposing
+K tokens a lane that one target forward verifies; greedy tokens equal the
+plain engine's, sampled ones follow the same law, and /healthz and
+/debug/serve carry a ``spec`` section. It does not compose with
+``--int8`` or ``--logprobs-k`` (refused with the JAX server's messages),
+and under ``--kv-attend kernel`` K + 1 query rows times the heads a KV
+head must fit the kernel's row cap (the engine refuses K past it).
+``--draft-checkpoint-dir`` waits for A10.
 
 ``--device`` defaults to ``cuda``: without a card the server raises
 rather than serving on the CPU, which it does only under ``--device
@@ -124,7 +135,6 @@ from tf_operator_tpu_torch.serve.scheduler import ServeRequest
 UNPORTED_FLAGS = (
     ("--tp", lambda a: a.tp > 1, "A8 (multi-device)"),
     ("--dp", lambda a: a.dp > 1, "A8 (multi-device)"),
-    ("--spec-k", lambda a: a.spec_k > 0, "A6b (speculative decoding)"),
     ("--kv-dense", lambda a: not a.kv_paged,
      "A5 (the dense slot engine)"),
     ("--engine coalesce", lambda a: a.engine == "coalesce",
@@ -132,6 +142,8 @@ UNPORTED_FLAGS = (
     ("--batch-window", lambda a: a.batch_window > 0,
      "A10 (serve/coalesce.py)"),
     ("--checkpoint-dir", lambda a: a.checkpoint_dir is not None,
+     "A10 (checkpoints)"),
+    ("--draft-checkpoint-dir", lambda a: a.draft_checkpoint_dir is not None,
      "A10 (checkpoints)"),
     ("--role prefill", lambda a: a.role == "prefill",
      "A7 (disaggregated prefill)"),
@@ -183,7 +195,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="int8 KV pools with f32 scale pools (kv8 B4)")
     p.add_argument("--requests", type=int, default=None,
                    help="exit 0 after serving this many /generate calls")
-    p.add_argument("--spec-k", type=int, default=0, help="waits for A6b")
+    p.add_argument("--spec-k", type=int, default=0, metavar="K",
+                   help="speculative decoding: a draft model proposes K "
+                        "tokens a lane each round, verified in one "
+                        "(K+1)-row target forward; prompt + num_steps + "
+                        "K + 1 must fit --max-seq-len. 0 = off")
+    p.add_argument("--spec-draft-layers", type=int, default=None,
+                   help="draft depth (default max(1, --layers // 2)); the "
+                        "draft trains on the same task (quick_train)")
+    p.add_argument("--draft-checkpoint-dir", default=None,
+                   help="the draft's checkpoint: waits for ROADMAP A10")
     p.add_argument("--logprobs-k", type=int, default=0, metavar="K",
                    help="per-token top-K logprobs in /generate responses "
                         '(opt-in per request via "logprobs": true); 0 = '
@@ -390,6 +411,8 @@ class _Handler(QuietHandler):
             )
             payload["served"] = srv.served
             payload["engine"] = "continuous"
+            if srv.args.spec_k:
+                payload["spec"] = srv.supervisor.engine.spec_debug()
             self.send_json(200, payload)
         elif path == "/debug/serve":
             self.send_json(200, srv.supervisor.debug_snapshot())
@@ -561,10 +584,35 @@ class _Handler(QuietHandler):
 
 
 def check_args(args) -> None:
-    """Refuse what the front cannot serve, before any device work: a flag
-    whose ROADMAP item is not ported (NotPorted), a prefill budget below
-    one token, a negative ``--logprobs-k``, no constraint row or a
-    sequence length off the block grid (ValueError)."""
+    """Refuse what the front cannot serve, before any device work: the
+    combinations the JAX server refuses, with its messages (``--spec-k``
+    with ``--int8`` or ``--logprobs-k``, ``--draft-checkpoint-dir``
+    without ``--spec-k``: ValueError), a flag whose ROADMAP item is not
+    ported (NotPorted), a prefill budget below one token, a negative
+    ``--logprobs-k``, no constraint row or a sequence length off the
+    block grid (ValueError)."""
+    if args.spec_k:
+        if args.spec_k < 1:
+            raise ValueError("--spec-k must be >= 1 (0 disables)")
+        if (args.spec_draft_layers is not None
+                and args.spec_draft_layers < 1):
+            raise ValueError("--spec-draft-layers must be >= 1")
+        if args.int8:
+            raise ValueError(
+                "--spec-k does not compose with --int8 (speculative "
+                "decoding rejects int8_decode param trees; quantize after "
+                "choosing a decode strategy)")
+        if args.checkpoint_dir and not args.draft_checkpoint_dir:
+            raise ValueError(
+                "--spec-k with --checkpoint-dir also needs "
+                "--draft-checkpoint-dir (a draft trained at "
+                "--spec-draft-layers depth)")
+    elif args.draft_checkpoint_dir:
+        raise ValueError("--draft-checkpoint-dir requires --spec-k")
+    if args.logprobs_k and args.spec_k:
+        raise ValueError(
+            "--logprobs-k does not compose with --spec-k (verify rounds "
+            "emit accept-dependent windows, not per-step logit rows)")
     refused = unported_flags(args)
     if refused:
         raise NotPorted("; ".join(refused))
@@ -579,17 +627,30 @@ def check_args(args) -> None:
                          f"multiple of --kv-block {args.kv_block}")
 
 
-def build_front(cfg: TransformerConfig, params, args
+def draft_config(cfg: TransformerConfig, args) -> TransformerConfig:
+    """The speculative draft's config: the target's width at
+    ``--spec-draft-layers`` layers (default max(1, layers // 2)), as the
+    JAX server builds it."""
+    layers = (args.spec_draft_layers if args.spec_draft_layers is not None
+              else max(1, cfg.n_layers // 2))
+    return replace(cfg, n_layers=layers)
+
+
+def build_front(cfg: TransformerConfig, params, args, draft_params=None
                 ) -> tuple[EngineSupervisor, FrontServer]:
     """The serving front over ``params`` (a flax-layout tree; an
     ``int8_decode`` config takes a ``quantize_decode_params`` tree): the
     supervisor, with its first engine built and warmed, and the HTTP
     server bound to ``args.host``:``args.port``, not yet serving (call
     ``start()``). ``args`` is ``front_args(...)`` or the parsed flags.
-    Raises on a CUDA device when torch sees no card, and where
-    ``check_args`` refuses ``args``."""
+    Under ``--spec-k`` ``draft_params`` is the draft's tree, at
+    ``draft_config(cfg, args)``. Raises on a CUDA device when torch sees
+    no card, and where ``check_args`` refuses ``args``."""
     device = resolve_device(args.device)
     check_args(args)
+    if args.spec_k and draft_params is None:
+        raise ValueError("--spec-k needs the draft's weights "
+                         "(draft_params)")
     if cfg.max_seq_len % args.kv_block:
         raise ValueError(f"max_seq_len {cfg.max_seq_len} must be a "
                          f"multiple of --kv-block {args.kv_block}")
@@ -613,6 +674,10 @@ def build_front(cfg: TransformerConfig, params, args
     )
     params = _to_device(params, device)
     attend = "kernel" if args.kv_attend == "pallas" else args.kv_attend
+    spec = {}
+    if args.spec_k:
+        spec = dict(spec_k=args.spec_k, draft_cfg=draft_config(cfg, args),
+                    draft_params=_to_device(draft_params, device))
 
     def engine_factory() -> ContinuousEngine:
         # The watchdog rebuilds through here: the SAME cfg and weights
@@ -623,7 +688,7 @@ def build_front(cfg: TransformerConfig, params, args
             kv_blocks=args.kv_pool_blocks, kv_attend=attend,
             prefill_chunk=args.prefill_chunk or None, faults=faults,
             constrain_rows=args.constrain_rows, logprobs_k=args.logprobs_k,
-            device=device,
+            device=device, **spec,
         )
         eng.warmup()
         return eng
@@ -668,7 +733,15 @@ def main(argv: list[str] | None = None) -> int:
     if args.int8:
         params = quantize_decode_params(params)
         print("serve_lm: projections quantized to int8", flush=True)
-    supervisor, server = build_front(cfg, params, args)
+    draft_params = None
+    if args.spec_k:
+        # The same task as the target's: the draft agrees with it often
+        # enough to accept.
+        dcfg = draft_config(cfg, args)
+        draft_params = quick_train(dcfg, args.train_steps, args.lr, device)
+        print(f"serve_lm: speculative decoding on (k={args.spec_k}, draft "
+              f"layers={dcfg.n_layers})", flush=True)
+    supervisor, server = build_front(cfg, params, args, draft_params)
     print(f"serve_lm: continuous batching on {device} (slots "
           f"{args.max_batch}, paged kv ({args.kv_block}-token blocks, "
           f"{supervisor.engine.kv_blocks} block pool), kv_attend "
