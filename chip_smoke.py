@@ -31,7 +31,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    and LSE), dQ and dK/dV kernels against their plain versions at B=2,
    H=16, Dh=64, causal at T=1024 and T=1000 (a ragged tail, once with q,
    k, v as strided slices of one fused projection) and full at tq=512,
-   tk=1024, in bf16 and f32; each element within the rule of
+   tk=1024, in bf16 and f32, and the instance phase 18 (b)'s entry point
+   runs (f32, B=8, T=128, H=4, Dh=128, causal, fused q/k/v:
+   ``entry_flash_shape``); each element within the rule of
    tf_operator_tpu_torch.testing;
 5. flash at the training shape (B=2, H=16, T=8192, Dh=64, bf16, causal,
    q, k, v strided slices of one [B, T, 3, H, Dh] projection as the
@@ -190,7 +192,27 @@ Phases, in order; any failure ends the run with a non-zero exit:
     each equal to (a)'s engine stream, /healthz and /debug/serve with the
     ``spec`` section, /metrics with both spec families counted; (e) k = 8
     refused at construction, naming ``MAX_ROWS``, before any device work;
-18. the ``kernels`` JSON line (each kernel with its design; B5 as two
+18. checkpoints, resume and eval (``train/checkpoint.py``,
+    ``train/dist_lm.py``, ``evaluate_lm``): (a) at phase 9's shape,
+    ``CKPT_STEPS`` bf16 steps, a save through ``CheckpointManager`` (the
+    blocking host copy and the write until durable timed apart, the bytes
+    on disk), a restore into a fresh model and optimiser (timed) that must
+    equal the saved state bitwise (every weight, moment and step count),
+    then ``CKPT_MORE`` steps of the restored trainer and of its
+    uninterrupted twin, their losses within ``CKPT_LOSS_TOL``; then
+    ``evaluate_lm`` over three batches of ``EVAL_ROWS`` rows (the last
+    short) at T = 8192: B1 n_layers times a batch and no B2/B3, the loss
+    within ``EVAL_LOSS_TOL`` and the final hidden states within
+    ``EVAL_HIDDEN_TOL`` (max-abs) of the same eval through
+    reference_attention, while a control (that eval with a non-causal
+    attention) must read above both, eval tokens/s; (b) the entry point as a subprocess on the card with no
+    ``--device`` (``ENTRY_ARGS``): run 1 with ``TPU_CKPT_ACK_FILE`` gets
+    one SIGTERM after its first ack, must ack a forced save (read with the
+    port's ``read_ack``), keep training and exit 138 at ``ENTRY_FAIL_AT``;
+    run 2 prints ``resumed from step`` ``ENTRY_FAIL_AT + 1`` and exits 0;
+    run 3, uninterrupted, must end on run 2's final checkpoint (bitwise,
+    else within phase 8's Adam bound, the largest difference printed);
+19. the ``kernels`` JSON line (each kernel with its design; B5 as two
     entries, the weight stream and the wgmma tile, each with its own
     launches; ``paths`` gives each kernel's launches on every path of
     this run that drives it, and ``launches`` is their sum; the paged
@@ -208,6 +230,7 @@ import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -387,6 +410,54 @@ SPEC_STEPS = FIRST_STEPS
 # 2e-2, within LOGIT_TOL. f32 lanes keep phase 14 (b)'s NEAR_TIE, on the
 # top-two gap (twice the margin).
 BF16_TIE = LOGIT_TOL
+# Phase 18, checkpoints and eval. (a) At bench.py's training shape: train
+# CKPT_STEPS steps, save, restore into a fresh model and optimiser
+# (bitwise), then CKPT_MORE more steps of both the restored trainer and
+# its uninterrupted twin. Their losses are expected bitwise (one process,
+# the same kernels on bitwise the same state); CKPT_LOSS_TOL covers only a
+# reduction whose order changes from call to call, which moves a ~10.4
+# loss in its last bf16 places (< 1e-4), while a moment or step count
+# restored wrong changes the update by tens of percent. The eval: three
+# batches of EVAL_ROWS rows (the last short, so padding runs) through
+# evaluate_lm, against the same eval with reference_attention in the
+# kernels' place, and a control: the plain eval with a non-causal
+# attention, a fault the checks must see. The mean loss over 40,960
+# random tokens barely depends on attention: on the H100 the kernels read
+# 6.1e-6 from the plain eval and the control 9.6e-4, so EVAL_LOSS_TOL
+# lies between them. The final hidden states (every token, after the
+# final norm) tell a fault apart better: max-abs 7.8e-2 for the kernels
+# (bf16 roundings of P and O over 8 layers) and 2.18 for the control,
+# against EVAL_HIDDEN_TOL. The run fails unless the control reads above
+# both limits (PERF.md, phase 18's eval readings).
+CKPT_STEPS, CKPT_MORE = 2, 2
+CKPT_LOSS_TOL = 1e-3
+EVAL_ROWS = (2, 2, 1)
+EVAL_LOSS_TOL = 1e-4
+EVAL_HIDDEN_TOL = 0.25
+# (b) The entry point (python -m tf_operator_tpu_torch.train.dist_lm, no
+# --device) at d_model 512 (4 heads of 128, the flash kernels' f32
+# mma.sync design), 2 layers, vocab 256, seq 128, batch 8, lr 3e-3: the +1
+# chain falls below 0.5 in 30 steps (0.0803 on the CPU). Run 1 is
+# signalled after its first ack and exits 138 at ENTRY_FAIL_AT; run 2
+# resumes; run 3 trains uninterrupted. The final checkpoints are expected
+# bitwise (each state restores bitwise and the kernels are deterministic);
+# otherwise weights within ADAM_BOUND x the learning rate summed over the
+# resumed steps, phase 8's rule, with the largest difference printed.
+ENTRY_ARGS = ["--d-model", "512", "--layers", "2", "--vocab", "256",
+              "--seq", "128", "--batch", "8", "--steps", "30",
+              "--lr", "3e-3", "--target-loss", "0.5"]
+ENTRY_FAIL_AT = 20
+ENTRY_HEADS = 4  # the entry point's model, as examples/dist_lm.py's
+
+
+def entry_flash_shape() -> tuple[int, int, int, int]:
+    """``[B, T, H, Dh]`` of the q/k/v the entry point hands the flash
+    kernels under ENTRY_ARGS."""
+    def arg(flag):
+        return int(ENTRY_ARGS[ENTRY_ARGS.index(flag) + 1])
+
+    return (arg("--batch"), arg("--seq"), ENTRY_HEADS,
+            arg("--d-model") // ENTRY_HEADS)
 
 
 def card_line() -> str:
@@ -854,20 +925,20 @@ def int8_engine_phases(pa, base, params, prompts, card,
             bf16["tokens"][:FIRST_STEPS].T)
 
 
-def flash_inputs(b, tq, tk, dtype, seed, fused=False):
-    """Seeded q, k, v and dO of ``[b, T, H, Dh]`` at the slice's heads;
-    with ``fused`` (tq == tk), q, k and v are the strided slices of one
-    ``[b, T, 3, H, Dh]`` tensor, as the training forward's qkv projection
-    hands them over."""
+def flash_inputs(b, tq, tk, dtype, seed, fused=False, h=H, dh=DH):
+    """Seeded q, k, v and dO of ``[b, T, h, dh]`` (by default the slice's
+    heads); with ``fused`` (tq == tk), q, k and v are the strided slices
+    of one ``[b, T, 3, h, dh]`` tensor, as the training forward's qkv
+    projection hands them over."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     if fused:
-        return (*randn(b, tq, 3, H, DH).unbind(2), randn(b, tq, H, DH))
-    return randn(b, tq, H, DH), randn(b, tk, H, DH), randn(b, tk, H, DH), \
-        randn(b, tq, H, DH)
+        return (*randn(b, tq, 3, h, dh).unbind(2), randn(b, tq, h, dh))
+    return randn(b, tq, h, dh), randn(b, tk, h, dh), randn(b, tk, h, dh), \
+        randn(b, tq, h, dh)
 
 
 def flash_compare(label, got, want, worst) -> None:
@@ -911,32 +982,45 @@ def flash_designs(fa, dtype, dh) -> dict:
     return out
 
 
+def flash_check_case(fa, label, inputs, causal, worst) -> None:
+    """One flash case: each kernel against its plain version on
+    ``inputs`` (q, k, v, dO); the backward kernels are fed the plain
+    forward's statistics."""
+    q, k, v, do = inputs
+    scale = q.shape[-1] ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, causal, scale)
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal, scale)
+    delta = (do.float() * o_ref.float()).sum(-1).transpose(1, 2).contiguous()
+    stats = (q, k, v, do, lse_ref, delta, causal, scale)
+    dq = fa.flash_dq(*stats)
+    dk, dv = fa.flash_dkv(*stats)
+    torch.cuda.synchronize()
+    dk_ref, dv_ref = fa.flash_dkv_reference(*stats)
+    flash_compare(label, dict(o=o, lse=lse, dq=dq, dk=dk, dv=dv),
+                  dict(o=o_ref, lse=lse_ref, dq=fa.flash_dq_reference(*stats),
+                       dk=dk_ref, dv=dv_ref), worst)
+
+
 def flash_check_phase(fa) -> dict:
-    """Each flash kernel against its plain version on the same inputs;
-    the backward kernels are fed the plain forward's statistics. Returns
-    each kernel's largest max-abs error over its outputs and the cases."""
+    """Each flash kernel against its plain version on the same inputs:
+    FLASH_CASES at the slice's heads in f32 and bf16, then the instance
+    phase 18 (b)'s entry point runs (``entry_flash_shape``: f32, Dh 128,
+    causal, fused q/k/v). Returns each kernel's largest max-abs error
+    over its outputs and the cases."""
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
         for dh in fa.HEAD_DIMS:
             print(f"flash designs, {dtype}, Dh={dh}: "
                   f"{flash_designs(fa, dtype, dh)}", flush=True)
         for seed, (name, tq, tk, causal, fused) in enumerate(FLASH_CASES):
-            q, k, v, do = flash_inputs(2, tq, tk, dtype, seed, fused)
-            scale = DH ** -0.5
-            o, lse = fa.flash_fwd(q, k, v, causal, scale)
-            o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal, scale)
-            delta = (do.float() * o_ref.float()).sum(-1).transpose(
-                1, 2).contiguous()
-            stats = (q, k, v, do, lse_ref, delta, causal, scale)
-            dq = fa.flash_dq(*stats)
-            dk, dv = fa.flash_dkv(*stats)
-            torch.cuda.synchronize()
-            dk_ref, dv_ref = fa.flash_dkv_reference(*stats)
-            flash_compare(f"{dtype}, {name}",
-                          dict(o=o, lse=lse, dq=dq, dk=dk, dv=dv),
-                          dict(o=o_ref, lse=lse_ref,
-                               dq=fa.flash_dq_reference(*stats),
-                               dk=dk_ref, dv=dv_ref), worst)
+            flash_check_case(fa, f"{dtype}, {name}",
+                             flash_inputs(2, tq, tk, dtype, seed, fused),
+                             causal, worst)
+    b, t, h, dh = entry_flash_shape()
+    flash_check_case(fa, f"torch.float32, entry point (18b) fused causal "
+                     f"[{b}, {t}, {h}, {dh}]",
+                     flash_inputs(b, t, t, torch.float32, len(FLASH_CASES),
+                                  True, h, dh), True, worst)
     return worst
 
 
@@ -2837,6 +2921,292 @@ def train_bf16_phase(params, card: str) -> dict:
     return launches
 
 
+def state_tensors(state) -> dict:
+    """Every weight, AdamW moment and step count of a TrainState by name,
+    and its step."""
+    out = {"step": torch.tensor(state.step)}
+    for name, p in state.model.named_parameters():
+        out[name] = p.detach()
+        for key, val in state.optimizer.state.get(p, {}).items():
+            out[f"{name}/{key}"] = val
+    return out
+
+
+def ckpt_phase(params, card) -> dict:
+    """Phase 18 (a): save, restore and carry on at bench.py's training
+    shape, then evaluate_lm there through B1 and through the plain
+    attention. Returns the phase's flash launches."""
+    from tf_operator_tpu_torch.models import transformer
+    from tf_operator_tpu_torch.models.convert import load_params
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.train.checkpoint import CheckpointManager
+    from tf_operator_tpu_torch.train.steps import (
+        TrainState,
+        adamw,
+        evaluate_lm,
+        make_lm_eval_step,
+        make_lm_train_step,
+    )
+
+    cfg = transformer.TransformerConfig(dtype=torch.bfloat16, **LM)
+    rng = np.random.default_rng(18)
+    batches = [{name: torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_B, TRAIN_T)).astype(np.int64)).cuda()
+        for name in ("tokens", "targets")}
+        for _ in range(CKPT_STEPS + CKPT_MORE)]
+    tx = adamw(1e-4)
+
+    def trainer(tree):
+        model = transformer.Transformer(cfg)
+        if tree is not None:
+            load_params(model, tree)
+        return TrainState.create(model, tx), make_lm_train_step(
+            model, tx, xent_chunk=XENT_CHUNK, xent_dot_dtype=torch.bfloat16)
+
+    fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
+    twin, twin_step = trainer(params)
+    for batch in batches[:CKPT_STEPS]:
+        twin, _ = twin_step(twin, batch)
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp, max_to_keep=None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if not mgr.save(CKPT_STEPS - 1, twin):
+            raise AssertionError("the save was refused")
+        copy_s = time.perf_counter() - t0
+        mgr.wait()
+        save_s = time.perf_counter() - t0
+        step_dir = os.path.join(tmp, str(CKPT_STEPS - 1))
+        disk = sum(os.path.getsize(os.path.join(step_dir, f))
+                   for f in os.listdir(step_dir))
+        restored, restored_step = trainer(None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.restore(None, restored)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        mgr.close()
+    want, got = state_tensors(twin), state_tensors(restored)
+    bad = sorted(k for k in want if k not in got
+                 or want[k].dtype != got[k].dtype
+                 or want[k].device != got[k].device
+                 or not torch.equal(want[k].cpu(), got[k].cpu()))
+    if got.keys() != want.keys() or bad:
+        raise AssertionError(f"restored state differs: {bad[:8]}, keys "
+                             f"{sorted(got.keys() ^ want.keys())[:8]}")
+    moments = sum(v.numel() for k, v in want.items()
+                  if k.endswith("exp_avg") or k.endswith("exp_avg_sq"))
+    losses = {"twin": [], "restored": []}
+    for batch in batches[CKPT_STEPS:]:
+        twin, m = twin_step(twin, batch)
+        losses["twin"].append(m["loss"].item())
+        restored, m = restored_step(restored, batch)
+        losses["restored"].append(m["loss"].item())
+    loss_diff = max(abs(a - b) for a, b in zip(*losses.values()))
+    n_params = sum(p.numel() for p in twin.model.parameters())
+    print(f"checkpoint (18a) {n_params} params + {moments} moment elements "
+          f"at step {CKPT_STEPS - 1}: save {save_s:.6f} s (blocking host "
+          f"copy {copy_s:.6f} s, write until durable {save_s - copy_s:.6f} "
+          f"s), {disk} bytes on disk, restore {restore_s:.6f} s; restored "
+          f"state bitwise ({len(want)} tensors); losses after the restore "
+          f"{losses['restored']} vs the uninterrupted twin "
+          f"{losses['twin']} (max diff {loss_diff:.3e}, tolerance "
+          f"{CKPT_LOSS_TOL}) on {card}", flush=True)
+    if not loss_diff <= CKPT_LOSS_TOL:
+        raise AssertionError("the restored trainer parts from its twin")
+    train = dict(fwd=fa.fwd_launches, dq=fa.dq_launches, dkv=fa.dkv_launches)
+    del restored, restored_step
+    torch.cuda.empty_cache()
+
+    rows = [{name: rng.integers(0, cfg.vocab_size, (n, TRAIN_T)).astype(
+        np.int32) for name in ("tokens", "targets")} for n in EVAL_ROWS]
+    hidden = []
+    hook = twin.model.register_forward_hook(
+        lambda module, args, out: hidden.append(out.detach()))
+
+    def eval_run(plain_causal=None):
+        """evaluate_lm through the kernels, or with reference_attention in
+        their place (``plain_causal`` False: the control's non-causal
+        fault); returns its result and its batches' final hidden
+        states."""
+        hidden.clear()
+        step = make_lm_eval_step(twin.model, xent_chunk=XENT_CHUNK)
+        if plain_causal is None:
+            res = evaluate_lm(step, twin, rows)
+        else:
+            with mock.patch.object(
+                    transformer, "attention",
+                    lambda q, k, v, causal: fa.reference_attention(
+                        q, k, v, plain_causal)):
+                res = evaluate_lm(step, twin, rows)
+        return res, list(hidden)
+
+    def hidden_diff(got, want):
+        return max((a.float() - b.float()).abs().max().item()
+                   for a, b in zip(got, want, strict=True))
+
+    try:
+        fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, out_hidden = eval_run()
+        eval_s = time.perf_counter() - t0
+        counts = dict(fwd=fa.fwd_launches, dq=fa.dq_launches,
+                      dkv=fa.dkv_launches)
+        plain, plain_hidden = eval_run(plain_causal=True)
+        control, control_hidden = eval_run(plain_causal=False)
+    finally:
+        hook.remove()
+    eval_diff = abs(out["loss"] - plain["loss"])
+    control_diff = abs(control["loss"] - plain["loss"])
+    h_diff = hidden_diff(out_hidden, plain_hidden)
+    h_control = hidden_diff(control_hidden, plain_hidden)
+    h_scale = max(h.float().abs().max().item() for h in plain_hidden)
+    print(f"eval (18a) {len(EVAL_ROWS)} batches of {list(EVAL_ROWS)} rows x "
+          f"{TRAIN_T}: loss {out['loss']:.6f} (plain attention "
+          f"{plain['loss']:.6f}, diff {eval_diff:.3e}, tolerance "
+          f"{EVAL_LOSS_TOL}; control, non-causal plain attention "
+          f"{control['loss']:.6f}, diff {control_diff:.3e}); final hidden "
+          f"states max-abs diff {h_diff:.3e} (tolerance {EVAL_HIDDEN_TOL}; "
+          f"control {h_control:.3e}; max |plain| {h_scale:.3e}); "
+          f"perplexity {out['perplexity']:.2f}, {out['tokens']:.0f} tokens "
+          f"in {eval_s:.6f} s: eval tokens/s {out['tokens'] / eval_s:.2f}; "
+          f"launches {counts} on {card}", flush=True)
+    want_fwd = cfg.n_layers * len(EVAL_ROWS)
+    if counts != dict(fwd=want_fwd, dq=0, dkv=0):
+        raise AssertionError(f"eval launches {counts}, want {want_fwd} "
+                             "forwards and no backward")
+    if out["tokens"] != sum(EVAL_ROWS) * TRAIN_T or not (
+            eval_diff <= EVAL_LOSS_TOL and h_diff <= EVAL_HIDDEN_TOL
+            and math.isfinite(out["loss"])):
+        raise AssertionError(f"eval {out} against plain {plain}")
+    if not (h_control > EVAL_HIDDEN_TOL and control_diff > EVAL_LOSS_TOL):
+        raise AssertionError("the eval's checks cannot tell a non-causal "
+                             "attention from the plain one")
+    del out_hidden, plain_hidden, control_hidden
+    del twin, twin_step
+    torch.cuda.empty_cache()
+    return {"flash_fwd": train["fwd"] + counts["fwd"],
+            "flash_dq": train["dq"], "flash_dkv": train["dkv"]}
+
+
+def entry_point_phase(card) -> dict:
+    """Phase 18 (b): ``python -m tf_operator_tpu_torch.train.dist_lm`` on
+    the card with no --device. Run 1 (with TPU_CKPT_ACK_FILE) gets one
+    SIGTERM after its first ack, must ack a forced save, keep training
+    and exit 138 at ENTRY_FAIL_AT; run 2 resumes from the next step and
+    exits 0; run 3 (beside run 1) trains uninterrupted, and its final
+    checkpoint is run 2's. Returns the flash launches the runs print."""
+    from tf_operator_tpu_torch.ckpt import protocol
+    from tf_operator_tpu_torch.train import checkpoint
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k not in (
+        protocol.ENV_ACK_FILE, protocol.ENV_CKPT_DIR,
+        protocol.ENV_RESUME_STEP)}
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    cmd = [sys.executable, "-m", "tf_operator_tpu_torch.train.dist_lm",
+           *ENTRY_ARGS]
+    procs = []
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, twin = os.path.join(tmp, "ck"), os.path.join(tmp, "twin")
+        ack = os.path.join(tmp, "ack.json")
+        logs = [os.path.join(tmp, f"run{i}.log") for i in (1, 2, 3)]
+
+        def start(i, args, extra_env=None):
+            with open(logs[i - 1], "w") as out:
+                proc = subprocess.Popen(cmd + args, cwd=root,
+                                        env={**env, **(extra_env or {})},
+                                        stdout=out, stderr=subprocess.STDOUT)
+            procs.append(proc)
+            return proc
+
+        def log(i):
+            with open(logs[i - 1]) as f:
+                return f.read()
+
+        try:
+            first = start(1, ["--checkpoint-dir", ck, "--fail-at-step",
+                              str(ENTRY_FAIL_AT)], {protocol.ENV_ACK_FILE: ack})
+            third = start(3, ["--checkpoint-dir", twin])
+            limit = time.monotonic() + 300
+            while protocol.read_ack(ack) is None:
+                if first.poll() is not None or time.monotonic() > limit:
+                    raise AssertionError(f"run 1 never acked: {log(1)}")
+                time.sleep(0.005)
+            first_ack = protocol.read_ack(ack).step
+            first.send_signal(signal.SIGTERM)
+            rc1, rc3 = first.wait(timeout=300), third.wait(timeout=300)
+            acked = re.search(r"eviction signal — checkpoint durable at step "
+                              r"(\d+)", log(1))
+            final_ack = protocol.read_ack(ack)
+            if (rc1 != 138 or acked is None
+                    or f"simulating preemption at step {ENTRY_FAIL_AT}"
+                    not in log(1) or final_ack.step < int(acked.group(1))
+                    or final_ack.directory != os.path.abspath(ck)):
+                raise AssertionError(f"run 1: rc {rc1}, ack {final_ack}: "
+                                     f"{log(1)}")
+            second = start(2, ["--checkpoint-dir", ck, "--fail-at-step",
+                               str(ENTRY_FAIL_AT)])
+            rc2 = second.wait(timeout=300)
+            if (rc2 != 0 or f"dist_lm: resumed from step {ENTRY_FAIL_AT + 1}"
+                    not in log(2) or "dist_lm: OK" not in log(2)):
+                raise AssertionError(f"run 2: rc {rc2}: {log(2)}")
+            if rc3 != 0 or "dist_lm: OK" not in log(3):
+                raise AssertionError(f"run 3: rc {rc3}: {log(3)}")
+            last = checkpoint.latest_step(ck)
+            a, _ = checkpoint.read(ck, last)
+            b, _ = checkpoint.read(twin, last)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+        for i in (1, 2, 3):
+            m = re.findall(r"flash launches fwd=(\d+) dq=(\d+) dkv=(\d+)",
+                           log(i))
+            for key, n in zip(launches, m[-1]):
+                launches[key] += int(n)
+        losses = [re.search(r"final loss (\S+)", log(i)).group(1)
+                  for i in (2, 3)]
+
+    def leaves(tree, prefix=""):
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                yield from leaves(val, f"{prefix}{key}/")
+            else:
+                yield prefix + key, val
+
+    fa_, fb = dict(leaves(a)), dict(leaves(b))
+    if fa_.keys() != fb.keys():
+        raise AssertionError("the two final checkpoints hold other trees")
+    diffs = {k: (fa_[k].double() - fb[k].double()).abs().max().item()
+             for k in fa_}
+    worst = max(diffs.items(), key=lambda kv: kv[1])
+    bitwise = all(torch.equal(fa_[k], fb[k]) for k in fa_)
+    lr = float(ENTRY_ARGS[ENTRY_ARGS.index("--lr") + 1])
+    steps = int(ENTRY_ARGS[ENTRY_ARGS.index("--steps") + 1])
+    bound = ADAM_BOUND * lr * (steps - ENTRY_FAIL_AT - 1)
+    print(f"entry point (18b): run 1 acked step {first_ack} first, took "
+          f"SIGTERM, acked its forced save at step {acked.group(1)}, kept "
+          f"training and exited {rc1} at step {ENTRY_FAIL_AT}; run 2 resumed "
+          f"from step {ENTRY_FAIL_AT + 1} and exited {rc2}; the final "
+          f"checkpoint (step {last}) against the uninterrupted run 3: "
+          f"{'bitwise' if bitwise else 'NOT bitwise'} ({len(fa_)} tensors, "
+          f"largest difference {worst[1]:.3e} in {worst[0]}, tolerance "
+          f"{bound:.3e}); final losses {losses[0]} / {losses[1]}; "
+          f"launches {launches}; {time.perf_counter() - t_start:.1f} s on "
+          f"{card}", flush=True)
+    if not bitwise and not worst[1] <= bound:
+        raise AssertionError("the resumed run parts from the uninterrupted "
+                             "one")
+    if not all(launches.values()):
+        raise AssertionError(f"the entry point ran no kernel: {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2919,7 +3289,6 @@ def main() -> int:
     lm_params = init_params(TransformerConfig(**LM), seed=0)
     flash_f32 = train_f32_phase(lm_params)
     flash_bf16 = train_bf16_phase(lm_params, card)
-    del lm_params
 
     int8_err = int8_check_phase(i8)
     int8, int8_prefill = int8_timing_phase(i8, card)
@@ -2950,6 +3319,13 @@ def main() -> int:
                                    f32["kernel"]["tokens"],
                                    bf16["decode_tok_s"], card)
     print(f"phase 17 (speculative decoding): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    flash_ckpt = ckpt_phase(lm_params, card)
+    del lm_params
+    flash_entry = entry_point_phase(card)
+    print(f"phase 18 (checkpoints, resume and eval): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # Each kernel's launches on every path of this run that drives it.
@@ -2983,7 +3359,9 @@ def main() -> int:
     }
     for name in flash_bf16:
         paths[name] = {"trainer f32 (8)": flash_f32[name],
-                       "trainer bf16 (9)": flash_bf16[name]}
+                       "trainer bf16 (9)": flash_bf16[name],
+                       "checkpoint + eval bf16 (18a)": flash_ckpt[name],
+                       "entry point f32 (18b)": flash_entry[name]}
 
     src = "tf_operator_tpu_torch/ops/csrc/"
     replaces = {"flash_fwd": 253, "flash_dq": 297, "flash_dkv": 331}

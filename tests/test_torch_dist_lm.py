@@ -1,0 +1,270 @@
+"""The port's training entry point (tf_operator_tpu_torch/train/dist_lm.py)
+on the CPU, as the operator runs it: a run killed at ``--fail-at-step``
+exits 138 and the resumed run (``resumed from step k+1``) ends on a final
+checkpoint bitwise equal to an uninterrupted run's (f32, one thread); the
+injected TPU_CKPT_DIR and TPU_RESUME_STEP are honoured; the eviction
+signal becomes a forced save and an ack and training goes on; each
+unported flag's usage error names its ROADMAP item; without ``--device``
+and without a card the entry point exits non-zero naming CUDA. Then the
+entry point under the JAX operator's LocalProcessExecutor, as
+tests/test_ckpt.py::test_executor_relays_acks_and_delivers_signal drives
+its workload: periodic acks surface as pod annotations, the signal
+annotation becomes an ack of that generation, and the pod keeps
+running."""
+
+import json
+import os
+import signal
+import subprocess
+import sys
+import threading
+import time
+
+import pytest
+import torch
+
+from tf_operator_tpu.api import constants
+from tf_operator_tpu.ckpt import protocol as jax_protocol
+from tf_operator_tpu.runtime import objects
+from tf_operator_tpu.runtime.executor import LocalProcessExecutor
+from tf_operator_tpu.runtime.memcluster import InMemoryCluster
+from tf_operator_tpu_torch.ckpt import protocol
+from tf_operator_tpu_torch.train import checkpoint, dist_lm
+from tf_operator_tpu_torch.utils import signals
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODULE = "tf_operator_tpu_torch.train.dist_lm"
+
+
+def small(steps=12, *extra):
+    """A small model that still learns the +1 chain a little in 12
+    steps."""
+    return ["--device", "cpu", "--steps", str(steps), "--batch", "4",
+            "--seq", "16", "--vocab", "32", "--d-model", "32",
+            "--target-loss", "4", *extra]
+
+
+def _env(**extra):
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    for key in (protocol.ENV_ACK_FILE, protocol.ENV_CKPT_DIR,
+                protocol.ENV_RESUME_STEP):
+        env.pop(key, None)
+    env.update(extra)
+    return env
+
+
+def _run(args, **env):
+    return subprocess.run([sys.executable, "-m", MODULE, *args], cwd=REPO,
+                          env=_env(**env), capture_output=True, text=True,
+                          timeout=300)
+
+
+def _flat(tree, prefix=()):
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _flat(val, prefix + (key,))
+        else:
+            yield prefix + (key,), val
+
+
+def _assert_same_checkpoint(a, b):
+    """Two step directories hold the same bits and manifest."""
+    pa = dict(_flat(torch.load(os.path.join(a, checkpoint.STATE_FILE),
+                               weights_only=True)))
+    pb = dict(_flat(torch.load(os.path.join(b, checkpoint.STATE_FILE),
+                               weights_only=True)))
+    assert pa.keys() == pb.keys()
+    for key, val in pa.items():
+        assert torch.equal(val, pb[key]), key
+    with open(os.path.join(a, checkpoint.MANIFEST_FILE)) as fa, open(
+            os.path.join(b, checkpoint.MANIFEST_FILE)) as fb:
+        assert json.load(fa) == json.load(fb)
+
+
+def test_kill_and_resume_ends_bitwise_on_the_uninterrupted_run(tmp_path):
+    ck, twin = str(tmp_path / "ck"), str(tmp_path / "twin")
+    first = _run(small(12, "--checkpoint-dir", ck, "--fail-at-step", "5"))
+    assert first.returncode == 138, first.stderr
+    assert "simulating preemption at step 5" in first.stdout
+    assert checkpoint.latest_step(ck) == 5
+    second = _run(small(12, "--checkpoint-dir", ck, "--fail-at-step", "5"))
+    assert second.returncode == 0, second.stderr
+    assert "dist_lm: resumed from step 6" in second.stdout
+    assert "simulating preemption" not in second.stdout
+    assert "dist_lm: OK" in second.stdout
+    third = _run(small(12, "--checkpoint-dir", twin))
+    assert third.returncode == 0, third.stderr
+    assert "resumed" not in third.stdout
+    # max_to_keep=2, as the JAX example keeps.
+    assert sorted(os.listdir(ck)) == sorted(os.listdir(twin)) == ["10", "11"]
+    _assert_same_checkpoint(os.path.join(ck, "11"), os.path.join(twin, "11"))
+    # The last reported loss is the same too.
+    loss = [ln for ln in second.stdout.splitlines() if "final loss" in ln]
+    twin_loss = [ln for ln in third.stdout.splitlines() if "final loss" in ln]
+    assert loss[0].rsplit(" ", 1)[1] == twin_loss[0].rsplit(" ", 1)[1]
+
+
+def test_injected_dir_and_resume_step_are_honoured(tmp_path, monkeypatch):
+    """TPU_CKPT_DIR stands in for --checkpoint-dir, and TPU_RESUME_STEP
+    reaches restore_or_init as min_step."""
+    ck = str(tmp_path / "ck")
+    monkeypatch.setenv(protocol.ENV_CKPT_DIR, ck)
+    monkeypatch.setenv(protocol.ENV_RESUME_STEP, "3")
+    monkeypatch.delenv(protocol.ENV_ACK_FILE, raising=False)
+    # In process: a fresh stop event, not the test process's handlers.
+    monkeypatch.setattr(signals, "setup_signal_handler", threading.Event)
+    seen = []
+    real = checkpoint.CheckpointManager.restore_or_init
+
+    def spy(self, state, min_step=None):
+        seen.append((self.directory, min_step))
+        return real(self, state, min_step)
+
+    monkeypatch.setattr(checkpoint.CheckpointManager, "restore_or_init", spy)
+    assert dist_lm.main(small(4)) == 0
+    assert seen == [(ck, 3)]
+    assert checkpoint.all_steps(ck) == [2, 3]
+    assert dist_lm.main(small(6)) == 0
+    assert seen[-1] == (ck, 3)
+    assert checkpoint.all_steps(ck) == [4, 5]
+
+
+def test_eviction_signal_saves_acks_and_keeps_training(tmp_path):
+    """One SIGTERM after the first ack: a forced save and an ack of it
+    (read with JAX's read_ack), training goes on; a second SIGTERM exits
+    hard (utils/signals.py)."""
+    ck, ack_path = str(tmp_path / "ck"), str(tmp_path / "ack.json")
+    argv = small(1000000, "--checkpoint-dir", ck)
+    log = tmp_path / "out.log"
+    with open(log, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", MODULE, *argv], cwd=REPO,
+            env=_env(**{protocol.ENV_ACK_FILE: ack_path}), stdout=out,
+            stderr=subprocess.STDOUT)
+    try:
+        limit = time.monotonic() + 120
+        while jax_protocol.read_ack(ack_path) is None:
+            assert proc.poll() is None, log.read_text()
+            assert time.monotonic() < limit, log.read_text()
+            time.sleep(0.02)
+        first = os.stat(ack_path).st_mtime_ns
+        proc.send_signal(signal.SIGTERM)
+        limit = time.monotonic() + 60
+        while "eviction signal" not in log.read_text():
+            assert proc.poll() is None, log.read_text()
+            assert time.monotonic() < limit, log.read_text()
+            time.sleep(0.02)
+        line = next(ln for ln in log.read_text().splitlines()
+                    if "eviction signal" in ln)
+        acked = int(line.rsplit(" ", 1)[1])
+        ack = jax_protocol.read_ack(ack_path)
+        assert os.stat(ack_path).st_mtime_ns > first
+        assert ack.step >= acked and ack.directory == os.path.abspath(ck)
+        limit = time.monotonic() + 60
+        while checkpoint.latest_step(ck) <= acked:
+            assert proc.poll() is None, log.read_text()  # still training
+            assert time.monotonic() < limit, log.read_text()
+            time.sleep(0.02)
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 1
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--sp", "2"], "ROADMAP A8"),
+    (["--tp", "2"], "ROADMAP A8"),
+    (["--pp", "2"], "ROADMAP A8"),
+    (["--pp-microbatches", "4"], "ROADMAP A8"),
+    (["--pp-schedule", "1f1b"], "ROADMAP A8"),
+    (["--ep", "2"], "ROADMAP A8"),
+    (["--ring-impl", "flash"], "ROADMAP A8"),
+    (["--moe-every-n", "2"], "ROADMAP A9"),
+    (["--moe-experts", "4"], "ROADMAP A9"),
+    (["--moe-top-k", "1"], "ROADMAP A9"),
+    (["--data", "tokens.bin"], "ROADMAP A12"),
+    (["--fail-at-step", "3"], "--fail-at-step requires --checkpoint-dir"),
+])
+def test_unported_flags_are_usage_errors(argv, item, capsys):
+    with pytest.raises(SystemExit) as exc:
+        dist_lm.main(["--device", "cpu", *argv])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert item in err and argv[0] in err
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """In process with torch seeing no card, and, where there is none, as
+    a subprocess without --device: both fail naming CUDA."""
+    has_card = torch.cuda.is_available()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dist_lm.main(["--steps", "1"])
+    if has_card:
+        return
+    out = _run(["--steps", "1"])
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+    assert "dist_lm: OK" not in out.stdout
+
+
+def test_the_entry_point_under_the_local_executor(tmp_path, monkeypatch):
+    """tests/test_ckpt.py's executor relay test with the port's trainer as
+    the workload: periodic acks become ckpt.tpuflow.org/step and /dir, the
+    signal annotation is delivered as SIGTERM and answered by an ack of
+    its generation, and the pod is still running."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    ck = str(tmp_path / "ck")
+    argv = small(1000000, "--checkpoint-dir", ck)
+    client = InMemoryCluster()
+    executor = LocalProcessExecutor(client, "default")
+    stop = threading.Event()
+    executor.start(stop)
+    name = "port-train-0"
+    try:
+        client.create(objects.PODS, objects.new_pod(name, containers=[{
+            "name": constants.DEFAULT_CONTAINER_NAME,
+            "command": [sys.executable, "-m", MODULE, *argv]}]))
+
+        def ann_of():
+            return client.get(objects.PODS, "default", name)[
+                "metadata"].get("annotations", {})
+
+        limit = time.monotonic() + 120
+        while jax_protocol.POD_STEP not in ann_of():
+            assert time.monotonic() < limit, "ack relay never reported"
+            time.sleep(0.05)
+        ann = ann_of()
+        assert ann[jax_protocol.POD_DIR] == os.path.abspath(ck)
+        assert int(ann[jax_protocol.POD_STEP]) >= 0
+        assert jax_protocol.POD_ACK not in ann  # no signal yet
+
+        gen = jax_protocol.new_signal_gen()
+        client.patch_merge(objects.PODS, "default", name, {
+            "metadata": {"annotations": {jax_protocol.POD_SIGNAL: str(gen)}}})
+        limit = time.monotonic() + 60
+        while ann_of().get(jax_protocol.POD_ACK) != str(gen):
+            assert time.monotonic() < limit, ann_of()
+            time.sleep(0.05)
+        assert objects.pod_phase(
+            client.get(objects.PODS, "default", name)) == objects.RUNNING
+    finally:
+        procs = [r.process for r in list(executor._procs.values())]
+        try:
+            client.delete(objects.PODS, "default", name)
+        except Exception:  # noqa: BLE001 — the pod may never have started
+            pass
+        for proc in procs:
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        stop.set()
+        time.sleep(0.3)

@@ -1,5 +1,5 @@
 """The port stands alone: ``tf_operator_tpu_torch`` and every submodule
-import with JAX, flax, optax and the JAX package poisoned in
+import with JAX, flax, optax, orbax and the JAX package poisoned in
 ``sys.modules``, and neither the package nor ``chip_smoke.py`` names
 them in an import. Its entry points default to the CUDA card and raise
 when there is none."""
@@ -24,13 +24,14 @@ from tf_operator_tpu_torch.models.transformer import (
 from tf_operator_tpu_torch.random import PRNGKey
 from tf_operator_tpu_torch.serve import serve_lm
 from tf_operator_tpu_torch.serve.engine import ContinuousEngine
+from tf_operator_tpu_torch.train import dist_lm
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(REPO, "tf_operator_tpu_torch")
 
 POISONED_IMPORT = """
 import importlib, pkgutil, sys
-for name in ("jax", "flax", "optax", "tf_operator_tpu"):
+for name in ("jax", "flax", "optax", "orbax", "tf_operator_tpu"):
     sys.modules[name] = None
 import tf_operator_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
@@ -48,15 +49,16 @@ def test_package_imports_with_jax_and_the_reference_poisoned():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    # Every module was imported: models (3: convert, spec_decode,
-    # transformer), ops (4: _build,
-    # flash_attention, int8_dense, paged_attention), runtime (2: metrics,
-    # tracing), serve (8: constrain, engine, kvcache, faultinject,
-    # resilience, scheduler, httpapi, serve_lm), train (1), random and
-    # testing, and the five packages.
-    assert int(out.stdout.split()[-1]) >= 25
-    assert "tf_operator_tpu_torch.serve.constrain" in out.stdout
-    assert "tf_operator_tpu_torch.models.spec_decode" in out.stdout
+    # Every module was imported: ckpt (1: protocol), models (3: convert,
+    # spec_decode, transformer), ops (4: _build, flash_attention,
+    # int8_dense, paged_attention), runtime (2: metrics, tracing), serve
+    # (8: constrain, engine, kvcache, faultinject, resilience, scheduler,
+    # httpapi, serve_lm), train (3: checkpoint, dist_lm, steps), utils (1:
+    # signals), random and testing, and the seven packages.
+    assert int(out.stdout.split()[-1]) >= 31
+    for name in ("serve.constrain", "models.spec_decode", "ckpt.protocol",
+                 "utils.signals", "train.checkpoint", "train.dist_lm"):
+        assert f"tf_operator_tpu_torch.{name}" in out.stdout.split()
 
 
 def _sources():
@@ -69,7 +71,7 @@ def _sources():
 
 def test_no_source_names_jax_or_the_reference_package():
     banned = re.compile(
-        r"^\s*(import|from)\s+(jax|flax|optax|tf_operator_tpu)\b(?!_)"
+        r"^\s*(import|from)\s+(jax|flax|optax|orbax|tf_operator_tpu)\b(?!_)"
         r"|tf_operator_tpu\.", re.M)
     for path in _sources():
         with open(path) as f:
@@ -107,4 +109,7 @@ def test_default_device_is_the_card(monkeypatch):
         serve_lm.build_front(cfg, init_params(cfg, 0), serve_lm.front_args())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_lm.main(["--train-steps", "0"])
+    # The trainer's entry point, likewise.
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dist_lm.main(["--steps", "1"])
     assert resolve_device("cpu") == torch.device("cpu")

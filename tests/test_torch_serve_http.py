@@ -11,6 +11,10 @@ router.
   fields of unported items, bad structured requests and ``top_p`` without
   ``temperature`` answer typed 400s; /healthz, /debug/serve,
   /debug/traces and /metrics answer.
+- Checkpoints of the port's trainer (``train/dist_lm.py``), a target and
+  a draft, restored by ``restore_params`` and served under ``--spec-k``:
+  greedy tokens equal ``generate`` (the port's and JAX's) on the restored
+  tree; an empty directory ends ``main`` with JAX's message.
 - A port replica registered in the JAX package's FleetMembership turns
   ready, and its RouterServer serves /generate from it with the tokens of
   a direct request.
@@ -352,7 +356,7 @@ def test_fleet_router_serves_a_port_replica(front):
     (["--kv-dense"], "ROADMAP A5"),
     (["--engine", "coalesce"], "ROADMAP A10"),
     (["--batch-window", "0.01"], "ROADMAP A10"),
-    (["--checkpoint-dir", "ckpt"], "ROADMAP A10"),
+    (["--from-pp", "2"], "ROADMAP A8"),
     (["--role", "prefill"], "ROADMAP A7"),
     (["--host-tier-bytes", "1024"], "ROADMAP A7"),
     (["--prefill-budget", "0"], "--prefill-budget must be >= 1"),
@@ -360,7 +364,8 @@ def test_fleet_router_serves_a_port_replica(front):
     (["--spec-k", "2", "--logprobs-k", "3"],
      "--logprobs-k does not compose with --spec-k"),
     (["--draft-checkpoint-dir", "ckpt"], "requires --spec-k"),
-    (["--spec-k", "2", "--draft-checkpoint-dir", "ckpt"], "ROADMAP A10"),
+    (["--spec-k", "2", "--checkpoint-dir", "ckpt"],
+     "--spec-k with --checkpoint-dir also needs --draft-checkpoint-dir"),
 ])
 def test_flags_refused_before_device_work(argv, reason, capsys):
     """A flag of an unported item, or one the engine cannot take, is
@@ -374,6 +379,77 @@ def test_flags_refused_before_device_work(argv, reason, capsys):
     assert exc.value.code == 2
     err = capsys.readouterr()
     assert reason in err.err and "quick-trained" not in err.out
+
+
+def test_serves_a_port_checkpoint_target_and_draft(tmp_path, monkeypatch,
+                                                  capsys):
+    """The port's trainer writes a target (2 layers) and a draft (1, the
+    --spec-k default depth) checkpoint; serve_lm restores both
+    (``restore_params``, the entry point's path) into ``build_front`` under
+    --spec-k 2, and its greedy tokens equal the port's and JAX's
+    ``generate`` on the restored target tree. An empty directory makes
+    ``main`` print JAX's message and return 1."""
+    from tf_operator_tpu.models.transformer import (
+        TransformerConfig as JaxConfig,
+        generate as jax_generate,
+    )
+    from tf_operator_tpu_torch.models.transformer import generate
+    from tf_operator_tpu_torch.train import dist_lm
+    from tf_operator_tpu_torch.utils import signals
+
+    monkeypatch.setattr(signals, "setup_signal_handler", threading.Event)
+    monkeypatch.delenv("TPU_CKPT_ACK_FILE", raising=False)
+    shape = ["--vocab", "64", "--d-model", "32", "--seq", "64"]
+    dirs = {}
+    for label, layers in (("target", 2), ("draft", 1)):
+        dirs[label] = str(tmp_path / label)
+        assert dist_lm.main([
+            "--device", "cpu", "--steps", "6", "--batch", "4", *shape,
+            "--layers", str(layers), "--target-loss", "10",
+            "--checkpoint-dir", dirs[label]]) == 0
+    argv = ["--device", "cpu", "--vocab", "64", "--d-model", "32",
+            "--max-seq-len", "64", "--kv-block", "8", "--max-batch", "2",
+            "--spec-k", "2", "--checkpoint-dir", dirs["target"],
+            "--draft-checkpoint-dir", dirs["draft"]]
+    args = serve_lm.build_parser().parse_args(argv)
+    cfg = TransformerConfig(vocab_size=64, d_model=32, n_heads=4,
+                            n_layers=2, d_ff=64, max_seq_len=64,
+                            dtype=torch.float32)
+    params = serve_lm.restore_params(args.checkpoint_dir, cfg, "target")
+    draft = serve_lm.restore_params(args.draft_checkpoint_dir,
+                                    serve_lm.draft_config(cfg, args), "draft")
+    out = capsys.readouterr().out
+    assert "serve_lm: restored target checkpoint step 5" in out
+    assert "serve_lm: restored draft checkpoint step 5" in out
+    supervisor, server = serve_lm.build_front(cfg, params, args, draft)
+    server.start()
+    url = "http://" + server.endpoint
+    prompts = [prompt_of(6, 1), prompt_of(5, 2)]
+    try:
+        status, got = call(url, "/generate", {
+            "tokens": [p[0].tolist() for p in prompts[:1]], "num_steps": 9})
+        status2, got2 = call(url, "/generate", {
+            "tokens": prompts[1].tolist(), "num_steps": 9})
+        _, health = call(url, "/healthz")
+    finally:
+        server.drain(timeout=60)
+        resilience.set_replica_id("")
+    assert status == status2 == 200
+    assert health["spec"]["rounds"] > 0
+    jcfg = JaxConfig(vocab_size=64, d_model=32, n_heads=4, n_layers=2,
+                     d_ff=64, max_seq_len=64, dtype=jnp.float32)
+    for prompt, tokens in zip(prompts, (got, got2)):
+        want = generate(cfg, params, torch.from_numpy(prompt), 9,
+                        device="cpu")
+        assert tokens["tokens"] == want.tolist()
+        jwant = jax_generate(jcfg, jax.tree.map(jnp.asarray, params),
+                             jnp.asarray(prompt), 9)
+        assert tokens["tokens"] == np.asarray(jwant).tolist()
+    empty = str(tmp_path / "empty")
+    assert serve_lm.main(["--device", "cpu", "--checkpoint-dir", empty]) == 1
+    err = capsys.readouterr()
+    assert f"serve_lm: no checkpoint in {empty}" in err.err
+    assert "quick-trained" not in err.out
 
 
 def test_serve_lm_drains_on_sigterm(tmp_path):

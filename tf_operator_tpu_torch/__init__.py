@@ -14,13 +14,15 @@ each kernel wrapper runs its plain PyTorch version.
 
 from __future__ import annotations
 
-import torch
-
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """The device an entry point runs on: ``None`` means ``cuda``. A CUDA
     device raises ``RuntimeError`` when torch sees no card, rather than
     quietly running on the CPU."""
+    # Imported here so that importing the package stays light: an entry
+    # point installs its signal handler before torch loads.
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

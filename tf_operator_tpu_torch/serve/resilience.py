@@ -242,10 +242,10 @@ class InvalidGrammar(ServeError):
 class NotPorted(ServeError):
     """A request field or server flag whose ROADMAP item the port has not
     ported yet (the detail names the item): KV shipments, prefix export
-    and the host tier (A7), meshes (A8), checkpoints (A10). A 400 under
-    the front door's ``bad_request`` code, NOT retryable — every port
-    replica would refuse it alike; the request never reaches the
-    device."""
+    and the host tier (A7), meshes (A8), the coalescing engine (A10). A
+    400 under the front door's ``bad_request`` code, NOT retryable —
+    every port replica would refuse it alike; the request never reaches
+    the device."""
 
     code = "bad_request"
     http_status = 400

@@ -3,9 +3,12 @@
     python -m tf_operator_tpu_torch.serve.serve_lm [--device cpu] [flags]
 
 The continuous path of ``examples/serve_lm.py``, under the same flag
-names and defaults where a flag applies: one process quick-trains the
-+1-chain task (``--train-steps``, 0 serves the seeded init) or takes the
-weights it is given (``build_front``), and serves them through
+names and defaults where a flag applies: one process restores a
+checkpoint of the port's trainer (``--checkpoint-dir``, written by
+``python -m tf_operator_tpu_torch.train.dist_lm``; the shape flags must
+mirror the trainer's), quick-trains the +1-chain task (``--train-steps``,
+0 serves the seeded init), or takes the weights it is given
+(``build_front``), and serves them through
 ``ContinuousEngine`` (paged KV, prefix sharing, chunked prefill, greedy
 and sampled lanes), the scheduler and the supervisor of this package:
 
@@ -55,22 +58,22 @@ tokens of an uninterrupted run.
 
 Flags and fields of ROADMAP items the port has not ported exit (flags)
 or answer a typed 400 (fields) naming the item, and never run another
-path instead: ``--tp``/``--dp`` (A8), ``--kv-dense`` (the dense slot
-engine, A5), ``--engine coalesce`` and ``--batch-window`` (A10),
-``--checkpoint-dir`` and ``--draft-checkpoint-dir`` (A10), ``--role prefill``
-and ``--host-tier-bytes`` (A7); the fields ``shipped_kv``, ``session``
-and ``GET /prefix/<digest>`` (A7).
+path instead: ``--tp``/``--dp`` and ``--from-pp`` (A8), ``--kv-dense`` (the dense
+slot engine, A5), ``--engine coalesce`` and ``--batch-window`` (A10),
+``--role prefill`` and ``--host-tier-bytes`` (A7); the fields
+``shipped_kv``, ``session`` and ``GET /prefix/<digest>`` (A7).
 
 Speculative decoding (``--spec-k K``): the engine decodes in rounds, a
 draft of ``--spec-draft-layers`` layers (default max(1, layers // 2), the
-target's width, quick-trained on the same task, so it accepts) proposing
+target's width, restored from ``--draft-checkpoint-dir`` or quick-trained
+on the same task, so it accepts) proposing
 K tokens a lane that one target forward verifies; greedy tokens equal the
 plain engine's, sampled ones follow the same law, and /healthz and
 /debug/serve carry a ``spec`` section. It does not compose with
 ``--int8`` or ``--logprobs-k`` (refused with the JAX server's messages),
 and under ``--kv-attend kernel`` K + 1 query rows times the heads a KV
 head must fit the kernel's row cap (the engine refuses K past it).
-``--draft-checkpoint-dir`` waits for A10.
+With ``--checkpoint-dir`` it also needs ``--draft-checkpoint-dir``.
 
 ``--device`` defaults to ``cuda``: without a card the server raises
 rather than serving on the CPU, which it does only under ``--device
@@ -141,10 +144,8 @@ UNPORTED_FLAGS = (
      "A10 (serve/coalesce.py)"),
     ("--batch-window", lambda a: a.batch_window > 0,
      "A10 (serve/coalesce.py)"),
-    ("--checkpoint-dir", lambda a: a.checkpoint_dir is not None,
-     "A10 (checkpoints)"),
-    ("--draft-checkpoint-dir", lambda a: a.draft_checkpoint_dir is not None,
-     "A10 (checkpoints)"),
+    ("--from-pp", lambda a: a.from_pp is not None,
+     "A8 (multi-device: pipeline trees)"),
     ("--role prefill", lambda a: a.role == "prefill",
      "A7 (disaggregated prefill)"),
     ("--host-tier-bytes", lambda a: a.host_tier_bytes > 0,
@@ -182,7 +183,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--layers", type=int, default=2)
     p.add_argument("--max-seq-len", type=int, default=128)
     p.add_argument("--checkpoint-dir", default=None,
-                   help="waits for ROADMAP A10")
+                   help="a checkpoint of the port's trainer "
+                        "(tf_operator_tpu_torch.train.dist_lm): shape flags "
+                        "must mirror the trainer's (default: quick-train "
+                        "the +1-chain task at startup)")
+    p.add_argument("--from-pp", type=int, default=None, metavar="PP",
+                   help="a pipelined (dist_lm --pp) checkpoint: waits for "
+                        "ROADMAP A8")
     p.add_argument("--train-steps", type=int, default=150,
                    help="quick-train steps of the +1-chain task from the "
                         "seeded init (0 serves the init)")
@@ -204,7 +211,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="draft depth (default max(1, --layers // 2)); the "
                         "draft trains on the same task (quick_train)")
     p.add_argument("--draft-checkpoint-dir", default=None,
-                   help="the draft's checkpoint: waits for ROADMAP A10")
+                   help="the draft's checkpoint (a trainer run at "
+                        "--spec-draft-layers depth); default: quick-train "
+                        "the draft")
     p.add_argument("--logprobs-k", type=int, default=0, metavar="K",
                    help="per-token top-K logprobs in /generate responses "
                         '(opt-in per request via "logprobs": true); 0 = '
@@ -329,6 +338,25 @@ def quick_train(cfg: TransformerConfig, steps: int, lr: float,
     print(f"serve_lm: quick-trained {steps} steps, loss {loss:.3f}",
           flush=True)
     return export_params(model)
+
+
+def restore_params(ckpt_dir: str, cfg: TransformerConfig,
+                   label: str) -> dict | None:
+    """The params of the newest step of a port checkpoint under
+    ``ckpt_dir`` as the flax-layout tree ``build_front`` takes, checked
+    against ``cfg``'s shapes: THE restore path of the target and the
+    draft. Returns None (after the JAX server's error line) when the
+    directory holds no step."""
+    from tf_operator_tpu_torch.train import checkpoint
+
+    step = checkpoint.latest_step(ckpt_dir)
+    if step is None:
+        print(f"serve_lm: no checkpoint in {ckpt_dir}", file=sys.stderr,
+              flush=True)
+        return None
+    params = checkpoint.restore_params(ckpt_dir, cfg, step)
+    print(f"serve_lm: restored {label} checkpoint step {step}", flush=True)
+    return params
 
 
 def _to_device(tree, device) -> dict:
@@ -586,8 +614,9 @@ class _Handler(QuietHandler):
 def check_args(args) -> None:
     """Refuse what the front cannot serve, before any device work: the
     combinations the JAX server refuses, with its messages (``--spec-k``
-    with ``--int8`` or ``--logprobs-k``, ``--draft-checkpoint-dir``
-    without ``--spec-k``: ValueError), a flag whose ROADMAP item is not
+    with ``--int8`` or ``--logprobs-k``, or with ``--checkpoint-dir`` but
+    no ``--draft-checkpoint-dir``; ``--draft-checkpoint-dir`` without
+    ``--spec-k``: ValueError), a flag whose ROADMAP item is not
     ported (NotPorted), a prefill budget below one token, a negative
     ``--logprobs-k``, no constraint row or a sequence length off the
     block grid (ValueError)."""
@@ -729,16 +758,28 @@ def main(argv: list[str] | None = None) -> int:
         d_ff=args.d_model * 2, max_seq_len=args.max_seq_len,
         dtype=torch.float32, int8_decode=args.int8, kv_int8=args.kv_int8,
     )
-    params = quick_train(cfg, args.train_steps, args.lr, device)
+    if args.checkpoint_dir:
+        params = restore_params(args.checkpoint_dir, cfg, "target")
+        if params is None:
+            return 1
+    else:
+        params = quick_train(cfg, args.train_steps, args.lr, device)
     if args.int8:
         params = quantize_decode_params(params)
         print("serve_lm: projections quantized to int8", flush=True)
     draft_params = None
     if args.spec_k:
-        # The same task as the target's: the draft agrees with it often
-        # enough to accept.
         dcfg = draft_config(cfg, args)
-        draft_params = quick_train(dcfg, args.train_steps, args.lr, device)
+        if args.draft_checkpoint_dir:
+            draft_params = restore_params(args.draft_checkpoint_dir, dcfg,
+                                          "draft")
+            if draft_params is None:
+                return 1
+        else:
+            # The same task as the target's: the draft agrees with it
+            # often enough to accept.
+            draft_params = quick_train(dcfg, args.train_steps, args.lr,
+                                       device)
         print(f"serve_lm: speculative decoding on (k={args.spec_k}, draft "
               f"layers={dcfg.n_layers})", flush=True)
     supervisor, server = build_front(cfg, params, args, draft_params)

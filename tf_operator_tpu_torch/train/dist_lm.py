@@ -1,0 +1,276 @@
+"""LM training as an operator-launched job, on one device of the port.
+
+    python -m tf_operator_tpu_torch.train.dist_lm [--device cpu] [flags]
+
+The port's entry point for ``examples/dist_lm.py``'s single-device path,
+over ``make_lm_train_step``, with the same flags, names and defaults,
+plus ``--device`` (default ``cuda``: without a card it raises rather
+than training on the CPU, which it does only under ``--device cpu``).
+The model is the example's: 4 heads, ``d_ff = 2 d_model``, f32, from
+``init_params(cfg, 0)``. On the card the flash kernels take head dims
+32, 64 and 128, so at 4 heads ``--d-model`` 128, 256 or 512; any other
+width raises there, by design.
+
+Data is the synthetic next-token task (tokens advance by +1 mod vocab),
+seeded by step (``np.random.default_rng((7, step))``), so a resumed run
+sees the batches an uninterrupted one would. The run fails (exit 1) when
+the final loss misses ``--target-loss``.
+
+Checkpoint coordination (``train/checkpoint.py``, ``ckpt/protocol.py``):
+with ``--checkpoint-dir`` (or the operator-injected ``TPU_CKPT_DIR``)
+every step is saved (``--checkpoint-interval``) and the newest committed
+step acked; the operator's eviction signal, which the local executor
+delivers as a graceful SIGTERM, becomes a forced save and a durable ack,
+and training goes on; resume honours ``TPU_RESUME_STEP``.
+``--fail-at-step`` simulates a preemption: drain the writes, exit 138,
+once (a resumed run does not fire it again). Before it exits the run
+prints the flash kernels' launches (``launches_line``).
+
+Flags of unported items exit with a usage error naming the ROADMAP
+item: ``--sp``, ``--tp``, ``--pp*``, ``--ep`` and ``--ring-impl`` (A8),
+``--moe-*`` (A9), ``--data`` (the token-record input).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+# Flags of ROADMAP items the port has not ported: (flag, set?, item).
+UNPORTED_FLAGS = (
+    ("--sp", lambda a: a.sp > 1, "A8 (multi-device)"),
+    ("--tp", lambda a: a.tp > 1, "A8 (multi-device)"),
+    ("--pp", lambda a: a.pp > 1, "A8 (multi-device)"),
+    ("--pp-microbatches", lambda a: a.pp_microbatches != 2,
+     "A8 (multi-device)"),
+    ("--pp-schedule", lambda a: a.pp_schedule != "gpipe",
+     "A8 (multi-device)"),
+    ("--ep", lambda a: a.ep > 1, "A8 (multi-device)"),
+    ("--ring-impl", lambda a: a.ring_impl != "auto", "A8 (multi-device)"),
+    ("--moe-every-n", lambda a: a.moe_every_n is not None,
+     "A9 (ResNet, MNIST and MoE)"),
+    ("--moe-experts", lambda a: a.moe_experts != 8,
+     "A9 (ResNet, MNIST and MoE)"),
+    ("--moe-top-k", lambda a: a.moe_top_k != 2,
+     "A9 (ResNet, MNIST and MoE)"),
+    ("--data", lambda a: a.data is not None,
+     "A12 (the token-record input)"),
+)
+
+
+def launches_line() -> str:
+    """The flash kernels' launches in this process (0 on the CPU, which
+    runs their plain versions): what a caller on the card reads to see
+    that training went through B1-B3."""
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+
+    return (f"dist_lm: flash launches fwd={fa.fwd_launches} "
+            f"dq={fa.dq_launches} dkv={fa.dkv_launches}")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """``examples/dist_lm.py``'s flags, names and defaults, plus
+    ``--device``."""
+    p = argparse.ArgumentParser(
+        description="LM training on one device of the PyTorch port, with "
+                    "the operator's checkpoint protocol")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; raises when it is CUDA and torch "
+                        "sees no card (pass 'cpu' for the plain PyTorch "
+                        "path)")
+    p.add_argument("--steps", type=int, default=60)
+    p.add_argument("--batch", type=int, default=8, help="GLOBAL batch size")
+    p.add_argument("--seq", type=int, default=128)
+    p.add_argument("--vocab", type=int, default=256)
+    p.add_argument("--d-model", type=int, default=128)
+    p.add_argument("--kv-heads", type=int, default=None,
+                   help="grouped-query attention: K/V heads (must divide "
+                        "the 4 query heads)")
+    p.add_argument("--layers", type=int, default=2)
+    p.add_argument("--sp", type=int, default=1, help="waits for A8")
+    p.add_argument("--tp", type=int, default=1, help="waits for A8")
+    p.add_argument("--lr", type=float, default=3e-3)
+    p.add_argument("--target-loss", type=float, default=1.0)
+    p.add_argument("--xent-chunk", type=int, default=None,
+                   help="chunked cross-entropy chunk (default: seq / 2)")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialize blocks (long-context memory)")
+    p.add_argument("--ring-impl", default="auto",
+                   choices=("auto", "stream", "flash", "ulysses"),
+                   help="waits for A8")
+    p.add_argument("--moe-every-n", type=int, default=None,
+                   help="waits for A9")
+    p.add_argument("--moe-experts", type=int, default=8, help="waits for A9")
+    p.add_argument("--moe-top-k", type=int, default=2, help="waits for A9")
+    p.add_argument("--ep", type=int, default=1, help="waits for A8")
+    p.add_argument("--pp", type=int, default=1, help="waits for A8")
+    p.add_argument("--pp-microbatches", type=int, default=2,
+                   help="waits for A8")
+    p.add_argument("--pp-schedule", choices=("gpipe", "1f1b"),
+                   default="gpipe", help="waits for A8")
+    p.add_argument("--grad-accum", type=int, default=1,
+                   help="microbatches per optimizer step (gradients "
+                        "averaged into one update)")
+    p.add_argument("--data", default=None,
+                   help="token-record file: waits for ROADMAP A12")
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--checkpoint-interval", type=int, default=1)
+    p.add_argument("--fail-at-step", type=int, default=None,
+                   help="simulate preemption: exit 138 once at this step")
+    return p
+
+
+def main(argv: list[str] | None = None) -> int:
+    p = build_parser()
+    args = p.parse_args(argv)
+    refused = [f"{flag} waits for ROADMAP {item}"
+               for flag, is_set, item in UNPORTED_FLAGS if is_set(args)]
+    if refused:
+        p.error("; ".join(refused))
+    if args.fail_at_step is not None and not args.checkpoint_dir:
+        p.error("--fail-at-step requires --checkpoint-dir")
+
+    # Operator-injected checkpoint contract (ckpt/protocol.py): a
+    # replacement pod of a checkpointing job learns its directory even
+    # when the manifest never spelled one out.
+    from tf_operator_tpu_torch.ckpt import protocol
+
+    ckpt_dir = args.checkpoint_dir or os.environ.get(protocol.ENV_CKPT_DIR)
+    stop_event = None
+    if ckpt_dir:
+        # Install BEFORE any heavy initialization (torch is not loaded
+        # yet): the eviction signal can arrive at any point, and an
+        # uninstalled handler would kill the process instead of requesting
+        # a checkpoint. Only checkpointing runs trap SIGTERM: a
+        # non-checkpointing run keeps the default die-on-TERM so plain
+        # deletions stay prompt.
+        from tf_operator_tpu_torch.utils import signals
+
+        stop_event = signals.setup_signal_handler()
+
+    import numpy as np
+    import torch
+
+    from tf_operator_tpu_torch import resolve_device
+    from tf_operator_tpu_torch.models.convert import init_params, load_params
+    from tf_operator_tpu_torch.models.transformer import (
+        Transformer,
+        TransformerConfig,
+    )
+    from tf_operator_tpu_torch.train.steps import (
+        TrainState,
+        adamw,
+        make_lm_train_step,
+    )
+
+    device = resolve_device(args.device)
+    print(f"dist_lm: process 0/1, device {device}", flush=True)
+    if args.grad_accum < 1 or args.batch % args.grad_accum:
+        raise SystemExit("--grad-accum must divide the batch")
+    if args.xent_chunk is not None:
+        if args.xent_chunk <= 0 or args.seq % args.xent_chunk:
+            raise SystemExit(
+                f"--xent-chunk must divide the per-device seq {args.seq}")
+        chunk = args.xent_chunk
+    else:
+        chunk = args.seq // 2 if args.seq % 2 == 0 else args.seq
+
+    cfg = TransformerConfig(
+        vocab_size=args.vocab, d_model=args.d_model, n_heads=4,
+        n_kv_heads=args.kv_heads, n_layers=args.layers,
+        d_ff=args.d_model * 2, max_seq_len=args.seq, dtype=torch.float32,
+        remat=args.remat,
+    )
+    model = load_params(Transformer(cfg, device), init_params(cfg, 0))
+    tx = adamw(args.lr)
+    state = TrainState.create(model, tx)
+    step = make_lm_train_step(model, tx, xent_chunk=chunk,
+                              grad_accum=args.grad_accum)
+
+    ckpt = None
+    start_step = 0
+    resumed = False
+    if ckpt_dir:
+        from tf_operator_tpu_torch.train.checkpoint import (
+            CheckpointManager,
+            resume_min_step,
+        )
+
+        ckpt = CheckpointManager(
+            ckpt_dir, max_to_keep=2,
+            save_interval_steps=args.checkpoint_interval,
+        )
+        # min_step: the operator's acked-step contract.
+        state, start_step = ckpt.restore_or_init(
+            state, min_step=resume_min_step())
+        # resumed (not the clamped start_step) gates the preemption sim:
+        # with --steps 1 the clamp forces start_step back to 0, and a
+        # start_step == 0 guard would re-fire exit 138 forever.
+        resumed = start_step > 0
+        start_step = max(0, min(start_step, args.steps - 1))
+        if resumed:
+            print(f"dist_lm: resumed from step {start_step}", flush=True)
+
+    def batch_at(step_idx: int) -> dict:
+        # Seeded by step, so resume continues the stream.
+        rng = np.random.default_rng((7, step_idx))
+        start = rng.integers(0, args.vocab, (args.batch, 1))
+        chain = (start + np.arange(args.seq + 1)) % args.vocab  # +1 chain
+        chain = chain.astype(np.int32)
+        return {"tokens": chain[:, :-1], "targets": chain[:, 1:]}
+
+    t0 = time.perf_counter()
+    metrics = None
+    evict_acked = False
+    for i in range(start_step, args.steps):
+        state, metrics = step(state, batch_at(i))
+        if ckpt is not None:
+            ckpt.save(i, state)
+            # Progress report: the newest COMMITTED step, at no sync cost.
+            ckpt.maybe_ack()
+            if (stop_event is not None and stop_event.is_set()
+                    and not evict_acked):
+                # The eviction checkpoint signal: force-save this step,
+                # drain the writer, ack durably (the operator's barrier
+                # releases on it), then KEEP training: exiting here would
+                # read as success, and the barrier evicts the pod.
+                ckpt.save(i, state, force=True)
+                acked = ckpt.ack()
+                evict_acked = True
+                print(f"dist_lm: eviction signal — checkpoint durable at "
+                      f"step {acked}", flush=True)
+        if (args.fail_at_step is not None and i == args.fail_at_step
+                and not resumed):
+            if ckpt is not None:
+                ckpt.wait()
+            print(launches_line(), flush=True)
+            print(f"dist_lm: simulating preemption at step {i}", flush=True)
+            os._exit(138)
+        if (i + 1) % 20 == 0 or i == start_step:
+            print(f"dist_lm: step {i+1} loss={float(metrics['loss']):.4f}",
+                  flush=True)
+    if ckpt is not None:
+        ckpt.close()
+    print(launches_line(), flush=True)
+    if metrics is None:
+        print("dist_lm: no steps to run", flush=True)
+        return 0
+    loss = float(metrics["loss"])
+    dt = time.perf_counter() - t0
+    steps_run = args.steps - start_step
+    tps = steps_run * args.batch * args.seq / dt
+    print(f"dist_lm: {steps_run} steps in {dt:.1f}s ({tps:.0f} tokens/s, "
+          f"device {device}, xent_chunk={chunk}), final loss {loss:.4f}",
+          flush=True)
+    if loss > args.target_loss:
+        print(f"dist_lm: FAILED (loss {loss:.4f} > {args.target_loss})",
+              flush=True)
+        return 1
+    print("dist_lm: OK", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,4 +1,4 @@
-"""The LM training step, its loss and its optimiser, in PyTorch.
+"""The LM training and eval steps, the loss and the optimiser, in PyTorch.
 
 Counterpart of ``tf_operator_tpu/train/steps.py`` for one device:
 ``make_lm_train_step`` builds ``step(state, batch) -> (state, metrics)``
@@ -6,15 +6,21 @@ over a training-mode ``Transformer`` (f32 weights, ``cfg.dtype`` compute)
 and an ``adamw`` optimiser, whose learning rate may be ``warmup_cosine``.
 Where JAX returns a new state, the port updates the model's weights and
 the optimiser's moments in place and returns the same ``TrainState``.
+``make_lm_eval_step`` and ``evaluate_lm`` are the Evaluator's perplexity
+over host batches of any row counts (``chunked_lm_xent_sums``, padding
+through ``_iter_padded``), under ``torch.no_grad()``: on the card the
+forward runs the flash forward kernel and no backward kernel.
 
-Not ported yet: the eval steps, ``sharded_lm_xent``, ``fuse_steps`` (a
-CUDA graph of the step is its counterpart), the other optimisers, and
-meshes (``mesh`` raises, naming ROADMAP.md A8) and MoE's auxiliary loss
-(``aux_loss_weight`` raises, naming A9).
+Not ported yet: ``evaluate`` and the classifier steps (they wait for
+ROADMAP.md A9's classifier eval step), ``sharded_lm_xent``, ``fuse_steps``
+(a CUDA graph of the step is its counterpart, A5's graph), the other
+optimisers, and meshes (``mesh`` raises, naming A8) and MoE's auxiliary
+loss (``aux_loss_weight`` raises, naming A9).
 """
 
 from __future__ import annotations
 
+import logging
 import math
 from dataclasses import dataclass
 from typing import Any, Callable
@@ -101,6 +107,32 @@ def chunked_lm_xent(hidden: torch.Tensor, kernel: torch.Tensor,
             _chunk_loss, hidden[:, c0:c0 + chunk], kernel, bias,
             labels[:, c0:c0 + chunk], dot_dtype, use_reentrant=False)
     return total / (b * s)
+
+
+def chunked_lm_xent_sums(hidden: torch.Tensor, kernel: torch.Tensor,
+                         bias: torch.Tensor | None, labels: torch.Tensor,
+                         mask: torch.Tensor, *, chunk: int = 512,
+                         dot_dtype=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Masked ``(loss_sum f32, token_count int32)`` over ``chunk``
+    positions at a time: the eval-side form of ``chunked_lm_xent``.
+    Padding rows carry mask 0, each token's loss is weighted by its mask
+    value, the count is of nonzero mask entries, and the ``[B, S, V]``
+    logits never materialize. Raises ``ValueError`` when ``chunk`` does
+    not divide the sequence."""
+    b, s, _ = hidden.shape
+    if s % chunk:
+        raise ValueError(f"seq {s} not divisible by xent chunk {chunk}")
+    loss_sum = hidden.new_zeros((), dtype=torch.float32)
+    count = torch.zeros((), dtype=torch.int32, device=hidden.device)
+    for c0 in range(0, s, chunk):
+        cols = slice(c0, c0 + chunk)
+        logits = _head_logits(hidden[:, cols], kernel, bias, dot_dtype)
+        picked = logits.gather(-1, labels[:, cols, None].long())[..., 0]
+        mc = mask[:, cols]
+        loss_sum = loss_sum + ((torch.logsumexp(logits, dim=-1) - picked)
+                               * mc.float()).sum()
+        count = count + (mc > 0).sum(dtype=torch.int32)
+    return loss_sum, count
 
 
 @dataclass(frozen=True)
@@ -242,3 +274,136 @@ def make_lm_train_step(model: Transformer, tx: AdamW, *,
         return state, {"loss": loss}
 
     return step
+
+
+def _iter_padded(batches, shard_count: int, pad_to: int | None,
+                 fields: tuple[str, ...], mask_ndim: int):
+    """Yield ``(arrays with "mask", pad_to)`` for each non-empty host
+    batch, every batch zero-padded to ONE row count (``pad_to``; default:
+    the first non-empty batch's rows rounded up to ``shard_count``). The
+    mask is ones over real rows and zeros over padding, of the leading
+    ``mask_ndim`` dims, or the batch's own per-element "mask" field, so
+    padded rows contribute nothing. JAX's ``_iter_padded``, whose fixed
+    shape served one compiled executable; here it keeps the eval's
+    shapes (and its kernels' launches) the same for every batch."""
+    for batch in batches:
+        arrs = {f: np.asarray(batch[f]) for f in fields}
+        n = arrs[fields[0]].shape[0]
+        if n == 0:
+            continue  # an empty shard must not define (or fail) the shape
+        if pad_to is None:
+            pad_to = -(-n // shard_count) * shard_count
+        if n > pad_to:
+            raise ValueError(
+                f"batch of {n} exceeds pad_to={pad_to}; the first batch "
+                "sets the compiled shape — pass pad_to= explicitly when "
+                "later batches can be larger"
+            )
+        mshape = arrs[fields[0]].shape[:mask_ndim]
+        arrs["mask"] = (
+            np.asarray(batch["mask"], np.float32)
+            if "mask" in batch
+            else np.ones(mshape, np.float32)
+        )
+        pad = pad_to - n
+        if pad:
+            arrs = {
+                k: np.concatenate(
+                    [v, np.zeros((pad, *v.shape[1:]), v.dtype)]
+                )
+                for k, v in arrs.items()
+            }
+        yield arrs, pad_to
+
+
+def eval_chunk(seq: int, xent_chunk: int) -> int:
+    """The largest divisor of ``seq`` that is <= ``xent_chunk``: JAX's
+    eval chunk. ``xent_chunk`` is a memory bound and is never exceeded."""
+    return next(c for c in range(min(xent_chunk, seq), 0, -1)
+                if seq % c == 0)
+
+
+class LMEvalStep:
+    """``step(state, batch) -> {"loss_sum"}``: the model's forward under
+    ``torch.no_grad()`` and the masked chunked loss sums of a batch
+    ``{"tokens", "targets", "mask"}`` (numpy arrays or tensors, moved to
+    the model's device). ``shard_count`` is 1: one device."""
+
+    shard_count = 1
+
+    def __init__(self, model: Transformer, xent_chunk: int) -> None:
+        self.model = model
+        self.xent_chunk = xent_chunk
+        self._warned: set[int] = set()
+
+    def chunk_for(self, seq: int) -> int:
+        """The eval chunk at ``seq``; warns once a length, as JAX warns at
+        trace time, when its best divisor is tiny."""
+        chunk = eval_chunk(seq, self.xent_chunk)
+        if chunk < min(8, self.xent_chunk, seq) and seq not in self._warned:
+            self._warned.add(seq)
+            logging.getLogger(__name__).warning(
+                "seq %d has no divisor <= xent_chunk %d above %d; eval "
+                "will scan %d tiny chunks — consider a seq length with a "
+                "divisor near the chunk size",
+                seq, self.xent_chunk, chunk, seq // chunk,
+            )
+        return chunk
+
+    def __call__(self, state: TrainState, batch) -> dict:
+        model = self.model
+        if state.model is not model:
+            raise ValueError("the state holds another model than the step's")
+        tokens = _on(model.device, batch["tokens"])
+        targets = _on(model.device, batch["targets"])
+        mask = _on(model.device, batch["mask"])
+        chunk = self.chunk_for(tokens.shape[1])
+        with torch.no_grad():
+            hidden = model(tokens, return_hidden=True)
+            head = model.lm_head
+            # The token count is not kept: evaluate_lm counts on the host
+            # (a device int32 would wrap past 2^31 tokens).
+            loss_sum, _ = chunked_lm_xent_sums(
+                hidden, head.kernel, head.bias, targets, mask, chunk=chunk)
+        return {"loss_sum": loss_sum}
+
+
+def make_lm_eval_step(model: Transformer, *, xent_chunk: int = 512,
+                      mesh: Any = None) -> LMEvalStep:
+    """The LM eval step (the Evaluator-role flow for the transformer):
+    MASKED sums (``loss_sum`` f32) so ``evaluate_lm`` can pad every batch
+    to one shape, with the ``[B, S, V]`` logits never materialized. The
+    chunk is the largest divisor of the sequence <= ``xent_chunk``
+    (``eval_chunk``)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "make_lm_eval_step(mesh=...) is not ported yet: see ROADMAP.md "
+            "A8 (multi-device)")
+    if model.cfg.decode:
+        raise ValueError("evaluate a model built with decode=False")
+    return LMEvalStep(model, xent_chunk)
+
+
+def evaluate_lm(eval_step: LMEvalStep, state: TrainState, batches, *,
+                pad_to: int | None = None) -> dict[str, float]:
+    """Drive an LM eval step over host batches of any row counts (padding
+    via ``_iter_padded``); returns the mean token loss, the perplexity and
+    the total token weight (a float: the sum of mask values, exactly the
+    token count for 0/1 masks). The f32 loss accumulates on the device,
+    read once at the end; the token weight accumulates on the host in
+    float64, the sum of mask VALUES, so a fractional mask weights the
+    denominator as the device loss weights the numerator."""
+    loss_sum = None
+    tokens = 0.0
+    for arrs, pad_to in _iter_padded(
+        batches, eval_step.shard_count, pad_to, ("tokens", "targets"),
+        mask_ndim=2,
+    ):
+        tokens += float(arrs["mask"].sum(dtype=np.float64))
+        m = eval_step(state, arrs)
+        loss_sum = (m["loss_sum"] if loss_sum is None
+                    else loss_sum + m["loss_sum"])
+    if loss_sum is None or tokens == 0:
+        raise ValueError("evaluate_lm() got no non-empty batches")
+    mean = float(loss_sum) / tokens
+    return {"loss": mean, "perplexity": math.exp(mean), "tokens": tokens}
