@@ -212,7 +212,35 @@ Phases, in order; any failure ends the run with a non-zero exit:
     run 2 prints ``resumed from step`` ``ENTRY_FAIL_AT + 1`` and exits 0;
     run 3, uninterrupted, must end on run 2's final checkpoint (bitwise,
     else within phase 8's Adam bound, the largest difference printed);
-19. the ``kernels`` JSON line (each kernel with its design; B5 as two
+19. disaggregated prefill, prefix pulls and the host KV tier
+    (``serve/disagg.py``, ``serve/tier.py``, the engine's ingest, export,
+    retention, spill and restore) at phase 6's width: (a) f32, a
+    ``PrefillWorker`` on the card prefills the four prompts (lane 1 in
+    chunks of ``SHIP_CHUNK``), each payload through ``json``, a fresh
+    engine ingests them (each ingest timed), the lanes join by their exact
+    prefixes and decode 64 greedy steps, bitwise phase 6's tokens, B4 at
+    n_layers launches a forward, the decode step's compile count unmoved;
+    lane 0's export (timed), ingested by a second fresh engine, decodes 16
+    steps, again phase 6's; (b) f32 with retention and a ``TIER_BYTES``
+    host tier in a pool that holds lanes 0 and 1 but not all four
+    (``tier_pool_blocks``): the four prompts served, then served again,
+    each lane bitwise its first round and phase 6, at least two restores,
+    the second round's prefill tokens fewer by the restored lengths, each
+    spill and restore timed from its span (bytes, ms, GB/s); then one lane
+    on phase 13's bf16 int8 + kv8 tree spilled and restored, bitwise its
+    unspilled run, with the kv8 B4 and both B5 routes launched; (c) bf16
+    over HTTP on 127.0.0.1: a ``--role prefill`` replica
+    (``serve_lm.build_prefill``) and two decode fronts, L and S (S with
+    the tier): the four prompts at once on L, each prompt's POST /prefill
+    (payload bytes, seconds), then the four ``shipped_kv`` requests at
+    once on S, each equal to L's response; a prompt sharing lane 0's
+    first two blocks served on L, pulled from L by ``GET
+    /prefix/<digest>`` and sent to S as ``shipped_kv``, equal; a tampered
+    payload gets ``ship_failed``, an unknown digest ``prefix_not_found``;
+    S's /healthz ``prefixes`` and ``tier_prefixes``, /metrics the five
+    ship and tier families counted; the TTFT p50 of shipped against local
+    requests; the phase's wall time;
+20. the ``kernels`` JSON line (each kernel with its design; B5 as two
     entries, the weight stream and the wgmma tile, each with its own
     launches; ``paths`` gives each kernel's launches on every path of
     this run that drives it, and ``launches`` is their sum; the paged
@@ -362,8 +390,12 @@ INT8_NEAR_TIE = LOGIT_TOL / INT8_GEN_T
 INT8_MASS_TOL = math.expm1(2 * LOGIT_TOL / INT8_GEN_T)
 # Phase 15, the serving front: the keys of the JAX front's /healthz
 # (serve/httpapi.py readiness_payload over a supervisor that has served,
-# plus serve_lm's own two) and its tpu_serve_* families, less those of
-# the items the port has not ported (KV shipments, the host tier).
+# plus serve_lm's own two) and its tpu_serve_* families.
+# The five families of KV shipments and the host tier (phase 19 reads
+# them counted).
+SHIP_TIER_FAMILIES = ("kv_ship_ingest_total", "ship_tokens_total",
+                      "kv_tier_bytes", "kv_tier_restores_total",
+                      "kv_tier_spills_total")
 READINESS_KEYS = ("ok", "active_slots", "queue_depth", "max_slots",
                   "mesh_devices", "mesh_axes", "requests_done",
                   "tokens_generated", "watchdog_restarts", "ttft_p99_s",
@@ -377,7 +409,7 @@ SERVE_FAMILIES = tuple(f"tpu_serve_{n}" for n in (
     "degraded", "mesh_devices", "batch_occupancy",
     "constrained_requests_total", "constrained_stops_total",
     "constrain_programs", "constrain_evictions_total",
-    "spec_accept_tokens", "spec_rounds_total"))
+    "spec_accept_tokens", "spec_rounds_total") + SHIP_TIER_FAMILIES)
 # Phase 16, constrained decoding, over the identity vocabulary (token i =
 # chr(i)). (a): one lane each under these programs, lane 3 free; every
 # grammar here completes within CONSTRAIN_STEPS. (b): the server's
@@ -448,6 +480,22 @@ ENTRY_ARGS = ["--d-model", "512", "--layers", "2", "--vocab", "256",
               "--lr", "3e-3", "--target-loss", "0.5"]
 ENTRY_FAIL_AT = 20
 ENTRY_HEADS = 4  # the entry point's model, as examples/dist_lm.py's
+# Phase 19, disaggregated prefill, prefix pulls and the host KV tier at
+# phase 6's width. (a) f32: a PrefillWorker ships the four prompts, lane
+# SHIP_CHUNKED_LANE's in chunks of SHIP_CHUNK tokens; a fresh engine
+# ingests them and decodes FIRST_STEPS greedy steps; lane 0's export,
+# ingested by a second fresh engine, decodes PULL_STEPS. (b) f32 beside a
+# TIER_BYTES host tier, in a pool that holds lanes 0 and 1 but not all
+# four (``tier_pool_blocks``), so retention gives way and entries spill;
+# then the kv8 case, lane TIER_KV8_LANE's prompt on phase 13's tree for
+# TIER_KV8_STEPS steps. (c) bf16 over HTTP: a prefill replica and two
+# decode fronts, the second with the tier.
+SHIP_CHUNK = 512
+SHIP_CHUNKED_LANE = 1
+PULL_STEPS = LATER_STEPS
+TIER_BYTES = 2 << 30
+TIER_KV8_LANE = 2
+TIER_KV8_STEPS = 32
 
 
 def entry_flash_shape() -> tuple[int, int, int, int]:
@@ -3207,6 +3255,400 @@ def entry_point_phase(card) -> dict:
     return launches
 
 
+def blocks_of(n: int) -> int:
+    return -(-n // BLK)
+
+
+def wire_bytes(payload: dict) -> tuple[int, int]:
+    """(decoded bytes, JSON bytes) of a shipped-KV payload."""
+    from tf_operator_tpu_torch.serve.tier import payload_nbytes
+
+    return payload_nbytes(payload), len(json.dumps(payload))
+
+
+def span_ms(name: str) -> list[tuple[float, dict]]:
+    """(ms, attrs) of the trace ring's ``name`` spans."""
+    from tf_operator_tpu_torch.runtime.tracing import SERVE_TRACER
+
+    return [(sp.duration_us / 1e3, sp.attrs)
+            for sp in SERVE_TRACER.spans(name)]
+
+
+def ship_engine_phase(pa, i8, base, params, prompts, want, card) -> int:
+    """Phase 19 (a): f32 shipping at phase 6's width. A PrefillWorker on the
+    card prefills the four prompts (lane SHIP_CHUNKED_LANE's in chunks of
+    SHIP_CHUNK), each payload goes through json, a fresh engine ingests
+    them, the four join by their exact prefixes and decode FIRST_STEPS
+    greedy steps, which must equal phase 6's tokens (``want``, [step,
+    lane]) with B4 at n_layers launches a forward and the decode step's
+    compile count unmoved. Then lane 0's digest is exported from that
+    engine, ingested by a second fresh engine and decoded PULL_STEPS steps,
+    again phase 6's tokens. Returns B4's launches."""
+    from tf_operator_tpu_torch.models.transformer import (
+        _decode_model,
+        _prefill,
+    )
+    from tf_operator_tpu_torch.serve import disagg
+    from tf_operator_tpu_torch.serve.engine import ContinuousEngine
+
+    # A local prefill of lane 0's prompt (warmed once): the device work a
+    # shipment spares the decode replica.
+    model = _decode_model(base, params, None)
+    prompt0 = torch.as_tensor(prompts[0], device=model.device)
+    with torch.no_grad():
+        _prefill(model, prompt0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _prefill(model, prompt0)
+        torch.cuda.synchronize()
+    local_ms = (time.perf_counter() - t0) * 1e3
+    del model
+    one_shot = disagg.PrefillWorker(base, params, kv_block=BLK)
+    chunked = disagg.PrefillWorker(base, params, kv_block=BLK,
+                                   prefill_chunk=SHIP_CHUNK)
+    shipments, rows = [], []
+    for lane, prompt in enumerate(prompts):
+        worker = chunked if lane == SHIP_CHUNKED_LANE else one_shot
+        t0 = time.perf_counter()
+        payload = worker.prefill(prompt)
+        t1 = time.perf_counter()
+        payload = json.loads(json.dumps(payload))
+        t2 = time.perf_counter()
+        shipments.append(disagg.decode_shipment(payload,
+                                                expect_tokens=prompt[0]))
+        t3 = time.perf_counter()
+        nbytes, json_bytes = wire_bytes(payload)
+        rows.append(dict(lane=lane, tokens=prompt.shape[1], bytes=nbytes,
+                         json_bytes=json_bytes, prefill_ship_s=t1 - t0,
+                         json_s=t2 - t1, verify_s=t3 - t2))
+    del one_shot, chunked
+    engine = ContinuousEngine(base, params, len(prompts), kv_block=BLK,
+                              kv_attend="kernel")
+    # Retention, as serve_lm turns it on: the exact entry of a prompt that
+    # ends mid-block outlives its copy-on-write, so it can be exported.
+    engine.prefix_retain_max = 32
+    compiles0 = engine.decode_step_compiles
+    reset_counts(pa, i8)
+    holds = []
+    for shp, row in zip(shipments, rows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        holds.append(engine.ingest_shipment(
+            shp, reserve_steps=FIRST_STEPS))
+        torch.cuda.synchronize()
+        row["ingest_ms"] = (time.perf_counter() - t0) * 1e3
+    slots = [engine.join(p, num_steps=FIRST_STEPS) for p in prompts]
+    for hold in holds:
+        engine.release_shipment(hold)
+    if slots != list(range(len(prompts))) or None in holds:
+        raise AssertionError(f"ship: holds {holds}, slots {slots}")
+    tokens = np.stack([engine.step() for _ in range(FIRST_STEPS)])
+    torch.cuda.synchronize()
+    launches, forwards = pa.launches, engine.steps_total
+    kv = engine.kv_debug()
+    digest = disagg.chain_digests(prompts[0][0], BLK)[-1]
+    t0 = time.perf_counter()
+    exported = engine.export_prefix(digest)
+    export_ms = (time.perf_counter() - t0) * 1e3
+    del engine, holds
+    torch.cuda.empty_cache()
+    pulled = ContinuousEngine(base, params, len(prompts), kv_block=BLK,
+                              kv_attend="kernel")
+    hold = pulled.ingest_shipment(disagg.decode_shipment(
+        json.loads(json.dumps(exported)), expect_tokens=prompts[0][0]),
+        reserve_steps=PULL_STEPS)
+    slot = pulled.join(prompts[0], num_steps=PULL_STEPS)
+    pulled.release_shipment(hold)
+    pull_tokens = [int(pulled.step()[slot]) for _ in range(PULL_STEPS)]
+    pull_kv = pulled.kv_debug()
+    del pulled
+    torch.cuda.empty_cache()
+    for row in rows:
+        print(f"ship f32 (19a) lane {row['lane']}: {row['tokens']} tokens, "
+              f"payload {row['bytes']} bytes decoded, {row['json_bytes']} "
+              f"bytes of JSON; prefill and ship "
+              f"{row['prefill_ship_s']:.4f} s, json round trip "
+              f"{row['json_s']:.4f} s, verify {row['verify_s']:.4f} s, "
+              f"ingest (pool write) {row['ingest_ms']:.3f} ms"
+              + (f" (chunks of {SHIP_CHUNK})"
+                 if row["lane"] == SHIP_CHUNKED_LANE else "")
+              + f"; on {card}", flush=True)
+    print(f"ship f32 (19a): local prefill of lane 0's {prompts[0].shape[1]} "
+          f"tokens {local_ms:.3f} ms, its ingest {rows[0]['ingest_ms']:.3f} "
+          f"ms; export of lane 0 {export_ms:.3f} ms "
+          f"({wire_bytes(exported)[0]} bytes); {forwards} forwards, B4 "
+          f"launches {launches}; kv {kv}; on {card}", flush=True)
+    parted = np.argwhere(tokens != want[:FIRST_STEPS])
+    if parted.size:
+        raise AssertionError(f"ship f32: shipped tokens differ from phase "
+                             f"6's at (step, lane) {parted[:8].tolist()}")
+    if pull_tokens != want[:PULL_STEPS, 0].tolist():
+        raise AssertionError(f"ship f32: the pulled lane differs: "
+                             f"{pull_tokens} vs {want[:PULL_STEPS, 0]}")
+    if (launches != LAYERS * forwards
+            or kv["shipments_ingested"] != len(prompts)
+            or pull_kv["shipments_ingested"] != 1
+            or kv["prefill_tokens_saved"] != sum(LANES)
+            or compiles0 != 0):
+        raise AssertionError(f"ship f32: launches {launches} over {forwards}"
+                             f" forwards, kv {kv}, pulled kv {pull_kv}")
+    return launches
+
+
+def tier_pool_blocks(steps: int) -> int:
+    """(b)'s pool: lanes 0 and 1 at once and the pinned block, so lanes 2
+    and 3 wait for them and retention must give way."""
+    return 1 + sum(blocks_of(n + steps) for n in LANES[:2])
+
+
+def tier_round(sched, prompts, steps) -> tuple[list, float]:
+    """One round of (b): the prompts queued together in lane order, each
+    greedy for ``steps``; (requests, wall s)."""
+    from tf_operator_tpu_torch.serve.resilience import await_request
+    from tf_operator_tpu_torch.serve.scheduler import ServeRequest
+
+    t0 = time.perf_counter()
+    reqs = [sched.enqueue(ServeRequest(p, steps)) for p in prompts]
+    for req in reqs:
+        await_request(req, timeout=600)
+    return reqs, time.perf_counter() - t0
+
+
+def tier_phase(pa, i8, base, params, prompts, want, card) -> dict:
+    """Phase 19 (b): the host tier. f32 at phase 6's width, retention on,
+    a TIER_BYTES tier, a pool of ``tier_pool_blocks``: the four prompts
+    served (round 1, lanes 2 and 3 waiting for 0 and 1; retention gives way
+    and entries spill), then served again (round 2): each lane's tokens
+    those of round 1 and of phase 6, at least two restores, and round 2's
+    prefill tokens fewer by the restored lengths. Then the kv8 case: lane
+    TIER_KV8_LANE's prompt on phase 13's bf16 int8 + kv8 tree, spilled and
+    restored, its tokens those of its unspilled run, with the kv8 B4 and
+    both B5 routes launched. Returns the launches by kernel."""
+    from tf_operator_tpu_torch.models.convert import quantize_decode_params
+    from tf_operator_tpu_torch.runtime.metrics import (
+        SERVE_PHASE_SECONDS,
+        SERVE_PREFILL_TOKENS_TOTAL,
+    )
+    from tf_operator_tpu_torch.serve.engine import ContinuousEngine
+    from tf_operator_tpu_torch.serve.scheduler import ContinuousScheduler
+    from tf_operator_tpu_torch.serve.tier import HostTier
+
+    def tiered(cfg, tree, blocks=None):
+        engine = ContinuousEngine(cfg, tree, len(prompts), kv_block=BLK,
+                                  kv_blocks=blocks, kv_attend="kernel")
+        engine.prefix_retain_max = engine.prefix_advertise_max = 32
+        engine.host_tier = HostTier(TIER_BYTES)
+        return engine, ContinuousScheduler(engine).start()
+
+    engine, sched = tiered(base, params, tier_pool_blocks(FIRST_STEPS))
+    reset_counts(pa, i8)
+    phase0 = {p: SERVE_PHASE_SECONDS.value(phase=p)
+              for p in ("tier_spill", "tier_restore")}
+    pf0 = SERVE_PREFILL_TOKENS_TOTAL.value()
+    first, wall1 = tier_round(sched, prompts, FIRST_STEPS)
+    pf1 = SERVE_PREFILL_TOKENS_TOTAL.value()
+    restored0 = engine.tier_restore_tokens
+    second, wall2 = tier_round(sched, prompts, FIRST_STEPS)
+    pf2 = SERVE_PREFILL_TOKENS_TOTAL.value()
+    sched.stop(timeout=120)
+    torch.cuda.synchronize()
+    f32_launches = pa.launches
+    kv = engine.kv_debug()
+    restored = engine.tier_restore_tokens - restored0
+    # No earlier phase has a tier: every spill and restore span is (b)'s.
+    spills = span_ms("kv.spill")
+    restores = span_ms("kv.restore")
+    phase_s = {p: SERVE_PHASE_SECONDS.value(phase=p) - v
+               for p, v in phase0.items()}
+    del engine, sched
+    torch.cuda.empty_cache()
+    spill_bytes = sum(a["bytes"] for _, a in spills)
+    restore_bytes = sum(a["bytes"] for _, a in restores)
+    for label, events in (("spill", spills), ("restore", restores)):
+        for ms, a in events:
+            what = (f"{a['entries']} entries" if label == "spill"
+                    else f"{a['tokens']} tokens")
+            print(f"tier f32 (19b): {label} of {what}, {a['bytes']} bytes, "
+                  f"{ms:.3f} ms, {a['bytes'] / ms / 1e6:.4f} GB/s; on "
+                  f"{card}", flush=True)
+    print(f"tier f32 (19b): pool {tier_pool_blocks(FIRST_STEPS)} blocks; "
+          f"round 1 {wall1:.3f} s, prefill tokens {pf1 - pf0}; round 2 "
+          f"{wall2:.3f} s, prefill tokens {pf2 - pf1}, restored tokens "
+          f"{restored}; {len(spills)} spills, {spill_bytes} bytes in "
+          f"{phase_s['tier_spill']:.4f} s; {len(restores)} restores, "
+          f"{restore_bytes} bytes in {phase_s['tier_restore']:.4f} s; B4 "
+          f"launches {f32_launches}; kv {kv}; on {card}", flush=True)
+    for lane, (a, b) in enumerate(zip(first, second)):
+        if a.out != b.out or a.out != want[:FIRST_STEPS, lane].tolist():
+            raise AssertionError(f"tier f32: lane {lane} differs between "
+                                 f"the rounds or from phase 6")
+    if (kv["tier"]["restores"] < 2 or pf2 - pf1 != (pf1 - pf0) - restored
+            or not any(r.tier_join for r in second) or not f32_launches):
+        raise AssertionError(f"tier f32: restores {kv['tier']}, prefill "
+                             f"tokens {pf1 - pf0} then {pf2 - pf1}, restored "
+                             f"{restored}")
+
+    cfg8 = replace(base, dtype=torch.bfloat16, int8_decode=True,
+                   kv_int8=True)
+    engine, sched = tiered(cfg8, quantize_decode_params(bf16_rounded(params)))
+    reset_counts(pa, i8)
+    prompt = prompts[TIER_KV8_LANE]
+    (unspilled,), _ = tier_round(sched, [prompt], TIER_KV8_STEPS)
+    sched.call_engine(lambda e: e._evict_retained(until_free=10 ** 9))
+    (restored_req,), _ = tier_round(sched, [prompt], TIER_KV8_STEPS)
+    sched.stop(timeout=120)
+    torch.cuda.synchronize()
+    got = dict(paged_attend_kv8=pa.kv8_launches,
+               int8_matmul=i8.launches - i8.wgmma_launches,
+               int8_matmul_prefill=i8.wgmma_launches)
+    kv8 = engine.kv_debug()["tier"]
+    del engine, sched
+    torch.cuda.empty_cache()
+    print(f"tier kv8 bf16 (19b): lane {TIER_KV8_LANE}, {TIER_KV8_STEPS} "
+          f"steps, restored == unspilled: {restored_req.out == unspilled.out}"
+          f", tier {kv8}, launches {got}; on {card}", flush=True)
+    if (restored_req.out != unspilled.out or not restored_req.tier_join
+            or pa.launches or not all(got.values())):
+        raise AssertionError(f"tier kv8: tokens or launches {got}")
+    got["paged_attend"] = f32_launches
+    return got
+
+
+def ship_front_phase(pa, i8, base, params, prompts, card) -> int:
+    """Phase 19 (c): bf16 over HTTP on 127.0.0.1 in this process: a
+    ``--role prefill`` replica (``serve_lm.build_prefill``), front L (local
+    prefill) and front S (``--host-tier-bytes``). The four prompts at once
+    on L; each prompt's POST /prefill, then the four /generate requests
+    with ``shipped_kv`` at once on S: each response equal to L's. A prompt
+    sharing lane 0's first two blocks, served on L, pulled from L by ``GET
+    /prefix/<digest>`` (advertised on L's /healthz) and sent to S as
+    ``shipped_kv``: S's response equal to L's. A tampered payload gets the
+    typed ``ship_failed``, an unknown digest ``prefix_not_found``; S's
+    /healthz carries ``prefixes`` and, after its retention cap drops to 2,
+    ``tier_prefixes``; /metrics counts the ship and tier families. Prints
+    the payload bytes, the prefill-and-ship seconds and the TTFT p50 of
+    shipped against local requests. Returns B4's launches."""
+    from tf_operator_tpu_torch.serve import disagg, serve_lm
+
+    cfg = replace(base, dtype=torch.bfloat16)
+    pre = serve_lm.build_prefill(cfg, params, serve_lm.front_args(
+        device="cuda", role="prefill", kv_block=BLK,
+        max_seq_len=cfg.max_seq_len, port=0)).start()
+    pre_url = "http://" + pre.endpoint
+    sup_l, srv_l, url_l = open_front(cfg, params)
+    sup_s, srv_s, url_s = open_front(cfg, params,
+                                     host_tier_bytes=TIER_BYTES)
+    try:
+        reset_counts(pa, i8)
+        bodies = [dict(tokens=p.tolist(), num_steps=FIRST_STEPS, timing=True)
+                  for p in prompts]
+        local, local_wall = send_all(url_l, bodies)
+        payloads, ship_s = [], []
+        for p in prompts:
+            t0 = time.perf_counter()
+            status, out = http(pre_url, "/prefill", {"tokens": p.tolist()})
+            ship_s.append(time.perf_counter() - t0)
+            if status != 200:
+                raise AssertionError(f"/prefill {status}: {out}")
+            payloads.append(out["shipped_kv"])
+        shipped, ship_wall = send_all(url_s, [
+            dict(b, shipped_kv=pl) for b, pl in zip(bodies, payloads)])
+        later = later_prompts(prompts, cfg.vocab_size)[0]
+        body = dict(tokens=later.tolist(), num_steps=PULL_STEPS)
+        _, ref = http(url_l, "/generate", body)
+        _, health_l = http(url_l, "/healthz")
+        digest = disagg.chain_digests(later[0], BLK)[-1]
+        t0 = time.perf_counter()
+        status, pulled = http(url_l, f"/prefix/{digest}")
+        pull_ms = (time.perf_counter() - t0) * 1e3
+        if status != 200 or digest not in health_l.get("prefixes", ()):
+            raise AssertionError(f"pull {status}: {digest} not advertised "
+                                 f"or not exported")
+        _, via = http(url_s, "/generate",
+                      dict(body, shipped_kv=pulled["shipment"]))
+        bad = dict(payloads[0], rows_sha1="0" * 40)
+        bad_status, bad_out = http(url_s, "/generate",
+                                   dict(bodies[0], shipped_kv=bad))
+        miss_status, miss = http(url_l, "/prefix/" + "cd" * 20)
+        _, health_s = http(url_s, "/healthz")
+
+        def shrink(engine):
+            engine.prefix_retain_max = 2
+            engine._evict_retained()
+
+        sup_s.scheduler.call_engine(shrink)
+        _, tiered = http(url_s, "/healthz")
+        _, metrics = http(url_s, "/metrics")
+        kv_s = sup_s.debug_snapshot()["kv_cache"]
+        torch.cuda.synchronize()
+        launches = pa.launches
+    finally:
+        for server in (srv_l, srv_s):
+            server.drain()
+        pre.stop()
+        del sup_l, sup_s
+        torch.cuda.empty_cache()
+    counted = {f: sum(float(v) for v in re.findall(
+        rf"^tpu_serve_{f}(?:{{[^}}]*}})? (\S+)$", metrics, re.M))
+        for f in SHIP_TIER_FAMILIES}
+    sizes = [wire_bytes(pl) for pl in payloads]
+    ttft = {label: float(np.percentile(
+        [t["ttft_ms"] for r in rs for t in r["timing"]], 50))
+        for label, rs in (("shipped", shipped), ("local", local))}
+    for lane, (p, (nb, nj), s) in enumerate(zip(prompts, sizes, ship_s)):
+        print(f"ship front bf16 (19c) lane {lane}: {p.shape[1]} tokens, "
+              f"payload {nb} bytes decoded, {nj} bytes of JSON, POST "
+              f"/prefill {s:.4f} s; on {card}", flush=True)
+    print(f"ship front bf16 (19c): TTFT p50 shipped {ttft['shipped']:.3f} "
+          f"ms (burst {ship_wall:.4f} s) vs local {ttft['local']:.3f} ms "
+          f"(burst {local_wall:.4f} s); GET /prefix {pull_ms:.3f} ms "
+          f"({wire_bytes(pulled['shipment'])[0]} bytes); S kv {kv_s}; "
+          f"/metrics {counted}; B4 launches {launches}; on {card}",
+          flush=True)
+    for lane, (a, b) in enumerate(zip(shipped, local)):
+        if a["tokens"] != b["tokens"] or not a["timing"][0].get(
+                "shipped_kv"):
+            raise AssertionError(f"ship front: lane {lane}'s shipped "
+                                 f"response differs from the local one")
+    if via.get("tokens") != ref["tokens"]:
+        raise AssertionError("ship front: the pulled prefix's response "
+                             "differs from front L's")
+    if (bad_status, bad_out.get("code")) != (503, "ship_failed") or (
+            miss_status, miss.get("code")) != (404, "prefix_not_found"):
+        raise AssertionError(f"ship front: tampered {bad_status} {bad_out}, "
+                             f"unknown digest {miss_status} {miss}")
+    if (not health_s.get("prefixes") or not tiered.get("tier_prefixes")
+            or kv_s["shipments_ingested"] != len(prompts) + 1
+            or not all(counted[f] for f in ("kv_ship_ingest_total",
+                                            "ship_tokens_total",
+                                            "kv_tier_bytes",
+                                            "kv_tier_spills_total"))
+            or not launches):
+        raise AssertionError(f"ship front: /healthz {sorted(health_s)} "
+                             f"then {sorted(tiered)}, kv {kv_s}, /metrics "
+                             f"{counted}, launches {launches}")
+    return launches
+
+
+def ship_phase(pa, i8, base, params, prompts, want, card) -> dict:
+    """Phase 19; returns each serving kernel's launches by path."""
+    t0 = time.perf_counter()
+    ship = ship_engine_phase(pa, i8, base, params, prompts, want, card)
+    tier = tier_phase(pa, i8, base, params, prompts, want, card)
+    front = ship_front_phase(pa, i8, base, params, prompts, card)
+    print(f"phase 19 (disaggregated prefill, prefix pulls, host tier): "
+          f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+    label = "tier kv8 bf16 (19b)"
+    return {
+        "paged_attend": {"ship engine f32 (19a)": ship,
+                         "tier engine f32 (19b)": tier["paged_attend"],
+                         "ship front bf16 (19c)": front},
+        "paged_attend_kv8": {label: tier["paged_attend_kv8"]},
+        "int8_matmul": {label: tier["int8_matmul"]},
+        "int8_matmul_prefill": {label: tier["int8_matmul_prefill"]},
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -3328,6 +3770,9 @@ def main() -> int:
     print(f"phase 18 (checkpoints, resume and eval): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    shipped = ship_phase(pa, i8, base, params, prompts,
+                         f32["kernel"]["tokens"], card)
+
     # Each kernel's launches on every path of this run that drives it.
     paths = {
         "paged_attend": {
@@ -3357,6 +3802,8 @@ def main() -> int:
             "front int8 (15c)": front_int8["int8_matmul_prefill"],
             "constrained int8 (16c)": con_int8["int8_matmul_prefill"]},
     }
+    for name, by_path in shipped.items():
+        paths[name].update(by_path)
     for name in flash_bf16:
         paths[name] = {"trainer f32 (8)": flash_f32[name],
                        "trainer bf16 (9)": flash_bf16[name],

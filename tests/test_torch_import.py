@@ -52,12 +52,14 @@ def test_package_imports_with_jax_and_the_reference_poisoned():
     # Every module was imported: ckpt (1: protocol), models (3: convert,
     # spec_decode, transformer), ops (4: _build, flash_attention,
     # int8_dense, paged_attention), runtime (2: metrics, tracing), serve
-    # (8: constrain, engine, kvcache, faultinject, resilience, scheduler,
-    # httpapi, serve_lm), train (3: checkpoint, dist_lm, steps), utils (1:
-    # signals), random and testing, and the seven packages.
-    assert int(out.stdout.split()[-1]) >= 31
+    # (10: constrain, disagg, engine, kvcache, faultinject, resilience,
+    # scheduler, httpapi, serve_lm, tier), train (3: checkpoint, dist_lm,
+    # steps), utils (1: signals), random and testing, and the seven
+    # packages.
+    assert int(out.stdout.split()[-1]) >= 33
     for name in ("serve.constrain", "models.spec_decode", "ckpt.protocol",
-                 "utils.signals", "train.checkpoint", "train.dist_lm"):
+                 "utils.signals", "train.checkpoint", "train.dist_lm",
+                 "serve.disagg", "serve.tier"):
         assert f"tf_operator_tpu_torch.{name}" in out.stdout.split()
 
 

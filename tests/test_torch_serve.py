@@ -64,15 +64,10 @@ MIXED = [
     (prompt_of(6, 6), 12, 0.0, None, 0),
 ]
 # What the JAX front shows and the port leaves out with the items that
-# bring it: the KV pool's shipment, export and retention counters (A7),
-# and the metric families of KV shipments and the host tier (A7) and of
-# speculative decoding (A6b).
-UNPORTED_KV_KEYS = {"shipments_ingested", "ship_tokens_ingested",
-                    "prefix_exports", "prefix_retained"}
-UNPORTED_FAMILIES = {
-    "tpu_serve_kv_ship_ingest_total", "tpu_serve_ship_tokens_total",
-    "tpu_serve_kv_tier_bytes", "tpu_serve_kv_tier_restores_total",
-    "tpu_serve_kv_tier_spills_total"}
+# bring it: nothing since KV shipments, prefix export, retention and the
+# host tier were ported.
+UNPORTED_KV_KEYS: set = set()
+UNPORTED_FAMILIES: set = set()
 
 
 @pytest.fixture(scope="module")
@@ -228,8 +223,12 @@ def test_unported_fields_refused_typed_before_device_work(params, field,
 
 
 def test_submit_validates_eagerly(params):
-    """Twin of test_serve_sched.py's eager validation, plus the A7
-    fields."""
+    """Twin of test_serve_sched.py's eager validation, plus the shipment
+    and session fields, which the port now serves: a shipment the engine
+    cannot ingest falls back to the local prefill (counted
+    ``tpu_serve_kv_ship_ingest_total{outcome="failed"}``, as in JAX), and
+    a session key on an engine without a host tier is an ordinary
+    request; both give solo generate's tokens."""
     sched = ContinuousScheduler(port_engine(params, 1))
     with pytest.raises(ValueError, match="max_seq_len"):
         sched.submit(prompt_of(60, 1), 10)
@@ -237,9 +236,18 @@ def test_submit_validates_eagerly(params):
         sched.submit(prompt_of(4, 1), 2, top_p=0.9)
     with pytest.raises(ValueError, match="one request row"):
         ServeRequest(np.zeros((2, 4), np.int32), 2)
-    for kw in ({"shipment": object()}, {"session": "s"}):
-        with pytest.raises(resilience.NotPorted, match="ROADMAP A7"):
-            sched.enqueue(ServeRequest(prompt_of(4, 1), 2, **kw))
+    sched.start()
+    try:
+        failed0 = metrics.SERVE_SHIP_INGEST_TOTAL.value(outcome="failed")
+        for kw in ({"shipment": object()}, {"session": "s"}):
+            req = sched.submit_request(
+                ServeRequest(prompt_of(4, 1), 2, **kw), timeout=300)
+            assert not req.shipped_join and not req.tier_join
+            assert [req.out] == solo(params, prompt_of(4, 1), 2).tolist()
+        assert metrics.SERVE_SHIP_INGEST_TOTAL.value(
+            outcome="failed") == failed0 + 1
+    finally:
+        sched.stop(timeout=30)
 
 
 def test_debug_snapshot_and_readiness_keys_match_jax(params):

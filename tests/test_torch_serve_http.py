@@ -271,9 +271,30 @@ def test_structured_fields_served_as_jax(front, jax_front, fields, reason):
     assert snap["slots_constrained"] == 0 and snap["logprobs_k"] == 3
 
 
+@pytest.mark.parametrize("body,status,code", [
+    ({"shipped_kv": {"blocks": []}}, 503, "ship_failed"),
+    ({"session": "s1"}, 200, None),
+])
+def test_shipment_and_session_fields(front, body, status, code):
+    """The fields of disaggregated serving and the host tier: a shipment
+    that fails verification answers the typed ``ship_failed`` (retryable:
+    the router prefills again) before anything is queued; a session key on
+    a replica without a host tier serves the prompt as a request without
+    one does."""
+    _, supervisor, url = front
+    plain = {"tokens": prompt_of(4, 3).tolist(), "num_steps": 4}
+    done0 = supervisor.requests_done
+    got_status, out = call(url, "/generate", {**plain, **body})
+    assert got_status == status
+    if code:
+        assert out["code"] == code and out["retryable"] is True
+        assert out["replica"] == "gpu-0"
+        assert supervisor.requests_done == done0
+    else:
+        assert out["tokens"] == call(url, "/generate", plain)[1]["tokens"]
+
+
 @pytest.mark.parametrize("body,code,item", [
-    ({"shipped_kv": {"blocks": []}}, "bad_request", "A7"),
-    ({"session": "s1"}, "bad_request", "A7"),
     ({"top_p": 0.9}, "bad_request", None),
     ({"stream": True, "temperature": 0.5}, "bad_request", None),
     ({"stream": True, "regex": "[0-9]+"}, "bad_request", None),
@@ -284,11 +305,10 @@ def test_structured_fields_served_as_jax(front, jax_front, fields, reason):
     ({"n": 5, "temperature": 0.5}, "bad_request", None),
 ])
 def test_typed_400s(front, body, code, item):
-    """The fields of items the port has not ported, structured requests
-    that cannot be served (a bad grammar or stop, ``stream`` with a
-    grammar, greedy ``n`` > 1 or more candidates than slots), and top_p
-    without a temperature answer a typed, non-retryable 400, naming the
-    item where there is one."""
+    """Structured requests that cannot be served (a bad grammar or stop,
+    ``stream`` with a grammar, greedy ``n`` > 1 or more candidates than
+    slots) and top_p without a temperature answer a typed, non-retryable
+    400, naming the item where there is one."""
     _, supervisor, url = front
     done0 = supervisor.requests_done
     status, out = call(url, "/generate", {
@@ -320,7 +340,8 @@ def test_gets(front):
     assert status == 200 and "# TYPE tpu_serve_requests_total counter" \
         in text
     status, out = call(url, "/prefix/abc")
-    assert status == 400 and "ROADMAP A7" in out["detail"]
+    assert status == 404 and out["code"] == "prefix_not_found"
+    assert out["retryable"] is False and out["replica"] == "gpu-0"
     assert call(url, "/nope")[0] == 404
 
 
@@ -357,8 +378,10 @@ def test_fleet_router_serves_a_port_replica(front):
     (["--engine", "coalesce"], "ROADMAP A10"),
     (["--batch-window", "0.01"], "ROADMAP A10"),
     (["--from-pp", "2"], "ROADMAP A8"),
-    (["--role", "prefill"], "ROADMAP A7"),
-    (["--host-tier-bytes", "1024"], "ROADMAP A7"),
+    (["--role", "prefill", "--int8"],
+     "--role prefill does not compose with --int8"),
+    (["--role", "prefill", "--spec-k", "2", "--kv-int8"],
+     "--role prefill does not compose with --spec-k/--kv-int8"),
     (["--prefill-budget", "0"], "--prefill-budget must be >= 1"),
     (["--max-seq-len", "100", "--kv-block", "16"], "multiple of"),
     (["--spec-k", "2", "--logprobs-k", "3"],

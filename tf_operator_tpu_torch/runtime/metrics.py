@@ -6,10 +6,10 @@ port's serving path touches: the registry primitives (counters, gauges,
 histograms with labels, rendered in the Prometheus text format at
 /metrics) and the ``tpu_serve_*`` families of the continuous-batching
 front, under the JAX package's names, labels and buckets, so a scrape of
-either server parses the same way, constrained decoding's four families
-and speculative decoding's two included. The families of later items (KV
-shipments and the host tier: ROADMAP A7) are left out until those items
-are ported.
+either server parses the same way: constrained decoding's four families,
+speculative decoding's two, and the five of KV shipments and the host KV
+tier (shipment ingests and shipped tokens; the tier's bytes, restores and
+spills) included.
 
 Thread-safe; all mutation is under one lock per metric family.
 """
@@ -383,6 +383,45 @@ SERVE_OCCUPANCY = REGISTRY.histogram(
     "Fraction of decode slots active, observed at every decode step — "
     "the quantity decode throughput is proportional to",
     buckets=(0.0625, 0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0),
+)
+SERVE_SHIP_INGEST_TOTAL = REGISTRY.counter(
+    "tpu_serve_kv_ship_ingest_total",
+    "Shipped-KV ingest attempts on a decode replica, by outcome (ok: "
+    "blocks written + prefix registered; exhausted: no free blocks — "
+    "the request requeued; unsupported: dense engine, shipment dropped "
+    "and prefill ran locally; failed: malformed/mismatched payload, "
+    "local-prefill fallback)",
+    ("outcome",),
+)
+SERVE_SHIP_TOKENS_TOTAL = REGISTRY.counter(
+    "tpu_serve_ship_tokens_total",
+    "Prompt tokens whose K/V arrived as shipped block-pool rows from a "
+    "dedicated prefill replica instead of local prefill (the "
+    "disaggregation win: these tokens never time-shared the decode "
+    "device)",
+)
+SERVE_KV_TIER_BYTES = REGISTRY.gauge(
+    "tpu_serve_kv_tier_bytes",
+    "Host-RAM KV tier occupancy by tier label (host = decoded bytes of "
+    "spilled prefix payloads currently stored, host_free = remaining "
+    "byte budget) — the second level of the KV memory hierarchy "
+    "(docs/kv-tiering.md)",
+    ("tier",),
+)
+SERVE_KV_TIER_RESTORES = REGISTRY.counter(
+    "tpu_serve_kv_tier_restores_total",
+    "Host-tier KV restore attempts on admission/prefetch, by outcome "
+    "(ok: payload uploaded into pool blocks + prefix registered; "
+    "exhausted: tier hit but no free HBM blocks — the request waits; "
+    "miss: no stored prefix deeper than the hot HBM hit; failed: "
+    "stored payload no longer decodes — dropped, local prefill runs)",
+    ("outcome",),
+)
+SERVE_KV_TIER_SPILLS = REGISTRY.counter(
+    "tpu_serve_kv_tier_spills_total",
+    "Prefix entries spilled from the HBM block pool into the host-RAM "
+    "KV tier when their last pool holder freed (retention reclaim, "
+    "retire, CoW source release) instead of vanishing",
 )
 
 SERVE_SPEC_ACCEPT_TOKENS = REGISTRY.histogram(

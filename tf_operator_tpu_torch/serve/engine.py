@@ -65,8 +65,31 @@ in ``plan_admission``, ``step_raise`` and ``step_stall`` in ``step``),
 ``mesh_info``, ``free_block_fraction``, the ``tpu_serve_kv_*`` and
 ``tpu_serve_spec_*`` gauges and counters, and ``warmup`` (a step or
 round over no live lane, run by a server's engine factory so the kernels
-are built and loaded before it reports ready). Disaggregation, the host
-tier, the dense slot engine and meshes are later slices.
+are built and loaded before it reports ready).
+
+Disaggregation, prefix pulls and the host KV tier, as the JAX engine has
+them (the wire format is ``serve/disagg.py``'s):
+
+- ``ingest_shipment`` lands a verified shipment: blocks allocated, the
+  shipped rows written into the pool (``kvcache.pool_write``), the prompt
+  registered in the PrefixCache with the shipped logits; a ``ShipHold``
+  keeps the blocks until the request's own plan has referenced them
+  (``release_shipment``). The plan then exact-hits the prefix and joins
+  through the table insert, so shipped decode is bit-identical to local.
+- Retention (``prefix_retain_max`` > 0): a completed prompt's exact entry
+  keeps one extra reference per block, in a bounded LRU that gives way to
+  any admission or ingest short of blocks. ``advertised_prefixes`` and
+  ``export_prefix`` (``GET /prefix/<digest>``) serve from it.
+- The host tier (``host_tier``, a ``serve/tier.py`` ``HostTier``; None is
+  off): every block release goes through ``_free_blocks``, which spills
+  the dying exact entries to the tier as wire payloads before anything can
+  reallocate their blocks; ``restore_from_tier`` lands the deepest stored
+  prefix of a prompt through ``ingest_shipment``.
+
+Every device read or write of these mutates or reads the cache in place,
+so a server runs them on its serving loop's thread (the scheduler's
+``call_engine``), as it runs the steps. The dense slot engine and meshes
+are later slices.
 """
 
 from __future__ import annotations
@@ -103,9 +126,11 @@ from tf_operator_tpu_torch.random import PRNGKey, categorical, gumbel, split
 from tf_operator_tpu_torch.runtime.metrics import (
     SERVE_KV_BLOCKS,
     SERVE_KV_COW_TOTAL,
+    SERVE_KV_TIER_RESTORES,
     SERVE_MESH_DEVICES,
     SERVE_PHASE_SECONDS,
     SERVE_PREFILL_SAVED_TOTAL,
+    SERVE_SHIP_TOKENS_TOTAL,
     SERVE_SPEC_ACCEPT_TOKENS,
     SERVE_SPEC_ROUNDS_TOTAL,
 )
@@ -116,6 +141,7 @@ from tf_operator_tpu_torch.serve.faultinject import (
     InjectedFault,
 )
 from tf_operator_tpu_torch.serve.kvcache import (
+    POOL_WIRE_PARTS,
     BlockAllocator,
     PrefixCache,
     SlotAllocator,
@@ -125,6 +151,7 @@ from tf_operator_tpu_torch.serve.kvcache import (
     mask_inactive_indices,
     paged_cache_template,
     paged_insert,
+    pool_write,
     solo_cache_template,
     stack_slots,
     table_insert,
@@ -177,6 +204,22 @@ class AdmissionPlan:
         return self.prompt_len - self.shared_tokens
 
 
+@dataclass
+class ShipHold:
+    """The ingest-time hold on a shipment's freshly written blocks: the
+    ingest allocates them at refcount 1 and registers the prompt in the
+    PrefixCache, and THIS object keeps them (and with them the
+    registration) alive until the shipped request's own admission plan has
+    referenced them; then ``release_shipment`` drops the hold and the
+    blocks live exactly as long as the request, as any local prefix
+    donor's do. Empty ``blocks``: the prompt was already registered live
+    (a duplicate in flight) and the ingest wrote nothing."""
+
+    blocks: tuple = ()
+    tokens: int = 0
+    settled: bool = False
+
+
 class ContinuousEngine:
     """The continuous-batching engine (see the module docstring). Public
     surface: ``plan_admission``/``prefill_planned``/``join_planned`` (and
@@ -193,6 +236,10 @@ class ContinuousEngine:
     ``spec_k`` >= 1 with ``draft_cfg``/``draft_params`` (a flax-layout
     tree) makes it a speculative engine that decodes by ``spec_step``.
     ``device`` defaults to the CUDA card."""
+
+    # The KV layout, as the JAX engine names it: always the block-paged
+    # pool here (the dense slot engine is a later slice).
+    kv_paged = True
 
     def __init__(self, cfg: TransformerConfig, params, max_slots: int, *,
                  kv_block: int = 64, kv_blocks: int | None = None,
@@ -274,6 +321,30 @@ class ContinuousEngine:
         self.cow_copies = 0
         self.prefill_tokens_saved = 0
         self.steps_total = 0
+        # Disaggregated prefill: shipments landed, and the prompt tokens
+        # whose K/V arrived as wire rows instead of a local prefill.
+        self.shipments_ingested = 0
+        self.ship_tokens_ingested = 0
+        # Fleet-global prefix reuse: the /healthz advertisement's width and
+        # the /prefix/<digest> export count.
+        self.prefix_advertise_max = 32
+        self.prefix_exports = 0
+        # Prefix retention, 0 = off (every block returns at retire). When
+        # > 0, each completed prompt's exact entry keeps one extra pool
+        # reference per block past its slot, in a bounded LRU; every
+        # retained hold gives way before an admission or an ingest reports
+        # the pool exhausted, so retention can delay live work but never
+        # starve it. A fleet server turns it on.
+        self.prefix_retain_max = 0
+        self._retained: dict[bytes, list[int]] = {}
+        # The host KV tier (serve/tier.py), None = off: dying exact prefix
+        # entries spill to it as wire payloads and admission restores them.
+        # Off, the accounting is the tier-less one exactly (kv_debug has no
+        # tier section, every spill and restore path returns at once).
+        self.host_tier = None
+        self.tier_spills = 0
+        self.tier_restores = 0
+        self.tier_restore_tokens = 0
         self.faults = faults or NULL_INJECTOR
         # Request id per slot (scheduler-set after join): the engine's own
         # spans (CoW copies fire inside step()) name the slot's request.
@@ -357,6 +428,12 @@ class ContinuousEngine:
         cow_needed = n == n_prompt and n % blk != 0
         need = cap - shared_entries + (1 if cow_needed else 0)
         priv = self.blocks.alloc(need)
+        if priv is None and self._retained:
+            # Pool pressure: retained prefix holds give way to a live
+            # admission before the caller is told to queue, sparing the
+            # donor this plan shares from.
+            self._evict_retained(until_free=need, keep=shared)
+            priv = self.blocks.alloc(need)
         if priv is None:
             return None  # block exhaustion: the caller queues
         if n:
@@ -388,12 +465,387 @@ class ContinuousEngine:
             list(plan.private_blocks) + list(plan.shared_blocks))
 
     def _free_blocks(self, blks) -> None:
-        """The one block release path: drop refcounts, and invalidate the
-        prefix entries whose last holder just left."""
+        """THE block release path: drop refcounts, invalidate the prefix
+        entries whose last holder just left and, with a host tier, spill
+        the dying exact entries into it first. Every release (retire,
+        retention eviction, plan and shipment release, a CoW source) goes
+        through here, so no prefix vanishes without the tier seeing it."""
         freed = self.blocks.free(list(blks))
         if freed:
-            self.prefix.invalidate_blocks(freed)
+            dropped = self.prefix.invalidate_blocks(freed)
+            if dropped and self.host_tier is not None:
+                self._spill_entries(dropped)
         self._set_block_gauges()
+
+    # -- the host KV tier (serve/tier.py) ---------------------------------
+
+    def _spill_entries(self, dropped) -> None:
+        """Serialize dying prefix entries into the host tier as wire
+        payloads. Safe exactly here: the freed blocks are back in the
+        allocator's heap, but their pool rows stay intact until a later
+        allocation, and the gather and its copy to the host finish before
+        this returns (one stream; ``.cpu()`` waits for it). Only exact
+        entries (stored sampling logits) spill: an aligned sub-prefix is
+        subsumed by its prompt's exact entry (a restore registers the
+        whole chain again), and the wire format cannot ship it.
+        Best-effort: a failed export drops that entry (its blocks were
+        dying anyway) and never breaks the release."""
+        from tf_operator_tpu_torch.serve.disagg import export_shipment
+        from tf_operator_tpu_torch.serve.tier import payload_nbytes
+
+        t0 = time.monotonic()
+        spilled = nbytes = 0
+        for e in dropped:
+            if e.logits is None:
+                continue
+            try:
+                with torch.no_grad():
+                    solo = gather_solo(self._cache, np.asarray(e.blocks))
+                payload = export_shipment(solo, e.tokens, e.logits,
+                                          self.kv_block)
+            except Exception:  # noqa: BLE001 — spill is best-effort
+                continue
+            if self.host_tier.put(payload):
+                spilled += 1
+                nbytes += payload_nbytes(payload)
+        if spilled:
+            self.tier_spills += spilled
+            t1 = time.monotonic()
+            SERVE_TRACER.record("kv.spill", t0, t1, entries=spilled,
+                                bytes=nbytes)
+            SERVE_PHASE_SECONDS.inc(t1 - t0, phase="tier_spill")
+
+    def restore_from_tier(self, tokens, reserve_steps: int = 0):
+        """Deepest-chain host-tier restore for one prompt: find the longest
+        stored chain prefix STRICTLY deeper than the live prefix hit,
+        decode its payload and land it through ``ingest_shipment``, after
+        which ``plan_admission`` finds the restored prefix as if it had
+        never left the pool (table-insert join, bit-identical decode).
+
+        Returns ``(hold, outcome)``: ``(ShipHold, "ok")``, whose hold the
+        caller releases once its plan holds references; ``(None,
+        "exhausted")``, a restorable entry exists but the pool cannot hold
+        prompt + ``reserve_steps`` (the can-restore wait: the caller
+        requeues knowing that capacity, not recompute, is what it waits
+        for); ``(None, "miss")``, nothing stored deeper than what the pool
+        already shares; ``(None, "failed")``, the stored payload no longer
+        decodes (dropped as poison; a local prefill serves the request).
+        Never raises. Runs on the serving loop's thread, as every device
+        write does."""
+        from tf_operator_tpu_torch.serve.disagg import (
+            chain_digests,
+            decode_shipment,
+        )
+        from tf_operator_tpu_torch.serve.tier import payload_nbytes
+
+        if self.host_tier is None:
+            return None, "miss"
+        tokens = np.ascontiguousarray(
+            np.asarray(tokens, np.int32).reshape(-1))
+        n_tok, blk = int(tokens.shape[0]), self.kv_block
+        chain = chain_digests(tokens, blk)  # hex, shortest first
+        lengths = [(k + 1) * blk for k in range(n_tok // blk)]
+        if n_tok % blk:
+            lengths.append(n_tok)
+        n_live, _, live_logits = self.prefix.lookup(tokens)
+        if n_live == n_tok and live_logits is not None:
+            return None, "miss"  # already hot: the plan exact-joins
+        t0 = time.monotonic()
+        outcome = "miss"
+        for length, hx in zip(reversed(lengths), reversed(chain)):
+            if length <= n_live:
+                break  # the pool already shares this deep: nothing to gain
+            payload = self.host_tier.get(hx)
+            if payload is None:
+                continue
+            try:
+                shp = decode_shipment(payload)
+                # Budget the WHOLE request, not just the stored prefix: the
+                # plan that follows still needs blocks for the un-restored
+                # prompt tail and the decode horizon.
+                hold = self.ingest_shipment(
+                    shp, reserve_steps=int(reserve_steps) + (n_tok - length),
+                    _source="tier")
+            except Exception:  # noqa: BLE001 — poison payload: drop it;
+                # a local prefill serves the request.
+                self.host_tier.discard(hx)
+                outcome = "failed"
+                break
+            if hold is None:
+                outcome = "exhausted"
+                break
+            self.tier_restores += 1
+            self.tier_restore_tokens += length
+            t1 = time.monotonic()
+            SERVE_TRACER.record("kv.restore", t0, t1, tokens=length,
+                                blocks=len(hold.blocks), digest=hx[:12],
+                                bytes=payload_nbytes(payload))
+            SERVE_PHASE_SECONDS.inc(t1 - t0, phase="tier_restore")
+            SERVE_KV_TIER_RESTORES.inc(outcome="ok")
+            return hold, "ok"
+        SERVE_KV_TIER_RESTORES.inc(outcome=outcome)
+        return None, outcome
+
+    def tier_probe(self, tokens) -> bool:
+        """Could a queued prompt restore from the host tier? A host-side
+        membership probe (no LRU change, no device work): the
+        block-exhaustion requeue's must-wait vs can-restore, safe from any
+        thread."""
+        if self.host_tier is None:
+            return False
+        from tf_operator_tpu_torch.serve.disagg import chain_digests
+
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        return self.host_tier.deepest(
+            chain_digests(tokens, self.kv_block)) is not None
+
+    def advertised_tier_prefixes(self) -> list[str]:
+        """Hex digests of the warmest host-tier payloads, MRU first, under
+        the hot advertisement's ``prefix_advertise_max`` cap: the /healthz
+        ``tier_prefixes`` list. Empty without a tier."""
+        if self.host_tier is None:
+            return []
+        return self.host_tier.advertise(self.prefix_advertise_max)
+
+    # -- prefix retention ---------------------------------------------------
+
+    def _retain_prefix(self, tokens) -> None:
+        """Pin a just-registered prompt's EXACT prefix entry past its slot:
+        one extra pool reference per block, recorded in the bounded
+        ``_retained`` LRU. A duplicate prompt refreshes recency without a
+        second reference (first writer wins keeps the entry's blocks). A
+        no-op unless retention is on."""
+        if self.prefix_retain_max <= 0:
+            return
+        hold = self.prefix.exact_hold(tokens)
+        if hold is None:
+            return
+        key, blks = hold
+        old = self._retained.pop(key, None)
+        if old is not None:
+            self._retained[key] = old
+            return
+        self.blocks.ref(blks)
+        self._retained[key] = list(blks)
+        self._evict_retained()
+
+    def _evict_retained(self, until_free: int | None = None,
+                        keep=()) -> None:
+        """Drop retained prefix holds, oldest first: down to the
+        ``prefix_retain_max`` cap (no argument), or until the pool has
+        ``until_free`` free blocks (admission or ingest pressure). Holds
+        overlapping ``keep`` (the donor an in-flight plan shares from) are
+        spared."""
+        keep = set(int(b) for b in keep)
+        for key in list(self._retained):
+            if until_free is None:
+                if len(self._retained) <= max(0, int(self.prefix_retain_max)):
+                    break
+            elif self.blocks.free_blocks >= until_free:
+                break
+            blks = self._retained[key]
+            if keep and not keep.isdisjoint(blks):
+                continue
+            del self._retained[key]
+            self._free_blocks(blks)
+
+    # -- shipped-KV ingest (disaggregated prefill) ---------------------------
+
+    def ingest_shipment(self, shp: Any, reserve_steps: int = 0,
+                        _source: str = "ship") -> ShipHold | None:
+        """Land one verified shipment (``serve/disagg.py`` ``Shipment``) in
+        the block pool: allocate ``ceil(L/B)`` blocks, write the shipped
+        rows into them, and register the prompt (blocks and the shipped
+        last-position logits) in the PrefixCache, after which the request's
+        own ``plan_admission`` finds an EXACT prefix match and joins through
+        the table insert, bit-identical to a local exact-prefix hit.
+        Returns None on block exhaustion (the caller requeues, as on a plan
+        miss). Raises ValueError on a geometry mismatch (another kv_block,
+        row shapes, layers or parts): the caller falls back to a local
+        prefill.
+
+        ``reserve_steps`` is the request's decode horizon: the ingest
+        refuses (None) while the pool cannot hold prompt + steps, because a
+        shipment the plan cannot use yet would be written, released and
+        written again once a loop iteration until capacity frees.
+
+        The decode step is untouched (``decode_step_compiles`` does not
+        change). kv_int8 pools ingest too: ``_ship_rows`` derives the parts
+        a layer needs from the LIVE pool leaves, so a kv8 engine refuses a
+        shipment without scales and a bf16 or f32 one a shipment with them,
+        both as ValueError, never a partial write."""
+        if int(shp.kv_block) != self.kv_block:
+            raise ValueError(
+                f"shipment kv_block={shp.kv_block} != engine "
+                f"kv_block={self.kv_block}"
+            )
+        tokens = np.asarray(shp.tokens, np.int32).reshape(-1)
+        n_tok, blk = int(tokens.shape[0]), self.kv_block
+        cap = -(-n_tok // blk)
+        if cap > self.kv_blocks - 1:
+            raise ValueError(
+                f"shipment of {n_tok} tokens needs {cap} blocks; the pool "
+                f"has only {self.kv_blocks - 1} allocatable"
+            )
+        n, _, logits = self.prefix.lookup(tokens)
+        if n == n_tok and logits is not None:
+            # Already registered live (a duplicate prompt in flight):
+            # nothing to write; admission exact-hits the existing entry. An
+            # empty hold keeps release idempotent.
+            return ShipHold((), n_tok, settled=True)
+        # The whole request's budget, not just the shipment's: the plan
+        # that follows also needs the decode horizon's blocks (and the CoW
+        # destination when the prompt ends mid-block).
+        need = -(-(n_tok + int(reserve_steps)) // blk)
+        if n_tok % blk:
+            need += 1
+        if self.blocks.free_blocks < need and self._retained:
+            self._evict_retained(until_free=need)
+        if self.blocks.free_blocks < need:
+            return None  # pool exhaustion: the caller requeues
+        blocks = self.blocks.alloc(cap)
+        if blocks is None:
+            return None
+        try:
+            rows = self._ship_rows(shp, cap * blk)
+            table = np.zeros(self.table_len, np.int32)
+            table[:cap] = blocks
+            with torch.no_grad():
+                pool_write(self._cache, table, rows, blk)
+        except Exception:
+            self._free_blocks(blocks)
+            raise
+        self.prefix.register(tokens, blocks,
+                             np.asarray(shp.logits, np.float32))
+        self._retain_prefix(tokens)
+        if _source == "ship":
+            # A host-tier restore reuses this path but is not a shipment:
+            # it keeps its own counters (tier_restores).
+            self.shipments_ingested += 1
+            self.ship_tokens_ingested += n_tok
+            SERVE_SHIP_TOKENS_TOTAL.inc(n_tok)
+        self._set_block_gauges()
+        return ShipHold(tuple(blocks), n_tok)
+
+    def _ship_rows(self, shp: Any, cap_rows: int) -> list[dict]:
+        """The shipped rows by layer as ``{pool leaf: tensor}``, checked
+        against the pool: the JAX engine's ``_padded_ship_rows`` without
+        the padding (``pool_write`` moves only the shipment's rows). The
+        parts a layer needs come from its LIVE pool leaves
+        (``POOL_WIRE_PARTS``): K/V rows always, the f32 scales exactly when
+        the pool is kv_int8. A shipment that does not match the pool's
+        quantization is a geometry error, never a partial write."""
+        from tf_operator_tpu_torch.serve.disagg import layer_path
+
+        # wire path -> wire part -> (pool leaf, its per-row trailing shape:
+        # (KV, Dh) for K/V, (KV,) for the scales)
+        want = {
+            layer_path(i): {POOL_WIRE_PARTS[name]: (name, tuple(leaf.shape[2:]))
+                            for name, leaf in layer.items()
+                            if name in POOL_WIRE_PARTS}
+            for i, layer in enumerate(self._cache["layers"])
+        }
+        # Every layer must be covered: a partial shipment would decode
+        # garbage for the missing layers.
+        if set(shp.rows) != set(want):
+            raise ValueError(
+                f"shipment covers layers {sorted(shp.rows)} but the engine "
+                f"has {sorted(want)}"
+            )
+        out = []
+        for path, parts in want.items():
+            if set(shp.rows[path]) != set(parts):
+                raise ValueError(
+                    f"shipment rows {path} carry parts "
+                    f"{sorted(shp.rows[path])} but the pool needs "
+                    f"{sorted(parts)} (kv-int8 pools require the scale "
+                    f"sidecars; bf16 pools reject them)"
+                )
+            layer = {}
+            for part, (name, trail) in parts.items():
+                arr = torch.as_tensor(shp.rows[path][part])
+                if tuple(arr.shape) != (cap_rows,) + trail:
+                    raise ValueError(
+                        f"shipped rows {path}:{part} shape "
+                        f"{tuple(arr.shape)} != {(cap_rows,) + trail}"
+                    )
+                layer[name] = arr
+            out.append(layer)
+        return out
+
+    def release_shipment(self, hold: ShipHold | None) -> None:
+        """Drop the ingest-time hold (idempotent): after the shipped
+        request's plan has referenced its blocks, or on any error path
+        before that. Blocks whose refcount hits zero return to the pool and
+        invalidate their prefix entries, the retire bookkeeping."""
+        if hold is None or hold.settled:
+            return
+        hold.settled = True
+        self._free_blocks(list(hold.blocks))
+
+    # -- fleet-global prefix reuse --------------------------------------------
+
+    def advertised_prefixes(self) -> list[str]:
+        """Hex digests of the hottest PrefixCache entries, MRU first,
+        capped at ``prefix_advertise_max``: the /healthz advertisement a
+        fleet router scores prefix hits from. A host-side read under the
+        PrefixCache's lock, safe from any thread."""
+        return self.prefix.advertise(self.prefix_advertise_max)
+
+    def export_prefix(self, digest_hex: str) -> dict:
+        """The replica side of a cross-replica prefix pull (``GET
+        /prefix/<digest>``): the live EXACT PrefixCache entry under
+        ``digest_hex`` as the shipped-KV wire payload, its blocks gathered
+        back into the dense row layout (``gather_solo``) and rendered by
+        ``disagg.export_shipment``, so the puller lands it through the
+        ordinary ``ingest_shipment`` and exact-prefix table insert,
+        bit-identical to decoding here. A digest that is no longer (or was
+        never) hot may still sit in the host tier, which stores the same
+        payload: it answers from there, with no device work.
+
+        Raises the typed ``PrefixNotFound`` when the digest names no live
+        exact entry (a stale advertisement: the blocks were freed, or the
+        digest was only ever a longer prompt's aligned prefix, which has no
+        sampling logits to ship). The entry is checked again after the
+        gather, so one that left meanwhile is the typed miss, never rows of
+        reused blocks. Runs on the serving loop's thread (the scheduler's
+        ``call_engine``)."""
+        from tf_operator_tpu_torch.serve.disagg import export_shipment
+        from tf_operator_tpu_torch.serve.resilience import PrefixNotFound
+
+        entry = self.prefix.entry_for_hex(digest_hex)
+        if entry is None:
+            payload = self._tier_export(digest_hex)
+            if payload is not None:
+                return payload
+            raise PrefixNotFound(
+                f"no live exact prefix entry for {digest_hex[:12]}"
+            )
+        tokens, _, blocks, logits = entry
+        with torch.no_grad():
+            solo = gather_solo(self._cache, np.asarray(blocks))
+        again = self.prefix.entry_for_hex(digest_hex)
+        if again is None or tuple(again[2]) != tuple(blocks):
+            # A release racing this export spilled the entry (the free path
+            # goes through the tier), so the tier may still answer.
+            payload = self._tier_export(digest_hex)
+            if payload is not None:
+                return payload
+            raise PrefixNotFound(
+                f"prefix entry {digest_hex[:12]} retired mid-export"
+            )
+        payload = export_shipment(solo, tokens, logits, self.kv_block)
+        self.prefix_exports += 1
+        return payload
+
+    def _tier_export(self, digest_hex: str) -> dict | None:
+        """The host tier's stored payload for an export, or None."""
+        if self.host_tier is None:
+            return None
+        payload = self.host_tier.get(digest_hex)
+        if payload is not None:
+            self.prefix_exports += 1
+        return payload
 
     def _seed_cache(self, plan: AdmissionPlan) -> dict:
         """A solo dense cache seeded with the plan's shared prefix rows,
@@ -553,6 +1005,7 @@ class ContinuousEngine:
         prompt_blocks = plan.read_table[: -(-plan.prompt_len // self.kv_block)]
         self.prefix.register(plan.tokens[0], prompt_blocks,
                              row.cpu().numpy())
+        self._retain_prefix(plan.tokens[0])
         self.prefill_tokens_saved += plan.shared_tokens
         if plan.shared_tokens:
             SERVE_PREFILL_SAVED_TOTAL.inc(plan.shared_tokens)
@@ -908,8 +1361,9 @@ class ContinuousEngine:
         return out
 
     def kv_debug(self) -> dict:
-        """Block-pool stats, named as the JAX engine names them."""
-        return {
+        """Block-pool stats, named as the JAX engine names them; the
+        ``tier`` section only with a host tier attached."""
+        out = {
             "mode": "paged",
             "block": self.kv_block,
             "table_len": self.table_len,
@@ -922,7 +1376,18 @@ class ContinuousEngine:
             "prefix_entries": self.prefix.entries,
             "prefix_hits": self.prefix.hits,
             "prefill_tokens_saved": self.prefill_tokens_saved,
+            "shipments_ingested": self.shipments_ingested,
+            "ship_tokens_ingested": self.ship_tokens_ingested,
+            # Entries served to pulling routers, and completed-request
+            # entries pinned past their slots.
+            "prefix_exports": self.prefix_exports,
+            "prefix_retained": len(self._retained),
         }
+        if self.host_tier is not None:
+            out["tier"] = dict(self.host_tier.snapshot(),
+                               restores=self.tier_restores,
+                               restore_tokens=self.tier_restore_tokens)
+        return out
 
     @property
     def active_slots(self) -> int:

@@ -1,8 +1,8 @@
 """Paged KV-cache storage for continuous batching, in PyTorch.
 
 Counterpart of ``tf_operator_tpu/serve/kvcache.py`` for the block-paged
-pool and the dense slot tensor (the shipped-KV ingest and sharding are
-later slices). Per layer, one pool of ``[kv_num_blocks, kv_block, KV,
+pool, the dense slot tensor and the shipped-KV pool write (sharding is a
+later slice). Per layer, one pool of ``[kv_num_blocks, kv_block, KV,
 Dh]`` token blocks; each slot carries a ``[max_seq_len // kv_block]``
 int32 block table and a position counter (``models/transformer.py``
 describes the cache dict). Block 0 is the pinned garbage block that
@@ -22,8 +22,9 @@ one executable serves every join; eager PyTorch needs neither.
 
 ``SlotAllocator``, ``BlockAllocator`` and ``PrefixCache`` are this
 package's own copies of the JAX module's host classes (that module
-imports JAX), trimmed to one data-parallel shard; ``POOL_KEYS`` is its
-own copy of that module's table of pool leaves.
+imports JAX), trimmed to one data-parallel shard; ``POOL_KEYS`` and
+``POOL_WIRE_PARTS`` are its own copies of that module's tables of pool
+leaves.
 """
 
 from __future__ import annotations
@@ -46,6 +47,18 @@ from tf_operator_tpu_torch.models.transformer import DENSE_NAMES, POOL_NAMES
 # over the leaves a layer holds serves the scatter, the gather and the
 # copy-on-write.
 POOL_KEYS = dict(zip(POOL_NAMES, DENSE_NAMES))
+
+# Paged pool leaf -> the part name its rows travel under in the shipped-KV
+# wire format (serve/disagg.py): K/V rows as "key"/"value", the kv_int8
+# per-(token, head) f32 scales as "key_scale"/"value_scale" ([R, KV] rows,
+# no Dh axis). One table for the ingest write (``pool_write``) and the
+# engine's coverage check, so a new pool leaf cannot miss the wire.
+POOL_WIRE_PARTS = {
+    "pool_key": "key",
+    "pool_value": "value",
+    "pool_key_scale": "key_scale",
+    "pool_value_scale": "value_scale",
+}
 
 
 def paged_cache_template(model, max_slots: int) -> dict:
@@ -137,6 +150,36 @@ def table_insert(cache: dict, slot: int, read_table: np.ndarray,
     cache["block_table"][slot] = torch.as_tensor(
         np.asarray(read_table, np.int32), device=cache["block_table"].device)
     cache["cache_index"][slot] = int(index)
+    return cache
+
+
+def pool_write(cache: dict, write_table: np.ndarray, rows: list,
+               block: int) -> dict:
+    """Write SHIPPED rows into the pool through ``write_table``, in place:
+    the disaggregated-prefill ingest (serve/disagg.py). ``rows`` holds,
+    per layer, ``{pool leaf: [R, ...] tensor}`` (K/V ``[R, KV, Dh]``, the
+    kv_int8 scales ``[R, KV]``); row ``r`` goes to flat pool row
+    ``write_table[r // block] * block + r % block``, cast to the leaf's
+    dtype. No slot's table or counter changes: the request that owns the
+    rows joins later through the exact-prefix ``table_insert``, which is
+    what makes shipped decode bit-identical to local. The JAX module's
+    ``make_pool_write_fn`` pads every shipment to max_seq_len rows so that
+    one executable serves all, its pad rows landing in the pinned garbage
+    block 0 through the 0 entries of the table; here only the shipment's
+    rows move, and a 0 entry still sends its rows to block 0."""
+    dev = cache["block_table"].device
+    n_rows = max((int(r.shape[0]) for layer in rows for r in layer.values()),
+                 default=0)
+    pos = np.arange(n_rows)
+    flat = torch.as_tensor(
+        np.asarray(write_table, np.int64)[pos // block] * block + pos % block,
+        device=dev)
+    for lp, lr in zip(cache["layers"], rows):
+        for pname, r in lr.items():
+            pool = lp[pname]
+            nb, blk = pool.shape[:2]
+            pool.view(nb * blk, *pool.shape[2:])[flat[:r.shape[0]]] = r.to(
+                device=dev, dtype=pool.dtype)
     return cache
 
 
@@ -304,7 +347,12 @@ class PrefixCache:
     admitted prompt registers every full-block prefix plus the exact
     prompt with its last-position logits, so an identical prompt skips
     prefill. Entries reference live blocks only: ``invalidate_blocks``
-    drops every entry touching a block whose last holder released it."""
+    drops every entry touching a block whose last holder released it.
+    Persistence past a request's own slot is the engine's job: with
+    retention on (``ContinuousEngine.prefix_retain_max`` > 0) it takes
+    one extra pool reference per exact-entry block at registration
+    (``exact_hold`` is its read), so the entry outlives its slot until
+    the bounded retained set evicts it."""
 
     _SEED = hashlib.sha1(b"tpu-kv-prefix").digest()
 
@@ -392,7 +440,10 @@ class PrefixCache:
 
     def invalidate_blocks(self, freed) -> list[_PrefixEntry]:
         """Drop every entry referencing a block whose last holder just
-        released it; returns the dropped entries."""
+        released it; returns the dropped entries: the engine's host-tier
+        spill hook (serve/tier.py). The pool rows they reference stay
+        intact until the freed blocks are reallocated, so a caller that
+        serializes them before its next allocation reads valid K/V."""
         dropped: list[_PrefixEntry] = []
         with self._lock:
             for blk in freed:
@@ -411,3 +462,56 @@ class PrefixCache:
     @property
     def entries(self) -> int:
         return len(self._entries)
+
+    # -- fleet-global prefix reuse ------------------------------------------
+
+    def advertise(self, cap: int = 32) -> list[str]:
+        """The replica's hot-prefix advertisement: hex digests of up to
+        ``cap`` entries, most recently used first (dict order is the LRU
+        order: ``lookup`` hits refresh it, registrations append at the hot
+        end). It rides /healthz so a fleet router can score prefix hits;
+        entries reference LIVE blocks only, so a digest can go stale
+        between the advertisement and a pull, which is why
+        ``/prefix/<digest>`` answers the typed ``prefix_not_found``
+        instead of trusting this list."""
+        if cap <= 0:
+            return []  # NOT [-0:], which would be the whole table
+        with self._lock:
+            keys = list(self._entries)[-int(cap):]
+        keys.reverse()
+        return [k.hex() for k in keys]
+
+    def entry_for_hex(self, digest_hex: str):
+        """The live EXACT entry (stored sampling logits) under a hex
+        digest, as ``(tokens, n, blocks, logits)`` copies: the ``GET
+        /prefix/<digest>`` export's read. None when the digest names
+        nothing live, or only a longer prompt's aligned prefix (no logits:
+        the wire format cannot ship it, and a puller could not exact-join
+        it)."""
+        try:
+            key = bytes.fromhex(digest_hex)
+        except ValueError:
+            return None
+        with self._lock:
+            e = self._entries.get(key)
+            if e is None or e.logits is None:
+                return None
+            return (np.array(e.tokens, np.int32, copy=True), e.n,
+                    tuple(e.blocks), np.array(e.logits, copy=True))
+
+    def exact_hold(self, tokens) -> tuple[bytes, tuple[int, ...]] | None:
+        """``(digest, blocks)`` of the live exact-length entry for
+        ``tokens`` (sampling row present): the engine's retention hook,
+        the blocks it must extra-reference to keep this entry alive past
+        its last slot. None when the exact digest is unregistered,
+        collided, or only a longer prompt's aligned prefix (nothing worth
+        pinning: it could never exact-join or export)."""
+        tokens = np.ascontiguousarray(
+            np.asarray(tokens, np.int32).reshape(-1))
+        with self._lock:
+            n, key = self._chain_keys(tokens)[0]
+            e = self._entries.get(key)
+            if (e is None or e.logits is None or e.n != n
+                    or not np.array_equal(e.tokens, tokens)):
+                return None
+            return key, tuple(e.blocks)

@@ -241,8 +241,8 @@ class InvalidGrammar(ServeError):
 
 class NotPorted(ServeError):
     """A request field or server flag whose ROADMAP item the port has not
-    ported yet (the detail names the item): KV shipments, prefix export
-    and the host tier (A7), meshes (A8), the coalescing engine (A10). A
+    ported yet (the detail names the item): the dense slot engine (A5),
+    meshes (A8), the coalescing engine (A10). A
     400 under the front door's ``bad_request`` code, NOT retryable —
     every port replica would refuse it alike; the request never reaches
     the device."""
@@ -370,6 +370,7 @@ class EngineSupervisor:
                  faults: Any = None,
                  prefill_tokens_per_step: int = 256,
                  device_lock: threading.Lock | None = None,
+                 tier_prefetch: bool = True,
                  constrainer: Any = None) -> None:
         # Local import: scheduler imports this module for the error
         # taxonomy, so the supervisor resolves it lazily.
@@ -381,6 +382,9 @@ class EngineSupervisor:
         self.faults = faults or NULL_INJECTOR
         self._prefill_budget = prefill_tokens_per_step
         self._device_lock = device_lock
+        # Session prefetch knob (serve/tier.py), generation-invariant:
+        # every rebuilt scheduler inherits it.
+        self._tier_prefetch = bool(tier_prefetch)
         # Constraint compiler (serve/constrain.py), process-lifetime: a
         # watchdog rebuild keeps the compiled-program LRU, and replayed
         # constrained requests re-bind their (already stamped) programs
@@ -423,6 +427,7 @@ class EngineSupervisor:
             resilience=self.res,
             supervisor=self,
             faults=self.faults,
+            tier_prefetch=self._tier_prefetch,
             constrainer=self._constrainer,
         )
         if replay:

@@ -9,10 +9,15 @@ at ``enqueue`` (on the caller's thread, off the device lock) through the
 ``constrainer`` (``serve/constrain.py::ConstraintCompiler``), ``stop``
 sequences encode there too, and delivery walks each constrained lane's
 FSM on the host (retiring it at ``grammar_complete``), trims matched stop
-sequences and appends ``logprobs`` rows. Request fields of items the port
-has not ported yet fail at ``enqueue``, before any device work, as typed
-400s that name the item (``_refuse_unported``): KV shipments and session
-keys (ROADMAP A7).
+sequences and appends ``logprobs`` rows. Disaggregated prefill and the
+host KV tier as the JAX scheduler has them: a request's verified
+``shipment`` is ingested right before its admission plan
+(``_ingest_shipment``), so the plan exact-hits the shipped prefix and
+joins without a local prefill; with a host tier the deepest restorable
+prefix of the prompt is restored there too (``_restore_tier``); a
+``session`` key posts a restore at enqueue (``_maybe_prefetch``, under
+``tier_prefetch``), so the upload overlaps the queue wait; and
+``export_prefix`` answers ``GET /prefix/<digest>`` on the loop's thread.
 
 One thread owns the device (the engine is lock-free by design); HTTP
 handler threads talk to it only through ``submit``'s queue + event
@@ -29,7 +34,10 @@ handshake. Each loop iteration:
    instead of stalling every active slot for its whole prefill (when
    nothing is decoding the budget is waived: there is no one to
    protect). One-shot prefill (prefill_chunk=None) admits whole prompts,
-   still at most one batch of budget per iteration.
+   still at most one batch of budget per iteration. A shipment or a tier
+   hit is landed before the plan; a pool too full for it requeues the
+   request as a plan miss does, and a shipment that fails to ingest is
+   dropped for a local prefill (counted ``failed``).
 2. DECODE: one engine step advances every active slot one token; new
    tokens are appended per request, TTFT is observed on each request's
    first, and slots retire on num_steps or the request's eos_id. The
@@ -106,6 +114,7 @@ from tf_operator_tpu_torch.runtime.metrics import (
     SERVE_QUEUE_DEPTH,
     SERVE_REQUESTS_TOTAL,
     SERVE_SHED_TOTAL,
+    SERVE_SHIP_INGEST_TOTAL,
     SERVE_SLOTS_ACTIVE,
     SERVE_SLOT_CAPACITY,
     SERVE_STEP_SECONDS,
@@ -122,7 +131,7 @@ from tf_operator_tpu_torch.serve.resilience import (
     EngineCrashed,
     EngineSupervisor,
     InvalidGrammar,
-    NotPorted,
+    PrefixNotFound,
     QueueFull,
     QueueTTLExpired,
     ResilienceConfig,
@@ -150,10 +159,12 @@ class SchedulerFenced(RuntimeError):
 
 
 class ServeRequest:
-    """One /generate row in flight through the continuous engine. Takes
-    the JAX ``ServeRequest``'s arguments; ``shipment`` and ``session`` are
-    accepted so that a caller written against the JAX front gets the typed
-    refusal at enqueue rather than a TypeError."""
+    """One /generate row in flight through the continuous engine, with the
+    JAX ``ServeRequest``'s arguments. ``shipment`` is a verified
+    ``serve/disagg.py`` ``Shipment`` of this row's prompt, ingested before
+    its admission plan (None: the local prefill). ``session`` marks a
+    resumable conversation: enqueue posts a host-tier restore of its
+    prompt."""
 
     def __init__(self, tokens: np.ndarray, num_steps: int, *,
                  temperature: float = 0.0, top_p: float | None = None,
@@ -207,8 +218,15 @@ class ServeRequest:
         self.queue_wait_s = 0.0
         self.prefill_s = 0.0
         self.decode_s = 0.0
+        # Disaggregated prefill: kept through watchdog replays, so a
+        # rebuilt engine ingests the same bytes again; ``shipped_join``
+        # records that the prompt's K/V arrived shipped.
         self.shipment = shipment
+        self.shipped_join = False
+        # The host KV tier: ``tier_join`` records that admission restored
+        # this prompt's K/V from the tier instead of prefilling it.
         self.session = None if session is None else str(session)
+        self.tier_join = False
         # Constrained decoding (serve/constrain.py). ``constrain`` is the
         # raw client spec ({"json_schema"|"regex"|"choices": ...}); enqueue
         # compiles it off the device lock and stamps ``program`` (a
@@ -259,6 +277,12 @@ class ServeRequest:
             out["itl_ms"] = [round(g * 1e3, 2) for g in gaps]
         if self.replays:
             out["replays"] = self.replays
+        if self.shipped_join:
+            # The prompt's K/V arrived as shipped rows: no local prefill.
+            out["shipped_kv"] = True
+        if self.tier_join:
+            # The prompt's K/V was restored from the host tier.
+            out["tier_kv"] = True
         return out
 
     def _finish(self, outcome: str, error: Exception | None = None) -> None:
@@ -267,28 +291,22 @@ class ServeRequest:
         self.event.set()
 
 
-def _refuse_unported(req: ServeRequest) -> None:
-    """The typed 400s of request fields whose ROADMAP item is not ported
-    yet, raised at enqueue before any device work."""
-    if req.shipment is not None:
-        raise NotPorted("shipped KV (disaggregated prefill) waits for "
-                        "ROADMAP A7 in the PyTorch port")
-    if req.session is not None:
-        raise NotPorted("session keys (the host KV tier) wait for ROADMAP "
-                        "A7 in the PyTorch port")
-
-
 class ContinuousScheduler:
     def __init__(self, engine: ContinuousEngine, *,
                  prefill_tokens_per_step: int = 256,
                  device_lock: threading.Lock | None = None,
                  resilience: ResilienceConfig | None = None,
                  supervisor: EngineSupervisor | None = None,
-                 faults: Any = None, constrainer: Any = None) -> None:
+                 faults: Any = None, tier_prefetch: bool = True,
+                 constrainer: Any = None) -> None:
         if prefill_tokens_per_step < 1:
             raise ValueError("prefill_tokens_per_step must be >= 1")
         self.engine = engine
         self.prefill_tokens_per_step = prefill_tokens_per_step
+        # Session prefetch: an enqueue-time host-tier restore for requests
+        # with a ``session`` key. Inert without a tier; the flag isolates
+        # the prefetch from the tiering itself (serve_lm --tier-prefetch).
+        self.tier_prefetch = bool(tier_prefetch)
         # The shared ConstraintCompiler requests' grammar specs compile
         # through at ENQUEUE time, on the client's thread, off the device
         # lock, LRU-cached by spec digest. None = constrained requests and
@@ -366,10 +384,9 @@ class ContinuousScheduler:
 
     def enqueue(self, req: ServeRequest) -> ServeRequest:
         """Validate and queue one request WITHOUT waiting. Raises
-        eagerly: validation (400s, the unported fields' typed 400s
-        included), ``QueueFull`` (shedding), ``ShuttingDown`` (drain),
-        ``SchedulerFenced`` (supervisor-internal retry)."""
-        _refuse_unported(req)
+        eagerly: validation (400s), ``QueueFull`` (shedding),
+        ``ShuttingDown`` (drain), ``SchedulerFenced`` (supervisor-internal
+        retry)."""
         self.engine.validate_request(req.tokens.shape[1], req.num_steps)
         if req.top_p is not None and not 0.0 < float(req.top_p) <= 1.0:
             raise ValueError(f"top_p={req.top_p} must be in (0, 1]")
@@ -409,7 +426,39 @@ class ContinuousScheduler:
                                         len(self._queue))
             SERVE_QUEUE_DEPTH.set(len(self._queue))
             self._cond.notify_all()
+        self._maybe_prefetch(req)
         return req
+
+    def _maybe_prefetch(self, req: ServeRequest) -> None:
+        """Session prefetch: post a fire-and-forget host-tier restore for
+        a just-enqueued ``session`` request, so the upload runs between
+        decode steps WHILE the request queues and its admission exact-hits
+        the restored (retained) prefix. Needs retention
+        (``prefix_retain_max`` > 0): the prefetch releases its ingest hold
+        at once, and only a retained reference keeps the entry until the
+        admission. A no-op without a tier, a session key, the knob, or a
+        running loop (the admission-time restore covers those)."""
+        if req.session is None or not self.tier_prefetch:
+            return
+        eng = self.engine
+        if (getattr(eng, "host_tier", None) is None
+                or getattr(eng, "prefix_retain_max", 0) <= 0
+                or not self.running):
+            return
+        tokens = np.asarray(req.tokens)
+
+        def job(engine):
+            hold, outcome = engine.restore_from_tier(tokens)
+            if hold is not None:
+                engine.release_shipment(hold)
+            return outcome
+
+        # The call_engine queue, but nobody waits on the box: a prefetch
+        # that loses its loop is a restore at admission instead.
+        box: dict = {"done": threading.Event()}
+        with self._cond:
+            self._engine_calls.append((job, box))
+            self._cond.notify_all()
 
     def _compile_constraint(self, req: ServeRequest) -> None:
         """Enqueue-time constraint compile and stop-sequence encoding, on
@@ -457,6 +506,12 @@ class ContinuousScheduler:
                 req.token_times.clear()
                 req.num_steps = req.requested_steps
                 req.degraded = False
+                # A kept shipment is ingested again by the rebuilt engine
+                # (same bytes, fresh pool), and a tier restore is earned
+                # again there (the HostTier outlives the engine): both
+                # flags re-earn themselves.
+                req.shipped_join = False
+                req.tier_join = False
                 # The compiled program survives (the rebuilt engine's pool
                 # re-binds the same tables); the host FSM walk and the
                 # delivered logprob rows restart with the cleared output.
@@ -598,22 +653,34 @@ class ContinuousScheduler:
             raise box["exc"]
         return box["result"]
 
-    # -- fleet-global prefix reuse (ROADMAP A7) ---------------------------
+    # -- fleet-global prefix reuse ------------------------------------------
 
     def advertised_prefixes(self) -> list[str]:
-        """The hot-prefix digests /healthz advertises to the fleet's
-        prefix-aware router: none, since prefix export waits for ROADMAP
-        A7 in the port."""
-        return []
+        """The engine's hot-prefix advertisement for /healthz: a host-side
+        PrefixCache read, safe from the probe thread; empty for engine
+        fakes."""
+        fn = getattr(self.engine, "advertised_prefixes", None)
+        return fn() if fn is not None else []
 
     def advertised_tier_prefixes(self) -> list[str]:
-        """The host-tier digests /healthz advertises: none (A7)."""
-        return []
+        """The warm host-tier advertisement for /healthz: a host-side
+        HostTier read; empty without a tier (and for engine fakes)."""
+        fn = getattr(self.engine, "advertised_tier_prefixes", None)
+        return fn() if fn is not None else []
 
     def export_prefix(self, digest: str, timeout: float = 30.0) -> dict:
-        """``GET /prefix/<digest>`` waits for ROADMAP A7."""
-        raise NotPorted("prefix export waits for ROADMAP A7 in the "
-                        "PyTorch port")
+        """``GET /prefix/<digest>``: a live PrefixCache entry as the
+        shipped-KV wire payload, on the loop's thread (``call_engine``). A
+        loop too busy to take the export inside ``timeout`` answers the
+        typed ``prefix_not_found``: the puller degrades to a local
+        prefill, which beats stalling its request behind this decode."""
+        try:
+            return self.call_engine(lambda eng: eng.export_prefix(digest),
+                                    timeout=timeout)
+        except TimeoutError as exc:
+            raise PrefixNotFound(
+                "prefix export timed out behind the serving loop"
+            ) from exc
 
     def _loop(self) -> None:
         while True:
@@ -789,6 +856,22 @@ class ContinuousScheduler:
                 if req is None:
                     return
                 self._degrade_check(req)
+                # Land the request's shipped rows, else the deepest
+                # restorable host-tier prefix, BEFORE the plan, so the plan
+                # exact-hits (or shares) it instead of prefilling. A pool
+                # that cannot hold it requeues as a plan miss does; a bad
+                # shipment falls back to the local prefill.
+                verdict, ship_hold, tier_hold = "none", None, None
+                if req.shipment is not None:
+                    verdict, ship_hold = self._ingest_shipment(req)
+                if verdict == "none":
+                    verdict, tier_hold = self._restore_tier(req)
+                if verdict == "requeue":
+                    if not self._settle_admitting(requeue_front=True):
+                        return
+                    if not (self._slots or self._prefilling):
+                        time.sleep(0.001)
+                    return
                 t_plan = time.monotonic()
                 try:
                     plan = self.engine.plan_admission(
@@ -796,12 +879,18 @@ class ContinuousScheduler:
                     )
                 except Exception as exc:  # noqa: BLE001 — one bad
                     # request answers its own client, never the loop.
+                    self._release_holds(ship_hold, tier_hold)
                     if self._settle_admitting():
                         self._note_dequeued(req, t_plan)
                         req._finish("error", exc)
                     else:
                         return
                     continue
+                # The plan (if any) now references the landed blocks; the
+                # ingest hold goes either way. On a plan miss the entry
+                # dies with the hold (a restored one spills back to the
+                # tier) and the requeued request lands it again next time.
+                self._release_holds(ship_hold, tier_hold)
                 if plan is None:
                     # No free slot or not enough free KV blocks: queue
                     # until a retire frees capacity. Undo any degraded
@@ -918,6 +1007,89 @@ class ContinuousScheduler:
                 if hasattr(self.engine, "tag_slot"):
                     # hasattr-guarded for the tests' fake engines.
                     self.engine.tag_slot(slot, req.request_id)
+
+    def _release_holds(self, *holds) -> None:
+        for hold in holds:
+            if hold is not None:
+                self.engine.release_shipment(hold)
+
+    def _ingest_shipment(self, req: ServeRequest):
+        """Land one request's shipped KV ahead of its admission plan.
+        Returns (verdict, hold): ``("ok", hold)``, rows written and the
+        prefix registered (the caller releases the hold once the plan has
+        its references); ``("requeue", None)``, block exhaustion, treated
+        as a plan miss; ``("none", None)``, no ingest happened (an engine
+        without one, or a payload it refused: ``req.shipment`` is cleared
+        and the local prefill takes over, counted ``failed``)."""
+        if not hasattr(self.engine, "ingest_shipment"):
+            req.shipment = None
+            return "none", None
+        alloc = getattr(self.engine, "alloc", None)
+        if alloc is not None and alloc.free == 0:
+            # No free slot: the plan would requeue anyway. Requeue WITHOUT
+            # the device write, which would otherwise repeat (ingest, plan
+            # miss, release) once a loop iteration until a slot frees.
+            return "requeue", None
+        t0 = time.monotonic()
+        try:
+            with self._device():
+                hold = self.engine.ingest_shipment(
+                    req.shipment, reserve_steps=req.num_steps)
+        except Exception:  # noqa: BLE001 — a bad shipment must not fail
+            # the request (its prompt is right here): the local prefill.
+            req.shipment = None
+            SERVE_SHIP_INGEST_TOTAL.inc(outcome="failed")
+            return "none", None
+        if hold is None:
+            if getattr(self.engine, "kv_paged", False):
+                # Not enough free blocks: queue until a retire frees
+                # capacity, keeping the payload for the next attempt.
+                SERVE_SHIP_INGEST_TOTAL.inc(outcome="exhausted")
+                return "requeue", None
+            req.shipment = None  # a dense engine: shipping is a no-op
+            SERVE_SHIP_INGEST_TOTAL.inc(outcome="unsupported")
+            return "none", None
+        self._beat()  # the ingest returned: progress, not a stall
+        now = time.monotonic()
+        SERVE_TRACER.record(
+            "kv.ship", t0, now, request_id=req.request_id,
+            prompt_tokens=hold.tokens, blocks=len(hold.blocks),
+        )
+        SERVE_PHASE_SECONDS.inc(now - t0, phase="ship")
+        SERVE_SHIP_INGEST_TOTAL.inc(outcome="ok")
+        req.shipped_join = True
+        return "ok", hold
+
+    def _restore_tier(self, req: ServeRequest):
+        """Land one request's deepest host-tier prefix ahead of its
+        admission plan (the tier twin of ``_ingest_shipment``). Returns
+        (verdict, hold): ``("ok", hold)``, restored and registered;
+        ``("requeue", None)``, a restorable entry exists but the pool
+        cannot hold it yet (the can-restore wait); ``("none", None)``, no
+        tier, no deep-enough entry, or a poison payload (the local prefill
+        serves the request either way)."""
+        eng = self.engine
+        if (getattr(eng, "host_tier", None) is None
+                or not hasattr(eng, "restore_from_tier")):
+            return "none", None
+        alloc = getattr(eng, "alloc", None)
+        if alloc is not None and alloc.free == 0:
+            # No free slot: skip the upload the plan would throw away.
+            return "none", None
+        try:
+            with self._device():
+                hold, outcome = eng.restore_from_tier(
+                    np.asarray(req.tokens), reserve_steps=req.num_steps)
+        except Exception:  # noqa: BLE001 — a restore is an optimization;
+            # the local prefill serves the prompt.
+            return "none", None
+        if outcome == "ok":
+            self._beat()  # the upload returned: progress, not a stall
+            req.tier_join = True
+            return "ok", hold
+        if outcome == "exhausted":
+            return "requeue", None
+        return "none", None
 
     def _note_prefill(self, req: ServeRequest, mono0: float, *,
                       joined: bool, plan: Any = None) -> None:

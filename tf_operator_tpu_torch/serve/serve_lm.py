@@ -22,13 +22,18 @@ and sampled lanes), the scheduler and the supervisor of this package:
                           "eos_id": E?, "deadline_s": D?, "stream": B?,
                           "timing": B?, "request_id": R?,
                           "json_schema"|"regex"|"choices": ...?,
-                          "stop": [...]?, "logprobs": B?, "n": K?}
+                          "stop": [...]?, "logprobs": B?, "n": K?,
+                          "shipped_kv": {...}?, "session": S?}
                          -> {"tokens": [[...]], "request_id": R,
                              "finish_reason": [...], "logprobs": [...]?,
                              "choices": [...]?} (generated tokens only;
                          multi-row prompts fan out into one slot request
                          a row, row i seeded seed + i; ``n`` > 1 fans one
                          sampled prompt out into candidates at seed + j)
+    GET  /prefix/<digest> a live prefix (or a host-tier entry) as the
+                         shipped-KV wire payload: {"shipment": {...},
+                         "replica": R}; a digest held nowhere answers the
+                         typed 404 ``prefix_not_found``
     GET  /debug/serve    the supervisor's snapshot (scheduler snapshot +
                          its ``resilience`` section)
     GET  /debug/traces   the data-plane trace ring as Chrome-trace JSON
@@ -56,12 +61,33 @@ factory, before /healthz answers; a watchdog rebuild reuses the loaded
 kernels and the same weights, so a replayed greedy request gives the
 tokens of an uninterrupted run.
 
-Flags and fields of ROADMAP items the port has not ported exit (flags)
-or answer a typed 400 (fields) naming the item, and never run another
-path instead: ``--tp``/``--dp`` and ``--from-pp`` (A8), ``--kv-dense`` (the dense
-slot engine, A5), ``--engine coalesce`` and ``--batch-window`` (A10),
-``--role prefill`` and ``--host-tier-bytes`` (A7); the fields
-``shipped_kv``, ``session`` and ``GET /prefix/<digest>`` (A7).
+Disaggregated prefill, prefix pulls and the host KV tier, as the JAX
+server has them (wire format: ``serve/disagg.py``):
+
+- ``--role prefill`` (default ``$TPU_SERVE_ROLE``) serves ONLY ``POST
+  /prefill`` {"tokens": [[...]]} -> {"shipped_kv": payload, ...} through
+  ``PrefillWorker``/``PrefillServer`` (``build_prefill``), plus /healthz
+  (``role: "prefill"``), /metrics and /debug/traces; it drains on SIGTERM
+  and does not compose with ``--spec-k``, ``--int8``, ``--kv-int8``,
+  ``--batch-window``, ``--tp`` or ``--dp``. ``--kv-block`` must match the
+  decode pool's.
+- ``shipped_kv`` on /generate (a single-row request) is decoded and
+  verified against the row's prompt before it is queued (a mismatch is
+  the typed ``ship_failed``); the engine ingests it before the request's
+  admission, and the request joins without a local prefill.
+- Retention: the engine keeps the exact prefix of up to
+  ``--prefix-advertise`` completed prompts past their slots, advertises
+  them on /healthz (``prefixes``) and exports them on ``GET
+  /prefix/<digest>``.
+- ``--host-tier-bytes`` attaches ONE process-lifetime ``HostTier`` to
+  every engine the supervisor builds: dying prefixes spill to host RAM
+  and admission restores them (/healthz ``tier_prefixes``); a ``session``
+  key posts the restore at enqueue (``--tier-prefetch``).
+
+Flags of ROADMAP items the port has not ported exit naming the item, and
+never run another path instead: ``--tp``/``--dp`` and ``--from-pp`` (A8),
+``--kv-dense`` (the dense slot engine, A5), ``--engine coalesce`` and
+``--batch-window`` (A10).
 
 Speculative decoding (``--spec-k K``): the engine decodes in rounds, a
 draft of ``--spec-draft-layers`` layers (default max(1, layers // 2), the
@@ -117,6 +143,11 @@ from tf_operator_tpu_torch.serve.constrain import (
     ConstraintCompiler,
     default_vocab,
 )
+from tf_operator_tpu_torch.serve.disagg import (
+    PrefillServer,
+    PrefillWorker,
+    decode_shipment,
+)
 from tf_operator_tpu_torch.serve.engine import ContinuousEngine
 from tf_operator_tpu_torch.serve.faultinject import FaultInjector
 from tf_operator_tpu_torch.serve.httpapi import (
@@ -128,11 +159,13 @@ from tf_operator_tpu_torch.serve.resilience import (
     NotPorted,
     ResilienceConfig,
     ServeError,
+    ShipFailed,
     error_payload,
     http_status_of,
     set_replica_id,
 )
 from tf_operator_tpu_torch.serve.scheduler import ServeRequest
+from tf_operator_tpu_torch.serve.tier import HostTier
 
 # Flags of ROADMAP items the port has not ported: (flag, set?, item).
 UNPORTED_FLAGS = (
@@ -146,10 +179,6 @@ UNPORTED_FLAGS = (
      "A10 (serve/coalesce.py)"),
     ("--from-pp", lambda a: a.from_pp is not None,
      "A8 (multi-device: pipeline trees)"),
-    ("--role prefill", lambda a: a.role == "prefill",
-     "A7 (disaggregated prefill)"),
-    ("--host-tier-bytes", lambda a: a.host_tier_bytes > 0,
-     "A7 (the host KV tier)"),
 )
 
 
@@ -170,7 +199,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "every typed error payload")
     p.add_argument("--role", choices=("decode", "prefill"),
                    default=os.environ.get("TPU_SERVE_ROLE") or "decode",
-                   help="'prefill' waits for ROADMAP A7")
+                   help="replica role (default $TPU_SERVE_ROLE): "
+                        "'prefill' serves ONLY POST /prefill, prompt "
+                        "prefill exported as shipped-KV block-pool rows "
+                        "for a disaggregated fleet's decode pool "
+                        "(--kv-block must match the decode pool's); "
+                        "'decode' (or unset) is the ordinary server")
     p.add_argument("--device", default="cuda",
                    help="torch device; the server raises when it is CUDA "
                         "and torch sees no card (pass 'cpu' for the plain "
@@ -255,8 +289,26 @@ def build_parser() -> argparse.ArgumentParser:
                    help="paged KV pool size in blocks, incl. the pinned "
                         "garbage block (default: max-batch x "
                         "max-seq-len/kv-block + 1)")
+    p.add_argument("--prefix-advertise", type=int, default=32,
+                   metavar="N",
+                   help="hot prefix-cache entries advertised on /healthz "
+                        "and retained past their requests for "
+                        "fleet-global prefix routing (MRU first; 0 "
+                        "advertises none: the replica still answers "
+                        "/prefix/<digest> pulls)")
     p.add_argument("--host-tier-bytes", type=int, default=0,
-                   help="waits for A7")
+                   metavar="BYTES",
+                   help="host-RAM KV tier byte budget: evicted prefix "
+                        "entries spill here as wire payloads and admission "
+                        "restores them; it also answers /prefix/<digest> "
+                        "pulls and advertises tier_prefixes on /healthz, "
+                        "and outlives watchdog rebuilds. 0 (default) "
+                        "disables the tier")
+    p.add_argument("--tier-prefetch", type=int, default=1, metavar="0|1",
+                   help="async host-tier prefetch at enqueue for requests "
+                        "carrying a session key (the prefix upload "
+                        "overlaps the queue wait); 0 restores only at "
+                        "admission")
     res = p.add_argument_group("resilience (0 disables a knob)")
     res.add_argument("--queue-ttl", type=float, default=30.0, metavar="S")
     res.add_argument("--decode-deadline", type=float, default=120.0,
@@ -449,9 +501,20 @@ class _Handler(QuietHandler):
         elif path == "/metrics":
             self.send_metrics()
         elif path.startswith("/prefix/"):
-            exc = NotPorted("prefix export (GET /prefix/<digest>) waits "
-                            "for ROADMAP A7 in the PyTorch port")
-            self.send_json(http_status_of(exc), error_payload(exc))
+            # Fleet-global prefix reuse: one prefix entry, named by its
+            # chained per-block digest (the chain /healthz advertises), in
+            # the shipped-KV wire format; a stale digest answers the typed
+            # prefix_not_found and the puller prefills locally.
+            try:
+                shipment = srv.supervisor.export_prefix(
+                    path[len("/prefix/"):])
+            except Exception as exc:  # noqa: BLE001 — typed out
+                payload = error_payload(exc)
+                payload["replica"] = srv.args.replica_id
+                self.send_json(http_status_of(exc), payload)
+                return
+            self.send_json(200, {"shipment": shipment,
+                                 "replica": srv.args.replica_id})
         else:
             self.send_json(404, {"error": "unknown path"})
 
@@ -487,9 +550,17 @@ class _Handler(QuietHandler):
         num_steps = int(body.get("num_steps", 8))
         temperature = float(body.get("temperature", 0.0))
         top_p = body.get("top_p")
+        shipment = None
         if body.get("shipped_kv") is not None:
-            raise NotPorted("shipped KV (disaggregated prefill) waits for "
-                            "ROADMAP A7 in the PyTorch port")
+            # Disaggregated prefill: verify the payload (chained digests,
+            # row checksum, the request's own prompt) BEFORE it reaches the
+            # scheduler; a mismatch raises the typed ship_failed. A
+            # shipment prefilled ONE prompt: single-row requests only.
+            if prompt.shape[0] != 1:
+                raise ShipFailed("shipped_kv serves single-row requests "
+                                 "only")
+            shipment = decode_shipment(body["shipped_kv"],
+                                       expect_tokens=prompt[0])
         if body.get("stream"):
             # Structured fields live in the scheduler: a stream (solo
             # generate_segments) would silently drop them.
@@ -540,8 +611,12 @@ class _Handler(QuietHandler):
                 eos_id=None if eos_id is None else int(eos_id),
                 deadline_s=None if deadline_s is None else float(deadline_s),
                 request_id=rid if i == 0 else f"{rid}.{i}",
-                session=body.get("session"), constrain=constrain,
-                stop=body.get("stop"), logprobs=want_logprobs,
+                # A session key pre-warms the host KV tier at enqueue; the
+                # single-row rule above gives the shipment to row 0 alone
+                # (and to every n-best candidate of that row).
+                session=body.get("session"), shipment=shipment,
+                constrain=constrain, stop=body.get("stop"),
+                logprobs=want_logprobs,
             ))
 
         fanout = n_best if n_best > 1 else prompt.shape[0]
@@ -613,13 +688,28 @@ class _Handler(QuietHandler):
 
 def check_args(args) -> None:
     """Refuse what the front cannot serve, before any device work: the
-    combinations the JAX server refuses, with its messages (``--spec-k``
-    with ``--int8`` or ``--logprobs-k``, or with ``--checkpoint-dir`` but
-    no ``--draft-checkpoint-dir``; ``--draft-checkpoint-dir`` without
+    combinations the JAX server refuses, with its messages (``--role
+    prefill`` with a flag of the decode path; ``--spec-k`` with ``--int8``
+    or ``--logprobs-k``, or with ``--checkpoint-dir`` but no
+    ``--draft-checkpoint-dir``; ``--draft-checkpoint-dir`` without
     ``--spec-k``: ValueError), a flag whose ROADMAP item is not
     ported (NotPorted), a prefill budget below one token, a negative
     ``--logprobs-k``, no constraint row or a sequence length off the
     block grid (ValueError)."""
+    if args.role == "prefill":
+        bad = [flag for flag, on in (
+            ("--spec-k", bool(args.spec_k)),
+            ("--int8", args.int8),
+            ("--kv-int8", args.kv_int8),
+            ("--batch-window", args.batch_window > 0),
+            ("--tp", args.tp > 1),
+            ("--dp", args.dp > 1),
+        ) if on]
+        if bad:
+            raise ValueError(
+                f"--role prefill does not compose with {'/'.join(bad)} (a "
+                "prefill replica runs only the solo dense prefill and "
+                "ships its rows)")
     if args.spec_k:
         if args.spec_k < 1:
             raise ValueError("--spec-k must be >= 1 (0 disables)")
@@ -703,6 +793,11 @@ def build_front(cfg: TransformerConfig, params, args, draft_params=None
     )
     params = _to_device(params, device)
     attend = "kernel" if args.kv_attend == "pallas" else args.kv_attend
+    # ONE process-lifetime host tier, attached to every engine the factory
+    # builds: a watchdog rebuild loses the pool but not the spilled
+    # sessions, which the new generation restores on demand.
+    host_tier = (HostTier(args.host_tier_bytes)
+                 if args.host_tier_bytes > 0 else None)
     spec = {}
     if args.spec_k:
         spec = dict(spec_k=args.spec_k, draft_cfg=draft_config(cfg, args),
@@ -719,6 +814,12 @@ def build_front(cfg: TransformerConfig, params, args, draft_params=None
             constrain_rows=args.constrain_rows, logprobs_k=args.logprobs_k,
             device=device, **spec,
         )
+        # Retention matches the advertisement's width: every digest the
+        # replica advertises stays exportable and exact-joinable after its
+        # request completes.
+        eng.prefix_advertise_max = args.prefix_advertise
+        eng.prefix_retain_max = args.prefix_advertise
+        eng.host_tier = host_tier
         eng.warmup()
         return eng
 
@@ -734,11 +835,55 @@ def build_front(cfg: TransformerConfig, params, args, draft_params=None
         # Streaming requests bypass the engine and share the device: one
         # lock serializes both decode paths.
         device_lock=lock,
+        tier_prefetch=bool(args.tier_prefetch),
         constrainer=constrainer,
     )
     server = FrontServer((args.host, args.port), supervisor, cfg=cfg,
                          params=params, args=args, device=device, lock=lock)
     return supervisor, server
+
+
+def build_prefill(cfg: TransformerConfig, params, args) -> PrefillServer:
+    """A dedicated prefill replica over ``params`` (a flax-layout tree):
+    the ``PrefillWorker`` on ``args.device`` behind a ``PrefillServer``
+    bound to ``args.host``:``args.port``, not yet serving (call
+    ``start()``; the worker is ``server.backend``). Raises where
+    ``check_args`` refuses ``args`` and on a CUDA device without a card."""
+    device = resolve_device(args.device)
+    check_args(args)
+    if args.replica_id:
+        set_replica_id(args.replica_id)
+    if args.trace_capacity != SERVE_TRACER.capacity:
+        SERVE_TRACER.set_capacity(args.trace_capacity)
+    worker = PrefillWorker(cfg, _to_device(params, device),
+                           prefill_chunk=args.prefill_chunk or None,
+                           kv_block=args.kv_block, device=device)
+    return PrefillServer(worker, replica_id=args.replica_id or "prefill",
+                         host=args.host, port=args.port)
+
+
+def serve_prefill(cfg: TransformerConfig, params, args) -> int:
+    """``main``'s prefill role: serve until SIGTERM, then drain (readiness
+    withdrawn first, in-flight prefills finish within
+    ``--drain-timeout``)."""
+    server = build_prefill(cfg, params, args).start()
+    worker = server.backend
+    print(f"serve_lm: PREFILL replica {args.replica_id or '(anonymous)'} "
+          f"on {server.endpoint} (kv_block={args.kv_block}, chunk="
+          f"{args.prefill_chunk or 'one-shot'})", flush=True)
+    done = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda *_: done.set())
+    done.wait()
+    server.begin_drain()
+    deadline = time.monotonic() + args.drain_timeout
+    while ((worker.queue_depth or worker.active_slots)
+           and time.monotonic() < deadline):
+        time.sleep(0.05)
+    server.stop()
+    print(f"serve_lm: prefill replica drained ({worker.requests_done} "
+          f"prompts, {worker.tokens_prefilled} tokens shipped)", flush=True)
+    return 0
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -764,6 +909,8 @@ def main(argv: list[str] | None = None) -> int:
             return 1
     else:
         params = quick_train(cfg, args.train_steps, args.lr, device)
+    if args.role == "prefill":
+        return serve_prefill(cfg, params, args)
     if args.int8:
         params = quantize_decode_params(params)
         print("serve_lm: projections quantized to int8", flush=True)
@@ -788,7 +935,8 @@ def main(argv: list[str] | None = None) -> int:
           f"{supervisor.engine.kv_blocks} block pool), kv_attend "
           f"{supervisor.engine.kv_attend}, prefill chunk "
           f"{args.prefill_chunk or 'one-shot'}, prefill budget "
-          f"{args.prefill_budget} tok/iter)", flush=True)
+          f"{args.prefill_budget} tok/iter, host tier "
+          f"{args.host_tier_bytes or 'off'})", flush=True)
     server.start()
     print(f"serve_lm: listening on {server.endpoint}", flush=True)
     for sig in (signal.SIGTERM, signal.SIGINT):
