@@ -240,7 +240,27 @@ Phases, in order; any failure ends the run with a non-zero exit:
     S's /healthz ``prefixes`` and ``tier_prefixes``, /metrics the five
     ship and tier families counted; the TTFT p50 of shipped against local
     requests; the phase's wall time;
-20. the ``kernels`` JSON line (each kernel with its design; B5 as two
+20. the dense slot engine and the legacy coalescing engine at phase 6's
+    width: (a) ``ContinuousEngine(kv_paged=False)`` in bf16, the four
+    prompts, 64 greedy steps (decode tokens/s beside phase 7's paged
+    engine, the slot tensor's bytes, 8 steps under torch.profiler), each
+    lane equal to phase 7's lane or parting where the solo run's margin
+    between the two choices is within ``BF16_TIE``; its f32 twin against
+    phase 6 (``NEAR_TIE``); (b) the f32 dense spec engine, the target as
+    its own draft at k = 4, against (a)'s f32 twin and each lane's solo
+    ``speculative_generate``; (c) phase 13's int8 + kv8 tree on the dense
+    engine, one lane, against solo ``generate``, with B5's stream and
+    wgmma tile launched; (d) over HTTP on 127.0.0.1: a ``--kv-dense``
+    front (the four prompts at once equal to (a); a ``shipped_kv``
+    request prefilled locally, counted ``unsupported``; ``GET
+    /prefix/<digest>`` the typed ``prefix_not_found``), then a legacy
+    front, ``--batch-window 250 --max-batch 8``: six same-shape greedy
+    prompts alone, then twice at once (fewer decodes than requests, a
+    batch of two rows or more, each answer its solo answer or parting at
+    a near-tie, the second burst bitwise the first). No hand kernel runs
+    on the dense bf16 path: the dense read has no block table for B4,
+    and the prefill is the decode read's, as in JAX;
+21. the ``kernels`` JSON line (each kernel with its design; B5 as two
     entries, the weight stream and the wgmma tile, each with its own
     launches; ``paths`` gives each kernel's launches on every path of
     this run that drives it, and ``launches`` is their sum; the paged
@@ -496,6 +516,15 @@ PULL_STEPS = LATER_STEPS
 TIER_BYTES = 2 << 30
 TIER_KV8_LANE = 2
 TIER_KV8_STEPS = 32
+# Phase 20, the dense slot engine and the legacy coalescing engine at phase
+# 6's width: (a) bf16 and f32, the four prompts, DENSE_STEPS greedy steps;
+# (b) f32 spec, the target as its own draft at k = 4; (c) the int8 + kv8
+# tree, one lane; (d) a --kv-dense front, and a legacy front coalescing
+# COALESCE_N greedy prompts of COALESCE_P tokens (COALESCE_STEPS each)
+# within a COALESCE_WINDOW_MS window.
+DENSE_STEPS = FIRST_STEPS
+COALESCE_N, COALESCE_P, COALESCE_STEPS = 6, 437, FIRST_STEPS
+COALESCE_WINDOW_MS = 250.0
 
 
 def entry_flash_shape() -> tuple[int, int, int, int]:
@@ -2562,7 +2591,7 @@ def spec_parting(tmodel, dmodel, prompt, got, k, t, tp, seed):
 
 
 def spec_engine_run(pa, cfg, params, dcfg, dparams, k, prompts, mix,
-                    attend="kernel", profile=0) -> dict:
+                    attend="kernel", profile=0, **engine_kw) -> dict:
     """Speculative rounds through ContinuousEngine: the engine warmed, the
     prompts joined with ``mix``'s parameters and SPEC_STEPS each (B4's
     counts set to 0 just before), ``profile`` rounds under torch.profiler,
@@ -2571,12 +2600,13 @@ def spec_engine_run(pa, cfg, params, dcfg, dparams, k, prompts, mix,
     completes. B4 (or kv8 B4) must have launched n_layers times a round
     under the kernel read, never under the gather read. Returns the
     lanes' tokens, the round count, the launches, the engine's
-    spec_debug, tokens/s of the timed rounds and the profile."""
+    spec_debug, tokens/s of the timed rounds and the profile.
+    ``engine_kw`` goes to the engine (``kv_paged=False``: phase 20 (b))."""
     from tf_operator_tpu_torch.serve.engine import ContinuousEngine
 
     engine = ContinuousEngine(cfg, params, len(prompts), kv_block=BLK,
                               kv_attend=attend, spec_k=k, draft_cfg=dcfg,
-                              draft_params=dparams)
+                              draft_params=dparams, **engine_kw)
     engine.warmup()
     pa.launches = pa.kv8_launches = 0
     slots = [engine.join(p, num_steps=SPEC_STEPS, temperature=t, top_p=tp,
@@ -3649,6 +3679,296 @@ def ship_phase(pa, i8, base, params, prompts, want, card) -> dict:
     }
 
 
+def pair_margin(model, prompt, got, other):
+    """Where two greedy token runs of one prompt part: None when they are
+    identical, else (the first parting step, half the gap between the two
+    chosen tokens' logits there on the solo run fed their common prefix:
+    the least logit change that flips that decision)."""
+    got, other = np.asarray(got), np.asarray(other)
+    if np.array_equal(got, other):
+        return None
+    step = int(np.flatnonzero(got != other)[0])
+    feed = torch.as_tensor(got[None, :step + 1], device=model.device)
+    values, _ = replay_values(model, torch.as_tensor(
+        prompt, device=model.device), feed, 0.0, None, 0, step + 1)
+    row = values[step, 0]
+    return step, abs(row[int(got[step])] - row[int(other[step])]).item() / 2
+
+
+def partings(label, model, prompts, runs, wants, tie) -> list:
+    """Each lane of ``runs`` against ``wants`` (``[lane][step]`` greedy
+    tokens): identical, or parting where the solo margin is within
+    ``tie``. Returns the partings (lane, step, margin)."""
+    parted = []
+    for lane, (prompt, got, want) in enumerate(zip(prompts, runs, wants)):
+        part = pair_margin(model, prompt, got, want)
+        if part is not None:
+            parted.append((lane, *part))
+    print(f"{label}: lanes parting (lane, first step, the solo run's "
+          f"margin between the two choices there): {parted} (limit {tie})",
+          flush=True)
+    if any(margin > tie for *_, margin in parted):
+        raise AssertionError(f"{label}: parts away from a near-tie: "
+                             f"{parted}")
+    return parted
+
+
+def dense_engine_run(pa, i8, cfg, params, prompts, steps,
+                     profile: int = 0) -> dict:
+    """Phase 20's engine: ContinuousEngine(kv_paged=False) warmed, every
+    serving kernel's count set to 0 just before the prompts join (greedy,
+    ``steps`` + ``profile`` each), ``steps`` timed steps, then ``profile``
+    more under torch.profiler."""
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.serve.engine import ContinuousEngine
+
+    engine = ContinuousEngine(cfg, params, len(prompts), kv_paged=False)
+    engine.warmup()
+    reset_counts(pa, i8)
+    fa.fwd_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slots = [engine.join(p, num_steps=steps + profile) for p in prompts]
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    if slots != list(range(len(prompts))):
+        raise AssertionError(f"dense joins got slots {slots}")
+    tokens = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        tokens.append(engine.step())
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    prof = (profile_steps(engine.step, profile, "dense decode steps")
+            if profile else {})
+    torch.cuda.synchronize()
+    if not torch.isfinite(engine._logits).all():
+        raise AssertionError("non-finite logits")
+    kv = engine.kv_debug()
+    if kv != {"mode": "dense", "cache_rows": len(prompts),
+              "max_seq_len": cfg.max_seq_len}:
+        raise AssertionError(f"dense kv_debug {kv}")
+    out = dict(
+        tokens=np.stack(tokens).T, prefill_s=prefill_s,
+        decode_tok_s=len(prompts) * steps / decode_s, profile=prof,
+        launches=dict(paged_attend=pa.launches,
+                      paged_attend_kv8=pa.kv8_launches,
+                      int8_matmul=i8.launches, int8_wgmma=i8.wgmma_launches,
+                      flash_fwd=fa.fwd_launches),
+        slot_bytes=sum(leaf.numel() * leaf.element_size()
+                       for layer in engine._cache["layers"]
+                       for leaf in layer.values()))
+    flags = "".join(f" {f}" for f in ("int8_decode", "kv_int8")
+                    if getattr(cfg, f))
+    print(f"dense engine {cfg.dtype}{flags}, {len(prompts)} lane(s): "
+          f"prefill_s {prefill_s:.4f} decode tokens/s "
+          f"{out['decode_tok_s']:.2f}, slot tensor {out['slot_bytes']} "
+          f"bytes, launches {out['launches']}", flush=True)
+    if pa.launches or pa.kv8_launches:
+        raise AssertionError("the dense engine launched the paged kernel")
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def dense_front_phase(pa, i8, cfg, params, prompts, want) -> dict:
+    """Phase 20 (d), first half: a ``--kv-dense`` front at (a)'s width
+    (``open_front``'s kernel read is forced to the gather's): the four
+    prompts at once, each equal to (a)'s lane or parting at a near-tie; a
+    ``shipped_kv`` request (a PrefillWorker's payload of lane 3's prompt)
+    prefilled locally, counted ``unsupported`` and equal to lane 3's
+    response; ``GET /prefix/<lane 0's first digest>`` the typed 404."""
+    from tf_operator_tpu_torch.models.transformer import _decode_model
+    from tf_operator_tpu_torch.runtime.metrics import SERVE_SHIP_INGEST_TOTAL
+    from tf_operator_tpu_torch.serve.disagg import (
+        PrefillWorker,
+        chain_digests,
+    )
+
+    supervisor, server, url = open_front(cfg, params, kv_paged=False)
+    engine = supervisor.engine
+    bodies = [dict(tokens=p.tolist(), num_steps=FIRST_STEPS)
+              for p in prompts]
+    responses, wall = send_all(url, bodies)
+    payload = PrefillWorker(cfg, params, kv_block=BLK).prefill(prompts[3])
+    unsupported = SERVE_SHIP_INGEST_TOTAL.value(outcome="unsupported")
+    status, shipped = http(url, "/generate",
+                           dict(bodies[3], shipped_kv=payload))
+    counted = (SERVE_SHIP_INGEST_TOTAL.value(outcome="unsupported")
+               - unsupported)
+    digest = chain_digests(prompts[0].reshape(-1), BLK)[0]
+    pstatus, miss = http(url, f"/prefix/{digest}")
+    _, debug = http(url, "/debug/serve")
+    server.drain()
+    del supervisor, server, engine
+    model = _decode_model(cfg, params, None)
+    got = [r["tokens"][0] for r in responses]
+    parted = partings("dense front bf16 (20d) against (a)", model, prompts,
+                      got, want, BF16_TIE)
+    del model
+    torch.cuda.empty_cache()
+    print(f"dense front bf16 (20d): 4 requests at once in {wall:.4f} s; "
+          f"shipped_kv answered {status}, counted unsupported {counted}, "
+          f"== lane 3's response {shipped.get('tokens') == [got[3]]}; GET "
+          f"/prefix/{digest[:12]}... {pstatus} {miss.get('code')}; "
+          f"/debug/serve kv_cache {debug['kv_cache']}", flush=True)
+    if (status != 200 or counted != 1 or shipped["tokens"] != [got[3]]
+            or pstatus != 404 or miss.get("code") != "prefix_not_found"
+            or debug["kv_cache"].get("mode") != "dense"):
+        raise AssertionError("dense front: shipment, prefix or mode off")
+    return dict(wall=wall, parted=parted)
+
+
+def coalesce_front_phase(pa, i8, cfg, params) -> dict:
+    """Phase 20 (d), second half: the legacy front, ``--batch-window
+    COALESCE_WINDOW_MS --max-batch 8``, over COALESCE_N same-shape greedy
+    prompts: each alone first (its solo answer), then two bursts of all at
+    once. The bursts must run as fewer decodes than requests, a batch of
+    at least two rows; each burst answer equal to its solo answer or
+    parting at a near-tie (a batch of 8 rows rounds bf16 in other orders
+    than one row); the second burst bitwise the first."""
+    from tf_operator_tpu_torch.models.transformer import _decode_model
+    from tf_operator_tpu_torch.serve import serve_lm
+
+    args = serve_lm.front_args(device="cuda", batch_window=COALESCE_WINDOW_MS,
+                               max_batch=8, max_seq_len=cfg.max_seq_len,
+                               port=0)
+    supervisor, server = serve_lm.build_front(cfg, params, args)
+    if supervisor is not None or server.coalescer is None:
+        raise AssertionError("--batch-window did not select the legacy "
+                             "coalescing front")
+    server.start()
+    url = "http://" + server.endpoint
+    rng = np.random.default_rng(20)
+    prompts = [rng.integers(0, cfg.vocab_size, (1, COALESCE_P)).astype(
+        np.int32) for _ in range(COALESCE_N)]
+    bodies = [dict(tokens=p.tolist(), num_steps=COALESCE_STEPS)
+              for p in prompts]
+    reset_counts(pa, i8)
+    t0 = time.perf_counter()
+    alone = [send_all(url, [b])[0][0]["tokens"][0] for b in bodies]
+    alone_s = time.perf_counter() - t0
+    _, before = http(url, "/healthz")
+    first, first_s = send_all(url, bodies)
+    second, second_s = send_all(url, bodies)
+    _, health = http(url, "/healthz")
+    server.drain()
+    model = _decode_model(cfg, params, None)
+    burst = [r["tokens"][0] for r in first]
+    parted = partings("coalesce burst bf16 (20d) against each alone", model,
+                      prompts, burst, alone, BF16_TIE)
+    del model
+    torch.cuda.empty_cache()
+    batches = health["coalesced_batches"] - before["coalesced_batches"]
+    print(f"coalesce front bf16 (20d): {COALESCE_N} prompts of "
+          f"{COALESCE_P} tokens x {COALESCE_STEPS} steps; alone "
+          f"{alone_s:.4f} s in all, burst {first_s:.4f} s and {second_s:.4f}"
+          f" s ({COALESCE_N * COALESCE_STEPS / first_s:.2f} and "
+          f"{COALESCE_N * COALESCE_STEPS / second_s:.2f} tokens/s with the "
+          f"{COALESCE_WINDOW_MS:.0f} ms window); bursts ran {batches} "
+          f"batch(es), max_batch_rows {health['max_batch_rows']}, second "
+          f"burst == first {second == first}; launches "
+          f"{dict(paged_attend=pa.launches, int8_matmul=i8.launches)}",
+          flush=True)
+    if (not 2 <= batches < 2 * COALESCE_N or health["max_batch_rows"] < 2
+            or second != first or health["engine"] != "coalesce"):
+        raise AssertionError(f"coalescing: {batches} batches, {health}, "
+                             f"second burst == first {second == first}")
+    return dict(batches=batches, alone_s=alone_s, burst_s=first_s,
+                parted=parted)
+
+
+def dense_phase(pa, i8, base, params, prompts, plain_f32, plain_bf16,
+                card) -> dict:
+    """Phase 20, the dense slot engine and the legacy coalescing engine
+    at phase 6's width and prompts. Returns B5's launches by path."""
+    from tf_operator_tpu_torch.models.convert import quantize_decode_params
+    from tf_operator_tpu_torch.models.transformer import (
+        _decode_model,
+        generate,
+    )
+
+    t0 = time.perf_counter()
+    greedy = [(0.0, None, 0)] * len(prompts)
+    # (a) bf16, four lanes: against phase 7's paged engine on the same
+    # prompts and schedule; then the f32 twin against phase 6's.
+    cfg = replace(base, dtype=torch.bfloat16)
+    bf16 = dense_engine_run(pa, i8, cfg, params, prompts, DENSE_STEPS,
+                            profile=PROFILE_STEPS)
+    model = _decode_model(cfg, params, None)
+    partings("dense bf16 (20a) against phase 7's paged engine", model,
+             prompts, bf16["tokens"],
+             plain_bf16["tokens"][:DENSE_STEPS].T, BF16_TIE)
+    del model
+    torch.cuda.empty_cache()
+    prof = bf16["profile"]
+    print(f"dense bf16 (20a): decode tokens/s {bf16['decode_tok_s']:.2f} "
+          f"against phase 7's paged engine {plain_bf16['decode_tok_s']:.2f}"
+          f" in this run; per step ({PROFILE_STEPS} profiled, four lanes "
+          f"live): device operations {prof.get('events', 'not measured')}, "
+          f"device busy us {prof.get('busy_us', 'not measured')}, busy "
+          f"share {prof.get('busy_share', 'not measured')}; slot tensor "
+          f"{bf16['slot_bytes']} bytes; flash forward launches "
+          f"{bf16['launches']['flash_fwd']} (the prefill is the decode "
+          f"read's, as JAX's); on {card}", flush=True)
+    f32 = dense_engine_run(pa, i8, base, params, prompts, DENSE_STEPS)
+    model = _decode_model(base, params, None)
+    partings("dense f32 (20a) against phase 6's paged engine", model,
+             prompts, f32["tokens"], plain_f32[:DENSE_STEPS].T, NEAR_TIE / 2)
+
+    # (b) f32 dense spec, the target as its own draft at k = 4.
+    spec = spec_engine_run(pa, base, params, base, params, SPEC_SELF_K,
+                           prompts, greedy, attend="gather", kv_paged=False)
+    partings("dense spec f32 (20b) against (a)'s f32 twin", model, prompts,
+             spec["tokens"], f32["tokens"][:, :SPEC_STEPS], NEAR_TIE / 2)
+    spec_lanes_check("dense spec f32 (20b)", model, model, prompts,
+                     spec["tokens"], SPEC_SELF_K, greedy, NEAR_TIE / 2,
+                     one_lane=True)
+    print(f"dense spec f32 (20b), self-draft k={SPEC_SELF_K}: "
+          f"{spec['rounds']} rounds, {spec['debug']}, decode tokens/s "
+          f"{spec['tok_s']:.2f}", flush=True)
+    if spec["debug"]["accept_rate"] < 0.9:
+        raise AssertionError("a self-draft should accept nearly every "
+                             f"proposal: {spec['debug']}")
+    del model
+    torch.cuda.empty_cache()
+
+    # (c) phase 13's int8 + kv8 tree (quantized from the bf16-rounded
+    # weights), one lane: the prefill's projections take B5's wgmma tile,
+    # its head row and every step the weight stream.
+    cfg8 = replace(cfg, int8_decode=True, kv_int8=True)
+    q16 = quantize_decode_params(bf16_rounded(params))
+    lane = prompts[2:3]
+    i8run = dense_engine_run(pa, i8, cfg8, q16, lane, DENSE_STEPS)
+    calls = 5 * cfg8.n_layers + 1
+    want = dict(paged_attend=0, paged_attend_kv8=0,
+                int8_matmul=calls * (DENSE_STEPS + 1),
+                int8_wgmma=calls - 1, flash_fwd=0)
+    if i8run["launches"] != want:
+        raise AssertionError(f"dense int8 + kv8 launches "
+                             f"{i8run['launches']}, want {want}")
+    model = _decode_model(cfg8, q16, None)
+    solo = generate(cfg8, model, torch.as_tensor(lane[0],
+                                                 device=model.device),
+                    DENSE_STEPS)[0].cpu().numpy()
+    partings("dense int8 + kv8 bf16 (20c) against solo generate", model,
+             lane, i8run["tokens"], [solo], BF16_TIE)
+    del model, q16
+    torch.cuda.empty_cache()
+
+    # (d) over HTTP.
+    front = dense_front_phase(pa, i8, cfg, params, prompts, bf16["tokens"])
+    legacy = coalesce_front_phase(pa, i8, cfg, params)
+    print(f"phase 20 (dense and coalesce): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {"int8_matmul": {"dense int8 bf16 (20c)": (
+                i8run["launches"]["int8_matmul"]
+                - i8run["launches"]["int8_wgmma"])},
+            "int8_matmul_prefill": {
+                "dense int8 bf16 (20c)": i8run["launches"]["int8_wgmma"]},
+            "front": front, "legacy": legacy}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -3772,6 +4092,8 @@ def main() -> int:
 
     shipped = ship_phase(pa, i8, base, params, prompts,
                          f32["kernel"]["tokens"], card)
+    dense = dense_phase(pa, i8, base, params, prompts,
+                        f32["kernel"]["tokens"], bf16, card)
 
     # Each kernel's launches on every path of this run that drives it.
     paths = {
@@ -3804,6 +4126,8 @@ def main() -> int:
     }
     for name, by_path in shipped.items():
         paths[name].update(by_path)
+    for name in ("int8_matmul", "int8_matmul_prefill"):
+        paths[name].update(dense[name])
     for name in flash_bf16:
         paths[name] = {"trainer f32 (8)": flash_f32[name],
                        "trainer bf16 (9)": flash_bf16[name],

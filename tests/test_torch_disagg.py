@@ -436,15 +436,14 @@ def test_quantization_mismatch_falls_back_to_local_prefill(trees, sender,
 
 
 def test_dense_engine_makes_the_shipment_a_no_op(trees):
-    """An engine without a block pool (JAX's ``kv_paged=False``, whose
-    ingest returns None) serves a shipped request by its local prefill,
+    """The dense slot engine (``kv_paged=False``, whose ingest returns
+    None, as JAX's does) serves a shipped request by its local prefill,
     counted ``unsupported``, in the port's scheduler as in JAX's."""
     prompt = prompt_of(10, 72)
     shp = disagg.decode_shipment(port_worker(trees).prefill(prompt))
     jshp = jd.decode_shipment(port_worker(trees).prefill(prompt))
-    dense = port_engine(trees)
-    dense.kv_paged = False
-    dense.ingest_shipment = lambda *a, **k: None
+    dense = port_engine(trees, kv_paged=False)
+    assert dense.ingest_shipment(shp) is None
     before = metrics.SERVE_SHIP_INGEST_TOTAL.value(outcome="unsupported")
     got, _ = serve(dense, prompt, 6, shipment=shp)
     jeng = JaxEngine(configs("f32")[0], trees["f32"][0], max_slots=2,

@@ -52,14 +52,14 @@ def test_package_imports_with_jax_and_the_reference_poisoned():
     # Every module was imported: ckpt (1: protocol), models (3: convert,
     # spec_decode, transformer), ops (4: _build, flash_attention,
     # int8_dense, paged_attention), runtime (2: metrics, tracing), serve
-    # (10: constrain, disagg, engine, kvcache, faultinject, resilience,
-    # scheduler, httpapi, serve_lm, tier), train (3: checkpoint, dist_lm,
-    # steps), utils (1: signals), random and testing, and the seven
-    # packages.
-    assert int(out.stdout.split()[-1]) >= 33
+    # (11: coalesce, constrain, disagg, engine, kvcache, faultinject,
+    # resilience, scheduler, httpapi, serve_lm, tier), train (3:
+    # checkpoint, dist_lm, steps), utils (1: signals), random and testing,
+    # and the seven packages.
+    assert int(out.stdout.split()[-1]) >= 34
     for name in ("serve.constrain", "models.spec_decode", "ckpt.protocol",
                  "utils.signals", "train.checkpoint", "train.dist_lm",
-                 "serve.disagg", "serve.tier"):
+                 "serve.disagg", "serve.tier", "serve.coalesce"):
         assert f"tf_operator_tpu_torch.{name}" in out.stdout.split()
 
 
@@ -105,10 +105,14 @@ def test_default_device_is_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ContinuousEngine(cfg, init_params(cfg, 0), 2, kv_block=8, spec_k=1,
                          draft_cfg=cfg, draft_params=init_params(cfg, 0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ContinuousEngine(cfg, init_params(cfg, 0), 2, kv_paged=False)
     # The server: its builder and its entry point raise before they build
     # or train anything; only --device cpu serves on the CPU.
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        serve_lm.build_front(cfg, init_params(cfg, 0), serve_lm.front_args())
+    for flags in ({}, {"kv_paged": False}, {"batch_window": 250.0}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve_lm.build_front(cfg, init_params(cfg, 0),
+                                 serve_lm.front_args(**flags))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_lm.main(["--train-steps", "0"])
     # The trainer's entry point, likewise.

@@ -374,9 +374,12 @@ def test_fleet_router_serves_a_port_replica(front):
     (["--spec-k", "2", "--int8"], "does not compose with --int8"),
     (["--logprobs-k", "-1"], "--logprobs-k must be >= 0"),
     (["--constrain-rows", "0"], "--constrain-rows must be >= 1"),
-    (["--kv-dense"], "ROADMAP A5"),
-    (["--engine", "coalesce"], "ROADMAP A10"),
-    (["--batch-window", "0.01"], "ROADMAP A10"),
+    (["--engine", "continuous", "--batch-window", "250"],
+     "--engine continuous does not compose with --batch-window"),
+    (["--role", "prefill", "--batch-window", "250"],
+     "--role prefill does not compose with --batch-window"),
+    (["--kv-block", "16", "--max-seq-len", "100"],
+     "(or use --kv-dense)"),
     (["--from-pp", "2"], "ROADMAP A8"),
     (["--role", "prefill", "--int8"],
      "--role prefill does not compose with --int8"),
@@ -402,6 +405,24 @@ def test_flags_refused_before_device_work(argv, reason, capsys):
     assert exc.value.code == 2
     err = capsys.readouterr()
     assert reason in err.err and "quick-trained" not in err.out
+
+
+def test_dense_flag_takes_any_sequence_length():
+    """``--kv-dense`` has no block grid: a length off it is accepted, and
+    the server builds (``main`` goes on to train its weights)."""
+    argv = ["--device", "cpu", "--kv-dense", "--max-seq-len", "100",
+            "--kv-block", "16"]
+    args = serve_lm.build_parser().parse_args(argv)
+    serve_lm.check_args(args)
+    assert args.engine == "continuous" and not args.kv_paged
+    cfg = replace(TCFG, max_seq_len=100)
+    supervisor, server = serve_lm.build_front(
+        cfg, serve_lm.quick_train(cfg, 0, 0.0), args)
+    try:
+        assert supervisor.engine.kv_debug() == {
+            "mode": "dense", "cache_rows": 8, "max_seq_len": 100}
+    finally:
+        server.start().drain(timeout=60)
 
 
 def test_serves_a_port_checkpoint_target_and_draft(tmp_path, monkeypatch,
@@ -534,3 +555,258 @@ def test_serve_lm_drains_on_sigterm(tmp_path):
             proc.kill()
             proc.wait(timeout=15)
     assert "engine drained" in log.read_text()
+
+
+def _jax_params(cfg=CFG, seed=0):
+    return JaxTransformer(cfg).init(
+        jax.random.PRNGKey(seed), jnp.zeros((1, 8), jnp.int32))["params"]
+
+
+def _concurrent(url, bodies):
+    out = [None] * len(bodies)
+
+    def client(i):
+        out[i] = call(url, "/generate", bodies[i])
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=180)
+    assert all(o is not None for o in out)
+    return out
+
+
+def test_dense_front_serves_as_jax():
+    """``--kv-dense``: concurrent greedy and sampled requests give the JAX
+    dense engine's tokens; /debug/serve reads ``mode: "dense"``; a
+    ``shipped_kv`` request is prefilled locally (counted ``unsupported``)
+    and answers as the same request without one; ``GET /prefix/<digest>``
+    answers 404 ``prefix_not_found``."""
+    from tf_operator_tpu_torch.runtime.metrics import SERVE_SHIP_INGEST_TOTAL
+    from tf_operator_tpu_torch.serve.disagg import PrefillWorker
+
+    params = _jax_params()
+    tparams = jax.tree.map(np.asarray, params)
+    args = serve_lm.front_args(device="cpu", max_batch=4, kv_paged=False,
+                               max_seq_len=CFG.max_seq_len, prefill_chunk=4,
+                               kv_attend="pallas", host_tier_bytes=1 << 20)
+    supervisor, server = serve_lm.build_front(TCFG, tparams, args)
+    server.start()
+    url = "http://" + server.endpoint
+    sched = JaxScheduler(JaxEngine(CFG, params, max_slots=4, kv_paged=False,
+                                   prefill_chunk=4)).start()
+    bodies = [{"tokens": prompt_of(5 + i, 20 + i).tolist(), "num_steps": 9}
+              for i in range(3)]
+    bodies.append({"tokens": prompt_of(6, 30).tolist(), "num_steps": 7,
+                   "temperature": 0.8, "top_p": 0.9, "seed": 4})
+    shipped = {**bodies[0], "shipped_kv": PrefillWorker(
+        TCFG, tparams, kv_block=8, device="cpu").prefill(
+        np.asarray(bodies[0]["tokens"]))}
+    unsupported = SERVE_SHIP_INGEST_TOTAL.value(outcome="unsupported")
+    try:
+        got = _concurrent(url, bodies)
+        status, ship = call(url, "/generate", shipped)
+        _, debug = call(url, "/debug/serve")
+        pstatus, miss = call(url, "/prefix/" + "ab" * 20)
+        _, health = call(url, "/healthz")
+        want = [jax_payload(sched, body) for body in bodies]
+    finally:
+        sched.stop(timeout=60)
+        server.drain(timeout=60)
+    for (code, out), w in zip(got, want):
+        assert code == 200 and out["tokens"] == w["tokens"]
+        assert out["finish_reason"] == w["finish_reason"]
+    assert status == 200 and ship["tokens"] == got[0][1]["tokens"]
+    assert SERVE_SHIP_INGEST_TOTAL.value(
+        outcome="unsupported") == unsupported + 1
+    assert debug["kv_cache"] == {"mode": "dense", "cache_rows": 4,
+                                 "max_seq_len": CFG.max_seq_len}
+    assert supervisor.engine.kv_attend == "gather"
+    assert supervisor.engine.host_tier is None
+    assert pstatus == 404 and miss["code"] == "prefix_not_found"
+    assert "prefixes" not in health and "tier_prefixes" not in health
+
+
+@pytest.fixture(scope="module")
+def legacy():
+    """A ``--engine coalesce`` front with no window: (JAX params, URL)."""
+    params = _jax_params()
+    args = serve_lm.front_args(device="cpu", engine="coalesce",
+                               max_seq_len=CFG.max_seq_len,
+                               stream_segment=4)
+    supervisor, server = serve_lm.build_front(
+        TCFG, jax.tree.map(np.asarray, params), args)
+    assert supervisor is None and server.coalescer is None
+    server.start()
+    yield params, "http://" + server.endpoint
+    server.drain(timeout=60)
+
+
+def test_coalesce_front_answers_as_jax_generate(legacy):
+    """The legacy path: a direct greedy request gives JAX's ``generate``,
+    a multi-row one its rows, a seeded sampled one JAX's ``generate`` with
+    that seed, a stream the greedy tokens; the answer is ``{"tokens"}``;
+    /healthz names the engine; /debug/serve and /prefix are not served."""
+    params, url = legacy
+    a, b = prompt_of(6, 1), prompt_of(6, 2)
+    status, out = call(url, "/generate", {"tokens": a.tolist(),
+                                          "num_steps": 8})
+    assert status == 200 and out == {"tokens": solo(params, a, 8).tolist()}
+    status, out = call(url, "/generate", {
+        "tokens": [a[0].tolist(), b[0].tolist()], "num_steps": 5})
+    assert out["tokens"] == solo(params, np.concatenate([a, b]),
+                                 5).tolist()
+    status, out = call(url, "/generate", {
+        "tokens": a.tolist(), "num_steps": 7, "temperature": 0.8,
+        "top_p": 0.9, "seed": 5})
+    assert out["tokens"] == solo(params, a, 7, temperature=0.8, top_p=0.9,
+                                 seed=5).tolist()
+    status, lines = call(url, "/generate", {"tokens": a.tolist(),
+                                            "num_steps": 8, "stream": True})
+    assert [t for line in lines for t in line["tokens"][0]] == \
+        solo(params, a, 8)[0].tolist()
+    status, health = call(url, "/healthz")
+    assert health["engine"] == "coalesce" and health["served"] >= 3
+    assert "coalesced_batches" not in health and "spec_decodes" not in health
+    assert call(url, "/debug/serve")[0] == 404
+    assert call(url, "/prefix/" + "ab" * 20)[0] == 404
+
+
+@pytest.mark.parametrize("fields,detail", [
+    ({"regex": "[0-9]+"}, "require --engine continuous"),
+    ({"logprobs": True}, "require --engine continuous"),
+    ({"n": 2, "temperature": 0.5}, "require --engine continuous"),
+    ({"stream": True, "stop": [[1]]}, "stream does not compose"),
+    ({"top_p": 0.9}, "requires temperature > 0"),
+])
+def test_coalesce_front_refuses_structured_fields(legacy, fields, detail):
+    """The structured fields need the continuous engine: JAX's 400, typed
+    as the continuous front types its errors."""
+    _, url = legacy
+    status, out = call(url, "/generate", {
+        "tokens": prompt_of(4, 3).tolist(), "num_steps": 4, **fields})
+    assert status == 400 and out["code"] == "bad_request"
+    assert out["retryable"] is False and detail in out["detail"]
+
+
+def test_batch_window_bursts_coalesce():
+    """``--batch-window 250 --max-batch 8``: four same-shape greedy
+    requests at once run as fewer decodes than requests (a batch of at
+    least two rows), each answer its solo answer, and a second identical
+    burst answers bit for bit as the first."""
+    params = _jax_params()
+    args = serve_lm.front_args(device="cpu", batch_window=250.0,
+                               max_batch=8, max_seq_len=CFG.max_seq_len)
+    supervisor, server = serve_lm.build_front(
+        TCFG, jax.tree.map(np.asarray, params), args)
+    assert supervisor is None and args.engine == "coalesce"
+    server.start()
+    url = "http://" + server.endpoint
+    bodies = [{"tokens": prompt_of(6, 40 + i).tolist(), "num_steps": 6}
+              for i in range(4)]
+    try:
+        alone = [call(url, "/generate", body)[1]["tokens"]
+                 for body in bodies]
+        _, before = call(url, "/healthz")
+        first = [out for _, out in _concurrent(url, bodies)]
+        second = [out for _, out in _concurrent(url, bodies)]
+        _, health = call(url, "/healthz")
+    finally:
+        server.drain(timeout=60)
+    for body, tokens in zip(bodies, alone):
+        assert tokens == solo(params, np.asarray(body["tokens"]),
+                              6).tolist()
+    assert [out["tokens"] for out in first] == alone
+    assert second == first
+    burst_batches = health["coalesced_batches"] - before["coalesced_batches"]
+    assert 2 <= burst_batches < 2 * len(bodies)
+    assert health["max_batch_rows"] >= 2 and health["pending"] == 0
+
+
+def test_coalesce_front_counts_spec_decodes():
+    """``--spec-k 2`` on the legacy path: greedy (direct and coalesced)
+    and sampled requests decode speculatively, each equal to JAX's
+    ``generate`` greedy; /healthz counts ``spec_decodes``/``spec_rounds``;
+    a request whose margin does not fit the cache runs plain ``generate``
+    and is not counted."""
+    params = _jax_params()
+    dcfg = replace(CFG, n_layers=1)
+    dparams = _jax_params(dcfg, 7)
+    args = serve_lm.front_args(device="cpu", batch_window=50.0,
+                               max_seq_len=CFG.max_seq_len, spec_k=2)
+    _, server = serve_lm.build_front(
+        TCFG, jax.tree.map(np.asarray, params), args,
+        jax.tree.map(np.asarray, dparams))
+    server.start()
+    url = "http://" + server.endpoint
+    a = prompt_of(6, 1)
+    try:
+        _, greedy = call(url, "/generate", {"tokens": a.tolist(),
+                                            "num_steps": 9})
+        status, sampled = call(url, "/generate", {
+            "tokens": a.tolist(), "num_steps": 6, "temperature": 0.8,
+            "seed": 2})
+        _, health = call(url, "/healthz")
+        # 6 + 56 + 2 + 1 > 64: plain generate.
+        _, long = call(url, "/generate", {"tokens": a.tolist(),
+                                          "num_steps": 56})
+        _, after = call(url, "/healthz")
+    finally:
+        server.drain(timeout=60)
+    assert greedy["tokens"] == solo(params, a, 9).tolist()
+    assert status == 200 and len(sampled["tokens"][0]) == 6
+    assert health["spec_decodes"] == 2 and health["spec_rounds"] >= 2
+    assert health["spec_tokens"] == 15
+    assert long["tokens"] == solo(params, a, 56).tolist()
+    assert after["spec_decodes"] == 2
+
+
+def test_coalesce_drains_a_parked_request_on_sigterm(tmp_path):
+    """tests/test_examples.py's test_serve_lm_drains_queued_requests_on_
+    shutdown over the port: SIGTERM while a request is parked in the batch
+    window; the request is answered and the process exits 0."""
+    port = free_port()
+    log = tmp_path / "serve.log"
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    with open(log, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "tf_operator_tpu_torch.serve.serve_lm",
+             "--device", "cpu", "--port", str(port), "--train-steps", "2",
+             "--batch-window", "1500", "--max-batch", "8"],
+            env=env, cwd=REPO, stdout=out, stderr=subprocess.STDOUT)
+    url = f"http://127.0.0.1:{port}"
+    try:
+        limit = time.monotonic() + 180
+        while True:
+            try:
+                call(url, "/healthz", timeout=5)
+                break
+            except OSError:
+                assert proc.poll() is None, log.read_text()
+                assert time.monotonic() < limit, log.read_text()
+                time.sleep(0.2)
+        body = {"tokens": [[5, 6, 7, 8]], "num_steps": 3}
+        assert call(url, "/generate", body)[0] == 200
+        result: dict = {}
+        client = threading.Thread(
+            target=lambda: result.update(out=call(url, "/generate", body)))
+        client.start()
+        limit = time.monotonic() + 20
+        while call(url, "/healthz")[1].get("pending", 0) < 1:
+            assert time.monotonic() < limit
+            time.sleep(0.02)
+        proc.send_signal(signal.SIGTERM)
+        client.join(timeout=60)
+        status, out = result["out"]
+        assert status == 200 and len(out["tokens"][0]) == 3
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=15)
+    text = log.read_text()
+    assert "coalescing greedy requests (window 1500 ms" in text
+    assert "done (2 request(s) served)" in text

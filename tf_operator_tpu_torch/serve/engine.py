@@ -1,12 +1,24 @@
-"""Continuous-batching decode engine over the block-paged KV pool, in
-PyTorch.
+"""Continuous-batching decode engine, in PyTorch.
 
-Counterpart of ``tf_operator_tpu/serve/engine.py::ContinuousEngine`` in
-its plain paged mode. Requests join whenever a slot and enough blocks
-are free, every step advances all active slots by one token in ONE
-batched forward of the paged model, and slots retire one by one. KV
-lives in per-layer pools of ``kv_block``-token blocks; each slot owns a
-block table sized to its actual length (prompt + decode horizon).
+Counterpart of ``tf_operator_tpu/serve/engine.py::ContinuousEngine`` on
+one device. Requests join whenever a slot (and, paged, enough blocks) is
+free, every step advances all active slots by one token in ONE batched
+forward, and slots retire one by one. Two KV layouts, as in JAX:
+
+- ``kv_paged=True`` (default): KV lives in per-layer pools of
+  ``kv_block``-token blocks; each slot owns a block table sized to its
+  actual length (prompt + decode horizon). Everything below about blocks,
+  prefixes, shipments and the tier is this layout's.
+- ``kv_paged=False``: the dense slot tensor (``serve/kvcache.py``
+  ``stack_slots``), every slot a row of ``max_seq_len`` positions and a
+  counter of its own; a join lands its prefill with ``dense_insert`` and
+  the step reads each lane's row at its counter
+  (``models/transformer.py`` ``_decode_attend_lanes``). Admission needs
+  only a free slot; nothing is shared, shipped or spilled: an ingest
+  answers None (the caller prefills locally), an export raises
+  ``PrefixNotFound``, the tier and the advertisements are inert, and
+  ``free_block_fraction`` reads 1.0. The read is the gather's math, so
+  ``kv_attend="kernel"`` is refused here as in JAX.
 
 - Prefill is a solo dense concern: each joining request prefills alone
   over a dense cache and its prompt rows are scattered into its blocks.
@@ -88,8 +100,7 @@ them (the wire format is ``serve/disagg.py``'s):
 
 Every device read or write of these mutates or reads the cache in place,
 so a server runs them on its serving loop's thread (the scheduler's
-``call_engine``), as it runs the steps. The dense slot engine and meshes
-are later slices.
+``call_engine``), as it runs the steps. Meshes are a later slice.
 """
 
 from __future__ import annotations
@@ -235,13 +246,11 @@ class ContinuousEngine:
     (row 0 included); ``logprobs_k`` > 0 keeps each step's top-K logprobs.
     ``spec_k`` >= 1 with ``draft_cfg``/``draft_params`` (a flax-layout
     tree) makes it a speculative engine that decodes by ``spec_step``.
-    ``device`` defaults to the CUDA card."""
-
-    # The KV layout, as the JAX engine names it: always the block-paged
-    # pool here (the dense slot engine is a later slice).
-    kv_paged = True
+    ``kv_paged=False`` picks the dense slot tensor (``kv_block`` and
+    ``kv_blocks`` unused). ``device`` defaults to the CUDA card."""
 
     def __init__(self, cfg: TransformerConfig, params, max_slots: int, *,
+                 kv_paged: bool = True,
                  kv_block: int = 64, kv_blocks: int | None = None,
                  kv_attend: str = "gather",
                  prefill_chunk: int | None = None, faults: Any = None,
@@ -273,25 +282,38 @@ class ContinuousEngine:
             self._spec_margin = spec_margin(self.spec_k)
         self.prefill_chunk = prefill_chunk
         self.max_slots = int(max_slots)
+        self.kv_paged = bool(kv_paged)
         self.kv_block = int(kv_block)
         self.kv_attend = kv_attend
-        self.table_len = cfg.max_seq_len // self.kv_block
-        if kv_blocks is None:
-            # Every slot at max length, plus the pinned garbage block.
-            kv_blocks = self.max_slots * self.table_len + 1
-        self.kv_blocks = int(kv_blocks)
-        # The config validates kv_attend and the block geometry.
-        self.cfg = replace(cfg, decode=True, kv_paged=True,
-                           kv_block=self.kv_block,
-                           kv_num_blocks=self.kv_blocks, kv_attend=kv_attend)
+        if self.kv_paged:
+            self.table_len = cfg.max_seq_len // self.kv_block
+            if kv_blocks is None:
+                # Every slot at max length, plus the pinned garbage block.
+                kv_blocks = self.max_slots * self.table_len + 1
+            self.kv_blocks = int(kv_blocks)
+            # The config validates kv_attend and the block geometry.
+            self.cfg = replace(cfg, decode=True, kv_paged=True,
+                               kv_block=self.kv_block,
+                               kv_num_blocks=self.kv_blocks,
+                               kv_attend=kv_attend)
+        else:
+            self.table_len = self.kv_blocks = None
+            # The config refuses kv_attend="kernel" without a block table.
+            self.cfg = replace(cfg, decode=True, kv_paged=False,
+                               kv_attend=kv_attend)
         # One module serves both layouts: prefill runs it over a dense
-        # cache, the step over the paged one.
+        # cache, the step over the paged pool or the dense slot tensor.
         self._model = load_params(Transformer(self.cfg, device), params)
         self.device = self._model.device
         self.alloc = SlotAllocator(self.max_slots)
-        self.blocks = BlockAllocator(self.kv_blocks)
-        self.prefix = PrefixCache(self.kv_block)
-        self._cache = paged_cache_template(self._model, self.max_slots)
+        if self.kv_paged:
+            self.blocks = BlockAllocator(self.kv_blocks)
+            self.prefix = PrefixCache(self.kv_block)
+            self._cache = paged_cache_template(self._model, self.max_slots)
+        else:
+            self.blocks = self.prefix = None
+            self._cache = stack_slots(solo_cache_template(self._model),
+                                      self.max_slots)
         n, dev = self.max_slots, self.device
         self._logits = torch.zeros((n, cfg.vocab_size), dtype=torch.float32,
                                    device=dev)
@@ -393,6 +415,8 @@ class ContinuousEngine:
             )
         if self.prefill_chunk is not None:
             _validate_prefill_chunk(self.cfg, prompt_len, self.prefill_chunk)
+        if not self.kv_paged:
+            return
         cap = self._block_cap(prompt_len, num_steps)
         if cap > self.kv_blocks - 1:
             raise ValueError(
@@ -410,9 +434,9 @@ class ContinuousEngine:
                  // self.kv_block)
 
     def plan_admission(self, tokens, num_steps: int) -> AdmissionPlan | None:
-        """Reserve a slot's worth of blocks for one request, or None (the
-        caller queues): a free slot AND enough free blocks after the
-        shared-prefix credit. A shared partial last block reserves one
+        """Reserve capacity for one request, or None (the caller queues).
+        Dense: a free slot. Paged: a free slot AND enough free blocks after
+        the shared-prefix credit; a shared partial last block reserves one
         extra private block for its copy-on-write."""
         tokens = np.array(tokens, np.int32)
         n_prompt, n_steps = int(tokens.shape[1]), int(num_steps)
@@ -421,6 +445,8 @@ class ContinuousEngine:
             return None  # injected slot/block-pool exhaustion
         if self.alloc.free == 0:
             return None
+        if not self.kv_paged:
+            return AdmissionPlan(tokens, n_prompt, n_steps)
         blk = self.kv_block
         cap = self._block_cap(n_prompt, n_steps)
         n, shared, logits = self.prefix.lookup(tokens[0])
@@ -457,8 +483,9 @@ class ContinuousEngine:
 
     def release_plan(self, plan: AdmissionPlan | None) -> None:
         """Undo a plan's reservations. Idempotent; a no-op for a plan a
-        join consumed (its blocks belong to the slot then)."""
-        if plan is None or plan.settled:
+        join consumed (its blocks belong to the slot then), and for every
+        dense plan (it reserves nothing)."""
+        if plan is None or plan.settled or not self.kv_paged:
             return
         plan.settled = True
         self._free_blocks(
@@ -531,14 +558,14 @@ class ContinuousEngine:
         already shares; ``(None, "failed")``, the stored payload no longer
         decodes (dropped as poison; a local prefill serves the request).
         Never raises. Runs on the serving loop's thread, as every device
-        write does."""
+        write does. A dense engine has nothing to restore into: a miss."""
         from tf_operator_tpu_torch.serve.disagg import (
             chain_digests,
             decode_shipment,
         )
         from tf_operator_tpu_torch.serve.tier import payload_nbytes
 
-        if self.host_tier is None:
+        if self.host_tier is None or not self.kv_paged:
             return None, "miss"
         tokens = np.ascontiguousarray(
             np.asarray(tokens, np.int32).reshape(-1))
@@ -591,7 +618,7 @@ class ContinuousEngine:
         membership probe (no LRU change, no device work): the
         block-exhaustion requeue's must-wait vs can-restore, safe from any
         thread."""
-        if self.host_tier is None:
+        if self.host_tier is None or not self.kv_paged:
             return False
         from tf_operator_tpu_torch.serve.disagg import chain_digests
 
@@ -602,8 +629,8 @@ class ContinuousEngine:
     def advertised_tier_prefixes(self) -> list[str]:
         """Hex digests of the warmest host-tier payloads, MRU first, under
         the hot advertisement's ``prefix_advertise_max`` cap: the /healthz
-        ``tier_prefixes`` list. Empty without a tier."""
-        if self.host_tier is None:
+        ``tier_prefixes`` list. Empty without a tier, and dense."""
+        if self.host_tier is None or not self.kv_paged:
             return []
         return self.host_tier.advertise(self.prefix_advertise_max)
 
@@ -673,7 +700,12 @@ class ContinuousEngine:
         change). kv_int8 pools ingest too: ``_ship_rows`` derives the parts
         a layer needs from the LIVE pool leaves, so a kv8 engine refuses a
         shipment without scales and a bf16 or f32 one a shipment with them,
-        both as ValueError, never a partial write."""
+        both as ValueError, never a partial write.
+
+        A dense engine answers None without looking at the shipment: it has
+        no pool to land rows in, and the caller prefills locally."""
+        if not self.kv_paged:
+            return None
         if int(shp.kv_block) != self.kv_block:
             raise ValueError(
                 f"shipment kv_block={shp.kv_block} != engine "
@@ -778,7 +810,7 @@ class ContinuousEngine:
         request's plan has referenced its blocks, or on any error path
         before that. Blocks whose refcount hits zero return to the pool and
         invalidate their prefix entries, the retire bookkeeping."""
-        if hold is None or hold.settled:
+        if hold is None or hold.settled or not self.kv_paged:
             return
         hold.settled = True
         self._free_blocks(list(hold.blocks))
@@ -789,7 +821,10 @@ class ContinuousEngine:
         """Hex digests of the hottest PrefixCache entries, MRU first,
         capped at ``prefix_advertise_max``: the /healthz advertisement a
         fleet router scores prefix hits from. A host-side read under the
-        PrefixCache's lock, safe from any thread."""
+        PrefixCache's lock, safe from any thread. Empty on a dense engine
+        (no prefix cache)."""
+        if not self.kv_paged:
+            return []
         return self.prefix.advertise(self.prefix_advertise_max)
 
     def export_prefix(self, digest_hex: str) -> dict:
@@ -809,10 +844,13 @@ class ContinuousEngine:
         sampling logits to ship). The entry is checked again after the
         gather, so one that left meanwhile is the typed miss, never rows of
         reused blocks. Runs on the serving loop's thread (the scheduler's
-        ``call_engine``)."""
+        ``call_engine``). A dense engine holds no prefix: always the typed
+        miss."""
         from tf_operator_tpu_torch.serve.disagg import export_shipment
         from tf_operator_tpu_torch.serve.resilience import PrefixNotFound
 
+        if not self.kv_paged:
+            raise PrefixNotFound("dense engine holds no prefix blocks")
         entry = self.prefix.entry_for_hex(digest_hex)
         if entry is None:
             payload = self._tier_export(digest_hex)
@@ -930,8 +968,8 @@ class ContinuousEngine:
         except Exception:
             self.release_plan(plan)
             raise
-        return self._join_paged(plan, cache, logits, temperature, top_p,
-                                seed, program)
+        return self._join_slot(plan, cache, logits, temperature, top_p,
+                               seed, program)
 
     def _set_sampling(self, slot: int, num_steps: int, temperature: float,
                       top_p: float | None, seed: int) -> None:
@@ -951,10 +989,15 @@ class ContinuousEngine:
         self._has_top_p[slot] = top_p is not None
         self._sampled[slot] = temperature > 0
 
-    def _join_paged(self, plan: AdmissionPlan, cache: dict | None,
-                    logits: torch.Tensor, temperature: float,
-                    top_p: float | None, seed: int,
-                    program: Any = None) -> int | None:
+    def _join_slot(self, plan: AdmissionPlan, cache: dict | None,
+                   logits: torch.Tensor, temperature: float,
+                   top_p: float | None, seed: int,
+                   program: Any = None) -> int | None:
+        """Land a prefilled admission in a free slot: bind its program,
+        insert its rows (dense: the whole row of the slot tensor, JAX's
+        ``join_prefilled``; paged: the plan's blocks and table), seed the
+        logits, sampling and speculative state, and, paged, hand the
+        plan's blocks to the slot and register its prompt."""
         base = None
         if program is not None:
             base = self.constrain_pool.bind(program)
@@ -969,7 +1012,9 @@ class ContinuousEngine:
                 self.constrain_pool.release(program.digest)
             self.release_plan(plan)
             return None
-        if cache is None:
+        if not self.kv_paged:
+            dense_insert(self._cache, slot, cache)
+        elif cache is None:
             # Exact prefix match: every prompt row already lives in shared
             # blocks, so only the table row and the counter change.
             table_insert(self._cache, slot, plan.read_table, plan.prompt_len)
@@ -991,6 +1036,8 @@ class ContinuousEngine:
             self._slot_program[slot] = program.digest
         self._active[slot] = True
         plan.settled = True  # the blocks now belong to the slot
+        if not self.kv_paged:
+            return slot
         cow = None
         if plan.cow is not None:
             entry, dst = plan.cow
@@ -1087,9 +1134,9 @@ class ContinuousEngine:
         once, so a server's first request pays neither. The JAX engine
         warms its compiled step in its constructor; this one is called by
         the caller that wants it. Inactive lanes' writes land in the
-        pinned garbage block (paged) or their own rows (the draft), and
-        every join overwrites its lane's logits, rows and pending token,
-        so no later token changes."""
+        pinned garbage block (paged) or their own rows (the draft, the
+        dense slot tensor), and every join overwrites its lane's logits,
+        rows and pending token, so no later token changes."""
         if self._active.any():
             raise RuntimeError("warmup() runs before any join")
         if self.spec_k:
@@ -1240,9 +1287,10 @@ class ContinuousEngine:
                 st = pool.next_pool[st.long(), tok.long()]
                 drafted.append(tok)
             drafted = torch.stack(drafted, 1)  # [n, k + 1]
-            # Verify: one paged forward of [pend, d_1..d_k] (t = k + 1 rows
-            # a lane, each lane at its own counter), every row masked by
-            # the FSM state it is sampled at.
+            # Verify: one target forward of [pend, d_1..d_k] (t = k + 1 rows
+            # a lane, each lane at its own counter, over the paged pool or
+            # the dense slot tensor: JAX's vmapped solo chunk forward),
+            # every row masked by the FSM state it is sampled at.
             cache = mask_inactive_indices(self._cache, active)
             t_idx = cache["cache_index"].clone()
             chunk = torch.cat([self._pend[:, None], drafted[:, :k]], 1)
@@ -1323,6 +1371,8 @@ class ContinuousEngine:
     # -- observability ------------------------------------------------------
 
     def _set_block_gauges(self) -> None:
+        if not self.kv_paged:
+            return  # no pool: the block gauges are the paged engine's
         SERVE_KV_BLOCKS.set(self.blocks.free_blocks, state="free")
         SERVE_KV_BLOCKS.set(self.blocks.used, state="used")
         SERVE_KV_BLOCKS.set(self.blocks.shared, state="shared")
@@ -1334,16 +1384,18 @@ class ContinuousEngine:
     @property
     def free_block_fraction(self) -> float:
         """Fraction of the allocatable KV pool still free: the degraded
-        mode's watermark input."""
+        mode's watermark input. A dense engine runs out of nothing but
+        slots, so it reads 1.0."""
+        if not self.kv_paged:
+            return 1.0
         return self.blocks.free_blocks / max(1, self.kv_blocks - 1)
 
     @property
     def decode_step_compiles(self) -> int:
         """The JAX engine's count of its compiled decode step's
         executables, the zero-recompile pin. The step here is eager and
-        compiles nothing, so it reads 0, as does ``warmup_compiles``,
-        until the decode step runs as a captured CUDA graph (ROADMAP A5),
-        when both count captures."""
+        compiles nothing, so it reads 0, as does ``warmup_compiles``, in
+        both layouts: the zero-recompile pin holds trivially."""
         return 0
 
     @property
@@ -1361,8 +1413,12 @@ class ContinuousEngine:
         return out
 
     def kv_debug(self) -> dict:
-        """Block-pool stats, named as the JAX engine names them; the
-        ``tier`` section only with a host tier attached."""
+        """KV stats, named as the JAX engine names them: the dense slot
+        tensor's shape, or the block pool's counters with the ``tier``
+        section only with a host tier attached."""
+        if not self.kv_paged:
+            return {"mode": "dense", "cache_rows": self.max_slots,
+                    "max_seq_len": self.cfg.max_seq_len}
         out = {
             "mode": "paged",
             "block": self.kv_block,

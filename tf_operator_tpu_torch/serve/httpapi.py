@@ -5,8 +5,9 @@ Counterpart of ``tf_operator_tpu/serve/httpapi.py``'s ``QuietHandler``,
 ``_QuantileWindow`` and ``readiness_payload``, over the port's metrics
 registry and trace ring. The JAX module's ``mount_serve`` (the
 /debug/serve handler mounted on the operator's ApiServer) is
-control-plane glue and is not ported yet (ROADMAP A5); the port's server
-(``serve/serve_lm.py``) serves /debug/serve itself, in the same shape.
+control-plane glue the port does not carry: the port's server
+(``serve/serve_lm.py``) serves /debug/serve itself, in the same shape,
+from either engine layout.
 """
 
 from __future__ import annotations

@@ -241,11 +241,10 @@ class InvalidGrammar(ServeError):
 
 class NotPorted(ServeError):
     """A request field or server flag whose ROADMAP item the port has not
-    ported yet (the detail names the item): the dense slot engine (A5),
-    meshes (A8), the coalescing engine (A10). A
-    400 under the front door's ``bad_request`` code, NOT retryable —
-    every port replica would refuse it alike; the request never reaches
-    the device."""
+    ported yet (the detail names the item): meshes and pipelined
+    checkpoints (A8). A 400 under the front door's ``bad_request`` code,
+    NOT retryable — every port replica would refuse it alike; the request
+    never reaches the device."""
 
     code = "bad_request"
     http_status = 400

@@ -1,16 +1,16 @@
-"""LM serving over HTTP on the port's continuous-batching engine.
+"""LM serving over HTTP on the port's engines.
 
     python -m tf_operator_tpu_torch.serve.serve_lm [--device cpu] [flags]
 
-The continuous path of ``examples/serve_lm.py``, under the same flag
-names and defaults where a flag applies: one process restores a
-checkpoint of the port's trainer (``--checkpoint-dir``, written by
-``python -m tf_operator_tpu_torch.train.dist_lm``; the shape flags must
-mirror the trainer's), quick-trains the +1-chain task (``--train-steps``,
-0 serves the seeded init), or takes the weights it is given
-(``build_front``), and serves them through
-``ContinuousEngine`` (paged KV, prefix sharing, chunked prefill, greedy
-and sampled lanes), the scheduler and the supervisor of this package:
+``examples/serve_lm.py`` over this package, under the same flag names and
+defaults where a flag applies: one process restores a checkpoint of the
+port's trainer (``--checkpoint-dir``, written by ``python -m
+tf_operator_tpu_torch.train.dist_lm``; the shape flags must mirror the
+trainer's), quick-trains the +1-chain task (``--train-steps``, 0 serves
+the seeded init), or takes the weights it is given (``build_front``), and
+serves them through ``ContinuousEngine`` (paged KV, or the dense slot
+tensor under ``--kv-dense``; prefix sharing, chunked prefill, greedy and
+sampled lanes), the scheduler and the supervisor of this package:
 
     GET  /healthz        liveness + readiness (``readiness_payload``):
                          ``draining: true`` during the SIGTERM drain,
@@ -84,10 +84,27 @@ server has them (wire format: ``serve/disagg.py``):
   and admission restores them (/healthz ``tier_prefixes``); a ``session``
   key posts the restore at enqueue (``--tier-prefetch``).
 
+``--kv-dense`` serves from the dense slot tensor (``kv_attend`` forced to
+the gather's read, no host tier, no prefix retention): a ``shipped_kv``
+request is prefilled locally (counted ``unsupported``), ``GET
+/prefix/<digest>`` answers ``prefix_not_found``, and /debug/serve's
+``kv_cache`` reads ``mode: "dense"``.
+
+``--engine coalesce`` (selected by ``--batch-window`` alone; ``--engine
+continuous --batch-window`` is refused) is the legacy path, ``LegacyServer``:
+no scheduler and no supervisor, one device lock, each request decoded by
+the solo ``generate`` (``speculative_generate`` under ``--spec-k`` when the
+speculation margin fits), greedy requests of one shape batched within
+``--batch-window`` ms by ``serve/coalesce.py``'s ``Coalescer`` (at most
+``--max-batch`` rows, padded to a power of two), sampled ones solo at
+their seed. It answers ``{"tokens": [...]}``; the structured fields are a
+400 (they need the continuous engine), and /healthz carries
+``coalesced_batches``, ``max_batch_rows``, ``pending`` and, under
+``--spec-k``, ``spec_decodes``/``spec_rounds``/``spec_tokens``. On SIGTERM
+the requests in the window and in flight are answered before it exits.
+
 Flags of ROADMAP items the port has not ported exit naming the item, and
-never run another path instead: ``--tp``/``--dp`` and ``--from-pp`` (A8),
-``--kv-dense`` (the dense slot engine, A5), ``--engine coalesce`` and
-``--batch-window`` (A10).
+never run another path instead: ``--tp``/``--dp`` and ``--from-pp`` (A8).
 
 Speculative decoding (``--spec-k K``): the engine decodes in rounds, a
 draft of ``--spec-draft-layers`` layers (default max(1, layers // 2), the
@@ -129,16 +146,20 @@ from tf_operator_tpu_torch.models.convert import (
     load_params,
     quantize_decode_params,
 )
+from tf_operator_tpu_torch.models.spec_decode import speculative_generate
 from tf_operator_tpu_torch.models.transformer import (
     Transformer,
     TransformerConfig,
     _decode_model,
+    generate,
     generate_segments,
 )
+from tf_operator_tpu_torch.random import PRNGKey
 from tf_operator_tpu_torch.runtime.tracing import (
     SERVE_TRACER,
     mint_request_id,
 )
+from tf_operator_tpu_torch.serve.coalesce import Coalescer
 from tf_operator_tpu_torch.serve.constrain import (
     ConstraintCompiler,
     default_vocab,
@@ -171,23 +192,17 @@ from tf_operator_tpu_torch.serve.tier import HostTier
 UNPORTED_FLAGS = (
     ("--tp", lambda a: a.tp > 1, "A8 (multi-device)"),
     ("--dp", lambda a: a.dp > 1, "A8 (multi-device)"),
-    ("--kv-dense", lambda a: not a.kv_paged,
-     "A5 (the dense slot engine)"),
-    ("--engine coalesce", lambda a: a.engine == "coalesce",
-     "A10 (serve/coalesce.py)"),
-    ("--batch-window", lambda a: a.batch_window > 0,
-     "A10 (serve/coalesce.py)"),
     ("--from-pp", lambda a: a.from_pp is not None,
      "A8 (multi-device: pipeline trees)"),
 )
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """``examples/serve_lm.py``'s flags that the continuous path reads,
-    under the same names and defaults, plus ``--device``."""
+    """``examples/serve_lm.py``'s flags, under the same names and
+    defaults, plus ``--device``."""
     p = argparse.ArgumentParser(
         description="LM serving over HTTP on the PyTorch port's "
-                    "continuous-batching engine")
+                    "engines")
     p.add_argument("--port", type=int,
                    default=int(os.environ.get("TPU_SERVE_PORT") or 0),
                    help="listen port (default $TPU_SERVE_PORT, else an "
@@ -262,12 +277,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prefill-chunk", type=int, default=0, metavar="N",
                    help="prefill in fixed N-token chunks (0: one-shot)")
     p.add_argument("--batch-window", type=float, default=0.0,
-                   metavar="MS", help="waits for A10")
+                   metavar="MS",
+                   help="legacy engine: coalesce concurrent greedy "
+                        "/generate requests of the same shape for this "
+                        "many ms and run them as ONE batched decode. "
+                        "Implies --engine coalesce. 0 = off")
     p.add_argument("--max-batch", type=int, default=8,
-                   help="decode slots of the continuous engine")
+                   help="decode slots of the continuous engine / row cap "
+                        "per coalesced batch (--batch-window)")
     p.add_argument("--engine", choices=("continuous", "coalesce"),
-                   default="continuous",
-                   help="'coalesce' waits for A10")
+                   default=None,
+                   help="'continuous' = slot-based continuous batching; "
+                        "'coalesce' = the legacy direct/batch-window path. "
+                        "Default: continuous unless --batch-window (the "
+                        "window IS the coalesce policy)")
     p.add_argument("--prefill-budget", type=int, default=256,
                    metavar="TOKENS",
                    help="max prompt tokens prefilled per serving-loop "
@@ -275,7 +298,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--kv-paged", dest="kv_paged", action="store_true",
                    default=True, help="block-paged KV cache (the default)")
     p.add_argument("--kv-dense", dest="kv_paged", action="store_false",
-                   help="waits for A5")
+                   help="continuous engine: the dense slot tensor (every "
+                        "slot pre-pays max-seq-len rows; no prefix "
+                        "sharing, shipping or host tier)")
     p.add_argument("--kv-block", type=int, default=64, metavar="TOKENS",
                    help="paged KV block size (--max-seq-len must divide "
                         "evenly)")
@@ -420,17 +445,16 @@ def _to_device(tree, device) -> dict:
             for k, v in tree.items()}
 
 
-class FrontServer(ThreadingHTTPServer):
-    """The HTTP server with the front's state: the supervisor, the device
-    lock the serving loop and the streaming path share, the drain event
-    (set on SIGTERM or after ``--requests``), and the served count."""
+class _Front(ThreadingHTTPServer):
+    """What both fronts hold: the weights the streaming path decodes, the
+    device lock every decode path shares, the drain event (set on SIGTERM
+    or after ``--requests``) and the served count."""
 
     daemon_threads = True
 
-    def __init__(self, address, supervisor: EngineSupervisor, *, cfg,
-                 params, args, device, lock: threading.Lock) -> None:
-        super().__init__(address, _Handler)
-        self.supervisor = supervisor
+    def __init__(self, address, handler, *, cfg, params, args, device,
+                 lock: threading.Lock) -> None:
+        super().__init__(address, handler)
         self.cfg = cfg
         self.params = params
         self.args = args
@@ -461,10 +485,20 @@ class FrontServer(ThreadingHTTPServer):
                                                self.device)
         return self._stream_model
 
-    def start(self) -> "FrontServer":
+    def start(self) -> "_Front":
         threading.Thread(target=self.serve_forever, daemon=True,
                          name="serve-http").start()
         return self
+
+
+class FrontServer(_Front):
+    """The continuous front: the HTTP server over the supervisor."""
+
+    def __init__(self, address, supervisor: EngineSupervisor, *, cfg,
+                 params, args, device, lock: threading.Lock) -> None:
+        super().__init__(address, _Handler, cfg=cfg, params=params,
+                         args=args, device=device, lock=lock)
+        self.supervisor = supervisor
 
     def drain(self, timeout: float | None = None) -> None:
         """The SIGTERM drain: readiness withdrawn (/healthz keeps
@@ -478,7 +512,183 @@ class FrontServer(ThreadingHTTPServer):
         self.server_close()
 
 
-class _Handler(QuietHandler):
+class LegacyServer(_Front):
+    """The legacy front of ``--engine coalesce`` (the JAX server's handler
+    branch without ``engine_sched``): no scheduler and no supervisor; one
+    device lock; each request decoded solo by ``generate`` over the model
+    loaded once (``speculative_generate`` under ``--spec-k`` when the
+    margin fits: ``decode_spec``), greedy requests of one shape batched by
+    a ``Coalescer`` when ``--batch-window`` > 0."""
+
+    def __init__(self, address, *, cfg, params, args, device,
+                 lock: threading.Lock, draft_cfg=None,
+                 draft_params=None) -> None:
+        super().__init__(address, _LegacyHandler, cfg=cfg, params=params,
+                         args=args, device=device, lock=lock)
+        # The solo decode model, loaded here once (the streaming path
+        # shares it): the legacy path's warm-up.
+        self._stream_model = self.model = _decode_model(cfg, params, device)
+        self.draft_cfg = draft_cfg
+        self.draft_model = (None if draft_params is None
+                            else _decode_model(draft_cfg, draft_params,
+                                               device))
+        # /healthz telemetry proving the speculative path ran.
+        self.spec_stats = {"decodes": 0, "rounds": 0, "tokens": 0}
+        self.coalescer = None
+        self._batcher = None
+        if args.batch_window > 0:
+            self.coalescer = Coalescer(args.batch_window / 1e3,
+                                       args.max_batch,
+                                       self._coalesced_decode, self.done)
+        # /generate handlers inside their decode: the drain waits for them.
+        self.inflight = 0
+        self._inflight_lock = threading.Lock()
+
+    def _coalesced_decode(self, rows, num_steps: int):
+        with self.lock:
+            return self.decode_greedy(rows, num_steps)
+
+    def decode_spec(self, rows, num_steps: int, temperature: float = 0.0,
+                    top_p: float | None = None, rng=None):
+        """THE speculative decode of greedy (direct and coalesced) and
+        sampled requests: ``speculative_generate`` when ``--spec-k`` is set
+        and prompt + steps + k + 1 fits the cache, else None (the caller
+        runs ``generate``: the same tokens greedy, the same law sampled).
+        The caller holds ``lock``, which also covers the counters."""
+        k = self.args.spec_k
+        if not (k and rows.shape[1] + num_steps + k + 1
+                <= self.cfg.max_seq_len):
+            return None
+        out, rounds = speculative_generate(
+            self.cfg, self.model, self.draft_cfg, self.draft_model,
+            torch.as_tensor(rows, device=self.device), num_steps, k=k,
+            temperature=temperature, top_p=top_p, rng=rng)
+        self.spec_stats["decodes"] += 1
+        self.spec_stats["rounds"] += int(rounds)
+        self.spec_stats["tokens"] += num_steps
+        return out
+
+    def decode_greedy(self, rows, num_steps: int):
+        """A greedy ``[rows, num_steps]`` decode; call under ``lock``."""
+        out = self.decode_spec(rows, num_steps)
+        if out is None:
+            out = generate(self.cfg, self.model,
+                           torch.as_tensor(rows, device=self.device),
+                           num_steps)
+        return out
+
+    def start(self) -> "LegacyServer":
+        if self.coalescer is not None:
+            self._batcher = threading.Thread(target=self.coalescer.loop,
+                                             daemon=True, name="coalesce")
+            self._batcher.start()
+        return super().start()
+
+    def drain(self, timeout: float | None = None) -> None:
+        """The SIGTERM drain: the batcher answers every request in its
+        window before it exits (a request submitted after that gets
+        "server shutting down"), the direct requests in flight finish
+        (within ``--drain-timeout``), then the listener stops."""
+        self.done.set()
+        if self._batcher is not None:
+            self._batcher.join(timeout=timeout or 30.0)
+        limit = time.monotonic() + (self.args.drain_timeout or 30.0)
+        while self.inflight and time.monotonic() < limit:
+            time.sleep(0.02)
+        time.sleep(0.2)  # let unblocked handlers write their responses
+        self.shutdown()
+        self.server_close()
+
+
+class _FrontHandler(QuietHandler):
+    """What both fronts' handlers share: the one error mapping of
+    /generate (typed ``ServeError``s with their status, a timeout as a
+    retryable 503, anything else a 400 ``bad_request``) and the streamed
+    greedy decode."""
+
+    server: _Front
+
+    def do_POST(self) -> None:
+        if self.path.split("?", 1)[0] != "/generate":
+            self.send_json(404, {"error": "unknown path"})
+            return
+        try:
+            body = self.read_json_body()
+            if self._generate(body):
+                self.server.note_served()
+        except Exception as exc:  # noqa: BLE001 — client-visible error
+            if isinstance(exc, ServeError):
+                self.send_json(exc.http_status, error_payload(exc))
+            elif isinstance(exc, TimeoutError):
+                # The server ran out of time, not the request out of
+                # validity: retryable 503, never a bad_request.
+                self.send_json(503, {
+                    "error": repr(exc), "code": "timeout",
+                    "retryable": True, "detail": repr(exc),
+                })
+            else:
+                self.send_json(400, error_payload(exc) | {
+                    "code": "bad_request", "error": repr(exc),
+                })
+
+    def _generate(self, body: dict) -> bool:
+        raise NotImplementedError
+
+    def _check_stream(self, body: dict) -> None:
+        """The structured fields live in the continuous engine's
+        scheduler: a stream (solo ``generate_segments``) would silently
+        drop them."""
+        if structured_fields(body):
+            raise ValueError(
+                "stream does not compose with json_schema/regex/"
+                "choices/stop/logprobs/n (use the continuous engine's "
+                "buffered path)"
+            )
+
+    def _stream(self, prompt, num_steps, temperature, top_p) -> None:
+        """Streamed greedy decode: NDJSON, one line a segment, solo
+        through ``generate_segments``; the device lock covers only the
+        device work of each segment."""
+        srv = self.server
+        if temperature > 0 or top_p is not None:
+            raise ValueError("stream supports greedy only (no "
+                             "temperature/top_p)")
+        with srv.lock:
+            model = srv.stream_model()
+        # generate_segments validates eagerly, before any device work, so
+        # every budget error is still a 400 here.
+        gen = generate_segments(
+            srv.cfg, model, prompt, num_steps,
+            segment=max(1, srv.args.stream_segment),
+            prefill_chunk=srv.args.prefill_chunk or None,
+        )
+        self.send_response(200)
+        self.send_header("Content-Type", "application/x-ndjson")
+        self.end_headers()
+        try:
+            while True:
+                with srv.lock:
+                    try:
+                        toks = next(gen)
+                    except StopIteration:
+                        break
+                line = json.dumps({"tokens": toks.tolist()}) + "\n"
+                self.wfile.write(line.encode())
+                self.wfile.flush()
+        except Exception as exc:  # noqa: BLE001 — headers are out
+            print(f"serve_lm: stream aborted: {exc!r}", file=sys.stderr,
+                  flush=True)
+
+
+def structured_fields(body: dict) -> bool:
+    """Does a /generate body carry a field only the continuous engine's
+    scheduler serves (json_schema/regex/choices/stop/logprobs/n)?"""
+    return (any(body.get(k) is not None
+                for k in ("json_schema", "regex", "choices", "stop"))
+            or bool(body.get("logprobs")) or int(body.get("n", 1)) != 1)
+
+
+class _Handler(_FrontHandler):
     server: FrontServer
 
     def do_GET(self) -> None:
@@ -518,29 +728,6 @@ class _Handler(QuietHandler):
         else:
             self.send_json(404, {"error": "unknown path"})
 
-    def do_POST(self) -> None:
-        if self.path.split("?", 1)[0] != "/generate":
-            self.send_json(404, {"error": "unknown path"})
-            return
-        try:
-            body = self.read_json_body()
-            if self._generate(body):
-                self.server.note_served()
-        except Exception as exc:  # noqa: BLE001 — client-visible error
-            if isinstance(exc, ServeError):
-                self.send_json(exc.http_status, error_payload(exc))
-            elif isinstance(exc, TimeoutError):
-                # The server ran out of time, not the request out of
-                # validity: retryable 503, never a bad_request.
-                self.send_json(503, {
-                    "error": repr(exc), "code": "timeout",
-                    "retryable": True, "detail": repr(exc),
-                })
-            else:
-                self.send_json(400, error_payload(exc) | {
-                    "code": "bad_request", "error": repr(exc),
-                })
-
     def _generate(self, body: dict) -> bool:
         """Answer one /generate body; True once a response went out."""
         srv = self.server
@@ -562,17 +749,7 @@ class _Handler(QuietHandler):
             shipment = decode_shipment(body["shipped_kv"],
                                        expect_tokens=prompt[0])
         if body.get("stream"):
-            # Structured fields live in the scheduler: a stream (solo
-            # generate_segments) would silently drop them.
-            if (any(body.get(k) is not None for k in
-                    ("json_schema", "regex", "choices", "stop"))
-                    or bool(body.get("logprobs"))
-                    or int(body.get("n", 1)) != 1):
-                raise ValueError(
-                    "stream does not compose with json_schema/regex/"
-                    "choices/stop/logprobs/n (use the continuous engine's "
-                    "buffered path)"
-                )
+            self._check_stream(body)
             self._stream(prompt, num_steps, temperature, top_p)
             return True
         # At most one of json_schema/regex/choices (the compiler's typed
@@ -651,51 +828,112 @@ class _Handler(QuietHandler):
         self.send_json(200, payload)
         return True
 
-    def _stream(self, prompt, num_steps, temperature, top_p) -> None:
-        """Streamed greedy decode: NDJSON, one line a segment, solo
-        through ``generate_segments``; the device lock covers only the
-        device work of each segment."""
+
+class _LegacyHandler(_FrontHandler):
+    server: LegacyServer
+
+    def do_GET(self) -> None:
         srv = self.server
-        if temperature > 0 or top_p is not None:
-            raise ValueError("stream supports greedy only (no "
-                             "temperature/top_p)")
-        with srv.lock:
-            model = srv.stream_model()
-        # generate_segments validates eagerly, before any device work, so
-        # every budget error is still a 400 here.
-        gen = generate_segments(
-            srv.cfg, model, prompt, num_steps,
-            segment=max(1, srv.args.stream_segment),
-            prefill_chunk=srv.args.prefill_chunk or None,
-        )
-        self.send_response(200)
-        self.send_header("Content-Type", "application/x-ndjson")
-        self.end_headers()
+        path = self.path.split("?", 1)[0]
+        if path == "/healthz":
+            payload = readiness_payload(None, draining=srv.done.is_set(),
+                                        replica=srv.args.replica_id)
+            payload["served"] = srv.served
+            payload["engine"] = "coalesce"
+            if srv.coalescer is not None:
+                payload["coalesced_batches"] = srv.coalescer.batches
+                payload["max_batch_rows"] = srv.coalescer.max_rows_seen
+                payload["pending"] = len(srv.coalescer.pending)
+            if srv.args.spec_k:
+                payload["spec_decodes"] = srv.spec_stats["decodes"]
+                payload["spec_rounds"] = srv.spec_stats["rounds"]
+                payload["spec_tokens"] = srv.spec_stats["tokens"]
+            self.send_json(200, payload)
+        elif path == "/debug/traces":
+            self.send_serve_traces()
+        elif path == "/metrics":
+            self.send_metrics()
+        else:
+            # /debug/serve and /prefix/<digest> are the engine's: the JAX
+            # server's legacy path has neither.
+            self.send_json(404, {"error": "unknown path"})
+
+    def do_POST(self) -> None:
+        srv = self.server
+        with srv._inflight_lock:
+            srv.inflight += 1
         try:
-            while True:
-                with srv.lock:
-                    try:
-                        toks = next(gen)
-                    except StopIteration:
-                        break
-                line = json.dumps({"tokens": toks.tolist()}) + "\n"
-                self.wfile.write(line.encode())
-                self.wfile.flush()
-        except Exception as exc:  # noqa: BLE001 — headers are out
-            print(f"serve_lm: stream aborted: {exc!r}", file=sys.stderr,
-                  flush=True)
+            super().do_POST()
+        finally:
+            with srv._inflight_lock:
+                srv.inflight -= 1
+
+    def _generate(self, body: dict) -> bool:
+        """Answer one /generate body by the JAX server's legacy branch:
+        a stream solo; the structured fields a 400; greedy through the
+        coalescer when there is one, else ``decode_greedy``; sampled solo
+        at ``PRNGKey(seed)``, speculative when it fits. The answer is
+        ``{"tokens": [...]}``, one row a prompt row."""
+        srv = self.server
+        prompt = np.asarray(body["tokens"], np.int32)
+        if prompt.ndim != 2:
+            raise ValueError("tokens must be [batch, len]")
+        num_steps = int(body.get("num_steps", 8))
+        temperature = float(body.get("temperature", 0.0))
+        top_p = body.get("top_p")
+        top_p = None if top_p is None else float(top_p)
+        if body.get("stream"):
+            self._check_stream(body)
+            self._stream(prompt, num_steps, temperature, top_p)
+            return True
+        if structured_fields(body):
+            raise ValueError("json_schema/regex/choices/stop/logprobs/n "
+                             "require --engine continuous")
+        # top_p without a temperature is sampled here, as JAX forwards it:
+        # generate refuses it, a client-visible 400.
+        sampled = temperature > 0 or top_p is not None
+        if srv.coalescer is not None and not sampled:
+            out = srv.coalescer.submit(prompt, num_steps)
+        elif not sampled:
+            with srv.lock:
+                out = srv.decode_greedy(prompt, num_steps)
+        else:
+            rng = (PRNGKey(int(body.get("seed", 0)), srv.device)
+                   if temperature > 0 else None)
+            with srv.lock:
+                out = None
+                if temperature > 0:
+                    out = srv.decode_spec(prompt, num_steps, temperature,
+                                          top_p, rng)
+                if out is None:
+                    out = generate(srv.cfg, srv.model,
+                                   torch.as_tensor(prompt,
+                                                   device=srv.device),
+                                   num_steps, temperature=temperature,
+                                   top_p=top_p, rng=rng)
+        self.send_json(200, {"tokens": out.tolist()})
+        return True
 
 
 def check_args(args) -> None:
     """Refuse what the front cannot serve, before any device work: the
-    combinations the JAX server refuses, with its messages (``--role
-    prefill`` with a flag of the decode path; ``--spec-k`` with ``--int8``
-    or ``--logprobs-k``, or with ``--checkpoint-dir`` but no
-    ``--draft-checkpoint-dir``; ``--draft-checkpoint-dir`` without
-    ``--spec-k``: ValueError), a flag whose ROADMAP item is not
-    ported (NotPorted), a prefill budget below one token, a negative
-    ``--logprobs-k``, no constraint row or a sequence length off the
-    block grid (ValueError)."""
+    combinations the JAX server refuses, with its messages (``--engine
+    continuous`` with ``--batch-window``; ``--role prefill`` with a flag of
+    the decode path; ``--spec-k`` with ``--int8`` or ``--logprobs-k``, or
+    with ``--checkpoint-dir`` but no ``--draft-checkpoint-dir``;
+    ``--draft-checkpoint-dir`` without ``--spec-k``: ValueError), a flag
+    whose ROADMAP item is not ported (NotPorted), a prefill budget below
+    one token, a negative ``--logprobs-k``, no constraint row or, where
+    blocks are used (the paged continuous engine, a prefill replica), a
+    sequence length off the block grid (ValueError). Resolves
+    ``args.engine`` as JAX does: ``--batch-window`` alone selects
+    ``coalesce``, nothing selects ``continuous``."""
+    if args.batch_window > 0 and args.engine == "continuous":
+        raise ValueError(
+            "--engine continuous does not compose with --batch-window (the "
+            "window IS the coalesce policy — use --engine coalesce)")
+    if args.engine is None:
+        args.engine = "coalesce" if args.batch_window > 0 else "continuous"
     if args.role == "prefill":
         bad = [flag for flag, on in (
             ("--spec-k", bool(args.spec_k)),
@@ -742,8 +980,15 @@ def check_args(args) -> None:
     if args.constrain_rows < 1:
         raise ValueError("--constrain-rows must be >= 1")
     if args.max_seq_len % args.kv_block:
-        raise ValueError(f"--max-seq-len {args.max_seq_len} must be a "
-                         f"multiple of --kv-block {args.kv_block}")
+        if args.role == "prefill":
+            raise ValueError(
+                "--role prefill needs --kv-block to divide --max-seq-len "
+                "(the shipped rows are block-aligned pool rows for the "
+                "decode pool)")
+        if args.engine == "continuous" and args.kv_paged:
+            raise ValueError(f"--max-seq-len {args.max_seq_len} must be a "
+                             f"multiple of --kv-block {args.kv_block} (or "
+                             "use --kv-dense)")
 
 
 def draft_config(cfg: TransformerConfig, args) -> TransformerConfig:
@@ -756,12 +1001,13 @@ def draft_config(cfg: TransformerConfig, args) -> TransformerConfig:
 
 
 def build_front(cfg: TransformerConfig, params, args, draft_params=None
-                ) -> tuple[EngineSupervisor, FrontServer]:
+                ) -> tuple[EngineSupervisor | None, _Front]:
     """The serving front over ``params`` (a flax-layout tree; an
     ``int8_decode`` config takes a ``quantize_decode_params`` tree): the
     supervisor, with its first engine built and warmed, and the HTTP
     server bound to ``args.host``:``args.port``, not yet serving (call
-    ``start()``). ``args`` is ``front_args(...)`` or the parsed flags.
+    ``start()``); under ``--engine coalesce`` no supervisor (None) and a
+    ``LegacyServer``. ``args`` is ``front_args(...)`` or the parsed flags.
     Under ``--spec-k`` ``draft_params`` is the draft's tree, at
     ``draft_config(cfg, args)``. Raises on a CUDA device when torch sees
     no card, and where ``check_args`` refuses ``args``."""
@@ -770,15 +1016,25 @@ def build_front(cfg: TransformerConfig, params, args, draft_params=None
     if args.spec_k and draft_params is None:
         raise ValueError("--spec-k needs the draft's weights "
                          "(draft_params)")
-    if cfg.max_seq_len % args.kv_block:
-        raise ValueError(f"max_seq_len {cfg.max_seq_len} must be a "
-                         f"multiple of --kv-block {args.kv_block}")
-    faults = (FaultInjector(args.faults, seed=args.fault_seed)
-              if args.faults is not None else FaultInjector.from_env())
     if args.replica_id:
         set_replica_id(args.replica_id)
     if args.trace_capacity != SERVE_TRACER.capacity:
         SERVE_TRACER.set_capacity(args.trace_capacity)
+    params = _to_device(params, device)
+    if args.engine == "coalesce":
+        return None, LegacyServer(
+            (args.host, args.port), cfg=cfg, params=params, args=args,
+            device=device, lock=threading.Lock(),
+            draft_cfg=draft_config(cfg, args) if args.spec_k else None,
+            draft_params=(_to_device(draft_params, device)
+                          if args.spec_k else None))
+    kv_paged = args.kv_paged
+    if kv_paged and cfg.max_seq_len % args.kv_block:
+        raise ValueError(f"max_seq_len {cfg.max_seq_len} must be a "
+                         f"multiple of --kv-block {args.kv_block} (or use "
+                         "--kv-dense)")
+    faults = (FaultInjector(args.faults, seed=args.fault_seed)
+              if args.faults is not None else FaultInjector.from_env())
     res_cfg = ResilienceConfig(
         queue_ttl_s=args.queue_ttl or None,
         decode_deadline_s=args.decode_deadline or None,
@@ -791,13 +1047,15 @@ def build_front(cfg: TransformerConfig, params, args, draft_params=None
         degraded_max_tokens=args.degraded_max_tokens,
         drain_timeout_s=args.drain_timeout or None,
     )
-    params = _to_device(params, device)
-    attend = "kernel" if args.kv_attend == "pallas" else args.kv_attend
+    # The dense slot tensor has no block table for the kernel to read:
+    # the gather's math, as JAX forces it.
+    attend = ("gather" if not kv_paged
+              else "kernel" if args.kv_attend == "pallas" else args.kv_attend)
     # ONE process-lifetime host tier, attached to every engine the factory
     # builds: a watchdog rebuild loses the pool but not the spilled
-    # sessions, which the new generation restores on demand.
+    # sessions, which the new generation restores on demand. Paged only.
     host_tier = (HostTier(args.host_tier_bytes)
-                 if args.host_tier_bytes > 0 else None)
+                 if kv_paged and args.host_tier_bytes > 0 else None)
     spec = {}
     if args.spec_k:
         spec = dict(spec_k=args.spec_k, draft_cfg=draft_config(cfg, args),
@@ -808,18 +1066,19 @@ def build_front(cfg: TransformerConfig, params, args, draft_params=None
         # every time (replay bit-identity depends on it), a fresh pool,
         # and a warm step before the engine takes a request.
         eng = ContinuousEngine(
-            cfg, params, args.max_batch, kv_block=args.kv_block,
-            kv_blocks=args.kv_pool_blocks, kv_attend=attend,
-            prefill_chunk=args.prefill_chunk or None, faults=faults,
-            constrain_rows=args.constrain_rows, logprobs_k=args.logprobs_k,
-            device=device, **spec,
+            cfg, params, args.max_batch, kv_paged=kv_paged,
+            kv_block=args.kv_block, kv_blocks=args.kv_pool_blocks,
+            kv_attend=attend, prefill_chunk=args.prefill_chunk or None,
+            faults=faults, constrain_rows=args.constrain_rows,
+            logprobs_k=args.logprobs_k, device=device, **spec,
         )
-        # Retention matches the advertisement's width: every digest the
-        # replica advertises stays exportable and exact-joinable after its
-        # request completes.
-        eng.prefix_advertise_max = args.prefix_advertise
-        eng.prefix_retain_max = args.prefix_advertise
-        eng.host_tier = host_tier
+        if kv_paged:
+            # Retention matches the advertisement's width: every digest
+            # the replica advertises stays exportable and exact-joinable
+            # after its request completes.
+            eng.prefix_advertise_max = args.prefix_advertise
+            eng.prefix_retain_max = args.prefix_advertise
+            eng.host_tier = host_tier
         eng.warmup()
         return eng
 
@@ -930,22 +1189,33 @@ def main(argv: list[str] | None = None) -> int:
         print(f"serve_lm: speculative decoding on (k={args.spec_k}, draft "
               f"layers={dcfg.n_layers})", flush=True)
     supervisor, server = build_front(cfg, params, args, draft_params)
-    print(f"serve_lm: continuous batching on {device} (slots "
-          f"{args.max_batch}, paged kv ({args.kv_block}-token blocks, "
-          f"{supervisor.engine.kv_blocks} block pool), kv_attend "
-          f"{supervisor.engine.kv_attend}, prefill chunk "
-          f"{args.prefill_chunk or 'one-shot'}, prefill budget "
-          f"{args.prefill_budget} tok/iter, host tier "
-          f"{args.host_tier_bytes or 'off'})", flush=True)
+    if supervisor is None:
+        print(f"serve_lm: legacy engine on {device}"
+              + (f", coalescing greedy requests (window "
+                 f"{args.batch_window:.0f} ms, max batch {args.max_batch})"
+                 if server.coalescer is not None else
+                 ", one decode a request"), flush=True)
+    else:
+        eng = supervisor.engine
+        kv_desc = (f"paged kv ({args.kv_block}-token blocks, "
+                   f"{eng.kv_blocks} block pool), kv_attend "
+                   f"{eng.kv_attend}" if eng.kv_paged else "dense kv")
+        print(f"serve_lm: continuous batching on {device} (slots "
+              f"{args.max_batch}, {kv_desc}, prefill chunk "
+              f"{args.prefill_chunk or 'one-shot'}, prefill budget "
+              f"{args.prefill_budget} tok/iter, host tier "
+              f"{(args.host_tier_bytes if eng.kv_paged else 0) or 'off'})",
+              flush=True)
     server.start()
     print(f"serve_lm: listening on {server.endpoint}", flush=True)
     for sig in (signal.SIGTERM, signal.SIGINT):
         signal.signal(sig, lambda *_: server.done.set())
     server.done.wait()
     server.drain()
-    print(f"serve_lm: engine drained ({supervisor.requests_done} "
-          f"request(s), {supervisor.tokens_generated} token(s))",
-          flush=True)
+    if supervisor is not None:
+        print(f"serve_lm: engine drained ({supervisor.requests_done} "
+              f"request(s), {supervisor.tokens_generated} token(s))",
+              flush=True)
     print(f"serve_lm: done ({server.served} request(s) served)", flush=True)
     return 0
 
