@@ -260,7 +260,27 @@ Phases, in order; any failure ends the run with a non-zero exit:
     a near-tie, the second burst bitwise the first). No hand kernel runs
     on the dense bf16 path: the dense read has no block table for B4,
     and the prefill is the decode read's, as in JAX;
-21. the ``kernels`` JSON line (each kernel with its design; B5 as two
+21. the image classifiers (``models/resnet.py``, ``models/mnist.py``, the
+    classifier steps, ``train/device_input.py``, ``train/dist_mnist.py``;
+    no hand kernel lies on this path: cuDNN's convolutions and BatchNorm):
+    (a) a reduced f32 ResNet (``CHECK_STAGES``, width 16, 64^2, B = 8)
+    from ``convert.py``'s initialiser, 3 SGD steps on the card against
+    the same steps on the CPU, TF32 off (losses and logits within
+    ``CLS_LOGIT_RTOL``, every param and batch_stats leaf within
+    ``CLS_LEAF_RTOL``), and a control with TF32 on that must read above
+    the logits' limit; (b) bf16 ResNet-50 at ``bench.py``'s resident cell
+    (B = 256, 224^2 crops of 1024 uint8 records of 256^2 on the card, 1000
+    classes, ``sgd_momentum(0.1)``, ``make_resident_train_loop`` of 20
+    steps), each stem: a warm call, 2 timed calls (images/s, MFU by
+    ``bench.py``'s 3 x 4.09e9 flops an image), peak memory, one profiled
+    step, a finite loss; (c) ``evaluate`` over 256 + 256 + 100 rows, the
+    count exactly 612, each batch padded to 256; (d) ``python -m
+    tf_operator_tpu_torch.train.dist_mnist --steps 60 --batch 256`` to
+    ``OK``, a run killed at step 30 (exit 138) resumed to ``OK`` beside an
+    evaluator replica (TF_CONFIG ``evaluator``) that reaches ``DONE``; the
+    phase's seconds. ``tools/torch_classifier_probe.py`` runs this phase
+    alone;
+22. the ``kernels`` JSON line (each kernel with its design; B5 as two
     entries, the weight stream and the wgmma tile, each with its own
     launches; ``paths`` gives each kernel's launches on every path of
     this run that drives it, and ``launches`` is their sum; the paged
@@ -273,6 +293,7 @@ It exits non-zero without a result when torch sees no CUDA device.
 from __future__ import annotations
 
 import contextlib
+import copy
 import itertools
 import json
 import math
@@ -525,6 +546,56 @@ TIER_KV8_STEPS = 32
 DENSE_STEPS = FIRST_STEPS
 COALESCE_N, COALESCE_P, COALESCE_STEPS = 6, 437, FIRST_STEPS
 COALESCE_WINDOW_MS = 250.0
+# Phase 21, the image classifiers. (a) A reduced ResNet (CHECK_STAGES,
+# width CHECK_WIDTH, 1000 classes) at CHECK_HW^2, B = CHECK_B, f32, from
+# models/convert.py's initialiser: CHECK_STEPS SGD steps on the card and the
+# same on the CPU in this process, TF32 off for cuDNN and matmuls (phase 1
+# turns it off; (a) asserts it). Losses and logits within CLS_LOGIT_RTOL of
+# their largest magnitude, every param and batch_stats leaf within
+# CLS_LEAF_RTOL of its own: on the CPU, f32 against float64 read <= 1e-5 for
+# both after 3 steps, and the card's cuDNN sums in yet another order. A
+# control repeats the card's steps with TF32 on and must read above
+# CLS_LOGIT_RTOL in the logits, so the check sees TF32.
+CHECK_STAGES, CHECK_WIDTH, CHECK_HW, CHECK_B, CHECK_STEPS = (
+    (1, 1, 1, 1), 16, 64, 8, 3)
+CLS_LOGIT_RTOL, CLS_LEAF_RTOL = 1e-5, 1e-4
+# (a) bf16 and (b)'s first step of each stem: one bf16 train step and one
+# inference pass with every Conv, BatchNorm and the head held against its
+# plain version on the same inputs (bf16_layer_check). A conv's bf16
+# output against float32 F.conv2d of the same bf16 operands with flax's
+# pads, and a BatchNorm's output against the float64 formula, both within
+# CLS_BF16_RTOL of the layer's largest magnitude (one bf16 rounding is
+# 2^-8 = 3.9e-3 of a value); the batch statistics each BatchNorm folds into
+# its running mean and variance, read back as (new - 0.9 old) / 0.1,
+# against float64 ones of its input within CLS_STAT_RTOL (of the largest
+# variance; the mean against its square root): cuDNN reduces in f32. The
+# f32 head against float64 and the step's loss against float64 cross-
+# entropy of its logits within CLS_HEAD_RTOL. Two controls: the unbiased
+# variance in the running statistics (torch's own rule) reads 1/(n - 1)
+# of the variance, 1/31 at (a)'s last stage, and must exceed CLS_STAT_RTOL
+# there; at ResNet-50's shapes n >= 12,544, so that mix-up moves the
+# variance by < 8e-5 and the control is printed only. Inference-mode
+# BatchNorm on the batch's own statistics must exceed CLS_BF16_RTOL at
+# both shapes.
+CLS_BF16_RTOL, CLS_STAT_RTOL, CLS_HEAD_RTOL = 1e-2, 1e-4, 1e-5
+# (b) bench.py's resident ResNet-50 cell (bench_resnet_resident): B = 256
+# crops of 224^2 from RESNET_RECORDS uint8 records of RESNET_RECORD^2 (its
+# ensure_bench_records layout: image bytes + a label byte, seeded numpy),
+# 1000 classes, bf16, sgd_momentum(0.1), RESNET_STEPS steps a call; one warm
+# call, then RESNET_CALLS timed calls, each stem. MFU by bench.py's count:
+# 3 x 4.09e9 flops an image.
+RESNET_B, RESNET_HW, RESNET_RECORDS, RESNET_RECORD = 256, 224, 1024, 256
+RESNET_STEPS, RESNET_CALLS, RESNET_FWD_FLOPS = 20, 2, 4.09e9
+# (c) the eval over batches of these rows, against a plain inference pass
+# over the same rows (the tail zero-padded to the first batch's rows, so
+# cuDNN runs the same shapes): the loss within CLS_EVAL_RTOL of the plain
+# float64 sum, the correct count exact; a control, the plain pass with
+# BatchNorm on batch statistics, must part by more. (d) the MNIST entry
+# point.
+CLS_EVAL_ROWS = (256, 256, 100)
+CLS_EVAL_RTOL = 1e-5
+MNIST_ARGS = ["--steps", "60", "--batch", "256"]
+MNIST_FAIL_AT = 30
 
 
 def entry_flash_shape() -> tuple[int, int, int, int]:
@@ -3969,6 +4040,561 @@ def dense_phase(pa, i8, base, params, prompts, plain_f32, plain_bf16,
             "front": front, "legacy": legacy}
 
 
+def classifier_tree_errors(got: dict, want: dict) -> dict:
+    """{leaf path: max |got - want| / max |want|} over two exported
+    classifier trees."""
+    from tf_operator_tpu_torch.models.convert import _leaves
+
+    out = {}
+    for coll in want:
+        flat_got = dict(_leaves(got[coll]))
+        for path, w in _leaves(want[coll]):
+            scale = max(float(np.abs(w).max()), 1e-30)
+            out[f"{coll}/{'/'.join(path)}"] = float(
+                np.abs(flat_got[path] - w).max()) / scale
+    return out
+
+
+def flax_conv_pads(conv, h: int, w: int) -> tuple[int, int, int, int]:
+    """The pads of a port ``Conv`` as flax computes them, in F.pad's order
+    (w low, w high, h low, h high): its explicit pads, or ``"SAME"``'s
+    ``total = max((ceil(n / s) - 1) s + k - n, 0)`` split low-first."""
+    if conv.padding != "SAME":
+        (h0, h1), (w0, w1) = conv.padding
+        return w0, w1, h0, h1
+    out = []
+    for n, k in ((w, conv.kernel.shape[3]), (h, conv.kernel.shape[2])):
+        total = max((-(-n // conv.strides) - 1) * conv.strides + k - n, 0)
+        out += [total // 2, total - total // 2]
+    return tuple(out)
+
+
+def bf16_layer_check(model, state, step, batch, probe) -> dict:
+    """One train step of the bf16 ``model`` on ``batch`` and one inference
+    pass over ``probe``, with forward hooks that hold every Conv,
+    BatchNorm and the head against its plain version on the same inputs
+    (see CLS_BF16_RTOL). Returns the worst error of each kind, the two
+    controls and the smallest BatchNorm count n; raises on a layer in the
+    wrong dtype."""
+    import torch.nn.functional as F
+
+    from tf_operator_tpu_torch.models.resnet import BatchNorm, Conv
+
+    worst = dict(conv=0.0, bn=0.0, stats=0.0, eval_bn=0.0, head=0.0,
+                 loss=0.0, unbiased=0.0, batch_stats_in_eval=0.0)
+    before, logits, n_min = {}, [], [None]
+
+    def note(key, err):
+        worst[key] = max(worst[key], float(err))
+
+    def rel(got, want):
+        return (got - want).abs().max() / want.abs().max().clamp_min(1e-30)
+
+    def conv_hook(mod, inp, out):
+        x = inp[0]
+        if x.dtype != mod.dtype or out.dtype != mod.dtype:
+            raise AssertionError(f"conv in {x.dtype} -> {out.dtype}, the "
+                                 f"model computes in {mod.dtype}")
+        with torch.no_grad():
+            xf = F.pad(x.detach().to(mod.dtype).float(),
+                       flax_conv_pads(mod, *x.shape[2:]))
+            bias = (None if mod.bias is None
+                    else mod.bias.to(mod.dtype).float())
+            plain = F.conv2d(xf, mod.kernel.detach().to(mod.dtype).float(),
+                             bias, stride=mod.strides)
+            note("conv", rel(out.detach().float(), plain))
+
+    def bn_pre(mod, inp):
+        before[mod] = (mod.mean.detach().clone(), mod.var.detach().clone())
+
+    def bn_hook(mod, inp, out):
+        x, train = inp
+        if out.dtype != x.dtype:
+            raise AssertionError(f"BatchNorm {x.dtype} -> {out.dtype}")
+        with torch.no_grad():
+            xd = x.detach().double()
+            n = xd.numel() // xd.shape[1]
+            m = xd.mean(dim=(0, 2, 3))
+            v = xd.var(dim=(0, 2, 3), unbiased=False)
+            scale = mod.scale.detach().double()
+            bias = mod.bias.detach().double()
+
+            def norm(mean, var):
+                shape = (1, -1, 1, 1)
+                return ((xd - mean.view(shape))
+                        / torch.sqrt(var.view(shape) + 1e-5)
+                        * scale.view(shape) + bias.view(shape))
+
+            got = out.detach().double()
+            if train:
+                note("bn", rel(got, norm(m, v)))
+                old_m, old_v = (t.double() for t in before.pop(mod))
+                got_m = (mod.mean.double() - 0.9 * old_m) / 0.1
+                got_v = (mod.var.double() - 0.9 * old_v) / 0.1
+                vmax = v.max().clamp_min(1e-30)
+                note("stats", max((got_m - m).abs().max() / vmax.sqrt(),
+                                  (got_v - v).abs().max() / vmax))
+                note("unbiased", (v * (n / (n - 1)) - v).abs().max() / vmax)
+                n_min[0] = n if n_min[0] is None else min(n_min[0], n)
+            else:
+                want = norm(mod.mean.double(), mod.var.double())
+                note("eval_bn", rel(got, want))
+                note("batch_stats_in_eval", rel(norm(m, v), want))
+
+    def head_hook(mod, inp, out):
+        if out.dtype != torch.float32:
+            raise AssertionError(f"the head computes in {out.dtype}")
+        with torch.no_grad():
+            plain = (inp[0].detach().double() @ mod.kernel.detach().double()
+                     + mod.bias.detach().double())
+            note("head", rel(out.detach().double(), plain))
+            logits.append(out.detach())
+
+    handles = []
+    for mod in model.modules():
+        if isinstance(mod, Conv):
+            handles.append(mod.register_forward_hook(conv_hook))
+        elif isinstance(mod, BatchNorm):
+            handles.append(mod.register_forward_pre_hook(bn_pre))
+            handles.append(mod.register_forward_hook(bn_hook))
+    handles.append(model.Dense_0.register_forward_hook(head_hook))
+    try:
+        state, metrics = step(state, batch)
+        labels = torch.as_tensor(batch["label"]).to(model.device).long()
+        loss = float(metrics["loss"])
+        plain = F.cross_entropy(logits[0].double(), labels).item()
+        note("loss", abs(loss - plain) / abs(plain))
+        with torch.no_grad():
+            model(torch.as_tensor(probe).to(model.device), train=False)
+    finally:
+        for h in handles:
+            h.remove()
+    return dict(worst, n_min=n_min[0])
+
+
+def bf16_check_line(label: str, got: dict) -> str:
+    return (f"{label}: worst conv {got['conv']:.3e}, BatchNorm {got['bn']:.3e}"
+            f", inference BatchNorm {got['eval_bn']:.3e} (limit "
+            f"{CLS_BF16_RTOL}), batch statistics {got['stats']:.3e} (limit "
+            f"{CLS_STAT_RTOL}), head {got['head']:.3e}, loss {got['loss']:.3e}"
+            f" (limit {CLS_HEAD_RTOL}); controls: unbiased variance "
+            f"{got['unbiased']:.3e} (smallest n {got['n_min']}), inference "
+            f"on batch statistics {got['batch_stats_in_eval']:.3e}")
+
+
+def bf16_check_failures(got: dict, unbiased_control: bool) -> list[str]:
+    bad = [k for k, lim in (("conv", CLS_BF16_RTOL), ("bn", CLS_BF16_RTOL),
+                            ("eval_bn", CLS_BF16_RTOL),
+                            ("stats", CLS_STAT_RTOL),
+                            ("head", CLS_HEAD_RTOL), ("loss", CLS_HEAD_RTOL))
+           if not got[k] <= lim]
+    if not got["batch_stats_in_eval"] > CLS_BF16_RTOL:
+        bad.append("control: inference on batch statistics within the limit")
+    if unbiased_control and not got["unbiased"] > CLS_STAT_RTOL:
+        bad.append("control: the unbiased variance within the limit")
+    return bad
+
+
+def classifier_check_run(device, tree, batches, probe) -> dict:
+    """(a)'s CHECK_STEPS SGD steps of the reduced f32 ResNet on
+    ``device``: the losses, then the logits of ``probe`` in inference
+    mode and the exported tree."""
+    from tf_operator_tpu_torch.models.convert import (
+        export_variables,
+        load_variables,
+    )
+    from tf_operator_tpu_torch.models.resnet import ResNet
+    from tf_operator_tpu_torch.train.steps import (
+        TrainState,
+        make_classifier_train_step,
+        sgd_momentum,
+    )
+
+    model = load_variables(ResNet(CHECK_STAGES, 1000, CHECK_WIDTH,
+                                  torch.float32, device=device), tree)
+    tx = sgd_momentum(0.1)
+    state = TrainState.create(model, tx)
+    step = make_classifier_train_step(model, tx)
+    losses = []
+    for batch in batches:
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+    with torch.no_grad():
+        logits = model(torch.from_numpy(probe).to(device), train=False)
+    return {"losses": np.array(losses), "logits": logits.cpu().numpy(),
+            "tree": export_variables(model)}
+
+
+def classifier_check_phase(card: str) -> None:
+    """Phase 21 (a): the reduced f32 ResNet's steps on the card against
+    the same steps on the CPU, and the TF32 control."""
+    from tf_operator_tpu_torch.models.convert import init_variables
+    from tf_operator_tpu_torch.models.resnet import ResNet
+
+    if (torch.backends.cudnn.allow_tf32
+            or torch.backends.cuda.matmul.allow_tf32):
+        raise AssertionError("(a) needs TF32 off for cuDNN and matmuls")
+    tree = init_variables(ResNet(CHECK_STAGES, 1000, CHECK_WIDTH,
+                                 torch.float32, device="cpu"), 0)
+    rng = np.random.default_rng(21)
+    batches = [{"image": rng.normal(size=(CHECK_B, CHECK_HW, CHECK_HW, 3))
+                .astype(np.float32),
+                "label": rng.integers(0, 1000, (CHECK_B,)).astype(np.int32)}
+               for _ in range(CHECK_STEPS)]
+    probe = rng.normal(size=(CHECK_B, CHECK_HW, CHECK_HW, 3)).astype(
+        np.float32)
+    cpu = classifier_check_run("cpu", tree, batches, probe)
+
+    def errors(run):
+        scale = max(float(np.abs(cpu["logits"]).max()), 1e-30)
+        return (float(np.abs(run["losses"] - cpu["losses"]).max()
+                      / np.abs(cpu["losses"]).max()),
+                float(np.abs(run["logits"] - cpu["logits"]).max()) / scale,
+                classifier_tree_errors(run["tree"], cpu["tree"]))
+
+    card_run = classifier_check_run("cuda", tree, batches, probe)
+    loss_err, logit_err, leaf_err = errors(card_run)
+    worst = max(leaf_err.items(), key=lambda kv: kv[1])
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        control = classifier_check_run("cuda", tree, batches, probe)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    c_loss, c_logit, c_leaf = errors(control)
+    c_worst = max(c_leaf.items(), key=lambda kv: kv[1])
+    print(f"classifier f32 (21a): ResNet{CHECK_STAGES} width {CHECK_WIDTH} "
+          f"at {CHECK_HW}^2, B={CHECK_B}, {CHECK_STEPS} SGD steps, TF32 off: "
+          f"losses {card_run['losses'].tolist()} (CPU "
+          f"{cpu['losses'].tolist()}), loss rel err {loss_err:.3e}, logits "
+          f"rel err {logit_err:.3e} (limit {CLS_LOGIT_RTOL}), worst of "
+          f"{len(leaf_err)} leaves {worst[1]:.3e} in {worst[0]} (limit "
+          f"{CLS_LEAF_RTOL}); control with TF32 on: loss {c_loss:.3e}, "
+          f"logits {c_logit:.3e}, worst leaf {c_worst[1]:.3e} in "
+          f"{c_worst[0]}; on {card}", flush=True)
+    if not (loss_err <= CLS_LOGIT_RTOL and logit_err <= CLS_LOGIT_RTOL
+            and worst[1] <= CLS_LEAF_RTOL):
+        raise AssertionError("(a): the card's f32 steps part from the CPU's")
+    if not c_logit > CLS_LOGIT_RTOL:
+        raise AssertionError("(a): the TF32 control reads within the limit")
+
+    # The same model in bf16 on the card: (a)'s first batch, layer by layer.
+    from tf_operator_tpu_torch.models.convert import load_variables
+    from tf_operator_tpu_torch.train.steps import (
+        TrainState,
+        make_classifier_train_step,
+        sgd_momentum,
+    )
+
+    model = load_variables(ResNet(CHECK_STAGES, 1000, CHECK_WIDTH,
+                                  torch.bfloat16, device="cuda"), tree)
+    tx = sgd_momentum(0.1)
+    got = bf16_layer_check(model, TrainState.create(model, tx),
+                           make_classifier_train_step(model, tx), batches[0],
+                           probe)
+    print(bf16_check_line(f"classifier bf16 (21a): ResNet{CHECK_STAGES} "
+                          f"width {CHECK_WIDTH} at {CHECK_HW}^2, B={CHECK_B}",
+                          got) + f"; on {card}", flush=True)
+    bad = bf16_check_failures(got, unbiased_control=True)
+    if bad:
+        raise AssertionError(f"(a) bf16: {bad}")
+
+
+def write_bench_records(path: str) -> tuple[int, int]:
+    """bench.py's ensure_bench_records layout at its shapes, seeded numpy
+    (seed 0): RESNET_RECORDS records of RESNET_RECORD^2 x 3 image bytes
+    and a label byte. Returns (record size, record bytes)."""
+    rec_bytes = RESNET_RECORD * RESNET_RECORD * 3 + 1
+    rng = np.random.default_rng(0)
+    rng.integers(0, 256, (RESNET_RECORDS, rec_bytes),
+                 dtype=np.uint8).tofile(path)
+    return RESNET_RECORD, rec_bytes
+
+
+def resnet_bench_phase(card: str, images, labels) -> dict:
+    """Phase 21 (b): bf16 ResNet-50 from the resident records, both stems:
+    images/s and MFU of RESNET_CALLS timed calls of RESNET_STEPS steps
+    after a warm call, peak memory, one profiled step. Returns the s2d
+    run's trained state for (c)."""
+    from tf_operator_tpu_torch.models.convert import (
+        init_variables,
+        load_variables,
+    )
+    from tf_operator_tpu_torch.models.resnet import resnet50
+    from tf_operator_tpu_torch.random import PRNGKey
+    from tf_operator_tpu_torch.train.device_input import (
+        make_resident_sampler,
+        make_resident_train_loop,
+    )
+    from tf_operator_tpu_torch.train.steps import (
+        TrainState,
+        make_classifier_train_step,
+        sgd_momentum,
+    )
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    sample = make_resident_sampler(images, labels, RESNET_B, RESNET_HW)
+    out = {}
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        for stem in ("conv7", "s2d"):
+            torch.cuda.empty_cache()
+            model = resnet50(stem=stem)
+            load_variables(model, init_variables(model, 0))
+            tx = sgd_momentum(0.1)
+            state = TrainState.create(model, tx)
+            step = make_classifier_train_step(model, tx)
+            # The first step layer by layer against the plain versions,
+            # then torch's count of the second step's flops.
+            got = bf16_layer_check(model, state, step, sample(PRNGKey(1)),
+                                   sample(PRNGKey(2))["image"])
+            print(bf16_check_line(f"resnet50 bf16 (21b) stem {stem}: first "
+                                  f"step, B={RESNET_B} {RESNET_HW}^2", got)
+                  + f"; on {card}", flush=True)
+            bad = bf16_check_failures(got, unbiased_control=False)
+            if bad:
+                raise AssertionError(f"(b) {stem}: {bad}")
+            counter = FlopCounterMode(display=False)
+            with counter:
+                state, _ = step(state, sample(PRNGKey(3)))
+            counted = counter.get_total_flops() / RESNET_B
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            fused = make_resident_train_loop(step, sample, RESNET_STEPS)
+            key = PRNGKey(0)
+            t0 = time.perf_counter()
+            state, metrics, key = fused(state, key)
+            warm_loss = float(metrics["loss"])
+            warm_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(RESNET_CALLS):
+                state, metrics, key = fused(state, key)
+            loss = float(metrics["loss"])
+            dt = time.perf_counter() - t0
+            if not (math.isfinite(loss) and math.isfinite(warm_loss)):
+                raise AssertionError(f"resnet50 {stem}: loss {loss}")
+            images_n = RESNET_B * RESNET_STEPS * RESNET_CALLS
+            img_s = images_n / dt
+            mfu = (3 * RESNET_FWD_FLOPS * images_n / dt
+                   / PEAK_FLOPS[torch.bfloat16])
+            mfu_counted = counted * images_n / dt / PEAK_FLOPS[torch.bfloat16]
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            one = make_resident_train_loop(step, sample, 1)
+            holder = {"state": state, "key": key}
+
+            def one_step():
+                holder["state"], _, holder["key"] = one(holder["state"],
+                                                        holder["key"])
+
+            one_step()
+            prof = profile_steps(one_step, 1, f"resnet50 {stem} bf16 step "
+                                              f"(B={RESNET_B})")
+            print(f"resnet50 bf16 (21b) stem {stem}: B={RESNET_B} "
+                  f"{RESNET_HW}^2 crops of {RESNET_RECORDS} resident "
+                  f"{RESNET_RECORD}^2 records, {RESNET_CALLS} calls x "
+                  f"{RESNET_STEPS} steps in {dt:.4f} s: images/s "
+                  f"{img_s:.2f}, step_s {dt / RESNET_STEPS / RESNET_CALLS:.6f}"
+                  f", MFU {mfu:.6f} (bench.py's count, 3 x 4.09e9 flops an "
+                  f"image, at 989 TFLOP/s; 4.09e9 is ResNet-50's multiply-"
+                  f"adds), MFU {mfu_counted:.6f} by torch.utils.flop_counter's"
+                  f" count of a step, {counted:.6e} flops an image; warm call {warm_s:.2f} s (loss {warm_loss:.4f})"
+                  f", final loss {loss:.4f}; peak memory {peak:.2f} GB; "
+                  f"cudnn.benchmark on; on {card}", flush=True)
+            out[stem] = dict(images_s=img_s, mfu=mfu, mfu_counted=mfu_counted,
+                             flops_image=counted, peak_gb=peak, **prof)
+            if stem == "s2d":
+                out["state"] = holder["state"]
+            del model, state, holder, fused, one
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+    return out
+
+
+def classifier_eval_phase(state, images_np, labels_np, card: str) -> None:
+    """Phase 21 (c): make_classifier_eval_step + evaluate over batches of
+    CLS_EVAL_ROWS rows (centre crops of the records, f32 on the host):
+    the count exact, every batch padded to the first one's rows, the loss
+    and accuracy those of a plain inference pass (CLS_EVAL_RTOL)."""
+    import torch.nn.functional as F
+
+    from tf_operator_tpu_torch.train.steps import (
+        evaluate,
+        make_classifier_eval_step,
+    )
+
+    lo = (RESNET_RECORD - RESNET_HW) // 2
+    crops = ((images_np[:, lo:lo + RESNET_HW, lo:lo + RESNET_HW]
+              .astype(np.float32) - 127.5) / 127.5)
+    batches, start = [], 0
+    for n in CLS_EVAL_ROWS:
+        batches.append({"image": crops[start:start + n],
+                        "label": labels_np[start:start + n] % 1000})
+        start += n
+    eval_step = make_classifier_eval_step(state.model)
+    rows = []
+
+    class Counted:
+        shard_count = eval_step.shard_count
+
+        def __call__(self, st, batch):
+            rows.append(batch["image"].shape[0])
+            return eval_step(st, batch)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = evaluate(Counted(), state, iter(batches))
+    dt = time.perf_counter() - t0
+
+    def plain(model, train):
+        """The loss sum (float64) and correct count of ``model`` over the
+        same rows, each batch zero-padded to the first one's rows."""
+        loss_sum, correct = 0.0, 0
+        with torch.no_grad():
+            for b in batches:
+                n = b["image"].shape[0]
+                image = np.zeros((CLS_EVAL_ROWS[0],) + b["image"].shape[1:],
+                                 np.float32)
+                image[:n] = b["image"]
+                logits = model(torch.from_numpy(image).cuda(),
+                               train=train)[:n].double()
+                label = torch.from_numpy(b["label"].astype(np.int64)).cuda()
+                loss_sum += F.cross_entropy(logits, label,
+                                            reduction="sum").item()
+                correct += int((logits.argmax(-1) == label).sum())
+        return loss_sum, correct
+
+    total = sum(CLS_EVAL_ROWS)
+    p_loss, p_correct = plain(state.model, False)
+    c_loss, _ = plain(copy.deepcopy(state.model), True)
+    loss_err = abs(m["loss"] - p_loss / total) / (p_loss / total)
+    c_err = abs(c_loss - p_loss) / p_loss
+    print(f"classifier eval (21c): batches {list(CLS_EVAL_ROWS)} padded to "
+          f"{rows}: count {m['count']}, accuracy {m['accuracy']:.4f}, loss "
+          f"{m['loss']:.6f}; plain inference pass: accuracy "
+          f"{p_correct / total:.4f}, loss {p_loss / total:.6f}, loss rel "
+          f"diff {loss_err:.3e} (limit {CLS_EVAL_RTOL}); control, BatchNorm "
+          f"on batch statistics: {c_err:.3e}; "
+          f"{total / dt:.2f} images/s on {card}", flush=True)
+    if (m["count"] != total
+            or rows != [CLS_EVAL_ROWS[0]] * len(CLS_EVAL_ROWS)
+            or not math.isfinite(m["loss"])):
+        raise AssertionError(f"(c): count {m['count']}, rows {rows}, {m}")
+    if not (loss_err <= CLS_EVAL_RTOL
+            and round(m["accuracy"] * total) == p_correct):
+        raise AssertionError(f"(c): evaluate {m} parts from the plain pass "
+                             f"(loss {p_loss / total}, correct {p_correct})")
+    if not c_err > CLS_EVAL_RTOL:
+        raise AssertionError("(c): the batch-statistics control reads within "
+                             "the limit")
+
+
+def mnist_entry_phase(card: str) -> None:
+    """Phase 21 (d): ``python -m tf_operator_tpu_torch.train.dist_mnist``
+    on the card with no --device: a plain run to OK beside a run killed
+    at MNIST_FAIL_AT (exit 138); then the resumed run to OK beside an
+    evaluator replica (TF_CONFIG task.type evaluator) that follows its
+    checkpoints to DONE."""
+    from tf_operator_tpu_torch.ckpt import protocol
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k not in (
+        protocol.ENV_ACK_FILE, protocol.ENV_CKPT_DIR,
+        protocol.ENV_RESUME_STEP, "TF_CONFIG")}
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    cmd = [sys.executable, "-m", "tf_operator_tpu_torch.train.dist_mnist",
+           *MNIST_ARGS]
+    procs = []
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ck")
+        fail = ["--checkpoint-dir", ck, "--fail-at-step", str(MNIST_FAIL_AT)]
+
+        def start(name, args, extra_env=None):
+            with open(os.path.join(tmp, name), "w") as out:
+                proc = subprocess.Popen(cmd + args, cwd=root,
+                                        env={**env, **(extra_env or {})},
+                                        stdout=out, stderr=subprocess.STDOUT)
+            procs.append(proc)
+            return proc
+
+        def log(name):
+            with open(os.path.join(tmp, name)) as f:
+                return f.read()
+
+        try:
+            plain, first = start("plain", []), start("first", fail)
+            rc_plain, rc_first = plain.wait(timeout=300), first.wait(
+                timeout=300)
+            if rc_plain != 0 or "dist_mnist: OK" not in log("plain"):
+                raise AssertionError(f"plain run: rc {rc_plain}: "
+                                     f"{log('plain')}")
+            if (rc_first != 138 or f"simulating preemption at step "
+                    f"{MNIST_FAIL_AT}" not in log("first")):
+                raise AssertionError(f"run 1: rc {rc_first}: {log('first')}")
+            evaluator = start("eval", ["--checkpoint-dir", ck,
+                                       "--eval-timeout", "120"],
+                              {"TF_CONFIG": json.dumps(
+                                  {"task": {"type": "evaluator"}})})
+            resumed = start("resumed", fail)
+            rc_resumed = resumed.wait(timeout=300)
+            rc_eval = evaluator.wait(timeout=300)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        logs = {name: log(name) for name in ("plain", "first", "resumed",
+                                             "eval")}
+    if (rc_resumed != 0 or f"dist_mnist: resumed from step "
+            f"{MNIST_FAIL_AT + 1}" not in logs["resumed"]
+            or "dist_mnist: OK" not in logs["resumed"]):
+        raise AssertionError(f"run 2: rc {rc_resumed}: {logs['resumed']}")
+    evals = re.findall(r"dist_mnist eval: step (\d+) accuracy=(\S+) "
+                       r"loss=(\S+)", logs["eval"])
+    if rc_eval != 0 or "dist_mnist eval: DONE" not in logs["eval"]:
+        raise AssertionError(f"evaluator: rc {rc_eval}: {logs['eval']}")
+    final = {name: re.search(r"final loss (\S+)", logs[name]).group(1)
+             for name in ("plain", "resumed")}
+    rate = re.search(r"\((\d+) img/s", logs["plain"]).group(1)
+    print(f"dist_mnist (21d): {' '.join(MNIST_ARGS)} on the card: plain run "
+          f"OK (final loss {final['plain']}, {rate} img/s), run 1 exited "
+          f"{rc_first} at step {MNIST_FAIL_AT}, run 2 resumed from step "
+          f"{MNIST_FAIL_AT + 1} and exited {rc_resumed} (final loss "
+          f"{final['resumed']}); the evaluator read steps "
+          f"{[int(s) for s, _, _ in evals]} (last accuracy "
+          f"{evals[-1][1]}, loss {evals[-1][2]}) and exited {rc_eval} after "
+          f"DONE; {time.perf_counter() - t_start:.1f} s on {card}",
+          flush=True)
+
+
+def classifier_phase(card: str) -> None:
+    """Phase 21: the image classifiers, (a) to (d)."""
+    from tf_operator_tpu_torch.train.device_input import load_records_numpy
+
+    t0 = time.perf_counter()
+    classifier_check_phase(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "records.bin")
+        record, rec_bytes = write_bench_records(path)
+        images_np, labels_np = load_records_numpy(path, rec_bytes, record)
+    images = torch.from_numpy(images_np).cuda()
+    labels = torch.from_numpy(labels_np).cuda()
+    print(f"resident records: {images.numel() + labels.numel() * 4} bytes "
+          f"on the card", flush=True)
+    bench = resnet_bench_phase(card, images, labels)
+    classifier_eval_phase(bench.pop("state"), images_np, labels_np, card)
+    del images, labels
+    torch.cuda.empty_cache()
+    mnist_entry_phase(card)
+    print(f"phase 21 (image classifiers): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -4094,6 +4720,8 @@ def main() -> int:
                          f32["kernel"]["tokens"], card)
     dense = dense_phase(pa, i8, base, params, prompts,
                         f32["kernel"]["tokens"], bf16, card)
+    torch.cuda.empty_cache()
+    classifier_phase(card)
 
     # Each kernel's launches on every path of this run that drives it.
     paths = {

@@ -185,9 +185,12 @@ def test_eviction_signal_saves_acks_and_keeps_training(tmp_path):
     (["--pp-schedule", "1f1b"], "ROADMAP A8"),
     (["--ep", "2"], "ROADMAP A8"),
     (["--ring-impl", "flash"], "ROADMAP A8"),
-    (["--moe-every-n", "2"], "ROADMAP A9"),
-    (["--moe-experts", "4"], "ROADMAP A9"),
-    (["--moe-top-k", "1"], "ROADMAP A9"),
+    pytest.param(["--moe-every-n", "2"], "ROADMAP A9b (MoE, LAMB, Adafactor)",
+                 id="argv7-ROADMAP A9"),
+    pytest.param(["--moe-experts", "4"], "ROADMAP A9b (MoE, LAMB, Adafactor)",
+                 id="argv8-ROADMAP A9"),
+    pytest.param(["--moe-top-k", "1"], "ROADMAP A9b (MoE, LAMB, Adafactor)",
+                 id="argv9-ROADMAP A9"),
     (["--data", "tokens.bin"], "ROADMAP A12"),
     (["--fail-at-step", "3"], "--fail-at-step requires --checkpoint-dir"),
 ])

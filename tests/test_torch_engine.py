@@ -220,7 +220,8 @@ def test_config_rejects_unported_options():
     for flags in ({"kv_int8": True}, {"int8_decode": True},
                   {"kv_int8": True, "int8_decode": True}):
         assert TransformerConfig(**flags)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A9"):
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP.md A9b \(MoE, LAMB, Adafactor\)"):
         TransformerConfig(moe_every_n=2)
     with pytest.raises(ValueError, match="kv_paged"):
         TransformerConfig(kv_attend="kernel")

@@ -21,10 +21,12 @@ from tf_operator_tpu_torch.models.transformer import (
     TransformerConfig,
     generate,
 )
+from tf_operator_tpu_torch.models.mnist import MnistCNN
+from tf_operator_tpu_torch.models.resnet import ResNet
 from tf_operator_tpu_torch.random import PRNGKey
 from tf_operator_tpu_torch.serve import serve_lm
 from tf_operator_tpu_torch.serve.engine import ContinuousEngine
-from tf_operator_tpu_torch.train import dist_lm
+from tf_operator_tpu_torch.train import dist_lm, dist_mnist
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(REPO, "tf_operator_tpu_torch")
@@ -49,17 +51,21 @@ def test_package_imports_with_jax_and_the_reference_poisoned():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    # Every module was imported: ckpt (1: protocol), models (3: convert,
-    # spec_decode, transformer), ops (4: _build, flash_attention,
-    # int8_dense, paged_attention), runtime (2: metrics, tracing), serve
-    # (11: coalesce, constrain, disagg, engine, kvcache, faultinject,
-    # resilience, scheduler, httpapi, serve_lm, tier), train (3:
-    # checkpoint, dist_lm, steps), utils (1: signals), random and testing,
-    # and the seven packages.
-    assert int(out.stdout.split()[-1]) >= 34
+    # Every module was imported: ckpt (1: protocol), models (5: convert,
+    # mnist, resnet, spec_decode, transformer), ops (4: _build,
+    # flash_attention, int8_dense, paged_attention), runtime (2: metrics,
+    # tracing), serve (11: coalesce, constrain, disagg, engine, kvcache,
+    # faultinject, resilience, scheduler, httpapi, serve_lm, tier), train
+    # (7: checkpoint, data, device_input, dist_lm, dist_mnist,
+    # distributed, steps), utils (1: signals), random and testing, and the
+    # seven packages.
+    assert int(out.stdout.split()[-1]) >= 40
     for name in ("serve.constrain", "models.spec_decode", "ckpt.protocol",
                  "utils.signals", "train.checkpoint", "train.dist_lm",
-                 "serve.disagg", "serve.tier", "serve.coalesce"):
+                 "serve.disagg", "serve.tier", "serve.coalesce",
+                 "models.resnet", "models.mnist", "train.data",
+                 "train.device_input", "train.distributed",
+                 "train.dist_mnist"):
         assert f"tf_operator_tpu_torch.{name}" in out.stdout.split()
 
 
@@ -115,7 +121,13 @@ def test_default_device_is_the_card(monkeypatch):
                                  serve_lm.front_args(**flags))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_lm.main(["--train-steps", "0"])
-    # The trainer's entry point, likewise.
+    # The trainers' entry points, likewise, and the classifiers.
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dist_lm.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dist_mnist.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ResNet((1, 1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MnistCNN()
     assert resolve_device("cpu") == torch.device("cpu")

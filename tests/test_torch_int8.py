@@ -131,7 +131,8 @@ def test_quantize_decode_params_refuses_moe():
     _, params = _jax_params(None)
     tree = jax.tree.map(np.asarray, params)
     tree["block_1"]["moe"] = {"router": {"kernel": np.zeros((32, 4))}}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A9"):
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP.md A9b \(MoE, LAMB, Adafactor\)"):
         quantize_decode_params(tree)
 
 

@@ -293,7 +293,8 @@ def test_unported_options_raise():
     tx = steps.adamw(1e-3)
     with pytest.raises(NotImplementedError, match="A8"):
         steps.make_lm_train_step(model, tx, mesh=object())
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError,
+                       match=r"A9b \(MoE, LAMB, Adafactor\)"):
         steps.make_lm_train_step(model, tx, aux_loss_weight=0.01)
     with pytest.raises(ValueError, match="decode=False"):
         steps.make_lm_train_step(

@@ -118,9 +118,18 @@ class TransformerConfig:
     moe_every_n: int | None = None
     mesh: Any = None
 
+    # The fields that fix the params tree's shapes.
+    SHAPE_FIELDS = ("vocab_size", "d_model", "n_heads", "n_kv_heads",
+                    "n_layers", "d_ff", "max_seq_len")
+
+    def shape_fields(self) -> dict:
+        """What fixes the params tree's shapes: a checkpoint manifest's
+        record of the model."""
+        return {f: getattr(self, f) for f in self.SHAPE_FIELDS}
+
     def __post_init__(self):
         later = {
-            "moe_every_n": "A9 (ResNet, MNIST and MoE)",
+            "moe_every_n": "A9b (MoE, LAMB, Adafactor)",
             "mesh": "A8 (multi-device)",
         }
         for name, item in later.items():
@@ -502,6 +511,10 @@ class Transformer(nn.Module):
             self.lm_head = DenseGeneral((cfg.d_model,), (cfg.vocab_size,),
                                         torch.float32, store,
                                         param_dtype=torch.float32)
+
+    def shape_fields(self) -> dict:
+        """What fixes the params tree's shapes (the config's)."""
+        return self.cfg.shape_fields()
 
     def init_cache(self, batch: int, paged: bool | None = None) -> dict:
         """An empty cache for ``batch`` lanes: paged (pools, tables on the

@@ -17,7 +17,13 @@ JAX's default PRNG as the reference runs it (JAX 0.9.0:
   ``bits1 ^ bits2`` of the hash of each flat index's (hi, lo) words;
 - ``uniform``: ``_uniform``'s mantissa trick for float32;
 - ``gumbel``: ``_gumbel`` in mode ``"low"``;
-- ``categorical``: the Gumbel-max of ``random.categorical``.
+- ``categorical``: the Gumbel-max of ``random.categorical``;
+- ``randint``: ``_randint`` at 32 bits, two ``random_bits`` draws from a
+  split key folded into the span with uint32 ``rem``/``mul`` and
+  wraparound;
+- ``bernoulli``: ``_bernoulli`` in mode ``"low"``, ``uniform < p``;
+- ``permutation``: ``_shuffle`` of ``arange(n)``, rounds of a stable sort
+  on fresh 32-bit keys.
 
 A key is an int64 tensor ``[..., 2]`` holding the two uint32 words.
 Every word is carried in int64 and masked to 32 bits after each add and
@@ -140,3 +146,41 @@ def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     over the WHOLE shape, so a batch of 4 rows is not four draws of one
     row. Returns int64 indices."""
     return (gumbel(key, logits.shape) + logits).argmax(-1)
+
+
+def randint(key: torch.Tensor, shape, minval: int, maxval: int
+            ) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` for int32 bounds
+    (JAX's default integer dtype with x64 off): int64 values in
+    [minval, maxval), or ``minval`` everywhere when ``maxval <= minval``.
+    ``hi % span * (2**32 % span) + lo % span``, all in uint32 with
+    wraparound, then ``% span``: the slight modulo bias is JAX's too."""
+    minval, maxval = int(minval), int(maxval)
+    span = 1 if maxval <= minval else (maxval - minval) & MASK
+    k_hi, k_lo = split(key)
+    hi, lo = random_bits(k_hi, shape), random_bits(k_lo, shape)
+    # 2**32 % span as JAX computes it: (2**16 % span)**2 % span in uint32.
+    mult = (1 << 16) % span
+    mult = ((mult * mult) & MASK) % span
+    offset = ((hi % span) * mult + lo % span) & MASK
+    return minval + offset % span
+
+
+def bernoulli(key: torch.Tensor, p: float, shape) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` in mode ``"low"``: float32
+    ``uniform(key, shape) < p``. Returns a bool tensor."""
+    return uniform(key, shape) < float(np.float32(p))
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)``: ``arange(n)`` shuffled by
+    ``ceil(3 ln n / ln(2**32 - 1))`` rounds (one for n <= 1625), each
+    splitting the key, drawing 32-bit sort keys and sorting stably by
+    them. int64 values on the key's device."""
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(MASK)))
+    x = torch.arange(n, dtype=torch.int64, device=key.device)
+    for _ in range(rounds):
+        key, sub = split(key)
+        order = torch.sort(random_bits(sub, (n,)), stable=True).indices
+        x = x[order]
+    return x

@@ -13,15 +13,22 @@ Layout: ``{dir}/{step}/``, all-digit step names as orbax writes them, so
 ``ckpt/gc.py``'s sweeper prunes the port's steps as it prunes orbax's.
 Each step holds
 
-- ``state.pt``: ``{"params": <flax-layout tree>, "opt": {"exp_avg",
-  "exp_avg_sq", "step": <trees of the same paths>}, "step": <int64>}``,
-  tensors only, so ``torch.load(..., weights_only=True)`` reads it. The
-  params are the tree ``models/convert.py::export_params`` gives (f32),
-  the optimiser's trees AdamW's moments and per-parameter step counts,
-  and ``step`` the ``TrainState``'s step;
-- ``manifest.json``: the format version, the step, and the
-  ``TransformerConfig`` fields that fix the tree's shapes, so a restore
+- ``state.pt``: ``{"params": <flax-layout tree>, "opt": {<state key>:
+  <tree of the same paths>}, "step": <int64>}``, plus ``"batch_stats"``
+  for a model with BatchNorm, tensors only, so ``torch.load(...,
+  weights_only=True)`` reads it. The params are the tree
+  ``models/convert.py::export_variables`` gives, in each parameter's
+  dtype (the classifiers' conv kernels HWIO), the ``batch_stats`` the
+  BatchNorm running statistics,
+  the optimiser's trees its per-parameter state in the same layout
+  (AdamW's ``exp_avg``, ``exp_avg_sq`` and ``step``; SGD's and LARS's
+  ``momentum_buffer``), and ``step`` the ``TrainState``'s step;
+- ``manifest.json``: the format version, the step, and the fields that
+  fix the tree's shapes (the model's ``shape_fields()``), so a restore
   into another model fails with a message that names them.
+
+``models/convert.py::variable_layout`` is the one place that knows each
+model family's tree; this module reads every model through it.
 
 A step is written into a temporary sibling (``{step}.tmp-{pid}``, which
 neither ``latest_step`` nor the sweeper reads), fsynced and renamed into
@@ -46,14 +53,14 @@ from typing import Any
 import torch
 
 from tf_operator_tpu_torch.ckpt import protocol as ckpt_protocol
-from tf_operator_tpu_torch.models.convert import flax_path, load_params
+from tf_operator_tpu_torch.models.convert import (
+    load_variables,
+    variable_layout,
+)
 
 FORMAT_VERSION = 1
 STATE_FILE = "state.pt"
 MANIFEST_FILE = "manifest.json"
-# The TransformerConfig fields that fix the params tree's shapes.
-SHAPE_FIELDS = ("vocab_size", "d_model", "n_heads", "n_kv_heads",
-                "n_layers", "d_ff", "max_seq_len")
 # AdamW's per-parameter state, as torch names it.
 MOMENT_KEYS = ("exp_avg", "exp_avg_sq", "step")
 
@@ -98,29 +105,48 @@ def _host(t: torch.Tensor) -> torch.Tensor:
 
 
 def _snapshot(state) -> dict:
-    """The state's weights, AdamW moments and step as host tensors, in the
-    ``state.pt`` layout; returns once every copy has landed."""
+    """The state's weights, BatchNorm statistics, optimiser state and step
+    as host tensors, in the ``state.pt`` layout; returns once every copy
+    has landed."""
     model, opt = state.model, state.optimizer
-    params: dict = {}
-    moments: dict = {key: {} for key in MOMENT_KEYS}
+    leaves, to_flax, _ = variable_layout(model)
+    params, stats = leaves["params"], leaves["batch_stats"]
+
+    def host(t):
+        # Into flax's layout on the device (a copy only for conv kernels),
+        # so the host copy is contiguous.
+        return _host(to_flax(t).contiguous() if t.dim() == 4 else t)
+
+    out: dict = {"params": {}, "opt": {}}
     cuda = False
-    for name, p in model.named_parameters():
-        path = flax_path(name)
+    for path, p in params.items():
         cuda |= p.is_cuda
-        _tree_set(params, path, _host(p))
-        st = opt.state.get(p)
-        if st:
-            for key in MOMENT_KEYS:
-                _tree_set(moments[key], path, _host(st[key]))
+        _tree_set(out["params"], path, host(p))
+        for key, val in (opt.state.get(p) or {}).items():
+            if isinstance(val, torch.Tensor):
+                _tree_set(out["opt"].setdefault(key, {}), path, host(val))
+    if stats:
+        out["batch_stats"] = {}
+        for path, b in stats.items():
+            _tree_set(out["batch_stats"], path, host(b))
     if cuda:
         torch.cuda.synchronize(model.device)
-    return {"params": params, "opt": moments,
-            "step": torch.tensor(int(state.step), dtype=torch.int64)}
+    out["step"] = torch.tensor(int(state.step), dtype=torch.int64)
+    return out
+
+
+def _port_layout(p: torch.Tensor, saved: torch.Tensor, from_flax
+                 ) -> torch.Tensor:
+    """A saved per-parameter tensor in ``p``'s layout and strides (a
+    classifier's conv kernel moment HWIO -> OIHW, ``channels_last``)."""
+    return torch.empty_like(p, dtype=saved.dtype, device="cpu").copy_(
+        from_flax(saved))
 
 
 def config_fields(cfg) -> dict:
-    """The manifest's record of a config: its shape fields."""
-    return {f: getattr(cfg, f) for f in SHAPE_FIELDS}
+    """The manifest's record of a model or a ``TransformerConfig``: its
+    ``shape_fields()`` (JSON types)."""
+    return cfg.shape_fields()
 
 
 def _write_file(path: str, write) -> None:
@@ -179,11 +205,12 @@ def read(directory: str, step: int | None = None) -> tuple[dict, dict]:
 
 def check_config(directory: str, manifest: dict, cfg) -> None:
     """Raise ValueError, naming each field, when the checkpoint was saved
-    for a model of other shapes than ``cfg``."""
-    saved = manifest["config"]
-    diff = [f"{f} {saved.get(f)} (checkpoint) vs {getattr(cfg, f)} "
-            f"(model)" for f in SHAPE_FIELDS
-            if saved.get(f) != getattr(cfg, f)]
+    for a model of other shapes than ``cfg`` (a model or a
+    ``TransformerConfig``)."""
+    saved, want = manifest["config"], config_fields(cfg)
+    diff = [f"{f} {saved.get(f)} (checkpoint) vs {want.get(f)} (model)"
+            for f in sorted(saved.keys() | want.keys(), key=str)
+            if saved.get(f) != want.get(f)]
     if diff:
         raise ValueError(
             f"checkpoint step {manifest['step']} under "
@@ -277,7 +304,7 @@ class CheckpointManager:
             return False
         payload = _snapshot(state)
         manifest = {"format": FORMAT_VERSION, "step": step,
-                    "config": config_fields(state.model.cfg)}
+                    "config": config_fields(state.model)}
         self._pending_step = step
         self._pending = self._writer.submit(self._write, step, payload,
                                             manifest)
@@ -301,23 +328,28 @@ class CheckpointManager:
 
     def restore(self, step: int | None, state: Any) -> Any:
         """Restore ``step`` (or the newest) IN PLACE into ``state``'s model
-        and optimiser (moments on the model's device in f32) and set its
+        (weights and BatchNorm statistics) and optimiser (its state on the
+        model's device, in each parameter's dtype and layout) and set its
         step; returns ``state``."""
         payload, manifest = read(self._dir, step)
         model, opt = state.model, state.optimizer
-        check_config(self._dir, manifest, model.cfg)
-        load_params(model, payload["params"])
-        path_of = {p: flax_path(n) for n, p in model.named_parameters()}
+        check_config(self._dir, manifest, model)
+        leaves, _, from_flax = variable_layout(model)
+        load_variables(model, payload)
+        path_of = {p: path for path, p in leaves["params"].items()}
+        saved_opt = payload["opt"]
         moments, index = {}, 0
         for group in opt.param_groups:
             for p in group["params"]:
-                vals = {k: _tree_get(payload["opt"][k], path_of[p])
-                        for k in MOMENT_KEYS}
-                if all(v is not None for v in vals.values()):
-                    moments[index] = vals
+                vals = {k: _tree_get(saved_opt[k], path_of[p])
+                        for k in saved_opt}
+                if vals and all(v is not None for v in vals.values()):
+                    moments[index] = {
+                        k: _port_layout(p, v, from_flax) if v.dim() else v
+                        for k, v in vals.items()}
                 index += 1
-        # load_state_dict casts each moment to its param's dtype and
-        # device, and places the step counts where AdamW keeps them.
+        # load_state_dict casts each tensor to its param's dtype and
+        # device, and places AdamW's step counts where AdamW keeps them.
         opt.load_state_dict({"state": moments,
                              "param_groups": opt.state_dict()["param_groups"]})
         state.step = int(payload["step"])

@@ -28,7 +28,7 @@ prints the flash kernels' launches (``launches_line``).
 
 Flags of unported items exit with a usage error naming the ROADMAP
 item: ``--sp``, ``--tp``, ``--pp*``, ``--ep`` and ``--ring-impl`` (A8),
-``--moe-*`` (A9), ``--data`` (the token-record input).
+``--moe-*`` (A9b), ``--data`` (the token-record input).
 """
 
 from __future__ import annotations
@@ -50,11 +50,11 @@ UNPORTED_FLAGS = (
     ("--ep", lambda a: a.ep > 1, "A8 (multi-device)"),
     ("--ring-impl", lambda a: a.ring_impl != "auto", "A8 (multi-device)"),
     ("--moe-every-n", lambda a: a.moe_every_n is not None,
-     "A9 (ResNet, MNIST and MoE)"),
+     "A9b (MoE, LAMB, Adafactor)"),
     ("--moe-experts", lambda a: a.moe_experts != 8,
-     "A9 (ResNet, MNIST and MoE)"),
+     "A9b (MoE, LAMB, Adafactor)"),
     ("--moe-top-k", lambda a: a.moe_top_k != 2,
-     "A9 (ResNet, MNIST and MoE)"),
+     "A9b (MoE, LAMB, Adafactor)"),
     ("--data", lambda a: a.data is not None,
      "A12 (the token-record input)"),
 )
@@ -101,9 +101,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=("auto", "stream", "flash", "ulysses"),
                    help="waits for A8")
     p.add_argument("--moe-every-n", type=int, default=None,
-                   help="waits for A9")
-    p.add_argument("--moe-experts", type=int, default=8, help="waits for A9")
-    p.add_argument("--moe-top-k", type=int, default=2, help="waits for A9")
+                   help="waits for A9b")
+    p.add_argument("--moe-experts", type=int, default=8, help="waits for A9b")
+    p.add_argument("--moe-top-k", type=int, default=2, help="waits for A9b")
     p.add_argument("--ep", type=int, default=1, help="waits for A8")
     p.add_argument("--pp", type=int, default=1, help="waits for A8")
     p.add_argument("--pp-microbatches", type=int, default=2,

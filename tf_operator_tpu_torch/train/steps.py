@@ -1,21 +1,26 @@
-"""The LM training and eval steps, the loss and the optimiser, in PyTorch.
+"""The training and eval steps, the losses and the optimisers, in PyTorch.
 
 Counterpart of ``tf_operator_tpu/train/steps.py`` for one device:
 ``make_lm_train_step`` builds ``step(state, batch) -> (state, metrics)``
 over a training-mode ``Transformer`` (f32 weights, ``cfg.dtype`` compute)
 and an ``adamw`` optimiser, whose learning rate may be ``warmup_cosine``.
-Where JAX returns a new state, the port updates the model's weights and
-the optimiser's moments in place and returns the same ``TrainState``.
+``make_classifier_train_step`` does the same for the image classifiers
+(``models/resnet.py``, ``models/mnist.py``) with ``sgd_momentum`` or
+``lars``; a ResNet's BatchNorm running statistics (the ``TrainState``'s
+``batch_stats``) update in its forward. Where JAX returns a new state,
+the port updates the model's weights, statistics and the optimiser's
+buffers in place and returns the same ``TrainState``.
 ``make_lm_eval_step`` and ``evaluate_lm`` are the Evaluator's perplexity
 over host batches of any row counts (``chunked_lm_xent_sums``, padding
 through ``_iter_padded``), under ``torch.no_grad()``: on the card the
 forward runs the flash forward kernel and no backward kernel.
+``make_classifier_eval_step`` and ``evaluate`` are the classifier's
+accuracy and loss the same way, BatchNorm on its running statistics.
 
-Not ported yet: ``evaluate`` and the classifier steps (they wait for
-ROADMAP.md A9's classifier eval step), ``sharded_lm_xent``, ``fuse_steps``
-(a CUDA graph of the step is its counterpart, A5's graph), the other
-optimisers, and meshes (``mesh`` raises, naming A8) and MoE's auxiliary
-loss (``aux_loss_weight`` raises, naming A9).
+Not ported yet: ``sharded_lm_xent``, ``fuse_steps`` (a CUDA graph of the
+step is its counterpart, A5's graph), ``lamb`` and ``adafactor`` (A9b),
+meshes (``mesh`` raises, naming A8) and MoE's auxiliary loss
+(``aux_loss_weight`` raises, naming A9b).
 """
 
 from __future__ import annotations
@@ -135,22 +140,29 @@ def chunked_lm_xent_sums(hidden: torch.Tensor, kernel: torch.Tensor,
     return loss_sum, count
 
 
+class _Optimiser:
+    """What the steps ask of an optimiser: ``init(model)``, a torch
+    optimiser over the model's parameters, and ``learning_rate(step)``,
+    which the step sets before each update. ``lr`` is a number or a
+    schedule of the step count, which optax evaluates at the count before
+    the update (step 0 runs at ``lr(0)``)."""
+
+    lr: float | Schedule
+
+    def learning_rate(self, step: int) -> float:
+        return float(self.lr(step) if callable(self.lr) else self.lr)
+
+
 @dataclass(frozen=True)
-class AdamW:
+class AdamW(_Optimiser):
     """optax ``adamw``: b1 0.9, b2 0.999, eps 1e-8, eps_root 0, and
-    decoupled weight decay (scaled by the learning rate) on every leaf.
-    ``lr`` is a number or a schedule of the step count, which optax
-    evaluates at the count before the update (step 0 runs at
-    ``lr(0)``)."""
+    decoupled weight decay (scaled by the learning rate) on every leaf."""
 
     lr: float | Schedule
     weight_decay: float = 0.01
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
-
-    def learning_rate(self, step: int) -> float:
-        return float(self.lr(step) if callable(self.lr) else self.lr)
 
     def init(self, model: torch.nn.Module) -> torch.optim.AdamW:
         """torch's AdamW follows optax's formula at these settings:
@@ -164,6 +176,100 @@ class AdamW:
 def adamw(lr: float | Schedule = 3e-4, weight_decay: float = 0.01) -> AdamW:
     """AdamW; ``lr`` may be a number or a schedule (``warmup_cosine``)."""
     return AdamW(lr, weight_decay)
+
+
+@dataclass(frozen=True)
+class SGDMomentum(_Optimiser):
+    """optax ``sgd(lr, momentum, nesterov)``: the trace ``t = g + m t``
+    (``g`` at the first step), the update ``g + m t`` with Nesterov or
+    ``t`` without, times ``-lr``. torch's SGD (no dampening, no weight
+    decay) computes the same recursion."""
+
+    lr: float | Schedule
+    momentum: float = 0.9
+    nesterov: bool = True
+
+    def init(self, model: torch.nn.Module) -> torch.optim.SGD:
+        return torch.optim.SGD(model.parameters(), lr=self.learning_rate(0),
+                               momentum=self.momentum,
+                               nesterov=self.nesterov)
+
+
+def sgd_momentum(lr: float | Schedule = 0.1, momentum: float = 0.9,
+                 nesterov: bool = True) -> SGDMomentum:
+    return SGDMomentum(lr, momentum, nesterov)
+
+
+class LarsSGD(torch.optim.Optimizer):
+    """optax ``lars``'s chain as a torch optimiser, leaf by leaf:
+
+    1. ``u = g + weight_decay * p`` (``add_decayed_weights``);
+    2. ``u *= trust_coefficient * |p| / (|u| + eps)``, or 1 where either
+       norm is 0 (``scale_by_trust_ratio``; the norms are Frobenius);
+    3. ``u *= -lr`` (``scale_by_learning_rate``);
+    4. ``t = u + momentum * t`` (``trace``, no Nesterov; ``t`` starts at
+       0) and ``p += t``.
+
+    Steps 1 and 2 apply only to leaves of two or more dims (conv and
+    dense kernels), JAX's ``_no_norm_or_bias`` mask; biases and BN scales
+    skip both. The trace is the state's ``momentum_buffer``. The trust
+    coefficient (1e-3) and eps (0) are optax's defaults, which JAX's
+    ``lars`` keeps."""
+
+    TRUST_COEFFICIENT, EPS = 1e-3, 0.0
+
+    def __init__(self, params, lr: float, weight_decay: float,
+                 momentum: float) -> None:
+        super().__init__(params, dict(
+            lr=lr, weight_decay=weight_decay, momentum=momentum))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                u = p.grad
+                if p.dim() >= 2:
+                    u = u + group["weight_decay"] * p
+                    p_norm = torch.linalg.vector_norm(p)
+                    u_norm = torch.linalg.vector_norm(u)
+                    ratio = (self.TRUST_COEFFICIENT * p_norm
+                             / (u_norm + self.EPS))
+                    ratio = torch.where((p_norm == 0) | (u_norm == 0),
+                                        torch.ones_like(ratio), ratio)
+                    u = u * ratio
+                u = u * -group["lr"]
+                state = self.state[p]
+                trace = state.get("momentum_buffer")
+                if trace is None:
+                    trace = state["momentum_buffer"] = u.clone()
+                else:
+                    trace.mul_(group["momentum"]).add_(u)
+                p.add_(trace)
+
+
+@dataclass(frozen=True)
+class Lars(_Optimiser):
+    """optax ``lars`` as JAX's ``steps.lars`` builds it by default: no
+    Nesterov, weight decay and trust ratio masked by ``_no_norm_or_bias``
+    (``LarsSGD``)."""
+
+    lr: float | Schedule
+    weight_decay: float = 1e-4
+    momentum: float = 0.9
+
+    def init(self, model: torch.nn.Module) -> LarsSGD:
+        return LarsSGD(model.parameters(), self.learning_rate(0),
+                       self.weight_decay, self.momentum)
+
+
+def lars(lr: float | Schedule = 1.0, weight_decay: float = 1e-4,
+         momentum: float = 0.9) -> Lars:
+    """LARS, layerwise-adaptive SGD for large-batch vision training; the
+    canonical recipe excludes BN scales and biases from the decay and the
+    trust ratio. Use with ``warmup_cosine``."""
+    return Lars(lr, weight_decay, momentum)
 
 
 def warmup_cosine(peak_lr: float, total_steps: int, *,
@@ -194,16 +300,24 @@ def warmup_cosine(peak_lr: float, total_steps: int, *,
 
 @dataclass
 class TrainState:
-    """The step count, the model (which holds the weights) and the
-    optimiser (which holds the moments)."""
+    """The step count, the model (which holds the weights and, for a
+    BatchNorm model, the running statistics) and the optimiser (which
+    holds the moments or the momentum buffers)."""
 
     step: int
-    model: Transformer
+    model: torch.nn.Module
     optimizer: torch.optim.Optimizer
 
     @classmethod
-    def create(cls, model: Transformer, tx: AdamW) -> TrainState:
+    def create(cls, model: torch.nn.Module, tx: _Optimiser) -> TrainState:
         return cls(step=0, model=model, optimizer=tx.init(model))
+
+    @property
+    def batch_stats(self) -> dict | None:
+        """The BatchNorm running statistics, ``{dotted name: buffer}``
+        (the live tensors; the names are flax paths joined by dots), or
+        None for a model without BatchNorm."""
+        return dict(self.model.named_buffers()) or None
 
 
 def _on(device, x) -> torch.Tensor:
@@ -234,7 +348,7 @@ def make_lm_train_step(model: Transformer, tx: AdamW, *,
     if aux_loss_weight:
         raise NotImplementedError(
             "make_lm_train_step(aux_loss_weight=...) is not ported yet: see "
-            "ROADMAP.md A9 (ResNet, MNIST and MoE)")
+            "ROADMAP.md A9b (MoE, LAMB, Adafactor)")
     if grad_accum < 1:
         raise ValueError(f"grad_accum={grad_accum} must be >= 1")
     if model.cfg.decode:
@@ -272,6 +386,61 @@ def make_lm_train_step(model: Transformer, tx: AdamW, *,
         opt.step()
         state.step += 1
         return state, {"loss": loss}
+
+    return step
+
+
+def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The share of rows whose argmax is the label, f32."""
+    return (logits.argmax(-1) == labels).float().mean()
+
+
+def _check_batch_stats(model: torch.nn.Module, has_batch_stats: bool) -> None:
+    """JAX's ``has_batch_stats`` names whether the model carries a
+    ``batch_stats`` collection; in the port the BatchNorm buffers are it,
+    so the flag must agree with the model (JAX fails at ``apply``)."""
+    has = any(True for _ in model.buffers())
+    if has != has_batch_stats:
+        raise ValueError(
+            f"has_batch_stats={has_batch_stats}, but the model "
+            f"{'has' if has else 'has no'} BatchNorm statistics")
+
+
+def make_classifier_train_step(model: torch.nn.Module, tx: _Optimiser, *,
+                               has_batch_stats: bool = True,
+                               mesh: Any = None):
+    """The train step for the image classifiers, on one device: the
+    forward in training mode (BatchNorm on the batch's statistics, its
+    running statistics updated), the mean cross-entropy of the f32
+    logits, its gradients and one optimiser update at ``tx``'s learning
+    rate for the state's step. Returns ``{"loss", "accuracy"}`` as
+    device scalars.
+
+    ``batch`` is ``{"image": [B, H, W, C], "label": [B]}``, numpy arrays
+    or tensors; they are moved to the model's device."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "make_classifier_train_step(mesh=...) is not ported yet: see "
+            "ROADMAP.md A8 (multi-device)")
+    _check_batch_stats(model, has_batch_stats)
+
+    def step(state: TrainState, batch) -> tuple[TrainState, dict]:
+        if state.model is not model:
+            raise ValueError("the state holds another model than the step's")
+        images = _on(model.device, batch["image"])
+        labels = _on(model.device, batch["label"])
+        opt = state.optimizer
+        opt.zero_grad(set_to_none=True)
+        logits = model(images, train=True)
+        loss = cross_entropy(logits, labels)
+        loss.backward()
+        lr = tx.learning_rate(state.step)
+        for group in opt.param_groups:
+            group["lr"] = lr
+        opt.step()
+        state.step += 1
+        return state, {"loss": loss.detach(),
+                       "accuracy": accuracy(logits.detach(), labels)}
 
     return step
 
@@ -407,3 +576,75 @@ def evaluate_lm(eval_step: LMEvalStep, state: TrainState, batches, *,
         raise ValueError("evaluate_lm() got no non-empty batches")
     mean = float(loss_sum) / tokens
     return {"loss": mean, "perplexity": math.exp(mean), "tokens": tokens}
+
+
+class ClassifierEvalStep:
+    """``step(state, batch) -> {"correct", "loss_sum", "count"}``: the
+    forward in inference mode (BatchNorm on its running statistics) under
+    ``torch.no_grad()``, and MASKED sums over a batch ``{"image",
+    "label", "mask"}`` (numpy arrays or tensors, moved to the model's
+    device): int32 counts of correct and of real rows (mask > 0), and the
+    f32 loss weighted by the mask. ``shard_count`` is 1: one device."""
+
+    shard_count = 1
+
+    def __init__(self, model: torch.nn.Module) -> None:
+        self.model = model
+
+    def __call__(self, state: TrainState, batch) -> dict:
+        model = self.model
+        if state.model is not model:
+            raise ValueError("the state holds another model than the step's")
+        labels = _on(model.device, batch["label"]).long()
+        mask = _on(model.device, batch["mask"])
+        with torch.no_grad():
+            logits = model(_on(model.device, batch["image"]), train=False)
+            per_example = F.cross_entropy(logits.float(), labels,
+                                          reduction="none")
+            real = mask > 0
+            # Integer counts: an f32 sum would lose exactness past 2^24.
+            return {
+                "correct": ((logits.argmax(-1) == labels) & real).sum(
+                    dtype=torch.int32),
+                "loss_sum": (per_example * mask.float()).sum(),
+                "count": real.sum(dtype=torch.int32),
+            }
+
+
+def make_classifier_eval_step(model: torch.nn.Module, *,
+                              has_batch_stats: bool = True,
+                              mesh: Any = None) -> ClassifierEvalStep:
+    """The classifier's eval step (what an Evaluator replica runs against
+    the trainer's checkpoints): masked sums, so ``evaluate`` can pad
+    every batch to one shape."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "make_classifier_eval_step(mesh=...) is not ported yet: see "
+            "ROADMAP.md A8 (multi-device)")
+    _check_batch_stats(model, has_batch_stats)
+    return ClassifierEvalStep(model)
+
+
+def evaluate(eval_step: ClassifierEvalStep, state: TrainState, batches, *,
+             pad_to: int | None = None) -> dict[str, float]:
+    """Drive a classifier eval step over host batches of ANY sizes, tail
+    batches included (padding via ``_iter_padded``, so every call sees
+    one shape): ``{"accuracy", "loss", "count"}``, exact counts and the
+    loss accumulated in f32 on the device, read once at the end."""
+    correct = loss_sum = count = None
+    for arrs, pad_to in _iter_padded(
+        batches, eval_step.shard_count, pad_to, ("image", "label"),
+        mask_ndim=1,
+    ):
+        m = eval_step(state, arrs)
+        if correct is None:
+            correct, loss_sum, count = m["correct"], m["loss_sum"], m["count"]
+        else:
+            correct = correct + m["correct"]
+            loss_sum = loss_sum + m["loss_sum"]
+            count = count + m["count"]
+    if correct is None or int(count) == 0:
+        raise ValueError("evaluate() got no non-empty batches")
+    total = int(count)
+    return {"accuracy": int(correct) / total,
+            "loss": float(loss_sum) / total, "count": total}
