@@ -280,7 +280,27 @@ Phases, in order; any failure ends the run with a non-zero exit:
     evaluator replica (TF_CONFIG ``evaluator``) that reaches ``DONE``; the
     phase's seconds. ``tools/torch_classifier_probe.py`` runs this phase
     alone;
-22. the ``kernels`` JSON line (each kernel with its design; B5 as two
+22. Mixture-of-Experts (``models/moe.py``, the MoE blocks, the aux loss;
+    no hand kernel of its own: B1-B3 run in the attention blocks, B4 kv8
+    and B5 in the int8 engine): (a) f32, TF32 off, a reduced MoE LM
+    (``MOE_F32``: d 256, 4 heads of 64, 2 layers, every block MoE, 4
+    experts, top-2), B 2 x T 256 on the card and on the CPU: each layer's
+    routes equal but at near-ties (``MOE_ROUTE_TIE``, the count printed),
+    router probabilities within ``MOE_PROB_TOL``, a TF32 control that
+    must read above it; 3 AdamW steps with aux 0.01, losses and aux
+    within ``MOE_LOSS_TOL``, weights by phase 8's Adam rule; (b) bf16 at
+    ``bench.py``'s LM width with ``examples/dist_lm.py``'s MoE settings
+    (``MOE_BENCH``: every 2nd block, 8 experts, top-2, capacity 1.25,
+    aux 0.01), B 2 x T 8192, chunked loss, ``adamw(1e-4)``: step seconds,
+    tokens/s, MFU by the counted flops, peak memory, a profiled step, each
+    MoE layer's dropped share of assignments and aux (each in (0, E + 1]), 8
+    launches of B1, B2 and B3 a step; (c) phase 12's lockstep over an MoE
+    tree (int8 + kv8, f32, every 2nd block MoE, 8 experts, top-2), its
+    MoE leaves unquantized, logits within ``LOGIT_TOL`` of the plain
+    route's, kv8 B4 and B5 launched; (d) ``python -m
+    tf_operator_tpu_torch.train.dist_lm --moe-every-n 2 --moe-experts 4``
+    to OK with flash launches; the phase's seconds;
+23. the ``kernels`` JSON line (each kernel with its design; B5 as two
     entries, the weight stream and the wgmma tile, each with its own
     launches; ``paths`` gives each kernel's launches on every path of
     this run that drives it, and ``launches`` is their sum; the paged
@@ -596,6 +616,26 @@ CLS_EVAL_ROWS = (256, 256, 100)
 CLS_EVAL_RTOL = 1e-5
 MNIST_ARGS = ["--steps", "60", "--batch", "256"]
 MNIST_FAIL_AT = 30
+# Phase 22, Mixture-of-Experts. (a) the reduced f32 MoE LM on the card
+# (TF32 off) and on the CPU from one tree and batch. The router's
+# product and softmax run in f32 on both, in other summation orders and
+# after the flash kernels' attention (f32 mma.sync at Dh 64) on the card:
+# probabilities ~1e-7 apart, within MOE_PROB_TOL, and a route may differ
+# only where its two competing probabilities lie within MOE_ROUTE_TIE. A
+# TF32 router (inputs rounded to 10 bits) moves them by ~1e-4: the
+# control must read above MOE_PROB_TOL. Losses and aux within
+# MOE_LOSS_TOL after each of 3 AdamW steps; weights by phase 8's rule.
+MOE_F32 = dict(vocab_size=1024, d_model=256, n_heads=4, n_layers=2,
+               d_ff=1024, max_seq_len=256, moe_every_n=1, moe_experts=4,
+               moe_top_k=2)
+MOE_F32_B, MOE_F32_T, MOE_F32_STEPS, MOE_F32_LR = 2, 256, 3, 1e-3
+MOE_PROB_TOL, MOE_ROUTE_TIE, MOE_LOSS_TOL = 1e-5, 1e-5, 1e-4
+MOE_AUX_WEIGHT = 0.01  # examples/dist_lm.py's
+# (b) bench.py's LM_SIZE with examples/dist_lm.py's MoE settings.
+MOE_BENCH = dict(moe_every_n=2, moe_experts=8, moe_top_k=2,
+                 moe_capacity_factor=1.25)
+# (d) the entry point with the MoE flags, its other flags the defaults.
+MOE_ENTRY_ARGS = ["--moe-every-n", "2", "--moe-experts", "4"]
 
 
 def entry_flash_shape() -> tuple[int, int, int, int]:
@@ -2904,9 +2944,9 @@ def train_run(cfg, params, batch, steps: int, tx, *, plain=False,
     """``steps`` train steps from ``params`` on one batch, with the flash
     counts set to 0 just before the first; with ``plain``,
     reference_attention takes the kernels' place in the model. Returns the
-    model, the losses, the counts, after one warm-up step each step's
-    seconds and, with ``first_grads``, a copy of the first step's
-    gradients by parameter name."""
+    model, the losses (and an MoE model's aux losses), the counts, after
+    one warm-up step each step's seconds and, with ``first_grads``, a copy
+    of the first step's gradients by parameter name."""
     from tf_operator_tpu_torch.models import transformer
     from tf_operator_tpu_torch.models.convert import load_params
     from tf_operator_tpu_torch.ops import flash_attention as fa
@@ -2921,7 +2961,7 @@ def train_run(cfg, params, batch, steps: int, tx, *, plain=False,
     forced = mock.patch.object(
         transformer, "attention",
         lambda q, k, v, causal: fa.reference_attention(q, k, v, causal))
-    losses, seconds, grads = [], [], {}
+    losses, auxes, seconds, grads = [], [], [], {}
     with forced if plain else contextlib.nullcontext():
         fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
         for i in range(steps):
@@ -2929,6 +2969,8 @@ def train_run(cfg, params, batch, steps: int, tx, *, plain=False,
             t0 = time.perf_counter()
             state, metrics = step(state, batch)
             losses.append(metrics["loss"].item())
+            if "aux_loss" in metrics:
+                auxes.append(metrics["aux_loss"].item())
             if i:
                 seconds.append(time.perf_counter() - t0)
             elif first_grads:
@@ -2938,8 +2980,8 @@ def train_run(cfg, params, batch, steps: int, tx, *, plain=False,
                       dkv=fa.dkv_launches)
         prof = (profile_steps(lambda: step(state, batch), 1, "train step")
                 if profile else {})
-    return dict(model=model, losses=losses, seconds=seconds, counts=counts,
-                grads=grads, profile=prof)
+    return dict(model=model, losses=losses, auxes=auxes, seconds=seconds,
+                counts=counts, grads=grads, profile=prof)
 
 
 def train_f32_phase(params) -> dict:
@@ -4595,6 +4637,318 @@ def classifier_phase(card: str) -> None:
           flush=True)
 
 
+def moe_routes(model, tokens) -> list:
+    """Each MoE layer's (top_idx, probs) on the host, from one no-grad
+    forward of ``model`` (in layer order)."""
+    from tf_operator_tpu_torch.models import moe
+
+    seen, route = [], moe.MoeMlp.route
+
+    def record(self, x):
+        out = route(self, x)
+        seen.append((out[0].cpu(), out[2].float().cpu()))
+        return out
+
+    with mock.patch.object(moe.MoeMlp, "route", record), torch.no_grad():
+        model(tokens, return_aux=True)
+    return seen
+
+
+def route_partings(got, want) -> tuple[int, float]:
+    """(tokens whose choices differ, the widest gap between the two
+    competing probabilities of such a token, read from ``want``'s): for
+    each layer's (top_idx, probs) of two runs."""
+    parted, widest = 0, 0.0
+    for (gi, _), (wi, wp) in zip(got, want):
+        diff = (gi != wi).any(-1)
+        parted += int(diff.sum())
+        for g, s in zip(*torch.nonzero(diff, as_tuple=True)):
+            j = int(torch.nonzero(gi[g, s] != wi[g, s])[0])
+            p = wp[g, s]
+            widest = max(widest, abs(float(p[gi[g, s, j]]
+                                           - p[wi[g, s, j]])))
+    return parted, widest
+
+
+def moe_train(cfg, params, batch, device, steps) -> dict:
+    """``steps`` AdamW steps with the aux loss on ``device`` from
+    ``params``; the flash counts set to 0 just before the first."""
+    from tf_operator_tpu_torch.models.convert import load_params
+    from tf_operator_tpu_torch.models.transformer import Transformer
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.train.steps import (
+        TrainState,
+        adamw,
+        make_lm_train_step,
+    )
+
+    model = load_params(Transformer(cfg, device), params)
+    tx = adamw(MOE_F32_LR)
+    state = TrainState.create(model, tx)
+    step = make_lm_train_step(model, tx, aux_loss_weight=MOE_AUX_WEIGHT)
+    batch = {k: v.to(model.device) for k, v in batch.items()}
+    losses, auxes = [], []
+    fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
+    for _ in range(steps):
+        state, m = step(state, batch)
+        losses.append(m["loss"].item())
+        auxes.append(m["aux_loss"].item())
+    return dict(model=model, losses=losses, auxes=auxes, counts=dict(
+        flash_fwd=fa.fwd_launches, flash_dq=fa.dq_launches,
+        flash_dkv=fa.dkv_launches))
+
+
+def moe_check_phase() -> dict:
+    """Phase 22 (a): the reduced f32 MoE LM, card against CPU; returns the
+    card run's flash launches."""
+    from tf_operator_tpu_torch.models.convert import init_params, load_params
+    from tf_operator_tpu_torch.models.transformer import (
+        Transformer,
+        TransformerConfig,
+    )
+
+    cfg = TransformerConfig(dtype=torch.float32, **MOE_F32)
+    params = init_params(cfg, seed=3)
+    rng = np.random.default_rng(6)
+    batch = {name: torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (MOE_F32_B, MOE_F32_T)).astype(np.int64))
+        for name in ("tokens", "targets")}
+    cpu = moe_routes(load_params(Transformer(cfg, "cpu"), params),
+                     batch["tokens"])
+    card_model = load_params(Transformer(cfg), params)
+    card = moe_routes(card_model, batch["tokens"].cuda())
+    prob_err = max((g[1] - w[1]).abs().max().item()
+                   for g, w in zip(card, cpu))
+    parted, widest = route_partings(card, cpu)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = moe_routes(card_model, batch["tokens"].cuda())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    control = max((g[1] - w[1]).abs().max().item()
+                  for g, w in zip(tf32, cpu))
+    tf32_parted, _ = route_partings(tf32, cpu)
+    del card_model
+    runs = {dev: moe_train(cfg, params, batch, dev, MOE_F32_STEPS)
+            for dev in ("cuda", "cpu")}
+    kern, ref = runs["cuda"], runs["cpu"]
+    loss_err = max(abs(a - b) for a, b in zip(kern["losses"],
+                                              ref["losses"]))
+    aux_err = max(abs(a - b) for a, b in zip(kern["auxes"], ref["auxes"]))
+    lr_sum = MOE_F32_LR * MOE_F32_STEPS
+    max_err, far, total = 0.0, 0, 0
+    ref_params = dict(ref["model"].named_parameters())
+    for name, p in kern["model"].named_parameters():
+        diff = (p.detach().cpu() - ref_params[name].detach()).abs()
+        rows = key_bias_rows(name, diff)
+        if rows is not None:
+            rows.zero_()
+        max_err = max(max_err, diff.max().item())
+        far += (diff > TRAIN_PARAM_FRAC * lr_sum).sum().item()
+        total += diff.numel()
+    tokens = MOE_F32_B * MOE_F32_T * cfg.n_layers
+    print(f"moe f32 (22a) card vs CPU, TF32 off: router probabilities at "
+          f"most {prob_err:.3e} apart (tolerance {MOE_PROB_TOL}); {parted} "
+          f"of {tokens} token-layers route differently, the widest "
+          f"competing gap {widest:.3e} (near-tie limit {MOE_ROUTE_TIE}); "
+          f"TF32 control {control:.3e} ({tf32_parted} routes differ); "
+          f"losses card {kern['losses']} CPU {ref['losses']} (max diff "
+          f"{loss_err:.3e}), aux card {kern['auxes']} CPU {ref['auxes']} "
+          f"(max diff {aux_err:.3e}; tolerance {MOE_LOSS_TOL}); weights max "
+          f"diff {max_err:.3e} (tolerance {ADAM_BOUND * lr_sum:.3e}), {far} "
+          f"of {total} beyond {TRAIN_PARAM_FRAC * lr_sum:.3e}; counts "
+          f"{kern['counts']}", flush=True)
+    if not (prob_err <= MOE_PROB_TOL and widest <= MOE_ROUTE_TIE):
+        raise AssertionError("moe f32: the card's routes part from the CPU's")
+    if not control > MOE_PROB_TOL:
+        raise AssertionError("moe f32: the TF32 control reads within the "
+                             "tolerance")
+    if not (loss_err <= MOE_LOSS_TOL and aux_err <= MOE_LOSS_TOL
+            and max_err <= ADAM_BOUND * lr_sum
+            and far <= TRAIN_FAR_SHARE * total):
+        raise AssertionError("moe f32: card and CPU steps disagree")
+    want = cfg.n_layers * MOE_F32_STEPS
+    if tuple(kern["counts"].values()) != (want,) * 3:
+        raise AssertionError(f"moe f32 counts {kern['counts']}, want {want}")
+    return kern["counts"]
+
+
+def moe_flops_per_token(cfg, n_params: int, t: int) -> tuple[float, float]:
+    """Training flops a token of an MoE LM (forward and backward, 3 x the
+    forward's 2 per multiply-add): bench.py's 6 N + 6 L d T over the
+    parameters outside the experts, plus each MoE layer's expert products
+    as computed (E x C slots a group of S tokens: (E C / S) x 2 d f
+    multiply-adds a token, C = ceil(cf k S / E)); and, second, JAX's
+    dispatch and combine einsums (2 x E C d multiply-adds a token a layer),
+    which the port does as copies. -> (flops without, with them)."""
+    from tf_operator_tpu_torch.models.moe import MoeConfig, _group_size
+
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.moe_experts
+    n_moe = sum(cfg.uses_moe(i) for i in range(cfg.n_layers))
+    s = _group_size(MoeConfig(n_experts=e, d_model=d, d_ff=f), t)
+    c = max(1, math.ceil(cfg.moe_capacity_factor * cfg.moe_top_k * s / e))
+    dense = n_params - n_moe * e * 2 * d * f
+    base = (6 * dense + 6 * cfg.n_layers * d * t
+            + n_moe * 6 * (e * c / s) * 2 * d * f)
+    return base, base + n_moe * 6 * 2 * e * c * d
+
+
+def moe_bench_phase(card: str) -> dict:
+    """Phase 22 (b): the bf16 MoE trainer at bench.py's LM width; returns
+    its flash launches."""
+    from tf_operator_tpu_torch.models import moe
+    from tf_operator_tpu_torch.models.convert import init_params
+    from tf_operator_tpu_torch.models.transformer import TransformerConfig
+    from tf_operator_tpu_torch.train.steps import adamw
+
+    cfg = TransformerConfig(dtype=torch.bfloat16, **LM, **MOE_BENCH)
+    params = init_params(cfg, seed=0)
+    rng = np.random.default_rng(0)
+    batch = {name: torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_B, TRAIN_T)).astype(np.int64)).cuda()
+        for name in ("tokens", "targets")}
+    first, last, route = {}, {}, moe.MoeMlp.route
+
+    def record(self, x):
+        out = route(self, x)
+        # Each layer's first and last routes; no host sync in the loop.
+        first.setdefault(id(self), out)
+        last[id(self)] = out
+        return out
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(moe.MoeMlp, "route", record):
+        run = train_run(cfg, params, batch, BF16_STEPS, adamw(1e-4),
+                        profile=True, xent_chunk=XENT_CHUNK,
+                        xent_dot_dtype=torch.bfloat16,
+                        aux_loss_weight=MOE_AUX_WEIGHT)
+    del params
+    losses, auxes, counts = run["losses"], run["auxes"], run["counts"]
+    e = cfg.moe_experts
+
+    def layer_stats(routes):
+        """Each MoE layer's (dropped share of assignments, aux)."""
+        out = []
+        for idx, _, probs, cap in routes.values():
+            first_oh = torch.nn.functional.one_hot(idx[..., 0], e).float()
+            aux = e * (first_oh.mean((0, 1)) * probs.mean((0, 1))).sum()
+            kept = moe._positions(idx, e, cap)[1].float().mean()
+            out.append((round(1 - kept.item(), 6), round(aux.item(), 6)))
+        return out
+
+    at_first, at_last = layer_stats(first), layer_stats(last)
+    want = cfg.n_layers * BF16_STEPS
+    if (counts["fwd"], counts["dq"], counts["dkv"]) != (want,) * 3:
+        raise AssertionError(f"moe bf16 trainer counts {counts}, want "
+                             f"{want} of each kernel")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"moe bf16 trainer losses {losses}")
+    # The aux the step reports is the MoE layers' sum; each layer's lies in
+    # (0, E], at E when one expert takes every token and all the mass.
+    if not all(0 < a <= e + 1 for _, a in at_first + at_last):
+        raise AssertionError(f"moe bf16 trainer layer aux {at_first} "
+                             f"{at_last}")
+    n_params = sum(p.numel() for p in run["model"].parameters())
+    step_s = sum(run["seconds"]) / len(run["seconds"])
+    tok_s = TRAIN_B * TRAIN_T / step_s
+    flops, flops_einsums = moe_flops_per_token(cfg, n_params, TRAIN_T)
+    mfu = tok_s * flops / PEAK_FLOPS[torch.bfloat16]
+    mfu_einsums = tok_s * flops_einsums / PEAK_FLOPS[torch.bfloat16]
+    print(f"moe trainer bf16 (22b) B={TRAIN_B} T={TRAIN_T} ({n_params} "
+          f"params; every {cfg.moe_every_n}nd block {cfg.moe_experts} "
+          f"experts top-{cfg.moe_top_k} capacity "
+          f"{cfg.moe_capacity_factor}): losses {losses}; aux (the layers' "
+          f"sum) {auxes}; "
+          f"step_s {run['seconds']} mean {step_s:.6f} (median "
+          f"{float(np.median(run['seconds'])):.6f}) tokens/s {tok_s:.2f} MFU "
+          f"{mfu:.6f} ({flops:.6e} flops a token: 6 N_dense + 6 L d T + "
+          f"the expert products as computed; {mfu_einsums:.6f} with JAX's "
+          f"dispatch and combine einsums, {flops_einsums:.6e}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; by MoE layer "
+          f"(dropped share of assignments, aux) at the first step "
+          f"{at_first} and the profiled one {at_last}; counts {counts} on "
+          f"{card}", flush=True)
+    launches = dict(flash_fwd=counts["fwd"], flash_dq=counts["dq"],
+                    flash_dkv=counts["dkv"])
+    del run
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_int8_phase(pa, base, prompts) -> dict:
+    """Phase 22 (c): phase 12's lockstep (kernels against plain versions,
+    teacher-forced) over an MoE tree quantized for int8 + kv8; returns the
+    kernel engine's launches."""
+    from tf_operator_tpu_torch.models.convert import (
+        init_params,
+        quantize_decode_params,
+    )
+
+    cfg = replace(base, int8_decode=True, kv_int8=True, **MOE_BENCH)
+    qparams = quantize_decode_params(init_params(cfg, seed=0))
+    leaf = qparams["block_1"]["moe"]["w_in"]
+    if leaf.dtype != np.float32 or leaf.shape != (
+            cfg.moe_experts, cfg.d_model, cfg.d_ff):
+        raise AssertionError(f"moe leaves were quantized: {leaf.dtype}")
+    kern = lockstep_phase(pa, cfg, qparams, prompts)
+    n_moe = sum(cfg.uses_moe(i) for i in range(cfg.n_layers))
+    # q, kv and out in every layer, in_proj and out_proj in the dense ones,
+    # and the head: the MoE blocks' experts stay in f32.
+    calls = 3 * cfg.n_layers + 2 * (cfg.n_layers - n_moe) + 1
+    want = dict(paged_attend=0,
+                paged_attend_kv8=cfg.n_layers * kern["forwards"],
+                int8_matmul=calls * (kern["forwards"] + kern["prefills"]),
+                int8_wgmma=0)
+    if kern["launches"] != want:
+        raise AssertionError(f"moe int8 + kv8 launches {kern['launches']}, "
+                             f"want {want}")
+    del qparams
+    torch.cuda.empty_cache()
+    got = kern["launches"]
+    return dict(paged_attend_kv8=got["paged_attend_kv8"],
+                int8_matmul=got["int8_matmul"] - got["int8_wgmma"])
+
+
+def moe_entry_phase() -> dict:
+    """Phase 22 (d): the entry point with the MoE flags on the card, no
+    --device; returns the flash launches it prints."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    done = subprocess.run(
+        [sys.executable, "-m", "tf_operator_tpu_torch.train.dist_lm",
+         *MOE_ENTRY_ARGS], cwd=root, env=env, capture_output=True,
+        text=True, timeout=300)
+    out = done.stdout
+    counts = re.search(r"flash launches fwd=(\d+) dq=(\d+) dkv=(\d+)", out)
+    final = [ln for ln in out.splitlines() if "final loss" in ln]
+    print(f"moe entry point (22d) {' '.join(MOE_ENTRY_ARGS)}: rc "
+          f"{done.returncode}; {final[-1] if final else 'no final loss'}; "
+          f"{counts.group(0) if counts else 'no launch line'}", flush=True)
+    if done.returncode != 0 or "dist_lm: OK" not in out or counts is None:
+        raise AssertionError(f"moe entry point: {out[-2000:]}"
+                             f"{done.stderr[-2000:]}")
+    got = dict(flash_fwd=int(counts.group(1)), flash_dq=int(counts.group(2)),
+               flash_dkv=int(counts.group(3)))
+    if not all(got.values()):
+        raise AssertionError(f"moe entry point ran no kernel: {got}")
+    return got
+
+
+def moe_phase(pa, base, prompts, card: str) -> dict:
+    """Phase 22, (a) to (d): each path's launches by kernel."""
+    t0 = time.perf_counter()
+    out = {"moe trainer f32 (22a)": moe_check_phase()}
+    torch.cuda.empty_cache()
+    out["moe trainer bf16 (22b)"] = moe_bench_phase(card)
+    out["moe int8 engine f32 (22c)"] = moe_int8_phase(pa, base, prompts)
+    out["moe entry point f32 (22d)"] = moe_entry_phase()
+    print(f"phase 22 (Mixture-of-Experts): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -4722,6 +5076,8 @@ def main() -> int:
                         f32["kernel"]["tokens"], bf16, card)
     torch.cuda.empty_cache()
     classifier_phase(card)
+    torch.cuda.empty_cache()
+    moe = moe_phase(pa, base, prompts, card)
 
     # Each kernel's launches on every path of this run that drives it.
     paths = {
@@ -4761,6 +5117,9 @@ def main() -> int:
                        "trainer bf16 (9)": flash_bf16[name],
                        "checkpoint + eval bf16 (18a)": flash_ckpt[name],
                        "entry point f32 (18b)": flash_entry[name]}
+    for label, counts in moe.items():
+        for name, n in counts.items():
+            paths[name][label] = n
 
     src = "tf_operator_tpu_torch/ops/csrc/"
     replaces = {"flash_fwd": 253, "flash_dq": 297, "flash_dkv": 331}

@@ -11,8 +11,8 @@ against tests/test_serve_disagg.py's pins and against the JAX package:
   payload; re-encoding a decoded JAX payload through the port's export
   gives JAX's payload byte for byte (the bf16 rows travel as raw 2-byte
   words under ``"bfloat16"``). The rows agree by the rule of
-  tf_operator_tpu_torch/testing.py in f32 and kv8; bf16 rows, which the
-  two bf16 forwards round at different points, are held to being about
+  tf_operator_tpu_torch/testing.py in f32 and kv8; bf16 rows, which
+  JAX's excess precision rounds at fewer points, are held to being about
   as near to the f32 rows as JAX's (``BF16_RMS_RATIO``).
 - A JAX PrefillWorker's payload ingested by the port's engine decodes the
   port's local greedy tokens, and a port payload ingested by JAX's engine
@@ -78,11 +78,13 @@ MODES = {"f32": dict(), "bf16": dict(dtype="bfloat16"),
 # another order, ~1e-6 of the row's rms; atol 1e-5 of it, rtol 1e-5. The
 # kv8 int8 values must be equal.
 ROW_TOL = (1e-5, 1e-5)
-# bf16: the two forwards round activations at different points (half the
-# layer-0 K/V elements already differ by a bf16 step), so the rows are
-# held to the f32 rows instead: the port's rms error over them within
-# this factor of JAX's, per layer and part (1.39 at most over 16 prompts).
-BF16_RMS_RATIO = 1.5
+# bf16: this process's JAX runs with XLA's excess precision, which keeps
+# some bf16 intermediates in f32, so the rows are held to the f32 rows
+# instead: the port's rms error over them within this factor of JAX's,
+# per layer and part. The port rounds where JAX rounds without excess
+# precision (tests/test_torch_bf16_rounding.py); on this test's prompt
+# the ratio reads 1.212 at most (the logits 1.145), so 1.3.
+BF16_RMS_RATIO = 1.3
 
 
 def configs(mode: str):

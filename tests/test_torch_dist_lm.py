@@ -3,7 +3,9 @@ on the CPU, as the operator runs it: a run killed at ``--fail-at-step``
 exits 138 and the resumed run (``resumed from step k+1``) ends on a final
 checkpoint bitwise equal to an uninterrupted run's (f32, one thread); the
 injected TPU_CKPT_DIR and TPU_RESUME_STEP are honoured; the eviction
-signal becomes a forced save and an ack and training goes on; each
+signal becomes a forced save and an ack and training goes on; the MoE
+flags run (the model of JAX's tests/test_examples.py MoE test learns
+the chain task, top-2 and Switch; an MoE run resumes bitwise too); each
 unported flag's usage error names its ROADMAP item; without ``--device``
 and without a card the entry point exits non-zero naming CUDA. Then the
 entry point under the JAX operator's LocalProcessExecutor, as
@@ -86,17 +88,34 @@ def _assert_same_checkpoint(a, b):
 
 
 def test_kill_and_resume_ends_bitwise_on_the_uninterrupted_run(tmp_path):
+    _kill_and_resume(tmp_path)
+
+
+def test_moe_kill_and_resume_ends_bitwise_on_the_uninterrupted_run(
+        tmp_path):
+    """The same with the MoE model (GShard top-2 every 2nd block, the aux
+    loss in the step): router, experts and their moments resume bitwise."""
+    _kill_and_resume(tmp_path, "--layers", "2", "--moe-every-n", "2",
+                     "--moe-experts", "4")
+    payload, manifest = checkpoint.read(str(tmp_path / "ck"))
+    assert manifest["config"]["moe_every_n"] == 2
+    assert "w_in" in payload["opt"]["exp_avg"]["block_1"]["moe"]
+
+
+def _kill_and_resume(tmp_path, *extra):
     ck, twin = str(tmp_path / "ck"), str(tmp_path / "twin")
-    first = _run(small(12, "--checkpoint-dir", ck, "--fail-at-step", "5"))
+    first = _run(small(12, "--checkpoint-dir", ck, "--fail-at-step", "5",
+                       *extra))
     assert first.returncode == 138, first.stderr
     assert "simulating preemption at step 5" in first.stdout
     assert checkpoint.latest_step(ck) == 5
-    second = _run(small(12, "--checkpoint-dir", ck, "--fail-at-step", "5"))
+    second = _run(small(12, "--checkpoint-dir", ck, "--fail-at-step", "5",
+                        *extra))
     assert second.returncode == 0, second.stderr
     assert "dist_lm: resumed from step 6" in second.stdout
     assert "simulating preemption" not in second.stdout
     assert "dist_lm: OK" in second.stdout
-    third = _run(small(12, "--checkpoint-dir", twin))
+    third = _run(small(12, "--checkpoint-dir", twin, *extra))
     assert third.returncode == 0, third.stderr
     assert "resumed" not in third.stdout
     # max_to_keep=2, as the JAX example keeps.
@@ -185,21 +204,43 @@ def test_eviction_signal_saves_acks_and_keeps_training(tmp_path):
     (["--pp-schedule", "1f1b"], "ROADMAP A8"),
     (["--ep", "2"], "ROADMAP A8"),
     (["--ring-impl", "flash"], "ROADMAP A8"),
-    pytest.param(["--moe-every-n", "2"], "ROADMAP A9b (MoE, LAMB, Adafactor)",
-                 id="argv7-ROADMAP A9"),
-    pytest.param(["--moe-experts", "4"], "ROADMAP A9b (MoE, LAMB, Adafactor)",
+    # The MoE flags are ported (A9b): these three cases now pin that
+    # each runs (item None); JAX's --ep checks keep their usage errors.
+    pytest.param(["--moe-every-n", "2"], None, id="argv7-ROADMAP A9"),
+    pytest.param(["--moe-experts", "4", "--moe-every-n", "2"], None,
                  id="argv8-ROADMAP A9"),
-    pytest.param(["--moe-top-k", "1"], "ROADMAP A9b (MoE, LAMB, Adafactor)",
+    pytest.param(["--moe-top-k", "1", "--moe-every-n", "2"], None,
                  id="argv9-ROADMAP A9"),
     (["--data", "tokens.bin"], "ROADMAP A12"),
     (["--fail-at-step", "3"], "--fail-at-step requires --checkpoint-dir"),
+    (["--ep", "4"], "--ep requires --moe-every-n"),
+    (["--moe-experts", "6", "--moe-every-n", "2", "--ep", "4"],
+     "--moe-experts must be a multiple of --ep"),
+    (["--ep", "2", "--moe-every-n", "2"], "ROADMAP A8"),
 ])
 def test_unported_flags_are_usage_errors(argv, item, capsys):
+    if item is None:
+        assert dist_lm.main(small(2, *argv)[:-2] + ["--target-loss",
+                                                     "10"]) == 0
+        assert "dist_lm: OK" in capsys.readouterr().out
+        return
     with pytest.raises(SystemExit) as exc:
         dist_lm.main(["--device", "cpu", *argv])
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert item in err and argv[0] in err
+
+
+@pytest.mark.parametrize("top_k", ["2", "1"])
+def test_moe_learns_the_chain_task(top_k, capsys):
+    """JAX's tests/test_examples.py MoE flags without --ep: the MoE model
+    (every 2nd block, 4 experts, GShard top-2 or Switch) reaches loss
+    1.2 in 80 steps."""
+    assert dist_lm.main([
+        "--device", "cpu", "--steps", "80", "--batch", "8", "--seq", "64",
+        "--vocab", "64", "--moe-every-n", "2", "--moe-experts", "4",
+        "--moe-top-k", top_k, "--target-loss", "1.2"]) == 0
+    assert "dist_lm: OK" in capsys.readouterr().out
 
 
 def test_default_device_is_the_card(monkeypatch):

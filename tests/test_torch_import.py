@@ -51,8 +51,8 @@ def test_package_imports_with_jax_and_the_reference_poisoned():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    # Every module was imported: ckpt (1: protocol), models (5: convert,
-    # mnist, resnet, spec_decode, transformer), ops (4: _build,
+    # Every module was imported: ckpt (1: protocol), models (6: convert,
+    # mnist, moe, resnet, spec_decode, transformer), ops (4: _build,
     # flash_attention, int8_dense, paged_attention), runtime (2: metrics,
     # tracing), serve (11: coalesce, constrain, disagg, engine, kvcache,
     # faultinject, resilience, scheduler, httpapi, serve_lm, tier), train
@@ -65,7 +65,7 @@ def test_package_imports_with_jax_and_the_reference_poisoned():
                  "serve.disagg", "serve.tier", "serve.coalesce",
                  "models.resnet", "models.mnist", "train.data",
                  "train.device_input", "train.distributed",
-                 "train.dist_mnist"):
+                 "train.dist_mnist", "models.moe"):
         assert f"tf_operator_tpu_torch.{name}" in out.stdout.split()
 
 

@@ -128,12 +128,24 @@ def test_quantize_decode_params_is_bitwise_jax(n_kv_heads):
 
 
 def test_quantize_decode_params_refuses_moe():
+    """Now the pass-through pin (JAX's tests/test_training.py::
+    test_moe_params_pass_through_unquantized): an MoE block's leaves leave
+    ``quantize_decode_params`` as they came, as JAX's leave it, while the
+    dense projections around them quantize."""
     _, params = _jax_params(None)
     tree = jax.tree.map(np.asarray, params)
-    tree["block_1"]["moe"] = {"router": {"kernel": np.zeros((32, 4))}}
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP.md A9b \(MoE, LAMB, Adafactor\)"):
-        quantize_decode_params(tree)
+    rng = np.random.default_rng(7)
+    moe = {"router": rng.standard_normal((32, 4)).astype(np.float32),
+           "w_in": rng.standard_normal((4, 32, 64)).astype(np.float32),
+           "w_out": rng.standard_normal((4, 64, 32)).astype(np.float32)}
+    tree["block_1"]["moe"] = moe
+    got = quantize_decode_params(tree)
+    want = jax_quantize_decode_params(
+        jax.tree.map(jnp.asarray, tree))["block_1"]["moe"]
+    for name, leaf in moe.items():
+        np.testing.assert_array_equal(got["block_1"]["moe"][name], leaf)
+        np.testing.assert_array_equal(np.asarray(want[name]), leaf)
+    assert "kernel_q" in got["block_1"]["attn"]["qkv"]
 
 
 def _matmul_case(m, k, n, seed):

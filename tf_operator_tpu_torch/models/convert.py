@@ -11,7 +11,9 @@ The JAX model's parameters are a nested dict (``model.init(...)
   (before the MLP), ``attn/qkv/{kernel [d, 3, H, Dh], bias}`` (MHA) or
   ``attn/q/{kernel [d, H, Dh], bias}`` and ``attn/kv/{kernel
   [d, 2, KV, Dh], bias}`` (GQA), ``attn/out/{kernel [H, Dh, d], bias}``,
-  ``mlp/in_proj`` and ``mlp/out_proj`` ``{kernel, bias}``.
+  ``mlp/in_proj`` and ``mlp/out_proj`` ``{kernel, bias}``, or in an MoE
+  block (``moe_every_n``) ``moe/{router [d, E], w_in [E, d, f], w_out
+  [E, f, d]}`` in place of ``mlp``.
 
 The port keeps these layouts, so loading is a copy per leaf after a
 check of names and shapes, into a decode-mode model (weights in its
@@ -85,10 +87,18 @@ def param_shapes(cfg: TransformerConfig) -> dict[tuple[str, ...], tuple]:
         else:
             attn["q"] = ((d, h, dh), (h, dh))
             attn["kv"] = ((d, 2, kv, dh), (2, kv, dh))
-        mlp = {"in_proj": ((d, f), (f,)), "out_proj": ((f, d), (d,))}
         shapes[(blk, "RMSNorm_0", "scale")] = (d,)
         shapes[(blk, "RMSNorm_1", "scale")] = (d,)
-        for group, dense in (("attn", attn), ("mlp", mlp)):
+        groups = [("attn", attn)]
+        if cfg.uses_moe(i):
+            e = cfg.moe_experts
+            shapes[(blk, "moe", "router")] = (d, e)
+            shapes[(blk, "moe", "w_in")] = (e, d, f)
+            shapes[(blk, "moe", "w_out")] = (e, f, d)
+        else:
+            groups.append(("mlp", {"in_proj": ((d, f), (f,)),
+                                   "out_proj": ((f, d), (d,))}))
+        for group, dense in groups:
             for name, (kshape, bshape) in dense.items():
                 shapes[(blk, group, name, "kernel")] = kshape
                 shapes[(blk, group, name, "bias")] = bshape
@@ -98,8 +108,11 @@ def param_shapes(cfg: TransformerConfig) -> dict[tuple[str, ...], tuple]:
 def init_params(cfg: TransformerConfig, seed: int) -> dict:
     """A seeded random tree in the flax layout, made with numpy: kernels
     normal with variance 1/fan_in (fan_in = the product of the input
-    axes), embeddings normal with variance 1/d_model (flax's embed
-    init), biases 0, norm scales 1. f32 arrays."""
+    axes; for the MoE leaves every axis but the last, as flax's
+    ``lecun_normal`` counts a 3-D kernel: ``d`` for the router, ``E * d``
+    for ``w_in``, ``E * f`` for ``w_out``), embeddings normal with
+    variance 1/d_model (flax's embed init), biases 0, norm scales 1. f32
+    arrays."""
     rng = np.random.default_rng(seed)
     tree: dict = {}
     for path, shape in param_shapes(cfg).items():
@@ -111,8 +124,8 @@ def init_params(cfg: TransformerConfig, seed: int) -> dict:
         else:
             if leaf == "embedding":
                 fan_in = shape[1]
-            elif path[-2] == "out":
-                fan_in = shape[0] * shape[1]  # [H, Dh, d]
+            elif path[-2] == "out" or path[-2] == "moe":
+                fan_in = math.prod(shape[:-1])  # [H, Dh, d], [E, d, f]
             else:
                 fan_in = shape[0]
             arr = rng.standard_normal(shape, dtype=np.float32)
@@ -135,8 +148,9 @@ def quantize_decode_params(params: Mapping) -> dict:
     to 2-D ``[k, n]`` (``qkv``/``q``/``kv`` ``[d, ...]`` to ``[d, prod]``,
     ``out`` ``[H, Dh, d]`` to ``[H*Dh, d]``) and quantized per output
     channel (``quantize_int8``), its bias flattened to f32; embeddings,
-    the position table and norms pass through. numpy arrays out. An MoE
-    tree raises: MoE is not ported (ROADMAP.md A9b)."""
+    the position table and norms pass through, and so do the MoE leaves
+    (``moe/{router, w_in, w_out}``: an ``int8_decode`` model runs its
+    expert MLPs in its dtype, as JAX's does). numpy arrays out."""
 
     def quant(name: str, sub: Mapping) -> dict:
         kern = _as_tensor(sub["kernel"]).detach().float().cpu()
@@ -153,10 +167,8 @@ def quantize_decode_params(params: Mapping) -> dict:
         out = {}
         for name, sub in tree.items():
             if name == "moe":
-                raise NotImplementedError(
-                    "quantize_decode_params: MoE is not ported yet: see "
-                    "ROADMAP.md A9b (MoE, LAMB, Adafactor)")
-            if (name in _INT8_TARGETS and isinstance(sub, Mapping)
+                out[name] = dict(sub)
+            elif (name in _INT8_TARGETS and isinstance(sub, Mapping)
                     and "kernel" in sub):
                 out[name] = quant(name, sub)
             elif isinstance(sub, Mapping):

@@ -20,8 +20,10 @@ Decode mode takes JAX's two int8 options: ``int8_decode`` (every
 projection and the head as ``Int8Dense``, int8 weights with per-channel
 scales, from ``models/convert.py::quantize_decode_params``) and
 ``kv_int8`` (K/V stored as int8 with one f32 scale per token and head,
-``_kv8_quant``). MoE and meshes are later slices (see
-``TransformerConfig``).
+``_kv8_quant``). Every ``moe_every_n``-th block routes its MLP through
+``models/moe.py``'s experts, in both modes; its weights stay unquantized
+under ``int8_decode``. Meshes are a later slice (``mesh`` raises, naming
+ROADMAP.md A8).
 
 The cache is an explicit dict of tensors, updated IN PLACE where the
 JAX model rebuilt its ``cache`` collection:
@@ -114,30 +116,36 @@ class TransformerConfig:
     # weight-only projections and head (a quantize_decode_params tree).
     kv_int8: bool = False
     int8_decode: bool = False
-    # Not ported yet; each names the ROADMAP.md item that brings it.
+    # Mixture-of-Experts: block i (from 0) swaps its dense MLP for a
+    # routed expert MLP (models/moe.py) when (i + 1) % moe_every_n == 0.
+    # Train with make_lm_train_step(aux_loss_weight=...) so the
+    # load-balancing loss counts.
     moe_every_n: int | None = None
+    moe_experts: int = 8
+    moe_capacity_factor: float = 1.25
+    moe_top_k: int = 1  # 1 = Switch, 2 = GShard top-2
+    # Not ported yet: meshes, ROADMAP.md A8.
     mesh: Any = None
 
-    # The fields that fix the params tree's shapes.
+    # The fields that fix the params tree's shapes; the MoE ones only when
+    # MoE is on.
     SHAPE_FIELDS = ("vocab_size", "d_model", "n_heads", "n_kv_heads",
                     "n_layers", "d_ff", "max_seq_len")
+    MOE_SHAPE_FIELDS = ("moe_every_n", "moe_experts")
 
     def shape_fields(self) -> dict:
         """What fixes the params tree's shapes: a checkpoint manifest's
-        record of the model."""
-        return {f: getattr(self, f) for f in self.SHAPE_FIELDS}
+        record of the model. A dense model's record has no MoE field, so
+        it reads as it did before MoE was ported."""
+        fields = self.SHAPE_FIELDS + (self.MOE_SHAPE_FIELDS
+                                      if self.moe_every_n else ())
+        return {f: getattr(self, f) for f in fields}
 
     def __post_init__(self):
-        later = {
-            "moe_every_n": "A9b (MoE, LAMB, Adafactor)",
-            "mesh": "A8 (multi-device)",
-        }
-        for name, item in later.items():
-            if getattr(self, name):
-                raise NotImplementedError(
-                    f"TransformerConfig.{name} is not ported yet: see "
-                    f"ROADMAP.md {item}"
-                )
+        if self.mesh:
+            raise NotImplementedError(
+                "TransformerConfig.mesh is not ported yet: see ROADMAP.md "
+                "A8 (multi-device)")
         if self.n_kv_heads is not None and (
             self.n_kv_heads <= 0 or self.n_heads % self.n_kv_heads
         ):
@@ -170,6 +178,10 @@ class TransformerConfig:
                 "consumes the block table)"
             )
 
+    def uses_moe(self, layer: int) -> bool:
+        """Whether block ``layer`` (from 0) takes the MoE MLP."""
+        return bool(self.moe_every_n) and (layer + 1) % self.moe_every_n == 0
+
     @property
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
@@ -181,11 +193,11 @@ class TransformerConfig:
 
 class _Store:
     """Where a module keeps its weights: f32 and trainable (training), or
-    in the compute dtype with no gradient (decode)."""
+    in the compute ``dtype`` with no gradient (``decode``)."""
 
-    def __init__(self, cfg: TransformerConfig, device):
-        self.dtype = cfg.dtype if cfg.decode else torch.float32
-        self.trainable = not cfg.decode
+    def __init__(self, dtype: torch.dtype, decode: bool, device):
+        self.dtype = dtype if decode else torch.float32
+        self.trainable = not decode
         self.device = device
 
     def param(self, shape, dtype=None) -> nn.Parameter:
@@ -458,6 +470,45 @@ def _scale_cols(scale: torch.Tensor) -> torch.Tensor:
     return scale.transpose(1, 2)[:, :, None, None, :]
 
 
+_SQRT_2_OVER_PI = math.sqrt(2 / math.pi)
+_GELU_A = 0.044715
+
+
+class _RoundedGelu(torch.autograd.Function):
+    """The tanh gelu with a rounding after every operation, in the input's
+    dtype (``gelu``). The forward keeps only ``x``; the backward is
+    ``F.gelu``'s own (one pass: the derivative times the incoming gradient
+    in f32, rounded to ``x``'s dtype once)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        # The constants rounded to x's dtype, as Python numbers: a product
+        # with one is computed in f32 and rounded, as JAX's with the
+        # rounded constant, and no tensor goes to the device.
+        c, a = (torch.tensor(v, dtype=x.dtype).item()
+                for v in (_SQRT_2_OVER_PI, _GELU_A))
+        inner = c * (x + a * (x * (x * x)))
+        return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.ops.aten.gelu_backward(g, x, approximate="tanh")
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.gelu``, the tanh form ``x * 0.5 * (1 + tanh(sqrt(2/pi) *
+    (x + 0.044715 x^3)))``, rounded where JAX rounds it. In f32 one
+    ``F.gelu``. In a narrower dtype JAX rounds after every operation of
+    the formula, its constants rounded to that dtype and ``x^3`` as ``x *
+    (x * x)`` (``integer_pow``'s square-and-multiply); so does this, where
+    ``F.gelu`` would compute in f32 and round once."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="tanh")
+    return _RoundedGelu.apply(x)
+
+
 class MLP(nn.Module):
     def __init__(self, cfg: TransformerConfig, store: _Store):
         super().__init__()
@@ -465,22 +516,40 @@ class MLP(nn.Module):
         self.out_proj = _dense(cfg, store, (cfg.d_ff,), (cfg.d_model,))
 
     def forward(self, x):
-        # flax nn.gelu is the tanh form.
-        return self.out_proj(F.gelu(self.in_proj(x), approximate="tanh"))
+        return self.out_proj(gelu(self.in_proj(x)))
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: TransformerConfig, store: _Store):
+    """Pre-norm attention, then the dense MLP or (``use_moe``) the routed
+    expert MLP, each with its residual. The MoE MLP is ``moe`` (flax's
+    ``block_i/moe``) and keeps its weights unquantized in an
+    ``int8_decode`` model, as JAX's does."""
+
+    def __init__(self, cfg: TransformerConfig, store: _Store,
+                 use_moe: bool = False):
         super().__init__()
         self.norm_attn = RMSNorm(cfg.d_model, cfg.dtype, store)
         self.attn = Attention(cfg, store)
         self.norm_mlp = RMSNorm(cfg.d_model, cfg.dtype, store)
-        self.mlp = MLP(cfg, store)
+        self.mlp = self.moe = None
+        if use_moe:
+            from tf_operator_tpu_torch.models.moe import MoeConfig, MoeMlp
+
+            self.moe = MoeMlp(MoeConfig(
+                n_experts=cfg.moe_experts, d_model=cfg.d_model,
+                d_ff=cfg.d_ff, capacity_factor=cfg.moe_capacity_factor,
+                router_top_k=cfg.moe_top_k, dtype=cfg.dtype), store)
+        else:
+            self.mlp = MLP(cfg, store)
 
     def forward(self, x, layer: dict | None = None, cache: dict | None = None,
                 live=None):
+        """-> (x, the MoE aux loss, or None for a dense block)."""
         x = x + self.attn(self.norm_attn(x), layer, cache, live)
-        return x + self.mlp(self.norm_mlp(x))
+        if self.moe is None:
+            return x + self.mlp(self.norm_mlp(x)), None
+        y, aux = self.moe(self.norm_mlp(x))
+        return x + y, aux
 
 
 class Transformer(nn.Module):
@@ -495,12 +564,13 @@ class Transformer(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device)
-        store = _Store(cfg, self.device)
+        store = _Store(cfg.dtype, cfg.decode, self.device)
         dt = cfg.dtype
         self.embed = Embed(cfg.vocab_size, cfg.d_model, dt, store)
         self.pos = Embed(cfg.max_seq_len, cfg.d_model, dt, store)
         self.blocks = nn.ModuleList(
-            Block(cfg, store) for _ in range(cfg.n_layers))
+            Block(cfg, store, use_moe=cfg.uses_moe(i))
+            for i in range(cfg.n_layers))
         self.norm = RMSNorm(cfg.d_model, dt, store)
         # The head runs in f32 on an f32 cast of the hidden state; the
         # int8 head rounds it to bf16, as every Int8Dense does.
@@ -554,12 +624,20 @@ class Transformer(nn.Module):
         }
 
     def forward(self, tokens: torch.Tensor, cache: dict | None = None,
-                return_hidden: bool = False) -> torch.Tensor:
+                return_hidden: bool = False, return_aux: bool = False):
+        """The logits (or with ``return_hidden`` the normed hidden state);
+        with ``return_aux`` (training mode) also the sum of the MoE
+        layers' aux losses, an f32 scalar (0 for a dense model), as JAX's
+        ``apply(..., mutable=["losses"])`` with ``aux_loss_from``."""
         if not self.cfg.decode:
             if cache is not None:
                 raise ValueError("a training-mode model takes no cache: "
                                  "build it with decode=True")
-            return self._train_forward(tokens, return_hidden)
+            out, aux = self._train_forward(tokens, return_hidden)
+            return (out, aux) if return_aux else out
+        if return_aux:
+            raise ValueError("return_aux is for a training-mode model: "
+                             "decode throws the aux loss away")
         if cache is None:
             raise ValueError("a decode-mode model needs a cache "
                              "(init_cache)")
@@ -581,7 +659,9 @@ class Transformer(nn.Module):
             positions = (idx + steps)[None, :].expand(b, t)
         x = self.embed(tokens) + self.pos(positions)
         for block, layer in zip(self.blocks, cache["layers"]):
-            x = block(x, layer, cache, live)
+            # An MoE block's aux loss is thrown away, as flax's sow is
+            # without mutable=["losses"].
+            x, _ = block(x, layer, cache, live)
         if isinstance(idx, torch.Tensor):
             idx.add_(t)
         else:
@@ -589,21 +669,28 @@ class Transformer(nn.Module):
         x = self.norm(x)
         return x if return_hidden else _head_logits(self, x)
 
-    def _train_forward(self, tokens: torch.Tensor,
-                       return_hidden: bool) -> torch.Tensor:
+    def _train_forward(self, tokens: torch.Tensor, return_hidden: bool):
+        """-> (logits or hidden, aux). Under ``remat`` each block is
+        checkpointed and returns its aux as an output, so the backward's
+        recomputation does not count it again."""
+        from tf_operator_tpu_torch.models.moe import aux_loss_from
+
         t = tokens.shape[1]
         if t > self.cfg.max_seq_len:
             raise ValueError(f"{t} tokens exceed max_seq_len "
                              f"{self.cfg.max_seq_len}")
         positions = torch.arange(t, device=tokens.device)[None, :]
         x = self.embed(tokens) + self.pos(positions)
+        auxes = []
         for block in self.blocks:
             if self.cfg.remat:
-                x = checkpoint(block, x, use_reentrant=False)
+                x, aux = checkpoint(block, x, use_reentrant=False)
             else:
-                x = block(x)
+                x, aux = block(x)
+            auxes.append(aux)
         x = self.norm(x)
-        return x if return_hidden else _head_logits(self, x)
+        aux = aux_loss_from(auxes, x.device)
+        return (x if return_hidden else _head_logits(self, x)), aux
 
 
 def set_cache_index(cache: dict, value) -> dict:

@@ -21,8 +21,11 @@ Each step holds
   dtype (the classifiers' conv kernels HWIO), the ``batch_stats`` the
   BatchNorm running statistics,
   the optimiser's trees its per-parameter state in the same layout
-  (AdamW's ``exp_avg``, ``exp_avg_sq`` and ``step``; SGD's and LARS's
-  ``momentum_buffer``), and ``step`` the ``TrainState``'s step;
+  (AdamW's and LAMB's ``exp_avg``, ``exp_avg_sq`` and ``step``; SGD's and
+  LARS's ``momentum_buffer``; Adafactor's ``v`` or factored ``v_row`` and
+  ``v_col``, which keep their own shapes, and ``step``), each under the
+  paths of the parameters that have it, and ``step`` the ``TrainState``'s
+  step;
 - ``manifest.json``: the format version, the step, and the fields that
   fix the tree's shapes (the model's ``shape_fields()``), so a restore
   into another model fails with a message that names them.
@@ -137,8 +140,10 @@ def _snapshot(state) -> dict:
 
 def _port_layout(p: torch.Tensor, saved: torch.Tensor, from_flax
                  ) -> torch.Tensor:
-    """A saved per-parameter tensor in ``p``'s layout and strides (a
-    classifier's conv kernel moment HWIO -> OIHW, ``channels_last``)."""
+    """A saved per-parameter tensor shaped like ``p`` in ``p``'s layout and
+    strides (a classifier's conv kernel moment HWIO -> OIHW,
+    ``channels_last``). The caller passes a tensor of another rank, such
+    as Adafactor's factored ``v_row``/``v_col``, through unchanged."""
     return torch.empty_like(p, dtype=saved.dtype, device="cpu").copy_(
         from_flax(saved))
 
@@ -343,9 +348,11 @@ class CheckpointManager:
             for p in group["params"]:
                 vals = {k: _tree_get(saved_opt[k], path_of[p])
                         for k in saved_opt}
-                if vals and all(v is not None for v in vals.values()):
+                vals = {k: v for k, v in vals.items() if v is not None}
+                if vals:
                     moments[index] = {
-                        k: _port_layout(p, v, from_flax) if v.dim() else v
+                        k: _port_layout(p, v, from_flax)
+                        if v.dim() == p.dim() else v
                         for k, v in vals.items()}
                 index += 1
         # load_state_dict casts each tensor to its param's dtype and

@@ -26,9 +26,14 @@ and training goes on; resume honours ``TPU_RESUME_STEP``.
 once (a resumed run does not fire it again). Before it exits the run
 prints the flash kernels' launches (``launches_line``).
 
+``--moe-every-n`` swaps every Nth block's MLP for a routed expert MLP
+(``--moe-experts``, ``--moe-top-k``: Switch at 1, GShard top-2 at 2), and
+the step adds the load-balancing loss at weight 0.01, as the example's.
+
 Flags of unported items exit with a usage error naming the ROADMAP
 item: ``--sp``, ``--tp``, ``--pp*``, ``--ep`` and ``--ring-impl`` (A8),
-``--moe-*`` (A9b), ``--data`` (the token-record input).
+``--data`` (the token-record input). The example's checks of ``--ep``
+against the MoE flags keep their meaning.
 """
 
 from __future__ import annotations
@@ -49,12 +54,6 @@ UNPORTED_FLAGS = (
      "A8 (multi-device)"),
     ("--ep", lambda a: a.ep > 1, "A8 (multi-device)"),
     ("--ring-impl", lambda a: a.ring_impl != "auto", "A8 (multi-device)"),
-    ("--moe-every-n", lambda a: a.moe_every_n is not None,
-     "A9b (MoE, LAMB, Adafactor)"),
-    ("--moe-experts", lambda a: a.moe_experts != 8,
-     "A9b (MoE, LAMB, Adafactor)"),
-    ("--moe-top-k", lambda a: a.moe_top_k != 2,
-     "A9b (MoE, LAMB, Adafactor)"),
     ("--data", lambda a: a.data is not None,
      "A12 (the token-record input)"),
 )
@@ -101,9 +100,11 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=("auto", "stream", "flash", "ulysses"),
                    help="waits for A8")
     p.add_argument("--moe-every-n", type=int, default=None,
-                   help="waits for A9b")
-    p.add_argument("--moe-experts", type=int, default=8, help="waits for A9b")
-    p.add_argument("--moe-top-k", type=int, default=2, help="waits for A9b")
+                   help="swap every Nth block's MLP for a routed expert "
+                        "MLP (models/moe.py); enables the MoE path")
+    p.add_argument("--moe-experts", type=int, default=8)
+    p.add_argument("--moe-top-k", type=int, default=2,
+                   help="1 = Switch, 2 = GShard top-2")
     p.add_argument("--ep", type=int, default=1, help="waits for A8")
     p.add_argument("--pp", type=int, default=1, help="waits for A8")
     p.add_argument("--pp-microbatches", type=int, default=2,
@@ -125,8 +126,14 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> int:
     p = build_parser()
     args = p.parse_args(argv)
-    refused = [f"{flag} waits for ROADMAP {item}"
-               for flag, is_set, item in UNPORTED_FLAGS if is_set(args)]
+    # The example's MoE checks keep their meaning beside --ep's refusal.
+    refused = []
+    if args.ep > 1 and not args.moe_every_n:
+        refused.append("--ep requires --moe-every-n")
+    if args.moe_every_n and args.moe_experts % args.ep:
+        refused.append("--moe-experts must be a multiple of --ep")
+    refused += [f"{flag} waits for ROADMAP {item}"
+                for flag, is_set, item in UNPORTED_FLAGS if is_set(args)]
     if refused:
         p.error("; ".join(refused))
     if args.fail_at_step is not None and not args.checkpoint_dir:
@@ -177,17 +184,24 @@ def main(argv: list[str] | None = None) -> int:
     else:
         chunk = args.seq // 2 if args.seq % 2 == 0 else args.seq
 
+    moe_kw = {}
+    if args.moe_every_n:
+        moe_kw = dict(moe_every_n=args.moe_every_n,
+                      moe_experts=args.moe_experts, moe_top_k=args.moe_top_k)
     cfg = TransformerConfig(
         vocab_size=args.vocab, d_model=args.d_model, n_heads=4,
         n_kv_heads=args.kv_heads, n_layers=args.layers,
         d_ff=args.d_model * 2, max_seq_len=args.seq, dtype=torch.float32,
-        remat=args.remat,
+        remat=args.remat, **moe_kw,
     )
     model = load_params(Transformer(cfg, device), init_params(cfg, 0))
     tx = adamw(args.lr)
     state = TrainState.create(model, tx)
+    # The load-balancing loss counts only on the MoE path.
     step = make_lm_train_step(model, tx, xent_chunk=chunk,
-                              grad_accum=args.grad_accum)
+                              grad_accum=args.grad_accum,
+                              aux_loss_weight=0.01 if args.moe_every_n
+                              else 0.0)
 
     ckpt = None
     start_step = 0

@@ -3,7 +3,8 @@
 Counterpart of ``tf_operator_tpu/train/steps.py`` for one device:
 ``make_lm_train_step`` builds ``step(state, batch) -> (state, metrics)``
 over a training-mode ``Transformer`` (f32 weights, ``cfg.dtype`` compute)
-and an ``adamw`` optimiser, whose learning rate may be ``warmup_cosine``.
+and an ``adamw``, ``lamb`` or ``adafactor`` optimiser, whose learning
+rate may be ``warmup_cosine``.
 ``make_classifier_train_step`` does the same for the image classifiers
 (``models/resnet.py``, ``models/mnist.py``) with ``sgd_momentum`` or
 ``lars``; a ResNet's BatchNorm running statistics (the ``TrainState``'s
@@ -17,10 +18,13 @@ forward runs the flash forward kernel and no backward kernel.
 ``make_classifier_eval_step`` and ``evaluate`` are the classifier's
 accuracy and loss the same way, BatchNorm on its running statistics.
 
+An MoE model's load-balancing loss enters the LM step through
+``aux_loss_weight``. ``lamb`` and ``adafactor`` are optax's chains written
+as torch optimisers, as ``lars`` is.
+
 Not ported yet: ``sharded_lm_xent``, ``fuse_steps`` (a CUDA graph of the
-step is its counterpart, A5's graph), ``lamb`` and ``adafactor`` (A9b),
-meshes (``mesh`` raises, naming A8) and MoE's auxiliary loss
-(``aux_loss_weight`` raises, naming A9b).
+step is its counterpart, A5's graph) and meshes (``mesh`` raises, naming
+A8).
 """
 
 from __future__ import annotations
@@ -272,6 +276,190 @@ def lars(lr: float | Schedule = 1.0, weight_decay: float = 1e-4,
     return Lars(lr, weight_decay, momentum)
 
 
+def _trust_ratio(p: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """optax ``scale_by_trust_ratio``'s factor at its defaults (trust
+    coefficient 1, min_norm 0, eps 0): ``|p| / |u|`` (Frobenius), or 1
+    where either norm is 0."""
+    p_norm = torch.linalg.vector_norm(p)
+    u_norm = torch.linalg.vector_norm(u)
+    return torch.where((p_norm == 0) | (u_norm == 0),
+                       torch.ones_like(p_norm), p_norm / u_norm)
+
+
+class LambOptimizer(torch.optim.Optimizer):
+    """optax ``lamb``'s chain as a torch optimiser, leaf by leaf, at the
+    step count ``n`` (from 1):
+
+    1. ``scale_by_adam(b1, b2, eps, eps_root=0)``: ``m = (1 - b1) g + b1
+       m``, ``v = (1 - b2) g^2 + b2 v``, ``u = m / (1 - b1^n) /
+       (sqrt(v / (1 - b2^n)) + eps)``;
+    2. ``add_decayed_weights(weight_decay, mask=_no_norm_or_bias)``: ``u
+       += weight_decay * p`` on leaves of two or more dims;
+    3. ``scale_by_trust_ratio()`` on every leaf (``_trust_ratio``);
+    4. ``p -= lr * u``.
+
+    The state is ``exp_avg`` (m), ``exp_avg_sq`` (v) and ``step`` (n, a
+    CPU tensor, as AdamW keeps it). b1, b2 and eps are optax's defaults,
+    which JAX's ``lamb`` keeps."""
+
+    B1, B2, EPS = 0.9, 0.999, 1e-6
+
+    def __init__(self, params, lr: float, weight_decay: float) -> None:
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        b1, b2 = self.B1, self.B2
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                state = self.state[p]
+                if not state:
+                    state["step"] = torch.tensor(0.0)
+                    state["exp_avg"] = torch.zeros_like(p)
+                    state["exp_avg_sq"] = torch.zeros_like(p)
+                state["step"] += 1
+                n = int(state["step"])
+                m = state["exp_avg"].mul_(b1).add_((1 - b1) * g)
+                v = state["exp_avg_sq"].mul_(b2).add_((1 - b2) * (g * g))
+                u = (m / (1 - b1 ** n)) / (
+                    torch.sqrt(v / (1 - b2 ** n)) + self.EPS)
+                if p.dim() >= 2:
+                    u = u + group["weight_decay"] * p
+                p.add_(u * _trust_ratio(p, u) * -group["lr"])
+
+
+@dataclass(frozen=True)
+class Lamb(_Optimiser):
+    """optax ``lamb`` as JAX's ``steps.lamb`` builds it: b1 0.9, b2 0.999,
+    eps 1e-6, weight decay masked by ``_no_norm_or_bias``
+    (``LambOptimizer``)."""
+
+    lr: float | Schedule
+    weight_decay: float = 0.01
+
+    def init(self, model: torch.nn.Module) -> LambOptimizer:
+        return LambOptimizer(model.parameters(), self.learning_rate(0),
+                             self.weight_decay)
+
+
+def lamb(lr: float | Schedule = 1e-3, weight_decay: float = 0.01) -> Lamb:
+    """LAMB, the Adam-based layerwise-adaptive optimiser for large-batch
+    transformer training; norm scales and biases skip the decay."""
+    return Lamb(lr, weight_decay)
+
+
+def _factored_dims(shape, min_dim_size_to_factor: int):
+    """optax's ``_factored_dims``: the (second largest, largest) axes of
+    ``shape`` by ``np.argsort``, or None below two dims or when the second
+    largest is shorter than ``min_dim_size_to_factor``."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+class AdafactorOptimizer(torch.optim.Optimizer):
+    """``optax.adafactor``'s chain at its defaults as a torch optimiser,
+    leaf by leaf, at the step count ``n`` (from 0 before the update):
+
+    1. ``scale_by_factored_rms``: ``beta = 1 - (n + 1)^-decay_rate``,
+       ``g2 = g^2 + eps``. A leaf with two axes >= ``min_dim_size_to_factor``
+       (``_factored_dims``: ``d1`` the second largest, ``d0`` the largest)
+       keeps ``v_row = beta v_row + (1 - beta) mean(g2, d0)`` and ``v_col =
+       beta v_col + (1 - beta) mean(g2, d1)`` and scales ``g`` by ``(v_row
+       / mean(v_row over d1))^-1/2`` and ``v_col^-1/2``; any other leaf
+       keeps the full ``v = beta v + (1 - beta) g2`` and scales by
+       ``v^-1/2``;
+    2. ``clip_by_block_rms(clipping_threshold)``: ``u /= max(1, rms(u) /
+       threshold)``;
+    3. ``u *= lr``;
+    4. ``scale_by_param_block_rms``: ``u *= max(rms(p), 1e-3)``;
+    5. ``p -= u``.
+
+    The state is ``v_row`` and ``v_col`` (not shaped like the parameter)
+    or ``v``, and ``step`` (n, a CPU tensor). The factored axes are those
+    of the parameter's own layout (the Transformer's is flax's). The
+    constants are ``optax.adafactor``'s defaults, which JAX's
+    ``adafactor`` keeps: factored on axes >= 128, decay rate 0.8, offset
+    0, clipping at 1.0, eps 1e-30, parameter scale floored at 1e-3; no
+    momentum and no weight decay."""
+
+    MIN_DIM_SIZE_TO_FACTOR, DECAY_RATE, CLIPPING_THRESHOLD = 128, 0.8, 1.0
+    EPS, MIN_SCALE = 1e-30, 1e-3
+
+    def __init__(self, params, lr: float) -> None:
+        super().__init__(params, dict(lr=lr))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                dims = _factored_dims(tuple(p.shape),
+                                      self.MIN_DIM_SIZE_TO_FACTOR)
+                state = self.state[p]
+                if not state:
+                    state["step"] = torch.tensor(0.0)
+                    if dims is None:
+                        state["v"] = torch.zeros_like(p)
+                    else:
+                        d1, d0 = dims
+                        state["v_row"] = p.new_zeros(p.select(d0, 0).shape)
+                        state["v_col"] = p.new_zeros(p.select(d1, 0).shape)
+                n = int(state["step"])
+                beta = 1.0 - float(np.float32(n + 1) ** np.float32(
+                    -self.DECAY_RATE))
+                g2 = g * g + self.EPS
+                if dims is None:
+                    v = state["v"].mul_(beta).add_((1.0 - beta) * g2)
+                    u = g * v ** -0.5
+                else:
+                    d1, d0 = dims
+                    v_row = state["v_row"].mul_(beta).add_(
+                        (1.0 - beta) * g2.mean(d0))
+                    v_col = state["v_col"].mul_(beta).add_(
+                        (1.0 - beta) * g2.mean(d1))
+                    rd1 = d1 - 1 if d1 > d0 else d1
+                    row_factor = (v_row / v_row.mean(rd1, keepdim=True)
+                                  ) ** -0.5
+                    u = (g * row_factor.unsqueeze(d0)
+                         * (v_col ** -0.5).unsqueeze(d1))
+                state["step"] += 1
+                u = u / torch.clamp_min(
+                    torch.sqrt(torch.mean(u * u)) / self.CLIPPING_THRESHOLD,
+                    1.0)
+                u = u * group["lr"]
+                rms = torch.sqrt(torch.mean(p * p))
+                u = u * torch.where(rms <= self.MIN_SCALE,
+                                    torch.full_like(rms, self.MIN_SCALE), rms)
+                p.sub_(u)
+
+
+@dataclass(frozen=True)
+class Adafactor(_Optimiser):
+    """``optax.adafactor(lr)`` as JAX's ``steps.adafactor`` builds it
+    (``AdafactorOptimizer``). Not torch's ``Adafactor``, whose relative
+    step, beta2 schedule and factored axes differ."""
+
+    lr: float | Schedule
+
+    def init(self, model: torch.nn.Module) -> AdafactorOptimizer:
+        return AdafactorOptimizer(model.parameters(), self.learning_rate(0))
+
+
+def adafactor(lr: float | Schedule = 1e-3) -> Adafactor:
+    """Adafactor: the second-moment state of a ``[d_in, d_out]`` kernel is
+    O(d_in + d_out), not AdamW's 2 x O(d_in * d_out)."""
+    return Adafactor(lr)
+
+
 def warmup_cosine(peak_lr: float, total_steps: int, *,
                   warmup_steps: int | None = None,
                   end_lr_fraction: float = 0.1) -> Schedule:
@@ -326,7 +514,7 @@ def _on(device, x) -> torch.Tensor:
     return x.to(device)
 
 
-def make_lm_train_step(model: Transformer, tx: AdamW, *,
+def make_lm_train_step(model: Transformer, tx: _Optimiser, *,
                        xent_chunk: int | None = None, xent_dot_dtype=None,
                        grad_accum: int = 1, aux_loss_weight: float = 0.0,
                        mesh: Any = None):
@@ -339,28 +527,36 @@ def make_lm_train_step(model: Transformer, tx: AdamW, *,
     (leading rows first) and averages their gradients into one update;
     the reported loss is the mean over microbatches.
 
+    ``aux_loss_weight`` adds that multiple of the MoE layers' summed
+    load-balancing loss to the loss (``xent + w * aux``, the reported
+    ``loss``) and reports the aux as ``aux_loss``, its mean over
+    microbatches under ``grad_accum``.
+
     ``batch`` is ``{"tokens", "targets"}``, ``[B, S]`` integer tensors or
     numpy arrays; they are moved to the model's device."""
     if mesh is not None:
         raise NotImplementedError(
             "make_lm_train_step(mesh=...) is not ported yet: see ROADMAP.md "
             "A8 (multi-device)")
-    if aux_loss_weight:
-        raise NotImplementedError(
-            "make_lm_train_step(aux_loss_weight=...) is not ported yet: see "
-            "ROADMAP.md A9b (MoE, LAMB, Adafactor)")
     if grad_accum < 1:
         raise ValueError(f"grad_accum={grad_accum} must be >= 1")
     if model.cfg.decode:
         raise ValueError("train a model built with decode=False")
 
     def loss_fn(tokens, targets):
+        """-> (loss, aux or None)."""
+        out, aux = model(tokens, return_hidden=xent_chunk is not None,
+                         return_aux=True)
         if xent_chunk is None:
-            return cross_entropy(model(tokens), targets)
-        hidden = model(tokens, return_hidden=True)
-        head = model.lm_head
-        return chunked_lm_xent(hidden, head.kernel, head.bias, targets,
-                               chunk=xent_chunk, dot_dtype=xent_dot_dtype)
+            xent = cross_entropy(out, targets)
+        else:
+            head = model.lm_head
+            xent = chunked_lm_xent(out, head.kernel, head.bias, targets,
+                                   chunk=xent_chunk,
+                                   dot_dtype=xent_dot_dtype)
+        if not aux_loss_weight:
+            return xent, None
+        return xent + aux_loss_weight * aux, aux
 
     def step(state: TrainState, batch) -> tuple[TrainState, dict]:
         if state.model is not model:
@@ -375,17 +571,26 @@ def make_lm_train_step(model: Transformer, tx: AdamW, *,
         opt.zero_grad(set_to_none=True)
         mb = b // grad_accum
         loss = torch.zeros((), dtype=torch.float32, device=model.device)
+        aux_sum = torch.zeros_like(loss)
         for i in range(grad_accum):
             rows = slice(i * mb, (i + 1) * mb)
-            micro = loss_fn(tokens[rows], targets[rows]) / grad_accum
-            micro.backward()
+            micro, aux = loss_fn(tokens[rows], targets[rows])
+            (micro / grad_accum).backward()
             loss += micro.detach()
+            if aux is not None:
+                aux_sum += aux.detach()
+        if grad_accum > 1:  # JAX's scan: the sums times 1 / grad_accum
+            loss *= 1.0 / grad_accum
+            aux_sum *= 1.0 / grad_accum
         lr = tx.learning_rate(state.step)
         for group in opt.param_groups:
             group["lr"] = lr
         opt.step()
         state.step += 1
-        return state, {"loss": loss}
+        metrics = {"loss": loss}
+        if aux_loss_weight:
+            metrics["aux_loss"] = aux_sum
+        return state, metrics
 
     return step
 
