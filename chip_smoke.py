@@ -300,7 +300,31 @@ Phases, in order; any failure ends the run with a non-zero exit:
     route's, kv8 B4 and B5 launched; (d) ``python -m
     tf_operator_tpu_torch.train.dist_lm --moe-every-n 2 --moe-experts 4``
     to OK with flash launches; the phase's seconds;
-23. the ``kernels`` JSON line (each kernel with its design; B5 as two
+23. the record input (``native/``: the C++ record pipeline and augment
+    stage built with g++, their ctypes bindings; ``train/data.py``'s
+    readers; ``dist_lm --data``; no hand kernel in (a) and (b), B1-B3 in
+    (c)): (a) the host half on the card's host: both sources built and
+    ``os.cpu_count()`` printed; the native and Python ``RecordPipeline``
+    engines bitwise over two looping epochs of two shards (the native
+    engine asserted by name); ``MMapRecordPipeline`` + ``augment_gather``
+    bitwise ``record_dataset(engine="native", crop_hw)``; the host
+    loader's images/s at ``bench.py``'s shapes (256^2 records -> 224^2
+    crops, B = 256, 8 threads), mmap + ``augment_gather`` and the pread
+    ring + ``augment_records``; (b) ``bench.py``'s streamed ResNet-50
+    cell: phase 21 (b)'s cell and records, conv7, fed by ``fill_stacked``
+    into pinned buffers of 20 steps, copied on a side stream, double-
+    buffered, normalised on the card: the first batch on the card bitwise
+    the CPU's Python ``augment_gather`` (uint8 and normalised), a warm
+    call and 2 timed calls (images/s, MFU, beside phase 21 (b)'s resident
+    conv7 images/s), the copy's time, one profiled streamed step, a finite
+    loss; (c) the model's embedding backward over a step's ids three
+    times, bitwise (``F.embedding``'s printed beside it: ROADMAP C2), then
+    ``python -m tf_operator_tpu_torch.train.dist_lm --data``
+    over 4096 sequences of the +1 chain at ``--seq 1024``, d_model 512, 2
+    layers, batch 8, 30 steps: run 1 exits 138 at step 20, run 2 resumes
+    to OK, a twin runs uninterrupted, the final checkpoints bitwise, flash
+    launches in each run; the phase's seconds;
+24. the ``kernels`` JSON line (each kernel with its design; B5 as two
     entries, the weight stream and the wgmma tile, each with its own
     launches; ``paths`` gives each kernel's launches on every path of
     this run that drives it, and ``launches`` is their sum; the paged
@@ -636,6 +660,38 @@ MOE_BENCH = dict(moe_every_n=2, moe_experts=8, moe_top_k=2,
                  moe_capacity_factor=1.25)
 # (d) the entry point with the MoE flags, its other flags the defaults.
 MOE_ENTRY_ARGS = ["--moe-every-n", "2", "--moe-experts", "4"]
+# Phase 23, the record input (native/, train/data.py's readers). (a) The
+# host half: both RecordPipeline engines batch for batch over two looping
+# epochs of each of two shards of a small file (CHECK_RECORDS records of
+# CHECK_RECORD_BYTES, batches of 4, so each epoch ends short), bitwise;
+# MMapRecordPipeline + augment_gather against record_dataset(engine=
+# "native", crop_hw) over LOADER_CHECK_BATCHES batches of phase 21's
+# records, bitwise; then the host loader's images/s at bench.py's shapes
+# (256^2 records -> 224^2 crops, B = 256, threads 8), perf_probe.py's two
+# paths: mmap + augment_gather and the pread ring (prefetch 8, 4 reader
+# threads) + augment_records, LOADER_BATCHES batches each after a warm one.
+CHECK_RECORDS, CHECK_RECORD_BYTES = 23, 64
+LOADER_CHECK_BATCHES, LOADER_BATCHES = 2, 20
+# (b) bench.py's streamed ResNet-50 cell (bench_resnet): phase 21 (b)'s
+# cell and records, the conv7 stem (bench.py's default), fed by its
+# next_stacked (train/data.py fill_stacked: MMapRecordPipeline seed
+# STREAM_SEED, augment_gather seed STREAM_AUGMENT_SEED, STREAM_THREADS
+# threads) into pinned [RESNET_STEPS, B, 224, 224, 3] uint8 buffers, copied
+# to the card on a side stream and double-buffered; uint8 -> bf16, -127.5,
+# /127.5 on the card. One warm call, then RESNET_CALLS timed calls.
+STREAM_SEED, STREAM_AUGMENT_SEED, STREAM_THREADS = 0, 1, 8
+# (c) the entry point with --data over DATA_ROWS sequences of the +1 chain
+# mod 256 (seeded starts) at --seq 1024, 16.8 MB: run 1 stops at
+# DATA_FAIL_AT (exit 138), run 2 resumes to OK, a twin runs uninterrupted;
+# the final checkpoints bitwise (the stream fast-forwards to the step).
+DATA_ROWS = 4096
+DATA_ARGS = ["--d-model", "512", "--layers", "2", "--vocab", "256",
+             "--seq", "1024", "--batch", "8", "--steps", "30"]
+DATA_FAIL_AT = 20
+# The bitwise resume rests on a deterministic embedding backward (ROADMAP
+# C2): (c) first runs the model's Embed backward over a step's ids this
+# many times and wants one result.
+EMBED_REPEATS = 3
 
 
 def entry_flash_shape() -> tuple[int, int, int, int]:
@@ -4614,8 +4670,9 @@ def mnist_entry_phase(card: str) -> None:
           flush=True)
 
 
-def classifier_phase(card: str) -> None:
-    """Phase 21: the image classifiers, (a) to (d)."""
+def classifier_phase(card: str) -> float:
+    """Phase 21: the image classifiers, (a) to (d). Returns (b)'s conv7
+    images/s, the resident reading phase 23 (b) stands beside."""
     from tf_operator_tpu_torch.train.device_input import load_records_numpy
 
     t0 = time.perf_counter()
@@ -4635,6 +4692,7 @@ def classifier_phase(card: str) -> None:
     mnist_entry_phase(card)
     print(f"phase 21 (image classifiers): {time.perf_counter() - t0:.1f} s",
           flush=True)
+    return bench["conv7"]["images_s"]
 
 
 def moe_routes(model, tokens) -> list:
@@ -4949,6 +5007,465 @@ def moe_phase(pa, base, prompts, card: str) -> dict:
     return out
 
 
+def host_input_phase(path: str, rec_bytes: int, record: int) -> None:
+    """Phase 23 (a): build the two C++ sources, hold the engines and the
+    two image paths bitwise, and time the host loader at bench.py's
+    shapes."""
+    from tf_operator_tpu_torch.native import load_library
+    from tf_operator_tpu_torch.native.augment import (
+        augment_gather,
+        augment_records,
+    )
+    from tf_operator_tpu_torch.native.pipeline import (
+        MMapRecordPipeline,
+        RecordPipeline,
+        write_records,
+    )
+    from tf_operator_tpu_torch.train.data import record_dataset
+
+    t0 = time.perf_counter()
+    for source in ("record_pipeline.cc", "augment.cc"):
+        load_library(source)
+    print(f"record input (23a): g++ build of record_pipeline.cc and "
+          f"augment.cc {time.perf_counter() - t0:.2f} s; host "
+          f"os.cpu_count() {os.cpu_count()}", flush=True)
+
+    names = {"native": "NativeEngine", "python": "PythonEngine"}
+    per_shard = CHECK_RECORDS // 2
+    count = 2 * -(-per_shard // 4)  # two epochs of batches of 4
+    with tempfile.TemporaryDirectory() as tmp:
+        small = os.path.join(tmp, "small.bin")
+        rows = np.random.default_rng(2).integers(
+            0, 256, (CHECK_RECORDS, CHECK_RECORD_BYTES), dtype=np.uint8)
+        write_records(small, rows)
+        for shard in range(2):
+            got = {}
+            for engine in names:
+                with RecordPipeline(small, CHECK_RECORD_BYTES, 4, seed=7,
+                                    loop=True, engine=engine,
+                                    shard_id=shard, num_shards=2) as pipe:
+                    if pipe.engine_name != names[engine]:
+                        raise AssertionError(f"{engine}: {pipe.engine_name}")
+                    it = iter(pipe)
+                    got[engine] = [next(it) for _ in range(count)]
+            for i, (a, b) in enumerate(zip(got["native"], got["python"])):
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"shard {shard}/2 batch {i}: the "
+                                         f"native and Python engines differ")
+    print(f"record input (23a): native == Python engine bitwise, {count} "
+          f"batches (two looping epochs, each ending on "
+          f"{per_shard % 4} rows) of each of 2 shards of {CHECK_RECORDS} "
+          f"records", flush=True)
+
+    image_shape, crop = (record, record, 3), (RESNET_HW, RESNET_HW)
+    stream = record_dataset(path, image_shape, np.uint8, RESNET_B,
+                            label_dtype=np.uint8, seed=STREAM_SEED,
+                            engine="native", crop_hw=crop,
+                            threads=STREAM_THREADS)
+    pipe = MMapRecordPipeline(path, rec_bytes, RESNET_B, seed=STREAM_SEED,
+                              loop=True)
+    index0 = 0
+    try:
+        for i in range(LOADER_CHECK_BATCHES):
+            want = next(stream)
+            idx = pipe.next_indices()
+            got = augment_gather(pipe.data, idx, rec_bytes, image_shape,
+                                 crop, seed=STREAM_SEED, index0=index0,
+                                 threads=STREAM_THREADS, engine="native")
+            index0 += len(idx)
+            if not (np.array_equal(got, want["image"]) and np.array_equal(
+                    pipe.labels(idx).astype(np.uint8), want["label"])):
+                raise AssertionError(f"batch {i}: mmap + augment_gather "
+                                     "differs from record_dataset")
+    finally:
+        stream.close()
+        pipe.close()
+    print(f"record input (23a): mmap + augment_gather == record_dataset("
+          f"engine='native', crop_hw={crop}) bitwise over "
+          f"{LOADER_CHECK_BATCHES} batches of {RESNET_B}", flush=True)
+
+    def batch_of(next_batch, take):
+        got = next_batch()
+        while len(got) < RESNET_B:  # an epoch's short last batch
+            got = take(got, next_batch())
+        return got
+
+    out = np.empty((RESNET_B, RESNET_HW, RESNET_HW, 3), np.uint8)
+    pipe = MMapRecordPipeline(path, rec_bytes, RESNET_B, seed=STREAM_SEED,
+                              loop=True)
+    pipe.next_indices()  # warm
+    t0 = time.perf_counter()
+    for i in range(LOADER_BATCHES):
+        idx = batch_of(pipe.next_indices, lambda a, b: np.concatenate(
+            [a, b])[:RESNET_B])
+        augment_gather(pipe.data, idx, rec_bytes, image_shape, crop,
+                       seed=STREAM_AUGMENT_SEED, index0=i * RESNET_B,
+                       threads=STREAM_THREADS, engine="native", out=out)
+        pipe.labels(idx)
+    mmap_s = LOADER_BATCHES * RESNET_B / (time.perf_counter() - t0)
+    pipe.close()
+    with RecordPipeline(path, rec_bytes, RESNET_B, prefetch=8, threads=4,
+                        seed=STREAM_SEED, loop=True,
+                        engine="native") as ring:
+        if ring.engine_name != "NativeEngine":
+            raise AssertionError(f"pread ring: {ring.engine_name}")
+        it = iter(ring)
+        next(it)  # warm
+        t0 = time.perf_counter()
+        for i in range(LOADER_BATCHES):
+            raw = batch_of(lambda: next(it), lambda a, b: np.concatenate(
+                [a, b])[:RESNET_B])
+            augment_records(raw, image_shape, crop,
+                            seed=STREAM_AUGMENT_SEED, index0=i * RESNET_B,
+                            threads=STREAM_THREADS, engine="native")
+        pread_s = LOADER_BATCHES * RESNET_B / (time.perf_counter() - t0)
+    print(f"record input (23a): host loader images/s, {LOADER_BATCHES} "
+          f"batches of {RESNET_B} {record}^2 records -> {RESNET_HW}^2 crops, "
+          f"threads {STREAM_THREADS}: mmap + augment_gather {mmap_s:.2f}, "
+          f"pread ring + augment_records {pread_s:.2f}; host os.cpu_count() "
+          f"{os.cpu_count()}", flush=True)
+
+
+def streamed_resnet_phase(card: str, path: str, rec_bytes: int,
+                          record: int, resident: float) -> None:
+    """Phase 23 (b): bf16 ResNet-50 (conv7) fed from the record file as
+    bench.py's bench_resnet feeds it. Each call trains RESNET_STEPS steps
+    from one card buffer while a worker thread fills the other pinned host
+    buffer (fill_stacked: the C++ crop releases the GIL; the host thread
+    meanwhile enqueues the eager steps, where JAX's one fused call returns
+    at once) and a side stream copies it to the other card buffer once
+    the steps that read it are done; the steps wait on the copy's event.
+    Images/s and MFU of RESNET_CALLS timed calls after a warm one, beside
+    phase 21 (b)'s resident reading; the copy's time; one profiled
+    streamed step; the first batch on the card against the CPU's Python
+    engine, bitwise."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tf_operator_tpu_torch.models.convert import (
+        init_variables,
+        load_variables,
+    )
+    from tf_operator_tpu_torch.models.resnet import resnet50
+    from tf_operator_tpu_torch.native.augment import augment_gather
+    from tf_operator_tpu_torch.native.pipeline import MMapRecordPipeline
+    from tf_operator_tpu_torch.train.data import fill_stacked
+    from tf_operator_tpu_torch.train.steps import (
+        TrainState,
+        make_classifier_train_step,
+        sgd_momentum,
+    )
+
+    image_shape = (record, record, 3)
+    shape = (RESNET_STEPS, RESNET_B, RESNET_HW, RESNET_HW, 3)
+    host = [torch.empty(shape, dtype=torch.uint8, pin_memory=True)
+            for _ in range(2)]
+    host_labels = [torch.empty(shape[:2], dtype=torch.int32,
+                               pin_memory=True) for _ in range(2)]
+    card_images = [torch.empty(shape, dtype=torch.uint8, device="cuda")
+                   for _ in range(2)]
+    card_labels = [torch.empty(shape[:2], dtype=torch.int32, device="cuda")
+                   for _ in range(2)]
+    side = torch.cuda.Stream()
+    copied = [torch.cuda.Event() for _ in range(2)]
+    used = [torch.cuda.Event() for _ in range(2)]
+    pipe = MMapRecordPipeline(path, rec_bytes, RESNET_B, seed=STREAM_SEED,
+                              loop=True)
+    counter = [0]
+
+    def fill(k):
+        counter[0] = fill_stacked(
+            pipe, image_shape, host[k].numpy(), host_labels[k].numpy(),
+            seed=STREAM_AUGMENT_SEED, index0=counter[0],
+            threads=STREAM_THREADS)
+
+    def put(k):
+        # Host buffer k to card buffer k on the side stream, once the
+        # steps that read card buffer k have run.
+        side.wait_event(used[k])
+        with torch.cuda.stream(side):
+            card_images[k].copy_(host[k], non_blocking=True)
+            card_labels[k].copy_(host_labels[k], non_blocking=True)
+        copied[k].record(side)
+
+    def normalise(images):
+        return (images.to(torch.bfloat16) - 127.5) / 127.5
+
+    model = resnet50(stem="conv7")
+    load_variables(model, init_variables(model, 0))
+    tx = sgd_momentum(0.1)
+    state = TrainState.create(model, tx)
+    step = make_classifier_train_step(model, tx)
+    pool = ThreadPoolExecutor(max_workers=1)
+
+    def call(state, k):
+        nxt = 1 - k
+        copied[nxt].synchronize()  # host buffer nxt's last copy is done
+        filling = pool.submit(fill, nxt)
+        torch.cuda.current_stream().wait_event(copied[k])
+        metrics = None
+        for s in range(RESNET_STEPS):
+            state, metrics = step(state, {
+                "image": normalise(card_images[k][s]),
+                "label": card_labels[k][s]})
+        used[k].record()
+        filling.result()
+        put(nxt)
+        return state, metrics
+
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        fill(0)
+        put(0)
+        torch.cuda.synchronize()
+        # The first batch on the card against the CPU's Python engine over
+        # the same indices (a fresh pipeline of the same seed).
+        ref = MMapRecordPipeline(path, rec_bytes, RESNET_B,
+                                 seed=STREAM_SEED, loop=True)
+        idx = ref.next_indices()
+        want = augment_gather(ref.data, idx, rec_bytes, image_shape,
+                              (RESNET_HW, RESNET_HW),
+                              seed=STREAM_AUGMENT_SEED, index0=0,
+                              engine="python")
+        want_labels = ref.labels(idx) % 1000
+        ref.close()
+        first = card_images[0][0]
+        same_bytes = torch.equal(first.cpu(), torch.from_numpy(want))
+        same_norm = torch.equal(normalise(first).cpu(),
+                                normalise(torch.from_numpy(want)))
+        same_labels = torch.equal(card_labels[0][0].cpu(),
+                                  torch.from_numpy(want_labels))
+        print(f"streamed resnet50 (23b): the first batch on the card against "
+              f"the CPU's Python augment_gather of the same indices: uint8 "
+              f"{'bitwise' if same_bytes else 'DIFFERENT'}, normalised bf16 "
+              f"{'bitwise' if same_norm else 'DIFFERENT'}, labels "
+              f"{'equal' if same_labels else 'DIFFERENT'}", flush=True)
+        if not (same_bytes and same_norm and same_labels):
+            raise AssertionError("the streamed first batch is not the CPU's")
+
+        t0 = time.perf_counter()
+        state, metrics = call(state, 0)
+        warm_loss = float(metrics["loss"])
+        warm_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(RESNET_CALLS):
+            state, metrics = call(state, (i + 1) % 2)
+        loss = float(metrics["loss"])
+        dt = time.perf_counter() - t0
+        if not (math.isfinite(loss) and math.isfinite(warm_loss)):
+            raise AssertionError(f"streamed resnet50: loss {loss}")
+        images_n = RESNET_B * RESNET_STEPS * RESNET_CALLS
+        img_s = images_n / dt
+        mfu = (3 * RESNET_FWD_FLOPS * images_n / dt
+               / PEAK_FLOPS[torch.bfloat16])
+        torch.cuda.synchronize()
+
+        def copy_ms(src, dst):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            with torch.cuda.stream(side):
+                start.record(side)
+                dst.copy_(src, non_blocking=True)
+                end.record(side)
+            end.synchronize()
+            return start.elapsed_time(end)
+
+        call_ms = copy_ms(host[0], card_images[0])
+        step_ms = copy_ms(host[0][0], card_images[0][0])
+        print(f"streamed resnet50 (23b): pinned host -> card copy, on an idle "
+              f"card: a call's {host[0].numel()} bytes {call_ms:.4f} ms "
+              f"({host[0].numel() / call_ms / 1e6:.2f} GB/s), a step's "
+              f"{host[0][0].numel()} bytes {step_ms:.4f} ms "
+              f"({host[0][0].numel() / step_ms / 1e6:.2f} GB/s)", flush=True)
+
+        holder = {"state": state}
+
+        def one_step():
+            # One streamed step: a step's images copied on the side stream,
+            # the step waiting on the copy.
+            with torch.cuda.stream(side):
+                card_images[0][0].copy_(host[0][0], non_blocking=True)
+            copied[0].record(side)
+            torch.cuda.current_stream().wait_event(copied[0])
+            holder["state"], _ = step(holder["state"], {
+                "image": normalise(card_images[0][0]),
+                "label": card_labels[0][0]})
+
+        one_step()
+        profile_steps(one_step, 1, f"streamed resnet50 conv7 bf16 step "
+                                   f"(B={RESNET_B}, its batch copied from "
+                                   f"pinned memory)")
+        print(f"streamed resnet50 bf16 (23b) stem conv7: B={RESNET_B} "
+              f"{RESNET_HW}^2 crops streamed from {RESNET_RECORDS} "
+              f"{record}^2 records (mmap + augment_gather, threads "
+              f"{STREAM_THREADS}, pinned double buffer, side-stream copy), "
+              f"{RESNET_CALLS} calls x {RESNET_STEPS} steps in {dt:.4f} s: "
+              f"images/s {img_s:.2f}, step_s "
+              f"{dt / RESNET_STEPS / RESNET_CALLS:.6f}, MFU {mfu:.6f} "
+              f"(bench.py's count, 3 x 4.09e9 flops an image, at 989 "
+              f"TFLOP/s); phase 21 (b)'s resident conv7 in this run: images/s "
+              f"{resident:.2f} (streamed/resident {img_s / resident:.4f}); "
+              f"warm call {warm_s:.2f} s (loss {warm_loss:.4f}), final loss "
+              f"{loss:.4f}; host os.cpu_count() {os.cpu_count()}; on {card}",
+              flush=True)
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+        pool.shutdown(wait=True)
+        pipe.close()
+
+
+def embedding_backward_check(ids: np.ndarray, d_model: int,
+                             vocab: int) -> None:
+    """Phase 23 (c), first: the model's ``Embed`` backward over a step's
+    ids (the corpus's first rows) EMBED_REPEATS times from one gradient,
+    bitwise each time; ``F.embedding``'s CUDA backward over the same ids
+    beside it, the control ROADMAP C2 names (printed: its summation order
+    may or may not differ in a given call)."""
+    from tf_operator_tpu_torch.models.transformer import Embed, _Store
+
+    torch.manual_seed(0)
+    ids = torch.from_numpy(ids).cuda()
+    grad = torch.randn(*ids.shape, d_model, device="cuda")
+    embed = Embed(vocab, d_model, torch.float32,
+                  _Store(torch.float32, False, torch.device("cuda")))
+    with torch.no_grad():
+        embed.weight.normal_()
+    ours, control = set(), set()
+    for _ in range(EMBED_REPEATS):
+        embed.weight.grad = None
+        embed(ids).backward(grad)
+        ours.add(embed.weight.grad.cpu().numpy().tobytes())
+        weight = embed.weight.detach().clone().requires_grad_(True)
+        torch.nn.functional.embedding(ids, weight).backward(grad)
+        control.add(weight.grad.cpu().numpy().tobytes())
+    print(f"dist_lm --data (23c): Embed's backward over {ids.numel()} ids "
+          f"of {vocab}, {EMBED_REPEATS} times: {len(ours)} distinct "
+          f"result(s); F.embedding's CUDA backward (control): "
+          f"{len(control)} distinct", flush=True)
+    if len(ours) != 1:
+        raise AssertionError("Embed's backward is not deterministic")
+
+
+def data_entry_phase(card: str) -> dict:
+    """Phase 23 (c): ``python -m tf_operator_tpu_torch.train.dist_lm
+    --data`` on the card with no --device. Run 1 stops at DATA_FAIL_AT
+    (exit 138), run 2 resumes to OK, run 3 (beside run 1) trains
+    uninterrupted; the final checkpoints must be bitwise. Returns the
+    flash launches the runs print."""
+    from tf_operator_tpu_torch.ckpt import protocol
+    from tf_operator_tpu_torch.models.convert import _leaves
+    from tf_operator_tpu_torch.train import checkpoint
+    from tf_operator_tpu_torch.train.data import write_token_records
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k not in (
+        protocol.ENV_ACK_FILE, protocol.ENV_CKPT_DIR,
+        protocol.ENV_RESUME_STEP)}
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    seq = int(DATA_ARGS[DATA_ARGS.index("--seq") + 1])
+    vocab = int(DATA_ARGS[DATA_ARGS.index("--vocab") + 1])
+    t_start = time.perf_counter()
+    procs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = os.path.join(tmp, "corpus.bin")
+        start = np.random.default_rng(0).integers(0, vocab, (DATA_ROWS, 1))
+        rows = ((start + np.arange(seq + 1)) % vocab).astype(np.int32)
+        write_token_records(corpus, rows)
+        batch = int(DATA_ARGS[DATA_ARGS.index("--batch") + 1])
+        embedding_backward_check(
+            rows[:batch, :-1],
+            int(DATA_ARGS[DATA_ARGS.index("--d-model") + 1]), vocab)
+        cmd = [sys.executable, "-m", "tf_operator_tpu_torch.train.dist_lm",
+               *DATA_ARGS, "--data", corpus]
+        dirs = {i: os.path.join(tmp, f"ck{i}") for i in (1, 3)}
+        dirs[2] = dirs[1]
+        logs = {i: os.path.join(tmp, f"run{i}.log") for i in (1, 2, 3)}
+
+        def start_run(i):
+            args = ["--checkpoint-dir", dirs[i]]
+            if i != 3:
+                args += ["--fail-at-step", str(DATA_FAIL_AT)]
+            with open(logs[i], "w") as out:
+                proc = subprocess.Popen(cmd + args, cwd=root, env=env,
+                                        stdout=out, stderr=subprocess.STDOUT)
+            procs.append(proc)
+            return proc
+
+        def log(i):
+            with open(logs[i]) as f:
+                return f.read()
+
+        try:
+            first, third = start_run(1), start_run(3)
+            rc1, rc3 = first.wait(timeout=300), third.wait(timeout=300)
+            rc2 = start_run(2).wait(timeout=300)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        if rc1 != 138 or (f"simulating preemption at step {DATA_FAIL_AT}"
+                          not in log(1)):
+            raise AssertionError(f"--data run 1: rc {rc1}: {log(1)[-3000:]}")
+        if rc2 != 0 or (f"dist_lm: resumed from step {DATA_FAIL_AT + 1}"
+                        not in log(2) or "dist_lm: OK" not in log(2)):
+            raise AssertionError(f"--data run 2: rc {rc2}: {log(2)[-3000:]}")
+        if rc3 != 0 or "dist_lm: OK" not in log(3):
+            raise AssertionError(f"--data run 3: rc {rc3}: {log(3)[-3000:]}")
+        engines = [re.search(r"through the (\S+) record engine",
+                             log(i)) for i in (1, 2, 3)]
+        engines = [m.group(1) if m else None for m in engines]
+        if engines != ["native"] * 3:
+            raise AssertionError(f"--data runs 1-3 read through the "
+                                 f"{engines} record engines, not native")
+        last = checkpoint.latest_step(dirs[1])
+        a = dict(_leaves(checkpoint.read(dirs[1], last)[0]))
+        b = dict(_leaves(checkpoint.read(dirs[3], last)[0]))
+        launches, idle = dict.fromkeys(FLASH_KERNELS, 0), []
+        for i in (1, 2, 3):
+            counts = re.findall(r"flash launches fwd=(\d+) dq=(\d+) "
+                                r"dkv=(\d+)", log(i))
+            if not counts or not all(int(n) for n in counts[-1]):
+                idle.append(i)
+            for key, n in zip(FLASH_KERNELS, counts[-1] if counts else ()):
+                launches[key] += int(n)
+        losses = [re.search(r"final loss (\S+)", log(i)).group(1)
+                  for i in (2, 3)]
+    bitwise = a.keys() == b.keys() and all(torch.equal(a[k], b[k])
+                                           for k in a)
+    print(f"dist_lm --data (23c) {' '.join(DATA_ARGS)} over {DATA_ROWS} "
+          f"token records ({DATA_ROWS * (seq + 1) * 4} bytes) through the "
+          f"native record engine: run 1 exited "
+          f"{rc1} at step {DATA_FAIL_AT}, run 2 resumed from step "
+          f"{DATA_FAIL_AT + 1} and exited {rc2}, run 3 exited {rc3}; the "
+          f"final checkpoint (step {last}) against run 3's: "
+          f"{'bitwise' if bitwise else 'NOT bitwise'} ({len(a)} tensors); "
+          f"final losses {losses[0]} / {losses[1]}; launches {launches}; "
+          f"{time.perf_counter() - t_start:.1f} s on {card}", flush=True)
+    if not bitwise:
+        raise AssertionError("the resumed --data run parts from the "
+                             "uninterrupted one")
+    if idle:
+        raise AssertionError(f"--data runs {idle} ran no kernel")
+    return launches
+
+
+def record_input_phase(card: str, resident: float) -> dict:
+    """Phase 23, (a) to (c); returns (c)'s flash launches."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "records.bin")
+        record, rec_bytes = write_bench_records(path)
+        host_input_phase(path, rec_bytes, record)
+        streamed_resnet_phase(card, path, rec_bytes, record, resident)
+    torch.cuda.empty_cache()
+    launches = data_entry_phase(card)
+    print(f"phase 23 (the record input): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -5075,9 +5592,11 @@ def main() -> int:
     dense = dense_phase(pa, i8, base, params, prompts,
                         f32["kernel"]["tokens"], bf16, card)
     torch.cuda.empty_cache()
-    classifier_phase(card)
+    resident = classifier_phase(card)
     torch.cuda.empty_cache()
     moe = moe_phase(pa, base, prompts, card)
+    torch.cuda.empty_cache()
+    flash_data = record_input_phase(card, resident)
 
     # Each kernel's launches on every path of this run that drives it.
     paths = {
@@ -5120,6 +5639,8 @@ def main() -> int:
     for label, counts in moe.items():
         for name, n in counts.items():
             paths[name][label] = n
+    for name, n in flash_data.items():
+        paths[name]["dist_lm --data (23c)"] = n
 
     src = "tf_operator_tpu_torch/ops/csrc/"
     replaces = {"flash_fwd": 253, "flash_dq": 297, "flash_dkv": 331}

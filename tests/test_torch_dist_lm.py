@@ -5,8 +5,13 @@ checkpoint bitwise equal to an uninterrupted run's (f32, one thread); the
 injected TPU_CKPT_DIR and TPU_RESUME_STEP are honoured; the eviction
 signal becomes a forced save and an ack and training goes on; the MoE
 flags run (the model of JAX's tests/test_examples.py MoE test learns
-the chain task, top-2 and Switch; an MoE run resumes bitwise too); each
-unported flag's usage error names its ROADMAP item; without ``--device``
+the chain task, top-2 and Switch; an MoE run resumes bitwise too);
+``--data`` streams a token-record file as examples/dist_lm.py does (its
+rows are JAX's ``row_stream``'s over the same file, an epoch's leftover
+rows carried and a resume fast-forwarded; an id past ``--vocab`` exits
+with JAX's message; a killed ``--data`` run resumes bitwise; the model
+learns tests/test_examples.py's token corpus); each unported flag's
+usage error names its ROADMAP item; without ``--device``
 and without a card the entry point exits non-zero naming CUDA. Then the
 entry point under the JAX operator's LocalProcessExecutor, as
 tests/test_ckpt.py::test_executor_relays_acks_and_delivers_signal drives
@@ -16,12 +21,14 @@ running."""
 
 import json
 import os
+import re
 import signal
 import subprocess
 import sys
 import threading
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -30,8 +37,10 @@ from tf_operator_tpu.ckpt import protocol as jax_protocol
 from tf_operator_tpu.runtime import objects
 from tf_operator_tpu.runtime.executor import LocalProcessExecutor
 from tf_operator_tpu.runtime.memcluster import InMemoryCluster
+from tf_operator_tpu.train.data import token_dataset as jax_token_dataset
 from tf_operator_tpu_torch.ckpt import protocol
-from tf_operator_tpu_torch.train import checkpoint, dist_lm
+from tf_operator_tpu_torch.train import checkpoint, dist_lm, steps
+from tf_operator_tpu_torch.train.data import write_token_records
 from tf_operator_tpu_torch.utils import signals
 
 torch.set_num_threads(1)
@@ -57,6 +66,16 @@ def _env(**extra):
         env.pop(key, None)
     env.update(extra)
     return env
+
+
+def chain_corpus(path, n, seq, vocab, seed=0):
+    """n rows of the +1 chain mod vocab, seq + 1 ids each, from seeded
+    starts (tests/test_examples.py's corpus at n=256, seq 64, vocab
+    64)."""
+    start = np.random.default_rng(seed).integers(0, vocab, (n, 1))
+    write_token_records(path, ((start + np.arange(seq + 1))
+                               % vocab).astype(np.int32))
+    return path
 
 
 def _run(args, **env):
@@ -211,17 +230,22 @@ def test_eviction_signal_saves_acks_and_keeps_training(tmp_path):
                  id="argv8-ROADMAP A9"),
     pytest.param(["--moe-top-k", "1", "--moe-every-n", "2"], None,
                  id="argv9-ROADMAP A9"),
-    (["--data", "tokens.bin"], "ROADMAP A12"),
+    # --data is ported (A12): the case now pins that it runs over a small
+    # corpus the test writes.
+    pytest.param(["--data", "tokens.bin"], None, id="argv12-ROADMAP A12"),
     (["--fail-at-step", "3"], "--fail-at-step requires --checkpoint-dir"),
     (["--ep", "4"], "--ep requires --moe-every-n"),
     (["--moe-experts", "6", "--moe-every-n", "2", "--ep", "4"],
      "--moe-experts must be a multiple of --ep"),
     (["--ep", "2", "--moe-every-n", "2"], "ROADMAP A8"),
 ])
-def test_unported_flags_are_usage_errors(argv, item, capsys):
+def test_unported_flags_are_usage_errors(argv, item, capsys, tmp_path):
+    if "--data" in argv:
+        argv = ["--data", chain_corpus(str(tmp_path / "tokens.bin"), 16,
+                                       16, 32)]
     if item is None:
-        assert dist_lm.main(small(2, *argv)[:-2] + ["--target-loss",
-                                                     "10"]) == 0
+        assert dist_lm.main(small(2)[:-2] + ["--target-loss", "10",
+                                             *argv]) == 0
         assert "dist_lm: OK" in capsys.readouterr().out
         return
     with pytest.raises(SystemExit) as exc:
@@ -312,3 +336,140 @@ def test_the_entry_point_under_the_local_executor(tmp_path, monkeypatch):
                 proc.wait()
         stop.set()
         time.sleep(0.3)
+
+
+def _jax_rows(path, seq, rows, start_step, count, vocab):
+    """examples/dist_lm.py's --data stream over JAX's token_dataset, line
+    for line: row_stream, the first batch's vocab check, the fast-forward
+    of start_step steps; then ``count`` steps' rows."""
+    import itertools
+
+    data_iter = jax_token_dataset(path, seq, rows, seed=11, loop=True,
+                                  shard_id=0, num_shards=1)
+
+    def row_stream():
+        buf = None
+        for b in data_iter:
+            buf = b if buf is None else {
+                k: np.concatenate([buf[k], b[k]]) for k in b
+            }
+            while buf["tokens"].shape[0] >= rows:
+                yield {k: v[:rows] for k, v in buf.items()}
+                buf = {k: v[rows:] for k, v in buf.items()}
+
+    stream = row_stream()
+    first = next(stream)
+    assert int(first["tokens"].max()) < vocab
+    stream = itertools.chain([first], stream)
+    for _ in range(start_step):
+        next(stream)
+    out = [next(stream) for _ in range(count)]
+    data_iter.close()
+    return out
+
+
+def test_data_rows_are_jax_row_stream(tmp_path, monkeypatch, capsys):
+    """Every step's rows against JAX's row_stream over the same file: 10
+    records at 4 rows a step, so each epoch's 2 leftover rows carry into
+    the next step; a second run restored at step 5 fast-forwards 5 steps
+    and goes on where the first stopped."""
+    path = chain_corpus(str(tmp_path / "corpus.bin"), 10, 16, 32)
+    ck = str(tmp_path / "ck")
+    monkeypatch.setattr(signals, "setup_signal_handler", threading.Event)
+    for key in (protocol.ENV_CKPT_DIR, protocol.ENV_RESUME_STEP,
+                protocol.ENV_ACK_FILE):
+        monkeypatch.delenv(key, raising=False)
+    seen = []
+    real = steps.make_lm_train_step
+
+    def recording(*args, **kwargs):
+        step = real(*args, **kwargs)
+
+        def wrapped(state, batch):
+            seen.append({k: np.array(v) for k, v in batch.items()})
+            return step(state, batch)
+
+        return wrapped
+
+    monkeypatch.setattr(steps, "make_lm_train_step", recording)
+    flags = small(5)[:-2] + ["--target-loss", "10", "--data", path,
+                             "--checkpoint-dir", ck]
+    assert dist_lm.main(flags) == 0
+    first = list(seen)
+    flags[flags.index("--steps") + 1] = "9"
+    assert dist_lm.main(flags) == 0
+    assert "dist_lm: resumed from step 5" in capsys.readouterr().out
+    want = _jax_rows(path, 16, 4, 0, 9, 32)
+    got = first + seen[len(first):]
+    assert len(got) == len(want) == 9
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.keys() == w.keys() == {"tokens", "targets"}
+        for key in g:
+            assert g[key].dtype == np.int32
+            np.testing.assert_array_equal(g[key], w[key], f"{i} {key}")
+    # The stream itself, from step 3 on, as a resume at step 3 reads it.
+    for g, w in zip(got[3:], _jax_rows(path, 16, 4, 3, 6, 32)):
+        np.testing.assert_array_equal(g["tokens"], w["tokens"])
+
+
+def test_data_id_past_the_vocab_exits_with_jax_s_message(tmp_path,
+                                                         capsys):
+    path = chain_corpus(str(tmp_path / "corpus.bin"), 8, 16, 32)
+    with pytest.raises(SystemExit) as exc:
+        dist_lm.main(["--device", "cpu", "--steps", "2", "--batch", "4",
+                      "--seq", "16", "--vocab", "16", "--data", path])
+    assert str(exc.value.code) == "--data token id 31 >= --vocab 16"
+
+
+def test_data_kill_and_resume_ends_bitwise_on_the_uninterrupted_run(
+        tmp_path):
+    _kill_and_resume(tmp_path, "--data", chain_corpus(
+        str(tmp_path / "corpus.bin"), 20, 16, 32))
+
+
+def test_data_learns_the_token_corpus(tmp_path, capsys):
+    """tests/test_examples.py::test_dist_lm_trains_from_sharded_token_file's
+    corpus and flags (256 chains of 65 ids mod 64, 80 steps of 8 x 64, the
+    example's d_model 128) reach its loss 1.0 on the CPU."""
+    path = chain_corpus(str(tmp_path / "corpus.bin"), 256, 64, 64)
+    assert dist_lm.main([
+        "--device", "cpu", "--steps", "80", "--batch", "8", "--seq", "64",
+        "--vocab", "64", "--data", path, "--target-loss", "1.0"]) == 0
+    out = capsys.readouterr().out
+    assert "through the native record engine" in out
+    assert "dist_lm: OK" in out
+
+
+def test_data_names_the_python_engine_it_falls_back_to(tmp_path,
+                                                        monkeypatch, capsys):
+    """Without g++ the run says so and reads the Python engine's rows,
+    which are the native engine's: the same final loss."""
+    from tf_operator_tpu_torch import native
+
+    path = chain_corpus(str(tmp_path / "corpus.bin"), 20, 16, 32)
+    flags = small(3)[:-2] + ["--target-loss", "10", "--data", path]
+    assert dist_lm.main(flags) == 0
+    native_out = capsys.readouterr().out
+
+    def no_compiler(source):
+        raise native.NativeBuildError("g++ unavailable: test")
+
+    monkeypatch.setattr(native, "load_library", no_compiler)
+    assert dist_lm.main(flags) == 0
+    python_out = capsys.readouterr().out
+    assert "through the native record engine" in native_out
+    assert ("native record pipeline unavailable (g++ unavailable: test)"
+            in python_out)
+    assert "through the python record engine" in python_out
+    loss = re.compile(r"final loss (\S+)")
+    assert loss.search(python_out).group(1) == loss.search(
+        native_out).group(1)
+
+
+def test_more_than_one_process_waits_for_a8(monkeypatch, capsys):
+    monkeypatch.setenv("TPU_NUM_PROCESSES", "2")
+    monkeypatch.setenv("TPU_WORKER_ID", "1")
+    with pytest.raises(SystemExit) as exc:
+        dist_lm.main(["--device", "cpu"])
+    assert exc.value.code == 2
+    assert "ROADMAP A8" in capsys.readouterr().err

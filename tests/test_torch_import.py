@@ -52,20 +52,23 @@ def test_package_imports_with_jax_and_the_reference_poisoned():
     )
     assert out.returncode == 0, out.stderr
     # Every module was imported: ckpt (1: protocol), models (6: convert,
-    # mnist, moe, resnet, spec_decode, transformer), ops (4: _build,
+    # mnist, moe, resnet, spec_decode, transformer), native (2: augment,
+    # pipeline; the package builds its C++ with g++ only when called),
+    # ops (4: _build,
     # flash_attention, int8_dense, paged_attention), runtime (2: metrics,
     # tracing), serve (11: coalesce, constrain, disagg, engine, kvcache,
     # faultinject, resilience, scheduler, httpapi, serve_lm, tier), train
     # (7: checkpoint, data, device_input, dist_lm, dist_mnist,
     # distributed, steps), utils (1: signals), random and testing, and the
-    # seven packages.
-    assert int(out.stdout.split()[-1]) >= 40
+    # eight packages.
+    assert int(out.stdout.split()[-1]) >= 43
     for name in ("serve.constrain", "models.spec_decode", "ckpt.protocol",
                  "utils.signals", "train.checkpoint", "train.dist_lm",
                  "serve.disagg", "serve.tier", "serve.coalesce",
                  "models.resnet", "models.mnist", "train.data",
                  "train.device_input", "train.distributed",
-                 "train.dist_mnist", "models.moe"):
+                 "train.dist_mnist", "models.moe", "native",
+                 "native.pipeline", "native.augment"):
         assert f"tf_operator_tpu_torch.{name}" in out.stdout.split()
 
 

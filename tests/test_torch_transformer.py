@@ -154,3 +154,29 @@ def test_paged_decode_steps_match_jax(arch, jax_attend, torch_attend):
             layer["pool_key"].numpy(),
             np.asarray(jcache[f"block_{i}"]["attn"]["pool_key"]),
             atol=ATOL, rtol=0)
+
+
+def test_embed_backward_on_the_cpu_is_one_sum_across_threads():
+    """``Embed``'s CPU gradient is the same on every call with four
+    threads (ROADMAP C2): 8,192 ids into 256 rows, five backwards from one
+    gradient. Indexing's CPU backward adds rows with atomics across
+    threads and gave five different gradients in five calls here."""
+    from tf_operator_tpu_torch.models.transformer import Embed, _Store
+
+    torch.manual_seed(0)
+    embed = Embed(256, 512, torch.float32,
+                  _Store(torch.float32, False, torch.device("cpu")))
+    with torch.no_grad():
+        embed.weight.normal_()
+    ids = torch.randint(0, 256, (8, 1024))
+    grad = torch.randn(8, 1024, 512)
+    grads = set()
+    torch.set_num_threads(4)
+    try:
+        for _ in range(5):
+            embed.weight.grad = None
+            embed(ids).backward(grad)
+            grads.add(embed.weight.grad.numpy().tobytes())
+    finally:
+        torch.set_num_threads(1)
+    assert len(grads) == 1

@@ -275,7 +275,16 @@ def _dense(cfg: TransformerConfig, store: _Store, in_shape,
 
 
 class Embed(nn.Module):
-    """flax ``nn.Embed``: the looked-up rows in ``dtype``."""
+    """flax ``nn.Embed``: the looked-up rows in ``dtype``.
+
+    Each device reads the rows through the op whose backward sums a row's
+    gradients in one order, so that a resumed run ends bitwise on an
+    uninterrupted one (ROADMAP C2). On the card that is indexing
+    (``index_put_`` with accumulate sorts the ids first): ``F.embedding``'s
+    CUDA backward over more than 3072 ids sums in an order that changes
+    from call to call. On the CPU it is ``F.embedding``: indexing's CPU
+    backward adds rows with atomics across threads. Both read the same
+    rows."""
 
     def __init__(self, num, features, dtype, store: _Store):
         super().__init__()
@@ -283,6 +292,8 @@ class Embed(nn.Module):
         self.weight = store.param((num, features))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        if ids.is_cuda:
+            return self.weight[ids.long()].to(self.dtype)
         return F.embedding(ids, self.weight).to(self.dtype)
 
 

@@ -13,8 +13,15 @@ width raises there, by design.
 
 Data is the synthetic next-token task (tokens advance by +1 mod vocab),
 seeded by step (``np.random.default_rng((7, step))``), so a resumed run
-sees the batches an uninterrupted one would. The run fails (exit 1) when
-the final loss misses ``--target-loss``.
+sees the batches an uninterrupted one would; or, with ``--data``, a
+token-record file (``train/data.py::write_token_records``: rows of
+``--seq`` + 1 int32 ids) streamed through ``token_dataset`` (the native
+record pipeline, seed 11, looping) as the example streams it: this
+process's shard of every epoch, re-batched to exactly ``--batch`` rows a
+step with an epoch's leftover rows carried into the next step; the first
+batch's largest id must be below ``--vocab``, and a resumed run skips
+the rows of the steps it restored. The run fails (exit 1) when the final
+loss misses ``--target-loss``.
 
 Checkpoint coordination (``train/checkpoint.py``, ``ckpt/protocol.py``):
 with ``--checkpoint-dir`` (or the operator-injected ``TPU_CKPT_DIR``)
@@ -32,13 +39,16 @@ the step adds the load-balancing loss at weight 0.01, as the example's.
 
 Flags of unported items exit with a usage error naming the ROADMAP
 item: ``--sp``, ``--tp``, ``--pp*``, ``--ep`` and ``--ring-impl`` (A8),
-``--data`` (the token-record input). The example's checks of ``--ep``
-against the MoE flags keep their meaning.
+and so does a topology of more than one process (``TPU_NUM_PROCESSES``,
+a TF_CONFIG of several workers). The example's checks of ``--ep``
+against the MoE flags keep their meaning, and so does its refusal of
+``--data`` beside ``--sp``/``--tp``: those flags are refused as A8.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import os
 import sys
 import time
@@ -54,8 +64,6 @@ UNPORTED_FLAGS = (
      "A8 (multi-device)"),
     ("--ep", lambda a: a.ep > 1, "A8 (multi-device)"),
     ("--ring-impl", lambda a: a.ring_impl != "auto", "A8 (multi-device)"),
-    ("--data", lambda a: a.data is not None,
-     "A12 (the token-record input)"),
 )
 
 
@@ -115,7 +123,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="microbatches per optimizer step (gradients "
                         "averaged into one update)")
     p.add_argument("--data", default=None,
-                   help="token-record file: waits for ROADMAP A12")
+                   help="token-record file (write_token_records): this "
+                        "process streams its shard of every epoch "
+                        "through the native record pipeline instead of "
+                        "the synthetic task")
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--checkpoint-interval", type=int, default=1)
     p.add_argument("--fail-at-step", type=int, default=None,
@@ -138,6 +149,13 @@ def main(argv: list[str] | None = None) -> int:
         p.error("; ".join(refused))
     if args.fail_at_step is not None and not args.checkpoint_dir:
         p.error("--fail-at-step requires --checkpoint-dir")
+
+    from tf_operator_tpu_torch.train import distributed
+
+    topo = distributed.from_env()
+    if topo.num_processes > 1:
+        p.error(f"{topo.num_processes} training processes wait for ROADMAP "
+                f"A8 (multi-device): the port trains on one device")
 
     # Operator-injected checkpoint contract (ckpt/protocol.py): a
     # replacement pod of a checkpointing job learns its directory even
@@ -173,7 +191,8 @@ def main(argv: list[str] | None = None) -> int:
     )
 
     device = resolve_device(args.device)
-    print(f"dist_lm: process 0/1, device {device}", flush=True)
+    print(f"dist_lm: process {topo.process_id}/{topo.num_processes}, "
+          f"device {device}", flush=True)
     if args.grad_accum < 1 or args.batch % args.grad_accum:
         raise SystemExit("--grad-accum must divide the batch")
     if args.xent_chunk is not None:
@@ -235,11 +254,70 @@ def main(argv: list[str] | None = None) -> int:
         chain = chain.astype(np.int32)
         return {"tokens": chain[:, :-1], "targets": chain[:, 1:]}
 
+    data_iter = None
+    if args.data:
+        # The record input: examples/dist_lm.py's lines for its one
+        # process (A8a deals each of several processes its shard); the
+        # rows reach the model's device as the synthetic batches do.
+        from tf_operator_tpu_torch.native import NativeBuildError, load_library
+        from tf_operator_tpu_torch.train.data import token_dataset
+
+        # token_dataset's "auto" engine, resolved here so that the run says
+        # which reader feeds it: both give the same rows, not the same rate.
+        try:
+            load_library("record_pipeline.cc")
+            engine = "native"
+        except NativeBuildError as e:
+            print(f"dist_lm: native record pipeline unavailable ({e})",
+                  flush=True)
+            engine = "python"
+        print(f"dist_lm: --data {args.data} through the {engine} record "
+              f"engine", flush=True)
+        local_rows = args.batch
+        data_iter = token_dataset(
+            args.data, args.seq, local_rows, seed=11, loop=True,
+            engine=engine,
+        )
+
+        def row_stream():
+            # Re-batch to EXACTLY local_rows per step, carrying epoch-tail
+            # leftovers into the next step (truncating them would skip
+            # records for a whole epoch) — and giving resume a stream
+            # where one next() == one training step, so fast-forwarding
+            # start_step steps lands precisely where training stopped.
+            buf = None
+            for b in data_iter:
+                buf = b if buf is None else {
+                    k: np.concatenate([buf[k], b[k]]) for k in b
+                }
+                while buf["tokens"].shape[0] >= local_rows:
+                    yield {k: v[:local_rows] for k, v in buf.items()}
+                    buf = {k: v[local_rows:] for k, v in buf.items()}
+
+        rows = row_stream()
+        first = next(rows)
+        # Fail loudly on a corpus/vocab mismatch, before any step: an id
+        # past the embedding table fails inside the step (on the card, as
+        # a device-side assert that ends the process).
+        hi = int(first["tokens"].max())
+        if hi >= args.vocab:
+            raise SystemExit(
+                f"--data token id {hi} >= --vocab {args.vocab}"
+            )
+        rows = itertools.chain([first], rows)
+        for _ in range(start_step):  # resume continues, never replays
+            next(rows)
+
+        def next_data(_step_idx):
+            return next(rows)
+    else:
+        next_data = batch_at
+
     t0 = time.perf_counter()
     metrics = None
     evict_acked = False
     for i in range(start_step, args.steps):
-        state, metrics = step(state, batch_at(i))
+        state, metrics = step(state, next_data(i))
         if ckpt is not None:
             ckpt.save(i, state)
             # Progress report: the newest COMMITTED step, at no sync cost.
@@ -267,6 +345,8 @@ def main(argv: list[str] | None = None) -> int:
                   flush=True)
     if ckpt is not None:
         ckpt.close()
+    if data_iter is not None:
+        data_iter.close()
     print(launches_line(), flush=True)
     if metrics is None:
         print("dist_lm: no steps to run", flush=True)
