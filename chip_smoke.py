@@ -324,7 +324,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
     layers, batch 8, 30 steps: run 1 exits 138 at step 20, run 2 resumes
     to OK, a twin runs uninterrupted, the final checkpoints bitwise, flash
     launches in each run; the phase's seconds;
-24. the ``kernels`` JSON line (each kernel with its design; B5 as two
+24. data parallelism over processes (``train/distributed.py``,
+    ``parallel/``, the steps' ``mesh``; B1-B3 in every rank): (a) an NCCL
+    world of 1 in this process (``init_process_group`` on a ``HashStore``
+    of its own): phase 9's bf16 step (B = 2, T = 8192, chunked loss) with
+    ``mesh={"dp": 1}`` against the same step without a mesh, from one
+    tree and batch, 3 steps each: losses and every weight bitwise (the
+    mean over one rank is the identity), in turns without, with, with,
+    without; both tokens/s, the B1-B3 launches; the group destroyed; (b) ``python -m
+    tf_operator_tpu_torch.train.dist_lm --dist-backend gloo`` as 2
+    processes sharing the card (``TPU_NUM_PROCESSES``, ``TPU_WORKER_ID``,
+    ``TPU_COORDINATOR_ADDRESS``) at phase 18 (b)'s flags beside one
+    process at the same flags: the printed losses within ``DP_LOSS_TOL``,
+    both to OK; then 2-process ``--data`` at phase 23 (c)'s flags: killed
+    at step 20 (138 on both), resumed, and its uninterrupted 2-process
+    twin, the final checkpoints and losses bitwise; (c) 2-process
+    ``dist_mnist`` under gloo at tests/test_examples.py's flags, OK on
+    both; the phase's seconds;
+25. the ``kernels`` JSON line (each kernel with its design; B5 as two
     entries, the weight stream and the wgmma tile, each with its own
     launches; ``paths`` gives each kernel's launches on every path of
     this run that drives it, and ``launches`` is their sum; the paged
@@ -692,6 +709,22 @@ DATA_FAIL_AT = 20
 # C2): (c) first runs the model's Embed backward over a step's ids this
 # many times and wants one result.
 EMBED_REPEATS = 3
+# Phase 24, data parallelism. (a) DP_STEPS bf16 steps at phase 9's shape
+# with and without mesh={"dp": 1} over an NCCL world of 1, in turns
+# (without, with, with, without): bitwise, tokens/s by the median step of
+# each side (a run's first step is its warm-up). (b)
+# dist_lm as 2 gloo processes on the one card against 1 process at
+# ENTRY_ARGS (f32, the same global batch of 8): each printed loss (steps 1
+# and 20, the final) within DP_LOSS_TOL. The two runs sum the same f32
+# terms in other orders (two ranks' means averaged, cuBLAS at 4 rows a
+# rank); with --device cpu at these flags the two print the same 4
+# decimals at every printed step, so 1e-3 allows the card's kernels their
+# own roundings and no more. Then
+# the 2-process --data runs at DATA_ARGS, killed at DATA_FAIL_AT: bitwise.
+# (c) dist_mnist as 2 gloo processes at DP_MNIST_ARGS.
+DP_STEPS = 3
+DP_LOSS_TOL = 1e-3
+DP_MNIST_ARGS = ["--steps", "30", "--batch", "64", "--target-loss", "0.8"]
 
 
 def entry_flash_shape() -> tuple[int, int, int, int]:
@@ -5466,6 +5499,298 @@ def record_input_phase(card: str, resident: float) -> dict:
     return launches
 
 
+def dp_nccl_phase(card: str) -> dict:
+    """Phase 24 (a): phase 9's bf16 step with and without a ``{"dp": 1}``
+    mesh over an NCCL world of 1 in this process, from one tree and batch,
+    in turns (without, with, with, without): every run's losses and
+    weights bitwise the first's. Returns the mesh runs' flash
+    launches."""
+    import torch.distributed as dist
+
+    from tf_operator_tpu_torch.models.convert import init_params
+    from tf_operator_tpu_torch.models.transformer import TransformerConfig
+    from tf_operator_tpu_torch.parallel.mesh import create_mesh
+    from tf_operator_tpu_torch.train.steps import adamw
+
+    cfg = TransformerConfig(dtype=torch.bfloat16, **LM)
+    params = init_params(cfg, seed=0)
+    rng = np.random.default_rng(0)
+    batch = {name: torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_B, TRAIN_T)).astype(np.int64)).cuda()
+        for name in ("tokens", "targets")}
+    kw = dict(xent_chunk=XENT_CHUNK, xent_dot_dtype=torch.bfloat16)
+    dist.init_process_group("nccl", store=dist.HashStore(), world_size=1,
+                            rank=0)
+    first, differ = None, []
+    seconds = {"plain": [], "dp": []}
+    launches = dict.fromkeys(FLASH_KERNELS, 0)
+    losses = {}
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}")
+        mesh = create_mesh({"dp": 1}, device="cuda")
+        for i, side in enumerate(("plain", "dp", "dp", "plain")):
+            run = train_run(cfg, params, batch, DP_STEPS, adamw(1e-4),
+                            **kw, **({"mesh": mesh} if side == "dp"
+                                     else {}))
+            weights = {n: p.detach() for n, p
+                       in run.pop("model").named_parameters()}
+            if first is None:
+                first = {"losses": run["losses"], "weights": {
+                    n: w.clone() for n, w in weights.items()}}
+            differ += [f"{i} {side} {n}" for n, w in weights.items()
+                       if not torch.equal(w, first["weights"][n])]
+            losses.setdefault(side, run["losses"])
+            if run["losses"] != first["losses"]:
+                differ.append(f"{i} {side} losses {run['losses']}")
+            seconds[side] += run["seconds"]
+            if side == "dp":
+                for key, n in zip(FLASH_KERNELS, run["counts"].values()):
+                    launches[key] += n
+            del run, weights
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    tok_s = {side: TRAIN_B * TRAIN_T / float(np.median(sec))
+             for side, sec in seconds.items()}
+    print(f"dp nccl world 1 (24a): bf16 B={TRAIN_B} T={TRAIN_T}, "
+          f"{DP_STEPS} steps a run from one tree, in turns without, with "
+          f"{mesh}, with, without: losses {losses['plain']} without, "
+          f"{losses['dp']} with; "
+          f"{'every run bitwise the first' if not differ else differ[:8]} "
+          f"({len(first['weights'])} weights); tokens/s by the median step "
+          f"without {tok_s['plain']:.2f}, with {tok_s['dp']:.2f} (ratio "
+          f"{tok_s['dp'] / tok_s['plain']:.4f}; step_s {seconds}); "
+          f"launches of the mesh runs {launches} on {card}", flush=True)
+    if differ:
+        raise AssertionError("the dp world of 1 parts from the plain step")
+    want = 2 * cfg.n_layers * DP_STEPS
+    if set(launches.values()) != {want}:
+        raise AssertionError(f"24a launches {launches}, want {want} of each")
+    del first
+    torch.cuda.empty_cache()
+    return launches
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_ranks(module: str, args: list, world: int | None, tmp: str,
+                tag: str, procs: list) -> list:
+    """``world`` processes of ``python -m module args`` joined by gloo on
+    the card (one plain process for ``world`` None), output to files under
+    ``tmp``; appends them to ``procs`` and returns their log paths."""
+    from tf_operator_tpu_torch.ckpt import protocol
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k not in (
+        protocol.ENV_ACK_FILE, protocol.ENV_CKPT_DIR,
+        protocol.ENV_RESUME_STEP, "TF_CONFIG", "TPU_WORKER_ID",
+        "TPU_NUM_PROCESSES", "TPU_COORDINATOR_ADDRESS",
+        "MEGASCALE_NUM_SLICES")}
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    # One host thread a process, as torchrun sets it: the processes share
+    # the host's cores.
+    env.setdefault("OMP_NUM_THREADS", "1")
+    port = free_port()
+    logs = []
+    for r in range(world or 1):
+        rank_env = dict(env)
+        if world:
+            rank_env.update(TPU_NUM_PROCESSES=str(world),
+                            TPU_WORKER_ID=str(r),
+                            TPU_COORDINATOR_ADDRESS=f"127.0.0.1:{port}")
+        log = os.path.join(tmp, f"{tag}{r}.log")
+        with open(log, "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", module, *args, "--dist-backend",
+                 "gloo"], cwd=root, env=rank_env, stdout=out,
+                stderr=subprocess.STDOUT))
+        logs.append(log)
+    return logs
+
+
+def wait_all(procs: list, timeout: float = 300.0) -> list:
+    """Each process's exit code, killing those still running at the
+    timeout."""
+    deadline = time.monotonic() + timeout
+    try:
+        for proc in procs:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return [proc.returncode for proc in procs]
+
+
+def read_log(path: str) -> str:
+    with open(path) as f:
+        return f.read()
+
+
+def rank_launches(logs: list, label: str) -> dict:
+    """B1-B3's launches summed over the runs' last ``flash launches``
+    lines; fails for a run that launched none."""
+    launches = dict.fromkeys(FLASH_KERNELS, 0)
+    for log in logs:
+        counts = re.findall(r"flash launches fwd=(\d+) dq=(\d+) dkv=(\d+)",
+                            read_log(log))
+        if not counts or not all(int(n) for n in counts[-1]):
+            raise AssertionError(f"{label}: {log} ran no kernel: "
+                                 f"{read_log(log)[-2000:]}")
+        for key, n in zip(FLASH_KERNELS, counts[-1]):
+            launches[key] += int(n)
+    return launches
+
+
+def dp_entry_phase(card: str) -> dict:
+    """Phase 24 (b): ``dist_lm`` as 2 gloo processes on the card against
+    one process, then 2-process ``--data`` killed, resumed and against its
+    twin. Returns the 2-process runs' flash launches."""
+    from tf_operator_tpu_torch.models.convert import _leaves
+    from tf_operator_tpu_torch.train import checkpoint
+    from tf_operator_tpu_torch.train.data import write_token_records
+
+    module = "tf_operator_tpu_torch.train.dist_lm"
+    procs: list = []
+    rank_logs = []
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            # One after the other, so that each run has the card to itself.
+            one = start_ranks(module, ENTRY_ARGS, None, tmp, "one", procs)
+            codes = wait_all(procs)
+            walls = [time.perf_counter() - t0]
+            procs.clear()
+            two = start_ranks(module, ENTRY_ARGS, 2, tmp, "two", procs)
+            codes = wait_all(procs) + codes
+            walls.insert(0, time.perf_counter() - t0 - walls[0])
+            outs = [read_log(p) for p in two + one]
+            if codes != [0, 0, 0] or not all("dist_lm: OK" in o
+                                              for o in outs):
+                raise AssertionError(f"24b entry: rc {codes}: "
+                                     + "\n".join(o[-2000:] for o in outs))
+            losses = [re.findall(r"step (\d+) loss=(\S+)", o)
+                      + re.findall(r"(final) loss (\S+)", o) for o in outs]
+            if losses[0] != losses[1]:
+                raise AssertionError(f"the 2 ranks print other losses: "
+                                     f"{losses[:2]}")
+            worst = max(abs(float(a[1]) - float(b[1]))
+                        for a, b in zip(losses[0], losses[2]))
+            rates = [re.search(r"\((\d+) tokens/s", o).group(1)
+                     for o in outs[1:]]
+            print(f"dist_lm 2 ranks (24b): {' '.join(ENTRY_ARGS)} as 2 gloo "
+                  f"processes on one card: printed losses {losses[0]}; one "
+                  f"process {losses[2]}; largest difference {worst:.2e} "
+                  f"(tolerance {DP_LOSS_TOL}); tokens/s 2 ranks "
+                  f"{rates[0]}, 1 process {rates[1]} (ratio "
+                  f"{int(rates[0]) / int(rates[1]):.4f}); wall 2 ranks "
+                  f"{walls[0]:.1f} s, 1 process {walls[1]:.1f} s (each run "
+                  f"alone on the card) on {card}", flush=True)
+            if len(losses[0]) != len(losses[2]) or not worst <= DP_LOSS_TOL:
+                raise AssertionError("2 ranks part from one process")
+            rank_logs += two
+
+            corpus = os.path.join(tmp, "corpus.bin")
+            seq = int(DATA_ARGS[DATA_ARGS.index("--seq") + 1])
+            vocab = int(DATA_ARGS[DATA_ARGS.index("--vocab") + 1])
+            start = np.random.default_rng(0).integers(0, vocab,
+                                                      (DATA_ROWS, 1))
+            write_token_records(corpus, ((start + np.arange(seq + 1))
+                                         % vocab).astype(np.int32))
+            data = [*DATA_ARGS, "--data", corpus]
+            ck, twin = os.path.join(tmp, "ck"), os.path.join(tmp, "twin")
+            t1 = time.perf_counter()
+            procs.clear()
+            first = start_ranks(module, data + [
+                "--checkpoint-dir", ck, "--fail-at-step", str(DATA_FAIL_AT)],
+                2, tmp, "first", procs)
+            third = start_ranks(module, data + ["--checkpoint-dir", twin], 2,
+                                tmp, "twin", procs)
+            codes = wait_all(procs)
+            procs.clear()
+            second = start_ranks(module, data + [
+                "--checkpoint-dir", ck, "--fail-at-step", str(DATA_FAIL_AT)],
+                2, tmp, "second", procs)
+            codes += wait_all(procs)
+            data_wall = time.perf_counter() - t1
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        outs = {name: [read_log(p) for p in logs] for name, logs in
+                (("first", first), ("twin", third), ("second", second))}
+        if codes != [138, 138, 0, 0, 0, 0] or not all(
+                f"simulating preemption at step {DATA_FAIL_AT}" in o
+                for o in outs["first"]) or not all(
+                f"dist_lm: resumed from step {DATA_FAIL_AT + 1}" in o
+                and "dist_lm: OK" in o for o in outs["second"]):
+            raise AssertionError(f"24b --data: rc {codes}: " + "\n".join(
+                o[-2000:] for v in outs.values() for o in v))
+        last = checkpoint.latest_step(ck)
+        a = dict(_leaves(checkpoint.read(ck, last)[0]))
+        b = dict(_leaves(checkpoint.read(twin, last)[0]))
+        bitwise = a.keys() == b.keys() and all(torch.equal(a[k], b[k])
+                                               for k in a)
+        final = {name: [re.search(r"final loss (\S+)", o).group(1)
+                        for o in v] for name, v in outs.items()
+                 if name != "first"}
+        rank_logs += first + third + second
+        launches = rank_launches(rank_logs, "24b")
+    print(f"dist_lm --data 2 ranks (24b): {' '.join(DATA_ARGS)}: run 1 "
+          f"exited {codes[:2]} at step {DATA_FAIL_AT}, run 2 resumed from "
+          f"step {DATA_FAIL_AT + 1} and exited {codes[4:]}, the twin "
+          f"{codes[2:4]}; the final checkpoint (step {last}) against the "
+          f"twin's: {'bitwise' if bitwise else 'NOT bitwise'} ({len(a)} "
+          f"tensors); final losses resumed {final['second']} twin "
+          f"{final['twin']}; {data_wall:.1f} s; launches of all 2-rank "
+          f"runs {launches}; {time.perf_counter() - t0:.1f} s on {card}",
+          flush=True)
+    if not bitwise or final["second"] != final["twin"]:
+        raise AssertionError("the resumed 2-process run parts from its twin")
+    return launches
+
+
+def dp_mnist_phase(card: str) -> None:
+    """Phase 24 (c): ``dist_mnist`` as 2 gloo processes on the card."""
+    procs: list = []
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        logs = start_ranks("tf_operator_tpu_torch.train.dist_mnist",
+                           DP_MNIST_ARGS, 2, tmp, "mnist", procs)
+        codes = wait_all(procs)
+        outs = [read_log(p) for p in logs]
+    if codes != [0, 0] or not all(
+            o.rstrip().endswith("dist_mnist: OK")
+            and f"process {r}/2, 2 global devices" in o
+            for r, o in enumerate(outs)):
+        raise AssertionError(f"24c: rc {codes}: "
+                             + "\n".join(o[-2000:] for o in outs))
+    final = [re.search(r"final loss (\S+)", o).group(1) for o in outs]
+    print(f"dist_mnist 2 ranks (24c): {' '.join(DP_MNIST_ARGS)} as 2 gloo "
+          f"processes on one card: both OK, final losses {final}; "
+          f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+
+
+def dp_phase(card: str) -> dict:
+    """Phase 24, (a) to (c); returns {path label: flash launches}."""
+    t0 = time.perf_counter()
+    nccl = dp_nccl_phase(card)
+    entry = dp_entry_phase(card)
+    dp_mnist_phase(card)
+    print(f"phase 24 (data parallelism): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {"dp nccl world 1 (24a)": nccl, "dist_lm 2 ranks (24b)": entry}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -5597,6 +5922,8 @@ def main() -> int:
     moe = moe_phase(pa, base, prompts, card)
     torch.cuda.empty_cache()
     flash_data = record_input_phase(card, resident)
+    torch.cuda.empty_cache()
+    flash_dp = dp_phase(card)
 
     # Each kernel's launches on every path of this run that drives it.
     paths = {
@@ -5641,6 +5968,9 @@ def main() -> int:
             paths[name][label] = n
     for name, n in flash_data.items():
         paths[name]["dist_lm --data (23c)"] = n
+    for label, counts in flash_dp.items():
+        for name, n in counts.items():
+            paths[name][label] = n
 
     src = "tf_operator_tpu_torch/ops/csrc/"
     replaces = {"flash_fwd": 253, "flash_dq": 297, "flash_dkv": 331}

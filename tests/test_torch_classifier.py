@@ -39,6 +39,7 @@ from tf_operator_tpu.parallel.mesh import create_mesh
 from tf_operator_tpu.train import steps as jax_steps
 from tf_operator_tpu_torch.models import convert, resnet
 from tf_operator_tpu_torch.models.mnist import MnistCNN
+from tf_operator_tpu_torch.parallel import mesh as port_mesh
 from tf_operator_tpu_torch.train import checkpoint, steps
 from tf_operator_tpu_torch.train.checkpoint import CheckpointManager
 
@@ -420,10 +421,17 @@ def test_classifier_step_refusals():
         steps.make_classifier_train_step(model, tx, has_batch_stats=False)
     with pytest.raises(ValueError, match="has_batch_stats=True"):
         steps.make_classifier_eval_step(MnistCNN(device="cpu"))
-    with pytest.raises(NotImplementedError, match="A8"):
-        steps.make_classifier_train_step(model, tx, mesh=object())
-    with pytest.raises(NotImplementedError, match="A8"):
-        steps.make_classifier_eval_step(model, mesh=object())
+    # A data-parallel mesh is ported (A8a); expert and pipeline axes
+    # wait for A8e and A8d.
+    with pytest.raises(NotImplementedError, match="A8e"):
+        steps.make_classifier_train_step(model, tx, mesh=port_mesh.create_mesh(
+            {"dp": 1, "ep": 2}, range(2)))
+    with pytest.raises(NotImplementedError, match="A8d"):
+        steps.make_classifier_eval_step(model, mesh=port_mesh.create_mesh(
+            {"dp": 1, "pp": 2}, range(2)))
+    assert steps.make_classifier_eval_step(
+        model, mesh=port_mesh.create_mesh({"dp": 1}, range(1))
+    ).shard_count == 1
     with pytest.raises(ValueError, match="unknown stem"):
         resnet.ResNet(STAGES, stem="conv5", device="cpu")
 

@@ -338,14 +338,16 @@ def test_the_entry_point_under_the_local_executor(tmp_path, monkeypatch):
         time.sleep(0.3)
 
 
-def _jax_rows(path, seq, rows, start_step, count, vocab):
+def _jax_rows(path, seq, rows, start_step, count, vocab, shard_id=0,
+              num_shards=1):
     """examples/dist_lm.py's --data stream over JAX's token_dataset, line
-    for line: row_stream, the first batch's vocab check, the fast-forward
-    of start_step steps; then ``count`` steps' rows."""
+    for line, as process ``shard_id`` of ``num_shards`` reads it (``rows``
+    its local rows): row_stream, the first batch's vocab check, the
+    fast-forward of start_step steps; then ``count`` steps' rows."""
     import itertools
 
     data_iter = jax_token_dataset(path, seq, rows, seed=11, loop=True,
-                                  shard_id=0, num_shards=1)
+                                  shard_id=shard_id, num_shards=num_shards)
 
     def row_stream():
         buf = None
@@ -467,9 +469,21 @@ def test_data_names_the_python_engine_it_falls_back_to(tmp_path,
 
 
 def test_more_than_one_process_waits_for_a8(monkeypatch, capsys):
+    """Several processes train since A8a (tests/test_torch_dist_multi.py);
+    what stays refused, before any peer is met, is a topology the port
+    cannot join: processes with no coordinator, a multislice job."""
+    monkeypatch.delenv("TPU_COORDINATOR_ADDRESS", raising=False)
+    monkeypatch.delenv("TF_CONFIG", raising=False)
     monkeypatch.setenv("TPU_NUM_PROCESSES", "2")
     monkeypatch.setenv("TPU_WORKER_ID", "1")
     with pytest.raises(SystemExit) as exc:
         dist_lm.main(["--device", "cpu"])
     assert exc.value.code == 2
-    assert "ROADMAP A8" in capsys.readouterr().err
+    assert ("2 training processes need TPU_COORDINATOR_ADDRESS"
+            in capsys.readouterr().err)
+    monkeypatch.setenv("TPU_COORDINATOR_ADDRESS", "127.0.0.1:1")
+    monkeypatch.setenv("MEGASCALE_NUM_SLICES", "2")
+    with pytest.raises(SystemExit) as exc:
+        dist_lm.main(["--device", "cpu"])
+    assert exc.value.code == 2
+    assert "ROADMAP A8a's remainder" in capsys.readouterr().err

@@ -40,7 +40,8 @@ def _env(**extra):
                                                              ""))
     for key in (protocol.ENV_ACK_FILE, protocol.ENV_CKPT_DIR,
                 protocol.ENV_RESUME_STEP, "TF_CONFIG", "TPU_WORKER_ID",
-                "TPU_NUM_PROCESSES", "TPU_COORDINATOR_ADDRESS"):
+                "TPU_NUM_PROCESSES", "TPU_COORDINATOR_ADDRESS",
+                "MEGASCALE_NUM_SLICES"):
         env.pop(key, None)
     env.update(extra)
     return env
@@ -127,11 +128,23 @@ def test_evaluator_follows_the_checkpoints_to_done(tmp_path):
 @pytest.mark.parametrize("argv,env,code,message", [
     (["--fail-at-step", "3"], {}, 2,
      "--fail-at-step requires --checkpoint-dir"),
-    ([], {"TF_CONFIG": json.dumps({"cluster": {"worker": ["a:1", "b:1"]},
-                                   "task": {"type": "worker", "index": 0}})},
-     2, "2 training processes wait for ROADMAP A8 (multi-device)"),
-    ([], {"TPU_NUM_PROCESSES": "4", "TPU_WORKER_ID": "1"}, 2,
-     "4 training processes wait for ROADMAP A8"),
+    # Several processes train since A8a (tests/test_torch_dist_multi.py);
+    # the two cases that refused them now hold the topologies the port
+    # still refuses, before it meets any peer: a multislice job and
+    # processes with no coordinator.
+    pytest.param(
+        [], {"TF_CONFIG": json.dumps({"cluster": {"worker": [
+            "127.0.0.1:1", "127.0.0.1:2"]}, "task": {"type": "worker",
+                                                       "index": 0}}),
+             "MEGASCALE_NUM_SLICES": "2"},
+        2, "MEGASCALE_NUM_SLICES=2: training across slices (the dcn axis) "
+           "waits for ROADMAP A8a's remainder",
+        id="argv1-env1-2-2 training processes wait for ROADMAP A8 "
+           "(multi-device)"),
+    pytest.param(
+        [], {"TPU_NUM_PROCESSES": "4", "TPU_WORKER_ID": "1"}, 2,
+        "4 training processes need TPU_COORDINATOR_ADDRESS",
+        id="argv2-env2-2-4 training processes wait for ROADMAP A8"),
     ([], {"TF_CONFIG": EVALUATOR}, 2,
      "dist_mnist eval: --checkpoint-dir is required"),
 ])

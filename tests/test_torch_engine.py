@@ -27,6 +27,7 @@ from tf_operator_tpu.models.transformer import (
 from tf_operator_tpu.serve.engine import ContinuousEngine as JaxEngine
 from tf_operator_tpu_torch.models.convert import init_params
 from tf_operator_tpu_torch.models.transformer import TransformerConfig
+from tf_operator_tpu_torch.parallel import mesh as port_mesh
 from tf_operator_tpu_torch.serve.engine import ContinuousEngine
 from test_serve_engine import (
     CFG as MATRIX_CFG,
@@ -220,10 +221,13 @@ def test_config_rejects_unported_options():
     for flags in ({"kv_int8": True}, {"int8_decode": True},
                   {"kv_int8": True, "int8_decode": True}):
         assert TransformerConfig(**flags)
-    # MoE (A9b) is ported; meshes wait for A8.
+    # MoE (A9b) is ported, and so are data-parallel meshes (A8a); a
+    # tensor-parallel mesh waits for A8b.
     assert TransformerConfig(moe_every_n=2).uses_moe(1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A8"):
-        TransformerConfig(mesh=object())
+    dp = port_mesh.create_mesh({"dp": 1}, range(1))
+    assert TransformerConfig(mesh=dp).mesh is dp
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A8b"):
+        TransformerConfig(mesh=port_mesh.create_mesh({"tp": 2}, range(2)))
     with pytest.raises(ValueError, match="kv_paged"):
         TransformerConfig(kv_attend="kernel")
     with pytest.raises(ValueError, match="kv_attend"):

@@ -33,6 +33,7 @@ from tf_operator_tpu_torch.models.transformer import (
     TransformerConfig,
 )
 from tf_operator_tpu_torch.ops import flash_attention as fa
+from tf_operator_tpu_torch.parallel import mesh as port_mesh
 from tf_operator_tpu_torch.train import steps
 
 torch.set_num_threads(1)
@@ -220,8 +221,13 @@ def test_eval_runs_the_flash_forward_only(monkeypatch):
 
 def test_unported_options_raise():
     _, model, state, _ = _setup()
-    with pytest.raises(NotImplementedError, match="A8"):
-        steps.make_lm_eval_step(model, mesh=object())
+    # A data-parallel mesh is ported (A8a); sequence parallelism waits
+    # for A8c.
+    with pytest.raises(NotImplementedError, match="A8c"):
+        steps.make_lm_eval_step(model, mesh=port_mesh.create_mesh(
+            {"dp": 1, "sp": 2}, range(2)))
+    assert steps.make_lm_eval_step(model, mesh=port_mesh.create_mesh(
+        {"dp": 1}, range(1))).shard_count == 1
     decode = Transformer(replace(model.cfg, decode=True), device="cpu")
     with pytest.raises(ValueError, match="decode=False"):
         steps.make_lm_eval_step(decode)

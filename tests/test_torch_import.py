@@ -56,19 +56,20 @@ def test_package_imports_with_jax_and_the_reference_poisoned():
     # pipeline; the package builds its C++ with g++ only when called),
     # ops (4: _build,
     # flash_attention, int8_dense, paged_attention), runtime (2: metrics,
-    # tracing), serve (11: coalesce, constrain, disagg, engine, kvcache,
-    # faultinject, resilience, scheduler, httpapi, serve_lm, tier), train
-    # (7: checkpoint, data, device_input, dist_lm, dist_mnist,
-    # distributed, steps), utils (1: signals), random and testing, and the
-    # eight packages.
-    assert int(out.stdout.split()[-1]) >= 43
+    # tracing), parallel (2: mesh, sharding), serve (11: coalesce,
+    # constrain, disagg, engine, kvcache, faultinject, resilience,
+    # scheduler, httpapi, serve_lm, tier), train (8: checkpoint, data, dcn,
+    # device_input, dist_lm, dist_mnist, distributed, steps), utils (1:
+    # signals), random and testing, and the nine packages.
+    assert int(out.stdout.split()[-1]) >= 47
     for name in ("serve.constrain", "models.spec_decode", "ckpt.protocol",
                  "utils.signals", "train.checkpoint", "train.dist_lm",
                  "serve.disagg", "serve.tier", "serve.coalesce",
                  "models.resnet", "models.mnist", "train.data",
                  "train.device_input", "train.distributed",
                  "train.dist_mnist", "models.moe", "native",
-                 "native.pipeline", "native.augment"):
+                 "native.pipeline", "native.augment", "parallel",
+                 "parallel.mesh", "parallel.sharding", "train.dcn"):
         assert f"tf_operator_tpu_torch.{name}" in out.stdout.split()
 
 

@@ -40,6 +40,7 @@ from tf_operator_tpu_torch.models.transformer import (
     Transformer,
     TransformerConfig,
 )
+from tf_operator_tpu_torch.parallel import mesh as port_mesh
 from tf_operator_tpu_torch.train import steps
 
 torch.set_num_threads(1)
@@ -291,8 +292,15 @@ def test_unported_options_raise():
     _, tcfg = _configs("mha")
     model = Transformer(tcfg, device="cpu")
     tx = steps.adamw(1e-3)
-    with pytest.raises(NotImplementedError, match="A8"):
-        steps.make_lm_train_step(model, tx, mesh=object())
+    # A data-parallel mesh is ported (A8a); tensor parallelism waits for
+    # A8b.
+    with pytest.raises(NotImplementedError, match="A8b"):
+        steps.make_lm_train_step(model, tx, mesh=port_mesh.create_mesh(
+            {"dp": 1, "tp": 2}, range(2)))
+    one = steps.make_lm_train_step(model, tx, mesh=port_mesh.create_mesh(
+        {"dp": 1}, range(1)))
+    _, m = one(steps.TrainState.create(model, tx), _batch(0))
+    assert np.isfinite(float(m["loss"]))
     # The MoE aux loss is ported: a dense model's step reports it as 0.
     _, metrics = steps.make_lm_train_step(model, tx, aux_loss_weight=0.01)(
         steps.TrainState.create(model, tx), _batch(0))

@@ -9,7 +9,13 @@ A dropped choice contributes nothing; the token keeps its residual.
 The load-balancing loss is the Switch form over first choices,
 ``n_experts * sum(fraction_tokens * fraction_probs)``, taken before any
 drop; ``MoeMlp`` returns it beside its output (JAX sows it into the
-``losses`` collection).
+``losses`` collection). Under data parallelism (``data_parallel``, which
+the train step attaches) both fractions are means over the GLOBAL batch,
+as JAX's are over its sharded one: each rank's means are summed over the
+data group (``frac_probs`` through an all-reduce that autograd sees) and
+divided by its size before the product. Capacity and dispatch stay per
+routing group, and a group never straddles two examples, so they stay on
+the rank.
 
 JAX routes with one-hot ``dispatch``/``combine`` tensors ``[G, S, E,
 C]`` and einsums. ``top_k_dispatch`` builds those tensors, bitwise
@@ -163,6 +169,9 @@ class MoeMlp(nn.Module):
     d]`` (f32 and trainable in training, ``cfg.dtype`` in a decode
     model's ``store``). Without a ``store``, trainable on ``device``."""
 
+    # Set by parallel/sharding.py::attach; None: the local batch.
+    data_parallel = None
+
     def __init__(self, cfg: MoeConfig, store: _Store | None = None, *,
                  device=None):
         super().__init__()
@@ -207,7 +216,12 @@ class MoeMlp(nn.Module):
         top_idx, gates, probs, cap = self.route(x)
         n_groups, group, k = top_idx.shape
         slot, keep, first = _positions(top_idx, cfg.n_experts, cap)
-        aux = cfg.n_experts * (first.mean((0, 1)) * probs.mean((0, 1))).sum()
+        frac_tokens, frac_probs = first.mean((0, 1)), probs.mean((0, 1))
+        dp = self.data_parallel
+        if dp is not None:
+            frac_tokens = dp.mean(frac_tokens)
+            frac_probs = dp.sum(frac_probs) / dp.size
+        aux = cfg.n_experts * (frac_tokens * frac_probs).sum()
 
         # Dispatch: each kept choice's token into [E, G, C + 1, D]; dropped
         # choices all land in the spare slot C, which is cut off.

@@ -134,7 +134,18 @@ class BatchNorm(nn.Module):
     ``F.batch_norm`` call that normalises: it writes the batch mean and
     the unbiased variance into scratch buffers (momentum 1), and the
     biased variance is that times (n - 1) / n. The output keeps the
-    input's dtype, the convs' compute dtype."""
+    input's dtype, the convs' compute dtype.
+
+    Under data parallelism (``data_parallel``, a ``DataParallel`` the
+    train step attaches; ``parallel/sharding.py::attach``) the statistics
+    are the GLOBAL batch's, as flax's are inside JAX's one jit over the
+    sharded batch: each rank's per-channel sums of x and x^2 in f32 are
+    summed over the data group by an all-reduce that autograd sees, and
+    the mean and biased variance (flax's ``E[x^2] - E[x]^2``, clipped at
+    0) use the global count."""
+
+    # Set by parallel/sharding.py::attach; None: the local batch.
+    data_parallel = None
 
     def __init__(self, features: int, device=None) -> None:
         super().__init__()
@@ -147,6 +158,8 @@ class BatchNorm(nn.Module):
         if not train:
             return F.batch_norm(x, self.mean, self.var, self.scale,
                                 self.bias, False, 0.0, BN_EPS)
+        if self.data_parallel is not None:
+            return self._global_forward(x, self.data_parallel)
         batch_mean = torch.zeros_like(self.mean)
         batch_var = torch.ones_like(self.var)
         y = F.batch_norm(x, batch_mean, batch_var, self.scale, self.bias,
@@ -157,6 +170,22 @@ class BatchNorm(nn.Module):
             self.mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * batch_mean)
             self.var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * biased)
         return y
+
+    def _global_forward(self, x: torch.Tensor, dp) -> torch.Tensor:
+        c = x.shape[1]
+        xf = x.float()
+        dims = (0, 2, 3)
+        sums = dp.sum(torch.cat([xf.sum(dims), (xf * xf).sum(dims)]))
+        n = x.numel() // c * dp.size
+        mean, mean2 = sums[:c] / n, sums[c:] / n
+        var = torch.clamp_min(mean2 - mean * mean, 0.0)
+        mul = torch.rsqrt(var + BN_EPS) * self.scale
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[
+            :, None, None]
+        with torch.no_grad():
+            self.mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mean)
+            self.var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * var)
+        return y.to(x.dtype)
 
 
 class Dense(nn.Module):

@@ -22,8 +22,10 @@ scales, from ``models/convert.py::quantize_decode_params``) and
 ``kv_int8`` (K/V stored as int8 with one f32 scale per token and head,
 ``_kv8_quant``). Every ``moe_every_n``-th block routes its MLP through
 ``models/moe.py``'s experts, in both modes; its weights stay unquantized
-under ``int8_decode``. Meshes are a later slice (``mesh`` raises, naming
-ROADMAP.md A8).
+under ``int8_decode``. ``mesh`` takes a data-parallel mesh
+(``parallel/mesh.py``), which changes nothing in the model: the train
+step averages over it. A mesh that shards the sequence, the heads, the
+experts or the layers raises, naming ROADMAP.md A8c, A8b, A8e or A8d.
 
 The cache is an explicit dict of tensors, updated IN PLACE where the
 JAX model rebuilt its ``cache`` collection:
@@ -124,7 +126,8 @@ class TransformerConfig:
     moe_experts: int = 8
     moe_capacity_factor: float = 1.25
     moe_top_k: int = 1  # 1 = Switch, 2 = GShard top-2
-    # Not ported yet: meshes, ROADMAP.md A8.
+    # A data-parallel mesh (parallel/mesh.py); sp, tp, ep and pp wait for
+    # ROADMAP.md A8b-A8e.
     mesh: Any = None
 
     # The fields that fix the params tree's shapes; the MoE ones only when
@@ -142,10 +145,12 @@ class TransformerConfig:
         return {f: getattr(self, f) for f in fields}
 
     def __post_init__(self):
-        if self.mesh:
-            raise NotImplementedError(
-                "TransformerConfig.mesh is not ported yet: see ROADMAP.md "
-                "A8 (multi-device)")
+        if self.mesh is not None:
+            from tf_operator_tpu_torch.parallel.mesh import (
+                check_data_parallel,
+            )
+
+            check_data_parallel(self.mesh, "TransformerConfig.mesh")
         if self.n_kv_heads is not None and (
             self.n_kv_heads <= 0 or self.n_heads % self.n_kv_heads
         ):

@@ -104,7 +104,8 @@ their seed. It answers ``{"tokens": [...]}``; the structured fields are a
 the requests in the window and in flight are answered before it exits.
 
 Flags of ROADMAP items the port has not ported exit naming the item, and
-never run another path instead: ``--tp``/``--dp`` and ``--from-pp`` (A8).
+never run another path instead: ``--tp``/``--dp`` (A8b) and
+``--from-pp`` (A8d).
 
 Speculative decoding (``--spec-k K``): the engine decodes in rounds, a
 draft of ``--spec-draft-layers`` layers (default max(1, layers // 2), the
@@ -190,10 +191,10 @@ from tf_operator_tpu_torch.serve.tier import HostTier
 
 # Flags of ROADMAP items the port has not ported: (flag, set?, item).
 UNPORTED_FLAGS = (
-    ("--tp", lambda a: a.tp > 1, "A8 (multi-device)"),
-    ("--dp", lambda a: a.dp > 1, "A8 (multi-device)"),
+    ("--tp", lambda a: a.tp > 1, "A8b (tensor and data parallel serving)"),
+    ("--dp", lambda a: a.dp > 1, "A8b (tensor and data parallel serving)"),
     ("--from-pp", lambda a: a.from_pp is not None,
-     "A8 (multi-device: pipeline trees)"),
+     "A8d (pipelines: pipeline trees)"),
 )
 
 
@@ -238,13 +239,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "the +1-chain task at startup)")
     p.add_argument("--from-pp", type=int, default=None, metavar="PP",
                    help="a pipelined (dist_lm --pp) checkpoint: waits for "
-                        "ROADMAP A8")
+                        "ROADMAP A8d")
     p.add_argument("--train-steps", type=int, default=150,
                    help="quick-train steps of the +1-chain task from the "
                         "seeded init (0 serves the init)")
     p.add_argument("--lr", type=float, default=5e-3)
-    p.add_argument("--tp", type=int, default=1, help="waits for A8")
-    p.add_argument("--dp", type=int, default=1, help="waits for A8")
+    p.add_argument("--tp", type=int, default=1, help="waits for A8b")
+    p.add_argument("--dp", type=int, default=1, help="waits for A8b")
     p.add_argument("--int8", action="store_true",
                    help="weight-only int8 decode (kernel B5)")
     p.add_argument("--kv-int8", action="store_true",

@@ -43,6 +43,14 @@ moments IN PLACE: so ``save`` copies every tensor to the host before it
 returns, and only the file writes run on the background thread. One
 write is in flight at a time (``save`` waits for the previous one, as
 orbax does).
+
+Under several processes (a ``torch.distributed`` world) the state is
+replicated, so the primary process (rank 0) alone writes: two ranks
+renaming the same step into place would race. Every rank reads and
+restores from the shared directory, and every rank's ``maybe_ack`` names
+only a step that ``latest_step`` lists; ``ack`` first drains the
+primary's write and meets the other ranks at a barrier, so every rank's
+durable ack names the step just written.
 """
 
 from __future__ import annotations
@@ -251,6 +259,10 @@ class CheckpointManager:
     Checkpoint coordination: when ``ack_path`` is set (defaulting to the
     operator-injected $TPU_CKPT_ACK_FILE), ``ack()``/``maybe_ack()`` write
     the durable-save report (ckpt/protocol.py).
+
+    ``primary`` is whether this process writes: rank 0 of the default
+    process group, or the one process without one. On another rank
+    ``save`` writes nothing and returns False.
     """
 
     def __init__(self, directory: str, *, max_to_keep: int | None = 3,
@@ -270,6 +282,9 @@ class CheckpointManager:
                                           thread_name_prefix="ckpt-write")
         self._pending: Future | None = None
         self._pending_step: int | None = None
+        from tf_operator_tpu_torch.train.distributed import world
+
+        self.primary = world()[0] == 0
 
     @property
     def directory(self) -> str:
@@ -302,6 +317,8 @@ class CheckpointManager:
         ``force``, already saved or being saved: the checkpoint the
         caller wants is there, as orbax's refusal to overwrite means."""
         step = int(step)
+        if not self.primary:
+            return False
         if not force and not self._should_save(step):
             return False
         self.wait()
@@ -396,8 +413,14 @@ class CheckpointManager:
 
         Always REWRITES the file, even when the step is unchanged: the
         executor's relay treats "the ack file changed after the signal was
-        delivered" as the ack."""
+        delivered" as the ack.
+
+        Under several processes every rank must call it at the same step:
+        it meets the others at a barrier after the primary's write."""
+        from tf_operator_tpu_torch.train.distributed import barrier
+
         self.wait()
+        barrier()
         return self._write_ack(self.latest_step(), again=True)
 
     def maybe_ack(self) -> int | None:

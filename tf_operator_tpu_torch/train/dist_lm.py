@@ -1,11 +1,22 @@
-"""LM training as an operator-launched job, on one device of the port.
+"""LM training as an operator-launched job: one process a device, data
+parallel over the processes.
 
     python -m tf_operator_tpu_torch.train.dist_lm [--device cpu] [flags]
 
-The port's entry point for ``examples/dist_lm.py``'s single-device path,
+The port's entry point for ``examples/dist_lm.py``'s data-parallel path,
 over ``make_lm_train_step``, with the same flags, names and defaults,
 plus ``--device`` (default ``cuda``: without a card it raises rather
-than training on the CPU, which it does only under ``--device cpu``).
+than training on the CPU, which it does only under ``--device cpu``) and
+``--dist-backend`` (``nccl`` on the card, ``gloo`` on the CPU by
+default; two processes sharing one card need ``gloo``).
+
+The operator's topology (``train/distributed.py``: ``TPU_WORKER_ID`` /
+``TPU_NUM_PROCESSES`` / ``TPU_COORDINATOR_ADDRESS``, or a TF_CONFIG of
+several workers) starts one ``torch.distributed`` world, and the step
+runs over the mesh ``{"dp": processes}``: each process trains on its
+rows of the ``--batch`` global rows, and the gradients are averaged.
+The state starts replicated from process 0; process 0 alone writes
+checkpoints, every process restores them.
 The model is the example's: 4 heads, ``d_ff = 2 d_model``, f32, from
 ``init_params(cfg, 0)``. On the card the flash kernels take head dims
 32, 64 and 128, so at 4 heads ``--d-model`` 128, 256 or 512; any other
@@ -13,12 +24,14 @@ width raises there, by design.
 
 Data is the synthetic next-token task (tokens advance by +1 mod vocab),
 seeded by step (``np.random.default_rng((7, step))``), so a resumed run
-sees the batches an uninterrupted one would; or, with ``--data``, a
+sees the batches an uninterrupted one would; every process builds the
+same global batch and keeps its rows. With ``--data``, a
 token-record file (``train/data.py::write_token_records``: rows of
-``--seq`` + 1 int32 ids) streamed through ``token_dataset`` (the native
-record pipeline, seed 11, looping) as the example streams it: this
-process's shard of every epoch, re-batched to exactly ``--batch`` rows a
-step with an epoch's leftover rows carried into the next step; the first
+``--seq`` + 1 int32 ids) is streamed through ``token_dataset`` (the
+native record pipeline, seed 11, looping) as the example streams it:
+process ``i`` of ``n`` reads shard ``i`` of ``n`` of every epoch,
+re-batched to exactly ``--batch / n`` rows a step with an epoch's
+leftover rows carried into the next step; the first
 batch's largest id must be below ``--vocab``, and a resumed run skips
 the rows of the steps it restored. The run fails (exit 1) when the final
 loss misses ``--target-loss``.
@@ -28,21 +41,25 @@ with ``--checkpoint-dir`` (or the operator-injected ``TPU_CKPT_DIR``)
 every step is saved (``--checkpoint-interval``) and the newest committed
 step acked; the operator's eviction signal, which the local executor
 delivers as a graceful SIGTERM, becomes a forced save and a durable ack,
-and training goes on; resume honours ``TPU_RESUME_STEP``.
-``--fail-at-step`` simulates a preemption: drain the writes, exit 138,
-once (a resumed run does not fire it again). Before it exits the run
-prints the flash kernels' launches (``launches_line``).
+and training goes on; resume honours ``TPU_RESUME_STEP``. The signal
+reaches each process at its own moment, so the processes agree on it
+each step (an all-reduce MAX of the flag) and take the forced save at
+one step. ``--fail-at-step`` simulates a preemption: drain the writes,
+meet at a barrier, every process exits 138, once (a resumed run does not
+fire it again). Before it exits the run prints the flash kernels'
+launches (``launches_line``).
 
 ``--moe-every-n`` swaps every Nth block's MLP for a routed expert MLP
 (``--moe-experts``, ``--moe-top-k``: Switch at 1, GShard top-2 at 2), and
 the step adds the load-balancing loss at weight 0.01, as the example's.
 
 Flags of unported items exit with a usage error naming the ROADMAP
-item: ``--sp``, ``--tp``, ``--pp*``, ``--ep`` and ``--ring-impl`` (A8),
-and so does a topology of more than one process (``TPU_NUM_PROCESSES``,
-a TF_CONFIG of several workers). The example's checks of ``--ep``
-against the MoE flags keep their meaning, and so does its refusal of
-``--data`` beside ``--sp``/``--tp``: those flags are refused as A8.
+item: ``--sp`` and ``--ring-impl`` (A8c), ``--tp`` (A8b), ``--pp*``
+(A8d), ``--ep`` (A8e); so does a multislice job (``MEGASCALE_NUM_SLICES``
+> 1: the dcn leg's entry point, A8a's remainder) and several processes
+with no coordinator to meet at. The example's checks of ``--ep`` against
+the MoE flags keep their meaning, and so does its refusal of ``--data``
+beside ``--sp``/``--tp``: those flags are refused as above.
 """
 
 from __future__ import annotations
@@ -53,17 +70,23 @@ import os
 import sys
 import time
 
+from tf_operator_tpu_torch.train.distributed import (
+    add_dist_backend,
+    check_topology,
+)
+
 # Flags of ROADMAP items the port has not ported: (flag, set?, item).
 UNPORTED_FLAGS = (
-    ("--sp", lambda a: a.sp > 1, "A8 (multi-device)"),
-    ("--tp", lambda a: a.tp > 1, "A8 (multi-device)"),
-    ("--pp", lambda a: a.pp > 1, "A8 (multi-device)"),
+    ("--sp", lambda a: a.sp > 1, "A8c (sequence parallel)"),
+    ("--tp", lambda a: a.tp > 1, "A8b (tensor parallel)"),
+    ("--pp", lambda a: a.pp > 1, "A8d (pipelines)"),
     ("--pp-microbatches", lambda a: a.pp_microbatches != 2,
-     "A8 (multi-device)"),
+     "A8d (pipelines)"),
     ("--pp-schedule", lambda a: a.pp_schedule != "gpipe",
-     "A8 (multi-device)"),
-    ("--ep", lambda a: a.ep > 1, "A8 (multi-device)"),
-    ("--ring-impl", lambda a: a.ring_impl != "auto", "A8 (multi-device)"),
+     "A8d (pipelines)"),
+    ("--ep", lambda a: a.ep > 1, "A8e (expert parallel)"),
+    ("--ring-impl", lambda a: a.ring_impl != "auto",
+     "A8c (sequence parallel)"),
 )
 
 
@@ -96,8 +119,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="grouped-query attention: K/V heads (must divide "
                         "the 4 query heads)")
     p.add_argument("--layers", type=int, default=2)
-    p.add_argument("--sp", type=int, default=1, help="waits for A8")
-    p.add_argument("--tp", type=int, default=1, help="waits for A8")
+    add_dist_backend(p)
+    p.add_argument("--sp", type=int, default=1, help="waits for A8c")
+    p.add_argument("--tp", type=int, default=1, help="waits for A8b")
     p.add_argument("--lr", type=float, default=3e-3)
     p.add_argument("--target-loss", type=float, default=1.0)
     p.add_argument("--xent-chunk", type=int, default=None,
@@ -106,19 +130,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="rematerialize blocks (long-context memory)")
     p.add_argument("--ring-impl", default="auto",
                    choices=("auto", "stream", "flash", "ulysses"),
-                   help="waits for A8")
+                   help="waits for A8c")
     p.add_argument("--moe-every-n", type=int, default=None,
                    help="swap every Nth block's MLP for a routed expert "
                         "MLP (models/moe.py); enables the MoE path")
     p.add_argument("--moe-experts", type=int, default=8)
     p.add_argument("--moe-top-k", type=int, default=2,
                    help="1 = Switch, 2 = GShard top-2")
-    p.add_argument("--ep", type=int, default=1, help="waits for A8")
-    p.add_argument("--pp", type=int, default=1, help="waits for A8")
+    p.add_argument("--ep", type=int, default=1, help="waits for A8e")
+    p.add_argument("--pp", type=int, default=1, help="waits for A8d")
     p.add_argument("--pp-microbatches", type=int, default=2,
-                   help="waits for A8")
+                   help="waits for A8d")
     p.add_argument("--pp-schedule", choices=("gpipe", "1f1b"),
-                   default="gpipe", help="waits for A8")
+                   default="gpipe", help="waits for A8d")
     p.add_argument("--grad-accum", type=int, default=1,
                    help="microbatches per optimizer step (gradients "
                         "averaged into one update)")
@@ -153,9 +177,7 @@ def main(argv: list[str] | None = None) -> int:
     from tf_operator_tpu_torch.train import distributed
 
     topo = distributed.from_env()
-    if topo.num_processes > 1:
-        p.error(f"{topo.num_processes} training processes wait for ROADMAP "
-                f"A8 (multi-device): the port trains on one device")
+    check_topology(p, topo)
 
     # Operator-injected checkpoint contract (ckpt/protocol.py): a
     # replacement pod of a checkpointing job learns its directory even
@@ -184,6 +206,8 @@ def main(argv: list[str] | None = None) -> int:
         Transformer,
         TransformerConfig,
     )
+    from tf_operator_tpu_torch.parallel.mesh import create_mesh
+    from tf_operator_tpu_torch.parallel.sharding import replicate, shard_batch
     from tf_operator_tpu_torch.train.steps import (
         TrainState,
         adamw,
@@ -191,10 +215,23 @@ def main(argv: list[str] | None = None) -> int:
     )
 
     device = resolve_device(args.device)
-    print(f"dist_lm: process {topo.process_id}/{topo.num_processes}, "
+    topo = distributed.initialize(topo, device=device,
+                                  backend=args.dist_backend)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    n = topo.num_processes
+    axes = {"dp": n, "sp": 1, "tp": 1}
+    print(f"dist_lm: process {topo.process_id}/{n}, mesh {axes}, "
           f"device {device}", flush=True)
-    if args.grad_accum < 1 or args.batch % args.grad_accum:
-        raise SystemExit("--grad-accum must divide the batch")
+    mesh = create_mesh(axes, device=device)
+    if args.batch % n:
+        raise SystemExit(
+            "batch must be a multiple of dp and seq a multiple of sp")
+    if args.grad_accum < 1 or args.batch % args.grad_accum or (
+            (args.batch // args.grad_accum) % n):
+        raise SystemExit(
+            "--grad-accum must divide the batch, with each microbatch "
+            "still a multiple of dp")
     if args.xent_chunk is not None:
         if args.xent_chunk <= 0 or args.seq % args.xent_chunk:
             raise SystemExit(
@@ -215,12 +252,12 @@ def main(argv: list[str] | None = None) -> int:
     )
     model = load_params(Transformer(cfg, device), init_params(cfg, 0))
     tx = adamw(args.lr)
-    state = TrainState.create(model, tx)
+    state = replicate(mesh, TrainState.create(model, tx))
     # The load-balancing loss counts only on the MoE path.
     step = make_lm_train_step(model, tx, xent_chunk=chunk,
                               grad_accum=args.grad_accum,
                               aux_loss_weight=0.01 if args.moe_every_n
-                              else 0.0)
+                              else 0.0, mesh=mesh)
 
     ckpt = None
     start_step = 0
@@ -246,19 +283,25 @@ def main(argv: list[str] | None = None) -> int:
         if resumed:
             print(f"dist_lm: resumed from step {start_step}", flush=True)
 
+    local_rows = args.batch // n
+
     def batch_at(step_idx: int) -> dict:
-        # Seeded by step, so resume continues the stream.
+        # Seeded by step, so resume continues the stream; every process
+        # builds the same global batch and keeps its rows.
         rng = np.random.default_rng((7, step_idx))
         start = rng.integers(0, args.vocab, (args.batch, 1))
         chain = (start + np.arange(args.seq + 1)) % args.vocab  # +1 chain
         chain = chain.astype(np.int32)
-        return {"tokens": chain[:, :-1], "targets": chain[:, 1:]}
+        rows = slice(topo.process_id * local_rows,
+                     (topo.process_id + 1) * local_rows)
+        return shard_batch(mesh, {"tokens": chain[rows, :-1],
+                                  "targets": chain[rows, 1:]})
 
     data_iter = None
     if args.data:
-        # The record input: examples/dist_lm.py's lines for its one
-        # process (A8a deals each of several processes its shard); the
-        # rows reach the model's device as the synthetic batches do.
+        # The record input, examples/dist_lm.py's lines: this process
+        # streams ITS shard of every epoch, and shard_batch places its
+        # rows of the global batch.
         from tf_operator_tpu_torch.native import NativeBuildError, load_library
         from tf_operator_tpu_torch.train.data import token_dataset
 
@@ -273,10 +316,13 @@ def main(argv: list[str] | None = None) -> int:
             engine = "python"
         print(f"dist_lm: --data {args.data} through the {engine} record "
               f"engine", flush=True)
-        local_rows = args.batch
+        if args.batch % max(1, n):
+            raise SystemExit(
+                "global batch must be a multiple of num_processes"
+            )
         data_iter = token_dataset(
             args.data, args.seq, local_rows, seed=11, loop=True,
-            engine=engine,
+            engine=engine, shard_id=topo.process_id, num_shards=n,
         )
 
         def row_stream():
@@ -300,16 +346,19 @@ def main(argv: list[str] | None = None) -> int:
         # past the embedding table fails inside the step (on the card, as
         # a device-side assert that ends the process).
         hi = int(first["tokens"].max())
-        if hi >= args.vocab:
+        # Every process stops when any reads a bad id: one that ran on
+        # would wait at the step's all-reduce for a peer that left.
+        if distributed.agree(hi >= args.vocab):
             raise SystemExit(
                 f"--data token id {hi} >= --vocab {args.vocab}"
-            )
+                if hi >= args.vocab else
+                "--data: another process read a token id >= --vocab")
         rows = itertools.chain([first], rows)
         for _ in range(start_step):  # resume continues, never replays
             next(rows)
 
         def next_data(_step_idx):
-            return next(rows)
+            return shard_batch(mesh, next(rows))
     else:
         next_data = batch_at
 
@@ -322,8 +371,9 @@ def main(argv: list[str] | None = None) -> int:
             ckpt.save(i, state)
             # Progress report: the newest COMMITTED step, at no sync cost.
             ckpt.maybe_ack()
-            if (stop_event is not None and stop_event.is_set()
-                    and not evict_acked):
+            # Every process takes the forced save at one step.
+            if (stop_event is not None and not evict_acked
+                    and distributed.agree(stop_event.is_set())):
                 # The eviction checkpoint signal: force-save this step,
                 # drain the writer, ack durably (the operator's barrier
                 # releases on it), then KEEP training: exiting here would
@@ -337,6 +387,7 @@ def main(argv: list[str] | None = None) -> int:
                 and not resumed):
             if ckpt is not None:
                 ckpt.wait()
+            distributed.barrier()
             print(launches_line(), flush=True)
             print(f"dist_lm: simulating preemption at step {i}", flush=True)
             os._exit(138)
@@ -347,6 +398,7 @@ def main(argv: list[str] | None = None) -> int:
         ckpt.close()
     if data_iter is not None:
         data_iter.close()
+    distributed.shutdown()
     print(launches_line(), flush=True)
     if metrics is None:
         print("dist_lm: no steps to run", flush=True)

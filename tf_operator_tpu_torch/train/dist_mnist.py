@@ -1,5 +1,5 @@
-"""MNIST training and evaluation as an operator-launched job, on one
-device of the port.
+"""MNIST training and evaluation as an operator-launched job: one
+process a device, data parallel over the processes.
 
     python -m tf_operator_tpu_torch.train.dist_mnist [--device cpu] [flags]
 
@@ -8,7 +8,13 @@ The port's entry point for ``examples/dist_mnist.py``, over
 weights from ``models/convert.py``'s seeded initialiser, seed 0) and
 ``sgd_momentum``, with the example's flags, defaults and printed lines,
 plus ``--device`` (default ``cuda``: without a card it raises rather
-than training on the CPU, which it does only under ``--device cpu``).
+than training on the CPU, which it does only under ``--device cpu``) and
+``--dist-backend`` (as ``train/dist_lm.py``'s).
+
+The operator's topology (``train/distributed.py``) starts one
+``torch.distributed`` world, and the step runs over the mesh ``{"dp":
+processes}`` from state replicated from process 0: ``--batch`` is each
+process's batch, the global batch ``--batch`` x processes.
 
 Data is ``synthetic_mnist`` seeded by the process index; a resumed run
 skips the batches the steps before it consumed, so it continues the
@@ -20,16 +26,18 @@ Checkpoint coordination, as ``train/dist_lm.py``: with
 ``--checkpoint-interval`` steps are saved (the last step always) and the
 newest committed step acked; the eviction signal becomes a forced save
 and a durable ack, and training goes on; resume honours
-``TPU_RESUME_STEP``. ``--fail-at-step`` simulates a preemption: drain
-the writes, exit 138, once.
+``TPU_RESUME_STEP``. Process 0 alone writes; the processes agree on the
+eviction signal each step. ``--fail-at-step`` simulates a preemption:
+drain the writes, meet at a barrier, every process exits 138, once.
 
 The replica's role comes from ``TF_CONFIG``'s ``task.type``
 (``train/distributed.py``): an ``evaluator`` follows the trainer's
 checkpoints and evaluates each new step on 4 held-out batches
 (``synthetic_mnist`` seed 10,000), printing ``accuracy=``/``loss=``, and
 exits 0 after ``DONE`` at the final step, or 1 after ``--eval-timeout``
-seconds without a new checkpoint. More than one training process exits
-with a usage error naming ROADMAP A8 (multi-device).
+seconds without a new checkpoint. Several processes with no coordinator
+to meet at, and a multislice job, exit with usage errors
+(``distributed.check_topology``).
 """
 
 from __future__ import annotations
@@ -38,6 +46,11 @@ import argparse
 import os
 import sys
 import time
+
+from tf_operator_tpu_torch.train.distributed import (
+    add_dist_backend,
+    check_topology,
+)
 
 HELDOUT_SEED, HELDOUT_BATCHES = 10_000, 4
 
@@ -52,6 +65,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device; raises when it is CUDA and torch "
                         "sees no card (pass 'cpu' for the plain PyTorch "
                         "path)")
+    add_dist_backend(p)
     p.add_argument("--steps", type=int, default=60)
     p.add_argument("--batch", type=int, default=256,
                    help="per-process batch size (global = this x processes)")
@@ -150,9 +164,8 @@ def main(argv: list[str] | None = None) -> int:
     from tf_operator_tpu_torch.train import distributed
 
     topo = distributed.from_env()
-    if topo.num_processes > 1:
-        p.error(f"{topo.num_processes} training processes wait for ROADMAP "
-                f"A8 (multi-device): the port trains on one device")
+    if topo.role != "evaluator":
+        check_topology(p, topo)
 
     from tf_operator_tpu_torch.ckpt import protocol
 
@@ -173,13 +186,21 @@ def main(argv: list[str] | None = None) -> int:
         # the trainer's checkpoints on held-out data.
         return run_evaluator(args, device)
 
+    from tf_operator_tpu_torch.parallel.mesh import create_mesh
+    from tf_operator_tpu_torch.parallel.sharding import replicate, shard_batch
     from tf_operator_tpu_torch.train.data import synthetic_mnist
     from tf_operator_tpu_torch.train.steps import make_classifier_train_step
 
-    print(f"dist_mnist: process {topo.process_id}/{topo.num_processes}, "
-          f"1 global devices, device {device}", flush=True)
+    topo = distributed.initialize(topo, device=device,
+                                  backend=args.dist_backend)
+    n = topo.num_processes
+    print(f"dist_mnist: process {topo.process_id}/{n}, {n} global devices, "
+          f"device {device}", flush=True)
+    mesh = create_mesh({"dp": n}, device=device)
     model, tx, state = _model_and_state(args, device)
-    step = make_classifier_train_step(model, tx, has_batch_stats=False)
+    state = replicate(mesh, state)
+    step = make_classifier_train_step(model, tx, has_batch_stats=False,
+                                      mesh=mesh)
 
     ckpt = None
     start_step = 0
@@ -215,14 +236,15 @@ def main(argv: list[str] | None = None) -> int:
     metrics = None
     evict_acked = False
     for i in range(start_step, args.steps):
-        state, metrics = step(state, next(data))
+        state, metrics = step(state, shard_batch(mesh, next(data)))
         if ckpt is not None:
             # The final step is saved whatever the interval: a follower
             # evaluator finishes on a checkpoint at steps - 1.
             ckpt.save(i, state, force=(i == args.steps - 1))
             ckpt.maybe_ack()
-            if (stop_event is not None and stop_event.is_set()
-                    and not evict_acked):
+            # Every process takes the forced save at one step.
+            if (stop_event is not None and not evict_acked
+                    and distributed.agree(stop_event.is_set())):
                 # The eviction checkpoint signal: force-save this step,
                 # ack durably, then keep training.
                 ckpt.save(i, state, force=True)
@@ -237,6 +259,7 @@ def main(argv: list[str] | None = None) -> int:
             # restarts.
             if ckpt is not None:
                 ckpt.wait()
+            distributed.barrier()
             print(f"dist_mnist: simulating preemption at step {i}",
                   flush=True)
             os._exit(138)
@@ -246,6 +269,7 @@ def main(argv: list[str] | None = None) -> int:
                   f"acc={float(metrics['accuracy']):.3f}", flush=True)
     if ckpt is not None:
         ckpt.close()
+    distributed.shutdown()
     if metrics is None:  # steps <= start_step: no step ran this incarnation
         print("dist_mnist: no steps to run", flush=True)
         return 0

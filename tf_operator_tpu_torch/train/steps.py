@@ -22,9 +22,24 @@ An MoE model's load-balancing loss enters the LM step through
 ``aux_loss_weight``. ``lamb`` and ``adafactor`` are optax's chains written
 as torch optimisers, as ``lars`` is.
 
-Not ported yet: ``sharded_lm_xent``, ``fuse_steps`` (a CUDA graph of the
-step is its counterpart, A5's graph) and meshes (``mesh`` raises, naming
-A8).
+Each step takes a data-parallel ``mesh`` (``parallel/mesh.py``) and
+its ``data_axis`` (a name or a tuple such as ``("dcn", "dp")``): the
+process runs one rank of it. A train step's batch is then this rank's
+rows of the global batch (``shard_batch``); it averages the gradients
+over the data axes with one all-reduce (``DataParallel.mean_grads``) and
+reports the global mean loss (and accuracy), JAX's numbers for the same
+global batch. BatchNorm's statistics and the MoE load-balancing loss are
+taken over the global batch (``attach``). Under ``grad_accum`` > 1 the
+step gathers the batch's rows and deals each rank JAX's microbatch
+shards (``_deal_microbatches``). An eval step takes the GLOBAL padded
+batch, as JAX's ``evaluate`` places the same host batch on every
+process; each rank evaluates its shard and the sums are all-reduced, so
+every rank returns the same numbers. A mesh whose ``sp``, ``tp``,
+``ep`` or ``pp`` axis is above 1 raises, naming ROADMAP A8c, A8b, A8e or
+A8d.
+
+Not ported yet: ``sharded_lm_xent`` (A8b) and ``fuse_steps`` (a CUDA
+graph of the step is its counterpart, A5's graph).
 """
 
 from __future__ import annotations
@@ -40,6 +55,12 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from tf_operator_tpu_torch.models.transformer import Transformer
+from tf_operator_tpu_torch.parallel.mesh import check_data_parallel
+from tf_operator_tpu_torch.parallel.sharding import (
+    DataParallel,
+    attach,
+    data_parallel,
+)
 
 Schedule = Callable[[int], float]
 
@@ -514,10 +535,37 @@ def _on(device, x) -> torch.Tensor:
     return x.to(device)
 
 
+def _step_data_parallel(model: torch.nn.Module, mesh: Any, data_axis: Any,
+                        what: str) -> DataParallel | None:
+    """The step's ``DataParallel`` (None without a mesh), after refusing
+    a mesh that is not data-parallel; hands it to the model's global-batch
+    statistics."""
+    if mesh is None:
+        return None
+    check_data_parallel(mesh, what)
+    dp = data_parallel(mesh, data_axis)
+    attach(model, dp)
+    return dp
+
+
+def _deal_microbatches(dp: DataParallel, x, grad_accum: int
+                       ) -> torch.Tensor:
+    """This rank's rows for ``grad_accum`` microbatches, in order: JAX
+    splits the GLOBAL batch into contiguous microbatches and shards each
+    over the data axes, so rank index r's microbatch i is global rows
+    ``i * mb + r * m`` to ``i * mb + (r + 1) * m`` (mb = B / grad_accum,
+    m = mb / size), gathered from the ranks' rows."""
+    rows = dp.gather_rows(torch.as_tensor(x))
+    mb = rows.shape[0] // grad_accum
+    m = mb // dp.size
+    return torch.cat([rows[i * mb + dp.index * m:i * mb + (dp.index + 1) * m]
+                      for i in range(grad_accum)])
+
+
 def make_lm_train_step(model: Transformer, tx: _Optimiser, *,
                        xent_chunk: int | None = None, xent_dot_dtype=None,
                        grad_accum: int = 1, aux_loss_weight: float = 0.0,
-                       mesh: Any = None):
+                       mesh: Any = None, data_axis: Any = "dp"):
     """The train step for the LM, on one device: the loss (mean token
     cross-entropy; ``chunked_lm_xent`` when ``xent_chunk`` is set, with
     the head product in ``xent_dot_dtype``), its gradients and one
@@ -533,15 +581,15 @@ def make_lm_train_step(model: Transformer, tx: _Optimiser, *,
     microbatches under ``grad_accum``.
 
     ``batch`` is ``{"tokens", "targets"}``, ``[B, S]`` integer tensors or
-    numpy arrays; they are moved to the model's device."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_lm_train_step(mesh=...) is not ported yet: see ROADMAP.md "
-            "A8 (multi-device)")
+    numpy arrays; they are moved to the model's device. Under a ``mesh``
+    they are this rank's rows of the global batch (the module
+    docstring)."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum={grad_accum} must be >= 1")
     if model.cfg.decode:
         raise ValueError("train a model built with decode=False")
+    dp = _step_data_parallel(model, mesh, data_axis, "make_lm_train_step")
+    data_size = dp.size if dp is not None else 1
 
     def loss_fn(tokens, targets):
         """-> (loss, aux or None)."""
@@ -561,12 +609,19 @@ def make_lm_train_step(model: Transformer, tx: _Optimiser, *,
     def step(state: TrainState, batch) -> tuple[TrainState, dict]:
         if state.model is not model:
             raise ValueError("the state holds another model than the step's")
-        tokens = _on(model.device, batch["tokens"])
-        targets = _on(model.device, batch["targets"])
+        tokens, targets = batch["tokens"], batch["targets"]
+        b = tokens.shape[0] * data_size
+        if b % grad_accum or (b // grad_accum) % data_size:
+            raise ValueError(
+                f"batch dim {b} not divisible into grad_accum="
+                f"{grad_accum} microbatches that tile the data axis "
+                f"(size {data_size})")
+        if grad_accum > 1 and data_size > 1:
+            tokens = _deal_microbatches(dp, tokens, grad_accum)
+            targets = _deal_microbatches(dp, targets, grad_accum)
+        tokens = _on(model.device, tokens)
+        targets = _on(model.device, targets)
         b = tokens.shape[0]
-        if b % grad_accum:
-            raise ValueError(f"batch dim {b} not divisible into grad_accum="
-                             f"{grad_accum} microbatches")
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
         mb = b // grad_accum
@@ -582,6 +637,9 @@ def make_lm_train_step(model: Transformer, tx: _Optimiser, *,
         if grad_accum > 1:  # JAX's scan: the sums times 1 / grad_accum
             loss *= 1.0 / grad_accum
             aux_sum *= 1.0 / grad_accum
+        if dp is not None:
+            dp.mean_grads(list(model.parameters()))
+            loss, aux_sum = dp.mean(torch.stack([loss, aux_sum])).unbind()
         lr = tx.learning_rate(state.step)
         for group in opt.param_groups:
             group["lr"] = lr
@@ -613,7 +671,7 @@ def _check_batch_stats(model: torch.nn.Module, has_batch_stats: bool) -> None:
 
 def make_classifier_train_step(model: torch.nn.Module, tx: _Optimiser, *,
                                has_batch_stats: bool = True,
-                               mesh: Any = None):
+                               mesh: Any = None, data_axis: Any = "dp"):
     """The train step for the image classifiers, on one device: the
     forward in training mode (BatchNorm on the batch's statistics, its
     running statistics updated), the mean cross-entropy of the f32
@@ -622,12 +680,12 @@ def make_classifier_train_step(model: torch.nn.Module, tx: _Optimiser, *,
     device scalars.
 
     ``batch`` is ``{"image": [B, H, W, C], "label": [B]}``, numpy arrays
-    or tensors; they are moved to the model's device."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_classifier_train_step(mesh=...) is not ported yet: see "
-            "ROADMAP.md A8 (multi-device)")
+    or tensors; they are moved to the model's device. Under a ``mesh``
+    they are this rank's rows of the global batch, and BatchNorm takes
+    the global batch's statistics."""
     _check_batch_stats(model, has_batch_stats)
+    dp = _step_data_parallel(model, mesh, data_axis,
+                             "make_classifier_train_step")
 
     def step(state: TrainState, batch) -> tuple[TrainState, dict]:
         if state.model is not model:
@@ -639,13 +697,17 @@ def make_classifier_train_step(model: torch.nn.Module, tx: _Optimiser, *,
         logits = model(images, train=True)
         loss = cross_entropy(logits, labels)
         loss.backward()
+        acc = accuracy(logits.detach(), labels)
+        loss = loss.detach()
+        if dp is not None:
+            dp.mean_grads(list(model.parameters()))
+            loss, acc = dp.mean(torch.stack([loss, acc])).unbind()
         lr = tx.learning_rate(state.step)
         for group in opt.param_groups:
             group["lr"] = lr
         opt.step()
         state.step += 1
-        return state, {"loss": loss.detach(),
-                       "accuracy": accuracy(logits.detach(), labels)}
+        return state, {"loss": loss, "accuracy": acc}
 
     return step
 
@@ -697,17 +759,34 @@ def eval_chunk(seq: int, xent_chunk: int) -> int:
                 if seq % c == 0)
 
 
+def _eval_shard(dp: DataParallel | None, batch, fields) -> dict:
+    """This rank's share of a global eval batch: its ``1 / size`` of the
+    rows, at its shard index (all of them without a mesh)."""
+    if dp is None:
+        return {f: batch[f] for f in fields}
+    n = batch[fields[0]].shape[0]
+    if n % dp.size:
+        raise ValueError(f"eval batch of {n} rows does not tile the data "
+                         f"axis (size {dp.size})")
+    per = n // dp.size
+    rows = slice(dp.index * per, (dp.index + 1) * per)
+    return {f: batch[f][rows] for f in fields}
+
+
 class LMEvalStep:
     """``step(state, batch) -> {"loss_sum"}``: the model's forward under
     ``torch.no_grad()`` and the masked chunked loss sums of a batch
     ``{"tokens", "targets", "mask"}`` (numpy arrays or tensors, moved to
-    the model's device). ``shard_count`` is 1: one device."""
+    the model's device). ``shard_count`` is 1 on one device, the data
+    axes' size under a mesh: the batch is then the global one, and the
+    sums every rank returns are the global ones."""
 
-    shard_count = 1
-
-    def __init__(self, model: Transformer, xent_chunk: int) -> None:
+    def __init__(self, model: Transformer, xent_chunk: int,
+                 dp: DataParallel | None = None) -> None:
         self.model = model
         self.xent_chunk = xent_chunk
+        self.dp = dp
+        self.shard_count = dp.size if dp is not None else 1
         self._warned: set[int] = set()
 
     def chunk_for(self, seq: int) -> int:
@@ -728,6 +807,7 @@ class LMEvalStep:
         model = self.model
         if state.model is not model:
             raise ValueError("the state holds another model than the step's")
+        batch = _eval_shard(self.dp, batch, ("tokens", "targets", "mask"))
         tokens = _on(model.device, batch["tokens"])
         targets = _on(model.device, batch["targets"])
         mask = _on(model.device, batch["mask"])
@@ -739,23 +819,24 @@ class LMEvalStep:
             # (a device int32 would wrap past 2^31 tokens).
             loss_sum, _ = chunked_lm_xent_sums(
                 hidden, head.kernel, head.bias, targets, mask, chunk=chunk)
+        if self.dp is not None:
+            self.dp.all_reduce_(loss_sum)
         return {"loss_sum": loss_sum}
 
 
 def make_lm_eval_step(model: Transformer, *, xent_chunk: int = 512,
-                      mesh: Any = None) -> LMEvalStep:
+                      mesh: Any = None, data_axis: Any = "dp"
+                      ) -> LMEvalStep:
     """The LM eval step (the Evaluator-role flow for the transformer):
     MASKED sums (``loss_sum`` f32) so ``evaluate_lm`` can pad every batch
     to one shape, with the ``[B, S, V]`` logits never materialized. The
     chunk is the largest divisor of the sequence <= ``xent_chunk``
     (``eval_chunk``)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_lm_eval_step(mesh=...) is not ported yet: see ROADMAP.md "
-            "A8 (multi-device)")
     if model.cfg.decode:
         raise ValueError("evaluate a model built with decode=False")
-    return LMEvalStep(model, xent_chunk)
+    if mesh is not None:
+        check_data_parallel(mesh, "make_lm_eval_step")
+    return LMEvalStep(model, xent_chunk, data_parallel(mesh, data_axis))
 
 
 def evaluate_lm(eval_step: LMEvalStep, state: TrainState, batches, *,
@@ -789,17 +870,21 @@ class ClassifierEvalStep:
     ``torch.no_grad()``, and MASKED sums over a batch ``{"image",
     "label", "mask"}`` (numpy arrays or tensors, moved to the model's
     device): int32 counts of correct and of real rows (mask > 0), and the
-    f32 loss weighted by the mask. ``shard_count`` is 1: one device."""
+    f32 loss weighted by the mask. ``shard_count`` is 1 on one device, the
+    data axes' size under a mesh: the batch is then the global one, and
+    the sums every rank returns are the global ones."""
 
-    shard_count = 1
-
-    def __init__(self, model: torch.nn.Module) -> None:
+    def __init__(self, model: torch.nn.Module,
+                 dp: DataParallel | None = None) -> None:
         self.model = model
+        self.dp = dp
+        self.shard_count = dp.size if dp is not None else 1
 
     def __call__(self, state: TrainState, batch) -> dict:
         model = self.model
         if state.model is not model:
             raise ValueError("the state holds another model than the step's")
+        batch = _eval_shard(self.dp, batch, ("image", "label", "mask"))
         labels = _on(model.device, batch["label"]).long()
         mask = _on(model.device, batch["mask"])
         with torch.no_grad():
@@ -808,26 +893,28 @@ class ClassifierEvalStep:
                                           reduction="none")
             real = mask > 0
             # Integer counts: an f32 sum would lose exactness past 2^24.
-            return {
-                "correct": ((logits.argmax(-1) == labels) & real).sum(
-                    dtype=torch.int32),
-                "loss_sum": (per_example * mask.float()).sum(),
-                "count": real.sum(dtype=torch.int32),
-            }
+            counts = torch.stack([
+                ((logits.argmax(-1) == labels) & real).sum(dtype=torch.int32),
+                real.sum(dtype=torch.int32)])
+            loss_sum = (per_example * mask.float()).sum()
+            if self.dp is not None:
+                self.dp.all_reduce_(counts)
+                self.dp.all_reduce_(loss_sum)
+        return {"correct": counts[0], "loss_sum": loss_sum,
+                "count": counts[1]}
 
 
 def make_classifier_eval_step(model: torch.nn.Module, *,
                               has_batch_stats: bool = True,
-                              mesh: Any = None) -> ClassifierEvalStep:
+                              mesh: Any = None, data_axis: Any = "dp"
+                              ) -> ClassifierEvalStep:
     """The classifier's eval step (what an Evaluator replica runs against
     the trainer's checkpoints): masked sums, so ``evaluate`` can pad
     every batch to one shape."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_classifier_eval_step(mesh=...) is not ported yet: see "
-            "ROADMAP.md A8 (multi-device)")
     _check_batch_stats(model, has_batch_stats)
-    return ClassifierEvalStep(model)
+    if mesh is not None:
+        check_data_parallel(mesh, "make_classifier_eval_step")
+    return ClassifierEvalStep(model, data_parallel(mesh, data_axis))
 
 
 def evaluate(eval_step: ClassifierEvalStep, state: TrainState, batches, *,
