@@ -341,7 +341,27 @@ Phases, in order; any failure ends the run with a non-zero exit:
     twin, the final checkpoints and losses bitwise; (c) 2-process
     ``dist_mnist`` under gloo at tests/test_examples.py's flags, OK on
     both; the phase's seconds;
-25. the ``kernels`` JSON line (each kernel with its design; B5 as two
+25. tensor-parallel serving (``serve/tp.py``, the engine's ``mesh``,
+    the model's Megatron layout; B4 on every rank, B5 and the kv8 B4
+    under int8): (a) an NCCL world of 1 in this process: phase 7's bf16
+    engine built with ``mesh={"tp": 1}``, so every device operation goes
+    through the command path and every all-reduce and gather through
+    NCCL, in turns with the plain engine (plain, tp, tp, plain): tokens
+    and final logits bitwise the first run's, both decode tokens/s; (b)
+    ``serve_lm``'s front at phase 15's bf16 width, first at ``--tp 1``
+    alone, then at ``--tp 2 --dist-backend gloo`` (rank 0 in this
+    process, its worker a process of its own on the same card), phase
+    15's eight requests each: tokens equal the tp 1 front's but at a
+    ``BF16_TIE`` near-tie, each rank's KV pool half tp 1's bytes,
+    requests/s, TTFT and ITL p50/p99 of both; then one ``step_raise``: the
+    supervisor's rebuild reaches the worker and the greedy request
+    replays; (c) the bf16 int8 + kv8 tree at tp 2 (whole on each rank,
+    B5 at the full projections, the kv8 B4 on each rank's 2 KV heads) in
+    lockstep with the tp 1 engine, teacher-forced, logits within
+    ``LOGIT_TOL``; each path's launches summed over the ranks (a worker's
+    counts reach rank 0 through the ``report`` command); the phase's
+    seconds;
+26. the ``kernels`` JSON line (each kernel with its design; B5 as two
     entries, the weight stream and the wgmma tile, each with its own
     launches; ``paths`` gives each kernel's launches on every path of
     this run that drives it, and ``launches`` is their sum; the paged
@@ -725,6 +745,11 @@ EMBED_REPEATS = 3
 DP_STEPS = 3
 DP_LOSS_TOL = 1e-3
 DP_MNIST_ARGS = ["--steps", "30", "--batch", "64", "--target-loss", "0.8"]
+# Phase 25, tensor-parallel serving at phase 7's bf16 width (16 heads, 4 KV
+# heads: 8 and 2 a rank at tp 2). (b)'s step_raise fires this many steps
+# into its one replayed request.
+TP = 2
+TP_FAULT_AT = 8
 
 
 def entry_flash_shape() -> tuple[int, int, int, int]:
@@ -1514,15 +1539,17 @@ def profile_steps(run, steps: int, label: str) -> dict:
                 events=len(spans) / steps)
 
 
-def engine_run(pa, cfg, params, attend, prompts, profile: int = 0) -> dict:
+def engine_run(pa, cfg, params, attend, prompts, profile: int = 0,
+               mesh=None) -> dict:
     """The schedule of phases 6 and 7 through ContinuousEngine, with every
     serving kernel's count set to 0 just before the first join; with
-    ``profile``, the last that many steps run under the profiler."""
+    ``profile``, the last that many steps run under the profiler; with
+    ``mesh``, the engine of a tensor-parallel world (phase 25 (a))."""
     from tf_operator_tpu_torch.ops import int8_dense as i8
     from tf_operator_tpu_torch.serve.engine import ContinuousEngine
 
     engine = ContinuousEngine(cfg, params, len(prompts), kv_block=BLK,
-                              kv_attend=attend)
+                              kv_attend=attend, mesh=mesh)
     budget = FIRST_STEPS + LATER_STEPS
     pa.launches = pa.kv8_launches = i8.launches = i8.wgmma_launches = 0
     torch.cuda.synchronize()
@@ -1556,6 +1583,7 @@ def engine_run(pa, cfg, params, attend, prompts, profile: int = 0) -> dict:
     # Prefills: one per prompt, and the shared-prefix join's suffix (the
     # exact re-join reuses the registered prompt and prefills nothing).
     out = dict(tokens=np.stack(tokens), kv=engine.kv_debug(),
+               logits=engine._logits.clone(),
                launches=launches, forwards=engine.steps_total,
                prefills=len(prompts) + 1, prefill_s=prefill_s,
                decode_tok_s=len(prompts) * FIRST_STEPS / decode_s,
@@ -5791,6 +5819,266 @@ def dp_phase(card: str) -> dict:
     return {"dp nccl world 1 (24a)": nccl, "dist_lm 2 ranks (24b)": entry}
 
 
+def tp_nccl_phase(pa, base, params, prompts, card) -> int:
+    """Phase 25 (a): phase 7's bf16 engine with ``mesh={"tp": 1}`` over
+    an NCCL world of 1 in this process (every device operation a command,
+    every all-reduce and gather an NCCL call over one rank) in turns with
+    the plain engine: plain, tp, tp, plain, each run's tokens and final
+    logits bitwise the first's. Returns the tp runs' B4 launches."""
+    import torch.distributed as dist
+
+    from tf_operator_tpu_torch.parallel.mesh import create_mesh
+
+    cfg = replace(base, dtype=torch.bfloat16)
+    dist.init_process_group("nccl", store=dist.HashStore(), world_size=1,
+                            rank=0)
+    first, differ, launches = None, [], 0
+    tok_s = {"plain": [], "tp": []}
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}")
+        mesh = create_mesh({"tp": 1}, device="cuda")
+        for i, side in enumerate(("plain", "tp", "tp", "plain")):
+            run = engine_run(pa, cfg, params, "kernel", prompts,
+                             mesh=mesh if side == "tp" else None)
+            if first is None:
+                first = run
+            elif not (np.array_equal(run["tokens"], first["tokens"])
+                      and torch.equal(run["logits"], first["logits"])):
+                differ.append(f"{i} {side}")
+            tok_s[side].append(run["decode_tok_s"])
+            if side == "tp":
+                if run["launches"]["paged_attend"] != (
+                        LAYERS * run["forwards"]):
+                    raise AssertionError(f"25a launches {run['launches']}")
+                launches += run["launches"]["paged_attend"]
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    print(f"tp nccl world 1 (25a): phase 7's bf16 engine, in turns plain, "
+          f"tp, tp, plain: "
+          f"{'every run bitwise the first' if not differ else differ} "
+          f"(tokens {first['tokens'].shape} and final logits); decode "
+          f"tokens/s plain {tok_s['plain']}, tp {tok_s['tp']}; B4 launches "
+          f"of the tp runs {launches} on {card}", flush=True)
+    if differ:
+        raise AssertionError("the tp world of 1 parts from the plain engine")
+    return launches
+
+
+def tp_parting(model, body, got, other):
+    """Where two token runs of one request part: None when identical,
+    else (the first parting step, half the gap there between the two
+    chosen tokens' values, gumbel + the scaled logits for a sampled
+    request, on the single-device run fed ``got``: the least change that
+    flips that decision)."""
+    got, other = np.asarray(got), np.asarray(other)
+    if np.array_equal(got, other):
+        return None
+    step = int(np.flatnonzero(got != other)[0])
+    prompt = torch.as_tensor(np.asarray(body["tokens"]), device=model.device)
+    feed = torch.as_tensor(got[None, :], device=model.device)
+    values, _ = replay_values(model, prompt, feed,
+                              body.get("temperature", 0.0),
+                              body.get("top_p"), body.get("seed", 0),
+                              len(got))
+    row = values[step, 0]
+    return step, abs(row[int(got[step])] - row[int(other[step])]).item() / 2
+
+
+def tp_front_phase(pa, i8, base, params, prompts, card) -> int:
+    """Phase 25 (b): the bf16 front at ``--tp 1`` alone, then at ``--tp 2
+    --dist-backend gloo``, phase 15's eight requests each; the tp 2
+    tokens equal tp 1's but at a ``BF16_TIE`` near-tie, each rank's pool
+    half tp 1's bytes; then one ``step_raise`` replayed across a rebuild
+    that reaches the worker. Returns B4's launches over both ranks."""
+    from tf_operator_tpu_torch.models.transformer import _decode_model
+    from tf_operator_tpu_torch.serve.tp import report
+
+    cfg = replace(base, dtype=torch.bfloat16)
+    bodies = front_requests(prompts)
+    supervisor, server, url = open_front(cfg, params)
+    one_responses, one_wall = send_all(url, bodies)
+    one = latency_line("tp 1 (25b)", one_responses, one_wall)
+    one_tokens = [r["tokens"][0] for r in one_responses]
+    one_pool = supervisor.engine.pool_bytes()
+    server.drain()
+    del supervisor, server
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    supervisor, server, url = open_front(cfg, params, tp=TP,
+                                         dist_backend="gloo")
+    start_s = time.perf_counter() - t0
+    try:
+        reset_counts(pa, i8)
+        before = report(supervisor.engine)
+        responses, wall = send_all(url, bodies)
+        two = latency_line("tp 2 (25b)", responses, wall)
+        faults = supervisor.faults
+        faults.arm(f"step_raise@"
+                   f"{faults.invocations['step_raise'] + TP_FAULT_AT}")
+        replay, _ = send_all(url, bodies[:1])
+        _, health = http(url, "/healthz")
+        rows = report(supervisor.engine)
+        staged = [r["staged_bytes"] - b["staged_bytes"]
+                  for r, b in zip(rows, before)]
+    finally:
+        server.drain()
+    launches = sum(r["paged_launches"] - b["paged_launches"]
+                   for r, b in zip(rows, before))
+    pools = [r["pool_bytes"] for r in rows]
+    model = _decode_model(cfg, params, None)
+    parted = []
+    for i, (body, resp, want) in enumerate(zip(bodies, responses,
+                                               one_tokens)):
+        part = tp_parting(model, body, resp["tokens"][0], want)
+        if part is not None:
+            parted.append((i, *part))
+    replay_part = tp_parting(model, bodies[0], replay[0]["tokens"][0],
+                             responses[0]["tokens"][0])
+    del model
+    torch.cuda.empty_cache()
+    print(f"serve_lm tp 2 (25b): rank 0 in this process, its worker a "
+          f"process on the same card, gloo; world start {start_s:.1f} s; "
+          f"pool bytes a rank {pools} (tp 1 {one_pool}); requests/s "
+          f"{two['rps']:.4f} (tp 1 {one['rps']:.4f}, ratio "
+          f"{two['rps'] / one['rps']:.4f}); TTFT p50/p99 ms "
+          f"{two['ttft'][0]:.3f}/{two['ttft'][1]:.3f} (tp 1 "
+          f"{one['ttft'][0]:.3f}/{one['ttft'][1]:.3f}); ITL p50/p99 ms "
+          f"{two['itl'][0]:.3f}/{two['itl'][1]:.3f} (tp 1 "
+          f"{one['itl'][0]:.3f}/{one['itl'][1]:.3f}); requests parting "
+          f"from tp 1 (request, first step, margin): {parted} (limit "
+          f"{BF16_TIE}); step_raise replay: restarts "
+          f"{health.get('watchdog_restarts')}, parting {replay_part}; bytes "
+          f"staged through the host by rank {staged}; B4 launches over both "
+          f"ranks {launches} on {card}", flush=True)
+    if pools != [one_pool // TP] * TP:
+        raise AssertionError(f"25b pool bytes {pools}, want {one_pool // TP} "
+                             "a rank")
+    if any(m > BF16_TIE for *_, m in parted) or (
+            replay_part is not None and replay_part[1] > BF16_TIE):
+        raise AssertionError("tp 2 parts from tp 1 away from a near-tie")
+    if health.get("watchdog_restarts") != 1 or not launches:
+        raise AssertionError(f"25b: restarts {health}, launches {launches}")
+    return launches
+
+
+def tp_int8_phase(pa, i8, base, params, prompts, card) -> dict:
+    """Phase 25 (c): the bf16 int8 + kv8 tree at tp 2 (whole on each rank,
+    as JAX's; rank 0 here, the worker a process of its own) in lockstep
+    with the tp 1 engine on phase 6's schedule, teacher-forced: after
+    every prefill and step each live lane's logits within ``LOGIT_TOL``
+    of tp 1's, which then takes tp 2's. Returns the tp engine's launches
+    over both ranks (rank 0's counted around its own calls)."""
+    from tf_operator_tpu_torch.models.convert import quantize_decode_params
+    from tf_operator_tpu_torch.serve.engine import ContinuousEngine
+    from tf_operator_tpu_torch.serve.tp import report, start_world
+
+    cfg = replace(base, dtype=torch.bfloat16, int8_decode=True,
+                  kv_int8=True)
+    tree = quantize_decode_params(params)
+    kw = dict(cfg=cfg, max_slots=len(prompts), kv_block=BLK,
+              kv_attend="kernel")
+    names = ("paged_attend", "paged_attend_kv8", "int8_matmul",
+             "int8_matmul_prefill")
+    mine = dict.fromkeys(names, 0)
+
+    def counts():
+        return (pa.launches, pa.kv8_launches, i8.launches - i8.wgmma_launches,
+                i8.wgmma_launches)
+
+    def counted(fn, *args, **kwargs):
+        at = counts()
+        out = fn(*args, **kwargs)
+        for name, a, b in zip(names, at, counts()):
+            mine[name] += b - a
+        return out
+
+    t0 = time.perf_counter()
+    world = start_world(TP, "cuda", "gloo", kw, tree)
+    try:
+        a = ContinuousEngine(params=tree, device="cuda", mesh=world.mesh,
+                             **kw)
+        b = ContinuousEngine(params=tree, device="cuda", **kw)
+        before = report(a)
+        worst, decisions = 0.0, 0
+
+        def compare(slots):
+            nonlocal worst, decisions
+            gap = (a._logits[slots] - b._logits[slots]).abs().max().item()
+            worst = max(worst, gap if math.isfinite(gap) else math.inf)
+            decisions += len(slots)
+            b._logits = a._logits.clone()
+
+        def join(prompt, steps):
+            slot = counted(a.join, prompt, num_steps=steps)
+            if b.join(prompt, num_steps=steps) != slot:
+                raise AssertionError("25c engines joined other slots")
+            compare([slot])
+
+        def step(n):
+            for _ in range(n):
+                ta = counted(a.step)
+                tb = b.step()
+                live = np.flatnonzero(a._active)
+                if not np.array_equal(ta[live], tb[live]):
+                    raise AssertionError("25c teacher-forced tokens differ")
+                compare(live.tolist())
+
+        for p in prompts:
+            join(p, FIRST_STEPS + LATER_STEPS)
+        step(FIRST_STEPS)
+        for engine in (a, b):
+            engine.retire(2)
+            engine.retire(3)
+        for p in later_prompts(prompts, cfg.vocab_size):
+            join(p, LATER_STEPS)
+        step(LATER_STEPS)
+        rows = report(a)
+        pools = [r["pool_bytes"] for r in rows]
+        one_pool = b.pool_bytes()
+        kv = a.kv_debug()
+    finally:
+        world.close()
+    worker = {name: sum(r[key] - s[key] for r, s in zip(rows[1:],
+                                                         before[1:]))
+              for name, key in zip(names, ("paged_launches", "kv8_launches",
+                                           "int8_launches",
+                                           "int8_wgmma_launches"))}
+    worker["int8_matmul"] -= worker["int8_matmul_prefill"]
+    launches = {name: mine[name] + worker[name] for name in names}
+    print(f"serve_lm tp 2 int8kv8 (25c): bf16 int8 + kv8 at tp 2 against "
+          f"tp 1 in lockstep, teacher-forced: {decisions} decisions, logits "
+          f"at most {worst:.4e} apart (tolerance {LOGIT_TOL}); pool bytes a "
+          f"rank {pools} (tp 1 {one_pool}); kv {kv}; launches rank 0 "
+          f"{mine}, worker {worker}; {time.perf_counter() - t0:.1f} s on "
+          f"{card}", flush=True)
+    if not worst <= LOGIT_TOL:
+        raise AssertionError("25c: tp 2 int8 + kv8 parts from tp 1")
+    if pools != [one_pool // TP] * TP:
+        raise AssertionError(f"25c pool bytes {pools}")
+    if launches["paged_attend"] or not all(
+            launches[n] for n in names[1:]):
+        raise AssertionError(f"25c launches {launches}")
+    return launches
+
+
+def tp_phase(pa, i8, base, params, prompts, card) -> dict:
+    """Phase 25, (a) to (c); returns {kernel: {path label: launches}}."""
+    t0 = time.perf_counter()
+    nccl = tp_nccl_phase(pa, base, params, prompts, card)
+    front = tp_front_phase(pa, i8, base, params, prompts, card)
+    int8 = tp_int8_phase(pa, i8, base, params, prompts, card)
+    print(f"phase 25 (tensor-parallel serving): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    label = "serve_lm tp 2 int8kv8 (25c)"
+    return {"paged_attend": {"tp nccl world 1 (25a)": nccl,
+                             "serve_lm tp 2 (25b)": front},
+            **{name: {label: n} for name, n in int8.items()
+               if name != "paged_attend"}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -5924,6 +6212,8 @@ def main() -> int:
     flash_data = record_input_phase(card, resident)
     torch.cuda.empty_cache()
     flash_dp = dp_phase(card)
+    torch.cuda.empty_cache()
+    tp = tp_phase(pa, i8, base, params, prompts, card)
 
     # Each kernel's launches on every path of this run that drives it.
     paths = {
@@ -5971,6 +6261,8 @@ def main() -> int:
     for label, counts in flash_dp.items():
         for name, n in counts.items():
             paths[name][label] = n
+    for name, by_path in tp.items():
+        paths[name].update(by_path)
 
     src = "tf_operator_tpu_torch/ops/csrc/"
     replaces = {"flash_fwd": 253, "flash_dq": 297, "flash_dkv": 331}

@@ -129,16 +129,14 @@ def test_evaluator_follows_the_checkpoints_to_done(tmp_path):
     (["--fail-at-step", "3"], {}, 2,
      "--fail-at-step requires --checkpoint-dir"),
     # Several processes train since A8a (tests/test_torch_dist_multi.py);
-    # the two cases that refused them now hold the topologies the port
-    # still refuses, before it meets any peer: a multislice job and
-    # processes with no coordinator.
+    # the two cases that refused them now hold the topology the port still
+    # refuses, before it meets any peer: processes with no coordinator. A
+    # multislice job is no longer refused (each slice is a world of its
+    # own, as in JAX), so its case pins that the refusal holds inside one.
     pytest.param(
-        [], {"TF_CONFIG": json.dumps({"cluster": {"worker": [
-            "127.0.0.1:1", "127.0.0.1:2"]}, "task": {"type": "worker",
-                                                       "index": 0}}),
-             "MEGASCALE_NUM_SLICES": "2"},
-        2, "MEGASCALE_NUM_SLICES=2: training across slices (the dcn axis) "
-           "waits for ROADMAP A8a's remainder",
+        [], {"TPU_NUM_PROCESSES": "2", "TPU_WORKER_ID": "0",
+             "MEGASCALE_NUM_SLICES": "2", "MEGASCALE_SLICE_ID": "1"},
+        2, "2 training processes need TPU_COORDINATOR_ADDRESS",
         id="argv1-env1-2-2 training processes wait for ROADMAP A8 "
            "(multi-device)"),
     pytest.param(

@@ -398,7 +398,7 @@ def test_mesh_groups_span_the_world_or_refuse_part_of_it():
     for r in results:
         got = r["groups"]
         assert got["both"] and got["none"]
-        assert "A8a's multislice remainder" in got["dp"]
+        assert "A8b's second half" in got["dp"]
 
 
 def _randomized(tree, rng):

@@ -222,7 +222,9 @@ def test_config_rejects_unported_options():
                   {"kv_int8": True, "int8_decode": True}):
         assert TransformerConfig(**flags)
     # MoE (A9b) is ported, and so are data-parallel meshes (A8a); a
-    # tensor-parallel mesh waits for A8b.
+    # tensor-parallel mesh serves decode (A8b's first half,
+    # tests/test_torch_tp.py) and training over one waits for A8b's
+    # second half.
     assert TransformerConfig(moe_every_n=2).uses_moe(1)
     dp = port_mesh.create_mesh({"dp": 1}, range(1))
     assert TransformerConfig(mesh=dp).mesh is dp

@@ -26,7 +26,7 @@ from tf_operator_tpu_torch.models.resnet import ResNet
 from tf_operator_tpu_torch.random import PRNGKey
 from tf_operator_tpu_torch.serve import serve_lm
 from tf_operator_tpu_torch.serve.engine import ContinuousEngine
-from tf_operator_tpu_torch.train import dist_lm, dist_mnist
+from tf_operator_tpu_torch.train import dist_lm, dist_mnist, dist_multislice
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(REPO, "tf_operator_tpu_torch")
@@ -56,12 +56,13 @@ def test_package_imports_with_jax_and_the_reference_poisoned():
     # pipeline; the package builds its C++ with g++ only when called),
     # ops (4: _build,
     # flash_attention, int8_dense, paged_attention), runtime (2: metrics,
-    # tracing), parallel (2: mesh, sharding), serve (11: coalesce,
+    # tracing), parallel (2: mesh, sharding), serve (13: coalesce,
     # constrain, disagg, engine, kvcache, faultinject, resilience,
-    # scheduler, httpapi, serve_lm, tier), train (8: checkpoint, data, dcn,
-    # device_input, dist_lm, dist_mnist, distributed, steps), utils (1:
-    # signals), random and testing, and the nine packages.
-    assert int(out.stdout.split()[-1]) >= 47
+    # scheduler, httpapi, serve_lm, sharding, tier, tp), train (9:
+    # checkpoint, data, dcn, device_input, dist_lm, dist_mnist,
+    # dist_multislice, distributed, steps), utils (1: signals), random and
+    # testing, and the nine packages.
+    assert int(out.stdout.split()[-1]) >= 50
     for name in ("serve.constrain", "models.spec_decode", "ckpt.protocol",
                  "utils.signals", "train.checkpoint", "train.dist_lm",
                  "serve.disagg", "serve.tier", "serve.coalesce",
@@ -69,7 +70,8 @@ def test_package_imports_with_jax_and_the_reference_poisoned():
                  "train.device_input", "train.distributed",
                  "train.dist_mnist", "models.moe", "native",
                  "native.pipeline", "native.augment", "parallel",
-                 "parallel.mesh", "parallel.sharding", "train.dcn"):
+                 "parallel.mesh", "parallel.sharding", "train.dcn",
+                 "serve.sharding", "serve.tp", "train.dist_multislice"):
         assert f"tf_operator_tpu_torch.{name}" in out.stdout.split()
 
 
@@ -130,6 +132,8 @@ def test_default_device_is_the_card(monkeypatch):
         dist_lm.main(["--steps", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dist_mnist.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dist_multislice.main(["--steps", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ResNet((1, 1))
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -171,6 +171,24 @@ def test_model_parallel_meshes_name_their_item(axis, item):
     ("fsdp_sharding_tree", "A8e"), ("shard_params_fsdp", "A8e"),
     ("weight_update_shardings", "A8e")])
 def test_placements_of_later_items_raise(name, item):
+    if item == "A8b":
+        # Ported with A8b's first half (tests/test_torch_tp.py holds them
+        # against JAX): a rule's axis that does not tile leaves the leaf
+        # whole; one that tiles gives each rank its slice.
+        m = mesh.create_mesh({"tp": 2}, range(2))
+        tree = {"a": {"kernel": np.arange(12.0).reshape(3, 4)},
+                "b": {"kernel": np.arange(6.0).reshape(3, 2)}}
+        rules = {"a/kernel": ("tp", None), "b/kernel": (None, "tp")}
+        if name == "sharding_tree_by_rules":
+            assert getattr(sharding, name)(m, tree, rules) == {
+                "a": {"kernel": ()}, "b": {"kernel": (None, "tp")}}
+        else:
+            got = getattr(sharding, name)(m, tree, rules, rank=1)
+            np.testing.assert_array_equal(got["a"]["kernel"],
+                                          tree["a"]["kernel"])
+            np.testing.assert_array_equal(got["b"]["kernel"],
+                                          tree["b"]["kernel"][:, 1:])
+        return
     with pytest.raises(NotImplementedError, match=f"{name}.*{item}"):
         getattr(sharding, name)(None, {})
 

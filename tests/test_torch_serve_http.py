@@ -369,8 +369,14 @@ def test_fleet_router_serves_a_port_replica(front):
 
 
 @pytest.mark.parametrize("argv,reason", [
-    (["--tp", "2"], "ROADMAP A8"),
+    # --tp serves since A8b's first half (tests/test_torch_tp.py): the
+    # case pins a combination that still waits for A8b's second half.
+    pytest.param(["--tp", "2", "--spec-k", "2"], "ROADMAP A8",
+                 id="argv0-ROADMAP A8"),
     (["--dp", "2"], "ROADMAP A8"),
+    (["--tp", "2", "--host-tier-bytes", "1000"], "A8b's second half"),
+    (["--tp", "2", "--role", "prefill"], "A8b's second half"),
+    (["--tp", "3"], "tp=3 must divide n_heads"),
     (["--spec-k", "2", "--int8"], "does not compose with --int8"),
     (["--logprobs-k", "-1"], "--logprobs-k must be >= 0"),
     (["--constrain-rows", "0"], "--constrain-rows must be >= 1"),

@@ -24,8 +24,25 @@ scales, from ``models/convert.py::quantize_decode_params``) and
 ``models/moe.py``'s experts, in both modes; its weights stay unquantized
 under ``int8_decode``. ``mesh`` takes a data-parallel mesh
 (``parallel/mesh.py``), which changes nothing in the model: the train
-step averages over it. A mesh that shards the sequence, the heads, the
-experts or the layers raises, naming ROADMAP.md A8c, A8b, A8e or A8d.
+step averages over it. A mesh that shards the sequence, the experts or
+the layers raises, naming ROADMAP.md A8c, A8e or A8d.
+
+A decode model over a mesh with a ``tp`` axis is this rank's part of a
+tensor-parallel model (``param_sharding_rules``, JAX's Megatron pairs):
+the qkv (or q and kv) projections split on heads and ``mlp/in_proj`` on
+``d_ff``; ``attn/out`` and ``mlp/out_proj`` split on their input and sum
+their partial products with one all-reduce, then add their bias; the
+embedding splits on the vocabulary (a masked lookup, whose rows from
+other ranks are exact zeros, then an all-reduce) and so does the head,
+whose logits are all-gathered in rank order. A leaf that does not tile
+stays whole, as the rules leave it: KV heads fewer than tp (every rank
+keeps every KV head and reads the ones its query heads group to), an odd
+vocabulary or ``d_ff``. An ``int8_decode`` tree stays whole on every
+rank, as JAX replicates it: each rank runs the full projections and keeps
+its heads' share of the K/V, and the heads' attention outputs are
+all-gathered before the whole out-projection. The KV storage holds this
+rank's ``KV/tp`` heads either way. Training over a ``tp`` mesh waits for
+ROADMAP.md A8b's second half.
 
 The cache is an explicit dict of tensors, updated IN PLACE where the
 JAX model rebuilt its ``cache`` collection:
@@ -126,8 +143,8 @@ class TransformerConfig:
     moe_experts: int = 8
     moe_capacity_factor: float = 1.25
     moe_top_k: int = 1  # 1 = Switch, 2 = GShard top-2
-    # A data-parallel mesh (parallel/mesh.py); sp, tp, ep and pp wait for
-    # ROADMAP.md A8b-A8e.
+    # A data-parallel mesh (parallel/mesh.py), or a tensor-parallel one in
+    # decode mode; sp, ep and pp wait for ROADMAP.md A8c-A8e.
     mesh: Any = None
 
     # The fields that fix the params tree's shapes; the MoE ones only when
@@ -148,9 +165,23 @@ class TransformerConfig:
         if self.mesh is not None:
             from tf_operator_tpu_torch.parallel.mesh import (
                 check_data_parallel,
+                check_tensor_parallel,
             )
 
-            check_data_parallel(self.mesh, "TransformerConfig.mesh")
+            if self.decode and "tp" in self.mesh.axis_names:
+                tp = check_tensor_parallel(self.mesh,
+                                           "TransformerConfig.mesh")
+                if self.n_heads % tp:
+                    raise ValueError(
+                        f"tp={tp} must divide n_heads={self.n_heads} (each "
+                        "rank holds n_heads / tp query heads)")
+                if (self.kv_attend == "kernel" and tp > 1
+                        and self.kv_heads % tp):
+                    raise ValueError(
+                        f"paged_attend: KV={self.kv_heads} does not tile "
+                        f"tp={tp} — use kv_attend='gather' for this mesh")
+            else:
+                check_data_parallel(self.mesh, "TransformerConfig.mesh")
         if self.n_kv_heads is not None and (
             self.n_kv_heads <= 0 or self.n_heads % self.n_kv_heads
         ):
@@ -196,14 +227,71 @@ class TransformerConfig:
         return self.n_kv_heads or self.n_heads
 
 
+@dataclass(frozen=True)
+class TpPlan:
+    """This rank's part of a tensor-parallel decode model: ``tp`` (the
+    ``TensorParallel``), whether the weights are split (``split``; an
+    int8 tree is whole on every rank), and the ``(start, length)`` it
+    holds of the query heads, the KV heads, ``d_ff`` and the vocabulary,
+    None where the dimension does not tile tp (whole on every rank)."""
+
+    tp: Any
+    split: bool
+    heads: tuple
+    kv: tuple | None
+    ff: tuple | None
+    vocab: tuple | None
+
+
+def tp_plan(cfg: TransformerConfig) -> TpPlan | None:
+    """The ``TpPlan`` of a decode config over a mesh with a ``tp`` axis
+    (None otherwise), from ``parallel/sharding.py``'s ``TensorParallel``
+    of the mesh: what ``param_sharding_rules`` gives this rank."""
+    if (cfg.mesh is None or not cfg.decode
+            or "tp" not in cfg.mesh.axis_names):
+        return None
+    from tf_operator_tpu_torch.parallel.sharding import TensorParallel
+
+    tp = TensorParallel(cfg.mesh, "tp")
+    n, r = tp.size, tp.index
+
+    def part(total: int):
+        return None if total % n else (r * (total // n), total // n)
+
+    return TpPlan(tp=tp, split=not cfg.int8_decode,
+                  heads=part(cfg.n_heads), kv=part(cfg.kv_heads),
+                  ff=part(cfg.d_ff), vocab=part(cfg.vocab_size))
+
+
+def param_sharding_rules(tp_axis: str = "tp") -> dict[str, tuple]:
+    """JAX's tensor-parallel rules (path substring -> spec): QKV and the
+    MLP's in-projection split their output, the out-projections their
+    input, the embedding and the head the vocabulary (the Megatron
+    pairing: one all-reduce a block a direction)."""
+    return {
+        "qkv/kernel": (None, None, tp_axis, None),  # [d_model,3,heads,head_dim]
+        # GQA split projections: q shards its head dim like qkv; kv shards
+        # the KV-head dim (kept whole when n_kv_heads % tp != 0).
+        "attn/q/kernel": (None, tp_axis, None),  # [d_model,heads,head_dim]
+        "attn/kv/kernel": (None, None, tp_axis, None),  # [d,2,kv,head_dim]
+        "attn/out/kernel": (tp_axis, None, None),  # [heads,head_dim,d_model]
+        "mlp/in_proj/kernel": (None, tp_axis),  # [d_model,d_ff]
+        "mlp/out_proj/kernel": (tp_axis, None),  # [d_ff,d_model]
+        "embed/embedding": (tp_axis, None),  # vocab split
+        "lm_head/kernel": (None, tp_axis),  # vocab split
+    }
+
+
 class _Store:
     """Where a module keeps its weights: f32 and trainable (training), or
     in the compute ``dtype`` with no gradient (``decode``)."""
 
-    def __init__(self, dtype: torch.dtype, decode: bool, device):
+    def __init__(self, dtype: torch.dtype, decode: bool, device,
+                 plan: "TpPlan | None" = None):
         self.dtype = dtype if decode else torch.float32
         self.trainable = not decode
         self.device = device
+        self.plan = plan
 
     def param(self, shape, dtype=None) -> nn.Parameter:
         dtype = dtype or self.dtype
@@ -227,22 +315,37 @@ class DenseGeneral(nn.Module):
     """flax ``DenseGeneral`` over the trailing ``in_shape`` axes: kernel
     ``[*in_shape, *out_shape]``, bias ``[*out_shape]``, computed in
     ``dtype`` (flax promotes inputs and params to ``dtype``; a weight
-    already stored in it is not copied)."""
+    already stored in it is not copied).
+
+    A rank's part of a tensor-parallel projection keeps the whole bias, as
+    the rules leave it: ``bias_slice`` ``(dim, start, length)`` is its
+    columns of it (a projection split on its output), and ``reduce`` (a
+    ``TensorParallel``) sums the partial products over the ranks before
+    the bias is added (a projection split on its input)."""
 
     def __init__(self, in_shape, out_shape, dtype, store: _Store,
-                 param_dtype=None):
+                 param_dtype=None, *, bias_shape=None, bias_slice=None,
+                 reduce=None):
         super().__init__()
         self.in_shape, self.out_shape = tuple(in_shape), tuple(out_shape)
         self.dtype = dtype
         self.kernel = store.param(self.in_shape + self.out_shape, param_dtype)
-        self.bias = store.param(self.out_shape, param_dtype)
+        self.bias = store.param(tuple(bias_shape or self.out_shape),
+                                param_dtype)
+        self.bias_slice = bias_slice
+        self.reduce = reduce
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[: x.dim() - len(self.in_shape)]
         k, n = math.prod(self.in_shape), math.prod(self.out_shape)
         dt = self.dtype
-        y = (x.reshape(*lead, k).to(dt) @ self.kernel.reshape(k, n).to(dt)
-             + self.bias.reshape(n).to(dt))
+        y = x.reshape(*lead, k).to(dt) @ self.kernel.reshape(k, n).to(dt)
+        if self.reduce is not None:
+            self.reduce.all_reduce_(y)
+        bias = self.bias
+        if self.bias_slice is not None:
+            bias = bias.narrow(*self.bias_slice)
+        y = y + bias.reshape(n).to(dt)
         return y.reshape(*lead, *self.out_shape)
 
 
@@ -302,6 +405,25 @@ class Embed(nn.Module):
         return F.embedding(ids, self.weight).to(self.dtype)
 
 
+class VocabEmbed(Embed):
+    """A rank's rows ``[start, start + num)`` of a vocabulary-split
+    embedding (decode only): a gather of the ids it holds, exact zeros
+    for the others, then the all-reduce over ``tp`` that adds the one
+    rank's row to the other ranks' zeros."""
+
+    def __init__(self, num, features, dtype, store: _Store, *, start: int,
+                 tp):
+        super().__init__(num, features, dtype, store)
+        self.start, self.tp = int(start), tp
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        local = ids.long() - self.start
+        held = (local >= 0) & (local < self.weight.shape[0])
+        rows = self.weight[local.clamp(0, self.weight.shape[0] - 1)]
+        out = torch.where(held[..., None], rows, 0).to(self.dtype)
+        return self.tp.all_reduce_(out)
+
+
 class RMSNorm(nn.Module):
     """flax ``nn.RMSNorm``: f32 statistics, eps 1e-6, ``x * (rsqrt(var +
     eps) * scale)`` in f32, cast to ``dtype``."""
@@ -325,6 +447,39 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         d, h, dh, kv = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.kv_heads
+        plan = self.plan = store.plan
+        # Under tp: which query and K/V heads this rank attends over (the
+        # slices taken after whole int8 projections), and, when KV does
+        # not tile, the KV head each of its query heads reads.
+        self.head_cut = self.kv_cut = self.kv_map = None
+        if plan is not None:
+            (hlo, hn), kvc = plan.heads, plan.kv
+            self.kv_map = (None if kvc is not None else torch.arange(
+                hlo, hlo + hn, device=store.device) // (h // kv))
+            if not plan.split:
+                self.head_cut, self.kv_cut = (hlo, hn), kvc
+        if plan is not None and plan.split:
+            # Megatron pairs: q/kv (or qkv) split on heads, the whole bias
+            # sliced; out split on its input and all-reduced.
+            (hlo, hn), kvc = plan.heads, plan.kv
+            if cfg.n_kv_heads is not None:
+                self.q = DenseGeneral((d,), (hn, dh), cfg.dtype, store,
+                                      bias_shape=(h, dh),
+                                      bias_slice=(0, hlo, hn))
+                if kvc is None:
+                    self.kv = DenseGeneral((d,), (2, kv, dh), cfg.dtype,
+                                           store)
+                else:
+                    self.kv = DenseGeneral((d,), (2, kvc[1], dh), cfg.dtype,
+                                           store, bias_shape=(2, kv, dh),
+                                           bias_slice=(1, *kvc))
+            else:
+                self.qkv = DenseGeneral((d,), (3, hn, dh), cfg.dtype, store,
+                                        bias_shape=(3, h, dh),
+                                        bias_slice=(1, hlo, hn))
+            self.out = DenseGeneral((hn, dh), (d,), cfg.dtype, store,
+                                    reduce=plan.tp)
+            return
         if cfg.n_kv_heads is not None:
             # GQA: separate projections, K/V carry only kv_heads.
             self.q = _dense(cfg, store, (d,), (h, dh))
@@ -332,6 +487,11 @@ class Attention(nn.Module):
         else:
             self.qkv = _dense(cfg, store, (d,), (3, h, dh))
         self.out = _dense(cfg, store, (h, dh), (d,))
+
+    def _heads(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The K/V heads (on ``dim``) each of this rank's query heads
+        reads, one a query head, when KV does not tile tp; else ``x``."""
+        return x if self.kv_map is None else x.index_select(dim, self.kv_map)
 
     def forward(self, x, layer: dict | None = None, cache: dict | None = None,
                 live=None) -> torch.Tensor:
@@ -342,6 +502,11 @@ class Attention(nn.Module):
         else:
             qkv = self.qkv(x)
             q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        if self.head_cut is not None:
+            # Whole int8 projections: this rank's heads of their outputs.
+            q = q.narrow(2, *self.head_cut).contiguous()
+            if self.kv_cut is not None:
+                k, v = k.narrow(2, *self.kv_cut), v.narrow(2, *self.kv_cut)
         if not self.cfg.decode:
             out = self._attend(q, k, v)
         elif "pool_key" in layer:
@@ -351,6 +516,9 @@ class Attention(nn.Module):
             )
         else:
             out = self._decode_attend(q, k, v, layer, cache["cache_index"])
+        if self.head_cut is not None:
+            # The heads' outputs meet the whole int8 out-projection.
+            out = self.plan.tp.all_gather(out, 2)
         return self.out(out)
 
     def _attend(self, q, k, v):
@@ -375,8 +543,6 @@ class Attention(nn.Module):
         if isinstance(idx, torch.Tensor):
             return self._decode_attend_lanes(q, k, v, layer, idx)
         b, t, h, dh = q.shape
-        kv = k.shape[2]
-        g = h // kv
         ck, cv = layer["cached_key"], layer["cached_value"]
         if idx + t > ck.shape[1]:
             raise ValueError(
@@ -391,13 +557,16 @@ class Attention(nn.Module):
         ck[:, idx:idx + t] = k
         cv[:, idx:idx + t] = v
         n = idx + t
-        keys, vals = ck[:, :n].float(), cv[:, :n].float()
+        keys = self._heads(ck[:, :n], 2).float()
+        vals = self._heads(cv[:, :n], 2).float()
+        kv = keys.shape[2]
+        g = h // kv
         qg = q.reshape(b, t, kv, g, dh).float()
         s = torch.einsum("bqkgd,bskd->bkgqs", qg, keys)
         if kv8:
             # The kv8 factoring: the raw int8 keys' scores times the key
             # scale, then Dh^-1/2; the value scale on the probabilities.
-            s = s * _scale_cols(layer["key_scale"][:, :n])
+            s = s * _scale_cols(self._heads(layer["key_scale"][:, :n], 2))
         s = s * dh ** -0.5
         rows = torch.arange(t, device=q.device)
         valid = (torch.arange(n, device=q.device)[None, :]
@@ -405,7 +574,7 @@ class Attention(nn.Module):
         s = torch.where(valid, s, _NEG_INF)
         p = torch.softmax(s, dim=-1)
         if kv8:
-            p = p * _scale_cols(layer["value_scale"][:, :n])
+            p = p * _scale_cols(self._heads(layer["value_scale"][:, :n], 2))
         out = torch.einsum("bkgqs,bskd->bqkgd", p, vals)
         return out.reshape(b, t, h, dh).to(self.cfg.dtype)
 
@@ -418,8 +587,6 @@ class Attention(nn.Module):
         masked. No host sync: the engine's budget keeps every live lane's
         rows inside the cache."""
         b, t, h, dh = q.shape
-        kv = k.shape[2]
-        g = h // kv
         ck, cv = layer["cached_key"], layer["cached_value"]
         n = ck.shape[1]
         steps = torch.arange(t, device=q.device)
@@ -432,18 +599,22 @@ class Attention(nn.Module):
             layer["value_scale"][lanes, rows] = vs
         ck[lanes, rows] = k.to(ck.dtype)
         cv[lanes, rows] = v.to(cv.dtype)
+        keys = self._heads(ck, 2).float()
+        kv = keys.shape[2]
+        g = h // kv
         qg = q.reshape(b, t, kv, g, dh).float()
-        s = torch.einsum("bqkgd,bskd->bkgqs", qg, ck.float())
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg, keys)
         if kv8:
-            s = s * _scale_cols(layer["key_scale"])
+            s = s * _scale_cols(self._heads(layer["key_scale"], 2))
         s = s * dh ** -0.5
         valid = (torch.arange(n, device=q.device)[None, None, :]
                  <= (idx.long()[:, None] + steps[None, :])[:, :, None])
         s = torch.where(valid[:, None, None], s, _NEG_INF)  # [b, t, n]
         p = torch.softmax(s, dim=-1)
         if kv8:
-            p = p * _scale_cols(layer["value_scale"])
-        out = torch.einsum("bkgqs,bskd->bqkgd", p, cv.float())
+            p = p * _scale_cols(self._heads(layer["value_scale"], 2))
+        out = torch.einsum("bkgqs,bskd->bqkgd", p,
+                           self._heads(cv, 2).float())
         return out.reshape(b, t, h, dh).to(self.cfg.dtype)
 
     def _decode_attend_paged(self, q, k, v, layer: dict, table, idx, live):
@@ -474,6 +645,12 @@ class Attention(nn.Module):
             pool = layer[name]
             pool.view(nb * blk, *pool.shape[2:])[rows] = x[live].reshape(
                 -1, *pool.shape[2:])
+        if self.kv_map is not None:
+            # KV does not tile tp (the kernel read refuses it): the gather
+            # reads each query head's KV head.
+            return paged_attend_reference(
+                q, pool_k, layer["pool_value"], table, idx,
+                kv_heads=self.kv_map, **scales).to(self.cfg.dtype)
         attend = (paged_attend if self.cfg.kv_attend == "kernel"
                   else paged_attend_reference)
         return attend(q, pool_k, layer["pool_value"], table, idx,
@@ -528,6 +705,17 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 class MLP(nn.Module):
     def __init__(self, cfg: TransformerConfig, store: _Store):
         super().__init__()
+        plan = store.plan
+        if plan is not None and plan.split and plan.ff is not None:
+            # in_proj split on d_ff (its bias sliced), out_proj on its
+            # input, all-reduced.
+            lo, n = plan.ff
+            self.in_proj = DenseGeneral((cfg.d_model,), (n,), cfg.dtype,
+                                        store, bias_shape=(cfg.d_ff,),
+                                        bias_slice=(0, lo, n))
+            self.out_proj = DenseGeneral((n,), (cfg.d_model,), cfg.dtype,
+                                         store, reduce=plan.tp)
+            return
         self.in_proj = _dense(cfg, store, (cfg.d_model,), (cfg.d_ff,))
         self.out_proj = _dense(cfg, store, (cfg.d_ff,), (cfg.d_model,))
 
@@ -580,9 +768,14 @@ class Transformer(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device)
-        store = _Store(cfg.dtype, cfg.decode, self.device)
+        plan = self.tp_plan = tp_plan(cfg)
+        store = _Store(cfg.dtype, cfg.decode, self.device, plan)
         dt = cfg.dtype
-        self.embed = Embed(cfg.vocab_size, cfg.d_model, dt, store)
+        if plan is not None and plan.split and plan.vocab is not None:
+            self.embed = VocabEmbed(plan.vocab[1], cfg.d_model, dt, store,
+                                    start=plan.vocab[0], tp=plan.tp)
+        else:
+            self.embed = Embed(cfg.vocab_size, cfg.d_model, dt, store)
         self.pos = Embed(cfg.max_seq_len, cfg.d_model, dt, store)
         self.blocks = nn.ModuleList(
             Block(cfg, store, use_moe=cfg.uses_moe(i))
@@ -593,6 +786,14 @@ class Transformer(nn.Module):
         if cfg.decode and cfg.int8_decode:
             self.lm_head = Int8Dense((cfg.d_model,), (cfg.vocab_size,),
                                      torch.float32, store)
+        elif plan is not None and plan.split and plan.vocab is not None:
+            # The vocabulary split: this rank's columns, the whole bias
+            # sliced; _head_logits gathers the ranks' logits.
+            lo, n = plan.vocab
+            self.lm_head = DenseGeneral(
+                (cfg.d_model,), (n,), torch.float32, store,
+                param_dtype=torch.float32, bias_shape=(cfg.vocab_size,),
+                bias_slice=(0, lo, n))
         else:
             self.lm_head = DenseGeneral((cfg.d_model,), (cfg.vocab_size,),
                                         torch.float32, store,
@@ -602,13 +803,22 @@ class Transformer(nn.Module):
         """What fixes the params tree's shapes (the config's)."""
         return self.cfg.shape_fields()
 
+    @property
+    def kv_heads(self) -> int:
+        """The K/V heads this model's caches hold: the config's, or under
+        tp this rank's ``KV/tp`` (every KV head when KV does not tile)."""
+        plan = self.tp_plan
+        if plan is not None and plan.kv is not None:
+            return plan.kv[1]
+        return self.cfg.kv_heads
+
     def init_cache(self, batch: int, paged: bool | None = None) -> dict:
         """An empty cache for ``batch`` lanes: paged (pools, tables on the
         pinned block 0, counters 0) when ``paged`` (default
         ``cfg.kv_paged``), else dense rows."""
         cfg = self.cfg
         paged = cfg.kv_paged if paged is None else paged
-        kv, dh, dev = cfg.kv_heads, cfg.head_dim, self.device
+        kv, dh, dev = self.kv_heads, cfg.head_dim, self.device
 
         def zeros(*shape, dtype=cfg.dtype):
             return torch.zeros(shape, dtype=dtype, device=dev)
@@ -729,10 +939,15 @@ def _head_logits(model: Transformer, h: torch.Tensor) -> torch.Tensor:
     """lm_head projection of normed hidden rows ``[..., d]`` -> f32
     ``[..., vocab]``, dispatching on the head's layout as JAX's does: the
     int8 head on the hidden rows as they are (``int8_apply`` rounds them
-    to bf16), the dense head in f32 on an f32 cast."""
+    to bf16), the dense head in f32 on an f32 cast. A vocabulary-split
+    head's logits are all-gathered, in rank order, to full rows."""
     if isinstance(model.lm_head, Int8Dense):
         return model.lm_head(h)
-    return model.lm_head(h.float())
+    logits = model.lm_head(h.float())
+    plan = model.tp_plan
+    if plan is not None and plan.split and plan.vocab is not None:
+        logits = plan.tp.all_gather(logits, -1)
+    return logits
 
 
 def _prefill(model: Transformer, prompt: torch.Tensor):
@@ -786,7 +1001,8 @@ def _decode_model(cfg: TransformerConfig, params, device) -> Transformer:
                              "it with decode=True")
         return params
     return load_params(
-        Transformer(replace(cfg, decode=True, remat=False), device), params)
+        Transformer(replace(cfg, decode=True, remat=False, mesh=None),
+                    device), params)
 
 
 def generate(cfg: TransformerConfig, params, prompt, num_steps: int, *,

@@ -85,23 +85,31 @@ def paged_attend_reference(q: torch.Tensor, pool_k: torch.Tensor,
                            pool_v: torch.Tensor, block_table: torch.Tensor,
                            index: torch.Tensor, *,
                            k_scale_pool: torch.Tensor | None = None,
-                           v_scale_pool: torch.Tensor | None = None
+                           v_scale_pool: torch.Tensor | None = None,
+                           kv_heads: torch.Tensor | None = None
                            ) -> torch.Tensor:
     """The gather oracle: ``pool[table]`` back to ``[b, S, KV, Dh]``, the
     grouped einsums in f32 (an upcast of bf16 or int8 operands is exact,
     so this is JAX's bf16 dot with f32 accumulation), scale before the
     mask, masked columns at -1e30, softmax over the full S; under kv8 the
     key scale on the scores before Dh^-1/2 and the value scale on the
-    probabilities."""
+    probabilities. ``kv_heads`` (``[H]``) names the pool head each query
+    head reads, for a tensor-parallel rank whose query heads do not group
+    onto its KV heads (KV does not tile tp, so it holds them all)."""
     kv8 = _kv8(k_scale_pool, v_scale_pool)
     b, t, h, dh = q.shape
     _, blk, kv, _ = pool_k.shape
+    if kv_heads is not None:
+        kv = h
     g = h // kv
     s_len = block_table.shape[1] * blk
     table = block_table.long()
 
     def rows(pool):
-        return pool[table].reshape(b, s_len, *pool.shape[2:]).float()
+        out = pool[table].reshape(b, s_len, *pool.shape[2:])
+        if kv_heads is not None:
+            out = out.index_select(2, kv_heads)
+        return out.float()
 
     def cols(scale_pool):  # [b, S, KV] -> the scores' [b, KV, 1, 1, S]
         return rows(scale_pool).transpose(1, 2)[:, :, None, None, :]

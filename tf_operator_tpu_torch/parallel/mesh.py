@@ -16,9 +16,12 @@ device order. The axis names and their canonical order are JAX's:
 
 ``Mesh.group`` is the process group over a set of axes: the world's own
 group when the axes span the mesh, none when they have size 1. A group
-over a part of the mesh (data parallelism within each slice of a
-multislice mesh, a tensor axis) waits for the item that first needs it:
-A8a's multislice remainder or A8b.
+over a part of the mesh (a tensor axis beside a data axis) waits for the
+item that first needs it: A8b's second half. A multislice job needs
+none: each slice is a world of its own (``train/dist_multislice.py``).
+
+A data-parallel mesh serves training (``check_data_parallel``); a
+tensor-parallel one serves decode (``check_tensor_parallel``).
 
 ``slice_mesh`` checks the world against a TPU slice's device count, from
 this module's copy of ``tf_operator_tpu/topology/slices.py``'s
@@ -98,7 +101,7 @@ class Mesh:
             return None
         raise NotImplementedError(
             f"a process group over {axes} of {self} is not ported yet: see "
-            "ROADMAP.md A8a's multislice remainder and A8b")
+            "ROADMAP.md A8b's second half (tp x dp meshes)")
 
 
 def _world_ranks() -> list[int]:
@@ -250,9 +253,11 @@ def host_local_batch_size(global_batch: int, mesh: Mesh,
 
 
 # The axes a data-parallel mesh keeps at 1, and the ROADMAP items that
-# port them.
+# port them. A tensor axis serves decode (``check_tensor_parallel``);
+# training over one waits for A8b's second half.
 UNPORTED_AXES = {"sp": "A8c (sequence parallel)",
-                 "tp": "A8b (tensor parallel)",
+                 "tp": "A8b's second half (tensor-parallel training: "
+                       "sharded_lm_xent, dist_lm --tp)",
                  "ep": "A8e (expert parallel)",
                  "pp": "A8d (pipelines)"}
 
@@ -270,3 +275,24 @@ def check_data_parallel(mesh: Mesh, what: str) -> None:
             raise NotImplementedError(
                 f"{what}: a mesh with {axis}={size} is not ported yet: see "
                 f"ROADMAP.md {item}")
+
+
+def check_tensor_parallel(mesh: Mesh, what: str) -> int:
+    """The tensor axis of a decode mesh: its size, after refusing (with
+    ``NotImplementedError`` naming the ROADMAP item) a mesh whose
+    sequence, expert, pipeline or data axes are above 1. A decode mesh
+    that shards slots over ``dp`` beside ``tp`` is A8b's second half."""
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"{what}: expected a parallel.mesh.Mesh, got "
+                        f"{type(mesh).__name__}")
+    refused = dict(UNPORTED_AXES, tp=None,
+                   dp="A8b's second half (tp x dp serving)",
+                   fsdp="A8e (FSDP)", dcn="A8b's second half (tp x dp "
+                                          "serving)")
+    for axis, item in refused.items():
+        size = mesh.shape.get(axis, 1)
+        if item is not None and size > 1:
+            raise NotImplementedError(
+                f"{what}: a decode mesh with {axis}={size} is not ported "
+                f"yet: see ROADMAP.md {item}")
+    return int(mesh.shape.get("tp", 1))

@@ -17,17 +17,36 @@ rank's own rows, and a replicated tree is one copy a rank:
   all-reduce that autograd sees (``sum``), and the gather of a batch's
   rows that a step deals into JAX's microbatches.
 
-The rule-driven and FSDP placements (``sharding_tree_by_rules``,
-``shard_params_by_rules``, ``fsdp_sharding_tree``, ``shard_params_fsdp``,
-``weight_update_shardings``) shard parameters over tensor, expert or
-fully-sharded data axes: ROADMAP A8b and A8e. Each raises, naming its
-item.
+The rule-driven placement shards parameters over a tensor axis, as
+slicing: JAX puts one global array over the mesh and each device holds
+its shard; here rank r keeps its slice of each leaf.
+
+- ``sharding_tree_by_rules(mesh, params, rules)`` is JAX's spec tree, as
+  data: each leaf's spec (a tuple of axis names or None) from the first
+  rule whose path substring matches, and JAX's fallback: a leaf whose
+  named dimension does not tile (GQA K/V heads fewer than tp, an odd
+  vocabulary) stays whole.
+- ``shard_params_by_rules(mesh, params, rules, rank=)`` is rank's slice of
+  every leaf under that tree: the addressable shard JAX gives the device
+  at the rank's place in the mesh.
+- ``TensorParallel`` is a decode mesh's tensor axis as this rank sees
+  it: its index, its size, and the collectives the Megatron layout of
+  ``models/transformer.py`` issues (the row-split projections'
+  all-reduce, the vocab-split head's all-gather, the engine's command
+  broadcast). Under gloo a tensor on the card is staged through the
+  host, in the open: the module's ``staged_bytes`` counts what went that
+  way in this process.
+
+The FSDP and ZeRO placements (``fsdp_sharding_tree``,
+``shard_params_fsdp``, ``weight_update_shardings``) wait for ROADMAP
+A8e and raise, naming it.
 """
 
 from __future__ import annotations
 
 from typing import Any, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -203,11 +222,166 @@ def _waits(name: str, item: str):
     return refused
 
 
-sharding_tree_by_rules = _waits("sharding_tree_by_rules",
-                                "A8b (tensor parallel)")
-shard_params_by_rules = _waits("shard_params_by_rules",
-                               "A8b (tensor parallel)")
 fsdp_sharding_tree = _waits("fsdp_sharding_tree", "A8e (FSDP)")
 shard_params_fsdp = _waits("shard_params_fsdp", "A8e (FSDP)")
 weight_update_shardings = _waits("weight_update_shardings",
                                  "A8e (ZeRO-1)")
+
+
+# -- rule-driven placement (tensor parallelism) ------------------------------
+
+
+def _path_str(path: Sequence[str]) -> str:
+    return "/".join(str(k) for k in path)
+
+
+def _map_tree(tree: Any, fn, prefix=()) -> Any:
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn, prefix + (k,)) for k, v in tree.items()}
+    return fn(prefix, tree)
+
+
+def spec_by_rules(mesh: Mesh, path: str, shape: Sequence[int],
+                  rules: dict[str, tuple], default: tuple = ()) -> tuple:
+    """One leaf's spec: the first rule whose key is a substring of
+    ``path``, unless one of its named axes cannot tile the leaf (then
+    ``default``, replicated by default), as JAX's ``spec_for``."""
+    shape = tuple(shape)
+    for sub, spec in rules.items():
+        if sub not in path:
+            continue
+        for d, axis in enumerate(spec):
+            if axis is None:
+                continue
+            size = mesh.shape.get(axis, 1)
+            if d >= len(shape) or (size > 1 and shape[d] % size):
+                return tuple(default)
+        return tuple(spec)
+    return tuple(default)
+
+
+def sharding_tree_by_rules(mesh: Mesh, params: Any, rules: dict[str, tuple],
+                           default: tuple = ()) -> Any:
+    """The spec of every leaf of ``params`` (nested dicts of arrays) under
+    the path-substring ``rules``: JAX's ``sharding_tree_by_rules`` with a
+    tuple where JAX has a ``NamedSharding``."""
+    return _map_tree(params, lambda path, leaf: spec_by_rules(
+        mesh, _path_str(path), tuple(leaf.shape), rules, default))
+
+
+def shard_slices(mesh: Mesh, spec: tuple, shape: Sequence[int],
+                 rank: int) -> tuple[slice, ...]:
+    """The index of ``rank``'s shard of a leaf of ``shape`` under
+    ``spec``: dimension d split into ``mesh.shape[spec[d]]`` equal parts,
+    the rank's coordinate on that axis picking its part."""
+    at = mesh.coords(rank)
+    out = []
+    for d, n in enumerate(shape):
+        axis = spec[d] if d < len(spec) else None
+        parts = mesh.shape.get(axis, 1) if axis is not None else 1
+        if parts == 1:
+            out.append(slice(None))
+        else:
+            size = n // parts
+            out.append(slice(at[axis] * size, (at[axis] + 1) * size))
+    return tuple(out)
+
+
+def shard_params_by_rules(mesh: Mesh, params: Any, rules: dict[str, tuple],
+                          default: tuple = (), rank: int | None = None
+                          ) -> Any:
+    """``rank``'s slice (default this process's rank) of every leaf of
+    ``params`` under the rules: numpy leaves come back as contiguous numpy
+    arrays, tensors as contiguous tensors."""
+    if rank is None:
+        rank = dist.get_rank() if dist.is_initialized() else 0
+
+    def cut(path, leaf):
+        spec = spec_by_rules(mesh, _path_str(path), tuple(leaf.shape),
+                             rules, default)
+        part = leaf[shard_slices(mesh, spec, tuple(leaf.shape), rank)]
+        if isinstance(part, torch.Tensor):
+            return part.contiguous()
+        return np.ascontiguousarray(part)
+
+    return _map_tree(params, cut)
+
+
+# -- the tensor axis of a decode mesh ----------------------------------------
+
+# Bytes this process's tensor-parallel collectives staged through the host
+# (gloo over tensors on the card); set it to 0 to reset.
+staged_bytes = 0
+
+
+
+class TensorParallel:
+    """The ``axis`` (default ``"tp"``) of a decode ``mesh`` as this rank
+    sees it: ``index`` (its place on the axis), ``size``, and the
+    collectives over the axis. The group is the default group when the
+    mesh spans the world (at one rank too, so that a world of one runs
+    the same NCCL calls as a wider one), none without a process group
+    (every collective a no-op). Collectives go in the order the callers
+    issue them, the same on every rank: the model's forward is one order,
+    the engine's command stream another, and they never interleave."""
+
+    def __init__(self, mesh: Mesh, axis: str = "tp") -> None:
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        self.mesh, self.axis = mesh, axis
+        self.size = int(mesh.shape.get(axis, 1))
+        self.members = mesh.members((axis,), rank)
+        self.index = self.members.index(rank)
+        self.group = None
+        if dist.is_available() and dist.is_initialized():
+            if dist.get_world_size() != mesh.size:
+                raise ValueError(f"{mesh} spans {mesh.size} ranks, the "
+                                 f"world {dist.get_world_size()}")
+            self.group = dist.group.WORLD
+        self.backend = (dist.get_backend(self.group)
+                        if self.group is not None else None)
+
+    @property
+    def rank(self) -> int:
+        return self.members[self.index]
+
+    def _on_wire(self, t: torch.Tensor) -> torch.Tensor:
+        """Where ``t`` travels: itself, or a host copy under gloo for a
+        tensor on the card (counted in the module's ``staged_bytes``)."""
+        global staged_bytes
+        if self.backend == "gloo" and t.is_cuda:
+            staged_bytes += t.numel() * t.element_size()
+            return t.cpu()
+        return t
+
+    def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum ``t`` over the axis, in place."""
+        if self.group is None:
+            return t
+        wire = self._on_wire(t.contiguous())
+        dist.all_reduce(wire, group=self.group)
+        if wire.data_ptr() != t.data_ptr():
+            t.copy_(wire)
+        return t
+
+    def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``t`` concatenated along ``dim`` in axis order."""
+        if self.group is None:
+            return t
+        wire = self._on_wire(t.contiguous())
+        parts = [torch.empty_like(wire) for _ in range(self.size)]
+        dist.all_gather(parts, wire, group=self.group)
+        # all_gather fills the group's ranks in ascending order.
+        by_rank = dict(zip(sorted(self.members), parts))
+        out = torch.cat([by_rank[r] for r in self.members], dim=dim)
+        return out.to(t.device)
+
+    def broadcast_(self, t: torch.Tensor, src_index: int = 0
+                   ) -> torch.Tensor:
+        """``t`` from the rank at ``src_index`` on the axis, in place."""
+        if self.group is None:
+            return t
+        wire = self._on_wire(t)
+        dist.broadcast(wire, self.members[src_index], group=self.group)
+        if wire.data_ptr() != t.data_ptr():
+            t.copy_(wire)
+        return t

@@ -100,11 +100,27 @@ them (the wire format is ``serve/disagg.py``'s):
 
 Every device read or write of these mutates or reads the cache in place,
 so a server runs them on its serving loop's thread (the scheduler's
-``call_engine``), as it runs the steps. Meshes are a later slice.
+``call_engine``), as it runs the steps.
+
+Tensor parallelism (``mesh=``, a ``parallel/mesh.py`` mesh with a ``tp``
+axis over the world's ranks): every rank builds its part of the model
+(``models/transformer.py``: params sliced by ``param_sharding_rules``
+through ``parallel/sharding.py``'s ``shard_params_by_rules``; an
+``int8_decode`` tree stays whole, as in JAX) and holds its ``KV/tp``
+heads of the KV storage (``serve/sharding.py``). Rank 0's engine is the
+one a server drives: it alone plans, samples and answers, and each of its
+device operations is first sent to the workers as a command
+(``serve/tp.py``): a prefill opened, fed or finished, an admission
+inserted, a step (its copy-on-write copies, the live mask and the sampled
+tokens). Workers run their engines from the commands (``serve_command``)
+and never plan. The vocabulary-split head's logits are all-gathered, so
+rank 0's sampler sees full rows. Speculative decoding, shipments, pulls
+and the host tier under tp wait for ROADMAP.md A8b's second half.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, replace
 from typing import Any
@@ -208,6 +224,7 @@ class AdmissionPlan:
     cow: tuple | None = None      # (table_entry, dst_block)
     logits: np.ndarray | None = None  # exact-match stored sampling row
     settled: bool = False         # consumed by a join OR released
+    tp_pid: int | None = None     # the workers' open prefill (tp only)
 
     @property
     def prefill_tokens(self) -> int:
@@ -247,7 +264,10 @@ class ContinuousEngine:
     ``spec_k`` >= 1 with ``draft_cfg``/``draft_params`` (a flax-layout
     tree) makes it a speculative engine that decodes by ``spec_step``.
     ``kv_paged=False`` picks the dense slot tensor (``kv_block`` and
-    ``kv_blocks`` unused). ``device`` defaults to the CUDA card."""
+    ``kv_blocks`` unused). ``device`` defaults to the CUDA card. ``mesh``
+    (a tp mesh over the world) makes it rank 0's engine of a
+    tensor-parallel world, or a worker's on the other ranks (see the
+    module docstring); ``params`` is then the whole tree on every rank."""
 
     def __init__(self, cfg: TransformerConfig, params, max_slots: int, *,
                  kv_paged: bool = True,
@@ -256,7 +276,36 @@ class ContinuousEngine:
                  prefill_chunk: int | None = None, faults: Any = None,
                  constrain_rows: int = 128, logprobs_k: int = 0,
                  spec_k: int = 0, draft_cfg: TransformerConfig | None = None,
-                 draft_params=None, device=None) -> None:
+                 draft_params=None, device=None, mesh=None) -> None:
+        self.mesh = mesh
+        self._tp = self._chan = None
+        if mesh is not None:
+            from tf_operator_tpu_torch.models.transformer import (
+                param_sharding_rules,
+            )
+            from tf_operator_tpu_torch.parallel.mesh import (
+                check_tensor_parallel,
+            )
+            from tf_operator_tpu_torch.parallel.sharding import (
+                TensorParallel,
+                shard_params_by_rules,
+            )
+            from tf_operator_tpu_torch.serve.tp import channel_for
+
+            check_tensor_parallel(mesh, "ContinuousEngine(mesh=)")
+            if spec_k:
+                raise NotImplementedError(
+                    "speculative decoding over a tp mesh is not ported yet: "
+                    "see ROADMAP.md A8b's second half")
+            self._tp = TensorParallel(mesh, "tp")
+            self._chan = channel_for(self._tp)
+            cfg = replace(cfg, decode=True, mesh=mesh)
+            # This rank's slices (an int8 tree stays whole, as JAX's).
+            params = shard_params_by_rules(
+                mesh, params,
+                {} if cfg.int8_decode else param_sharding_rules(),
+                rank=self._tp.rank)
+        self._next_pid = 0
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(f"prefill_chunk={prefill_chunk} must be >= 1")
         # Per-token logprobs: static at construction, as in JAX (K shapes
@@ -373,8 +422,106 @@ class ContinuousEngine:
         self._slot_tags: dict[int, str] = {}
         if self.spec_k:
             self._init_spec(draft_params)
-        SERVE_MESH_DEVICES.set(1)
+        SERVE_MESH_DEVICES.set(1 if mesh is None else int(mesh.size))
         self._set_block_gauges()
+        if self._chan is not None and self._chan.leader:
+            # The workers build their engines (a rebuild's fresh pools).
+            self._chan.claim(self)
+
+    # -- tensor parallelism: rank 0's commands ------------------------------
+
+    def _device_op(self, op: str, args=(), payload=None):
+        """The section of one device operation: on rank 0 of a tp engine
+        the command goes to the workers first and the channel stays held
+        while this rank runs its share; nothing without a mesh."""
+        if self._chan is None:
+            return contextlib.nullcontext()
+        return self._chan.section(self, op, args, payload)
+
+    def _open_prefill(self, tokens: np.ndarray, shared: int, read_table,
+                      chunk: int):
+        """A prompt's prefill, the same on every rank: chunked (a
+        ``ChunkedPrefill`` to feed, ``chunk`` > 0) or one-shot, run now ->
+        (cache, logits); ``shared`` prompt rows come from the pool through
+        ``read_table``."""
+        seed = None
+        if shared:
+            seed = set_cache_index(gather_solo(self._cache, read_table),
+                                   shared)
+            tokens = tokens[:, shared:]
+        if chunk:
+            return ChunkedPrefill(self._model, tokens, chunk,
+                                  initial_cache=seed, base_index=shared)
+        prompt = torch.as_tensor(tokens, device=self.device)
+        if shared:
+            return _prefill_extend(self._model, seed, prompt)
+        return _prefill(self._model, prompt)
+
+    def _open_planned(self, plan: AdmissionPlan, chunk: int):
+        """Rank 0: ``_open_prefill`` of a plan, the workers told first."""
+        pid = None
+        payload = None
+        if self._chan is not None:
+            self._next_pid += 1
+            pid = plan.tp_pid = self._next_pid
+            payload = plan.tokens.reshape(-1)
+            if plan.shared_tokens:
+                payload = np.concatenate([payload, plan.read_table])
+        with self._device_op("open", (pid or 0, plan.shared_tokens, chunk,
+                                      plan.prompt_len), payload):
+            out = self._open_prefill(plan.tokens, plan.shared_tokens,
+                                     plan.read_table, chunk)
+        if chunk and self._chan is not None:
+            return _TpPrefill(self, pid, out)
+        return out
+
+    def serve_command(self, op: str, args: list, payload: np.ndarray,
+                      pending: dict) -> None:
+        """A worker rank: run rank 0's command ``op`` on this engine (see
+        ``serve/tp.py``); ``pending`` holds its open prefills by id."""
+        with torch.no_grad():
+            if op == "open":
+                pid, shared, chunk, n = args[:4]
+                tokens = payload[:n].astype(np.int32).reshape(1, n)
+                read = payload[n:].astype(np.int32) if shared else None
+                pending[pid] = self._open_prefill(tokens, shared, read,
+                                                  chunk)
+            elif op == "feed":
+                pending[args[0]].feed(args[1])
+            elif op == "finish":
+                pending[args[0]] = pending[args[0]].result()
+            elif op == "drop":
+                pending.pop(args[0], None)
+            elif op == "insert":
+                pid, slot, exact, n = args[:4]
+                tables = payload.astype(np.int32)
+                if not self.kv_paged:
+                    dense_insert(self._cache, slot, pending.pop(pid)[0])
+                elif exact:
+                    table_insert(self._cache, slot, tables, n)
+                else:
+                    half = len(tables) // 2
+                    paged_insert(self._cache, slot, tables[:half],
+                                 tables[half:], pending.pop(pid)[0],
+                                 self.kv_block)
+            elif op == "step":
+                n = self.max_slots
+                data = torch.as_tensor(payload, device=self.device)
+                toks, active = data[:n], data[n:2 * n].bool()
+                for slot, entry, src, dst in payload[2 * n:].reshape(
+                        -1, 4).tolist():
+                    cow_copy(self._cache, slot, entry, src, dst)
+                mask_inactive_indices(self._cache, active)
+                self._model(toks[:, None], self._cache)
+            else:
+                raise RuntimeError(f"unknown tp command {op!r}")
+
+    def pool_bytes(self) -> int:
+        """Bytes of this rank's KV storage (pools or dense rows, with the
+        kv8 scales): the per-rank footprint tp divides."""
+        return sum(leaf.numel() * leaf.element_size()
+                   for layer in self._cache["layers"]
+                   for leaf in layer.values())
 
     # -- batch-wide speculative decode ------------------------------------
 
@@ -485,7 +632,13 @@ class ContinuousEngine:
         """Undo a plan's reservations. Idempotent; a no-op for a plan a
         join consumed (its blocks belong to the slot then), and for every
         dense plan (it reserves nothing)."""
-        if plan is None or plan.settled or not self.kv_paged:
+        if plan is None or plan.settled:
+            return
+        if plan.tp_pid is not None:
+            pid, plan.tp_pid = plan.tp_pid, None
+            with self._device_op("drop", (pid,)):
+                pass
+        if not self.kv_paged:
             return
         plan.settled = True
         self._free_blocks(
@@ -706,6 +859,10 @@ class ContinuousEngine:
         no pool to land rows in, and the caller prefills locally."""
         if not self.kv_paged:
             return None
+        if self.mesh is not None:
+            raise ValueError(
+                "shipped KV into a tensor-parallel engine is not ported "
+                "yet (ROADMAP.md A8b's second half): prefill locally")
         if int(shp.kv_block) != self.kv_block:
             raise ValueError(
                 f"shipment kv_block={shp.kv_block} != engine "
@@ -823,7 +980,7 @@ class ContinuousEngine:
         fleet router scores prefix hits from. A host-side read under the
         PrefixCache's lock, safe from any thread. Empty on a dense engine
         (no prefix cache)."""
-        if not self.kv_paged:
+        if not self.kv_paged or self.mesh is not None:
             return []
         return self.prefix.advertise(self.prefix_advertise_max)
 
@@ -851,6 +1008,10 @@ class ContinuousEngine:
 
         if not self.kv_paged:
             raise PrefixNotFound("dense engine holds no prefix blocks")
+        if self.mesh is not None:
+            raise PrefixNotFound(
+                "a tensor-parallel engine exports no prefix yet (ROADMAP.md "
+                "A8b's second half)")
         entry = self.prefix.entry_for_hex(digest_hex)
         if entry is None:
             payload = self._tier_export(digest_hex)
@@ -885,12 +1046,6 @@ class ContinuousEngine:
             self.prefix_exports += 1
         return payload
 
-    def _seed_cache(self, plan: AdmissionPlan) -> dict:
-        """A solo dense cache seeded with the plan's shared prefix rows,
-        its counter at the shared length: the suffix prefill's start."""
-        cache = gather_solo(self._cache, plan.read_table)
-        return set_cache_index(cache, plan.shared_tokens)
-
     # -- joins --------------------------------------------------------------
 
     def prefill_planned(self, plan: AdmissionPlan) -> ChunkedPrefill | None:
@@ -901,18 +1056,16 @@ class ContinuousEngine:
         whose chunk padding would not fit the cache (one-shot)."""
         if plan.prefill_tokens == 0 or self.prefill_chunk is None:
             return None
-        if not plan.shared_tokens:
-            return ChunkedPrefill(self._model, plan.tokens,
-                                  self.prefill_chunk)
-        padded = (-(-plan.prefill_tokens // self.prefill_chunk)
-                  * self.prefill_chunk)
-        if plan.shared_tokens + padded > self.cfg.max_seq_len:
-            return None
-        return ChunkedPrefill(
-            self._model, plan.tokens[:, plan.shared_tokens:],
-            self.prefill_chunk, initial_cache=self._seed_cache(plan),
-            base_index=plan.shared_tokens,
-        )
+        if plan.shared_tokens:
+            padded = (-(-plan.prefill_tokens // self.prefill_chunk)
+                      * self.prefill_chunk)
+            if plan.shared_tokens + padded > self.cfg.max_seq_len:
+                return None
+        # Validated before any command goes out: a refused chunking opens
+        # nothing on the workers.
+        _validate_prefill_chunk(self.cfg, plan.prefill_tokens,
+                                self.prefill_chunk, base=plan.shared_tokens)
+        return self._open_planned(plan, self.prefill_chunk)
 
     def join(self, prompt, *, num_steps: int, temperature: float = 0.0,
              top_p: float | None = None, seed: int = 0,
@@ -954,17 +1107,8 @@ class ContinuousEngine:
                 elif plan.prefill_tokens == 0:
                     cache = None
                     logits = torch.as_tensor(plan.logits, device=self.device)
-                elif plan.shared_tokens:
-                    suffix = plan.tokens[:, plan.shared_tokens:]
-                    cache, logits = _prefill_extend(
-                        self._model, self._seed_cache(plan),
-                        torch.as_tensor(suffix, device=self.device),
-                    )
                 else:
-                    cache, logits = _prefill(
-                        self._model,
-                        torch.as_tensor(plan.tokens, device=self.device),
-                    )
+                    cache, logits = self._open_planned(plan, 0)
         except Exception:
             self.release_plan(plan)
             raise
@@ -1012,15 +1156,25 @@ class ContinuousEngine:
                 self.constrain_pool.release(program.digest)
             self.release_plan(plan)
             return None
-        if not self.kv_paged:
-            dense_insert(self._cache, slot, cache)
-        elif cache is None:
-            # Exact prefix match: every prompt row already lives in shared
-            # blocks, so only the table row and the counter change.
-            table_insert(self._cache, slot, plan.read_table, plan.prompt_len)
-        else:
-            paged_insert(self._cache, slot, plan.write_table,
-                         plan.read_table, cache, self.kv_block)
+        pid, plan.tp_pid = plan.tp_pid, None
+        exact = cache is None
+        payload = None
+        if self._chan is not None and self.kv_paged:
+            payload = (plan.read_table if exact else np.concatenate(
+                [plan.write_table, plan.read_table]))
+        with self._device_op("insert", (pid or 0, slot, exact,
+                                        plan.prompt_len), payload):
+            if not self.kv_paged:
+                dense_insert(self._cache, slot, cache)
+            elif exact:
+                # Exact prefix match: every prompt row already lives in
+                # shared blocks, so only the table row and the counter
+                # change.
+                table_insert(self._cache, slot, plan.read_table,
+                             plan.prompt_len)
+            else:
+                paged_insert(self._cache, slot, plan.write_table,
+                             plan.read_table, cache, self.kv_block)
         row = logits.reshape(-1).float()
         self._logits[slot] = row
         self._set_sampling(slot, plan.num_steps, temperature, top_p, seed)
@@ -1060,15 +1214,19 @@ class ContinuousEngine:
 
     # -- decode -------------------------------------------------------------
 
-    def _run_pending_cows(self) -> None:
+    def _run_pending_cows(self) -> list:
         """Copy-on-write for every active slot about to take its first
-        decode write into a shared partial block, before that step."""
+        decode write into a shared partial block, before that step.
+        Returns the copies made, ``(slot, entry, src, dst)`` each (a tp
+        step sends them to the workers)."""
+        done = []
         for slot, st in self._slot_state.items():
             if st["cow"] is None or not self._active[slot]:
                 continue
             entry, src, dst = st["cow"]
             t0 = time.monotonic()
             cow_copy(self._cache, slot, entry, src, dst)
+            done.append((slot, entry, src, dst))
             t1 = time.monotonic()
             # Host-side span around the enqueued copy; the tag names the
             # owner.
@@ -1082,6 +1240,7 @@ class ContinuousEngine:
             self._free_blocks([src])
             self.cow_copies += 1
             SERVE_KV_COW_TOTAL.inc()
+        return done
 
     def step(self) -> np.ndarray:
         """One decode iteration over ALL slots: every active slot advances
@@ -1146,7 +1305,7 @@ class ContinuousEngine:
         self.steps_total = 0
 
     def _step(self) -> np.ndarray:
-        self._run_pending_cows()
+        cows = self._run_pending_cows()
         with torch.no_grad():
             active = torch.as_tensor(self._active, device=self.device)
             mask_inactive_indices(self._cache, active)
@@ -1158,7 +1317,14 @@ class ContinuousEngine:
             self._advance(toks)
             if self.logprobs_k:
                 lp = self._logprob_outputs(masked, toks)
-            self._logits = self._model(toks[:, None], self._cache)[:, 0]
+            payload = None
+            if self._chan is not None:
+                payload = torch.cat([
+                    toks.long(), active.long(),
+                    torch.as_tensor(np.asarray(cows, np.int64).reshape(-1),
+                                    device=self.device)])
+            with self._device_op("step", (len(cows),), payload):
+                self._logits = self._model(toks[:, None], self._cache)[:, 0]
         if self.logprobs_k:
             self._last_logprobs = tuple(x.cpu().numpy() for x in lp)
         self.steps_total += 1
@@ -1378,8 +1544,19 @@ class ContinuousEngine:
         SERVE_KV_BLOCKS.set(self.blocks.shared, state="shared")
 
     def mesh_info(self) -> dict:
-        """The JAX engine's answer for one device (no mesh)."""
-        return {"devices": 1}
+        """The mesh's shape for /debug/serve and /healthz, the JAX
+        engine's keys: ``mesh_debug``'s, and under a mesh the tp and dp
+        sizes and whether the KV heads are split."""
+        from tf_operator_tpu_torch.serve.sharding import mesh_debug
+
+        info = mesh_debug(self.mesh)
+        if self.mesh is not None:
+            tp = self._tp.size
+            info["tp"] = tp
+            info["dp"] = int(self.mesh.shape.get("dp", 1))
+            info["kv_heads_sharded"] = bool(
+                tp > 1 and self.cfg.kv_heads % tp == 0)
+        return info
 
     @property
     def free_block_fraction(self) -> float:
@@ -1452,6 +1629,31 @@ class ContinuousEngine:
     @property
     def occupancy(self) -> float:
         return self.alloc.in_use / self.max_slots
+
+
+class _TpPrefill:
+    """Rank 0's chunked prefill on a tp engine: each ``feed`` and the
+    ``result`` issue their command first, so every worker's copy runs the
+    same chunk forwards (and the head's gather) in step. The rest is the
+    ``ChunkedPrefill``'s."""
+
+    def __init__(self, engine: ContinuousEngine, pid: int,
+                 inner: ChunkedPrefill) -> None:
+        self._engine, self.pid, self._inner = engine, pid, inner
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def feed(self, max_chunks: int = 1) -> int:
+        n = min(max_chunks, self._inner.n_chunks - self._inner._at)
+        if n <= 0:
+            return 0
+        with self._engine._device_op("feed", (self.pid, n)):
+            return self._inner.feed(n)
+
+    def result(self):
+        with self._engine._device_op("finish", (self.pid,)):
+            return self._inner.result()
 
 
 def _check_spec(cfg: TransformerConfig, k: int,

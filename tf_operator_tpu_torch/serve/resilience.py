@@ -241,8 +241,9 @@ class InvalidGrammar(ServeError):
 
 class NotPorted(ServeError):
     """A request field or server flag whose ROADMAP item the port has not
-    ported yet (the detail names the item): serving meshes (A8b) and
-    pipelined checkpoints (A8d). A 400 under the front door's
+    ported yet (the detail names the item): tp x dp serving and spec,
+    shipping and the tier under tp (A8b's second half) and pipelined
+    checkpoints (A8d). A 400 under the front door's
     ``bad_request`` code, NOT retryable — every port replica would refuse
     it alike; the request never reaches the device."""
 

@@ -103,9 +103,24 @@ their seed. It answers ``{"tokens": [...]}``; the structured fields are a
 ``--spec-k``, ``spec_decodes``/``spec_rounds``/``spec_tokens``. On SIGTERM
 the requests in the window and in flight are answered before it exits.
 
+Tensor parallelism (``--tp N``): the replica stays one process to the
+operator, rank 0 of a world of N it starts itself (``serve/tp.py``
+``start_world``: N - 1 worker processes on this host, worker r on card
+``r % device_count``, over ``--dist-backend``, nccl on the card and gloo
+on the CPU by default; two ranks sharing one card need gloo). Rank 0
+sends every worker the whole tree; each rank keeps its slices
+(``param_sharding_rules``; an ``--int8`` tree stays whole on every rank,
+as in JAX), runs its heads of the attention and holds its ``KV/tp`` heads
+of the pool, and rank 0's engine drives the workers' with commands. N
+must divide the 4 query heads; a KV head count that does not tile N is
+served by the gather read (``--kv-attend kernel`` refuses it with JAX's
+error). The workers exit with rank 0: at the drain, and on their own
+when rank 0 dies.
+
 Flags of ROADMAP items the port has not ported exit naming the item, and
-never run another path instead: ``--tp``/``--dp`` (A8b) and
-``--from-pp`` (A8d).
+never run another path instead: ``--dp``, and ``--tp`` with
+``--spec-k``, ``--role prefill`` or ``--host-tier-bytes`` (A8b's second
+half), and ``--from-pp`` (A8d).
 
 Speculative decoding (``--spec-k K``): the engine decodes in rounds, a
 draft of ``--spec-draft-layers`` layers (default max(1, layers // 2), the
@@ -187,12 +202,21 @@ from tf_operator_tpu_torch.serve.resilience import (
     set_replica_id,
 )
 from tf_operator_tpu_torch.serve.scheduler import ServeRequest
+from tf_operator_tpu_torch.serve.tp import report as tp_report
+from tf_operator_tpu_torch.serve.tp import start_world
 from tf_operator_tpu_torch.serve.tier import HostTier
 
 # Flags of ROADMAP items the port has not ported: (flag, set?, item).
 UNPORTED_FLAGS = (
-    ("--tp", lambda a: a.tp > 1, "A8b (tensor and data parallel serving)"),
-    ("--dp", lambda a: a.dp > 1, "A8b (tensor and data parallel serving)"),
+    ("--dp", lambda a: a.dp > 1,
+     "A8b's second half (tp x dp serving and dp routing)"),
+    ("--tp with --spec-k", lambda a: a.tp > 1 and bool(a.spec_k),
+     "A8b's second half (speculative decoding under tp)"),
+    ("--tp with --role prefill", lambda a: a.tp > 1 and a.role == "prefill",
+     "A8b's second half (shipping under tp)"),
+    ("--tp with --host-tier-bytes",
+     lambda a: a.tp > 1 and a.host_tier_bytes > 0,
+     "A8b's second half (the host tier under tp)"),
     ("--from-pp", lambda a: a.from_pp is not None,
      "A8d (pipelines: pipeline trees)"),
 )
@@ -244,8 +268,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="quick-train steps of the +1-chain task from the "
                         "seeded init (0 serves the init)")
     p.add_argument("--lr", type=float, default=5e-3)
-    p.add_argument("--tp", type=int, default=1, help="waits for A8b")
-    p.add_argument("--dp", type=int, default=1, help="waits for A8b")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor parallelism over N ranks this process "
+                        "starts on this host (N must divide the heads)")
+    p.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                   help="torch.distributed backend of --tp's world (default "
+                        "nccl on cuda, gloo on cpu; two ranks on one card "
+                        "need gloo)")
+    p.add_argument("--dp", type=int, default=1,
+                   help="waits for A8b's second half")
     p.add_argument("--int8", action="store_true",
                    help="weight-only int8 decode (kernel B5)")
     p.add_argument("--kv-int8", action="store_true",
@@ -500,6 +531,7 @@ class FrontServer(_Front):
         super().__init__(address, _Handler, cfg=cfg, params=params,
                          args=args, device=device, lock=lock)
         self.supervisor = supervisor
+        self.tp_world = None  # serve/tp.py TpWorld under --tp
 
     def drain(self, timeout: float | None = None) -> None:
         """The SIGTERM drain: readiness withdrawn (/healthz keeps
@@ -511,6 +543,9 @@ class FrontServer(_Front):
         time.sleep(0.2)  # let unblocked handlers write their responses
         self.shutdown()
         self.server_close()
+        if self.tp_world is not None:
+            # The workers exit with rank 0's engine.
+            self.tp_world.close()
 
 
 class LegacyServer(_Front):
@@ -941,7 +976,6 @@ def check_args(args) -> None:
             ("--int8", args.int8),
             ("--kv-int8", args.kv_int8),
             ("--batch-window", args.batch_window > 0),
-            ("--tp", args.tp > 1),
             ("--dp", args.dp > 1),
         ) if on]
         if bad:
@@ -974,6 +1008,11 @@ def check_args(args) -> None:
     refused = unported_flags(args)
     if refused:
         raise NotPorted("; ".join(refused))
+    if args.tp < 1:
+        raise ValueError("--tp must be >= 1")
+    if args.tp > 1 and args.engine == "coalesce":
+        raise ValueError("--tp runs the continuous engine (drop "
+                         "--batch-window / --engine coalesce)")
     if args.prefill_budget < 1:
         raise ValueError("--prefill-budget must be >= 1")
     if args.logprobs_k < 0:
@@ -990,6 +1029,22 @@ def check_args(args) -> None:
             raise ValueError(f"--max-seq-len {args.max_seq_len} must be a "
                              f"multiple of --kv-block {args.kv_block} (or "
                              "use --kv-dense)")
+
+
+def check_tp(cfg: TransformerConfig, args) -> None:
+    """``--tp``'s checks against the model, before any process starts:
+    the config's own (tp divides the heads; a KV head count that does not
+    tile tp refuses the kernel read with JAX's error). ValueError."""
+    if args.tp <= 1:
+        return
+    from tf_operator_tpu_torch.parallel.mesh import create_mesh
+
+    paged = args.kv_paged
+    attend = ("gather" if not paged
+              else "kernel" if args.kv_attend == "pallas" else args.kv_attend)
+    replace(cfg, decode=True, kv_paged=paged, kv_attend=attend,
+            kv_block=args.kv_block, kv_num_blocks=max(2, cfg.kv_num_blocks),
+            mesh=create_mesh({"tp": args.tp}, range(args.tp)))
 
 
 def draft_config(cfg: TransformerConfig, args) -> TransformerConfig:
@@ -1014,6 +1069,7 @@ def build_front(cfg: TransformerConfig, params, args, draft_params=None
     no card, and where ``check_args`` refuses ``args``."""
     device = resolve_device(args.device)
     check_args(args)
+    check_tp(cfg, args)
     if args.spec_k and draft_params is None:
         raise ValueError("--spec-k needs the draft's weights "
                          "(draft_params)")
@@ -1061,17 +1117,29 @@ def build_front(cfg: TransformerConfig, params, args, draft_params=None
     if args.spec_k:
         spec = dict(spec_k=args.spec_k, draft_cfg=draft_config(cfg, args),
                     draft_params=_to_device(draft_params, device))
+    # What every rank's engine is built from (the workers' too).
+    engine_kwargs = dict(
+        cfg=cfg, max_slots=args.max_batch, kv_paged=kv_paged,
+        kv_block=args.kv_block, kv_blocks=args.kv_pool_blocks,
+        kv_attend=attend, prefill_chunk=args.prefill_chunk or None,
+        constrain_rows=args.constrain_rows, logprobs_k=args.logprobs_k)
+    world = None
+    if args.tp > 1:
+        world = start_world(args.tp, device, args.dist_backend,
+                            engine_kwargs, params)
+        print(f"serve_lm: params "
+              f"{'replicated (int8)' if cfg.int8_decode else 'tp-sharded'}"
+              f" over {args.tp} devices", flush=True)
 
     def engine_factory() -> ContinuousEngine:
         # The watchdog rebuilds through here: the SAME cfg and weights
-        # every time (replay bit-identity depends on it), a fresh pool,
-        # and a warm step before the engine takes a request.
+        # every time (replay bit-identity depends on it), a fresh pool
+        # (on every rank of a tp world: the build command), and a warm
+        # step before the engine takes a request.
         eng = ContinuousEngine(
-            cfg, params, args.max_batch, kv_paged=kv_paged,
-            kv_block=args.kv_block, kv_blocks=args.kv_pool_blocks,
-            kv_attend=attend, prefill_chunk=args.prefill_chunk or None,
-            faults=faults, constrain_rows=args.constrain_rows,
-            logprobs_k=args.logprobs_k, device=device, **spec,
+            params=params, faults=faults, device=device,
+            mesh=world.mesh if world is not None else None,
+            **engine_kwargs, **spec,
         )
         if kv_paged:
             # Retention matches the advertisement's width: every digest
@@ -1089,17 +1157,24 @@ def build_front(cfg: TransformerConfig, params, args, draft_params=None
     constrainer = ConstraintCompiler(default_vocab(cfg.vocab_size))
 
     lock = threading.Lock()
-    supervisor = EngineSupervisor(
-        engine_factory, resilience=res_cfg, faults=faults,
-        prefill_tokens_per_step=args.prefill_budget,
-        # Streaming requests bypass the engine and share the device: one
-        # lock serializes both decode paths.
-        device_lock=lock,
-        tier_prefetch=bool(args.tier_prefetch),
-        constrainer=constrainer,
-    )
-    server = FrontServer((args.host, args.port), supervisor, cfg=cfg,
-                         params=params, args=args, device=device, lock=lock)
+    try:
+        supervisor = EngineSupervisor(
+            engine_factory, resilience=res_cfg, faults=faults,
+            prefill_tokens_per_step=args.prefill_budget,
+            # Streaming requests bypass the engine and share the device:
+            # one lock serializes both decode paths.
+            device_lock=lock,
+            tier_prefetch=bool(args.tier_prefetch),
+            constrainer=constrainer,
+        )
+        server = FrontServer((args.host, args.port), supervisor, cfg=cfg,
+                             params=params, args=args, device=device,
+                             lock=lock)
+    except BaseException:
+        if world is not None:
+            world.close()
+        raise
+    server.tp_world = world
     return supervisor, server
 
 
@@ -1163,6 +1238,10 @@ def main(argv: list[str] | None = None) -> int:
         d_ff=args.d_model * 2, max_seq_len=args.max_seq_len,
         dtype=torch.float32, int8_decode=args.int8, kv_int8=args.kv_int8,
     )
+    try:
+        check_tp(cfg, args)
+    except ValueError as exc:
+        p.error(str(exc))
     if args.checkpoint_dir:
         params = restore_params(args.checkpoint_dir, cfg, "target")
         if params is None:
@@ -1201,6 +1280,10 @@ def main(argv: list[str] | None = None) -> int:
         kv_desc = (f"paged kv ({args.kv_block}-token blocks, "
                    f"{eng.kv_blocks} block pool), kv_attend "
                    f"{eng.kv_attend}" if eng.kv_paged else "dense kv")
+        if server.tp_world is not None:
+            for r, row in enumerate(tp_report(eng)):
+                print(f"serve_lm: tp rank {r} pool bytes "
+                      f"{row['pool_bytes']}", flush=True)
         print(f"serve_lm: continuous batching on {device} (slots "
               f"{args.max_batch}, {kv_desc}, prefill chunk "
               f"{args.prefill_chunk or 'one-shot'}, prefill budget "

@@ -54,10 +54,11 @@ launches (``launches_line``).
 the step adds the load-balancing loss at weight 0.01, as the example's.
 
 Flags of unported items exit with a usage error naming the ROADMAP
-item: ``--sp`` and ``--ring-impl`` (A8c), ``--tp`` (A8b), ``--pp*``
-(A8d), ``--ep`` (A8e); so does a multislice job (``MEGASCALE_NUM_SLICES``
-> 1: the dcn leg's entry point, A8a's remainder) and several processes
-with no coordinator to meet at. The example's checks of ``--ep`` against
+item: ``--sp`` and ``--ring-impl`` (A8c), ``--tp`` (A8b's second half),
+``--pp*`` (A8d), ``--ep`` (A8e); so do several processes with no
+coordinator to meet at. A multislice job trains each slice as a world of
+its own, as JAX's entry point does (``MEGASCALE_*`` is read by
+``train/dist_multislice.py`` alone). The example's checks of ``--ep`` against
 the MoE flags keep their meaning, and so does its refusal of ``--data``
 beside ``--sp``/``--tp``: those flags are refused as above.
 """
@@ -78,7 +79,8 @@ from tf_operator_tpu_torch.train.distributed import (
 # Flags of ROADMAP items the port has not ported: (flag, set?, item).
 UNPORTED_FLAGS = (
     ("--sp", lambda a: a.sp > 1, "A8c (sequence parallel)"),
-    ("--tp", lambda a: a.tp > 1, "A8b (tensor parallel)"),
+    ("--tp", lambda a: a.tp > 1,
+     "A8b's second half (tensor-parallel training)"),
     ("--pp", lambda a: a.pp > 1, "A8d (pipelines)"),
     ("--pp-microbatches", lambda a: a.pp_microbatches != 2,
      "A8d (pipelines)"),
@@ -121,7 +123,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--layers", type=int, default=2)
     add_dist_backend(p)
     p.add_argument("--sp", type=int, default=1, help="waits for A8c")
-    p.add_argument("--tp", type=int, default=1, help="waits for A8b")
+    p.add_argument("--tp", type=int, default=1,
+                   help="waits for A8b's second half")
     p.add_argument("--lr", type=float, default=3e-3)
     p.add_argument("--target-loss", type=float, default=1.0)
     p.add_argument("--xent-chunk", type=int, default=None,

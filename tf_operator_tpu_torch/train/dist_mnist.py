@@ -36,8 +36,8 @@ checkpoints and evaluates each new step on 4 held-out batches
 (``synthetic_mnist`` seed 10,000), printing ``accuracy=``/``loss=``, and
 exits 0 after ``DONE`` at the final step, or 1 after ``--eval-timeout``
 seconds without a new checkpoint. Several processes with no coordinator
-to meet at, and a multislice job, exit with usage errors
-(``distributed.check_topology``).
+to meet at exit with a usage error (``distributed.check_topology``); a
+multislice job trains each slice as a world of its own, as JAX's does.
 """
 
 from __future__ import annotations

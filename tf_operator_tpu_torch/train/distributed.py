@@ -47,7 +47,8 @@ class ProcessTopology:
     accelerator_type: str | None = None
     topology: str | None = None
     worker_hostnames: list[str] = field(default_factory=list)
-    # The slices of a multislice job (MEGASCALE_NUM_SLICES).
+    # The slices of a multislice job (MEGASCALE_NUM_SLICES); each slice is
+    # a world of its own.
     num_slices: int = 1
 
     @property
@@ -91,16 +92,15 @@ def from_env(env: dict[str, str] | None = None) -> ProcessTopology:
 
 
 def check_topology(p, topo: ProcessTopology) -> None:
-    """Usage errors (``p.error``) for a topology the port cannot join:
-    several processes with no coordinator address, and a multislice
-    job."""
+    """The usage error (``p.error``) for a topology the port cannot join:
+    several processes with no coordinator address. A multislice job is
+    not one: as JAX's entry points do, each slice's processes form their
+    own world from the in-slice env (``train/dist_multislice.py`` bridges
+    the slices)."""
     if topo.num_processes > 1 and not topo.is_distributed:
         p.error(f"{topo.num_processes} training processes need "
                 f"{ENV_COORDINATOR_ADDRESS} (or a TF_CONFIG worker list) to "
                 "meet at")
-    if topo.num_slices > 1:
-        p.error(f"{ENV_NUM_SLICES}={topo.num_slices}: training across "
-                "slices (the dcn axis) waits for ROADMAP A8a's remainder")
 
 
 def add_dist_backend(p) -> None:

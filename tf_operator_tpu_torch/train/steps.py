@@ -38,8 +38,9 @@ every rank returns the same numbers. A mesh whose ``sp``, ``tp``,
 ``ep`` or ``pp`` axis is above 1 raises, naming ROADMAP A8c, A8b, A8e or
 A8d.
 
-Not ported yet: ``sharded_lm_xent`` (A8b) and ``fuse_steps`` (a CUDA
-graph of the step is its counterpart, A5's graph).
+Not ported yet: ``sharded_lm_xent`` (A8b's second half) and
+``fuse_steps`` (a CUDA graph of the step is its counterpart, A5's
+graph).
 """
 
 from __future__ import annotations
