@@ -361,7 +361,28 @@ Phases, in order; any failure ends the run with a non-zero exit:
     ``LOGIT_TOL``; each path's launches summed over the ranks (a worker's
     counts reach rank 0 through the ``report`` command); the phase's
     seconds;
-26. the ``kernels`` JSON line (each kernel with its design; B5 as two
+26. tensor-parallel training (the Megatron layout's backward,
+    ``sharded_lm_xent``, dp x tp meshes, checkpoints under tp; B1-B3 on
+    every rank over its heads) at phase 9's training cell: (a) an NCCL
+    world of 1 in this process, the step over ``mesh={"dp": 1, "tp":
+    1}`` (a model built over it: every Megatron collective an NCCL call)
+    in turns with the plain step (plain, tp, tp, plain), ``TP_TRAIN_STEPS``
+    steps each: losses and weights bitwise the first run's, both tokens/s;
+    (b) tp 2 as two gloo processes sharing the card (``tp_train_rank``),
+    from the seeded tree (a) starts from, after (a)'s last plain run:
+    each step's loss within ``TP_TRAIN_LOSS_RTOL`` of it, the gathered
+    weights within ``ADAM_BOUND`` x the summed learning rate of its, each
+    rank's weight and AdamW bytes against tp 1's, the flash launches and
+    the bytes staged through the host a step of each rank, the pair's
+    tokens/s (host staging, not what tp costs over NVLink); (c)
+    ``dist_lm --tp 2 --dist-backend gloo`` at phase 18 (b)'s model: 2
+    ranks killed at ``ENTRY_FAIL_AT`` and resumed, bitwise an
+    uninterrupted twin's final checkpoint; 4 ranks (dp 2 x tp 2) beside
+    the resume, each printed loss within ``DP_LOSS_TOL`` of the twin's;
+    the killed run's tp 2 checkpoint restored into a tp 1 state built as
+    ``dist_lm`` builds it, bitwise the saved (gathered) tree, and a tp 1
+    ``dist_lm`` resuming from it; the phase's seconds;
+27. the ``kernels`` JSON line (each kernel with its design; B5 as two
     entries, the weight stream and the wgmma tile, each with its own
     launches; ``paths`` gives each kernel's launches on every path of
     this run that drives it, and ``launches`` is their sum; the paged
@@ -380,6 +401,7 @@ import json
 import math
 import os
 import re
+import shutil
 import signal
 import subprocess
 import sys
@@ -750,6 +772,20 @@ DP_MNIST_ARGS = ["--steps", "30", "--batch", "64", "--target-loss", "0.8"]
 # into its one replayed request.
 TP = 2
 TP_FAULT_AT = 8
+# Phase 26, tensor-parallel training at phase 9's training cell (B=2 x
+# T=8192, bf16 over f32 weights, xent_chunk 1024 with the bf16 head dot,
+# adamw(1e-4)): 8 heads, d_ff 2048 and 16384 vocabulary rows a rank at tp
+# 2. (a) TP_TRAIN_STEPS steps a run, bitwise. (b) tp 2 against (a)'s tp 1
+# run: the row-split products add two bf16-rounded partial sums where tp 1
+# rounds one sum, and the vocabulary-parallel loss takes its max and sums
+# in another order, so each step's loss within TP_TRAIN_LOSS_RTOL
+# (relative, of ~10.4), and after 3 AdamW steps every weight within
+# ADAM_BOUND x the summed learning rate (phase 8's rule: Adam moves an
+# element by about lr a step, whatever its gradient's rounding).
+TP_TRAIN_STEPS = 3
+TP_TRAIN_LR = 1e-4
+TP_TRAIN_LOSS_RTOL = 2e-3
+TP_TRAIN_DEVICE = "cuda"  # (b)'s ranks' device
 
 
 def entry_flash_shape() -> tuple[int, int, int, int]:
@@ -6079,6 +6115,430 @@ def tp_phase(pa, i8, base, params, prompts, card) -> dict:
                if name != "paged_attend"}}
 
 
+def tp_train_batch(vocab: int, b: int, t: int, device) -> dict:
+    """Phase 26's batch: phase 24 (a)'s seeded tokens and targets."""
+    rng = np.random.default_rng(0)
+    return {name: torch.from_numpy(rng.integers(
+        0, vocab, (b, t)).astype(np.int64)).to(device)
+        for name in ("tokens", "targets")}
+
+
+def tp_train_nccl_phase(card: str) -> tuple[dict, dict]:
+    """Phase 26 (a): phase 9's bf16 step over ``mesh={"dp": 1, "tp": 1}``
+    (the model built over it) in an NCCL world of 1 in this process, in
+    turns with the plain step (plain, tp, tp, plain): every run's losses
+    and weights bitwise the first's. Returns the tp runs' flash launches
+    and the last plain run (tp 1): its losses, weights on the host and
+    weight bytes."""
+    import torch.distributed as dist
+
+    from tf_operator_tpu_torch.models.convert import init_params
+    from tf_operator_tpu_torch.models.transformer import TransformerConfig
+    from tf_operator_tpu_torch.parallel.mesh import create_mesh
+    from tf_operator_tpu_torch.train.steps import adamw
+
+    cfg = TransformerConfig(dtype=torch.bfloat16, **LM)
+    params = init_params(cfg, seed=0)
+    batch = tp_train_batch(cfg.vocab_size, TRAIN_B, TRAIN_T, "cuda")
+    kw = dict(xent_chunk=XENT_CHUNK, xent_dot_dtype=torch.bfloat16)
+    dist.init_process_group("nccl", store=dist.HashStore(), world_size=1,
+                            rank=0)
+    first, differ, ref = None, [], None
+    seconds = {"plain": [], "tp": []}
+    launches = dict.fromkeys(FLASH_KERNELS, 0)
+    losses = {}
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}")
+        mesh = create_mesh({"dp": 1, "tp": 1}, device="cuda")
+        tp_cfg = replace(cfg, mesh=mesh)
+        for i, side in enumerate(("plain", "tp", "tp", "plain")):
+            run = train_run(tp_cfg if side == "tp" else cfg, params, batch,
+                            TP_TRAIN_STEPS, adamw(TP_TRAIN_LR), **kw,
+                            **({"mesh": mesh} if side == "tp" else {}))
+            model = run.pop("model")
+            weights = {n: p.detach() for n, p in model.named_parameters()}
+            if first is None:
+                first = {"losses": run["losses"], "weights": {
+                    n: w.clone() for n, w in weights.items()}}
+            differ += [f"{i} {side} {n}" for n, w in weights.items()
+                       if not torch.equal(w, first["weights"][n])]
+            losses.setdefault(side, run["losses"])
+            if run["losses"] != first["losses"]:
+                differ.append(f"{i} {side} losses {run['losses']}")
+            seconds[side] += run["seconds"]
+            if side == "tp":
+                if model.tp_plan is None:
+                    raise AssertionError("26a: the tp model has no plan")
+                for key, n in zip(FLASH_KERNELS, run["counts"].values()):
+                    launches[key] += n
+            if i == 3:
+                ref = {"losses": run["losses"], "weights": {
+                    n: w.float().cpu() for n, w in weights.items()},
+                    "param_bytes": sum(p.numel() * p.element_size()
+                                       for p in model.parameters())}
+            del run, weights, model
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    tok_s = {side: TRAIN_B * TRAIN_T / float(np.median(sec))
+             for side, sec in seconds.items()}
+    print(f"train tp nccl world 1 (26a): bf16 B={TRAIN_B} T={TRAIN_T}, "
+          f"{TP_TRAIN_STEPS} steps a run from one tree, in turns plain, tp "
+          f"over {mesh}, tp, plain: losses {losses['plain']} plain, "
+          f"{losses['tp']} tp; "
+          f"{'every run bitwise the first' if not differ else differ[:8]} "
+          f"({len(first['weights'])} weights); tokens/s by the median step "
+          f"plain {tok_s['plain']:.2f}, tp {tok_s['tp']:.2f} (ratio "
+          f"{tok_s['tp'] / tok_s['plain']:.4f}; step_s {seconds}); "
+          f"launches of the tp runs {launches} on {card}", flush=True)
+    if differ:
+        raise AssertionError("the tp world of 1 parts from the plain step")
+    want = 2 * cfg.n_layers * TP_TRAIN_STEPS
+    if set(launches.values()) != {want}:
+        raise AssertionError(f"26a launches {launches}, want {want} of each")
+    del first
+    torch.cuda.empty_cache()
+    return launches, ref
+
+
+def tp_train_rank(out: str) -> int:
+    """One rank of phase 26 (b), a process of its own (``python -c``):
+    joins the gloo world the operator's env names, builds its part of the
+    cell ``out/cell.json`` names (phase 9's) over ``{"tp": TP}`` from the
+    seeded tree, runs ``TP_TRAIN_STEPS`` steps on phase 26's batch,
+    gathers the weights whole (rank 0 saves them under ``out``) and
+    writes its numbers to ``out/rank{r}.json``."""
+    from tf_operator_tpu_torch.models.convert import (
+        _leaves,
+        flax_path,
+        init_params,
+        load_params,
+        param_shapes,
+    )
+    from tf_operator_tpu_torch.models.transformer import (
+        Transformer,
+        TransformerConfig,
+        param_sharding_rules,
+    )
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.parallel import sharding
+    from tf_operator_tpu_torch.parallel.mesh import create_mesh
+    from tf_operator_tpu_torch.train import distributed
+    from tf_operator_tpu_torch.train.steps import (
+        TrainState,
+        adamw,
+        make_lm_train_step,
+    )
+
+    with open(os.path.join(out, "cell.json")) as f:
+        cell = json.load(f)
+    device = torch.device(cell["device"])
+    cuda = device.type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    topo = distributed.initialize(distributed.from_env(), device=device,
+                                  backend="gloo")
+    rank = topo.process_id
+    mesh = create_mesh({"tp": TP}, device=device)
+    cfg = TransformerConfig(dtype=torch.bfloat16, mesh=mesh, **cell["lm"])
+    rules = param_sharding_rules()
+    model = load_params(Transformer(cfg, device), sharding.shard_params_by_rules(
+        mesh, init_params(TransformerConfig(**cell["lm"]), seed=0), rules))
+    tx = adamw(TP_TRAIN_LR)
+    state = TrainState.create(model, tx)
+    step = make_lm_train_step(model, tx, xent_chunk=cell["chunk"],
+                              xent_dot_dtype=torch.bfloat16, mesh=mesh)
+    batch = tp_train_batch(cfg.vocab_size, cell["b"], cell["t"], device)
+    fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
+    losses, seconds, staged = [], [], []
+    for _ in range(TP_TRAIN_STEPS):
+        sharding.staged_bytes = 0
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"].item())
+        seconds.append(time.perf_counter() - t0)
+        staged.append(sharding.staged_bytes)
+    counts = dict(fwd=fa.fwd_launches, dq=fa.dq_launches,
+                  dkv=fa.dkv_launches)
+    adam = [v for st in state.optimizer.state.values()
+            for key, v in st.items() if key in ("exp_avg", "exp_avg_sq")]
+    tree: dict = {}
+    for name, p in model.named_parameters():
+        node = tree
+        path = flax_path(name)
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = p.detach()
+    whole = sharding.gather_params_by_rules(mesh, tree, rules,
+                                            param_shapes(cfg))
+    if rank == 0:
+        torch.save({"/".join(k): v.float().cpu()
+                    for k, v in _leaves(whole)},
+                   os.path.join(out, "weights.pt"))
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump({"losses": losses, "seconds": seconds, "staged": staged,
+                   "counts": counts, "param_bytes": sum(
+                       p.numel() * p.element_size()
+                       for p in model.parameters()),
+                   "adam_bytes": sum(v.numel() * v.element_size()
+                                     for v in adam),
+                   "peak_bytes": (torch.cuda.max_memory_allocated()
+                                  if cuda else 0)}, f)
+    distributed.shutdown()
+    return 0
+
+
+def tp_train_pair_phase(card: str, ref: dict) -> dict:
+    """Phase 26 (b): ``tp_train_rank`` as two gloo processes sharing the
+    card, against (a)'s last plain run. Returns the ranks' summed flash
+    launches."""
+    from tf_operator_tpu_torch.models.convert import flax_path
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k not in (
+        "TF_CONFIG", "TPU_WORKER_ID", "TPU_NUM_PROCESSES",
+        "TPU_COORDINATOR_ADDRESS", "MEGASCALE_NUM_SLICES")}
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    env.setdefault("OMP_NUM_THREADS", "1")
+    port = free_port()
+    procs: list = []
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "cell.json"), "w") as f:
+            json.dump({"lm": LM, "b": TRAIN_B, "t": TRAIN_T,
+                       "chunk": XENT_CHUNK, "device": TP_TRAIN_DEVICE}, f)
+        logs = []
+        try:
+            for r in range(TP):
+                rank_env = dict(env, TPU_NUM_PROCESSES=str(TP),
+                                TPU_WORKER_ID=str(r),
+                                TPU_COORDINATOR_ADDRESS=f"127.0.0.1:{port}")
+                logs.append(os.path.join(tmp, f"tptrain{r}.log"))
+                with open(logs[-1], "w") as log:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, "-c", "import sys, chip_smoke; "
+                         "sys.exit(chip_smoke.tp_train_rank(sys.argv[1]))",
+                         tmp], cwd=root, env=rank_env, stdout=log,
+                        stderr=subprocess.STDOUT))
+            codes = wait_all(procs, timeout=420.0)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        if codes != [0] * TP:
+            raise AssertionError(f"26b: rc {codes}: " + "\n".join(
+                read_log(p)[-3000:] for p in logs))
+        ranks = []
+        for r in range(TP):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        whole = torch.load(os.path.join(tmp, "weights.pt"),
+                           weights_only=True)
+    wall = time.perf_counter() - t0
+    want = ref["weights"]
+    lr_sum = TP_TRAIN_LR * TP_TRAIN_STEPS
+    max_err, at, far, total = 0.0, None, 0, 0
+    for name, w in want.items():
+        diff = (whole["/".join(flax_path(name))] - w).abs()
+        err = float(diff.max())
+        if err > max_err:
+            max_err, at = err, name
+        far += int((diff > 0.01 * lr_sum).sum())
+        total += diff.numel()
+    loss_err = [abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"],
+                                                    ref["losses"])]
+    steps_s = [float(np.median(r["seconds"][1:])) for r in ranks]
+    pair_tok_s = TRAIN_B * TRAIN_T / max(steps_s)
+    tp1_bytes = ref["param_bytes"]
+    launches = {key: sum(r["counts"][c] for r in ranks)
+                for key, c in zip(FLASH_KERNELS, ("fwd", "dq", "dkv"))}
+    print(f"train tp 2 (26b): bf16 B={TRAIN_B} T={TRAIN_T} over {{'tp': "
+          f"{TP}}} as 2 gloo processes on one card, {TP_TRAIN_STEPS} steps "
+          f"from the seeded tree: losses {ranks[0]['losses']} (rank 1 "
+          f"{ranks[1]['losses']}) against tp 1's {ref['losses']}, relative "
+          f"{[f'{e:.3e}' for e in loss_err]} (tolerance "
+          f"{TP_TRAIN_LOSS_RTOL}); gathered weights against tp 1's: largest "
+          f"difference {max_err:.3e} in {at} (tolerance "
+          f"{ADAM_BOUND * lr_sum:.3e}), {far} of {total} beyond 1 % of the "
+          f"summed lr; weight bytes a rank {[r['param_bytes'] for r in ranks]}"
+          f" against tp 1's {tp1_bytes} (ratio "
+          f"{ranks[0]['param_bytes'] / tp1_bytes:.4f}), AdamW bytes a rank "
+          f"{[r['adam_bytes'] for r in ranks]} against {2 * tp1_bytes}; "
+          f"peak device bytes a rank {[r['peak_bytes'] for r in ranks]}; "
+          f"flash launches a rank {[r['counts'] for r in ranks]}; bytes "
+          f"staged through the host a step {[r['staged'] for r in ranks]}; "
+          f"step_s {[r['seconds'] for r in ranks]}; the pair's tokens/s "
+          f"{pair_tok_s:.2f} by the slower rank's median step (two ranks on "
+          f"one card staging every collective through the host over gloo: "
+          f"host staging, not what tp costs over NVLink); {wall:.1f} s on "
+          f"{card}", flush=True)
+    if (ranks[0]["losses"] != ranks[1]["losses"]
+            or not max(loss_err) <= TP_TRAIN_LOSS_RTOL
+            or not max_err <= ADAM_BOUND * lr_sum):
+        raise AssertionError("tp 2 parts from tp 1")
+    want_n = TP * LM["n_layers"] * TP_TRAIN_STEPS
+    if set(launches.values()) != {want_n}:
+        raise AssertionError(f"26b launches {launches}, want {want_n}")
+    return launches
+
+
+def with_flags(args: list, **flags) -> list:
+    """``args`` with each ``--flag value`` of ``flags`` (underscores for
+    dashes) set, added when absent."""
+    out = list(args)
+    for name, value in flags.items():
+        flag = "--" + name.replace("_", "-")
+        if flag in out:
+            out[out.index(flag) + 1] = str(value)
+        else:
+            out += [flag, str(value)]
+    return out
+
+
+def tp_entry_phase(card: str) -> dict:
+    """Phase 26 (c): ``dist_lm --tp 2`` at ENTRY_ARGS: 2 ranks killed and
+    resumed (bitwise their twin), 4 ranks as dp 2 x tp 2 beside the
+    resume, the killed run's checkpoint restored at tp 1 in this process
+    and by a tp 1 ``dist_lm``. Returns {path label: flash launches}."""
+    from tf_operator_tpu_torch.models.convert import (
+        _leaves,
+        flax_path,
+        init_params,
+        load_params,
+    )
+    from tf_operator_tpu_torch.models.transformer import (
+        Transformer,
+        TransformerConfig,
+    )
+    from tf_operator_tpu_torch.train import checkpoint
+    from tf_operator_tpu_torch.train.steps import TrainState, adamw
+
+    module = "tf_operator_tpu_torch.train.dist_lm"
+    tp2 = with_flags(ENTRY_ARGS, tp=TP)
+    procs: list = []
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, twin = os.path.join(tmp, "ck"), os.path.join(tmp, "twin")
+        one_dir = os.path.join(tmp, "tp1")
+        try:
+            first = start_ranks(module, tp2 + [
+                "--checkpoint-dir", ck, "--fail-at-step",
+                str(ENTRY_FAIL_AT)], TP, tmp, "tpfirst", procs)
+            third = start_ranks(module, tp2 + ["--checkpoint-dir", twin],
+                                TP, tmp, "tptwin", procs)
+            codes = wait_all(procs)
+            procs.clear()
+            if codes != [138, 138, 0, 0]:
+                raise AssertionError(f"26c: rc {codes}: " + "\n".join(
+                    read_log(p)[-2000:] for p in first + third))
+            shutil.copytree(ck, one_dir)
+            second = start_ranks(module, tp2 + [
+                "--checkpoint-dir", ck, "--fail-at-step",
+                str(ENTRY_FAIL_AT)], TP, tmp, "tpsecond", procs)
+            four = start_ranks(module, tp2, 2 * TP, tmp, "tpfour", procs)
+            one = start_ranks(module, with_flags(
+                ENTRY_ARGS, checkpoint_dir=one_dir,
+                steps=ENTRY_FAIL_AT + 2, target_loss=10), None, tmp,
+                "tpone", procs)
+            codes = wait_all(procs)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        outs = {name: [read_log(p) for p in logs] for name, logs in (
+            ("twin", third), ("second", second), ("four", four),
+            ("one", one))}
+        resumed = f"dist_lm: resumed from step {ENTRY_FAIL_AT + 1}"
+        if codes != [0] * 7 or not all(
+                resumed in o and "dist_lm: OK" in o
+                for o in outs["second"] + outs["one"]) or not all(
+                f"process {r}/4, mesh {{'dp': 2, 'sp': 1, 'tp': 2}}" in o
+                and "dist_lm: OK" in o
+                for r, o in enumerate(outs["four"])):
+            raise AssertionError(f"26c: rc {codes}: " + "\n".join(
+                o[-2000:] for v in outs.values() for o in v))
+        last = checkpoint.latest_step(ck)
+        a = dict(_leaves(checkpoint.read(ck, last)[0]))
+        b = dict(_leaves(checkpoint.read(twin, last)[0]))
+        bitwise = a.keys() == b.keys() and all(torch.equal(a[k], b[k])
+                                               for k in a)
+        printed = {name: [re.findall(r"step (\d+) loss=(\S+)", o)
+                          + re.findall(r"(final) loss (\S+)", o)
+                          for o in v] for name, v in outs.items()}
+        # The killed run's checkpoint (step ENTRY_FAIL_AT, written whole by
+        # tp 2's rank 0) restored into a tp 1 state as dist_lm builds it.
+        saved, _ = checkpoint.read(one_dir, ENTRY_FAIL_AT)
+
+        def arg(flag):
+            return int(ENTRY_ARGS[ENTRY_ARGS.index(flag) + 1])
+
+        d = arg("--d-model")
+        cfg = TransformerConfig(
+            vocab_size=arg("--vocab"), d_model=d, n_heads=ENTRY_HEADS,
+            n_layers=arg("--layers"), d_ff=2 * d, max_seq_len=arg("--seq"),
+            dtype=torch.float32)
+        model = load_params(Transformer(cfg), init_params(cfg, 0))
+        state = TrainState.create(model, adamw(3e-3))
+        with checkpoint.CheckpointManager(one_dir) as mgr:
+            mgr.restore(ENTRY_FAIL_AT, state)
+        restored_diff = []
+        for name, p in model.named_parameters():
+            path = flax_path(name)
+            if not torch.equal(p.detach().cpu(), checkpoint._tree_get(
+                    saved["params"], path)):
+                restored_diff.append(name)
+            for key in ("exp_avg", "exp_avg_sq"):
+                if not torch.equal(state.optimizer.state[p][key].cpu(),
+                                   checkpoint._tree_get(saved["opt"][key],
+                                                        path)):
+                    restored_diff.append(f"{key} {name}")
+        del model, state
+        launches = {
+            "dist_lm tp 2 (26c)": rank_launches(first + third + second,
+                                                "26c tp 2"),
+            "dist_lm dp 2 x tp 2 (26c)": rank_launches(four,
+                                                       "26c dp 2 x tp 2")}
+    worst = max(abs(float(x[1]) - float(y[1])) for x, y in zip(
+        printed["four"][0], printed["twin"][0]))
+    same = all(p == printed["four"][0] for p in printed["four"])
+    print(f"dist_lm tp 2 (26c): {' '.join(tp2)} --dist-backend gloo: run 1 "
+          f"exited 138 at step {ENTRY_FAIL_AT} on both ranks, run 2 resumed "
+          f"from step {ENTRY_FAIL_AT + 1}; the final checkpoint (step {last}) "
+          f"against the uninterrupted twin's: "
+          f"{'bitwise' if bitwise else 'NOT bitwise'} ({len(a)} tensors); "
+          f"printed losses resumed {printed['second'][0]}, twin "
+          f"{printed['twin'][0]}; 4 ranks as dp 2 x tp 2 "
+          f"{printed['four'][0]} (every rank the same: {same}), largest "
+          f"difference from the twin {worst:.2e} (tolerance {DP_LOSS_TOL}); "
+          f"the tp 2 checkpoint of step {ENTRY_FAIL_AT} restored at tp 1: "
+          f"{'bitwise the saved tree' if not restored_diff else restored_diff[:6]}"
+          f", and a tp 1 dist_lm resumed from it ({printed['one'][0]}); "
+          f"launches {launches}; {time.perf_counter() - t0:.1f} s on {card}",
+          flush=True)
+    if (not bitwise or printed["second"][0][-1] != printed["twin"][0][-1]
+            or not same or not worst <= DP_LOSS_TOL or restored_diff):
+        raise AssertionError("26c: dist_lm --tp 2 fails its checks")
+    return launches
+
+
+def tp_train_phase(card: str) -> dict:
+    """Phase 26, (a) to (c); returns {path label: flash launches}."""
+    t0 = time.perf_counter()
+    nccl, ref = tp_train_nccl_phase(card)
+    pair = tp_train_pair_phase(card, ref)
+    del ref
+    entry = tp_entry_phase(card)
+    print(f"phase 26 (tensor-parallel training): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {"train tp nccl world 1 (26a)": nccl, "train tp 2 (26b)": pair,
+            **entry}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -6214,6 +6674,8 @@ def main() -> int:
     flash_dp = dp_phase(card)
     torch.cuda.empty_cache()
     tp = tp_phase(pa, i8, base, params, prompts, card)
+    torch.cuda.empty_cache()
+    tp_train = tp_train_phase(card)
 
     # Each kernel's launches on every path of this run that drives it.
     paths = {
@@ -6263,6 +6725,9 @@ def main() -> int:
             paths[name][label] = n
     for name, by_path in tp.items():
         paths[name].update(by_path)
+    for label, counts in tp_train.items():
+        for name, n in counts.items():
+            paths[name][label] = n
 
     src = "tf_operator_tpu_torch/ops/csrc/"
     replaces = {"flash_fwd": 253, "flash_dq": 297, "flash_dkv": 331}

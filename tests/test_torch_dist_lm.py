@@ -217,7 +217,10 @@ def test_eviction_signal_saves_acks_and_keeps_training(tmp_path):
 
 @pytest.mark.parametrize("argv,item", [
     (["--sp", "2"], "ROADMAP A8"),
-    (["--tp", "2"], "ROADMAP A8"),
+    # --tp is ported (A8b's second half): the case now pins JAX's error for
+    # a process count it does not divide.
+    pytest.param(["--tp", "2"], "1 devices not divisible by sp*tp*ep*pp=2",
+                 id="argv1-ROADMAP A8"),
     (["--pp", "2"], "ROADMAP A8"),
     (["--pp-microbatches", "4"], "ROADMAP A8"),
     (["--pp-schedule", "1f1b"], "ROADMAP A8"),
@@ -247,6 +250,11 @@ def test_unported_flags_are_usage_errors(argv, item, capsys, tmp_path):
         assert dist_lm.main(small(2)[:-2] + ["--target-loss", "10",
                                              *argv]) == 0
         assert "dist_lm: OK" in capsys.readouterr().out
+        return
+    if "not divisible" in item:
+        with pytest.raises(SystemExit) as exc:
+            dist_lm.main(["--device", "cpu", *argv])
+        assert exc.value.code == item
         return
     with pytest.raises(SystemExit) as exc:
         dist_lm.main(["--device", "cpu", *argv])

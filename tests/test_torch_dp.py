@@ -28,7 +28,8 @@ process spends seconds importing torch.
   against JAX's on a 2-device mesh: counts exact, losses within 1e-5
   relative, the same dict on both processes.
 - ``Mesh.group`` over 4 processes: the world's group over axes that span
-  the mesh, and a refusal over part of it.
+  the mesh, and over part of it the ranks of one index of the other
+  axis.
 """
 
 import os
@@ -184,20 +185,20 @@ def lm_rank(rank, world, p):
 
 def groups_rank(rank, world, p):
     """``Mesh.group`` on a dcn 2 x dp 2 mesh: the world's group over both
-    axes, none over an axis the mesh lacks, and the refusal (its message)
-    over dp alone, a group over part of the mesh."""
+    axes, none over an axis the mesh lacks, and over dp alone, a part of
+    the mesh, the ranks of this rank's dcn index (their sum by an
+    all-reduce over it)."""
     import torch.distributed as dist
 
     from tf_operator_tpu_torch.parallel.mesh import create_mesh
 
     mesh = create_mesh({"dcn": 2, "dp": 2}, device="cpu")
-    try:
-        mesh.group(("dp",))
-        refused = None
-    except NotImplementedError as e:
-        refused = str(e)
+    group = mesh.group(("dp",))
+    t = torch.tensor([float(rank)])
+    dist.all_reduce(t, group=group)
     return {"both": mesh.group(("dp", "dcn")) is dist.group.WORLD,
-            "none": mesh.group(("tp",)) is None, "dp": refused}
+            "none": mesh.group(("tp",)) is None,
+            "dp": dist.get_process_group_ranks(group), "sum": float(t)}
 
 
 def classifier_rank(rank, world, p):
@@ -395,10 +396,11 @@ def test_moe_step_over_processes_takes_jax_global_aux_loss(world):
 
 def test_mesh_groups_span_the_world_or_refuse_part_of_it():
     _, results = world_results(4)
-    for r in results:
+    for rank, r in enumerate(results):
         got = r["groups"]
         assert got["both"] and got["none"]
-        assert "A8b's second half" in got["dp"]
+        row = [0, 1] if rank < 2 else [2, 3]
+        assert got["dp"] == row and got["sum"] == float(sum(row))
 
 
 def _randomized(tree, rng):

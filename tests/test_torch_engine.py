@@ -223,13 +223,13 @@ def test_config_rejects_unported_options():
         assert TransformerConfig(**flags)
     # MoE (A9b) is ported, and so are data-parallel meshes (A8a); a
     # tensor-parallel mesh serves decode (A8b's first half,
-    # tests/test_torch_tp.py) and training over one waits for A8b's
-    # second half.
+    # tests/test_torch_tp.py) and trains (A8b's second half,
+    # tests/test_torch_tp_train.py).
     assert TransformerConfig(moe_every_n=2).uses_moe(1)
     dp = port_mesh.create_mesh({"dp": 1}, range(1))
     assert TransformerConfig(mesh=dp).mesh is dp
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A8b"):
-        TransformerConfig(mesh=port_mesh.create_mesh({"tp": 2}, range(2)))
+    tp = port_mesh.create_mesh({"tp": 2}, range(2))
+    assert TransformerConfig(mesh=tp).mesh is tp
     with pytest.raises(ValueError, match="kv_paged"):
         TransformerConfig(kv_attend="kernel")
     with pytest.raises(ValueError, match="kv_attend"):

@@ -152,6 +152,17 @@ def test_members_are_jax_shard_order():
                                        ("ep", "A8e"), ("pp", "A8d")])
 def test_model_parallel_meshes_name_their_item(axis, item):
     m = mesh.create_mesh({"dp": 2, axis: 2}, range(4))
+    if axis == "tp":
+        # Ported (A8b's second half): a dp x tp mesh trains the Megatron
+        # layout and steps the classifiers, replicated over tp
+        # (tests/test_torch_tp_train.py runs it).
+        assert TransformerConfig(mesh=m).mesh is m
+        model = torch.nn.Linear(2, 2)
+        assert steps.make_classifier_train_step(
+            model, steps.sgd_momentum(0.1), has_batch_stats=False, mesh=m)
+        assert steps.make_classifier_eval_step(
+            model, has_batch_stats=False, mesh=m).shard_count == 2
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         TransformerConfig(mesh=m)
     model = torch.nn.Linear(2, 2)

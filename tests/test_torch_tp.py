@@ -357,13 +357,11 @@ def test_kernel_read_refuses_kv_that_does_not_tile_tp():
     # JAX's message (tf_operator_tpu/ops/paged_attention.py).
     assert str(exc.value) == ("paged_attend: KV=1 does not tile tp=2 — use "
                               "kv_attend='gather' for this mesh")
-    # The gather read takes it (CELLS["kv1-gather"]), and training over a
-    # tp mesh waits for A8b's second half.
+    # The gather read takes it (CELLS["kv1-gather"]), and so does training
+    # over a tp mesh (tests/test_torch_tp_train.py's gqa1 cell).
     assert TransformerConfig(n_kv_heads=1, decode=True, kv_paged=True,
                              kv_block=8, kv_num_blocks=4, mesh=mesh, **KW)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md A8b's second half"):
-        TransformerConfig(mesh=mesh, **KW)
+    assert TransformerConfig(n_kv_heads=1, mesh=mesh, **KW).mesh is mesh
     with pytest.raises(ValueError, match="must divide n_heads"):
         TransformerConfig(decode=True, mesh=create_mesh({"tp": 3},
                                                         range(3)), **KW)

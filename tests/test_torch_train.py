@@ -292,11 +292,20 @@ def test_unported_options_raise():
     _, tcfg = _configs("mha")
     model = Transformer(tcfg, device="cpu")
     tx = steps.adamw(1e-3)
-    # A data-parallel mesh is ported (A8a); tensor parallelism waits for
-    # A8b.
-    with pytest.raises(NotImplementedError, match="A8b"):
+    # A data-parallel mesh is ported (A8a), and so is a tensor-parallel
+    # one (A8b), over which the model itself must be built: a model of its
+    # own mesh {"dp": 1, "tp": 1} trains as the plain one does.
+    with pytest.raises(ValueError, match="its own mesh"):
         steps.make_lm_train_step(model, tx, mesh=port_mesh.create_mesh(
             {"dp": 1, "tp": 2}, range(2)))
+    tp1 = port_mesh.create_mesh({"dp": 1, "tp": 1}, range(1))
+    tp_model = load_params(Transformer(replace(tcfg, mesh=tp1),
+                                       device="cpu"), export_params(model))
+    _, m_tp = steps.make_lm_train_step(tp_model, tx, mesh=tp1)(
+        steps.TrainState.create(tp_model, tx), _batch(0))
+    _, m_plain = steps.make_lm_train_step(model, tx)(
+        steps.TrainState.create(model, tx), _batch(0))
+    assert float(m_tp["loss"]) == float(m_plain["loss"])
     one = steps.make_lm_train_step(model, tx, mesh=port_mesh.create_mesh(
         {"dp": 1}, range(1)))
     _, m = one(steps.TrainState.create(model, tx), _batch(0))

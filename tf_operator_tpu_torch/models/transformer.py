@@ -27,8 +27,9 @@ under ``int8_decode``. ``mesh`` takes a data-parallel mesh
 step averages over it. A mesh that shards the sequence, the experts or
 the layers raises, naming ROADMAP.md A8c, A8e or A8d.
 
-A decode model over a mesh with a ``tp`` axis is this rank's part of a
-tensor-parallel model (``param_sharding_rules``, JAX's Megatron pairs):
+A model over a mesh with a ``tp`` axis, in either mode, is this rank's
+part of a tensor-parallel model (``param_sharding_rules``, JAX's
+Megatron pairs):
 the qkv (or q and kv) projections split on heads and ``mlp/in_proj`` on
 ``d_ff``; ``attn/out`` and ``mlp/out_proj`` split on their input and sum
 their partial products with one all-reduce, then add their bias; the
@@ -41,8 +42,15 @@ vocabulary or ``d_ff``. An ``int8_decode`` tree stays whole on every
 rank, as JAX replicates it: each rank runs the full projections and keeps
 its heads' share of the K/V, and the heads' attention outputs are
 all-gathered before the whole out-projection. The KV storage holds this
-rank's ``KV/tp`` heads either way. Training over a ``tp`` mesh waits for
-ROADMAP.md A8b's second half.
+rank's ``KV/tp`` heads either way.
+
+In training the same layout runs under autograd (``TpPlan``'s docstring
+has the rule each leaf's gradient follows): the flash kernels run on
+each rank over its ``H/tp`` heads, ``n_heads`` that does not tile tp
+leaves the attention whole on every rank (JAX's unsharded fallback), and
+an MoE block keeps its experts whole (JAX's rules match no MoE leaf).
+``remat`` recomputes a block with its collectives inside the backward,
+in the same order on every rank.
 
 The cache is an explicit dict of tensors, updated IN PLACE where the
 JAX model rebuilt its ``cache`` collection:
@@ -143,7 +151,7 @@ class TransformerConfig:
     moe_experts: int = 8
     moe_capacity_factor: float = 1.25
     moe_top_k: int = 1  # 1 = Switch, 2 = GShard top-2
-    # A data-parallel mesh (parallel/mesh.py), or a tensor-parallel one in
+    # A mesh (parallel/mesh.py) of data axes and tp in training, of tp in
     # decode mode; sp, ep and pp wait for ROADMAP.md A8c-A8e.
     mesh: Any = None
 
@@ -229,26 +237,55 @@ class TransformerConfig:
 
 @dataclass(frozen=True)
 class TpPlan:
-    """This rank's part of a tensor-parallel decode model: ``tp`` (the
+    """This rank's part of a tensor-parallel model: ``tp`` (the
     ``TensorParallel``), whether the weights are split (``split``; an
-    int8 tree is whole on every rank), and the ``(start, length)`` it
-    holds of the query heads, the KV heads, ``d_ff`` and the vocabulary,
-    None where the dimension does not tile tp (whole on every rank)."""
+    int8 decode tree is whole on every rank), whether it trains
+    (``train``), and the ``(start, length)`` it holds of the query heads,
+    the KV heads, ``d_ff`` and the vocabulary, None where the dimension
+    does not tile tp (whole on every rank).
+
+    In training each leaf's gradient follows one of three rules, which
+    the modules below keep:
+
+    1. A split leaf (``param_sharding_rules`` cut it) has a gradient of
+       its own on each rank, never summed over tp.
+    2. A whole leaf that every rank uses alike on the replicated residual
+       stream (the norms' scales, the position table, the row-split
+       projections' biases added after their all-reduce, the MoE experts,
+       the whole attention when ``n_heads`` does not tile, a whole MLP,
+       embedding or head) has the same gradient on every rank: summing it
+       would count it tp times.
+    3. A whole leaf that each rank uses in part (a column split's bias
+       sliced at use, the head's bias under a vocabulary split, a GQA
+       ``attn/kv`` that is whole because KV < tp and of which each rank
+       reads the heads its queries group to) enters through
+       ``tp.copy``, so that its partial gradients are summed over tp.
+
+    The activations follow Megatron's pairs: the replicated input of a
+    split product enters through ``tp.copy`` (its gradient summed), the
+    partial products leave through ``tp.reduce`` (summed forward, the
+    identity backward), the split head's logits through ``tp.gather``."""
 
     tp: Any
     split: bool
-    heads: tuple
+    train: bool
+    heads: tuple | None
     kv: tuple | None
     ff: tuple | None
     vocab: tuple | None
 
+    @property
+    def share(self):
+        """The ``TensorParallel`` whose ``copy`` sums a rule-3 leaf's
+        gradient: ``tp`` in training, None in decode (no gradient)."""
+        return self.tp if self.train else None
+
 
 def tp_plan(cfg: TransformerConfig) -> TpPlan | None:
-    """The ``TpPlan`` of a decode config over a mesh with a ``tp`` axis
-    (None otherwise), from ``parallel/sharding.py``'s ``TensorParallel``
-    of the mesh: what ``param_sharding_rules`` gives this rank."""
-    if (cfg.mesh is None or not cfg.decode
-            or "tp" not in cfg.mesh.axis_names):
+    """The ``TpPlan`` of a config over a mesh with a ``tp`` axis (None
+    otherwise), from ``parallel/sharding.py``'s ``TensorParallel`` of the
+    mesh: what ``param_sharding_rules`` gives this rank."""
+    if cfg.mesh is None or "tp" not in cfg.mesh.axis_names:
         return None
     from tf_operator_tpu_torch.parallel.sharding import TensorParallel
 
@@ -258,9 +295,10 @@ def tp_plan(cfg: TransformerConfig) -> TpPlan | None:
     def part(total: int):
         return None if total % n else (r * (total // n), total // n)
 
-    return TpPlan(tp=tp, split=not cfg.int8_decode,
-                  heads=part(cfg.n_heads), kv=part(cfg.kv_heads),
-                  ff=part(cfg.d_ff), vocab=part(cfg.vocab_size))
+    return TpPlan(tp=tp, split=not (cfg.decode and cfg.int8_decode),
+                  train=not cfg.decode, heads=part(cfg.n_heads),
+                  kv=part(cfg.kv_heads), ff=part(cfg.d_ff),
+                  vocab=part(cfg.vocab_size))
 
 
 def param_sharding_rules(tp_axis: str = "tp") -> dict[str, tuple]:
@@ -321,11 +359,14 @@ class DenseGeneral(nn.Module):
     the rules leave it: ``bias_slice`` ``(dim, start, length)`` is its
     columns of it (a projection split on its output), and ``reduce`` (a
     ``TensorParallel``) sums the partial products over the ranks before
-    the bias is added (a projection split on its input)."""
+    the bias is added (a projection split on its input). In training,
+    ``share`` is the ``TensorParallel`` whose ``copy`` takes the leaves
+    this rank uses in part (``TpPlan`` rule 3): the sliced bias, and with
+    ``share_kernel`` the kernel too."""
 
     def __init__(self, in_shape, out_shape, dtype, store: _Store,
                  param_dtype=None, *, bias_shape=None, bias_slice=None,
-                 reduce=None):
+                 reduce=None, share=None, share_kernel=False):
         super().__init__()
         self.in_shape, self.out_shape = tuple(in_shape), tuple(out_shape)
         self.dtype = dtype
@@ -334,16 +375,21 @@ class DenseGeneral(nn.Module):
                                 param_dtype)
         self.bias_slice = bias_slice
         self.reduce = reduce
+        self.share, self.share_kernel = share, share_kernel
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[: x.dim() - len(self.in_shape)]
         k, n = math.prod(self.in_shape), math.prod(self.out_shape)
         dt = self.dtype
-        y = x.reshape(*lead, k).to(dt) @ self.kernel.reshape(k, n).to(dt)
+        kernel, bias = self.kernel, self.bias
+        if self.share is not None and self.share_kernel:
+            kernel, bias = self.share.copy(kernel), self.share.copy(bias)
+        y = x.reshape(*lead, k).to(dt) @ kernel.reshape(k, n).to(dt)
         if self.reduce is not None:
-            self.reduce.all_reduce_(y)
-        bias = self.bias
+            y = self.reduce.reduce(y)
         if self.bias_slice is not None:
+            if self.share is not None:
+                bias = self.share.copy(bias)
             bias = bias.narrow(*self.bias_slice)
         y = y + bias.reshape(n).to(dt)
         return y.reshape(*lead, *self.out_shape)
@@ -407,9 +453,12 @@ class Embed(nn.Module):
 
 class VocabEmbed(Embed):
     """A rank's rows ``[start, start + num)`` of a vocabulary-split
-    embedding (decode only): a gather of the ids it holds, exact zeros
-    for the others, then the all-reduce over ``tp`` that adds the one
-    rank's row to the other ranks' zeros."""
+    embedding: a gather of the ids it holds (through ``Embed``'s op, so
+    that the backward keeps its one order), exact zeros for the others,
+    then the sum over ``tp`` that adds the one rank's row to the other
+    ranks' zeros (``tp.reduce``: in training its backward hands every
+    rank the whole gradient, and the ids a rank does not hold add exact
+    zeros to its rows)."""
 
     def __init__(self, num, features, dtype, store: _Store, *, start: int,
                  tp):
@@ -419,9 +468,11 @@ class VocabEmbed(Embed):
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         local = ids.long() - self.start
         held = (local >= 0) & (local < self.weight.shape[0])
-        rows = self.weight[local.clamp(0, self.weight.shape[0] - 1)]
+        local = local.clamp(0, self.weight.shape[0] - 1)
+        rows = (self.weight[local] if ids.is_cuda
+                else F.embedding(local, self.weight))
         out = torch.where(held[..., None], rows, 0).to(self.dtype)
-        return self.tp.all_reduce_(out)
+        return self.tp.reduce(out)
 
 
 class RMSNorm(nn.Module):
@@ -450,8 +501,12 @@ class Attention(nn.Module):
         plan = self.plan = store.plan
         # Under tp: which query and K/V heads this rank attends over (the
         # slices taken after whole int8 projections), and, when KV does
-        # not tile, the KV head each of its query heads reads.
-        self.head_cut = self.kv_cut = self.kv_map = None
+        # not tile, the KV head each of its query heads reads. Query
+        # heads that do not tile tp (training only) leave the attention
+        # whole on every rank.
+        self.head_cut = self.kv_cut = self.kv_map = self.tp_in = None
+        if plan is not None and plan.heads is None:
+            plan = None
         if plan is not None:
             (hlo, hn), kvc = plan.heads, plan.kv
             self.kv_map = (None if kvc is not None else torch.arange(
@@ -460,23 +515,27 @@ class Attention(nn.Module):
                 self.head_cut, self.kv_cut = (hlo, hn), kvc
         if plan is not None and plan.split:
             # Megatron pairs: q/kv (or qkv) split on heads, the whole bias
-            # sliced; out split on its input and all-reduced.
+            # sliced; out split on its input and all-reduced. A whole kv
+            # (KV < tp) is read in part on each rank (TpPlan rule 3).
             (hlo, hn), kvc = plan.heads, plan.kv
+            share = plan.share
+            self.tp_in = share
             if cfg.n_kv_heads is not None:
                 self.q = DenseGeneral((d,), (hn, dh), cfg.dtype, store,
                                       bias_shape=(h, dh),
-                                      bias_slice=(0, hlo, hn))
+                                      bias_slice=(0, hlo, hn), share=share)
                 if kvc is None:
                     self.kv = DenseGeneral((d,), (2, kv, dh), cfg.dtype,
-                                           store)
+                                           store, share=share,
+                                           share_kernel=True)
                 else:
                     self.kv = DenseGeneral((d,), (2, kvc[1], dh), cfg.dtype,
                                            store, bias_shape=(2, kv, dh),
-                                           bias_slice=(1, *kvc))
+                                           bias_slice=(1, *kvc), share=share)
             else:
                 self.qkv = DenseGeneral((d,), (3, hn, dh), cfg.dtype, store,
                                         bias_shape=(3, h, dh),
-                                        bias_slice=(1, hlo, hn))
+                                        bias_slice=(1, hlo, hn), share=share)
             self.out = DenseGeneral((hn, dh), (d,), cfg.dtype, store,
                                     reduce=plan.tp)
             return
@@ -495,6 +554,8 @@ class Attention(nn.Module):
 
     def forward(self, x, layer: dict | None = None, cache: dict | None = None,
                 live=None) -> torch.Tensor:
+        if self.tp_in is not None:
+            x = self.tp_in.copy(x)
         if self.cfg.n_kv_heads is not None:
             q = self.q(x)
             kv = self.kv(x)
@@ -525,8 +586,13 @@ class Attention(nn.Module):
         """Training attention, causal over the whole sequence. Under GQA
         K/V are repeated to full heads first (``jnp.repeat`` on the head
         axis: each KV head serves its g query heads in a row), so the
-        kernels see the MHA layout; the saving is the smaller projection."""
-        g = self.cfg.n_heads // self.cfg.kv_heads
+        kernels see the MHA layout; the saving is the smaller projection.
+        A tensor-parallel rank whose KV heads are whole reads the one each
+        of its query heads groups to."""
+        if self.kv_map is not None:
+            return attention(q, self._heads(k, 2), self._heads(v, 2),
+                             causal=True)
+        g = q.shape[2] // k.shape[2]
         if g > 1:
             k = k.repeat_interleave(g, dim=2)
             v = v.repeat_interleave(g, dim=2)
@@ -706,13 +772,16 @@ class MLP(nn.Module):
     def __init__(self, cfg: TransformerConfig, store: _Store):
         super().__init__()
         plan = store.plan
+        self.tp_in = None
         if plan is not None and plan.split and plan.ff is not None:
             # in_proj split on d_ff (its bias sliced), out_proj on its
             # input, all-reduced.
             lo, n = plan.ff
+            self.tp_in = plan.share
             self.in_proj = DenseGeneral((cfg.d_model,), (n,), cfg.dtype,
                                         store, bias_shape=(cfg.d_ff,),
-                                        bias_slice=(0, lo, n))
+                                        bias_slice=(0, lo, n),
+                                        share=plan.share)
             self.out_proj = DenseGeneral((n,), (cfg.d_model,), cfg.dtype,
                                          store, reduce=plan.tp)
             return
@@ -720,6 +789,8 @@ class MLP(nn.Module):
         self.out_proj = _dense(cfg, store, (cfg.d_ff,), (cfg.d_model,))
 
     def forward(self, x):
+        if self.tp_in is not None:
+            x = self.tp_in.copy(x)
         return self.out_proj(gelu(self.in_proj(x)))
 
 
@@ -793,7 +864,7 @@ class Transformer(nn.Module):
             self.lm_head = DenseGeneral(
                 (cfg.d_model,), (n,), torch.float32, store,
                 param_dtype=torch.float32, bias_shape=(cfg.vocab_size,),
-                bias_slice=(0, lo, n))
+                bias_slice=(0, lo, n), share=plan.share)
         else:
             self.lm_head = DenseGeneral((cfg.d_model,), (cfg.vocab_size,),
                                         torch.float32, store,
@@ -940,13 +1011,17 @@ def _head_logits(model: Transformer, h: torch.Tensor) -> torch.Tensor:
     ``[..., vocab]``, dispatching on the head's layout as JAX's does: the
     int8 head on the hidden rows as they are (``int8_apply`` rounds them
     to bf16), the dense head in f32 on an f32 cast. A vocabulary-split
-    head's logits are all-gathered, in rank order, to full rows."""
+    head's logits are all-gathered, in rank order, to full rows (in
+    training its replicated input enters through ``tp.copy``)."""
     if isinstance(model.lm_head, Int8Dense):
         return model.lm_head(h)
-    logits = model.lm_head(h.float())
     plan = model.tp_plan
-    if plan is not None and plan.split and plan.vocab is not None:
-        logits = plan.tp.all_gather(logits, -1)
+    split = plan is not None and plan.split and plan.vocab is not None
+    if split and plan.train:
+        h = plan.tp.copy(h)
+    logits = model.lm_head(h.float())
+    if split:
+        logits = plan.tp.gather(logits, -1)
     return logits
 
 

@@ -15,13 +15,16 @@ device order. The axis names and their canonical order are JAX's:
 - ``tp``   tensor parallelism.
 
 ``Mesh.group`` is the process group over a set of axes: the world's own
-group when the axes span the mesh, none when they have size 1. A group
-over a part of the mesh (a tensor axis beside a data axis) waits for the
-item that first needs it: A8b's second half. A multislice job needs
-none: each slice is a world of its own (``train/dist_multislice.py``).
+group when the axes span the mesh, none when they have size 1, and over
+a part of the mesh (the tensor axis beside a data axis) the group of the
+ranks that share this rank's coordinates on every other axis. The first
+such request builds every group over every part of the mesh, on every
+rank in one fixed order (``dist.new_group`` is collective over the
+world), and caches them on the mesh. A multislice job needs none: each
+slice is a world of its own (``train/dist_multislice.py``).
 
-A data-parallel mesh serves training (``check_data_parallel``); a
-tensor-parallel one serves decode (``check_tensor_parallel``).
+Training takes a mesh of data axes and ``tp`` (``check_data_parallel``);
+decode takes a tensor-parallel one (``check_tensor_parallel``).
 
 ``slice_mesh`` checks the world against a TPU slice's device count, from
 this module's copy of ``tf_operator_tpu/topology/slices.py``'s
@@ -49,6 +52,8 @@ class Mesh:
         self.devices = np.asarray(devices, dtype=np.int64)
         self.axis_names = tuple(axis_names)
         self.device = device
+        # {axes above size 1: this rank's group over them}, built once.
+        self._groups: dict | None = None
 
     @property
     def shape(self) -> dict[str, int]:
@@ -85,7 +90,8 @@ class Mesh:
     def group(self, axes: Sequence[str]):
         """The process group over ``axes``: the world's default group when
         they span the mesh, None when they have size 1 or no process group
-        is initialised. Raises for axes over a part of the mesh."""
+        is initialised, else this rank's group over that part of the mesh
+        (``_part_groups``)."""
         import torch.distributed as dist
 
         axes = [a for a in axes if a in self.axis_names]
@@ -99,9 +105,40 @@ class Mesh:
             return dist.group.WORLD
         if n == 1:
             return None
-        raise NotImplementedError(
-            f"a process group over {axes} of {self} is not ported yet: see "
-            "ROADMAP.md A8b's second half (tp x dp meshes)")
+        key = tuple(sorted((a for a in axes if self.shape[a] > 1),
+                           key=self.axis_names.index))
+        return self._part_groups()[key]
+
+    def _part_groups(self) -> dict:
+        """This rank's group over every set of axes above size 1 that is
+        not the whole mesh, built on the first call: for each set in a
+        fixed order (fewest axes first, then the mesh's axis order), one
+        ``dist.new_group`` for each coordinate of the other axes, in
+        row-major order, on every rank (gloo and NCCL want every rank to
+        create every group, in one order, or they hang)."""
+        import itertools
+
+        import torch.distributed as dist
+
+        if self._groups is not None:
+            return self._groups
+        big = [a for a in self.axis_names if self.shape[a] > 1]
+        rank = dist.get_rank()
+        groups = {}
+        for k in range(1, len(big)):
+            for axes in itertools.combinations(big, k):
+                dims = [self.axis_names.index(a) for a in axes]
+                rest = [d for d in range(self.devices.ndim)
+                        if d not in dims]
+                arr = np.transpose(self.devices, rest + dims).reshape(
+                    -1, math.prod(self.shape[a] for a in axes))
+                for ranks in arr:
+                    ranks = sorted(int(r) for r in ranks)
+                    g = dist.new_group(ranks)
+                    if rank in ranks:
+                        groups[axes] = g
+        self._groups = groups
+        return groups
 
 
 def _world_ranks() -> list[int]:
@@ -252,20 +289,19 @@ def host_local_batch_size(global_batch: int, mesh: Mesh,
     return global_batch // size
 
 
-# The axes a data-parallel mesh keeps at 1, and the ROADMAP items that
-# port them. A tensor axis serves decode (``check_tensor_parallel``);
-# training over one waits for A8b's second half.
+# The axes a training mesh keeps at 1, and the ROADMAP items that port
+# them. Training takes the data axes and ``tp`` (the Megatron layout of
+# models/transformer.py).
 UNPORTED_AXES = {"sp": "A8c (sequence parallel)",
-                 "tp": "A8b's second half (tensor-parallel training: "
-                       "sharded_lm_xent, dist_lm --tp)",
                  "ep": "A8e (expert parallel)",
                  "pp": "A8d (pipelines)"}
 
 
 def check_data_parallel(mesh: Mesh, what: str) -> None:
-    """Raise unless ``mesh`` is a port ``Mesh`` whose sequence, tensor,
-    expert and pipeline axes are 1: ``NotImplementedError`` naming the
-    ROADMAP item of the first axis above 1."""
+    """Raise unless ``mesh`` is a port ``Mesh`` whose sequence, expert
+    and pipeline axes are 1: ``NotImplementedError`` naming the ROADMAP
+    item of the first axis above 1. The data axes and ``tp`` may take
+    any size."""
     if not isinstance(mesh, Mesh):
         raise TypeError(f"{what}: expected a parallel.mesh.Mesh, got "
                         f"{type(mesh).__name__}")
@@ -285,13 +321,13 @@ def check_tensor_parallel(mesh: Mesh, what: str) -> int:
     if not isinstance(mesh, Mesh):
         raise TypeError(f"{what}: expected a parallel.mesh.Mesh, got "
                         f"{type(mesh).__name__}")
-    refused = dict(UNPORTED_AXES, tp=None,
+    refused = dict(UNPORTED_AXES,
                    dp="A8b's second half (tp x dp serving)",
                    fsdp="A8e (FSDP)", dcn="A8b's second half (tp x dp "
                                           "serving)")
     for axis, item in refused.items():
         size = mesh.shape.get(axis, 1)
-        if item is not None and size > 1:
+        if size > 1:
             raise NotImplementedError(
                 f"{what}: a decode mesh with {axis}={size} is not ported "
                 f"yet: see ROADMAP.md {item}")

@@ -10,8 +10,9 @@ rank's own rows, and a replicated tree is one copy a rank:
   (``Mesh.members``), JAX's ``make_array_from_process_local_data``
   contract of one host batch a process.
 - ``replicate(mesh, tree)`` broadcasts every tensor of a tree, a module
-  or a ``TrainState`` from the mesh's first rank, so that every rank
-  starts from the same state.
+  or a ``TrainState`` over the mesh's axes but ``tp`` from the first rank
+  of this rank's group, so that every rank starts from the same state
+  (the same shards, on a dp x tp mesh).
 - ``DataParallel`` is a mesh's data axes as this rank sees them: its
   group, its size, this rank's shard index, the gradient mean, an
   all-reduce that autograd sees (``sum``), and the gather of a batch's
@@ -29,13 +30,21 @@ its shard; here rank r keeps its slice of each leaf.
 - ``shard_params_by_rules(mesh, params, rules, rank=)`` is rank's slice of
   every leaf under that tree: the addressable shard JAX gives the device
   at the rank's place in the mesh.
-- ``TensorParallel`` is a decode mesh's tensor axis as this rank sees
-  it: its index, its size, and the collectives the Megatron layout of
-  ``models/transformer.py`` issues (the row-split projections'
-  all-reduce, the vocab-split head's all-gather, the engine's command
-  broadcast). Under gloo a tensor on the card is staged through the
-  host, in the open: the module's ``staged_bytes`` counts what went that
-  way in this process.
+- ``gather_params_by_rules(mesh, params, rules, shapes)`` is the inverse:
+  every split leaf all-gathered on its rule's dimension back to the whole
+  leaf (``shapes`` names the whole shapes, which decide the specs).
+- ``TensorParallel`` is a mesh's tensor axis as this rank sees it: its
+  index, its size, its group (the world's for a decode mesh, the ranks
+  of one data index on a dp x tp mesh), and the collectives the Megatron
+  layout of ``models/transformer.py`` issues: in place for decode (the
+  row-split projections' all-reduce, the vocab-split head's all-gather,
+  the engine's command broadcast), and for training three that autograd
+  sees (``copy``: the identity forward and an all-reduce backward;
+  ``reduce``: an all-reduce forward and the identity backward;
+  ``gather``: an all-gather forward and the rank's slice backward).
+  Under gloo a tensor on the card is staged through the host, in the
+  open: the module's ``staged_bytes`` counts what went that way in this
+  process.
 
 The FSDP and ZeRO placements (``fsdp_sharding_tree``,
 ``shard_params_fsdp``, ``weight_update_shardings``) wait for ROADMAP
@@ -194,13 +203,17 @@ def _tensors(tree: Any) -> list[torch.Tensor]:
 def replicate(mesh: Mesh, tree: Any) -> Any:
     """Broadcast every tensor of ``tree`` (tensors in dicts, lists and
     tuples, a module's parameters and buffers, a ``TrainState``'s model
-    and optimiser state) in place from the mesh's first rank; returns
-    ``tree``. A copy of the same state on every rank, as JAX's
-    replicated placement is."""
-    group = mesh.group(mesh.axis_names)
+    and optimiser state) in place over every axis of the mesh but ``tp``,
+    from the first rank of this rank's group; returns ``tree``. A copy of
+    the same state on every rank, as JAX's replicated placement is; on a
+    dp x tp mesh each tensor-parallel rank keeps its own shards, and the
+    ranks that share its ``tp`` index get them."""
+    axes = [a for a in mesh.axis_names if a != "tp"]
+    group = mesh.group(axes)
     if group is None:
         return tree
-    src = int(mesh.devices.reshape(-1)[0])
+    rank = dist.get_rank()
+    src = mesh.members(axes, rank)[0]
     nccl = dist.get_backend(group) == "nccl"
     for t in _tensors(tree):
         if t.is_cuda or not nccl:
@@ -307,7 +320,35 @@ def shard_params_by_rules(mesh: Mesh, params: Any, rules: dict[str, tuple],
     return _map_tree(params, cut)
 
 
-# -- the tensor axis of a decode mesh ----------------------------------------
+def gather_leaf(mesh: Mesh, spec: tuple, leaf: torch.Tensor
+                ) -> torch.Tensor:
+    """The whole leaf of which ``leaf`` is this rank's shard under
+    ``spec``: all-gathered over each named axis above size 1 on its
+    dimension, the shards in the axis' order, on ``leaf``'s device."""
+    for d, axis in enumerate(spec):
+        if axis is not None and mesh.shape.get(axis, 1) > 1:
+            leaf = TensorParallel(mesh, axis).all_gather(leaf, d)
+    return leaf
+
+
+def gather_params_by_rules(mesh: Mesh, params: Any, rules: dict[str, tuple],
+                           shapes: dict, default: tuple = ()) -> Any:
+    """The inverse of ``shard_params_by_rules``: every leaf of ``params``
+    (nested dicts of this rank's tensor shards) all-gathered back to the
+    whole leaf. ``shapes`` is ``{path tuple: whole shape}``
+    (``models/convert.py::param_shapes``): the whole shape decides a
+    leaf's spec, as it does when the leaf is cut. Collective over the
+    axes the rules name: every rank calls it with the same tree."""
+
+    def whole(path, leaf):
+        spec = spec_by_rules(mesh, _path_str(path), tuple(shapes[path]),
+                             rules, default)
+        return gather_leaf(mesh, spec, leaf)
+
+    return _map_tree(params, whole)
+
+
+# -- the tensor axis ------------------------------------------------------------
 
 # Bytes this process's tensor-parallel collectives staged through the host
 # (gloo over tensors on the card); set it to 0 to reset.
@@ -315,15 +356,62 @@ staged_bytes = 0
 
 
 
+class _Copy(torch.autograd.Function):
+    """The identity forward and the sum over the tensor axis backward: a
+    replicated activation (or a whole leaf) that each rank feeds to its
+    part of a split product, whose gradient each rank holds in part."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.all_reduce_(g.clone()), None
+
+
+class _Reduce(torch.autograd.Function):
+    """The sum over the tensor axis forward (out of place) and the identity
+    backward: the ranks' partial products (or partial sums) of one value
+    that every rank then uses alike, whose gradient every rank holds
+    whole."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        return tp.all_reduce_(x.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    """The ranks' parts concatenated on ``dim`` forward and this rank's
+    part of the whole gradient backward (every rank holds it whole)."""
+
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim, ctx.n = tp, dim, x.shape[dim]
+        return tp.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        tp = ctx.tp
+        return g.narrow(ctx.dim, tp.index * ctx.n, ctx.n), None, None
+
+
 class TensorParallel:
-    """The ``axis`` (default ``"tp"``) of a decode ``mesh`` as this rank
-    sees it: ``index`` (its place on the axis), ``size``, and the
-    collectives over the axis. The group is the default group when the
-    mesh spans the world (at one rank too, so that a world of one runs
-    the same NCCL calls as a wider one), none without a process group
-    (every collective a no-op). Collectives go in the order the callers
-    issue them, the same on every rank: the model's forward is one order,
-    the engine's command stream another, and they never interleave."""
+    """The ``axis`` (default ``"tp"``) of ``mesh`` as this rank sees it:
+    ``index`` (its place on the axis), ``size``, and the collectives over
+    the axis. The group is ``Mesh.group``'s: the default group when the
+    axis spans the world (at one rank too, so that a world of one runs
+    the same NCCL calls as a wider one), the ranks of this rank's data
+    index on a dp x tp mesh, none without a process group or at size 1
+    inside a wider world (every collective a no-op). Collectives go in
+    the order the callers issue them, the same on every rank of the
+    group: the model's forward is one order, its backward another, the
+    engine's command stream a third, and they never interleave."""
 
     def __init__(self, mesh: Mesh, axis: str = "tp") -> None:
         rank = dist.get_rank() if dist.is_initialized() else 0
@@ -331,12 +419,7 @@ class TensorParallel:
         self.size = int(mesh.shape.get(axis, 1))
         self.members = mesh.members((axis,), rank)
         self.index = self.members.index(rank)
-        self.group = None
-        if dist.is_available() and dist.is_initialized():
-            if dist.get_world_size() != mesh.size:
-                raise ValueError(f"{mesh} spans {mesh.size} ranks, the "
-                                 f"world {dist.get_world_size()}")
-            self.group = dist.group.WORLD
+        self.group = mesh.group((axis,))
         self.backend = (dist.get_backend(self.group)
                         if self.group is not None else None)
 
@@ -353,12 +436,12 @@ class TensorParallel:
             return t.cpu()
         return t
 
-    def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum ``t`` over the axis, in place."""
+    def all_reduce_(self, t: torch.Tensor, op=None) -> torch.Tensor:
+        """Sum ``t`` over the axis (or reduce it by ``op``), in place."""
         if self.group is None:
             return t
         wire = self._on_wire(t.contiguous())
-        dist.all_reduce(wire, group=self.group)
+        dist.all_reduce(wire, op=op or dist.ReduceOp.SUM, group=self.group)
         if wire.data_ptr() != t.data_ptr():
             t.copy_(wire)
         return t
@@ -385,3 +468,29 @@ class TensorParallel:
         if wire.data_ptr() != t.data_ptr():
             t.copy_(wire)
         return t
+
+    # -- the training collectives (autograd sees them) ---------------------
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` as it is; its gradient summed over the axis."""
+        if self.group is None:
+            return x
+        return _Copy.apply(x, self)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the axis; its gradient passed as it is. In
+        place where autograd does not follow ``x`` (decode, eval)."""
+        if self.group is None:
+            return x
+        if not (torch.is_grad_enabled() and x.requires_grad):
+            return self.all_reduce_(x)
+        return _Reduce.apply(x, self)
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' ``x`` concatenated on ``dim`` in axis order; the
+        gradient's slice of this rank passed back."""
+        if self.group is None:
+            return x
+        if not (torch.is_grad_enabled() and x.requires_grad):
+            return self.all_gather(x, dim)
+        return _Gather.apply(x, self, dim % x.dim())

@@ -46,7 +46,15 @@ orbax does).
 
 Under several processes (a ``torch.distributed`` world) the state is
 replicated, so the primary process (rank 0) alone writes: two ranks
-renaming the same step into place would race. Every rank reads and
+renaming the same step into place would race. A model split over a
+``tp`` axis (``models/transformer.py``'s ``TpPlan``) is saved whole: the
+ranks of rank 0's tensor-parallel group learn from it whether the step
+is due (a broadcast over the group), then all-gather every split
+parameter and its AdamW moments over tp (``gather_leaf`` by
+``param_sharding_rules``), and rank 0 writes the whole tree. A restore
+reads the whole tree and cuts each rank's slices from it, so a
+checkpoint written at one tp restores at any other, as orbax places a
+restore into the target's shardings. Every rank reads and
 restores from the shared directory, and every rank's ``maybe_ack`` names
 only a step that ``latest_step`` lists; ``ack`` first drains the
 primary's write and meets the other ranks at a barrier, so every rank's
@@ -65,6 +73,7 @@ import torch
 
 from tf_operator_tpu_torch.ckpt import protocol as ckpt_protocol
 from tf_operator_tpu_torch.models.convert import (
+    _leaves,
     load_variables,
     variable_layout,
 )
@@ -115,15 +124,63 @@ def _host(t: torch.Tensor) -> torch.Tensor:
     return t.detach().to("cpu", copy=True, non_blocking=t.is_cuda)
 
 
+class _TpLayout:
+    """How a model split over a ``tp`` axis above 1 is cut: its
+    ``TensorParallel``, mesh, rules and whole leaf shapes; ``spec(path)``
+    is a leaf's spec by the rules."""
+
+    def __init__(self, model) -> None:
+        from tf_operator_tpu_torch.models.convert import param_shapes
+        from tf_operator_tpu_torch.models.transformer import (
+            param_sharding_rules,
+        )
+
+        self.tp, self.mesh = model.tp_plan.tp, model.cfg.mesh
+        self.rules = param_sharding_rules()
+        self.shapes = param_shapes(model.cfg)
+
+    def spec(self, path: tuple) -> tuple:
+        from tf_operator_tpu_torch.parallel.sharding import spec_by_rules
+
+        return spec_by_rules(self.mesh, "/".join(path), self.shapes[path],
+                             self.rules)
+
+    def whole(self, path: tuple, t: torch.Tensor) -> torch.Tensor:
+        """The whole leaf of this rank's shard ``t`` of ``path``."""
+        from tf_operator_tpu_torch.parallel.sharding import gather_leaf
+
+        return gather_leaf(self.mesh, self.spec(path), t)
+
+    def cut(self, path: tuple, t: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of the whole leaf ``t`` of ``path``."""
+        from tf_operator_tpu_torch.parallel.sharding import shard_slices
+
+        return t[shard_slices(self.mesh, self.spec(path), tuple(t.shape),
+                              self.tp.rank)].contiguous()
+
+
+def _tp_layout(model) -> _TpLayout | None:
+    """The ``_TpLayout`` of a model whose weights are split over tp > 1,
+    else None."""
+    plan = getattr(model, "tp_plan", None)
+    if plan is None or plan.tp.size == 1 or not plan.split:
+        return None
+    return _TpLayout(model)
+
+
 def _snapshot(state) -> dict:
     """The state's weights, BatchNorm statistics, optimiser state and step
     as host tensors, in the ``state.pt`` layout; returns once every copy
-    has landed."""
+    has landed. Under tp the weights and the moments shaped like them are
+    gathered whole first: collective over the tensor-parallel group."""
     model, opt = state.model, state.optimizer
     leaves, to_flax, _ = variable_layout(model)
     params, stats = leaves["params"], leaves["batch_stats"]
+    layout = _tp_layout(model)
 
-    def host(t):
+    def host(t, path=None):
+        if layout is not None and path is not None:
+            t = layout.whole(path, t.detach())
         # Into flax's layout on the device (a copy only for conv kernels),
         # so the host copy is contiguous.
         return _host(to_flax(t).contiguous() if t.dim() == 4 else t)
@@ -132,10 +189,12 @@ def _snapshot(state) -> dict:
     cuda = False
     for path, p in params.items():
         cuda |= p.is_cuda
-        _tree_set(out["params"], path, host(p))
+        _tree_set(out["params"], path, host(p, path))
         for key, val in (opt.state.get(p) or {}).items():
             if isinstance(val, torch.Tensor):
-                _tree_set(out["opt"].setdefault(key, {}), path, host(val))
+                whole = path if val.shape == p.shape else None
+                _tree_set(out["opt"].setdefault(key, {}), path,
+                          host(val, whole))
     if stats:
         out["batch_stats"] = {}
         for path, b in stats.items():
@@ -262,7 +321,8 @@ class CheckpointManager:
 
     ``primary`` is whether this process writes: rank 0 of the default
     process group, or the one process without one. On another rank
-    ``save`` writes nothing and returns False.
+    ``save`` writes nothing and returns False (under tp the ranks of rank
+    0's tensor-parallel group take part in the gather first).
     """
 
     def __init__(self, directory: str, *, max_to_keep: int | None = 3,
@@ -317,14 +377,25 @@ class CheckpointManager:
         ``force``, already saved or being saved: the checkpoint the
         caller wants is there, as orbax's refusal to overwrite means."""
         step = int(step)
-        if not self.primary:
+        layout = _tp_layout(state.model)
+        tp = layout.tp if layout is not None else None
+        if not self.primary and (tp is None or 0 not in tp.members):
             return False
-        if not force and not self._should_save(step):
-            return False
-        self.wait()
-        if step in self.all_steps():
+        due = False
+        if self.primary:
+            due = force or self._should_save(step)
+            if due:
+                self.wait()
+                due = step not in self.all_steps()
+        if tp is not None:
+            # Rank 0's tp group gathers together, or none of it does.
+            flag = torch.tensor([int(due)], device=state.model.device)
+            due = bool(tp.broadcast_(flag, tp.members.index(0)).item())
+        if not due:
             return False
         payload = _snapshot(state)
+        if not self.primary:
+            return False
         manifest = {"format": FORMAT_VERSION, "step": step,
                     "config": config_fields(state.model)}
         self._pending_step = step
@@ -357,15 +428,28 @@ class CheckpointManager:
         model, opt = state.model, state.optimizer
         check_config(self._dir, manifest, model)
         leaves, _, from_flax = variable_layout(model)
+        layout = _tp_layout(model)
+        if layout is not None:
+            # This rank's slices of the whole tree.
+            cut = {path: layout.cut(path, t) for path, t in
+                   _leaves(payload["params"])}
+            payload = dict(payload, params={})
+            for path, t in cut.items():
+                _tree_set(payload["params"], path, t)
         load_variables(model, payload)
         path_of = {p: path for path, p in leaves["params"].items()}
         saved_opt = payload["opt"]
         moments, index = {}, 0
         for group in opt.param_groups:
             for p in group["params"]:
-                vals = {k: _tree_get(saved_opt[k], path_of[p])
-                        for k in saved_opt}
+                path = path_of[p]
+                vals = {k: _tree_get(saved_opt[k], path) for k in saved_opt}
                 vals = {k: v for k, v in vals.items() if v is not None}
+                if layout is not None:
+                    whole = layout.shapes[path]
+                    vals = {k: layout.cut(path, v)
+                            if tuple(v.shape) == tuple(whole) and v.dim()
+                            else v for k, v in vals.items()}
                 if vals:
                     moments[index] = {
                         k: _port_layout(p, v, from_flax)

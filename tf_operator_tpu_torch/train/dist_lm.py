@@ -1,5 +1,5 @@
 """LM training as an operator-launched job: one process a device, data
-parallel over the processes.
+parallel over the processes, tensor parallel with ``--tp``.
 
     python -m tf_operator_tpu_torch.train.dist_lm [--device cpu] [flags]
 
@@ -13,10 +13,16 @@ default; two processes sharing one card need ``gloo``).
 The operator's topology (``train/distributed.py``: ``TPU_WORKER_ID`` /
 ``TPU_NUM_PROCESSES`` / ``TPU_COORDINATOR_ADDRESS``, or a TF_CONFIG of
 several workers) starts one ``torch.distributed`` world, and the step
-runs over the mesh ``{"dp": processes}``: each process trains on its
-rows of the ``--batch`` global rows, and the gradients are averaged.
-The state starts replicated from process 0; process 0 alone writes
-checkpoints, every process restores them.
+runs over JAX's mesh ``{"dp": processes / tp, "sp": 1, "tp": --tp}``:
+each data index trains on its rows of the ``--batch`` global rows (every
+tensor-parallel rank of one data index on the same rows), and the
+gradients are averaged over dp. Under ``--tp`` every process builds the
+seeded whole tree and keeps its slices (``param_sharding_rules``,
+``shard_params_by_rules``), the model runs the Megatron layout and the
+chunked loss is vocabulary-parallel (``sharded_lm_xent``). The state
+starts replicated over dp from the first rank of each tensor-parallel
+index; process 0 alone writes checkpoints, whole (gathered over tp), and
+every process restores its slices of them, at any tp.
 The model is the example's: 4 heads, ``d_ff = 2 d_model``, f32, from
 ``init_params(cfg, 0)``. On the card the flash kernels take head dims
 32, 64 and 128, so at 4 heads ``--d-model`` 128, 256 or 512; any other
@@ -54,9 +60,10 @@ launches (``launches_line``).
 the step adds the load-balancing loss at weight 0.01, as the example's.
 
 Flags of unported items exit with a usage error naming the ROADMAP
-item: ``--sp`` and ``--ring-impl`` (A8c), ``--tp`` (A8b's second half),
-``--pp*`` (A8d), ``--ep`` (A8e); so do several processes with no
-coordinator to meet at. A multislice job trains each slice as a world of
+item: ``--sp`` and ``--ring-impl`` (A8c), ``--pp*`` (A8d), ``--ep``
+(A8e); so do several processes with no coordinator to meet at. JAX's
+errors stand for ``--tp``: a process count it does not divide, and
+``--data`` beside it (``--data requires sp=1 and tp=1``). A multislice job trains each slice as a world of
 its own, as JAX's entry point does (``MEGASCALE_*`` is read by
 ``train/dist_multislice.py`` alone). The example's checks of ``--ep`` against
 the MoE flags keep their meaning, and so does its refusal of ``--data``
@@ -79,8 +86,6 @@ from tf_operator_tpu_torch.train.distributed import (
 # Flags of ROADMAP items the port has not ported: (flag, set?, item).
 UNPORTED_FLAGS = (
     ("--sp", lambda a: a.sp > 1, "A8c (sequence parallel)"),
-    ("--tp", lambda a: a.tp > 1,
-     "A8b's second half (tensor-parallel training)"),
     ("--pp", lambda a: a.pp > 1, "A8d (pipelines)"),
     ("--pp-microbatches", lambda a: a.pp_microbatches != 2,
      "A8d (pipelines)"),
@@ -124,7 +129,8 @@ def build_parser() -> argparse.ArgumentParser:
     add_dist_backend(p)
     p.add_argument("--sp", type=int, default=1, help="waits for A8c")
     p.add_argument("--tp", type=int, default=1,
-                   help="waits for A8b's second half")
+                   help="tensor-parallel ranks (the Megatron layout); "
+                        "must divide the process count")
     p.add_argument("--lr", type=float, default=3e-3)
     p.add_argument("--target-loss", type=float, default=1.0)
     p.add_argument("--xent-chunk", type=int, default=None,
@@ -208,9 +214,14 @@ def main(argv: list[str] | None = None) -> int:
     from tf_operator_tpu_torch.models.transformer import (
         Transformer,
         TransformerConfig,
+        param_sharding_rules,
     )
     from tf_operator_tpu_torch.parallel.mesh import create_mesh
-    from tf_operator_tpu_torch.parallel.sharding import replicate, shard_batch
+    from tf_operator_tpu_torch.parallel.sharding import (
+        replicate,
+        shard_batch,
+        shard_params_by_rules,
+    )
     from tf_operator_tpu_torch.train.steps import (
         TrainState,
         adamw,
@@ -223,15 +234,19 @@ def main(argv: list[str] | None = None) -> int:
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     n = topo.num_processes
-    axes = {"dp": n, "sp": 1, "tp": 1}
+    if n % args.tp:
+        raise SystemExit(f"{n} devices not divisible by sp*tp*ep*pp="
+                         f"{args.tp}")
+    axes = {"dp": n // args.tp, "sp": 1, "tp": args.tp}
+    dp = axes["dp"]
     print(f"dist_lm: process {topo.process_id}/{n}, mesh {axes}, "
           f"device {device}", flush=True)
     mesh = create_mesh(axes, device=device)
-    if args.batch % n:
+    if args.batch % dp:
         raise SystemExit(
             "batch must be a multiple of dp and seq a multiple of sp")
     if args.grad_accum < 1 or args.batch % args.grad_accum or (
-            (args.batch // args.grad_accum) % n):
+            (args.batch // args.grad_accum) % dp):
         raise SystemExit(
             "--grad-accum must divide the batch, with each microbatch "
             "still a multiple of dp")
@@ -247,13 +262,18 @@ def main(argv: list[str] | None = None) -> int:
     if args.moe_every_n:
         moe_kw = dict(moe_every_n=args.moe_every_n,
                       moe_experts=args.moe_experts, moe_top_k=args.moe_top_k)
+    # A tensor-parallel model is its rank's part of the mesh's model.
     cfg = TransformerConfig(
         vocab_size=args.vocab, d_model=args.d_model, n_heads=4,
         n_kv_heads=args.kv_heads, n_layers=args.layers,
         d_ff=args.d_model * 2, max_seq_len=args.seq, dtype=torch.float32,
-        remat=args.remat, **moe_kw,
+        remat=args.remat, mesh=mesh if args.tp > 1 else None, **moe_kw,
     )
-    model = load_params(Transformer(cfg, device), init_params(cfg, 0))
+    tree = init_params(cfg, 0)
+    if args.tp > 1:
+        tree = shard_params_by_rules(mesh, tree, param_sharding_rules())
+    model = load_params(Transformer(cfg, device), tree)
+    del tree
     tx = adamw(args.lr)
     state = replicate(mesh, TrainState.create(model, tx))
     # The load-balancing loss counts only on the MoE path.
@@ -286,7 +306,10 @@ def main(argv: list[str] | None = None) -> int:
         if resumed:
             print(f"dist_lm: resumed from step {start_step}", flush=True)
 
-    local_rows = args.batch // n
+    local_rows = args.batch // dp
+    # The rows of this process's data index: the tensor-parallel ranks of
+    # one index take the same rows.
+    dp_index = mesh.coords(topo.process_id)["dp"]
 
     def batch_at(step_idx: int) -> dict:
         # Seeded by step, so resume continues the stream; every process
@@ -295,12 +318,13 @@ def main(argv: list[str] | None = None) -> int:
         start = rng.integers(0, args.vocab, (args.batch, 1))
         chain = (start + np.arange(args.seq + 1)) % args.vocab  # +1 chain
         chain = chain.astype(np.int32)
-        rows = slice(topo.process_id * local_rows,
-                     (topo.process_id + 1) * local_rows)
+        rows = slice(dp_index * local_rows, (dp_index + 1) * local_rows)
         return shard_batch(mesh, {"tokens": chain[rows, :-1],
                                   "targets": chain[rows, 1:]})
 
     data_iter = None
+    if args.data and args.tp > 1:
+        raise SystemExit("--data requires sp=1 and tp=1")
     if args.data:
         # The record input, examples/dist_lm.py's lines: this process
         # streams ITS shard of every epoch, and shard_batch places its

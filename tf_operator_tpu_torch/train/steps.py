@@ -34,13 +34,24 @@ step gathers the batch's rows and deals each rank JAX's microbatch
 shards (``_deal_microbatches``). An eval step takes the GLOBAL padded
 batch, as JAX's ``evaluate`` places the same host batch on every
 process; each rank evaluates its shard and the sums are all-reduced, so
-every rank returns the same numbers. A mesh whose ``sp``, ``tp``,
-``ep`` or ``pp`` axis is above 1 raises, naming ROADMAP A8c, A8b, A8e or
-A8d.
+every rank returns the same numbers. A mesh whose ``sp``, ``ep`` or
+``pp`` axis is above 1 raises, naming ROADMAP A8c, A8e or A8d.
 
-Not ported yet: ``sharded_lm_xent`` (A8b's second half) and
-``fuse_steps`` (a CUDA graph of the step is its counterpart, A5's
-graph).
+A ``tp`` axis beside the data axes trains the Megatron layout of
+``models/transformer.py`` (the model's ``mesh`` must be the step's):
+each rank holds its slices of the weights (``shard_params_by_rules``),
+the ranks of one data index take the same rows, and the gradients are
+averaged over the data axes alone (the tensor-parallel ranks hold other
+shards; the model's own collectives already summed what rule 3 of
+``TpPlan`` sums). With ``xent_chunk`` the loss is ``sharded_lm_xent``,
+vocabulary-parallel over the head's split, as JAX's step switches to it;
+without, the head's logits are gathered. The eval sums are
+vocabulary-parallel too (``chunked_lm_xent_sums(tp=)``). ``lamb`` takes
+the norms of a split leaf over tp; ``adafactor`` under tp raises, naming
+ROADMAP A8f.
+
+Not ported yet: ``fuse_steps`` (a CUDA graph of the step is its
+counterpart, A5's graph).
 """
 
 from __future__ import annotations
@@ -115,10 +126,36 @@ def _head_logits(h: torch.Tensor, kernel: torch.Tensor,
     return logits
 
 
-def _chunk_loss(h, kernel, bias, labels, dot_dtype) -> torch.Tensor:
+def _token_losses(logits: torch.Tensor, labels: torch.Tensor, tp=None,
+                  v_start: int = 0) -> torch.Tensor:
+    """Each position's ``logsumexp(logits) - logits[label]``. With ``tp``
+    (a ``TensorParallel``) the logits are this rank's columns from
+    ``v_start`` and the sums are vocabulary-parallel, JAX's
+    ``sharded_lm_xent``: the global max (no gradient: the value does not
+    depend on the shift) all-reduced by MAX, the sum of exponentials and
+    the label's logit (masked to the rank that holds it) summed over tp,
+    forward only (``tp.reduce``): every rank holds the same value, and
+    its gradient is the rank's softmax columns minus its one-hot part."""
+    if tp is None:
+        picked = logits.gather(-1, labels[..., None].long())[..., 0]
+        return torch.logsumexp(logits, dim=-1) - picked
+    import torch.distributed as dist
+
+    v_local = logits.shape[-1]
+    gmax = tp.all_reduce_(logits.detach().amax(-1), op=dist.ReduceOp.MAX)
+    sumexp = tp.reduce(torch.exp(logits - gmax[..., None]).sum(-1))
+    lse = torch.log(sumexp) + gmax
+    idx = labels.long() - v_start
+    held = (idx >= 0) & (idx < v_local)
+    val = logits.gather(-1, idx.clamp(0, v_local - 1)[..., None])[..., 0]
+    picked = tp.reduce(torch.where(held, val, 0.0))
+    return lse - picked
+
+
+def _chunk_loss(h, kernel, bias, labels, dot_dtype, tp=None,
+                v_start: int = 0) -> torch.Tensor:
     logits = _head_logits(h, kernel, bias, dot_dtype)
-    picked = logits.gather(-1, labels[..., None].long())[..., 0]
-    return (torch.logsumexp(logits, dim=-1) - picked).sum()
+    return _token_losses(logits, labels, tp, v_start).sum()
 
 
 def chunked_lm_xent(hidden: torch.Tensor, kernel: torch.Tensor,
@@ -140,28 +177,81 @@ def chunked_lm_xent(hidden: torch.Tensor, kernel: torch.Tensor,
     return total / (b * s)
 
 
+def _vocab_part(tp, hidden, kernel, bias):
+    """``(hidden, kernel, bias, v_start)`` for this rank's columns of a
+    vocabulary-split head: the replicated ``hidden`` and the whole
+    ``bias`` enter through ``tp.copy`` (each rank's gradient of them is a
+    part: ``TpPlan`` rule 3), the bias is cut to the rank's columns."""
+    v_local = kernel.shape[-1]
+    v_start = tp.index * v_local
+    hidden = tp.copy(hidden)
+    if bias is not None:
+        bias = tp.copy(bias).narrow(0, v_start, v_local)
+    return hidden, kernel, bias, v_start
+
+
+def sharded_lm_xent(mesh, hidden: torch.Tensor, kernel: torch.Tensor,
+                    bias: torch.Tensor | None, labels: torch.Tensor, *,
+                    chunk: int = 512, tp_axis: str = "tp",
+                    dot_dtype=None) -> torch.Tensor:
+    """``chunked_lm_xent`` with the head split on the vocabulary over the
+    mesh's ``tp_axis``: JAX's ``sharded_lm_xent``, one process a device.
+    ``hidden`` ``[B, S, d]`` is this rank's rows (replicated over tp),
+    ``kernel`` ``[d, V / tp]`` its columns of the head, ``bias`` the
+    whole ``[V]`` (None without one), ``labels`` ``[B, S]`` its rows'
+    global ids. Each chunk is checkpointed; its loss is the
+    vocabulary-parallel ``_token_losses``. Returns the mean over this
+    rank's tokens, the same on every rank of its tp group; the data axes'
+    mean is the step's (its gradients averaged over dp), as for
+    ``chunked_lm_xent``. The gradients of ``hidden`` and ``bias`` are
+    whole on every rank, the kernel's its columns'. Raises ``ValueError``
+    when ``chunk`` does not divide the sequence."""
+    from tf_operator_tpu_torch.parallel.sharding import TensorParallel
+
+    tp = TensorParallel(mesh, tp_axis)
+    b, s, _ = hidden.shape
+    if s % chunk:
+        raise ValueError(f"per-device seq {s} not divisible by xent chunk "
+                         f"{chunk}")
+    hidden, kernel, bias, v_start = _vocab_part(tp, hidden, kernel, bias)
+    total = hidden.new_zeros((), dtype=torch.float32)
+    for c0 in range(0, s, chunk):
+        total = total + checkpoint(
+            _chunk_loss, hidden[:, c0:c0 + chunk], kernel, bias,
+            labels[:, c0:c0 + chunk], dot_dtype, tp, v_start,
+            use_reentrant=False)
+    return total / (b * s)
+
+
 def chunked_lm_xent_sums(hidden: torch.Tensor, kernel: torch.Tensor,
                          bias: torch.Tensor | None, labels: torch.Tensor,
                          mask: torch.Tensor, *, chunk: int = 512,
-                         dot_dtype=None) -> tuple[torch.Tensor, torch.Tensor]:
+                         dot_dtype=None, tp=None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Masked ``(loss_sum f32, token_count int32)`` over ``chunk``
     positions at a time: the eval-side form of ``chunked_lm_xent``.
     Padding rows carry mask 0, each token's loss is weighted by its mask
     value, the count is of nonzero mask entries, and the ``[B, S, V]``
-    logits never materialize. Raises ``ValueError`` when ``chunk`` does
+    logits never materialize. With ``tp`` (a ``TensorParallel``)
+    ``kernel`` is this rank's columns of a vocabulary-split head and
+    ``bias`` the whole one: the sums are vocabulary-parallel, the same on
+    every rank of the tp group. Raises ``ValueError`` when ``chunk`` does
     not divide the sequence."""
     b, s, _ = hidden.shape
     if s % chunk:
         raise ValueError(f"seq {s} not divisible by xent chunk {chunk}")
+    v_start = 0
+    if tp is not None:
+        hidden, kernel, bias, v_start = _vocab_part(tp, hidden, kernel,
+                                                    bias)
     loss_sum = hidden.new_zeros((), dtype=torch.float32)
     count = torch.zeros((), dtype=torch.int32, device=hidden.device)
     for c0 in range(0, s, chunk):
         cols = slice(c0, c0 + chunk)
         logits = _head_logits(hidden[:, cols], kernel, bias, dot_dtype)
-        picked = logits.gather(-1, labels[:, cols, None].long())[..., 0]
         mc = mask[:, cols]
-        loss_sum = loss_sum + ((torch.logsumexp(logits, dim=-1) - picked)
-                               * mc.float()).sum()
+        loss_sum = loss_sum + (_token_losses(logits, labels[:, cols], tp,
+                                             v_start) * mc.float()).sum()
         count = count + (mc > 0).sum(dtype=torch.int32)
     return loss_sum, count
 
@@ -298,12 +388,19 @@ def lars(lr: float | Schedule = 1.0, weight_decay: float = 1e-4,
     return Lars(lr, weight_decay, momentum)
 
 
-def _trust_ratio(p: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+def _trust_ratio(p: torch.Tensor, u: torch.Tensor, tp=None) -> torch.Tensor:
     """optax ``scale_by_trust_ratio``'s factor at its defaults (trust
     coefficient 1, min_norm 0, eps 0): ``|p| / |u|`` (Frobenius), or 1
-    where either norm is 0."""
-    p_norm = torch.linalg.vector_norm(p)
-    u_norm = torch.linalg.vector_norm(u)
+    where either norm is 0. With ``tp`` (a ``TensorParallel``) ``p`` and
+    ``u`` are this rank's shards of a split leaf, and the norms are the
+    whole leaf's: the squared sums all-reduced over tp."""
+    if tp is None:
+        p_norm = torch.linalg.vector_norm(p)
+        u_norm = torch.linalg.vector_norm(u)
+    else:
+        sq = tp.all_reduce_(torch.stack([p.square().sum(),
+                                         u.square().sum()]))
+        p_norm, u_norm = sq.sqrt().unbind()
     return torch.where((p_norm == 0) | (u_norm == 0),
                        torch.ones_like(p_norm), p_norm / u_norm)
 
@@ -322,12 +419,16 @@ class LambOptimizer(torch.optim.Optimizer):
 
     The state is ``exp_avg`` (m), ``exp_avg_sq`` (v) and ``step`` (n, a
     CPU tensor, as AdamW keeps it). b1, b2 and eps are optax's defaults,
-    which JAX's ``lamb`` keeps."""
+    which JAX's ``lamb`` keeps. ``split`` holds the parameters that are
+    this rank's shards of a tensor-parallel leaf and ``tp`` their axis:
+    their trust ratio takes the whole leaf's norms."""
 
     B1, B2, EPS = 0.9, 0.999, 1e-6
 
-    def __init__(self, params, lr: float, weight_decay: float) -> None:
+    def __init__(self, params, lr: float, weight_decay: float, *,
+                 tp=None, split=()) -> None:
         super().__init__(params, dict(lr=lr, weight_decay=weight_decay))
+        self.tp, self.split = tp, {id(p) for p in split}
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -350,7 +451,8 @@ class LambOptimizer(torch.optim.Optimizer):
                     torch.sqrt(v / (1 - b2 ** n)) + self.EPS)
                 if p.dim() >= 2:
                     u = u + group["weight_decay"] * p
-                p.add_(u * _trust_ratio(p, u) * -group["lr"])
+                tp = self.tp if id(p) in self.split else None
+                p.add_(u * _trust_ratio(p, u, tp) * -group["lr"])
 
 
 @dataclass(frozen=True)
@@ -363,8 +465,9 @@ class Lamb(_Optimiser):
     weight_decay: float = 0.01
 
     def init(self, model: torch.nn.Module) -> LambOptimizer:
+        tp, split = tp_split_params(model)
         return LambOptimizer(model.parameters(), self.learning_rate(0),
-                             self.weight_decay)
+                             self.weight_decay, tp=tp, split=split)
 
 
 def lamb(lr: float | Schedule = 1e-3, weight_decay: float = 0.01) -> Lamb:
@@ -508,6 +611,21 @@ def warmup_cosine(peak_lr: float, total_steps: int, *,
     return schedule
 
 
+def tp_split_params(model: torch.nn.Module) -> tuple[Any, list]:
+    """``(TensorParallel, parameters)`` of a model split over a ``tp``
+    axis above 1: the parameters that are this rank's shards of a leaf
+    (shaped unlike the whole leaf of ``models/convert.py``'s
+    ``param_shapes``); ``(None, [])`` for any other model."""
+    plan = getattr(model, "tp_plan", None)
+    if plan is None or plan.tp.size == 1 or not plan.train:
+        return None, []
+    from tf_operator_tpu_torch.models.convert import flax_path, param_shapes
+
+    whole = param_shapes(model.cfg)
+    return plan.tp, [p for name, p in model.named_parameters()
+                     if tuple(p.shape) != tuple(whole[flax_path(name)])]
+
+
 @dataclass
 class TrainState:
     """The step count, the model (which holds the weights and, for a
@@ -583,23 +701,41 @@ def make_lm_train_step(model: Transformer, tx: _Optimiser, *,
 
     ``batch`` is ``{"tokens", "targets"}``, ``[B, S]`` integer tensors or
     numpy arrays; they are moved to the model's device. Under a ``mesh``
-    they are this rank's rows of the global batch (the module
-    docstring)."""
+    they are this rank's rows of the global batch, the rows of its data
+    index (the module docstring)."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum={grad_accum} must be >= 1")
     if model.cfg.decode:
         raise ValueError("train a model built with decode=False")
     dp = _step_data_parallel(model, mesh, data_axis, "make_lm_train_step")
     data_size = dp.size if dp is not None else 1
+    plan = model.tp_plan
+    if (plan is not None or mesh is not None and mesh.shape.get("tp", 1) > 1
+            ) and model.cfg.mesh is not mesh:
+        raise ValueError("a tensor-parallel model trains over its own "
+                         "mesh: pass the model's cfg.mesh as mesh=")
+    tp_size = plan.tp.size if plan is not None else 1
+    if tp_size > 1 and isinstance(tx, Adafactor):
+        raise NotImplementedError(
+            "adafactor over tp > 1 is not ported yet: see ROADMAP.md A8f "
+            "(its factored moments and block rms over split leaves)")
+    # JAX's sharded_loss: the vocabulary-parallel loss when tp > 1 and the
+    # loss is chunked (a head whose vocabulary does not tile is whole).
+    sharded = (xent_chunk is not None and tp_size > 1
+               and plan.vocab is not None)
 
     def loss_fn(tokens, targets):
         """-> (loss, aux or None)."""
         out, aux = model(tokens, return_hidden=xent_chunk is not None,
                          return_aux=True)
+        head = model.lm_head
         if xent_chunk is None:
             xent = cross_entropy(out, targets)
+        elif sharded:
+            xent = sharded_lm_xent(mesh, out, head.kernel, head.bias,
+                                   targets, chunk=xent_chunk,
+                                   dot_dtype=xent_dot_dtype)
         else:
-            head = model.lm_head
             xent = chunked_lm_xent(out, head.kernel, head.bias, targets,
                                    chunk=xent_chunk,
                                    dot_dtype=xent_dot_dtype)
@@ -787,6 +923,10 @@ class LMEvalStep:
         self.model = model
         self.xent_chunk = xent_chunk
         self.dp = dp
+        # A vocabulary-split head's sums are taken over tp.
+        plan = model.tp_plan
+        self.tp = (plan.tp if plan is not None and plan.tp.size > 1
+                   and plan.vocab is not None else None)
         self.shard_count = dp.size if dp is not None else 1
         self._warned: set[int] = set()
 
@@ -819,7 +959,8 @@ class LMEvalStep:
             # The token count is not kept: evaluate_lm counts on the host
             # (a device int32 would wrap past 2^31 tokens).
             loss_sum, _ = chunked_lm_xent_sums(
-                hidden, head.kernel, head.bias, targets, mask, chunk=chunk)
+                hidden, head.kernel, head.bias, targets, mask, chunk=chunk,
+                tp=self.tp)
         if self.dp is not None:
             self.dp.all_reduce_(loss_sum)
         return {"loss_sum": loss_sum}
@@ -837,6 +978,10 @@ def make_lm_eval_step(model: Transformer, *, xent_chunk: int = 512,
         raise ValueError("evaluate a model built with decode=False")
     if mesh is not None:
         check_data_parallel(mesh, "make_lm_eval_step")
+    if (model.tp_plan is not None or mesh is not None
+            and mesh.shape.get("tp", 1) > 1) and model.cfg.mesh is not mesh:
+        raise ValueError("a tensor-parallel model evaluates over its own "
+                         "mesh: pass the model's cfg.mesh as mesh=")
     return LMEvalStep(model, xent_chunk, data_parallel(mesh, data_axis))
 
 

@@ -36,6 +36,9 @@ SEGMENTS = (
     ("21", r"^phase 21 "),
     ("22", r"^phase 22 "),
     ("23", r"^phase 23 "),
+    ("24", r"^phase 24 "),
+    ("25", r"^phase 25 "),
+    ("26", r"^phase 26 "),
     ("kernels line", r"^total: "),
 )
 
