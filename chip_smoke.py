@@ -336,9 +336,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
     processes sharing the card (``TPU_NUM_PROCESSES``, ``TPU_WORKER_ID``,
     ``TPU_COORDINATOR_ADDRESS``) at phase 18 (b)'s flags beside one
     process at the same flags: the printed losses within ``DP_LOSS_TOL``,
-    both to OK; then 2-process ``--data`` at phase 23 (c)'s flags: killed
-    at step 20 (138 on both), resumed, and its uninterrupted 2-process
-    twin, the final checkpoints and losses bitwise; (c) 2-process
+    both to OK; then 2-process ``--data`` at phase 23 (c)'s flags cut to
+    ``DP_DATA_STEPS``: killed at ``DP_DATA_FAIL_AT`` (138 on both),
+    resumed, and its uninterrupted 2-process twin, the final checkpoints
+    and losses bitwise; (c) 2-process
     ``dist_mnist`` under gloo at tests/test_examples.py's flags, OK on
     both; the phase's seconds;
 25. tensor-parallel serving (``serve/tp.py``, the engine's ``mesh``,
@@ -375,14 +376,31 @@ Phases, in order; any failure ends the run with a non-zero exit:
     rank's weight and AdamW bytes against tp 1's, the flash launches and
     the bytes staged through the host a step of each rank, the pair's
     tokens/s (host staging, not what tp costs over NVLink); (c)
-    ``dist_lm --tp 2 --dist-backend gloo`` at phase 18 (b)'s model: 2
-    ranks killed at ``ENTRY_FAIL_AT`` and resumed, bitwise an
+    ``dist_lm --tp 2 --dist-backend gloo`` at phase 18 (b)'s model and
+    ``TP_ENTRY_STEPS`` steps: 2 ranks killed at ``TP_ENTRY_FAIL_AT`` and
+    resumed, bitwise an
     uninterrupted twin's final checkpoint; 4 ranks (dp 2 x tp 2) beside
     the resume, each printed loss within ``DP_LOSS_TOL`` of the twin's;
     the killed run's tp 2 checkpoint restored into a tp 1 state built as
     ``dist_lm`` builds it, bitwise the saved (gathered) tree, and a tp 1
     ``dist_lm`` resuming from it; the phase's seconds;
-27. the ``kernels`` JSON line (each kernel with its design; B5 as two
+27. tensor x data parallel serving (``serve_lm --dp``; the dp half of
+    ``serve/sharding.py``, the dp allocators, global dp admission; B4 on
+    every rank over its pool tile): (a) ``serve_lm``'s front at phase
+    25 (b)'s bf16 width at ``--tp 2 --dp 2 --dist-backend gloo`` (rank 0
+    in this process, three workers on the same card; each rank 8 of 16
+    heads, 2 of 4 KV heads, 2 of 4 slots and half the pool's blocks),
+    phase 15's eight requests: tokens equal 25 (b)'s tp 1 front's but at
+    a ``BF16_TIE`` near-tie, each rank's pool its tile of the pool (JAX's
+    block count rounded up to a dp multiple) plus the one garbage block
+    of shard 1, both shards seated with every table in its shard's
+    extent, requests/s, TTFT and ITL p50/p99 beside 25 (b)'s tp 1 and
+    tp 2, the bytes staged through the host and the logits bytes by
+    rank, B4's launches over the four ranks; (b) one ``step_raise``: the
+    supervisor's rebuild reaches all three workers (each runs the new
+    engine's steps) and the greedy request replays; /healthz shows the
+    restart and the mesh; the phase's seconds;
+28. the ``kernels`` JSON line (each kernel with its design; B5 as two
     entries, the weight stream and the wgmma tile, each with its own
     launches; ``paths`` gives each kernel's launches on every path of
     this run that drives it, and ``launches`` is their sum; the paged
@@ -766,12 +784,20 @@ EMBED_REPEATS = 3
 # (c) dist_mnist as 2 gloo processes at DP_MNIST_ARGS.
 DP_STEPS = 3
 DP_LOSS_TOL = 1e-3
+# (b)'s --data runs at DATA_ARGS cut to DP_DATA_STEPS, killed at
+# DP_DATA_FAIL_AT: 16 steps take the loss under dist_lm's target (0.24 on
+# the CPU) and the resume is bitwise at any step; every step writes a
+# checkpoint, which is most of a run's time.
+DP_DATA_STEPS, DP_DATA_FAIL_AT = 16, 10
 DP_MNIST_ARGS = ["--steps", "30", "--batch", "64", "--target-loss", "0.8"]
 # Phase 25, tensor-parallel serving at phase 7's bf16 width (16 heads, 4 KV
 # heads: 8 and 2 a rank at tp 2). (b)'s step_raise fires this many steps
 # into its one replayed request.
 TP = 2
 TP_FAULT_AT = 8
+# Phase 27, tensor x data parallel serving at phase 25 (b)'s width: dp 2
+# shards of TP ranks, 2 of the 4 slots and half the pool's blocks each.
+DP = 2
 # Phase 26, tensor-parallel training at phase 9's training cell (B=2 x
 # T=8192, bf16 over f32 weights, xent_chunk 1024 with the bf16 head dot,
 # adamw(1e-4)): 8 heads, d_ff 2048 and 16384 vocabulary rows a rank at tp
@@ -786,6 +812,10 @@ TP_TRAIN_STEPS = 3
 TP_TRAIN_LR = 1e-4
 TP_TRAIN_LOSS_RTOL = 2e-3
 TP_TRAIN_DEVICE = "cuda"  # (b)'s ranks' device
+# (c) at ENTRY_ARGS cut to TP_ENTRY_STEPS, killed at TP_ENTRY_FAIL_AT: the
+# loss is under its target by step 20 (0.2269) and the resume bitwise at
+# any step.
+TP_ENTRY_STEPS, TP_ENTRY_FAIL_AT = 20, 12
 
 
 def entry_flash_shape() -> tuple[int, int, int, int]:
@@ -5769,20 +5799,21 @@ def dp_entry_phase(card: str) -> dict:
                                                       (DATA_ROWS, 1))
             write_token_records(corpus, ((start + np.arange(seq + 1))
                                          % vocab).astype(np.int32))
-            data = [*DATA_ARGS, "--data", corpus]
+            data_args = with_flags(DATA_ARGS, steps=DP_DATA_STEPS)
+            data = [*data_args, "--data", corpus]
             ck, twin = os.path.join(tmp, "ck"), os.path.join(tmp, "twin")
             t1 = time.perf_counter()
             procs.clear()
             first = start_ranks(module, data + [
-                "--checkpoint-dir", ck, "--fail-at-step", str(DATA_FAIL_AT)],
-                2, tmp, "first", procs)
+                "--checkpoint-dir", ck, "--fail-at-step",
+                str(DP_DATA_FAIL_AT)], 2, tmp, "first", procs)
             third = start_ranks(module, data + ["--checkpoint-dir", twin], 2,
                                 tmp, "twin", procs)
             codes = wait_all(procs)
             procs.clear()
             second = start_ranks(module, data + [
-                "--checkpoint-dir", ck, "--fail-at-step", str(DATA_FAIL_AT)],
-                2, tmp, "second", procs)
+                "--checkpoint-dir", ck, "--fail-at-step",
+                str(DP_DATA_FAIL_AT)], 2, tmp, "second", procs)
             codes += wait_all(procs)
             data_wall = time.perf_counter() - t1
         finally:
@@ -5793,9 +5824,9 @@ def dp_entry_phase(card: str) -> dict:
         outs = {name: [read_log(p) for p in logs] for name, logs in
                 (("first", first), ("twin", third), ("second", second))}
         if codes != [138, 138, 0, 0, 0, 0] or not all(
-                f"simulating preemption at step {DATA_FAIL_AT}" in o
+                f"simulating preemption at step {DP_DATA_FAIL_AT}" in o
                 for o in outs["first"]) or not all(
-                f"dist_lm: resumed from step {DATA_FAIL_AT + 1}" in o
+                f"dist_lm: resumed from step {DP_DATA_FAIL_AT + 1}" in o
                 and "dist_lm: OK" in o for o in outs["second"]):
             raise AssertionError(f"24b --data: rc {codes}: " + "\n".join(
                 o[-2000:] for v in outs.values() for o in v))
@@ -5809,9 +5840,9 @@ def dp_entry_phase(card: str) -> dict:
                  if name != "first"}
         rank_logs += first + third + second
         launches = rank_launches(rank_logs, "24b")
-    print(f"dist_lm --data 2 ranks (24b): {' '.join(DATA_ARGS)}: run 1 "
-          f"exited {codes[:2]} at step {DATA_FAIL_AT}, run 2 resumed from "
-          f"step {DATA_FAIL_AT + 1} and exited {codes[4:]}, the twin "
+    print(f"dist_lm --data 2 ranks (24b): {' '.join(data_args)}: run 1 "
+          f"exited {codes[:2]} at step {DP_DATA_FAIL_AT}, run 2 resumed from "
+          f"step {DP_DATA_FAIL_AT + 1} and exited {codes[4:]}, the twin "
           f"{codes[2:4]}; the final checkpoint (step {last}) against the "
           f"twin's: {'bitwise' if bitwise else 'NOT bitwise'} ({len(a)} "
           f"tensors); final losses resumed {final['second']} twin "
@@ -5922,12 +5953,15 @@ def tp_parting(model, body, got, other):
     return step, abs(row[int(got[step])] - row[int(other[step])]).item() / 2
 
 
-def tp_front_phase(pa, i8, base, params, prompts, card) -> int:
+def tp_front_phase(pa, i8, base, params, prompts, card,
+                   ref: dict | None = None) -> int:
     """Phase 25 (b): the bf16 front at ``--tp 1`` alone, then at ``--tp 2
     --dist-backend gloo``, phase 15's eight requests each; the tp 2
     tokens equal tp 1's but at a ``BF16_TIE`` near-tie, each rank's pool
     half tp 1's bytes; then one ``step_raise`` replayed across a rebuild
-    that reaches the worker. Returns B4's launches over both ranks."""
+    that reaches the worker. Returns B4's launches over both ranks, and
+    fills ``ref`` with what phase 27 holds its run against: tp 1's tokens,
+    pool bytes and latency line, tp 2's tokens and latency line."""
     from tf_operator_tpu_torch.models.transformer import _decode_model
     from tf_operator_tpu_torch.serve.tp import report
 
@@ -5975,6 +6009,9 @@ def tp_front_phase(pa, i8, base, params, prompts, card) -> int:
                              responses[0]["tokens"][0])
     del model
     torch.cuda.empty_cache()
+    if ref is not None:
+        ref.update(tokens=one_tokens, pool=one_pool, one=one, two=two,
+                   tp2_tokens=[r["tokens"][0] for r in responses])
     print(f"serve_lm tp 2 (25b): rank 0 in this process, its worker a "
           f"process on the same card, gloo; world start {start_s:.1f} s; "
           f"pool bytes a rank {pools} (tp 1 {one_pool}); requests/s "
@@ -6100,11 +6137,13 @@ def tp_int8_phase(pa, i8, base, params, prompts, card) -> dict:
     return launches
 
 
-def tp_phase(pa, i8, base, params, prompts, card) -> dict:
-    """Phase 25, (a) to (c); returns {kernel: {path label: launches}}."""
+def tp_phase(pa, i8, base, params, prompts, card,
+             ref: dict | None = None) -> dict:
+    """Phase 25, (a) to (c); returns {kernel: {path label: launches}} and
+    fills ``ref`` (25 (b)'s references for phase 27)."""
     t0 = time.perf_counter()
     nccl = tp_nccl_phase(pa, base, params, prompts, card)
-    front = tp_front_phase(pa, i8, base, params, prompts, card)
+    front = tp_front_phase(pa, i8, base, params, prompts, card, ref)
     int8 = tp_int8_phase(pa, i8, base, params, prompts, card)
     print(f"phase 25 (tensor-parallel serving): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -6113,6 +6152,148 @@ def tp_phase(pa, i8, base, params, prompts, card) -> dict:
                              "serve_lm tp 2 (25b)": front},
             **{name: {label: n} for name, n in int8.items()
                if name != "paged_attend"}}
+
+
+def tpdp_front_phase(pa, i8, base, params, prompts, card,
+                     ref: dict) -> int:
+    """Phase 27 (a) and (b): the bf16 front at ``--tp 2 --dp 2
+    --dist-backend gloo`` (rank 0 here, three workers on the card), phase
+    15's eight requests, held against 25 (b)'s tp 1 front (``ref``):
+    tokens but at a ``BF16_TIE`` near-tie, each rank's pool its tile plus
+    shard 1's garbage block, both dp shards seated with every table in its
+    extent; then one ``step_raise`` replayed across a rebuild that reaches
+    every worker. Returns B4's launches over the four ranks."""
+    from tf_operator_tpu_torch.models.transformer import _decode_model
+    from tf_operator_tpu_torch.serve.engine import ContinuousEngine
+    from tf_operator_tpu_torch.serve.sharding import (
+        local_pool_blocks,
+        shard_of_slot,
+    )
+    from tf_operator_tpu_torch.serve.tp import report
+
+    cfg = replace(base, dtype=torch.bfloat16)
+    bodies = front_requests(prompts)
+    seats = []
+    join_slot = ContinuousEngine._join_slot
+
+    def seated(engine, plan, *args, **kwargs):
+        # Every seat of a dp engine: its shard, and whether the slot and
+        # every block it holds lie in that shard's slice and extent.
+        slot = join_slot(engine, plan, *args, **kwargs)
+        if slot is not None and engine._dp > 1:
+            lo, hi = engine.blocks.shard_extent(plan.dp_shard)
+            blocks = list(plan.private_blocks) + list(plan.shared_blocks)
+            seats.append((plan.dp_shard, shard_of_slot(
+                slot, engine.max_slots, engine._dp) == plan.dp_shard
+                and all(lo <= b < hi for b in blocks)))
+        return slot
+
+    t0 = time.perf_counter()
+    with mock.patch.object(ContinuousEngine, "_join_slot", seated):
+        supervisor, server, url = open_front(
+            cfg, params, tp=TP, dp=DP, dist_backend="gloo")
+        start_s = time.perf_counter() - t0
+        try:
+            reset_counts(pa, i8)
+            engine = supervisor.engine
+            before = report(engine)
+            responses, wall = send_all(url, bodies)
+            four = latency_line("tp 2 x dp 2 (27a)", responses, wall)
+            kv = engine.kv_debug()
+            mid = report(engine)
+            faults = supervisor.faults
+            faults.arm(f"step_raise@"
+                       f"{faults.invocations['step_raise'] + TP_FAULT_AT}")
+            replay, _ = send_all(url, bodies[:1])
+            _, health = http(url, "/healthz")
+            rebuilt = supervisor.engine is not engine
+            rows = report(supervisor.engine)
+        finally:
+            server.drain()
+    launches = sum(r["paged_launches"] - b["paged_launches"]
+                   for r, b in zip(rows, before))
+    # Each worker ran the rebuilt engine's steps: its B4 count moved
+    # after the fault.
+    reached = [r["paged_launches"] > m["paged_launches"]
+               for r, m in zip(rows[1:], mid[1:])]
+    staged = [r["staged_bytes"] - b["staged_bytes"]
+              for r, b in zip(rows, before)]
+    logits = [r["logits_bytes"] for r in mid]
+    pools = [r["pool_bytes"] for r in rows]
+    # tp 1's pool bytes a block, over TP ranks: each rank's pool is its
+    # dp shard's blocks of the pool rounded up to a dp multiple, as JAX.
+    one_blocks = len(LANES) * (S // BLK) + 1
+    nb = one_blocks + (-one_blocks) % DP
+    per_block = ref["pool"] // one_blocks // TP
+    want = [per_block * local_pool_blocks(r // TP, nb, DP)
+            for r in range(TP * DP)]
+    model = _decode_model(cfg, params, None)
+    parted = []
+    for i, (body, resp, tok) in enumerate(zip(bodies, responses,
+                                               ref["tokens"])):
+        part = tp_parting(model, body, resp["tokens"][0], tok)
+        if part is not None:
+            parted.append((i, *part))
+    replay_part = tp_parting(model, bodies[0], replay[0]["tokens"][0],
+                             responses[0]["tokens"][0])
+    del model
+    torch.cuda.empty_cache()
+    one, two = ref["one"], ref["two"]
+    shards = sorted({s for s, _ in seats})
+    as_tp2 = sum(r["tokens"][0] == t for r, t in zip(responses,
+                                                      ref["tp2_tokens"]))
+    print(f"serve_lm tp 2 x dp 2 (27a): rank 0 in this process, 3 workers "
+          f"on the same card, gloo; world start {start_s:.1f} s; seats by "
+          f"shard {[sum(1 for s, _ in seats if s == i) for i in range(DP)]}"
+          f", every slot and table in its shard's slice and extent: "
+          f"{all(ok for _, ok in seats)}; dp_shards {kv.get('dp_shards')}; "
+          f"pool bytes a rank {pools} (want {want}: {nb} blocks over dp "
+          f"{DP}, the garbage block on shard 1; tp 1 {ref['pool']}, a "
+          f"quarter {ref['pool'] // (TP * DP)}); requests/s "
+          f"{four['rps']:.4f} (tp 1 {one['rps']:.4f}, tp 2 "
+          f"{two['rps']:.4f}); TTFT p50/p99 ms {four['ttft'][0]:.3f}/"
+          f"{four['ttft'][1]:.3f} (tp 1 {one['ttft'][0]:.3f}/"
+          f"{one['ttft'][1]:.3f}, tp 2 {two['ttft'][0]:.3f}/"
+          f"{two['ttft'][1]:.3f}); ITL p50/p99 ms {four['itl'][0]:.3f}/"
+          f"{four['itl'][1]:.3f} (tp 1 {one['itl'][0]:.3f}/"
+          f"{one['itl'][1]:.3f}, tp 2 {two['itl'][0]:.3f}/"
+          f"{two['itl'][1]:.3f}); requests parting from tp 1 (request, "
+          f"first step, margin): {parted} (limit {BF16_TIE}), {as_tp2} of "
+          f"{len(bodies)} requests equal to tp 2's; bytes staged "
+          f"through the host by rank {staged} and logits rows taken by rank "
+          f"0 from shard 1 {logits} (four ranks on one card and 8 cores: "
+          f"host staging, not what dp costs); B4 launches over the four "
+          f"ranks {launches} on {card}", flush=True)
+    print(f"serve_lm tp 2 x dp 2 step_raise (27b): restarts "
+          f"{health.get('watchdog_restarts')}, mesh "
+          f"{health.get('mesh_devices')} devices {health.get('mesh_axes')}, "
+          f"a new engine {rebuilt}, every worker ran its steps {reached}, "
+          f"replay parting {replay_part}", flush=True)
+    if pools != want or any(
+            p - ref["pool"] / (TP * DP) > 1.5 * per_block for p in pools):
+        raise AssertionError(f"27a pool bytes {pools}, want {want}")
+    if shards != list(range(DP)) or not all(ok for _, ok in seats):
+        raise AssertionError(f"27a seats {seats}")
+    if any(m > BF16_TIE for *_, m in parted) or (
+            replay_part is not None and replay_part[1] > BF16_TIE):
+        raise AssertionError("tp 2 x dp 2 parts from tp 1 away from a "
+                             "near-tie")
+    if (health.get("watchdog_restarts") != 1 or not rebuilt
+            or not all(reached) or health.get("mesh_axes") != {
+                "tp": TP, "dp": DP} or not launches or not logits[0]):
+        raise AssertionError(f"27b: restarts {health}, rebuilt {rebuilt}, "
+                             f"workers {reached}, launches {launches}, "
+                             f"logits bytes {logits}")
+    return launches
+
+
+def tpdp_phase(pa, i8, base, params, prompts, card, ref: dict) -> dict:
+    """Phase 27; returns {kernel: {path label: launches}}."""
+    t0 = time.perf_counter()
+    front = tpdp_front_phase(pa, i8, base, params, prompts, card, ref)
+    print(f"phase 27 (tensor x data parallel serving): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {"paged_attend": {"serve_lm tp 2 x dp 2 (27)": front}}
 
 
 def tp_train_batch(vocab: int, b: int, t: int, device) -> dict:
@@ -6418,7 +6599,7 @@ def tp_entry_phase(card: str) -> dict:
     from tf_operator_tpu_torch.train.steps import TrainState, adamw
 
     module = "tf_operator_tpu_torch.train.dist_lm"
-    tp2 = with_flags(ENTRY_ARGS, tp=TP)
+    tp2 = with_flags(ENTRY_ARGS, tp=TP, steps=TP_ENTRY_STEPS)
     procs: list = []
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -6427,7 +6608,7 @@ def tp_entry_phase(card: str) -> dict:
         try:
             first = start_ranks(module, tp2 + [
                 "--checkpoint-dir", ck, "--fail-at-step",
-                str(ENTRY_FAIL_AT)], TP, tmp, "tpfirst", procs)
+                str(TP_ENTRY_FAIL_AT)], TP, tmp, "tpfirst", procs)
             third = start_ranks(module, tp2 + ["--checkpoint-dir", twin],
                                 TP, tmp, "tptwin", procs)
             codes = wait_all(procs)
@@ -6438,11 +6619,11 @@ def tp_entry_phase(card: str) -> dict:
             shutil.copytree(ck, one_dir)
             second = start_ranks(module, tp2 + [
                 "--checkpoint-dir", ck, "--fail-at-step",
-                str(ENTRY_FAIL_AT)], TP, tmp, "tpsecond", procs)
+                str(TP_ENTRY_FAIL_AT)], TP, tmp, "tpsecond", procs)
             four = start_ranks(module, tp2, 2 * TP, tmp, "tpfour", procs)
             one = start_ranks(module, with_flags(
                 ENTRY_ARGS, checkpoint_dir=one_dir,
-                steps=ENTRY_FAIL_AT + 2, target_loss=10), None, tmp,
+                steps=TP_ENTRY_FAIL_AT + 2, target_loss=10), None, tmp,
                 "tpone", procs)
             codes = wait_all(procs)
         finally:
@@ -6453,7 +6634,7 @@ def tp_entry_phase(card: str) -> dict:
         outs = {name: [read_log(p) for p in logs] for name, logs in (
             ("twin", third), ("second", second), ("four", four),
             ("one", one))}
-        resumed = f"dist_lm: resumed from step {ENTRY_FAIL_AT + 1}"
+        resumed = f"dist_lm: resumed from step {TP_ENTRY_FAIL_AT + 1}"
         if codes != [0] * 7 or not all(
                 resumed in o and "dist_lm: OK" in o
                 for o in outs["second"] + outs["one"]) or not all(
@@ -6470,9 +6651,9 @@ def tp_entry_phase(card: str) -> dict:
         printed = {name: [re.findall(r"step (\d+) loss=(\S+)", o)
                           + re.findall(r"(final) loss (\S+)", o)
                           for o in v] for name, v in outs.items()}
-        # The killed run's checkpoint (step ENTRY_FAIL_AT, written whole by
-        # tp 2's rank 0) restored into a tp 1 state as dist_lm builds it.
-        saved, _ = checkpoint.read(one_dir, ENTRY_FAIL_AT)
+        # The killed run's checkpoint (step TP_ENTRY_FAIL_AT, written whole
+        # by tp 2's rank 0) restored into a tp 1 state as dist_lm builds it.
+        saved, _ = checkpoint.read(one_dir, TP_ENTRY_FAIL_AT)
 
         def arg(flag):
             return int(ENTRY_ARGS[ENTRY_ARGS.index(flag) + 1])
@@ -6485,7 +6666,7 @@ def tp_entry_phase(card: str) -> dict:
         model = load_params(Transformer(cfg), init_params(cfg, 0))
         state = TrainState.create(model, adamw(3e-3))
         with checkpoint.CheckpointManager(one_dir) as mgr:
-            mgr.restore(ENTRY_FAIL_AT, state)
+            mgr.restore(TP_ENTRY_FAIL_AT, state)
         restored_diff = []
         for name, p in model.named_parameters():
             path = flax_path(name)
@@ -6507,15 +6688,16 @@ def tp_entry_phase(card: str) -> dict:
         printed["four"][0], printed["twin"][0]))
     same = all(p == printed["four"][0] for p in printed["four"])
     print(f"dist_lm tp 2 (26c): {' '.join(tp2)} --dist-backend gloo: run 1 "
-          f"exited 138 at step {ENTRY_FAIL_AT} on both ranks, run 2 resumed "
-          f"from step {ENTRY_FAIL_AT + 1}; the final checkpoint (step {last}) "
+          f"exited 138 at step {TP_ENTRY_FAIL_AT} on both ranks, run 2 "
+          f"resumed from step {TP_ENTRY_FAIL_AT + 1}; the final checkpoint "
+          f"(step {last}) "
           f"against the uninterrupted twin's: "
           f"{'bitwise' if bitwise else 'NOT bitwise'} ({len(a)} tensors); "
           f"printed losses resumed {printed['second'][0]}, twin "
           f"{printed['twin'][0]}; 4 ranks as dp 2 x tp 2 "
           f"{printed['four'][0]} (every rank the same: {same}), largest "
           f"difference from the twin {worst:.2e} (tolerance {DP_LOSS_TOL}); "
-          f"the tp 2 checkpoint of step {ENTRY_FAIL_AT} restored at tp 1: "
+          f"the tp 2 checkpoint of step {TP_ENTRY_FAIL_AT} restored at tp 1: "
           f"{'bitwise the saved tree' if not restored_diff else restored_diff[:6]}"
           f", and a tp 1 dist_lm resumed from it ({printed['one'][0]}); "
           f"launches {launches}; {time.perf_counter() - t0:.1f} s on {card}",
@@ -6673,9 +6855,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     flash_dp = dp_phase(card)
     torch.cuda.empty_cache()
-    tp = tp_phase(pa, i8, base, params, prompts, card)
+    ref25: dict = {}
+    tp = tp_phase(pa, i8, base, params, prompts, card, ref25)
     torch.cuda.empty_cache()
     tp_train = tp_train_phase(card)
+    torch.cuda.empty_cache()
+    tpdp = tpdp_phase(pa, i8, base, params, prompts, card, ref25)
 
     # Each kernel's launches on every path of this run that drives it.
     paths = {
@@ -6723,7 +6908,7 @@ def main() -> int:
     for label, counts in flash_dp.items():
         for name, n in counts.items():
             paths[name][label] = n
-    for name, by_path in tp.items():
+    for name, by_path in itertools.chain(tp.items(), tpdp.items()):
         paths[name].update(by_path)
     for label, counts in tp_train.items():
         for name, n in counts.items():

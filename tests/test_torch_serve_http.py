@@ -373,7 +373,10 @@ def test_fleet_router_serves_a_port_replica(front):
     # case pins a combination that still waits for A8b's second half.
     pytest.param(["--tp", "2", "--spec-k", "2"], "ROADMAP A8",
                  id="argv0-ROADMAP A8"),
-    (["--dp", "2"], "ROADMAP A8"),
+    # --dp serves since A8b's second half (i) (tests/test_torch_tpdp.py):
+    # the case pins a combination that still waits for its part (ii).
+    pytest.param(["--dp", "2", "--host-tier-bytes", "1000"],
+                 "A8b's second half", id="argv1-ROADMAP A8"),
     (["--tp", "2", "--host-tier-bytes", "1000"], "A8b's second half"),
     (["--tp", "2", "--role", "prefill"], "A8b's second half"),
     (["--tp", "3"], "tp=3 must divide n_heads"),
@@ -398,6 +401,13 @@ def test_fleet_router_serves_a_port_replica(front):
     (["--draft-checkpoint-dir", "ckpt"], "requires --spec-k"),
     (["--spec-k", "2", "--checkpoint-dir", "ckpt"],
      "--spec-k with --checkpoint-dir also needs --draft-checkpoint-dir"),
+    # JAX's own --dp errors (examples/serve_lm.py).
+    (["--dp", "2", "--batch-window", "250"],
+     "--dp > 1 needs --engine continuous"),
+    (["--dp", "3"], "--dp must divide --max-batch"),
+    (["--dp", "2", "--spec-k", "2"], "--dp does not compose with --spec-k"),
+    (["--dp", "2", "--role", "prefill"],
+     "--role prefill does not compose with --dp"),
 ])
 def test_flags_refused_before_device_work(argv, reason, capsys):
     """A flag of an unported item, or one the engine cannot take, is

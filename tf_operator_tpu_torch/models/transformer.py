@@ -173,12 +173,12 @@ class TransformerConfig:
         if self.mesh is not None:
             from tf_operator_tpu_torch.parallel.mesh import (
                 check_data_parallel,
-                check_tensor_parallel,
+                check_decode_mesh,
             )
 
             if self.decode and "tp" in self.mesh.axis_names:
-                tp = check_tensor_parallel(self.mesh,
-                                           "TransformerConfig.mesh")
+                tp, _ = check_decode_mesh(self.mesh,
+                                          "TransformerConfig.mesh")
                 if self.n_heads % tp:
                     raise ValueError(
                         f"tp={tp} must divide n_heads={self.n_heads} (each "

@@ -24,7 +24,7 @@ world), and caches them on the mesh. A multislice job needs none: each
 slice is a world of its own (``train/dist_multislice.py``).
 
 Training takes a mesh of data axes and ``tp`` (``check_data_parallel``);
-decode takes a tensor-parallel one (``check_tensor_parallel``).
+decode takes ``tp`` and ``dp`` (``check_decode_mesh``).
 
 ``slice_mesh`` checks the world against a TPU slice's device count, from
 this module's copy of ``tf_operator_tpu/topology/slices.py``'s
@@ -313,22 +313,24 @@ def check_data_parallel(mesh: Mesh, what: str) -> None:
                 f"ROADMAP.md {item}")
 
 
-def check_tensor_parallel(mesh: Mesh, what: str) -> int:
-    """The tensor axis of a decode mesh: its size, after refusing (with
+# The axes a decode mesh keeps at 1, and the ROADMAP items that port them.
+# A decode mesh takes ``tp`` (heads) and ``dp`` (slot slices and pool
+# tiles, serve/sharding.py).
+UNPORTED_DECODE_AXES = dict(UNPORTED_AXES, fsdp="A8e (FSDP)",
+                            dcn="A8g (serving across slices)")
+
+
+def check_decode_mesh(mesh: Mesh, what: str) -> tuple[int, int]:
+    """The ``(tp, dp)`` sizes of a decode mesh, after refusing (with
     ``NotImplementedError`` naming the ROADMAP item) a mesh whose
-    sequence, expert, pipeline or data axes are above 1. A decode mesh
-    that shards slots over ``dp`` beside ``tp`` is A8b's second half."""
+    sequence, expert, pipeline, fsdp or cross-slice axes are above 1."""
     if not isinstance(mesh, Mesh):
         raise TypeError(f"{what}: expected a parallel.mesh.Mesh, got "
                         f"{type(mesh).__name__}")
-    refused = dict(UNPORTED_AXES,
-                   dp="A8b's second half (tp x dp serving)",
-                   fsdp="A8e (FSDP)", dcn="A8b's second half (tp x dp "
-                                          "serving)")
-    for axis, item in refused.items():
+    for axis, item in UNPORTED_DECODE_AXES.items():
         size = mesh.shape.get(axis, 1)
         if size > 1:
             raise NotImplementedError(
                 f"{what}: a decode mesh with {axis}={size} is not ported "
                 f"yet: see ROADMAP.md {item}")
-    return int(mesh.shape.get("tp", 1))
+    return int(mesh.shape.get("tp", 1)), int(mesh.shape.get("dp", 1))

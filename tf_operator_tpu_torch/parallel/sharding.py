@@ -53,6 +53,7 @@ A8e and raise, naming it.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Sequence
 
 import numpy as np
@@ -402,7 +403,8 @@ class _Gather(torch.autograd.Function):
 
 
 class TensorParallel:
-    """The ``axis`` (default ``"tp"``) of ``mesh`` as this rank sees it:
+    """The ``axis`` (default ``"tp"``; a tuple of axes is their product,
+    the first the most significant) of ``mesh`` as this rank sees it:
     ``index`` (its place on the axis), ``size``, and the collectives over
     the axis. The group is ``Mesh.group``'s: the default group when the
     axis spans the world (at one rank too, so that a world of one runs
@@ -413,13 +415,14 @@ class TensorParallel:
     group: the model's forward is one order, its backward another, the
     engine's command stream a third, and they never interleave."""
 
-    def __init__(self, mesh: Mesh, axis: str = "tp") -> None:
+    def __init__(self, mesh: Mesh, axis: str | tuple = "tp") -> None:
         rank = dist.get_rank() if dist.is_initialized() else 0
+        axes = (axis,) if isinstance(axis, str) else tuple(axis)
         self.mesh, self.axis = mesh, axis
-        self.size = int(mesh.shape.get(axis, 1))
-        self.members = mesh.members((axis,), rank)
+        self.size = math.prod(int(mesh.shape.get(a, 1)) for a in axes)
+        self.members = mesh.members(axes, rank)
         self.index = self.members.index(rank)
-        self.group = mesh.group((axis,))
+        self.group = mesh.group(axes)
         self.backend = (dist.get_backend(self.group)
                         if self.group is not None else None)
 

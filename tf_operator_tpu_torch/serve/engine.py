@@ -102,20 +102,31 @@ Every device read or write of these mutates or reads the cache in place,
 so a server runs them on its serving loop's thread (the scheduler's
 ``call_engine``), as it runs the steps.
 
-Tensor parallelism (``mesh=``, a ``parallel/mesh.py`` mesh with a ``tp``
-axis over the world's ranks): every rank builds its part of the model
-(``models/transformer.py``: params sliced by ``param_sharding_rules``
-through ``parallel/sharding.py``'s ``shard_params_by_rules``; an
-``int8_decode`` tree stays whole, as in JAX) and holds its ``KV/tp``
-heads of the KV storage (``serve/sharding.py``). Rank 0's engine is the
-one a server drives: it alone plans, samples and answers, and each of its
-device operations is first sent to the workers as a command
-(``serve/tp.py``): a prefill opened, fed or finished, an admission
-inserted, a step (its copy-on-write copies, the live mask and the sampled
-tokens). Workers run their engines from the commands (``serve_command``)
-and never plan. The vocabulary-split head's logits are all-gathered, so
-rank 0's sampler sees full rows. Speculative decoding, shipments, pulls
-and the host tier under tp wait for ROADMAP.md A8b's second half.
+Tensor and data parallelism (``mesh=``, a ``parallel/mesh.py`` mesh of
+``tp`` and ``dp`` over the world's ranks, ``dp`` outer): every rank
+builds its tp part of the model (``models/transformer.py``: params sliced
+by ``param_sharding_rules`` through ``parallel/sharding.py``'s
+``shard_params_by_rules``; an ``int8_decode`` tree stays whole, as in
+JAX), the same on every dp shard, and holds its ``KV/tp`` heads of its dp
+shard's part of the KV storage (``serve/sharding.py``): the slots
+``[i*per, (i+1)*per)`` of shard i, and on the paged engine its tile of the
+block pool, which the allocators keep each shard's tables inside. Rank
+0's engine is the one a server drives: it alone plans, samples and
+answers, and each of its device operations is first sent to the workers
+as a command (``serve/tp.py``): a prefill opened, fed or finished, an
+admission inserted, a step (its copy-on-write copies, the live mask and
+the sampled tokens). Workers run their engines from the commands
+(``serve_command``) and never plan. A command that touches a slot, a plan
+or a block runs on the owning dp shard's ranks only, its collectives over
+their tp group; a step runs on every rank, each dp group's forward over
+its own ``per`` lanes. The vocabulary-split head's logits are gathered
+over tp, and rank 0 gathers the dp groups' rows from their tp-index-0
+ranks (the "dp leaders"): each step's rows by an all-gather, a prefill's
+last row by a broadcast from the owning shard's leader. Admission is
+global, as JAX's: ``choose_dp_shard`` picks the owning shard before its
+prefix lookup and its blocks. Speculative decoding over a mesh, and
+shipments, pulls and the host tier under one, wait for ROADMAP.md A8b's
+second half (ii).
 """
 
 from __future__ import annotations
@@ -183,6 +194,27 @@ from tf_operator_tpu_torch.serve.kvcache import (
     stack_slots,
     table_insert,
 )
+from tf_operator_tpu_torch.serve.sharding import (
+    dp_size_of,
+    local_block,
+    local_pool_blocks,
+    shard_of_slot,
+)
+
+
+def choose_dp_shard(free_slots, free_blocks, prefix_depths) -> int | None:
+    """JAX's dp shard of one paged admission, from per-shard lists: among
+    the shards with a free slot, the deepest shard-local prefix, then the
+    most free blocks, then the lowest index; None when no shard has a
+    free slot (the caller queues)."""
+    best = None
+    for i, slots in enumerate(free_slots):
+        if slots <= 0:
+            continue
+        key = (prefix_depths[i], free_blocks[i], -i)
+        if best is None or key > best[0]:
+            best = (key, i)
+    return None if best is None else best[1]
 
 
 def _sample_token(logits: torch.Tensor, keys: torch.Tensor,
@@ -223,8 +255,10 @@ class AdmissionPlan:
     write_table: np.ndarray | None = None  # shared/unused entries -> 0
     cow: tuple | None = None      # (table_entry, dst_block)
     logits: np.ndarray | None = None  # exact-match stored sampling row
+    dp_shard: int = 0             # the owning dp shard: its slot slice and
+    # (paged) the extent every reserved block lies in
     settled: bool = False         # consumed by a join OR released
-    tp_pid: int | None = None     # the workers' open prefill (tp only)
+    tp_pid: int | None = None     # the workers' open prefill (mesh only)
 
     @property
     def prefill_tokens(self) -> int:
@@ -265,9 +299,11 @@ class ContinuousEngine:
     tree) makes it a speculative engine that decodes by ``spec_step``.
     ``kv_paged=False`` picks the dense slot tensor (``kv_block`` and
     ``kv_blocks`` unused). ``device`` defaults to the CUDA card. ``mesh``
-    (a tp mesh over the world) makes it rank 0's engine of a
-    tensor-parallel world, or a worker's on the other ranks (see the
-    module docstring); ``params`` is then the whole tree on every rank."""
+    (a mesh of ``tp`` and ``dp`` over the world) makes it rank 0's engine
+    of a parallel world, or a worker's on the other ranks (see the module
+    docstring); ``params`` is then the whole tree on every rank. At dp > 1
+    ``max_slots`` must be a multiple of dp and ``kv_blocks`` is rounded up
+    to one, as in JAX."""
 
     def __init__(self, cfg: TransformerConfig, params, max_slots: int, *,
                  kv_paged: bool = True,
@@ -278,27 +314,37 @@ class ContinuousEngine:
                  spec_k: int = 0, draft_cfg: TransformerConfig | None = None,
                  draft_params=None, device=None, mesh=None) -> None:
         self.mesh = mesh
-        self._tp = self._chan = None
+        self._tp = self._chan = self._dpc = None
+        # dp shards (1 without a mesh) and this rank's (rank 0's is 0).
+        self._dp, self._dp_index = dp_size_of(mesh), 0
         if mesh is not None:
             from tf_operator_tpu_torch.models.transformer import (
                 param_sharding_rules,
             )
-            from tf_operator_tpu_torch.parallel.mesh import (
-                check_tensor_parallel,
-            )
+            from tf_operator_tpu_torch.parallel.mesh import check_decode_mesh
             from tf_operator_tpu_torch.parallel.sharding import (
                 TensorParallel,
                 shard_params_by_rules,
             )
-            from tf_operator_tpu_torch.serve.tp import channel_for
+            from tf_operator_tpu_torch.serve.tp import channel_for, world_comm
 
-            check_tensor_parallel(mesh, "ContinuousEngine(mesh=)")
+            check_decode_mesh(mesh, "ContinuousEngine(mesh=)")
             if spec_k:
                 raise NotImplementedError(
-                    "speculative decoding over a tp mesh is not ported yet: "
-                    "see ROADMAP.md A8b's second half")
+                    "speculative decoding over a mesh is not ported yet: "
+                    "see ROADMAP.md A8b's second half (ii)")
+            if max_slots % self._dp:
+                raise ValueError(
+                    f"max_slots={max_slots} must be a multiple of the dp "
+                    f"mesh axis ({self._dp}): each dp shard owns an equal "
+                    "contiguous slot slice")
             self._tp = TensorParallel(mesh, "tp")
-            self._chan = channel_for(self._tp)
+            world = world_comm(mesh)
+            self._chan = channel_for(world)
+            if self._dp > 1:
+                # This rank's dp group: the dp leaders' for tp index 0.
+                self._dpc = TensorParallel(mesh, "dp")
+                self._dp_index = self._dpc.index
             cfg = replace(cfg, decode=True, mesh=mesh)
             # This rank's slices (an int8 tree stays whole, as JAX's).
             params = shard_params_by_rules(
@@ -331,14 +377,21 @@ class ContinuousEngine:
             self._spec_margin = spec_margin(self.spec_k)
         self.prefill_chunk = prefill_chunk
         self.max_slots = int(max_slots)
+        self._per = self.max_slots // self._dp  # slots a dp shard
         self.kv_paged = bool(kv_paged)
         self.kv_block = int(kv_block)
         self.kv_attend = kv_attend
+        # Bytes of logits rows rank 0 took from other dp shards' leaders.
+        self.logits_bytes = 0
         if self.kv_paged:
             self.table_len = cfg.max_seq_len // self.kv_block
             if kv_blocks is None:
                 # Every slot at max length, plus the pinned garbage block.
                 kv_blocks = self.max_slots * self.table_len + 1
+            if self._dp > 1 and int(kv_blocks) % self._dp:
+                # Up to a dp multiple, as JAX: the extents tile the blocks.
+                kv_blocks = (int(kv_blocks) + self._dp
+                             - int(kv_blocks) % self._dp)
             self.kv_blocks = int(kv_blocks)
             # The config validates kv_attend and the block geometry.
             self.cfg = replace(cfg, decode=True, kv_paged=True,
@@ -352,17 +405,22 @@ class ContinuousEngine:
                                kv_attend=kv_attend)
         # One module serves both layouts: prefill runs it over a dense
         # cache, the step over the paged pool or the dense slot tensor.
-        self._model = load_params(Transformer(self.cfg, device), params)
+        # This rank's pool is its dp shard's (serve/sharding.py).
+        mcfg = self.cfg
+        if self.kv_paged and self._dp > 1:
+            mcfg = replace(mcfg, kv_num_blocks=local_pool_blocks(
+                self._dp_index, self.kv_blocks, self._dp))
+        self._model = load_params(Transformer(mcfg, device), params)
         self.device = self._model.device
-        self.alloc = SlotAllocator(self.max_slots)
+        self.alloc = SlotAllocator(self.max_slots, dp=self._dp)
         if self.kv_paged:
-            self.blocks = BlockAllocator(self.kv_blocks)
+            self.blocks = BlockAllocator(self.kv_blocks, dp=self._dp)
             self.prefix = PrefixCache(self.kv_block)
-            self._cache = paged_cache_template(self._model, self.max_slots)
+            self._cache = paged_cache_template(self._model, self._per)
         else:
             self.blocks = self.prefix = None
             self._cache = stack_slots(solo_cache_template(self._model),
-                                      self.max_slots)
+                                      self._per)
         n, dev = self.max_slots, self.device
         self._logits = torch.zeros((n, cfg.vocab_size), dtype=torch.float32,
                                    device=dev)
@@ -428,26 +486,34 @@ class ContinuousEngine:
             # The workers build their engines (a rebuild's fresh pools).
             self._chan.claim(self)
 
-    # -- tensor parallelism: rank 0's commands ------------------------------
+    # -- parallelism: rank 0's commands ------------------------------------
 
     def _device_op(self, op: str, args=(), payload=None):
-        """The section of one device operation: on rank 0 of a tp engine
-        the command goes to the workers first and the channel stays held
-        while this rank runs its share; nothing without a mesh."""
+        """The section of one device operation: on rank 0 of a parallel
+        engine the command goes to the workers first and the channel stays
+        held while this rank runs its share; nothing without a mesh."""
         if self._chan is None:
             return contextlib.nullcontext()
         return self._chan.section(self, op, args, payload)
 
+    def _mine(self, shard: int) -> bool:
+        """Whether this rank holds dp shard ``shard``'s slots and blocks."""
+        return shard == self._dp_index
+
+    def _local(self, table):
+        """Global block indices as indices of this rank's pool."""
+        return local_block(table, self._dp_index, self.kv_blocks, self._dp)
+
     def _open_prefill(self, tokens: np.ndarray, shared: int, read_table,
                       chunk: int):
-        """A prompt's prefill, the same on every rank: chunked (a
-        ``ChunkedPrefill`` to feed, ``chunk`` > 0) or one-shot, run now ->
-        (cache, logits); ``shared`` prompt rows come from the pool through
-        ``read_table``."""
+        """A prompt's prefill, the same on every rank of the owning dp
+        shard: chunked (a ``ChunkedPrefill`` to feed, ``chunk`` > 0) or
+        one-shot, run now -> (cache, logits); ``shared`` prompt rows come
+        from the pool through ``read_table`` (global entries)."""
         seed = None
         if shared:
-            seed = set_cache_index(gather_solo(self._cache, read_table),
-                                   shared)
+            seed = set_cache_index(
+                gather_solo(self._cache, self._local(read_table)), shared)
             tokens = tokens[:, shared:]
         if chunk:
             return ChunkedPrefill(self._model, tokens, chunk,
@@ -457,10 +523,32 @@ class ContinuousEngine:
             return _prefill_extend(self._model, seed, prompt)
         return _prefill(self._model, prompt)
 
+    def _prefill_home(self, shard: int, out):
+        """A finished prefill's ``(cache, logits)`` as this rank keeps it:
+        on rank 0, the last logits of a prefill another dp shard ran, by a
+        broadcast from that shard's leader over the dp leaders (every
+        leader takes part; the other ranks do not); elsewhere ``out``
+        (None where the shard is not this rank's)."""
+        if self._dp <= 1 or shard == 0 or self._tp.index != 0:
+            return out
+        if self._mine(shard):
+            buf = out[1].reshape(-1).float().contiguous()
+        else:
+            buf = torch.empty(self.cfg.vocab_size, dtype=torch.float32,
+                              device=self.device)
+        self._dpc.broadcast_(buf, src_index=shard)
+        if self._mine(shard):
+            return out
+        if self._dp_index == 0:
+            self.logits_bytes += buf.numel() * buf.element_size()
+        return None, buf
+
     def _open_planned(self, plan: AdmissionPlan, chunk: int):
-        """Rank 0: ``_open_prefill`` of a plan, the workers told first."""
+        """Rank 0: ``_open_prefill`` of a plan on its dp shard, the workers
+        told first; a one-shot prefill's logits come home at once."""
         pid = None
         payload = None
+        shard = plan.dp_shard
         if self._chan is not None:
             self._next_pid += 1
             pid = plan.tp_pid = self._next_pid
@@ -468,51 +556,106 @@ class ContinuousEngine:
             if plan.shared_tokens:
                 payload = np.concatenate([payload, plan.read_table])
         with self._device_op("open", (pid or 0, plan.shared_tokens, chunk,
-                                      plan.prompt_len), payload):
-            out = self._open_prefill(plan.tokens, plan.shared_tokens,
-                                     plan.read_table, chunk)
+                                      plan.prompt_len, shard), payload):
+            out = None
+            if self._mine(shard):
+                out = self._open_prefill(plan.tokens, plan.shared_tokens,
+                                         plan.read_table, chunk)
+            if not chunk:
+                out = self._prefill_home(shard, out)
         if chunk and self._chan is not None:
-            return _TpPrefill(self, pid, out)
+            n_chunks = -(-plan.prefill_tokens // chunk)
+            return _TpPrefill(self, pid, shard, out, chunk, n_chunks)
         return out
+
+    def _insert(self, slot: int, exact: bool, index: int, cache,
+                write_table, read_table) -> None:
+        """Land an admission in ``slot`` of this rank's cache (its dp
+        shard's): the dense row, the exact-prefix table, or the paged
+        prefill rows and table, the tables' global entries made local."""
+        local = slot - self._dp_index * self._per
+        if not self.kv_paged:
+            dense_insert(self._cache, local, cache)
+        elif exact:
+            # Exact prefix match: every prompt row already lives in shared
+            # blocks, so only the table row and the counter change.
+            table_insert(self._cache, local, self._local(read_table), index)
+        else:
+            paged_insert(self._cache, local, self._local(write_table),
+                         self._local(read_table), cache, self.kv_block)
+
+    def _cow(self, slot: int, entry: int, src: int, dst: int) -> None:
+        """A copy-on-write on the ranks of ``slot``'s dp shard."""
+        if self._mine(shard_of_slot(slot, self.max_slots, self._dp)):
+            cow_copy(self._cache, slot - self._dp_index * self._per, entry,
+                     self._local(src), self._local(dst))
+
+    def _forward_step(self, toks: torch.Tensor,
+                      active: torch.Tensor) -> torch.Tensor:
+        """One decode forward of this rank's dp shard's lanes (the live
+        mask applied to their counters), then the ``[max_slots, vocab]``
+        logits on rank 0: at dp > 1 the dp leaders all-gather their
+        shards' rows (the other ranks return their own rows)."""
+        lo = self._dp_index * self._per
+        mask_inactive_indices(self._cache, active[lo:lo + self._per])
+        logits = self._model(toks[lo:lo + self._per, None], self._cache)[:, 0]
+        if self._dp <= 1 or self._tp.index != 0:
+            return logits
+        rows = self._dpc.all_gather(logits, 0)
+        if self._dp_index == 0:
+            self.logits_bytes += (rows.numel() - logits.numel()) * (
+                rows.element_size())
+        return rows
 
     def serve_command(self, op: str, args: list, payload: np.ndarray,
                       pending: dict) -> None:
         """A worker rank: run rank 0's command ``op`` on this engine (see
-        ``serve/tp.py``); ``pending`` holds its open prefills by id."""
+        ``serve/tp.py``); ``pending`` holds its open prefills by id. A
+        command of another dp shard is skipped, but for a prefill's logits
+        on their way to rank 0, which every dp leader passes on."""
         with torch.no_grad():
             if op == "open":
-                pid, shared, chunk, n = args[:4]
-                tokens = payload[:n].astype(np.int32).reshape(1, n)
-                read = payload[n:].astype(np.int32) if shared else None
-                pending[pid] = self._open_prefill(tokens, shared, read,
-                                                  chunk)
+                pid, shared, chunk, n, shard = args
+                mine, out = self._mine(shard), None
+                if mine:
+                    tokens = payload[:n].astype(np.int32).reshape(1, n)
+                    read = payload[n:].astype(np.int32) if shared else None
+                    out = self._open_prefill(tokens, shared, read, chunk)
+                if not chunk:
+                    out = self._prefill_home(shard, out)
+                if mine:
+                    pending[pid] = out
             elif op == "feed":
-                pending[args[0]].feed(args[1])
+                pid, n, shard = args[:3]
+                if self._mine(shard):
+                    pending[pid].feed(n)
             elif op == "finish":
-                pending[args[0]] = pending[args[0]].result()
+                pid, shard = args[:2]
+                out = pending[pid].result() if self._mine(shard) else None
+                out = self._prefill_home(shard, out)
+                if self._mine(shard):
+                    pending[pid] = out
             elif op == "drop":
                 pending.pop(args[0], None)
             elif op == "insert":
                 pid, slot, exact, n = args[:4]
                 tables = payload.astype(np.int32)
-                if not self.kv_paged:
-                    dense_insert(self._cache, slot, pending.pop(pid)[0])
-                elif exact:
-                    table_insert(self._cache, slot, tables, n)
-                else:
-                    half = len(tables) // 2
-                    paged_insert(self._cache, slot, tables[:half],
-                                 tables[half:], pending.pop(pid)[0],
-                                 self.kv_block)
+                prefill = pending.pop(pid, None)
+                if self._mine(shard_of_slot(slot, self.max_slots, self._dp)):
+                    # The paged payload: the read table alone (exact), or
+                    # the write table then the read table.
+                    write, read = ((None, tables) if exact
+                                   else np.split(tables, 2))
+                    self._insert(slot, exact, n, prefill and prefill[0],
+                                 write, read)
             elif op == "step":
                 n = self.max_slots
                 data = torch.as_tensor(payload, device=self.device)
                 toks, active = data[:n], data[n:2 * n].bool()
                 for slot, entry, src, dst in payload[2 * n:].reshape(
                         -1, 4).tolist():
-                    cow_copy(self._cache, slot, entry, src, dst)
-                mask_inactive_indices(self._cache, active)
-                self._model(toks[:, None], self._cache)
+                    self._cow(slot, entry, src, dst)
+                self._forward_step(toks, active)
             else:
                 raise RuntimeError(f"unknown tp command {op!r}")
 
@@ -565,12 +708,43 @@ class ContinuousEngine:
         if not self.kv_paged:
             return
         cap = self._block_cap(prompt_len, num_steps)
-        if cap > self.kv_blocks - 1:
+        limit = self._max_alloc_blocks()
+        if cap > limit:
+            where = ("the pool" if self._dp <= 1
+                     else "each dp shard's extent")
             raise ValueError(
                 f"prompt {prompt_len} + steps {num_steps} needs {cap} KV "
-                f"blocks of {self.kv_block}; the pool has only "
-                f"{self.kv_blocks - 1} allocatable"
+                f"blocks of {self.kv_block}; {where} has only {limit} "
+                "allocatable"
             )
+
+    def _max_alloc_blocks(self) -> int:
+        """The most blocks one request can ever hold: the allocatable pool,
+        or at dp > 1 the widest shard extent (a request lives in one)."""
+        if self._dp <= 1:
+            return self.kv_blocks - 1
+        return max(hi - lo for lo, hi in (self.blocks.shard_extent(i)
+                                          for i in range(self._dp)))
+
+    def _shard_free_blocks(self, shard: int | None) -> int:
+        """Free blocks of the whole pool (``shard`` None) or of one dp
+        shard's extent."""
+        if shard is None:
+            return self.blocks.free_blocks
+        return self.blocks.free_in(shard)
+
+    def _pick_dp_shard(self, tokens) -> int | None:
+        """Global admission's dp shard (paged, dp > 1): every shard's
+        extent-local prefix depth, probed by ``PrefixCache.peek`` (no
+        counter or LRU moves for the shards not chosen), ranked by
+        ``choose_dp_shard``. None when no shard has a free slot."""
+        dp = self._dp
+        depths = [self.prefix.peek(tokens,
+                                   within=self.blocks.shard_extent(i))[0]
+                  for i in range(dp)]
+        return choose_dp_shard([self.alloc.free_in(i) for i in range(dp)],
+                               [self.blocks.free_in(i) for i in range(dp)],
+                               depths)
 
     def _block_cap(self, prompt_len: int, num_steps: int) -> int:
         """Table entries one admission reserves: prompt + decode horizon
@@ -584,7 +758,11 @@ class ContinuousEngine:
         """Reserve capacity for one request, or None (the caller queues).
         Dense: a free slot. Paged: a free slot AND enough free blocks after
         the shared-prefix credit; a shared partial last block reserves one
-        extra private block for its copy-on-write."""
+        extra private block for its copy-on-write. At dp > 1 the owning
+        shard comes first: paged, JAX's ``choose_dp_shard``, then the
+        prefix lookup and the blocks within its extent (a donor on another
+        shard is a miss); dense, the shard of the lowest free slot, which
+        the join then takes as JAX's global acquire would."""
         tokens = np.array(tokens, np.int32)
         n_prompt, n_steps = int(tokens.shape[1]), int(num_steps)
         self.validate_request(n_prompt, n_steps)
@@ -593,20 +771,27 @@ class ContinuousEngine:
         if self.alloc.free == 0:
             return None
         if not self.kv_paged:
-            return AdmissionPlan(tokens, n_prompt, n_steps)
+            shard = next(i for i in range(self._dp) if self.alloc.free_in(i))
+            return AdmissionPlan(tokens, n_prompt, n_steps, dp_shard=shard)
         blk = self.kv_block
         cap = self._block_cap(n_prompt, n_steps)
-        n, shared, logits = self.prefix.lookup(tokens[0])
+        shard = within = None
+        if self._dp > 1:
+            shard = self._pick_dp_shard(tokens[0])
+            if shard is None:
+                return None  # no dp shard has a free slot
+            within = self.blocks.shard_extent(shard)
+        n, shared, logits = self.prefix.lookup(tokens[0], within=within)
         shared_entries = -(-n // blk)
         cow_needed = n == n_prompt and n % blk != 0
         need = cap - shared_entries + (1 if cow_needed else 0)
-        priv = self.blocks.alloc(need)
+        priv = self.blocks.alloc(need, shard=shard)
         if priv is None and self._retained:
             # Pool pressure: retained prefix holds give way to a live
             # admission before the caller is told to queue, sparing the
             # donor this plan shares from.
-            self._evict_retained(until_free=need, keep=shared)
-            priv = self.blocks.alloc(need)
+            self._evict_retained(until_free=need, keep=shared, shard=shard)
+            priv = self.blocks.alloc(need, shard=shard)
         if priv is None:
             return None  # block exhaustion: the caller queues
         if n:
@@ -626,6 +811,7 @@ class ContinuousEngine:
             tokens, n_prompt, n_steps, shared_tokens=n,
             shared_blocks=tuple(shared), private_blocks=tuple(priv),
             read_table=read, write_table=write, cow=cow, logits=logits,
+            dp_shard=shard or 0,
         )
 
     def release_plan(self, plan: AdmissionPlan | None) -> None:
@@ -810,18 +996,18 @@ class ContinuousEngine:
         self._evict_retained()
 
     def _evict_retained(self, until_free: int | None = None,
-                        keep=()) -> None:
+                        keep=(), shard: int | None = None) -> None:
         """Drop retained prefix holds, oldest first: down to the
-        ``prefix_retain_max`` cap (no argument), or until the pool has
-        ``until_free`` free blocks (admission or ingest pressure). Holds
-        overlapping ``keep`` (the donor an in-flight plan shares from) are
-        spared."""
+        ``prefix_retain_max`` cap (no argument), or until the pool (dp
+        shard ``shard``'s extent, when given) has ``until_free`` free
+        blocks (admission or ingest pressure). Holds overlapping ``keep``
+        (the donor an in-flight plan shares from) are spared."""
         keep = set(int(b) for b in keep)
         for key in list(self._retained):
             if until_free is None:
                 if len(self._retained) <= max(0, int(self.prefix_retain_max)):
                     break
-            elif self.blocks.free_blocks >= until_free:
+            elif self._shard_free_blocks(shard) >= until_free:
                 break
             blks = self._retained[key]
             if keep and not keep.isdisjoint(blks):
@@ -861,8 +1047,8 @@ class ContinuousEngine:
             return None
         if self.mesh is not None:
             raise ValueError(
-                "shipped KV into a tensor-parallel engine is not ported "
-                "yet (ROADMAP.md A8b's second half): prefill locally")
+                "shipped KV into an engine over a mesh is not ported yet "
+                "(ROADMAP.md A8b's second half (ii)): prefill locally")
         if int(shp.kv_block) != self.kv_block:
             raise ValueError(
                 f"shipment kv_block={shp.kv_block} != engine "
@@ -1010,8 +1196,8 @@ class ContinuousEngine:
             raise PrefixNotFound("dense engine holds no prefix blocks")
         if self.mesh is not None:
             raise PrefixNotFound(
-                "a tensor-parallel engine exports no prefix yet (ROADMAP.md "
-                "A8b's second half)")
+                "an engine over a mesh exports no prefix yet (ROADMAP.md "
+                "A8b's second half (ii))")
         entry = self.prefix.entry_for_hex(digest_hex)
         if entry is None:
             payload = self._tier_export(digest_hex)
@@ -1150,31 +1336,26 @@ class ContinuousEngine:
                 # block exhaustion.
                 self.release_plan(plan)
                 return None
-        slot = self.alloc.acquire()
+        # At dp > 1 the slot comes from the plan's shard: its tables may
+        # reference only that shard's blocks.
+        slot = self.alloc.acquire(
+            shard=plan.dp_shard if self._dp > 1 else None)
         if slot is None:  # the single-caller contract makes this unreachable
             if program is not None:
                 self.constrain_pool.release(program.digest)
             self.release_plan(plan)
             return None
         pid, plan.tp_pid = plan.tp_pid, None
-        exact = cache is None
+        exact = plan.prefill_tokens == 0
         payload = None
         if self._chan is not None and self.kv_paged:
             payload = (plan.read_table if exact else np.concatenate(
                 [plan.write_table, plan.read_table]))
         with self._device_op("insert", (pid or 0, slot, exact,
                                         plan.prompt_len), payload):
-            if not self.kv_paged:
-                dense_insert(self._cache, slot, cache)
-            elif exact:
-                # Exact prefix match: every prompt row already lives in
-                # shared blocks, so only the table row and the counter
-                # change.
-                table_insert(self._cache, slot, plan.read_table,
-                             plan.prompt_len)
-            else:
-                paged_insert(self._cache, slot, plan.write_table,
-                             plan.read_table, cache, self.kv_block)
+            if self._mine(plan.dp_shard):
+                self._insert(slot, exact, plan.prompt_len, cache,
+                             plan.write_table, plan.read_table)
         row = logits.reshape(-1).float()
         self._logits[slot] = row
         self._set_sampling(slot, plan.num_steps, temperature, top_p, seed)
@@ -1225,7 +1406,7 @@ class ContinuousEngine:
                 continue
             entry, src, dst = st["cow"]
             t0 = time.monotonic()
-            cow_copy(self._cache, slot, entry, src, dst)
+            self._cow(slot, entry, src, dst)
             done.append((slot, entry, src, dst))
             t1 = time.monotonic()
             # Host-side span around the enqueued copy; the tag names the
@@ -1308,7 +1489,6 @@ class ContinuousEngine:
         cows = self._run_pending_cows()
         with torch.no_grad():
             active = torch.as_tensor(self._active, device=self.device)
-            mask_inactive_indices(self._cache, active)
             masked = self._mask(self._logits)
             if self._sampled[self._active].any():
                 toks = self._sample(masked)
@@ -1324,7 +1504,7 @@ class ContinuousEngine:
                     torch.as_tensor(np.asarray(cows, np.int64).reshape(-1),
                                     device=self.device)])
             with self._device_op("step", (len(cows),), payload):
-                self._logits = self._model(toks[:, None], self._cache)[:, 0]
+                self._logits = self._forward_step(toks, active)
         if self.logprobs_k:
             self._last_logprobs = tuple(x.cpu().numpy() for x in lp)
         self.steps_total += 1
@@ -1553,7 +1733,7 @@ class ContinuousEngine:
         if self.mesh is not None:
             tp = self._tp.size
             info["tp"] = tp
-            info["dp"] = int(self.mesh.shape.get("dp", 1))
+            info["dp"] = self._dp
             info["kv_heads_sharded"] = bool(
                 tp > 1 and self.cfg.kv_heads % tp == 0)
         return info
@@ -1616,6 +1796,13 @@ class ContinuousEngine:
             "prefix_exports": self.prefix_exports,
             "prefix_retained": len(self._retained),
         }
+        if self._dp > 1:
+            # Each dp shard's capacity, JAX's rows (only at dp > 1).
+            out["dp_shards"] = [
+                {"shard": i, "extent": list(self.blocks.shard_extent(i)),
+                 "blocks_free": self.blocks.free_in(i),
+                 "slots_free": self.alloc.free_in(i)}
+                for i in range(self._dp)]
         if self.host_tier is not None:
             out["tier"] = dict(self.host_tier.snapshot(),
                                restores=self.tier_restores,
@@ -1632,28 +1819,41 @@ class ContinuousEngine:
 
 
 class _TpPrefill:
-    """Rank 0's chunked prefill on a tp engine: each ``feed`` and the
-    ``result`` issue their command first, so every worker's copy runs the
-    same chunk forwards (and the head's gather) in step. The rest is the
-    ``ChunkedPrefill``'s."""
+    """Rank 0's chunked prefill on an engine over a mesh: each ``feed`` and
+    the ``result`` issue their command first, so every rank of the owning
+    dp shard runs the same chunk forwards (and the head's gather) in step.
+    ``inner`` is this rank's ``ChunkedPrefill``, None when another dp
+    shard runs it (then ``result`` carries only the logits, from that
+    shard's leader)."""
 
-    def __init__(self, engine: ContinuousEngine, pid: int,
-                 inner: ChunkedPrefill) -> None:
-        self._engine, self.pid, self._inner = engine, pid, inner
+    def __init__(self, engine: ContinuousEngine, pid: int, shard: int,
+                 inner: ChunkedPrefill | None, chunk: int,
+                 n_chunks: int) -> None:
+        self._engine, self.pid, self.shard = engine, pid, shard
+        self._inner = inner
+        self.chunk, self.n_chunks = chunk, n_chunks
+        self._at = 0
 
-    def __getattr__(self, name):
-        return getattr(self._inner, name)
+    @property
+    def done(self) -> bool:
+        return self._at >= self.n_chunks
 
     def feed(self, max_chunks: int = 1) -> int:
-        n = min(max_chunks, self._inner.n_chunks - self._inner._at)
+        n = min(max_chunks, self.n_chunks - self._at)
         if n <= 0:
             return 0
-        with self._engine._device_op("feed", (self.pid, n)):
-            return self._inner.feed(n)
+        with self._engine._device_op("feed", (self.pid, n, self.shard)):
+            if self._inner is not None:
+                self._inner.feed(n)
+        self._at += n
+        return n * self.chunk
 
     def result(self):
-        with self._engine._device_op("finish", (self.pid,)):
-            return self._inner.result()
+        if not self.done:
+            raise RuntimeError("prefill not finished")
+        with self._engine._device_op("finish", (self.pid, self.shard)):
+            out = self._inner.result() if self._inner is not None else None
+            return self._engine._prefill_home(self.shard, out)
 
 
 def _check_spec(cfg: TransformerConfig, k: int,

@@ -1,11 +1,11 @@
 """Paged KV-cache storage for continuous batching, in PyTorch.
 
 Counterpart of ``tf_operator_tpu/serve/kvcache.py`` for the block-paged
-pool, the dense slot tensor and the shipped-KV pool write (sharding is a
-later slice). Per layer, one pool of ``[kv_num_blocks, kv_block, KV,
-Dh]`` token blocks; each slot carries a ``[max_seq_len // kv_block]``
-int32 block table and a position counter (``models/transformer.py``
-describes the cache dict). Block 0 is the pinned garbage block that
+pool, the dense slot tensor and the shipped-KV pool write (the layout
+over a mesh is ``serve/sharding.py``'s). Per layer, one pool of
+``[kv_num_blocks, kv_block, KV, Dh]`` token blocks; each slot carries a
+``[max_seq_len // kv_block]`` int32 block table and a position counter
+(``models/transformer.py`` describes the cache dict). Block 0 is the pinned garbage block that
 unused table entries point at: never allocated, always masked.
 
 The dense slot tensor (``stack_slots``, ``dense_insert``) is the solo
@@ -22,7 +22,8 @@ one executable serves every join; eager PyTorch needs neither.
 
 ``SlotAllocator``, ``BlockAllocator`` and ``PrefixCache`` are this
 package's own copies of the JAX module's host classes (that module
-imports JAX), trimmed to one data-parallel shard; ``POOL_KEYS`` and
+imports JAX), with their dp shards (slot slices, block extents, prefix
+probes within an extent); ``POOL_KEYS`` and
 ``POOL_WIRE_PARTS`` are its own copies of that module's tables of pool
 leaves.
 """
@@ -215,24 +216,41 @@ def cow_copy(cache: dict, slot: int, entry: int, src: int, dst: int) -> dict:
 
 class SlotAllocator:
     """Free-slot bookkeeping (host-side, thread-safe): lowest free index
-    first, from a heap, with a high-water mark and an acquire count."""
+    first, from a heap, with a high-water mark and an acquire count.
 
-    def __init__(self, max_slots: int) -> None:
+    ``dp`` > 1 splits the slots into ``dp`` contiguous slices
+    (``sharding.shard_of_slot``), one heap each: ``acquire(shard=i)`` is
+    the lowest free slot of dp shard i, ``acquire()`` the lowest free slot
+    of all, which at dp 1 is the single heap's."""
+
+    def __init__(self, max_slots: int, dp: int = 1) -> None:
         if max_slots < 1:
             raise ValueError(f"max_slots={max_slots} must be >= 1")
+        if dp < 1 or max_slots % dp:
+            raise ValueError(
+                f"dp={dp} must be >= 1 and divide max_slots={max_slots}")
         self.max_slots = max_slots
-        self._heap = list(range(max_slots))
-        self._free_set = set(self._heap)
+        self.dp = dp
+        self._per = max_slots // dp
+        # Ascending ranges are heaps already.
+        self._heaps = [list(range(i * self._per, (i + 1) * self._per))
+                       for i in range(dp)]
+        self._free_set = set(range(max_slots))
         self._lock = threading.Lock()
         self.acquired_total = 0
         self.high_water = 0
 
-    def acquire(self) -> int | None:
-        """Lowest free slot index, or None when all are taken."""
+    def acquire(self, shard: int | None = None) -> int | None:
+        """The lowest free slot index, of all (``shard`` None) or of dp
+        shard ``shard``'s slice; None when that scope is full."""
         with self._lock:
-            if not self._heap:
+            if shard is None:
+                heap = next((h for h in self._heaps if h), None)
+            else:
+                heap = self._heaps[shard]
+            if not heap:
                 return None
-            slot = heapq.heappop(self._heap)
+            slot = heapq.heappop(heap)
             self._free_set.discard(slot)
             self.acquired_total += 1
             self.high_water = max(self.high_water, self.in_use)
@@ -244,8 +262,13 @@ class SlotAllocator:
                 raise ValueError(f"slot {slot} out of range")
             if slot in self._free_set:
                 raise ValueError(f"slot {slot} double-released")
-            heapq.heappush(self._heap, slot)
+            heapq.heappush(self._heaps[slot // self._per], slot)
             self._free_set.add(slot)
+
+    def free_in(self, shard: int) -> int:
+        """Free slots in dp shard ``shard``'s slice."""
+        with self._lock:
+            return len(self._heaps[shard])
 
     @property
     def in_use(self) -> int:
@@ -260,29 +283,53 @@ class BlockAllocator:
     """Refcounted allocator for the block pool (host-side, thread-safe).
     Blocks below ``reserved`` (the garbage block 0) are never handed
     out; lowest free index first. A shared block carries one reference
-    per holder; ``free`` returns the blocks whose last holder left."""
+    per holder; ``free`` returns the blocks whose last holder left.
 
-    def __init__(self, num_blocks: int, reserved: int = 1) -> None:
+    ``dp`` > 1 splits the block indices into the dp shards' extents
+    (``sharding.shard_block_extent``), one heap each: ``alloc(k,
+    shard=i)`` grants blocks of dp shard i's extent only, ``alloc(k)``
+    the lowest free of all, which at dp 1 is the single heap's."""
+
+    def __init__(self, num_blocks: int, reserved: int = 1,
+                 dp: int = 1) -> None:
+        from tf_operator_tpu_torch.serve.sharding import shard_block_extent
+
         if num_blocks <= reserved:
             raise ValueError(
                 f"num_blocks={num_blocks} must exceed the {reserved} "
                 "reserved block(s)"
             )
+        if dp < 1:
+            raise ValueError(f"dp={dp} must be >= 1")
+        if dp > 1 and num_blocks // dp <= reserved:
+            raise ValueError(
+                f"num_blocks={num_blocks} leaves dp shard 0 no "
+                f"allocatable blocks past the {reserved} reserved "
+                f"(need num_blocks // dp > reserved at dp={dp})")
         self.num_blocks = num_blocks
         self.reserved = reserved
-        self._heap = list(range(reserved, num_blocks))
-        self._free_set = set(self._heap)
+        self.dp = dp
+        self._per = num_blocks // dp
+        self._extents = [shard_block_extent(i, num_blocks, dp, reserved)
+                         for i in range(dp)]
+        self._heaps = [list(range(lo, hi)) for lo, hi in self._extents]
+        self._free_set = set().union(*map(set, self._heaps))
         self._refs: dict[int, int] = {}
         self._lock = threading.Lock()
         self.high_water = 0
 
-    def alloc(self, k: int) -> list[int] | None:
-        """The k lowest free blocks at refcount 1, or None when fewer
-        than k are free (all or nothing)."""
+    def alloc(self, k: int, shard: int | None = None) -> list[int] | None:
+        """The k lowest free blocks at refcount 1, of all (``shard`` None)
+        or of dp shard ``shard``'s extent; None when fewer than k are free
+        there (all or nothing)."""
         with self._lock:
-            if k > len(self._heap):
+            heaps = self._heaps if shard is None else [self._heaps[shard]]
+            if k > sum(len(h) for h in heaps):
                 return None
-            out = [heapq.heappop(self._heap) for _ in range(k)]
+            out: list[int] = []
+            for _ in range(k):
+                heap = min((h for h in heaps if h), key=lambda h: h[0])
+                out.append(heapq.heappop(heap))
             for blk in out:
                 self._free_set.discard(blk)
                 self._refs[blk] = 1
@@ -309,10 +356,21 @@ class BlockAllocator:
                     self._refs[blk] = rc - 1
                     continue
                 del self._refs[blk]
-                heapq.heappush(self._heap, blk)
+                shard = min(blk // self._per, self.dp - 1)
+                heapq.heappush(self._heaps[shard], blk)
                 self._free_set.add(blk)
                 freed.append(blk)
         return freed
+
+    def free_in(self, shard: int) -> int:
+        """Free blocks in dp shard ``shard``'s extent."""
+        with self._lock:
+            return len(self._heaps[shard])
+
+    def shard_extent(self, shard: int) -> tuple[int, int]:
+        """``[lo, hi)`` of the global blocks dp shard ``shard`` allocates:
+        the ``within`` bound of its prefix probes."""
+        return self._extents[shard]
 
     @property
     def free_blocks(self) -> int:
@@ -382,31 +440,63 @@ class PrefixCache:
         keys.reverse()
         return keys
 
-    def lookup(self, tokens: np.ndarray):
+    def _match(self, tokens: np.ndarray,
+               within: tuple[int, int] | None = None):
+        """The longest usable entry for ``tokens`` (the lock held):
+        ``(n, key, entry)`` or None. A full-length match without logits
+        (registered as a longer prompt's prefix) is skipped: it would leave
+        nothing to prefill and nothing to sample from. ``within=(lo, hi)``
+        (a dp shard's block extent) skips an entry holding a block outside
+        it: that shard's tables cannot reach a donor on another shard."""
+        n_tok = len(tokens)
+        for n, key in self._chain_keys(tokens):
+            e = self._entries.get(key)
+            if (e is None or e.n != n
+                    or not np.array_equal(e.tokens, tokens[:n])):
+                continue
+            if n == n_tok and e.logits is None:
+                continue
+            if within is not None and any(
+                    not within[0] <= b < within[1] for b in e.blocks):
+                continue
+            return n, key, e
+        return None
+
+    def lookup(self, tokens: np.ndarray,
+               within: tuple[int, int] | None = None):
         """Longest usable prefix of ``tokens``: the exact prompt first
         (it may end mid-block, which is what makes copy-on-write
-        reachable), else the longest registered full-block prefix.
+        reachable), else the longest registered full-block prefix, within
+        a dp shard's extent when ``within`` is given (``_match``).
         Returns (n_tokens, blocks, logits | None); logits only on an
-        exact whole-prompt match. A full-length match without logits
-        (registered as a longer prompt's prefix) is skipped: it would
-        leave nothing to prefill and nothing to sample from."""
+        exact whole-prompt match. Counts a hit or a miss and moves a hit
+        to the hot end of the LRU order."""
         tokens = np.ascontiguousarray(
             np.asarray(tokens, np.int32).reshape(-1))
-        n_tok = len(tokens)
         with self._lock:
-            for n, key in self._chain_keys(tokens):
-                e = self._entries.get(key)
-                if (e is None or e.n != n
-                        or not np.array_equal(e.tokens, tokens[:n])):
-                    continue
-                if n == n_tok and e.logits is None:
-                    continue
+            m = self._match(tokens, within)
+            if m is not None:
+                n, key, e = m
                 self.hits += 1
                 self._entries[key] = self._entries.pop(key)  # LRU refresh
                 return n, tuple(e.blocks), (
-                    e.logits if n == n_tok else None)
+                    e.logits if n == len(tokens) else None)
             self.misses += 1
         return 0, (), None
+
+    def peek(self, tokens: np.ndarray,
+             within: tuple[int, int] | None = None):
+        """``lookup`` without its side effects (no counter, no LRU move):
+        the probe of every dp shard by which admission picks one, so that
+        only the chosen shard's ``lookup`` counts."""
+        tokens = np.ascontiguousarray(
+            np.asarray(tokens, np.int32).reshape(-1))
+        with self._lock:
+            m = self._match(tokens, within)
+        if m is None:
+            return 0, (), None
+        n, _, e = m
+        return n, tuple(e.blocks), (e.logits if n == len(tokens) else None)
 
     def register(self, tokens: np.ndarray, blocks,
                  logits: np.ndarray | None = None) -> None:

@@ -117,10 +117,20 @@ served by the gather read (``--kv-attend kernel`` refuses it with JAX's
 error). The workers exit with rank 0: at the drain, and on their own
 when rank 0 dies.
 
+Data parallelism over slots (``--dp D``, JAX's pod-scale decode): the
+world is ``--tp`` x D ranks, D dp shards of ``--tp`` ranks each (the
+mesh ``{"tp": T, "dp": D}``, ``dp`` outer); each shard holds the
+params' same tp slices, ``--max-batch``/D slots and its tile of the block
+pool, and admission picks a request's shard (``serve/engine.py``
+``choose_dp_shard``). JAX's errors: ``--dp`` with ``--engine coalesce``,
+a ``--max-batch`` it does not divide, ``--spec-k``, ``--role prefill``.
+
 Flags of ROADMAP items the port has not ported exit naming the item, and
-never run another path instead: ``--dp``, and ``--tp`` with
-``--spec-k``, ``--role prefill`` or ``--host-tier-bytes`` (A8b's second
-half), and ``--from-pp`` (A8d).
+never run another path instead: ``--tp`` with ``--spec-k``, ``--role
+prefill`` or ``--host-tier-bytes``, and ``--dp`` with
+``--host-tier-bytes`` (A8b's second half (ii)), and ``--from-pp`` (A8d).
+A decode replica over a mesh prefills a shipped request locally and
+exports no prefix (A8b's second half (ii)).
 
 Speculative decoding (``--spec-k K``): the engine decodes in rounds, a
 draft of ``--spec-draft-layers`` layers (default max(1, layers // 2), the
@@ -208,15 +218,16 @@ from tf_operator_tpu_torch.serve.tier import HostTier
 
 # Flags of ROADMAP items the port has not ported: (flag, set?, item).
 UNPORTED_FLAGS = (
-    ("--dp", lambda a: a.dp > 1,
-     "A8b's second half (tp x dp serving and dp routing)"),
     ("--tp with --spec-k", lambda a: a.tp > 1 and bool(a.spec_k),
-     "A8b's second half (speculative decoding under tp)"),
+     "A8b's second half (ii) (speculative decoding under tp)"),
     ("--tp with --role prefill", lambda a: a.tp > 1 and a.role == "prefill",
-     "A8b's second half (shipping under tp)"),
+     "A8b's second half (ii) (shipping under tp)"),
     ("--tp with --host-tier-bytes",
      lambda a: a.tp > 1 and a.host_tier_bytes > 0,
-     "A8b's second half (the host tier under tp)"),
+     "A8b's second half (ii) (the host tier under tp)"),
+    ("--dp with --host-tier-bytes",
+     lambda a: a.dp > 1 and a.host_tier_bytes > 0,
+     "A8b's second half (ii) (the host tier under dp)"),
     ("--from-pp", lambda a: a.from_pp is not None,
      "A8d (pipelines: pipeline trees)"),
 )
@@ -276,7 +287,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "nccl on cuda, gloo on cpu; two ranks on one card "
                         "need gloo)")
     p.add_argument("--dp", type=int, default=1,
-                   help="waits for A8b's second half")
+                   help="data parallelism over slots: dp shards of --tp "
+                        "ranks each (tp x dp ranks this process starts), "
+                        "each with max-batch/dp slots and its tile of the "
+                        "block pool; admission picks the shard")
     p.add_argument("--int8", action="store_true",
                    help="weight-only int8 decode (kernel B5)")
     p.add_argument("--kv-int8", action="store_true",
@@ -970,6 +984,19 @@ def check_args(args) -> None:
             "window IS the coalesce policy — use --engine coalesce)")
     if args.engine is None:
         args.engine = "coalesce" if args.batch_window > 0 else "continuous"
+    if args.dp > 1:
+        if args.engine != "continuous":
+            raise ValueError(
+                "--dp > 1 needs --engine continuous (the dp slot slices "
+                "exist only in the continuous engine)")
+        if args.max_batch % args.dp:
+            raise ValueError("--dp must divide --max-batch (each dp shard "
+                             "owns an equal slot slice)")
+        if args.spec_k:
+            raise ValueError(
+                "--dp does not compose with --spec-k yet (the pod-scale "
+                "bit-identity pins cover the plain engine; the spec "
+                "engine's dp placement is unvalidated)")
     if args.role == "prefill":
         bad = [flag for flag, on in (
             ("--spec-k", bool(args.spec_k)),
@@ -1008,8 +1035,8 @@ def check_args(args) -> None:
     refused = unported_flags(args)
     if refused:
         raise NotPorted("; ".join(refused))
-    if args.tp < 1:
-        raise ValueError("--tp must be >= 1")
+    if args.tp < 1 or args.dp < 1:
+        raise ValueError("--tp and --dp must be >= 1")
     if args.tp > 1 and args.engine == "coalesce":
         raise ValueError("--tp runs the continuous engine (drop "
                          "--batch-window / --engine coalesce)")
@@ -1035,16 +1062,17 @@ def check_tp(cfg: TransformerConfig, args) -> None:
     """``--tp``'s checks against the model, before any process starts:
     the config's own (tp divides the heads; a KV head count that does not
     tile tp refuses the kernel read with JAX's error). ValueError."""
-    if args.tp <= 1:
+    if args.tp * args.dp <= 1:
         return
     from tf_operator_tpu_torch.parallel.mesh import create_mesh
 
     paged = args.kv_paged
     attend = ("gather" if not paged
               else "kernel" if args.kv_attend == "pallas" else args.kv_attend)
+    axes = {"tp": args.tp, **({"dp": args.dp} if args.dp > 1 else {})}
     replace(cfg, decode=True, kv_paged=paged, kv_attend=attend,
             kv_block=args.kv_block, kv_num_blocks=max(2, cfg.kv_num_blocks),
-            mesh=create_mesh({"tp": args.tp}, range(args.tp)))
+            mesh=create_mesh(axes, range(args.tp * args.dp)))
 
 
 def draft_config(cfg: TransformerConfig, args) -> TransformerConfig:
@@ -1124,12 +1152,15 @@ def build_front(cfg: TransformerConfig, params, args, draft_params=None
         kv_attend=attend, prefill_chunk=args.prefill_chunk or None,
         constrain_rows=args.constrain_rows, logprobs_k=args.logprobs_k)
     world = None
-    if args.tp > 1:
-        world = start_world(args.tp, device, args.dist_backend,
-                            engine_kwargs, params)
+    need = args.tp * args.dp
+    if need > 1:
+        world = start_world(need, device, args.dist_backend,
+                            engine_kwargs, params, dp=args.dp)
         print(f"serve_lm: params "
               f"{'replicated (int8)' if cfg.int8_decode else 'tp-sharded'}"
-              f" over {args.tp} devices", flush=True)
+              f" over {need} devices"
+              + (f" (tp {args.tp} x dp {args.dp})" if args.dp > 1 else ""),
+              flush=True)
 
     def engine_factory() -> ContinuousEngine:
         # The watchdog rebuilds through here: the SAME cfg and weights

@@ -1,20 +1,25 @@
-"""Tensor-parallel serving over processes: the command stream from rank 0
-to the workers, the worker loop, and the weights' way across.
+"""Parallel serving over processes (tp, and tp x dp): the command stream
+from rank 0 to the workers, the worker loop, and the weights' way across.
 
-JAX drives every chip of a tp mesh from one process (one compiled step,
-GSPMD). The port runs one process a device, so:
+JAX drives every chip of a tp x dp mesh from one process (one compiled
+step, GSPMD). The port runs one process a device, over a mesh of ``tp``
+and ``dp`` (``dp`` outer, so ranks ``[i*tp, (i+1)*tp)`` are dp shard i's
+tp group and rank 0 is shard 0's tp index 0), so:
 
 - Rank 0 alone holds the engine's host state: the front, the scheduler,
   the allocators, the prefix cache, the sampler and the constraints.
-- Ranks 1..N-1 are workers (``TpWorker``). Each holds its slice of the
-  params and its ``KV/tp`` heads of the KV storage, in an engine of its
-  own that never plans, samples or answers.
-- Each device operation of rank 0's engine is first broadcast as a
-  command (``CommandChannel``): a fixed header (sequence number, op,
-  arguments, payload length) and one int64 payload (tokens, tables, the
-  live mask). Then every rank runs its shard of the same operation, so
-  the model's collectives (``parallel/sharding.py`` ``TensorParallel``)
-  go in the same order on every rank.
+- Ranks 1..N-1 are workers (``TpWorker``). Each holds its tp slice of the
+  params and its ``KV/tp`` heads of its dp shard's KV storage, in an
+  engine of its own that never plans, samples or answers.
+- Each device operation of rank 0's engine is first broadcast to the
+  whole world as a command (``CommandChannel``): a fixed header (sequence
+  number, op, arguments, payload length) and one int64 payload (tokens,
+  tables, the live mask). A command that touches a slot, a plan or a
+  block names its dp shard (an argument, or the slot's shard), and only
+  that shard's ranks run it, their collectives over their tp group alone;
+  the others skip it. A step runs on every rank. So each group's
+  collectives go in one order on all its ranks, and no rank waits in a
+  collective of a group it is not in.
 
 The ops (``OPS``): ``build`` (a fresh engine: the first one and each
 supervisor rebuild), ``open`` (a prompt's prefill: one-shot, run at
@@ -23,14 +28,15 @@ once, or chunked, fed later), ``feed`` (chunks of an open prefill),
 exact-prefix admission into its slot), ``drop`` (an open prefill whose
 plan was released), ``step`` (the pending copy-on-write copies, the live
 mask and one decode forward of the sampled tokens), ``report`` (every
-rank's launch counts and pool bytes, gathered to rank 0) and ``stop``.
+rank's launch counts, pool bytes, staged bytes and logits bytes,
+gathered to rank 0) and ``stop``.
 
-A worker checks every header's sequence number (a gap raises: a lost
-command would leave the ranks out of step), and exits non-zero when rank
-0 dies (``watch_parent``) rather than wait in a collective. A superseded
-engine (a rebuild took over the channel) cannot issue a command: its
-next one raises, so an old serving loop can never interleave its
-collectives with the new engine's.
+A worker checks every header's sequence number, those of the commands it
+skips too (a gap raises: a lost command would leave the ranks out of
+step), and exits non-zero when rank 0 dies (``watch_parent``) rather than
+wait in a collective. A superseded engine (a rebuild took over the
+channel) cannot issue a command: its next one raises, so an old serving
+loop can never interleave its collectives with the new engine's.
 """
 
 from __future__ import annotations
@@ -54,10 +60,11 @@ _HEADER = 3 + _ARGS  # seq, op, the arguments, the payload length
 
 
 class CommandChannel:
-    """The command broadcast of one tensor-parallel world, over its
-    ``TensorParallel`` (``tp``). Rank 0 sends (``section``), the workers
-    receive (``recv``); ``commands`` and ``payload_bytes`` count what went
-    out. One channel a process (``channel_for``)."""
+    """The command broadcast of one serving world, over a
+    ``TensorParallel`` that spans it (``tp``, from ``world_comm``). Rank 0
+    sends (``section``), the workers receive (``recv``); ``commands`` and
+    ``payload_bytes`` count what went out. One channel a process
+    (``channel_for``)."""
 
     def __init__(self, tp) -> None:
         from tf_operator_tpu_torch.train.distributed import collective_device
@@ -103,7 +110,8 @@ class CommandChannel:
 
     def _send(self, op: int, args, payload) -> None:
         if not self.leader:
-            raise RuntimeError("only rank 0 of a tp world sends commands")
+            raise RuntimeError("only rank 0 of a serving world sends "
+                               "commands")
         args = [int(a) for a in args]
         if len(args) > _ARGS:
             raise ValueError(f"{len(args)} arguments > {_ARGS}")
@@ -143,6 +151,19 @@ class CommandChannel:
 _CHANNELS: dict[int, CommandChannel] = {}
 
 
+def world_comm(mesh):
+    """The ``TensorParallel`` over all of ``mesh`` (its commands, reports
+    and weights), after this rank has built the mesh's part groups: the tp
+    groups and the dp groups, every rank in one order (``Mesh.group``), so
+    no engine built later makes a group while its peers wait for a
+    command. Every rank of the world calls it, at once."""
+    from tf_operator_tpu_torch.parallel.sharding import TensorParallel
+
+    mesh.group(("tp",))
+    mesh.group(("dp",))
+    return TensorParallel(mesh, tuple(mesh.axis_names))
+
+
 def channel_for(tp) -> CommandChannel:
     """This process's channel over ``tp``'s group (one a group)."""
     key = id(tp.group)
@@ -162,17 +183,20 @@ def rank_report() -> list[int]:
 
 
 REPORT_KEYS = ("paged_launches", "kv8_launches", "int8_launches",
-               "int8_wgmma_launches", "pool_bytes", "staged_bytes")
+               "int8_wgmma_launches", "pool_bytes", "staged_bytes",
+               "logits_bytes")
 
 
-def gather_report(tp, pool_bytes: int) -> list[dict]:
+def gather_report(tp, pool_bytes: int, logits_bytes: int = 0) -> list[dict]:
     """Every rank's ``REPORT_KEYS`` (this rank's from ``rank_report``,
-    ``pool_bytes`` and the bytes its collectives staged through the
-    host), gathered in rank order: a collective of the whole world."""
+    ``pool_bytes``, the bytes its collectives staged through the host, and
+    the logits bytes it took from other dp shards), gathered in rank
+    order: a collective of the whole world."""
     from tf_operator_tpu_torch.parallel import sharding
 
     mine = torch.tensor(rank_report() + [int(pool_bytes),
-                                         int(sharding.staged_bytes)],
+                                         int(sharding.staged_bytes),
+                                         int(logits_bytes)],
                         dtype=torch.int64)
     dev = channel_for(tp).device
     rows = tp.all_gather(mine.to(dev)[None, :], 0).cpu().tolist()
@@ -202,8 +226,9 @@ class TpWorker:
                 self.pending = {}
                 self.engine = self.make_engine()
             elif op == "report":
-                gather_report(self.tp, self.engine.pool_bytes()
-                              if self.engine is not None else 0)
+                eng = self.engine
+                gather_report(self.tp, eng.pool_bytes() if eng else 0,
+                              eng.logits_bytes if eng else 0)
             else:
                 self.engine.serve_command(op, args, payload, self.pending)
 
@@ -215,10 +240,10 @@ def stop_workers(tp, code: int = 0) -> None:
 
 def report(engine: Any) -> list[dict]:
     """Rank 0: every rank's ``REPORT_KEYS`` for the current engine."""
-    tp = engine._tp
-    chan = channel_for(tp)
+    chan = engine._chan
     with chan.section(engine, "report"):
-        return gather_report(tp, engine.pool_bytes())
+        return gather_report(chan.tp, engine.pool_bytes(),
+                             engine.logits_bytes)
 
 
 # -- the weights across ranks -------------------------------------------------
@@ -284,9 +309,10 @@ def watch_parent(interval_s: float = 0.5, code: int = 3) -> threading.Thread:
 
 
 class TpWorld:
-    """Rank 0's handle on the tensor-parallel world ``start_world`` made:
-    ``mesh`` (``{"tp": N}`` over the ranks), ``tp`` (its
-    ``TensorParallel``) and the worker processes. ``close`` stops the
+    """Rank 0's handle on the serving world ``start_world`` made: ``mesh``
+    (``{"tp": N}``, or ``{"tp": N/dp, "dp": dp}``, over the ranks), ``tp``
+    (the ``TensorParallel`` over all of it, ``world_comm``'s) and the
+    worker processes. ``close`` stops the
     workers, waits for them and ends the process group. A worker that
     exits before ``close`` ends this process too (exit 1): rank 0 cannot
     serve without it, and its next collective would wait on it."""
@@ -340,12 +366,26 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def world_mesh(world: int, dp: int, device=None):
+    """The serving mesh of ``world`` ranks: ``{"tp": world}``, or with
+    ``dp`` > 1 ``{"tp": world // dp, "dp": dp}``, as JAX's serve_lm lays
+    it out (``dp`` outer)."""
+    from tf_operator_tpu_torch.parallel.mesh import create_mesh
+
+    axes = {"tp": world // dp}
+    if dp > 1:
+        axes["dp"] = dp
+    return create_mesh(axes, device=device)
+
+
 def start_world(world: int, device, backend: str | None,
                 engine_kwargs: dict, params: dict,
-                timeout_s: float = 86400.0) -> TpWorld:
-    """Rank 0 of a serving replica's tp world: start ``world - 1`` worker
-    processes on this host (``python -m tf_operator_tpu_torch.serve.tp``;
-    worker r on card ``r % device_count``), meet them at a TCP store of
+                timeout_s: float = 86400.0, dp: int = 1) -> TpWorld:
+    """Rank 0 of a serving replica's world of ``world`` ranks, ``dp`` dp
+    shards of ``world // dp`` tp ranks (``world_mesh``): start ``world -
+    1`` worker processes on this host (``python -m
+    tf_operator_tpu_torch.serve.tp``; worker r on card ``r %
+    device_count``), meet them at a TCP store of
     their own on a free local port, and send them the engine's arguments
     (``engine_kwargs``: the ``ContinuousEngine`` keywords, ``cfg``
     included) and the whole ``params`` tree. Each worker then waits for
@@ -358,9 +398,6 @@ def start_world(world: int, device, backend: str | None,
 
     import torch.distributed as dist
 
-    from tf_operator_tpu_torch.parallel.mesh import create_mesh
-    from tf_operator_tpu_torch.parallel.sharding import TensorParallel
-
     device = torch.device(device)
     backend = backend or ("nccl" if device.type == "cuda" else "gloo")
     if backend == "nccl" and device.type != "cuda":
@@ -371,11 +408,13 @@ def start_world(world: int, device, backend: str | None,
     root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    if world % dp:
+        raise ValueError(f"dp={dp} must divide the world of {world} ranks")
     procs = [subprocess.Popen(
         [sys.executable, "-m", "tf_operator_tpu_torch.serve.tp",
          "--rank", str(r), "--world", str(world), "--port", str(port),
          "--device", device.type, "--backend", backend,
-         "--timeout", str(timeout_s)], env=env)
+         "--timeout", str(timeout_s), "--dp", str(dp)], env=env)
         for r in range(1, world)]
     try:
         if device.type == "cuda":
@@ -383,8 +422,8 @@ def start_world(world: int, device, backend: str | None,
         dist.init_process_group(
             backend, init_method=f"tcp://127.0.0.1:{port}",
             world_size=world, rank=0, timeout=timedelta(seconds=timeout_s))
-        mesh = create_mesh({"tp": world}, device=device)
-        tp = TensorParallel(mesh, "tp")
+        mesh = world_mesh(world, dp, device)
+        tp = world_comm(mesh)
         dist.broadcast_object_list([engine_kwargs], 0)
         broadcast_tree(tp, params)
     except BaseException:
@@ -407,8 +446,6 @@ def worker_main(argv: list[str] | None = None) -> int:
 
     import torch.distributed as dist
 
-    from tf_operator_tpu_torch.parallel.mesh import create_mesh
-    from tf_operator_tpu_torch.parallel.sharding import TensorParallel
     from tf_operator_tpu_torch.serve.serve_lm import _to_device
 
     p = argparse.ArgumentParser(description="a tp serving worker rank")
@@ -418,6 +455,7 @@ def worker_main(argv: list[str] | None = None) -> int:
     p.add_argument("--device", default="cuda")
     p.add_argument("--backend", default="nccl")
     p.add_argument("--timeout", type=float, default=86400.0)
+    p.add_argument("--dp", type=int, default=1)
     args = p.parse_args(argv)
     # A worker ends with rank 0 (its stop command, or its death), not on a
     # signal sent to the replica's process group.
@@ -434,8 +472,8 @@ def worker_main(argv: list[str] | None = None) -> int:
         args.backend, init_method=f"tcp://127.0.0.1:{args.port}",
         world_size=args.world, rank=args.rank,
         timeout=timedelta(seconds=args.timeout))
-    mesh = create_mesh({"tp": args.world}, device=device)
-    tp = TensorParallel(mesh, "tp")
+    mesh = world_mesh(args.world, args.dp, device)
+    tp = world_comm(mesh)
     box = [None]
     dist.broadcast_object_list(box, 0)
     kwargs = dict(box[0])

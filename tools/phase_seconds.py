@@ -39,6 +39,7 @@ SEGMENTS = (
     ("24", r"^phase 24 "),
     ("25", r"^phase 25 "),
     ("26", r"^phase 26 "),
+    ("27", r"^phase 27 "),
     ("kernels line", r"^total: "),
 )
 
