@@ -399,8 +399,34 @@ Phases, in order; any failure ends the run with a non-zero exit:
     rank, B4's launches over the four ranks; (b) one ``step_raise``: the
     supervisor's rebuild reaches all three workers (each runs the new
     engine's steps) and the greedy request replays; /healthz shows the
-    restart and the mesh; the phase's seconds;
-28. the ``kernels`` JSON line (each kernel with its design; B5 as two
+    restart and the mesh; (c) in the same running world, before its
+    drain: one of phase 15's prompts (``SHIP_LANE``) prefilled by a bf16
+    ``PrefillWorker`` in this process and sent as ``shipped_kv``
+    (``SHIP_STEPS`` steps), after 27 (a)'s retained entries were
+    dropped: it is ingested (the ok count of
+    ``tpu_serve_kv_ship_ingest_total`` moves) on the shard
+    ``_pick_dp_shard`` names, inside that shard's extent, and its tokens
+    equal the first as many of 27 (a)'s unshipped run of the prompt but
+    at a ``BF16_TIE`` near-tie; then ``GET /prefix/<digest>`` of the prompt, whose rows must
+    be bitwise the shipped rows (ingest and export move them with no
+    arithmetic between); the ingest and export milliseconds, B4's
+    launches over the four ranks and the bytes each command moved by
+    rank; the phase's seconds;
+28. speculative decoding and the host tier under tp: ``serve_lm``'s front
+    at 27's width at ``--tp 2 --spec-k 4 --host-tier-bytes
+    --kv-pool-blocks SPEC_POOL_BLOCKS --dist-backend gloo`` (a new world:
+    rank 0 here, its worker on the same card), the draft the target's
+    first ``DRAFT_LAYERS`` blocks (``truncated_draft``): (a) phase 15's
+    greedy requests of lanes ``SPEC_LANES_28`` at once, ``SPEC_STEPS_28``
+    steps each, equal to the first as many of 25 (b)'s tp 2 tokens but
+    at a ``BF16_TIE`` near-tie (greedy spec emits the target's greedy
+    tokens), the acceptance, tokens a round,
+    requests/s, TTFT and ITL beside 25 (b)'s tp 2, B4's launches at t = 5
+    on each rank; (b) a fresh prompt under the small pool makes a
+    retained prefix give way and spill, and a repeat of that prompt
+    restores from the tier (``tier_restores`` moves) with its first
+    run's tokens; the spill and restore GB/s; the phase's seconds;
+29. the ``kernels`` JSON line (each kernel with its design; B5 as two
     entries, the weight stream and the wgmma tile, each with its own
     launches; ``paths`` gives each kernel's launches on every path of
     this run that drives it, and ``launches`` is their sum; the paged
@@ -797,7 +823,25 @@ TP = 2
 TP_FAULT_AT = 8
 # Phase 27, tensor x data parallel serving at phase 25 (b)'s width: dp 2
 # shards of TP ranks, 2 of the 4 slots and half the pool's blocks each.
+# (c) ships the prompt of lane SHIP_LANE (437 tokens: 4 blocks) and decodes
+# SHIP_STEPS steps, held against the first as many of 27 (a)'s run (a
+# greedy stream is a prefix of a longer one).
 DP = 2
+SHIP_LANE, SHIP_STEPS = 3, 16
+# Phase 28, spec and the tier at tp 2: k = SPEC_K_28 (t = 5 verify rows a
+# lane, 20 rows a KV head at g = 4, under the kernel's cap of 32); the
+# greedy requests of lanes SPEC_LANES_28 (875 and 437 tokens: 7 and 4
+# blocks with their steps and the k + 1 margin) at once in a pool of
+# SPEC_POOL_BLOCKS (13 allocatable), so once both are retained (7 + 4) a
+# fresh prompt of SPEC_FRESH_TOKENS (one step, 4 blocks) makes one give
+# way. The requests and the
+# repeat decode SPEC_STEPS_28 steps (held against the first as many of
+# 25 (b)'s tokens: greedy streams are prefixes of longer ones).
+SPEC_K_28 = 4
+SPEC_LANES_28 = (2, 3)
+SPEC_POOL_BLOCKS = 14
+SPEC_STEPS_28 = 16
+SPEC_FRESH_TOKENS = 437
 # Phase 26, tensor-parallel training at phase 9's training cell (B=2 x
 # T=8192, bf16 over f32 weights, xent_chunk 1024 with the bf16 head dot,
 # adamw(1e-4)): 8 heads, d_ff 2048 and 16384 vocabulary rows a rank at tp
@@ -6208,6 +6252,9 @@ def tpdp_front_phase(pa, i8, base, params, prompts, card,
             _, health = http(url, "/healthz")
             rebuilt = supervisor.engine is not engine
             rows = report(supervisor.engine)
+            ship = tpdp_ship_leg(cfg, params, prompts, supervisor, url,
+                                 dict(bodies[SHIP_LANE],
+                                      num_steps=SHIP_STEPS))
         finally:
             server.drain()
     launches = sum(r["paged_launches"] - b["paged_launches"]
@@ -6236,6 +6283,8 @@ def tpdp_front_phase(pa, i8, base, params, prompts, card,
             parted.append((i, *part))
     replay_part = tp_parting(model, bodies[0], replay[0]["tokens"][0],
                              responses[0]["tokens"][0])
+    ship_part = tp_parting(model, bodies[SHIP_LANE], ship["tokens"],
+                           responses[SHIP_LANE]["tokens"][0][:SHIP_STEPS])
     del model
     torch.cuda.empty_cache()
     one, two = ref["one"], ref["two"]
@@ -6284,16 +6333,232 @@ def tpdp_front_phase(pa, i8, base, params, prompts, card,
         raise AssertionError(f"27b: restarts {health}, rebuilt {rebuilt}, "
                              f"workers {reached}, launches {launches}, "
                              f"logits bytes {logits}")
-    return launches
+    print(f"serve_lm tp 2 x dp 2 ship (27c): lane {SHIP_LANE}'s prompt "
+          f"({prompts[SHIP_LANE].shape[1]} tokens) prefilled in "
+          f"{ship['prefill_ms']:.3f} ms and shipped ({ship['bytes'][0]} "
+          f"row bytes, {ship['bytes'][1]} JSON bytes); ingest ok count "
+          f"+{ship['ok']:g}, on shard {ship['named']} (named by "
+          f"_pick_dp_shard; blocks {ship['blocks']}, in its extent "
+          f"{ship['in_extent']}); ingest {ship['ingest_ms']:.3f} ms "
+          f"(kv.ship span; phase 19's single process 10.987 ms); parting "
+          f"from 27a's unshipped run {ship_part} (limit {BF16_TIE}); "
+          f"export {ship['export_ms']:.3f} ms in the engine, "
+          f"{ship['pull_ms']:.3f} ms for GET /prefix; exported rows "
+          f"bitwise the shipped rows: {ship['bitwise']}; bytes the ship "
+          f"command moved by rank {ship['ship_bytes']}, the export "
+          f"{ship['export_bytes']}; B4 launches over the four ranks "
+          f"{ship['launches']}; {ship['seconds']:.1f} s on {card}",
+          flush=True)
+    if (ship["ok"] != 1 or ship["named"] is None or not ship["in_extent"]
+            or not ship["bitwise"] or not ship["shipped"]
+            or not ship["launches"]):
+        raise AssertionError(f"27c: {ship}")
+    if ship_part is not None and ship_part[1] > BF16_TIE:
+        raise AssertionError(f"27c parts from 27a away from a near-tie: "
+                             f"{ship_part}")
+    return launches, ship["launches"]
+
+
+def tpdp_ship_leg(cfg, params, prompts, supervisor, url, body) -> dict:
+    """Phase 27 (c), in 27's running world: ``body``'s prompt prefilled by
+    a bf16 ``PrefillWorker`` here, 27 (a)'s retained entries dropped (so
+    the ingest writes rather than finding the prompt live), the prompt
+    sent as ``shipped_kv`` and pulled back by ``GET /prefix/<digest>``.
+    Returns what 27's checks read."""
+    from tf_operator_tpu_torch.runtime.metrics import SERVE_SHIP_INGEST_TOTAL
+    from tf_operator_tpu_torch.serve.disagg import (
+        PrefillWorker,
+        chain_digests,
+        decode_shipment,
+    )
+    from tf_operator_tpu_torch.serve.engine import ContinuousEngine
+    from tf_operator_tpu_torch.serve.tp import report
+
+    t_leg = time.perf_counter()
+    prompt = np.asarray(body["tokens"], np.int32)
+    worker = PrefillWorker(cfg, params, kv_block=BLK, device="cuda")
+    t0 = time.perf_counter()
+    payload = worker.prefill(prompt)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    del worker
+    torch.cuda.empty_cache()
+    shipped = decode_shipment(payload)
+    supervisor.scheduler.call_engine(
+        lambda e: e._evict_retained(until_free=10 ** 9))
+    engine = supervisor.engine
+    seen, timed = [], []
+    ingest, export = (ContinuousEngine.ingest_shipment,
+                      ContinuousEngine.export_prefix)
+
+    def spy_ingest(eng, shp, *args, **kwargs):
+        shard = eng._pick_dp_shard(np.asarray(shp.tokens, np.int32))
+        hold = ingest(eng, shp, *args, **kwargs)
+        if hold is not None and hold.blocks:
+            lo, hi = eng.blocks.shard_extent(shard)
+            seen.append((shard, list(hold.blocks),
+                         all(lo <= b < hi for b in hold.blocks)))
+        return hold
+
+    def spy_export(eng, digest):
+        t = time.perf_counter()
+        out = export(eng, digest)
+        timed.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    before = report(engine)
+    ok = SERVE_SHIP_INGEST_TOTAL.value(outcome="ok")
+    with mock.patch.object(ContinuousEngine, "ingest_shipment", spy_ingest), \
+            mock.patch.object(ContinuousEngine, "export_prefix", spy_export):
+        status, resp = http(url, "/generate", dict(body,
+                                                   shipped_kv=payload))
+        t0 = time.perf_counter()
+        pull_status, pulled = http(url, "/prefix/" + chain_digests(
+            prompt[0], BLK)[-1])
+        pull_ms = (time.perf_counter() - t0) * 1e3
+    after = report(engine)
+    if status != 200 or pull_status != 200:
+        raise AssertionError(f"27c: /generate {status}, /prefix "
+                             f"{pull_status}: {resp if status != 200 else pulled}")
+    back = decode_shipment(pulled["shipment"], expect_tokens=prompt[0])
+    bitwise = set(back.rows) == set(shipped.rows) and all(
+        set(back.rows[p]) == set(parts) and all(
+            torch.equal(back.rows[p][k], v) for k, v in parts.items())
+        for p, parts in shipped.rows.items())
+    spans = span_ms("kv.ship")
+    named, blocks, in_extent = seen[-1] if seen else (None, [], False)
+    return dict(
+        tokens=resp["tokens"][0], shipped=resp["timing"][0].get("shipped_kv"),
+        prefill_ms=prefill_ms, bytes=wire_bytes(payload),
+        ok=SERVE_SHIP_INGEST_TOTAL.value(outcome="ok") - ok, named=named,
+        blocks=blocks, in_extent=in_extent,
+        ingest_ms=spans[-1][0] if spans else float("nan"),
+        export_ms=timed[-1] if timed else float("nan"), pull_ms=pull_ms,
+        bitwise=bitwise,
+        ship_bytes=[a["ship_bytes"] - b["ship_bytes"]
+                    for a, b in zip(after, before)],
+        export_bytes=[a["export_bytes"] - b["export_bytes"]
+                      for a, b in zip(after, before)],
+        launches=sum(a["paged_launches"] - b["paged_launches"]
+                     for a, b in zip(after, before)),
+        seconds=time.perf_counter() - t_leg)
 
 
 def tpdp_phase(pa, i8, base, params, prompts, card, ref: dict) -> dict:
     """Phase 27; returns {kernel: {path label: launches}}."""
     t0 = time.perf_counter()
-    front = tpdp_front_phase(pa, i8, base, params, prompts, card, ref)
+    front, ship = tpdp_front_phase(pa, i8, base, params, prompts, card, ref)
     print(f"phase 27 (tensor x data parallel serving): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    return {"paged_attend": {"serve_lm tp 2 x dp 2 (27)": front}}
+    return {"paged_attend": {"serve_lm tp 2 x dp 2 (27)": front,
+                             "serve_lm tp 2 x dp 2 ship (27c)": ship}}
+
+
+def tp_spec_phase(pa, i8, base, params, prompts, card, ref: dict) -> dict:
+    """Phase 28: spec and the host tier at ``--tp 2`` (see the module
+    docstring); ``ref`` is 25 (b)'s. Returns {kernel: {path: launches}}."""
+    from tf_operator_tpu_torch.models.transformer import _decode_model
+    from tf_operator_tpu_torch.serve.disagg import chain_digests
+    from tf_operator_tpu_torch.serve.tp import report
+
+    t_phase = time.perf_counter()
+    cfg = replace(base, dtype=torch.bfloat16)
+    bodies = [dict(front_requests(prompts)[i], num_steps=SPEC_STEPS_28)
+              for i in SPEC_LANES_28]
+    rng = np.random.default_rng(28)
+    fresh = dict(tokens=rng.integers(0, cfg.vocab_size, (
+        1, SPEC_FRESH_TOKENS)).astype(np.int32).tolist(),
+                 num_steps=1, timing=True)
+    # The trace ring also holds phase 19's tier spans: read only this
+    # phase's.
+    seen = {name: len(span_ms(name)) for name in ("kv.spill", "kv.restore")}
+    t0 = time.perf_counter()
+    supervisor, server, url = open_front(
+        cfg, params, truncated_draft(params, DRAFT_LAYERS), tp=TP,
+        dist_backend="gloo", spec_k=SPEC_K_28, host_tier_bytes=1 << 30,
+        kv_pool_blocks=SPEC_POOL_BLOCKS)
+    start_s = time.perf_counter() - t0
+    try:
+        engine = supervisor.engine
+        reset_counts(pa, i8)
+        before = report(engine)
+        responses, wall = send_all(url, bodies)
+        line = latency_line("tp 2 spec (28a)", responses, wall)
+        _, debug = http(url, "/debug/serve")
+        mid = report(engine)
+        # (b): the fresh prompt needs blocks only a retained prefix frees.
+        send_all(url, [fresh])
+        _, health = http(url, "/healthz")
+        digests = [chain_digests(np.asarray(b["tokens"][0], np.int32),
+                                 BLK)[-1] for b in bodies]
+        spilled = [i for i, d in enumerate(digests)
+                   if d in health.get("tier_prefixes", [])]
+        if not spilled:
+            raise AssertionError(f"28b: no retained prefix spilled: "
+                                 f"{health.get('tier_prefixes')}")
+        pick = spilled[0]
+        again, _ = send_all(url, [bodies[pick]])
+        _, after = http(url, "/debug/serve")
+        rows = report(engine)
+    finally:
+        server.drain()
+    b4 = [r["paged_launches"] - b["paged_launches"]
+          for r, b in zip(mid, before)]
+    launches = sum(r["paged_launches"] - b["paged_launches"]
+                   for r, b in zip(rows, before))
+    spec = debug["spec"]
+    tier = after["kv_cache"]["tier"]
+    restores = tier["restores"] - debug["kv_cache"]["tier"]["restores"]
+    rates = {name: [(a.get("bytes", 0) / 1e9) / (ms / 1e3)
+                    for ms, a in span_ms(name)[n:] if ms > 0]
+             for name, n in seen.items()}
+    model = _decode_model(cfg, params, None)
+    parted = []
+    for lane, body, resp in zip(SPEC_LANES_28, bodies, responses):
+        part = tp_parting(model, body, resp["tokens"][0],
+                          ref["tp2_tokens"][lane][:SPEC_STEPS_28])
+        if part is not None:
+            parted.append((lane, *part))
+    del model
+    torch.cuda.empty_cache()
+    first = responses[pick]["tokens"][0]
+    two = ref["two"]
+    print(f"serve_lm tp 2 spec (28a): rank 0 in this process, its worker "
+          f"on the same card, gloo; world start {start_s:.1f} s; k "
+          f"{spec['k']}, rounds {spec['rounds']}, lane-rounds "
+          f"{spec['lane_rounds']}, tokens {spec['tokens']}: tokens a "
+          f"lane-round {spec['tokens_per_lane_round']}, acceptance "
+          f"{spec['accept_rate']}; requests/s {line['rps']:.4f} (25b tp 2 "
+          f"{two['rps']:.4f}, 8 requests there), TTFT p50/p99 ms "
+          f"{line['ttft'][0]:.3f}/{line['ttft'][1]:.3f}, ITL p50/p99 ms "
+          f"{line['itl'][0]:.3f}/{line['itl'][1]:.3f}; B4 launches at t = "
+          f"{SPEC_K_28 + 1} by rank {b4}; lanes parting from 25b's tp 2 "
+          f"tokens (lane, first step, margin): {parted} (limit "
+          f"{BF16_TIE}); spec bytes moved by rank "
+          f"{[r['spec_bytes'] - b['spec_bytes'] for r, b in zip(mid, before)]}"
+          f" on {card}", flush=True)
+    print(f"serve_lm tp 2 tier (28b): pool {SPEC_POOL_BLOCKS} blocks; lane "
+          f"{SPEC_LANES_28[pick]}'s prefix spilled for a fresh "
+          f"{SPEC_FRESH_TOKENS}-token prompt, restores +{restores} (tier "
+          f"{tier}); its repeat equals its first run's "
+          f"{SPEC_STEPS_28} tokens: {again[0]['tokens'][0] == first}; "
+          f"spill GB/s {[round(x, 4) for x in rates['kv.spill']]}, restore "
+          f"GB/s {[round(x, 4) for x in rates['kv.restore']]} (export and "
+          f"ingest commands, JSON and SHA-1 included); export bytes by rank "
+          f"{[r['export_bytes'] - m['export_bytes'] for r, m in zip(rows, mid)]}"
+          f", ship bytes "
+          f"{[r['ship_bytes'] - m['ship_bytes'] for r, m in zip(rows, mid)]}",
+          flush=True)
+    print(f"phase 28 (spec and the tier under tp): "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    if any(m > BF16_TIE for *_, m in parted):
+        raise AssertionError("28a parts from 25b's tp 2 tokens away from a "
+                             "near-tie")
+    if (len(set(b4)) != 1 or not b4[0] or spec["rounds"] < 1
+            or restores < 1 or again[0]["tokens"][0] != first):
+        raise AssertionError(f"28: B4 {b4}, spec {spec}, restores "
+                             f"{restores}, repeat {again[0]['tokens'][0]} "
+                             f"first {first}")
+    return {"paged_attend": {"serve_lm tp 2 spec (28)": launches}}
 
 
 def tp_train_batch(vocab: int, b: int, t: int, device) -> dict:
@@ -6861,6 +7126,8 @@ def main() -> int:
     tp_train = tp_train_phase(card)
     torch.cuda.empty_cache()
     tpdp = tpdp_phase(pa, i8, base, params, prompts, card, ref25)
+    torch.cuda.empty_cache()
+    tp_spec = tp_spec_phase(pa, i8, base, params, prompts, card, ref25)
 
     # Each kernel's launches on every path of this run that drives it.
     paths = {
@@ -6908,7 +7175,8 @@ def main() -> int:
     for label, counts in flash_dp.items():
         for name, n in counts.items():
             paths[name][label] = n
-    for name, by_path in itertools.chain(tp.items(), tpdp.items()):
+    for name, by_path in itertools.chain(tp.items(), tpdp.items(),
+                                         tp_spec.items()):
         paths[name].update(by_path)
     for label, counts in tp_train.items():
         for name, n in counts.items():

@@ -73,6 +73,9 @@ out = getattr(mod, sys.argv[4])(topo.process_id, topo.num_processes,
                                 payload)
 with open(os.path.join(sys.argv[5], f"out{sys.argv[6]}.pkl"), "wb") as f:
     pickle.dump(out, f)
+# Leave together: no rank tears its process group down while a peer's
+# gloo threads still talk to it.
+distributed.barrier()
 distributed.shutdown()
 """
 

@@ -369,16 +369,21 @@ def test_fleet_router_serves_a_port_replica(front):
 
 
 @pytest.mark.parametrize("argv,reason", [
-    # --tp serves since A8b's first half (tests/test_torch_tp.py): the
-    # case pins a combination that still waits for A8b's second half.
-    pytest.param(["--tp", "2", "--spec-k", "2"], "ROADMAP A8",
-                 id="argv0-ROADMAP A8"),
-    # --dp serves since A8b's second half (i) (tests/test_torch_tpdp.py):
-    # the case pins a combination that still waits for its part (ii).
-    pytest.param(["--dp", "2", "--host-tier-bytes", "1000"],
-                 "A8b's second half", id="argv1-ROADMAP A8"),
-    (["--tp", "2", "--host-tier-bytes", "1000"], "A8b's second half"),
-    (["--tp", "2", "--role", "prefill"], "A8b's second half"),
+    # --tp, --dp, and with them --spec-k (tp), the host tier and shipping,
+    # serve since A8b's second half (tests/test_torch_tp.py,
+    # test_torch_tpdp.py, test_torch_mesh_spec_ship.py): these cases keep
+    # their ids and pin refusals that still stand, A8d's --from-pp beside
+    # the combinations that now serve, and JAX's usage error for a prefill
+    # replica under --tp.
+    pytest.param(["--tp", "2", "--spec-k", "2", "--from-pp", "2"],
+                 "ROADMAP A8", id="argv0-ROADMAP A8"),
+    pytest.param(["--dp", "2", "--host-tier-bytes", "1000", "--from-pp",
+                  "2"], "ROADMAP A8d", id="argv1-ROADMAP A8"),
+    pytest.param(["--tp", "2", "--host-tier-bytes", "1000", "--from-pp",
+                  "2"], "ROADMAP A8d", id="argv2-A8b's second half"),
+    pytest.param(["--tp", "2", "--role", "prefill"],
+                 "--role prefill does not compose with --tp",
+                 id="argv3-A8b's second half"),
     (["--tp", "3"], "tp=3 must divide n_heads"),
     (["--spec-k", "2", "--int8"], "does not compose with --int8"),
     (["--logprobs-k", "-1"], "--logprobs-k must be >= 0"),

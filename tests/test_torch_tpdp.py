@@ -297,20 +297,23 @@ def test_tpdp_engine_matches_jax_tpdp_engine(cell):
     assert rows[0]["logits_bytes"] > 0
 
 
+# Cache leaves and shapes the data rules are held against JAX's over
+# (tests/test_torch_mesh_spec_ship.py holds ship_specs over them too).
+LEAF_TABLE = [
+    ("pool_key", (34, 8, 4, 16)), ("pool_value", (33, 8, 2, 16)),
+    ("pool_key_scale", (34, 8, 4)), ("pool_value_scale", (34, 8, 1)),
+    ("cached_key", (1, 64, 4, 16)), ("cached_value", (4, 1, 64, 4, 16)),
+    ("cached_key", (3, 1, 64, 4, 16)), ("key_scale", (4, 1, 64, 4)),
+    ("value_scale", (1, 64, 3)), ("block_table", (4, 8)),
+    ("block_table", (3, 8)), ("cache_index", (4,)), ("pos_index", (4,)),
+    ("other", (4, 4))]
+
+
 def test_dp_data_rules_match_jax():
     from tf_operator_tpu.serve import sharding as js
     from tf_operator_tpu_torch.serve import sharding as ts
 
-    table = [("pool_key", (34, 8, 4, 16)), ("pool_value", (33, 8, 2, 16)),
-             ("pool_key_scale", (34, 8, 4)), ("pool_value_scale", (34, 8,
-                                                                   1)),
-             ("cached_key", (1, 64, 4, 16)), ("cached_value", (4, 1, 64, 4,
-                                                               16)),
-             ("cached_key", (3, 1, 64, 4, 16)), ("key_scale", (4, 1, 64,
-                                                               4)),
-             ("value_scale", (1, 64, 3)), ("block_table", (4, 8)),
-             ("block_table", (3, 8)), ("cache_index", (4,)),
-             ("pos_index", (4,)), ("other", (4, 4))]
+    table = LEAF_TABLE
     for tp in (1, 2, 4):
         for dp in (1, 2, 4):
             for pool in (False, True):

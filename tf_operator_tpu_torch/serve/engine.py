@@ -124,14 +124,37 @@ over tp, and rank 0 gathers the dp groups' rows from their tp-index-0
 ranks (the "dp leaders"): each step's rows by an all-gather, a prefill's
 last row by a broadcast from the owning shard's leader. Admission is
 global, as JAX's: ``choose_dp_shard`` picks the owning shard before its
-prefix lookup and its blocks. Speculative decoding over a mesh, and
-shipments, pulls and the host tier under one, wait for ROADMAP.md A8b's
-second half (ii).
+prefix lookup and its blocks.
+
+Rows move between rank 0 and a dp shard's pool in one way for every use:
+
+- In (``ship``): an ingest, a host-tier restore and the landing of a
+  pull allocate on rank 0 in the extent of the shard that will seat the
+  request (``_pick_dp_shard``, as JAX's ingest), check the rows against
+  the pool there, and send the block list and the whole rows; each rank
+  of that shard writes its own heads (``serve/sharding.py``
+  ``ship_heads``) into its tile.
+- Out (``export``): an export and a tier spill name the shard whose
+  extent holds the entry's blocks; its ranks gather their heads, the tp
+  group all-gathers them, and the shard's leader sends the rows to rank
+  0, which renders the wire payload.
+- A speculative round (``spec``): every rank runs the draft's k + 1
+  steps and the k + 1-row verify (B4 under the kernel read) over its
+  shard's lanes; rank 0 alone samples, and the drafted tokens and the
+  accept counts reach the workers by a broadcast, never drawn there. A
+  lane's rewind runs on every rank of its shard. The draft is sliced by
+  the target's rules and holds its ``KV/tp`` heads of its shard's slots.
+
+A release inside a device operation queues its dying prefix entries; they
+spill when the outermost operation's section closes, before any
+allocation (rank 0 allocates only outside a section) can reuse their
+blocks.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 import time
 from dataclasses import dataclass, replace
 from typing import Any
@@ -179,6 +202,7 @@ from tf_operator_tpu_torch.serve.faultinject import (
     InjectedFault,
 )
 from tf_operator_tpu_torch.serve.kvcache import (
+    POOL_KEYS,
     POOL_WIRE_PARTS,
     BlockAllocator,
     PrefixCache,
@@ -199,6 +223,7 @@ from tf_operator_tpu_torch.serve.sharding import (
     local_block,
     local_pool_blocks,
     shard_of_slot,
+    ship_heads,
 )
 
 
@@ -329,10 +354,6 @@ class ContinuousEngine:
             from tf_operator_tpu_torch.serve.tp import channel_for, world_comm
 
             check_decode_mesh(mesh, "ContinuousEngine(mesh=)")
-            if spec_k:
-                raise NotImplementedError(
-                    "speculative decoding over a mesh is not ported yet: "
-                    "see ROADMAP.md A8b's second half (ii)")
             if max_slots % self._dp:
                 raise ValueError(
                     f"max_slots={max_slots} must be a multiple of the dp "
@@ -351,6 +372,12 @@ class ContinuousEngine:
                 mesh, params,
                 {} if cfg.int8_decode else param_sharding_rules(),
                 rank=self._tp.rank)
+            if spec_k and draft_params is not None:
+                # The draft rides the target's rules, as JAX's (spec
+                # refuses an int8 tree, so the draft always splits).
+                draft_params = shard_params_by_rules(
+                    mesh, draft_params, param_sharding_rules(),
+                    rank=self._tp.rank)
         self._next_pid = 0
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(f"prefill_chunk={prefill_chunk} must be >= 1")
@@ -458,6 +485,13 @@ class ContinuousEngine:
         # the /prefix/<digest> export count.
         self.prefix_advertise_max = 32
         self.prefix_exports = 0
+        # A parallel engine's device sections open now (nested depth), the
+        # dying prefix entries a release inside one queued for the tier,
+        # and the bytes each rows-moving command moved on this rank: its
+        # payload and what its collectives staged through the host.
+        self._op_depth = 0
+        self._spill_queue: list = []
+        self.op_bytes = {"ship": 0, "export": 0, "spec": 0}
         # Prefix retention, 0 = off (every block returns at retire). When
         # > 0, each completed prompt's exact entry keeps one extra pool
         # reference per block past its slot, in a bounded LRU; every
@@ -494,7 +528,39 @@ class ContinuousEngine:
         held while this rank runs its share; nothing without a mesh."""
         if self._chan is None:
             return contextlib.nullcontext()
-        return self._chan.section(self, op, args, payload)
+        return self._section(op, args, payload)
+
+    @contextlib.contextmanager
+    def _section(self, op: str, args, payload):
+        """``_device_op`` over a mesh: the command's section, its bytes
+        counted (``_count_bytes``) and, once the outermost section closes,
+        the prefix entries a release inside it queued spilled to the tier
+        (``_free_blocks``)."""
+        from tf_operator_tpu_torch.parallel import sharding
+
+        staged = sharding.staged_bytes
+        self._op_depth += 1
+        try:
+            with self._chan.section(self, op, args, payload):
+                yield
+        finally:
+            self._op_depth -= 1
+        self._count_bytes(op, payload, staged)
+        if not self._op_depth and self._spill_queue:
+            dropped, self._spill_queue = self._spill_queue, []
+            self._spill_entries(dropped)
+
+    def _count_bytes(self, op: str, payload, staged: int) -> None:
+        """Add what command ``op`` moved on this rank to ``op_bytes``: its
+        payload's int64 words and the bytes its collectives staged through
+        the host since ``staged`` (``parallel/sharding.py``)."""
+        from tf_operator_tpu_torch.parallel import sharding
+
+        if op in self.op_bytes:
+            words = (0 if payload is None else payload.numel()
+                     if isinstance(payload, torch.Tensor)
+                     else int(np.size(payload)))
+            self.op_bytes[op] += 8 * words + sharding.staged_bytes - staged
 
     def _mine(self, shard: int) -> bool:
         """Whether this rank holds dp shard ``shard``'s slots and blocks."""
@@ -598,7 +664,15 @@ class ContinuousEngine:
         shards' rows (the other ranks return their own rows)."""
         lo = self._dp_index * self._per
         mask_inactive_indices(self._cache, active[lo:lo + self._per])
-        logits = self._model(toks[lo:lo + self._per, None], self._cache)[:, 0]
+        return self._lanes_forward(self._model, self._cache,
+                                   toks[lo:lo + self._per, None])[:, 0]
+
+    def _lanes_forward(self, model, cache, x: torch.Tensor) -> torch.Tensor:
+        """``model`` over this rank's dp shard's lanes (``x [per, t]``,
+        ``cache`` its shard's), then ``[max_slots, t, vocab]`` logits on
+        rank 0: at dp > 1 the dp leaders all-gather their shards' rows
+        (the other ranks return their own)."""
+        logits = model(x, cache)
         if self._dp <= 1 or self._tp.index != 0:
             return logits
         rows = self._dpc.all_gather(logits, 0)
@@ -607,12 +681,44 @@ class ContinuousEngine:
                 rows.element_size())
         return rows
 
+    def _spread(self, t: torch.Tensor | None) -> torch.Tensor:
+        """Rank 0's ``[max_slots]`` integer vector ``t`` on every rank of
+        the world, by a broadcast over it (a worker passes None and gets
+        it as int32): the drafted tokens and the accept counts of a
+        speculative round, which workers run on and never draw
+        themselves. ``t`` itself without a mesh, and on rank 0."""
+        if self._chan is None:
+            return t
+        if t is None:
+            buf = torch.empty(self.max_slots, dtype=torch.int64,
+                              device=self.device)
+        else:
+            buf = t.to(torch.int64).contiguous()
+        self._chan.tp.broadcast_(buf)
+        return buf.to(torch.int32) if t is None else t
+
+    def _worker_cows(self, flat: np.ndarray) -> None:
+        """A worker: the copy-on-write copies rank 0 made before a step or
+        a round, ``(slot, entry, src, dst)`` each."""
+        for slot, entry, src, dst in flat.reshape(-1, 4).tolist():
+            self._cow(slot, entry, src, dst)
+
     def serve_command(self, op: str, args: list, payload: np.ndarray,
                       pending: dict) -> None:
         """A worker rank: run rank 0's command ``op`` on this engine (see
         ``serve/tp.py``); ``pending`` holds its open prefills by id. A
-        command of another dp shard is skipped, but for a prefill's logits
-        on their way to rank 0, which every dp leader passes on."""
+        command of another dp shard is skipped, but for what travels to
+        rank 0 (a prefill's logits, exported rows), which every dp leader
+        passes on. The rows-moving commands count their bytes
+        (``op_bytes``)."""
+        from tf_operator_tpu_torch.parallel import sharding
+
+        staged = sharding.staged_bytes
+        self._serve_command(op, args, payload, pending)
+        self._count_bytes(op, payload, staged)
+
+    def _serve_command(self, op: str, args: list, payload: np.ndarray,
+                       pending: dict) -> None:
         with torch.no_grad():
             if op == "open":
                 pid, shared, chunk, n, shard = args
@@ -640,6 +746,11 @@ class ContinuousEngine:
             elif op == "insert":
                 pid, slot, exact, n = args[:4]
                 tables = payload.astype(np.int32)
+                prompt = None
+                if self.spec_k:
+                    # A speculative join's payload ends with its prompt,
+                    # the draft's prefill.
+                    tables, prompt = tables[:-n], tables[-n:].reshape(1, n)
                 prefill = pending.pop(pid, None)
                 if self._mine(shard_of_slot(slot, self.max_slots, self._dp)):
                     # The paged payload: the read table alone (exact), or
@@ -648,14 +759,29 @@ class ContinuousEngine:
                                    else np.split(tables, 2))
                     self._insert(slot, exact, n, prefill and prefill[0],
                                  write, read)
+                    if prompt is not None:
+                        self._draft_insert(slot, prompt)
             elif op == "step":
                 n = self.max_slots
                 data = torch.as_tensor(payload, device=self.device)
                 toks, active = data[:n], data[n:2 * n].bool()
-                for slot, entry, src, dst in payload[2 * n:].reshape(
-                        -1, 4).tolist():
-                    self._cow(slot, entry, src, dst)
+                self._worker_cows(payload[2 * n:])
                 self._forward_step(toks, active)
+            elif op == "spec":
+                n = self.max_slots
+                data = torch.as_tensor(payload[:2 * n], device=self.device)
+                pend, active = data[:n].to(torch.int32), data[n:].bool()
+                self._worker_cows(payload[2 * n:])
+                self._spec_lanes(pend, active, lambda j, logits: None,
+                                 lambda tlogits, drafted: None)
+            elif op == "ship":
+                shard, cap = args[:2]
+                if self._mine(shard):
+                    self._write_rows(payload[:cap], self._unpack_rows(
+                        payload[cap:], cap * self.kv_block))
+            elif op == "export":
+                shard, n = args[:2]
+                self._export_gather(shard, payload[:n])
             else:
                 raise RuntimeError(f"unknown tp command {op!r}")
 
@@ -675,11 +801,13 @@ class ContinuousEngine:
         schedule: the round count is data, so the chain is state, not a
         precomputed ladder)."""
         n, dev = self.max_slots, self.device
+        # Over a mesh the draft runs the target's layout (its slices, its
+        # KV/tp heads) over its dp shard's slots.
         dcfg = replace(self.draft_cfg, decode=True, remat=False,
-                       kv_paged=False, kv_attend="gather")
+                       kv_paged=False, kv_attend="gather", mesh=self.mesh)
         self._draft_model = load_params(Transformer(dcfg, dev), draft_params)
         self._draft_cache = stack_slots(
-            solo_cache_template(self._draft_model), n)
+            solo_cache_template(self._draft_model), self._per)
         self._pend = torch.zeros(n, dtype=torch.int32, device=dev)
         self._spec_rng = torch.zeros((n, 2), dtype=torch.int64, device=dev)
         self.spec_rounds_total = 0       # rounds with a live lane
@@ -835,12 +963,18 @@ class ContinuousEngine:
         entries whose last holder just left and, with a host tier, spill
         the dying exact entries into it first. Every release (retire,
         retention eviction, plan and shipment release, a CoW source) goes
-        through here, so no prefix vanishes without the tier seeing it."""
+        through here, so no prefix vanishes without the tier seeing it.
+        Over a mesh a spill is a command, which must not start inside
+        another's section: a release there queues its dying entries, and
+        the section's close spills them (``_section``)."""
         freed = self.blocks.free(list(blks))
         if freed:
             dropped = self.prefix.invalidate_blocks(freed)
             if dropped and self.host_tier is not None:
-                self._spill_entries(dropped)
+                if self._op_depth:
+                    self._spill_queue.extend(dropped)
+                else:
+                    self._spill_entries(dropped)
         self._set_block_gauges()
 
     # -- the host KV tier (serve/tier.py) ---------------------------------
@@ -850,7 +984,13 @@ class ContinuousEngine:
         payloads. Safe exactly here: the freed blocks are back in the
         allocator's heap, but their pool rows stay intact until a later
         allocation, and the gather and its copy to the host finish before
-        this returns (one stream; ``.cpu()`` waits for it). Only exact
+        this returns (one stream; ``.cpu()`` waits for it). Over a mesh the
+        gather is an ``export`` command, run from ``_free_blocks`` or, for
+        a release inside a section, when the outermost section closes: in
+        both places no allocation has run since the release (rank 0
+        allocates only outside a section), and no write of a section lands
+        in a freed block (a freed block is in no live table; a retired
+        lane's counter is masked to 0). Only exact
         entries (stored sampling logits) spill: an aligned sub-prefix is
         subsumed by its prompt's exact entry (a restore registers the
         whole chain again), and the wire format cannot ship it.
@@ -865,8 +1005,7 @@ class ContinuousEngine:
             if e.logits is None:
                 continue
             try:
-                with torch.no_grad():
-                    solo = gather_solo(self._cache, np.asarray(e.blocks))
+                solo = self._export_rows(e.blocks)
                 payload = export_shipment(solo, e.tokens, e.logits,
                                           self.kv_block)
             except Exception:  # noqa: BLE001 — spill is best-effort
@@ -1045,10 +1184,6 @@ class ContinuousEngine:
         no pool to land rows in, and the caller prefills locally."""
         if not self.kv_paged:
             return None
-        if self.mesh is not None:
-            raise ValueError(
-                "shipped KV into an engine over a mesh is not ported yet "
-                "(ROADMAP.md A8b's second half (ii)): prefill locally")
         if int(shp.kv_block) != self.kv_block:
             raise ValueError(
                 f"shipment kv_block={shp.kv_block} != engine "
@@ -1057,10 +1192,13 @@ class ContinuousEngine:
         tokens = np.asarray(shp.tokens, np.int32).reshape(-1)
         n_tok, blk = int(tokens.shape[0]), self.kv_block
         cap = -(-n_tok // blk)
-        if cap > self.kv_blocks - 1:
+        limit = self._max_alloc_blocks()
+        if cap > limit:
+            where = ("the pool" if self._dp <= 1
+                     else "each dp shard's extent")
             raise ValueError(
-                f"shipment of {n_tok} tokens needs {cap} blocks; the pool "
-                f"has only {self.kv_blocks - 1} allocatable"
+                f"shipment of {n_tok} tokens needs {cap} blocks; {where} "
+                f"has only {limit} allocatable"
             )
         n, _, logits = self.prefix.lookup(tokens)
         if n == n_tok and logits is not None:
@@ -1068,25 +1206,31 @@ class ContinuousEngine:
             # nothing to write; admission exact-hits the existing entry. An
             # empty hold keeps release idempotent.
             return ShipHold((), n_tok, settled=True)
+        shard = None
+        if self._dp > 1:
+            # The dp shard that will SEAT the request, by the policy
+            # plan_admission runs, so its plan finds the prefix inside its
+            # own shard's extent (JAX's ingest).
+            shard = self._pick_dp_shard(tokens)
+            if shard is None:
+                return None  # no dp shard has a free slot: requeue
         # The whole request's budget, not just the shipment's: the plan
         # that follows also needs the decode horizon's blocks (and the CoW
         # destination when the prompt ends mid-block).
         need = -(-(n_tok + int(reserve_steps)) // blk)
         if n_tok % blk:
             need += 1
-        if self.blocks.free_blocks < need and self._retained:
-            self._evict_retained(until_free=need)
-        if self.blocks.free_blocks < need:
+        if self._shard_free_blocks(shard) < need and self._retained:
+            self._evict_retained(until_free=need, shard=shard)
+        if self._shard_free_blocks(shard) < need:
             return None  # pool exhaustion: the caller requeues
-        blocks = self.blocks.alloc(cap)
+        blocks = self.blocks.alloc(cap, shard=shard)
         if blocks is None:
             return None
         try:
+            # Checked against the pool before any rank writes.
             rows = self._ship_rows(shp, cap * blk)
-            table = np.zeros(self.table_len, np.int32)
-            table[:cap] = blocks
-            with torch.no_grad():
-                pool_write(self._cache, table, rows, blk)
+            self._land_rows(blocks, rows, shard or 0)
         except Exception:
             self._free_blocks(blocks)
             raise
@@ -1113,10 +1257,12 @@ class ContinuousEngine:
         from tf_operator_tpu_torch.serve.disagg import layer_path
 
         # wire path -> wire part -> (pool leaf, its per-row trailing shape:
-        # (KV, Dh) for K/V, (KV,) for the scales)
+        # (KV, Dh) for K/V, (KV,) for the scales; every KV head, also where
+        # a tp rank's pool holds its part of them)
+        kv = self.cfg.kv_heads
         want = {
-            layer_path(i): {POOL_WIRE_PARTS[name]: (name, tuple(leaf.shape[2:]))
-                            for name, leaf in layer.items()
+            layer_path(i): {POOL_WIRE_PARTS[name]: (name, (kv,) + tuple(
+                leaf.shape[3:])) for name, leaf in layer.items()
                             if name in POOL_WIRE_PARTS}
             for i, layer in enumerate(self._cache["layers"])
         }
@@ -1148,6 +1294,129 @@ class ContinuousEngine:
             out.append(layer)
         return out
 
+    def _row_leaves(self) -> list[tuple[int, str]]:
+        """(layer, pool leaf) of every shipped part, in one order on every
+        rank: the order rows travel in a ``ship`` command."""
+        return [(i, name) for i, layer in enumerate(self._cache["layers"])
+                for name in layer if name in POOL_WIRE_PARTS]
+
+    def _land_rows(self, blocks, rows: list[dict], shard: int) -> None:
+        """Write checked, whole-head shipped rows into ``blocks`` (global
+        indices in dp shard ``shard``'s extent). Over a mesh, the ``ship``
+        command first carries the block list and the rows, cast to the
+        pool's dtypes, to every rank; the shard's ranks write their own
+        heads."""
+        if self._chan is None:
+            self._write_rows(blocks, rows)
+            return
+        order = self._row_leaves()
+        rows = [{name: t.to(self._cache["layers"][i][name].dtype)
+                 for name, t in layer.items()}
+                for i, layer in enumerate(rows)]
+        flat = _pack([rows[i][name].cpu() for i, name in order])
+        payload = np.concatenate([np.asarray(blocks, np.int64),
+                                  _words(flat)])
+        with self._device_op("ship", (shard, len(blocks)), payload):
+            if self._mine(shard):
+                self._write_rows(blocks, rows)
+
+    def _unpack_rows(self, words: np.ndarray, n_rows: int) -> list[dict]:
+        """A worker: the whole-head rows of a ``ship`` payload's words."""
+        order = self._row_leaves()
+        like = [((n_rows, self.cfg.kv_heads)
+                 + tuple(self._cache["layers"][i][name].shape[3:]),
+                 self._cache["layers"][i][name].dtype) for i, name in order]
+        raw = torch.from_numpy(
+            np.ascontiguousarray(words).view(np.uint8).copy())
+        rows: list[dict] = [{} for _ in self._cache["layers"]]
+        for (i, name), t in zip(order, _unpack(raw, like)):
+            rows[i][name] = t
+        return rows
+
+    def _write_rows(self, blocks, rows: list[dict]) -> None:
+        """``pool_write`` of whole-head rows into ``blocks`` of this rank's
+        pool: the tile's local blocks, and under tp its own heads
+        (``serve/sharding.py`` ``ship_heads``)."""
+        table = np.zeros(self.table_len, np.int64)
+        table[:len(blocks)] = np.asarray(blocks, np.int64)
+        if self._tp is not None and self._tp.size > 1:
+            wire = {i: {POOL_WIRE_PARTS[name]: t
+                        for name, t in layer.items()}
+                    for i, layer in enumerate(rows)}
+            mine = ship_heads(wire, self._tp.size, self._tp.index)
+            leaf = {part: name for name, part in POOL_WIRE_PARTS.items()}
+            rows = [{leaf[part]: t for part, t in mine[i].items()}
+                    for i in range(len(rows))]
+        with torch.no_grad():
+            pool_write(self._cache, self._local(table), rows, self.kv_block)
+
+    def _dense_like(self, n_rows: int, heads: int) -> list[tuple]:
+        """(layer, dense leaf, shape, dtype) of every leaf of a solo dense
+        cache of ``n_rows`` rows at ``heads`` KV heads, as ``gather_solo``
+        lays them out."""
+        return [(i, POOL_KEYS[p], (1, n_rows, heads) + tuple(leaf.shape[3:]),
+                 leaf.dtype)
+                for i, layer in enumerate(self._cache["layers"])
+                for p, leaf in layer.items() if p in POOL_KEYS]
+
+    def _export_gather(self, shard: int, blocks) -> torch.Tensor | None:
+        """Every rank's share of an ``export`` of ``blocks`` (global, in dp
+        shard ``shard``'s extent): the shard's ranks gather their heads of
+        the rows (``gather_solo`` over their tile) and all-gather them
+        over tp; then, where the shard is not rank 0's, its leader sends
+        them to rank 0 by a broadcast over the dp leaders, as a prefill's
+        last row goes. Returns the whole rows as one byte vector on rank 0
+        (and on the shard's ranks), else None."""
+        n_rows = len(blocks) * self.kv_block
+        flat = None
+        if self._mine(shard):
+            with torch.no_grad():
+                solo = gather_solo(self._cache, self._local(
+                    np.asarray(blocks, np.int64)))
+            local = self._dense_like(n_rows, self._model.kv_heads)
+            flat = _pack([solo["layers"][i][d] for i, d, _, _ in local])
+            if self._model.kv_heads < self.cfg.kv_heads:  # split over tp
+                every = self._tp.all_gather(flat[None], 0)
+                parts = [_unpack(row, [(shape, dt) for *_, shape, dt
+                                       in local]) for row in every]
+                flat = _pack([torch.cat([p[j] for p in parts], 2)
+                              for j in range(len(local))])
+        if self._dp <= 1 or shard == 0 or self._tp.index != 0:
+            return flat
+        if not self._mine(shard):
+            nbytes = sum(math.prod(shape) * _itemsize(dt) for *_, shape, dt
+                         in self._dense_like(n_rows, self.cfg.kv_heads))
+            flat = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
+        self._dpc.broadcast_(flat, src_index=shard)
+        return flat
+
+    def _shard_of_block(self, block: int) -> int:
+        """The dp shard whose extent holds global block ``block``."""
+        for i in range(self._dp):
+            lo, hi = self.blocks.shard_extent(i)
+            if lo <= block < hi:
+                return i
+        return 0
+
+    def _export_rows(self, blocks) -> dict:
+        """The solo dense cache (whole heads, counter 0) of an entry's
+        ``blocks``: ``gather_solo`` here, or over a mesh the ``export``
+        command to the shard whose extent holds them."""
+        blocks = np.asarray(blocks, np.int64)
+        if self._chan is None:
+            with torch.no_grad():
+                return gather_solo(self._cache, blocks)
+        shard = self._shard_of_block(int(blocks[0]))
+        with self._device_op("export", (shard, len(blocks)), blocks):
+            flat = self._export_gather(shard, blocks)
+        like = self._dense_like(len(blocks) * self.kv_block,
+                                self.cfg.kv_heads)
+        layers: list[dict] = [{} for _ in self._cache["layers"]]
+        for (i, d, _, _), t in zip(like, _unpack(flat, [
+                (shape, dt) for *_, shape, dt in like])):
+            layers[i][d] = t
+        return {"layers": layers, "cache_index": 0}
+
     def release_shipment(self, hold: ShipHold | None) -> None:
         """Drop the ingest-time hold (idempotent): after the shipped
         request's plan has referenced its blocks, or on any error path
@@ -1166,7 +1435,7 @@ class ContinuousEngine:
         fleet router scores prefix hits from. A host-side read under the
         PrefixCache's lock, safe from any thread. Empty on a dense engine
         (no prefix cache)."""
-        if not self.kv_paged or self.mesh is not None:
+        if not self.kv_paged:
             return []
         return self.prefix.advertise(self.prefix_advertise_max)
 
@@ -1194,10 +1463,6 @@ class ContinuousEngine:
 
         if not self.kv_paged:
             raise PrefixNotFound("dense engine holds no prefix blocks")
-        if self.mesh is not None:
-            raise PrefixNotFound(
-                "an engine over a mesh exports no prefix yet (ROADMAP.md "
-                "A8b's second half (ii))")
         entry = self.prefix.entry_for_hex(digest_hex)
         if entry is None:
             payload = self._tier_export(digest_hex)
@@ -1207,8 +1472,7 @@ class ContinuousEngine:
                 f"no live exact prefix entry for {digest_hex[:12]}"
             )
         tokens, _, blocks, logits = entry
-        with torch.no_grad():
-            solo = gather_solo(self._cache, np.asarray(blocks))
+        solo = self._export_rows(blocks)
         again = self.prefix.entry_for_hex(digest_hex)
         if again is None or tuple(again[2]) != tuple(blocks):
             # A release racing this export spilled the entry (the free path
@@ -1348,20 +1612,27 @@ class ContinuousEngine:
         pid, plan.tp_pid = plan.tp_pid, None
         exact = plan.prefill_tokens == 0
         payload = None
-        if self._chan is not None and self.kv_paged:
-            payload = (plan.read_table if exact else np.concatenate(
-                [plan.write_table, plan.read_table]))
+        if self._chan is not None:
+            parts = []
+            if self.kv_paged:
+                parts = ([plan.read_table] if exact else
+                         [plan.write_table, plan.read_table])
+            if self.spec_k:
+                parts.append(plan.tokens.reshape(-1))  # the draft's prompt
+            payload = np.concatenate(parts) if parts else None
         with self._device_op("insert", (pid or 0, slot, exact,
                                         plan.prompt_len), payload):
             if self._mine(plan.dp_shard):
                 self._insert(slot, exact, plan.prompt_len, cache,
                              plan.write_table, plan.read_table)
+                if self.spec_k:
+                    self._draft_insert(slot, plan.tokens)
         row = logits.reshape(-1).float()
         self._logits[slot] = row
         self._set_sampling(slot, plan.num_steps, temperature, top_p, seed)
         if self.spec_k:
-            self._join_spec_state(slot, plan.tokens, row, temperature,
-                                  top_p, seed, program, base)
+            self._join_spec_state(slot, row, temperature, top_p, seed,
+                                  program, base)
         elif program is not None:
             # Prompt tokens are unconstrained: the slot enters at the
             # program's start state and the mask applies from the first
@@ -1555,20 +1826,12 @@ class ContinuousEngine:
         return _sample_token(masked, keys, self._temperature,
                              self._top_p, self._has_top_p)
 
-    def _join_spec_state(self, slot: int, tokens: np.ndarray,
-                         row: torch.Tensor, temperature: float,
-                         top_p: float | None, seed: int, program: Any,
-                         base: int | None) -> None:
-        """Seed a slot's speculative state at join: the draft prefills the
-        WHOLE prompt into the slot's draft rows (through ``ChunkedPrefill``
-        under ``prefill_chunk``; the draft shares nothing, so a prefix join
-        skips only the target's prefill), then the first pending token is
-        drawn from the prefill row as solo ``speculative_generate`` draws
-        it: a sampled lane splits ``PRNGKey(seed)`` and samples the
-        tempered, nucleus-filtered row; a greedy lane takes the argmax and
-        carries ``PRNGKey(0)`` unused. Under a ``program`` (bound at
-        ``base``) the row takes the start state's mask first, and the FSM
-        enters at the state AFTER pend, the invariant every round keeps."""
+    def _draft_insert(self, slot: int, tokens: np.ndarray) -> None:
+        """The draft's half of a speculative join, on every rank of the
+        slot's dp shard: the draft prefills the WHOLE prompt into the
+        slot's draft rows (through ``ChunkedPrefill`` under
+        ``prefill_chunk``; the draft shares nothing, so a prefix join skips
+        only the target's prefill)."""
         prompt = torch.as_tensor(tokens, device=self.device)
         with torch.no_grad():
             if self.prefill_chunk is not None:
@@ -1578,7 +1841,20 @@ class ContinuousEngine:
                 dcache, _ = pf.result()
             else:
                 dcache, _ = _prefill(self._draft_model, prompt)
-            dense_insert(self._draft_cache, slot, dcache)
+            dense_insert(self._draft_cache,
+                         slot - self._dp_index * self._per, dcache)
+
+    def _join_spec_state(self, slot: int, row: torch.Tensor,
+                         temperature: float, top_p: float | None, seed: int,
+                         program: Any, base: int | None) -> None:
+        """Seed a slot's pending token at join (after ``_draft_insert``),
+        drawn from the prefill row as solo ``speculative_generate`` draws
+        it: a sampled lane splits ``PRNGKey(seed)`` and samples the
+        tempered, nucleus-filtered row; a greedy lane takes the argmax and
+        carries ``PRNGKey(0)`` unused. Under a ``program`` (bound at
+        ``base``) the row takes the start state's mask first, and the FSM
+        enters at the state AFTER pend, the invariant every round keeps."""
+        with torch.no_grad():
             row = row.reshape(1, -1)
             if program is not None:
                 allow = torch.as_tensor(program.allow[0], device=self.device)
@@ -1601,8 +1877,10 @@ class ContinuousEngine:
     def _spec_round(self) -> tuple[np.ndarray, np.ndarray]:
         """The round, JAX's draft and verify executables in one eager pass.
         A round where no live lane samples draws nothing (greedy lanes
-        discard their draws, so their tokens are the same)."""
-        self._run_pending_cows()
+        discard their draws, so their tokens are the same). Over a mesh
+        the ``spec`` command carries each lane's pending token and the
+        live mask; rank 0 picks every token (``_spec_lanes``)."""
+        cows = self._run_pending_cows()
         k = self.spec_k
         pool = self.constrain_pool
         sampled = bool(self._sampled[self._active].any())
@@ -1615,65 +1893,107 @@ class ContinuousEngine:
                 parts = split(self._spec_rng, 5)  # [n, 5, 2]
                 self._spec_rng = parts[:, 0].contiguous()
                 step_keys = split(parts[:, 1], k + 1)  # [n, k + 1, 2]
-            dcache = mask_inactive_indices(self._draft_cache, active)
-            d_idx = dcache["cache_index"].clone()
-            tok, st = self._pend, self._fsm
-            drafted, qlogits = [], []
-            for j in range(k + 1):
-                logits = self._draft_model(tok[:, None].long(), dcache)[:, 0]
+            walk = {"st": self._fsm, "q": []}
+
+            def draft_pick(j, logits):
+                st = walk["st"]
                 masked = logits + torch.where(pool.allow_pool[st.long()],
                                               0.0, NEG_MASK)
                 if sampled:
                     tok = _sample_token(masked, step_keys[:, j],
                                         self._temperature, self._top_p,
                                         self._has_top_p)
-                    qlogits.append(masked)
+                    walk["q"].append(masked)
                 else:
                     tok = masked.argmax(-1).to(torch.int32)
-                st = pool.next_pool[st.long(), tok.long()]
-                drafted.append(tok)
-            drafted = torch.stack(drafted, 1)  # [n, k + 1]
-            # Verify: one target forward of [pend, d_1..d_k] (t = k + 1 rows
-            # a lane, each lane at its own counter, over the paged pool or
-            # the dense slot tensor: JAX's vmapped solo chunk forward),
-            # every row masked by the FSM state it is sampled at.
-            cache = mask_inactive_indices(self._cache, active)
-            t_idx = cache["cache_index"].clone()
-            chunk = torch.cat([self._pend[:, None], drafted[:, :k]], 1)
-            seq = [self._fsm]
-            for j in range(k):
-                seq.append(pool.next_pool[seq[-1].long(),
-                                          drafted[:, j].long()])
-            st_seq = torch.stack(seq, 1)  # [n, k + 1]
-            tlogits = self._model(chunk.long(), cache)
-            tlogits = tlogits + torch.where(pool.allow_pool[st_seq.long()],
-                                            0.0, NEG_MASK)
-            if sampled:
-                toks, counts, nxt = lane_accept_emit(
-                    k, tlogits, torch.stack(qlogits, 1), drafted,
-                    self._pend, parts[:, 2], parts[:, 3], parts[:, 4],
-                    self._temperature, self._top_p, self._has_top_p)
-            else:
-                targmax = tlogits.argmax(-1)  # [n, k + 1]
-                accept = drafted[:, :k].long() == targmax[:, :k]
-                m = torch.cumprod(accept.long(), 1).sum(1)
-                toks = chunk.to(torch.int32)
-                counts = (1 + m).to(torch.int32)
-                nxt = targmax.gather(1, m[:, None])[:, 0].to(torch.int32)
-            counts = torch.where(active, counts, 0)
+                walk["st"] = pool.next_pool[st.long(), tok.long()]
+                return tok
+
+            def verify_pick(tlogits, drafted):
+                # Every verify row masked by the FSM state it is sampled
+                # at, then JAX's accept/emit over all lanes at once.
+                drafted = torch.stack(drafted, 1)  # [n, k + 1]
+                seq = [self._fsm]
+                for j in range(k):
+                    seq.append(pool.next_pool[seq[-1].long(),
+                                              drafted[:, j].long()])
+                st_seq = torch.stack(seq, 1)  # [n, k + 1]
+                tlogits = tlogits + torch.where(
+                    pool.allow_pool[st_seq.long()], 0.0, NEG_MASK)
+                chunk = torch.cat([self._pend[:, None], drafted[:, :k]], 1)
+                if sampled:
+                    toks, counts, nxt = lane_accept_emit(
+                        k, tlogits, torch.stack(walk["q"], 1), drafted,
+                        self._pend, parts[:, 2], parts[:, 3], parts[:, 4],
+                        self._temperature, self._top_p, self._has_top_p)
+                else:
+                    targmax = tlogits.argmax(-1)  # [n, k + 1]
+                    accept = drafted[:, :k].long() == targmax[:, :k]
+                    m = torch.cumprod(accept.long(), 1).sum(1)
+                    toks = chunk.to(torch.int32)
+                    counts = (1 + m).to(torch.int32)
+                    nxt = targmax.gather(1, m[:, None])[:, 0].to(
+                        torch.int32)
+                counts = torch.where(active, counts, 0)
+                walk.update(toks=toks, nxt=nxt, st_seq=st_seq)
+                return counts
+
+            payload = None
+            if self._chan is not None:
+                payload = torch.cat([
+                    self._pend.long(), active.long(),
+                    torch.as_tensor(np.asarray(cows, np.int64).reshape(-1),
+                                    device=self.device)])
+            with self._device_op("spec", (len(cows),), payload):
+                counts = self._spec_lanes(self._pend, active, draft_pick,
+                                          verify_pick)
+            toks, nxt, st_seq = walk["toks"], walk["nxt"], walk["st_seq"]
             # The new FSM: the state after the accepted prefix, advanced
             # through the next pend; inactive lanes keep theirs.
             s_m = st_seq.gather(1, (counts.long() - 1).clamp(0, k)[:, None])
             self._fsm = torch.where(
                 active, pool.next_pool[s_m[:, 0].long(), nxt.long()],
                 self._fsm)
-            # The per-lane rewind: rejected rows go invisible to the masked
-            # reads, and the next round's chunk overwrites them.
-            set_cache_index(cache, torch.where(active, t_idx + counts, 0))
-            set_cache_index(dcache, torch.where(active, d_idx + counts, 0))
             self._pend = torch.where(active, nxt, self._pend)
         self.steps_total += 1
         return toks.cpu().numpy(), counts.cpu().numpy()
+
+    def _spec_lanes(self, pend: torch.Tensor, active: torch.Tensor,
+                    draft_pick, verify_pick) -> torch.Tensor:
+        """A round's device work on this rank, over its dp shard's lanes:
+        k + 1 draft steps from ``pend``, one target forward of the k + 1
+        chunk ``[pend, d_1..d_k]`` (t = k + 1 rows a lane, each lane at its
+        own counter, over the paged pool or the dense slot tensor: JAX's
+        vmapped solo chunk forward), then each lane's rewind in both
+        caches to its accepted count: rejected rows go invisible to the
+        masked reads, and the next round's chunk overwrites them. Rank 0
+        passes ``draft_pick(j, logits [n, vocab]) -> tokens`` and
+        ``verify_pick(logits [n, k + 1, vocab], drafted) -> counts``; a
+        worker's picks return None and it takes rank 0's (``_spread``).
+        Returns the ``[max_slots]`` accept counts."""
+        k = self.spec_k
+        lo, per = self._dp_index * self._per, self._per
+        mine = active[lo:lo + per]
+        dcache = mask_inactive_indices(self._draft_cache, mine)
+        d_idx = dcache["cache_index"].clone()
+        tok, drafted = pend, []
+        for j in range(k + 1):
+            logits = self._lanes_forward(self._draft_model, dcache,
+                                         tok[lo:lo + per, None].long())
+            tok = draft_pick(j, logits[:, 0])
+            if j < k:
+                tok = self._spread(tok)  # the next draft step's input
+            drafted.append(tok)
+        chunk = torch.cat([pend[:, None], torch.stack(drafted[:k], 1)], 1)
+        cache = mask_inactive_indices(self._cache, mine)
+        t_idx = cache["cache_index"].clone()
+        tlogits = self._lanes_forward(self._model, cache,
+                                      chunk[lo:lo + per].long())
+        counts = self._spread(verify_pick(tlogits, drafted))
+        mine_counts = counts[lo:lo + per]
+        set_cache_index(cache, torch.where(mine, t_idx + mine_counts, 0))
+        set_cache_index(dcache, torch.where(mine, d_idx + mine_counts, 0))
+        return counts
 
     def spec_debug(self) -> dict:
         """Speculation telemetry for /debug/serve, JAX's keys: k, rounds,
@@ -1907,3 +2227,38 @@ def _check_sampling(temperature: float, top_p: float | None) -> None:
         raise ValueError(f"top_p={top_p} must be in (0, 1]")
     if top_p is not None and temperature <= 0:
         raise ValueError("top_p requires temperature > 0 (greedy ignores it)")
+
+
+def _itemsize(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def _pack(tensors) -> torch.Tensor:
+    """Tensors of any dtypes as one uint8 vector of their bytes, in order
+    (each made contiguous), on their device: what one collective moves."""
+    return torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
+                      for t in tensors])
+
+
+def _unpack(flat: torch.Tensor, like) -> list[torch.Tensor]:
+    """``_pack``'s inverse: ``like`` is each tensor's (shape, dtype)."""
+    out, at = [], 0
+    for shape, dtype in like:
+        size = _itemsize(dtype)
+        n = math.prod(shape) * size
+        chunk = flat[at:at + n]
+        if chunk.storage_offset() % size:
+            chunk = chunk.clone()  # a view of another dtype needs alignment
+        out.append(chunk.view(dtype).reshape(shape))
+        at += n
+    return out
+
+
+def _words(flat: torch.Tensor) -> np.ndarray:
+    """A uint8 vector as int64 words on the host (zero-padded to a
+    whole word): a command payload."""
+    raw = flat.cpu().numpy()
+    pad = (-raw.size) % 8
+    if pad:
+        raw = np.concatenate([raw, np.zeros(pad, np.uint8)])
+    return raw.view(np.int64)

@@ -125,12 +125,15 @@ pool, and admission picks a request's shard (``serve/engine.py``
 ``choose_dp_shard``). JAX's errors: ``--dp`` with ``--engine coalesce``,
 a ``--max-batch`` it does not divide, ``--spec-k``, ``--role prefill``.
 
+Under ``--tp`` and ``--dp`` the replica serves what it serves on one
+device: ``--spec-k`` (at ``--tp`` only: ``--dp`` with ``--spec-k`` is
+JAX's usage error), ``--host-tier-bytes``, ``shipped_kv`` requests (each
+ingested on the dp shard that will seat it) and ``GET /prefix/<digest>``
+(exported from the shard that holds the entry). The draft is sliced by
+the target's rules and sent to every worker with the target's tree.
+
 Flags of ROADMAP items the port has not ported exit naming the item, and
-never run another path instead: ``--tp`` with ``--spec-k``, ``--role
-prefill`` or ``--host-tier-bytes``, and ``--dp`` with
-``--host-tier-bytes`` (A8b's second half (ii)), and ``--from-pp`` (A8d).
-A decode replica over a mesh prefills a shipped request locally and
-exports no prefix (A8b's second half (ii)).
+never run another path instead: ``--from-pp`` (A8d).
 
 Speculative decoding (``--spec-k K``): the engine decodes in rounds, a
 draft of ``--spec-draft-layers`` layers (default max(1, layers // 2), the
@@ -218,16 +221,6 @@ from tf_operator_tpu_torch.serve.tier import HostTier
 
 # Flags of ROADMAP items the port has not ported: (flag, set?, item).
 UNPORTED_FLAGS = (
-    ("--tp with --spec-k", lambda a: a.tp > 1 and bool(a.spec_k),
-     "A8b's second half (ii) (speculative decoding under tp)"),
-    ("--tp with --role prefill", lambda a: a.tp > 1 and a.role == "prefill",
-     "A8b's second half (ii) (shipping under tp)"),
-    ("--tp with --host-tier-bytes",
-     lambda a: a.tp > 1 and a.host_tier_bytes > 0,
-     "A8b's second half (ii) (the host tier under tp)"),
-    ("--dp with --host-tier-bytes",
-     lambda a: a.dp > 1 and a.host_tier_bytes > 0,
-     "A8b's second half (ii) (the host tier under dp)"),
     ("--from-pp", lambda a: a.from_pp is not None,
      "A8d (pipelines: pipeline trees)"),
 )
@@ -1003,6 +996,7 @@ def check_args(args) -> None:
             ("--int8", args.int8),
             ("--kv-int8", args.kv_int8),
             ("--batch-window", args.batch_window > 0),
+            ("--tp", args.tp > 1),
             ("--dp", args.dp > 1),
         ) if on]
         if bad:
@@ -1141,21 +1135,24 @@ def build_front(cfg: TransformerConfig, params, args, draft_params=None
     # sessions, which the new generation restores on demand. Paged only.
     host_tier = (HostTier(args.host_tier_bytes)
                  if kv_paged and args.host_tier_bytes > 0 else None)
-    spec = {}
-    if args.spec_k:
-        spec = dict(spec_k=args.spec_k, draft_cfg=draft_config(cfg, args),
-                    draft_params=_to_device(draft_params, device))
-    # What every rank's engine is built from (the workers' too).
+    # What every rank's engine is built from (the workers' too; the
+    # draft's tree travels after the target's).
     engine_kwargs = dict(
         cfg=cfg, max_slots=args.max_batch, kv_paged=kv_paged,
         kv_block=args.kv_block, kv_blocks=args.kv_pool_blocks,
         kv_attend=attend, prefill_chunk=args.prefill_chunk or None,
         constrain_rows=args.constrain_rows, logprobs_k=args.logprobs_k)
+    draft = None
+    if args.spec_k:
+        engine_kwargs.update(spec_k=args.spec_k,
+                             draft_cfg=draft_config(cfg, args))
+        draft = _to_device(draft_params, device)
     world = None
     need = args.tp * args.dp
     if need > 1:
         world = start_world(need, device, args.dist_backend,
-                            engine_kwargs, params, dp=args.dp)
+                            engine_kwargs, params, dp=args.dp,
+                            draft_params=draft)
         print(f"serve_lm: params "
               f"{'replicated (int8)' if cfg.int8_decode else 'tp-sharded'}"
               f" over {need} devices"
@@ -1170,7 +1167,7 @@ def build_front(cfg: TransformerConfig, params, args, draft_params=None
         eng = ContinuousEngine(
             params=params, faults=faults, device=device,
             mesh=world.mesh if world is not None else None,
-            **engine_kwargs, **spec,
+            draft_params=draft, **engine_kwargs,
         )
         if kv_paged:
             # Retention matches the advertisement's width: every digest
@@ -1311,10 +1308,24 @@ def main(argv: list[str] | None = None) -> int:
         kv_desc = (f"paged kv ({args.kv_block}-token blocks, "
                    f"{eng.kv_blocks} block pool), kv_attend "
                    f"{eng.kv_attend}" if eng.kv_paged else "dense kv")
+        # JAX's parts of the line: the tier, the mesh, spec, constraints.
+        if eng.host_tier is not None:
+            kv_desc += (f", host tier {args.host_tier_bytes >> 20 or 1} MiB"
+                        f"{' +prefetch' if args.tier_prefetch else ''}")
         if server.tp_world is not None:
+            kv_desc += f", tp {args.tp} (kv head-sharded)"
+            if args.dp > 1:
+                kv_desc += (f" x dp {args.dp} (slots + pool blocks "
+                            f"dp-sharded)")
             for r, row in enumerate(tp_report(eng)):
                 print(f"serve_lm: tp rank {r} pool bytes "
                       f"{row['pool_bytes']}", flush=True)
+        if args.spec_k:
+            kv_desc += (f", spec k={args.spec_k} (draft "
+                        f"{eng.draft_cfg.n_layers} layer(s))")
+        kv_desc += f", constrain pool {args.constrain_rows} rows"
+        if args.logprobs_k:
+            kv_desc += f", logprobs top-{args.logprobs_k}"
         print(f"serve_lm: continuous batching on {device} (slots "
               f"{args.max_batch}, {kv_desc}, prefill chunk "
               f"{args.prefill_chunk or 'one-shot'}, prefill budget "

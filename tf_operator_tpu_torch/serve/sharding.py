@@ -1,10 +1,8 @@
 """Engine-state layout for tensor- and data-parallel decode, as data.
 
-Counterpart of ``tf_operator_tpu/serve/sharding.py`` (all of it but
-``ship_specs``, which waits for ROADMAP A8b's second half (ii)). JAX
-lays one cache pytree over a ``tp`` x ``dp`` mesh; the port runs one
-process a device, so a spec here says which slice of each leaf a rank
-holds:
+Counterpart of ``tf_operator_tpu/serve/sharding.py``. JAX lays one cache
+pytree over a ``tp`` x ``dp`` mesh; the port runs one process a device,
+so a spec here says which slice of each leaf a rank holds:
 
 | engine state | spec | a rank holds |
 | --- | --- | --- |
@@ -13,6 +11,7 @@ holds:
 | kv8 scales ``key_scale``/``value_scale`` ``[slots, b, S, KV]`` and ``pool_key_scale``/``pool_value_scale`` ``[nb, blk, KV]`` | as the rows they scale | the scales of its rows and heads |
 | block tables, counters ``[slots, ...]`` | ``("dp", ...)`` | its shard's slots (``slot_spec``) |
 | logits ``[slots, vocab]`` | ``("dp", "tp")`` | its shard's rows, its vocabulary slice; the tp group gathers the slice and rank 0 gathers the rows for its sampler |
+| shipped rows ``[R, KV, Dh]``, kv8 scale rows ``[R, KV]`` (``ship_specs``) | ``(None, "tp", None)``, ``(None, "tp")`` | its ``KV/tp`` heads (``ship_heads``); no dp part: the owning shard's extent places them |
 
 A leaf whose named dimension cannot tile (``KV % tp``, an odd vocab, a
 slot count dp does not divide) stays whole on that dimension, the
@@ -199,6 +198,62 @@ def local_block(table, shard: int, num_blocks: int, dp_size: int):
     g = np.asarray(table, np.int64)
     out = np.where(g == 0, 0, g - shard * per + (1 if shard else 0))
     return out.astype(np.int32) if out.ndim else int(out)
+
+
+# Wire part -> the pool leaf its rows land in (serve/kvcache.py's
+# POOL_WIRE_PARTS, inverted).
+_WIRE_POOL_LEAF = {
+    "key": "pool_key",
+    "value": "pool_value",
+    "key_scale": "pool_key_scale",
+    "value_scale": "pool_value_scale",
+}
+
+
+def ship_specs(rows: Any, tp_size: int, tp_axis: str = "tp") -> dict:
+    """The spec of each part of a shipment's wire rows (``serve/disagg.py``
+    ``Shipment.rows``: path -> part -> ``[R, KV, Dh]`` K/V or ``[R, KV]``
+    kv8 scales; tensors, arrays or bare shapes), as JAX's: each part split
+    over tp on its head dimension exactly as the pool leaf it lands in
+    (the from-the-end addressing finds KV in the rows as in the pool), so
+    each tp rank takes its own heads (``ship_heads``). No dp part: wire
+    rows sit below the pool's block-axis rank, so they reach every dp
+    shard whole and the extent-bounded allocation places them on the
+    owning shard's tile. Pure data.
+
+    JAX names every part but ``key`` after ``pool_value``, which on a
+    scale row ``[R, KV]`` finds its row dimension; here each part takes
+    its own pool leaf's entry, so a scale row splits on its heads, as the
+    scale pool does. K/V parts are JAX's spec exactly."""
+    out: dict = {}
+    for path, parts in rows.items():
+        out[path] = {}
+        for part, leaf in parts.items():
+            shape = tuple(getattr(leaf, "shape", leaf))
+            out[path][part] = leaf_spec(
+                _WIRE_POOL_LEAF.get(part, "pool_value"), shape, tp_size,
+                tp_axis)
+    return out
+
+
+def ship_heads(rows: dict, tp_size: int, tp_index: int,
+               tp_axis: str = "tp") -> dict:
+    """Tensor-parallel rank ``tp_index``'s part of a shipment's rows (path
+    -> part -> tensor): each part that ``ship_specs`` splits over tp cut
+    to the rank's contiguous ``1/tp`` of it, the heads its pool holds;
+    a part that does not tile stays whole, as the pool's heads do."""
+    specs = ship_specs(rows, tp_size, tp_axis)
+    out: dict = {}
+    for path, parts in rows.items():
+        out[path] = {}
+        for part, leaf in parts.items():
+            spec = specs[path][part]
+            if tp_axis in spec:
+                dim = spec.index(tp_axis)
+                n = leaf.shape[dim] // tp_size
+                leaf = leaf.narrow(dim, tp_index * n, n)
+            out[path][part] = leaf
+    return out
 
 
 def tp_size_of(mesh: Any, tp_axis: str = "tp") -> int:

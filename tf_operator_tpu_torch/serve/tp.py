@@ -25,10 +25,17 @@ The ops (``OPS``): ``build`` (a fresh engine: the first one and each
 supervisor rebuild), ``open`` (a prompt's prefill: one-shot, run at
 once, or chunked, fed later), ``feed`` (chunks of an open prefill),
 ``finish`` (a chunked prefill's last logits), ``insert`` (a prefilled or
-exact-prefix admission into its slot), ``drop`` (an open prefill whose
-plan was released), ``step`` (the pending copy-on-write copies, the live
-mask and one decode forward of the sampled tokens), ``report`` (every
-rank's launch counts, pool bytes, staged bytes and logits bytes,
+exact-prefix admission into its slot, and on a speculative engine the
+draft's prefill of its prompt), ``drop`` (an open prefill whose plan was
+released), ``step`` (the pending copy-on-write copies, the live mask and
+one decode forward of the sampled tokens), ``spec`` (a speculative round:
+the copies, each lane's pending token and the live mask, then the
+draft's k + 1 steps and the verify, rank 0 broadcasting each drafted
+token and the accept counts), ``ship`` (a shipment's or a restore's
+block list and rows into the owning shard's pool), ``export`` (an
+entry's rows from the owning shard back to rank 0: a pull or a tier
+spill), ``report`` (every rank's launch counts, pool bytes, staged bytes,
+logits bytes and the bytes ``ship``, ``export`` and ``spec`` moved,
 gathered to rank 0) and ``stop``.
 
 A worker checks every header's sequence number, those of the commands it
@@ -53,7 +60,7 @@ import numpy as np
 import torch
 
 OPS = ("build", "open", "feed", "finish", "insert", "drop", "step",
-       "report", "stop")
+       "report", "stop", "spec", "ship", "export")
 OP = {name: i for i, name in enumerate(OPS)}
 _ARGS = 5  # argument slots of a header
 _HEADER = 3 + _ARGS  # seq, op, the arguments, the payload length
@@ -184,19 +191,26 @@ def rank_report() -> list[int]:
 
 REPORT_KEYS = ("paged_launches", "kv8_launches", "int8_launches",
                "int8_wgmma_launches", "pool_bytes", "staged_bytes",
-               "logits_bytes")
+               "logits_bytes", "ship_bytes", "export_bytes", "spec_bytes")
+# The engine's ``op_bytes`` keys, in REPORT_KEYS's order.
+OP_BYTES = ("ship", "export", "spec")
 
 
-def gather_report(tp, pool_bytes: int, logits_bytes: int = 0) -> list[dict]:
+def gather_report(tp, pool_bytes: int, logits_bytes: int = 0,
+                  op_bytes: dict | None = None) -> list[dict]:
     """Every rank's ``REPORT_KEYS`` (this rank's from ``rank_report``,
-    ``pool_bytes``, the bytes its collectives staged through the host, and
-    the logits bytes it took from other dp shards), gathered in rank
-    order: a collective of the whole world."""
+    ``pool_bytes``, the bytes its collectives staged through the host, the
+    logits bytes it took from other dp shards, and the bytes each of the
+    ``ship``, ``export`` and ``spec`` commands moved on it: their payloads
+    and what their collectives staged, the engine's ``op_bytes``),
+    gathered in rank order: a collective of the whole world."""
     from tf_operator_tpu_torch.parallel import sharding
 
+    op_bytes = op_bytes or {}
     mine = torch.tensor(rank_report() + [int(pool_bytes),
                                          int(sharding.staged_bytes),
-                                         int(logits_bytes)],
+                                         int(logits_bytes)]
+                        + [int(op_bytes.get(op, 0)) for op in OP_BYTES],
                         dtype=torch.int64)
     dev = channel_for(tp).device
     rows = tp.all_gather(mine.to(dev)[None, :], 0).cpu().tolist()
@@ -228,7 +242,8 @@ class TpWorker:
             elif op == "report":
                 eng = self.engine
                 gather_report(self.tp, eng.pool_bytes() if eng else 0,
-                              eng.logits_bytes if eng else 0)
+                              eng.logits_bytes if eng else 0,
+                              eng.op_bytes if eng else None)
             else:
                 self.engine.serve_command(op, args, payload, self.pending)
 
@@ -243,7 +258,7 @@ def report(engine: Any) -> list[dict]:
     chan = engine._chan
     with chan.section(engine, "report"):
         return gather_report(chan.tp, engine.pool_bytes(),
-                             engine.logits_bytes)
+                             engine.logits_bytes, engine.op_bytes)
 
 
 # -- the weights across ranks -------------------------------------------------
@@ -380,7 +395,8 @@ def world_mesh(world: int, dp: int, device=None):
 
 def start_world(world: int, device, backend: str | None,
                 engine_kwargs: dict, params: dict,
-                timeout_s: float = 86400.0, dp: int = 1) -> TpWorld:
+                timeout_s: float = 86400.0, dp: int = 1,
+                draft_params: dict | None = None) -> TpWorld:
     """Rank 0 of a serving replica's world of ``world`` ranks, ``dp`` dp
     shards of ``world // dp`` tp ranks (``world_mesh``): start ``world -
     1`` worker processes on this host (``python -m
@@ -388,7 +404,9 @@ def start_world(world: int, device, backend: str | None,
     device_count``), meet them at a TCP store of
     their own on a free local port, and send them the engine's arguments
     (``engine_kwargs``: the ``ContinuousEngine`` keywords, ``cfg``
-    included) and the whole ``params`` tree. Each worker then waits for
+    included) and the whole ``params`` tree, then, for a speculative
+    engine (``spec_k`` in ``engine_kwargs``), the draft's whole
+    ``draft_params`` tree. Each worker then waits for
     its first ``build``. ``backend`` defaults to nccl on the card, gloo
     on the CPU (two ranks on one card need gloo). The collectives' timeout
     is a day: a worker waits for rank 0's next command as long as the
@@ -426,6 +444,8 @@ def start_world(world: int, device, backend: str | None,
         tp = world_comm(mesh)
         dist.broadcast_object_list([engine_kwargs], 0)
         broadcast_tree(tp, params)
+        if engine_kwargs.get("spec_k"):
+            broadcast_tree(tp, draft_params)
     except BaseException:
         for proc in procs:
             proc.kill()
@@ -479,6 +499,8 @@ def worker_main(argv: list[str] | None = None) -> int:
     kwargs = dict(box[0])
     cfg = kwargs.pop("cfg")
     tree = _to_device(broadcast_tree(tp, None), device)
+    if kwargs.get("spec_k"):
+        kwargs["draft_params"] = _to_device(broadcast_tree(tp, None), device)
 
     def make_engine():
         from tf_operator_tpu_torch.serve.engine import ContinuousEngine

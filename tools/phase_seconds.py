@@ -40,6 +40,7 @@ SEGMENTS = (
     ("25", r"^phase 25 "),
     ("26", r"^phase 26 "),
     ("27", r"^phase 27 "),
+    ("28", r"^phase 28 "),
     ("kernels line", r"^total: "),
 )
 

@@ -1,5 +1,6 @@
-"""Run chip_smoke.py's phase 27 (tensor x data parallel serving) alone on
-the card.
+"""Run chip_smoke.py's phases 27 (tensor x data parallel serving, with
+27 (c)'s shipment and pull) and 28 (spec and the host tier under tp) alone
+on the card.
 
     python tools/torch_tpdp_probe.py
 
@@ -7,8 +8,11 @@ Phase 1's settings first (TF32 off for cuDNN and matmuls), then the
 build of the paged kernel (the worker ranks load the library this process
 built), phase 6's model, weights and prompts, then phase 25 (b) (the tp 1
 front phase 27 holds its tokens, pool bytes and latency against, and the
-tp 2 front beside it), then phase 27 exactly as chip_smoke.py runs it
-after phase 26, and the launches each path counted. Exits non-zero
+tp 2 front beside it), then phases 27 and 28 exactly as chip_smoke.py
+runs them after phase 26, and the launches each path counted. After each
+phase it prints where rank 0's world start-ups spent their seconds: the
+process group's start (the workers' imports and card start-up), the
+weights' broadcast, the engine builds and the warm-ups. Exits non-zero
 without a card.
 """
 
@@ -23,6 +27,36 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
+
+
+def time_world_starts() -> list:
+    """Wrap rank 0's world start-up steps with timers; returns the list
+    they append (step, seconds) to."""
+    import torch.distributed as dist
+
+    from tf_operator_tpu_torch.serve import engine, serve_lm, tp
+
+    log: list = []
+
+    def timed(owner, name, label):
+        inner = getattr(owner, name)
+
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return inner(*args, **kwargs)
+            finally:
+                log.append((label, round(time.perf_counter() - t, 3)))
+
+        setattr(owner, name, run)
+
+    timed(serve_lm, "start_world", "start_world")
+    timed(dist, "init_process_group", "  init_process_group")
+    timed(tp, "broadcast_tree", "  broadcast_tree")
+    timed(engine.ContinuousEngine, "__init__", "engine build")
+    timed(engine.ContinuousEngine, "warmup", "warmup (with the workers' "
+          "builds)")
+    return log
 
 
 def main() -> int:
@@ -52,12 +86,22 @@ def main() -> int:
     prompts = [rng.integers(0, base.vocab_size, (1, n)).astype(np.int32)
                for n in chip_smoke.LANES]
     ref: dict = {}
+    starts = time_world_starts()
     t0 = time.perf_counter()
     front = chip_smoke.tp_front_phase(pa, i8, base, params, prompts, card,
                                       ref)
     print(f"phase 25 (b): {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"start-up steps (25 b): {starts}", flush=True)
+    starts.clear()
     torch.cuda.empty_cache()
     paths = chip_smoke.tpdp_phase(pa, i8, base, params, prompts, card, ref)
+    print(f"start-up steps (27): {starts}", flush=True)
+    starts.clear()
+    torch.cuda.empty_cache()
+    spec = chip_smoke.tp_spec_phase(pa, i8, base, params, prompts, card,
+                                    ref)
+    print(f"start-up steps (28): {starts}", flush=True)
+    paths["paged_attend"].update(spec["paged_attend"])
     paths["paged_attend"]["serve_lm tp 2 (25b)"] = front
     print(json.dumps(paths), flush=True)
     return 0
