@@ -383,7 +383,35 @@ Phases, in order; any failure ends the run with a non-zero exit:
     the resume, each printed loss within ``DP_LOSS_TOL`` of the twin's;
     the killed run's tp 2 checkpoint restored into a tp 1 state built as
     ``dist_lm`` builds it, bitwise the saved (gathered) tree, and a tp 1
-    ``dist_lm`` resuming from it; the phase's seconds;
+    ``dist_lm`` resuming from it, (c) run beside (b) in a thread of its
+    own (each is host staging and process start-up: together they take
+    the longer one's time, not the sum); (d) sequence-parallel training in
+    (b)'s two running ranks after their tp 2 run, over a ``{"sp": 2}``
+    mesh of the same world (each rank T = 4096 of each row, the whole
+    model): (i) one layer-shaped ``ring_flash_attention`` at
+    ``RING_CHECK`` bf16, forward and q/k/v gradients, against
+    ``flash_attention`` (B1-B3) on the whole sequence in the same
+    process, by ``flash_compare``'s row-scaled rule (rank 0 runs the
+    diagonal and skips the future block, rank 1 the diagonal and the past
+    block), and ``ulysses_attention`` on the same blocks against the same
+    reference and rule (B1-B3 over 8 heads of the whole sequence, both
+    all-to-alls and their gradients); (ii) ``TP_TRAIN_STEPS`` steps with
+    ``ring_impl="auto"`` (the flash ring on the card) from the seeded
+    tree: each loss within
+    ``TP_TRAIN_LOSS_RTOL`` of (a)'s tp 1 run, the weights within
+    ``ADAM_BOUND`` x the summed lr, B1-B3 each launched exactly 8 x steps
+    on rank 0 and 16 x steps on rank 1 (a causal ring of 2: one block and
+    two a layer); (iii) ``SP_ULYSSES_STEPS`` Ulysses steps, each loss held
+    to (a)'s at that step, each kernel launched once a layer a step on each
+    rank; the bytes staged a step and the step seconds (host staging on
+    one card, not what sp costs over NVLink); (e) Adafactor at tp 2 in the
+    same ranks, ``ADAFACTOR_STEPS`` steps from the seeded tree, against a
+    plain tp 1 Adafactor run of as many steps that (a) adds: losses within
+    ``TP_TRAIN_LOSS_RTOL``, each leaf within ``adafactor_bounds``, the
+    weights' distance from tp 1's within ``ADAFACTOR_MOVE_RATIO`` of tp
+    1's move from the seed (a state that never moved reads 1); every step
+    second and tokens/s of (b), (d) and (e) is read with (c) running
+    beside them on the same card and host cores; the phase's seconds;
 27. tensor x data parallel serving (``serve_lm --dp``; the dp half of
     ``serve/sharding.py``, the dp allocators, global dp admission; B4 on
     every rank over its pool tile): (a) ``serve_lm``'s front at phase
@@ -860,6 +888,22 @@ TP_TRAIN_DEVICE = "cuda"  # (b)'s ranks' device
 # loss is under its target by step 20 (0.2269) and the resume bitwise at
 # any step.
 TP_ENTRY_STEPS, TP_ENTRY_FAIL_AT = 20, 12
+# (d) sequence parallelism over SP ranks in (b)'s world: (i) the ring's
+# check at one layer's attention, [B, T, H, Dh] = RING_CHECK, bf16;
+# (ii) TP_TRAIN_STEPS flash-ring steps, (iii) SP_ULYSSES_STEPS Ulysses
+# steps, each held as (b) is. (e) ADAFACTOR_STEPS Adafactor steps at tp 2
+# against (a)'s tp 1 run of as many (adafactor_bounds).
+# Two Adafactor runs of 2 steps sit within the triangle bound whatever
+# they do, and their losses part by less than the loss moves in 2 steps,
+# so (e) also holds the distance of tp 2's weights from tp 1's, over all
+# leaves, to ADAFACTOR_MOVE_RATIO of the distance tp 1 moved from the
+# seed: a tp 2 state that never moved reads 1, one that moved as tp 1
+# did, up to the rounding of its bf16 products, near 0.
+SP = 2
+RING_CHECK = (TRAIN_B, TRAIN_T, 16, 64)
+SP_ULYSSES_STEPS = 2
+ADAFACTOR_STEPS = 2
+ADAFACTOR_MOVE_RATIO = 0.5
 
 
 def entry_flash_shape() -> tuple[int, int, int, int]:
@@ -4873,8 +4917,8 @@ def moe_routes(model, tokens) -> list:
 
     seen, route = [], moe.MoeMlp.route
 
-    def record(self, x):
-        out = route(self, x)
+    def record(self, x, group=None):
+        out = route(self, x, group)
         seen.append((out[0].cpu(), out[2].float().cpu()))
         return out
 
@@ -5038,8 +5082,8 @@ def moe_bench_phase(card: str) -> dict:
         for name in ("tokens", "targets")}
     first, last, route = {}, {}, moe.MoeMlp.route
 
-    def record(self, x):
-        out = route(self, x)
+    def record(self, x, group=None):
+        out = route(self, x, group)
         # Each layer's first and last routes; no host sync in the loop.
         first.setdefault(id(self), out)
         last[id(self)] = out
@@ -6569,19 +6613,43 @@ def tp_train_batch(vocab: int, b: int, t: int, device) -> dict:
         for name in ("tokens", "targets")}
 
 
+def adafactor_bounds(rms0: float, size: int, steps: int, lr: float
+                     ) -> tuple[float, float]:
+    """(rms, elementwise) bounds on how far two Adafactor runs of ``steps``
+    steps at ``lr`` from one leaf (its rms ``rms0``, ``size`` elements)
+    may part. After the clip rms(u) <= 1, so a step moves the leaf by an
+    update of rms at most ``lr * max(rms(p), 1e-3)``, and rms(p) grows by
+    at most that factor ``1 + lr`` a step; the two runs part in rms by at
+    most the sum of both runs' moves, and an element by at most sqrt(size)
+    times that (an update of rms r has no element above sqrt(size) r)."""
+    scale = max(rms0, 1e-3) * (1.0 + lr) ** steps
+    rms = 2 * steps * lr * scale
+    return rms, math.sqrt(size) * rms
+
+
 def tp_train_nccl_phase(card: str) -> tuple[dict, dict]:
     """Phase 26 (a): phase 9's bf16 step over ``mesh={"dp": 1, "tp": 1}``
     (the model built over it) in an NCCL world of 1 in this process, in
     turns with the plain step (plain, tp, tp, plain): every run's losses
-    and weights bitwise the first's. Returns the tp runs' flash launches
-    and the last plain run (tp 1): its losses, weights on the host and
-    weight bytes."""
+    and weights bitwise the first's; then a plain Adafactor run of
+    ``ADAFACTOR_STEPS`` steps for (e). Returns the tp runs' flash launches
+    and the references: the last plain AdamW run (tp 1: its losses,
+    weights on the host and weight bytes), the Adafactor run's losses and
+    weights (``adafactor``) and each leaf's rms and size at the seeded
+    tree (``leaves``, by flax path)."""
     import torch.distributed as dist
 
-    from tf_operator_tpu_torch.models.convert import init_params
-    from tf_operator_tpu_torch.models.transformer import TransformerConfig
+    from tf_operator_tpu_torch.models.convert import (
+        _leaves,
+        init_params,
+        load_params,
+    )
+    from tf_operator_tpu_torch.models.transformer import (
+        Transformer,
+        TransformerConfig,
+    )
     from tf_operator_tpu_torch.parallel.mesh import create_mesh
-    from tf_operator_tpu_torch.train.steps import adamw
+    from tf_operator_tpu_torch.train.steps import adafactor, adamw
 
     cfg = TransformerConfig(dtype=torch.bfloat16, **LM)
     params = init_params(cfg, seed=0)
@@ -6645,34 +6713,149 @@ def tp_train_nccl_phase(card: str) -> tuple[dict, dict]:
         raise AssertionError(f"26a launches {launches}, want {want} of each")
     del first
     torch.cuda.empty_cache()
+    run = train_run(cfg, params, batch, ADAFACTOR_STEPS,
+                    adafactor(TP_TRAIN_LR), **kw)
+    model = run.pop("model")
+    seed = dict(load_params(Transformer(cfg), params).named_parameters())
+    ref["adafactor"] = {"losses": run["losses"], "weights": {
+        n: p.detach().float().cpu() for n, p in model.named_parameters()},
+        "move_sq": {n: float((p.detach().float() - seed[n].detach().float()
+                              ).square().sum())
+                    for n, p in model.named_parameters()}}
+    del seed
+    ref["leaves"] = {"/".join(path): (float(np.sqrt(np.mean(np.square(
+        leaf, dtype=np.float64)))), int(leaf.size))
+        for path, leaf in _leaves(params)}
+    print(f"train adafactor tp 1 (26a): bf16 B={TRAIN_B} T={TRAIN_T}, "
+          f"adafactor({TP_TRAIN_LR}) {ADAFACTOR_STEPS} steps from the seeded "
+          f"tree: losses {run['losses']}, step_s {run['seconds']} on {card}",
+          flush=True)
+    del run, model
+    torch.cuda.empty_cache()
     return launches, ref
 
 
-def tp_train_rank(out: str) -> int:
-    """One rank of phase 26 (b), a process of its own (``python -c``):
-    joins the gloo world the operator's env names, builds its part of the
-    cell ``out/cell.json`` names (phase 9's) over ``{"tp": TP}`` from the
-    seeded tree, runs ``TP_TRAIN_STEPS`` steps on phase 26's batch,
-    gathers the weights whole (rank 0 saves them under ``out``) and
-    writes its numbers to ``out/rank{r}.json``."""
+def rank_steps(step, state, batch, steps: int, cuda: bool) -> dict:
+    """``steps`` steps of a rank's train ``step`` on ``batch``, the flash
+    counts and ``staged_bytes`` set to 0 before the first: its losses, the
+    seconds and the bytes staged through the host of each step, and the
+    flash launches."""
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.parallel import sharding
+
+    fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
+    losses, seconds, staged = [], [], []
+    for _ in range(steps):
+        sharding.staged_bytes = 0
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"].item())
+        seconds.append(time.perf_counter() - t0)
+        staged.append(sharding.staged_bytes)
+    return {"losses": losses, "seconds": seconds, "staged": staged,
+            "counts": dict(fwd=fa.fwd_launches, dq=fa.dq_launches,
+                           dkv=fa.dkv_launches)}
+
+
+def save_whole(model, mesh, rules, path: str | None) -> None:
+    """The model's weights, gathered whole over tp (collective), saved by
+    rank 0 to ``path`` as {flax path: f32 host tensor}."""
+    import torch.distributed as dist
+
     from tf_operator_tpu_torch.models.convert import (
         _leaves,
         flax_path,
+        param_shapes,
+    )
+    from tf_operator_tpu_torch.parallel import sharding
+
+    tree: dict = {}
+    for name, p in model.named_parameters():
+        node = tree
+        path_ = flax_path(name)
+        for key in path_[:-1]:
+            node = node.setdefault(key, {})
+        node[path_[-1]] = p.detach()
+    whole = sharding.gather_params_by_rules(mesh, tree, rules,
+                                            param_shapes(model.cfg))
+    if dist.get_rank() == 0:
+        torch.save({"/".join(k): v.float().cpu() for k, v in _leaves(whole)},
+                   path)
+
+
+def ring_check_rank(axis, device, shape) -> dict:
+    """26 (d) (i) on this rank: one ``ring_flash_attention`` and one
+    ``ulysses_attention`` over its block of seeded bf16 q, k, v and dO of
+    ``shape`` (``RING_CHECK``; the same on every rank), forward and q/k/v
+    gradients, against ``flash_attention`` on the whole sequence here:
+    each output's share of the flash rule's bound and max-abs error, and
+    the launches, the ring's at the top level and Ulysses' under
+    ``"ulysses"``."""
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.parallel.ring_attention import (
+        ring_flash_attention,
+    )
+    from tf_operator_tpu_torch.parallel.ulysses import ulysses_attention
+    from tf_operator_tpu_torch.testing import flash_excess
+
+    b, t, h, dh = shape
+    gen = torch.Generator(device=device).manual_seed(23)
+    q, k, v, do = (torch.randn((b, t, h, dh), generator=gen, device=device
+                               ).to(torch.bfloat16) for _ in range(4))
+    whole = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    fa.flash_attention(*whole, causal=True).backward(do)
+    n = t // axis.size
+    cols = slice(axis.index * n, (axis.index + 1) * n)
+    with torch.no_grad():
+        want_o = fa.flash_attention(q, k, v, causal=True)[:, cols]
+    want = dict(o=want_o, dq=whole[0].grad[:, cols],
+                dk=whole[1].grad[:, cols], dv=whole[2].grad[:, cols])
+
+    def held(attend) -> dict:
+        part = [x[:, cols].clone().requires_grad_(True) for x in (q, k, v)]
+        fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
+        out = attend(*part, axis, causal=True)
+        out.backward(do[:, cols].contiguous())
+        counts = dict(fwd=fa.fwd_launches, dq=fa.dq_launches,
+                      dkv=fa.dkv_launches)
+        got = dict(o=out.detach(), dq=part[0].grad, dk=part[1].grad,
+                   dv=part[2].grad)
+        return {"share": {o: flash_excess(o, got[o], want[o]) for o in got},
+                "err": {o: (got[o].float() - want[o].float()).abs().max(
+                    ).item() for o in got},
+                "counts": counts}
+
+    return {**held(ring_flash_attention), "ulysses": held(ulysses_attention)}
+
+
+def tp_train_rank(out: str) -> int:
+    """One rank of phase 26 (b), (d) and (e), a process of its own
+    (``python -c``): joins the gloo world the operator's env names, builds
+    its part of the cell ``out/cell.json`` names (phase 9's) over ``{"tp":
+    TP}`` from the seeded tree, runs ``TP_TRAIN_STEPS`` steps on phase
+    26's batch and gathers the weights whole (rank 0 saves them under
+    ``out``); then, in the same world, (d) the ring's check and the
+    sequence-parallel model over ``{"sp": SP}`` (the flash ring, then
+    Ulysses) and (e) Adafactor at tp 2, each from the seeded tree, rank 0
+    saving the weights of (d)'s flash ring and of (e); writes its numbers
+    to ``out/rank{r}.json``."""
+    from tf_operator_tpu_torch.models.convert import (
         init_params,
         load_params,
-        param_shapes,
     )
     from tf_operator_tpu_torch.models.transformer import (
         Transformer,
         TransformerConfig,
         param_sharding_rules,
     )
-    from tf_operator_tpu_torch.ops import flash_attention as fa
     from tf_operator_tpu_torch.parallel import sharding
     from tf_operator_tpu_torch.parallel.mesh import create_mesh
     from tf_operator_tpu_torch.train import distributed
     from tf_operator_tpu_torch.train.steps import (
         TrainState,
+        adafactor,
         adamw,
         make_lm_train_step,
     )
@@ -6689,60 +6872,119 @@ def tp_train_rank(out: str) -> int:
     mesh = create_mesh({"tp": TP}, device=device)
     cfg = TransformerConfig(dtype=torch.bfloat16, mesh=mesh, **cell["lm"])
     rules = param_sharding_rules()
-    model = load_params(Transformer(cfg, device), sharding.shard_params_by_rules(
-        mesh, init_params(TransformerConfig(**cell["lm"]), seed=0), rules))
-    tx = adamw(TP_TRAIN_LR)
-    state = TrainState.create(model, tx)
-    step = make_lm_train_step(model, tx, xent_chunk=cell["chunk"],
-                              xent_dot_dtype=torch.bfloat16, mesh=mesh)
+    tree = init_params(TransformerConfig(**cell["lm"]), seed=0)
+    kw = dict(xent_chunk=cell["chunk"], xent_dot_dtype=torch.bfloat16)
     batch = tp_train_batch(cfg.vocab_size, cell["b"], cell["t"], device)
-    fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
-    losses, seconds, staged = [], [], []
-    for _ in range(TP_TRAIN_STEPS):
-        sharding.staged_bytes = 0
+    if cuda:
+        from tf_operator_tpu_torch.ops import flash_attention as fa
+
+        fa._library()
+    # Started while (a) runs: wait here, the world joined and the card
+    # up, until the phase says go.
+    ready = time.perf_counter()
+    deadline = time.monotonic() + 600.0
+    while not os.path.exists(os.path.join(out, "go")):
+        if time.monotonic() > deadline:
+            raise TimeoutError("26b: no go within 600 s")
+        time.sleep(0.05)
+    waited = time.perf_counter() - ready
+
+    def tp_leg(tx, steps: int, save: str) -> tuple[dict, list]:
+        model = load_params(Transformer(cfg, device),
+                            sharding.shard_params_by_rules(mesh, tree, rules))
+        state = TrainState.create(model, tx)
+        step = make_lm_train_step(model, tx, mesh=mesh, **kw)
+        got = rank_steps(step, state, batch, steps, cuda)
+        state_t = [v for st in state.optimizer.state.values()
+                   for v in st.values() if isinstance(v, torch.Tensor)]
+        save_whole(model, mesh, rules, os.path.join(out, save))
+        return got, [model, state_t]
+
+    result, held = tp_leg(adamw(TP_TRAIN_LR), TP_TRAIN_STEPS, "weights.pt")
+    model, opt_t = held
+    result.update(
+        waited=waited,
+        param_bytes=sum(p.numel() * p.element_size()
+                        for p in model.parameters()),
+        adam_bytes=sum(v.numel() * v.element_size() for v in opt_t
+                       if v.dim()),
+        peak_bytes=torch.cuda.max_memory_allocated() if cuda else 0)
+    del model, opt_t, held
+
+    # (d) the sequence-parallel legs over the same world.
+    sp_mesh = create_mesh({"sp": SP}, device=device)
+    axis = sharding.TensorParallel(sp_mesh, "sp")
+    if cuda:
+        torch.cuda.empty_cache()
+    result["ring"] = ring_check_rank(axis, device, cell["ring"])
+    block = sharding.token_block(sp_mesh, batch)
+    for impl, steps, save in (("auto", TP_TRAIN_STEPS, "sp.pt"),
+                              ("ulysses", SP_ULYSSES_STEPS, None)):
         if cuda:
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, metrics = step(state, batch)
-        losses.append(metrics["loss"].item())
-        seconds.append(time.perf_counter() - t0)
-        staged.append(sharding.staged_bytes)
-    counts = dict(fwd=fa.fwd_launches, dq=fa.dq_launches,
-                  dkv=fa.dkv_launches)
-    adam = [v for st in state.optimizer.state.values()
-            for key, v in st.items() if key in ("exp_avg", "exp_avg_sq")]
-    tree: dict = {}
-    for name, p in model.named_parameters():
-        node = tree
-        path = flax_path(name)
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = p.detach()
-    whole = sharding.gather_params_by_rules(mesh, tree, rules,
-                                            param_shapes(cfg))
-    if rank == 0:
-        torch.save({"/".join(k): v.float().cpu()
-                    for k, v in _leaves(whole)},
-                   os.path.join(out, "weights.pt"))
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        sp_cfg = TransformerConfig(dtype=torch.bfloat16, mesh=sp_mesh,
+                                   ring_impl=impl, **cell["lm"])
+        model = load_params(Transformer(sp_cfg, device), tree)
+        tx = adamw(TP_TRAIN_LR)
+        step = make_lm_train_step(model, tx, mesh=sp_mesh, **kw)
+        leg = rank_steps(step, TrainState.create(model, tx), block, steps,
+                         cuda)
+        leg["grad_bytes"] = sum(p.numel() * 4 for p in model.parameters())
+        leg["peak_bytes"] = torch.cuda.max_memory_allocated() if cuda else 0
+        if save and rank == 0:
+            torch.save({"/".join(k): v.float().cpu() for k, v in
+                        _named_flax(model)}, os.path.join(out, save))
+        result["sp" if impl == "auto" else "ulysses"] = leg
+        del model, step, tx
+    # (e) Adafactor at tp 2.
+    if cuda:
+        torch.cuda.empty_cache()
+    result["adafactor"], held = tp_leg(adafactor(TP_TRAIN_LR),
+                                       ADAFACTOR_STEPS, "adafactor.pt")
+    del held
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
-        json.dump({"losses": losses, "seconds": seconds, "staged": staged,
-                   "counts": counts, "param_bytes": sum(
-                       p.numel() * p.element_size()
-                       for p in model.parameters()),
-                   "adam_bytes": sum(v.numel() * v.element_size()
-                                     for v in adam),
-                   "peak_bytes": (torch.cuda.max_memory_allocated()
-                                  if cuda else 0)}, f)
+        json.dump(result, f)
     distributed.shutdown()
     return 0
 
 
-def tp_train_pair_phase(card: str, ref: dict) -> dict:
-    """Phase 26 (b): ``tp_train_rank`` as two gloo processes sharing the
-    card, against (a)'s last plain run. Returns the ranks' summed flash
-    launches."""
+def _named_flax(model):
+    """(flax path, parameter) of each of ``model``'s parameters."""
     from tf_operator_tpu_torch.models.convert import flax_path
 
+    for name, p in model.named_parameters():
+        yield flax_path(name), p.detach()
+
+
+def weights_apart(got: dict, want: dict, lr_sum: float) -> tuple:
+    """(largest difference, its parameter, elements beyond 1 % of
+    ``lr_sum``, elements) of ``got`` ({flax path: tensor}) against
+    ``want`` ({parameter name: tensor})."""
+    from tf_operator_tpu_torch.models.convert import flax_path
+
+    max_err, at, far, total = 0.0, None, 0, 0
+    for name, w in want.items():
+        diff = (got["/".join(flax_path(name))] - w).abs()
+        err = float(diff.max())
+        if err > max_err:
+            max_err, at = err, name
+        far += int((diff > 0.01 * lr_sum).sum())
+        total += diff.numel()
+    return max_err, at, far, total
+
+
+def counts_of(rank: dict) -> dict:
+    """A rank's flash counts by kernel name."""
+    return {key: rank["counts"][c]
+            for key, c in zip(FLASH_KERNELS, ("fwd", "dq", "dkv"))}
+
+
+def start_tp_train_ranks(tmp: str, procs: list, logs: list) -> None:
+    """Phase 26 (b)'s two gloo ranks (``tp_train_rank``), started on the
+    card before (a) so that their imports, the world's join and the card's
+    start-up overlap (a); each waits for ``tmp/go``. Appends the processes
+    and their log paths to ``procs`` and ``logs``."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = {k: v for k, v in os.environ.items() if k not in (
         "TF_CONFIG", "TPU_WORKER_ID", "TPU_NUM_PROCESSES",
@@ -6750,51 +6992,46 @@ def tp_train_pair_phase(card: str, ref: dict) -> dict:
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
     env.setdefault("OMP_NUM_THREADS", "1")
     port = free_port()
-    procs: list = []
+    with open(os.path.join(tmp, "cell.json"), "w") as f:
+        json.dump({"lm": LM, "b": TRAIN_B, "t": TRAIN_T,
+                   "chunk": XENT_CHUNK, "device": TP_TRAIN_DEVICE,
+                   "ring": RING_CHECK}, f)
+    for r in range(TP):
+        rank_env = dict(env, TPU_NUM_PROCESSES=str(TP),
+                        TPU_WORKER_ID=str(r),
+                        TPU_COORDINATOR_ADDRESS=f"127.0.0.1:{port}")
+        logs.append(os.path.join(tmp, f"tptrain{r}.log"))
+        with open(logs[-1], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", "import sys, chip_smoke; "
+                 "sys.exit(chip_smoke.tp_train_rank(sys.argv[1]))",
+                 tmp], cwd=root, env=rank_env, stdout=log,
+                stderr=subprocess.STDOUT))
+
+
+def tp_train_pair_phase(card: str, ref: dict, tmp: str, procs: list,
+                        logs: list) -> dict:
+    """Phase 26 (b), (d) and (e): the ranks ``start_tp_train_ranks``
+    started, told to go, against (a)'s runs. Returns {path label: the
+    ranks' summed flash launches}."""
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        with open(os.path.join(tmp, "cell.json"), "w") as f:
-            json.dump({"lm": LM, "b": TRAIN_B, "t": TRAIN_T,
-                       "chunk": XENT_CHUNK, "device": TP_TRAIN_DEVICE}, f)
-        logs = []
-        try:
-            for r in range(TP):
-                rank_env = dict(env, TPU_NUM_PROCESSES=str(TP),
-                                TPU_WORKER_ID=str(r),
-                                TPU_COORDINATOR_ADDRESS=f"127.0.0.1:{port}")
-                logs.append(os.path.join(tmp, f"tptrain{r}.log"))
-                with open(logs[-1], "w") as log:
-                    procs.append(subprocess.Popen(
-                        [sys.executable, "-c", "import sys, chip_smoke; "
-                         "sys.exit(chip_smoke.tp_train_rank(sys.argv[1]))",
-                         tmp], cwd=root, env=rank_env, stdout=log,
-                        stderr=subprocess.STDOUT))
-            codes = wait_all(procs, timeout=420.0)
-        finally:
-            for proc in procs:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-        if codes != [0] * TP:
-            raise AssertionError(f"26b: rc {codes}: " + "\n".join(
-                read_log(p)[-3000:] for p in logs))
-        ranks = []
-        for r in range(TP):
-            with open(os.path.join(tmp, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
-        whole = torch.load(os.path.join(tmp, "weights.pt"),
-                           weights_only=True)
+    open(os.path.join(tmp, "go"), "w").close()
+    codes = wait_all(procs, timeout=600.0)
+    if codes != [0] * TP:
+        raise AssertionError(f"26b: rc {codes}: " + "\n".join(
+            read_log(p)[-3000:] for p in logs))
+    ranks = []
+    for r in range(TP):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    saved = {name: torch.load(os.path.join(tmp, name + ".pt"),
+                              weights_only=True)
+             for name in ("weights", "sp", "adafactor")}
     wall = time.perf_counter() - t0
     want = ref["weights"]
     lr_sum = TP_TRAIN_LR * TP_TRAIN_STEPS
-    max_err, at, far, total = 0.0, None, 0, 0
-    for name, w in want.items():
-        diff = (whole["/".join(flax_path(name))] - w).abs()
-        err = float(diff.max())
-        if err > max_err:
-            max_err, at = err, name
-        far += int((diff > 0.01 * lr_sum).sum())
-        total += diff.numel()
+    max_err, at, far, total = weights_apart(saved.pop("weights"), want,
+                                            lr_sum)
     loss_err = [abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"],
                                                     ref["losses"])]
     steps_s = [float(np.median(r["seconds"][1:])) for r in ranks]
@@ -6820,16 +7057,162 @@ def tp_train_pair_phase(card: str, ref: dict) -> dict:
           f"step_s {[r['seconds'] for r in ranks]}; the pair's tokens/s "
           f"{pair_tok_s:.2f} by the slower rank's median step (two ranks on "
           f"one card staging every collective through the host over gloo: "
-          f"host staging, not what tp costs over NVLink); {wall:.1f} s on "
-          f"{card}", flush=True)
+          f"host staging, not what tp costs over NVLink; read with 26 (c) "
+          f"running beside); {wall:.1f} s from go to the ranks' exit, the "
+          f"ranks ready {[round(r['waited'], 1) for r in ranks]} s before "
+          f"go (started before (a)) on {card}", flush=True)
     if (ranks[0]["losses"] != ranks[1]["losses"]
             or not max(loss_err) <= TP_TRAIN_LOSS_RTOL
             or not max_err <= ADAM_BOUND * lr_sum):
         raise AssertionError("tp 2 parts from tp 1")
+    paths = sp_pair_checks(ranks, ref, saved, card)
     want_n = TP * LM["n_layers"] * TP_TRAIN_STEPS
     if set(launches.values()) != {want_n}:
         raise AssertionError(f"26b launches {launches}, want {want_n}")
-    return launches
+    check_sp_launches(ranks)
+    return {"train tp 2 (26b)": launches, **paths}
+
+
+def check_sp_launches(ranks: list) -> None:
+    """26 (d) and (e)'s launches, exactly: the ring's check one block pair
+    a rank (rank i: i + 1), Ulysses' check one of each kernel a rank, the
+    flash ring 8 x steps on rank 0 and 16 x
+    steps on rank 1 (a causal ring of 2), Ulysses and Adafactor each
+    kernel once a layer a step on each rank."""
+    layers, bad = LM["n_layers"], []
+    for i, r in enumerate(ranks):
+        r = dict(r, ring_ulysses=r["ring"]["ulysses"])
+        for leg, want_n in (("ring", i + 1), ("ring_ulysses", 1),
+                            ("sp", layers * (i + 1) * TP_TRAIN_STEPS),
+                            ("ulysses", layers * SP_ULYSSES_STEPS),
+                            ("adafactor", layers * ADAFACTOR_STEPS)):
+            if set(r[leg]["counts"].values()) != {want_n}:
+                bad.append(f"rank {i} {leg} {r[leg]['counts']}, want "
+                           f"{want_n} of each")
+    if bad:
+        raise AssertionError(f"26d/e launches: {bad}")
+
+
+def sp_pair_checks(ranks: list, ref: dict, saved: dict, card: str) -> dict:
+    """26 (d) and (e) from the ranks' numbers and rank 0's saved weights:
+    printed, checked (an ``AssertionError`` on a failure) and returned as
+    {path label: the ranks' summed flash launches}."""
+    from tf_operator_tpu_torch.models.convert import flax_path
+
+    ring = [r["ring"] for r in ranks]
+    uly_fn = [r["ulysses"] for r in ring]
+    print(f"ring flash check (26d i): ring_flash_attention over {{'sp': "
+          f"{SP}}} at {list(RING_CHECK)} bf16, causal, forward and q/k/v "
+          f"gradients, against flash_attention on the whole sequence: "
+          f"max_abs_err by rank {[r['err'] for r in ring]}, shares of the "
+          f"flash rule's bound {[r['share'] for r in ring]}; the ring's "
+          f"launches by rank {[r['counts'] for r in ring]} (rank 0: the "
+          f"diagonal block, the future one skipped; rank 1: the diagonal "
+          f"and the past block) on {card}", flush=True)
+    print(f"ulysses check (26d i): ulysses_attention on the same blocks "
+          f"(each rank the whole sequence of {RING_CHECK[2] // SP} heads), "
+          f"forward and q/k/v gradients through both all-to-alls, against "
+          f"the same whole-sequence flash_attention: max_abs_err by rank "
+          f"{[r['err'] for r in uly_fn]}, shares of the flash rule's bound "
+          f"{[r['share'] for r in uly_fn]}; launches by rank "
+          f"{[r['counts'] for r in uly_fn]} on {card}", flush=True)
+    bad = [f"rank {i} {side} {o}" for i, r in enumerate(ring)
+           for side, got in (("ring", r), ("ulysses", r["ulysses"]))
+           for o, share in got["share"].items() if not share <= 1]
+    if bad:
+        raise AssertionError(f"26d (i): {bad}")
+    lr_sum = TP_TRAIN_LR * TP_TRAIN_STEPS
+    sp = [r["sp"] for r in ranks]
+    uly = [r["ulysses"] for r in ranks]
+    ada = [r["adafactor"] for r in ranks]
+    max_err, at, far, total = weights_apart(saved["sp"], ref["weights"],
+                                            lr_sum)
+    loss_err = [abs(a - b) / abs(b) for a, b in zip(sp[0]["losses"],
+                                                    ref["losses"])]
+    uly_err = [abs(a - b) / abs(b) for a, b in zip(uly[0]["losses"],
+                                                   ref["losses"])]
+    print(f"train sp 2 (26d ii): bf16 B={TRAIN_B} T={TRAIN_T} over {{'sp': "
+          f"{SP}}} (each rank T={TRAIN_T // SP} of each row, the whole model) "
+          f"as (b)'s 2 gloo processes, ring_impl auto (the flash ring), "
+          f"{TP_TRAIN_STEPS} steps from the seeded tree: losses "
+          f"{sp[0]['losses']} (rank 1 {sp[1]['losses']}) against tp 1's "
+          f"{ref['losses']}, relative {[f'{e:.3e}' for e in loss_err]} "
+          f"(tolerance {TP_TRAIN_LOSS_RTOL}); weights against tp 1's: largest "
+          f"difference {max_err:.3e} in {at} (tolerance "
+          f"{ADAM_BOUND * lr_sum:.3e}), {far} of {total} beyond 1 % of the "
+          f"summed lr; flash launches a rank {[r['counts'] for r in sp]}; "
+          f"bytes staged through the host a step (the ring's K/V, dK/dV) "
+          f"{[r['staged'] for r in sp]}, and a gradient all-reduce of "
+          f"{sp[0]['grad_bytes']} bytes a step over gloo beside them; step_s "
+          f"{[r['seconds'] for r in sp]}; peak device bytes a rank "
+          f"{[r['peak_bytes'] for r in sp]} (two ranks on one card staging "
+          f"the ring and the gradients through the host over gloo: host "
+          f"staging, not what sp costs over NVLink; read with 26 (c) running "
+          f"beside) on {card}", flush=True)
+    print(f"train sp 2 ulysses (26d iii): {SP_ULYSSES_STEPS} step(s) from "
+          f"the seeded tree: losses {uly[0]['losses']} (rank 1 "
+          f"{uly[1]['losses']}) against tp 1's, relative "
+          f"{[f'{e:.3e}' for e in uly_err]} (tolerance {TP_TRAIN_LOSS_RTOL});"
+          f" flash launches a rank {[r['counts'] for r in uly]}; bytes staged"
+          f" a step {[r['staged'] for r in uly]}; step_s "
+          f"{[r['seconds'] for r in uly]} (with 26 (c) running beside) on "
+          f"{card}", flush=True)
+    if (sp[0]["losses"] != sp[1]["losses"]
+            or not max(loss_err) <= TP_TRAIN_LOSS_RTOL
+            or not max_err <= ADAM_BOUND * lr_sum):
+        raise AssertionError("26d: sp 2 parts from tp 1")
+    if (uly[0]["losses"] != uly[1]["losses"]
+            or not max(uly_err) <= TP_TRAIN_LOSS_RTOL):
+        raise AssertionError("26d: Ulysses parts from tp 1")
+    # (e) each leaf by adafactor_bounds from its seeded rms and size.
+    want = ref["adafactor"]
+    ada_err = [abs(a - b) / abs(b) for a, b in zip(ada[0]["losses"],
+                                                   want["losses"])]
+    worst, beyond = (0.0, None), []
+    apart_sq, worst_move = 0.0, (0.0, None)
+    for name, w in want["weights"].items():
+        path = "/".join(flax_path(name))
+        diff = saved["adafactor"][path] - w
+        rms_b, elem_b = adafactor_bounds(*ref["leaves"][path],
+                                         ADAFACTOR_STEPS, TP_TRAIN_LR)
+        rms = float(diff.square().mean().sqrt())
+        elem = float(diff.abs().max())
+        worst = max(worst, (rms / rms_b, name))
+        if not (rms <= rms_b and elem <= elem_b):
+            beyond.append((name, rms, rms_b, elem, elem_b))
+        d_sq, m_sq = float(diff.square().sum()), want["move_sq"][name]
+        apart_sq += d_sq
+        worst_move = max(worst_move, (math.sqrt(d_sq / max(m_sq, 1e-30)),
+                                      name))
+    # A tp 2 state left at the seed reads 1.0: it is as far from tp 1's as
+    # tp 1's moved.
+    move_ratio = math.sqrt(apart_sq / sum(want["move_sq"].values()))
+    print(f"train adafactor tp 2 (26e): bf16 B={TRAIN_B} T={TRAIN_T} over "
+          f"{{'tp': {TP}}}, adafactor({TP_TRAIN_LR}) {ADAFACTOR_STEPS} steps "
+          f"from the seeded tree: losses {ada[0]['losses']} (rank 1 "
+          f"{ada[1]['losses']}) against tp 1's {want['losses']}, relative "
+          f"{[f'{e:.3e}' for e in ada_err]} (tolerance {TP_TRAIN_LOSS_RTOL});"
+          f" every leaf's rms and largest difference from tp 1's within "
+          f"adafactor_bounds: {not beyond} (largest share of the rms bound "
+          f"{worst[0]:.3e} in {worst[1]}); distance from tp 1's weights "
+          f"over tp 1's move from the seed, all leaves {move_ratio:.4e} "
+          f"(limit {ADAFACTOR_MOVE_RATIO}; a state left at the seed reads "
+          f"1), largest leaf {worst_move[0]:.4e} in {worst_move[1]}; flash "
+          f"launches a rank {[r['counts'] for r in ada]}; bytes staged a "
+          f"step {[r['staged'] for r in ada]}; step_s "
+          f"{[r['seconds'] for r in ada]} (with 26 (c) running beside) on "
+          f"{card}", flush=True)
+    if (ada[0]["losses"] != ada[1]["losses"]
+            or not max(ada_err) <= TP_TRAIN_LOSS_RTOL or beyond
+            or not move_ratio <= ADAFACTOR_MOVE_RATIO):
+        raise AssertionError(f"26e: Adafactor tp 2 parts from tp 1: "
+                             f"{beyond[:4]}, move ratio {move_ratio}")
+    return {"train sp 2 ring flash (26d)": {
+        k: sum(counts_of(r)[k] for r in sp) for k in FLASH_KERNELS},
+        "train sp 2 ulysses (26d)": {
+        k: sum(counts_of(r)[k] for r in uly) for k in FLASH_KERNELS},
+        "train adafactor tp 2 (26e)": {
+        k: sum(counts_of(r)[k] for r in ada) for k in FLASH_KERNELS}}
 
 
 def with_flags(args: list, **flags) -> list:
@@ -6974,16 +7357,31 @@ def tp_entry_phase(card: str) -> dict:
 
 
 def tp_train_phase(card: str) -> dict:
-    """Phase 26, (a) to (c); returns {path label: flash launches}."""
+    """Phase 26, (a) to (e): (b)'s ranks started before (a) and waiting
+    for it, (c) in a thread beside (b), (d) and (e); returns {path label:
+    flash launches}."""
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
-    nccl, ref = tp_train_nccl_phase(card)
-    pair = tp_train_pair_phase(card, ref)
+    procs: list = []
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            logs: list = []
+            start_tp_train_ranks(tmp, procs, logs)
+            nccl, ref = tp_train_nccl_phase(card)
+            with ThreadPoolExecutor(1) as pool:
+                entry = pool.submit(tp_entry_phase, card)
+                pair = tp_train_pair_phase(card, ref, tmp, procs, logs)
+                entry = entry.result()
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
     del ref
-    entry = tp_entry_phase(card)
-    print(f"phase 26 (tensor-parallel training): "
+    print(f"phase 26 (tensor- and sequence-parallel training): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    return {"train tp nccl world 1 (26a)": nccl, "train tp 2 (26b)": pair,
-            **entry}
+    return {"train tp nccl world 1 (26a)": nccl, **pair, **entry}
 
 
 def main() -> int:

@@ -216,7 +216,10 @@ def test_eviction_signal_saves_acks_and_keeps_training(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--sp", "2"], "ROADMAP A8"),
+    # --sp is ported (A8c): the case now pins JAX's error for a process
+    # count it does not divide.
+    pytest.param(["--sp", "2"], "1 devices not divisible by sp*tp*ep*pp=2",
+                 id="argv0-ROADMAP A8"),
     # --tp is ported (A8b's second half): the case now pins JAX's error for
     # a process count it does not divide.
     pytest.param(["--tp", "2"], "1 devices not divisible by sp*tp*ep*pp=2",
@@ -225,7 +228,10 @@ def test_eviction_signal_saves_acks_and_keeps_training(tmp_path):
     (["--pp-microbatches", "4"], "ROADMAP A8"),
     (["--pp-schedule", "1f1b"], "ROADMAP A8"),
     (["--ep", "2"], "ROADMAP A8"),
-    (["--ring-impl", "flash"], "ROADMAP A8"),
+    # --ring-impl is ported (A8c): the case now pins JAX's usage error
+    # without --sp.
+    pytest.param(["--ring-impl", "flash"], "--ring-impl requires --sp > 1",
+                 id="argv6-ROADMAP A8"),
     # The MoE flags are ported (A9b): these three cases now pin that
     # each runs (item None); JAX's --ep checks keep their usage errors.
     pytest.param(["--moe-every-n", "2"], None, id="argv7-ROADMAP A9"),

@@ -406,6 +406,44 @@ def test_mesh_groups_span_the_world_or_refuse_part_of_it():
         assert got["dp"] == row and got["sum"] == float(sum(row))
 
 
+def _gloo_threads() -> int:
+    """This process's gloo threads (a group's work loops and transport
+    loops), by their names under /proc."""
+    n = 0
+    for task in os.listdir("/proc/self/task"):
+        try:
+            with open(f"/proc/self/task/{task}/comm") as f:
+                n += f.read().strip() in ("pt_gloo_runloop", "gloo_tcp_loop")
+        except OSError:
+            pass
+    return n
+
+
+def test_shutdown_ends_gloo_threads_a_serving_channel_held():
+    """``distributed.shutdown`` ends every gloo thread of the world, though
+    a serving channel cached its groups: they end while the interpreter is
+    whole, not in its teardown (``BOOT``'s ranks then exit as they are)."""
+    import torch.distributed as dist
+
+    from tf_operator_tpu_torch.serve.tp import (
+        channel_for,
+        world_comm,
+        world_mesh,
+    )
+    from tf_operator_tpu_torch.train import distributed
+
+    before = _gloo_threads()
+    dist.init_process_group("gloo", store=dist.HashStore(), world_size=1,
+                            rank=0)
+    try:
+        channel_for(world_comm(world_mesh(1, 1, "cpu")))
+        assert _gloo_threads() > before
+    finally:
+        distributed.shutdown()
+    assert not dist.is_initialized()
+    assert _gloo_threads() == before
+
+
 def _randomized(tree, rng):
     import jax
 

@@ -221,11 +221,11 @@ def test_eval_runs_the_flash_forward_only(monkeypatch):
 
 def test_unported_options_raise():
     _, model, state, _ = _setup()
-    # A data-parallel mesh is ported (A8a); sequence parallelism waits
-    # for A8c.
-    with pytest.raises(NotImplementedError, match="A8c"):
+    # A data-parallel mesh is ported (A8a) and so is sequence parallelism
+    # (A8c); pipelines wait for A8d.
+    with pytest.raises(NotImplementedError, match="A8d"):
         steps.make_lm_eval_step(model, mesh=port_mesh.create_mesh(
-            {"dp": 1, "sp": 2}, range(2)))
+            {"dp": 1, "pp": 2}, range(2)))
     assert steps.make_lm_eval_step(model, mesh=port_mesh.create_mesh(
         {"dp": 1}, range(1))).shard_count == 1
     decode = Transformer(replace(model.cfg, decode=True), device="cpu")

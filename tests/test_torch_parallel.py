@@ -152,10 +152,12 @@ def test_members_are_jax_shard_order():
                                        ("ep", "A8e"), ("pp", "A8d")])
 def test_model_parallel_meshes_name_their_item(axis, item):
     m = mesh.create_mesh({"dp": 2, axis: 2}, range(4))
-    if axis == "tp":
-        # Ported (A8b's second half): a dp x tp mesh trains the Megatron
-        # layout and steps the classifiers, replicated over tp
-        # (tests/test_torch_tp_train.py runs it).
+    if axis in ("tp", "sp"):
+        # Ported (A8b's second half, A8c): a dp x tp mesh trains the
+        # Megatron layout, a dp x sp mesh the sequence-parallel model, and
+        # either steps the classifiers, replicated over its axis
+        # (tests/test_torch_tp_train.py and tests/test_torch_sp.py run
+        # them).
         assert TransformerConfig(mesh=m).mesh is m
         model = torch.nn.Linear(2, 2)
         assert steps.make_classifier_train_step(

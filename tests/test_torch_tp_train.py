@@ -29,7 +29,13 @@ ranks and one of 4 run every cell (``world_results``).
   whole and partly used); 3 heads (the attention whole); ``grad_accum``
   2; one MoE block with the aux loss; ``remat``; LAMB against optax's.
   Every rank reports the same losses and gathered tree.
-- Adafactor over tp 2 raises, naming ROADMAP A8f.
+- Adafactor over tp (``ADAFACTOR_CELLS``): 3 steps at tp 2 and at dp 2 x
+  tp 2 against optax's through JAX's ``steps.adafactor`` on the same
+  mesh, by the step cells' rules, on a model whose leaves factor (d 128,
+  d_ff 192, vocab 256): ``mlp/in_proj`` ``[128, 192]`` is factored whole
+  while its ``[128, 96]`` shard would not be, and the head, embedding and
+  MLP leaves split on their largest axis. A checkpoint of it saved at
+  tp 2 restores bitwise at tp 2 and at tp 1, factored moments included.
 - Eval under dp 2 x tp 2 with a ragged tail against JAX's
   ``evaluate_lm`` on the same mesh: tokens exact, the loss within
   ``LOSS_TOL``.
@@ -92,6 +98,13 @@ CELLS = {
     "lamb": (TP2, {}, SEQ // 2, 1, 0.0, "lamb"),
     "dp2tp2": (DP2TP2, {}, SEQ // 2, 1, 0.0, "adamw"),
 }
+# Adafactor's cells: leaves that factor on their whole shape.
+FACTOR_KW = {"d_model": 128, "d_ff": 192, "vocab_size": 256}
+ADAFACTOR_CELLS = {
+    "adafactor": (TP2, FACTOR_KW, SEQ // 2, 1, 0.0, "adafactor"),
+    "adafactor_dp2tp2": (DP2TP2, FACTOR_KW, SEQ // 2, 1, 0.0, "adafactor"),
+}
+CELLS.update(ADAFACTOR_CELLS)
 
 
 def _tree(params) -> dict:
@@ -117,12 +130,12 @@ def seeded_tree(cfg_kw: dict, seed: int) -> dict:
     return _tree(flat)
 
 
-def lm_batches(n, seed):
+def lm_batches(n, seed, vocab=VOCAB):
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(n):
-        chain = (rng.integers(0, VOCAB, (BATCH, 1))
-                 + np.arange(SEQ + 1)) % VOCAB
+        chain = (rng.integers(0, vocab, (BATCH, 1))
+                 + np.arange(SEQ + 1)) % vocab
         out.append({"tokens": chain[:, :-1].astype(np.int32),
                     "targets": chain[:, 1:].astype(np.int32)})
     return out
@@ -174,7 +187,7 @@ def _build(mesh, cfg_kw, params, tx_name):
     cfg = TransformerConfig(dtype=torch.float32, mesh=mesh, **cfg_kw)
     model = load_params(Transformer(cfg, device="cpu"), shard_params_by_rules(
         mesh, params, param_sharding_rules()))
-    tx = steps.lamb(LR) if tx_name == "lamb" else steps.adamw(LR)
+    tx = getattr(steps, tx_name)(LR)
     return model, tx, steps.TrainState.create(model, tx)
 
 
@@ -294,6 +307,69 @@ def ckpt_rank(rank, world, p):
             "step": fresh_state.step}
 
 
+def adafactor_ckpt_rank(rank, world, p):
+    """``ckpt_rank`` for Adafactor at tp 2: the whole state (weights,
+    factored and full moments, steps) as a checkpoint snapshot gathers it,
+    of the trained state and of fresh tp 2 models restored from its
+    save."""
+    import torch.distributed as dist
+
+    from tf_operator_tpu_torch.parallel.mesh import create_mesh
+    from tf_operator_tpu_torch.train import steps
+    from tf_operator_tpu_torch.train.checkpoint import (
+        CheckpointManager,
+        _snapshot,
+    )
+
+    kw = dict(LM_KW, **FACTOR_KW)
+    mesh = create_mesh(TP2, device="cpu")
+    model, tx, state = _build(mesh, kw, p["params"], "adafactor")
+    step = steps.make_lm_train_step(model, tx, xent_chunk=SEQ // 2,
+                                    mesh=mesh)
+    for batch in p["batches"]:
+        state, _ = step(state, batch)
+    with CheckpointManager(p["dir"]) as ck:
+        saved = ck.save(state.step - 1, state)
+        ck.wait()
+    dist.barrier()
+    _, _, fresh_state = _build(mesh, kw, p["other"], "adafactor")
+    with CheckpointManager(p["dir"]) as ck:
+        ck.restore(None, fresh_state)
+    return {"saved": saved, "state": _snapshot_flat(_snapshot(state)),
+            "restored": _snapshot_flat(_snapshot(fresh_state))}
+
+
+def _snapshot_flat(snap: dict) -> dict:
+    """A checkpoint snapshot as {(kind, key...): numpy array}."""
+    out = {("params",) + k: v.numpy() for k, v in _flat_t(snap["params"])}
+    for key, tree in snap["opt"].items():
+        out.update({(key,) + k: v.numpy() for k, v in _flat_t(tree)})
+    out[("step",)] = snap["step"].numpy()
+    return out
+
+
+def _restore_adafactor_tp1(directory: str) -> dict:
+    """The Adafactor tp 2 checkpoint restored at tp 1 on one process."""
+    from tf_operator_tpu_torch.models.convert import load_params
+    from tf_operator_tpu_torch.models.transformer import (
+        Transformer,
+        TransformerConfig,
+    )
+    from tf_operator_tpu_torch.train import steps
+    from tf_operator_tpu_torch.train.checkpoint import (
+        CheckpointManager,
+        _snapshot,
+    )
+
+    kw = dict(LM_KW, **FACTOR_KW)
+    model = load_params(Transformer(TransformerConfig(
+        dtype=torch.float32, **kw), device="cpu"), seeded_tree(kw, 25))
+    state = steps.TrainState.create(model, steps.adafactor(LR))
+    with CheckpointManager(directory) as ck:
+        ck.restore(None, state)
+    return _snapshot_flat(_snapshot(state))
+
+
 def _state_whole(state, mesh) -> dict:
     """Weights and AdamW moments by (kind,) + flax path, gathered whole."""
     model, opt = state.model, state.optimizer
@@ -336,8 +412,7 @@ def _jax_cell(name, params, batches):
     model = JaxTransformer(JaxConfig(dtype=jnp.float32, mesh=mesh,
                                      **dict(LM_KW, **cfg_kw)))
     placed = shard_params_by_rules(mesh, params, param_sharding_rules())
-    tx = (jax_steps.lamb(LR) if tx_name == "lamb"
-          else jax_steps.adamw(LR))
+    tx = getattr(jax_steps, tx_name)(LR)
 
     def loss(p, tokens, targets):
         kw = dict(return_hidden=xc is not None)
@@ -435,7 +510,7 @@ def world_results(world: int) -> tuple[dict, list]:
             continue
         kw = dict(LM_KW, **cfg_kw)
         params = seeded_tree(kw, len(cases))
-        batches = lm_batches(3, seed=len(cases))
+        batches = lm_batches(3, seed=len(cases), vocab=kw["vocab_size"])
         cases.append((name, "step_rank", {
             "axes": axes, "cfg": kw, "params": params, "batches": batches,
             "xent_chunk": xc, "grad_accum": accum, "aux": aux, "tx": tx}))
@@ -449,6 +524,11 @@ def world_results(world: int) -> tuple[dict, list]:
             "params": seeded_tree(LM_KW, 20), "other": seeded_tree(LM_KW,
                                                                     21),
             "batches": lm_batches(3, seed=20), "dir": tmp}))
+        kw = dict(LM_KW, **FACTOR_KW)
+        cases.append(("ckpt_adafactor", "adafactor_ckpt_rank", {
+            "params": seeded_tree(kw, 23), "other": seeded_tree(kw, 24),
+            "batches": lm_batches(3, seed=23, vocab=kw["vocab_size"]),
+            "dir": os.path.join(tmp, "adafactor")}))
     if world == 4:
         cases.append(("groups", "groups_rank", None))
         rng = np.random.default_rng(6)
@@ -471,6 +551,8 @@ def world_results(world: int) -> tuple[dict, list]:
         results = ranks.result()
     if world == 2:
         want["ckpt_tp1"] = _restore_tp1(tmp)
+        want["ckpt_adafactor_tp1"] = _restore_adafactor_tp1(
+            os.path.join(tmp, "adafactor"))
     import shutil
 
     shutil.rmtree(tmp, ignore_errors=True)
@@ -671,6 +753,9 @@ def test_checkpoint_saved_at_tp2_restores_bitwise_at_tp2_and_tp1():
 
 
 def test_adafactor_over_tp_names_its_item():
+    """Adafactor over tp is ported (A8f): a tp 2 step is built, and its
+    optimiser factors each split leaf on its whole shape (the cells below
+    hold its numbers)."""
     from tf_operator_tpu_torch.models.transformer import (
         Transformer,
         TransformerConfig,
@@ -679,13 +764,41 @@ def test_adafactor_over_tp_names_its_item():
     from tf_operator_tpu_torch.train import steps
 
     mesh = create_mesh(TP2, range(2), device="cpu")
-    model = Transformer(TransformerConfig(dtype=torch.float32, mesh=mesh,
-                                          **LM_KW), device="cpu")
+    model = Transformer(TransformerConfig(
+        dtype=torch.float32, mesh=mesh, **dict(LM_KW, **FACTOR_KW)),
+        device="cpu")
     tx = steps.adafactor(1e-3)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A8f"):
-        steps.make_lm_train_step(model, tx, mesh=mesh)
+    assert callable(steps.make_lm_train_step(model, tx, mesh=mesh))
+    opt = steps.TrainState.create(model, tx).optimizer
+    assert isinstance(opt, steps.AdafactorOptimizer)
+    mlp_in = model.blocks[0].mlp.in_proj.kernel
+    assert tuple(mlp_in.shape) == (128, 96)  # the shard would not factor
+    assert opt.split[id(mlp_in)] == ((128, 192), 1)
     with pytest.raises(ValueError, match="its own mesh"):
         steps.make_lm_train_step(model, steps.adamw(LR))
+
+
+def test_dp2_tp2_adafactor_matches_optax():
+    _check_step(4, "adafactor_dp2tp2")
+
+
+def test_adafactor_checkpoint_at_tp2_restores_bitwise_at_tp2_and_tp1():
+    want, results = world_results(2)
+    got = [r["ckpt_adafactor"] for r in results]
+    assert [r["saved"] for r in got] == [True, False]  # rank 0 writes
+    state = got[0]["state"]
+    assert any(k[0] == "v_row" for k in state)  # factored moments
+    assert state[("v_row", "block_0", "mlp", "in_proj", "kernel")].shape \
+        == (128,)
+    assert state[("v_col", "block_0", "mlp", "in_proj", "kernel")].shape \
+        == (192,)
+    tp1 = want["ckpt_adafactor_tp1"]
+    for r in got:
+        assert r["state"].keys() == state.keys() == tp1.keys()
+        for key, leaf in state.items():
+            assert np.array_equal(r["state"][key], leaf), key
+            assert np.array_equal(r["restored"][key], leaf), key
+            assert np.array_equal(tp1[key], leaf), key
 
 
 # -- dist_lm --tp ------------------------------------------------------------

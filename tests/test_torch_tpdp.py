@@ -466,8 +466,11 @@ def test_peek_moves_no_counter_or_lru():
 
 
 @pytest.mark.parametrize("axis,item", [
-    ("dcn", "A8g"), ("fsdp", "A8e"), ("sp", "A8c"), ("ep", "A8e"),
-    ("pp", "A8d")])
+    # Sequence parallelism is ported for training (A8c); a decode mesh
+    # over sp keeps its refusal under its own item, A8h.
+    ("dcn", "A8g"), ("fsdp", "A8e"), pytest.param("sp", "A8h",
+                                                   id="sp-A8c"),
+    ("ep", "A8e"), ("pp", "A8d")])
 def test_decode_mesh_takes_dp_and_refuses_the_rest(axis, item):
     from tf_operator_tpu_torch.models.transformer import TransformerConfig
     from tf_operator_tpu_torch.parallel import mesh as port_mesh

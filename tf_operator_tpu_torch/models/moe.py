@@ -15,7 +15,14 @@ as JAX's are over its sharded one: each rank's means are summed over the
 data group (``frac_probs`` through an all-reduce that autograd sees) and
 divided by its size before the product. Capacity and dispatch stay per
 routing group, and a group never straddles two examples, so they stay on
-the rank.
+the rank. In a sequence-parallel model (``seq_parallel``: the ``sp``
+ranks each hold a block of every sequence) the group is JAX's for the
+whole sequence, the largest divisor <= 512 of it. A group that lies
+inside one rank's block routes there; when a group would straddle two
+ranks' blocks, every rank of the ``sp`` group gathers the whole sequence
+(its gradient summed over ``sp`` and cut back to the rank's block),
+routes and computes it as JAX does, and keeps its block of the output. The data group the train step attaches then spans the
+sequence axis too, so the fractions are means over every token.
 
 JAX routes with one-hot ``dispatch``/``combine`` tensors ``[G, S, E,
 C]`` and einsums. ``top_k_dispatch`` builds those tensors, bitwise
@@ -171,6 +178,9 @@ class MoeMlp(nn.Module):
 
     # Set by parallel/sharding.py::attach; None: the local batch.
     data_parallel = None
+    # A sequence-parallel model's sp axis (a TensorParallel of "sp"), set
+    # by the Block; None: the sequence is whole on the rank.
+    seq_parallel = None
 
     def __init__(self, cfg: MoeConfig, store: _Store | None = None, *,
                  device=None):
@@ -188,8 +198,9 @@ class MoeMlp(nn.Module):
         return max(1, int(math.ceil(
             cfg.capacity_factor * cfg.router_top_k * group / cfg.n_experts)))
 
-    def route(self, x: torch.Tensor):
-        """The router's decisions for ``x [b, t, d]`` -> (top_idx, gates,
+    def route(self, x: torch.Tensor, group: int | None = None):
+        """The router's decisions for ``x [b, t, d]`` in groups of
+        ``group`` tokens (default ``_group_size``'s) -> (top_idx, gates,
         probs, capacity), ``[G, S, k]``, ``[G, S, k]`` f32, ``[G, S, E]``
         f32, int. The router's product and softmax run in f32 (on the card
         TF32 must be off for it: a TF32 product flips routes); ties break
@@ -197,7 +208,7 @@ class MoeMlp(nn.Module):
         descending sort."""
         cfg = self.cfg
         b, t, d = x.shape
-        group = _group_size(cfg, t)
+        group = group or _group_size(cfg, t)
         tokens = x.reshape(b * t // group, group, d)
         probs = torch.softmax(tokens.float() @ self.router.float(), dim=-1)
         order = torch.sort(probs, dim=-1, descending=True, stable=True)[1]
@@ -210,10 +221,24 @@ class MoeMlp(nn.Module):
         return top_idx, gates, probs, self.capacity(group)
 
     def forward(self, x: torch.Tensor):
+        sp = self.seq_parallel
+        if sp is None:
+            return self._forward(x, None)
+        t = x.shape[1]
+        group = _group_size(self.cfg, t * sp.size)
+        if t % group == 0:
+            return self._forward(x, group)
+        # The whole sequence on every rank; its gradient, which each
+        # rank holds for every position, summed over sp (copy) and cut to
+        # this rank's block (gather).
+        y, aux = self._forward(sp.copy(sp.gather(x, 1)), group)
+        return y.narrow(1, sp.index * t, t), aux
+
+    def _forward(self, x: torch.Tensor, group: int | None):
         cfg = self.cfg
         b, t, d = x.shape
         dt = cfg.dtype
-        top_idx, gates, probs, cap = self.route(x)
+        top_idx, gates, probs, cap = self.route(x, group)
         n_groups, group, k = top_idx.shape
         slot, keep, first = _positions(top_idx, cfg.n_experts, cap)
         frac_tokens, frac_probs = first.mean((0, 1)), probs.mean((0, 1))

@@ -24,8 +24,18 @@ scales, from ``models/convert.py::quantize_decode_params``) and
 ``models/moe.py``'s experts, in both modes; its weights stay unquantized
 under ``int8_decode``. ``mesh`` takes a data-parallel mesh
 (``parallel/mesh.py``), which changes nothing in the model: the train
-step averages over it. A mesh that shards the sequence, the experts or
-the layers raises, naming ROADMAP.md A8c, A8e or A8d.
+step averages over it. A mesh that shards the experts or the layers
+raises, naming ROADMAP.md A8e or A8d.
+
+A training model over a mesh whose ``sp`` axis is above 1 is this rank's
+part of a sequence-parallel model (``seq_parallel``): ``forward`` takes
+this rank's block of each sequence, ``[b, T / sp]`` tokens at global
+positions ``sp_index * T / sp`` onwards, and attention runs over the
+``sp`` ring by ``ring_impl`` (``parallel/ring_attention.py``,
+``parallel/ulysses.py``), on this rank's heads under tp. An MoE block
+routes in JAX's groups of the whole sequence (``models/moe.py``). A
+decode mesh over ``sp`` raises (ROADMAP.md A8h: JAX's server builds
+none).
 
 A model over a mesh with a ``tp`` axis, in either mode, is this rank's
 part of a tensor-parallel model (``param_sharding_rules``, JAX's
@@ -151,9 +161,20 @@ class TransformerConfig:
     moe_experts: int = 8
     moe_capacity_factor: float = 1.25
     moe_top_k: int = 1  # 1 = Switch, 2 = GShard top-2
-    # A mesh (parallel/mesh.py) of data axes and tp in training, of tp in
-    # decode mode; sp, ep and pp wait for ROADMAP.md A8c-A8e.
+    # A mesh (parallel/mesh.py) of data axes, sp and tp in training, of tp
+    # and dp in decode mode; ep and pp wait for ROADMAP.md A8e and A8d.
     mesh: Any = None
+    # Sequence parallelism (training over a mesh whose seq_axis is above
+    # 1): each rank runs its block of T / sp positions and attention is
+    # "stream" (parallel/ring_attention.py's ring_attention, which takes
+    # ring_kv_chunk), "flash" (ring_flash_attention, the kernels B1-B3 on
+    # the card), "ulysses" (parallel/ulysses.py) or "auto": on the card
+    # flash unless ring_kv_chunk is set (a block the kernels do not take
+    # then raises, as ops.attention does; there is no quiet fallback to
+    # the plain stream ring), stream on the CPU and with ring_kv_chunk.
+    seq_axis: str = "sp"
+    ring_kv_chunk: int | None = None
+    ring_impl: str = "auto"
 
     # The fields that fix the params tree's shapes; the MoE ones only when
     # MoE is on.
@@ -176,7 +197,8 @@ class TransformerConfig:
                 check_decode_mesh,
             )
 
-            if self.decode and "tp" in self.mesh.axis_names:
+            if self.decode and ("tp" in self.mesh.axis_names
+                                or self.use_ring):
                 tp, _ = check_decode_mesh(self.mesh,
                                           "TransformerConfig.mesh")
                 if self.n_heads % tp:
@@ -190,6 +212,16 @@ class TransformerConfig:
                         f"tp={tp} — use kv_attend='gather' for this mesh")
             else:
                 check_data_parallel(self.mesh, "TransformerConfig.mesh")
+        if self.use_ring:
+            if self.ring_impl not in ("auto", "stream", "flash", "ulysses"):
+                raise ValueError(
+                    f"ring_impl={self.ring_impl!r}: expected 'auto', "
+                    f"'stream', 'flash', or 'ulysses'")
+            if (self.ring_impl in ("flash", "ulysses")
+                    and self.ring_kv_chunk is not None):
+                raise ValueError(
+                    f"ring_impl={self.ring_impl!r} ignores ring_kv_chunk; "
+                    "use ring_impl='stream' (or 'auto') with ring_kv_chunk")
         if self.n_kv_heads is not None and (
             self.n_kv_heads <= 0 or self.n_heads % self.n_kv_heads
         ):
@@ -233,6 +265,22 @@ class TransformerConfig:
     @property
     def kv_heads(self) -> int:
         return self.n_kv_heads or self.n_heads
+
+    @property
+    def use_ring(self) -> bool:
+        return (self.mesh is not None
+                and self.mesh.shape.get(self.seq_axis, 1) > 1)
+
+
+def seq_parallel(cfg: TransformerConfig):
+    """The ``TensorParallel`` of the config's sequence axis (this rank's
+    index on it, its size and its group) when the model trains
+    sequence-parallel, else None."""
+    if not cfg.use_ring or cfg.decode:
+        return None
+    from tf_operator_tpu_torch.parallel.sharding import TensorParallel
+
+    return TensorParallel(cfg.mesh, cfg.seq_axis)
 
 
 @dataclass(frozen=True)
@@ -325,11 +373,12 @@ class _Store:
     in the compute ``dtype`` with no gradient (``decode``)."""
 
     def __init__(self, dtype: torch.dtype, decode: bool, device,
-                 plan: "TpPlan | None" = None):
+                 plan: "TpPlan | None" = None, sp=None):
         self.dtype = dtype if decode else torch.float32
         self.trainable = not decode
         self.device = device
         self.plan = plan
+        self.sp = sp
 
     def param(self, shape, dtype=None) -> nn.Parameter:
         dtype = dtype or self.dtype
@@ -499,6 +548,7 @@ class Attention(nn.Module):
         self.cfg = cfg
         d, h, dh, kv = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.kv_heads
         plan = self.plan = store.plan
+        self.sp = store.sp
         # Under tp: which query and K/V heads this rank attends over (the
         # slices taken after whole int8 projections), and, when KV does
         # not tile, the KV head each of its query heads reads. Query
@@ -588,15 +638,39 @@ class Attention(nn.Module):
         axis: each KV head serves its g query heads in a row), so the
         kernels see the MHA layout; the saving is the smaller projection.
         A tensor-parallel rank whose KV heads are whole reads the one each
-        of its query heads groups to."""
+        of its query heads groups to. Sequence-parallel, ``q``, ``k`` and
+        ``v`` are this rank's block of the sequence and its heads, and
+        ``ring_impl`` picks the strategy (JAX's dispatch)."""
         if self.kv_map is not None:
-            return attention(q, self._heads(k, 2), self._heads(v, 2),
-                             causal=True)
-        g = q.shape[2] // k.shape[2]
-        if g > 1:
-            k = k.repeat_interleave(g, dim=2)
-            v = v.repeat_interleave(g, dim=2)
-        return attention(q, k, v, causal=True)
+            k, v = self._heads(k, 2), self._heads(v, 2)
+        else:
+            g = q.shape[2] // k.shape[2]
+            if g > 1:
+                k = k.repeat_interleave(g, dim=2)
+                v = v.repeat_interleave(g, dim=2)
+        if self.sp is None:
+            return attention(q, k, v, causal=True)
+        from tf_operator_tpu_torch.parallel.ring_attention import (
+            ring_attention,
+            ring_flash_attention,
+        )
+
+        cfg = self.cfg
+        if cfg.ring_impl == "ulysses":
+            from tf_operator_tpu_torch.parallel.ulysses import (
+                ulysses_attention,
+            )
+
+            return ulysses_attention(q, k, v, self.sp, causal=True)
+        # "auto" is flash on the card, as JAX's is on the TPU; a block the
+        # kernels do not take raises there (flash_fwd) rather than running
+        # the plain stream ring.
+        if cfg.ring_impl == "flash" or (
+                cfg.ring_impl == "auto" and cfg.ring_kv_chunk is None
+                and q.is_cuda):
+            return ring_flash_attention(q, k, v, self.sp, causal=True)
+        return ring_attention(q, k, v, self.sp, causal=True,
+                              kv_chunk=cfg.ring_kv_chunk)
 
     def _decode_attend(self, q, k, v, layer: dict, idx):
         """Block attention against the dense cache (t >= 1 tokens; a
@@ -814,6 +888,7 @@ class Block(nn.Module):
                 n_experts=cfg.moe_experts, d_model=cfg.d_model,
                 d_ff=cfg.d_ff, capacity_factor=cfg.moe_capacity_factor,
                 router_top_k=cfg.moe_top_k, dtype=cfg.dtype), store)
+            self.moe.seq_parallel = store.sp
         else:
             self.mlp = MLP(cfg, store)
 
@@ -840,7 +915,9 @@ class Transformer(nn.Module):
         self.cfg = cfg
         self.device = resolve_device(device)
         plan = self.tp_plan = tp_plan(cfg)
-        store = _Store(cfg.dtype, cfg.decode, self.device, plan)
+        self.seq_parallel = seq_parallel(cfg)
+        store = _Store(cfg.dtype, cfg.decode, self.device, plan,
+                       self.seq_parallel)
         dt = cfg.dtype
         if plan is not None and plan.split and plan.vocab is not None:
             self.embed = VocabEmbed(plan.vocab[1], cfg.d_model, dt, store,
@@ -973,10 +1050,14 @@ class Transformer(nn.Module):
         from tf_operator_tpu_torch.models.moe import aux_loss_from
 
         t = tokens.shape[1]
-        if t > self.cfg.max_seq_len:
-            raise ValueError(f"{t} tokens exceed max_seq_len "
+        # Sequence-parallel, ``tokens`` is this rank's block of a sequence
+        # of t * sp positions, from position sp_index * t.
+        sp = self.seq_parallel
+        start, total = (0, t) if sp is None else (sp.index * t, sp.size * t)
+        if total > self.cfg.max_seq_len:
+            raise ValueError(f"{total} tokens exceed max_seq_len "
                              f"{self.cfg.max_seq_len}")
-        positions = torch.arange(t, device=tokens.device)[None, :]
+        positions = start + torch.arange(t, device=tokens.device)[None, :]
         x = self.embed(tokens) + self.pos(positions)
         auxes = []
         for block in self.blocks:

@@ -1,2 +1,4 @@
-"""Meshes over processes and data-parallel placement: the port's
-counterpart of ``tf_operator_tpu/parallel/`` (its data-parallel half)."""
+"""Meshes over processes and their placement: the port's counterpart of
+``tf_operator_tpu/parallel/`` (``mesh``, ``sharding``: data and tensor
+parallelism; ``ring_attention`` and ``ulysses``: sequence parallelism).
+JAX's ``pipeline`` waits for ROADMAP A8d and FSDP for A8e."""

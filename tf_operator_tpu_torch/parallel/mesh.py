@@ -23,8 +23,10 @@ rank in one fixed order (``dist.new_group`` is collective over the
 world), and caches them on the mesh. A multislice job needs none: each
 slice is a world of its own (``train/dist_multislice.py``).
 
-Training takes a mesh of data axes and ``tp`` (``check_data_parallel``);
-decode takes ``tp`` and ``dp`` (``check_decode_mesh``).
+Training takes a mesh of data axes, ``sp`` (the sequence split of
+``parallel/ring_attention.py`` and ``parallel/ulysses.py``) and ``tp``
+(``check_data_parallel``); decode takes ``tp`` and ``dp``
+(``check_decode_mesh``).
 
 ``slice_mesh`` checks the world against a TPU slice's device count, from
 this module's copy of ``tf_operator_tpu/topology/slices.py``'s
@@ -290,18 +292,17 @@ def host_local_batch_size(global_batch: int, mesh: Mesh,
 
 
 # The axes a training mesh keeps at 1, and the ROADMAP items that port
-# them. Training takes the data axes and ``tp`` (the Megatron layout of
-# models/transformer.py).
-UNPORTED_AXES = {"sp": "A8c (sequence parallel)",
-                 "ep": "A8e (expert parallel)",
+# them. Training takes the data axes, ``sp`` (ring attention or Ulysses)
+# and ``tp`` (the Megatron layout of models/transformer.py).
+UNPORTED_AXES = {"ep": "A8e (expert parallel)",
                  "pp": "A8d (pipelines)"}
 
 
 def check_data_parallel(mesh: Mesh, what: str) -> None:
-    """Raise unless ``mesh`` is a port ``Mesh`` whose sequence, expert
-    and pipeline axes are 1: ``NotImplementedError`` naming the ROADMAP
-    item of the first axis above 1. The data axes and ``tp`` may take
-    any size."""
+    """Raise unless ``mesh`` is a port ``Mesh`` whose expert and pipeline
+    axes are 1: ``NotImplementedError`` naming the ROADMAP item of the
+    first axis above 1. The data axes, ``sp`` and ``tp`` may take any
+    size."""
     if not isinstance(mesh, Mesh):
         raise TypeError(f"{what}: expected a parallel.mesh.Mesh, got "
                         f"{type(mesh).__name__}")
@@ -313,10 +314,11 @@ def check_data_parallel(mesh: Mesh, what: str) -> None:
                 f"ROADMAP.md {item}")
 
 
-# The axes a decode mesh keeps at 1, and the ROADMAP items that port them.
+# The axes a decode mesh keeps at 1, and the ROADMAP items that name them.
 # A decode mesh takes ``tp`` (heads) and ``dp`` (slot slices and pool
-# tiles, serve/sharding.py).
-UNPORTED_DECODE_AXES = dict(UNPORTED_AXES, fsdp="A8e (FSDP)",
+# tiles, serve/sharding.py); JAX's server builds no mesh over ``sp``.
+UNPORTED_DECODE_AXES = dict(sp="A8h (a decode mesh over sp)",
+                            **UNPORTED_AXES, fsdp="A8e (FSDP)",
                             dcn="A8g (serving across slices)")
 
 

@@ -9,6 +9,9 @@ rank's own rows, and a replicated tree is one copy a rank:
   global batch is the ranks' rows concatenated in the data axes' order
   (``Mesh.members``), JAX's ``make_array_from_process_local_data``
   contract of one host batch a process.
+- ``token_block(mesh, batch)`` cuts this rank's block of a GLOBAL token
+  batch, rows by the data axes and columns by ``sp``, and places it: what
+  JAX's ``P(dp, sp)`` gives each device of a sequence-parallel step.
 - ``replicate(mesh, tree)`` broadcasts every tensor of a tree, a module
   or a ``TrainState`` over the mesh's axes but ``tp`` from the first rank
   of this rank's group, so that every rank starts from the same state
@@ -44,7 +47,9 @@ its shard; here rank r keeps its slice of each leaf.
   ``gather``: an all-gather forward and the rank's slice backward).
   Under gloo a tensor on the card is staged through the host, in the
   open: the module's ``staged_bytes`` counts what went that way in this
-  process.
+  process, the tensor axis' collectives and the ``sp`` axis' ring and
+  all-to-all transport (``TensorParallel.exchange``, over a
+  ``TensorParallel`` of ``"sp"``) alike.
 
 The FSDP and ZeRO placements (``fsdp_sharding_tree``,
 ``shard_params_fsdp``, ``weight_update_shardings``) wait for ROADMAP
@@ -180,6 +185,28 @@ def shard_batch(mesh: Mesh, batch: Any, axis: Any = "dp") -> Any:
         return torch.as_tensor(x).to(device)
 
     return place(batch)
+
+
+def token_block(mesh: Mesh, batch: dict, data_axis: Any = "dp",
+                seq_axis: str = "sp") -> dict:
+    """This rank's block of a GLOBAL batch of ``[B, T]`` arrays (tokens,
+    targets, a mask): rows ``B / dp`` at its index on the data axes,
+    columns ``T / sp`` at its index on ``seq_axis``, placed on the mesh's
+    device. Raises ``ValueError`` when the axes do not divide the
+    batch."""
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    rows = mesh.members(_axes(data_axis), rank)
+    cols = mesh.members((seq_axis,), rank)
+    b, t = np.shape(next(iter(batch.values())))[:2]
+    if b % len(rows):
+        raise ValueError(f"batch {b} not divisible by {data_axis}="
+                         f"{len(rows)}")
+    if t % len(cols):
+        raise ValueError(f"seq {t} not divisible by {seq_axis}={len(cols)}")
+    r, c = b // len(rows), t // len(cols)
+    i, j = rows.index(rank), cols.index(rank)
+    return shard_batch(mesh, {k: v[i * r:(i + 1) * r, j * c:(j + 1) * c]
+                              for k, v in batch.items()})
 
 
 def _tensors(tree: Any) -> list[torch.Tensor]:
@@ -351,8 +378,8 @@ def gather_params_by_rules(mesh: Mesh, params: Any, rules: dict[str, tuple],
 
 # -- the tensor axis ------------------------------------------------------------
 
-# Bytes this process's tensor-parallel collectives staged through the host
-# (gloo over tensors on the card); set it to 0 to reset.
+# Bytes this process's tensor- and sequence-parallel collectives staged
+# through the host (gloo over tensors on the card); set it to 0 to reset.
 staged_bytes = 0
 
 
@@ -438,6 +465,27 @@ class TensorParallel:
             staged_bytes += t.numel() * t.element_size()
             return t.cpu()
         return t
+
+    def exchange(self, sends: dict[int, torch.Tensor],
+                 shapes: dict[int, tuple]) -> dict[int, torch.Tensor]:
+        """Point-to-point over the axis: ``sends[j]`` goes to the member at
+        index j and a tensor of ``shapes[j]`` (``sends``' dtype) arrives
+        from the member at index j; every receive is posted before any
+        send, and all are waited on. Returns ``{j: received}`` on each
+        tensor's device. The transport of the ``sp`` ring and all-to-all
+        (``parallel/ring_attention.py``, ``parallel/ulysses.py``)."""
+        some = next(iter(sends.values()))
+        wire = {j: self._on_wire(t.contiguous()) for j, t in sends.items()}
+        on = next(iter(wire.values())).device
+        got = {j: torch.empty(s, dtype=some.dtype, device=on)
+               for j, s in shapes.items()}
+        ops = [dist.P2POp(dist.irecv, got[j], self.members[j], self.group)
+               for j in got]
+        ops += [dist.P2POp(dist.isend, wire[j], self.members[j], self.group)
+                for j in wire]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return {j: t.to(some.device) for j, t in got.items()}
 
     def all_reduce_(self, t: torch.Tensor, op=None) -> torch.Tensor:
         """Sum ``t`` over the axis (or reduce it by ``op``), in place."""

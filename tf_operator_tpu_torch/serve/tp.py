@@ -59,6 +59,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from tf_operator_tpu_torch.train import distributed
+
 OPS = ("build", "open", "feed", "finish", "insert", "drop", "step",
        "report", "stop", "spec", "ship", "export")
 OP = {name: i for i, name in enumerate(OPS)}
@@ -156,6 +158,7 @@ class CommandChannel:
 
 
 _CHANNELS: dict[int, CommandChannel] = {}
+distributed.on_shutdown(_CHANNELS.clear)
 
 
 def world_comm(mesh):
@@ -352,8 +355,6 @@ class TpWorld:
         """Stop and reap every worker; their exit codes."""
         import subprocess
 
-        import torch.distributed as dist
-
         if self.closed:
             return [p.returncode for p in self.procs]
         self.closed = True
@@ -367,9 +368,7 @@ class TpWorld:
                 except subprocess.TimeoutExpired:
                     proc.kill()
                     codes.append(proc.wait())
-            if dist.is_initialized():
-                dist.destroy_process_group()
-            _CHANNELS.clear()
+            distributed.shutdown()
         return codes
 
 
@@ -509,7 +508,7 @@ def worker_main(argv: list[str] | None = None) -> int:
                                 **kwargs)
 
     code = TpWorker(tp, make_engine).run()
-    dist.destroy_process_group()
+    distributed.shutdown()
     return code
 
 

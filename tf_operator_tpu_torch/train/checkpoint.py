@@ -50,8 +50,10 @@ renaming the same step into place would race. A model split over a
 ``tp`` axis (``models/transformer.py``'s ``TpPlan``) is saved whole: the
 ranks of rank 0's tensor-parallel group learn from it whether the step
 is due (a broadcast over the group), then all-gather every split
-parameter and its AdamW moments over tp (``gather_leaf`` by
-``param_sharding_rules``), and rank 0 writes the whole tree. A restore
+parameter and its optimiser state over tp (``gather_leaf`` by
+``param_sharding_rules``: AdamW's and LAMB's moments as the parameter,
+Adafactor's factored ``v_row``/``v_col`` on the dims they keep,
+``steps.moment_split``), and rank 0 writes the whole tree. A restore
 reads the whole tree and cuts each rank's slices from it, so a
 checkpoint written at one tp restores at any other, as orbax places a
 restore into the target's shardings. Every rank reads and
@@ -145,18 +147,34 @@ class _TpLayout:
         return spec_by_rules(self.mesh, "/".join(path), self.shapes[path],
                              self.rules)
 
-    def whole(self, path: tuple, t: torch.Tensor) -> torch.Tensor:
-        """The whole leaf of this rank's shard ``t`` of ``path``."""
+    def state_spec(self, path: tuple, key: str, t: torch.Tensor
+                   ) -> tuple | None:
+        """The spec of optimiser state ``key`` of ``path`` whose whole
+        shape or this rank's part is ``t``'s: the leaf's for a tensor shaped
+        like it, an Adafactor factored moment's (``moment_split``), None
+        for any other (a step count)."""
+        from tf_operator_tpu_torch.train.steps import moment_split
+
+        whole = tuple(self.shapes[path])
+        if t.dim() == len(whole) and t.dim():
+            return self.spec(path)
+        return moment_split(key, whole, self.spec(path))
+
+    def whole(self, path: tuple, t: torch.Tensor, spec=None
+              ) -> torch.Tensor:
+        """The whole leaf of this rank's shard ``t`` of ``path`` (or of a
+        tensor split by ``spec``)."""
         from tf_operator_tpu_torch.parallel.sharding import gather_leaf
 
-        return gather_leaf(self.mesh, self.spec(path), t)
+        return gather_leaf(self.mesh, spec or self.spec(path), t)
 
-    def cut(self, path: tuple, t: torch.Tensor) -> torch.Tensor:
-        """This rank's shard of the whole leaf ``t`` of ``path``."""
+    def cut(self, path: tuple, t: torch.Tensor, spec=None) -> torch.Tensor:
+        """This rank's shard of the whole leaf ``t`` of ``path`` (or of a
+        tensor split by ``spec``)."""
         from tf_operator_tpu_torch.parallel.sharding import shard_slices
 
-        return t[shard_slices(self.mesh, self.spec(path), tuple(t.shape),
-                              self.tp.rank)].contiguous()
+        return t[shard_slices(self.mesh, spec or self.spec(path),
+                              tuple(t.shape), self.tp.rank)].contiguous()
 
 
 def _tp_layout(model) -> _TpLayout | None:
@@ -178,9 +196,9 @@ def _snapshot(state) -> dict:
     params, stats = leaves["params"], leaves["batch_stats"]
     layout = _tp_layout(model)
 
-    def host(t, path=None):
+    def host(t, path=None, spec=None):
         if layout is not None and path is not None:
-            t = layout.whole(path, t.detach())
+            t = layout.whole(path, t.detach(), spec)
         # Into flax's layout on the device (a copy only for conv kernels),
         # so the host copy is contiguous.
         return _host(to_flax(t).contiguous() if t.dim() == 4 else t)
@@ -192,9 +210,11 @@ def _snapshot(state) -> dict:
         _tree_set(out["params"], path, host(p, path))
         for key, val in (opt.state.get(p) or {}).items():
             if isinstance(val, torch.Tensor):
-                whole = path if val.shape == p.shape else None
+                spec = (layout.state_spec(path, key, val)
+                        if layout is not None else None)
                 _tree_set(out["opt"].setdefault(key, {}), path,
-                          host(val, whole))
+                          host(val, path if spec is not None else None,
+                               spec))
     if stats:
         out["batch_stats"] = {}
         for path, b in stats.items():
@@ -446,10 +466,11 @@ class CheckpointManager:
                 vals = {k: _tree_get(saved_opt[k], path) for k in saved_opt}
                 vals = {k: v for k, v in vals.items() if v is not None}
                 if layout is not None:
-                    whole = layout.shapes[path]
-                    vals = {k: layout.cut(path, v)
-                            if tuple(v.shape) == tuple(whole) and v.dim()
-                            else v for k, v in vals.items()}
+                    specs = {k: layout.state_spec(path, k, v)
+                             for k, v in vals.items()}
+                    vals = {k: v if specs[k] is None
+                            else layout.cut(path, v, specs[k])
+                            for k, v in vals.items()}
                 if vals:
                     moments[index] = {
                         k: _port_layout(p, v, from_flax)

@@ -1,5 +1,6 @@
 """LM training as an operator-launched job: one process a device, data
-parallel over the processes, tensor parallel with ``--tp``.
+parallel over the processes, sequence parallel with ``--sp`` and tensor
+parallel with ``--tp``.
 
     python -m tf_operator_tpu_torch.train.dist_lm [--device cpu] [flags]
 
@@ -13,16 +14,21 @@ default; two processes sharing one card need ``gloo``).
 The operator's topology (``train/distributed.py``: ``TPU_WORKER_ID`` /
 ``TPU_NUM_PROCESSES`` / ``TPU_COORDINATOR_ADDRESS``, or a TF_CONFIG of
 several workers) starts one ``torch.distributed`` world, and the step
-runs over JAX's mesh ``{"dp": processes / tp, "sp": 1, "tp": --tp}``:
-each data index trains on its rows of the ``--batch`` global rows (every
-tensor-parallel rank of one data index on the same rows), and the
-gradients are averaged over dp. Under ``--tp`` every process builds the
+runs over JAX's mesh ``{"dp": processes / (sp tp), "sp": --sp, "tp":
+--tp}``: every process builds the same global batch and keeps its block,
+its data index's rows of the ``--batch`` global rows and its sequence
+index's ``--seq / sp`` columns of them (every tensor-parallel rank of one
+block on the same tokens), and the gradients are averaged over dp and sp.
+Under ``--sp`` the model attends over the ``sp`` ring by ``--ring-impl``
+(``auto``: the flash ring on the card, the stream ring on the CPU;
+``stream``, ``flash`` or ``ulysses``; ``models/transformer.py``), each
+rank at its block's global positions. Under ``--tp`` every process builds the
 seeded whole tree and keeps its slices (``param_sharding_rules``,
 ``shard_params_by_rules``), the model runs the Megatron layout and the
 chunked loss is vocabulary-parallel (``sharded_lm_xent``). The state
 starts replicated over dp from the first rank of each tensor-parallel
 index; process 0 alone writes checkpoints, whole (gathered over tp), and
-every process restores its slices of them, at any tp.
+every process restores its slices of them, at any tp and sp.
 The model is the example's: 4 heads, ``d_ff = 2 d_model``, f32, from
 ``init_params(cfg, 0)``. On the card the flash kernels take head dims
 32, 64 and 128, so at 4 heads ``--d-model`` 128, 256 or 512; any other
@@ -60,14 +66,16 @@ launches (``launches_line``).
 the step adds the load-balancing loss at weight 0.01, as the example's.
 
 Flags of unported items exit with a usage error naming the ROADMAP
-item: ``--sp`` and ``--ring-impl`` (A8c), ``--pp*`` (A8d), ``--ep``
-(A8e); so do several processes with no coordinator to meet at. JAX's
-errors stand for ``--tp``: a process count it does not divide, and
-``--data`` beside it (``--data requires sp=1 and tp=1``). A multislice job trains each slice as a world of
-its own, as JAX's entry point does (``MEGASCALE_*`` is read by
-``train/dist_multislice.py`` alone). The example's checks of ``--ep`` against
-the MoE flags keep their meaning, and so does its refusal of ``--data``
-beside ``--sp``/``--tp``: those flags are refused as above.
+item: ``--pp*`` (A8d), ``--ep`` (A8e); so do several processes with no
+coordinator to meet at. JAX's errors stand for ``--sp``, ``--tp`` and
+``--ring-impl``: ``--ring-impl requires --sp > 1``, a process count
+``sp * tp`` does not divide, a batch or seq the mesh does not divide, an
+``--xent-chunk`` that does not divide the per-device seq, and ``--data``
+beside either (``--data requires sp=1 and tp=1``). The ``--xent-chunk``
+default is the per-device seq / 2. A multislice job trains each slice as
+a world of its own, as JAX's entry point does (``MEGASCALE_*`` is read by
+``train/dist_multislice.py`` alone). The example's checks of ``--ep``
+against the MoE flags keep their meaning.
 """
 
 from __future__ import annotations
@@ -85,15 +93,12 @@ from tf_operator_tpu_torch.train.distributed import (
 
 # Flags of ROADMAP items the port has not ported: (flag, set?, item).
 UNPORTED_FLAGS = (
-    ("--sp", lambda a: a.sp > 1, "A8c (sequence parallel)"),
     ("--pp", lambda a: a.pp > 1, "A8d (pipelines)"),
     ("--pp-microbatches", lambda a: a.pp_microbatches != 2,
      "A8d (pipelines)"),
     ("--pp-schedule", lambda a: a.pp_schedule != "gpipe",
      "A8d (pipelines)"),
     ("--ep", lambda a: a.ep > 1, "A8e (expert parallel)"),
-    ("--ring-impl", lambda a: a.ring_impl != "auto",
-     "A8c (sequence parallel)"),
 )
 
 
@@ -127,19 +132,25 @@ def build_parser() -> argparse.ArgumentParser:
                         "the 4 query heads)")
     p.add_argument("--layers", type=int, default=2)
     add_dist_backend(p)
-    p.add_argument("--sp", type=int, default=1, help="waits for A8c")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel axis size (ring attention)")
     p.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel ranks (the Megatron layout); "
                         "must divide the process count")
     p.add_argument("--lr", type=float, default=3e-3)
     p.add_argument("--target-loss", type=float, default=1.0)
     p.add_argument("--xent-chunk", type=int, default=None,
-                   help="chunked cross-entropy chunk (default: seq / 2)")
+                   help="chunked cross-entropy chunk (default: per-device "
+                        "seq / 2)")
     p.add_argument("--remat", action="store_true",
                    help="rematerialize blocks (long-context memory)")
     p.add_argument("--ring-impl", default="auto",
                    choices=("auto", "stream", "flash", "ulysses"),
-                   help="waits for A8c")
+                   help="sequence-parallel attention: stream (autodiff "
+                        "ring, supports kv chunking), flash (custom-VJP "
+                        "second-ring backward, the flash kernels on the "
+                        "card), or ulysses (all-to-all head/sequence "
+                        "exchange — needs heads/tp divisible by sp)")
     p.add_argument("--moe-every-n", type=int, default=None,
                    help="swap every Nth block's MLP for a routed expert "
                         "MLP (models/moe.py); enables the MoE path")
@@ -182,6 +193,10 @@ def main(argv: list[str] | None = None) -> int:
         p.error("; ".join(refused))
     if args.fail_at_step is not None and not args.checkpoint_dir:
         p.error("--fail-at-step requires --checkpoint-dir")
+    if args.ring_impl != "auto" and args.sp <= 1:
+        # Ring attention only engages when the sequence is split; a forced
+        # impl with sp=1 would silently train on plain attention.
+        p.error("--ring-impl requires --sp > 1 (ring attention is off)")
 
     from tf_operator_tpu_torch.train import distributed
 
@@ -221,6 +236,7 @@ def main(argv: list[str] | None = None) -> int:
         replicate,
         shard_batch,
         shard_params_by_rules,
+        token_block,
     )
     from tf_operator_tpu_torch.train.steps import (
         TrainState,
@@ -234,15 +250,15 @@ def main(argv: list[str] | None = None) -> int:
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     n = topo.num_processes
-    if n % args.tp:
+    if n % (args.sp * args.tp):
         raise SystemExit(f"{n} devices not divisible by sp*tp*ep*pp="
-                         f"{args.tp}")
-    axes = {"dp": n // args.tp, "sp": 1, "tp": args.tp}
+                         f"{args.sp * args.tp}")
+    axes = {"dp": n // (args.sp * args.tp), "sp": args.sp, "tp": args.tp}
     dp = axes["dp"]
     print(f"dist_lm: process {topo.process_id}/{n}, mesh {axes}, "
           f"device {device}", flush=True)
     mesh = create_mesh(axes, device=device)
-    if args.batch % dp:
+    if args.batch % dp or args.seq % args.sp:
         raise SystemExit(
             "batch must be a multiple of dp and seq a multiple of sp")
     if args.grad_accum < 1 or args.batch % args.grad_accum or (
@@ -250,24 +266,27 @@ def main(argv: list[str] | None = None) -> int:
         raise SystemExit(
             "--grad-accum must divide the batch, with each microbatch "
             "still a multiple of dp")
+    local_seq = args.seq // args.sp
     if args.xent_chunk is not None:
-        if args.xent_chunk <= 0 or args.seq % args.xent_chunk:
+        if args.xent_chunk <= 0 or local_seq % args.xent_chunk:
             raise SystemExit(
-                f"--xent-chunk must divide the per-device seq {args.seq}")
+                f"--xent-chunk must divide the per-device seq {local_seq}")
         chunk = args.xent_chunk
     else:
-        chunk = args.seq // 2 if args.seq % 2 == 0 else args.seq
+        chunk = local_seq // 2 if local_seq % 2 == 0 else local_seq
 
     moe_kw = {}
     if args.moe_every_n:
         moe_kw = dict(moe_every_n=args.moe_every_n,
                       moe_experts=args.moe_experts, moe_top_k=args.moe_top_k)
-    # A tensor-parallel model is its rank's part of the mesh's model.
+    # A tensor- or sequence-parallel model is its rank's part of the
+    # mesh's model.
     cfg = TransformerConfig(
         vocab_size=args.vocab, d_model=args.d_model, n_heads=4,
         n_kv_heads=args.kv_heads, n_layers=args.layers,
         d_ff=args.d_model * 2, max_seq_len=args.seq, dtype=torch.float32,
-        remat=args.remat, mesh=mesh if args.tp > 1 else None, **moe_kw,
+        remat=args.remat, ring_impl=args.ring_impl,
+        mesh=mesh if args.tp > 1 or args.sp > 1 else None, **moe_kw,
     )
     tree = init_params(cfg, 0)
     if args.tp > 1:
@@ -307,23 +326,20 @@ def main(argv: list[str] | None = None) -> int:
             print(f"dist_lm: resumed from step {start_step}", flush=True)
 
     local_rows = args.batch // dp
-    # The rows of this process's data index: the tensor-parallel ranks of
-    # one index take the same rows.
-    dp_index = mesh.coords(topo.process_id)["dp"]
 
     def batch_at(step_idx: int) -> dict:
         # Seeded by step, so resume continues the stream; every process
-        # builds the same global batch and keeps its rows.
+        # builds the same global batch and keeps its (dp, sp) block: the
+        # tensor-parallel ranks of one block take the same tokens.
         rng = np.random.default_rng((7, step_idx))
         start = rng.integers(0, args.vocab, (args.batch, 1))
         chain = (start + np.arange(args.seq + 1)) % args.vocab  # +1 chain
         chain = chain.astype(np.int32)
-        rows = slice(dp_index * local_rows, (dp_index + 1) * local_rows)
-        return shard_batch(mesh, {"tokens": chain[rows, :-1],
-                                  "targets": chain[rows, 1:]})
+        return token_block(mesh, {"tokens": chain[:, :-1],
+                                  "targets": chain[:, 1:]})
 
     data_iter = None
-    if args.data and args.tp > 1:
+    if args.data and (args.sp > 1 or args.tp > 1):
         raise SystemExit("--data requires sp=1 and tp=1")
     if args.data:
         # The record input, examples/dist_lm.py's lines: this process

@@ -190,9 +190,30 @@ def barrier() -> None:
             dist.barrier()
 
 
+# What this process keeps of its process groups past their use, each
+# dropped by a callable registered here (``on_shutdown``).
+_RELEASES: list = []
+
+
+def on_shutdown(release) -> None:
+    """Have ``shutdown`` call ``release()`` once the groups are destroyed:
+    it drops a cache that holds a group (``serve/tp.py``'s channels)."""
+    if release not in _RELEASES:
+        _RELEASES.append(release)
+
+
 def shutdown() -> None:
-    """Destroy the default process group, if one was initialised."""
+    """Destroy every process group, if one was initialised, then drop what
+    held them. ``destroy_process_group`` leaves a gloo group's threads
+    running until the group's last reference goes; one that a cache still
+    holds at exit is torn down with the interpreter, in no fixed order,
+    and that teardown can abort the process after its work is done."""
+    import gc
+
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
+    for release in _RELEASES:
+        release()
+    gc.collect()

@@ -34,8 +34,8 @@ step gathers the batch's rows and deals each rank JAX's microbatch
 shards (``_deal_microbatches``). An eval step takes the GLOBAL padded
 batch, as JAX's ``evaluate`` places the same host batch on every
 process; each rank evaluates its shard and the sums are all-reduced, so
-every rank returns the same numbers. A mesh whose ``sp``, ``ep`` or
-``pp`` axis is above 1 raises, naming ROADMAP A8c, A8e or A8d.
+every rank returns the same numbers. A mesh whose ``ep`` or ``pp`` axis
+is above 1 raises, naming ROADMAP A8e or A8d.
 
 A ``tp`` axis beside the data axes trains the Megatron layout of
 ``models/transformer.py`` (the model's ``mesh`` must be the step's):
@@ -47,8 +47,20 @@ shards; the model's own collectives already summed what rule 3 of
 vocabulary-parallel over the head's split, as JAX's step switches to it;
 without, the head's logits are gathered. The eval sums are
 vocabulary-parallel too (``chunked_lm_xent_sums(tp=)``). ``lamb`` takes
-the norms of a split leaf over tp; ``adafactor`` under tp raises, naming
-ROADMAP A8f.
+the norms of a split leaf over tp; ``adafactor`` factors a split leaf on
+its whole shape and takes its means and block rms over tp.
+
+An ``sp`` axis above 1 trains the sequence-parallel model (the model's
+``mesh`` must be the step's): each rank's batch is its block of the
+global batch, ``[B / dp, T / sp]`` (``parallel/sharding.py``
+``token_block``, JAX's ``P(dp, sp)``); rows (``grad_accum``'s microbatch
+dealing, eval's padded rows) stay over the data axes, while the
+gradients, the reported loss and the MoE load-balancing fractions are
+averaged over the data axes and ``sp`` (each rank's loss is the mean over
+its block; the ring's backward already carried every rank's share of the
+other blocks' gradients home). ``xent_chunk`` must divide the per-rank
+sequence. The eval step cuts each rank's columns of its rows and sums
+over the data axes and ``sp``.
 
 Not ported yet: ``fuse_steps`` (a CUDA graph of the step is its
 counterpart, A5's graph).
@@ -512,13 +524,36 @@ class AdafactorOptimizer(torch.optim.Optimizer):
     constants are ``optax.adafactor``'s defaults, which JAX's
     ``adafactor`` keeps: factored on axes >= 128, decay rate 0.8, offset
     0, clipping at 1.0, eps 1e-30, parameter scale floored at 1e-3; no
-    momentum and no weight decay."""
+    momentum and no weight decay.
+
+    ``split`` maps the parameters that are this rank's shards of a
+    tensor-parallel leaf to ``(whole shape, split dim)``, and ``tp`` is
+    their axis: such a leaf is factored on the axes of its WHOLE shape
+    (a shard may not be: a ``[128, 192]`` kernel split to ``[128, 96]``),
+    a mean over the split dim is the tp sum of the local sums over the
+    whole length, and the clip's ``rms(u)`` and the scale's ``rms(p)``
+    are the whole leaf's. Its ``v_row``/``v_col`` are the rank's part
+    (split where the leaf is, ``moment_split``)."""
 
     MIN_DIM_SIZE_TO_FACTOR, DECAY_RATE, CLIPPING_THRESHOLD = 128, 0.8, 1.0
     EPS, MIN_SCALE = 1e-30, 1e-3
 
-    def __init__(self, params, lr: float) -> None:
+    def __init__(self, params, lr: float, *, tp=None, split=None) -> None:
         super().__init__(params, dict(lr=lr))
+        self.tp, self.split = tp, dict(split or {})
+
+    def _mean(self, x: torch.Tensor, dim: int, whole: int, split: bool,
+              keepdim: bool = False) -> torch.Tensor:
+        """The mean over ``dim`` of length ``whole``: the local sum
+        all-reduced over tp where ``dim`` is split."""
+        if not split:
+            return x.mean(dim, keepdim=keepdim)
+        return self.tp.all_reduce_(x.sum(dim, keepdim=keepdim)) / whole
+
+    def _rms(self, x: torch.Tensor, size: int, split: bool) -> torch.Tensor:
+        if not split:
+            return torch.sqrt(torch.mean(x * x))
+        return torch.sqrt(self.tp.all_reduce_((x * x).sum()) / size)
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -527,8 +562,9 @@ class AdafactorOptimizer(torch.optim.Optimizer):
                 if p.grad is None:
                     continue
                 g = p.grad
-                dims = _factored_dims(tuple(p.shape),
-                                      self.MIN_DIM_SIZE_TO_FACTOR)
+                shape, at = self.split.get(id(p), (tuple(p.shape), None))
+                cut = at is not None
+                dims = _factored_dims(shape, self.MIN_DIM_SIZE_TO_FACTOR)
                 state = self.state[p]
                 if not state:
                     state["step"] = torch.tensor(0.0)
@@ -548,23 +584,40 @@ class AdafactorOptimizer(torch.optim.Optimizer):
                 else:
                     d1, d0 = dims
                     v_row = state["v_row"].mul_(beta).add_(
-                        (1.0 - beta) * g2.mean(d0))
+                        (1.0 - beta) * self._mean(g2, d0, shape[d0],
+                                                  at == d0))
                     v_col = state["v_col"].mul_(beta).add_(
-                        (1.0 - beta) * g2.mean(d1))
+                        (1.0 - beta) * self._mean(g2, d1, shape[d1],
+                                                  at == d1))
                     rd1 = d1 - 1 if d1 > d0 else d1
-                    row_factor = (v_row / v_row.mean(rd1, keepdim=True)
+                    row_factor = (v_row / self._mean(
+                        v_row, rd1, shape[d1], at == d1, keepdim=True)
                                   ) ** -0.5
                     u = (g * row_factor.unsqueeze(d0)
                          * (v_col ** -0.5).unsqueeze(d1))
                 state["step"] += 1
+                size = math.prod(shape)
                 u = u / torch.clamp_min(
-                    torch.sqrt(torch.mean(u * u)) / self.CLIPPING_THRESHOLD,
-                    1.0)
+                    self._rms(u, size, cut) / self.CLIPPING_THRESHOLD, 1.0)
                 u = u * group["lr"]
-                rms = torch.sqrt(torch.mean(p * p))
+                rms = self._rms(p, size, cut)
                 u = u * torch.where(rms <= self.MIN_SCALE,
                                     torch.full_like(rms, self.MIN_SCALE), rms)
                 p.sub_(u)
+
+
+def moment_split(key: str, whole: tuple, spec: tuple) -> tuple | None:
+    """The spec of an Adafactor moment ``key`` of a leaf of ``whole``
+    shape split by ``spec``: the leaf's spec without the dim the moment
+    averages away (``v_row``: the largest, ``v_col``: the second largest),
+    or None for a moment of no such kind."""
+    dims = _factored_dims(tuple(whole),
+                          AdafactorOptimizer.MIN_DIM_SIZE_TO_FACTOR)
+    if dims is None or key not in ("v_row", "v_col"):
+        return None
+    gone = dims[1] if key == "v_row" else dims[0]
+    spec = tuple(spec) + (None,) * (len(whole) - len(spec))
+    return spec[:gone] + spec[gone + 1:]
 
 
 @dataclass(frozen=True)
@@ -576,7 +629,20 @@ class Adafactor(_Optimiser):
     lr: float | Schedule
 
     def init(self, model: torch.nn.Module) -> AdafactorOptimizer:
-        return AdafactorOptimizer(model.parameters(), self.learning_rate(0))
+        from tf_operator_tpu_torch.models.convert import flax_path, param_shapes
+
+        tp, split = tp_split_params(model)
+        cut = {}
+        if split:
+            whole = param_shapes(model.cfg)
+            names = {id(p): n for n, p in model.named_parameters()}
+            for p in split:
+                shape = tuple(whole[flax_path(names[id(p)])])
+                at = next(d for d, (a, b) in enumerate(zip(shape, p.shape))
+                          if a != b)
+                cut[id(p)] = (shape, at)
+        return AdafactorOptimizer(model.parameters(), self.learning_rate(0),
+                                  tp=tp, split=cut)
 
 
 def adafactor(lr: float | Schedule = 1e-3) -> Adafactor:
@@ -667,6 +733,23 @@ def _step_data_parallel(model: torch.nn.Module, mesh: Any, data_axis: Any,
     return dp
 
 
+def _seq_data_parallel(model: torch.nn.Module, mesh: Any, data_axis: Any,
+                       what: str) -> DataParallel | None:
+    """Under a mesh whose model trains sequence-parallel: the
+    ``DataParallel`` over the data axes and the sequence axis, handed to
+    the model's global-batch statistics (the MoE fractions: a mean over
+    every token). None for any other step."""
+    if mesh is None or mesh.shape.get(model.cfg.seq_axis, 1) == 1:
+        return None
+    if model.cfg.mesh is not mesh:
+        raise ValueError(f"a sequence-parallel model {what} over its own "
+                         "mesh: pass the model's cfg.mesh as mesh=")
+    axes = (data_axis,) if isinstance(data_axis, str) else tuple(data_axis)
+    out = DataParallel(mesh, axes + (model.cfg.seq_axis,))
+    attach(model, out)
+    return out
+
+
 def _deal_microbatches(dp: DataParallel, x, grad_accum: int
                        ) -> torch.Tensor:
     """This rank's rows for ``grad_accum`` microbatches, in order: JAX
@@ -715,10 +798,9 @@ def make_lm_train_step(model: Transformer, tx: _Optimiser, *,
         raise ValueError("a tensor-parallel model trains over its own "
                          "mesh: pass the model's cfg.mesh as mesh=")
     tp_size = plan.tp.size if plan is not None else 1
-    if tp_size > 1 and isinstance(tx, Adafactor):
-        raise NotImplementedError(
-            "adafactor over tp > 1 is not ported yet: see ROADMAP.md A8f "
-            "(its factored moments and block rms over split leaves)")
+    # Sequence-parallel: rows over the data axes (dp), gradients, the loss
+    # and the MoE fractions over the data axes and sp.
+    grads = _seq_data_parallel(model, mesh, data_axis, "trains") or dp
     # JAX's sharded_loss: the vocabulary-parallel loss when tp > 1 and the
     # loss is chunked (a head whose vocabulary does not tile is whole).
     sharded = (xent_chunk is not None and tp_size > 1
@@ -726,6 +808,9 @@ def make_lm_train_step(model: Transformer, tx: _Optimiser, *,
 
     def loss_fn(tokens, targets):
         """-> (loss, aux or None)."""
+        if grads is not dp and xent_chunk and tokens.shape[1] % xent_chunk:
+            raise ValueError(f"per-device seq {tokens.shape[1]} not "
+                             f"divisible by xent chunk {xent_chunk}")
         out, aux = model(tokens, return_hidden=xent_chunk is not None,
                          return_aux=True)
         head = model.lm_head
@@ -774,9 +859,9 @@ def make_lm_train_step(model: Transformer, tx: _Optimiser, *,
         if grad_accum > 1:  # JAX's scan: the sums times 1 / grad_accum
             loss *= 1.0 / grad_accum
             aux_sum *= 1.0 / grad_accum
-        if dp is not None:
-            dp.mean_grads(list(model.parameters()))
-            loss, aux_sum = dp.mean(torch.stack([loss, aux_sum])).unbind()
+        if grads is not None:
+            grads.mean_grads(list(model.parameters()))
+            loss, aux_sum = grads.mean(torch.stack([loss, aux_sum])).unbind()
         lr = tx.learning_rate(state.step)
         for group in opt.param_groups:
             group["lr"] = lr
@@ -919,10 +1004,15 @@ class LMEvalStep:
     sums every rank returns are the global ones."""
 
     def __init__(self, model: Transformer, xent_chunk: int,
-                 dp: DataParallel | None = None) -> None:
+                 dp: DataParallel | None = None,
+                 sums: DataParallel | None = None) -> None:
         self.model = model
         self.xent_chunk = xent_chunk
         self.dp = dp
+        # Sequence-parallel: each rank takes its columns of its rows, and
+        # the sums are taken over the data axes and sp.
+        self.sums = sums or dp
+        self.sp = model.seq_parallel
         # A vocabulary-split head's sums are taken over tp.
         plan = model.tp_plan
         self.tp = (plan.tp if plan is not None and plan.tp.size > 1
@@ -949,6 +1039,10 @@ class LMEvalStep:
         if state.model is not model:
             raise ValueError("the state holds another model than the step's")
         batch = _eval_shard(self.dp, batch, ("tokens", "targets", "mask"))
+        if self.sp is not None:
+            n = batch["tokens"].shape[1] // self.sp.size
+            cols = slice(self.sp.index * n, (self.sp.index + 1) * n)
+            batch = {k: v[:, cols] for k, v in batch.items()}
         tokens = _on(model.device, batch["tokens"])
         targets = _on(model.device, batch["targets"])
         mask = _on(model.device, batch["mask"])
@@ -961,8 +1055,8 @@ class LMEvalStep:
             loss_sum, _ = chunked_lm_xent_sums(
                 hidden, head.kernel, head.bias, targets, mask, chunk=chunk,
                 tp=self.tp)
-        if self.dp is not None:
-            self.dp.all_reduce_(loss_sum)
+        if self.sums is not None:
+            self.sums.all_reduce_(loss_sum)
         return {"loss_sum": loss_sum}
 
 
@@ -982,7 +1076,9 @@ def make_lm_eval_step(model: Transformer, *, xent_chunk: int = 512,
             and mesh.shape.get("tp", 1) > 1) and model.cfg.mesh is not mesh:
         raise ValueError("a tensor-parallel model evaluates over its own "
                          "mesh: pass the model's cfg.mesh as mesh=")
-    return LMEvalStep(model, xent_chunk, data_parallel(mesh, data_axis))
+    return LMEvalStep(model, xent_chunk, data_parallel(mesh, data_axis),
+                      _seq_data_parallel(model, mesh, data_axis,
+                                         "evaluates"))
 
 
 def evaluate_lm(eval_step: LMEvalStep, state: TrainState, batches, *,
