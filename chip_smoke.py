@@ -277,9 +277,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
     count exactly 612, each batch padded to 256; (d) ``python -m
     tf_operator_tpu_torch.train.dist_mnist --steps 60 --batch 256`` to
     ``OK``, a run killed at step 30 (exit 138) resumed to ``OK`` beside an
-    evaluator replica (TF_CONFIG ``evaluator``) that reaches ``DONE``; the
-    phase's seconds. ``tools/torch_classifier_probe.py`` runs this phase
-    alone;
+    evaluator replica (TF_CONFIG ``evaluator``) that reaches ``DONE``, run
+    in a thread beside phase 22 (c) and (d) (its img/s read beside them);
+    the phase's seconds. ``tools/torch_classifier_probe.py`` runs this
+    phase alone;
 22. Mixture-of-Experts (``models/moe.py``, the MoE blocks, the aux loss;
     no hand kernel of its own: B1-B3 run in the attention blocks, B4 kv8
     and B5 in the int8 engine): (a) f32, TF32 off, a reduced MoE LM
@@ -341,7 +342,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
     resumed, and its uninterrupted 2-process twin, the final checkpoints
     and losses bitwise; (c) 2-process
     ``dist_mnist`` under gloo at tests/test_examples.py's flags, OK on
-    both; the phase's seconds;
+    both, run in a thread beside (b)'s ``--data`` runs (they time nothing
+    against another run); the phase's seconds;
 25. tensor-parallel serving (``serve/tp.py``, the engine's ``mesh``,
     the model's Megatron layout; B4 on every rank, B5 and the kv8 B4
     under int8): (a) an NCCL world of 1 in this process: phase 7's bf16
@@ -362,7 +364,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
     ``LOGIT_TOL``; each path's launches summed over the ranks (a worker's
     counts reach rank 0 through the ``report`` command); the phase's
     seconds;
-26. tensor-parallel training (the Megatron layout's backward,
+26. tensor-, sequence-, fully sharded and expert-parallel training
+    (the Megatron layout's backward,
     ``sharded_lm_xent``, dp x tp meshes, checkpoints under tp; B1-B3 on
     every rank over its heads) at phase 9's training cell: (a) an NCCL
     world of 1 in this process, the step over ``mesh={"dp": 1, "tp":
@@ -409,9 +412,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
     plain tp 1 Adafactor run of as many steps that (a) adds: losses within
     ``TP_TRAIN_LOSS_RTOL``, each leaf within ``adafactor_bounds``, the
     weights' distance from tp 1's within ``ADAFACTOR_MOVE_RATIO`` of tp
-    1's move from the seed (a state that never moved reads 1); every step
-    second and tokens/s of (b), (d) and (e) is read with (c) running
-    beside them on the same card and host cores; the phase's seconds;
+    1's move from the seed (a state that never moved reads 1); (f) after
+    go, in a new NCCL world of 1 in this process, phase 9's step under
+    FSDP over ``{"fsdp": 1}`` and ZeRO-1 over ``{"dp": 1}``
+    (``weight_update_shardings``), each bitwise (a)'s last plain run, and
+    phase 22 (b)'s MoE cell plain then over ``{"dp": 1, "ep": 1}``,
+    bitwise; (g) in (b)'s ranks after (e), FSDP over ``{"fsdp": 2}`` and
+    ZeRO-1 over ``{"dp": 2}`` (each rank one of the two rows) from the
+    seeded tree, held to (a)'s tp 1 run as (b) is, each rank's weight and
+    AdamW bytes against the whole (about half of each under FSDP; the
+    whole weights and about half of the moments under ZeRO-1), bytes
+    staged, step seconds, peak memory and launches; (h) in the same
+    ranks, the MoE cell over ``{"ep": 2}`` (each rank 4 of 8 experts a
+    MoE layer: 276,960,256 parameters, 134,217,728 of them experts) held
+    to (f)'s plain MoE run by (b)'s bounds, with the bytes of the ep
+    all-reduces a step; every step second and tokens/s of (b) and (d) to
+    (h) is read with (c) (and (f)) running beside them on the same card
+    and host cores; the phase's seconds;
 27. tensor x data parallel serving (``serve_lm --dp``; the dp half of
     ``serve/sharding.py``, the dp allocators, global dp admission; B4 on
     every rank over its pool tile): (a) ``serve_lm``'s front at phase
@@ -904,6 +921,17 @@ RING_CHECK = (TRAIN_B, TRAIN_T, 16, 64)
 SP_ULYSSES_STEPS = 2
 ADAFACTOR_STEPS = 2
 ADAFACTOR_MOVE_RATIO = 0.5
+# (f) FSDP at {"fsdp": 1}, ZeRO-1 at {"dp": 1} (weight_update_shardings)
+# and the MoE cell (phase 22 (b)'s) at {"ep": 1}, each in (a)'s NCCL world
+# of 1 in turns with the plain step: TP_TRAIN_STEPS steps, bitwise. (g)
+# FSDP over {"fsdp": FSDP} and ZeRO-1 over {"dp": FSDP} in (b)'s ranks
+# (each rank B / 2 rows), held to (a)'s tp 1 run as (b) is. (h) the MoE
+# cell over {"ep": EP} in (b)'s ranks (4 of 8 experts a MoE layer a rank,
+# both ranks on the whole batch) against (f)'s plain MoE run by (b)'s
+# bounds: a route may part only at a near-tie of two router
+# probabilities, and Adam moves a weight by about lr a step whatever its
+# gradient, so ADAM_BOUND holds either way.
+FSDP = EP = 2
 
 
 def entry_flash_shape() -> tuple[int, int, int, int]:
@@ -3211,10 +3239,12 @@ def key_bias_rows(name: str, p: torch.Tensor):
 
 
 def train_run(cfg, params, batch, steps: int, tx, *, plain=False,
-              profile=False, first_grads=False, **step_kw) -> dict:
+              profile=False, first_grads=False, place=None,
+              **step_kw) -> dict:
     """``steps`` train steps from ``params`` on one batch, with the flash
     counts set to 0 just before the first; with ``plain``,
-    reference_attention takes the kernels' place in the model. Returns the
+    reference_attention takes the kernels' place in the model; ``place``
+    (a function of the model) cuts it before its state is made. Returns the
     model, the losses (and an MoE model's aux losses), the counts, after
     one warm-up step each step's seconds and, with ``first_grads``, a copy
     of the first step's gradients by parameter name."""
@@ -3227,6 +3257,8 @@ def train_run(cfg, params, batch, steps: int, tx, *, plain=False,
     )
 
     model = load_params(transformer.Transformer(cfg), params)
+    if place is not None:
+        place(model)
     state = TrainState.create(model, tx)
     step = make_lm_train_step(model, tx, **step_kw)
     forced = mock.patch.object(
@@ -4881,13 +4913,15 @@ def mnist_entry_phase(card: str) -> None:
           f"{final['resumed']}); the evaluator read steps "
           f"{[int(s) for s, _, _ in evals]} (last accuracy "
           f"{evals[-1][1]}, loss {evals[-1][2]}) and exited {rc_eval} after "
-          f"DONE; {time.perf_counter() - t_start:.1f} s on {card}",
+          f"DONE; {time.perf_counter() - t_start:.1f} s (beside phase 22 (c) "
+          f"and (d)) on {card}",
           flush=True)
 
 
 def classifier_phase(card: str) -> float:
-    """Phase 21: the image classifiers, (a) to (d). Returns (b)'s conv7
-    images/s, the resident reading phase 23 (b) stands beside."""
+    """Phase 21: the image classifiers, (a) to (c) ((d) runs beside phase
+    22 (c) and (d), ``moe_phase``). Returns (b)'s conv7 images/s, the
+    resident reading phase 23 (b) stands beside."""
     from tf_operator_tpu_torch.train.device_input import load_records_numpy
 
     t0 = time.perf_counter()
@@ -4904,7 +4938,6 @@ def classifier_phase(card: str) -> float:
     classifier_eval_phase(bench.pop("state"), images_np, labels_np, card)
     del images, labels
     torch.cuda.empty_cache()
-    mnist_entry_phase(card)
     print(f"phase 21 (image classifiers): {time.perf_counter() - t0:.1f} s",
           flush=True)
     return bench["conv7"]["images_s"]
@@ -5198,7 +5231,8 @@ def moe_entry_phase() -> dict:
     final = [ln for ln in out.splitlines() if "final loss" in ln]
     print(f"moe entry point (22d) {' '.join(MOE_ENTRY_ARGS)}: rc "
           f"{done.returncode}; {final[-1] if final else 'no final loss'}; "
-          f"{counts.group(0) if counts else 'no launch line'}", flush=True)
+          f"{counts.group(0) if counts else 'no launch line'} (beside 21 (d))",
+          flush=True)
     if done.returncode != 0 or "dist_lm: OK" not in out or counts is None:
         raise AssertionError(f"moe entry point: {out[-2000:]}"
                              f"{done.stderr[-2000:]}")
@@ -5210,13 +5244,20 @@ def moe_entry_phase() -> dict:
 
 
 def moe_phase(pa, base, prompts, card: str) -> dict:
-    """Phase 22, (a) to (d): each path's launches by kernel."""
+    """Phase 22, (a) to (d), with phase 21 (d) (the MNIST job, processes
+    of its own) in a thread beside (c) and (d), which time nothing against
+    another run: each path's launches by kernel."""
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
     out = {"moe trainer f32 (22a)": moe_check_phase()}
     torch.cuda.empty_cache()
     out["moe trainer bf16 (22b)"] = moe_bench_phase(card)
-    out["moe int8 engine f32 (22c)"] = moe_int8_phase(pa, base, prompts)
-    out["moe entry point f32 (22d)"] = moe_entry_phase()
+    with ThreadPoolExecutor(1) as pool:
+        mnist = pool.submit(mnist_entry_phase, card)
+        out["moe int8 engine f32 (22c)"] = moe_int8_phase(pa, base, prompts)
+        out["moe entry point f32 (22d)"] = moe_entry_phase()
+        mnist.result()
     print(f"phase 22 (Mixture-of-Experts): {time.perf_counter() - t0:.1f} s",
           flush=True)
     return out
@@ -5832,10 +5873,11 @@ def rank_launches(logs: list, label: str) -> dict:
     return launches
 
 
-def dp_entry_phase(card: str) -> dict:
+def dp_entry_phase(card: str, beside=None) -> dict:
     """Phase 24 (b): ``dist_lm`` as 2 gloo processes on the card against
     one process, then 2-process ``--data`` killed, resumed and against its
-    twin. Returns the 2-process runs' flash launches."""
+    twin, ``beside()`` called as the ``--data`` runs start (24 (c) runs
+    beside them). Returns the 2-process runs' flash launches."""
     from tf_operator_tpu_torch.models.convert import _leaves
     from tf_operator_tpu_torch.train import checkpoint
     from tf_operator_tpu_torch.train.data import write_token_records
@@ -5890,6 +5932,8 @@ def dp_entry_phase(card: str) -> dict:
             data_args = with_flags(DATA_ARGS, steps=DP_DATA_STEPS)
             data = [*data_args, "--data", corpus]
             ck, twin = os.path.join(tmp, "ck"), os.path.join(tmp, "twin")
+            if beside is not None:
+                beside()
             t1 = time.perf_counter()
             procs.clear()
             first = start_ranks(module, data + [
@@ -5960,15 +6004,24 @@ def dp_mnist_phase(card: str) -> None:
     final = [re.search(r"final loss (\S+)", o).group(1) for o in outs]
     print(f"dist_mnist 2 ranks (24c): {' '.join(DP_MNIST_ARGS)} as 2 gloo "
           f"processes on one card: both OK, final losses {final}; "
-          f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+          f"{time.perf_counter() - t0:.1f} s (beside 24 (b)'s --data runs) "
+          f"on {card}", flush=True)
 
 
 def dp_phase(card: str) -> dict:
     """Phase 24, (a) to (c); returns {path label: flash launches}."""
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
     nccl = dp_nccl_phase(card)
-    entry = dp_entry_phase(card)
-    dp_mnist_phase(card)
+    with ThreadPoolExecutor(1) as pool:
+        mnist: list = []
+        # 24 (c) beside (b)'s --data runs, which time nothing against
+        # another run: each is process start-up and checkpoint writes.
+        entry = dp_entry_phase(card, beside=lambda: mnist.append(
+            pool.submit(dp_mnist_phase, card)))
+        for done in mnist:
+            done.result()
     print(f"phase 24 (data parallelism): {time.perf_counter() - t0:.1f} s",
           flush=True)
     return {"dp nccl world 1 (24a)": nccl, "dist_lm 2 ranks (24b)": entry}
@@ -6632,11 +6685,11 @@ def tp_train_nccl_phase(card: str) -> tuple[dict, dict]:
     (the model built over it) in an NCCL world of 1 in this process, in
     turns with the plain step (plain, tp, tp, plain): every run's losses
     and weights bitwise the first's; then a plain Adafactor run of
-    ``ADAFACTOR_STEPS`` steps for (e). Returns the tp runs' flash launches
-    and the references: the last plain AdamW run (tp 1: its losses,
-    weights on the host and weight bytes), the Adafactor run's losses and
-    weights (``adafactor``) and each leaf's rms and size at the seeded
-    tree (``leaves``, by flax path)."""
+    ``ADAFACTOR_STEPS`` steps for (e). Returns the tp runs' flash
+    launches and the references: the last plain AdamW run (tp 1: its
+    losses, weights on the host and weight bytes), the Adafactor run's
+    losses and weights (``adafactor``) and each leaf's rms and size at
+    the seeded tree (``leaves``, by flax path)."""
     import torch.distributed as dist
 
     from tf_operator_tpu_torch.models.convert import (
@@ -6658,6 +6711,7 @@ def tp_train_nccl_phase(card: str) -> tuple[dict, dict]:
     dist.init_process_group("nccl", store=dist.HashStore(), world_size=1,
                             rank=0)
     first, differ, ref = None, [], None
+    sides = ("plain", "tp", "tp", "plain")
     seconds = {"plain": [], "tp": []}
     launches = dict.fromkeys(FLASH_KERNELS, 0)
     losses = {}
@@ -6666,7 +6720,7 @@ def tp_train_nccl_phase(card: str) -> tuple[dict, dict]:
             raise AssertionError(f"backend {dist.get_backend()}")
         mesh = create_mesh({"dp": 1, "tp": 1}, device="cuda")
         tp_cfg = replace(cfg, mesh=mesh)
-        for i, side in enumerate(("plain", "tp", "tp", "plain")):
+        for i, side in enumerate(sides):
             run = train_run(tp_cfg if side == "tp" else cfg, params, batch,
                             TP_TRAIN_STEPS, adamw(TP_TRAIN_LR), **kw,
                             **({"mesh": mesh} if side == "tp" else {}))
@@ -6686,7 +6740,7 @@ def tp_train_nccl_phase(card: str) -> tuple[dict, dict]:
                     raise AssertionError("26a: the tp model has no plan")
                 for key, n in zip(FLASH_KERNELS, run["counts"].values()):
                     launches[key] += n
-            if i == 3:
+            if i == len(sides) - 1:
                 ref = {"losses": run["losses"], "weights": {
                     n: w.float().cpu() for n, w in weights.items()},
                     "param_bytes": sum(p.numel() * p.element_size()
@@ -6735,6 +6789,133 @@ def tp_train_nccl_phase(card: str) -> tuple[dict, dict]:
     return launches, ref
 
 
+def sharded_world1_phase(card: str, ref: dict) -> dict:
+    """Phase 26 (f), run after go, beside (b)'s ranks and (c): in an NCCL
+    world of 1 in this process, phase 9's bf16 step under FSDP over
+    ``{"fsdp": 1}`` and under ZeRO-1 over ``{"dp": 1}``
+    (``weight_update_shardings``), ``TP_TRAIN_STEPS`` steps each from the
+    seeded tree: losses and weights bitwise (a)'s last plain run; then
+    the MoE cell plain and over ``{"dp": 1, "ep": 1}``
+    (``moe_world1_runs``). Sets ``ref["moe"]``; returns {path label:
+    flash launches}."""
+    import torch.distributed as dist
+
+    from tf_operator_tpu_torch.models.convert import init_params
+    from tf_operator_tpu_torch.models.transformer import TransformerConfig
+    from tf_operator_tpu_torch.parallel.mesh import create_mesh
+    from tf_operator_tpu_torch.parallel.sharding import (
+        fsdp_sharding_tree,
+        shard_params_fsdp,
+        weight_update_shardings,
+    )
+    from tf_operator_tpu_torch.train.steps import adamw
+
+    cfg = TransformerConfig(dtype=torch.bfloat16, **LM)
+    params = init_params(cfg, seed=0)
+    batch = tp_train_batch(cfg.vocab_size, TRAIN_B, TRAIN_T, "cuda")
+    kw = dict(xent_chunk=XENT_CHUNK, xent_dot_dtype=torch.bfloat16)
+    dist.init_process_group("nccl", store=dist.HashStore(), world_size=1,
+                            rank=0)
+    out, lines = {}, []
+    try:
+        fmesh = create_mesh({"fsdp": 1}, device="cuda")
+        zmesh = create_mesh({"dp": 1}, device="cuda")
+        for side, label, side_kw in (
+                ("fsdp", "train fsdp nccl world 1 (26f)", dict(
+                    mesh=fmesh, data_axis="fsdp",
+                    param_shardings=fsdp_sharding_tree(fmesh, params),
+                    place=lambda m: shard_params_fsdp(fmesh, m))),
+                ("zero", "train zero1 nccl world 1 (26f)", dict(
+                    mesh=zmesh, opt_shardings=weight_update_shardings(
+                        zmesh, params)))):
+            run = train_run(cfg, params, batch, TP_TRAIN_STEPS,
+                            adamw(TP_TRAIN_LR), **kw, **side_kw)
+            model = run.pop("model")
+            if side == "fsdp" and not model.fsdp.cuts:
+                raise AssertionError("26f: FSDP cut no leaf")
+            differ = [n for n, p in model.named_parameters()
+                      if not torch.equal(p.detach().float().cpu(),
+                                         ref["weights"][n])]
+            if run["losses"] != ref["losses"]:
+                differ.append(f"losses {run['losses']}")
+            lines.append(f"{side} over {side_kw['mesh']}: losses "
+                         f"{run['losses']}, "
+                         f"{'bitwise' if not differ else differ[:8]}, step_s "
+                         f"{run['seconds']}, launches {run['counts']}")
+            out[label] = dict(zip(FLASH_KERNELS, run["counts"].values()))
+            want = cfg.n_layers * TP_TRAIN_STEPS
+            if differ or set(run["counts"].values()) != {want}:
+                raise AssertionError(f"26f {side}: {differ[:8]}, launches "
+                                     f"{run['counts']} (want {want})")
+            del run, model
+            torch.cuda.empty_cache()
+        print(f"train fsdp and zero1 nccl world 1 (26f): bf16 B={TRAIN_B} "
+              f"T={TRAIN_T}, {TP_TRAIN_STEPS} steps each from the seeded "
+              f"tree against (a)'s plain run (losses {ref['losses']}): "
+              f"{'; '.join(lines)} (beside (b)'s ranks and (c)) on {card}",
+              flush=True)
+        del params
+        moe_launches, ref["moe"] = moe_world1_runs(card)
+        out["train moe ep nccl world 1 (26f)"] = moe_launches
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def moe_world1_runs(card: str) -> tuple[dict, dict]:
+    """26 (f)'s MoE cell (phase 22 (b)'s: the training cell with every 2nd
+    block 8 experts, top-2, aux weight 0.01) in the NCCL world of 1, plain
+    and over ``{"dp": 1, "ep": 1}`` (the model and the step over it), in
+    turns, ``TP_TRAIN_STEPS`` steps each from the seeded tree: bitwise.
+    Returns the ep run's flash launches and the plain run (losses, aux,
+    weights on the host by parameter name, weight bytes) for (h)."""
+    from tf_operator_tpu_torch.models.convert import init_params
+    from tf_operator_tpu_torch.models.transformer import TransformerConfig
+    from tf_operator_tpu_torch.parallel.mesh import create_mesh
+    from tf_operator_tpu_torch.train.steps import adamw
+
+    cfg = TransformerConfig(dtype=torch.bfloat16, **LM, **MOE_BENCH)
+    params = init_params(cfg, seed=0)
+    batch = tp_train_batch(cfg.vocab_size, TRAIN_B, TRAIN_T, "cuda")
+    mesh = create_mesh({"dp": 1, "ep": 1}, device="cuda")
+    kw = dict(xent_chunk=XENT_CHUNK, xent_dot_dtype=torch.bfloat16,
+              aux_loss_weight=MOE_AUX_WEIGHT)
+    runs = {}
+    for side in ("plain", "ep"):
+        run = train_run(replace(cfg, mesh=mesh) if side == "ep" else cfg,
+                        params, batch, TP_TRAIN_STEPS, adamw(TP_TRAIN_LR),
+                        **kw, **({"mesh": mesh} if side == "ep" else {}))
+        model = run.pop("model")
+        run["weights"] = {n: p.detach().float().cpu()
+                          for n, p in model.named_parameters()}
+        run["param_bytes"] = sum(p.numel() * p.element_size()
+                                 for p in model.parameters())
+        runs[side] = run
+        del model
+        torch.cuda.empty_cache()
+    plain, ep = runs["plain"], runs["ep"]
+    differ = [n for n, w in ep["weights"].items()
+              if not torch.equal(w, plain["weights"][n])]
+    if ep["losses"] != plain["losses"] or ep["auxes"] != plain["auxes"]:
+        differ.append("losses")
+    print(f"train moe ep nccl world 1 (26f): phase 22 (b)'s MoE cell, bf16 "
+          f"B={TRAIN_B} T={TRAIN_T}, {TP_TRAIN_STEPS} steps a run from the "
+          f"seeded tree, plain then over {mesh}: losses {plain['losses']} "
+          f"plain, {ep['losses']} ep, aux {plain['auxes']} / {ep['auxes']}; "
+          f"{'bitwise' if not differ else differ[:8]} "
+          f"({len(plain['weights'])} weights, {plain['param_bytes']} bytes); "
+          f"step_s plain {plain['seconds']}, ep {ep['seconds']} (beside "
+          f"(b)'s ranks and (c)); launches of the ep run {ep['counts']} on "
+          f"{card}", flush=True)
+    if differ:
+        raise AssertionError("26f: the MoE cell at ep 1 parts from plain")
+    want = cfg.n_layers * TP_TRAIN_STEPS
+    if set(ep["counts"].values()) != {want}:
+        raise AssertionError(f"26f moe launches {ep['counts']}, want {want}")
+    return dict(zip(FLASH_KERNELS, ep["counts"].values())), {
+        k: plain[k] for k in ("losses", "auxes", "weights", "param_bytes")}
+
+
 def rank_steps(step, state, batch, steps: int, cuda: bool) -> dict:
     """``steps`` steps of a rank's train ``step`` on ``batch``, the flash
     counts and ``staged_bytes`` set to 0 before the first: its losses, the
@@ -6744,7 +6925,7 @@ def rank_steps(step, state, batch, steps: int, cuda: bool) -> dict:
     from tf_operator_tpu_torch.parallel import sharding
 
     fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
-    losses, seconds, staged = [], [], []
+    losses, auxes, seconds, staged = [], [], [], []
     for _ in range(steps):
         sharding.staged_bytes = 0
         if cuda:
@@ -6752,9 +6933,12 @@ def rank_steps(step, state, batch, steps: int, cuda: bool) -> dict:
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
         losses.append(metrics["loss"].item())
+        if "aux_loss" in metrics:
+            auxes.append(metrics["aux_loss"].item())
         seconds.append(time.perf_counter() - t0)
         staged.append(sharding.staged_bytes)
-    return {"losses": losses, "seconds": seconds, "staged": staged,
+    return {"losses": losses, "auxes": auxes, "seconds": seconds,
+            "staged": staged,
             "counts": dict(fwd=fa.fwd_launches, dq=fa.dq_launches,
                            dkv=fa.dkv_launches)}
 
@@ -6839,8 +7023,10 @@ def tp_train_rank(out: str) -> int:
     ``out``); then, in the same world, (d) the ring's check and the
     sequence-parallel model over ``{"sp": SP}`` (the flash ring, then
     Ulysses) and (e) Adafactor at tp 2, each from the seeded tree, rank 0
-    saving the weights of (d)'s flash ring and of (e); writes its numbers
-    to ``out/rank{r}.json``."""
+    saving the weights of (d)'s flash ring and of (e); then (g) and (h)
+    (``sharded_legs``); writes its numbers to ``out/rank{r}.json``."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from tf_operator_tpu_torch.models.convert import (
         init_params,
         load_params,
@@ -6879,6 +7065,11 @@ def tp_train_rank(out: str) -> int:
         from tf_operator_tpu_torch.ops import flash_attention as fa
 
         fa._library()
+    # (h)'s seeded MoE tree, made on the host while the legs before it
+    # wait on the card and the collectives.
+    pool = ThreadPoolExecutor(1)
+    moe_tree = pool.submit(init_params, TransformerConfig(
+        **cell["lm"], **MOE_BENCH), seed=0)
     # Started while (a) runs: wait here, the world joined and the card
     # up, until the phase says go.
     ready = time.perf_counter()
@@ -6943,10 +7134,125 @@ def tp_train_rank(out: str) -> int:
     result["adafactor"], held = tp_leg(adafactor(TP_TRAIN_LR),
                                        ADAFACTOR_STEPS, "adafactor.pt")
     del held
+    # (g) FSDP and ZeRO-1, (h) expert parallel, over the same world.
+    result.update(sharded_legs(cell, tree, moe_tree.result(), batch, device,
+                               out))
+    pool.shutdown()
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump(result, f)
     distributed.shutdown()
     return 0
+
+
+def save_cut_whole(model, path: str | None) -> None:
+    """The model's weights with every cut leaf (FSDP, ep) gathered whole
+    (collective), saved by rank 0 to ``path`` as {flax path: f32 host
+    tensor}."""
+    import torch.distributed as dist
+
+    from tf_operator_tpu_torch.models.convert import flax_path
+    from tf_operator_tpu_torch.train.steps import param_cuts
+
+    cuts = param_cuts(model)
+    whole = {}
+    for name, p in model.named_parameters():
+        t = p.detach()
+        if id(p) in cuts:
+            t = cuts[id(p)].gather(t)
+        whole["/".join(flax_path(name))] = t.float().cpu()
+    if dist.get_rank() == 0:
+        torch.save(whole, path)
+
+
+def sharded_legs(cell: dict, tree: dict, moe_tree: dict, batch: dict,
+                 device, out: str) -> dict:
+    """26 (g) and (h) on this rank of (b)'s world: FSDP over ``{"fsdp":
+    FSDP}`` and ZeRO-1 over ``{"dp": FSDP}`` on phase 9's cell (this
+    rank's B / 2 rows), then the MoE cell over ``{"ep": EP}`` (the whole
+    batch), ``TP_TRAIN_STEPS`` steps each from the seeded trees (``tree``,
+    ``moe_tree``); rank 0
+    saves each leg's weights whole. Returns each leg's numbers: losses,
+    step seconds, bytes staged a step, flash launches, the weight and
+    optimiser bytes this rank holds, peak device bytes."""
+    from tf_operator_tpu_torch.models.convert import load_params
+    from tf_operator_tpu_torch.models.moe import moe_param_sharding_rules
+    from tf_operator_tpu_torch.models.transformer import (
+        Transformer,
+        TransformerConfig,
+    )
+    from tf_operator_tpu_torch.parallel import sharding
+    from tf_operator_tpu_torch.parallel.mesh import create_mesh
+    from tf_operator_tpu_torch.train.steps import (
+        TrainState,
+        adamw,
+        make_lm_train_step,
+    )
+
+    cuda = device.type == "cuda"
+    kw = dict(xent_chunk=cell["chunk"], xent_dot_dtype=torch.bfloat16)
+    fmesh = create_mesh({"fsdp": FSDP}, device=device)
+    zmesh = create_mesh({"dp": FSDP}, device=device)
+    legs = {"fsdp": (fmesh, "fsdp"), "zero": (zmesh, "dp")}
+    result = {}
+
+    def held_bytes(state) -> tuple[int, int]:
+        opt = state.optimizer.state
+        return (sum(p.numel() * p.element_size()
+                    for p in state.model.parameters()),
+                sum(v.numel() * v.element_size() for st in opt.values()
+                    for v in st.values()
+                    if isinstance(v, torch.Tensor) and v.dim()))
+
+    for name, (mesh, axis) in legs.items():
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        cfg = TransformerConfig(dtype=torch.bfloat16, **cell["lm"])
+        model = load_params(Transformer(cfg, device), tree)
+        step_kw = dict(kw, mesh=mesh, data_axis=axis)
+        if name == "fsdp":
+            step_kw["param_shardings"] = sharding.fsdp_sharding_tree(
+                mesh, tree)
+            sharding.shard_params_fsdp(mesh, model)
+        else:
+            step_kw["opt_shardings"] = sharding.weight_update_shardings(
+                mesh, tree)
+        tx = adamw(TP_TRAIN_LR)
+        state = TrainState.create(model, tx)
+        step = make_lm_train_step(model, tx, **step_kw)
+        rows = sharding.DataParallel(mesh, axis)
+        n = cell["b"] // rows.size
+        mine = {k: v[rows.index * n:(rows.index + 1) * n]
+                for k, v in batch.items()}
+        leg = rank_steps(step, state, mine, TP_TRAIN_STEPS, cuda)
+        leg["param_bytes"], leg["adam_bytes"] = held_bytes(state)
+        leg["peak_bytes"] = torch.cuda.max_memory_allocated() if cuda else 0
+        save_cut_whole(model, os.path.join(out, f"{name}.pt"))
+        result[name] = leg
+        del model, state, step, tx
+    # (h) the MoE cell over ep.
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    emesh = create_mesh({"ep": EP}, device=device)
+    cfg = TransformerConfig(dtype=torch.bfloat16, mesh=emesh, **cell["lm"],
+                            **MOE_BENCH)
+    model = load_params(Transformer(cfg, device), sharding.
+                        shard_params_by_rules(emesh, moe_tree,
+                                              moe_param_sharding_rules()))
+    tx = adamw(TP_TRAIN_LR)
+    state = TrainState.create(model, tx)
+    step = make_lm_train_step(model, tx, mesh=emesh,
+                              aux_loss_weight=MOE_AUX_WEIGHT, **kw)
+    leg = rank_steps(step, state, batch, TP_TRAIN_STEPS, cuda)
+    leg["param_bytes"], leg["adam_bytes"] = held_bytes(state)
+    leg["expert_bytes"] = sum(
+        p.numel() * p.element_size() for n, p in model.named_parameters()
+        if n.endswith(("moe.w_in", "moe.w_out")))
+    leg["peak_bytes"] = torch.cuda.max_memory_allocated() if cuda else 0
+    save_cut_whole(model, os.path.join(out, "ep.pt"))
+    result["ep"] = leg
+    return result
 
 
 def _named_flax(model):
@@ -7010,12 +7316,11 @@ def start_tp_train_ranks(tmp: str, procs: list, logs: list) -> None:
 
 
 def tp_train_pair_phase(card: str, ref: dict, tmp: str, procs: list,
-                        logs: list) -> dict:
-    """Phase 26 (b), (d) and (e): the ranks ``start_tp_train_ranks``
-    started, told to go, against (a)'s runs. Returns {path label: the
-    ranks' summed flash launches}."""
-    t0 = time.perf_counter()
-    open(os.path.join(tmp, "go"), "w").close()
+                        logs: list, t0: float) -> dict:
+    """Phase 26 (b), (d), (e), (g) and (h): the ranks
+    ``start_tp_train_ranks`` started, told to go at ``t0``, against (a)'s
+    and (f)'s runs. Returns {path label: the ranks' summed flash
+    launches}."""
     codes = wait_all(procs, timeout=600.0)
     if codes != [0] * TP:
         raise AssertionError(f"26b: rc {codes}: " + "\n".join(
@@ -7026,7 +7331,8 @@ def tp_train_pair_phase(card: str, ref: dict, tmp: str, procs: list,
             ranks.append(json.load(f))
     saved = {name: torch.load(os.path.join(tmp, name + ".pt"),
                               weights_only=True)
-             for name in ("weights", "sp", "adafactor")}
+             for name in ("weights", "sp", "adafactor", "fsdp", "zero",
+                          "ep")}
     wall = time.perf_counter() - t0
     want = ref["weights"]
     lr_sum = TP_TRAIN_LR * TP_TRAIN_STEPS
@@ -7066,6 +7372,7 @@ def tp_train_pair_phase(card: str, ref: dict, tmp: str, procs: list,
             or not max_err <= ADAM_BOUND * lr_sum):
         raise AssertionError("tp 2 parts from tp 1")
     paths = sp_pair_checks(ranks, ref, saved, card)
+    paths.update(sharded_pair_checks(ranks, ref, saved, card))
     want_n = TP * LM["n_layers"] * TP_TRAIN_STEPS
     if set(launches.values()) != {want_n}:
         raise AssertionError(f"26b launches {launches}, want {want_n}")
@@ -7213,6 +7520,81 @@ def sp_pair_checks(ranks: list, ref: dict, saved: dict, card: str) -> dict:
         k: sum(counts_of(r)[k] for r in uly) for k in FLASH_KERNELS},
         "train adafactor tp 2 (26e)": {
         k: sum(counts_of(r)[k] for r in ada) for k in FLASH_KERNELS}}
+
+
+def sharded_pair_checks(ranks: list, ref: dict, saved: dict,
+                        card: str) -> dict:
+    """26 (g) and (h) from the ranks' numbers and rank 0's saved weights:
+    printed, checked (an ``AssertionError`` on a failure) and returned as
+    {path label: the ranks' summed flash launches}."""
+    lr_sum = TP_TRAIN_LR * TP_TRAIN_STEPS
+    whole = ref["param_bytes"]
+    bad, paths = [], {}
+    for name, label, ref_run in (
+            ("fsdp", f"train fsdp {FSDP} (26g)", ref),
+            ("zero", f"train zero1 dp {FSDP} (26g)", ref),
+            ("ep", f"train moe ep {EP} (26h)", ref["moe"])):
+        legs = [r[name] for r in ranks]
+        max_err, at, far, total = weights_apart(saved[name],
+                                                ref_run["weights"], lr_sum)
+        loss_err = [abs(a - b) / abs(b) for a, b in zip(legs[0]["losses"],
+                                                        ref_run["losses"])]
+        what = {"fsdp": f"FSDP over {{'fsdp': {FSDP}}} (each rank B/{FSDP} "
+                        "rows; weights and AdamW state cut)",
+                "zero": f"ZeRO-1 over {{'dp': {FSDP}}} (each rank B/{FSDP} "
+                        "rows; weights whole, AdamW state cut)",
+                "ep": f"phase 22 (b)'s MoE cell over {{'ep': {EP}}} (both "
+                      "ranks the whole batch; 4 of 8 experts a MoE layer a "
+                      "rank)"}[name]
+        extra = ""
+        if name == "ep":
+            extra = (f"aux {legs[0]['auxes']} against {ref_run['auxes']}; "
+                     f"expert bytes a rank "
+                     f"{[r['expert_bytes'] for r in legs]}; weight bytes "
+                     f"against ep 1's {ref_run['param_bytes']}; ")
+        print(f"{label}: bf16 B={TRAIN_B} T={TRAIN_T} {what} as (b)'s 2 "
+              f"gloo processes, {TP_TRAIN_STEPS} steps from the seeded "
+              f"tree: losses {legs[0]['losses']} (rank 1 "
+              f"{legs[1]['losses']}) against the plain run's "
+              f"{ref_run['losses']}, relative "
+              f"{[f'{e:.3e}' for e in loss_err]} (tolerance "
+              f"{TP_TRAIN_LOSS_RTOL}); gathered weights: largest difference "
+              f"{max_err:.3e} in {at} (tolerance {ADAM_BOUND * lr_sum:.3e}), "
+              f"{far} of {total} beyond 1 % of the summed lr; weight bytes a "
+              f"rank {[r['param_bytes'] for r in legs]} (whole {whole} for "
+              f"phase 9's cell), AdamW bytes a rank "
+              f"{[r['adam_bytes'] for r in legs]}; {extra}peak device bytes "
+              f"a rank {[r['peak_bytes'] for r in legs]}; bytes staged "
+              f"through the host a step {[r['staged'] for r in legs]}; "
+              f"flash launches a rank {[r['counts'] for r in legs]}; step_s "
+              f"{[r['seconds'] for r in legs]} (two ranks on one card over "
+              f"gloo, with 26 (c) running beside) on {card}", flush=True)
+        if (legs[0]["losses"] != legs[1]["losses"]
+                or not max(loss_err) <= TP_TRAIN_LOSS_RTOL
+                or not max_err <= ADAM_BOUND * lr_sum):
+            bad.append(f"{name}: parts from the plain run")
+        want_n = LM["n_layers"] * TP_TRAIN_STEPS
+        if any(set(r["counts"].values()) != {want_n} for r in legs):
+            bad.append(f"{name} launches {[r['counts'] for r in legs]}, "
+                       f"want {want_n} of each a rank")
+        paths[label] = {k: sum(counts_of(r)[k] for r in legs)
+                        for k in FLASH_KERNELS}
+    fsdp, zero, ep = ([r[n] for r in ranks] for n in ("fsdp", "zero", "ep"))
+    # About half of each under FSDP; whole weights and about half of the
+    # moments under ZeRO-1 (leaves under 2**11 elements stay whole).
+    if not all(r["param_bytes"] < 0.55 * whole
+               and r["adam_bytes"] < 0.55 * 2 * whole for r in fsdp):
+        bad.append("fsdp: a rank holds more than ~half")
+    if not all(r["param_bytes"] == whole
+               and r["adam_bytes"] < 0.55 * 2 * whole for r in zero):
+        bad.append("zero: weights not whole or moments not ~half")
+    # 276,960,256 parameters a rank, 134,217,728 of them its experts.
+    if not all(r["param_bytes"] == 4 * 276_960_256
+               and r["expert_bytes"] == 4 * 134_217_728 for r in ep):
+        bad.append("ep: the experts are not split in half")
+    if bad:
+        raise AssertionError(f"26g/h: {bad}")
+    return paths
 
 
 def with_flags(args: list, **flags) -> list:
@@ -7371,7 +7753,10 @@ def tp_train_phase(card: str) -> dict:
             nccl, ref = tp_train_nccl_phase(card)
             with ThreadPoolExecutor(1) as pool:
                 entry = pool.submit(tp_entry_phase, card)
-                pair = tp_train_pair_phase(card, ref, tmp, procs, logs)
+                go = time.perf_counter()
+                open(os.path.join(tmp, "go"), "w").close()
+                world1 = sharded_world1_phase(card, ref)
+                pair = tp_train_pair_phase(card, ref, tmp, procs, logs, go)
                 entry = entry.result()
         finally:
             for proc in procs:
@@ -7381,7 +7766,7 @@ def tp_train_phase(card: str) -> dict:
     del ref
     print(f"phase 26 (tensor- and sequence-parallel training): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    return {"train tp nccl world 1 (26a)": nccl, **pair, **entry}
+    return {"train tp nccl world 1 (26a)": nccl, **world1, **pair, **entry}
 
 
 def main() -> int:

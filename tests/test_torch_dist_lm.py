@@ -227,7 +227,10 @@ def test_eviction_signal_saves_acks_and_keeps_training(tmp_path):
     (["--pp", "2"], "ROADMAP A8"),
     (["--pp-microbatches", "4"], "ROADMAP A8"),
     (["--pp-schedule", "1f1b"], "ROADMAP A8"),
-    (["--ep", "2"], "ROADMAP A8"),
+    # --ep is ported (A8e): the case now pins JAX's error without the MoE
+    # path.
+    pytest.param(["--ep", "2"], "--ep requires --moe-every-n",
+                 id="argv5-ROADMAP A8"),
     # --ring-impl is ported (A8c): the case now pins JAX's usage error
     # without --sp.
     pytest.param(["--ring-impl", "flash"], "--ring-impl requires --sp > 1",
@@ -246,7 +249,11 @@ def test_eviction_signal_saves_acks_and_keeps_training(tmp_path):
     (["--ep", "4"], "--ep requires --moe-every-n"),
     (["--moe-experts", "6", "--moe-every-n", "2", "--ep", "4"],
      "--moe-experts must be a multiple of --ep"),
-    (["--ep", "2", "--moe-every-n", "2"], "ROADMAP A8"),
+    # --ep is ported (A8e): the case now pins JAX's error for a process
+    # count it does not divide.
+    pytest.param(["--ep", "2", "--moe-every-n", "2"],
+                 "1 devices not divisible by sp*tp*ep*pp=2",
+                 id="argv14-ROADMAP A8"),
 ])
 def test_unported_flags_are_usage_errors(argv, item, capsys, tmp_path):
     if "--data" in argv:
@@ -257,7 +264,8 @@ def test_unported_flags_are_usage_errors(argv, item, capsys, tmp_path):
                                              *argv]) == 0
         assert "dist_lm: OK" in capsys.readouterr().out
         return
-    if "not divisible" in item:
+    if "not divisible" in item or "--ep" in item:
+        # JAX's SystemExit: its message is the exit code.
         with pytest.raises(SystemExit) as exc:
             dist_lm.main(["--device", "cpu", *argv])
         assert exc.value.code == item

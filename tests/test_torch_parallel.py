@@ -7,9 +7,11 @@ package on the CPU:
   axis names, shapes and the device ids laid out as the port lays out
   ranks, exactly; the same errors with the same messages.
 - ``Mesh.members`` gives a dimension's shards in JAX's order for a tuple
-  of data axes; a mesh that shards sp, tp, ep or pp is refused by the
-  steps and the model config, naming its ROADMAP item; the placement
-  helpers of A8b and A8e raise, naming theirs.
+  of data axes; a mesh that shards sp, tp or ep trains (ep beside tp is
+  refused, naming A8i) and one that shards pp is refused by the steps and
+  the model config, naming A8d; the placement helpers of A8b and A8e
+  (``fsdp_sharding_tree``, ``shard_params_fsdp``,
+  ``weight_update_shardings``) give JAX's specs and slices.
 - ``distributed.from_env`` against JAX's ``from_env`` over a table of
   envs (the coordinator, the hostnames, an evaluator, TF_CONFIG of
   several workers): every field equal.
@@ -152,6 +154,20 @@ def test_members_are_jax_shard_order():
                                        ("ep", "A8e"), ("pp", "A8d")])
 def test_model_parallel_meshes_name_their_item(axis, item):
     m = mesh.create_mesh({"dp": 2, axis: 2}, range(4))
+    if axis == "ep":
+        # Ported (A8e): a dp x ep mesh splits an MoE model's experts and
+        # steps the classifiers, replicated over ep
+        # (tests/test_torch_ep.py runs it); beside tp it names A8i.
+        assert TransformerConfig(mesh=m).mesh is m
+        model = torch.nn.Linear(2, 2)
+        assert steps.make_classifier_train_step(
+            model, steps.sgd_momentum(0.1), has_batch_stats=False, mesh=m)
+        assert steps.make_classifier_eval_step(
+            model, has_batch_stats=False, mesh=m).shard_count == 2
+        both = mesh.create_mesh({"ep": 2, "tp": 2}, range(4))
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A8i"):
+            TransformerConfig(mesh=both)
+        return
     if axis in ("tp", "sp"):
         # Ported (A8b's second half, A8c): a dp x tp mesh trains the
         # Megatron layout, a dp x sp mesh the sequence-parallel model, and
@@ -184,6 +200,24 @@ def test_model_parallel_meshes_name_their_item(axis, item):
     ("fsdp_sharding_tree", "A8e"), ("shard_params_fsdp", "A8e"),
     ("weight_update_shardings", "A8e")])
 def test_placements_of_later_items_raise(name, item):
+    if item == "A8e":
+        # Ported (A8e; tests/test_torch_fsdp.py holds them against JAX on
+        # JAX's trees): the largest dimension the axis divides is cut,
+        # ties to the earlier one; a small or indivisible leaf is whole.
+        m = mesh.create_mesh({"fsdp": 2, "dp": 2}, range(4))
+        tree = {"k": np.arange(64.0).reshape(4, 16), "s": np.ones(3),
+                "t": np.ones((8, 8)), "n": 7}
+        fn = getattr(sharding, name)
+        if name == "shard_params_fsdp":
+            got = fn(m, tree, min_size=32, rank=3)
+            np.testing.assert_array_equal(got["k"], tree["k"][:, 8:])
+            np.testing.assert_array_equal(got["t"], tree["t"][4:])
+            assert got["n"] == 7 and got["s"].shape == (3,)
+            return
+        axis = "fsdp" if name == "fsdp_sharding_tree" else "dp"
+        assert fn(m, tree, min_size=32) == {
+            "k": (None, axis), "s": (), "t": (axis, None), "n": ()}
+        return
     if item == "A8b":
         # Ported with A8b's first half (tests/test_torch_tp.py holds them
         # against JAX): a rule's axis that does not tile leaves the leaf

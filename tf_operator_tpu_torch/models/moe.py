@@ -36,14 +36,27 @@ and is cast; the combine multiplies the ``dtype`` gates by the ``dtype``
 outputs and sums the kept choices in f32, in ascending expert order
 (the einsum's contraction order over experts), rounding once.
 
-Not ported: the expert-parallel placement (``mesh``, ``ep_axis``,
-``data_axis`` and ``moe_param_sharding_rules``), ROADMAP.md A8e.
+Expert parallelism (``MoeConfig.mesh`` with its ``ep_axis`` above 1, in
+training): each rank holds ``n_experts / ep`` experts of ``w_in`` and
+``w_out`` (``moe_param_sharding_rules``: the experts' dim over ``ep``),
+the ranks of one ``data_axis`` index take the same rows (JAX's batch is
+sharded over the data axis alone), and each routes them exactly as the
+plain layer does, dispatches the kept choices of its own experts,
+computes them and combines their terms in f32 in ascending expert order;
+the f32 partial sums are summed over ``ep`` and cast once, so a token's
+kept choices still round once (two nonzero terms add in either order to
+the same f32). The gradients keep ``TpPlan``'s rules over ``ep``: the
+experts' are the rank's own (averaged over the data axes only); the
+gates and the dispatched tokens, which each rank uses in part, enter
+through ``ep.copy`` (their partial gradients summed over ``ep``); the
+load-balancing loss, whole on every rank, reaches the router once.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Any
 
 import torch
 import torch.nn.functional as F
@@ -65,6 +78,11 @@ class MoeConfig:
     # sequence; None = the largest divisor of the sequence length <= 512.
     group_size: int | None = None
     dtype: torch.dtype = torch.bfloat16
+    # Expert parallelism: the experts split over the mesh's ep_axis, the
+    # rows over its data_axis (a mesh of parallel/mesh.py; None: whole).
+    ep_axis: str = "ep"
+    data_axis: str = "dp"
+    mesh: Any = None
 
     def __post_init__(self) -> None:
         if not 1 <= self.router_top_k <= self.n_experts:
@@ -164,6 +182,26 @@ def _group_size(cfg: MoeConfig, seq_len: int) -> int:
     return seq_len
 
 
+def expert_parallel(cfg: MoeConfig):
+    """The ``TensorParallel`` of the config's ``ep_axis`` when its mesh
+    splits the experts (above 1), else None."""
+    if cfg.mesh is None or cfg.mesh.shape.get(cfg.ep_axis, 1) == 1:
+        return None
+    from tf_operator_tpu_torch.parallel.sharding import TensorParallel
+
+    return TensorParallel(cfg.mesh, cfg.ep_axis)
+
+
+def moe_param_sharding_rules(ep_axis: str = "ep") -> dict[str, tuple]:
+    """JAX's rules for expert-parallel placement (path substring -> spec):
+    the stacked expert weights split on the expert dim; the router
+    whole."""
+    return {
+        "w_in": (ep_axis, None, None),
+        "w_out": (ep_axis, None, None),
+    }
+
+
 def _train_store(cfg: MoeConfig, device) -> _Store:
     """f32 trainable weights on ``device`` (default the card)."""
     return _Store(cfg.dtype, False, resolve_device(device))
@@ -188,7 +226,14 @@ class MoeMlp(nn.Module):
         self.cfg = cfg
         store = store or _train_store(cfg, device)
         d, e, f = cfg.d_model, cfg.n_experts, cfg.d_ff
-        self.router = store.param((d, e), torch.float32)
+        # Expert parallel: this rank's experts [lo, lo + e_local).
+        self.ep = expert_parallel(cfg) if store.trainable else None
+        if self.ep is not None:
+            if e % self.ep.size:
+                raise ValueError(f"n_experts={e} is not a multiple of "
+                                 f"{cfg.ep_axis}={self.ep.size}")
+            e //= self.ep.size
+        self.router = store.param((d, cfg.n_experts), torch.float32)
         self.w_in = store.param((e, d, f))
         self.w_out = store.param((e, f, d))
 
@@ -242,32 +287,45 @@ class MoeMlp(nn.Module):
         n_groups, group, k = top_idx.shape
         slot, keep, first = _positions(top_idx, cfg.n_experts, cap)
         frac_tokens, frac_probs = first.mean((0, 1)), probs.mean((0, 1))
+        ep = self.ep
+        n_local = self.w_in.shape[0]
+        lo = 0 if ep is None else ep.index * n_local
+        if ep is not None:
+            # Each rank combines its experts' gates and dispatches their
+            # tokens: both are used in part, so their gradients are summed
+            # over ep (TpPlan rule 3); the aux reads the router whole.
+            gates, x = ep.copy(gates), ep.copy(x)
         dp = self.data_parallel
         if dp is not None:
             frac_tokens = dp.mean(frac_tokens)
             frac_probs = dp.sum(frac_probs) / dp.size
         aux = cfg.n_experts * (frac_tokens * frac_probs).sum()
 
-        # Dispatch: each kept choice's token into [E, G, C + 1, D]; dropped
-        # choices all land in the spare slot C, which is cut off.
+        # Dispatch: each kept choice of this rank's experts, its token into
+        # [E_local, G, C + 1, D]; dropped choices and other ranks' all land
+        # in a spare slot C, which is cut off.
         e_idx = top_idx.long()
+        mine = (e_idx >= lo) & (e_idx < lo + n_local)
+        keep = keep & mine
         g_idx = torch.arange(n_groups, device=x.device)[:, None, None].expand(
             n_groups, group, k)
         c_idx = torch.where(keep, slot, cap)
+        l_idx = torch.where(mine, e_idx - lo, 0)
         tokens = x.reshape(n_groups, group, 1, d).to(dt).expand(
             n_groups, group, k, d)
-        expert_in = x.new_zeros((cfg.n_experts, n_groups, cap + 1, d),
+        expert_in = x.new_zeros((n_local, n_groups, cap + 1, d),
                                 dtype=dt).index_put(
-            (e_idx, g_idx, c_idx), tokens)[:, :, :cap]
-        flat_in = expert_in.reshape(cfg.n_experts, n_groups * cap, d)
+            (l_idx, g_idx, c_idx), tokens)[:, :, :cap]
+        flat_in = expert_in.reshape(n_local, n_groups * cap, d)
         h = gelu(_expert_dot(flat_in, self.w_in.to(dt))).to(dt)
         expert_out = _expert_dot(h, self.w_out.to(dt)).to(dt).reshape(
-            cfg.n_experts, n_groups, cap, d)
+            n_local, n_groups, cap, d)
 
         # Combine: each token's kept choices in ascending expert order,
-        # gate (rounded to dt) times output, summed in f32, rounded once.
+        # gate (rounded to dt) times output, summed in f32, rounded once
+        # (under ep the ranks' f32 partial sums are summed first).
         order = e_idx.argsort(-1)
-        e_s, c_s = e_idx.gather(-1, order), c_idx.gather(-1, order)
+        e_s, c_s = l_idx.gather(-1, order), c_idx.gather(-1, order)
         w = (gates.gather(-1, order) * keep.gather(-1, order)).to(dt)
         padded = F.pad(expert_out, (0, 0, 0, 1))  # slot C reads zeros
         y = None
@@ -275,6 +333,8 @@ class MoeMlp(nn.Module):
             term = w[..., j, None].float() * padded[
                 e_s[..., j], g_idx[..., j], c_s[..., j]].float()
             y = term if y is None else y + term
+        if ep is not None:
+            y = ep.reduce(y)
         return y.reshape(b, t, d).to(dt), aux
 
 

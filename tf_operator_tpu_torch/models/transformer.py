@@ -24,8 +24,11 @@ scales, from ``models/convert.py::quantize_decode_params``) and
 ``models/moe.py``'s experts, in both modes; its weights stay unquantized
 under ``int8_decode``. ``mesh`` takes a data-parallel mesh
 (``parallel/mesh.py``), which changes nothing in the model: the train
-step averages over it. A mesh that shards the experts or the layers
-raises, naming ROADMAP.md A8e or A8d.
+step averages over it. A training mesh whose ``ep_axis`` is above 1
+splits each MoE block's experts over it (``models/moe.py``; the rows
+over ``batch_axis``), as JAX's ``Block`` hands its mesh to ``MoeMlp``;
+beside ``tp`` or ``sp`` it raises, naming ROADMAP.md A8i. A mesh that
+shards the layers raises, naming A8d.
 
 A training model over a mesh whose ``sp`` axis is above 1 is this rank's
 part of a sequence-parallel model (``seq_parallel``): ``forward`` takes
@@ -161,9 +164,12 @@ class TransformerConfig:
     moe_experts: int = 8
     moe_capacity_factor: float = 1.25
     moe_top_k: int = 1  # 1 = Switch, 2 = GShard top-2
-    # A mesh (parallel/mesh.py) of data axes, sp and tp in training, of tp
-    # and dp in decode mode; ep and pp wait for ROADMAP.md A8e and A8d.
+    # A mesh (parallel/mesh.py) of data axes, ep, sp and tp in training, of
+    # tp and dp in decode mode; pp waits for ROADMAP.md A8d. The MoE
+    # experts split over ep_axis, their rows over batch_axis.
     mesh: Any = None
+    ep_axis: str = "ep"
+    batch_axis: str = "dp"
     # Sequence parallelism (training over a mesh whose seq_axis is above
     # 1): each rank runs its block of T / sp positions and attention is
     # "stream" (parallel/ring_attention.py's ring_attention, which takes
@@ -212,6 +218,14 @@ class TransformerConfig:
                         f"tp={tp} — use kv_attend='gather' for this mesh")
             else:
                 check_data_parallel(self.mesh, "TransformerConfig.mesh")
+                ep = self.mesh.shape.get(self.ep_axis, 1)
+                for axis in ("tp", self.seq_axis):
+                    if ep > 1 and self.mesh.shape.get(axis, 1) > 1:
+                        raise NotImplementedError(
+                            f"TransformerConfig.mesh: {self.ep_axis}={ep} "
+                            f"beside {axis}={self.mesh.shape[axis]} is not "
+                            "ported yet: see ROADMAP.md A8i (FSDP, ZeRO-1 "
+                            "or expert parallel beside tp or sp)")
         if self.use_ring:
             if self.ring_impl not in ("auto", "stream", "flash", "ulysses"):
                 raise ValueError(
@@ -887,7 +901,9 @@ class Block(nn.Module):
             self.moe = MoeMlp(MoeConfig(
                 n_experts=cfg.moe_experts, d_model=cfg.d_model,
                 d_ff=cfg.d_ff, capacity_factor=cfg.moe_capacity_factor,
-                router_top_k=cfg.moe_top_k, dtype=cfg.dtype), store)
+                router_top_k=cfg.moe_top_k, dtype=cfg.dtype,
+                ep_axis=cfg.ep_axis, data_axis=cfg.batch_axis,
+                mesh=cfg.mesh), store)
             self.moe.seq_parallel = store.sp
         else:
             self.mlp = MLP(cfg, store)

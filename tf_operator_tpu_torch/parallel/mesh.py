@@ -23,7 +23,9 @@ rank in one fixed order (``dist.new_group`` is collective over the
 world), and caches them on the mesh. A multislice job needs none: each
 slice is a world of its own (``train/dist_multislice.py``).
 
-Training takes a mesh of data axes, ``sp`` (the sequence split of
+Training takes a mesh of data axes (``fsdp`` among them: FSDP and
+ZeRO-1, ``parallel/sharding.py``), ``ep`` (the experts,
+``models/moe.py``), ``sp`` (the sequence split of
 ``parallel/ring_attention.py`` and ``parallel/ulysses.py``) and ``tp``
 (``check_data_parallel``); decode takes ``tp`` and ``dp``
 (``check_decode_mesh``).
@@ -292,16 +294,16 @@ def host_local_batch_size(global_batch: int, mesh: Mesh,
 
 
 # The axes a training mesh keeps at 1, and the ROADMAP items that port
-# them. Training takes the data axes, ``sp`` (ring attention or Ulysses)
-# and ``tp`` (the Megatron layout of models/transformer.py).
-UNPORTED_AXES = {"ep": "A8e (expert parallel)",
-                 "pp": "A8d (pipelines)"}
+# them. Training takes the data axes (``fsdp`` among them), ``ep`` (the
+# experts of models/moe.py), ``sp`` (ring attention or Ulysses) and ``tp``
+# (the Megatron layout of models/transformer.py).
+UNPORTED_AXES = {"pp": "A8d (pipelines)"}
 
 
 def check_data_parallel(mesh: Mesh, what: str) -> None:
-    """Raise unless ``mesh`` is a port ``Mesh`` whose expert and pipeline
-    axes are 1: ``NotImplementedError`` naming the ROADMAP item of the
-    first axis above 1. The data axes, ``sp`` and ``tp`` may take any
+    """Raise unless ``mesh`` is a port ``Mesh`` whose pipeline axis is 1:
+    ``NotImplementedError`` naming the ROADMAP item of the first axis
+    above 1. The data axes, ``ep``, ``sp`` and ``tp`` may take any
     size."""
     if not isinstance(mesh, Mesh):
         raise TypeError(f"{what}: expected a parallel.mesh.Mesh, got "
@@ -316,9 +318,12 @@ def check_data_parallel(mesh: Mesh, what: str) -> None:
 
 # The axes a decode mesh keeps at 1, and the ROADMAP items that name them.
 # A decode mesh takes ``tp`` (heads) and ``dp`` (slot slices and pool
-# tiles, serve/sharding.py); JAX's server builds no mesh over ``sp``.
+# tiles, serve/sharding.py); JAX's server builds no mesh over ``sp``, and
+# its engine shards nothing over ``fsdp`` or ``ep``.
 UNPORTED_DECODE_AXES = dict(sp="A8h (a decode mesh over sp)",
-                            **UNPORTED_AXES, fsdp="A8e (FSDP)",
+                            **UNPORTED_AXES,
+                            fsdp="A8j (a decode mesh over fsdp or ep)",
+                            ep="A8j (a decode mesh over fsdp or ep)",
                             dcn="A8g (serving across slices)")
 
 

@@ -13,9 +13,9 @@ rank's own rows, and a replicated tree is one copy a rank:
   batch, rows by the data axes and columns by ``sp``, and places it: what
   JAX's ``P(dp, sp)`` gives each device of a sequence-parallel step.
 - ``replicate(mesh, tree)`` broadcasts every tensor of a tree, a module
-  or a ``TrainState`` over the mesh's axes but ``tp`` from the first rank
-  of this rank's group, so that every rank starts from the same state
-  (the same shards, on a dp x tp mesh).
+  or a ``TrainState`` over the mesh's axes but ``tp`` and ``ep`` from the
+  first rank of this rank's group, so that every rank starts from the
+  same state (the same shards, on a dp x tp or dp x ep mesh).
 - ``DataParallel`` is a mesh's data axes as this rank sees them: its
   group, its size, this rank's shard index, the gradient mean, an
   all-reduce that autograd sees (``sum``), and the gather of a batch's
@@ -51,14 +51,26 @@ its shard; here rank r keeps its slice of each leaf.
   all-to-all transport (``TensorParallel.exchange``, over a
   ``TensorParallel`` of ``"sp"``) alike.
 
-The FSDP and ZeRO placements (``fsdp_sharding_tree``,
-``shard_params_fsdp``, ``weight_update_shardings``) wait for ROADMAP
-A8e and raise, naming it.
+FSDP and ZeRO-1 cut leaves by JAX's rule (``fsdp_spec``: the largest
+dimension the axis divides, leaves under ``min_size`` whole):
+
+- ``fsdp_sharding_tree`` and ``weight_update_shardings`` are JAX's spec
+  trees as data (a model reads as its flax-layout params tree);
+- ``shard_params_fsdp`` is a tree's slices for a rank, or a model cut in
+  place, which then holds its shards and a ``FullyShardedParallel``
+  (``model.fsdp``) whose ``gathered()`` all-gathers each leaf for a
+  forward and reduce-scatters its gradient (``_GatherShards``,
+  ``TensorParallel.reduce_scatter``);
+- ``Cut`` is one tensor's place in its whole leaf (shape, dimension,
+  axis): what the optimisers (whole-leaf norms and factored statistics),
+  the ZeRO-1 update and the checkpoints read.
 """
 
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
+from dataclasses import dataclass
 from typing import Any, Sequence
 
 import numpy as np
@@ -117,15 +129,19 @@ class DataParallel:
             return t
         return _AllReduceSum.apply(t, self)
 
-    def mean_grads(self, params: Sequence[torch.Tensor]) -> None:
+    def mean_grads(self, params: Sequence[torch.Tensor],
+                   size: int | None = None) -> None:
         """Average the parameters' gradients over the group with one
-        all-reduce of their concatenation."""
+        all-reduce of their concatenation (divided by ``size``, default
+        the group's: a gradient already summed over another axis is
+        divided by both)."""
         grads = [p.grad for p in params if p.grad is not None]
-        if self.group is None or not grads:
+        size = size or self.size
+        if not grads or (self.group is None and size == 1):
             return
         flat = torch.cat([g.reshape(-1) for g in grads])
         self.all_reduce_(flat)
-        flat /= self.size
+        flat /= size
         at = 0
         for g in grads:
             g.copy_(flat[at:at + g.numel()].view_as(g))
@@ -231,12 +247,17 @@ def _tensors(tree: Any) -> list[torch.Tensor]:
 def replicate(mesh: Mesh, tree: Any) -> Any:
     """Broadcast every tensor of ``tree`` (tensors in dicts, lists and
     tuples, a module's parameters and buffers, a ``TrainState``'s model
-    and optimiser state) in place over every axis of the mesh but ``tp``,
-    from the first rank of this rank's group; returns ``tree``. A copy of
-    the same state on every rank, as JAX's replicated placement is; on a
-    dp x tp mesh each tensor-parallel rank keeps its own shards, and the
-    ranks that share its ``tp`` index get them."""
-    axes = [a for a in mesh.axis_names if a != "tp"]
+    and optimiser state) in place over every axis of the mesh but ``tp``
+    and ``ep`` (and the axis a model cut by ``shard_params_fsdp`` is cut
+    over), from the first rank of this rank's group; returns ``tree``. A
+    copy of the same state on every rank, as JAX's replicated placement
+    is; on a dp x tp (or dp x ep) mesh each rank keeps its own shards, and
+    the ranks that share its ``tp`` (``ep``) index get them."""
+    held = {"tp", "ep"}
+    model = getattr(tree, "model", tree)
+    if getattr(model, "fsdp", None) is not None:
+        held.add(model.fsdp.axis.axis)
+    axes = [a for a in mesh.axis_names if a not in held]
     group = mesh.group(axes)
     if group is None:
         return tree
@@ -251,22 +272,6 @@ def replicate(mesh: Mesh, tree: Any) -> Any:
             dist.broadcast(on, src, group=group)
             t.copy_(on)
     return tree
-
-
-def _waits(name: str, item: str):
-    def refused(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} is not ported yet: see ROADMAP.md {item}")
-
-    refused.__name__ = name
-    refused.__doc__ = f"Waits for ROADMAP {item}; raises."
-    return refused
-
-
-fsdp_sharding_tree = _waits("fsdp_sharding_tree", "A8e (FSDP)")
-shard_params_fsdp = _waits("shard_params_fsdp", "A8e (FSDP)")
-weight_update_shardings = _waits("weight_update_shardings",
-                                 "A8e (ZeRO-1)")
 
 
 # -- rule-driven placement (tensor parallelism) ------------------------------
@@ -509,6 +514,24 @@ class TensorParallel:
         out = torch.cat([by_rank[r] for r in self.members], dim=dim)
         return out.to(t.device)
 
+    def reduce_scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The sum of ``t`` over the axis, this rank's part of it on
+        ``dim`` (the parts in axis order): the inverse collective of
+        ``all_gather``."""
+        if self.group is None:
+            return t
+        n = t.shape[dim] // self.size
+        parts = dict(zip(self.members, t.split(n, dim)))
+        # reduce_scatter hands the group's ranks their parts in ascending
+        # rank order.
+        wire = self._on_wire(torch.cat(
+            [parts[r].movedim(dim, 0) for r in sorted(self.members)]
+        ).contiguous())
+        out = torch.empty((n,) + wire.shape[1:], dtype=wire.dtype,
+                          device=wire.device)
+        dist.reduce_scatter_tensor(out, wire, group=self.group)
+        return out.movedim(0, dim).to(t.device)
+
     def broadcast_(self, t: torch.Tensor, src_index: int = 0
                    ) -> torch.Tensor:
         """``t`` from the rank at ``src_index`` on the axis, in place."""
@@ -545,3 +568,222 @@ class TensorParallel:
         if not (torch.is_grad_enabled() and x.requires_grad):
             return self.all_gather(x, dim)
         return _Gather.apply(x, self, dim % x.dim())
+
+
+# -- FSDP and ZeRO-1: leaves cut by JAX's fsdp rule ---------------------------
+
+
+def fsdp_spec(shape: Sequence[int], axis: str, size: int,
+              min_size: int = 2**11) -> tuple:
+    """One leaf's spec under JAX's ``fsdp_sharding_tree`` rule: the
+    largest dimension that ``size`` divides (ties to the earlier one) split
+    over ``axis``; ``()`` (whole) for a scalar, a leaf of fewer than
+    ``min_size`` elements or one with no such dimension."""
+    shape = tuple(shape)
+    if not shape or math.prod(shape) < min_size:
+        return ()
+    for d in sorted(range(len(shape)), key=lambda i: shape[i], reverse=True):
+        if shape[d] % size == 0:
+            return tuple(axis if i == d else None for i in range(len(shape)))
+    return ()
+
+
+def _module_tree(model: torch.nn.Module) -> dict:
+    """A module's parameters as nested dicts by flax path, in flax's
+    layout (views): the tree JAX's ``model.init`` gives."""
+    from tf_operator_tpu_torch.models.convert import _nest, variable_layout
+
+    leaves, to_flax, _ = variable_layout(model)
+    return _nest({path: to_flax(p.detach())
+                  for path, p in leaves["params"].items()})
+
+
+def _map_leaves(tree: Any, fn) -> Any:
+    """``fn(leaf)`` over a tree of dicts, lists and tuples; None stays
+    None (JAX's empty subtree)."""
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not hasattr(tree, "shape"):
+        return type(tree)(_map_leaves(v, fn) for v in tree)
+    return None if tree is None else fn(tree)
+
+
+def fsdp_sharding_tree(mesh: Mesh, params: Any, axis: str = "fsdp",
+                       min_size: int = 2**11) -> Any:
+    """JAX's ``fsdp_sharding_tree`` as data: every leaf's spec (a tuple,
+    ``()`` for whole) by ``fsdp_spec`` at the size of ``axis``. ``params``
+    is a tree of arrays or tensors (dicts, lists, tuples; a leaf without a
+    shape, such as a step count, is whole), or a port model, read as its
+    flax-layout params tree."""
+    size = mesh.shape[axis]
+    if isinstance(params, torch.nn.Module):
+        params = _module_tree(params)
+    return _map_leaves(params, lambda leaf: fsdp_spec(
+        getattr(leaf, "shape", ()), axis, size, min_size))
+
+
+def weight_update_shardings(mesh: Mesh, opt_state: Any, axis: str = "dp",
+                            min_size: int = 2**11) -> Any:
+    """ZeRO-1 (the weight-update sharding of arXiv:2004.13336) for plain
+    data parallelism: ``fsdp_sharding_tree``'s rule over the data axis
+    ``axis``. JAX applies it to optax's state; the port's optimisers keep
+    their state by parameter, so the train steps read it in the params
+    tree's layout (``weight_update_shardings(mesh, params)`` or of the
+    model): a leaf's spec is how its update and the moments shaped like it
+    are cut (``make_lm_train_step(opt_shardings=)``)."""
+    return fsdp_sharding_tree(mesh, opt_state, axis=axis, min_size=min_size)
+
+
+def shard_params_fsdp(mesh: Mesh, params: Any, axis: str = "fsdp",
+                      min_size: int = 2**11, rank: int | None = None
+                      ) -> Any:
+    """FSDP placement. For a tree: ``rank``'s slice (default this
+    process's rank) of every leaf under ``fsdp_sharding_tree``, the
+    addressable shard JAX gives that device (numpy leaves as contiguous
+    numpy arrays, tensors as contiguous tensors). For a port model: its
+    parameters cut IN PLACE to this rank's slices (cut in flax's layout,
+    so a classifier's conv kernel is cut where JAX cuts its HWIO kernel),
+    the model's ``fsdp`` set to their ``FullyShardedParallel``; returns the
+    model. Cut a model before ``TrainState.create``, so that its optimiser
+    holds the shards, as JAX shards params before ``tx.init``."""
+    if isinstance(params, torch.nn.Module):
+        FullyShardedParallel.shard(mesh, params, axis, min_size)
+        return params
+    if rank is None:
+        rank = dist.get_rank() if dist.is_initialized() else 0
+    size = mesh.shape[axis]
+
+    def cut(leaf):
+        spec = fsdp_spec(getattr(leaf, "shape", ()), axis, size, min_size)
+        if not spec:
+            return leaf
+        part = leaf[shard_slices(mesh, spec, tuple(leaf.shape), rank)]
+        if isinstance(part, torch.Tensor):
+            return part.contiguous()
+        return np.ascontiguousarray(part)
+
+    return _map_leaves(params, cut)
+
+
+@dataclass(frozen=True)
+class Cut:
+    """Where a tensor lies in its whole leaf: the leaf's ``whole`` shape (in
+    the tensor's own layout) split on ``dim`` over ``axis`` (a
+    ``TensorParallel``), this rank's part the one at ``axis.index``."""
+
+    whole: tuple
+    dim: int
+    axis: TensorParallel
+
+    @property
+    def length(self) -> int:
+        return self.whole[self.dim] // self.axis.size
+
+    def part(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's part of the whole ``t`` (a view)."""
+        return t.narrow(self.dim, self.axis.index * self.length, self.length)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole of which ``t`` is this rank's part (collective)."""
+        return self.axis.all_gather(t, self.dim)
+
+
+def flax_dims(to_flax, ndim: int) -> tuple:
+    """The port dimension of each flax dimension of an ``ndim`` leaf under
+    a layout's ``to_flax`` (a permutation view)."""
+    probe = torch.empty((2,) * ndim, device="meta")
+    strides = probe.stride()
+    return tuple(strides.index(s) for s in to_flax(probe).stride())
+
+
+class _GatherShards(torch.autograd.Function):
+    """FSDP's collective pair: the whole leaf all-gathered from the ranks'
+    shards forward, the gradient reduce-scattered back to this rank's
+    shard (summed over the axis) backward."""
+
+    @staticmethod
+    def forward(ctx, shard, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return axis.all_gather(shard, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.reduce_scatter(g, ctx.dim), None, None
+
+
+class FullyShardedParallel:
+    """A model whose parameters are cut over a data axis (JAX's FSDP, one
+    process a device): ``cuts`` maps each cut parameter's name to its
+    ``Cut`` (the port layout's whole shape and dimension), ``specs`` its
+    flax path to JAX's spec. Between steps the model holds only its
+    shards (``model.parameters()`` are the shards, so the optimiser's
+    state is too); ``gathered()`` puts each leaf's whole, gathered over
+    the axis through ``_GatherShards``, in its module's place for a
+    forward and its backward, whose gradients then land reduce-scattered
+    on the shards."""
+
+    def __init__(self, mesh: Mesh, model: torch.nn.Module, axis: str,
+                 specs: dict, cuts: dict) -> None:
+        self.mesh, self.axis = mesh, TensorParallel(mesh, axis)
+        self.specs, self.cuts = specs, cuts
+        self._places = [(model.get_submodule(name.rpartition(".")[0]),
+                         name.rpartition(".")[2], name)
+                        for name in cuts]
+
+    @classmethod
+    def shard(cls, mesh: Mesh, model: torch.nn.Module, axis: str,
+              min_size: int) -> "FullyShardedParallel":
+        """Cut ``model``'s parameters in place by ``fsdp_spec`` of their
+        flax shapes; set and return its ``fsdp``."""
+        from tf_operator_tpu_torch.models.convert import variable_layout
+
+        if getattr(model, "fsdp", None) is not None:
+            raise ValueError("the model is cut already")
+        leaves, to_flax, _ = variable_layout(model)
+        names = {id(p): n for n, p in model.named_parameters()}
+        tp = TensorParallel(mesh, axis)
+        specs, cuts = {}, {}
+        for path, p in leaves["params"].items():
+            shape = tuple(to_flax(p).shape)
+            spec = fsdp_spec(shape, axis, tp.size, min_size)
+            specs[path] = spec
+            if not spec:
+                continue
+            dim = flax_dims(to_flax, p.dim())[spec.index(axis)]
+            cuts[names[id(p)]] = Cut(tuple(p.shape), dim, tp)
+        for name, cut in cuts.items():
+            module, _, attr = name.rpartition(".")
+            owner = model.get_submodule(module)
+            p = owner._parameters[attr]
+            owner._parameters[attr] = torch.nn.Parameter(
+                cut.part(p.detach()).clone(
+                    memory_format=torch.contiguous_format),
+                requires_grad=p.requires_grad)
+        model.fsdp = cls(mesh, model, axis, specs, cuts)
+        return model.fsdp
+
+    def check(self, specs: Any, what: str) -> None:
+        """Raise unless ``specs`` (a spec tree by flax path) is the cut's."""
+        from tf_operator_tpu_torch.models.convert import _leaves
+
+        given = dict(_leaves(specs)) if isinstance(specs, dict) else None
+        if given != self.specs:
+            raise ValueError(f"{what}: param_shardings differ from the "
+                             "model's cut (shard_params_fsdp)")
+
+    @contextmanager
+    def gathered(self):
+        """Every cut leaf whole in its module for the block's forward and
+        backward, in one order on every rank; the shards after."""
+        held = []
+        try:
+            for module, attr, name in self._places:
+                shard = module._parameters[attr]
+                held.append((module, attr, shard))
+                cut = self.cuts[name]
+                module._parameters[attr] = _GatherShards.apply(
+                    shard, cut.axis, cut.dim)
+            yield
+        finally:
+            for module, attr, shard in held:
+                module._parameters[attr] = shard

@@ -46,17 +46,20 @@ orbax does).
 
 Under several processes (a ``torch.distributed`` world) the state is
 replicated, so the primary process (rank 0) alone writes: two ranks
-renaming the same step into place would race. A model split over a
-``tp`` axis (``models/transformer.py``'s ``TpPlan``) is saved whole: the
-ranks of rank 0's tensor-parallel group learn from it whether the step
-is due (a broadcast over the group), then all-gather every split
-parameter and its optimiser state over tp (``gather_leaf`` by
-``param_sharding_rules``: AdamW's and LAMB's moments as the parameter,
-Adafactor's factored ``v_row``/``v_col`` on the dims they keep,
-``steps.moment_split``), and rank 0 writes the whole tree. A restore
-reads the whole tree and cuts each rank's slices from it, so a
-checkpoint written at one tp restores at any other, as orbax places a
-restore into the target's shardings. Every rank reads and
+renaming the same step into place would race. A leaf cut over a mesh
+axis is saved whole: a tensor-parallel model's split leaves
+(``models/transformer.py``'s ``TpPlan``), an expert-parallel MoE layer's
+experts, the leaves of a model cut by ``shard_params_fsdp`` and the
+moments of a ZeRO-1 optimiser (``steps.ZeroOneOptimizer``). The ranks of
+rank 0's group over the cut axes learn from it whether the step is due
+(a broadcast over the group), then all-gather every cut tensor over its
+axis (``_Layout``, from ``steps.param_cuts``: AdamW's and LAMB's moments
+as their leaf, Adafactor's factored ``v_row``/``v_col`` on the dims they
+keep, ``steps.moment_cut``), and rank 0 writes the whole tree. A restore
+reads the whole tree and cuts each rank's parts from it, so a checkpoint
+written on one layout restores on any other (another tp or ep, FSDP or
+none, ZeRO-1 or none), as orbax places a restore into the target's
+shardings. Every rank reads and
 restores from the shared directory, and every rank's ``maybe_ack`` names
 only a step that ``latest_step`` lists; ``ack`` first drains the
 primary's write and meets the other ranks at a barrier, so every rank's
@@ -79,6 +82,7 @@ from tf_operator_tpu_torch.models.convert import (
     load_variables,
     variable_layout,
 )
+from tf_operator_tpu_torch.train.steps import state_cut
 
 FORMAT_VERSION = 1
 STATE_FILE = "state.pt"
@@ -126,95 +130,63 @@ def _host(t: torch.Tensor) -> torch.Tensor:
     return t.detach().to("cpu", copy=True, non_blocking=t.is_cuda)
 
 
-class _TpLayout:
-    """How a model split over a ``tp`` axis above 1 is cut: its
-    ``TensorParallel``, mesh, rules and whole leaf shapes; ``spec(path)``
-    is a leaf's spec by the rules."""
+class _Layout:
+    """Where a state's leaves lie across the ranks: for each parameter
+    (by flax path) its ``Cut`` (this rank's part of a tensor-parallel,
+    expert-parallel or FSDP leaf; None: whole on every rank), the tensor
+    the optimiser keeps its state by (itself, or under ZeRO-1 its part,
+    ``ZeroOneOptimizer.held``) and that tensor's ``Cut``. ``group`` is the
+    ``TensorParallel`` over every axis something is cut over (None when
+    nothing is): the ranks of rank 0's group hold the parts rank 0
+    writes."""
 
-    def __init__(self, model) -> None:
-        from tf_operator_tpu_torch.models.convert import param_shapes
-        from tf_operator_tpu_torch.models.transformer import (
-            param_sharding_rules,
-        )
+    def __init__(self, state) -> None:
+        from tf_operator_tpu_torch.parallel.sharding import TensorParallel
+        from tf_operator_tpu_torch.train.steps import param_cuts
 
-        self.tp, self.mesh = model.tp_plan.tp, model.cfg.mesh
-        self.rules = param_sharding_rules()
-        self.shapes = param_shapes(model.cfg)
-
-    def spec(self, path: tuple) -> tuple:
-        from tf_operator_tpu_torch.parallel.sharding import spec_by_rules
-
-        return spec_by_rules(self.mesh, "/".join(path), self.shapes[path],
-                             self.rules)
-
-    def state_spec(self, path: tuple, key: str, t: torch.Tensor
-                   ) -> tuple | None:
-        """The spec of optimiser state ``key`` of ``path`` whose whole
-        shape or this rank's part is ``t``'s: the leaf's for a tensor shaped
-        like it, an Adafactor factored moment's (``moment_split``), None
-        for any other (a step count)."""
-        from tf_operator_tpu_torch.train.steps import moment_split
-
-        whole = tuple(self.shapes[path])
-        if t.dim() == len(whole) and t.dim():
-            return self.spec(path)
-        return moment_split(key, whole, self.spec(path))
-
-    def whole(self, path: tuple, t: torch.Tensor, spec=None
-              ) -> torch.Tensor:
-        """The whole leaf of this rank's shard ``t`` of ``path`` (or of a
-        tensor split by ``spec``)."""
-        from tf_operator_tpu_torch.parallel.sharding import gather_leaf
-
-        return gather_leaf(self.mesh, spec or self.spec(path), t)
-
-    def cut(self, path: tuple, t: torch.Tensor, spec=None) -> torch.Tensor:
-        """This rank's shard of the whole leaf ``t`` of ``path`` (or of a
-        tensor split by ``spec``)."""
-        from tf_operator_tpu_torch.parallel.sharding import shard_slices
-
-        return t[shard_slices(self.mesh, spec or self.spec(path),
-                              tuple(t.shape), self.tp.rank)].contiguous()
-
-
-def _tp_layout(model) -> _TpLayout | None:
-    """The ``_TpLayout`` of a model whose weights are split over tp > 1,
-    else None."""
-    plan = getattr(model, "tp_plan", None)
-    if plan is None or plan.tp.size == 1 or not plan.split:
-        return None
-    return _TpLayout(model)
+        model, opt = state.model, state.optimizer
+        cuts = param_cuts(model)
+        held = getattr(opt, "held", lambda p: (p, cuts.get(id(p))))
+        self.leaves, self.to_flax, self.from_flax = variable_layout(model)
+        self.rows = {}
+        axes, mesh = set(), None
+        for path, p in self.leaves["params"].items():
+            key, key_cut = held(p)
+            self.rows[path] = (p, cuts.get(id(p)), key, key_cut)
+            for c in (cuts.get(id(p)), key_cut):
+                if c is not None and c.axis.size > 1:
+                    axes.add(c.axis.axis)
+                    mesh = c.axis.mesh
+        self.group = (TensorParallel(mesh, tuple(
+            a for a in mesh.axis_names if a in axes)) if axes else None)
 
 
 def _snapshot(state) -> dict:
     """The state's weights, BatchNorm statistics, optimiser state and step
     as host tensors, in the ``state.pt`` layout; returns once every copy
-    has landed. Under tp the weights and the moments shaped like them are
-    gathered whole first: collective over the tensor-parallel group."""
+    has landed. A leaf cut over an axis (tp, ep, FSDP; ZeRO-1's moments)
+    is gathered whole first: collective over the axis' group."""
     model, opt = state.model, state.optimizer
-    leaves, to_flax, _ = variable_layout(model)
-    params, stats = leaves["params"], leaves["batch_stats"]
-    layout = _tp_layout(model)
+    layout = _Layout(state)
+    to_flax = layout.to_flax
 
-    def host(t, path=None, spec=None):
-        if layout is not None and path is not None:
-            t = layout.whole(path, t.detach(), spec)
+    def host(t, cut=None):
+        if cut is not None:
+            t = cut.gather(t.detach())
         # Into flax's layout on the device (a copy only for conv kernels),
         # so the host copy is contiguous.
         return _host(to_flax(t).contiguous() if t.dim() == 4 else t)
 
     out: dict = {"params": {}, "opt": {}}
     cuda = False
-    for path, p in params.items():
+    for path, (p, cut, key, key_cut) in layout.rows.items():
         cuda |= p.is_cuda
-        _tree_set(out["params"], path, host(p, path))
-        for key, val in (opt.state.get(p) or {}).items():
+        _tree_set(out["params"], path, host(p, cut))
+        for k, val in (opt.state.get(key) or {}).items():
             if isinstance(val, torch.Tensor):
-                spec = (layout.state_spec(path, key, val)
-                        if layout is not None else None)
-                _tree_set(out["opt"].setdefault(key, {}), path,
-                          host(val, path if spec is not None else None,
-                               spec))
+                _tree_set(out["opt"].setdefault(k, {}), path,
+                          host(val, state_cut(k, val, key_cut)))
+    stats = layout.leaves["batch_stats"]
     if stats:
         out["batch_stats"] = {}
         for path, b in stats.items():
@@ -397,9 +369,8 @@ class CheckpointManager:
         ``force``, already saved or being saved: the checkpoint the
         caller wants is there, as orbax's refusal to overwrite means."""
         step = int(step)
-        layout = _tp_layout(state.model)
-        tp = layout.tp if layout is not None else None
-        if not self.primary and (tp is None or 0 not in tp.members):
+        group = _Layout(state).group
+        if not self.primary and (group is None or 0 not in group.members):
             return False
         due = False
         if self.primary:
@@ -407,10 +378,11 @@ class CheckpointManager:
             if due:
                 self.wait()
                 due = step not in self.all_steps()
-        if tp is not None:
-            # Rank 0's tp group gathers together, or none of it does.
+        if group is not None:
+            # Rank 0's group gathers together, or none of it does.
             flag = torch.tensor([int(due)], device=state.model.device)
-            due = bool(tp.broadcast_(flag, tp.members.index(0)).item())
+            due = bool(group.broadcast_(flag, group.members.index(0))
+                       .item())
         if not due:
             return False
         payload = _snapshot(state)
@@ -447,34 +419,37 @@ class CheckpointManager:
         payload, manifest = read(self._dir, step)
         model, opt = state.model, state.optimizer
         check_config(self._dir, manifest, model)
-        leaves, _, from_flax = variable_layout(model)
-        layout = _tp_layout(model)
-        if layout is not None:
-            # This rank's slices of the whole tree.
-            cut = {path: layout.cut(path, t) for path, t in
-                   _leaves(payload["params"])}
-            payload = dict(payload, params={})
-            for path, t in cut.items():
-                _tree_set(payload["params"], path, t)
+        layout = _Layout(state)
+        flax, from_flax = layout.to_flax, layout.from_flax
+
+        def part(t, cut):
+            # This rank's part of a saved whole tensor (in the port's
+            # layout, where the cut is).
+            if cut is None:
+                return t
+            return flax(cut.part(from_flax(t)).contiguous())
+
+        params = {path: part(t, layout.rows[path][1])
+                  for path, t in _leaves(payload["params"])
+                  if path in layout.rows}
+        payload = dict(payload, params={})
+        for path, t in params.items():
+            _tree_set(payload["params"], path, t)
         load_variables(model, payload)
-        path_of = {p: path for path, p in leaves["params"].items()}
+        by_key = {id(key): (path, key_cut) for path, (_, _, key, key_cut)
+                  in layout.rows.items()}
         saved_opt = payload["opt"]
         moments, index = {}, 0
         for group in opt.param_groups:
-            for p in group["params"]:
-                path = path_of[p]
+            for key in group["params"]:
+                path, key_cut = by_key[id(key)]
                 vals = {k: _tree_get(saved_opt[k], path) for k in saved_opt}
-                vals = {k: v for k, v in vals.items() if v is not None}
-                if layout is not None:
-                    specs = {k: layout.state_spec(path, k, v)
-                             for k, v in vals.items()}
-                    vals = {k: v if specs[k] is None
-                            else layout.cut(path, v, specs[k])
-                            for k, v in vals.items()}
+                vals = {k: part(v, state_cut(k, v, key_cut))
+                        for k, v in vals.items() if v is not None}
                 if vals:
                     moments[index] = {
-                        k: _port_layout(p, v, from_flax)
-                        if v.dim() == p.dim() else v
+                        k: _port_layout(key, v, from_flax)
+                        if v.dim() == key.dim() else v
                         for k, v in vals.items()}
                 index += 1
         # load_state_dict casts each tensor to its param's dtype and

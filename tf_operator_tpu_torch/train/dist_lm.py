@@ -1,6 +1,6 @@
 """LM training as an operator-launched job: one process a device, data
-parallel over the processes, sequence parallel with ``--sp`` and tensor
-parallel with ``--tp``.
+parallel over the processes, sequence parallel with ``--sp``, tensor
+parallel with ``--tp`` and expert parallel with ``--ep``.
 
     python -m tf_operator_tpu_torch.train.dist_lm [--device cpu] [flags]
 
@@ -14,8 +14,9 @@ default; two processes sharing one card need ``gloo``).
 The operator's topology (``train/distributed.py``: ``TPU_WORKER_ID`` /
 ``TPU_NUM_PROCESSES`` / ``TPU_COORDINATOR_ADDRESS``, or a TF_CONFIG of
 several workers) starts one ``torch.distributed`` world, and the step
-runs over JAX's mesh ``{"dp": processes / (sp tp), "sp": --sp, "tp":
---tp}``: every process builds the same global batch and keeps its block,
+runs over JAX's mesh ``{"dp": processes / (sp tp ep), "sp": --sp, "tp":
+--tp}`` (and ``"ep": --ep`` when above 1): every process builds the same
+global batch and keeps its block,
 its data index's rows of the ``--batch`` global rows and its sequence
 index's ``--seq / sp`` columns of them (every tensor-parallel rank of one
 block on the same tokens), and the gradients are averaged over dp and sp.
@@ -64,18 +65,24 @@ launches (``launches_line``).
 ``--moe-every-n`` swaps every Nth block's MLP for a routed expert MLP
 (``--moe-experts``, ``--moe-top-k``: Switch at 1, GShard top-2 at 2), and
 the step adds the load-balancing loss at weight 0.01, as the example's.
+``--ep`` splits each MoE block's experts over the mesh's ``ep`` axis
+(``moe_param_sharding_rules``): every process cuts its experts from the
+seeded whole tree, the ranks of one data index take the same rows, and
+checkpoints are written whole and restore at any ``--ep``.
 
 Flags of unported items exit with a usage error naming the ROADMAP
-item: ``--pp*`` (A8d), ``--ep`` (A8e); so do several processes with no
-coordinator to meet at. JAX's errors stand for ``--sp``, ``--tp`` and
-``--ring-impl``: ``--ring-impl requires --sp > 1``, a process count
-``sp * tp`` does not divide, a batch or seq the mesh does not divide, an
-``--xent-chunk`` that does not divide the per-device seq, and ``--data``
-beside either (``--data requires sp=1 and tp=1``). The ``--xent-chunk``
-default is the per-device seq / 2. A multislice job trains each slice as
-a world of its own, as JAX's entry point does (``MEGASCALE_*`` is read by
-``train/dist_multislice.py`` alone). The example's checks of ``--ep``
-against the MoE flags keep their meaning.
+item: ``--pp*`` (A8d); so do several processes with no coordinator to
+meet at. JAX's errors stand for ``--sp``, ``--tp``, ``--ep`` and
+``--ring-impl``: ``--ring-impl requires --sp > 1``, ``--ep requires
+--moe-every-n``, ``--moe-experts must be a multiple of --ep``, a process
+count ``sp * tp * ep`` does not divide, a batch or seq the mesh does not
+divide, an ``--xent-chunk`` that does not divide the per-device seq, and
+``--data`` beside ``--sp`` or ``--tp`` (``--data requires sp=1 and
+tp=1``). ``--ep`` beside ``--sp`` or ``--tp`` is refused, naming ROADMAP
+A8i, and so is ``--data`` beside ``--ep`` (each process reads a shard of
+its own, where the ep ranks of a data index must share their rows). The ``--xent-chunk`` default is the per-device seq / 2. A multislice
+job trains each slice as a world of its own, as JAX's entry point does
+(``MEGASCALE_*`` is read by ``train/dist_multislice.py`` alone).
 """
 
 from __future__ import annotations
@@ -98,7 +105,6 @@ UNPORTED_FLAGS = (
      "A8d (pipelines)"),
     ("--pp-schedule", lambda a: a.pp_schedule != "gpipe",
      "A8d (pipelines)"),
-    ("--ep", lambda a: a.ep > 1, "A8e (expert parallel)"),
 )
 
 
@@ -157,7 +163,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--moe-experts", type=int, default=8)
     p.add_argument("--moe-top-k", type=int, default=2,
                    help="1 = Switch, 2 = GShard top-2")
-    p.add_argument("--ep", type=int, default=1, help="waits for A8e")
+    p.add_argument("--ep", type=int, default=1,
+                   help="expert-parallel mesh axis (experts sharded over "
+                        "it; requires --moe-every-n)")
     p.add_argument("--pp", type=int, default=1, help="waits for A8d")
     p.add_argument("--pp-microbatches", type=int, default=2,
                    help="waits for A8d")
@@ -181,16 +189,17 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> int:
     p = build_parser()
     args = p.parse_args(argv)
-    # The example's MoE checks keep their meaning beside --ep's refusal.
-    refused = []
-    if args.ep > 1 and not args.moe_every_n:
-        refused.append("--ep requires --moe-every-n")
-    if args.moe_every_n and args.moe_experts % args.ep:
-        refused.append("--moe-experts must be a multiple of --ep")
-    refused += [f"{flag} waits for ROADMAP {item}"
-                for flag, is_set, item in UNPORTED_FLAGS if is_set(args)]
+    refused = [f"{flag} waits for ROADMAP {item}"
+               for flag, is_set, item in UNPORTED_FLAGS if is_set(args)]
+    if args.ep > 1 and (args.sp > 1 or args.tp > 1):
+        refused.append("--ep beside --sp or --tp waits for ROADMAP A8i "
+                       "(FSDP, ZeRO-1 or expert parallel beside tp or sp)")
     if refused:
         p.error("; ".join(refused))
+    if args.ep > 1 and not args.moe_every_n:
+        raise SystemExit("--ep requires --moe-every-n")
+    if args.moe_every_n and args.moe_experts % args.ep:
+        raise SystemExit("--moe-experts must be a multiple of --ep")
     if args.fail_at_step is not None and not args.checkpoint_dir:
         p.error("--fail-at-step requires --checkpoint-dir")
     if args.ring_impl != "auto" and args.sp <= 1:
@@ -226,6 +235,7 @@ def main(argv: list[str] | None = None) -> int:
 
     from tf_operator_tpu_torch import resolve_device
     from tf_operator_tpu_torch.models.convert import init_params, load_params
+    from tf_operator_tpu_torch.models.moe import moe_param_sharding_rules
     from tf_operator_tpu_torch.models.transformer import (
         Transformer,
         TransformerConfig,
@@ -250,10 +260,13 @@ def main(argv: list[str] | None = None) -> int:
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     n = topo.num_processes
-    if n % (args.sp * args.tp):
+    split = args.sp * args.tp * args.ep
+    if n % split:
         raise SystemExit(f"{n} devices not divisible by sp*tp*ep*pp="
-                         f"{args.sp * args.tp}")
-    axes = {"dp": n // (args.sp * args.tp), "sp": args.sp, "tp": args.tp}
+                         f"{split}")
+    axes = {"dp": n // split, "sp": args.sp, "tp": args.tp}
+    if args.ep > 1:  # JAX's mesh line names ep only when it is used
+        axes["ep"] = args.ep
     dp = axes["dp"]
     print(f"dist_lm: process {topo.process_id}/{n}, mesh {axes}, "
           f"device {device}", flush=True)
@@ -286,11 +299,15 @@ def main(argv: list[str] | None = None) -> int:
         n_kv_heads=args.kv_heads, n_layers=args.layers,
         d_ff=args.d_model * 2, max_seq_len=args.seq, dtype=torch.float32,
         remat=args.remat, ring_impl=args.ring_impl,
-        mesh=mesh if args.tp > 1 or args.sp > 1 else None, **moe_kw,
+        mesh=mesh if max(args.tp, args.sp, args.ep) > 1 else None,
+        **moe_kw,
     )
     tree = init_params(cfg, 0)
-    if args.tp > 1:
-        tree = shard_params_by_rules(mesh, tree, param_sharding_rules())
+    rules = dict(param_sharding_rules()) if args.tp > 1 else {}
+    if args.ep > 1:  # expert weights split on the expert dim over "ep"
+        rules.update(moe_param_sharding_rules())
+    if rules:
+        tree = shard_params_by_rules(mesh, tree, rules)
     model = load_params(Transformer(cfg, device), tree)
     del tree
     tx = adamw(args.lr)
@@ -341,6 +358,11 @@ def main(argv: list[str] | None = None) -> int:
     data_iter = None
     if args.data and (args.sp > 1 or args.tp > 1):
         raise SystemExit("--data requires sp=1 and tp=1")
+    if args.data and args.ep > 1:
+        # Each process reads its own shard, but the ranks of one data
+        # index must take the same rows.
+        raise SystemExit("--data requires ep=1 (one process a device: the "
+                         "ep ranks of a data index share its rows)")
     if args.data:
         # The record input, examples/dist_lm.py's lines: this process
         # streams ITS shard of every epoch, and shard_batch places its

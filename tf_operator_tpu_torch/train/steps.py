@@ -34,8 +34,25 @@ step gathers the batch's rows and deals each rank JAX's microbatch
 shards (``_deal_microbatches``). An eval step takes the GLOBAL padded
 batch, as JAX's ``evaluate`` places the same host batch on every
 process; each rank evaluates its shard and the sums are all-reduced, so
-every rank returns the same numbers. A mesh whose ``ep`` or ``pp`` axis
-is above 1 raises, naming ROADMAP A8e or A8d.
+every rank returns the same numbers. A mesh whose ``pp`` axis is above 1
+raises, naming ROADMAP A8d.
+
+FSDP and ZeRO-1 (JAX's ``param_shardings`` and ``opt_shardings``) cut
+leaves by JAX's fsdp rule over one of the data axes. Under FSDP
+(``param_shardings``, a model cut by ``shard_params_fsdp``) the model
+holds its shards; each step gathers every cut leaf for the forward and
+its backward (``FullyShardedParallel.gathered``), whose gradient lands
+reduce-scattered on the shard, summed over the other data axes and
+divided by the data size; the optimiser updates the shards. Under ZeRO-1
+(``opt_shardings``) the weights stay whole and ``ZeroOneOptimizer``
+updates this rank's part of each cut leaf: its gradient
+reduce-scattered, the parts all-gathered after the update. AdamW is
+elementwise; LAMB's (and LARS's) norms and Adafactor's factored
+statistics and block rms are the whole leaf's, taken over the cut's axis
+(``param_cuts``, ``moment_cut``), as for tp and ep. An ``ep`` axis trains
+the MoE layers' experts split over it (``models/moe.py``): the rows
+stay over the data axes, and every gradient is averaged over them alone.
+FSDP, ZeRO-1 or ep beside ``tp`` or ``sp`` raises, naming ROADMAP A8i.
 
 A ``tp`` axis beside the data axes trains the Megatron layout of
 ``models/transformer.py`` (the model's ``mesh`` must be the step's):
@@ -68,6 +85,7 @@ counterpart, A5's graph).
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import math
 from dataclasses import dataclass
@@ -270,15 +288,21 @@ def chunked_lm_xent_sums(hidden: torch.Tensor, kernel: torch.Tensor,
 
 class _Optimiser:
     """What the steps ask of an optimiser: ``init(model)``, a torch
-    optimiser over the model's parameters, and ``learning_rate(step)``,
-    which the step sets before each update. ``lr`` is a number or a
-    schedule of the step count, which optax evaluates at the count before
-    the update (step 0 runs at ``lr(0)``)."""
+    optimiser over the model's parameters (``build`` over them and their
+    ``param_cuts``), ``build(tensors, cuts)``, one over any tensors, of
+    which those in ``cuts`` (``{id: Cut}``) are this rank's parts of whole
+    leaves, and ``learning_rate(step)``, which the step sets before each
+    update. ``lr`` is a number or a schedule of the step count, which
+    optax evaluates at the count before the update (step 0 runs at
+    ``lr(0)``)."""
 
     lr: float | Schedule
 
     def learning_rate(self, step: int) -> float:
         return float(self.lr(step) if callable(self.lr) else self.lr)
+
+    def init(self, model: torch.nn.Module) -> torch.optim.Optimizer:
+        return self.build(list(model.parameters()), param_cuts(model))
 
 
 @dataclass(frozen=True)
@@ -292,11 +316,12 @@ class AdamW(_Optimiser):
     b2: float = 0.999
     eps: float = 1e-8
 
-    def init(self, model: torch.nn.Module) -> torch.optim.AdamW:
+    def build(self, params, cuts) -> torch.optim.AdamW:
         """torch's AdamW follows optax's formula at these settings:
-        ``p -= lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)``."""
+        ``p -= lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)``; it is
+        elementwise, so a part of a leaf updates as the whole would."""
         return torch.optim.AdamW(
-            model.parameters(), lr=self.learning_rate(0),
+            params, lr=self.learning_rate(0),
             betas=(self.b1, self.b2), eps=self.eps,
             weight_decay=self.weight_decay)
 
@@ -317,8 +342,8 @@ class SGDMomentum(_Optimiser):
     momentum: float = 0.9
     nesterov: bool = True
 
-    def init(self, model: torch.nn.Module) -> torch.optim.SGD:
-        return torch.optim.SGD(model.parameters(), lr=self.learning_rate(0),
+    def build(self, params, cuts) -> torch.optim.SGD:
+        return torch.optim.SGD(params, lr=self.learning_rate(0),
                                momentum=self.momentum,
                                nesterov=self.nesterov)
 
@@ -342,14 +367,17 @@ class LarsSGD(torch.optim.Optimizer):
     dense kernels), JAX's ``_no_norm_or_bias`` mask; biases and BN scales
     skip both. The trace is the state's ``momentum_buffer``. The trust
     coefficient (1e-3) and eps (0) are optax's defaults, which JAX's
-    ``lars`` keeps."""
+    ``lars`` keeps. A parameter in ``cuts`` is this rank's part of a whole
+    leaf (``Cut``), whose norms are the leaf's: the squared sums summed
+    over its axis."""
 
     TRUST_COEFFICIENT, EPS = 1e-3, 0.0
 
     def __init__(self, params, lr: float, weight_decay: float,
-                 momentum: float) -> None:
+                 momentum: float, cuts=None) -> None:
         super().__init__(params, dict(
             lr=lr, weight_decay=weight_decay, momentum=momentum))
+        self.cuts = dict(cuts or {})
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -360,8 +388,7 @@ class LarsSGD(torch.optim.Optimizer):
                 u = p.grad
                 if p.dim() >= 2:
                     u = u + group["weight_decay"] * p
-                    p_norm = torch.linalg.vector_norm(p)
-                    u_norm = torch.linalg.vector_norm(u)
+                    p_norm, u_norm = _norms(p, u, _axis_of(self.cuts, p))
                     ratio = (self.TRUST_COEFFICIENT * p_norm
                              / (u_norm + self.EPS))
                     ratio = torch.where((p_norm == 0) | (u_norm == 0),
@@ -387,9 +414,9 @@ class Lars(_Optimiser):
     weight_decay: float = 1e-4
     momentum: float = 0.9
 
-    def init(self, model: torch.nn.Module) -> LarsSGD:
-        return LarsSGD(model.parameters(), self.learning_rate(0),
-                       self.weight_decay, self.momentum)
+    def build(self, params, cuts) -> LarsSGD:
+        return LarsSGD(params, self.learning_rate(0), self.weight_decay,
+                       self.momentum, cuts)
 
 
 def lars(lr: float | Schedule = 1.0, weight_decay: float = 1e-4,
@@ -400,19 +427,28 @@ def lars(lr: float | Schedule = 1.0, weight_decay: float = 1e-4,
     return Lars(lr, weight_decay, momentum)
 
 
-def _trust_ratio(p: torch.Tensor, u: torch.Tensor, tp=None) -> torch.Tensor:
+def _axis_of(cuts: dict, p: torch.Tensor):
+    """The axis over which ``p`` is a part of its leaf (None: whole)."""
+    cut = cuts.get(id(p))
+    return None if cut is None else cut.axis
+
+
+def _norms(p: torch.Tensor, u: torch.Tensor, axis=None):
+    """``(|p|, |u|)`` (Frobenius). With ``axis`` (a ``TensorParallel``)
+    ``p`` and ``u`` are this rank's parts of a leaf, and the norms are the
+    whole leaf's: the squared sums all-reduced over the axis."""
+    if axis is None:
+        return torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
+    sq = axis.all_reduce_(torch.stack([p.square().sum(), u.square().sum()]))
+    return sq.sqrt().unbind()
+
+
+def _trust_ratio(p: torch.Tensor, u: torch.Tensor, axis=None
+                 ) -> torch.Tensor:
     """optax ``scale_by_trust_ratio``'s factor at its defaults (trust
-    coefficient 1, min_norm 0, eps 0): ``|p| / |u|`` (Frobenius), or 1
-    where either norm is 0. With ``tp`` (a ``TensorParallel``) ``p`` and
-    ``u`` are this rank's shards of a split leaf, and the norms are the
-    whole leaf's: the squared sums all-reduced over tp."""
-    if tp is None:
-        p_norm = torch.linalg.vector_norm(p)
-        u_norm = torch.linalg.vector_norm(u)
-    else:
-        sq = tp.all_reduce_(torch.stack([p.square().sum(),
-                                         u.square().sum()]))
-        p_norm, u_norm = sq.sqrt().unbind()
+    coefficient 1, min_norm 0, eps 0): ``|p| / |u|`` (``_norms``), or 1
+    where either norm is 0."""
+    p_norm, u_norm = _norms(p, u, axis)
     return torch.where((p_norm == 0) | (u_norm == 0),
                        torch.ones_like(p_norm), p_norm / u_norm)
 
@@ -431,16 +467,16 @@ class LambOptimizer(torch.optim.Optimizer):
 
     The state is ``exp_avg`` (m), ``exp_avg_sq`` (v) and ``step`` (n, a
     CPU tensor, as AdamW keeps it). b1, b2 and eps are optax's defaults,
-    which JAX's ``lamb`` keeps. ``split`` holds the parameters that are
-    this rank's shards of a tensor-parallel leaf and ``tp`` their axis:
-    their trust ratio takes the whole leaf's norms."""
+    which JAX's ``lamb`` keeps. ``cuts`` holds the parameters that are
+    this rank's parts of a leaf (``Cut``: tp, ep, FSDP or ZeRO-1): their
+    trust ratio takes the whole leaf's norms."""
 
     B1, B2, EPS = 0.9, 0.999, 1e-6
 
     def __init__(self, params, lr: float, weight_decay: float, *,
-                 tp=None, split=()) -> None:
+                 cuts=None) -> None:
         super().__init__(params, dict(lr=lr, weight_decay=weight_decay))
-        self.tp, self.split = tp, {id(p) for p in split}
+        self.cuts = dict(cuts or {})
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -463,8 +499,8 @@ class LambOptimizer(torch.optim.Optimizer):
                     torch.sqrt(v / (1 - b2 ** n)) + self.EPS)
                 if p.dim() >= 2:
                     u = u + group["weight_decay"] * p
-                tp = self.tp if id(p) in self.split else None
-                p.add_(u * _trust_ratio(p, u, tp) * -group["lr"])
+                p.add_(u * _trust_ratio(p, u, _axis_of(self.cuts, p))
+                       * -group["lr"])
 
 
 @dataclass(frozen=True)
@@ -476,10 +512,9 @@ class Lamb(_Optimiser):
     lr: float | Schedule
     weight_decay: float = 0.01
 
-    def init(self, model: torch.nn.Module) -> LambOptimizer:
-        tp, split = tp_split_params(model)
-        return LambOptimizer(model.parameters(), self.learning_rate(0),
-                             self.weight_decay, tp=tp, split=split)
+    def build(self, params, cuts) -> LambOptimizer:
+        return LambOptimizer(params, self.learning_rate(0),
+                             self.weight_decay, cuts=cuts)
 
 
 def lamb(lr: float | Schedule = 1e-3, weight_decay: float = 0.01) -> Lamb:
@@ -526,34 +561,42 @@ class AdafactorOptimizer(torch.optim.Optimizer):
     0, clipping at 1.0, eps 1e-30, parameter scale floored at 1e-3; no
     momentum and no weight decay.
 
-    ``split`` maps the parameters that are this rank's shards of a
-    tensor-parallel leaf to ``(whole shape, split dim)``, and ``tp`` is
-    their axis: such a leaf is factored on the axes of its WHOLE shape
-    (a shard may not be: a ``[128, 192]`` kernel split to ``[128, 96]``),
-    a mean over the split dim is the tp sum of the local sums over the
-    whole length, and the clip's ``rms(u)`` and the scale's ``rms(p)``
-    are the whole leaf's. Its ``v_row``/``v_col`` are the rank's part
-    (split where the leaf is, ``moment_split``)."""
+    ``cuts`` maps the parameters that are this rank's parts of a leaf
+    (tp, ep, FSDP or ZeRO-1) to their ``Cut``: such a leaf is factored on
+    the axes of its WHOLE shape (a part may not be: a ``[128, 192]``
+    kernel split to ``[128, 96]``), a mean over the split dim is the sum
+    over the cut's axis of the local sums over the whole length, and the
+    clip's ``rms(u)`` and the scale's ``rms(p)`` are the whole leaf's. Its
+    ``v_row``/``v_col`` are the rank's part (split where the leaf is,
+    ``moment_cut``)."""
 
     MIN_DIM_SIZE_TO_FACTOR, DECAY_RATE, CLIPPING_THRESHOLD = 128, 0.8, 1.0
     EPS, MIN_SCALE = 1e-30, 1e-3
 
-    def __init__(self, params, lr: float, *, tp=None, split=None) -> None:
+    def __init__(self, params, lr: float, *, cuts=None) -> None:
         super().__init__(params, dict(lr=lr))
-        self.tp, self.split = tp, dict(split or {})
+        self.cuts = dict(cuts or {})
 
-    def _mean(self, x: torch.Tensor, dim: int, whole: int, split: bool,
+    @property
+    def split(self) -> dict:
+        """``{id(parameter): (whole shape, split dim)}`` of the cut
+        parameters."""
+        return {k: (c.whole, c.dim) for k, c in self.cuts.items()}
+
+    @staticmethod
+    def _mean(x: torch.Tensor, dim: int, whole: int, axis,
               keepdim: bool = False) -> torch.Tensor:
         """The mean over ``dim`` of length ``whole``: the local sum
-        all-reduced over tp where ``dim`` is split."""
-        if not split:
+        all-reduced over ``axis`` where ``dim`` is split (None: not)."""
+        if axis is None:
             return x.mean(dim, keepdim=keepdim)
-        return self.tp.all_reduce_(x.sum(dim, keepdim=keepdim)) / whole
+        return axis.all_reduce_(x.sum(dim, keepdim=keepdim)) / whole
 
-    def _rms(self, x: torch.Tensor, size: int, split: bool) -> torch.Tensor:
-        if not split:
+    @staticmethod
+    def _rms(x: torch.Tensor, size: int, axis) -> torch.Tensor:
+        if axis is None:
             return torch.sqrt(torch.mean(x * x))
-        return torch.sqrt(self.tp.all_reduce_((x * x).sum()) / size)
+        return torch.sqrt(axis.all_reduce_((x * x).sum()) / size)
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -562,8 +605,10 @@ class AdafactorOptimizer(torch.optim.Optimizer):
                 if p.grad is None:
                     continue
                 g = p.grad
-                shape, at = self.split.get(id(p), (tuple(p.shape), None))
-                cut = at is not None
+                cut = self.cuts.get(id(p))
+                shape = tuple(p.shape) if cut is None else cut.whole
+                at = None if cut is None else cut.dim
+                axis = None if cut is None else cut.axis
                 dims = _factored_dims(shape, self.MIN_DIM_SIZE_TO_FACTOR)
                 state = self.state[p]
                 if not state:
@@ -584,40 +629,45 @@ class AdafactorOptimizer(torch.optim.Optimizer):
                 else:
                     d1, d0 = dims
                     v_row = state["v_row"].mul_(beta).add_(
-                        (1.0 - beta) * self._mean(g2, d0, shape[d0],
-                                                  at == d0))
+                        (1.0 - beta) * self._mean(
+                            g2, d0, shape[d0], axis if at == d0 else None))
                     v_col = state["v_col"].mul_(beta).add_(
-                        (1.0 - beta) * self._mean(g2, d1, shape[d1],
-                                                  at == d1))
+                        (1.0 - beta) * self._mean(
+                            g2, d1, shape[d1], axis if at == d1 else None))
                     rd1 = d1 - 1 if d1 > d0 else d1
                     row_factor = (v_row / self._mean(
-                        v_row, rd1, shape[d1], at == d1, keepdim=True)
-                                  ) ** -0.5
+                        v_row, rd1, shape[d1], axis if at == d1 else None,
+                        keepdim=True)) ** -0.5
                     u = (g * row_factor.unsqueeze(d0)
                          * (v_col ** -0.5).unsqueeze(d1))
                 state["step"] += 1
                 size = math.prod(shape)
                 u = u / torch.clamp_min(
-                    self._rms(u, size, cut) / self.CLIPPING_THRESHOLD, 1.0)
+                    self._rms(u, size, axis) / self.CLIPPING_THRESHOLD, 1.0)
                 u = u * group["lr"]
-                rms = self._rms(p, size, cut)
+                rms = self._rms(p, size, axis)
                 u = u * torch.where(rms <= self.MIN_SCALE,
                                     torch.full_like(rms, self.MIN_SCALE), rms)
                 p.sub_(u)
 
 
-def moment_split(key: str, whole: tuple, spec: tuple) -> tuple | None:
-    """The spec of an Adafactor moment ``key`` of a leaf of ``whole``
-    shape split by ``spec``: the leaf's spec without the dim the moment
-    averages away (``v_row``: the largest, ``v_col``: the second largest),
-    or None for a moment of no such kind."""
-    dims = _factored_dims(tuple(whole),
+def moment_cut(key: str, cut):
+    """The ``Cut`` of an Adafactor moment ``key`` of a leaf cut by ``cut``:
+    the leaf's cut without the dim the moment averages away (``v_row``:
+    the largest, ``v_col``: the second largest), None when that is the
+    split dim (the moment is then whole on every rank) or for a moment of
+    no such kind."""
+    from tf_operator_tpu_torch.parallel.sharding import Cut
+
+    dims = _factored_dims(cut.whole,
                           AdafactorOptimizer.MIN_DIM_SIZE_TO_FACTOR)
     if dims is None or key not in ("v_row", "v_col"):
         return None
     gone = dims[1] if key == "v_row" else dims[0]
-    spec = tuple(spec) + (None,) * (len(whole) - len(spec))
-    return spec[:gone] + spec[gone + 1:]
+    if gone == cut.dim:
+        return None
+    return Cut(cut.whole[:gone] + cut.whole[gone + 1:],
+               cut.dim - (cut.dim > gone), cut.axis)
 
 
 @dataclass(frozen=True)
@@ -628,21 +678,8 @@ class Adafactor(_Optimiser):
 
     lr: float | Schedule
 
-    def init(self, model: torch.nn.Module) -> AdafactorOptimizer:
-        from tf_operator_tpu_torch.models.convert import flax_path, param_shapes
-
-        tp, split = tp_split_params(model)
-        cut = {}
-        if split:
-            whole = param_shapes(model.cfg)
-            names = {id(p): n for n, p in model.named_parameters()}
-            for p in split:
-                shape = tuple(whole[flax_path(names[id(p)])])
-                at = next(d for d, (a, b) in enumerate(zip(shape, p.shape))
-                          if a != b)
-                cut[id(p)] = (shape, at)
-        return AdafactorOptimizer(model.parameters(), self.learning_rate(0),
-                                  tp=tp, split=cut)
+    def build(self, params, cuts) -> AdafactorOptimizer:
+        return AdafactorOptimizer(params, self.learning_rate(0), cuts=cuts)
 
 
 def adafactor(lr: float | Schedule = 1e-3) -> Adafactor:
@@ -677,19 +714,40 @@ def warmup_cosine(peak_lr: float, total_steps: int, *,
     return schedule
 
 
-def tp_split_params(model: torch.nn.Module) -> tuple[Any, list]:
-    """``(TensorParallel, parameters)`` of a model split over a ``tp``
-    axis above 1: the parameters that are this rank's shards of a leaf
-    (shaped unlike the whole leaf of ``models/convert.py``'s
-    ``param_shapes``); ``(None, [])`` for any other model."""
-    plan = getattr(model, "tp_plan", None)
-    if plan is None or plan.tp.size == 1 or not plan.train:
-        return None, []
-    from tf_operator_tpu_torch.models.convert import flax_path, param_shapes
+def param_cuts(model: torch.nn.Module) -> dict:
+    """``{id(parameter): Cut}`` of every parameter that is this rank's
+    part of a leaf cut over an axis above 1: a tensor-parallel model's
+    split leaves (shaped unlike ``models/convert.py``'s ``param_shapes``),
+    an expert-parallel MoE layer's ``w_in``/``w_out`` (its experts), and
+    the leaves ``shard_params_fsdp`` cut."""
+    from tf_operator_tpu_torch.parallel.sharding import Cut
 
-    whole = param_shapes(model.cfg)
-    return plan.tp, [p for name, p in model.named_parameters()
-                     if tuple(p.shape) != tuple(whole[flax_path(name)])]
+    out = {}
+    plan = getattr(model, "tp_plan", None)
+    if plan is not None and plan.tp.size > 1 and plan.train:
+        from tf_operator_tpu_torch.models.convert import (
+            flax_path,
+            param_shapes,
+        )
+
+        whole = param_shapes(model.cfg)
+        for name, p in model.named_parameters():
+            shape = tuple(whole[flax_path(name)])
+            if shape != tuple(p.shape):
+                at = next(d for d, (a, b) in enumerate(zip(shape, p.shape))
+                          if a != b)
+                out[id(p)] = Cut(shape, at, plan.tp)
+    for m in model.modules():
+        ep = getattr(m, "ep", None)
+        if ep is not None and ep.size > 1:
+            for p in (m.w_in, m.w_out):
+                out[id(p)] = Cut((m.cfg.n_experts,) + tuple(p.shape[1:]), 0,
+                                 ep)
+    fsdp = getattr(model, "fsdp", None)
+    if fsdp is not None and fsdp.axis.size > 1:
+        params = dict(model.named_parameters())
+        out.update({id(params[n]): c for n, c in fsdp.cuts.items()})
+    return out
 
 
 @dataclass
@@ -718,6 +776,214 @@ def _on(device, x) -> torch.Tensor:
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(x)
     return x.to(device)
+
+
+class ZeroOneOptimizer:
+    """ZeRO-1 over a torch optimiser (``weight_update_shardings``): the
+    model keeps its weights whole, and the optimiser updates only this
+    rank's part of each cut leaf (a view into the weight, so its moments
+    are the part's): ``grads`` reduce-scatters each cut leaf's gradient
+    into its part, ``step`` updates the parts and the whole leaves, then
+    all-gathers every cut leaf from its parts. ``views`` maps a cut
+    parameter's id to ``(parameter, part, Cut)``; ``param_groups``,
+    ``state`` and the state dict are the inner optimiser's."""
+
+    def __init__(self, model: torch.nn.Module, tx: "_Optimiser",
+                 cuts: dict) -> None:
+        self.views = {}
+        tensors, inner_cuts = [], {}
+        for name, p in model.named_parameters():
+            cut = cuts.get(name)
+            if cut is None:
+                tensors.append(p)
+                continue
+            part = cut.part(p.detach())
+            self.views[id(p)] = (p, part, cut)
+            tensors.append(part)
+            if cut.axis.size > 1:
+                inner_cuts[id(part)] = cut
+        self.model = model
+        self.inner = tx.build(tensors, inner_cuts)
+
+    @property
+    def param_groups(self):
+        return self.inner.param_groups
+
+    @property
+    def state(self):
+        return self.inner.state
+
+    def state_dict(self):
+        return self.inner.state_dict()
+
+    def load_state_dict(self, state_dict) -> None:
+        self.inner.load_state_dict(state_dict)
+
+    def held(self, p: torch.Tensor):
+        """``(the tensor the optimiser keeps p's state by, its Cut or
+        None)``."""
+        view = self.views.get(id(p))
+        return (p, None) if view is None else (view[1], view[2])
+
+    def adopt(self, old: torch.optim.Optimizer) -> None:
+        """Take ``old``'s state (an optimiser over the whole parameters),
+        each tensor cut to this rank's part as it is kept here."""
+        for p in self.model.parameters():
+            got = old.state.get(p)
+            if not got:
+                continue
+            key, cut = self.held(p)
+            self.inner.state[key] = {
+                k: _cut_state(k, v, cut).clone() if isinstance(
+                    v, torch.Tensor) else v for k, v in got.items()}
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self.model.zero_grad(set_to_none=set_to_none)
+        self.inner.zero_grad(set_to_none=set_to_none)
+
+    def grads(self, dp: DataParallel | None, rest: DataParallel | None
+              ) -> None:
+        """The mean gradients: each cut leaf's reduce-scattered over its
+        axis into its part and summed over the other data axes
+        (``rest``), every whole leaf's averaged over the data axes."""
+        whole = []
+        for p in self.model.parameters():
+            view = self.views.get(id(p))
+            if view is None:
+                whole.append(p)
+            elif p.grad is not None:
+                view[1].grad = view[2].axis.reduce_scatter(p.grad,
+                                                           view[2].dim)
+                p.grad = None
+        parts = [v[1] for v in self.views.values()]
+        if dp is not None:
+            dp.mean_grads(whole)
+            rest.mean_grads(parts, size=dp.size)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        self.inner.step()
+        for p, part, cut in self.views.values():
+            p.copy_(cut.gather(part.contiguous()))
+
+
+def state_cut(key: str, t: torch.Tensor, cut):
+    """The ``Cut`` of optimiser tensor ``key`` (whole or a part) of a leaf
+    cut by ``cut``: the leaf's for a tensor of its rank, an Adafactor
+    factored moment's (``moment_cut``), None for any other (a step count)
+    or an uncut leaf."""
+    if cut is None or not t.dim():
+        return None
+    if t.dim() == len(cut.whole):
+        return cut
+    return moment_cut(key, cut)
+
+
+def _cut_state(key: str, t: torch.Tensor, cut) -> torch.Tensor:
+    """This rank's part of a whole optimiser tensor (``state_cut``)."""
+    part = state_cut(key, t, cut)
+    return t if part is None else part.part(t)
+
+
+def _flax_specs(model: torch.nn.Module, specs: Any, what: str) -> dict:
+    """``{parameter name: (spec, the port dim of each flax dim)}`` of a
+    spec tree by flax path (``fsdp_sharding_tree``'s, in the params
+    tree's layout)."""
+    from tf_operator_tpu_torch.models.convert import _leaves, variable_layout
+    from tf_operator_tpu_torch.parallel.sharding import flax_dims
+
+    leaves, to_flax, _ = variable_layout(model)
+    given = dict(_leaves(specs)) if isinstance(specs, dict) else {}
+    names = {id(p): n for n, p in model.named_parameters()}
+    if given.keys() != leaves["params"].keys():
+        raise ValueError(f"{what}: the spec tree does not match the "
+                         "model's params tree")
+    return {names[id(p)]: (tuple(given[path]), flax_dims(to_flax, p.dim()))
+            for path, p in leaves["params"].items()}
+
+
+def _placement(model: torch.nn.Module, mesh: Any, dp, param_shardings,
+               opt_shardings, what: str):
+    """``(fsdp, zero, rest)``: the model's ``FullyShardedParallel`` under
+    ``param_shardings``, the ZeRO-1 cuts ``{name: Cut}`` under
+    ``opt_shardings``, and the ``DataParallel`` of the data axes other
+    than the one they cut over; Nones without either. Refuses what JAX's
+    contract does not hold: a spec tree that is not the model's cut, an
+    axis that is not a data axis, and either beside tp, sp or ep (ROADMAP
+    A8i)."""
+    from tf_operator_tpu_torch.parallel.sharding import Cut, TensorParallel
+
+    if param_shardings is None and opt_shardings is None:
+        return None, None, None
+    if mesh is None:
+        raise ValueError(f"{what}: param_shardings and opt_shardings need "
+                         "the mesh they name")
+    if param_shardings is not None and opt_shardings is not None:
+        raise ValueError(f"{what}: under param_shardings the moments are "
+                         "cut as the weights are; pass one of the two")
+    for axis in ("tp", "sp", "ep"):
+        if mesh.shape.get(axis, 1) > 1:
+            raise NotImplementedError(
+                f"{what}: FSDP or ZeRO-1 beside {axis}="
+                f"{mesh.shape[axis]} is not ported yet: see ROADMAP.md A8i "
+                "(FSDP, ZeRO-1 or expert parallel beside tp or sp)")
+    fsdp = zero = None
+    if param_shardings is not None:
+        fsdp = getattr(model, "fsdp", None)
+        if fsdp is None:
+            raise ValueError(f"{what}: cut the model with "
+                             "shard_params_fsdp before TrainState.create")
+        fsdp.check(param_shardings, what)
+        axis = fsdp.axis.axis
+    else:
+        specs = _flax_specs(model, opt_shardings, what)
+        axes = {a for spec, _ in specs.values() for a in spec if a}
+        if len(axes) > 1:
+            raise ValueError(f"{what}: opt_shardings name {sorted(axes)}; "
+                             "ZeRO-1 cuts over one data axis")
+        axis = next(iter(axes), None)
+        params = dict(model.named_parameters())
+        zero = {}
+        if axis is not None:
+            over = TensorParallel(mesh, axis)
+            for name, (spec, dims) in specs.items():
+                if axis in spec:
+                    zero[name] = Cut(tuple(params[name].shape),
+                                     dims[spec.index(axis)], over)
+    if axis is not None and axis not in dp.axes:
+        raise ValueError(f"{what}: {axis!r} is not one of the data axes "
+                         f"{dp.axes}")
+    rest = DataParallel(mesh, tuple(a for a in dp.axes if a != axis))
+    return fsdp, zero, rest
+
+
+def _zero_optimizer(state: "TrainState", tx: "_Optimiser", zero: dict
+                    ) -> ZeroOneOptimizer:
+    """The state's ZeRO-1 optimiser: on the step's first call the whole
+    one ``TrainState.create`` built is replaced, its state (a restored
+    one, say) cut to this rank's parts, as JAX's step constrains the
+    updated moments to ``opt_shardings``."""
+    opt = state.optimizer
+    if not isinstance(opt, ZeroOneOptimizer):
+        new = ZeroOneOptimizer(state.model, tx, zero)
+        new.adopt(opt)
+        state.optimizer = opt = new
+    return opt
+
+
+def _mean_grads(model, grads, fsdp, rest) -> None:
+    """Average the gradients over the data axes (``grads``); under FSDP a
+    cut leaf's gradient is already summed over its axis (the gather's
+    reduce-scatter) and is summed over the other data axes (``rest``)."""
+    if grads is None:
+        return
+    if fsdp is None:
+        grads.mean_grads(list(model.parameters()))
+        return
+    cut = {id(p) for n, p in model.named_parameters() if n in fsdp.cuts}
+    grads.mean_grads([p for p in model.parameters() if id(p) not in cut])
+    rest.mean_grads([p for p in model.parameters() if id(p) in cut],
+                    size=grads.size)
 
 
 def _step_data_parallel(model: torch.nn.Module, mesh: Any, data_axis: Any,
@@ -767,7 +1033,9 @@ def _deal_microbatches(dp: DataParallel, x, grad_accum: int
 def make_lm_train_step(model: Transformer, tx: _Optimiser, *,
                        xent_chunk: int | None = None, xent_dot_dtype=None,
                        grad_accum: int = 1, aux_loss_weight: float = 0.0,
-                       mesh: Any = None, data_axis: Any = "dp"):
+                       mesh: Any = None, data_axis: Any = "dp",
+                       param_shardings: Any = None,
+                       opt_shardings: Any = None):
     """The train step for the LM, on one device: the loss (mean token
     cross-entropy; ``chunked_lm_xent`` when ``xent_chunk`` is set, with
     the head product in ``xent_dot_dtype``), its gradients and one
@@ -785,13 +1053,25 @@ def make_lm_train_step(model: Transformer, tx: _Optimiser, *,
     ``batch`` is ``{"tokens", "targets"}``, ``[B, S]`` integer tensors or
     numpy arrays; they are moved to the model's device. Under a ``mesh``
     they are this rank's rows of the global batch, the rows of its data
-    index (the module docstring)."""
+    index (the module docstring).
+
+    ``param_shardings`` (``fsdp_sharding_tree``'s specs of a model cut by
+    ``shard_params_fsdp``) trains FSDP: each leaf gathered for the
+    forward, its gradient reduce-scattered. ``opt_shardings``
+    (``weight_update_shardings``, in the params tree's layout) trains
+    ZeRO-1: the weights stay whole and the optimiser updates this rank's
+    part of each cut leaf (``ZeroOneOptimizer``, which replaces the
+    state's optimiser on the first call); as in JAX's step, the weights
+    are then whole on every rank after each update."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum={grad_accum} must be >= 1")
     if model.cfg.decode:
         raise ValueError("train a model built with decode=False")
     dp = _step_data_parallel(model, mesh, data_axis, "make_lm_train_step")
     data_size = dp.size if dp is not None else 1
+    fsdp, zero, rest = _placement(model, mesh, dp, param_shardings,
+                                  opt_shardings, "make_lm_train_step")
+    gathered = fsdp.gathered if fsdp is not None else contextlib.nullcontext
     plan = model.tp_plan
     if (plan is not None or mesh is not None and mesh.shape.get("tp", 1) > 1
             ) and model.cfg.mesh is not mesh:
@@ -845,22 +1125,28 @@ def make_lm_train_step(model: Transformer, tx: _Optimiser, *,
         targets = _on(model.device, targets)
         b = tokens.shape[0]
         opt = state.optimizer
+        if zero is not None:
+            opt = _zero_optimizer(state, tx, zero)
         opt.zero_grad(set_to_none=True)
         mb = b // grad_accum
         loss = torch.zeros((), dtype=torch.float32, device=model.device)
         aux_sum = torch.zeros_like(loss)
         for i in range(grad_accum):
             rows = slice(i * mb, (i + 1) * mb)
-            micro, aux = loss_fn(tokens[rows], targets[rows])
-            (micro / grad_accum).backward()
+            with gathered():
+                micro, aux = loss_fn(tokens[rows], targets[rows])
+                (micro / grad_accum).backward()
             loss += micro.detach()
             if aux is not None:
                 aux_sum += aux.detach()
         if grad_accum > 1:  # JAX's scan: the sums times 1 / grad_accum
             loss *= 1.0 / grad_accum
             aux_sum *= 1.0 / grad_accum
+        if zero is not None:
+            opt.grads(grads, rest)
+        else:
+            _mean_grads(model, grads, fsdp, rest)
         if grads is not None:
-            grads.mean_grads(list(model.parameters()))
             loss, aux_sum = grads.mean(torch.stack([loss, aux_sum])).unbind()
         lr = tx.learning_rate(state.step)
         for group in opt.param_groups:
@@ -880,6 +1166,13 @@ def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (logits.argmax(-1) == labels).float().mean()
 
 
+def _gathered(model: torch.nn.Module):
+    """A model cut by ``shard_params_fsdp`` with its leaves whole, for an
+    eval's forward; any other model as it is."""
+    fsdp = getattr(model, "fsdp", None)
+    return fsdp.gathered() if fsdp is not None else contextlib.nullcontext()
+
+
 def _check_batch_stats(model: torch.nn.Module, has_batch_stats: bool) -> None:
     """JAX's ``has_batch_stats`` names whether the model carries a
     ``batch_stats`` collection; in the port the BatchNorm buffers are it,
@@ -893,7 +1186,8 @@ def _check_batch_stats(model: torch.nn.Module, has_batch_stats: bool) -> None:
 
 def make_classifier_train_step(model: torch.nn.Module, tx: _Optimiser, *,
                                has_batch_stats: bool = True,
-                               mesh: Any = None, data_axis: Any = "dp"):
+                               mesh: Any = None, data_axis: Any = "dp",
+                               param_shardings: Any = None):
     """The train step for the image classifiers, on one device: the
     forward in training mode (BatchNorm on the batch's statistics, its
     running statistics updated), the mean cross-entropy of the f32
@@ -904,10 +1198,14 @@ def make_classifier_train_step(model: torch.nn.Module, tx: _Optimiser, *,
     ``batch`` is ``{"image": [B, H, W, C], "label": [B]}``, numpy arrays
     or tensors; they are moved to the model's device. Under a ``mesh``
     they are this rank's rows of the global batch, and BatchNorm takes
-    the global batch's statistics."""
+    the global batch's statistics. ``param_shardings`` trains FSDP, as
+    ``make_lm_train_step``'s does."""
     _check_batch_stats(model, has_batch_stats)
     dp = _step_data_parallel(model, mesh, data_axis,
                              "make_classifier_train_step")
+    fsdp, _, rest = _placement(model, mesh, dp, param_shardings, None,
+                               "make_classifier_train_step")
+    gathered = fsdp.gathered if fsdp is not None else contextlib.nullcontext
 
     def step(state: TrainState, batch) -> tuple[TrainState, dict]:
         if state.model is not model:
@@ -916,13 +1214,14 @@ def make_classifier_train_step(model: torch.nn.Module, tx: _Optimiser, *,
         labels = _on(model.device, batch["label"])
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
-        logits = model(images, train=True)
-        loss = cross_entropy(logits, labels)
-        loss.backward()
+        with gathered():
+            logits = model(images, train=True)
+            loss = cross_entropy(logits, labels)
+            loss.backward()
         acc = accuracy(logits.detach(), labels)
         loss = loss.detach()
+        _mean_grads(model, dp, fsdp, rest)
         if dp is not None:
-            dp.mean_grads(list(model.parameters()))
             loss, acc = dp.mean(torch.stack([loss, acc])).unbind()
         lr = tx.learning_rate(state.step)
         for group in opt.param_groups:
@@ -1047,7 +1346,7 @@ class LMEvalStep:
         targets = _on(model.device, batch["targets"])
         mask = _on(model.device, batch["mask"])
         chunk = self.chunk_for(tokens.shape[1])
-        with torch.no_grad():
+        with torch.no_grad(), _gathered(model):
             hidden = model(tokens, return_hidden=True)
             head = model.lm_head
             # The token count is not kept: evaluate_lm counts on the host
@@ -1129,7 +1428,7 @@ class ClassifierEvalStep:
         batch = _eval_shard(self.dp, batch, ("image", "label", "mask"))
         labels = _on(model.device, batch["label"]).long()
         mask = _on(model.device, batch["mask"])
-        with torch.no_grad():
+        with torch.no_grad(), _gathered(model):
             logits = model(_on(model.device, batch["image"]), train=False)
             per_example = F.cross_entropy(logits.float(), labels,
                                           reduction="none")

@@ -3,7 +3,8 @@
     python tools/torch_classifier_probe.py
 
 Phase 1's settings first (TF32 off for cuDNN and matmuls), then (a) to
-(d) exactly as chip_smoke.py runs them after phase 20. Builds no kernel:
+(c) as chip_smoke.py runs them after phase 20, then (d), which
+chip_smoke.py runs beside phase 22 (c) and (d), alone. Builds no kernel:
 no hand kernel lies on this path. Exits non-zero without a card.
 """
 
@@ -27,6 +28,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     chip_smoke.classifier_phase(card)
+    chip_smoke.mnist_entry_phase(card)
     return 0
 
 
