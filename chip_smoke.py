@@ -212,6 +212,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
     run 2 prints ``resumed from step`` ``ENTRY_FAIL_AT + 1`` and exits 0;
     run 3, uninterrupted, must end on run 2's final checkpoint (bitwise,
     else within phase 8's Adam bound, the largest difference printed);
+    phase 26 (k) runs in a thread beside (b) (neither times anything);
 19. disaggregated prefill, prefix pulls and the host KV tier
     (``serve/disagg.py``, ``serve/tier.py``, the engine's ingest, export,
     retention, spill and restore) at phase 6's width: (a) f32, a
@@ -364,7 +365,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
     ``LOGIT_TOL``; each path's launches summed over the ranks (a worker's
     counts reach rank 0 through the ``report`` command); the phase's
     seconds;
-26. tensor-, sequence-, fully sharded and expert-parallel training
+26. tensor-, sequence-, fully sharded, expert- and pipeline-parallel
+    training
     (the Megatron layout's backward,
     ``sharded_lm_xent``, dp x tp meshes, checkpoints under tp; B1-B3 on
     every rank over its heads) at phase 9's training cell: (a) an NCCL
@@ -426,9 +428,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
     ranks, the MoE cell over ``{"ep": 2}`` (each rank 4 of 8 experts a
     MoE layer: 276,960,256 parameters, 134,217,728 of them experts) held
     to (f)'s plain MoE run by (b)'s bounds, with the bytes of the ep
-    all-reduces a step; every step second and tokens/s of (b) and (d) to
-    (h) is read with (c) (and (f)) running beside them on the same card
-    and host cores; the phase's seconds;
+    all-reduces a step; (i) after (f)'s runs in its NCCL world of 1,
+    the cell over ``{"pp": 1}`` (``train/pp_lm.py``) by GPipe and by 1F1B
+    at ``PP_MICRO`` microbatches, held to (a)'s last plain run by (b)'s
+    bounds, with each kernel's exact launches (a microbatch's blocks run
+    once a microbatch; 1F1B recomputes the forward); (j) in (b)'s ranks
+    after (h), the cell over ``{"pp": PP}`` (4 blocks a rank) by each
+    schedule from the seeded tree, held to (a)'s tp 1 run by (b)'s bounds,
+    with each rank's weight and AdamW bytes, bytes staged a step, peak
+    memory, stash high-water mark, step seconds and exact launches; (k)
+    (run in a thread beside 18 (b)) ``dist_lm --pp PP`` at ENTRY_ARGS by
+    1F1B (``PP_ENTRY_MICRO`` microbatches), killed at ``ENTRY_FAIL_AT``
+    and resumed, then ``serve_lm --from-pp PP`` over its checkpoint
+    answering ``PP_PROMPT`` with ``PP_ANSWER``; every step second and
+    tokens/s of (b) and (d) to (j) is read with (c) (and (f), (i))
+    running beside them on the same card and host cores; the phase's
+    seconds;
 27. tensor x data parallel serving (``serve_lm --dp``; the dp half of
     ``serve/sharding.py``, the dp allocators, global dp admission; B4 on
     every rank over its pool tile): (a) ``serve_lm``'s front at phase
@@ -932,6 +947,23 @@ ADAFACTOR_MOVE_RATIO = 0.5
 # probabilities, and Adam moves a weight by about lr a step whatever its
 # gradient, so ADAM_BOUND holds either way.
 FSDP = EP = 2
+# (i) pipeline parallelism (train/pp_lm.py) on phase 9's cell: in (a)'s
+# NCCL world of 1, the cell over {"pp": 1} at PP_MICRO microbatches by
+# GPipe and by 1F1B, after (a)'s last plain run, TP_TRAIN_STEPS steps each
+# from the seeded tree; (j) in (b)'s ranks over {"pp": PP} (4 of the 8
+# blocks a rank), the same. Both are held to (a)'s tp 1 run by (b)'s
+# bounds: the pipelined head runs in f32 where tp 1's product is bf16
+# (JAX's pp step takes no head dtype), which moves the loss by ~1e-6 of
+# it on random weights, and a microbatch's products and the gradients'
+# sums over microbatches round in another order. (k) dist_lm --pp PP at
+# ENTRY_ARGS by 1F1B at PP_ENTRY_MICRO microbatches, killed at
+# ENTRY_FAIL_AT and resumed, beside 18 (b); then serve_lm --from-pp PP
+# over its checkpoint answers PP_PROMPT with PP_ANSWER
+# (tests/test_examples.py's check; 20 steps at these flags are too few
+# for a 4-token prompt, 30 are enough on the CPU).
+PP, PP_MICRO, PP_ENTRY_MICRO = 2, 2, 4
+PP_SCHEDULES = ("gpipe", "1f1b")
+PP_PROMPT, PP_ANSWER = [5, 6, 7, 8], [9, 10, 11, 12]
 
 
 def entry_flash_shape() -> tuple[int, int, int, int]:
@@ -6767,6 +6799,7 @@ def tp_train_nccl_phase(card: str) -> tuple[dict, dict]:
         raise AssertionError(f"26a launches {launches}, want {want} of each")
     del first
     torch.cuda.empty_cache()
+    ref["plain_s"] = seconds["plain"]
     run = train_run(cfg, params, batch, ADAFACTOR_STEPS,
                     adafactor(TP_TRAIN_LR), **kw)
     model = run.pop("model")
@@ -6789,15 +6822,113 @@ def tp_train_nccl_phase(card: str) -> tuple[dict, dict]:
     return launches, ref
 
 
+def pp_rank_run(cfg, tree: dict, mesh, batch: dict, schedule: str,
+                device) -> tuple[dict, object]:
+    """``TP_TRAIN_STEPS`` steps of the pipelined cell (``cfg``, no mesh of
+    its own) over ``mesh`` by ``schedule`` at ``PP_MICRO`` microbatches,
+    this rank's stage built from ``tree`` (``split_pp_params``' layout) and
+    its rows of the host ``batch``, the peak memory reset first:
+    ``rank_steps``' numbers plus the stash's high-water mark, the weight
+    and AdamW bytes this rank holds and its peak device bytes; and the
+    stage model."""
+    from tf_operator_tpu_torch.train import pp_lm
+    from tf_operator_tpu_torch.train.steps import TrainState, adamw
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    model = pp_lm.pp_model(cfg, mesh, tree, device=device)
+    tx = adamw(TP_TRAIN_LR)
+    state = TrainState.create(model, tx)
+    step = pp_lm.make_pp_lm_train_step(cfg, mesh, tx, num_micro=PP_MICRO,
+                                       xent_chunk=XENT_CHUNK,
+                                       schedule=schedule)
+    leg = rank_steps(step, state, pp_lm.pp_rows(mesh, batch, PP_MICRO),
+                     TP_TRAIN_STEPS, cuda)
+    leg.update(
+        mark=step.stash_mark,
+        param_bytes=sum(p.numel() * p.element_size()
+                        for p in model.parameters()),
+        adam_bytes=sum(v.numel() * v.element_size()
+                       for st in state.optimizer.state.values()
+                       for v in st.values()
+                       if isinstance(v, torch.Tensor) and v.dim()),
+        peak_bytes=torch.cuda.max_memory_allocated() if cuda else 0)
+    return leg, model
+
+
+def pp_world1_runs(card: str, cfg, params: dict, ref: dict,
+                   device: str = "cuda") -> dict:
+    """Phase 26 (i), in (f)'s NCCL world of 1 after go: the cell over
+    ``{"pp": 1}`` by GPipe and by 1F1B at ``PP_MICRO`` microbatches from
+    the seeded tree, each held to (a)'s last plain run by (b)'s bounds.
+    Returns {path label: flash launches}."""
+    from tf_operator_tpu_torch.parallel.mesh import create_mesh
+    from tf_operator_tpu_torch.train.pp_lm import split_pp_params
+
+    mesh = create_mesh({"pp": 1}, device=device)
+    tree = dict(zip(("outer", "stages"),
+                    split_pp_params(params, cfg.n_layers, 1)))
+    batch = tp_train_batch(cfg.vocab_size, TRAIN_B, TRAIN_T, "cpu")
+    lr_sum = TP_TRAIN_LR * TP_TRAIN_STEPS
+    out, lines, bad = {}, [], []
+    plain_tok_s = TRAIN_B * TRAIN_T / float(np.median(ref["plain_s"]))
+    for sched in PP_SCHEDULES:
+        leg, model = pp_rank_run(cfg, tree, mesh, batch, sched, device)
+        loss_err = [abs(a - b) / abs(b) for a, b in zip(leg["losses"],
+                                                        ref["losses"])]
+        errs = {n: float((p.detach().float().cpu() - ref["weights"][n]
+                          ).abs().max())
+                for n, p in model.named_parameters()}
+        at = max(errs, key=errs.get)
+        bitwise = leg["losses"] == ref["losses"] and not any(errs.values())
+        # A microbatch's blocks run once a microbatch: twice a layer a step
+        # (1F1B: its backward recomputes the forward).
+        want = {"fwd": (2 if sched == "1f1b" else 1),
+                "dq": 1, "dkv": 1}
+        want = {k: v * PP_MICRO * cfg.n_layers * TP_TRAIN_STEPS
+                for k, v in want.items()}
+        tok_s = TRAIN_B * TRAIN_T / float(np.median(leg["seconds"][1:]))
+        lines.append(
+            f"{sched}: losses {leg['losses']} (relative "
+            f"{[f'{e:.3e}' for e in loss_err]}), largest weight difference "
+            f"{errs[at]:.3e} in {at}, "
+            f"{'bitwise' if bitwise else 'not bitwise'}; stash mark "
+            f"{leg['mark']}, peak {leg['peak_bytes']} bytes, step_s "
+            f"{leg['seconds']}, tokens/s {tok_s:.2f} ({tok_s / plain_tok_s:.4f}"
+            f" of the plain step's), launches {leg['counts']}")
+        if (not max(loss_err) <= TP_TRAIN_LOSS_RTOL
+                or not errs[at] <= ADAM_BOUND * lr_sum
+                or leg["counts"] != want):
+            bad.append(f"{sched}: losses {loss_err}, weights {errs[at]}, "
+                       f"launches {leg['counts']} (want {want})")
+        out[f"train pp {sched} nccl world 1 (26i)"] = dict(zip(
+            FLASH_KERNELS, leg["counts"].values()))
+        del leg, model
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    print(f"train pp nccl world 1 (26i): bf16 B={TRAIN_B} T={TRAIN_T} over "
+          f"{mesh}, {PP_MICRO} microbatches, {TP_TRAIN_STEPS} steps a run "
+          f"from the seeded tree against (a)'s last plain run (losses "
+          f"{ref['losses']}, tolerances {TP_TRAIN_LOSS_RTOL} and "
+          f"{ADAM_BOUND * lr_sum:.3e}; (a)'s plain tokens/s "
+          f"{plain_tok_s:.2f}): {'; '.join(lines)} (after go, beside (b)'s "
+          f"ranks and (c)) on {card}", flush=True)
+    if bad:
+        raise AssertionError(f"26i: {bad}")
+    return out
+
+
 def sharded_world1_phase(card: str, ref: dict) -> dict:
     """Phase 26 (f), run after go, beside (b)'s ranks and (c): in an NCCL
     world of 1 in this process, phase 9's bf16 step under FSDP over
     ``{"fsdp": 1}`` and under ZeRO-1 over ``{"dp": 1}``
     (``weight_update_shardings``), ``TP_TRAIN_STEPS`` steps each from the
     seeded tree: losses and weights bitwise (a)'s last plain run; then
-    the MoE cell plain and over ``{"dp": 1, "ep": 1}``
-    (``moe_world1_runs``). Sets ``ref["moe"]``; returns {path label:
-    flash launches}."""
+    (i) (``pp_world1_runs``); then the MoE cell plain and over ``{"dp":
+    1, "ep": 1}`` (``moe_world1_runs``). Sets ``ref["moe"]``; returns
+    {path label: flash launches}."""
     import torch.distributed as dist
 
     from tf_operator_tpu_torch.models.convert import init_params
@@ -6854,6 +6985,7 @@ def sharded_world1_phase(card: str, ref: dict) -> dict:
               f"tree against (a)'s plain run (losses {ref['losses']}): "
               f"{'; '.join(lines)} (beside (b)'s ranks and (c)) on {card}",
               flush=True)
+        out.update(pp_world1_runs(card, cfg, params, ref))
         del params
         moe_launches, ref["moe"] = moe_world1_runs(card)
         out["train moe ep nccl world 1 (26f)"] = moe_launches
@@ -7024,7 +7156,8 @@ def tp_train_rank(out: str) -> int:
     sequence-parallel model over ``{"sp": SP}`` (the flash ring, then
     Ulysses) and (e) Adafactor at tp 2, each from the seeded tree, rank 0
     saving the weights of (d)'s flash ring and of (e); then (g) and (h)
-    (``sharded_legs``); writes its numbers to ``out/rank{r}.json``."""
+    (``sharded_legs``) and (j) (``pp_legs``); writes its numbers to
+    ``out/rank{r}.json``."""
     from concurrent.futures import ThreadPoolExecutor
 
     from tf_operator_tpu_torch.models.convert import (
@@ -7138,6 +7271,8 @@ def tp_train_rank(out: str) -> int:
     result.update(sharded_legs(cell, tree, moe_tree.result(), batch, device,
                                out))
     pool.shutdown()
+    # (j) the pipelined cell over the same world.
+    result["pp"] = pp_legs(cell, tree, device, out)
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump(result, f)
     distributed.shutdown()
@@ -7255,6 +7390,93 @@ def sharded_legs(cell: dict, tree: dict, moe_tree: dict, batch: dict,
     return result
 
 
+def pp_legs(cell: dict, tree: dict, device, out: str) -> dict:
+    """26 (j) on this rank of (b)'s world: phase 9's cell over ``{"pp":
+    PP}`` (this rank's stage, ``PP_MICRO`` microbatches of the whole
+    batch) by each of ``PP_SCHEDULES`` from the seeded tree, this rank's
+    weights saved under their places in the whole stack to
+    ``out/pp_{schedule}_{rank}.pt``. Returns each schedule's numbers
+    (``pp_rank_run``)."""
+    from tf_operator_tpu_torch.models.transformer import TransformerConfig
+    from tf_operator_tpu_torch.parallel.mesh import create_mesh
+    from tf_operator_tpu_torch.train.pp_lm import split_pp_params
+
+    cfg = TransformerConfig(dtype=torch.bfloat16, **cell["lm"])
+    mesh = create_mesh({"pp": PP}, device=device)
+    pp_tree = dict(zip(("outer", "stages"),
+                       split_pp_params(tree, cfg.n_layers, PP)))
+    batch = tp_train_batch(cfg.vocab_size, cell["b"], cell["t"], "cpu")
+    result = {}
+    for sched in PP_SCHEDULES:
+        leg, model = pp_rank_run(cfg, pp_tree, mesh, batch, sched, device)
+        stage = model.pipeline.stage
+        k = cfg.n_layers // stage.size
+        mine = {}
+        for path, p in _named_flax(model):
+            if path[0].startswith("block_"):
+                path = (f"block_{stage.index * k + int(path[0][6:])}",
+                        *path[1:])
+            mine["/".join(path)] = p.float().cpu()
+        torch.save(mine, os.path.join(out, f"pp_{sched}_{stage.index}.pt"))
+        result[sched] = leg
+        del model, mine
+    return result
+
+
+def pp_pair_checks(ranks: list, ref: dict, tmp: str, card: str) -> dict:
+    """26 (j) from the ranks' numbers and saved weights: printed, checked
+    against (a)'s tp 1 run by (b)'s bounds (an ``AssertionError`` on a
+    failure) and returned as {path label: the ranks' summed flash
+    launches}."""
+    lr_sum = TP_TRAIN_LR * TP_TRAIN_STEPS
+    k = LM["n_layers"] // PP
+    out, bad = {}, []
+    for sched in PP_SCHEDULES:
+        legs = [r["pp"][sched] for r in ranks]
+        got = {}
+        for r in range(PP):
+            got.update(torch.load(os.path.join(tmp, f"pp_{sched}_{r}.pt"),
+                                  weights_only=True))
+        max_err, at, far, total = weights_apart(got, ref["weights"], lr_sum)
+        loss_err = [abs(a - b) / abs(b) for a, b in zip(legs[0]["losses"],
+                                                        ref["losses"])]
+        want = {"fwd": 2 if sched == "1f1b" else 1, "dq": 1, "dkv": 1}
+        want = {c: n * PP_MICRO * k * TP_TRAIN_STEPS for c, n in want.items()}
+        marks = [min(PP_MICRO, 2 * PP - 1 - 2 * s) if sched == "1f1b" else 0
+                 for s in range(PP)]
+        print(f"train pp {PP} {sched} (26j): bf16 B={TRAIN_B} T={TRAIN_T} "
+              f"over {{'pp': {PP}}} as {PP} gloo processes on one card, {k} "
+              f"blocks a rank, {PP_MICRO} microbatches, {TP_TRAIN_STEPS} "
+              f"steps from the seeded tree: losses {legs[0]['losses']} (rank "
+              f"1 {legs[1]['losses']}) against tp 1's {ref['losses']}, "
+              f"relative {[f'{e:.3e}' for e in loss_err]} (tolerance "
+              f"{TP_TRAIN_LOSS_RTOL}); weights against tp 1's: largest "
+              f"difference {max_err:.3e} in {at} (tolerance "
+              f"{ADAM_BOUND * lr_sum:.3e}), {far} of {total} beyond 1 % of "
+              f"the summed lr; weight bytes a rank "
+              f"{[g['param_bytes'] for g in legs]}, AdamW bytes a rank "
+              f"{[g['adam_bytes'] for g in legs]}; bytes staged through the "
+              f"host a step {[g['staged'] for g in legs]}; peak device "
+              f"bytes a rank {[g['peak_bytes'] for g in legs]}; stash "
+              f"high-water mark a rank {[g['mark'] for g in legs]}; step_s "
+              f"{[g['seconds'] for g in legs]}; flash launches a rank "
+              f"{[g['counts'] for g in legs]} (host staging on one card, "
+              f"read with 26 (c) beside) on {card}", flush=True)
+        if (legs[0]["losses"] != legs[1]["losses"]
+                or not max(loss_err) <= TP_TRAIN_LOSS_RTOL
+                or not max_err <= ADAM_BOUND * lr_sum
+                or any(g["counts"] != want for g in legs)
+                or [g["mark"] for g in legs] != marks):
+            bad.append(sched)
+        out[f"train pp {PP} {sched} (26j)"] = {
+            key: sum(g["counts"][c] for g in legs)
+            for key, c in zip(FLASH_KERNELS, ("fwd", "dq", "dkv"))}
+    if bad:
+        raise AssertionError(f"26j: pp {PP} parts from tp 1 or its launches "
+                             f"or stash marks are off: {bad}")
+    return out
+
+
 def _named_flax(model):
     """(flax path, parameter) of each of ``model``'s parameters."""
     from tf_operator_tpu_torch.models.convert import flax_path
@@ -7317,7 +7539,7 @@ def start_tp_train_ranks(tmp: str, procs: list, logs: list) -> None:
 
 def tp_train_pair_phase(card: str, ref: dict, tmp: str, procs: list,
                         logs: list, t0: float) -> dict:
-    """Phase 26 (b), (d), (e), (g) and (h): the ranks
+    """Phase 26 (b), (d), (e), (g), (h) and (j): the ranks
     ``start_tp_train_ranks`` started, told to go at ``t0``, against (a)'s
     and (f)'s runs. Returns {path label: the ranks' summed flash
     launches}."""
@@ -7373,6 +7595,7 @@ def tp_train_pair_phase(card: str, ref: dict, tmp: str, procs: list,
         raise AssertionError("tp 2 parts from tp 1")
     paths = sp_pair_checks(ranks, ref, saved, card)
     paths.update(sharded_pair_checks(ranks, ref, saved, card))
+    paths.update(pp_pair_checks(ranks, ref, tmp, card))
     want_n = TP * LM["n_layers"] * TP_TRAIN_STEPS
     if set(launches.values()) != {want_n}:
         raise AssertionError(f"26b launches {launches}, want {want_n}")
@@ -7738,10 +7961,93 @@ def tp_entry_phase(card: str) -> dict:
     return launches
 
 
+def pp_entry_phase(card: str) -> dict:
+    """Phase 26 (k), run in a thread beside 18 (b) (neither times
+    anything): ``dist_lm --pp PP`` at ENTRY_ARGS by 1F1B at
+    ``PP_ENTRY_MICRO`` microbatches as PP gloo ranks, killed at
+    ``ENTRY_FAIL_AT`` and resumed; then ``serve_lm --from-pp PP`` over its
+    checkpoint answers ``PP_PROMPT`` with ``PP_ANSWER``. Returns {path
+    label: flash launches}."""
+    module = "tf_operator_tpu_torch.train.dist_lm"
+    args = with_flags(ENTRY_ARGS, pp=PP, pp_schedule="1f1b",
+                      pp_microbatches=PP_ENTRY_MICRO)
+    procs: list = []
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ck")
+        logs: dict = {}
+        try:
+            for leg, kill in (("first", ["--fail-at-step",
+                                         str(ENTRY_FAIL_AT)]),
+                              ("second", [])):
+                logs[leg] = start_ranks(module, args + [
+                    "--checkpoint-dir", ck, *kill], PP, tmp, f"pp{leg}",
+                    procs)
+                codes = wait_all(procs)
+                procs.clear()
+                if codes != [138 if kill else 0] * PP:
+                    raise AssertionError(f"26k {leg}: rc {codes}: " + "\n"
+                                         .join(read_log(p)[-2000:]
+                                               for p in logs[leg]))
+            serve_log = start_ranks(
+                "tf_operator_tpu_torch.serve.serve_lm", [
+                    "--port", str(port := free_port()), "--checkpoint-dir",
+                    ck, "--from-pp", str(PP), "--requests", "1",
+                    *with_flags([], d_model=512, layers=2, vocab=256,
+                                max_seq_len=128)],
+                None, tmp, "ppserve", procs)[0]
+            url = f"http://127.0.0.1:{port}"
+            limit = time.monotonic() + 120
+            while True:
+                try:
+                    http(url, "/healthz", timeout=5)
+                    break
+                except OSError:
+                    if (procs[0].poll() is not None
+                            or time.monotonic() > limit):
+                        raise AssertionError(
+                            f"26k: serve_lm --from-pp: "
+                            f"{read_log(serve_log)[-2000:]}")
+                    time.sleep(0.2)
+            status, body = http(url, "/generate", {
+                "tokens": [PP_PROMPT], "num_steps": len(PP_ANSWER)})
+            code = wait_all(procs, timeout=60)[0]
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        outs = [read_log(p) for p in logs["second"]]
+        served = read_log(serve_log)
+        launches = {f"dist_lm pp {PP} 1f1b (26k)": rank_launches(
+            logs["first"] + logs["second"], "26k")}
+    printed = [re.findall(r"step (\d+) loss=(\S+)", o)
+               + re.findall(r"(final) loss (\S+)", o) for o in outs]
+    last = int(ENTRY_ARGS[ENTRY_ARGS.index("--steps") + 1]) - 1
+    restored = (f"serve_lm: restored target checkpoint step {last} "
+                f"(merged from pp={PP})")
+    print(f"dist_lm pp {PP} (26k): {' '.join(args)} --dist-backend gloo: "
+          f"killed at step {ENTRY_FAIL_AT} (exit 138 on both ranks) and "
+          f"resumed from step {ENTRY_FAIL_AT + 1}; printed losses after the "
+          f"resume {printed}; serve_lm --from-pp {PP} over its checkpoint: "
+          f"{status} {body} for {PP_PROMPT} (want {PP_ANSWER}), exit {code};"
+          f" launches {launches}; {time.perf_counter() - t0:.1f} s beside 18 "
+          f"(b) on {card}", flush=True)
+    resumed = f"dist_lm: resumed from step {ENTRY_FAIL_AT + 1}"
+    if (not all(resumed in o and "dist_lm: OK" in o
+                and f"process {r}/{PP}, mesh {{'dp': 1, 'sp': 1, 'tp': 1, "
+                    f"'pp': {PP}}}" in o for r, o in enumerate(outs))
+            or status != 200 or body["tokens"][0] != PP_ANSWER
+            or code != 0 or restored not in served):
+        raise AssertionError("26k: dist_lm --pp or serve_lm --from-pp fails "
+                             "its checks: " + served[-2000:])
+    return launches
+
+
 def tp_train_phase(card: str) -> dict:
-    """Phase 26, (a) to (e): (b)'s ranks started before (a) and waiting
-    for it, (c) in a thread beside (b), (d) and (e); returns {path label:
-    flash launches}."""
+    """Phase 26, (a) to (j): (b)'s ranks started before (a) and waiting
+    for it, (c) in a thread beside (b), (d) to (j); returns {path label:
+    flash launches}. (k) runs beside 18 (b) (``pp_entry_phase``)."""
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
@@ -7764,15 +8070,18 @@ def tp_train_phase(card: str) -> dict:
                     proc.kill()
                     proc.wait()
     del ref
-    print(f"phase 26 (tensor- and sequence-parallel training): "
+    print(f"phase 26 (tensor-, sequence- and pipeline-parallel training): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    return {"train tp nccl world 1 (26a)": nccl, **world1, **pair, **entry}
+    return {"train tp nccl world 1 (26a)": nccl, **world1, **pair,
+            **entry}
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
+    from concurrent.futures import ThreadPoolExecutor
+
     from tf_operator_tpu_torch.models.convert import init_params
     from tf_operator_tpu_torch.models.transformer import TransformerConfig
     from tf_operator_tpu_torch.ops import _build
@@ -7886,8 +8195,12 @@ def main() -> int:
     t0 = time.perf_counter()
     flash_ckpt = ckpt_phase(lm_params, card)
     del lm_params
-    flash_entry = entry_point_phase(card)
-    print(f"phase 18 (checkpoints, resume and eval): "
+    # 26 (k) runs beside 18 (b): neither times anything.
+    with ThreadPoolExecutor(1) as pool:
+        pp_entry = pool.submit(pp_entry_phase, card)
+        flash_entry = entry_point_phase(card)
+        pp_entry = pp_entry.result()
+    print(f"phase 18 (checkpoints, resume and eval; 26 (k) beside): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     shipped = ship_phase(pa, i8, base, params, prompts,
@@ -7961,7 +8274,8 @@ def main() -> int:
     for name, by_path in itertools.chain(tp.items(), tpdp.items(),
                                          tp_spec.items()):
         paths[name].update(by_path)
-    for label, counts in tp_train.items():
+    for label, counts in itertools.chain(tp_train.items(),
+                                         pp_entry.items()):
         for name, n in counts.items():
             paths[name][label] = n
 

@@ -423,14 +423,15 @@ def test_classifier_step_refusals():
         steps.make_classifier_eval_step(MnistCNN(device="cpu"))
     # A data-parallel mesh is ported (A8a), and so is an expert axis,
     # over which a classifier is replicated (A8e); FSDP needs a model cut
-    # by shard_params_fsdp; pipeline axes wait for A8d.
+    # by shard_params_fsdp; a pipeline axis trains the LM through
+    # train/pp_lm.py (A8d), which the classifier steps name.
     assert steps.make_classifier_train_step(model, tx, mesh=port_mesh.create_mesh(
         {"dp": 1, "ep": 2}, range(2)))
     with pytest.raises(ValueError, match="shard_params_fsdp"):
         steps.make_classifier_train_step(
             model, tx, mesh=port_mesh.create_mesh({"fsdp": 1}, range(1)),
             data_axis="fsdp", param_shardings={})
-    with pytest.raises(NotImplementedError, match="A8d"):
+    with pytest.raises(ValueError, match="make_pp_lm_train_step"):
         steps.make_classifier_eval_step(model, mesh=port_mesh.create_mesh(
             {"dp": 1, "pp": 2}, range(2)))
     assert steps.make_classifier_eval_step(

@@ -224,9 +224,13 @@ def test_eviction_signal_saves_acks_and_keeps_training(tmp_path):
     # a process count it does not divide.
     pytest.param(["--tp", "2"], "1 devices not divisible by sp*tp*ep*pp=2",
                  id="argv1-ROADMAP A8"),
-    (["--pp", "2"], "ROADMAP A8"),
-    (["--pp-microbatches", "4"], "ROADMAP A8"),
-    (["--pp-schedule", "1f1b"], "ROADMAP A8"),
+    # --pp is ported (A8d): the first case now pins JAX's error for a
+    # process count it does not divide, the other two that each runs (a
+    # pp of 1 takes no pipeline: item None).
+    pytest.param(["--pp", "2"], "1 devices not divisible by sp*tp*ep*pp=2",
+                 id="argv2-ROADMAP A8"),
+    pytest.param(["--pp-microbatches", "4"], None, id="argv3-ROADMAP A8"),
+    pytest.param(["--pp-schedule", "1f1b"], None, id="argv4-ROADMAP A8"),
     # --ep is ported (A8e): the case now pins JAX's error without the MoE
     # path.
     pytest.param(["--ep", "2"], "--ep requires --moe-every-n",

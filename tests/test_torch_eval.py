@@ -222,8 +222,9 @@ def test_eval_runs_the_flash_forward_only(monkeypatch):
 def test_unported_options_raise():
     _, model, state, _ = _setup()
     # A data-parallel mesh is ported (A8a) and so is sequence parallelism
-    # (A8c); pipelines wait for A8d.
-    with pytest.raises(NotImplementedError, match="A8d"):
+    # (A8c); a pipeline mesh trains through train/pp_lm.py (A8d), which
+    # the eval step names.
+    with pytest.raises(ValueError, match="make_pp_lm_train_step"):
         steps.make_lm_eval_step(model, mesh=port_mesh.create_mesh(
             {"dp": 1, "pp": 2}, range(2)))
     assert steps.make_lm_eval_step(model, mesh=port_mesh.create_mesh(

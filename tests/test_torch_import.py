@@ -56,14 +56,14 @@ def test_package_imports_with_jax_and_the_reference_poisoned():
     # pipeline; the package builds its C++ with g++ only when called),
     # ops (4: _build,
     # flash_attention, int8_dense, paged_attention), runtime (2: metrics,
-    # tracing), parallel (4: mesh, sharding, ring_attention, ulysses),
-    # serve (13: coalesce,
+    # tracing), parallel (5: mesh, pipeline, sharding, ring_attention,
+    # ulysses), serve (13: coalesce,
     # constrain, disagg, engine, kvcache, faultinject, resilience,
-    # scheduler, httpapi, serve_lm, sharding, tier, tp), train (9:
+    # scheduler, httpapi, serve_lm, sharding, tier, tp), train (10:
     # checkpoint, data, dcn, device_input, dist_lm, dist_mnist,
-    # dist_multislice, distributed, steps), utils (1: signals), random and
-    # testing, and the nine packages.
-    assert int(out.stdout.split()[-1]) >= 52
+    # dist_multislice, distributed, pp_lm, steps), utils (1: signals),
+    # random and testing, and the nine packages.
+    assert int(out.stdout.split()[-1]) >= 54
     for name in ("serve.constrain", "models.spec_decode", "ckpt.protocol",
                  "utils.signals", "train.checkpoint", "train.dist_lm",
                  "serve.disagg", "serve.tier", "serve.coalesce",
@@ -73,7 +73,8 @@ def test_package_imports_with_jax_and_the_reference_poisoned():
                  "native.pipeline", "native.augment", "parallel",
                  "parallel.mesh", "parallel.sharding", "train.dcn",
                  "serve.sharding", "serve.tp", "train.dist_multislice",
-                 "parallel.ring_attention", "parallel.ulysses"):
+                 "parallel.ring_attention", "parallel.ulysses",
+                 "parallel.pipeline", "train.pp_lm"):
         assert f"tf_operator_tpu_torch.{name}" in out.stdout.split()
 
 

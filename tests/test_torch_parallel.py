@@ -8,8 +8,9 @@ package on the CPU:
   ranks, exactly; the same errors with the same messages.
 - ``Mesh.members`` gives a dimension's shards in JAX's order for a tuple
   of data axes; a mesh that shards sp, tp or ep trains (ep beside tp is
-  refused, naming A8i) and one that shards pp is refused by the steps and
-  the model config, naming A8d; the placement helpers of A8b and A8e
+  refused, naming A8i) and one that shards pp is refused by the plain
+  steps and the model config, naming train/pp_lm.py's
+  make_pp_lm_train_step (A8d); the placement helpers of A8b and A8e
   (``fsdp_sharding_tree``, ``shard_params_fsdp``,
   ``weight_update_shardings``) give JAX's specs and slices.
 - ``distributed.from_env`` against JAX's ``from_env`` over a table of
@@ -151,7 +152,10 @@ def test_members_are_jax_shard_order():
 
 
 @pytest.mark.parametrize("axis,item", [("sp", "A8c"), ("tp", "A8b"),
-                                       ("ep", "A8e"), ("pp", "A8d")])
+                                       ("ep", "A8e"),
+                                       pytest.param(
+                                           "pp", "make_pp_lm_train_step",
+                                           id="pp-A8d")])
 def test_model_parallel_meshes_name_their_item(axis, item):
     m = mesh.create_mesh({"dp": 2, axis: 2}, range(4))
     if axis == "ep":
@@ -181,13 +185,15 @@ def test_model_parallel_meshes_name_their_item(axis, item):
         assert steps.make_classifier_eval_step(
             model, has_batch_stats=False, mesh=m).shard_count == 2
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+    # Ported (A8d) through train/pp_lm.py: the plain model and steps
+    # refuse a pp mesh, naming its step (tests/test_torch_pp.py runs it).
+    with pytest.raises(ValueError, match=item):
         TransformerConfig(mesh=m)
     model = torch.nn.Linear(2, 2)
-    with pytest.raises(NotImplementedError, match=f"{axis}=2"):
+    with pytest.raises(ValueError, match=f"{axis}=2"):
         steps.make_classifier_train_step(model, steps.sgd_momentum(0.1),
                                          has_batch_stats=False, mesh=m)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=item):
         steps.make_classifier_eval_step(model, has_batch_stats=False,
                                         mesh=m)
     # A data-parallel mesh is taken as it is.

@@ -371,16 +371,21 @@ def test_fleet_router_serves_a_port_replica(front):
 @pytest.mark.parametrize("argv,reason", [
     # --tp, --dp, and with them --spec-k (tp), the host tier and shipping,
     # serve since A8b's second half (tests/test_torch_tp.py,
-    # test_torch_tpdp.py, test_torch_mesh_spec_ship.py): these cases keep
-    # their ids and pin refusals that still stand, A8d's --from-pp beside
-    # the combinations that now serve, and JAX's usage error for a prefill
-    # replica under --tp.
-    pytest.param(["--tp", "2", "--spec-k", "2", "--from-pp", "2"],
-                 "ROADMAP A8", id="argv0-ROADMAP A8"),
+    # test_torch_tpdp.py, test_torch_mesh_spec_ship.py), and --from-pp
+    # since A8d (tests/test_torch_pp.py): these cases keep their ids and
+    # pin JAX's usage errors that still stand beside the combinations
+    # that now serve.
+    pytest.param(["--tp", "2", "--spec-k", "2", "--from-pp", "2",
+                  "--logprobs-k", "3"],
+                 "--logprobs-k does not compose with --spec-k",
+                 id="argv0-ROADMAP A8"),
     pytest.param(["--dp", "2", "--host-tier-bytes", "1000", "--from-pp",
-                  "2"], "ROADMAP A8d", id="argv1-ROADMAP A8"),
+                  "2", "--spec-k", "2"], "--dp does not compose with --spec-k",
+                 id="argv1-ROADMAP A8"),
     pytest.param(["--tp", "2", "--host-tier-bytes", "1000", "--from-pp",
-                  "2"], "ROADMAP A8d", id="argv2-A8b's second half"),
+                  "2", "--role", "prefill"],
+                 "--role prefill does not compose with --tp",
+                 id="argv2-A8b's second half"),
     pytest.param(["--tp", "2", "--role", "prefill"],
                  "--role prefill does not compose with --tp",
                  id="argv3-A8b's second half"),
@@ -394,7 +399,8 @@ def test_fleet_router_serves_a_port_replica(front):
      "--role prefill does not compose with --batch-window"),
     (["--kv-block", "16", "--max-seq-len", "100"],
      "(or use --kv-dense)"),
-    (["--from-pp", "2"], "ROADMAP A8"),
+    pytest.param(["--from-pp", "2", "--prefill-budget", "0"],
+                 "--prefill-budget must be >= 1", id="argv11-ROADMAP A8"),
     (["--role", "prefill", "--int8"],
      "--role prefill does not compose with --int8"),
     (["--role", "prefill", "--spec-k", "2", "--kv-int8"],

@@ -470,9 +470,12 @@ def test_peek_moves_no_counter_or_lru():
     # over sp keeps its refusal under its own item, A8h. FSDP and expert
     # parallelism are ported for training (A8e); JAX's engine shards
     # nothing over them, and a decode mesh over either names A8j.
+    # Pipelines are ported for training (A8d); a decode mesh over pp
+    # names A8k (serve_lm --from-pp merges the tree instead).
     ("dcn", "A8g"), pytest.param("fsdp", "A8j", id="fsdp-A8e"),
     pytest.param("sp", "A8h", id="sp-A8c"),
-    pytest.param("ep", "A8j", id="ep-A8e"), ("pp", "A8d")])
+    pytest.param("ep", "A8j", id="ep-A8e"),
+    pytest.param("pp", "A8k", id="pp-A8d")])
 def test_decode_mesh_takes_dp_and_refuses_the_rest(axis, item):
     from tf_operator_tpu_torch.models.transformer import TransformerConfig
     from tf_operator_tpu_torch.parallel import mesh as port_mesh

@@ -28,7 +28,8 @@ step averages over it. A training mesh whose ``ep_axis`` is above 1
 splits each MoE block's experts over it (``models/moe.py``; the rows
 over ``batch_axis``), as JAX's ``Block`` hands its mesh to ``MoeMlp``;
 beside ``tp`` or ``sp`` it raises, naming ROADMAP.md A8i. A mesh that
-shards the layers raises, naming A8d.
+shards the layers raises, naming ``train/pp_lm.py``'s
+``make_pp_lm_train_step``, whose stage models take no mesh.
 
 A training model over a mesh whose ``sp`` axis is above 1 is this rank's
 part of a sequence-parallel model (``seq_parallel``): ``forward`` takes
@@ -165,8 +166,9 @@ class TransformerConfig:
     moe_capacity_factor: float = 1.25
     moe_top_k: int = 1  # 1 = Switch, 2 = GShard top-2
     # A mesh (parallel/mesh.py) of data axes, ep, sp and tp in training, of
-    # tp and dp in decode mode; pp waits for ROADMAP.md A8d. The MoE
-    # experts split over ep_axis, their rows over batch_axis.
+    # tp and dp in decode mode; pp trains through train/pp_lm.py, whose
+    # stages take none. The MoE experts split over ep_axis, their rows
+    # over batch_axis.
     mesh: Any = None
     ep_axis: str = "ep"
     batch_axis: str = "dp"

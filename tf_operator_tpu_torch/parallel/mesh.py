@@ -27,8 +27,9 @@ Training takes a mesh of data axes (``fsdp`` among them: FSDP and
 ZeRO-1, ``parallel/sharding.py``), ``ep`` (the experts,
 ``models/moe.py``), ``sp`` (the sequence split of
 ``parallel/ring_attention.py`` and ``parallel/ulysses.py``) and ``tp``
-(``check_data_parallel``); decode takes ``tp`` and ``dp``
-(``check_decode_mesh``).
+(``check_data_parallel``), and a mesh of ``pp`` and the data axes through
+the pipelined LM (``train/pp_lm.py``, over ``parallel/pipeline.py``);
+decode takes ``tp`` and ``dp`` (``check_decode_mesh``).
 
 ``slice_mesh`` checks the world against a TPU slice's device count, from
 this module's copy of ``tf_operator_tpu/topology/slices.py``'s
@@ -293,35 +294,30 @@ def host_local_batch_size(global_batch: int, mesh: Mesh,
     return global_batch // size
 
 
-# The axes a training mesh keeps at 1, and the ROADMAP items that port
-# them. Training takes the data axes (``fsdp`` among them), ``ep`` (the
-# experts of models/moe.py), ``sp`` (ring attention or Ulysses) and ``tp``
-# (the Megatron layout of models/transformer.py).
-UNPORTED_AXES = {"pp": "A8d (pipelines)"}
-
-
 def check_data_parallel(mesh: Mesh, what: str) -> None:
     """Raise unless ``mesh`` is a port ``Mesh`` whose pipeline axis is 1:
-    ``NotImplementedError`` naming the ROADMAP item of the first axis
-    above 1. The data axes, ``ep``, ``sp`` and ``tp`` may take any
+    a mesh with ``pp`` above 1 trains the block stack as pipeline stages,
+    through ``train/pp_lm.py``'s ``make_pp_lm_train_step`` (``ValueError``
+    naming it). The data axes, ``ep``, ``sp`` and ``tp`` may take any
     size."""
     if not isinstance(mesh, Mesh):
         raise TypeError(f"{what}: expected a parallel.mesh.Mesh, got "
                         f"{type(mesh).__name__}")
-    for axis, item in UNPORTED_AXES.items():
-        size = mesh.shape.get(axis, 1)
-        if size > 1:
-            raise NotImplementedError(
-                f"{what}: a mesh with {axis}={size} is not ported yet: see "
-                f"ROADMAP.md {item}")
+    size = mesh.shape.get("pp", 1)
+    if size > 1:
+        raise ValueError(
+            f"{what}: a mesh with pp={size} trains the pipelined LM: use "
+            "train/pp_lm.py's make_pp_lm_train_step (--pp composes with dp "
+            "only)")
 
 
 # The axes a decode mesh keeps at 1, and the ROADMAP items that name them.
 # A decode mesh takes ``tp`` (heads) and ``dp`` (slot slices and pool
-# tiles, serve/sharding.py); JAX's server builds no mesh over ``sp``, and
-# its engine shards nothing over ``fsdp`` or ``ep``.
+# tiles, serve/sharding.py); JAX's server builds no mesh over ``sp``, its
+# engine shards nothing over ``pp`` (``serve_lm --from-pp`` merges a
+# pipelined tree instead), ``fsdp`` or ``ep``.
 UNPORTED_DECODE_AXES = dict(sp="A8h (a decode mesh over sp)",
-                            **UNPORTED_AXES,
+                            pp="A8k (a decode mesh over pp)",
                             fsdp="A8j (a decode mesh over fsdp or ep)",
                             ep="A8j (a decode mesh over fsdp or ep)",
                             dcn="A8g (serving across slices)")

@@ -13,9 +13,10 @@ rank's own rows, and a replicated tree is one copy a rank:
   batch, rows by the data axes and columns by ``sp``, and places it: what
   JAX's ``P(dp, sp)`` gives each device of a sequence-parallel step.
 - ``replicate(mesh, tree)`` broadcasts every tensor of a tree, a module
-  or a ``TrainState`` over the mesh's axes but ``tp`` and ``ep`` from the
-  first rank of this rank's group, so that every rank starts from the
-  same state (the same shards, on a dp x tp or dp x ep mesh).
+  or a ``TrainState`` over the mesh's axes but ``tp``, ``ep`` and ``pp``
+  from the first rank of this rank's group, so that every rank starts
+  from the same state (the same shards or stage, on a dp x tp, dp x ep or
+  dp x pp mesh).
 - ``DataParallel`` is a mesh's data axes as this rank sees them: its
   group, its size, this rank's shard index, the gradient mean, an
   all-reduce that autograd sees (``sum``), and the gather of a batch's
@@ -49,7 +50,8 @@ its shard; here rank r keeps its slice of each leaf.
   open: the module's ``staged_bytes`` counts what went that way in this
   process, the tensor axis' collectives and the ``sp`` axis' ring and
   all-to-all transport (``TensorParallel.exchange``, over a
-  ``TensorParallel`` of ``"sp"``) alike.
+  ``TensorParallel`` of ``"sp"``) and the pipeline's hops (over one of
+  ``"pp"``, ``parallel/pipeline.py``) alike.
 
 FSDP and ZeRO-1 cut leaves by JAX's rule (``fsdp_spec``: the largest
 dimension the axis divides, leaves under ``min_size`` whole):
@@ -247,13 +249,14 @@ def _tensors(tree: Any) -> list[torch.Tensor]:
 def replicate(mesh: Mesh, tree: Any) -> Any:
     """Broadcast every tensor of ``tree`` (tensors in dicts, lists and
     tuples, a module's parameters and buffers, a ``TrainState``'s model
-    and optimiser state) in place over every axis of the mesh but ``tp``
-    and ``ep`` (and the axis a model cut by ``shard_params_fsdp`` is cut
-    over), from the first rank of this rank's group; returns ``tree``. A
-    copy of the same state on every rank, as JAX's replicated placement
-    is; on a dp x tp (or dp x ep) mesh each rank keeps its own shards, and
-    the ranks that share its ``tp`` (``ep``) index get them."""
-    held = {"tp", "ep"}
+    and optimiser state) in place over every axis of the mesh but ``tp``,
+    ``ep`` and ``pp`` (and the axis a model cut by ``shard_params_fsdp``
+    is cut over), from the first rank of this rank's group; returns
+    ``tree``. A copy of the same state on every rank, as JAX's replicated
+    placement is; on a dp x tp (or dp x ep, dp x pp) mesh each rank keeps
+    its own shards (its stage), and the ranks that share its ``tp``
+    (``ep``, ``pp``) index get them."""
+    held = {"tp", "ep", "pp"}
     model = getattr(tree, "model", tree)
     if getattr(model, "fsdp", None) is not None:
         held.add(model.fsdp.axis.axis)
@@ -472,16 +475,21 @@ class TensorParallel:
         return t
 
     def exchange(self, sends: dict[int, torch.Tensor],
-                 shapes: dict[int, tuple]) -> dict[int, torch.Tensor]:
+                 shapes: dict[int, tuple], like: torch.Tensor | None = None
+                 ) -> dict[int, torch.Tensor]:
         """Point-to-point over the axis: ``sends[j]`` goes to the member at
         index j and a tensor of ``shapes[j]`` (``sends``' dtype) arrives
         from the member at index j; every receive is posted before any
         send, and all are waited on. Returns ``{j: received}`` on each
-        tensor's device. The transport of the ``sp`` ring and all-to-all
-        (``parallel/ring_attention.py``, ``parallel/ulysses.py``)."""
-        some = next(iter(sends.values()))
+        tensor's device: ``like``'s dtype and device when given (a rank
+        that only receives), else the sends'. The transport of the ``sp``
+        ring and all-to-all (``parallel/ring_attention.py``,
+        ``parallel/ulysses.py``) and of the pipeline's hops
+        (``parallel/pipeline.py``)."""
+        some = like if like is not None else next(iter(sends.values()))
         wire = {j: self._on_wire(t.contiguous()) for j, t in sends.items()}
-        on = next(iter(wire.values())).device
+        on = (torch.device("cpu") if self.backend == "gloo" and some.is_cuda
+              else some.device)
         got = {j: torch.empty(s, dtype=some.dtype, device=on)
                for j, s in shapes.items()}
         ops = [dist.P2POp(dist.irecv, got[j], self.members[j], self.group)

@@ -241,8 +241,8 @@ class InvalidGrammar(ServeError):
 
 class NotPorted(ServeError):
     """A request field or server flag whose ROADMAP item the port has not
-    ported yet (the detail names the item): pipelined checkpoints
-    (``--from-pp``, A8d). A 400 under the front door's
+    ported yet (the detail names the item; every server flag JAX takes is
+    ported). A 400 under the front door's
     ``bad_request`` code, NOT retryable — every port replica would refuse
     it alike; the request never reaches the device."""
 

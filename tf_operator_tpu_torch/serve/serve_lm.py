@@ -132,8 +132,11 @@ ingested on the dp shard that will seat it) and ``GET /prefix/<digest>``
 (exported from the shard that holds the entry). The draft is sliced by
 the target's rules and sent to every worker with the target's tree.
 
-Flags of ROADMAP items the port has not ported exit naming the item, and
-never run another path instead: ``--from-pp`` (A8d).
+A pipelined checkpoint (``dist_lm --pp PP``) is served with ``--from-pp
+PP``: ``restore_params`` reads JAX's ``{"outer", "stages"}`` tree and
+merges it back into the standard one (``train/pp_lm.py``
+``merge_pp_params``), and says so, as the JAX server does; restored
+without it (or at another PP) it fails naming ``pp``.
 
 Speculative decoding (``--spec-k K``): the engine decodes in rounds, a
 draft of ``--spec-draft-layers`` layers (default max(1, layers // 2), the
@@ -206,7 +209,6 @@ from tf_operator_tpu_torch.serve.httpapi import (
 )
 from tf_operator_tpu_torch.serve.resilience import (
     EngineSupervisor,
-    NotPorted,
     ResilienceConfig,
     ServeError,
     ShipFailed,
@@ -218,13 +220,6 @@ from tf_operator_tpu_torch.serve.scheduler import ServeRequest
 from tf_operator_tpu_torch.serve.tp import report as tp_report
 from tf_operator_tpu_torch.serve.tp import start_world
 from tf_operator_tpu_torch.serve.tier import HostTier
-
-# Flags of ROADMAP items the port has not ported: (flag, set?, item).
-UNPORTED_FLAGS = (
-    ("--from-pp", lambda a: a.from_pp is not None,
-     "A8d (pipelines: pipeline trees)"),
-)
-
 
 def build_parser() -> argparse.ArgumentParser:
     """``examples/serve_lm.py``'s flags, under the same names and
@@ -266,8 +261,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "must mirror the trainer's (default: quick-train "
                         "the +1-chain task at startup)")
     p.add_argument("--from-pp", type=int, default=None, metavar="PP",
-                   help="a pipelined (dist_lm --pp) checkpoint: waits for "
-                        "ROADMAP A8d")
+                   help="the checkpoint came from dist_lm --pp PP: restore "
+                        "the pipelined param tree and merge it back to the "
+                        "standard layout (train/pp_lm.py merge_pp_params)")
     p.add_argument("--train-steps", type=int, default=150,
                    help="quick-train steps of the +1-chain task from the "
                         "seeded init (0 serves the init)")
@@ -413,12 +409,6 @@ def front_args(**overrides) -> argparse.Namespace:
     return args
 
 
-def unported_flags(args) -> list[str]:
-    """The set flags whose ROADMAP item is not ported, each with it."""
-    return [f"{flag} waits for ROADMAP {item}"
-            for flag, is_set, item in UNPORTED_FLAGS if is_set(args)]
-
-
 def quick_train(cfg: TransformerConfig, steps: int, lr: float,
                 device=None) -> dict:
     """Train the +1-mod-vocab chain task just enough to serve verifiable
@@ -456,13 +446,14 @@ def quick_train(cfg: TransformerConfig, steps: int, lr: float,
     return export_params(model)
 
 
-def restore_params(ckpt_dir: str, cfg: TransformerConfig,
-                   label: str) -> dict | None:
+def restore_params(ckpt_dir: str, cfg: TransformerConfig, label: str,
+                   from_pp: int | None = None) -> dict | None:
     """The params of the newest step of a port checkpoint under
     ``ckpt_dir`` as the flax-layout tree ``build_front`` takes, checked
-    against ``cfg``'s shapes: THE restore path of the target and the
-    draft. Returns None (after the JAX server's error line) when the
-    directory holds no step."""
+    against ``cfg``'s shapes (and, ``from_pp``, written by a pipelined run
+    at that ``pp`` and merged back into the standard tree): THE restore
+    path of the target and the draft. Returns None (after the JAX server's
+    error line) when the directory holds no step."""
     from tf_operator_tpu_torch.train import checkpoint
 
     step = checkpoint.latest_step(ckpt_dir)
@@ -470,8 +461,9 @@ def restore_params(ckpt_dir: str, cfg: TransformerConfig,
         print(f"serve_lm: no checkpoint in {ckpt_dir}", file=sys.stderr,
               flush=True)
         return None
-    params = checkpoint.restore_params(ckpt_dir, cfg, step)
-    print(f"serve_lm: restored {label} checkpoint step {step}", flush=True)
+    params = checkpoint.restore_params(ckpt_dir, cfg, step, from_pp=from_pp)
+    print(f"serve_lm: restored {label} checkpoint step {step}"
+          + (f" (merged from pp={from_pp})" if from_pp else ""), flush=True)
     return params
 
 
@@ -964,9 +956,9 @@ def check_args(args) -> None:
     continuous`` with ``--batch-window``; ``--role prefill`` with a flag of
     the decode path; ``--spec-k`` with ``--int8`` or ``--logprobs-k``, or
     with ``--checkpoint-dir`` but no ``--draft-checkpoint-dir``;
-    ``--draft-checkpoint-dir`` without ``--spec-k``: ValueError), a flag
-    whose ROADMAP item is not ported (NotPorted), a prefill budget below
-    one token, a negative ``--logprobs-k``, no constraint row or, where
+    ``--draft-checkpoint-dir`` without ``--spec-k``: ValueError), a
+    prefill budget below one token, a negative ``--logprobs-k``, no
+    constraint row or, where
     blocks are used (the paged continuous engine, a prefill replica), a
     sequence length off the block grid (ValueError). Resolves
     ``args.engine`` as JAX does: ``--batch-window`` alone selects
@@ -1026,9 +1018,6 @@ def check_args(args) -> None:
         raise ValueError(
             "--logprobs-k does not compose with --spec-k (verify rounds "
             "emit accept-dependent windows, not per-step logit rows)")
-    refused = unported_flags(args)
-    if refused:
-        raise NotPorted("; ".join(refused))
     if args.tp < 1 or args.dp < 1:
         raise ValueError("--tp and --dp must be >= 1")
     if args.tp > 1 and args.engine == "coalesce":
@@ -1256,7 +1245,7 @@ def main(argv: list[str] | None = None) -> int:
         p.error("--requests must be >= 1 (omit it to serve until SIGTERM)")
     try:
         check_args(args)
-    except (NotPorted, ValueError) as exc:
+    except ValueError as exc:
         p.error(str(exc))
     device = resolve_device(args.device)
     # The JAX server's model: 4 heads, d_ff = 2 d, f32.
@@ -1271,7 +1260,8 @@ def main(argv: list[str] | None = None) -> int:
     except ValueError as exc:
         p.error(str(exc))
     if args.checkpoint_dir:
-        params = restore_params(args.checkpoint_dir, cfg, "target")
+        params = restore_params(args.checkpoint_dir, cfg, "target",
+                                from_pp=args.from_pp)
         if params is None:
             return 1
     else:

@@ -64,6 +64,19 @@ restores from the shared directory, and every rank's ``maybe_ack`` names
 only a step that ``latest_step`` lists; ``ack`` first drains the
 primary's write and meets the other ranks at a barrier, so every rank's
 durable ack names the step just written.
+
+A pipelined state (a stage rank's ``train/pp_lm.py`` ``pp_model``) is
+saved in JAX's tree, ``{"outer": ..., "stages": ...}`` with each block
+leaf ``[pp, k, ...]`` (``split_pp_params``' layout), AdamW's state in
+the same layout: the ranks of rank 0's ``pp`` group stack their stage's
+blocks and all-gather them over it (once: the data ranks' replicas are
+equal), and rank 0 writes. The manifest's record of the model adds
+``pp``, so restoring at another ``pp``, or restoring a pipelined
+checkpoint as a plain tree (or the other way round), fails naming the
+field. A restore gives each rank its stage's rows. ``restore_params``
+reads a pipelined checkpoint given its ``pp`` (``from_pp``) and merges it
+back into the standard tree (``merge_pp_params``), as ``serve_lm
+--from-pp`` does.
 """
 
 from __future__ import annotations
@@ -82,6 +95,7 @@ from tf_operator_tpu_torch.models.convert import (
     load_variables,
     variable_layout,
 )
+from tf_operator_tpu_torch.train.pp_lm import OUTER_KEYS, merge_pp_params
 from tf_operator_tpu_torch.train.steps import state_cut
 
 FORMAT_VERSION = 1
@@ -148,6 +162,8 @@ class _Layout:
         cuts = param_cuts(model)
         held = getattr(opt, "held", lambda p: (p, cuts.get(id(p))))
         self.leaves, self.to_flax, self.from_flax = variable_layout(model)
+        # A stage rank of the pipelined LM: gathered over its pp group.
+        self.pipe = getattr(model, "pipeline", None)
         self.rows = {}
         axes, mesh = set(), None
         for path, p in self.leaves["params"].items():
@@ -159,6 +175,36 @@ class _Layout:
                     mesh = c.axis.mesh
         self.group = (TensorParallel(mesh, tuple(
             a for a in mesh.axis_names if a in axes)) if axes else None)
+        if self.pipe is not None:
+            self.group = self.pipe.stage.pp
+
+
+def _pp_tree(tree: dict, pipe, device) -> dict:
+    """A stage rank's tree (the outer keys and its ``block_0`` ..
+    ``block_{k-1}``) in JAX's pipelined layout: ``{"outer": ..., "stages":
+    ...}``, each block leaf stacked over the rank's k blocks on ``device``
+    and all-gathered over the pp group into ``[pp, k, ...]``. Collective
+    over the group, every leaf in the tree's order."""
+    k = pipe.cfg.n_layers // pipe.stage.size
+    outer = {key: tree[key] for key in OUTER_KEYS}
+    flat = [dict(_leaves(tree[f"block_{j}"])) for j in range(k)]
+    stages: dict = {}
+    for path in flat[0]:
+        mine = torch.stack([f[path].to(device) for f in flat])
+        _tree_set(stages, path, pipe.stage.pp.all_gather(mine[None], 0))
+    return {"outer": outer, "stages": stages}
+
+
+def _stage_tree(tree: dict, pipe) -> dict:
+    """This stage rank's tree (the outer keys and ``block_j``) of a tree in
+    JAX's pipelined layout."""
+    k = pipe.cfg.n_layers // pipe.stage.size
+    out = dict(tree["outer"])
+    for j in range(k):
+        out[f"block_{j}"] = {}
+        for path, leaf in _leaves(tree["stages"]):
+            _tree_set(out[f"block_{j}"], path, leaf[pipe.stage.index][j])
+    return out
 
 
 def _snapshot(state) -> dict:
@@ -168,6 +214,8 @@ def _snapshot(state) -> dict:
     is gathered whole first: collective over the axis' group."""
     model, opt = state.model, state.optimizer
     layout = _Layout(state)
+    if layout.pipe is not None:
+        return _pp_snapshot(state, layout)
     to_flax = layout.to_flax
 
     def host(t, cut=None):
@@ -197,6 +245,31 @@ def _snapshot(state) -> dict:
     return out
 
 
+def _pp_snapshot(state, layout: _Layout) -> dict:
+    """``_snapshot`` of a stage rank's state in JAX's pipelined layout
+    (``_pp_tree``: collective over the pp group)."""
+    model, opt = state.model, state.optimizer
+    params: dict = {}
+    moments: dict = {}
+    for path, (p, _, key, _) in layout.rows.items():
+        _tree_set(params, path, p.detach())
+        for k, val in (opt.state.get(key) or {}).items():
+            if isinstance(val, torch.Tensor):
+                _tree_set(moments.setdefault(k, {}), path, val.detach())
+
+    def host(tree):
+        return {k: host(v) if isinstance(v, dict) else _host(v)
+                for k, v in tree.items()}
+
+    out = {"params": host(_pp_tree(params, layout.pipe, model.device)),
+           "opt": {k: host(_pp_tree(v, layout.pipe, model.device))
+                   for k, v in moments.items()}}
+    if model.device.type == "cuda":
+        torch.cuda.synchronize(model.device)
+    out["step"] = torch.tensor(int(state.step), dtype=torch.int64)
+    return out
+
+
 def _port_layout(p: torch.Tensor, saved: torch.Tensor, from_flax
                  ) -> torch.Tensor:
     """A saved per-parameter tensor shaped like ``p`` in ``p``'s layout and
@@ -209,7 +282,11 @@ def _port_layout(p: torch.Tensor, saved: torch.Tensor, from_flax
 
 def config_fields(cfg) -> dict:
     """The manifest's record of a model or a ``TransformerConfig``: its
-    ``shape_fields()`` (JSON types)."""
+    ``shape_fields()`` (JSON types); a stage rank of the pipelined LM
+    records the whole model's and its ``pp``."""
+    pipe = getattr(cfg, "pipeline", None)
+    if pipe is not None:
+        return dict(pipe.cfg.shape_fields(), pp=pipe.stage.size)
     return cfg.shape_fields()
 
 
@@ -271,7 +348,11 @@ def check_config(directory: str, manifest: dict, cfg) -> None:
     """Raise ValueError, naming each field, when the checkpoint was saved
     for a model of other shapes than ``cfg`` (a model or a
     ``TransformerConfig``)."""
-    saved, want = manifest["config"], config_fields(cfg)
+    _check_fields(directory, manifest, config_fields(cfg))
+
+
+def _check_fields(directory: str, manifest: dict, want: dict) -> None:
+    saved = manifest["config"]
     diff = [f"{f} {saved.get(f)} (checkpoint) vs {want.get(f)} (model)"
             for f in sorted(saved.keys() | want.keys(), key=str)
             if saved.get(f) != want.get(f)]
@@ -282,19 +363,28 @@ def check_config(directory: str, manifest: dict, cfg) -> None:
             f"{', '.join(diff)}")
 
 
-def restore_params(directory: str, cfg, step: int | None = None) -> dict:
+def restore_params(directory: str, cfg, step: int | None = None,
+                   from_pp: int | None = None) -> dict:
     """The params of ``step`` (or the newest) under ``directory`` as a
     flax-layout tree of f32 numpy arrays, after checking them against
     ``cfg``'s shapes: what a server or an evaluator reads, with no
-    manager."""
+    manager. ``from_pp``: the checkpoint of a pipelined run at that
+    ``pp``, merged back into the standard tree."""
     payload, manifest = read(directory, step)
-    check_config(directory, manifest, cfg)
+    want = config_fields(cfg)
+    if from_pp:
+        want = dict(want, pp=from_pp)
+    _check_fields(directory, manifest, want)
 
     def walk(tree):
         return {k: walk(v) if isinstance(v, dict) else v.numpy()
                 for k, v in tree.items()}
 
-    return walk(payload["params"])
+    params = walk(payload["params"])
+    if from_pp:
+        params = merge_pp_params(params["outer"], params["stages"],
+                                 cfg.n_layers)
+    return params
 
 
 class CheckpointManager:
@@ -421,6 +511,11 @@ class CheckpointManager:
         check_config(self._dir, manifest, model)
         layout = _Layout(state)
         flax, from_flax = layout.to_flax, layout.from_flax
+        if layout.pipe is not None:
+            payload = dict(
+                payload, params=_stage_tree(payload["params"], layout.pipe),
+                opt={k: _stage_tree(v, layout.pipe)
+                     for k, v in payload["opt"].items()})
 
         def part(t, cut):
             # This rank's part of a saved whole tensor (in the port's

@@ -1,6 +1,7 @@
 """LM training as an operator-launched job: one process a device, data
 parallel over the processes, sequence parallel with ``--sp``, tensor
-parallel with ``--tp`` and expert parallel with ``--ep``.
+parallel with ``--tp``, expert parallel with ``--ep`` and pipeline
+parallel with ``--pp``.
 
     python -m tf_operator_tpu_torch.train.dist_lm [--device cpu] [flags]
 
@@ -70,12 +71,25 @@ the step adds the load-balancing loss at weight 0.01, as the example's.
 seeded whole tree, the ranks of one data index take the same rows, and
 checkpoints are written whole and restore at any ``--ep``.
 
-Flags of unported items exit with a usage error naming the ROADMAP
-item: ``--pp*`` (A8d); so do several processes with no coordinator to
-meet at. JAX's errors stand for ``--sp``, ``--tp``, ``--ep`` and
+``--pp`` trains the block stack as pipeline stages (``train/pp_lm.py``:
+``--pp-microbatches`` microbatches a step, ``--pp-schedule`` ``gpipe`` or
+``1f1b``) over JAX's mesh ``{"dp": processes / pp, "sp": 1, "tp": 1,
+"pp": --pp}``, ``pp`` outer: each process builds the seeded whole tree
+and keeps its stage's blocks beside the outer params (``pp_model``), and
+takes its data index's slice of every microbatch of the global batch
+(``pp_rows``); process 0 writes checkpoints in JAX's pipelined tree
+(``{"outer", "stages"}``, gathered over ``pp``), which restore at the
+same ``--pp`` (``serve_lm --from-pp`` serves them). JAX's refusals stand:
+``--pp composes with dp only (sp/tp/ep/moe must be off)``, ``--layers
+must be divisible by --pp``, ``--pp path: no --data, --grad-accum must be
+1``, ``--batch must divide by --pp-microbatches`` and a microbatch the dp
+axis does not divide.
+
+Several processes with no coordinator to meet at exit with a usage
+error. JAX's errors stand for ``--sp``, ``--tp``, ``--ep`` and
 ``--ring-impl``: ``--ring-impl requires --sp > 1``, ``--ep requires
 --moe-every-n``, ``--moe-experts must be a multiple of --ep``, a process
-count ``sp * tp * ep`` does not divide, a batch or seq the mesh does not
+count ``sp * tp * ep * pp`` does not divide, a batch or seq the mesh does not
 divide, an ``--xent-chunk`` that does not divide the per-device seq, and
 ``--data`` beside ``--sp`` or ``--tp`` (``--data requires sp=1 and
 tp=1``). ``--ep`` beside ``--sp`` or ``--tp`` is refused, naming ROADMAP
@@ -97,16 +111,6 @@ from tf_operator_tpu_torch.train.distributed import (
     add_dist_backend,
     check_topology,
 )
-
-# Flags of ROADMAP items the port has not ported: (flag, set?, item).
-UNPORTED_FLAGS = (
-    ("--pp", lambda a: a.pp > 1, "A8d (pipelines)"),
-    ("--pp-microbatches", lambda a: a.pp_microbatches != 2,
-     "A8d (pipelines)"),
-    ("--pp-schedule", lambda a: a.pp_schedule != "gpipe",
-     "A8d (pipelines)"),
-)
-
 
 def launches_line() -> str:
     """The flash kernels' launches in this process (0 on the CPU, which
@@ -166,11 +170,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ep", type=int, default=1,
                    help="expert-parallel mesh axis (experts sharded over "
                         "it; requires --moe-every-n)")
-    p.add_argument("--pp", type=int, default=1, help="waits for A8d")
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline-parallel stages (train/pp_lm.py: the "
+                        "block stack as GPipe stages; requires sp=tp=ep=1 "
+                        "and layers divisible by pp)")
     p.add_argument("--pp-microbatches", type=int, default=2,
-                   help="waits for A8d")
+                   help="microbatches per step on the --pp path")
     p.add_argument("--pp-schedule", choices=("gpipe", "1f1b"),
-                   default="gpipe", help="waits for A8d")
+                   default="gpipe",
+                   help="gpipe: autograd through the pipeline (stash "
+                        "grows with microbatches); 1f1b: interleaved "
+                        "fwd/bwd with an O(pp) stash — raise "
+                        "--pp-microbatches to shrink the bubble without "
+                        "raising memory")
     p.add_argument("--grad-accum", type=int, default=1,
                    help="microbatches per optimizer step (gradients "
                         "averaged into one update)")
@@ -189,17 +201,23 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> int:
     p = build_parser()
     args = p.parse_args(argv)
-    refused = [f"{flag} waits for ROADMAP {item}"
-               for flag, is_set, item in UNPORTED_FLAGS if is_set(args)]
     if args.ep > 1 and (args.sp > 1 or args.tp > 1):
-        refused.append("--ep beside --sp or --tp waits for ROADMAP A8i "
-                       "(FSDP, ZeRO-1 or expert parallel beside tp or sp)")
-    if refused:
-        p.error("; ".join(refused))
+        p.error("--ep beside --sp or --tp waits for ROADMAP A8i (FSDP, "
+                "ZeRO-1 or expert parallel beside tp or sp)")
     if args.ep > 1 and not args.moe_every_n:
         raise SystemExit("--ep requires --moe-every-n")
     if args.moe_every_n and args.moe_experts % args.ep:
         raise SystemExit("--moe-experts must be a multiple of --ep")
+    if args.pp > 1:
+        if args.sp > 1 or args.tp > 1 or args.ep > 1 or args.moe_every_n:
+            raise SystemExit("--pp composes with dp only (sp/tp/ep/moe "
+                             "must be off)")
+        if args.layers % args.pp:
+            raise SystemExit("--layers must be divisible by --pp")
+        if args.data or args.grad_accum != 1:
+            raise SystemExit("--pp path: no --data, --grad-accum must be 1")
+        if args.batch % args.pp_microbatches:
+            raise SystemExit("--batch must divide by --pp-microbatches")
     if args.fail_at_step is not None and not args.checkpoint_dir:
         p.error("--fail-at-step requires --checkpoint-dir")
     if args.ring_impl != "auto" and args.sp <= 1:
@@ -260,13 +278,24 @@ def main(argv: list[str] | None = None) -> int:
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     n = topo.num_processes
-    split = args.sp * args.tp * args.ep
+    split = args.sp * args.tp * args.ep * args.pp
     if n % split:
         raise SystemExit(f"{n} devices not divisible by sp*tp*ep*pp="
                          f"{split}")
+    if args.pp > 1:
+        micro = args.batch // args.pp_microbatches
+        pp_dp = n // args.pp
+        if micro % pp_dp:
+            raise SystemExit(
+                f"microbatch size {micro} (batch/pp-microbatches) must "
+                f"divide by the dp axis ({pp_dp}) — raise --batch or "
+                "lower --pp-microbatches"
+            )
     axes = {"dp": n // split, "sp": args.sp, "tp": args.tp}
-    if args.ep > 1:  # JAX's mesh line names ep only when it is used
+    if args.ep > 1:  # JAX's mesh line names ep and pp only when used
         axes["ep"] = args.ep
+    if args.pp > 1:
+        axes["pp"] = args.pp
     dp = axes["dp"]
     print(f"dist_lm: process {topo.process_id}/{n}, mesh {axes}, "
           f"device {device}", flush=True)
@@ -293,7 +322,7 @@ def main(argv: list[str] | None = None) -> int:
         moe_kw = dict(moe_every_n=args.moe_every_n,
                       moe_experts=args.moe_experts, moe_top_k=args.moe_top_k)
     # A tensor- or sequence-parallel model is its rank's part of the
-    # mesh's model.
+    # mesh's model; the pp path's stages take no mesh of their own.
     cfg = TransformerConfig(
         vocab_size=args.vocab, d_model=args.d_model, n_heads=4,
         n_kv_heads=args.kv_heads, n_layers=args.layers,
@@ -303,20 +332,36 @@ def main(argv: list[str] | None = None) -> int:
         **moe_kw,
     )
     tree = init_params(cfg, 0)
-    rules = dict(param_sharding_rules()) if args.tp > 1 else {}
-    if args.ep > 1:  # expert weights split on the expert dim over "ep"
-        rules.update(moe_param_sharding_rules())
-    if rules:
-        tree = shard_params_by_rules(mesh, tree, rules)
-    model = load_params(Transformer(cfg, device), tree)
-    del tree
     tx = adamw(args.lr)
+    if args.pp > 1:
+        from tf_operator_tpu_torch.train.pp_lm import (
+            make_pp_lm_train_step,
+            pp_model,
+            pp_rows,
+            split_pp_params,
+        )
+
+        outer, stages = split_pp_params(tree, args.layers, args.pp)
+        model = pp_model(cfg, mesh, {"outer": outer, "stages": stages},
+                         device=device)
+        del outer, stages
+        step = make_pp_lm_train_step(
+            cfg, mesh, tx, num_micro=args.pp_microbatches, xent_chunk=chunk,
+            schedule=args.pp_schedule)
+    else:
+        rules = dict(param_sharding_rules()) if args.tp > 1 else {}
+        if args.ep > 1:  # expert weights split on the expert dim over "ep"
+            rules.update(moe_param_sharding_rules())
+        if rules:
+            tree = shard_params_by_rules(mesh, tree, rules)
+        model = load_params(Transformer(cfg, device), tree)
+        # The load-balancing loss counts only on the MoE path.
+        step = make_lm_train_step(model, tx, xent_chunk=chunk,
+                                  grad_accum=args.grad_accum,
+                                  aux_loss_weight=0.01 if args.moe_every_n
+                                  else 0.0, mesh=mesh)
+    del tree
     state = replicate(mesh, TrainState.create(model, tx))
-    # The load-balancing loss counts only on the MoE path.
-    step = make_lm_train_step(model, tx, xent_chunk=chunk,
-                              grad_accum=args.grad_accum,
-                              aux_loss_weight=0.01 if args.moe_every_n
-                              else 0.0, mesh=mesh)
 
     ckpt = None
     start_step = 0
@@ -352,8 +397,10 @@ def main(argv: list[str] | None = None) -> int:
         start = rng.integers(0, args.vocab, (args.batch, 1))
         chain = (start + np.arange(args.seq + 1)) % args.vocab  # +1 chain
         chain = chain.astype(np.int32)
-        return token_block(mesh, {"tokens": chain[:, :-1],
-                                  "targets": chain[:, 1:]})
+        batch = {"tokens": chain[:, :-1], "targets": chain[:, 1:]}
+        if args.pp > 1:
+            return pp_rows(mesh, batch, args.pp_microbatches)
+        return token_block(mesh, batch)
 
     data_iter = None
     if args.data and (args.sp > 1 or args.tp > 1):

@@ -35,7 +35,7 @@ shards (``_deal_microbatches``). An eval step takes the GLOBAL padded
 batch, as JAX's ``evaluate`` places the same host batch on every
 process; each rank evaluates its shard and the sums are all-reduced, so
 every rank returns the same numbers. A mesh whose ``pp`` axis is above 1
-raises, naming ROADMAP A8d.
+raises, naming ``train/pp_lm.py``'s ``make_pp_lm_train_step``.
 
 FSDP and ZeRO-1 (JAX's ``param_shardings`` and ``opt_shardings``) cut
 leaves by JAX's fsdp rule over one of the data axes. Under FSDP

@@ -1,11 +1,11 @@
-"""Run chip_smoke.py's phase 26 (tensor-, sequence-, fully sharded and
-expert-parallel training) alone on the card.
+"""Run chip_smoke.py's phase 26 (tensor-, sequence-, fully sharded,
+expert- and pipeline-parallel training) alone on the card.
 
     python tools/torch_tp_train_probe.py
 
 Phase 1's settings first (TF32 off for cuDNN and matmuls), then the
 build of the flash kernels (B1-B3; the rank processes load the library
-this process built), then phase 26 (a) to (h) exactly as chip_smoke.py
+this process built), then phase 26 (a) to (k) exactly as chip_smoke.py
 runs them after phase 25, and the launches each path counted. Exits
 non-zero without a card.
 """
