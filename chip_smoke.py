@@ -347,7 +347,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
     against another run); the phase's seconds;
 25. tensor-parallel serving (``serve/tp.py``, the engine's ``mesh``,
     the model's Megatron layout; B4 on every rank, B5 and the kv8 B4
-    under int8): (a) an NCCL world of 1 in this process: phase 7's bf16
+    under int8; each serving world's workers of 25, 27 and 28 start
+    ahead of it, ``serve/tp.py`` ``prestart``: 25 (b)'s as (a) begins,
+    25 (c)'s after (b)'s timed requests, 27's as 26 (b)'s ranks end,
+    28's after 27 (a)'s timed requests, so each "world start" is rank
+    0's part): (a) an NCCL world of 1 in this process: phase 7's bf16
     engine built with ``mesh={"tp": 1}``, so every device operation goes
     through the command path and every all-reduce and gather through
     NCCL, in turns with the plain engine (plain, tp, tp, plain): tokens
@@ -440,10 +444,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
     (run in a thread beside 18 (b)) ``dist_lm --pp PP`` at ENTRY_ARGS by
     1F1B (``PP_ENTRY_MICRO`` microbatches), killed at ``ENTRY_FAIL_AT``
     and resumed, then ``serve_lm --from-pp PP`` over its checkpoint
-    answering ``PP_PROMPT`` with ``PP_ANSWER``; every step second and
-    tokens/s of (b) and (d) to (j) is read with (c) (and (f), (i))
-    running beside them on the same card and host cores; the phase's
-    seconds;
+    answering ``PP_PROMPT`` with ``PP_ANSWER``; (l) after (f)'s runs in
+    its NCCL world of 1, the training cell and the MoE cell cut to
+    ``A8I_LAYERS`` blocks, each plain, then the MoE cell over ``{"ep": 1,
+    "tp": 1}`` and the training cell under FSDP over ``{"fsdp": 1, "tp":
+    1}`` and ZeRO-1 over ``{"dp": 1, "tp": 1}``, each bitwise its plain
+    run (their weights written for (m)); (m) a world of ``A8I_WORLD``
+    gloo ranks of its own (``a8i_rank``, started at go, going once (c) is
+    done), the MoE cell over ``{"ep": 2, "tp": 2}``, FSDP over ``{"fsdp":
+    2, "tp": 2}`` and ZeRO-1 over ``{"dp": 2, "tp": 2}`` (A8i), each
+    rank's parts of the weights and its losses held to (l)'s plain run by
+    (b)'s bounds, its weight and AdamW bytes exactly the layout's
+    (``A8I_PARAMS``, ``A8I_MOMENTS``), the bytes staged a step, peak
+    memory, step seconds and exact launches; every step second and
+    tokens/s of (b) and (d) to (j) and (m) is read with (c) (and (f),
+    (i), (l)) running beside them on the same card and host cores; the
+    phase's seconds; each leg of (a)-(j) runs ``TP_TRAIN_STEPS`` steps;
 27. tensor x data parallel serving (``serve_lm --dp``; the dp half of
     ``serve/sharding.py``, the dp allocators, global dp admission; B4 on
     every rank over its pool tile): (a) ``serve_lm``'s front at phase
@@ -909,10 +925,10 @@ SPEC_FRESH_TOKENS = 437
 # run: the row-split products add two bf16-rounded partial sums where tp 1
 # rounds one sum, and the vocabulary-parallel loss takes its max and sums
 # in another order, so each step's loss within TP_TRAIN_LOSS_RTOL
-# (relative, of ~10.4), and after 3 AdamW steps every weight within
+# (relative, of ~10.4), and after the AdamW steps every weight within
 # ADAM_BOUND x the summed learning rate (phase 8's rule: Adam moves an
 # element by about lr a step, whatever its gradient's rounding).
-TP_TRAIN_STEPS = 3
+TP_TRAIN_STEPS = 2
 TP_TRAIN_LR = 1e-4
 TP_TRAIN_LOSS_RTOL = 2e-3
 TP_TRAIN_DEVICE = "cuda"  # (b)'s ranks' device
@@ -947,6 +963,26 @@ ADAFACTOR_MOVE_RATIO = 0.5
 # probabilities, and Adam moves a weight by about lr a step whatever its
 # gradient, so ADAM_BOUND holds either way.
 FSDP = EP = 2
+# (l) and (m): expert parallelism, FSDP and ZeRO-1 beside tp (A8i) at the
+# training cell's width cut to A8I_LAYERS blocks (the MoE cell: one dense
+# block, then one MoE block of MOE_BENCH's 8 experts). (l) in (f)'s NCCL
+# world of 1, each cell plain and then over a mesh of ones, bitwise; (m) in
+# a world of A8I_WORLD gloo ranks of its own sharing the card, each leg
+# TP_TRAIN_STEPS steps from the seeded tree held to (l)'s plain run of its
+# cell by (b)'s bounds. A8I_LEGS: leg -> (cell, (m)'s mesh, (l)'s mesh).
+A8I_LAYERS, A8I_WORLD = 2, 4
+A8I_LEGS = {
+    "moe": ("moe", {"ep": 2, "tp": 2}, {"ep": 1, "tp": 1}),
+    "fsdp": ("lm", {"fsdp": 2, "tp": 2}, {"fsdp": 1, "tp": 1}),
+    "zero": ("lm", {"dp": 2, "tp": 2}, {"dp": 1, "tp": 1}),
+}
+# What a rank of (m) holds, from the layout (``param_shapes``, the Megatron
+# and expert rules, ``fsdp_spec`` of the whole leaves): the MoE cell's
+# weights at ep 2 x tp 2; the training cell's under FSDP 2 x tp 2 (its tp
+# parts cut again); under ZeRO-1 dp 2 x tp 2 its tp parts whole and half
+# of their moments. AdamW keeps two f32 moments an element.
+A8I_PARAMS = {"moe": 83_945_472, "fsdp": 27_295_744, "zero": 54_582_272}
+A8I_MOMENTS = {"moe": 83_945_472, "fsdp": 27_295_744, "zero": 27_295_744}
 # (i) pipeline parallelism (train/pp_lm.py) on phase 9's cell: in (a)'s
 # NCCL world of 1, the cell over {"pp": 1} at PP_MICRO microbatches by
 # GPipe and by 1F1B, after (a)'s last plain run, TP_TRAIN_STEPS steps each
@@ -2322,17 +2358,19 @@ def latency_line(label: str, responses, wall: float) -> dict:
     return out
 
 
-def open_front(cfg, params, draft_params=None, **flags):
+def open_front(cfg, params, draft_params=None, spawned=None, **flags):
     """The port's server at phase 6's serving width (4 slots, blk 128,
     the kernel read) on an ephemeral port, serving: (supervisor, server,
-    base URL). ``draft_params`` is the draft's tree under ``spec_k``."""
+    base URL). ``draft_params`` is the draft's tree under ``spec_k``;
+    ``spawned`` a tp world's workers started ahead (``serve/tp.py``
+    ``prestart``)."""
     from tf_operator_tpu_torch.serve import serve_lm
 
     args = serve_lm.front_args(
         device="cuda", max_batch=len(LANES), kv_block=BLK,
         kv_attend="kernel", max_seq_len=cfg.max_seq_len, port=0, **flags)
     supervisor, server = serve_lm.build_front(cfg, params, args,
-                                              draft_params)
+                                              draft_params, spawned)
     server.start()
     return supervisor, server, "http://" + server.endpoint
 
@@ -6126,17 +6164,18 @@ def tp_parting(model, body, got, other):
     return step, abs(row[int(got[step])] - row[int(other[step])]).item() / 2
 
 
-def tp_front_phase(pa, i8, base, params, prompts, card,
-                   ref: dict | None = None) -> int:
+def tp_front_phase(pa, i8, base, params, prompts, card, ref: dict,
+                   ahead: dict) -> int:
     """Phase 25 (b): the bf16 front at ``--tp 1`` alone, then at ``--tp 2
     --dist-backend gloo``, phase 15's eight requests each; the tp 2
     tokens equal tp 1's but at a ``BF16_TIE`` near-tie, each rank's pool
     half tp 1's bytes; then one ``step_raise`` replayed across a rebuild
     that reaches the worker. Returns B4's launches over both ranks, and
     fills ``ref`` with what phase 27 holds its run against: tp 1's tokens,
-    pool bytes and latency line, tp 2's tokens and latency line."""
+    pool bytes and latency line, tp 2's tokens and latency line. Takes
+    ``ahead["25b"]``'s workers and starts (c)'s (``ahead["25c"]``)."""
     from tf_operator_tpu_torch.models.transformer import _decode_model
-    from tf_operator_tpu_torch.serve.tp import report
+    from tf_operator_tpu_torch.serve.tp import prestart, report
 
     cfg = replace(base, dtype=torch.bfloat16)
     bodies = front_requests(prompts)
@@ -6151,13 +6190,16 @@ def tp_front_phase(pa, i8, base, params, prompts, card,
 
     t0 = time.perf_counter()
     supervisor, server, url = open_front(cfg, params, tp=TP,
-                                         dist_backend="gloo")
+                                         dist_backend="gloo",
+                                         spawned=ahead.get("25b"))
     start_s = time.perf_counter() - t0
     try:
         reset_counts(pa, i8)
         before = report(supervisor.engine)
         responses, wall = send_all(url, bodies)
         two = latency_line("tp 2 (25b)", responses, wall)
+        # (c)'s worker starts once the timed requests are answered.
+        ahead["25c"] = prestart(TP, "cuda", "gloo")
         faults = supervisor.faults
         faults.arm(f"step_raise@"
                    f"{faults.invocations['step_raise'] + TP_FAULT_AT}")
@@ -6182,9 +6224,8 @@ def tp_front_phase(pa, i8, base, params, prompts, card,
                              responses[0]["tokens"][0])
     del model
     torch.cuda.empty_cache()
-    if ref is not None:
-        ref.update(tokens=one_tokens, pool=one_pool, one=one, two=two,
-                   tp2_tokens=[r["tokens"][0] for r in responses])
+    ref.update(tokens=one_tokens, pool=one_pool, one=one, two=two,
+               tp2_tokens=[r["tokens"][0] for r in responses])
     print(f"serve_lm tp 2 (25b): rank 0 in this process, its worker a "
           f"process on the same card, gloo; world start {start_s:.1f} s; "
           f"pool bytes a rank {pools} (tp 1 {one_pool}); requests/s "
@@ -6210,7 +6251,7 @@ def tp_front_phase(pa, i8, base, params, prompts, card,
     return launches
 
 
-def tp_int8_phase(pa, i8, base, params, prompts, card) -> dict:
+def tp_int8_phase(pa, i8, base, params, prompts, card, ahead: dict) -> dict:
     """Phase 25 (c): the bf16 int8 + kv8 tree at tp 2 (whole on each rank,
     as JAX's; rank 0 here, the worker a process of its own) in lockstep
     with the tp 1 engine on phase 6's schedule, teacher-forced: after
@@ -6242,7 +6283,8 @@ def tp_int8_phase(pa, i8, base, params, prompts, card) -> dict:
         return out
 
     t0 = time.perf_counter()
-    world = start_world(TP, "cuda", "gloo", kw, tree)
+    world = start_world(TP, "cuda", "gloo", kw, tree,
+                        spawned=ahead.get("25c"))
     try:
         a = ContinuousEngine(params=tree, device="cuda", mesh=world.mesh,
                              **kw)
@@ -6310,14 +6352,20 @@ def tp_int8_phase(pa, i8, base, params, prompts, card) -> dict:
     return launches
 
 
-def tp_phase(pa, i8, base, params, prompts, card,
-             ref: dict | None = None) -> dict:
+def tp_phase(pa, i8, base, params, prompts, card, ref: dict,
+             ahead: dict) -> dict:
     """Phase 25, (a) to (c); returns {kernel: {path label: launches}} and
-    fills ``ref`` (25 (b)'s references for phase 27)."""
+    fills ``ref`` (25 (b)'s references for phase 27). The serving worlds'
+    workers start ahead (``serve/tp.py`` ``prestart``), kept in
+    ``ahead`` by the world they are for."""
+    from tf_operator_tpu_torch.serve.tp import prestart
+
     t0 = time.perf_counter()
+    # 25 (b)'s worker starts while (a) runs.
+    ahead["25b"] = prestart(TP, "cuda", "gloo")
     nccl = tp_nccl_phase(pa, base, params, prompts, card)
-    front = tp_front_phase(pa, i8, base, params, prompts, card, ref)
-    int8 = tp_int8_phase(pa, i8, base, params, prompts, card)
+    front = tp_front_phase(pa, i8, base, params, prompts, card, ref, ahead)
+    int8 = tp_int8_phase(pa, i8, base, params, prompts, card, ahead)
     print(f"phase 25 (tensor-parallel serving): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     label = "serve_lm tp 2 int8kv8 (25c)"
@@ -6327,8 +6375,8 @@ def tp_phase(pa, i8, base, params, prompts, card,
                if name != "paged_attend"}}
 
 
-def tpdp_front_phase(pa, i8, base, params, prompts, card,
-                     ref: dict) -> int:
+def tpdp_front_phase(pa, i8, base, params, prompts, card, ref: dict,
+                     ahead: dict) -> int:
     """Phase 27 (a) and (b): the bf16 front at ``--tp 2 --dp 2
     --dist-backend gloo`` (rank 0 here, three workers on the card), phase
     15's eight requests, held against 25 (b)'s tp 1 front (``ref``):
@@ -6342,7 +6390,7 @@ def tpdp_front_phase(pa, i8, base, params, prompts, card,
         local_pool_blocks,
         shard_of_slot,
     )
-    from tf_operator_tpu_torch.serve.tp import report
+    from tf_operator_tpu_torch.serve.tp import prestart, report
 
     cfg = replace(base, dtype=torch.bfloat16)
     bodies = front_requests(prompts)
@@ -6364,7 +6412,8 @@ def tpdp_front_phase(pa, i8, base, params, prompts, card,
     t0 = time.perf_counter()
     with mock.patch.object(ContinuousEngine, "_join_slot", seated):
         supervisor, server, url = open_front(
-            cfg, params, tp=TP, dp=DP, dist_backend="gloo")
+            cfg, params, tp=TP, dp=DP, dist_backend="gloo",
+            spawned=ahead.get("27"))
         start_s = time.perf_counter() - t0
         try:
             reset_counts(pa, i8)
@@ -6372,6 +6421,9 @@ def tpdp_front_phase(pa, i8, base, params, prompts, card,
             before = report(engine)
             responses, wall = send_all(url, bodies)
             four = latency_line("tp 2 x dp 2 (27a)", responses, wall)
+            # Phase 28's worker starts once the timed requests are
+            # answered.
+            ahead["28"] = prestart(TP, "cuda", "gloo")
             kv = engine.kv_debug()
             mid = report(engine)
             faults = supervisor.faults
@@ -6572,19 +6624,24 @@ def tpdp_ship_leg(cfg, params, prompts, supervisor, url, body) -> dict:
         seconds=time.perf_counter() - t_leg)
 
 
-def tpdp_phase(pa, i8, base, params, prompts, card, ref: dict) -> dict:
-    """Phase 27; returns {kernel: {path label: launches}}."""
+def tpdp_phase(pa, i8, base, params, prompts, card, ref: dict,
+               ahead: dict) -> dict:
+    """Phase 27 (its workers ``ahead["27"]``, phase 28's started into
+    ``ahead["28"]``); returns {kernel: {path label: launches}}."""
     t0 = time.perf_counter()
-    front, ship = tpdp_front_phase(pa, i8, base, params, prompts, card, ref)
+    front, ship = tpdp_front_phase(pa, i8, base, params, prompts, card, ref,
+                                   ahead)
     print(f"phase 27 (tensor x data parallel serving): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return {"paged_attend": {"serve_lm tp 2 x dp 2 (27)": front,
                              "serve_lm tp 2 x dp 2 ship (27c)": ship}}
 
 
-def tp_spec_phase(pa, i8, base, params, prompts, card, ref: dict) -> dict:
+def tp_spec_phase(pa, i8, base, params, prompts, card, ref: dict,
+                  ahead: dict) -> dict:
     """Phase 28: spec and the host tier at ``--tp 2`` (see the module
-    docstring); ``ref`` is 25 (b)'s. Returns {kernel: {path: launches}}."""
+    docstring; its worker ``ahead["28"]``); ``ref`` is 25 (b)'s. Returns
+    {kernel: {path: launches}}."""
     from tf_operator_tpu_torch.models.transformer import _decode_model
     from tf_operator_tpu_torch.serve.disagg import chain_digests
     from tf_operator_tpu_torch.serve.tp import report
@@ -6604,7 +6661,7 @@ def tp_spec_phase(pa, i8, base, params, prompts, card, ref: dict) -> dict:
     supervisor, server, url = open_front(
         cfg, params, truncated_draft(params, DRAFT_LAYERS), tp=TP,
         dist_backend="gloo", spec_k=SPEC_K_28, host_tier_bytes=1 << 30,
-        kv_pool_blocks=SPEC_POOL_BLOCKS)
+        kv_pool_blocks=SPEC_POOL_BLOCKS, spawned=ahead.get("28"))
     start_s = time.perf_counter() - t0
     try:
         engine = supervisor.engine
@@ -6920,15 +6977,16 @@ def pp_world1_runs(card: str, cfg, params: dict, ref: dict,
     return out
 
 
-def sharded_world1_phase(card: str, ref: dict) -> dict:
+def sharded_world1_phase(card: str, ref: dict, tmp: str) -> dict:
     """Phase 26 (f), run after go, beside (b)'s ranks and (c): in an NCCL
     world of 1 in this process, phase 9's bf16 step under FSDP over
     ``{"fsdp": 1}`` and under ZeRO-1 over ``{"dp": 1}``
     (``weight_update_shardings``), ``TP_TRAIN_STEPS`` steps each from the
     seeded tree: losses and weights bitwise (a)'s last plain run; then
     (i) (``pp_world1_runs``); then the MoE cell plain and over ``{"dp":
-    1, "ep": 1}`` (``moe_world1_runs``). Sets ``ref["moe"]``; returns
-    {path label: flash launches}."""
+    1, "ep": 1}`` (``moe_world1_runs``); then (l) (``a8i_world1_runs``,
+    its references written under ``tmp``). Sets ``ref["moe"]`` and
+    ``ref["a8i"]``; returns {path label: flash launches}."""
     import torch.distributed as dist
 
     from tf_operator_tpu_torch.models.convert import init_params
@@ -6989,6 +7047,8 @@ def sharded_world1_phase(card: str, ref: dict) -> dict:
         del params
         moe_launches, ref["moe"] = moe_world1_runs(card)
         out["train moe ep nccl world 1 (26f)"] = moe_launches
+        a8i, ref["a8i"] = a8i_world1_runs(card, tmp)
+        out.update(a8i)
     finally:
         dist.destroy_process_group()
     return out
@@ -7046,6 +7106,312 @@ def moe_world1_runs(card: str) -> tuple[dict, dict]:
         raise AssertionError(f"26f moe launches {ep['counts']}, want {want}")
     return dict(zip(FLASH_KERNELS, ep["counts"].values())), {
         k: plain[k] for k in ("losses", "auxes", "weights", "param_bytes")}
+
+
+def a8i_cells() -> dict:
+    """(l)'s and (m)'s cells by name: the training cell and the MoE cell,
+    each cut to ``A8I_LAYERS`` blocks (keywords of ``TransformerConfig``
+    but its dtype)."""
+    lm = dict(LM, n_layers=A8I_LAYERS)
+    return {"lm": lm, "moe": dict(lm, **MOE_BENCH)}
+
+
+def a8i_world1_runs(card: str, tmp: str) -> tuple[dict, dict]:
+    """Phase 26 (l), in (f)'s NCCL world of 1 after its MoE runs: each of
+    ``a8i_cells`` plain, then over (l)'s meshes of ``A8I_LEGS`` (the MoE
+    cell's model over ``{"ep": 1, "tp": 1}``; the training cell's under
+    FSDP over ``{"fsdp": 1, "tp": 1}`` and under ZeRO-1 over ``{"dp": 1,
+    "tp": 1}``), ``TP_TRAIN_STEPS`` steps each from the seeded tree:
+    losses and weights bitwise the plain run. Writes each plain run's
+    host weights (by parameter name) to ``tmp/a8i_{cell}.pt`` for (m).
+    Returns ({path label: flash launches}, {cell: the plain run's losses,
+    aux and weight bytes})."""
+    from tf_operator_tpu_torch.models.convert import init_params
+    from tf_operator_tpu_torch.models.transformer import TransformerConfig
+    from tf_operator_tpu_torch.parallel.mesh import create_mesh
+    from tf_operator_tpu_torch.parallel.sharding import (
+        fsdp_sharding_tree,
+        shard_params_fsdp,
+        weight_update_shardings,
+    )
+    from tf_operator_tpu_torch.train.steps import adamw
+
+    batch = tp_train_batch(LM["vocab_size"], TRAIN_B, TRAIN_T, "cuda")
+    out, refs, lines, bad = {}, {}, [], []
+    want = A8I_LAYERS * TP_TRAIN_STEPS
+    for cell, kwargs in a8i_cells().items():
+        cfg = TransformerConfig(dtype=torch.bfloat16, **kwargs)
+        params = init_params(cfg, seed=0)
+        kw = dict(xent_chunk=XENT_CHUNK, xent_dot_dtype=torch.bfloat16)
+        if cell == "moe":
+            kw["aux_loss_weight"] = MOE_AUX_WEIGHT
+        plain = train_run(cfg, params, batch, TP_TRAIN_STEPS,
+                          adamw(TP_TRAIN_LR), **kw)
+        model = plain.pop("model")
+        weights = {n: p.detach().float().cpu()
+                   for n, p in model.named_parameters()}
+        refs[cell] = {"losses": plain["losses"], "auxes": plain["auxes"],
+                      "param_bytes": sum(p.numel() * p.element_size()
+                                         for p in model.parameters())}
+        torch.save({"weights": weights}, os.path.join(tmp, f"a8i_{cell}.pt"))
+        del model
+        torch.cuda.empty_cache()
+        for leg, (leg_cell, _, axes) in A8I_LEGS.items():
+            if leg_cell != cell:
+                continue
+            mesh = create_mesh(axes, device="cuda")
+            side_kw, place = dict(kw, mesh=mesh), None
+            if leg == "fsdp":
+                side_kw.update(data_axis="fsdp",
+                               param_shardings=fsdp_sharding_tree(mesh,
+                                                                  params))
+
+                def place(m, mesh=mesh):
+                    return shard_params_fsdp(mesh, m)
+            elif leg == "zero":
+                side_kw["opt_shardings"] = weight_update_shardings(mesh,
+                                                                   params)
+            run = train_run(replace(cfg, mesh=mesh), params, batch,
+                            TP_TRAIN_STEPS, adamw(TP_TRAIN_LR), place=place,
+                            **side_kw)
+            model = run.pop("model")
+            differ = [n for n, p in model.named_parameters()
+                      if not torch.equal(p.detach().float().cpu(),
+                                         weights[n])]
+            if (run["losses"] != plain["losses"]
+                    or run["auxes"] != plain["auxes"]):
+                differ.append(f"losses {run['losses']} aux {run['auxes']}")
+            label = {"moe": "train moe ep 1 x tp 1 nccl world 1 (26l)",
+                     "fsdp": "train fsdp 1 x tp 1 nccl world 1 (26l)",
+                     "zero": "train zero1 dp 1 x tp 1 nccl world 1 (26l)"}[
+                         leg]
+            out[label] = dict(zip(FLASH_KERNELS, run["counts"].values()))
+            lines.append(
+                f"{leg} over {mesh}: losses {run['losses']}"
+                + (f", aux {run['auxes']}" if run["auxes"] else "")
+                + f" against plain {plain['losses']}; "
+                f"{'bitwise' if not differ else differ[:8]}; step_s "
+                f"{run['seconds']} (plain {plain['seconds']}); launches "
+                f"{run['counts']}")
+            if differ or set(run["counts"].values()) != {want}:
+                bad.append(f"{leg}: {differ[:8]}, launches {run['counts']} "
+                           f"(want {want})")
+            del run, model
+            torch.cuda.empty_cache()
+        del params, weights
+    print(f"train a8i nccl world 1 (26l): bf16 B={TRAIN_B} T={TRAIN_T}, the "
+          f"training cell and the MoE cell at {A8I_LAYERS} blocks, "
+          f"{TP_TRAIN_STEPS} steps a run from the seeded tree, each plain "
+          f"then over a mesh of ones: {'; '.join(lines)} (after go, beside "
+          f"(b)'s ranks and (c)) on {card}", flush=True)
+    if bad:
+        raise AssertionError(f"26l: {bad}")
+    return out, refs
+
+
+def start_a8i_ranks(tmp: str, procs: list, logs: list) -> None:
+    """Phase 26 (m)'s ``A8I_WORLD`` gloo ranks (``a8i_rank``), started on
+    the card at go so that their imports, the world's join and the host
+    trees overlap (b)'s ranks and (c); each waits for ``tmp/go_m``.
+    Appends the processes and their log paths to ``procs`` and
+    ``logs``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k not in (
+        "TF_CONFIG", "TPU_WORKER_ID", "TPU_NUM_PROCESSES",
+        "TPU_COORDINATOR_ADDRESS", "MEGASCALE_NUM_SLICES")}
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    env.setdefault("OMP_NUM_THREADS", "1")
+    port = free_port()
+    for r in range(A8I_WORLD):
+        rank_env = dict(env, TPU_NUM_PROCESSES=str(A8I_WORLD),
+                        TPU_WORKER_ID=str(r),
+                        TPU_COORDINATOR_ADDRESS=f"127.0.0.1:{port}")
+        logs.append(os.path.join(tmp, f"a8i{r}.log"))
+        with open(logs[-1], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", "import sys, chip_smoke; "
+                 "sys.exit(chip_smoke.a8i_rank(sys.argv[1]))", tmp],
+                cwd=root, env=rank_env, stdout=log,
+                stderr=subprocess.STDOUT))
+
+
+def a8i_rank(out: str) -> int:
+    """One rank of phase 26 (m), a process of its own (``python -c``):
+    joins the gloo world of ``A8I_WORLD`` the operator's env names, makes
+    (l)'s seeded trees on the host, waits for ``out/go_m``, then runs each
+    leg of ``A8I_LEGS`` over its (m) mesh (this rank's tp slices of the
+    tree, its experts over ep, its FSDP shards; its data index's rows of
+    phase 26's batch), ``TP_TRAIN_STEPS`` steps: ``rank_steps``' numbers,
+    the weight and optimiser bytes it holds, its peak device bytes, and
+    its weights against (l)'s plain run (``out/a8i_{cell}.pt``) cut to
+    its parts: the largest difference, where, and the elements beyond 1 %
+    of the summed lr. Writes them to ``out/a8i{r}.json``."""
+    from tf_operator_tpu_torch.models.convert import (
+        init_params,
+        load_params,
+    )
+    from tf_operator_tpu_torch.models.moe import moe_param_sharding_rules
+    from tf_operator_tpu_torch.models.transformer import (
+        Transformer,
+        TransformerConfig,
+        param_sharding_rules,
+    )
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.parallel import sharding
+    from tf_operator_tpu_torch.parallel.mesh import create_mesh
+    from tf_operator_tpu_torch.train import distributed
+    from tf_operator_tpu_torch.train.steps import (
+        TrainState,
+        adamw,
+        make_lm_train_step,
+        param_cuts,
+    )
+
+    device = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    topo = distributed.initialize(distributed.from_env(), device=device,
+                                  backend="gloo")
+    fa._library()
+    cells = a8i_cells()
+    trees = {name: init_params(TransformerConfig(**kw), seed=0)
+             for name, kw in cells.items()}
+    batch = tp_train_batch(LM["vocab_size"], TRAIN_B, TRAIN_T, device)
+    ready = time.perf_counter()
+    deadline = time.monotonic() + 900.0
+    while not os.path.exists(os.path.join(out, "go_m")):
+        if time.monotonic() > deadline:
+            raise TimeoutError("26m: no go within 900 s")
+        time.sleep(0.05)
+    result = {"waited": time.perf_counter() - ready}
+    lr_sum = TP_TRAIN_LR * TP_TRAIN_STEPS
+    for leg, (cell, axes, _) in A8I_LEGS.items():
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mesh = create_mesh(axes, device=device)
+        rules = dict(param_sharding_rules())
+        if cell == "moe":
+            rules.update(moe_param_sharding_rules())
+        cfg = TransformerConfig(dtype=torch.bfloat16, mesh=mesh, **cells[cell])
+        model = load_params(Transformer(cfg, device), sharding.
+                            shard_params_by_rules(mesh, trees[cell], rules))
+        data = {"fsdp": "fsdp"}.get(leg, "dp")
+        kw = dict(mesh=mesh, data_axis=data, xent_chunk=XENT_CHUNK,
+                  xent_dot_dtype=torch.bfloat16)
+        if leg == "fsdp":
+            kw["param_shardings"] = sharding.fsdp_sharding_tree(mesh,
+                                                                trees[cell])
+            sharding.shard_params_fsdp(mesh, model)
+        elif leg == "zero":
+            kw["opt_shardings"] = sharding.weight_update_shardings(
+                mesh, trees[cell])
+        else:
+            kw["aux_loss_weight"] = MOE_AUX_WEIGHT
+        tx = adamw(TP_TRAIN_LR)
+        state = TrainState.create(model, tx)
+        step = make_lm_train_step(model, tx, **kw)
+        rows = sharding.DataParallel(mesh, data)
+        n = TRAIN_B // rows.size
+        mine = {k: v[rows.index * n:(rows.index + 1) * n]
+                for k, v in batch.items()}
+        got = rank_steps(step, state, mine, TP_TRAIN_STEPS, True)
+        got["param_bytes"], got["adam_bytes"] = held_bytes(state)
+        got["peak_bytes"] = torch.cuda.max_memory_allocated()
+        ref = torch.load(os.path.join(out, f"a8i_{cell}.pt"), mmap=True,
+                         weights_only=True)["weights"]
+        cuts = param_cuts(model)
+        max_err, at, far, total = 0.0, None, 0, 0
+        for name, p in model.named_parameters():
+            want = ref[name]
+            if id(p) in cuts:
+                want = cuts[id(p)].part(want)
+            diff = (p.detach().float().cpu() - want).abs()
+            err = float(diff.max())
+            if err > max_err:
+                max_err, at = err, name
+            far += int((diff > 0.01 * lr_sum).sum())
+            total += diff.numel()
+        got.update(max_err=max_err, at=at, far=far, total=total,
+                   leg_s=time.perf_counter() - t0)
+        result[leg] = got
+        del model, state, step, tx, ref
+    with open(os.path.join(out, f"a8i{topo.process_id}.json"), "w") as f:
+        json.dump(result, f)
+    distributed.shutdown()
+    return 0
+
+
+def a8i_pair_phase(card: str, ref: dict, tmp: str, procs: list,
+                   logs: list, t0: float) -> dict:
+    """Phase 26 (m): the ranks ``start_a8i_ranks`` started, told to go at
+    ``t0``, against (l)'s plain runs (``ref``): printed, checked (an
+    ``AssertionError`` on a failure) and returned as {path label: the
+    ranks' summed flash launches}."""
+    codes = wait_all(procs, timeout=900.0)
+    if codes != [0] * A8I_WORLD:
+        raise AssertionError(f"26m: rc {codes}: " + "\n".join(
+            read_log(p)[-3000:] for p in logs))
+    ranks = []
+    for r in range(A8I_WORLD):
+        with open(os.path.join(tmp, f"a8i{r}.json")) as f:
+            ranks.append(json.load(f))
+    wall = time.perf_counter() - t0
+    lr_sum = TP_TRAIN_LR * TP_TRAIN_STEPS
+    want_n = A8I_LAYERS * TP_TRAIN_STEPS
+    paths, bad = {}, []
+    for leg, (cell, axes, _) in A8I_LEGS.items():
+        legs = [r[leg] for r in ranks]
+        plain = ref[cell]
+        loss_err = [abs(a - b) / abs(b) for a, b in zip(legs[0]["losses"],
+                                                        plain["losses"])]
+        max_err = max(g["max_err"] for g in legs)
+        at = next(g["at"] for g in legs if g["max_err"] == max_err)
+        label = {"moe": "train moe ep 2 x tp 2 (26m)",
+                 "fsdp": "train fsdp 2 x tp 2 (26m)",
+                 "zero": "train zero1 dp 2 x tp 2 (26m)"}[leg]
+        aux = (f"aux {legs[0]['auxes']} against {plain['auxes']}; "
+               if legs[0]["auxes"] else "")
+        print(f"{label}: bf16 B={TRAIN_B} T={TRAIN_T}, the {cell} cell at "
+              f"{A8I_LAYERS} blocks over {axes} as {A8I_WORLD} gloo "
+              f"processes on one card, {TP_TRAIN_STEPS} steps from the "
+              f"seeded tree: losses {legs[0]['losses']} against the plain "
+              f"run's {plain['losses']}, relative "
+              f"{[f'{e:.3e}' for e in loss_err]} (tolerance "
+              f"{TP_TRAIN_LOSS_RTOL}); {aux}each rank's parts of the weights "
+              f"against the plain run's: largest difference {max_err:.3e} in "
+              f"{at} (tolerance {ADAM_BOUND * lr_sum:.3e}), "
+              f"{sum(g['far'] for g in legs)} of "
+              f"{sum(g['total'] for g in legs)} beyond 1 % of the summed lr; "
+              f"weight bytes a rank {[g['param_bytes'] for g in legs]} "
+              f"(whole {plain['param_bytes']}, want "
+              f"{4 * A8I_PARAMS[leg]}), AdamW bytes a rank "
+              f"{[g['adam_bytes'] for g in legs]} (want "
+              f"{8 * A8I_MOMENTS[leg]}); bytes staged through the host a "
+              f"step {[g['staged'] for g in legs]}; peak device bytes a rank "
+              f"{[g['peak_bytes'] for g in legs]}; step_s "
+              f"{[g['seconds'] for g in legs]}; leg seconds a rank "
+              f"{[round(g['leg_s'], 1) for g in legs]}; flash launches a "
+              f"rank {[g['counts'] for g in legs]} (host staging on one "
+              f"card) on {card}", flush=True)
+        if (any(g["losses"] != legs[0]["losses"] for g in legs)
+                or not max(loss_err) <= TP_TRAIN_LOSS_RTOL
+                or not max_err <= ADAM_BOUND * lr_sum):
+            bad.append(f"{leg}: parts from the plain run")
+        if any(g["param_bytes"] != 4 * A8I_PARAMS[leg]
+               or g["adam_bytes"] != 8 * A8I_MOMENTS[leg] for g in legs):
+            bad.append(f"{leg}: bytes a rank off the layout")
+        if any(set(g["counts"].values()) != {want_n} for g in legs):
+            bad.append(f"{leg} launches {[g['counts'] for g in legs]}, "
+                       f"want {want_n} of each a rank")
+        paths[label] = {k: sum(counts_of(g)[k] for g in legs)
+                        for k in FLASH_KERNELS}
+    print(f"train a8i (26m): {wall:.1f} s from go_m to the ranks' exit, the "
+          f"ranks ready {[round(r['waited'], 1) for r in ranks]} s before "
+          f"go_m (started at go) on {card}", flush=True)
+    if bad:
+        raise AssertionError(f"26m: {bad}")
+    return paths
 
 
 def rank_steps(step, state, batch, steps: int, cuda: bool) -> dict:
@@ -7279,6 +7645,17 @@ def tp_train_rank(out: str) -> int:
     return 0
 
 
+def held_bytes(state) -> tuple[int, int]:
+    """(weight bytes, optimiser-state bytes but step counts) a rank's
+    ``TrainState`` holds."""
+    opt = state.optimizer.state
+    return (sum(p.numel() * p.element_size()
+                for p in state.model.parameters()),
+            sum(v.numel() * v.element_size() for st in opt.values()
+                for v in st.values()
+                if isinstance(v, torch.Tensor) and v.dim()))
+
+
 def save_cut_whole(model, path: str | None) -> None:
     """The model's weights with every cut leaf (FSDP, ep) gathered whole
     (collective), saved by rank 0 to ``path`` as {flax path: f32 host
@@ -7329,15 +7706,6 @@ def sharded_legs(cell: dict, tree: dict, moe_tree: dict, batch: dict,
     zmesh = create_mesh({"dp": FSDP}, device=device)
     legs = {"fsdp": (fmesh, "fsdp"), "zero": (zmesh, "dp")}
     result = {}
-
-    def held_bytes(state) -> tuple[int, int]:
-        opt = state.optimizer.state
-        return (sum(p.numel() * p.element_size()
-                    for p in state.model.parameters()),
-                sum(v.numel() * v.element_size() for st in opt.values()
-                    for v in st.values()
-                    if isinstance(v, torch.Tensor) and v.dim()))
-
     for name, (mesh, axis) in legs.items():
         if cuda:
             torch.cuda.empty_cache()
@@ -8044,11 +8412,16 @@ def pp_entry_phase(card: str) -> dict:
     return launches
 
 
-def tp_train_phase(card: str) -> dict:
-    """Phase 26, (a) to (j): (b)'s ranks started before (a) and waiting
-    for it, (c) in a thread beside (b), (d) to (j); returns {path label:
-    flash launches}. (k) runs beside 18 (b) (``pp_entry_phase``)."""
+def tp_train_phase(card: str, ahead: dict) -> dict:
+    """Phase 26, (a) to (j), (l) and (m): (b)'s ranks started before (a)
+    and waiting for it, (c) in a thread beside (b), (d) to (j); (f), (i)
+    and (l) in this process after go; (m)'s ranks started at go, going
+    once (c) is done and (l) has written its references; returns {path
+    label: flash launches}. (k) runs beside 18 (b) (``pp_entry_phase``). Phase 27's
+    serving workers start as (b)'s ranks end (``ahead["27"]``)."""
     from concurrent.futures import ThreadPoolExecutor
+
+    from tf_operator_tpu_torch.serve.tp import prestart
 
     t0 = time.perf_counter()
     procs: list = []
@@ -8061,19 +8434,31 @@ def tp_train_phase(card: str) -> dict:
                 entry = pool.submit(tp_entry_phase, card)
                 go = time.perf_counter()
                 open(os.path.join(tmp, "go"), "w").close()
-                world1 = sharded_world1_phase(card, ref)
-                pair = tp_train_pair_phase(card, ref, tmp, procs, logs, go)
+                # (m)'s ranks start after (a), whose step times they would
+                # share the host with.
+                a8i_procs, a8i_logs = [], []
+                start_a8i_ranks(tmp, a8i_procs, a8i_logs)
+                procs += a8i_procs
+                world1 = sharded_world1_phase(card, ref, tmp)
                 entry = entry.result()
+            go_m = time.perf_counter()
+            open(os.path.join(tmp, "go_m"), "w").close()
+            pair = tp_train_pair_phase(card, ref, tmp, procs[:TP], logs,
+                                       go)
+            ahead["27"] = prestart(TP * DP, "cuda", "gloo", dp=DP)
+            a8i = a8i_pair_phase(card, ref["a8i"], tmp, a8i_procs, a8i_logs,
+                                 go_m)
         finally:
             for proc in procs:
                 if proc.poll() is None:
                     proc.kill()
                     proc.wait()
     del ref
-    print(f"phase 26 (tensor-, sequence- and pipeline-parallel training): "
+    print(f"phase 26 (tensor-, sequence-, fully sharded, expert- and "
+          f"pipeline-parallel training): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return {"train tp nccl world 1 (26a)": nccl, **world1, **pair,
-            **entry}
+            **entry, **a8i}
 
 
 def main() -> int:
@@ -8217,13 +8602,20 @@ def main() -> int:
     flash_dp = dp_phase(card)
     torch.cuda.empty_cache()
     ref25: dict = {}
-    tp = tp_phase(pa, i8, base, params, prompts, card, ref25)
-    torch.cuda.empty_cache()
-    tp_train = tp_train_phase(card)
-    torch.cuda.empty_cache()
-    tpdp = tpdp_phase(pa, i8, base, params, prompts, card, ref25)
-    torch.cuda.empty_cache()
-    tp_spec = tp_spec_phase(pa, i8, base, params, prompts, card, ref25)
+    # Serving workers started ahead of their worlds, by world.
+    ahead: dict = {}
+    try:
+        tp = tp_phase(pa, i8, base, params, prompts, card, ref25, ahead)
+        torch.cuda.empty_cache()
+        tp_train = tp_train_phase(card, ahead)
+        torch.cuda.empty_cache()
+        tpdp = tpdp_phase(pa, i8, base, params, prompts, card, ref25, ahead)
+        torch.cuda.empty_cache()
+        tp_spec = tp_spec_phase(pa, i8, base, params, prompts, card, ref25,
+                                ahead)
+    finally:
+        for spawned in ahead.values():
+            spawned.discard()
 
     # Each kernel's launches on every path of this run that drives it.
     paths = {

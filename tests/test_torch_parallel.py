@@ -7,8 +7,8 @@ package on the CPU:
   axis names, shapes and the device ids laid out as the port lays out
   ranks, exactly; the same errors with the same messages.
 - ``Mesh.members`` gives a dimension's shards in JAX's order for a tuple
-  of data axes; a mesh that shards sp, tp or ep trains (ep beside tp is
-  refused, naming A8i) and one that shards pp is refused by the plain
+  of data axes; a mesh that shards sp, tp or ep trains (ep beside tp
+  too, A8i) and one that shards pp is refused by the plain
   steps and the model config, naming train/pp_lm.py's
   make_pp_lm_train_step (A8d); the placement helpers of A8b and A8e
   (``fsdp_sharding_tree``, ``shard_params_fsdp``,
@@ -161,7 +161,8 @@ def test_model_parallel_meshes_name_their_item(axis, item):
     if axis == "ep":
         # Ported (A8e): a dp x ep mesh splits an MoE model's experts and
         # steps the classifiers, replicated over ep
-        # (tests/test_torch_ep.py runs it); beside tp it names A8i.
+        # (tests/test_torch_ep.py runs it); beside tp too (A8i,
+        # tests/test_torch_a8i.py runs it).
         assert TransformerConfig(mesh=m).mesh is m
         model = torch.nn.Linear(2, 2)
         assert steps.make_classifier_train_step(
@@ -169,8 +170,7 @@ def test_model_parallel_meshes_name_their_item(axis, item):
         assert steps.make_classifier_eval_step(
             model, has_batch_stats=False, mesh=m).shard_count == 2
         both = mesh.create_mesh({"ep": 2, "tp": 2}, range(4))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A8i"):
-            TransformerConfig(mesh=both)
+        assert TransformerConfig(mesh=both).mesh is both
         return
     if axis in ("tp", "sp"):
         # Ported (A8b's second half, A8c): a dp x tp mesh trains the

@@ -28,6 +28,10 @@ a ``{"tp": N}`` mesh of the conftest's virtual CPU devices.
   /healthz and /debug/serve, one ``step_raise`` replayed by the
   supervisor through a rebuild that reaches the worker, and no process
   left after the drain.
+- ``prestart``: a worker started ahead of its world is the one
+  ``start_world(spawned=)`` takes (it waits at rank 0's store), builds its
+  engine and reports its pool; a world of other arguments refuses it, and
+  ``discard`` stops one no world took.
 """
 
 import json
@@ -465,3 +469,58 @@ def test_serve_lm_tp2_answers_replays_and_drains(tmp_path):
     for pid in workers:
         assert not os.path.exists(f"/proc/{pid}") or open(
             f"/proc/{pid}/stat").read().split()[2] == "Z", pid
+
+
+# A rank 0 that prestarts its world's worker, waits, then starts the world:
+# prints the worker's pid, the world's, the pools of both ranks, the
+# workers' exit codes, then whether a discarded worker was stopped and
+# whether a world of other arguments refuses spawned workers.
+PRESTART = """
+import sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+torch.set_num_threads(1)
+from tf_operator_tpu_torch.models.convert import init_params
+from tf_operator_tpu_torch.models.transformer import TransformerConfig
+from tf_operator_tpu_torch.serve import tp
+from tf_operator_tpu_torch.serve.engine import ContinuousEngine
+cfg = TransformerConfig(dtype=torch.float32, decode=True, **eval(sys.argv[2]))
+params = init_params(TransformerConfig(**eval(sys.argv[2])), 0)
+kw = dict(cfg=cfg, max_slots=2, kv_block=8)
+spawned = tp.prestart(2, "cpu", "gloo", timeout_s=120)
+print("prestarted", [p.pid for p in spawned.procs])
+time.sleep(2)
+world = tp.start_world(2, "cpu", "gloo", kw, params, timeout_s=120,
+                       spawned=spawned)
+print("world", [p.pid for p in world.procs], spawned.taken)
+spawned.discard()
+engine = ContinuousEngine(params=params, device="cpu", mesh=world.mesh, **kw)
+print("pools", [r["pool_bytes"] for r in tp.report(engine)])
+print("codes", world.close())
+other = tp.prestart(2, "cpu", "gloo", timeout_s=120)
+try:
+    tp.start_world(4, "cpu", "gloo", kw, params, timeout_s=120,
+                   spawned=other)
+except ValueError:
+    print("refused", True)
+other.discard()
+print("discarded", [p.poll() is not None for p in other.procs])
+"""
+
+
+def test_prestarted_worker_joins_the_world_it_was_started_for():
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", PRESTART, REPO, repr(KW)],
+                         env=env, capture_output=True, text=True,
+                         timeout=180)
+    assert out.returncode == 0, out.stdout + out.stderr
+    lines = dict(line.split(" ", 1) for line in out.stdout.splitlines()
+                 if line.split(" ", 1)[0] in ("prestarted", "world",
+                                              "pools", "codes", "refused",
+                                              "discarded"))
+    assert lines["world"] == f"{lines['prestarted']} True"
+    pools = eval(lines["pools"])
+    assert len(pools) == 2 and pools[0] == pools[1] > 0
+    assert lines["codes"] == "[0]"
+    assert lines["refused"] == "True"
+    assert lines["discarded"] == "[True]"

@@ -50,6 +50,21 @@ experts' are the rank's own (averaged over the data axes only); the
 gates and the dispatched tokens, which each rank uses in part, enter
 through ``ep.copy`` (their partial gradients summed over ``ep``); the
 load-balancing loss, whole on every rank, reaches the router once.
+
+Beside tensor parallelism (a mesh with ``tp`` and ``ep``) the layer is
+JAX's placement: the router and the experts are whole over ``tp``
+(``param_sharding_rules`` cut no MoE leaf) and the experts split over
+``ep``. Its input is the residual stream after the row-parallel
+all-reduce, the same on every tp rank, so the ``ep`` group is the ranks
+of one tp index (``Mesh.group``: those sharing every other coordinate),
+the tp ranks of one ep index compute the same experts, and the experts'
+and the router's gradients follow ``TpPlan``'s rule 2 over tp (the same
+on every tp rank, never summed over it). Beside sequence parallelism the
+``ep`` ranks of one sp index hold the same block, so a group that
+straddles two blocks is gathered over ``sp`` as above and then routed
+over the experts split on ``ep``; the data group the train step attaches
+spans ``sp`` and not ``ep``, so the fractions stay means over every
+token once.
 """
 
 from __future__ import annotations

@@ -26,10 +26,14 @@ under ``int8_decode``. ``mesh`` takes a data-parallel mesh
 (``parallel/mesh.py``), which changes nothing in the model: the train
 step averages over it. A training mesh whose ``ep_axis`` is above 1
 splits each MoE block's experts over it (``models/moe.py``; the rows
-over ``batch_axis``), as JAX's ``Block`` hands its mesh to ``MoeMlp``;
-beside ``tp`` or ``sp`` it raises, naming ROADMAP.md A8i. A mesh that
-shards the layers raises, naming ``train/pp_lm.py``'s
-``make_pp_lm_train_step``, whose stage models take no mesh.
+over ``batch_axis``), as JAX's ``Block`` hands its mesh to ``MoeMlp``,
+beside ``tp`` and ``sp`` too: the MoE input is the residual stream that
+every tp rank holds whole (after the row-parallel all-reduce), so the ep
+exchange runs among the ranks of one tp index and the tp ranks of an ep
+index compute the same experts; under sp a routing group that straddles
+two blocks is gathered over sp first. A mesh that shards the layers
+raises, naming ``train/pp_lm.py``'s ``make_pp_lm_train_step``, whose
+stage models take no mesh.
 
 A training model over a mesh whose ``sp`` axis is above 1 is this rank's
 part of a sequence-parallel model (``seq_parallel``): ``forward`` takes
@@ -62,7 +66,8 @@ In training the same layout runs under autograd (``TpPlan``'s docstring
 has the rule each leaf's gradient follows): the flash kernels run on
 each rank over its ``H/tp`` heads, ``n_heads`` that does not tile tp
 leaves the attention whole on every rank (JAX's unsharded fallback), and
-an MoE block keeps its experts whole (JAX's rules match no MoE leaf).
+an MoE block keeps its router and experts whole over tp (JAX's rules match
+no MoE leaf), its experts split over ``ep`` where the mesh has one.
 ``remat`` recomputes a block with its collectives inside the backward,
 in the same order on every rank.
 
@@ -220,14 +225,6 @@ class TransformerConfig:
                         f"tp={tp} — use kv_attend='gather' for this mesh")
             else:
                 check_data_parallel(self.mesh, "TransformerConfig.mesh")
-                ep = self.mesh.shape.get(self.ep_axis, 1)
-                for axis in ("tp", self.seq_axis):
-                    if ep > 1 and self.mesh.shape.get(axis, 1) > 1:
-                        raise NotImplementedError(
-                            f"TransformerConfig.mesh: {self.ep_axis}={ep} "
-                            f"beside {axis}={self.mesh.shape[axis]} is not "
-                            "ported yet: see ROADMAP.md A8i (FSDP, ZeRO-1 "
-                            "or expert parallel beside tp or sp)")
         if self.use_ring:
             if self.ring_impl not in ("auto", "stream", "flash", "ulysses"):
                 raise ValueError(

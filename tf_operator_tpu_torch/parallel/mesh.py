@@ -27,7 +27,9 @@ Training takes a mesh of data axes (``fsdp`` among them: FSDP and
 ZeRO-1, ``parallel/sharding.py``), ``ep`` (the experts,
 ``models/moe.py``), ``sp`` (the sequence split of
 ``parallel/ring_attention.py`` and ``parallel/ulysses.py``) and ``tp``
-(``check_data_parallel``), and a mesh of ``pp`` and the data axes through
+(``check_data_parallel``), in any mix but FSDP or ZeRO-1 beside ``ep``
+(``train/steps.py`` refuses it, naming ROADMAP.md A8l), and a mesh of
+``pp`` and the data axes through
 the pipelined LM (``train/pp_lm.py``, over ``parallel/pipeline.py``);
 decode takes ``tp`` and ``dp`` (``check_decode_mesh``).
 

@@ -64,8 +64,17 @@ dimension the axis divides, leaves under ``min_size`` whole):
   forward and reduce-scatters its gradient (``_GatherShards``,
   ``TensorParallel.reduce_scatter``);
 - ``Cut`` is one tensor's place in its whole leaf (shape, dimension,
-  axis): what the optimisers (whole-leaf norms and factored statistics),
-  the ZeRO-1 update and the checkpoints read.
+  axis, and a further cut of that part: a tp-split leaf cut again over
+  fsdp, each rank holding 1/(tp fsdp) of it): what the optimisers
+  (whole-leaf norms and factored statistics), the ZeRO-1 update and the
+  checkpoints read.
+
+Beside ``tp`` the fsdp rule reads the WHOLE leaf's shape (the spec tree is
+JAX's, of the whole params tree), and cuts the dim it names of the rank's
+tensor-parallel part: a leaf split over tp on that dim is cut again on it
+(its tp part of ``n / tp`` rows into ``n / (tp fsdp)``), a leaf split on
+another dim is cut on two dims, and a whole leaf is cut as it is without
+tp.
 """
 
 from __future__ import annotations
@@ -596,14 +605,22 @@ def fsdp_spec(shape: Sequence[int], axis: str, size: int,
     return ()
 
 
-def _module_tree(model: torch.nn.Module) -> dict:
-    """A module's parameters as nested dicts by flax path, in flax's
-    layout (views): the tree JAX's ``model.init`` gives."""
-    from tf_operator_tpu_torch.models.convert import _nest, variable_layout
+def whole_shapes(model: torch.nn.Module) -> dict:
+    """``{flax path: the whole leaf's flax shape}`` of a model's params:
+    a tensor-parallel model's (whose ``TpPlan`` splits leaves) from its
+    config (``models/convert.py::param_shapes``), any other's its own."""
+    from tf_operator_tpu_torch.models.convert import (
+        param_shapes,
+        variable_layout,
+    )
 
     leaves, to_flax, _ = variable_layout(model)
-    return _nest({path: to_flax(p.detach())
-                  for path, p in leaves["params"].items()})
+    plan = getattr(model, "tp_plan", None)
+    if plan is not None and plan.split and plan.tp.size > 1:
+        shapes = param_shapes(model.cfg)
+        return {path: tuple(shapes[path]) for path in leaves["params"]}
+    return {path: tuple(to_flax(p).shape)
+            for path, p in leaves["params"].items()}
 
 
 def _map_leaves(tree: Any, fn) -> Any:
@@ -622,10 +639,14 @@ def fsdp_sharding_tree(mesh: Mesh, params: Any, axis: str = "fsdp",
     ``()`` for whole) by ``fsdp_spec`` at the size of ``axis``. ``params``
     is a tree of arrays or tensors (dicts, lists, tuples; a leaf without a
     shape, such as a step count, is whole), or a port model, read as its
-    flax-layout params tree."""
+    WHOLE flax-layout params tree (a tensor-parallel model's leaves at
+    their whole shapes, ``whole_shapes``)."""
     size = mesh.shape[axis]
     if isinstance(params, torch.nn.Module):
-        params = _module_tree(params)
+        from tf_operator_tpu_torch.models.convert import _nest
+
+        params = _nest({path: torch.empty(shape, device="meta")
+                        for path, shape in whole_shapes(params).items()})
     return _map_leaves(params, lambda leaf: fsdp_spec(
         getattr(leaf, "shape", ()), axis, size, min_size))
 
@@ -677,23 +698,62 @@ def shard_params_fsdp(mesh: Mesh, params: Any, axis: str = "fsdp",
 class Cut:
     """Where a tensor lies in its whole leaf: the leaf's ``whole`` shape (in
     the tensor's own layout) split on ``dim`` over ``axis`` (a
-    ``TensorParallel``), this rank's part the one at ``axis.index``."""
+    ``TensorParallel``), this rank's part the one at ``axis.index``; and,
+    when ``then`` is set, that part cut again (a tp-split leaf cut over
+    fsdp, or its ZeRO-1 part over dp: ``then.whole`` is this cut's part's
+    shape). A chain of cuts names distinct axes."""
 
     whole: tuple
     dim: int
     axis: TensorParallel
+    then: "Cut | None" = None
 
     @property
     def length(self) -> int:
         return self.whole[self.dim] // self.axis.size
 
+    def levels(self) -> list:
+        """``(dim, axis)`` of each cut of the chain, outermost first."""
+        out = [(self.dim, self.axis)]
+        return out if self.then is None else out + self.then.levels()
+
+    def within(self, inner: "Cut | None") -> "Cut":
+        """This cut followed by ``inner`` (a cut of this chain's part)."""
+        if inner is None:
+            return self
+        return Cut(self.whole, self.dim, self.axis,
+                   inner if self.then is None else self.then.within(inner))
+
     def part(self, t: torch.Tensor) -> torch.Tensor:
         """This rank's part of the whole ``t`` (a view)."""
-        return t.narrow(self.dim, self.axis.index * self.length, self.length)
+        t = t.narrow(self.dim, self.axis.index * self.length, self.length)
+        return t if self.then is None else self.then.part(t)
 
     def gather(self, t: torch.Tensor) -> torch.Tensor:
         """The whole of which ``t`` is this rank's part (collective)."""
+        if self.then is not None:
+            t = self.then.gather(t)
         return self.axis.all_gather(t, self.dim)
+
+    def axes(self, dim: int | None = None):
+        """The ``TensorParallel`` over the axes of the chain's cuts (those
+        on ``dim`` only, when given), or None when there is none: the
+        group over which a sum of this rank's part is the whole leaf's (a
+        norm, or a mean over ``dim``)."""
+        axes = [ax for d, ax in self.levels() if dim is None or d == dim]
+        if len(axes) < 2:
+            return axes[0] if axes else None
+        return TensorParallel(self.axis.mesh, tuple(ax.axis for ax in axes))
+
+    def without(self, dim: int) -> "Cut | None":
+        """The cut of a tensor made by averaging ``dim`` away (an Adafactor
+        factored moment): the chain's cuts of the other dims, shifted
+        down past ``dim``; None when no cut is left."""
+        inner = None if self.then is None else self.then.without(dim)
+        if self.dim == dim:
+            return inner
+        whole = self.whole[:dim] + self.whole[dim + 1:]
+        return Cut(whole, self.dim - (self.dim > dim), self.axis, inner)
 
 
 def flax_dims(to_flax, ndim: int) -> tuple:
@@ -742,22 +802,28 @@ class FullyShardedParallel:
     def shard(cls, mesh: Mesh, model: torch.nn.Module, axis: str,
               min_size: int) -> "FullyShardedParallel":
         """Cut ``model``'s parameters in place by ``fsdp_spec`` of their
-        flax shapes; set and return its ``fsdp``."""
+        whole flax shapes (``whole_shapes``; a tensor-parallel part is cut
+        on the dim the whole leaf's spec names, which must then divide the
+        part); set and return its ``fsdp``."""
         from tf_operator_tpu_torch.models.convert import variable_layout
 
         if getattr(model, "fsdp", None) is not None:
             raise ValueError("the model is cut already")
         leaves, to_flax, _ = variable_layout(model)
+        whole = whole_shapes(model)
         names = {id(p): n for n, p in model.named_parameters()}
         tp = TensorParallel(mesh, axis)
         specs, cuts = {}, {}
         for path, p in leaves["params"].items():
-            shape = tuple(to_flax(p).shape)
-            spec = fsdp_spec(shape, axis, tp.size, min_size)
+            spec = fsdp_spec(whole[path], axis, tp.size, min_size)
             specs[path] = spec
             if not spec:
                 continue
             dim = flax_dims(to_flax, p.dim())[spec.index(axis)]
+            if p.shape[dim] % tp.size:
+                raise ValueError(
+                    f"{'/'.join(path)}: this rank's part {tuple(p.shape)} "
+                    f"does not divide on dim {dim} by {axis}={tp.size}")
             cuts[names[id(p)]] = Cut(tuple(p.shape), dim, tp)
         for name, cut in cuts.items():
             module, _, attr = name.rpartition(".")

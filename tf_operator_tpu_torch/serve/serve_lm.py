@@ -1067,8 +1067,8 @@ def draft_config(cfg: TransformerConfig, args) -> TransformerConfig:
     return replace(cfg, n_layers=layers)
 
 
-def build_front(cfg: TransformerConfig, params, args, draft_params=None
-                ) -> tuple[EngineSupervisor | None, _Front]:
+def build_front(cfg: TransformerConfig, params, args, draft_params=None,
+                spawned=None) -> tuple[EngineSupervisor | None, _Front]:
     """The serving front over ``params`` (a flax-layout tree; an
     ``int8_decode`` config takes a ``quantize_decode_params`` tree): the
     supervisor, with its first engine built and warmed, and the HTTP
@@ -1076,8 +1076,10 @@ def build_front(cfg: TransformerConfig, params, args, draft_params=None
     ``start()``); under ``--engine coalesce`` no supervisor (None) and a
     ``LegacyServer``. ``args`` is ``front_args(...)`` or the parsed flags.
     Under ``--spec-k`` ``draft_params`` is the draft's tree, at
-    ``draft_config(cfg, args)``. Raises on a CUDA device when torch sees
-    no card, and where ``check_args`` refuses ``args``."""
+    ``draft_config(cfg, args)``. Under ``--tp``/``--dp`` ``spawned``
+    (``serve/tp.py`` ``prestart``'s) are the world's workers, started
+    ahead. Raises on a CUDA device when torch sees no card, and where
+    ``check_args`` refuses ``args``."""
     device = resolve_device(args.device)
     check_args(args)
     check_tp(cfg, args)
@@ -1141,7 +1143,7 @@ def build_front(cfg: TransformerConfig, params, args, draft_params=None
     if need > 1:
         world = start_world(need, device, args.dist_backend,
                             engine_kwargs, params, dp=args.dp,
-                            draft_params=draft)
+                            draft_params=draft, spawned=spawned)
         print(f"serve_lm: params "
               f"{'replicated (int8)' if cfg.int8_decode else 'tp-sharded'}"
               f" over {need} devices"

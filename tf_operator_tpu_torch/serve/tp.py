@@ -372,14 +372,6 @@ class TpWorld:
         return codes
 
 
-def _free_port() -> int:
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def world_mesh(world: int, dp: int, device=None):
     """The serving mesh of ``world`` ranks: ``{"tp": world}``, or with
     ``dp`` > 1 ``{"tp": world // dp, "dp": dp}``, as JAX's serve_lm lays
@@ -392,16 +384,81 @@ def world_mesh(world: int, dp: int, device=None):
     return create_mesh(axes, device=device)
 
 
+def _world_key(world: int, device, backend: str | None, timeout_s: float,
+               dp: int) -> tuple:
+    """``(world, device, backend, timeout, dp)`` with the backend's default
+    filled in and the device's index (0 when none is named): a world's
+    arguments as ``prestart`` and ``start_world`` match them."""
+    device = torch.device(device)
+    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
+    if backend == "nccl" and device.type != "cuda":
+        raise ValueError(f"the nccl backend runs on the card, not on {device}")
+    if world % dp:
+        raise ValueError(f"dp={dp} must divide the world of {world} ranks")
+    return (world, (device.type, device.index or 0), backend,
+            float(timeout_s), dp)
+
+
+class Spawned:
+    """A serving world's workers started ahead of it: rank 0's TCP store
+    (made first, it holds the port the workers join), the ``world - 1``
+    worker processes waiting there for rank 0, and the arguments of the
+    world they belong to (``key``). ``start_world(..., spawned=)`` takes
+    them; ``discard`` stops them unless a world took them."""
+
+    def __init__(self, key: tuple) -> None:
+        import subprocess
+        from datetime import timedelta
+
+        import torch.distributed as dist
+
+        world, (kind, _), backend, timeout_s, dp = key
+        self.key, self.taken = key, False
+        self.store = dist.TCPStore("127.0.0.1", 0, world, is_master=True,
+                                   timeout=timedelta(seconds=timeout_s),
+                                   wait_for_workers=False)
+        env = dict(os.environ)
+        env.setdefault("OMP_NUM_THREADS", "1")
+        root = os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+        self.procs = [subprocess.Popen(
+            [sys.executable, "-m", "tf_operator_tpu_torch.serve.tp",
+             "--rank", str(r), "--world", str(world), "--port",
+             str(self.store.port), "--device", kind, "--backend", backend,
+             "--timeout", str(timeout_s), "--dp", str(dp)], env=env)
+            for r in range(1, world)]
+
+    def discard(self) -> None:
+        """Stop the workers, unless a world took them."""
+        if self.taken:
+            return
+        for proc in self.procs:
+            proc.kill()
+            proc.wait()
+
+
+def prestart(world: int, device, backend: str | None = None,
+             timeout_s: float = 86400.0, dp: int = 1) -> Spawned:
+    """The workers of a ``start_world`` call with these arguments, started
+    now so that their start-up (the interpreter, torch, the card) overlaps
+    the caller's other work: pass the result to that call as ``spawned``,
+    and ``discard`` it if the world is never started."""
+    return Spawned(_world_key(world, device, backend, timeout_s, dp))
+
+
 def start_world(world: int, device, backend: str | None,
                 engine_kwargs: dict, params: dict,
                 timeout_s: float = 86400.0, dp: int = 1,
-                draft_params: dict | None = None) -> TpWorld:
+                draft_params: dict | None = None,
+                spawned: Spawned | None = None) -> TpWorld:
     """Rank 0 of a serving replica's world of ``world`` ranks, ``dp`` dp
     shards of ``world // dp`` tp ranks (``world_mesh``): start ``world -
     1`` worker processes on this host (``python -m
     tf_operator_tpu_torch.serve.tp``; worker r on card ``r %
-    device_count``), meet them at a TCP store of
-    their own on a free local port, and send them the engine's arguments
+    device_count``), or take ``spawned`` (``prestart``'s, for the same
+    arguments), meet them at rank 0's TCP store on a free local port, and
+    send them the engine's arguments
     (``engine_kwargs``: the ``ContinuousEngine`` keywords, ``cfg``
     included) and the whole ``params`` tree, then, for a speculative
     engine (``spec_k`` in ``engine_kwargs``), the draft's whole
@@ -410,34 +467,25 @@ def start_world(world: int, device, backend: str | None,
     on the CPU (two ranks on one card need gloo). The collectives' timeout
     is a day: a worker waits for rank 0's next command as long as the
     replica is idle, and ``watch_parent`` ends it if rank 0 dies."""
-    import subprocess
     from datetime import timedelta
 
     import torch.distributed as dist
 
-    device = torch.device(device)
-    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
-    if backend == "nccl" and device.type != "cuda":
-        raise ValueError(f"the nccl backend runs on the card, not on {device}")
-    port = _free_port()
-    env = dict(os.environ)
-    env.setdefault("OMP_NUM_THREADS", "1")
-    root = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
-    if world % dp:
-        raise ValueError(f"dp={dp} must divide the world of {world} ranks")
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "tf_operator_tpu_torch.serve.tp",
-         "--rank", str(r), "--world", str(world), "--port", str(port),
-         "--device", device.type, "--backend", backend,
-         "--timeout", str(timeout_s), "--dp", str(dp)], env=env)
-        for r in range(1, world)]
+    key = _world_key(world, device, backend, timeout_s, dp)
+    device, backend = torch.device(device), key[2]
+    if spawned is None:
+        spawned = Spawned(key)
+    elif spawned.key != key or spawned.taken:
+        raise ValueError(f"spawned workers of {spawned.key} (taken "
+                         f"{spawned.taken}) for a world of {key}")
+    spawned.taken = True
+    store, procs = spawned.store, spawned.procs
     try:
         if device.type == "cuda":
             torch.cuda.set_device(device.index or 0)
+        # The workers' tcp:// rendezvous keeps its keys under this prefix.
         dist.init_process_group(
-            backend, init_method=f"tcp://127.0.0.1:{port}",
+            backend, store=dist.PrefixStore("default_pg", store),
             world_size=world, rank=0, timeout=timedelta(seconds=timeout_s))
         mesh = world_mesh(world, dp, device)
         tp = world_comm(mesh)

@@ -55,11 +55,14 @@ rank 0's group over the cut axes learn from it whether the step is due
 (a broadcast over the group), then all-gather every cut tensor over its
 axis (``_Layout``, from ``steps.param_cuts``: AdamW's and LAMB's moments
 as their leaf, Adafactor's factored ``v_row``/``v_col`` on the dims they
-keep, ``steps.moment_cut``), and rank 0 writes the whole tree. A restore
-reads the whole tree and cuts each rank's parts from it, so a checkpoint
-written on one layout restores on any other (another tp or ep, FSDP or
-none, ZeRO-1 or none), as orbax places a restore into the target's
-shardings. Every rank reads and
+keep, ``steps.moment_cut``), and rank 0 writes the whole tree. A leaf cut
+twice (a tp part cut again over fsdp, or its ZeRO-1 part over dp) is
+gathered over the inner axis first, then over tp; beside ep the expert
+leaves are cut over ep and the others over tp, and rank 0's group spans
+both. A restore reads the whole tree and cuts each rank's parts from it,
+so a checkpoint written on one layout restores on any other (another tp
+or ep, FSDP or none, ZeRO-1 or none, any of them beside tp), as orbax
+places a restore into the target's shardings. Every rank reads and
 restores from the shared directory, and every rank's ``maybe_ack`` names
 only a step that ``latest_step`` lists; ``ack`` first drains the
 primary's write and meets the other ranks at a barrier, so every rank's
@@ -170,9 +173,10 @@ class _Layout:
             key, key_cut = held(p)
             self.rows[path] = (p, cuts.get(id(p)), key, key_cut)
             for c in (cuts.get(id(p)), key_cut):
-                if c is not None and c.axis.size > 1:
-                    axes.add(c.axis.axis)
-                    mesh = c.axis.mesh
+                for _, ax in (c.levels() if c is not None else ()):
+                    if ax.size > 1:
+                        axes.add(ax.axis)
+                        mesh = ax.mesh
         self.group = (TensorParallel(mesh, tuple(
             a for a in mesh.axis_names if a in axes)) if axes else None)
         if self.pipe is not None:

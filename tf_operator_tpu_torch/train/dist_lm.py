@@ -43,9 +43,12 @@ same global batch and keeps its rows. With ``--data``, a
 token-record file (``train/data.py::write_token_records``: rows of
 ``--seq`` + 1 int32 ids) is streamed through ``token_dataset`` (the
 native record pipeline, seed 11, looping) as the example streams it:
-process ``i`` of ``n`` reads shard ``i`` of ``n`` of every epoch,
-re-batched to exactly ``--batch / n`` rows a step with an epoch's
-leftover rows carried into the next step; the first
+every process of dp index ``i`` reads shard ``i`` of ``dp`` of every
+epoch (beside ``--ep`` the ep ranks of one index read the same rows,
+which JAX places over dp and replicates over ep; at ``ep`` 1 process
+``i`` of ``n`` reads shard ``i`` of ``n``), re-batched to exactly
+``--batch / dp`` rows a step with an epoch's leftover rows carried into
+the next step; the first
 batch's largest id must be below ``--vocab``, and a resumed run skips
 the rows of the steps it restored. The run fails (exit 1) when the final
 loss misses ``--target-loss``.
@@ -67,9 +70,15 @@ launches (``launches_line``).
 (``--moe-experts``, ``--moe-top-k``: Switch at 1, GShard top-2 at 2), and
 the step adds the load-balancing loss at weight 0.01, as the example's.
 ``--ep`` splits each MoE block's experts over the mesh's ``ep`` axis
-(``moe_param_sharding_rules``): every process cuts its experts from the
+(``moe_param_sharding_rules``, beside ``param_sharding_rules`` under
+``--tp``): every process cuts its experts (and its tp slices) from the
 seeded whole tree, the ranks of one data index take the same rows, and
-checkpoints are written whole and restore at any ``--ep``.
+checkpoints are written whole and restore at any ``--ep`` and ``--tp``.
+``--ep`` composes with ``--tp`` (the attention and dense MLPs cut over
+tp, the experts over ep and whole over tp) and with ``--sp`` (a routing
+group that straddles two sequence blocks is gathered over sp, then
+routed over the experts split on ep), on JAX's mesh ``{"dp": n / (sp tp
+ep), "sp", "tp", "ep"}``.
 
 ``--pp`` trains the block stack as pipeline stages (``train/pp_lm.py``:
 ``--pp-microbatches`` microbatches a step, ``--pp-schedule`` ``gpipe`` or
@@ -92,9 +101,8 @@ error. JAX's errors stand for ``--sp``, ``--tp``, ``--ep`` and
 count ``sp * tp * ep * pp`` does not divide, a batch or seq the mesh does not
 divide, an ``--xent-chunk`` that does not divide the per-device seq, and
 ``--data`` beside ``--sp`` or ``--tp`` (``--data requires sp=1 and
-tp=1``). ``--ep`` beside ``--sp`` or ``--tp`` is refused, naming ROADMAP
-A8i, and so is ``--data`` beside ``--ep`` (each process reads a shard of
-its own, where the ep ranks of a data index must share their rows). The ``--xent-chunk`` default is the per-device seq / 2. A multislice
+tp=1``). The ``--xent-chunk`` default is the per-device seq / 2. A
+multislice
 job trains each slice as a world of its own, as JAX's entry point does
 (``MEGASCALE_*`` is read by ``train/dist_multislice.py`` alone).
 """
@@ -201,9 +209,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> int:
     p = build_parser()
     args = p.parse_args(argv)
-    if args.ep > 1 and (args.sp > 1 or args.tp > 1):
-        p.error("--ep beside --sp or --tp waits for ROADMAP A8i (FSDP, "
-                "ZeRO-1 or expert parallel beside tp or sp)")
     if args.ep > 1 and not args.moe_every_n:
         raise SystemExit("--ep requires --moe-every-n")
     if args.moe_every_n and args.moe_experts % args.ep:
@@ -405,15 +410,12 @@ def main(argv: list[str] | None = None) -> int:
     data_iter = None
     if args.data and (args.sp > 1 or args.tp > 1):
         raise SystemExit("--data requires sp=1 and tp=1")
-    if args.data and args.ep > 1:
-        # Each process reads its own shard, but the ranks of one data
-        # index must take the same rows.
-        raise SystemExit("--data requires ep=1 (one process a device: the "
-                         "ep ranks of a data index share its rows)")
     if args.data:
         # The record input, examples/dist_lm.py's lines: this process
-        # streams ITS shard of every epoch, and shard_batch places its
-        # rows of the global batch.
+        # streams the shard of its data index of every epoch (the ep
+        # ranks of one index read the same rows, as JAX replicates the
+        # batch over ep), and shard_batch places its rows of the global
+        # batch.
         from tf_operator_tpu_torch.native import NativeBuildError, load_library
         from tf_operator_tpu_torch.train.data import token_dataset
 
@@ -428,13 +430,12 @@ def main(argv: list[str] | None = None) -> int:
             engine = "python"
         print(f"dist_lm: --data {args.data} through the {engine} record "
               f"engine", flush=True)
-        if args.batch % max(1, n):
-            raise SystemExit(
-                "global batch must be a multiple of num_processes"
-            )
+        from tf_operator_tpu_torch.parallel.sharding import DataParallel
+
         data_iter = token_dataset(
             args.data, args.seq, local_rows, seed=11, loop=True,
-            engine=engine, shard_id=topo.process_id, num_shards=n,
+            engine=engine, shard_id=DataParallel(mesh, "dp").index,
+            num_shards=dp,
         )
 
         def row_stream():

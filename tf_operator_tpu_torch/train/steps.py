@@ -48,11 +48,17 @@ divided by the data size; the optimiser updates the shards. Under ZeRO-1
 updates this rank's part of each cut leaf: its gradient
 reduce-scattered, the parts all-gathered after the update. AdamW is
 elementwise; LAMB's (and LARS's) norms and Adafactor's factored
-statistics and block rms are the whole leaf's, taken over the cut's axis
+statistics and block rms are the whole leaf's, taken over the cut's axes
 (``param_cuts``, ``moment_cut``), as for tp and ep. An ``ep`` axis trains
 the MoE layers' experts split over it (``models/moe.py``): the rows
-stay over the data axes, and every gradient is averaged over them alone.
-FSDP, ZeRO-1 or ep beside ``tp`` or ``sp`` raises, naming ROADMAP A8i.
+stay over the data axes, and every gradient is averaged over them alone
+(and ``sp``). Expert parallelism composes with ``tp`` and ``sp``, and
+FSDP and ZeRO-1 with ``tp`` and ``sp``: the spec trees are JAX's, of the
+whole leaves (``fsdp_sharding_tree``'s rule over the flax tree whole), and
+a leaf the tp layout splits is cut again on the dim its spec names, so a
+rank holds 1/(tp fsdp) of it (``Cut.within``); its gradient is
+reduce-scattered over the data axis and summed over the other data axes
+and ``sp``. FSDP or ZeRO-1 beside ``ep`` raises, naming ROADMAP A8l.
 
 A ``tp`` axis beside the data axes trains the Megatron layout of
 ``models/transformer.py`` (the model's ``mesh`` must be the step's):
@@ -428,9 +434,10 @@ def lars(lr: float | Schedule = 1.0, weight_decay: float = 1e-4,
 
 
 def _axis_of(cuts: dict, p: torch.Tensor):
-    """The axis over which ``p`` is a part of its leaf (None: whole)."""
+    """The axes over which ``p`` is a part of its leaf (a
+    ``TensorParallel``; None: whole)."""
     cut = cuts.get(id(p))
-    return None if cut is None else cut.axis
+    return None if cut is None else cut.axes()
 
 
 def _norms(p: torch.Tensor, u: torch.Tensor, axis=None):
@@ -580,14 +587,15 @@ class AdafactorOptimizer(torch.optim.Optimizer):
     @property
     def split(self) -> dict:
         """``{id(parameter): (whole shape, split dim)}`` of the cut
-        parameters."""
+        parameters (the outermost cut's dim)."""
         return {k: (c.whole, c.dim) for k, c in self.cuts.items()}
 
     @staticmethod
     def _mean(x: torch.Tensor, dim: int, whole: int, axis,
               keepdim: bool = False) -> torch.Tensor:
         """The mean over ``dim`` of length ``whole``: the local sum
-        all-reduced over ``axis`` where ``dim`` is split (None: not)."""
+        all-reduced over ``axis``, the axes that split ``dim`` (None:
+        none)."""
         if axis is None:
             return x.mean(dim, keepdim=keepdim)
         return axis.all_reduce_(x.sum(dim, keepdim=keepdim)) / whole
@@ -607,8 +615,11 @@ class AdafactorOptimizer(torch.optim.Optimizer):
                 g = p.grad
                 cut = self.cuts.get(id(p))
                 shape = tuple(p.shape) if cut is None else cut.whole
-                at = None if cut is None else cut.dim
-                axis = None if cut is None else cut.axis
+
+                def on(d):  # the axes that split dim d of the leaf
+                    return None if cut is None else cut.axes(d)
+
+                axis = None if cut is None else cut.axes()
                 dims = _factored_dims(shape, self.MIN_DIM_SIZE_TO_FACTOR)
                 state = self.state[p]
                 if not state:
@@ -629,15 +640,12 @@ class AdafactorOptimizer(torch.optim.Optimizer):
                 else:
                     d1, d0 = dims
                     v_row = state["v_row"].mul_(beta).add_(
-                        (1.0 - beta) * self._mean(
-                            g2, d0, shape[d0], axis if at == d0 else None))
+                        (1.0 - beta) * self._mean(g2, d0, shape[d0], on(d0)))
                     v_col = state["v_col"].mul_(beta).add_(
-                        (1.0 - beta) * self._mean(
-                            g2, d1, shape[d1], axis if at == d1 else None))
+                        (1.0 - beta) * self._mean(g2, d1, shape[d1], on(d1)))
                     rd1 = d1 - 1 if d1 > d0 else d1
                     row_factor = (v_row / self._mean(
-                        v_row, rd1, shape[d1], axis if at == d1 else None,
-                        keepdim=True)) ** -0.5
+                        v_row, rd1, shape[d1], on(d1), keepdim=True)) ** -0.5
                     u = (g * row_factor.unsqueeze(d0)
                          * (v_col ** -0.5).unsqueeze(d1))
                 state["step"] += 1
@@ -653,21 +661,15 @@ class AdafactorOptimizer(torch.optim.Optimizer):
 
 def moment_cut(key: str, cut):
     """The ``Cut`` of an Adafactor moment ``key`` of a leaf cut by ``cut``:
-    the leaf's cut without the dim the moment averages away (``v_row``:
-    the largest, ``v_col``: the second largest), None when that is the
-    split dim (the moment is then whole on every rank) or for a moment of
+    the leaf's cuts without the dim the moment averages away (``v_row``:
+    the largest, ``v_col``: the second largest), None when only that dim
+    is split (the moment is then whole on every rank) or for a moment of
     no such kind."""
-    from tf_operator_tpu_torch.parallel.sharding import Cut
-
     dims = _factored_dims(cut.whole,
                           AdafactorOptimizer.MIN_DIM_SIZE_TO_FACTOR)
     if dims is None or key not in ("v_row", "v_col"):
         return None
-    gone = dims[1] if key == "v_row" else dims[0]
-    if gone == cut.dim:
-        return None
-    return Cut(cut.whole[:gone] + cut.whole[gone + 1:],
-               cut.dim - (cut.dim > gone), cut.axis)
+    return cut.without(dims[1] if key == "v_row" else dims[0])
 
 
 @dataclass(frozen=True)
@@ -716,37 +718,42 @@ def warmup_cosine(peak_lr: float, total_steps: int, *,
 
 def param_cuts(model: torch.nn.Module) -> dict:
     """``{id(parameter): Cut}`` of every parameter that is this rank's
-    part of a leaf cut over an axis above 1: a tensor-parallel model's
-    split leaves (shaped unlike ``models/convert.py``'s ``param_shapes``),
-    an expert-parallel MoE layer's ``w_in``/``w_out`` (its experts), and
-    the leaves ``shard_params_fsdp`` cut."""
+    part of a leaf cut over an axis above 1: an expert-parallel MoE
+    layer's ``w_in``/``w_out`` (its experts), a tensor-parallel model's
+    other split leaves (whose part is shaped unlike ``models/convert.py``'s
+    ``param_shapes``), and the leaves ``shard_params_fsdp`` cut, beside
+    tp a further cut of the rank's tp part (``Cut.within``)."""
+    from tf_operator_tpu_torch.models.convert import flax_path, param_shapes
     from tf_operator_tpu_torch.parallel.sharding import Cut
 
-    out = {}
-    plan = getattr(model, "tp_plan", None)
-    if plan is not None and plan.tp.size > 1 and plan.train:
-        from tf_operator_tpu_torch.models.convert import (
-            flax_path,
-            param_shapes,
-        )
-
-        whole = param_shapes(model.cfg)
-        for name, p in model.named_parameters():
-            shape = tuple(whole[flax_path(name)])
-            if shape != tuple(p.shape):
-                at = next(d for d, (a, b) in enumerate(zip(shape, p.shape))
-                          if a != b)
-                out[id(p)] = Cut(shape, at, plan.tp)
+    experts = {}
     for m in model.modules():
         ep = getattr(m, "ep", None)
         if ep is not None and ep.size > 1:
             for p in (m.w_in, m.w_out):
-                out[id(p)] = Cut((m.cfg.n_experts,) + tuple(p.shape[1:]), 0,
-                                 ep)
+                experts[id(p)] = Cut(
+                    (m.cfg.n_experts,) + tuple(p.shape[1:]), 0, ep)
     fsdp = getattr(model, "fsdp", None)
-    if fsdp is not None and fsdp.axis.size > 1:
-        params = dict(model.named_parameters())
-        out.update({id(params[n]): c for n, c in fsdp.cuts.items()})
+    shards = fsdp.cuts if fsdp is not None else {}
+    plan = getattr(model, "tp_plan", None)
+    split = plan is not None and plan.tp.size > 1 and plan.train
+    whole = param_shapes(model.cfg) if split else {}
+    out = {}
+    for name, p in model.named_parameters():
+        shard = shards.get(name)
+        cut = experts.get(id(p))
+        if cut is None and split:
+            # The tp part: the parameter's shape before FSDP cut it.
+            part = shard.whole if shard is not None else tuple(p.shape)
+            shape = tuple(whole[flax_path(name)])
+            if shape != part:
+                at = next(d for d, (a, b) in enumerate(zip(shape, part))
+                          if a != b)
+                cut = Cut(shape, at, plan.tp)
+        if shard is not None and shard.axis.size > 1:
+            cut = shard if cut is None else cut.within(shard)
+        if cut is not None:
+            out[id(p)] = cut
     return out
 
 
@@ -780,29 +787,37 @@ def _on(device, x) -> torch.Tensor:
 
 class ZeroOneOptimizer:
     """ZeRO-1 over a torch optimiser (``weight_update_shardings``): the
-    model keeps its weights whole, and the optimiser updates only this
-    rank's part of each cut leaf (a view into the weight, so its moments
-    are the part's): ``grads`` reduce-scatters each cut leaf's gradient
-    into its part, ``step`` updates the parts and the whole leaves, then
-    all-gathers every cut leaf from its parts. ``views`` maps a cut
-    parameter's id to ``(parameter, part, Cut)``; ``param_groups``,
-    ``state`` and the state dict are the inner optimiser's."""
+    model keeps its weights whole over the data axis (beside tp, its tp
+    parts), and the optimiser updates only this rank's part of each cut
+    leaf (a view into the weight, so its moments are the part's):
+    ``grads`` reduce-scatters each cut leaf's gradient into its part,
+    ``step`` updates the parts and the uncut leaves, then all-gathers
+    every cut leaf from its parts. ``views`` maps a cut parameter's id to
+    ``(parameter, part, its ZeRO-1 Cut, the part's Cut in the whole leaf)``
+    (the last the model's cut, ``param_cuts``, then the ZeRO-1 one);
+    ``param_groups``, ``state`` and the state dict are the inner
+    optimiser's."""
 
     def __init__(self, model: torch.nn.Module, tx: "_Optimiser",
                  cuts: dict) -> None:
         self.views = {}
+        model_cuts = param_cuts(model)
         tensors, inner_cuts = [], {}
         for name, p in model.named_parameters():
             cut = cuts.get(name)
             if cut is None:
                 tensors.append(p)
+                if id(p) in model_cuts:
+                    inner_cuts[id(p)] = model_cuts[id(p)]
                 continue
             part = cut.part(p.detach())
-            self.views[id(p)] = (p, part, cut)
+            outer = model_cuts.get(id(p))
+            whole = cut if outer is None else outer.within(cut)
+            self.views[id(p)] = (p, part, cut, whole)
             tensors.append(part)
-            if cut.axis.size > 1:
-                inner_cuts[id(part)] = cut
-        self.model = model
+            if any(ax.size > 1 for _, ax in whole.levels()):
+                inner_cuts[id(part)] = whole
+        self.model, self.model_cuts = model, model_cuts
         self.inner = tx.build(tensors, inner_cuts)
 
     @property
@@ -820,19 +835,23 @@ class ZeroOneOptimizer:
         self.inner.load_state_dict(state_dict)
 
     def held(self, p: torch.Tensor):
-        """``(the tensor the optimiser keeps p's state by, its Cut or
-        None)``."""
+        """``(the tensor the optimiser keeps p's state by, its Cut in the
+        whole leaf or None)``."""
         view = self.views.get(id(p))
-        return (p, None) if view is None else (view[1], view[2])
+        if view is None:
+            return p, self.model_cuts.get(id(p))
+        return view[1], view[3]
 
     def adopt(self, old: torch.optim.Optimizer) -> None:
-        """Take ``old``'s state (an optimiser over the whole parameters),
-        each tensor cut to this rank's part as it is kept here."""
+        """Take ``old``'s state (an optimiser over the model's
+        parameters), each tensor cut to this rank's ZeRO-1 part as it is
+        kept here."""
         for p in self.model.parameters():
             got = old.state.get(p)
             if not got:
                 continue
-            key, cut = self.held(p)
+            view = self.views.get(id(p))
+            key, cut = (p, None) if view is None else (view[1], view[2])
             self.inner.state[key] = {
                 k: _cut_state(k, v, cut).clone() if isinstance(
                     v, torch.Tensor) else v for k, v in got.items()}
@@ -863,7 +882,7 @@ class ZeroOneOptimizer:
     @torch.no_grad()
     def step(self) -> None:
         self.inner.step()
-        for p, part, cut in self.views.values():
+        for p, part, cut, _ in self.views.values():
             p.copy_(cut.gather(part.contiguous()))
 
 
@@ -903,14 +922,17 @@ def _flax_specs(model: torch.nn.Module, specs: Any, what: str) -> dict:
 
 
 def _placement(model: torch.nn.Module, mesh: Any, dp, param_shardings,
-               opt_shardings, what: str):
+               opt_shardings, what: str, grads=None):
     """``(fsdp, zero, rest)``: the model's ``FullyShardedParallel`` under
     ``param_shardings``, the ZeRO-1 cuts ``{name: Cut}`` under
-    ``opt_shardings``, and the ``DataParallel`` of the data axes other
-    than the one they cut over; Nones without either. Refuses what JAX's
-    contract does not hold: a spec tree that is not the model's cut, an
-    axis that is not a data axis, and either beside tp, sp or ep (ROADMAP
-    A8i)."""
+    ``opt_shardings``, and the ``DataParallel`` of the axes the gradients
+    are averaged over (``grads``, default the data axes ``dp``; the data
+    axes and sp in a sequence-parallel step) other than the one they cut
+    over; Nones without either. Beside tp the cuts are of the rank's
+    tensor-parallel parts (the specs are JAX's, of the whole leaves).
+    Refuses what JAX's contract does not hold (a spec tree that is not
+    the model's cut, an axis that is not a data axis) and either beside
+    ep, naming ROADMAP A8l."""
     from tf_operator_tpu_torch.parallel.sharding import Cut, TensorParallel
 
     if param_shardings is None and opt_shardings is None:
@@ -921,12 +943,11 @@ def _placement(model: torch.nn.Module, mesh: Any, dp, param_shardings,
     if param_shardings is not None and opt_shardings is not None:
         raise ValueError(f"{what}: under param_shardings the moments are "
                          "cut as the weights are; pass one of the two")
-    for axis in ("tp", "sp", "ep"):
-        if mesh.shape.get(axis, 1) > 1:
-            raise NotImplementedError(
-                f"{what}: FSDP or ZeRO-1 beside {axis}="
-                f"{mesh.shape[axis]} is not ported yet: see ROADMAP.md A8i "
-                "(FSDP, ZeRO-1 or expert parallel beside tp or sp)")
+    if mesh.shape.get("ep", 1) > 1:
+        raise NotImplementedError(
+            f"{what}: FSDP or ZeRO-1 beside ep={mesh.shape['ep']} is not "
+            "ported yet: see ROADMAP.md A8l (FSDP or ZeRO-1 beside expert "
+            "parallelism)")
     fsdp = zero = None
     if param_shardings is not None:
         fsdp = getattr(model, "fsdp", None)
@@ -947,13 +968,20 @@ def _placement(model: torch.nn.Module, mesh: Any, dp, param_shardings,
         if axis is not None:
             over = TensorParallel(mesh, axis)
             for name, (spec, dims) in specs.items():
-                if axis in spec:
-                    zero[name] = Cut(tuple(params[name].shape),
-                                     dims[spec.index(axis)], over)
+                if axis not in spec:
+                    continue
+                shape, dim = tuple(params[name].shape), dims[spec.index(
+                    axis)]
+                if shape[dim] % over.size:
+                    raise ValueError(
+                        f"{what}: {name}'s part {shape} does not divide on "
+                        f"dim {dim} by {axis}={over.size}")
+                zero[name] = Cut(shape, dim, over)
     if axis is not None and axis not in dp.axes:
         raise ValueError(f"{what}: {axis!r} is not one of the data axes "
                          f"{dp.axes}")
-    rest = DataParallel(mesh, tuple(a for a in dp.axes if a != axis))
+    grads = grads or dp
+    rest = DataParallel(mesh, tuple(a for a in grads.axes if a != axis))
     return fsdp, zero, rest
 
 
@@ -1069,9 +1097,6 @@ def make_lm_train_step(model: Transformer, tx: _Optimiser, *,
         raise ValueError("train a model built with decode=False")
     dp = _step_data_parallel(model, mesh, data_axis, "make_lm_train_step")
     data_size = dp.size if dp is not None else 1
-    fsdp, zero, rest = _placement(model, mesh, dp, param_shardings,
-                                  opt_shardings, "make_lm_train_step")
-    gathered = fsdp.gathered if fsdp is not None else contextlib.nullcontext
     plan = model.tp_plan
     if (plan is not None or mesh is not None and mesh.shape.get("tp", 1) > 1
             ) and model.cfg.mesh is not mesh:
@@ -1081,6 +1106,9 @@ def make_lm_train_step(model: Transformer, tx: _Optimiser, *,
     # Sequence-parallel: rows over the data axes (dp), gradients, the loss
     # and the MoE fractions over the data axes and sp.
     grads = _seq_data_parallel(model, mesh, data_axis, "trains") or dp
+    fsdp, zero, rest = _placement(model, mesh, dp, param_shardings,
+                                  opt_shardings, "make_lm_train_step", grads)
+    gathered = fsdp.gathered if fsdp is not None else contextlib.nullcontext
     # JAX's sharded_loss: the vocabulary-parallel loss when tp > 1 and the
     # loss is chunked (a head whose vocabulary does not tile is whole).
     sharded = (xent_chunk is not None and tp_size > 1

@@ -49,7 +49,13 @@ def main() -> int:
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, base.vocab_size, (1, n)).astype(np.int32)
                for n in chip_smoke.LANES]
-    paths = chip_smoke.tp_phase(pa, i8, base, params, prompts, card)
+    ahead: dict = {}
+    try:
+        paths = chip_smoke.tp_phase(pa, i8, base, params, prompts, card, {},
+                                    ahead)
+    finally:
+        for spawned in ahead.values():
+            spawned.discard()
     print(json.dumps(paths), flush=True)
     return 0
 

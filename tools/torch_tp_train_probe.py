@@ -37,7 +37,13 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build("flash_attention")
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
-    paths = chip_smoke.tp_train_phase(card)
+    ahead: dict = {}
+    try:
+        paths = chip_smoke.tp_train_phase(card, ahead)
+    finally:
+        # Phase 27's workers, started as phase 26 ends: no world here.
+        for spawned in ahead.values():
+            spawned.discard()
     print(json.dumps(paths), flush=True)
     return 0
 

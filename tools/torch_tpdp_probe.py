@@ -86,20 +86,29 @@ def main() -> int:
     prompts = [rng.integers(0, base.vocab_size, (1, n)).astype(np.int32)
                for n in chip_smoke.LANES]
     ref: dict = {}
+    # Serving workers started ahead of their worlds, by world: here 25 (b)'s
+    # and 27's worlds start cold, and 28's workers start during 27, as in
+    # chip_smoke.
+    ahead: dict = {}
     starts = time_world_starts()
     t0 = time.perf_counter()
-    front = chip_smoke.tp_front_phase(pa, i8, base, params, prompts, card,
-                                      ref)
-    print(f"phase 25 (b): {time.perf_counter() - t0:.1f} s", flush=True)
-    print(f"start-up steps (25 b): {starts}", flush=True)
-    starts.clear()
-    torch.cuda.empty_cache()
-    paths = chip_smoke.tpdp_phase(pa, i8, base, params, prompts, card, ref)
-    print(f"start-up steps (27): {starts}", flush=True)
-    starts.clear()
-    torch.cuda.empty_cache()
-    spec = chip_smoke.tp_spec_phase(pa, i8, base, params, prompts, card,
-                                    ref)
+    try:
+        front = chip_smoke.tp_front_phase(pa, i8, base, params, prompts,
+                                          card, ref, ahead)
+        print(f"phase 25 (b): {time.perf_counter() - t0:.1f} s", flush=True)
+        print(f"start-up steps (25 b): {starts}", flush=True)
+        starts.clear()
+        torch.cuda.empty_cache()
+        paths = chip_smoke.tpdp_phase(pa, i8, base, params, prompts, card,
+                                      ref, ahead)
+        print(f"start-up steps (27): {starts}", flush=True)
+        starts.clear()
+        torch.cuda.empty_cache()
+        spec = chip_smoke.tp_spec_phase(pa, i8, base, params, prompts, card,
+                                        ref, ahead)
+    finally:
+        for spawned in ahead.values():
+            spawned.discard()
     print(f"start-up steps (28): {starts}", flush=True)
     paths["paged_attend"].update(spec["paged_attend"])
     paths["paged_attend"]["serve_lm tp 2 (25b)"] = front
