@@ -72,7 +72,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
    more step under torch.profiler (device busy share, the kernels that
    take most device time: the step's breakdown); losses finite and
    falling, and 8 forward, 8 dQ and 8 dK/dV launches a step (each
-   kernel's design printed: phase 5 asserts it for this shape);
+   kernel's design printed: phase 5 asserts it for this shape); then
+   (b) on the same cell: ``fuse_steps(step, FUSE_STEPS)`` against as
+   many plain steps from the same seeded state (losses, weights and
+   AdamW moments bitwise, the launches of each), and the attention
+   dispatch's switch in one forward each: ``TPU_OPERATOR_ATTN=flash``
+   launches B1 once a layer, ``xla`` runs ``reference_attention`` with
+   no launch, the two logits within ``DISPATCH_LOGIT_RTOL``; unset, the
+   switch answers the kernels, as it does on the card for every shape.
+   The script refuses to start with ``TPU_OPERATOR_ATTN`` set;
 10. int8 matmul vs plain (B5, the int8_decode path): the design each call
     takes (int8_design: the weight stream at m <= 8, the TMA + wgmma tile
     for bf16 x and the mma.sync tile for f32 x beyond), asserted; then the
@@ -456,7 +464,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
     rank's parts of the weights and its losses held to (l)'s plain run by
     (b)'s bounds, its weight and AdamW bytes exactly the layout's
     (``A8I_PARAMS``, ``A8I_MOMENTS``), the bytes staged a step, peak
-    memory, step seconds and exact launches; every step second and
+    memory, step seconds and exact launches; (n) after (l) in its world,
+    the MoE cell under FSDP over ``{"dp": 1, "fsdp": 1, "ep": 1}`` and
+    ZeRO-1 over ``{"dp": 1, "ep": 1}``, bitwise (l)'s plain MoE run; (o)
+    in (m)'s ranks after (m)'s legs, FSDP over ``{"dp": 1, "fsdp": 2,
+    "ep": 2}`` and ZeRO-1 over ``{"dp": 2, "ep": 2}`` (A8l), held as (m)
+    is, with the expert bytes a rank (``A8I_EXPERTS``); every step second and
     tokens/s of (b) and (d) to (j) and (m) is read with (c) (and (f),
     (i), (l)) running beside them on the same card and host cores; the
     phase's seconds; each leg of (a)-(j) runs ``TP_TRAIN_STEPS`` steps;
@@ -970,19 +983,63 @@ FSDP = EP = 2
 # a world of A8I_WORLD gloo ranks of its own sharing the card, each leg
 # TP_TRAIN_STEPS steps from the seeded tree held to (l)'s plain run of its
 # cell by (b)'s bounds. A8I_LEGS: leg -> (cell, (m)'s mesh, (l)'s mesh).
+# (n) and (o): FSDP and ZeRO-1 beside expert parallelism (A8l) on the MoE
+# cell of (l), the same way: (n) in (f)'s NCCL world of 1 after (l), over
+# meshes of ones, bitwise (l)'s plain MoE run; (o) in (m)'s ranks after
+# (m)'s legs, FSDP over {"dp": 1, "fsdp": 2, "ep": 2} (data axes dp and
+# fsdp: the two fsdp indices take a row each, the ep ranks of an index
+# share it) and ZeRO-1 over {"dp": 2, "ep": 2}, held as (m) is.
 A8I_LAYERS, A8I_WORLD = 2, 4
 A8I_LEGS = {
     "moe": ("moe", {"ep": 2, "tp": 2}, {"ep": 1, "tp": 1}),
     "fsdp": ("lm", {"fsdp": 2, "tp": 2}, {"fsdp": 1, "tp": 1}),
     "zero": ("lm", {"dp": 2, "tp": 2}, {"dp": 1, "tp": 1}),
+    "moe_fsdp": ("moe", {"dp": 1, "fsdp": 2, "ep": 2},
+                 {"dp": 1, "fsdp": 1, "ep": 1}),
+    "moe_zero": ("moe", {"dp": 2, "ep": 2}, {"dp": 1, "ep": 1}),
 }
-# What a rank of (m) holds, from the layout (``param_shapes``, the Megatron
-# and expert rules, ``fsdp_spec`` of the whole leaves): the MoE cell's
-# weights at ep 2 x tp 2; the training cell's under FSDP 2 x tp 2 (its tp
-# parts cut again); under ZeRO-1 dp 2 x tp 2 its tp parts whole and half
-# of their moments. AdamW keeps two f32 moments an element.
-A8I_PARAMS = {"moe": 83_945_472, "fsdp": 27_295_744, "zero": 54_582_272}
-A8I_MOMENTS = {"moe": 83_945_472, "fsdp": 27_295_744, "zero": 27_295_744}
+# Each leg's placement, data axes and labels on the kernels line.
+A8L_LEGS = ("moe_fsdp", "moe_zero")
+A8I_PLACE = {"fsdp": "fsdp", "zero": "zero", "moe_fsdp": "fsdp",
+             "moe_zero": "zero"}
+A8I_DATA = {"fsdp": "fsdp", "moe_fsdp": ("dp", "fsdp")}
+A8I_LABELS = {
+    "moe": ("train moe ep 1 x tp 1 nccl world 1 (26l)",
+            "train moe ep 2 x tp 2 (26m)"),
+    "fsdp": ("train fsdp 1 x tp 1 nccl world 1 (26l)",
+             "train fsdp 2 x tp 2 (26m)"),
+    "zero": ("train zero1 dp 1 x tp 1 nccl world 1 (26l)",
+             "train zero1 dp 2 x tp 2 (26m)"),
+    "moe_fsdp": ("train moe fsdp 1 x ep 1 nccl world 1 (26n)",
+                 "train moe fsdp 2 x ep 2 (26o)"),
+    "moe_zero": ("train moe zero1 dp 1 x ep 1 nccl world 1 (26n)",
+                 "train moe zero1 dp 2 x ep 2 (26o)"),
+}
+# What a rank of (m) and (o) holds, from the layout (``param_shapes``, the
+# Megatron and expert rules, ``fsdp_spec`` of the whole leaves): the MoE
+# cell's weights at ep 2 x tp 2; the training cell's under FSDP 2 x tp 2
+# (its tp parts cut again); under ZeRO-1 dp 2 x tp 2 its tp parts whole
+# and half of their moments; the MoE cell's under FSDP 2 x ep 2 (its 4 of
+# 8 experts cut again on the dim the whole leaf's spec names, d_ff) and
+# under ZeRO-1 dp 2 x ep 2 (its experts whole, half of their moments).
+# AdamW keeps two f32 moments an element. A8I_EXPERTS: the elements of
+# the MoE layer's w_in and w_out a rank holds.
+A8I_PARAMS = {"moe": 83_945_472, "fsdp": 27_295_744, "zero": 54_582_272,
+              "moe_fsdp": 62_948_352, "moe_zero": 125_888_512}
+A8I_MOMENTS = {"moe": 83_945_472, "fsdp": 27_295_744, "zero": 27_295_744,
+               "moe_fsdp": 62_948_352, "moe_zero": 62_948_352}
+A8I_EXPERTS = {"moe": 33_554_432, "moe_fsdp": 16_777_216,
+               "moe_zero": 33_554_432}
+# Phase 9 (b), the attention dispatch and fuse_steps on phase 9's cell.
+# One forward with TPU_OPERATOR_ATTN=xla runs reference_attention (no B1
+# launch), one with flash runs B1 once a layer; their logits (bf16
+# compute: each attention output rounds to bf16 on both sides, once in
+# another order) within DISPATCH_LOGIT_RTOL of each other by the relative
+# L2 norm of the difference. fuse_steps(step, FUSE_STEPS) against as many
+# plain steps from the same seeded state on phase 9's batch: the same
+# operations in the same order, so losses, weights and moments bitwise.
+DISPATCH_LOGIT_RTOL = 5e-2
+FUSE_STEPS = 3
 # (i) pipeline parallelism (train/pp_lm.py) on phase 9's cell: in (a)'s
 # NCCL world of 1, the cell over {"pp": 1} at PP_MICRO microbatches by
 # GPipe and by 1F1B, after (a)'s last plain run, TP_TRAIN_STEPS steps each
@@ -3483,6 +3540,138 @@ def train_bf16_phase(params, card: str) -> dict:
     del run
     torch.cuda.empty_cache()
     return launches
+
+
+def dispatch_fuse_phase(params, card: str) -> dict:
+    """Phase 9 (b) on phase 9's cell (bf16, B=2, T=8192, its batch and
+    AdamW): ``fuse_steps(step, FUSE_STEPS)`` against as many plain steps
+    from the same seeded state, each step's loss kept as a device tensor
+    (no host read inside the fused call): losses, weights and AdamW
+    moments bitwise; then with the fused state's model, one forward under
+    ``TPU_OPERATOR_ATTN=flash`` (B1 once a layer) and one under ``xla``
+    (reference_attention: B1 not launched), the logits within
+    ``DISPATCH_LOGIT_RTOL``. Returns {path label: flash launches}."""
+    from tf_operator_tpu_torch import ops
+    from tf_operator_tpu_torch.models.convert import load_params
+    from tf_operator_tpu_torch.models.transformer import (
+        Transformer,
+        TransformerConfig,
+    )
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.train.steps import (
+        TrainState,
+        adamw,
+        fuse_steps,
+        make_lm_train_step,
+    )
+
+    cfg = TransformerConfig(dtype=torch.bfloat16, **LM)
+    rng = np.random.default_rng(0)
+    batch = {name: torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_B, TRAIN_T)).astype(np.int64)).cuda()
+        for name in ("tokens", "targets")}
+    runs = {}
+    for side in ("plain", "fused"):
+        model = load_params(Transformer(cfg), params)
+        tx = adamw(1e-4)
+        state = TrainState.create(model, tx)
+        step = make_lm_train_step(model, tx, xent_chunk=XENT_CHUNK,
+                                  xent_dot_dtype=torch.bfloat16)
+        losses = []
+
+        def kept(s, b, step=step, losses=losses):
+            s, m = step(s, b)
+            losses.append(m["loss"])
+            return s, m
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
+        if side == "fused":
+            state, metrics = fuse_steps(kept, FUSE_STEPS)(state, batch)
+        else:
+            for _ in range(FUSE_STEPS):
+                state, metrics = kept(state, batch)
+        torch.cuda.synchronize()
+        runs[side] = dict(
+            model=model, state=state, seconds=time.perf_counter() - t0,
+            losses=[float(x) for x in losses], last=float(metrics["loss"]),
+            counts=dict(flash_fwd=fa.fwd_launches, flash_dq=fa.dq_launches,
+                        flash_dkv=fa.dkv_launches))
+    plain, fused = runs["plain"], runs["fused"]
+    opt = {side: {n: run["state"].optimizer.state[p]
+                  for n, p in run["model"].named_parameters()}
+           for side, run in runs.items()}
+    differ = [n for (n, p), q in zip(plain["model"].named_parameters(),
+                                     fused["model"].parameters())
+              if not torch.equal(p, q)]
+    differ += [f"{n}/{k}" for n, st in opt["plain"].items()
+               for k, v in st.items() if isinstance(v, torch.Tensor)
+               and not torch.equal(v, opt["fused"][n][k])]
+    if (plain["losses"] != fused["losses"]
+            or fused["last"] != fused["losses"][-1]):
+        differ.append(f"losses {fused['losses']} (last {fused['last']})")
+    want = cfg.n_layers * FUSE_STEPS
+    print(f"fuse_steps bf16 (9): fuse_steps(step, {FUSE_STEPS}) against "
+          f"{FUSE_STEPS} plain steps from the same seeded state, B={TRAIN_B} "
+          f"T={TRAIN_T}: losses {fused['losses']} fused, {plain['losses']} "
+          f"plain; {'bitwise' if not differ else differ[:8]} "
+          f"({len(opt['plain'])} weights and their AdamW moments); seconds "
+          f"{fused['seconds']:.4f} fused, {plain['seconds']:.4f} plain; "
+          f"launches {fused['counts']} fused, {plain['counts']} plain on "
+          f"{card}", flush=True)
+    if differ:
+        raise AssertionError(f"9b: fuse_steps parts from the plain steps: "
+                             f"{differ[:8]}")
+    if any(set(run["counts"].values()) != {want} for run in runs.values()):
+        raise AssertionError(f"9b: launches {fused['counts']} fused, "
+                             f"{plain['counts']} plain, want {want} each")
+    model = fused["model"]
+    fused_counts, plain_counts = fused["counts"], plain["counts"]
+    del runs, plain, fused, opt, state
+    torch.cuda.empty_cache()
+
+    dh = cfg.d_model // cfg.n_heads
+    answers = {"unset": ops.attention_kernel(TRAIN_T, TRAIN_T, dh, cfg.dtype,
+                                             device="cuda")}
+    logits, launches = {}, {}
+    try:
+        with torch.no_grad():
+            for switch in ("flash", "xla"):
+                os.environ["TPU_OPERATOR_ATTN"] = switch
+                answers[switch] = ops.attention_kernel(
+                    TRAIN_T, TRAIN_T, dh, cfg.dtype, device="cuda")
+                fa.fwd_launches = 0
+                logits[switch] = model(batch["tokens"]).float()
+                torch.cuda.synchronize()
+                launches[switch] = fa.fwd_launches
+    finally:
+        os.environ.pop("TPU_OPERATOR_ATTN", None)
+    diff = logits["xla"] - logits["flash"]
+    rel = float(diff.norm() / logits["flash"].norm())
+    max_abs = float(diff.abs().max())
+    scale = float(logits["flash"].abs().max())
+    del logits, diff, model
+    torch.cuda.empty_cache()
+    print(f"attention dispatch bf16 (9): one forward of phase 9's cell "
+          f"(B={TRAIN_B} T={TRAIN_T}) after the fused steps at each switch: "
+          f"unset answers {answers['unset']!r}; "
+          f"TPU_OPERATOR_ATTN=flash answers {answers['flash']!r}, "
+          f"{launches['flash']} B1 launches; xla answers {answers['xla']!r},"
+          f" {launches['xla']} B1 launches; logits xla against flash: "
+          f"relative L2 {rel:.3e} (tolerance {DISPATCH_LOGIT_RTOL}), "
+          f"largest difference {max_abs:.3e} of largest |logit| "
+          f"{scale:.3e} on {card}", flush=True)
+    if (answers != {"unset": "cuda-flash", "flash": "cuda-flash",
+                    "xla": "reference"}
+            or launches != {"flash": cfg.n_layers, "xla": 0}):
+        raise AssertionError(f"9b: the switch: {answers}, {launches}")
+    if not rel <= DISPATCH_LOGIT_RTOL:
+        raise AssertionError(f"9b: xla logits part from flash's: {rel}")
+    return {"fuse_steps bf16 (9b)": fused_counts,
+            "steps beside fuse_steps bf16 (9b)": plain_counts,
+            "dispatch flash forward bf16 (9b)": {
+                "flash_fwd": launches["flash"]}}
 
 
 def state_tensors(state) -> dict:
@@ -7117,12 +7306,14 @@ def a8i_cells() -> dict:
 
 
 def a8i_world1_runs(card: str, tmp: str) -> tuple[dict, dict]:
-    """Phase 26 (l), in (f)'s NCCL world of 1 after its MoE runs: each of
-    ``a8i_cells`` plain, then over (l)'s meshes of ``A8I_LEGS`` (the MoE
-    cell's model over ``{"ep": 1, "tp": 1}``; the training cell's under
-    FSDP over ``{"fsdp": 1, "tp": 1}`` and under ZeRO-1 over ``{"dp": 1,
-    "tp": 1}``), ``TP_TRAIN_STEPS`` steps each from the seeded tree:
-    losses and weights bitwise the plain run. Writes each plain run's
+    """Phase 26 (l) and (n), in (f)'s NCCL world of 1 after its MoE runs:
+    each of ``a8i_cells`` plain, then over the meshes of ones of
+    ``A8I_LEGS`` (the MoE cell's model over ``{"ep": 1, "tp": 1}``, under
+    FSDP over ``{"dp": 1, "fsdp": 1, "ep": 1}`` and under ZeRO-1 over
+    ``{"dp": 1, "ep": 1}``; the training cell's under FSDP over ``{"fsdp":
+    1, "tp": 1}`` and under ZeRO-1 over ``{"dp": 1, "tp": 1}``),
+    ``TP_TRAIN_STEPS`` steps each from the seeded tree: losses and weights
+    bitwise the plain run. Writes each plain run's
     host weights (by parameter name) to ``tmp/a8i_{cell}.pt`` for (m).
     Returns ({path label: flash launches}, {cell: the plain run's losses,
     aux and weight bytes})."""
@@ -7161,14 +7352,14 @@ def a8i_world1_runs(card: str, tmp: str) -> tuple[dict, dict]:
                 continue
             mesh = create_mesh(axes, device="cuda")
             side_kw, place = dict(kw, mesh=mesh), None
-            if leg == "fsdp":
-                side_kw.update(data_axis="fsdp",
-                               param_shardings=fsdp_sharding_tree(mesh,
-                                                                  params))
+            if leg in A8I_DATA:
+                side_kw["data_axis"] = A8I_DATA[leg]
+            if A8I_PLACE.get(leg) == "fsdp":
+                side_kw["param_shardings"] = fsdp_sharding_tree(mesh, params)
 
                 def place(m, mesh=mesh):
                     return shard_params_fsdp(mesh, m)
-            elif leg == "zero":
+            elif A8I_PLACE.get(leg) == "zero":
                 side_kw["opt_shardings"] = weight_update_shardings(mesh,
                                                                    params)
             run = train_run(replace(cfg, mesh=mesh), params, batch,
@@ -7181,10 +7372,7 @@ def a8i_world1_runs(card: str, tmp: str) -> tuple[dict, dict]:
             if (run["losses"] != plain["losses"]
                     or run["auxes"] != plain["auxes"]):
                 differ.append(f"losses {run['losses']} aux {run['auxes']}")
-            label = {"moe": "train moe ep 1 x tp 1 nccl world 1 (26l)",
-                     "fsdp": "train fsdp 1 x tp 1 nccl world 1 (26l)",
-                     "zero": "train zero1 dp 1 x tp 1 nccl world 1 (26l)"}[
-                         leg]
+            label = A8I_LABELS[leg][0]
             out[label] = dict(zip(FLASH_KERNELS, run["counts"].values()))
             lines.append(
                 f"{leg} over {mesh}: losses {run['losses']}"
@@ -7199,13 +7387,14 @@ def a8i_world1_runs(card: str, tmp: str) -> tuple[dict, dict]:
             del run, model
             torch.cuda.empty_cache()
         del params, weights
-    print(f"train a8i nccl world 1 (26l): bf16 B={TRAIN_B} T={TRAIN_T}, the "
-          f"training cell and the MoE cell at {A8I_LAYERS} blocks, "
-          f"{TP_TRAIN_STEPS} steps a run from the seeded tree, each plain "
-          f"then over a mesh of ones: {'; '.join(lines)} (after go, beside "
-          f"(b)'s ranks and (c)) on {card}", flush=True)
+    print(f"train a8i and a8l nccl world 1 (26l, 26n): bf16 B={TRAIN_B} "
+          f"T={TRAIN_T}, the training cell and the MoE cell at "
+          f"{A8I_LAYERS} blocks, {TP_TRAIN_STEPS} steps a run from the "
+          f"seeded tree, each plain then over a mesh of ones: "
+          f"{'; '.join(lines)} (after go, beside (b)'s ranks and (c)) on "
+          f"{card}", flush=True)
     if bad:
-        raise AssertionError(f"26l: {bad}")
+        raise AssertionError(f"26l/26n: {bad}")
     return out, refs
 
 
@@ -7236,13 +7425,14 @@ def start_a8i_ranks(tmp: str, procs: list, logs: list) -> None:
 
 
 def a8i_rank(out: str) -> int:
-    """One rank of phase 26 (m), a process of its own (``python -c``):
-    joins the gloo world of ``A8I_WORLD`` the operator's env names, makes
-    (l)'s seeded trees on the host, waits for ``out/go_m``, then runs each
-    leg of ``A8I_LEGS`` over its (m) mesh (this rank's tp slices of the
-    tree, its experts over ep, its FSDP shards; its data index's rows of
-    phase 26's batch), ``TP_TRAIN_STEPS`` steps: ``rank_steps``' numbers,
-    the weight and optimiser bytes it holds, its peak device bytes, and
+    """One rank of phase 26 (m) and (o), a process of its own (``python
+    -c``): joins the gloo world of ``A8I_WORLD`` the operator's env names,
+    makes (l)'s seeded trees on the host, waits for ``out/go_m``, then runs
+    each leg of ``A8I_LEGS`` over its (m) or (o) mesh (this rank's tp
+    slices of the tree, its experts over ep, its FSDP shards, beside ep
+    cut again; its data index's rows of phase 26's batch),
+    ``TP_TRAIN_STEPS`` steps: ``rank_steps``' numbers, the weight,
+    optimiser and expert bytes it holds, its peak device bytes, and
     its weights against (l)'s plain run (``out/a8i_{cell}.pt``) cut to
     its parts: the largest difference, where, and the elements beyond 1 %
     of the summed lr. Writes them to ``out/a8i{r}.json``."""
@@ -7296,17 +7486,17 @@ def a8i_rank(out: str) -> int:
         cfg = TransformerConfig(dtype=torch.bfloat16, mesh=mesh, **cells[cell])
         model = load_params(Transformer(cfg, device), sharding.
                             shard_params_by_rules(mesh, trees[cell], rules))
-        data = {"fsdp": "fsdp"}.get(leg, "dp")
+        data = A8I_DATA.get(leg, "dp")
         kw = dict(mesh=mesh, data_axis=data, xent_chunk=XENT_CHUNK,
                   xent_dot_dtype=torch.bfloat16)
-        if leg == "fsdp":
+        if A8I_PLACE.get(leg) == "fsdp":
             kw["param_shardings"] = sharding.fsdp_sharding_tree(mesh,
                                                                 trees[cell])
             sharding.shard_params_fsdp(mesh, model)
-        elif leg == "zero":
+        elif A8I_PLACE.get(leg) == "zero":
             kw["opt_shardings"] = sharding.weight_update_shardings(
                 mesh, trees[cell])
-        else:
+        if cell == "moe":
             kw["aux_loss_weight"] = MOE_AUX_WEIGHT
         tx = adamw(TP_TRAIN_LR)
         state = TrainState.create(model, tx)
@@ -7317,6 +7507,9 @@ def a8i_rank(out: str) -> int:
                 for k, v in batch.items()}
         got = rank_steps(step, state, mine, TP_TRAIN_STEPS, True)
         got["param_bytes"], got["adam_bytes"] = held_bytes(state)
+        got["expert_bytes"] = sum(
+            p.numel() * p.element_size() for n, p in model.named_parameters()
+            if n.endswith(("moe.w_in", "moe.w_out")))
         got["peak_bytes"] = torch.cuda.max_memory_allocated()
         ref = torch.load(os.path.join(out, f"a8i_{cell}.pt"), mmap=True,
                          weights_only=True)["weights"]
@@ -7344,8 +7537,9 @@ def a8i_rank(out: str) -> int:
 
 def a8i_pair_phase(card: str, ref: dict, tmp: str, procs: list,
                    logs: list, t0: float) -> dict:
-    """Phase 26 (m): the ranks ``start_a8i_ranks`` started, told to go at
-    ``t0``, against (l)'s plain runs (``ref``): printed, checked (an
+    """Phase 26 (m) and (o): the ranks ``start_a8i_ranks`` started, told
+    to go at ``t0``, against (l)'s plain runs (``ref``): printed, checked
+    (an
     ``AssertionError`` on a failure) and returned as {path label: the
     ranks' summed flash launches}."""
     codes = wait_all(procs, timeout=900.0)
@@ -7367,9 +7561,10 @@ def a8i_pair_phase(card: str, ref: dict, tmp: str, procs: list,
                                                         plain["losses"])]
         max_err = max(g["max_err"] for g in legs)
         at = next(g["at"] for g in legs if g["max_err"] == max_err)
-        label = {"moe": "train moe ep 2 x tp 2 (26m)",
-                 "fsdp": "train fsdp 2 x tp 2 (26m)",
-                 "zero": "train zero1 dp 2 x tp 2 (26m)"}[leg]
+        label = A8I_LABELS[leg][1]
+        experts = (f"expert bytes a rank {[g['expert_bytes'] for g in legs]}"
+                   f" (want {4 * A8I_EXPERTS[leg]}); "
+                   if leg in A8I_EXPERTS else "")
         aux = (f"aux {legs[0]['auxes']} against {plain['auxes']}; "
                if legs[0]["auxes"] else "")
         print(f"{label}: bf16 B={TRAIN_B} T={TRAIN_T}, the {cell} cell at "
@@ -7387,7 +7582,8 @@ def a8i_pair_phase(card: str, ref: dict, tmp: str, procs: list,
               f"(whole {plain['param_bytes']}, want "
               f"{4 * A8I_PARAMS[leg]}), AdamW bytes a rank "
               f"{[g['adam_bytes'] for g in legs]} (want "
-              f"{8 * A8I_MOMENTS[leg]}); bytes staged through the host a "
+              f"{8 * A8I_MOMENTS[leg]}); {experts}bytes staged through the "
+              f"host a "
               f"step {[g['staged'] for g in legs]}; peak device bytes a rank "
               f"{[g['peak_bytes'] for g in legs]}; step_s "
               f"{[g['seconds'] for g in legs]}; leg seconds a rank "
@@ -7399,18 +7595,23 @@ def a8i_pair_phase(card: str, ref: dict, tmp: str, procs: list,
                 or not max_err <= ADAM_BOUND * lr_sum):
             bad.append(f"{leg}: parts from the plain run")
         if any(g["param_bytes"] != 4 * A8I_PARAMS[leg]
-               or g["adam_bytes"] != 8 * A8I_MOMENTS[leg] for g in legs):
+               or g["adam_bytes"] != 8 * A8I_MOMENTS[leg]
+               or g["expert_bytes"] != 4 * A8I_EXPERTS.get(leg, 0)
+               for g in legs):
             bad.append(f"{leg}: bytes a rank off the layout")
         if any(set(g["counts"].values()) != {want_n} for g in legs):
             bad.append(f"{leg} launches {[g['counts'] for g in legs]}, "
                        f"want {want_n} of each a rank")
         paths[label] = {k: sum(counts_of(g)[k] for g in legs)
                         for k in FLASH_KERNELS}
-    print(f"train a8i (26m): {wall:.1f} s from go_m to the ranks' exit, the "
+    print(f"train a8i and a8l (26m, 26o): {wall:.1f} s from go_m to the "
+          f"ranks' exit, (o)'s legs "
+          f"{[round(sum(r[leg]['leg_s'] for leg in A8L_LEGS), 1) for r in ranks]}"
+          f" s a rank, the "
           f"ranks ready {[round(r['waited'], 1) for r in ranks]} s before "
           f"go_m (started at go) on {card}", flush=True)
     if bad:
-        raise AssertionError(f"26m: {bad}")
+        raise AssertionError(f"26m/26o: {bad}")
     return paths
 
 
@@ -8465,6 +8666,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
+    if "TPU_OPERATOR_ATTN" in os.environ:
+        # The run drives the kernels on every path; phase 9 (b) sets the
+        # switch itself.
+        print("chip_smoke: unset TPU_OPERATOR_ATTN (set to "
+              f"{os.environ['TPU_OPERATOR_ATTN']!r})", file=sys.stderr)
+        return 2
     from concurrent.futures import ThreadPoolExecutor
 
     from tf_operator_tpu_torch.models.convert import init_params
@@ -8545,6 +8752,7 @@ def main() -> int:
     lm_params = init_params(TransformerConfig(**LM), seed=0)
     flash_f32 = train_f32_phase(lm_params)
     flash_bf16 = train_bf16_phase(lm_params, card)
+    flash_9b = dispatch_fuse_phase(lm_params, card)
 
     int8_err = int8_check_phase(i8)
     int8, int8_prefill = int8_timing_phase(i8, card)
@@ -8655,7 +8863,7 @@ def main() -> int:
                        "trainer bf16 (9)": flash_bf16[name],
                        "checkpoint + eval bf16 (18a)": flash_ckpt[name],
                        "entry point f32 (18b)": flash_entry[name]}
-    for label, counts in moe.items():
+    for label, counts in itertools.chain(flash_9b.items(), moe.items()):
         for name, n in counts.items():
             paths[name][label] = n
     for name, n in flash_data.items():

@@ -28,7 +28,7 @@ at once.
   (weights and moments bitwise), and restored at one process (ep 1 x tp
   1, fsdp 1 x tp 1, no ZeRO-1) bitwise the saved tree, which is the
   ranks' gathered state.
-- FSDP and ZeRO-1 beside ep raise, naming ROADMAP.md A8l.
+- FSDP and ZeRO-1 beside ep: tests/test_torch_a8l.py.
 - ``dist_lm --moe-every-n 2 --ep 2 --tp 2`` (and ``--sp 2``) as 4
   processes: JAX's mesh line and its losses within
   tests/test_torch_tp_train.py's ``ENTRY_TOL`` (3e-4: four printed
@@ -537,30 +537,6 @@ def test_checkpoint_restores_bitwise_at_one_process(name):
             if val.dim():
                 assert torch.equal(val, checkpoint._tree_get(
                     saved["opt"][key], path)), (key, n)
-
-
-@pytest.mark.parametrize("kind", ["fsdp", "zero"])
-def test_fsdp_or_zero1_beside_ep_names_a8l(kind):
-    from tf_operator_tpu_torch.models.convert import load_params
-    from tf_operator_tpu_torch.models.transformer import (
-        Transformer,
-        TransformerConfig,
-    )
-    from tf_operator_tpu_torch.parallel import sharding
-    from tf_operator_tpu_torch.parallel.mesh import create_mesh
-    from tf_operator_tpu_torch.train import steps
-
-    mesh = create_mesh({"dp": 1, "fsdp": 1, "ep": 2}, range(2))
-    params = seeded_tree(MOE_KW, 5)
-    model = load_params(Transformer(TransformerConfig(
-        dtype=torch.float32, mesh=mesh, **MOE_KW), device="cpu"),
-        sharding.shard_params_by_rules(mesh, params, _rules({"ep": 2})))
-    kw = ({"param_shardings": sharding.fsdp_sharding_tree(mesh, params)}
-          if kind == "fsdp" else {"opt_shardings": sharding.
-                                  weight_update_shardings(mesh, params)})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A8l"):
-        steps.make_lm_train_step(model, steps.adamw(LR), mesh=mesh,
-                                 data_axis=DATA, **kw)
 
 
 # -- dist_lm: --ep beside --tp or --sp, and --data beside --ep ----------------

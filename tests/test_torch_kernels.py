@@ -457,11 +457,17 @@ def test_flash_autograd_on_the_card_matches_the_oracle(cuda, causal):
 
 @pytest.mark.cuda
 def test_attention_on_the_card_raises_outside_the_kernels_geometry(cuda):
-    """ops.attention has no plain branch on the card."""
-    q = torch.zeros((1, 64, 2, 48), device=cuda)
+    """ops.attention has no plain branch on the card: the dispatch answers
+    the kernels for every geometry, and they raise outside theirs."""
     before = fa.fwd_launches
-    with pytest.raises(ValueError, match="outside their geometry"):
-        ops.attention(q, q, q)
+    for dh in (48, 16):
+        q = torch.zeros((1, 64, 2, dh), device=cuda)
+        assert ops.attention_kernel(64, 64, dh, q.dtype,
+                                    device=cuda) == "cuda-flash"
+        with pytest.raises(ValueError, match="outside their geometry"):
+            ops.attention(q, q, q)
+    assert ops.attention_kernel(32, 64, 64, torch.float32,
+                                device=cuda) == "cuda-flash"
     with pytest.raises(ValueError, match="tq == tk"):
         ops.attention(torch.zeros((1, 32, 2, 64), device=cuda),
                       *(torch.zeros((1, 64, 2, 64), device=cuda),) * 2)

@@ -535,7 +535,8 @@ def test_tier_is_thread_safe_under_concurrent_puts():
     for t in threads:
         t.start()
     for t in threads:
-        t.join()
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads), "a put never returned"
     snap = tier.snapshot()
     assert snap["entries"] == 10 and snap["spills"] == 80
     assert snap["evictions"] == 70

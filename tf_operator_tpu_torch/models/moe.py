@@ -207,6 +207,15 @@ def expert_parallel(cfg: MoeConfig):
     return TensorParallel(cfg.mesh, cfg.ep_axis)
 
 
+def expert_parts(model: nn.Module) -> dict:
+    """``{id(parameter): (n_experts, ep)}`` of the ``w_in`` and ``w_out``
+    of every expert-parallel MoE layer of ``model`` (``ep`` above 1): the
+    rank holds ``n_experts / ep`` experts of each, on dim 0."""
+    return {id(p): (m.cfg.n_experts, m.ep) for m in model.modules()
+            if isinstance(m, MoeMlp) and m.ep is not None and m.ep.size > 1
+            for p in (m.w_in, m.w_out)}
+
+
 def moe_param_sharding_rules(ep_axis: str = "ep") -> dict[str, tuple]:
     """JAX's rules for expert-parallel placement (path substring -> spec):
     the stacked expert weights split on the expert dim; the router

@@ -74,7 +74,10 @@ JAX's, of the whole params tree), and cuts the dim it names of the rank's
 tensor-parallel part: a leaf split over tp on that dim is cut again on it
 (its tp part of ``n / tp`` rows into ``n / (tp fsdp)``), a leaf split on
 another dim is cut on two dims, and a whole leaf is cut as it is without
-tp.
+tp. Beside ``ep`` the same holds for an MoE layer's experts: the spec is of
+the whole ``[n_experts, ...]`` leaf, and the rank's ``n_experts / ep``
+experts are cut again on the dim it names, so a rank holds 1/(ep fsdp) of
+``w_in`` and ``w_out``.
 """
 
 from __future__ import annotations
@@ -608,19 +611,28 @@ def fsdp_spec(shape: Sequence[int], axis: str, size: int,
 def whole_shapes(model: torch.nn.Module) -> dict:
     """``{flax path: the whole leaf's flax shape}`` of a model's params:
     a tensor-parallel model's (whose ``TpPlan`` splits leaves) from its
-    config (``models/convert.py::param_shapes``), any other's its own."""
+    config (``models/convert.py::param_shapes``), any other's its own but
+    an expert-parallel MoE layer's ``w_in``/``w_out``, whose rank holds
+    ``n_experts / ep`` experts of the whole ``n_experts`` on dim 0."""
     from tf_operator_tpu_torch.models.convert import (
         param_shapes,
         variable_layout,
     )
+    from tf_operator_tpu_torch.models.moe import expert_parts
 
     leaves, to_flax, _ = variable_layout(model)
     plan = getattr(model, "tp_plan", None)
     if plan is not None and plan.split and plan.tp.size > 1:
         shapes = param_shapes(model.cfg)
         return {path: tuple(shapes[path]) for path in leaves["params"]}
-    return {path: tuple(to_flax(p).shape)
-            for path, p in leaves["params"].items()}
+    experts = expert_parts(model)
+    out = {}
+    for path, p in leaves["params"].items():
+        shape = tuple(to_flax(p).shape)
+        if id(p) in experts:
+            shape = (experts[id(p)][0],) + shape[1:]
+        out[path] = shape
+    return out
 
 
 def _map_leaves(tree: Any, fn) -> Any:
@@ -802,9 +814,10 @@ class FullyShardedParallel:
     def shard(cls, mesh: Mesh, model: torch.nn.Module, axis: str,
               min_size: int) -> "FullyShardedParallel":
         """Cut ``model``'s parameters in place by ``fsdp_spec`` of their
-        whole flax shapes (``whole_shapes``; a tensor-parallel part is cut
-        on the dim the whole leaf's spec names, which must then divide the
-        part); set and return its ``fsdp``."""
+        whole flax shapes (``whole_shapes``; a tensor-parallel part, or an
+        expert-parallel layer's ``E / ep`` experts, is cut on the dim the
+        whole leaf's spec names, which must then divide the part, else a
+        ``ValueError`` names the leaf); set and return its ``fsdp``."""
         from tf_operator_tpu_torch.models.convert import variable_layout
 
         if getattr(model, "fsdp", None) is not None:

@@ -9,9 +9,11 @@ beside ring attention (``TransformerConfig.ring_impl="ulysses"``):
 - an all-to-all over the ``sp`` group splits the heads instead: ``[B, T,
   H/sp, Dh]``, every rank holding the whole sequence of its head group
   (member j's heads ``j * H/sp`` onwards);
-- ``ops.flash_attention.flash_attention`` runs causally over the whole
-  sequence (the kernels B1-B3 on the card, their plain versions on the
-  CPU);
+- ``ops.attention`` runs causally over the whole sequence, through the
+  dispatch (``attention_kernel``, and so ``TPU_OPERATOR_ATTN``) as JAX's
+  does, or by ``use_flash``: the kernels B1-B3 on the card, their plain
+  versions on the CPU, ``reference_attention`` where the rule or the
+  switch says;
 - the inverse all-to-all restores the sequence split.
 
 Both exchanges are ``torch.autograd.Function``s whose backward is the
@@ -58,11 +60,13 @@ class _Exchange(torch.autograd.Function):
 
 def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       axis, *, causal: bool = True,
-                      scale: float | None = None) -> torch.Tensor:
+                      scale: float | None = None,
+                      use_flash: bool | None = None) -> torch.Tensor:
     """Exact attention of this rank's sequence block ``[B, T/sp, H, Dh]``
     (every rank's, over the ``axis`` group) by the head/sequence
-    all-to-all; differentiable. ``H`` is this rank's heads."""
-    from tf_operator_tpu_torch.ops.flash_attention import flash_attention
+    all-to-all; differentiable. ``H`` is this rank's heads. ``use_flash``
+    is ``ops.attention``'s (None: the dispatch)."""
+    from tf_operator_tpu_torch.ops import attention
 
     sp, h = axis.size, q.shape[2]
     if h % sp:
@@ -71,6 +75,7 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "— use ring attention for sp beyond the head count")
     # [B, T/sp, H, Dh] -> [B, T, H/sp, Dh]: split heads, concat sequence.
     qf, kf, vf = (_Exchange.apply(x, axis, 2, 1) for x in (q, k, v))
-    out = flash_attention(qf, kf, vf, causal=causal, scale=scale)
+    out = attention(qf, kf, vf, causal=causal, scale=scale,
+                    use_flash=use_flash)
     # [B, T, H/sp, Dh] -> [B, T/sp, H, Dh]: the inverse exchange.
     return _Exchange.apply(out, axis, 1, 2)

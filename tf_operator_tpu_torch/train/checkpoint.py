@@ -58,8 +58,9 @@ as their leaf, Adafactor's factored ``v_row``/``v_col`` on the dims they
 keep, ``steps.moment_cut``), and rank 0 writes the whole tree. A leaf cut
 twice (a tp part cut again over fsdp, or its ZeRO-1 part over dp) is
 gathered over the inner axis first, then over tp; beside ep the expert
-leaves are cut over ep and the others over tp, and rank 0's group spans
-both. A restore reads the whole tree and cuts each rank's parts from it,
+leaves are cut over ep (and again over fsdp, or their ZeRO-1 moments over
+dp) and the others over tp (or fsdp), and rank 0's group spans every cut
+axis. A restore reads the whole tree and cuts each rank's parts from it,
 so a checkpoint written on one layout restores on any other (another tp
 or ep, FSDP or none, ZeRO-1 or none, any of them beside tp), as orbax
 places a restore into the target's shardings. Every rank reads and

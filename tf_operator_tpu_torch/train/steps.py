@@ -53,12 +53,16 @@ statistics and block rms are the whole leaf's, taken over the cut's axes
 the MoE layers' experts split over it (``models/moe.py``): the rows
 stay over the data axes, and every gradient is averaged over them alone
 (and ``sp``). Expert parallelism composes with ``tp`` and ``sp``, and
-FSDP and ZeRO-1 with ``tp`` and ``sp``: the spec trees are JAX's, of the
-whole leaves (``fsdp_sharding_tree``'s rule over the flax tree whole), and
-a leaf the tp layout splits is cut again on the dim its spec names, so a
-rank holds 1/(tp fsdp) of it (``Cut.within``); its gradient is
+FSDP and ZeRO-1 with ``tp``, ``sp`` or ``ep``: the spec trees are JAX's,
+of the whole leaves (``fsdp_sharding_tree``'s rule over the flax tree
+whole, an expert leaf at its whole ``n_experts``), and a leaf the tp
+layout splits, or the rank's ``n_experts / ep`` experts, is cut again on
+the dim its spec names, so a rank holds 1/(tp fsdp) or 1/(ep fsdp) of it
+(``Cut.within``; under ZeRO-1 its moments); its gradient is
 reduce-scattered over the data axis and summed over the other data axes
-and ``sp``. FSDP or ZeRO-1 beside ``ep`` raises, naming ROADMAP A8l.
+and ``sp`` (an expert leaf's over the data axes only: the ep ranks of one
+data index share its rows). FSDP or ZeRO-1 beside ``ep`` and ``tp`` or
+``sp`` at once raises, naming ROADMAP A8m.
 
 A ``tp`` axis beside the data axes trains the Megatron layout of
 ``models/transformer.py`` (the model's ``mesh`` must be the step's):
@@ -85,8 +89,9 @@ other blocks' gradients home). ``xent_chunk`` must divide the per-rank
 sequence. The eval step cuts each rank's columns of its rows and sums
 over the data axes and ``sp``.
 
-Not ported yet: ``fuse_steps`` (a CUDA graph of the step is its
-counterpart, A5's graph).
+``fuse_steps`` runs N steps in one call (JAX's ``lax.scan`` of the step):
+a Python loop with no host read between the steps; capturing it as one
+CUDA graph is held (ROADMAP "A5's graph").
 """
 
 from __future__ import annotations
@@ -722,17 +727,12 @@ def param_cuts(model: torch.nn.Module) -> dict:
     layer's ``w_in``/``w_out`` (its experts), a tensor-parallel model's
     other split leaves (whose part is shaped unlike ``models/convert.py``'s
     ``param_shapes``), and the leaves ``shard_params_fsdp`` cut, beside
-    tp a further cut of the rank's tp part (``Cut.within``)."""
+    tp or ep a further cut of the rank's tp or ep part (``Cut.within``)."""
     from tf_operator_tpu_torch.models.convert import flax_path, param_shapes
+    from tf_operator_tpu_torch.models.moe import expert_parts
     from tf_operator_tpu_torch.parallel.sharding import Cut
 
-    experts = {}
-    for m in model.modules():
-        ep = getattr(m, "ep", None)
-        if ep is not None and ep.size > 1:
-            for p in (m.w_in, m.w_out):
-                experts[id(p)] = Cut(
-                    (m.cfg.n_experts,) + tuple(p.shape[1:]), 0, ep)
+    experts = expert_parts(model)
     fsdp = getattr(model, "fsdp", None)
     shards = fsdp.cuts if fsdp is not None else {}
     plan = getattr(model, "tp_plan", None)
@@ -741,10 +741,13 @@ def param_cuts(model: torch.nn.Module) -> dict:
     out = {}
     for name, p in model.named_parameters():
         shard = shards.get(name)
-        cut = experts.get(id(p))
-        if cut is None and split:
-            # The tp part: the parameter's shape before FSDP cut it.
-            part = shard.whole if shard is not None else tuple(p.shape)
+        # The tp or ep part: the parameter's shape before FSDP cut it.
+        part = shard.whole if shard is not None else tuple(p.shape)
+        cut = None
+        if id(p) in experts:
+            n_experts, ep = experts[id(p)]
+            cut = Cut((n_experts,) + part[1:], 0, ep)
+        elif split:
             shape = tuple(whole[flax_path(name)])
             if shape != part:
                 at = next(d for d, (a, b) in enumerate(zip(shape, part))
@@ -787,8 +790,8 @@ def _on(device, x) -> torch.Tensor:
 
 class ZeroOneOptimizer:
     """ZeRO-1 over a torch optimiser (``weight_update_shardings``): the
-    model keeps its weights whole over the data axis (beside tp, its tp
-    parts), and the optimiser updates only this rank's part of each cut
+    model keeps its weights whole over the data axis (beside tp or ep, its
+    tp parts or its experts), and the optimiser updates only this rank's part of each cut
     leaf (a view into the weight, so its moments are the part's):
     ``grads`` reduce-scatters each cut leaf's gradient into its part,
     ``step`` updates the parts and the uncut leaves, then all-gathers
@@ -928,11 +931,11 @@ def _placement(model: torch.nn.Module, mesh: Any, dp, param_shardings,
     ``opt_shardings``, and the ``DataParallel`` of the axes the gradients
     are averaged over (``grads``, default the data axes ``dp``; the data
     axes and sp in a sequence-parallel step) other than the one they cut
-    over; Nones without either. Beside tp the cuts are of the rank's
-    tensor-parallel parts (the specs are JAX's, of the whole leaves).
-    Refuses what JAX's contract does not hold (a spec tree that is not
-    the model's cut, an axis that is not a data axis) and either beside
-    ep, naming ROADMAP A8l."""
+    over; Nones without either. Beside tp or ep the cuts are of the
+    rank's tensor- or expert-parallel parts (the specs are JAX's, of the
+    whole leaves). Refuses what JAX's contract does not hold (a spec tree
+    that is not the model's cut, an axis that is not a data axis) and
+    either beside ep and tp or sp, naming ROADMAP A8m."""
     from tf_operator_tpu_torch.parallel.sharding import Cut, TensorParallel
 
     if param_shardings is None and opt_shardings is None:
@@ -943,11 +946,13 @@ def _placement(model: torch.nn.Module, mesh: Any, dp, param_shardings,
     if param_shardings is not None and opt_shardings is not None:
         raise ValueError(f"{what}: under param_shardings the moments are "
                          "cut as the weights are; pass one of the two")
-    if mesh.shape.get("ep", 1) > 1:
+    beside = [a for a in ("tp", "sp") if mesh.shape.get(a, 1) > 1]
+    if mesh.shape.get("ep", 1) > 1 and beside:
         raise NotImplementedError(
-            f"{what}: FSDP or ZeRO-1 beside ep={mesh.shape['ep']} is not "
-            "ported yet: see ROADMAP.md A8l (FSDP or ZeRO-1 beside expert "
-            "parallelism)")
+            f"{what}: FSDP or ZeRO-1 beside ep={mesh.shape['ep']} and "
+            f"{beside[0]}={mesh.shape[beside[0]]} is not ported yet: see "
+            "ROADMAP.md A8m (FSDP or ZeRO-1 beside expert parallelism and "
+            "tp or sp)")
     fsdp = zero = None
     if param_shardings is not None:
         fsdp = getattr(model, "fsdp", None)
@@ -1509,3 +1514,49 @@ def evaluate(eval_step: ClassifierEvalStep, state: TrainState, batches, *,
     total = int(count)
     return {"accuracy": int(correct) / total,
             "loss": float(loss_sum) / total, "count": total}
+
+
+def fuse_steps(step_fn, num_steps: int, *, scan_batches: bool = False,
+               donate: bool = True):
+    """``num_steps`` train steps as one call: JAX's ``fuse_steps`` (a
+    ``lax.scan`` of the step in one executable) for the port's eager
+    step. Returns ``multi(state, batch) -> (state, the last step's
+    metrics)``; the metrics stay device tensors, and nothing is read to
+    the host between the steps of one call (the steps themselves read
+    the learning rate on the host and count ``TrainState.step`` as a
+    Python int, which is what keeps the loop from one CUDA graph: held as
+    ROADMAP "A5's graph").
+
+    By default every step trains on the SAME ``batch``, as JAX's does
+    (benchmarks, synthetic data). With ``scan_batches`` every leaf of
+    ``batch`` has leading dim ``num_steps`` and step i takes its slice i;
+    another leading dim raises JAX's ``ValueError``.
+
+    ``donate`` is JAX's: True (the default) gives the carried state to
+    the call, as the port's steps always do, since they update the
+    weights, moments and statistics in place and return the same
+    ``TrainState``. False, which in JAX keeps the state passed in intact,
+    raises ``ValueError``: the port keeps no copy to give it."""
+    if not donate:
+        raise ValueError("fuse_steps(donate=False): the port's steps update "
+                         "the state in place; copy it before the call")
+    if num_steps < 1:
+        raise ValueError(f"num_steps={num_steps} must be >= 1")
+
+    from tf_operator_tpu_torch.parallel.sharding import _map_leaves
+
+    def check(leaf):
+        if leaf.shape[0] != num_steps:
+            raise ValueError(f"scan_batches=True needs leading dim "
+                             f"{num_steps}, got {tuple(leaf.shape)}")
+
+    def multi(state, batch):
+        if scan_batches:
+            _map_leaves(batch, check)
+        metrics = None
+        for i in range(num_steps):
+            state, metrics = step_fn(state, _map_leaves(
+                batch, lambda x: x[i]) if scan_batches else batch)
+        return state, metrics
+
+    return multi

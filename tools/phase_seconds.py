@@ -25,6 +25,7 @@ SEGMENTS = (
     ("6-7 engines", r"^engine bf16 kernel: decode tokens/s "),
     ("8 trainer f32", r"^trainer f32 B="),
     ("9 trainer bf16", r"^trainer bf16 B="),
+    ("9b dispatch, fuse_steps", r"^attention dispatch bf16 \(9\)"),
     ("10-13 int8", r"^engine bf16 int8 \+ kv8 kernel: "),
     ("14 sampler, generate", r"^generate bf16 int8_decode "),
     ("15 front", r"^front faults: "),
